@@ -1,0 +1,150 @@
+"""Asset-free fixture scenes, buildable through either package.
+
+Every scene function takes the API module as ``api`` (default: this
+package), so the same code builds one scene through ``solstrale_tpu_torch``
+and through the JAX package ``solstrale_tpu`` from the same numpy arrays —
+the parity tests compare what the two make of it. Textures are procedural
+numpy images made from a seed; nothing is read from disk.
+"""
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+
+
+def _api(api):
+    if api is None:
+        import solstrale_tpu_torch as api
+    return api
+
+
+def _submodule(api, name):
+    return importlib.import_module(f"{api.__name__}.{name}")
+
+
+def _terrain(n_cells, seed, with_uvs):
+    """Displaced-terrain triangle soup of 2*n_cells^2 triangles over
+    [-10, 10]^2 (the sponza-class fixture's geometry), plus tiled UVs
+    (one texture repeat per 8x8 cells) when asked."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-10.0, 10.0, n_cells + 1)
+    zs = np.linspace(-10.0, 10.0, n_cells + 1)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    Y = (np.sin(X * 0.7) * np.cos(Z * 0.9)
+         + 0.15 * rng.standard_normal(X.shape))
+    P = np.stack([X, Y, Z], -1)
+    a, b, c, d = P[:-1, :-1], P[1:, :-1], P[1:, 1:], P[:-1, 1:]
+    verts = np.concatenate(
+        [np.stack([a, b, c], axis=2).reshape(-1, 3, 3),
+         np.stack([a, c, d], axis=2).reshape(-1, 3, 3)], 0)
+    if not with_uvs:
+        return verts, None
+    U = X / 20.0 * (n_cells / 8.0)
+    V = Z / 20.0 * (n_cells / 8.0)
+    UV = np.stack([U, V], -1)
+    ua, ub, uc, ud = UV[:-1, :-1], UV[1:, :-1], UV[1:, 1:], UV[:-1, 1:]
+    uvs = np.concatenate(
+        [np.stack([ua, ub, uc], axis=2).reshape(-1, 3, 2),
+         np.stack([ua, uc, ud], axis=2).reshape(-1, 3, 2)], 0)
+    return verts, uvs
+
+
+def _room(api, floor_material):
+    """Room shell (floor, back and front walls) and the ceiling light of the
+    sponza-class fixture."""
+    return [
+        api.Quad((-12, -3, -12), (24, 0, 0), (0, 0, 24), floor_material),
+        api.Quad((-12, -3, -12), (24, 0, 0), (0, 14, 0),
+                 api.Lambertian(api.SolidColor(0.6, 0.5, 0.4))),
+        api.Quad((-12, -3, 12), (24, 0, 0), (0, 14, 0),
+                 api.Lambertian(api.SolidColor(0.4, 0.5, 0.6))),
+        api.Quad((-4, 10.5, -4), (8, 0, 0), (0, 0, 8),
+                 api.DiffuseLight(15.0, 15.0, 15.0)),
+    ]
+
+
+def _interior_camera(api):
+    # camera inside the room (the far wall is at z=12)
+    return api.CameraConfig(vertical_fov_degrees=40.0, aperture_size=0.0,
+                            look_from=(0.0, 6.0, 9.0),
+                            look_at=(0.0, 0.0, 0.0))
+
+
+def sponza_class_scene(render_config, n_cells=362, seed=7, api=None):
+    """The untextured sponza-class interior: a displaced terrain of
+    2*n_cells^2 triangles (262,088 at the default) inside a lit room shell
+    of 4 quads — the geometry of the JAX package's
+    ``tests/scenes.py::create_sponza_class_scene(textured=False)``, line
+    for line."""
+    api = _api(api)
+    verts, _ = _terrain(n_cells, seed, with_uvs=False)
+    terrain = _submodule(api, "scene").TriangleMesh(
+        verts, api.Lambertian(api.SolidColor(0.73, 0.73, 0.73)))
+    world = [terrain] + _room(
+        api, api.Lambertian(api.SolidColor(0.5, 0.5, 0.5)))
+    return api.Scene(api.Bvh(world), _interior_camera(api), (0.0, 0.0, 0.0),
+                     render_config)
+
+
+def procedural_textures(size=64, seed=11):
+    """(albedo, height) u8 (size, size, 3) images: a tinted checker with
+    noise, and a smooth bump field for the normal map."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size]
+    checker = ((x // 8 + y // 8) % 2).astype(np.float64)
+    base = np.stack([0.25 + 0.6 * checker, 0.35 + 0.4 * checker,
+                     0.55 - 0.2 * checker], -1)
+    albedo = np.clip(base + 0.05 * rng.standard_normal(base.shape), 0, 1)
+    h = 0.5 + 0.25 * np.sin(x * 2 * np.pi / 16) * np.cos(y * 2 * np.pi / 16)
+    height = np.repeat(h[..., None], 3, axis=-1)
+    return ((albedo * 255).astype(np.uint8),
+            (np.clip(height, 0, 1) * 255).astype(np.uint8))
+
+
+def mixed_bvh_scene(render_config, n_cells=48, seed=7, api=None):
+    """A BVH scene (terrain above 512 solids) with every ported feature
+    together: an image-textured, normal-mapped terrain (the normal map made
+    through ``height_to_normal_map``), a Blend floor, a dielectric sphere,
+    a fuzzy metal sphere, a ConstantMedium box and a quad light. It drives
+    the BVH kernel, the sphere sweep (spheres-only mode) and the medium
+    kernel in one frame."""
+    api = _api(api)
+    albedo, height = procedural_textures()
+    normal = _submodule(api, "utils").height_to_normal_map(height)
+    verts, uvs = _terrain(n_cells, seed, with_uvs=True)
+    terrain = _submodule(api, "scene").TriangleMesh(
+        verts, api.Lambertian(api.ImageMap(albedo), api.ImageMap(normal)),
+        uvs=uvs)
+    floor = api.Blend(api.Lambertian(api.SolidColor(0.5, 0.5, 0.5)),
+                      api.Metal(api.SolidColor(0.8, 0.8, 0.9), None, 0.2),
+                      0.5)
+    world = [terrain] + _room(api, floor) + [
+        api.Sphere((-3.0, 3.0, 0.0), 1.2,
+                   api.Dielectric(api.SolidColor(1.0, 1.0, 1.0), None, 1.5)),
+        api.Sphere((3.0, 2.5, -2.0), 1.0,
+                   api.Metal(api.SolidColor(0.8, 0.7, 0.6), None, 0.3)),
+        api.ConstantMedium(
+            api.Bvh(api.new_box((-1.0, 1.5, 2.0), (1.0, 3.5, 4.0),
+                                api.Lambertian(api.SolidColor(1, 1, 1)))),
+            0.3, (0.9, 0.9, 0.9)),
+    ]
+    return api.Scene(api.Bvh(world), _interior_camera(api), (0.0, 0.0, 0.0),
+                     render_config)
+
+
+def small_scene(render_config, api=None):
+    """The README scene (a sphere light above a yellow sphere, below 512
+    solids: the sweep path) plus one constant-medium box."""
+    api = _api(api)
+    world = [
+        api.Sphere((0, 100, 0), 20.0, api.DiffuseLight(10, 10, 10)),
+        api.Sphere((0, 0, 0), 0.5, api.Lambertian(api.SolidColor(1, 1, 0))),
+        api.ConstantMedium(
+            api.Bvh(api.new_box((0.4, -0.5, -0.6), (1.0, 0.3, 0.0),
+                                api.Lambertian(api.SolidColor(1, 1, 1)))),
+            2.0, (0.7, 0.8, 0.9)),
+    ]
+    camera = api.CameraConfig(vertical_fov_degrees=20, aperture_size=0.1,
+                              look_from=(0, 0, 4), look_at=(0, 0, 0))
+    return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)

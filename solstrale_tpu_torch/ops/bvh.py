@@ -1,0 +1,118 @@
+"""Closest planar hit through the BVH (K1), and the BVH scene's closest
+solid hit (K1 + K2 spheres-only, min-combined).
+
+K1 has a hand-written CUDA kernel (``csrc/bvh.cu``, replacing the JAX
+package's ``ops/pallas_bvh.py::_bvh_kernel``) and a plain PyTorch version:
+a brute-force sweep, chunked over rays and prims, over the same leaf table
+the kernel reads. The wrapper picks by the tensors' device only: CPU
+tensors take the plain version, CUDA tensors launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..geo import ALMOST_ZERO, INF
+from ..scene.compile import KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE
+from . import _build, sweep
+
+RAY_CHUNK = 8192
+PRIM_CHUNK = 4096
+_MAX_DEPTH = 60  # the kernel's per-ray stack holds 64 entries
+
+
+def bvh_planar_hit_plain(prims, o, d, tmin):
+    """Plain PyTorch K1 over the (n_slots, 16) leaf table: closest t >= tmin
+    with the kernel's unified formula (pallas_bvh.py:250-264), ties to the
+    smallest slot; (INF, -1) on a miss."""
+    r = o[0].shape[0]
+    dev = o[0].device
+    tmin = _build.per_ray(tmin, o[0])
+    out_t = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    out_s = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    big = torch.iinfo(torch.int32).max
+    for a in range(0, r, RAY_CHUNK):
+        sl = slice(a, a + RAY_CHUNK)
+        om = tuple(c[sl][:, None] for c in o)
+        dm = tuple(c[sl][:, None] for c in d)
+        lo = tmin[sl][:, None]
+        best_t, best_s = out_t[sl], out_s[sl]
+        for p in range(0, prims.shape[0], PRIM_CHUNK):
+            f = [prims[p:p + PRIM_CHUNK, k][None, :] for k in range(15)]
+            on = om[0] * f[0] + om[1] * f[1] + om[2] * f[2]
+            dn = dm[0] * f[0] + dm[1] * f[1] + dm[2] * f[2]
+            og1 = om[0] * f[4] + om[1] * f[5] + om[2] * f[6]
+            dg1 = dm[0] * f[4] + dm[1] * f[5] + dm[2] * f[6]
+            og2 = om[0] * f[8] + om[1] * f[9] + om[2] * f[10]
+            dg2 = dm[0] * f[8] + dm[1] * f[9] + dm[2] * f[10]
+            t = (f[3] - on) / dn
+            u = og1 + t * dg1 + f[7]
+            v = og2 + t * dg2 + f[11]
+            contain = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & torch.where(
+                f[12] > 0.5, u + v <= 1.0, v <= 1.0)
+            ok = ((torch.abs(dn) >= ALMOST_ZERO) & (f[13] > 0.5) & contain
+                  & (t >= lo))
+            t = torch.where(ok, t, INF)
+            ct = t.min(dim=1).values
+            slot = f[14].to(torch.int32).expand_as(t)
+            cs = torch.where(ok & (t == ct[:, None]), slot, big).min(
+                dim=1).values
+            take = (ct < best_t) | ((ct == best_t) & (ct < INF)
+                                    & (cs < best_s))
+            best_t = torch.where(take, ct, best_t)
+            best_s = torch.where(take, cs, best_s)
+        out_t[sl], out_s[sl] = best_t, best_s
+    return out_t, out_s
+
+
+def bvh_planar_hit(kbvh, o, d, tmin):
+    """K1: closest planar hit (t (R,) f32, planar slot (R,) int32; INF/-1
+    on a miss). ``kbvh`` is an ``accel.KernelBvh`` on the rays' device."""
+    rays = _build.ray_components(o, d)
+    dev, r = _build.check_rays(rays, kbvh.nodes, kbvh.prims)
+    if dev.type == "cpu":
+        return bvh_planar_hit_plain(kbvh.prims, rays[:3], rays[3:], tmin)
+    if dev.type != "cuda":
+        raise ValueError(f"bvh_planar_hit: unsupported device {dev}")
+    n_nodes = 2 * kbvh.n_leaves - 1
+    if kbvh.nodes.shape != (n_nodes, 8) or \
+            kbvh.prims.shape != (kbvh.n_leaves * kbvh.leaf_size, 16):
+        raise ValueError("bvh_planar_hit: node/prim tables do not match "
+                         "n_leaves and leaf_size")
+    if kbvh.depth > _MAX_DEPTH:
+        raise ValueError(f"bvh_planar_hit: tree depth {kbvh.depth} exceeds "
+                         f"the kernel stack ({_MAX_DEPTH})")
+    lo = _build.per_ray(tmin, rays[0])
+    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+    out_s = torch.empty((r,), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = _build.library().k1_bvh_launch(
+        *(p(x) for x in rays), p(lo), p(kbvh.nodes), p(kbvh.prims),
+        kbvh.n_leaves, kbvh.leaf_size, r, p(out_t), p(out_s),
+        _build.stream_of(out_t))
+    _build.check(err, "k1_bvh")
+    bvh_planar_hit.launches += 1
+    return out_t, out_s
+
+
+bvh_planar_hit.launches = 0
+
+
+def bvh_closest_hit(kbvh, solids, o, d, tmin, tmax):
+    """Closest solid hit on a BVH scene: K1 over planar prims, min-combined
+    with K2 in spheres-only mode exactly as the JAX package's
+    ``bvh_closest_hit_pallas`` (pallas_bvh.py:606-629). Returns (t, kind,
+    idx)."""
+    t_p, pslot = bvh_planar_hit(kbvh, o, d, tmin)
+    pslot_c = torch.clamp(pslot, 0, solids.pl_idx.shape[0] - 1).long()
+    kind_p = torch.where(solids.pl_is_tri[pslot_c], KIND_TRIANGLE,
+                         KIND_QUAD).to(torch.int32)
+    idx_p = solids.pl_idx[pslot_c]
+    if not kbvh.has_spheres:
+        return t_p, kind_p, idx_p
+    t_s, slot_s = sweep.closest_hit(solids.sph_table, solids.pl_table, o, d,
+                                    tmin, tmax, spheres_only=True)
+    sphere_wins = t_s <= t_p
+    t = torch.where(sphere_wins, t_s, t_p)
+    kind = torch.where(sphere_wins, KIND_SPHERE, kind_p).to(torch.int32)
+    idx = torch.where(sphere_wins, torch.clamp(slot_s, min=0), idx_p)
+    return t, kind, idx

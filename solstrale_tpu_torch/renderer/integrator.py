@@ -1,0 +1,524 @@
+"""Wavefront path-tracing integrator on tensors (the path-tracing shader).
+
+Port of the JAX package's ``renderer/integrator.py`` main path: a fixed
+pool of lanes drains the global (pixel, sample) work queue
+(``trace_queued``); every iteration runs ``scene_hit`` (the BVH / sweep /
+medium kernels), ``full_hit_attributes``, ``scatter`` (materials, blend,
+textures, normal maps, the 50/50 NEE mixture), the forward clamp-fold and
+the accumulation of finished paths.
+
+The reference's nested ``clamp(<=3) + NaN->0`` ScatterPdf semantics
+(shader.rs:95-125) are folded forward with O(1) per-lane state using
+``min(a*L, 3) = a*min(L, 3/a)`` for a >= 0; see the JAX module docstring
+for the derivation. The loop carries the prefix product A, the running
+bound B, a per-channel dead flag and an outer-pdf flag.
+
+Vectors and colors are component tuples of (R,) tensors (``geo/soa.py``).
+The JAX ``while_loop``s become Python loops; each loop test is one host
+sync per iteration.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..geo import INF, RAY_T_MIN
+from ..geo import soa
+from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
+                       unit3, vneg, vscale, where3)
+from ..ops import rng
+from ..ops.bvh import bvh_closest_hit
+from ..ops.intersect import (closest_solid_hit, hit_attributes_soa,
+                             light_pdf_mean3, medium_hit,
+                             sample_light_direction3, table_rows)
+from ..scene.compile import (BLEND, DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC,
+                             KIND_MEDIUM, LAMBERTIAN, METAL, CompiledScene)
+
+MAX_BLEND_DEPTH = 3
+_MEDIUM_PURPOSE_BASE = 16  # per-medium free-flight draw purposes
+
+SHADER_PATH = 0
+SHADER_ALBEDO = 1
+SHADER_NORMAL = 2
+SHADER_SIMPLE = 3
+
+
+def mat_row(mats, mat_id):
+    """Per-ray material parameters, each field a (R,) tensor."""
+    a = table_rows(mats.attr, mat_id)
+    return dict(kind=a[0].to(torch.int32),
+                albedo_tex=a[1].to(torch.int32),
+                normal_tex=a[2].to(torch.int32),
+                fuzz=a[3], ior=a[4], atten=a[5],
+                blend_factor=a[6],
+                blend_m1=a[7].to(torch.int32),
+                blend_m2=a[8].to(torch.int32))
+
+
+def sample_texture(tex, tex_id, uv):
+    """Arena texture lookup: nearest neighbour, abs-wrap, flipped v
+    (texture.rs:167-180). uv is an (u, v) tuple of (R,); returns an
+    (r, g, b) tuple. tex_id = -1 reads texture 0 (callers mask)."""
+    tid = torch.clamp(tex_id, min=0)
+    ta = table_rows(tex.attr, tid)
+    off = ta[0].to(torch.int32)
+    w = ta[1].to(torch.int32)
+    h = ta[2].to(torch.int32)
+    # the operand is non-negative, so fmod equals Python's % (jnp's)
+    u = torch.fmod(torch.abs(uv[0]), 1.0)
+    v = 1.0 - torch.fmod(torch.abs(uv[1]), 1.0)
+    x = (u * (w - 1).to(torch.float32)).to(torch.int32)
+    y = (v * (h - 1).to(torch.float32)).to(torch.int32)
+    idx = off + y * w + x
+    # out-of-range (NaN-derived) indices clamp, like a JAX gather
+    idx = torch.clamp(idx, 0, tex.pixels.shape[0] - 1).long()
+    px = tex.pixels[idx]
+    return (px[:, 0], px[:, 1], px[:, 2])
+
+
+def resolve_blend(mats, mat_id, u_levels, features=frozenset(("blend",))):
+    """Walk blend chains: pick material_1 if U > blend_factor else
+    material_2, independently per level (material/mod.rs:429-444).
+    Identity when the scene has no blend materials."""
+    if "blend" not in features:
+        return mat_id
+    for lvl in range(MAX_BLEND_DEPTH):
+        row = mat_row(mats, mat_id)
+        is_blend = row["kind"] == BLEND
+        pick1 = u_levels[lvl] > row["blend_factor"]
+        nxt = torch.where(pick1, row["blend_m1"], row["blend_m2"])
+        mat_id = torch.where(is_blend, nxt, mat_id)
+    return mat_id
+
+
+def shading_normal_of(cs, mat_id, attrs, row=None):
+    """Material-transformed normal: tangent-space normal map through the
+    hit frame (material/mod.rs:386-389); the geometric normal without a
+    map, and exactly it when no material of the scene has one."""
+    if "normal_maps" not in cs.features:
+        return attrs["normal"]
+    ntex = (row or mat_row(cs.materials, mat_id))["normal_tex"]
+    tc = sample_texture(cs.textures, ntex, attrs["uv"])
+    tex_n = (tc[0] * 2.0 - 1.0, tc[1] * 2.0 - 1.0, tc[2] * 2.0 - 1.0)
+    mapped = onb_local3(attrs["tangent"], attrs["bitangent"],
+                        attrs["normal"], tex_n)
+    return where3(ntex >= 0, mapped, attrs["normal"])
+
+
+def scene_hit(cs: CompiledScene, o, d, pix, sample, bounce, seed):
+    """world.hit: closest solid hit plus constant-medium events. Returns
+    (t, kind, idx) with kind = KIND_MEDIUM for volume scattering.
+
+    BVH scenes: K1 over planar prims, min-combined with K2 in spheres-only
+    mode. Other scenes: K2 over both tables. Then K3 per medium."""
+    if cs.kbvh is not None:
+        t, kind, idx = bvh_closest_hit(cs.kbvh, cs.solids, o, d, RAY_T_MIN,
+                                       INF)
+    else:
+        t, kind, idx = closest_solid_hit(cs.solids, o, d, RAY_T_MIN, INF)
+    for m_i, med in enumerate(cs.media):
+        u = rng.uniform(pix, sample, bounce, _MEDIUM_PURPOSE_BASE + m_i, seed)
+        t_m = medium_hit(med, o, d, t, u)
+        is_med = t_m < t
+        t = torch.where(is_med, t_m, t)
+        kind = torch.where(is_med, KIND_MEDIUM, kind)
+        idx = torch.where(is_med, m_i, idx)
+    return t, kind, idx
+
+
+def full_hit_attributes(cs, o, d, t, kind, idx, pix, sample, bounce, seed):
+    """hit_attributes_soa plus the medium overrides (random phase normal,
+    unit tangents, zero uv, back face, phase material —
+    constant_medium.rs:63-74)."""
+    attrs = hit_attributes_soa(cs.solids, o, d, t, kind, idx,
+                               has_spheres="spheres" in cs.features)
+    if cs.media:
+        is_med = (kind == KIND_MEDIUM)
+        r1, r2, _, _ = rng.uniform4(pix, sample, bounce, rng.P_PHASE, seed)
+        phase_n = rng.unit_vector3(r1, r2)
+        one = torch.ones_like(t)
+        ones = (one, one, one)
+        med_mats = torch.stack([m.mat for m in cs.media])
+        m_idx = torch.clamp(idx, 0, len(cs.media) - 1).long()
+        attrs["normal"] = where3(is_med, phase_n, attrs["normal"])
+        attrs["tangent"] = where3(is_med, ones, attrs["tangent"])
+        attrs["bitangent"] = where3(is_med, ones, attrs["bitangent"])
+        attrs["uv"] = (torch.where(is_med, 0.0, attrs["uv"][0]),
+                       torch.where(is_med, 0.0, attrs["uv"][1]))
+        attrs["front_face"] = torch.where(is_med, False, attrs["front_face"])
+        attrs["mat"] = torch.where(is_med, med_mats[m_idx], attrs["mat"])
+    return attrs
+
+
+# --- forward clamp-fold state ------------------------------------------------
+#   A         prefix product of color_j*prob_j over scatter levels so far
+#   B         running clamp bound min_i 3*A_{i-1} over pdf levels so far
+#   dead      channel forced to 0 by a NaN filtered at a pdf level
+#   outer_pdf True once any pdf level has been folded
+
+def fold_init(zero):
+    """Identity fold state from a (R,) zero tensor."""
+    one = zero + 1.0
+    big = zero + INF
+    f = zero > 1.0
+    return ((one, one, one), (big, big, big), (f, f, f), f)
+
+
+def fold_scatter(state, color, prob, is_pdf, scat):
+    """Fold one scatter level into (A, B, dead, outer_pdf) where ``scat``;
+    reproduces the reference's nested f(color*prob*L) recursion
+    (shader.rs:85-125)."""
+    A, B, dead, outer_pdf = state
+    pdf_lvl = scat & is_pdf
+    basic_lvl = scat & ~is_pdf
+    nA, nB, nD = [], [], []
+    for c in range(3):
+        a = color[c] * prob
+        nan_a = torch.isnan(a)
+        # pdf level: records its clamp bound 3*A_prev, filters its own NaNs
+        nB.append(torch.where(pdf_lvl, torch.minimum(B[c], 3.0 * A[c]), B[c]))
+        # basic level: its NaN is filtered by the nearest OUTER pdf level
+        nD.append(dead[c] | (pdf_lvl & nan_a)
+                  | (basic_lvl & nan_a & outer_pdf))
+        nA.append(torch.where(scat, A[c] * a, A[c]))
+    return tuple(nA), tuple(nB), tuple(nD), outer_pdf | pdf_lvl
+
+
+def fold_resolve(state, term_color):
+    """Terminal color through the folded clamps: min(A*T, B), a NaN
+    terminal filtered by the innermost pdf level when there is one."""
+    A, B, dead, outer_pdf = state
+    out = []
+    for c in range(3):
+        dead_t = dead[c] | (torch.isnan(term_color[c]) & outer_pdf)
+        out.append(torch.where(dead_t, 0.0,
+                               torch.minimum(A[c] * term_color[c], B[c])))
+    return tuple(out)
+
+
+def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
+    """Material dispatch: every material model's scatter, selected per ray.
+    Returns is_emission, emit_color, atten, new_dir, tape_color, prob,
+    is_pdf, shading_normal, is_basic."""
+    mats = cs.materials
+
+    if "blend" in cs.features:
+        u_b = rng.uniform4(pix, sample, bounce, rng.P_BLEND_SCATTER, seed)
+        eff = resolve_blend(mats, attrs["mat"], u_b)
+        u_bn = rng.uniform4(pix, sample, bounce, rng.P_BLEND_NORMAL, seed)
+        eff_n = resolve_blend(mats, attrs["mat"], u_bn)
+        row = mat_row(mats, eff)
+        row_n = mat_row(mats, eff_n)
+    else:
+        eff = eff_n = attrs["mat"]
+        row = row_n = mat_row(mats, eff)
+    s_normal = shading_normal_of(cs, eff_n, attrs, row=row_n)
+
+    mk = row["kind"]
+    albedo = sample_texture(cs.textures, row["albedo_tex"], attrs["uv"])
+
+    is_light = mk == DIFFUSE_LIGHT
+    is_lamb = mk == LAMBERTIAN
+    is_iso = mk == ISOTROPIC
+    is_metal = mk == METAL
+    is_diel = mk == DIELECTRIC
+    is_pdf = is_lamb | is_iso
+
+    # --- emission (material/mod.rs:359-368) ---
+    emit_color = tuple(torch.where(attrs["front_face"], c, 0.0)
+                       for c in albedo)
+    atten = row["atten"]
+
+    # --- pdf-mixture scatter (material/mod.rs:191-207, 396-410) ---
+    # material kinds absent from the scene run no code (bit-identical)
+    has_iso = "isotropic" in cs.features
+    has_metal = "metal" in cs.features
+    has_diel = "dielectric" in cs.features
+
+    r1, r2, _, _ = rng.uniform4(pix, sample, bounce, rng.P_COSINE, seed)
+    ct, cb, cn = onb_from_w3(s_normal)
+    cos_dir = onb_local3(ct, cb, cn, rng.cosine_direction3(r1, r2))
+    bsdf_dir = (where3(is_iso, rng.unit_vector3(r1, r2), cos_dir)
+                if has_iso else cos_dir)
+
+    n_lights = cs.lights.kind.shape[0]
+    u_pick = rng.uniform(pix, sample, bounce, rng.P_LIGHT_PICK, seed)
+    pick = torch.clamp((u_pick * n_lights).to(torch.int32), max=n_lights - 1)
+    l1, l2, _, _ = rng.uniform4(pix, sample, bounce, rng.P_LIGHT_SAMPLE, seed)
+    light_dir = sample_light_direction3(cs.lights, attrs["point"], pick,
+                                        l1, l2, kinds=cs.light_kinds)
+
+    u_coin = rng.uniform(pix, sample, bounce, rng.P_MIX_COIN, seed)
+    pdf_dir = where3(u_coin < 0.5, light_dir, bsdf_dir)
+
+    light_val = light_pdf_mean3(cs.lights, attrs["point"], pdf_dir,
+                                kinds=cs.light_kinds)
+    unit_pdf_dir = unit3(pdf_dir)
+    cos_value = torch.clamp(dot3(unit_pdf_dir, unit3(s_normal)),
+                            min=0.0) / math.pi
+    sphere_value = 1.0 / (4.0 * math.pi)
+    bsdf_val = (torch.where(is_iso, sphere_value, cos_value)
+                if has_iso else cos_value)
+    mix_val = 0.5 * light_val + 0.5 * bsdf_val
+
+    cos_sc = dot3(s_normal, unit_pdf_dir)
+    lamb_sc = torch.where(cos_sc < 0.0, 0.0, cos_sc / math.pi)
+    scat_pdf = (torch.where(is_iso, sphere_value, lamb_sc)
+                if has_iso else lamb_sc)
+    prob = scat_pdf / mix_val
+
+    new_dir = pdf_dir
+    if has_metal:
+        # --- metal (material/mod.rs:239-249) ---
+        f1, f2, f3, _ = rng.uniform4(pix, sample, bounce, rng.P_FUZZ, seed)
+        reflected = reflect3(unit3(d), s_normal)
+        metal_dir = soa.vadd(reflected,
+                             vscale(rng.in_unit_sphere3(f1, f2, f3),
+                                    row["fuzz"]))
+        new_dir = where3(is_metal, metal_dir, new_dir)
+
+    if has_diel:
+        # --- dielectric (material/mod.rs:279-316) ---
+        ior = row["ior"]
+        rr = torch.where(attrs["front_face"], 1.0 / ior, ior)
+        udir = unit3(d)
+        cos_t = torch.clamp(dot3(vneg(udir), s_normal), max=1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        cannot = rr * sin_t > 1.0
+        r0 = (1.0 - rr) / (1.0 + rr)
+        r0 = r0 * r0
+        # x**5 as lax.integer_pow evaluates it: x * ((x*x) * (x*x))
+        q = 1.0 - cos_t
+        q2 = q * q
+        reflectance = r0 + (1.0 - r0) * (q * (q2 * q2))
+        u_d = rng.uniform(pix, sample, bounce, rng.P_DIELECTRIC, seed)
+        diel_dir = where3(cannot | (reflectance > u_d),
+                          reflect3(udir, s_normal),
+                          refract3(udir, s_normal, rr))
+        new_dir = where3(is_diel, diel_dir, new_dir)
+
+    return dict(
+        is_emission=is_light,
+        emit_color=emit_color,
+        atten=atten,
+        new_dir=new_dir,
+        tape_color=albedo,
+        prob=torch.where(is_pdf, prob, 1.0),
+        is_pdf=is_pdf,
+        shading_normal=s_normal,
+        is_basic=is_metal | is_diel,
+    )
+
+
+def _tile_swizzle(width, height):
+    """Screen tile for the full-image queue order: consecutive queue slots
+    cover a (tw x th) tile, so neighbouring lanes trace neighbouring
+    pixels (coherent BVH walks). Pure bijection; the RNG keys off the
+    pixel id, so the image does not depend on it."""
+    for tw, th in ((32, 32), (32, 16), (32, 8), (32, 4), (64, 2)):
+        if width % tw == 0 and height % th == 0:
+            return tw, th
+    return None
+
+
+def _camera_rays(cs, pixel, sample, seed, width, height):
+    """Jittered thin-lens primary rays (renderer/mod.rs:262-265,
+    camera.rs:77-89); pixel (x, y) is v-up."""
+    x = (pixel % width).to(torch.float32)
+    y = (pixel // width).to(torch.float32)
+    j1, j2, _, _ = rng.uniform4(pixel, sample, 0, rng.P_JITTER, seed)
+    u = (x + j1) / (width - 1)
+    v = (y + j2) / (height - 1)
+    cam = cs.camera
+    l1, l2, _, _ = rng.uniform4(pixel, sample, 0, rng.P_LENS, seed)
+    rd = rng.in_unit_disc3(l1, l2)
+    rd0 = rd[0] * cam.lens_radius
+    rd1 = rd[1] * cam.lens_radius
+    use_lens = cam.lens_radius > 0.0
+    o = []
+    d = []
+    for c in range(3):
+        off = torch.where(use_lens, cam.u[c] * rd0 + cam.v[c] * rd1, 0.0)
+        o.append(cam.origin[c] + off)
+        d.append(cam.lower_left[c] + cam.horizontal[c] * u
+                 + cam.vertical[c] * v - cam.origin[c] - off)
+    return tuple(o), tuple(d)
+
+
+def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
+                 height, max_depth, lanes=None, stats=None):
+    """Work-queue wavefront over the full image: a pool of ``lanes`` lanes
+    drains the (pixel, sample) queue. Terminating lanes claim the next
+    queue positions in order (rank by an exclusive cumsum) and start the
+    next camera ray; once the queue is spent, lanes park with a zero
+    direction, which every hit kernel rejects. When the live count falls
+    to lanes/8 after the queue is fully claimed, the survivors are
+    compacted (stable order) into a pool an eighth the width.
+
+    Accumulation is deterministic: each (pixel, sample) queue entry ends
+    exactly once, so its color is stored (not added) in a per-sample
+    buffer, and the samples are summed in order at the end — no float
+    atomics.
+
+    Returns (accum (width*height, 3) summed over n_samples, in pixel-id
+    order, segments traced as a 0-dim int64 tensor). ``stats`` (optional
+    dict) receives the loop's iteration counts."""
+    n_pix = width * height
+    total_q = n_pix * n_samples
+    if lanes is None:
+        # large queues amortize per-iteration cost over more lanes; small
+        # ones finish their drain tail sooner with half-size pools
+        lanes = 131072 if total_q >= 1_500_000 else 65536
+    lanes = min(lanes, total_q)
+    dev = cs.device
+    swz = _tile_swizzle(width, height)
+
+    def assignment(qpos):
+        """queue position -> (pixel id, sample id)."""
+        pslot = qpos % n_pix
+        samp = sample_start + qpos // n_pix
+        if swz is None:
+            return pslot, samp
+        tw, th = swz
+        tile, within = pslot // (tw * th), pslot % (tw * th)
+        tx, ty = tile % (width // tw), tile // (width // tw)
+        return (ty * th + within // tw) * width + tx * tw + within % tw, samp
+
+    def cam(qpos):
+        pixel, samp = assignment(torch.clamp(qpos, max=total_q - 1))
+        o, d = _camera_rays(cs, pixel, samp, seed, width, height)
+        parked = qpos >= total_q
+        return o, tuple(torch.where(parked, 0.0, c) for c in d)
+
+    qpos0 = torch.arange(lanes, dtype=torch.int64, device=dev)
+    o0, d0 = cam(qpos0)
+    zero_l = torch.zeros((lanes,), dtype=torch.float32, device=dev)
+    state = dict(qpos=qpos0,
+                 bounce=torch.zeros((lanes,), dtype=torch.int32, device=dev),
+                 o=o0, d=d0, acc_len=zero_l, fold=fold_init(zero_l))
+    next_q = torch.tensor(lanes, dtype=torch.int64, device=dev)
+    # one row per queue entry (sample-major, pixel id within a sample)
+    # plus a discard row for lanes that did not finish this iteration
+    accum = torch.zeros((total_q + 1, 3), dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def one_step(state, next_q):
+        qpos = state["qpos"]
+        pixel, sample = assignment(torch.clamp(qpos, max=total_q - 1))
+        o, d = state["o"], state["d"]
+        bounce = state["bounce"]
+        active = qpos < total_q
+
+        t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed)
+        finite = torch.isfinite(t)
+        miss = active & ~finite
+        t_safe = torch.where(finite, t, 0.0)
+        attrs = full_hit_attributes(cs, o, d, t_safe, kind, idx, pixel,
+                                    sample, bounce, seed)
+        sc = scatter(cs, o, d, attrs, pixel, sample, bounce, seed)
+
+        capped = active & finite & (bounce >= max_depth)
+        emit = active & finite & ~capped & sc["is_emission"]
+        scat = active & finite & ~capped & ~sc["is_emission"]
+        terminal = miss | capped | emit
+
+        total_len = state["acc_len"] + t_safe
+        term_color = tuple(
+            torch.where(miss, cs.bg_color[c],
+                        torch.where(emit, sc["emit_color"][c], 0.0))
+            for c in range(3))
+        term_af = torch.where(emit, sc["atten"], 0.0)
+        term_acc = torch.where(emit, total_len, 0.0)
+        L = fold_resolve(state["fold"], term_color)
+        att = torch.where(term_af > 0.0, 1.0 / (1.0 + term_af * term_acc),
+                          1.0)
+        row = (qpos // n_pix) * n_pix + pixel
+        accum.index_put_((torch.where(terminal, row, total_q),),
+                         torch.stack([L[c] * att for c in range(3)], -1))
+
+        # fold this bounce's scatter level; reset regenerated lanes
+        A, B, dead, outer = fold_scatter(state["fold"], sc["tape_color"],
+                                         sc["prob"], sc["is_pdf"], scat)
+        fold = (tuple(torch.where(terminal, 1.0, A[c]) for c in range(3)),
+                tuple(torch.where(terminal, INF, B[c]) for c in range(3)),
+                tuple(torch.where(terminal, False, dead[c])
+                      for c in range(3)),
+                torch.where(terminal, False, outer))
+
+        # terminal lanes claim the next queue positions (exclusive cumsum)
+        term_i = terminal.to(torch.int64)
+        rank = torch.cumsum(term_i, 0) - term_i
+        new_qpos = torch.where(terminal, next_q + rank, qpos)
+        next_q = next_q + term_i.sum()
+        o_new, d_new = cam(new_qpos)
+        o2 = where3(terminal, o_new, where3(scat, attrs["point"], o))
+        d2 = where3(terminal, d_new, where3(scat, sc["new_dir"], d))
+        bounce2 = torch.where(terminal, 0,
+                              torch.where(scat, bounce + 1, bounce))
+        acc2 = torch.where(terminal, 0.0,
+                           torch.where(scat, total_len, state["acc_len"]))
+        segments.add_(active.sum())
+        return dict(qpos=new_qpos, bounce=bounce2.to(torch.int32), o=o2,
+                    d=d2, acc_len=acc2, fold=fold), next_q
+
+    tail_lanes = lanes // 8 if lanes >= 32768 else 0
+    iters_wide = iters_tail = 0
+    if tail_lanes:
+        while True:
+            live = (state["qpos"] < total_q).sum()
+            if not bool((next_q < total_q) | (live > tail_lanes)):
+                break
+            state, next_q = one_step(state, next_q)
+            iters_wide += 1
+        # compact live lanes (alive-first stable order) into the tail pool
+        active = state["qpos"] < total_q
+        perm = torch.argsort(torch.where(active, 0, 1), stable=True)[
+            :tail_lanes]
+        A, B, dead, outer = state["fold"]
+        state = dict(qpos=state["qpos"][perm],
+                     bounce=state["bounce"][perm],
+                     o=tuple(c[perm] for c in state["o"]),
+                     d=tuple(c[perm] for c in state["d"]),
+                     acc_len=state["acc_len"][perm],
+                     fold=(tuple(c[perm] for c in A),
+                           tuple(c[perm] for c in B),
+                           tuple(c[perm] for c in dead), outer[perm]))
+    while bool((state["qpos"] < total_q).any()):
+        state, next_q = one_step(state, next_q)
+        iters_tail += 1
+
+    # sum the per-sample buffers in sample order (deterministic)
+    per_sample = accum[:total_q].view(n_samples, n_pix, 3)
+    color = per_sample[0]
+    for s in range(1, n_samples):
+        color = color + per_sample[s]
+    if stats is not None:
+        stats.update(iters=iters_wide + iters_tail, iters_wide=iters_wide,
+                     iters_tail=iters_tail, lanes=lanes,
+                     tail_lanes=tail_lanes)
+    return color, segments
+
+
+def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
+                        height, max_depth, shader_kind, need_aux, n_samples,
+                        stats=None):
+    """Accumulate n_samples consecutive sample passes with the work-queue
+    wavefront. Returns summed (pixel, albedo, normal) (height, width, 3)
+    planes in image-row order (top row first, renderer/mod.rs:261) plus the
+    traced-segment count. Only the path-tracing shader without aux
+    channels is ported."""
+    if shader_kind != SHADER_PATH:
+        raise NotImplementedError(
+            "debug shaders (albedo/normal/simple) are not ported yet "
+            "(ROADMAP queue A: debug shaders and aux channels)")
+    if need_aux:
+        raise NotImplementedError(
+            "albedo/normal aux channels are not ported yet (ROADMAP queue "
+            "A: debug shaders and aux channels)")
+    color, segments = trace_queued(cs, sample_start, n_samples, seed,
+                                   width=width, height=height,
+                                   max_depth=max_depth, stats=stats)
+    image = torch.flip(color.reshape(height, width, 3), dims=(0,))
+    zero = torch.zeros_like(image)
+    return image, zero, zero, segments

@@ -1,0 +1,55 @@
+"""The port stands alone: with JAX made unimportable, importing
+solstrale_tpu_torch, building a scene and rendering on the CPU works, and
+none of it builds or loads a CUDA kernel."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None          # any 'import jax' now raises ImportError
+import solstrale_tpu_torch as T
+from solstrale_tpu_torch import fixtures
+from solstrale_tpu_torch.ops import _build
+from solstrale_tpu_torch.renderer import integrator
+from solstrale_tpu_torch.scene.compile import compile_scene
+
+assert _build.library.cache_info().currsize == 0
+cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8, height=8)),
+                   device="cpu")
+img, _, _, segs = integrator.render_sample_batch(
+    cs, 1, 1, width=8, height=8, max_depth=50, shader_kind=0,
+    need_aux=False, n_samples=1)
+assert img.shape == (8, 8, 3) and float(img.sum()) > 0 and int(segs) >= 64
+assert _build.library.cache_info().currsize == 0   # no kernel was loaded
+assert not any(m == "jax" or m.startswith(("jax.", "solstrale_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok", int(segs))
+"""
+
+
+def test_port_imports_and_renders_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_port_source_has_no_jax_import():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package."""
+    bad = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "solstrale_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                words = line.split()
+                if words[:1] in (["import"], ["from"]) and len(words) > 1 and \
+                        (words[1].split(".")[0] in ("jax", "solstrale_tpu")):
+                    bad.append(f"{path}:{n}: {line.strip()}")
+    assert not bad, bad

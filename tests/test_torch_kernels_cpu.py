@@ -1,0 +1,329 @@
+"""Each kernel module's plain PyTorch version against the JAX function it
+ports, on the CPU: K2 (sweep, both modes) and K3 (medium) against the Pallas
+kernels in interpret mode and the XLA sweeps; K1 (BVH planar hit) against
+the Pallas BVH kernel in interpret mode and the XLA brute force; the hit
+attribute and NEE light-table ops; and the wrappers' device routing."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import solstrale_tpu as J
+import solstrale_tpu_torch as T
+from solstrale_tpu.geo import INF, RAY_T_MIN
+from solstrale_tpu.ops import intersect as JX
+from solstrale_tpu.ops.pallas_bvh import bvh_planar_hit_pallas
+from solstrale_tpu.ops.pallas_sweep import (closest_hit_pallas,
+                                            medium_hit_pallas)
+from solstrale_tpu.scene.compile import compile_scene as jcompile
+from solstrale_tpu_torch import fixtures
+from solstrale_tpu_torch.ops import bvh, intersect, sweep
+from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
+
+torch.set_num_threads(2)
+
+N_RAYS = 1500
+N_PARKED = 100
+
+
+def _soup(api, n_sph=24, n_quads=96, n_tris=96, n_lights=3, seed=5):
+    """Procedural prim soup: spheres, quads, triangles, a medium box and
+    sphere / quad / triangle lights (``n_lights`` of each kind)."""
+    g = np.random.default_rng(seed)
+    mat = api.Lambertian(api.SolidColor(0.5, 0.5, 0.5))
+    world = [api.Sphere(g.uniform(-6, 6, 3), float(g.uniform(0.2, 1.0)), mat)
+             for _ in range(n_sph)]
+    for _ in range(n_quads):
+        world.append(api.Quad(g.uniform(-6, 6, 3), g.normal(size=3),
+                              g.normal(size=3), mat))
+    for _ in range(n_tris):
+        v0 = g.uniform(-6, 6, 3)
+        world.append(api.Triangle(v0, v0 + g.normal(size=3),
+                                  v0 + g.normal(size=3), mat))
+    for i in range(n_lights):
+        light = api.DiffuseLight(4.0 + i, 4.0, 4.0)
+        c = g.uniform(-5, 5, 3)
+        world.append(api.Sphere(c + (0, 8, 0), 0.7, light))
+        world.append(api.Quad(c + (0, 9, 0), (1.5, 0, 0), (0, 0, 1.5), light))
+        world.append(api.Triangle(c + (0, 10, 0), c + (1, 10, 0),
+                                  c + (0, 10, 1), light))
+    world.append(api.ConstantMedium(
+        api.Bvh(api.new_box((-2, -1, -2), (2, 1.5, 2), mat)), 0.5,
+        (1, 1, 1)))
+    return api.Scene(api.Bvh(world), api.CameraConfig(look_from=(0, 0, 10)),
+                     (0, 0, 0), api.RenderConfig(width=8, height=8))
+
+
+def _rays(n=N_RAYS, parked=N_PARKED, seed=0, lo=-6, hi=6):
+    g = np.random.default_rng(seed)
+    o = g.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d[:parked] = 0.0   # parked lanes (zero direction) must miss
+    return o, d
+
+
+def _t(x):
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in x.T)
+
+
+def _check_hits(t_ref, t_got, same, tol, agree=0.995):
+    t_ref, t_got = np.asarray(t_ref), np.asarray(t_got)
+    hit = np.isfinite(t_ref)
+    np.testing.assert_array_equal(hit, np.isfinite(t_got))
+    np.testing.assert_allclose(t_got[hit], t_ref[hit], rtol=tol, atol=tol)
+    assert hit.sum() > 100
+    assert np.asarray(same)[hit].mean() >= agree
+
+
+@pytest.fixture(scope="module")
+def soup():
+    cj = jcompile(_soup(J), use_bvh=False)
+    ct = tcompile(_soup(T), use_bvh=False)
+    return cj, ct
+
+
+@pytest.mark.parametrize("spheres_only", [False, True])
+def test_k2_plain_matches_pallas_interpret(soup, spheres_only):
+    cj, ct = soup
+    o, d = _rays()
+    t_j, s_j = closest_hit_pallas(cj.solids, jnp.asarray(o), jnp.asarray(d),
+                                  RAY_T_MIN, INF, spheres_only=spheres_only,
+                                  interpret=True)
+    s = ct.solids
+    t_t, s_t = sweep.closest_hit_plain(s.sph_table, s.pl_table, _t(o), _t(d),
+                                       RAY_T_MIN, INF,
+                                       spheres_only=spheres_only)
+    _check_hits(t_j, t_t.numpy(), s_t.numpy() == np.asarray(s_j), 1e-5)
+    assert not np.isfinite(t_t.numpy()[:N_PARKED]).any()
+
+
+# The XLA sweep evaluates the plane functionals as matmuls, the kernels in
+# the hit-point form: on this soup the JAX package's own XLA and Pallas
+# sweeps differ by up to 7e-5 in t on 17 of ~540 hits (its 1e-4 note,
+# ops/intersect.py:168-169), so comparisons with the XLA forms use 1e-4.
+XLA_TOL = 1e-4
+
+
+def test_k2_closest_solid_hit_matches_xla(soup):
+    cj, ct = soup
+    o, d = _rays(seed=1)
+    t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
+                                         jnp.asarray(d), RAY_T_MIN, INF)
+    t_t, k_t, i_t = intersect.closest_solid_hit(ct.solids, _t(o), _t(d),
+                                                RAY_T_MIN, INF)
+    same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))
+    _check_hits(t_j, t_t.numpy(), same, XLA_TOL)
+
+
+def test_k3_plain_matches_pallas_interpret(soup):
+    cj, ct = soup
+    o, d = _rays(seed=2, lo=-4, hi=4)
+    g = np.random.default_rng(3)
+    t_solid = g.uniform(0.5, 20.0, N_RAYS).astype(np.float32)
+    u = g.random(N_RAYS).astype(np.float32)
+    want = np.asarray(medium_hit_pallas(cj.media[0], jnp.asarray(o),
+                                        jnp.asarray(d), jnp.asarray(t_solid),
+                                        jnp.asarray(u), interpret=True))
+    b = ct.media[0].boundary
+    got = sweep.medium_hit_plain(b.sph_table, b.pl_table,
+                                 ct.media[0].neg_inv_density, _t(o), _t(d),
+                                 torch.from_numpy(t_solid),
+                                 torch.from_numpy(u)).numpy()
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(fin, np.isfinite(got))
+    assert fin.sum() > 50
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+    # and against the XLA medium_hit the JAX CPU path takes
+    xla = np.asarray(JX.medium_hit(cj.media[0], jnp.asarray(o),
+                                   jnp.asarray(d), jnp.asarray(t_solid),
+                                   jnp.asarray(u)))
+    np.testing.assert_array_equal(np.isfinite(xla), fin)
+    np.testing.assert_allclose(got[fin], xla[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def terrain():
+    cfg = dict(width=8, height=8)
+    cj = jcompile(fixtures.sponza_class_scene(J.RenderConfig(**cfg),
+                                              n_cells=24, api=J))
+    ct = tcompile(fixtures.sponza_class_scene(T.RenderConfig(**cfg),
+                                              n_cells=24))
+    assert cj.kbvh is not None and ct.kbvh is not None
+    return cj, ct
+
+
+def _terrain_rays(n=1024, parked=64, seed=6):
+    """Camera-like coherent rays from inside the room plus random rays."""
+    g = np.random.default_rng(seed)
+    half = n // 2
+    o1 = np.tile(np.array([[0.0, 6.0, 9.0]], np.float32), (half, 1))
+    d1 = (np.array([[0.0, -0.55, -1.0]], np.float32)
+          + 0.35 * g.normal(size=(half, 3)).astype(np.float32))
+    o2 = g.uniform(-11, 11, (n - half, 3)).astype(np.float32)
+    d2 = g.normal(size=(n - half, 3)).astype(np.float32)
+    o, d = np.concatenate([o1, o2]), np.concatenate([d1, d2])
+    d[-parked:] = 0.0
+    return o, d
+
+
+def test_k1_plain_matches_pallas_bvh_interpret(terrain):
+    cj, ct = terrain
+    o, d = _terrain_rays()
+    t_j, s_j = bvh_planar_hit_pallas(cj.kbvh, jnp.asarray(o), jnp.asarray(d),
+                                     RAY_T_MIN, interpret=True)
+    t_t, s_t = bvh.bvh_planar_hit_plain(ct.kbvh.prims, _t(o), _t(d),
+                                        RAY_T_MIN)
+    _check_hits(t_j, t_t.numpy(), s_t.numpy() == np.asarray(s_j), 1e-5)
+    assert not np.isfinite(t_t.numpy()[-64:]).any()
+    assert (s_t.numpy()[~np.isfinite(t_t.numpy())] == -1).all()
+
+
+def test_k1_closest_hit_matches_xla_brute_force(terrain):
+    cj, ct = terrain
+    o, d = _terrain_rays(seed=7)
+    t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
+                                         jnp.asarray(d), RAY_T_MIN, INF)
+    t_t, k_t, i_t = bvh.bvh_closest_hit(ct.kbvh, ct.solids, _t(o), _t(d),
+                                        RAY_T_MIN, INF)
+    same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))
+    _check_hits(t_j, t_t.numpy(), same, 1e-5)
+
+
+def test_bvh_closest_hit_with_spheres_matches_xla():
+    """K1 + K2 spheres-only, min-combined, on a BVH scene with spheres."""
+    cfg = dict(width=8, height=8)
+    cj = jcompile(fixtures.mixed_bvh_scene(J.RenderConfig(**cfg), n_cells=16,
+                                           api=J))
+    ct = tcompile(fixtures.mixed_bvh_scene(T.RenderConfig(**cfg),
+                                           n_cells=16))
+    assert ct.kbvh.has_spheres
+    o, d = _terrain_rays(seed=8)
+    t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
+                                         jnp.asarray(d), RAY_T_MIN, INF)
+    t_t, k_t, i_t = bvh.bvh_closest_hit(ct.kbvh, ct.solids, _t(o), _t(d),
+                                        RAY_T_MIN, INF)
+    same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))
+    _check_hits(t_j, t_t.numpy(), same, 1e-5)
+    assert (k_t.numpy() == 0).sum() > 10   # some sphere hits
+
+
+def _soa(x):
+    return tuple(np.asarray(c) for c in x)
+
+
+def test_hit_attributes_soa_allclose(soup):
+    cj, ct = soup
+    o, d = _rays(parked=0, seed=9)
+    t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
+                                         jnp.asarray(d), RAY_T_MIN, INF)
+    hit = np.isfinite(np.asarray(t_j))
+    t_safe = np.where(hit, np.asarray(t_j), 0.0).astype(np.float32)
+    for has_spheres in (True, False):
+        want = JX.hit_attributes_soa(
+            cj.solids, tuple(jnp.asarray(c) for c in o.T),
+            tuple(jnp.asarray(c) for c in d.T), jnp.asarray(t_safe), k_j,
+            i_j, has_spheres=has_spheres)
+        got = intersect.hit_attributes_soa(
+            ct.solids, _t(o), _t(d), torch.from_numpy(t_safe),
+            torch.from_numpy(np.array(k_j)),
+            torch.from_numpy(np.array(i_j)), has_spheres=has_spheres)
+        for key in ("point", "normal", "tangent", "bitangent", "uv"):
+            for w, g in zip(_soa(want[key]), got[key]):
+                np.testing.assert_allclose(g.numpy()[hit], w[hit],
+                                           rtol=1e-5, atol=1e-5)
+        for key in ("front_face", "mat"):
+            np.testing.assert_array_equal(got[key].numpy()[hit],
+                                          np.asarray(want[key])[hit])
+
+
+@pytest.mark.parametrize("n_lights,tol", [(3, 1e-5), (6, 1e-4)])
+def test_light_pdf_mean3_allclose(n_lights, tol):
+    """3 lights of each kind (9, unrolled) and 6 (18, the batched (R, L)
+    fallback above 16 lights). The JAX fallback sums its dot products as
+    XLA reductions (another order than left to right), and a grazing pdf
+    t^2*|d|^2/(cos*area) amplifies that: 1.6e-5 relative on one ray here,
+    so the fallback is held at 1e-4."""
+    cj = jcompile(_soup(J, n_lights=n_lights), use_bvh=False)
+    ct = tcompile(_soup(T, n_lights=n_lights), use_bvh=False)
+    assert len(ct.light_kinds) == 3 * n_lights
+    o, d = _rays(parked=0, seed=10)
+    # aim half the rays at the lights so the pdfs are non-zero
+    g = np.random.default_rng(11)
+    pick = g.integers(0, 3 * n_lights, N_RAYS // 2)
+    d[: N_RAYS // 2] = (np.asarray(cj.lights.p0)[pick] + 0.1
+                        - o[: N_RAYS // 2])
+    want = np.asarray(JX.light_pdf_mean3(
+        cj.lights, tuple(jnp.asarray(c) for c in o.T),
+        tuple(jnp.asarray(c) for c in d.T), kinds=cj.light_kinds))
+    got = intersect.light_pdf_mean3(ct.lights, _t(o), _t(d),
+                                    kinds=ct.light_kinds).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert (want[ok] > 0).sum() > 100
+    np.testing.assert_allclose(got[ok], want[ok], rtol=tol, atol=tol)
+
+
+def test_sample_light_direction3_allclose(soup):
+    cj, ct = soup
+    o, _ = _rays(parked=0, seed=12)
+    g = np.random.default_rng(13)
+    n_l = len(ct.light_kinds)
+    pick = g.integers(0, n_l, N_RAYS).astype(np.int32)
+    r1, r2 = (g.random(N_RAYS).astype(np.float32) for _ in range(2))
+    want = JX.sample_light_direction3(
+        cj.lights, tuple(jnp.asarray(c) for c in o.T), jnp.asarray(pick),
+        jnp.asarray(r1), jnp.asarray(r2), kinds=cj.light_kinds)
+    got = intersect.sample_light_direction3(
+        ct.lights, _t(o), torch.from_numpy(pick), torch.from_numpy(r1),
+        torch.from_numpy(r2), kinds=ct.light_kinds)
+    for w, gg in zip(_soa(want), got):
+        np.testing.assert_allclose(gg.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+def test_table_rows_out_of_range_is_zero_row(soup):
+    _, ct = soup
+    table = ct.materials.attr
+    idx = torch.tensor([0, -1, table.shape[0], table.shape[0] - 1])
+    rows = torch.stack(intersect.table_rows(table, idx), dim=1)
+    assert torch.equal(rows[0], table[0])
+    assert torch.equal(rows[3], table[-1])
+    assert not rows[1].any() and not rows[2].any()
+
+
+def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
+    """On CPU tensors each wrapper returns its plain version's result and
+    launches no kernel."""
+    _, ct = soup
+    _, cterr = terrain
+    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.medium_hit):
+        fn.launches = 0
+    o, d = _rays(seed=14)
+    o, d = _t(o), _t(d)
+    s = ct.solids
+    for mode in (False, True):
+        got = sweep.closest_hit(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
+                                INF, spheres_only=mode)
+        want = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
+                                       RAY_T_MIN, INF, spheres_only=mode)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    m = ct.media[0]
+    ts, u = torch.full((N_RAYS,), 20.0), torch.full((N_RAYS,), 0.5)
+    args = (m.boundary.sph_table, m.boundary.pl_table, m.neg_inv_density,
+            o, d, ts, u)
+    assert torch.equal(sweep.medium_hit(*args), sweep.medium_hit_plain(*args))
+    got = bvh.bvh_planar_hit(cterr.kbvh, o, d, RAY_T_MIN)
+    want = bvh.bvh_planar_hit_plain(cterr.kbvh.prims, o, d, RAY_T_MIN)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (bvh.bvh_planar_hit.launches, sweep.closest_hit.launches,
+            sweep.medium_hit.launches) == (0, 0, 0)
+
+
+def test_wrappers_reject_bad_inputs(soup):
+    _, ct = soup
+    s = ct.solids
+    o, d = _t(_rays()[0]), _t(_rays()[1])
+    with pytest.raises(ValueError):
+        sweep.closest_hit(s.sph_table, s.pl_table,
+                          tuple(c.double() for c in o), d, RAY_T_MIN, INF)
+    with pytest.raises(ValueError):
+        sweep.closest_hit(s.sph_table.t(), s.pl_table, o, d, RAY_T_MIN, INF)

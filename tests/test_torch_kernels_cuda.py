@@ -1,0 +1,123 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, and
+the port's card render against its CPU render. Marked ``cuda``: they skip
+where no GPU is present. On a GPU machine (no JAX needed), from the repo
+root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+import solstrale_tpu_torch as T
+from solstrale_tpu_torch import fixtures
+from solstrale_tpu_torch.geo import INF, RAY_T_MIN
+from solstrale_tpu_torch.ops import bvh, sweep
+from solstrale_tpu_torch.renderer import integrator
+from solstrale_tpu_torch.scene.compile import compile_scene
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rays(n, seed, device, parked=128, lo=-11.0, hi=11.0):
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand((n, 3), generator=g) * (hi - lo) + lo
+    d = torch.randn((n, 3), generator=g)
+    d[:parked] = 0.0
+    o, d = o.to(device), d.to(device)
+    return tuple(o[:, k] for k in range(3)), tuple(d[:, k] for k in range(3))
+
+
+def _assert_hits(t_k, s_k, t_p, s_p, tol=1e-5):
+    hit = torch.isfinite(t_p)
+    assert torch.equal(torch.isfinite(t_k), hit)
+    assert torch.allclose(t_k[hit], t_p[hit], rtol=tol, atol=tol)
+    assert (s_k == s_p)[hit].float().mean().item() >= 0.995
+    assert hit.sum().item() > 100
+
+
+def test_k1_matches_plain(cuda):
+    cs = compile_scene(fixtures.mixed_bvh_scene(
+        T.RenderConfig(width=8, height=8), n_cells=64), device=cuda)
+    o, d = _rays(8192, 1, cuda)
+    bvh.bvh_planar_hit.launches = 0
+    t_k, s_k = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+    t_p, s_p = bvh.bvh_planar_hit_plain(cs.kbvh.prims, o, d, RAY_T_MIN)
+    torch.cuda.synchronize()
+    assert bvh.bvh_planar_hit.launches == 1
+    _assert_hits(t_k, s_k, t_p, s_p)
+    assert not torch.isfinite(t_k[:128]).any()
+    assert (s_k[:128] == -1).all()
+
+
+@pytest.mark.parametrize("spheres_only", [False, True])
+def test_k2_matches_plain(cuda, spheres_only):
+    cs = compile_scene(fixtures.mixed_bvh_scene(
+        T.RenderConfig(width=8, height=8), n_cells=8), use_bvh=False,
+        device=cuda)
+    s = cs.solids
+    o, d = _rays(16384, 2, cuda)
+    t_k, s_k = sweep.closest_hit(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
+                                 INF, spheres_only=spheres_only)
+    t_p, s_p = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
+                                       RAY_T_MIN, INF,
+                                       spheres_only=spheres_only)
+    _assert_hits(t_k, s_k, t_p, s_p)
+
+
+def test_k3_matches_plain(cuda):
+    cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8,
+                                                           height=8)),
+                       device=cuda)
+    med = cs.media[0]
+    o, d = _rays(16384, 3, cuda, lo=-1.5, hi=1.5)
+    g = torch.Generator().manual_seed(4)
+    t_solid = (torch.rand(16384, generator=g) * 5).to(cuda)
+    u = torch.rand(16384, generator=g).to(cuda)
+    args = (med.boundary.sph_table, med.boundary.pl_table,
+            med.neg_inv_density, o, d, t_solid, u)
+    got, want = sweep.medium_hit(*args), sweep.medium_hit_plain(*args)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and fin.sum() > 100
+    assert torch.allclose(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+def test_card_render_matches_cpu_and_repeats(cuda):
+    """The mixed BVH scene (all three kernels) on the card against the CPU
+    (plain versions), and bit-identical when repeated."""
+    w, h = 48, 32
+    scene = fixtures.mixed_bvh_scene(T.RenderConfig(width=w, height=h),
+                                     n_cells=24)
+    kw = dict(width=w, height=h, max_depth=50, shader_kind=0,
+              need_aux=False, n_samples=2)
+    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.medium_hit):
+        fn.launches = 0
+    cs = compile_scene(scene, device=cuda)
+    a, _, _, seg_a = integrator.render_sample_batch(cs, 1, 1, **kw)
+    b, _, _, seg_b = integrator.render_sample_batch(cs, 1, 1, **kw)
+    assert min(bvh.bvh_planar_hit.launches, sweep.closest_hit.launches,
+               sweep.medium_hit.launches) > 0
+    assert torch.equal(a, b) and int(seg_a) == int(seg_b)
+    c, _, _, seg_c = integrator.render_sample_batch(
+        compile_scene(scene, device="cpu"), 1, 1, **kw)
+    assert abs(int(seg_a) - int(seg_c)) <= 1e-3 * int(seg_c)
+    close = np.isclose(a.cpu().numpy(), c.numpy(), rtol=1e-3,
+                       atol=1e-3).all(-1)
+    assert close.mean() >= 0.995
+
+
+def test_wrapper_rejects_cpu_cuda_mix(cuda):
+    cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8,
+                                                           height=8)),
+                       device=cuda)
+    o, d = _rays(256, 5, "cpu")
+    with pytest.raises(ValueError):
+        sweep.closest_hit(cs.solids.sph_table, cs.solids.pl_table, o, d,
+                          RAY_T_MIN, INF)

@@ -1,0 +1,219 @@
+"""The slice as a whole on the CPU: the port's render_sample_batch and
+ray_trace against the JAX package's (XLA path) on the same scenes and
+seeds, one wavefront step draw for draw, and the progress / abort protocol.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import solstrale_tpu as J
+import solstrale_tpu_torch as T
+from solstrale_tpu.renderer import integrator as JI
+from solstrale_tpu.scene.compile import compile_scene as jcompile
+from solstrale_tpu_torch import fixtures
+from solstrale_tpu_torch.renderer import integrator as TI
+from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
+
+torch.set_num_threads(2)
+
+W, H, SPP, SEED = 32, 24, 2, 1
+KW = dict(width=W, height=H, max_depth=50, shader_kind=0, need_aux=False,
+          n_samples=SPP)
+SCENES = {
+    "sponza24": lambda cfg, api: fixtures.sponza_class_scene(
+        cfg, n_cells=24, api=api),
+    "mixed16": lambda cfg, api: fixtures.mixed_bvh_scene(
+        cfg, n_cells=16, api=api),
+    "small": lambda cfg, api: fixtures.small_scene(cfg, api=api),
+}
+
+
+def _cfg(api, **kw):
+    return api.RenderConfig(**{**dict(width=W, height=H,
+                                       samples_per_pixel=SPP, seed=SEED,
+                                       samples_per_batch=SPP), **kw})
+
+
+def _render_both(name):
+    cj = jcompile(SCENES[name](_cfg(J), J))
+    ct = tcompile(SCENES[name](_cfg(T), T))
+    img_j, _, _, seg_j = JI.render_sample_batch(cj, jnp.int32(1),
+                                                jnp.int32(SEED), **KW)
+    img_t, _, _, seg_t = TI.render_sample_batch(ct, 1, SEED, **KW)
+    return (np.asarray(img_j), float(seg_j), img_t.numpy(), int(seg_t))
+
+
+@pytest.mark.parametrize("name", ["sponza24", "small"])
+def test_render_sample_batch_matches_jax(name):
+    img_j, seg_j, img_t, seg_t = _render_both(name)
+    assert img_t.shape == (H, W, 3) and img_t.mean() > 0.1
+    np.testing.assert_allclose(seg_t, seg_j, rtol=1e-3)
+    np.testing.assert_allclose(img_t, img_j, rtol=1e-4, atol=1e-4)
+
+
+def test_render_sample_batch_matches_jax_mixed():
+    """The textured BVH scene. The JAX CPU path intersects BVH scenes with
+    the classic quad / Moller-Trumbore forms (accel._intersect_one), the
+    port with the BVH kernel's unified plane-functional form; their t
+    differ in the last bits, and a nearest-texel lookup (or a decision at
+    RAY_T_MIN) turns that into a different path on a few pixels. Given the
+    same hit, every later draw is identical
+    (test_one_step_draw_for_draw_mixed).
+
+    Measured at this size: 6 of the 2,304 values (2 of 768 pixels) differ
+    by more than 1e-4 (up to 1.71), and 4,430 against 4,431 segments.
+    Against the JAX package's own BVH kernel (its Pallas path, interpreted)
+    the segments are equal and no value differs by more than 4.2e-4. The
+    limit is the measured count: at most 6 values and 2 pixels off."""
+    img_j, seg_j, img_t, seg_t = _render_both("mixed16")
+    np.testing.assert_allclose(seg_t, seg_j, rtol=1e-3)
+    off = ~np.isclose(img_t, img_j, rtol=1e-4, atol=1e-4)
+    assert off.sum() <= 6 and off.any(axis=-1).sum() <= 2, off.sum()
+    assert np.isfinite(img_t).all() and img_t.mean() > 0.1
+
+
+def _np(x):
+    return tuple(np.asarray(c) for c in x)
+
+
+def test_one_step_draw_for_draw_mixed():
+    """One wavefront step on identical inputs: scene_hit agrees, and given
+    the same hit full_hit_attributes and scatter (every material kind,
+    blend, textures, normal map, NEE, medium) give the JAX values."""
+    cj = jcompile(SCENES["mixed16"](_cfg(J), J))
+    ct = tcompile(SCENES["mixed16"](_cfg(T), T))
+    pix = torch.arange(W * H, dtype=torch.int64)
+    o, d = TI._camera_rays(ct, pix, 1, SEED, W, H)
+    # second step: bounce rays leaving the first hits
+    t0, k0, i0 = TI.scene_hit(ct, o, d, pix, 1, 0, SEED)
+    hit0 = torch.isfinite(t0)
+    a0 = TI.full_hit_attributes(ct, o, d, torch.where(hit0, t0, 0.0), k0,
+                                i0, pix, 1, 0, SEED)
+    s0 = TI.scatter(ct, o, d, a0, pix, 1, 0, SEED)
+    for o_s, d_s, bounce in ((o, d, 0),
+                             (a0["point"], s0["new_dir"], 1)):
+        jo = tuple(jnp.asarray(c.numpy()) for c in o_s)
+        jd = tuple(jnp.asarray(c.numpy()) for c in d_s)
+        jp = jnp.asarray(pix.numpy().astype(np.int32))
+        tj, kj, ij = jax.jit(JI.scene_hit)(
+            cj, jo, jd, jp, jnp.int32(1), jnp.int32(bounce), jnp.int32(SEED))
+        t, k, i = TI.scene_hit(ct, o_s, d_s, pix, 1, bounce, SEED)
+        hit = np.isfinite(np.asarray(tj))
+        np.testing.assert_array_equal(hit, torch.isfinite(t).numpy())
+        np.testing.assert_allclose(t.numpy()[hit], np.asarray(tj)[hit],
+                                   rtol=1e-4, atol=1e-4)
+        same = (k.numpy() == np.asarray(kj)) & (i.numpy() == np.asarray(ij))
+        assert same[hit].mean() >= 0.995
+
+        ts = torch.where(torch.isfinite(t), t, 0.0)
+        at = TI.full_hit_attributes(ct, o_s, d_s, ts, k, i, pix, 1, bounce,
+                                    SEED)
+        aj = jax.jit(JI.full_hit_attributes)(
+            cj, jo, jd, jnp.asarray(ts.numpy()), jnp.asarray(k.numpy()),
+            jnp.asarray(i.numpy()), jp, jnp.int32(1), jnp.int32(bounce),
+            jnp.int32(SEED))
+        for key in ("point", "normal", "tangent", "bitangent", "uv"):
+            for g, w in zip(at[key], _np(aj[key])):
+                np.testing.assert_allclose(g.numpy()[hit], w[hit],
+                                           rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(at["mat"].numpy()[hit],
+                                      np.asarray(aj["mat"])[hit])
+        st = TI.scatter(ct, o_s, d_s, at, pix, 1, bounce, SEED)
+        sj = jax.jit(JI.scatter)(cj, jo, jd, aj, jp, jnp.int32(1),
+                                 jnp.int32(bounce), jnp.int32(SEED))
+        for key in ("is_emission", "is_pdf", "is_basic"):
+            np.testing.assert_array_equal(st[key].numpy()[hit],
+                                          np.asarray(sj[key])[hit])
+        for key in ("new_dir", "tape_color", "emit_color",
+                    "shading_normal"):
+            for g, w in zip(st[key], _np(sj[key])):
+                np.testing.assert_allclose(g.numpy()[hit], w[hit],
+                                           rtol=1e-5, atol=1e-5)
+        ok = hit & np.isfinite(np.asarray(sj["prob"]))
+        np.testing.assert_allclose(st["prob"].numpy()[ok],
+                                   np.asarray(sj["prob"])[ok], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _final(progresses):
+    images = [p.render_image for p in progresses]
+    return [im is not None for im in images], \
+        next(im for im in reversed(images) if im is not None)
+
+
+@pytest.mark.parametrize("name,min_close", [("sponza24", 0.999),
+                                            ("small", 0.999),
+                                            ("mixed16", 0.998)])
+def test_ray_trace_u8_matches_jax(name, min_close):
+    """ray_trace's u8 images within +-1 on 99.9% of pixels. mixed16 has
+    one pixel of 768 (99.87%) off, from the path flips described in
+    test_render_sample_batch_matches_jax_mixed, so its limit admits that
+    one pixel and no second."""
+    _, img_j = _final(list(J.ray_trace(SCENES[name](_cfg(J), J))))
+    _, img_t = _final(list(T.ray_trace(SCENES[name](_cfg(T), T),
+                                       device="cpu")))
+    assert img_t.dtype == np.uint8 and img_t.shape == (H, W, 3)
+    diff = np.abs(img_t.astype(np.int16) - img_j.astype(np.int16))
+    assert (diff <= 1).all(axis=-1).mean() >= min_close
+
+
+@pytest.mark.parametrize("strategy", ["every", "interval", "final"])
+def test_image_strategies_match_jax(strategy):
+    def make(api):
+        return {"every": api.EverySample(),
+                "interval": api.Interval(seconds=1e9),
+                "final": api.OnlyFinal()}[strategy]
+
+    kw = dict(samples_per_pixel=3, samples_per_batch=1)
+    pj = list(J.ray_trace(SCENES["small"](
+        _cfg(J, render_image_strategy=make(J), **kw), J)))
+    pt = list(T.ray_trace(SCENES["small"](
+        _cfg(T, render_image_strategy=make(T), **kw), T), device="cpu"))
+    assert [p.progress for p in pt] == [p.progress for p in pj]
+    has_j, img_j = _final(pj)
+    has_t, img_t = _final(pt)
+    assert has_t == has_j
+    assert np.abs(img_t.astype(int) - img_j.astype(int)).max() <= 1
+
+
+def test_abort_stops_between_batches():
+    calls = []
+
+    def abort_after(n):
+        def abort():
+            calls.append(1)
+            return len(calls) > n
+        return abort
+
+    cfg = dict(samples_per_pixel=4, samples_per_batch=1,
+               render_image_strategy=None)
+    pj = list(J.ray_trace(SCENES["small"](_cfg(J, **cfg), J),
+                          abort=abort_after(2)))
+    n_calls_j = len(calls)
+    calls.clear()
+    renderer = T.Renderer(SCENES["small"](_cfg(T, **cfg), T), device="cpu")
+    pt = list(renderer.render(abort=abort_after(2)))
+    assert len(pt) == len(pj) == 2 and len(calls) == n_calls_j
+    assert renderer.samples_done == 2
+    # a generator closed early records how far it got
+    gen = renderer.render()
+    next(gen)
+    gen.close()
+    assert renderer.samples_done == 1
+
+
+def test_unported_shaders_and_aux_raise():
+    ct = tcompile(SCENES["small"](_cfg(T), T))
+    with pytest.raises(NotImplementedError, match="aux channels"):
+        TI.render_sample_batch(ct, 1, 1, **{**KW, "shader_kind": 1})
+    with pytest.raises(NotImplementedError, match="aux channels"):
+        TI.render_sample_batch(ct, 1, 1, **{**KW, "need_aux": True})
+
+
+def test_renderer_refuses_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.Renderer(SCENES["small"](_cfg(T), T), device="cuda")
