@@ -9,16 +9,30 @@ Phases (each prints one line of numbers; a failed phase raises, so the
 script exits non-zero):
   0. device: a CUDA card must be present (name and power limit from
      nvidia-smi, torch and CUDA versions);
-  1. build: compile the CUDA kernels from ``solstrale_tpu_torch/csrc``;
-  2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, with kernel and plain median times;
+  1. build: compile the CUDA kernels from ``solstrale_tpu_torch/csrc`` (one
+     nvcc per source, in parallel) and print ptxas' resource lines;
+  2. kernels: K1-K4 against their plain PyTorch versions on the card, with
+     kernel and plain median times and each kernel's bound (K2 in its
+     spheres-only mode and K3 timed again on the mixed BVH scene's tables,
+     the shapes the main path gives them);
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, the benchmark workload, then with spheres,
      a medium and textures), launch counts read around both renders, and
      ``render_sample_batch`` timed like ``bench.py`` (median of three);
-  4. card against CPU and determinism: two small scenes rendered on the
+  3b. the small-scene path at full size: ``ray_trace`` at 1920x1080 of the
+     solid kitchen-sink scene (one K5 launch per batch, no other hit
+     kernel) and of the normal-mapped one (K4, never K5), launch counts read
+     around each, and ``render_sample_batch`` of both timed at bench.py's
+     settings (400x266, 8 spp, depth 50, median of three);
+  3c. K5 against its plain version and a repeated launch bit for bit, at
+     1920x1080x8 on the solid kitchen-sink scene and at 400x266x8 on the
+     kitchen-sink scene without its normal map (image texture, triangles,
+     a triangle light), and K5 against ``trace_queued`` (the K4 route) at
+     1920x1080x1;
+  4. card against CPU and determinism: four small scenes rendered on the
      card and on the CPU, and the card run repeated bit for bit.
-The last two lines are the kernels' JSON summary and the result line.
+The last lines are the card's name and power limit, the kernels' JSON
+summary and the result line.
 """
 import json
 import os
@@ -29,10 +43,103 @@ import time
 TOL_T = 1e-5          # hit t, rtol = atol (tests/test_pallas.py:33-35)
 TOL_MEDIUM = 1e-4     # medium t, rtol = atol (tests/test_pallas.py:59-61)
 SLOT_AGREE = 0.995    # kind/slot agreement on hits (exact ties may differ)
+TOL_K5 = 2e-3         # megakernel sums, rtol = atol (test_megakernel.py:40)
+
+# bounds: one H100 SXM at its published peaks
+PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
+HBM_BPS = 3.35e12     # device memory bytes/s
+# f32 operations of one ray-prim test, counted from csrc/hit.cuh (sqrt and
+# division count one each; compares not counted)
+FLOPS_SPHERE = 31
+FLOPS_PLANAR = 32
+FLOPS_MEDIUM_TAIL = 12    # hit::medium_event
+# K5's f32 operations beyond the sweeps, counted line by line from
+# csrc/megakernel.cu: an add, subtract, multiply, division, square root,
+# min or max is one, a call of sinf, cosf, acosf, atan2f, expf or logf is
+# one; compares, selects, sign changes and the integer PCG4D hash are not
+# counted, and a division by a loop-invariant value counts as its multiply.
+# Where the work depends on a branch this run does not split (the kind of
+# prim hit, the light picked, a dielectric's reflection or refraction),
+# the cheapest branch is charged.
+K5_SEGMENT = 16    # every segment: hit::make_ray 15, total_len 1
+K5_MEDIUM = 14     # every segment and medium, beyond its two boundary
+#                    sweeps: the flight uniform 1, t1 + 1e-4 1, the event 12
+K5_PATH = 58       # every path: camera_ray 46, the terminal fold 12
+K5_HIT = 24        # every emission and scatter: the hit point 6, the
+#                    cheapest attributes (a medium's phase normal) 13,
+#                    sample_texture 5
+K5_BLEND = 3       # every emission and scatter of a scene with blends
+K5_PDF = 127       # every NEE scatter beyond its light pdfs: the onb 38,
+#                    the cheaper bsdf sample (isotropic) 11, light pick and
+#                    the cheaper light sample (quad, triangle) 15, the draws
+#                    9, light_pdf_mean's own 7, the mixture pdf 37, the fold
+#                    of a pdf level 12
+K5_BASIC = 51      # every metal or dielectric scatter: the cheaper, a
+#                    dielectric reflection off a back face, 45, the fold 6
+K5_LIGHT = {0: 31, 1: 55, 2: 57}   # light_pdf_mean per sphere / quad /
+#                                    triangle light, per NEE scatter
 
 
 def log(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the f32 operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_flops(n_sph, n_pl):
+    return n_sph * FLOPS_SPHERE + n_pl * FLOPS_PLANAR
+
+
+def media_flops(mt):
+    """f32 operations of one ray through every medium of packed media
+    tables ``mt``: two boundary sweeps and the event each."""
+    return sum(2 * sweep_flops(*(x.shape[0] for x in mt.boundary(m)))
+               + FLOPS_MEDIUM_TAIL for m in range(mt.n_media))
+
+
+def k5_flops(t, light_kinds, n_paths, segments, ev):
+    """K5's f32 operations for a batch from the kinds of segment it traced
+    (``ev``, from the plain version's ``events``)."""
+    per_segment = (K5_SEGMENT + sweep_flops(t.sph.shape[0], t.pln.shape[0])
+                   + media_flops(t.media) + K5_MEDIUM * t.media.n_media)
+    hits = ev["emit"] + ev["pdf"] + ev["basic"]
+    return (segments * per_segment + n_paths * K5_PATH
+            + hits * (K5_HIT + K5_BLEND * (t.flags & 1))
+            + ev["pdf"] * (K5_PDF + sum(K5_LIGHT[k] for k in light_kinds))
+            + ev["basic"] * K5_BASIC)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def live_rays(d):
+    """Rays with a non-zero direction (parked rays need no work)."""
+    return int(((d[0] != 0) | (d[1] != 0) | (d[2] != 0)).sum().item())
+
+
+def reset_launches(wrappers):
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def launch_counts(wrappers):
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def all_wrappers():
+    from solstrale_tpu_torch.ops import bvh, sweep
+    from solstrale_tpu_torch.renderer import megakernel
+
+    return {"K1": bvh.bvh_planar_hit, "K2": sweep.closest_hit,
+            "K3": sweep.medium_hit, "K4": sweep.scene_hit,
+            "K5": megakernel.render_batch_megakernel}
 
 
 def cuda_ms(fn, reps=5, warmup=2):
@@ -98,13 +205,15 @@ def phase_build():
     t0 = time.perf_counter()
     _build.library()
     resources = [ln.strip() for ln in _build.BuildInfo.log.splitlines()
-                 if "registers" in ln or "Compiling entry" in ln]
+                 if "registers" in ln or "Compiling entry" in ln
+                 or "spill" in ln]
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=_build.BuildInfo.seconds, ptxas=resources)
 
 
 def _procedural_tables(device):
-    """64 spheres and 1,024 quads + triangles (K2), and a medium box (K3)."""
+    """64 spheres and 1,024 quads + triangles (K2), a medium box (K3) and a
+    second medium box overlapping it (K4)."""
     import numpy as np
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch.scene.compile import compile_scene
@@ -123,6 +232,8 @@ def _procedural_tables(device):
     world.append(T.Sphere((0, 50, 0), 5.0, T.DiffuseLight(5, 5, 5)))
     world.append(T.ConstantMedium(
         T.Bvh(T.new_box((-3, -2, -3), (3, 2, 3), mat)), 0.4, (1, 1, 1)))
+    world.append(T.ConstantMedium(
+        T.Bvh(T.new_box((0, -4, 0), (5, 1, 5), mat)), 0.7, (1, 1, 1)))
     scene = T.Scene(T.Bvh(world), T.CameraConfig(look_from=(0, 0, 10)),
                     (0, 0, 0), T.RenderConfig(width=8, height=8))
     return compile_scene(scene, use_bvh=False, device=device)
@@ -171,6 +282,7 @@ def phase_kernels(sponza_cs):
     import torch
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
     from solstrale_tpu_torch.ops import bvh, sweep
+    from solstrale_tpu_torch.renderer import integrator
 
     dev = torch.device("cuda")
     out = {}
@@ -186,13 +298,18 @@ def phase_kernels(sponza_cs):
     plain_ms = cuda_ms(lambda: bvh.bvh_planar_hit_plain(kb.prims, o, d,
                                                         RAY_T_MIN), reps=3,
                        warmup=1)
-    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # K1's bound counts the rays and the tree read once and ignores the
+    # traversal's work, which depends on the data
+    r = len(parked)
+    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     **bound(r * 36 + nbytes(kb.nodes, kb.prims), 0))
     log("kernel", name="K1 bvh_planar_hit", rays=len(parked),
         prims=int(kb.prims[:, 13].sum().item()), hits=int(
             torch.isfinite(t_k).sum().item()), max_abs_err=err, ms=ms,
         plain_ms=plain_ms)
 
-    # K2 (both modes) and K3 on procedural tables
+    # K2 (both modes) and K3 on procedural tables; their rows' times come
+    # from the main path's shape (_main_path_k2_k3)
     cs = _procedural_tables(dev)
     s = cs.solids
     o, d = _random_rays(65536, dev, seed=1, parked=256)
@@ -212,9 +329,7 @@ def phase_kernels(sponza_cs):
         log("kernel", name="K2 closest_hit", spheres_only=mode, rays=65536,
             spheres=s.sph_table.shape[0], planar=s.pl_table.shape[0],
             max_abs_err=errs[-1], ms=ms, plain_ms=plain_ms)
-        if not mode:
-            out["K2"] = dict(ms=ms, plain_ms=plain_ms)
-    out["K2"]["max_abs_err"] = max(errs)
+    out["K2"] = dict(max_abs_err=max(errs))
 
     med = cs.media[0]
     b = med.boundary
@@ -236,10 +351,160 @@ def phase_kernels(sponza_cs):
     ms = cuda_ms(lambda: sweep.medium_hit(*args))
     plain_ms = cuda_ms(lambda: sweep.medium_hit_plain(*args), reps=3,
                        warmup=1)
-    out["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    out["K3"] = dict(max_abs_err=err)
     log("kernel", name="K3 medium_hit", rays=65536, events=int(fin.sum()),
         max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    _main_path_k2_k3(out)
+
+    # K4 on the same tables with both medium boxes (the second overlaps the
+    # first, so it clips against the first's events)
+    mt = integrator.media_tables(cs)
+    u2 = torch.rand((2, 65536), generator=g).to(dev)
+    err_proc = _check_k4("K4 scene_hit (procedural)", s, mt, o, d, u2)[0]
+    # and at the main path's shape: the normal-mapped kitchen-sink scene's
+    # tables, 131,072 lanes of 1080p camera rays and their bounces
+    kcs, ko, kd, ku = _kitchen_rays(dev)
+    ks, kmt = kcs.solids, integrator.media_tables(kcs)
+    err, ms, plain_ms = _check_k4("K4 scene_hit (kitchen)", ks, kmt, ko, kd,
+                                  ku)
+    n_k = live_rays(kd)
+    out["K4"] = dict(max_abs_err=max(err, err_proc), ms=ms, plain_ms=plain_ms,
+                     **bound(ko[0].numel() * (32 + 4 * kmt.n_media)
+                             + nbytes(ks.sph_table, ks.pl_table, kmt.sph,
+                                      kmt.pln),
+                             n_k * (sweep_flops(ks.sph_table.shape[0],
+                                                ks.pl_table.shape[0])
+                                    + media_flops(kmt))))
     return out
+
+
+def _main_path_k2_k3(out):
+    """K2 (spheres-only, the one mode a route launches) and K3 at the main
+    path's shape: the mixed BVH scene's tables at 1080p and one wavefront
+    iteration's 131,072 lanes (camera rays, bounces, parked rays). Their
+    rows of the kernels line take these times and bounds."""
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
+    from solstrale_tpu_torch.ops import bvh, sweep
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    dev = torch.device("cuda")
+    cs = compile_scene(fixtures.mixed_bvh_scene(
+        T.RenderConfig(width=1920, height=1080, samples_per_pixel=1, seed=1),
+        n_cells=362), device=dev)
+    s = cs.solids
+    o, d, parked = _bvh_rays(cs, dev, n=131072)
+    n_live, r = live_rays(d), len(parked)
+    args = (s.sph_table, s.pl_table, o, d, RAY_T_MIN, INF)
+    t_k, s_k = sweep.closest_hit(*args, spheres_only=True)
+    t_p, s_p = sweep.closest_hit_plain(*args, spheres_only=True)
+    torch.cuda.synchronize()
+    err = compare_hits("K2 spheres_only (mixed)", t_k, s_k, t_p, s_p, TOL_T,
+                       parked)
+    ms = cuda_ms(lambda: sweep.closest_hit(*args, spheres_only=True))
+    plain_ms = cuda_ms(lambda: sweep.closest_hit_plain(
+        *args, spheres_only=True), reps=3, warmup=1)
+    n_sph = s.sph_table.shape[0]
+    out["K2"].update(max_abs_err=max(err, out["K2"]["max_abs_err"]), ms=ms,
+                     plain_ms=plain_ms, **bound(
+                         r * 40 + nbytes(s.sph_table),
+                         n_live * n_sph * FLOPS_SPHERE))
+    log("kernel", name="K2 closest_hit (mixed, main path)", spheres_only=True,
+        rays=r, live_rays=n_live, spheres=n_sph, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms)
+
+    # K3 gets the closest solid t of the same rays, as scene_hit gives it
+    med = cs.media[0]
+    b = med.boundary
+    t_solid = bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)[0]
+    u = torch.rand(r, generator=torch.Generator().manual_seed(8)).to(dev)
+    args = (b.sph_table, b.pl_table, med.neg_inv_density, o, d, t_solid, u)
+    m_k, m_p = sweep.medium_hit(*args), sweep.medium_hit_plain(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(m_p)
+    if not (torch.equal(torch.isfinite(m_k), fin) and torch.allclose(
+            m_k[fin], m_p[fin], rtol=TOL_MEDIUM, atol=TOL_MEDIUM)):
+        raise AssertionError("K3 (mixed): medium t differs")
+    err = float((m_k[fin] - m_p[fin]).abs().max().item()) if fin.any() \
+        else 0.0
+    ms = cuda_ms(lambda: sweep.medium_hit(*args))
+    plain_ms = cuda_ms(lambda: sweep.medium_hit_plain(*args), reps=3,
+                       warmup=1)
+    out["K3"].update(max_abs_err=max(err, out["K3"]["max_abs_err"]), ms=ms,
+                     plain_ms=plain_ms, **bound(
+                         r * 36 + nbytes(b.sph_table, b.pl_table),
+                         n_live * (2 * sweep_flops(b.sph_table.shape[0],
+                                                   b.pl_table.shape[0])
+                                   + FLOPS_MEDIUM_TAIL)))
+    log("kernel", name="K3 medium_hit (mixed, main path)", rays=r,
+        events=int(fin.sum()), max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _check_k4(name, s, mt, o, d, u):
+    """K4 against its plain version: hit sets equal, t within TOL_MEDIUM
+    (TOL_T on solid hits), slots agreeing, parked rays missing; then the
+    kernel's and the plain version's median times. Returns (max abs t
+    error, ms, plain ms)."""
+    import torch
+    from solstrale_tpu_torch.ops import sweep
+
+    t_k, s_k = sweep.scene_hit(s.sph_table, s.pl_table, mt, o, d, u)
+    t_p, s_p = sweep.scene_hit_plain(s.sph_table, s.pl_table, mt, o, d, u)
+    torch.cuda.synchronize()
+    parked = ((d[0] == 0) & (d[1] == 0) & (d[2] == 0)).cpu().numpy()
+    err = compare_hits(name, t_k, s_k, t_p, s_p, TOL_MEDIUM, parked)
+    solid = torch.isfinite(t_p) & (s_p < s.sph_table.shape[0]
+                                   + s.pl_table.shape[0])
+    if not torch.allclose(t_k[solid], t_p[solid], rtol=TOL_T, atol=TOL_T):
+        raise AssertionError(f"{name}: solid-hit t differs beyond {TOL_T}")
+    n_med = int((torch.isfinite(t_p) & ~solid).sum().item())
+    ms = cuda_ms(lambda: sweep.scene_hit(s.sph_table, s.pl_table, mt, o, d,
+                                         u))
+    plain_ms = cuda_ms(lambda: sweep.scene_hit_plain(
+        s.sph_table, s.pl_table, mt, o, d, u), reps=3, warmup=1)
+    log("kernel", name=name, rays=o[0].numel(), live_rays=live_rays(d),
+        spheres=s.sph_table.shape[0], planar=s.pl_table.shape[0],
+        media=mt.n_media, medium_events=n_med,
+        hits=int(torch.isfinite(t_p).sum().item()), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def _kitchen_rays(device, lanes=131072):
+    """The K4 inputs of one wavefront iteration on the normal-mapped
+    kitchen-sink scene at 1080p: camera rays of every 16th pixel, bounce
+    rays from their hits, and the media's flight uniforms."""
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.geo import soa
+    from solstrale_tpu_torch.ops import rng
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    cs = compile_scene(fixtures.kitchen_sink_scene(
+        T.RenderConfig(width=1920, height=1080, samples_per_pixel=1,
+                       seed=1)), device=device)
+    half = lanes // 2
+    pix = torch.linspace(0, 1920 * 1080 - 1, half, device=device).long()
+    o, d = integrator._camera_rays(cs, pix, 1, 1, 1920, 1080)
+    t, kind, idx = integrator.scene_hit(cs, o, d, pix, 1, 0, 1)
+    hit = torch.isfinite(t)
+    attrs = integrator.full_hit_attributes(
+        cs, o, d, torch.where(hit, t, 0.0), kind, idx, pix, 1, 0, 1)
+    r1, r2, _, _ = rng.uniform4(pix, 1, 0, rng.P_COSINE, 1)
+    frame = soa.onb_from_w3(attrs["normal"])
+    bd = soa.onb_local3(*frame, rng.cosine_direction3(r1, r2))
+    bd = tuple(torch.where(hit, c, 0.0) for c in bd)   # misses park
+    bo = soa.where3(hit, attrs["point"], o)
+    oo = tuple(torch.cat([a, b]) for a, b in zip(o, bo))
+    dd = tuple(torch.cat([a, b]) for a, b in zip(d, bd))
+    pp = torch.cat([pix, pix])
+    u = torch.stack([rng.uniform(pp, 1, 1, integrator._MEDIUM_PURPOSE_BASE + m,
+                                 1) for m in range(len(cs.media))])
+    return cs, oo, dd, u
 
 
 def _final_image(scene, device):
@@ -256,8 +521,7 @@ def phase_main_path():
     import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
-    from solstrale_tpu_torch.ops import bvh, sweep
-    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.ops import bvh
     from solstrale_tpu_torch.scene.compile import compile_scene
 
     w, h = 1920, 1080
@@ -267,10 +531,8 @@ def phase_main_path():
     mixed = fixtures.mixed_bvh_scene(
         T.RenderConfig(width=w, height=h, samples_per_pixel=1, seed=1),
         n_cells=362)
-    wrappers = {"K1": bvh.bvh_planar_hit, "K2": sweep.closest_hit,
-                "K3": sweep.medium_hit}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = all_wrappers()
+    reset_launches(wrappers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     image = _final_image(scene, "cuda")
@@ -279,46 +541,192 @@ def phase_main_path():
     t0 = time.perf_counter()
     image_mixed = _final_image(mixed, "cuda")
     t_mixed = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = launch_counts(wrappers)
     for name, img in (("sponza", image), ("mixed", image_mixed)):
         if img is None or img.shape != (h, w, 3):
             raise AssertionError(f"{name}: no final image of shape {(h, w)}")
         if not float(img.mean()) >= 2.0:
             raise AssertionError(f"{name}: black frame (mean u8 "
                                  f"{float(img.mean()):.3f})")
-    if k1_sponza <= 0 or min(launches.values()) <= 0:
+    if k1_sponza <= 0 or min(launches[k] for k in ("K1", "K2", "K3")) <= 0:
         raise AssertionError(f"main path missed a kernel: {launches}")
+    if launches["K4"] or launches["K5"]:
+        raise AssertionError(f"the BVH path launched K4/K5: {launches}")
 
-    # one render_sample_batch timed like bench.py: warm up, then time one
-    # batch to completion (a scalar checksum forces it)
-    cs = compile_scene(scene, device="cuda")
-    kw = dict(width=w, height=h, max_depth=50,
-              shader_kind=integrator.SHADER_PATH, need_aux=False, n_samples=1)
-    float(integrator.render_sample_batch(cs, 100, 1, **kw)[0].sum())
+    # one render_sample_batch timed like bench.py (the loop is host-bound:
+    # the three times show the spread)
     stats = {}
+    timing = _batch_timing(compile_scene(scene, device="cuda"), w, h, 1,
+                           stats=stats)
+    if timing["segments"] < 2 * w * h:
+        raise AssertionError(f"segments {timing['segments']} < 2 x pixels")
+    log("main_path", ray_trace_seconds=t_sponza, mixed_ray_trace_seconds=t_mixed,
+        mean_u8=float(image.mean()), mixed_mean_u8=float(image_mixed.mean()),
+        launches=launches, k1_launches_sponza=k1_sponza, **timing,
+        iterations=stats["iters"], iterations_wide=stats["iters_wide"],
+        iterations_tail=stats["iters_tail"], lanes=stats["lanes"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def _batch_timing(cs, w, h, spp, stats=None):
+    """render_sample_batch timed like bench.py (depth 50): warm up, then
+    three batches to completion (a scalar checksum forces each); median
+    seconds. ``stats`` receives the wavefront's iteration counts."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    kw = dict(width=w, height=h, max_depth=50,
+              shader_kind=integrator.SHADER_PATH, need_aux=False,
+              n_samples=spp)
+    float(integrator.render_sample_batch(cs, 100, 1, **kw)[0].sum())
     times = []
-    for _ in range(3):  # the loop is host-bound: report the spread
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         color, _, _, segs = integrator.render_sample_batch(
             cs, 1, 1, stats=stats, **kw)
         checksum = float(color.sum())
         times.append(time.perf_counter() - t0)
-        segs = int(segs)
         if not checksum > 0:
             raise AssertionError(f"degenerate render: checksum={checksum}")
-    if segs < 2 * w * h:
-        raise AssertionError(f"segments {segs} < 2 x pixels")
+    segs = int(segs)
+    if segs < w * h * spp:
+        raise AssertionError(f"segments {segs} < pixels x spp")
     dt = sorted(times)[1]
-    log("main_path", ray_trace_seconds=t_sponza, mixed_ray_trace_seconds=t_mixed,
-        mean_u8=float(image.mean()), mixed_mean_u8=float(image_mixed.mean()),
-        launches=launches, k1_launches_sponza=k1_sponza,
-        batch_seconds=dt, batch_seconds_all=times, segments=segs,
-        segments_per_second=segs / dt,
-        iterations=stats["iters"], iterations_wide=stats["iters_wide"],
-        iterations_tail=stats["iters_tail"], lanes=stats["lanes"],
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return dict(batch_seconds=dt, batch_seconds_all=times, segments=segs,
+                segments_per_second=segs / dt)
+
+
+def phase_small_scene():
+    """The small-scene path at full size: K5 for the solid kitchen-sink
+    scene, the wavefront with K4 for the normal-mapped one."""
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.renderer import megakernel
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    w, h = 1920, 1080
+    wrappers = all_wrappers()
+    runs = {}
+    for name, build, spp in (
+            ("kitchen_solid", fixtures.kitchen_sink_solid_scene, 8),
+            ("kitchen", fixtures.kitchen_sink_scene, 1)):
+        scene = build(T.RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                                     samples_per_batch=spp, seed=1))
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        img = _final_image(scene, "cuda")
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(wrappers)
+        if img is None or img.shape != (h, w, 3):
+            raise AssertionError(f"{name}: no final image of shape {(h, w)}")
+        if not float(img.mean()) >= 2.0:
+            raise AssertionError(f"{name}: black frame (mean u8 "
+                                 f"{float(img.mean()):.3f})")
+        cs = compile_scene(scene, device="cuda")
+        gate = megakernel.megakernel_supported(cs, need_aux=False,
+                                               shader_kind=0)
+        runs[name] = dict(ray_trace_seconds=seconds,
+                          mean_u8=float(img.mean()), launches=launches,
+                          megakernel_gate=gate,
+                          bench_400x266x8=_batch_timing(cs, 400, 266, 8))
+    solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
+        "launches"]
+    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1):
+        raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
+                             f"other hit kernel, got {solid}")
+    if kitchen["K4"] <= 0 or kitchen["K5"] != 0:
+        raise AssertionError(f"kitchen: expected K4 and no K5, got {kitchen}")
+    log("small_scene_path", **runs)
+    return {"K4": kitchen["K4"], "K5": solid["K5"]}
+
+
+def phase_megakernel():
+    """K5 against its plain version, and a repeated launch bit for bit: at
+    the main path's shape (the solid kitchen-sink scene at 1920x1080, 8 spp,
+    depth 50: the kernels line's row, its bound from the kinds of segment
+    the plain version counted), and on the kitchen-sink scene without its
+    normal map (an image texture, triangle prims, a triangle light) at
+    bench.py's 400x266x8; then K5 against trace_queued (the K4 route) at
+    1920x1080, 1 spp."""
+    import numpy as np
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.renderer import integrator, megakernel
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    def compare(name, got, seg, want, seg_w):
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        if int(seg) != int(seg_w):
+            raise AssertionError(f"{name}: segments {int(seg)} vs "
+                                 f"{int(seg_w)}")
+        if not np.allclose(got, want, rtol=TOL_K5, atol=TOL_K5):
+            raise AssertionError(f"{name}: values differ beyond {TOL_K5}")
+        return float(np.abs(got - want).max())
+
+    def check(name, cs, kw, spp, events=None):
+        """K5 twice and its plain version once (timed with CUDA events).
+        Returns (max abs error, segments, plain ms)."""
+        a, seg_a = megakernel.render_batch_megakernel(cs, 1, spp, 1, **kw)
+        b, seg_b = megakernel.render_batch_megakernel(cs, 1, spp, 1, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        p, seg_p = megakernel.render_batch_megakernel_plain(
+            cs, 1, spp, 1, events=events, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and int(seg_a) == int(seg_b)):
+            raise AssertionError(f"{name}: a repeated launch is not "
+                                 "bit-identical")
+        return (compare(name, a, seg_a, p, seg_p), int(seg_a),
+                start.elapsed_time(end))
+
+    def compiled(build, w, h):
+        return compile_scene(build(T.RenderConfig(width=w, height=h,
+                                                  seed=1)), device="cuda")
+
+    w, h, spp = 1920, 1080, 8
+    kw = dict(width=w, height=h, max_depth=50)
+    cs = compiled(fixtures.kitchen_sink_solid_scene, w, h)
+    ev = {}
+    err, segs, plain_ms = check("K5 vs plain (kitchen_solid)", cs, kw, spp,
+                                events=ev)
+    if ev["miss"] + ev["capped"] + ev["emit"] != w * h * spp or \
+            sum(ev.values()) != segs:
+        raise AssertionError(f"K5: the segment kinds {ev} do not add up to "
+                             f"{w * h * spp} paths and {segs} segments")
+    ms = cuda_ms(lambda: megakernel.render_batch_megakernel(cs, 1, spp, 1,
+                                                            **kw))
+    t = megakernel.scene_tables(cs)
+    flops = k5_flops(t, cs.light_kinds, w * h * spp, segs, ev)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+        w * h * 16 + nbytes(t.cam, t.sph, t.pln, t.lights, t.mats,
+                            t.tex_attr, t.texels, t.media.sph, t.media.pln,
+                            t.med), flops))
+
+    tex = compiled(lambda c: fixtures.kitchen_sink_scene(c, normal_map=False),
+                   400, 266)
+    if not megakernel.megakernel_supported(tex, need_aux=False,
+                                           shader_kind=0):
+        raise AssertionError("kitchen_textured: outside the megakernel gate")
+    err_tex, segs_tex, _ = check("K5 vs plain (kitchen_textured)", tex,
+                                 dict(width=400, height=266, max_depth=50), 8)
+    out["max_abs_err"] = max(err, err_tex)
+
+    k5, seg_k5 = megakernel.render_batch_megakernel(cs, 1, 1, 1, **kw)
+    q, seg_q = integrator.trace_queued(cs, 1, 1, 1, **kw)
+    err_q = compare("K5 vs trace_queued", k5, seg_k5, q, seg_q)
+    log("megakernel", scene="kitchen_solid", shape="1920x1080x8 depth 50",
+        segments=segs, segment_kinds=ev, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, bit_identical_repeat=True, flops=flops,
+        flops_per_segment=flops / segs, bound_ms=out["bound_ms"],
+        textured_400x266x8=dict(segments=segs_tex, max_abs_err=err_tex,
+                                lights=list(tex.light_kinds)),
+        segments_1080p_1spp=int(seg_k5),
+        max_abs_err_vs_trace_queued_1080p=err_q)
+    return out
 
 
 def phase_card_vs_cpu():
@@ -336,7 +744,9 @@ def phase_card_vs_cpu():
     for name, build in (
             ("mixed_bvh_scene", lambda c: fixtures.mixed_bvh_scene(
                 c, n_cells=48)),
-            ("small_scene", fixtures.small_scene)):
+            ("small_scene", fixtures.small_scene),
+            ("kitchen_sink_solid_scene", fixtures.kitchen_sink_solid_scene),
+            ("kitchen_sink_scene", fixtures.kitchen_sink_scene)):
         scene = build(T.RenderConfig(width=w, height=h, seed=1))
         runs = {}
         for dev in ("cuda", "cpu", "cuda"):
@@ -361,7 +771,7 @@ def phase_card_vs_cpu():
 def main():
     import torch
 
-    phase_device()
+    smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
@@ -377,6 +787,8 @@ def main():
         leaves=sponza_cs.kbvh.n_leaves)
     timings = phase_kernels(sponza_cs)
     launches = phase_main_path()
+    launches.update(phase_small_scene())
+    timings["K5"] = phase_megakernel()
     phase_card_vs_cpu()
 
     source = {"K1": ("solstrale_tpu_torch/csrc/bvh.cu",
@@ -384,11 +796,18 @@ def main():
               "K2": ("solstrale_tpu_torch/csrc/sweep.cu",
                      "solstrale_tpu/ops/pallas_sweep.py:55"),
               "K3": ("solstrale_tpu_torch/csrc/sweep.cu",
-                     "solstrale_tpu/ops/pallas_sweep.py:220")}
-    names = {"K1": "k1_bvh", "K2": "k2_sweep", "K3": "k3_medium"}
+                     "solstrale_tpu/ops/pallas_sweep.py:220"),
+              "K4": ("solstrale_tpu_torch/csrc/sweep.cu",
+                     "solstrale_tpu/ops/pallas_sweep.py:356"),
+              "K5": ("solstrale_tpu_torch/csrc/megakernel.cu",
+                     "solstrale_tpu/renderer/megakernel.py:228")}
+    names = {"K1": "k1_bvh", "K2": "k2_sweep", "K3": "k3_medium",
+             "K4": "k4_scene_hit", "K5": "k5_render"}
+    # no single PyTorch call computes any of these functions
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
-                    **timings[k]) for k in ("K1", "K2", "K3")]
+                    library_ms=None, **timings[k]) for k in names]
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

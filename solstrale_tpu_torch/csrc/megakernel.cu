@@ -1,0 +1,687 @@
+// The render megakernel (K5): a whole progressive sample batch of a small
+// scene in one launch.
+//
+// Replaces the TPU kernel solstrale_tpu/renderer/megakernel.py::_render_kernel
+// (render_batch_megakernel). What it computes is the port's plain version,
+// renderer/megakernel.py::render_batch_megakernel_plain, i.e.
+// renderer/integrator.py::path_step per bounce: camera ray (thin lens),
+// brute-force scene hit with every constant medium, hit attributes, blend
+// resolution, texture lookup, the material scatter with the 50/50 NEE
+// mixture and its light pdf, the forward clamp-fold, accumulation and
+// regeneration, with the counter-hash PCG4D in native uint32. The formulas
+// follow the plain version expression for expression (and -fmad=false keeps
+// nvcc from contracting them), so the kernel returns its values.
+//
+// Design: one thread per pixel, as on the TPU (megakernel.py:12-20). A
+// thread traces its pixel's n_samples paths back to back in registers and
+// adds each finished path's color to its own accumulator in sample order;
+// nothing crosses threads, and each pixel's segment count is written as an
+// int32 (the wrapper sums them), so there are no atomics and a repeated
+// launch is bit-identical. The scene tables are small (the gate allows at
+// most 128 spheres, 1,024 planar rows, 32 lights, 64 materials) and are read
+// through const __restrict__ pointers: every thread of a warp reads the
+// same row at the same time, which the L1 broadcasts. A lane whose path is
+// a miss, an emission or at the depth cap skips the scatter; lanes of a warp
+// diverge in path length and the warp waits for its longest path.
+//
+// What bounds it: arithmetic. Per segment a thread runs the sweep (~30
+// flops and one division per prim, twice per medium boundary prim more),
+// the attributes and the scatter (a few hundred flops and ~10 transcendental
+// calls) and NEE over every light; it reads no per-pixel data from memory
+// and writes 16 bytes per pixel at the end.
+//
+// TPU workarounds left behind: the masked-row table lookups (direct
+// indexing here), the u8 SMEM texture arena and its DMA round trips (the
+// f32 texel table is read directly), the Cephes acos/atan2 (acosf/atan2f),
+// masks carried as f32, and the per-tile segment count.
+#include <cstdint>
+
+#include "hit.cuh"
+
+namespace {
+
+using hit::Ray;
+
+constexpr int kThreads = 128;
+// Python float constants as torch rounds them to f32 (geo, math.pi)
+constexpr float kPi = static_cast<float>(3.14159265358979323846);
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
+constexpr float kSphereValue =
+    static_cast<float>(1.0 / (4.0 * 3.14159265358979323846));
+
+// x / s with s a Python scalar: PyTorch's CUDA division multiplies by the
+// scalar's f32 reciprocal (div_true_kernel_cuda), so the plain version on
+// the card does that, and so does this kernel (the CPU divides exactly).
+__device__ __forceinline__ float div_scalar(float x, float s) {
+  return x * (1.0f / s);
+}
+
+// RNG purposes (ops/rng.py)
+constexpr uint32_t P_JITTER = 0, P_LENS = 1, P_MIX_COIN = 2,
+                   P_LIGHT_PICK = 3, P_LIGHT_SAMPLE = 4, P_COSINE = 5,
+                   P_DIELECTRIC = 6, P_FUZZ = 7, P_BLEND_SCATTER = 9,
+                   P_PHASE = 11, P_MEDIUM_BASE = 16;
+
+// material kinds (scene/materials.py) and light kinds (scene/compile.py)
+constexpr int LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, DIFFUSE_LIGHT = 3,
+              ISOTROPIC = 4, BLEND = 5;
+constexpr int LIGHT_SPHERE = 0, LIGHT_QUAD = 1;
+constexpr int kMaxBlendDepth = 3;
+constexpr int kFlagBlend = 1;
+
+// --- counter RNG: PCG4D, bit-equal to ops/rng.py ---------------------------
+
+__device__ __forceinline__ float4 uniform4(uint32_t pix, uint32_t sample,
+                                           uint32_t bounce, uint32_t purpose,
+                                           uint32_t seed) {
+  uint32_t a = pix, b = sample, c = (bounce << 8) | purpose, d = seed;
+  a = a * 1664525u + 1013904223u;
+  b = b * 1664525u + 1013904223u;
+  c = c * 1664525u + 1013904223u;
+  d = d * 1664525u + 1013904223u;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+  a ^= a >> 16; b ^= b >> 16; c ^= c >> 16; d ^= d >> 16;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+  const float s = 1.0f / 16777216.0f;
+  return make_float4(static_cast<float>(a >> 8) * s,
+                     static_cast<float>(b >> 8) * s,
+                     static_cast<float>(c >> 8) * s,
+                     static_cast<float>(d >> 8) * s);
+}
+
+// --- vector helpers in geo/soa.py's association order ------------------------
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 sub(V3 a, V3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 scale(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 unit(V3 a) {
+  const float inv = 1.0f / sqrtf(dot(a, a));
+  return scale(a, inv);
+}
+__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
+
+// torch.clamp / torch.minimum keep NaN (fminf/fmaxf would drop it)
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return x > hi ? hi : x;
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  if (a != a || b != b) return a + b;  // NaN
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ V3 reflect(V3 v, V3 n) {
+  const float k = 2.0f * dot(v, n);
+  return {v.x - n.x * k, v.y - n.y * k, v.z - n.z * k};
+}
+
+__device__ __forceinline__ V3 refract(V3 v, V3 n, float ir) {
+  const float cos_theta = clamp_max(dot(neg(v), n), 1.0f);
+  const V3 perp = scale(add(scale(n, cos_theta), v), ir);
+  const float par_k = -sqrtf(fabsf(1.0f - dot(perp, perp)));
+  return add(perp, scale(n, par_k));
+}
+
+// (tangent, bitangent, normal) from a direction (geo/soa.py::onb_from_w3)
+__device__ __forceinline__ void onb_from_w(V3 w, V3* t, V3* b, V3* n) {
+  const V3 uw = unit(w);
+  const bool pick = fabsf(uw.x) > 0.9f;
+  const V3 a = v3(pick ? 0.0f : 1.0f, pick ? 1.0f : 0.0f, 0.0f);
+  const V3 v = unit(cross(uw, a));
+  *t = cross(uw, v);
+  *b = v;
+  *n = uw;
+}
+
+__device__ __forceinline__ V3 onb_local(V3 t, V3 b, V3 n, V3 v) {
+  return {t.x * v.x + b.x * v.y + n.x * v.z,
+          t.y * v.x + b.y * v.y + n.y * v.z,
+          t.z * v.x + b.z * v.y + n.z * v.z};
+}
+
+// --- samplers (ops/rng.py) -------------------------------------------------
+
+__device__ __forceinline__ V3 cosine_direction(float r1, float r2) {
+  const float z = sqrtf(1.0f - r2);
+  const float phi = kTwoPi * r1;
+  const float sq_r2 = sqrtf(r2);
+  return {cosf(phi) * sq_r2, sinf(phi) * sq_r2, z};
+}
+
+__device__ __forceinline__ V3 unit_vector(float r1, float r2) {
+  const float z = 1.0f - 2.0f * r1;
+  const float phi = kTwoPi * r2;
+  const float zz = sqrtf(clamp_min(1.0f - z * z, 0.0f));
+  return {cosf(phi) * zz, sinf(phi) * zz, z};
+}
+
+__device__ __forceinline__ V3 in_unit_sphere(float r1, float r2, float r3) {
+  const V3 d = unit_vector(r1, r2);
+  const float radius = expf(div_scalar(logf(clamp_min(r3, 1e-12f)), 3.0f));
+  return {d.x * radius, d.y * radius, d.z * radius};
+}
+
+__device__ __forceinline__ V3 to_sphere(float radius, float dist_sq, float r1,
+                                        float r2) {
+  const float z = 1.0f + r2 * (sqrtf(clamp_min(
+                      1.0f - radius * radius / dist_sq, 0.0f)) - 1.0f);
+  const float phi = kTwoPi * r1;
+  const float zz = sqrtf(clamp_min(1.0f - z * z, 0.0f));
+  return {cosf(phi) * zz, sinf(phi) * zz, z};
+}
+
+// --- scene tables ------------------------------------------------------------
+
+struct Scene {
+  const float* __restrict__ cam;      // (24,)
+  const float4* __restrict__ sph;     // (S, 8)
+  int n_sph;
+  const float4* __restrict__ pln;     // (P, 28)
+  int n_pl;
+  const float* __restrict__ mats;     // (Mt, 9)
+  int n_mat;
+  const float* __restrict__ tex_attr; // (T, 3) offset w h
+  int n_tex;
+  const float* __restrict__ texels;   // (N, 3)
+  int n_texels;
+  const float* __restrict__ lights;   // (L, 20)
+  int n_light;
+  const float4* __restrict__ msph;    // packed medium boundaries (., 8)
+  const float4* __restrict__ mpln;    // (., 16)
+  const int* __restrict__ msph_off;   // (M+1,)
+  const int* __restrict__ mpln_off;
+  const float* __restrict__ med;      // (M, 4) neg_inv_density mat 0 0
+  int n_media;
+  int flags;
+};
+
+constexpr int kPlnRow = 7;  // float4s per (P, 28) planar row
+
+struct MatRow {
+  int kind, albedo_tex;
+  float fuzz, ior, atten, blend_factor;
+  int m1, m2;
+};
+
+// Materials.attr row; an out-of-range id reads a zero row (table_rows)
+__device__ __forceinline__ MatRow mat_row(const Scene& sc, int id) {
+  MatRow r = {0, 0, 0.f, 0.f, 0.f, 0.f, 0, 0};
+  if (id >= 0 && id < sc.n_mat) {
+    const float* m = sc.mats + 9 * id;
+    r.kind = static_cast<int>(m[0]);
+    r.albedo_tex = static_cast<int>(m[1]);
+    r.fuzz = m[3];
+    r.ior = m[4];
+    r.atten = m[5];
+    r.blend_factor = m[6];
+    r.m1 = static_cast<int>(m[7]);
+    r.m2 = static_cast<int>(m[8]);
+  }
+  return r;
+}
+
+// integrator.sample_texture: nearest neighbour, abs-wrap, flipped v,
+// out-of-range texel indices clamped
+__device__ __forceinline__ V3 sample_texture(const Scene& sc, int tex_id,
+                                             float u_in, float v_in) {
+  const int tid = tex_id < 0 ? 0 : tex_id;
+  int off = 0, w = 0, h = 0;
+  if (tid < sc.n_tex) {
+    off = static_cast<int>(sc.tex_attr[3 * tid]);
+    w = static_cast<int>(sc.tex_attr[3 * tid + 1]);
+    h = static_cast<int>(sc.tex_attr[3 * tid + 2]);
+  }
+  const float u = fmodf(fabsf(u_in), 1.0f);
+  const float v = 1.0f - fmodf(fabsf(v_in), 1.0f);
+  const int x = static_cast<int>(u * static_cast<float>(w - 1));
+  const int y = static_cast<int>(v * static_cast<float>(h - 1));
+  int idx = off + y * w + x;
+  idx = idx < 0 ? 0 : (idx > sc.n_texels - 1 ? sc.n_texels - 1 : idx);
+  const float* px = sc.texels + 3 * static_cast<size_t>(idx);
+  return {px[0], px[1], px[2]};
+}
+
+// Closest solid hit on [RAY_T_MIN, inf): slot < S sphere, S + p planar row
+// p, -1 miss (the K2 sweep, ties to the first slot)
+__device__ __forceinline__ float solid_sweep(const Scene& sc, const Ray& r,
+                                             int* slot_out) {
+  float best = CUDART_INF_F;
+  int slot = -1;
+  const float lo = hit::kRayTMin;
+  for (int p = 0; p < sc.n_sph; ++p) {
+    float r1, r2;
+    const bool ok = hit::sphere_roots(r, sc.sph[2 * p], sc.sph[2 * p + 1],
+                                      &r1, &r2);
+    const bool in1 = r1 >= lo && r1 <= CUDART_INF_F;
+    const bool in2 = r2 >= lo && r2 <= CUDART_INF_F;
+    const float t = (ok && in1) ? r1 : ((ok && in2) ? r2 : CUDART_INF_F);
+    if (t < best) {
+      best = t;
+      slot = p;
+    }
+  }
+  for (int p = 0; p < sc.n_pl; ++p) {
+    const float4* row = sc.pln + kPlnRow * p;
+    float t;
+    const bool ok = hit::planar_hit(r, row[0], row[1], row[2], row[3], &t);
+    if (ok && t >= lo && t <= CUDART_INF_F && t < best) {
+      best = t;
+      slot = sc.n_sph + p;
+    }
+  }
+  *slot_out = slot;
+  return best;
+}
+
+// Closest boundary t >= lo of one medium (one K3 sweep)
+__device__ __forceinline__ float boundary_sweep(const float4* sph, int n_sph,
+                                                const float4* pln, int n_pl,
+                                                const Ray& r, float lo) {
+  float best = CUDART_INF_F;
+  for (int p = 0; p < n_sph; ++p) {
+    float r1, r2;
+    const bool ok = hit::sphere_roots(r, sph[2 * p], sph[2 * p + 1], &r1, &r2);
+    const float t = (ok && r1 >= lo) ? r1 : ((ok && r2 >= lo) ? r2 : CUDART_INF_F);
+    if (t < best) best = t;
+  }
+  for (int p = 0; p < n_pl; ++p) {
+    float t;
+    const bool ok = hit::planar_hit(r, pln[4 * p], pln[4 * p + 1],
+                                    pln[4 * p + 2], pln[4 * p + 3], &t);
+    if (ok && t >= lo && t <= CUDART_INF_F && t < best) best = t;
+  }
+  return best;
+}
+
+// Mean over lights of the per-light sampling pdf towards direction d from
+// point o (intersect.light_pdf_mean3)
+__device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
+  const float dd = dot(d, d);
+  float acc = 0.0f;
+  for (int i = 0; i < sc.n_light; ++i) {
+    const float* L = sc.lights + 20 * i;
+    const int kind = static_cast<int>(L[0]);
+    const V3 p0 = v3(L[1], L[2], L[3]);
+    if (kind == LIGHT_SPHERE) {
+      const V3 oc = sub(o, p0);
+      const float half_b = dot(oc, d);
+      const float radius = L[10];
+      const float dist_sq = dot(oc, oc);
+      const float c2 = dist_sq - radius * radius;
+      const float disc = half_b * half_b - dd * c2;
+      const float sq = sqrtf(clamp_min(disc, 0.0f));
+      const float r1 = (-half_b - sq) / dd;
+      const float r2 = (-half_b + sq) / dd;
+      const bool sph_hit = (disc >= 0.0f) &&
+                           ((r1 >= hit::kRayTMin && r1 <= CUDART_INF_F) ||
+                            (r2 >= hit::kRayTMin && r2 <= CUDART_INF_F));
+      const float cos_theta_max = sqrtf(1.0f - radius * radius / dist_sq);
+      const float solid_angle = kTwoPi * (1.0f - cos_theta_max);
+      acc = acc + (sph_hit ? 1.0f / solid_angle : 0.0f);
+      continue;
+    }
+    const V3 p1 = v3(L[4], L[5], L[6]);
+    const V3 p2 = v3(L[7], L[8], L[9]);
+    const V3 nrm = v3(L[11], L[12], L[13]);
+    float t_pl, denom;
+    bool ok;
+    if (kind == LIGHT_QUAD) {
+      denom = dot(d, nrm);
+      t_pl = (L[14] - dot(o, nrm)) / denom;
+      const V3 hp = v3(o.x + d.x * t_pl, o.y + d.y * t_pl, o.z + d.z * t_pl);
+      const V3 pv = sub(hp, p0);
+      const V3 w = v3(L[15], L[16], L[17]);
+      const float pu = dot(w, cross(pv, p2));
+      const float pvv = dot(w, cross(p1, pv));
+      ok = (fabsf(denom) >= hit::kAlmostZero) && (pu >= 0.0f) &&
+           (pu <= 1.0f) && (pvv >= 0.0f) && (pvv <= 1.0f) &&
+           (t_pl >= hit::kRayTMin && t_pl <= CUDART_INF_F);
+    } else {  // triangle: Moller-Trumbore on (v0, e1, e2)
+      const V3 pvec = cross(d, p2);
+      const float det = dot(p1, pvec);
+      const float inv_det = 1.0f / det;
+      const V3 tvec = sub(o, p0);
+      const V3 qvec = cross(tvec, p1);
+      const float bu = dot(tvec, pvec) * inv_det;
+      const float bv = dot(d, qvec) * inv_det;
+      t_pl = dot(p2, qvec) * inv_det;
+      denom = dot(d, nrm);
+      ok = (fabsf(det) >= hit::kAlmostZero) && (bu >= 0.0f) &&
+           (bu <= 1.0f) && (bv >= 0.0f) && (bu + bv <= 1.0f) &&
+           (t_pl >= hit::kRayTMin && t_pl <= CUDART_INF_F);
+    }
+    const float cos_planar = fabsf(denom) / sqrtf(dd);
+    acc = acc + (ok ? t_pl * t_pl * dd / (cos_planar * L[18]) : 0.0f);
+  }
+  return div_scalar(acc, static_cast<float>(sc.n_light));
+}
+
+// Direction from o towards a point sampled on light ``pick``
+// (intersect.sample_light_direction3)
+__device__ __forceinline__ V3 sample_light(const Scene& sc, V3 o, int pick,
+                                           float r1, float r2) {
+  const float* L = sc.lights + 20 * pick;
+  const V3 p0 = v3(L[1], L[2], L[3]);
+  if (static_cast<int>(L[0]) == LIGHT_SPHERE) {
+    const V3 to_c = sub(p0, o);
+    const float dist_sq = dot(to_c, to_c);
+    V3 t, b, n;
+    onb_from_w(to_c, &t, &b, &n);
+    return onb_local(t, b, n, to_sphere(L[10], dist_sq, r1, r2));
+  }
+  const V3 p1 = v3(L[4], L[5], L[6]);
+  const V3 p2 = v3(L[7], L[8], L[9]);
+  return sub(add(p0, add(scale(p1, r1), scale(p2, r2))), o);
+}
+
+// integrator._camera_rays for one pixel and sample
+__device__ __forceinline__ void camera_ray(const Scene& sc, int pixel,
+                                           int sample, uint32_t seed,
+                                           int width, int height, V3* o,
+                                           V3* d) {
+  const float* c = sc.cam;
+  const float x = static_cast<float>(pixel % width);
+  const float y = static_cast<float>(pixel / width);
+  const float4 j = uniform4(pixel, sample, 0, P_JITTER, seed);
+  const float u = div_scalar(x + j.x, static_cast<float>(width - 1));
+  const float v = div_scalar(y + j.y, static_cast<float>(height - 1));
+  const float4 l = uniform4(pixel, sample, 0, P_LENS, seed);
+  const float r = sqrtf(l.x);
+  const float phi = kTwoPi * l.y;
+  const float lr = c[18];
+  const float rd0 = r * cosf(phi) * lr;
+  const float rd1 = r * sinf(phi) * lr;
+  const bool use_lens = lr > 0.0f;
+  float oo[3], dd[3];
+  for (int k = 0; k < 3; ++k) {
+    const float off = use_lens ? c[12 + k] * rd0 + c[15 + k] * rd1 : 0.0f;
+    oo[k] = c[k] + off;
+    dd[k] = c[3 + k] + c[6 + k] * u + c[9 + k] * v - c[k] - off;
+  }
+  *o = v3(oo[0], oo[1], oo[2]);
+  *d = v3(dd[0], dd[1], dd[2]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    k5_render(Scene sc, int width, int height, int sample_start,
+              int n_samples, int max_depth, uint32_t seed, float* out_accum,
+              int* out_segments) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= width * height) return;
+  const float* bg = sc.cam + 19;
+  const int sample_end = sample_start + n_samples;
+
+  int sample = sample_start;
+  int bounce = 0;
+  int segments = 0;
+  V3 o, d;
+  camera_ray(sc, pix, sample, seed, width, height, &o, &d);
+  float acc_len = 0.0f;
+  float A[3] = {1.0f, 1.0f, 1.0f};
+  float B[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+  bool dead[3] = {false, false, false};
+  bool outer = false;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+
+  while (sample < sample_end) {
+    ++segments;
+    // --- scene hit: solids, then every medium in order -------------------
+    const Ray ray = hit::make_ray(o.x, o.y, o.z, d.x, d.y, d.z);
+    int slot;
+    float t = solid_sweep(sc, ray, &slot);
+    int medium = -1;
+    for (int m = 0; m < sc.n_media; ++m) {
+      const int s0 = sc.msph_off[m], s1 = sc.msph_off[m + 1];
+      const int p0 = sc.mpln_off[m], p1 = sc.mpln_off[m + 1];
+      const float4* ms = sc.msph + 2 * s0;
+      const float4* mp = sc.mpln + 4 * p0;
+      const float t1 = boundary_sweep(ms, s1 - s0, mp, p1 - p0, ray, -CUDART_INF_F);
+      const float t2 = boundary_sweep(ms, s1 - s0, mp, p1 - p0, ray,
+                                      t1 + 1e-4f);
+      const float u = uniform4(pix, sample, bounce, P_MEDIUM_BASE + m,
+                               seed).x;
+      const float t_m = hit::medium_event(ray, t1, t2, t, u, sc.med[4 * m]);
+      if (t_m < t) {
+        t = t_m;
+        medium = m;
+      }
+    }
+
+    const bool finite = isfinite(t);
+    const float t_safe = finite ? t : 0.0f;
+    const float total_len = acc_len + t_safe;
+    bool terminal = true;
+    float term[3] = {0.0f, 0.0f, 0.0f};
+    float term_af = 0.0f;
+
+    if (!finite) {
+      term[0] = bg[0]; term[1] = bg[1]; term[2] = bg[2];
+    } else if (bounce >= max_depth) {
+      // depth cap: a zero terminal color
+    } else {
+      // --- hit attributes (hit_attributes_soa + medium overrides) ---------
+      const V3 point = v3(o.x + d.x * t_safe, o.y + d.y * t_safe,
+                          o.z + d.z * t_safe);
+      V3 normal;
+      float tu, tv;
+      bool front;
+      int mat;
+      if (medium >= 0) {
+        const float4 pr = uniform4(pix, sample, bounce, P_PHASE, seed);
+        normal = unit_vector(pr.x, pr.y);
+        tu = 0.0f;
+        tv = 0.0f;
+        front = false;
+        mat = static_cast<int>(sc.med[4 * medium + 1]);
+      } else if (slot < sc.n_sph) {
+        const float4 a = sc.sph[2 * slot];
+        const float4 b = sc.sph[2 * slot + 1];
+        const V3 n_raw = sub(point, v3(a.x, a.y, a.z));
+        const V3 n_unit = unit(n_raw);
+        front = dot(d, n_unit) < 0.0f;
+        normal = front ? n_unit : neg(n_unit);
+        const float theta = acosf(clamp_max(clamp_min(-n_unit.y, -1.0f),
+                                            1.0f));
+        const float phi = -atan2f(n_unit.z, n_unit.x) + kPi;
+        tu = div_scalar(phi, kTwoPi);
+        tv = div_scalar(theta, kPi);
+        mat = static_cast<int>(b.y);
+      } else {
+        // the planar sweep row is the attribute row: quads then triangles
+        const float4* row = sc.pln + kPlnRow * (slot - sc.n_sph);
+        const float4 g1 = row[1], g2 = row[2], e = row[3];
+        const float4 nu = row[4], uv01 = row[5], uv2 = row[6];
+        const V3 n = v3(nu.x, nu.y, nu.z);
+        const float bu = dot(point, v3(g1.x, g1.y, g1.z)) + g1.w;
+        const float bv = dot(point, v3(g2.x, g2.y, g2.z)) + g2.w;
+        tu = uv01.x + bu * uv01.z + bv * uv2.x;
+        tv = uv01.y + bu * uv01.w + bv * uv2.y;
+        front = dot(d, n) < 0.0f;
+        normal = front ? n : neg(n);
+        mat = static_cast<int>(e.z);
+      }
+
+      // --- material (blend resolution, texture) ---------------------------
+      if (sc.flags & kFlagBlend) {
+        const float4 ub = uniform4(pix, sample, bounce, P_BLEND_SCATTER, seed);
+        const float ul[kMaxBlendDepth] = {ub.x, ub.y, ub.z};
+        for (int lvl = 0; lvl < kMaxBlendDepth; ++lvl) {
+          const MatRow r = mat_row(sc, mat);
+          if (r.kind == BLEND) mat = ul[lvl] > r.blend_factor ? r.m1 : r.m2;
+        }
+      }
+      const MatRow row = mat_row(sc, mat);
+      const V3 albedo = sample_texture(sc, row.albedo_tex, tu, tv);
+
+      if (row.kind == DIFFUSE_LIGHT) {
+        // emission (material/mod.rs:359-368)
+        if (front) {
+          term[0] = albedo.x; term[1] = albedo.y; term[2] = albedo.z;
+        }
+        term_af = row.atten;
+      } else {
+        terminal = false;
+        const bool is_iso = row.kind == ISOTROPIC;
+        const bool is_pdf = row.kind == LAMBERTIAN || is_iso;
+        float prob = 1.0f;
+        V3 new_dir;
+        if (row.kind == METAL) {
+          // metal (material/mod.rs:239-249)
+          const float4 f = uniform4(pix, sample, bounce, P_FUZZ, seed);
+          const V3 reflected = reflect(unit(d), normal);
+          new_dir = add(reflected, scale(in_unit_sphere(f.x, f.y, f.z),
+                                         row.fuzz));
+        } else if (row.kind == DIELECTRIC) {
+          // dielectric (material/mod.rs:279-316)
+          const float ior = row.ior;
+          const float rr = front ? 1.0f / ior : ior;
+          const V3 udir = unit(d);
+          const float cos_t = clamp_max(dot(neg(udir), normal), 1.0f);
+          const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
+          const bool cannot = rr * sin_t > 1.0f;
+          float r0 = (1.0f - rr) / (1.0f + rr);
+          r0 = r0 * r0;
+          const float q = 1.0f - cos_t;
+          const float q2 = q * q;
+          const float reflectance = r0 + (1.0f - r0) * (q * (q2 * q2));
+          const float u_d = uniform4(pix, sample, bounce, P_DIELECTRIC,
+                                     seed).x;
+          new_dir = (cannot || reflectance > u_d) ? reflect(udir, normal)
+                                                  : refract(udir, normal, rr);
+        } else {
+          // pdf-mixture scatter (material/mod.rs:191-207, 396-410)
+          const float4 rc = uniform4(pix, sample, bounce, P_COSINE, seed);
+          V3 ct, cb, cn;
+          onb_from_w(normal, &ct, &cb, &cn);
+          const V3 bsdf_dir =
+              is_iso ? unit_vector(rc.x, rc.y)
+                     : onb_local(ct, cb, cn, cosine_direction(rc.x, rc.y));
+          const float u_pick = uniform4(pix, sample, bounce, P_LIGHT_PICK,
+                                        seed).x;
+          int pick = static_cast<int>(u_pick *
+                                      static_cast<float>(sc.n_light));
+          pick = pick > sc.n_light - 1 ? sc.n_light - 1 : pick;
+          const float4 l = uniform4(pix, sample, bounce, P_LIGHT_SAMPLE,
+                                    seed);
+          const V3 light_dir = sample_light(sc, point, pick, l.x, l.y);
+          const float u_coin = uniform4(pix, sample, bounce, P_MIX_COIN,
+                                        seed).x;
+          const V3 pdf_dir = sel(u_coin < 0.5f, light_dir, bsdf_dir);
+          const float light_val = light_pdf_mean(sc, point, pdf_dir);
+          const V3 unit_pdf_dir = unit(pdf_dir);
+          const float cos_value =
+              div_scalar(clamp_min(dot(unit_pdf_dir, unit(normal)), 0.0f),
+                         kPi);
+          const float bsdf_val = is_iso ? kSphereValue : cos_value;
+          const float mix_val = 0.5f * light_val + 0.5f * bsdf_val;
+          const float cos_sc = dot(normal, unit_pdf_dir);
+          const float lamb_sc =
+              cos_sc < 0.0f ? 0.0f : div_scalar(cos_sc, kPi);
+          const float scat_pdf = is_iso ? kSphereValue : lamb_sc;
+          if (is_pdf) prob = scat_pdf / mix_val;
+          new_dir = pdf_dir;
+        }
+        // fold this scatter level (integrator.fold_scatter)
+        const float tape[3] = {albedo.x, albedo.y, albedo.z};
+        for (int c = 0; c < 3; ++c) {
+          const float a = tape[c] * prob;
+          const bool nan_a = a != a;
+          if (is_pdf) B[c] = nan_min(B[c], 3.0f * A[c]);
+          dead[c] = dead[c] || (is_pdf && nan_a) || (!is_pdf && nan_a && outer);
+          A[c] = A[c] * a;
+        }
+        outer = outer || is_pdf;
+        o = point;
+        d = new_dir;
+        bounce += 1;
+        acc_len = total_len;
+      }
+    }
+
+    if (terminal) {
+      // the terminal color through the folded clamps (fold_resolve)
+      const float att = term_af > 0.0f
+                            ? 1.0f / (1.0f + term_af * total_len) : 1.0f;
+      for (int c = 0; c < 3; ++c) {
+        const bool dead_t = dead[c] || ((term[c] != term[c]) && outer);
+        const float L = dead_t ? 0.0f : nan_min(A[c] * term[c], B[c]);
+        acc[c] = acc[c] + L * att;
+        A[c] = 1.0f;
+        B[c] = CUDART_INF_F;
+        dead[c] = false;
+      }
+      outer = false;
+      bounce = 0;
+      acc_len = 0.0f;
+      ++sample;
+      if (sample < sample_end)
+        camera_ray(sc, pix, sample, seed, width, height, &o, &d);
+    }
+  }
+  out_accum[3 * pix] = acc[0];
+  out_accum[3 * pix + 1] = acc[1];
+  out_accum[3 * pix + 2] = acc[2];
+  out_segments[pix] = segments;
+}
+
+}  // namespace
+
+extern "C" int k5_render_launch(
+    const float* cam, const float* sph, int n_sph, const float* pln, int n_pl,
+    const float* mats, int n_mat, const float* tex_attr, int n_tex,
+    const float* texels, int n_texels, const float* lights, int n_light,
+    const float* msph, const float* mpln, const int* msph_off,
+    const int* mpln_off, const float* med, int n_media, int width, int height,
+    int sample_start, int n_samples, int max_depth, int seed, int flags,
+    float* out_accum, int* out_segments, void* stream) {
+  const int n_pix = width * height;
+  if (n_pix > 0) {
+    Scene sc;
+    sc.cam = cam;
+    sc.sph = reinterpret_cast<const float4*>(sph);
+    sc.n_sph = n_sph;
+    sc.pln = reinterpret_cast<const float4*>(pln);
+    sc.n_pl = n_pl;
+    sc.mats = mats;
+    sc.n_mat = n_mat;
+    sc.tex_attr = tex_attr;
+    sc.n_tex = n_tex;
+    sc.texels = texels;
+    sc.n_texels = n_texels;
+    sc.lights = lights;
+    sc.n_light = n_light;
+    sc.msph = reinterpret_cast<const float4*>(msph);
+    sc.mpln = reinterpret_cast<const float4*>(mpln);
+    sc.msph_off = msph_off;
+    sc.mpln_off = mpln_off;
+    sc.med = med;
+    sc.n_media = n_media;
+    sc.flags = flags;
+    k5_render<<<(n_pix + kThreads - 1) / kThreads, kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+        sc, width, height, sample_start, n_samples, max_depth,
+        static_cast<uint32_t>(seed), out_accum, out_segments);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

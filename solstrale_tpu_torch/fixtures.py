@@ -133,6 +133,91 @@ def mixed_bvh_scene(render_config, n_cells=48, seed=7, api=None):
                      render_config)
 
 
+def kitchen_sink_solid_scene(render_config, api=None):
+    """The render megakernel's workload: the solid-colour analogue of the
+    kitchen-sink scene, with every material kind K5 dispatches (lambertian,
+    metal, dielectric, light, blend), a constant medium, an attenuated quad
+    light and a thin-lens camera — the JAX package's
+    ``tests/test_megakernel.py::_mini_kitchen_sink``, line for line."""
+    api = _api(api)
+    camera = api.CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.1,
+                              look_from=(-5.0, 3.0, 6.0),
+                              look_at=(0.25, 1.0, 0.0))
+    red = api.Lambertian(api.SolidColor(1, 0, 0))
+    world = [
+        api.Quad((-5, 0, -15), (20, 0, 0), (0, 0, 20),
+                 api.Blend(api.Lambertian(api.SolidColor(0.3, 0.6, 0.3)),
+                           api.Metal(api.SolidColor(0.8, 0.8, 0.9), None,
+                                     0.2), 0.4)),
+        api.Sphere((-1, 1, 0), 1.0,
+                   api.Dielectric(api.SolidColor(1, 1, 1), None, 1.5)),
+        api.ConstantMedium(
+            api.Bvh(api.new_box((0, 0, 0.5), (1, 2, 1.5), red)), 0.1,
+            (1, 1, 1)),
+        api.Sphere((10, 5, 10), 10.0, api.DiffuseLight(10, 10, 10)),
+        api.Quad((-1, 10, -1), (2, 0, 0), (0, 0, 2),
+                 api.DiffuseLight(12, 12, 12, attenuation_half_length=10.0)),
+    ]
+    world += api.new_box((0, 0, -0.5), (1, 2, 0.5), red)
+    return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
+
+
+def kitchen_sink_scene(render_config, api=None, normal_map=True):
+    """The reference's kitchen-sink scene (quads, glass sphere, boxes, a
+    constant medium, a triangle grid, sphere / quad / triangle lights) —
+    the JAX package's ``tests/scenes.py::create_test_scene``, line for line,
+    with the ground's image texture made by ``procedural_textures`` instead
+    of loaded, and a normal map (``height_to_normal_map``) on the ground.
+    The normal map keeps the scene off the megakernel in both packages: it
+    takes the wavefront with the fused scene hit (K4). Without it
+    (``normal_map=False``) the megakernel gate accepts the scene: it is
+    K5's case with an image texture, triangle prims and a triangle light."""
+    api = _api(api)
+    albedo, height = procedural_textures()
+    normal = (api.ImageMap(_submodule(api, "utils").height_to_normal_map(
+        height)) if normal_map else None)
+    camera = api.CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.1,
+                              look_from=(-5.0, 3.0, 6.0),
+                              look_at=(0.25, 1.0, 0.0))
+    world = []
+    ground = api.Lambertian(api.ImageMap(albedo), normal)
+    glass = api.Dielectric(api.SolidColor(1.0, 1.0, 1.0), None, 1.5)
+    light = api.DiffuseLight(10.0, 10.0, 10.0)
+    red = api.Lambertian(api.SolidColor(1.0, 0.0, 0.0))
+
+    world.append(api.Quad((-5, 0, -15), (20, 0, 0), (0, 0, 20), ground))
+    world.append(api.Sphere((-1, 1, 0), 1.0, glass))
+    world += api.new_box((0, 0, -0.5), (1, 2, 0.5), red, api.RotationY(15.0))
+    world.append(api.ConstantMedium(
+        api.Bvh(api.new_box((0, 0, -0.5), (1, 2, 0.5), red,
+                            api.Translation((0, 0, 1)))),
+        0.1, (1, 1, 1)))
+    world += api.new_box((-1, 2, 0), (-0.5, 2.5, 0.5), red)
+
+    balls = []
+    for ii in range(0, 10, 2):
+        i = ii * 0.1
+        for jj in range(0, 10, 2):
+            j = jj * 0.1
+            for kk in range(0, 10, 2):
+                k = kk * 0.1
+                balls.append(api.Triangle((i, j + 0.05, k + 0.8),
+                                          (i, j, k + 0.8),
+                                          (i, j + 0.05, k), red))
+    world.append(api.Bvh(balls))
+    world.append(api.Triangle((1, 0.1, 2), (3, 0.1, 2), (2, 0.1, 1), red))
+
+    # lights
+    world.append(api.Sphere((10, 5, 10), 10.0, light))
+    world.append(api.Quad((0, 0, 0), (2, 0, 0), (0, 0, 2), light,
+                          api.Transformations([api.RotationY(45.0),
+                                               api.Translation((-1, 10,
+                                                                -1))])))
+    world.append(api.Triangle((-2, 1, -3), (0, 1, -3), (-1, 2, -3), light))
+
+    return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
+
+
 def small_scene(render_config, api=None):
     """The README scene (a sphere light above a yellow sphere, below 512
     solids: the sweep path) plus one constant-medium box."""

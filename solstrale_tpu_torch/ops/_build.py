@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``), and the
 plumbing every kernel wrapper shares (pointers, stream, input checks).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. Nothing here runs at import:
-the first kernel launch builds the library into ``_build/`` (named by a
-hash of the sources and flags, so an edited source rebuilds) and later
+The sources compile with ``nvcc`` for ``sm_90a`` (one process per source,
+all started together) and link into one shared library with a plain C
+interface, loaded with ctypes. Nothing here runs at import: the first
+kernel launch builds the library into ``_build/`` (named by a hash of the
+sources, headers and flags, so an edited source rebuilds) and later
 launches reuse it.
 
 Flags, and why:
@@ -22,7 +23,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -30,10 +33,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("bvh.cu", "sweep.cu")
+SOURCES = ("bvh.cu", "sweep.cu", "megakernel.cu")
+HEADERS = ("hit.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +45,11 @@ _SIGNATURES = {
     "k1_bvh_launch": [_P] * 7 + [_P, _P, _I, _I, _I, _P, _P, _P],
     "k2_sweep_launch": [_P] * 8 + [_P, _I, _P, _I, _I, _P, _P, _P],
     "k3_medium_launch": [_P] * 8 + [_P, _I, _P, _I, _P, _I, _P, _P],
+    "k4_scene_hit_launch": [_P] * 7 + [_P, _I, _P, _I, _P, _P, _P, _P, _P,
+                                       _I, _I, _P, _P, _P],
+    "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P],
 }
 
 
@@ -62,7 +70,7 @@ def _nvcc():
 def library_path():
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((_SRC / name).read_bytes())
     return _BUILD / f"libsolstrale_kernels_{h.hexdigest()[:16]}.so"
 
@@ -75,23 +83,35 @@ class BuildInfo:
     log = ""
 
 
+def _nvcc_run(args):
+    """Run nvcc; returns its output, raises RuntimeError on failure."""
+    proc = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(proc.args)}\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build():
-    """Compile the kernels unless the library for these sources exists.
-    Returns its path; raises RuntimeError with nvcc's output on failure."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all started together, then one link. Returns the
+    library's path; raises RuntimeError with nvcc's output on failure."""
     so = library_path()
     if so.exists():
         return so
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_SRC / s) for s in SOURCES]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD) as objdir, \
+            ThreadPoolExecutor(len(SOURCES)) as pool:
+        objs = [str(Path(objdir) / f"{Path(s).stem}.o") for s in SOURCES]
+        logs = list(pool.map(
+            lambda src, obj: _nvcc_run([*NVCC_FLAGS, "-c", "-o", obj,
+                                        str(_SRC / src)]), SOURCES, objs))
+        logs.append(_nvcc_run(["-shared", "-o", str(tmp), *objs]))
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BuildInfo.log}")
+    BuildInfo.log = "".join(logs)
     so.with_suffix(".log").write_text(BuildInfo.log)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
     return so

@@ -1,5 +1,6 @@
-"""Brute-force sweeps: closest hit over the sphere + planar tables (K2) and
-one constant medium's scattering event (K3).
+"""Brute-force sweeps: closest hit over the sphere + planar tables (K2),
+one constant medium's scattering event (K3), and both fused into the whole
+scene hit of a scene without a BVH (K4).
 
 Each has a hand-written CUDA kernel (``csrc/sweep.cu``) and a plain PyTorch
 version with the same formulas, op for op (the JAX package's
@@ -13,6 +14,8 @@ Tables (``Solids.sph_table`` / ``Solids.pl_table``):
 Rays are component tuples of (R,) f32 tensors (``geo/soa.py``).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -153,6 +156,75 @@ def medium_hit_plain(sph, pln, neg_inv_density, o, d, t_solid, u_flight):
     return out
 
 
+@dataclass(frozen=True)
+class MediaTables:
+    """Every medium's boundary tables packed into one sphere and one planar
+    table (K4's and K5's layout): medium m owns rows ``sph_off[m]:
+    sph_off[m+1]`` and ``pl_off[m]:pl_off[m+1]``. The offsets are kept both
+    on the host (the plain versions slice with them) and as int32 tensors on
+    the tables' device (the kernels read them)."""
+
+    sph: torch.Tensor        # (sum S_m, 8) f32
+    pln: torch.Tensor        # (sum P_m, 16) f32
+    sph_off: tuple           # M+1 host ints
+    pl_off: tuple
+    sph_off_t: torch.Tensor  # (M+1,) int32
+    pl_off_t: torch.Tensor
+    nid: torch.Tensor        # (M,) f32 neg_inv_density
+    mat: torch.Tensor        # (M,) int32 phase material
+
+    @property
+    def n_media(self):
+        return len(self.sph_off) - 1
+
+    def boundary(self, m):
+        """Medium m's (sphere, planar) table views."""
+        return (self.sph[self.sph_off[m]:self.sph_off[m + 1]],
+                self.pln[self.pl_off[m]:self.pl_off[m + 1]])
+
+
+def pack_media(media, device):
+    """MediaTables of a CompiledScene's ``media`` (tuple of Medium)."""
+    def offsets(tables):
+        out = [0]
+        for t in tables:
+            out.append(out[-1] + t.shape[0])
+        return tuple(out)
+
+    sphs = [m.boundary.sph_table for m in media]
+    plns = [m.boundary.pl_table for m in media]
+    f32 = dict(dtype=torch.float32, device=device)
+    sph_off, pl_off = offsets(sphs), offsets(plns)
+    return MediaTables(
+        sph=torch.cat(sphs).contiguous() if media else torch.zeros((0, 8), **f32),
+        pln=torch.cat(plns).contiguous() if media else torch.zeros((0, 16), **f32),
+        sph_off=sph_off, pl_off=pl_off,
+        sph_off_t=torch.tensor(sph_off, dtype=torch.int32, device=device),
+        pl_off_t=torch.tensor(pl_off, dtype=torch.int32, device=device),
+        nid=(torch.stack([m.neg_inv_density for m in media]).to(torch.float32)
+             if media else torch.zeros((0,), **f32)),
+        mat=(torch.stack([m.mat for m in media]).to(torch.int32) if media
+             else torch.zeros((0,), dtype=torch.int32, device=device)))
+
+
+def scene_hit_plain(sph, pln, media: MediaTables, o, d, u_flights):
+    """Plain PyTorch K4: K2 over the solid tables on [RAY_T_MIN, inf), then
+    K3 for each medium in order, each clipped to the best t so far (the
+    events of the media before it included). ``u_flights`` is (M, R).
+    Returns (t, slot): slot < S sphere, S + p planar row p, S + P + m
+    medium m, -1 a miss (t = INF)."""
+    t, slot = closest_hit_plain(sph, pln, o, d, RAY_T_MIN, INF)
+    base = sph.shape[0] + pln.shape[0]
+    for m in range(media.n_media):
+        msph, mpln = media.boundary(m)
+        t_m = medium_hit_plain(msph, mpln, media.nid[m], o, d, t,
+                               u_flights[m])
+        is_med = t_m < t
+        t = torch.where(is_med, t_m, t)
+        slot = torch.where(is_med, base + m, slot)
+    return t, slot
+
+
 # --- wrappers ---------------------------------------------------------------
 
 def closest_hit(sph, pln, o, d, tmin, tmax, spheres_only=False):
@@ -210,3 +282,39 @@ def medium_hit(sph, pln, neg_inv_density, o, d, t_solid, u_flight):
 
 
 medium_hit.launches = 0
+
+
+def scene_hit(sph, pln, media: MediaTables, o, d, u_flights):
+    """K4: the whole scene hit of a scene without a BVH in one launch —
+    closest solid hit plus every medium's event (``scene_hit_plain`` says
+    what it computes). ``u_flights`` is (M, R) f32. Returns (t, slot)."""
+    rays = _build.ray_components(o, d)
+    u_flights = u_flights.contiguous()
+    dev, r = _build.check_rays(rays, sph, pln, media.sph, media.pln,
+                               media.nid, u_flights)
+    if u_flights.shape != (media.n_media, r):
+        raise ValueError("scene_hit: u_flights must be (n_media, R)")
+    if dev.type == "cpu":
+        return scene_hit_plain(sph, pln, media, rays[:3], rays[3:],
+                               u_flights)
+    if dev.type != "cuda":
+        raise ValueError(f"scene_hit: unsupported device {dev}")
+    if sph.shape[1] != 8 or pln.shape[1] != 16 or media.sph.shape[1] != 8 \
+            or media.pln.shape[1] != 16:
+        raise ValueError("scene_hit: tables must be (S, 8) and (P, 16)")
+    if media.sph_off_t.device != dev or media.pl_off_t.device != dev:
+        raise ValueError("scene_hit: media offsets must be on the rays' device")
+    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+    out_s = torch.empty((r,), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = _build.library().k4_scene_hit_launch(
+        *(p(x) for x in rays), p(u_flights), p(sph), sph.shape[0], p(pln),
+        pln.shape[0], p(media.sph), p(media.pln), p(media.sph_off_t),
+        p(media.pl_off_t), p(media.nid), media.n_media, r, p(out_t),
+        p(out_s), _build.stream_of(out_t))
+    _build.check(err, "k4_scene_hit")
+    scene_hit.launches += 1
+    return out_t, out_s
+
+
+scene_hit.launches = 0

@@ -1,13 +1,15 @@
 """Where one render batch spends its time on the card.
 
-    python -m solstrale_tpu_torch.profiling [--scene sponza|mixed]
+    python -m solstrale_tpu_torch.profiling [--scene sponza|mixed|kitchen]
 
-Compiles the fixture scene (1920x1080, 362 terrain cells: the
-262,088-triangle interior) on the GPU, warms up, then times one
+Compiles the fixture scene (1920x1080; sponza and mixed: 362 terrain
+cells, the 262,088-triangle interior; kitchen: the normal-mapped
+kitchen-sink scene, which takes the wavefront with the fused scene hit) on
+the GPU, warms up, then times one
 ``render_sample_batch`` (1 spp, depth 50) twice: once bare (CUDA-synced
 host clock: the end-to-end number) and once under ``torch.profiler``
 (device time per kernel name, the device's busy and idle share of the
-profiled wall time, and the three hit kernels' share). Prints one JSON
+profiled wall time, and the hit kernels' share). Prints one JSON
 object. Needs a CUDA device; there is no CPU fallback.
 """
 from __future__ import annotations
@@ -19,7 +21,8 @@ from collections import defaultdict
 
 import torch
 
-HIT_KERNELS = ("k1_bvh", "k2_sweep", "k3_medium")
+HIT_KERNELS = ("k1_bvh", "k2_sweep", "k3_medium", "k4_scene_hit",
+               "k5_render")
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
 
@@ -31,6 +34,8 @@ def _scene(name):
                          seed=1)
     if name == "sponza":
         return fixtures.sponza_class_scene(cfg, n_cells=N_CELLS)
+    if name == "kitchen":
+        return fixtures.kitchen_sink_scene(cfg)
     return fixtures.mixed_bvh_scene(cfg, n_cells=N_CELLS)
 
 
@@ -92,7 +97,8 @@ def profile_batch(scene_name="sponza"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", choices=("sponza", "mixed"), default="sponza")
+    ap.add_argument("--scene", choices=("sponza", "mixed", "kitchen"),
+                    default="sponza")
     args = ap.parse_args(argv)
     print(json.dumps(profile_batch(args.scene)))
 

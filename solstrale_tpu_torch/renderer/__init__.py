@@ -82,13 +82,9 @@ class Renderer:
 
     def __init__(self, scene, device="cuda"):
         from ..post import NopPostProcessor
-        from ..scene.compile import compile_scene
+        from ..scene.compile import _target_device, compile_scene
 
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"Renderer: device {self.device} requested but "
-                "torch.cuda.is_available() is false")
+        self.device = _target_device(device, "Renderer")
         self.scene = scene
         self.config = scene.render_config
         # raises "Scene should have at least one light" (renderer/mod.rs:143)

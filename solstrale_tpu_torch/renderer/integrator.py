@@ -2,10 +2,13 @@
 
 Port of the JAX package's ``renderer/integrator.py`` main path: a fixed
 pool of lanes drains the global (pixel, sample) work queue
-(``trace_queued``); every iteration runs ``scene_hit`` (the BVH / sweep /
-medium kernels), ``full_hit_attributes``, ``scatter`` (materials, blend,
-textures, normal maps, the 50/50 NEE mixture), the forward clamp-fold and
-the accumulation of finished paths.
+(``trace_queued``); every iteration runs ``path_step``: ``scene_hit`` (the
+BVH kernels K1-K3, or the fused scene hit K4 below 512 solids),
+``full_hit_attributes``, ``scatter`` (materials, blend, textures, normal
+maps, the 50/50 NEE mixture) and the forward clamp-fold, then accumulates
+the finished paths. Scenes the megakernel gate accepts skip the wavefront:
+``render_sample_batch`` renders their whole batch in one launch of K5
+(``renderer/megakernel.py``), whose plain version runs ``path_step`` too.
 
 The reference's nested ``clamp(<=3) + NaN->0`` ScatterPdf semantics
 (shader.rs:95-125) are folded forward with O(1) per-lane state using
@@ -20,6 +23,7 @@ sync per iteration.
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 
@@ -29,11 +33,13 @@ from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
                        unit3, vneg, vscale, where3)
 from ..ops import rng
 from ..ops.bvh import bvh_closest_hit
-from ..ops.intersect import (closest_solid_hit, hit_attributes_soa,
-                             light_pdf_mean3, medium_hit,
-                             sample_light_direction3, table_rows)
+from ..ops.sweep import pack_media
+from ..ops.intersect import (hit_attributes_soa, light_pdf_mean3,
+                             medium_hit, sample_light_direction3,
+                             scene_hit_fused, table_rows)
 from ..scene.compile import (BLEND, DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC,
                              KIND_MEDIUM, LAMBERTIAN, METAL, CompiledScene)
+from . import megakernel
 
 MAX_BLEND_DEPTH = 3
 _MEDIUM_PURPOSE_BASE = 16  # per-medium free-flight draw purposes
@@ -106,17 +112,44 @@ def shading_normal_of(cs, mat_id, attrs, row=None):
     return where3(ntex >= 0, mapped, attrs["normal"])
 
 
-def scene_hit(cs: CompiledScene, o, d, pix, sample, bounce, seed):
+_PER_SCENE = {}
+
+
+def per_scene(cs: CompiledScene, name, make):
+    """``make()``, computed once per compiled scene and dropped when the scene
+    is collected: the kernels' packed tables (K4's media, K5's scene). The
+    compiled scene itself stays a plain record of tables."""
+    key = (id(cs), name)
+    if key not in _PER_SCENE:
+        _PER_SCENE[key] = make()
+        weakref.finalize(cs, _PER_SCENE.pop, key, None)
+    return _PER_SCENE[key]
+
+
+def media_tables(cs: CompiledScene):
+    """Every medium's boundary packed for the fused scene hit (K4) and the
+    render megakernel (K5): ``ops.sweep.MediaTables``."""
+    return per_scene(cs, "media", lambda: pack_media(cs.media, cs.device))
+
+
+def scene_hit(cs: CompiledScene, o, d, pix, sample, bounce, seed,
+              plain=False):
     """world.hit: closest solid hit plus constant-medium events. Returns
     (t, kind, idx) with kind = KIND_MEDIUM for volume scattering.
 
     BVH scenes: K1 over planar prims, min-combined with K2 in spheres-only
-    mode. Other scenes: K2 over both tables. Then K3 per medium."""
-    if cs.kbvh is not None:
-        t, kind, idx = bvh_closest_hit(cs.kbvh, cs.solids, o, d, RAY_T_MIN,
-                                       INF)
-    else:
-        t, kind, idx = closest_solid_hit(cs.solids, o, d, RAY_T_MIN, INF)
+    mode, then K3 per medium. Other scenes: the fused K4 (its plain version
+    if ``plain``), one launch for the solids and every medium. Medium m
+    draws its free-flight uniform with purpose _MEDIUM_PURPOSE_BASE + m."""
+    if cs.kbvh is None:
+        u = [rng.uniform(pix, sample, bounce, _MEDIUM_PURPOSE_BASE + m_i,
+                         seed) for m_i in range(len(cs.media))]
+        u_flights = (torch.stack(u) if u else
+                     torch.zeros((0, o[0].shape[0]), dtype=torch.float32,
+                                 device=o[0].device))
+        return scene_hit_fused(cs.solids, media_tables(cs), o, d, u_flights,
+                               plain=plain)
+    t, kind, idx = bvh_closest_hit(cs.kbvh, cs.solids, o, d, RAY_T_MIN, INF)
     for m_i, med in enumerate(cs.media):
         u = rng.uniform(pix, sample, bounce, _MEDIUM_PURPOSE_BASE + m_i, seed)
         t_m = medium_hit(med, o, d, t, u)
@@ -311,6 +344,62 @@ def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
     )
 
 
+def path_step(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel, sample,
+              seed, active, max_depth, plain=False):
+    """One bounce of every lane, the body that ``trace_queued`` and the
+    plain megakernel share: scene hit, attributes, scatter, terminal
+    classification, the terminal color through the clamp-fold, and the fold
+    of this bounce's scatter level. ``plain`` takes the scene hit's plain
+    version (no kernel). Returns a dict:
+
+    - ``terminal``: lanes whose path ended here (miss, depth cap, emission);
+    - ``miss``, ``capped``, ``emit``, ``scat``: the four kinds of segment
+      (``terminal`` is the first three), and ``is_pdf``: a scatter with the
+      NEE mixture (Lambertian, isotropic) rather than metal or dielectric;
+    - ``color``: (R, 3) contributions of the ended paths;
+    - ``o``, ``d``, ``bounce``, ``acc_len``: the state a lane that goes on
+      carries (a terminal lane's are the caller's to regenerate);
+    - ``fold``: the fold state, already reset on terminal lanes."""
+    t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed,
+                             plain=plain)
+    finite = torch.isfinite(t)
+    miss = active & ~finite
+    t_safe = torch.where(finite, t, 0.0)
+    attrs = full_hit_attributes(cs, o, d, t_safe, kind, idx, pixel, sample,
+                                bounce, seed)
+    sc = scatter(cs, o, d, attrs, pixel, sample, bounce, seed)
+
+    capped = active & finite & (bounce >= max_depth)
+    emit = active & finite & ~capped & sc["is_emission"]
+    scat = active & finite & ~capped & ~sc["is_emission"]
+    terminal = miss | capped | emit
+
+    total_len = acc_len + t_safe
+    term_color = tuple(
+        torch.where(miss, cs.bg_color[c],
+                    torch.where(emit, sc["emit_color"][c], 0.0))
+        for c in range(3))
+    term_af = torch.where(emit, sc["atten"], 0.0)
+    term_acc = torch.where(emit, total_len, 0.0)
+    L = fold_resolve(fold, term_color)
+    att = torch.where(term_af > 0.0, 1.0 / (1.0 + term_af * term_acc), 1.0)
+
+    # fold this bounce's scatter level; reset terminal lanes
+    A, B, dead, outer = fold_scatter(fold, sc["tape_color"], sc["prob"],
+                                     sc["is_pdf"], scat)
+    fold = (tuple(torch.where(terminal, 1.0, A[c]) for c in range(3)),
+            tuple(torch.where(terminal, INF, B[c]) for c in range(3)),
+            tuple(torch.where(terminal, False, dead[c]) for c in range(3)),
+            torch.where(terminal, False, outer))
+    return dict(terminal=terminal, miss=miss, capped=capped, emit=emit,
+                scat=scat, is_pdf=sc["is_pdf"],
+                color=torch.stack([L[c] * att for c in range(3)], -1),
+                o=where3(scat, attrs["point"], o),
+                d=where3(scat, sc["new_dir"], d),
+                bounce=torch.where(scat, bounce + 1, bounce),
+                acc_len=torch.where(scat, total_len, acc_len), fold=fold)
+
+
 def _tile_swizzle(width, height):
     """Screen tile for the full-image queue order: consecutive queue slots
     cover a (tw x th) tile, so neighbouring lanes trace neighbouring
@@ -406,45 +495,13 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
     def one_step(state, next_q):
         qpos = state["qpos"]
         pixel, sample = assignment(torch.clamp(qpos, max=total_q - 1))
-        o, d = state["o"], state["d"]
-        bounce = state["bounce"]
         active = qpos < total_q
-
-        t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed)
-        finite = torch.isfinite(t)
-        miss = active & ~finite
-        t_safe = torch.where(finite, t, 0.0)
-        attrs = full_hit_attributes(cs, o, d, t_safe, kind, idx, pixel,
-                                    sample, bounce, seed)
-        sc = scatter(cs, o, d, attrs, pixel, sample, bounce, seed)
-
-        capped = active & finite & (bounce >= max_depth)
-        emit = active & finite & ~capped & sc["is_emission"]
-        scat = active & finite & ~capped & ~sc["is_emission"]
-        terminal = miss | capped | emit
-
-        total_len = state["acc_len"] + t_safe
-        term_color = tuple(
-            torch.where(miss, cs.bg_color[c],
-                        torch.where(emit, sc["emit_color"][c], 0.0))
-            for c in range(3))
-        term_af = torch.where(emit, sc["atten"], 0.0)
-        term_acc = torch.where(emit, total_len, 0.0)
-        L = fold_resolve(state["fold"], term_color)
-        att = torch.where(term_af > 0.0, 1.0 / (1.0 + term_af * term_acc),
-                          1.0)
+        st = path_step(cs, state["o"], state["d"], state["bounce"],
+                       state["acc_len"], state["fold"], pixel, sample, seed,
+                       active, max_depth)
+        terminal = st["terminal"]
         row = (qpos // n_pix) * n_pix + pixel
-        accum.index_put_((torch.where(terminal, row, total_q),),
-                         torch.stack([L[c] * att for c in range(3)], -1))
-
-        # fold this bounce's scatter level; reset regenerated lanes
-        A, B, dead, outer = fold_scatter(state["fold"], sc["tape_color"],
-                                         sc["prob"], sc["is_pdf"], scat)
-        fold = (tuple(torch.where(terminal, 1.0, A[c]) for c in range(3)),
-                tuple(torch.where(terminal, INF, B[c]) for c in range(3)),
-                tuple(torch.where(terminal, False, dead[c])
-                      for c in range(3)),
-                torch.where(terminal, False, outer))
+        accum.index_put_((torch.where(terminal, row, total_q),), st["color"])
 
         # terminal lanes claim the next queue positions (exclusive cumsum)
         term_i = terminal.to(torch.int64)
@@ -452,15 +509,14 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
         new_qpos = torch.where(terminal, next_q + rank, qpos)
         next_q = next_q + term_i.sum()
         o_new, d_new = cam(new_qpos)
-        o2 = where3(terminal, o_new, where3(scat, attrs["point"], o))
-        d2 = where3(terminal, d_new, where3(scat, sc["new_dir"], d))
-        bounce2 = torch.where(terminal, 0,
-                              torch.where(scat, bounce + 1, bounce))
-        acc2 = torch.where(terminal, 0.0,
-                           torch.where(scat, total_len, state["acc_len"]))
         segments.add_(active.sum())
-        return dict(qpos=new_qpos, bounce=bounce2.to(torch.int32), o=o2,
-                    d=d2, acc_len=acc2, fold=fold), next_q
+        return dict(qpos=new_qpos,
+                    bounce=torch.where(terminal, 0, st["bounce"]).to(
+                        torch.int32),
+                    o=where3(terminal, o_new, st["o"]),
+                    d=where3(terminal, d_new, st["d"]),
+                    acc_len=torch.where(terminal, 0.0, st["acc_len"]),
+                    fold=st["fold"]), next_q
 
     tail_lanes = lanes // 8 if lanes >= 32768 else 0
     iters_wide = iters_tail = 0
@@ -503,11 +559,14 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
 def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
                         height, max_depth, shader_kind, need_aux, n_samples,
                         stats=None):
-    """Accumulate n_samples consecutive sample passes with the work-queue
-    wavefront. Returns summed (pixel, albedo, normal) (height, width, 3)
-    planes in image-row order (top row first, renderer/mod.rs:261) plus the
-    traced-segment count. Only the path-tracing shader without aux
-    channels is ported."""
+    """Accumulate n_samples consecutive sample passes: in one launch of the
+    render megakernel (K5) when ``megakernel_supported`` accepts the scene,
+    else with the work-queue wavefront. Returns summed (pixel, albedo,
+    normal) (height, width, 3) planes in image-row order (top row first,
+    renderer/mod.rs:261) plus the traced-segment count. Only the
+    path-tracing shader without aux channels is ported. ``stats`` receives
+    the wavefront's iteration counts (it stays empty on the K5 route)."""
+
     if shader_kind != SHADER_PATH:
         raise NotImplementedError(
             "debug shaders (albedo/normal/simple) are not ported yet "
@@ -516,9 +575,15 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
         raise NotImplementedError(
             "albedo/normal aux channels are not ported yet (ROADMAP queue "
             "A: debug shaders and aux channels)")
-    color, segments = trace_queued(cs, sample_start, n_samples, seed,
-                                   width=width, height=height,
-                                   max_depth=max_depth, stats=stats)
+    if megakernel.megakernel_supported(cs, need_aux=need_aux,
+                                       shader_kind=shader_kind):
+        color, segments = megakernel.render_batch_megakernel(
+            cs, sample_start, n_samples, seed, width=width, height=height,
+            max_depth=max_depth)
+    else:
+        color, segments = trace_queued(cs, sample_start, n_samples, seed,
+                                       width=width, height=height,
+                                       max_depth=max_depth, stats=stats)
     image = torch.flip(color.reshape(height, width, 3), dims=(0,))
     zero = torch.zeros_like(image)
     return image, zero, zero, segments

@@ -1,0 +1,243 @@
+"""The render megakernel (K5): a whole progressive sample batch of a small
+scene in one launch.
+
+Replaces the JAX package's ``renderer/megakernel.py::render_batch_megakernel``
+(TPU kernel ``_render_kernel``). Execution model, as there: one lane per
+pixel traces the pixel's ``n_samples`` paths back to back — camera ray,
+scene hit with every medium, attributes, material scatter with the 50/50
+NEE mixture, clamp-fold — and when a path ends it folds the path's color
+into the pixel's own accumulator, in sample order, and starts the pixel's
+next sample. Nothing crosses lanes. The randomness is the same counter
+hash as the wavefront's (``ops/rng.py``), so K5 reproduces ``trace_queued``
+draw for draw.
+
+- ``render_batch_megakernel``: the wrapper. CPU scenes take the plain
+  version; CUDA scenes launch the hand-written kernel
+  (``csrc/megakernel.cu``) or raise.
+- ``render_batch_megakernel_plain``: K5 in torch with K5's execution model.
+  Its body is ``integrator.path_step``, the step ``trace_queued`` runs, with
+  the scene hit's plain version: no kernel runs in it on any device.
+- ``megakernel_supported``: the static gate that sends a render to K5.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..geo.soa import where3
+from ..ops import _build
+from ..ops.sweep import MediaTables
+from ..scene.compile import CompiledScene
+
+# gate limits (megakernel.py:887-895 of the JAX package)
+MAX_PLANAR = 1024
+MAX_SPHERES = 128
+MAX_LIGHTS = 32
+MAX_MATERIALS = 64
+MAX_TEXTURES = 64
+MAX_MEDIUM_PLANAR = 64
+
+# k5_render_launch flag bits
+_FLAG_BLEND = 1
+
+
+def megakernel_supported(cs: CompiledScene, *, need_aux, shader_kind):
+    """Static gate: the megakernel covers path-tracing renders of scenes
+    without a BVH and without normal maps, within the JAX gate's table
+    limits. Everything else uses the wavefront integrator.
+
+    The JAX gate's two image-texture conditions (every texel u8-exact, the
+    ``image_tex_u8`` flag, and the u8 arena within ``ARENA_SMEM_BYTES``)
+    exist only for the TPU kernel's u8 SMEM texture arena. K5 reads the f32
+    texel table (``TexArena.pixels``) directly, as ``sample_texture`` does,
+    so it has neither condition."""
+    if shader_kind != 0 or need_aux:
+        return False
+    if cs.bvh is not None:          # large scenes: the BVH wavefront
+        return False
+    if "normal_maps" in cs.features:
+        return False
+    if cs.solids.pl_n.shape[0] > MAX_PLANAR or \
+            cs.solids.sph_center.shape[0] > MAX_SPHERES:
+        return False
+    if cs.lights.kind.shape[0] > MAX_LIGHTS or \
+            cs.materials.kind.shape[0] > MAX_MATERIALS:
+        return False
+    if cs.textures.attr.shape[0] > MAX_TEXTURES:
+        return False
+    return all(med.boundary.pl_n.shape[0] <= MAX_MEDIUM_PLANAR
+               for med in cs.media)
+
+
+@dataclass(frozen=True)
+class MegakernelTables:
+    """K5's inputs, packed once per compiled scene (``scene_tables``), all
+    f32 and contiguous on the scene's device:
+
+    - ``cam`` (24,): origin lower_left horizontal vertical u v (3 each),
+      lens_radius, background color (3), 0 0;
+    - ``sph`` (S, 8): cx cy cz radius valid mat 0 0;
+    - ``pln`` (P, 28): the sweep row (n d g1 g1o g2 g2o is_tri valid), mat,
+      0, the stored unit normal (3), 0, uv0 duv1 duv2 (2 each), 0 0. The
+      JAX kernel's (P, 22) row re-normalises the plane normal in the
+      kernel; the port's attributes read the unit normal the compile
+      stored (``pl_attr[:, 0:3]``), so K5 carries it and matches them;
+    - ``lights`` (L, 20): kind p0 p1 p2 radius normal d w area 0;
+    - ``mats`` (Mt, 9): ``Materials.attr``; ``tex_attr`` (T, 3) and
+      ``texels`` (N, 3): ``TexArena.attr`` and ``.pixels``;
+    - ``media``: the packed boundaries (``ops.sweep.MediaTables``) and
+      ``med`` (M, 4): neg_inv_density, phase material, 0, 0."""
+
+    cam: torch.Tensor
+    sph: torch.Tensor
+    pln: torch.Tensor
+    lights: torch.Tensor
+    mats: torch.Tensor
+    tex_attr: torch.Tensor
+    texels: torch.Tensor
+    media: MediaTables
+    med: torch.Tensor
+    flags: int
+
+
+def scene_tables(cs: CompiledScene):
+    """K5's MegakernelTables of a compiled scene, packed on first use."""
+    from .integrator import per_scene
+
+    return per_scene(cs, "megakernel", lambda: pack_tables(cs))
+
+
+def pack_tables(cs: CompiledScene):
+    """MegakernelTables of a compiled scene."""
+    from .integrator import media_tables
+
+    s, lt, cam = cs.solids, cs.lights, cs.camera
+    f32 = dict(dtype=torch.float32, device=cs.device)
+
+    def zeros(rows, cols):
+        return torch.zeros((rows, cols), **f32)
+
+    def col(x):
+        return x.to(torch.float32)[:, None]
+
+    n_sph, n_pl, n_l = s.sph_center.shape[0], s.pl_n.shape[0], lt.kind.shape[0]
+    media = media_tables(cs)
+    return MegakernelTables(
+        cam=torch.cat([cam.origin, cam.lower_left, cam.horizontal,
+                       cam.vertical, cam.u, cam.v,
+                       cam.lens_radius.reshape(1), cs.bg_color,
+                       torch.zeros(2, **f32)]).contiguous(),
+        sph=torch.cat([s.sph_center, col(s.sph_radius), col(s.sph_valid),
+                       col(s.sph_mat), zeros(n_sph, 2)], 1).contiguous(),
+        pln=torch.cat([s.pl_table[:, :14], s.pl_attr[:, 23:24],
+                       zeros(n_pl, 1), s.pl_attr[:, 0:3], zeros(n_pl, 1),
+                       s.pl_attr[:, 17:23], zeros(n_pl, 2)], 1).contiguous(),
+        lights=torch.cat([col(lt.kind), lt.p0, lt.p1, lt.p2, col(lt.radius),
+                          lt.normal, col(lt.d), lt.w, col(lt.area),
+                          zeros(n_l, 1)], 1).contiguous(),
+        mats=cs.materials.attr.to(torch.float32).contiguous(),
+        tex_attr=cs.textures.attr.to(torch.float32).contiguous(),
+        texels=cs.textures.pixels.to(torch.float32).contiguous(),
+        media=media,
+        med=torch.cat([col(media.nid), col(media.mat),
+                       zeros(media.n_media, 2)], 1).contiguous(),
+        flags=_FLAG_BLEND if "blend" in cs.features else 0)
+
+
+def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
+                                  seed, *, width, height, max_depth,
+                                  events=None):
+    """Plain PyTorch K5: one lane per pixel, each running ``path_step`` (the
+    scene hit's plain version) and, when its path ends, adding the color to
+    its pixel's sum and regenerating at its own pixel with ``sample + 1``;
+    lanes whose samples are spent park with a zero direction. Returns
+    (accum (width*height, 3) in pixel-id order, segments as a 0-dim int64
+    tensor): the values of ``trace_queued``, which draws the same numbers
+    and sums each pixel's samples in the same order.
+
+    ``events`` (optional dict) receives how many segments of each kind the
+    batch traced (the work K5 does depends on them): ``miss``, ``capped``
+    (the depth cap), ``emit``, ``pdf`` (a scatter with the NEE mixture) and
+    ``basic`` (a metal or dielectric scatter)."""
+    from .integrator import _camera_rays, fold_init, path_step
+
+    n_pix = width * height
+    dev = cs.device
+    sample_start, seed = int(sample_start), int(seed)
+    end = sample_start + int(n_samples)
+    pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    sample = torch.full((n_pix,), sample_start, dtype=torch.int64, device=dev)
+    o, d = _camera_rays(cs, pix, sample, seed, width, height)
+    zero = torch.zeros((n_pix,), dtype=torch.float32, device=dev)
+    bounce = torch.zeros((n_pix,), dtype=torch.int32, device=dev)
+    acc_len, fold = zero, fold_init(zero)
+    accum = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = dict.fromkeys(("miss", "capped", "emit", "pdf", "basic"), 0)
+    while True:
+        active = sample < end
+        if not bool(active.any()):
+            break
+        st = path_step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
+                       active, max_depth, plain=True)
+        terminal = st["terminal"]
+        accum = accum + torch.where(terminal[:, None], st["color"], 0.0)
+        sample = torch.where(terminal, sample + 1, sample)
+        o_new, d_new = _camera_rays(cs, pix, sample, seed, width, height)
+        parked = sample >= end
+        d_new = tuple(torch.where(parked, 0.0, c) for c in d_new)
+        o = where3(terminal, o_new, st["o"])
+        d = where3(terminal, d_new, st["d"])
+        bounce = torch.where(terminal, 0, st["bounce"]).to(torch.int32)
+        acc_len = torch.where(terminal, 0.0, st["acc_len"])
+        fold = st["fold"]
+        segments = segments + active.sum()
+        if events is not None:
+            scat, is_pdf = st["scat"], st["is_pdf"]
+            for k, mask in (("miss", st["miss"]), ("capped", st["capped"]),
+                            ("emit", st["emit"]), ("pdf", scat & is_pdf),
+                            ("basic", scat & ~is_pdf)):
+                counts[k] = counts[k] + mask.sum()
+    if events is not None:
+        events.update({k: int(v) for k, v in counts.items()})
+    return accum, segments
+
+
+def render_batch_megakernel(cs: CompiledScene, sample_start, n_samples, seed,
+                            *, width, height, max_depth):
+    """K5: render ``n_samples`` progressive passes of the full image in one
+    launch. Returns (accum (width*height, 3) in pixel-id order, segments as
+    a 0-dim int64 tensor). The kernel writes each pixel's segment count as
+    int32 and this wrapper sums them: no float atomics, so a repeated
+    launch is bit-identical."""
+    dev = cs.device
+    if dev.type == "cpu":
+        return render_batch_megakernel_plain(
+            cs, sample_start, n_samples, seed, width=width, height=height,
+            max_depth=max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"render_batch_megakernel: unsupported device {dev}")
+    if not megakernel_supported(cs, need_aux=False, shader_kind=0):
+        raise ValueError("render_batch_megakernel: the scene is outside the "
+                         "megakernel gate (megakernel_supported)")
+    t = scene_tables(cs)
+    n_pix = width * height
+    accum = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
+    segs = torch.empty((n_pix,), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    m = t.media
+    err = _build.library().k5_render_launch(
+        p(t.cam), p(t.sph), t.sph.shape[0], p(t.pln), t.pln.shape[0],
+        p(t.mats), t.mats.shape[0], p(t.tex_attr), t.tex_attr.shape[0],
+        p(t.texels), t.texels.shape[0], p(t.lights), t.lights.shape[0],
+        p(m.sph), p(m.pln), p(m.sph_off_t), p(m.pl_off_t), p(t.med),
+        m.n_media, width, height, int(sample_start), int(n_samples),
+        max_depth, int(seed), t.flags, p(accum), p(segs),
+        _build.stream_of(accum))
+    _build.check(err, "k5_render")
+    render_batch_megakernel.launches += 1
+    return accum, segs.sum(dtype=torch.int64)
+
+
+render_batch_megakernel.launches = 0

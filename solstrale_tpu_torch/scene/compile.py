@@ -616,8 +616,20 @@ def _to_device(obj, device):
     return torch.from_numpy(a).to(device)
 
 
-def compile_scene(scene: Scene, use_bvh=None, device="cpu") -> CompiledScene:
-    """Flatten a Scene into a CompiledScene of tensors on ``device``.
+def _target_device(device, who):
+    """torch.device for ``device``; a CUDA device that is not available
+    raises (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device {dev} requested but "
+                           "torch.cuda.is_available() is false")
+    return dev
+
+
+def compile_scene(scene: Scene, use_bvh=None, device="cuda") -> CompiledScene:
+    """Flatten a Scene into a CompiledScene of tensors on ``device`` (the
+    card unless the caller asks for the CPU; without CUDA the default
+    raises).
 
     use_bvh: None = auto (build the BVH when the solid count exceeds
     BVH_THRESHOLD), True/False = force.
@@ -625,6 +637,7 @@ def compile_scene(scene: Scene, use_bvh=None, device="cpu") -> CompiledScene:
     Raises SceneError("Scene should have at least one light") like
     renderer/mod.rs:143-147.
     """
+    dev = _target_device(device, "compile_scene")
     if use_bvh == "device":
         raise NotImplementedError(
             "on-device BVH build (build_bvh_device) is not ported yet "
@@ -676,7 +689,7 @@ def compile_scene(scene: Scene, use_bvh=None, device="cpu") -> CompiledScene:
         features=features,
         light_kinds=tuple(int(k) for k in lights.kind),
     )
-    return _to_device(cs, torch.device(device))
+    return _to_device(cs, dev)
 
 
 # --- carrying compiled tables across packages ------------------------------
@@ -706,16 +719,19 @@ def _from_dict(cls, d):
     return cls(**{f.name: d[f.name] for f in fields(cls)})
 
 
-def from_numpy_tables(tables, device="cpu") -> CompiledScene:
+def from_numpy_tables(tables, device="cuda") -> CompiledScene:
     """Build the port's CompiledScene from another package's compiled
     tables (``tables_of`` of a JAX ``CompiledScene``: nested dicts of
-    numpy arrays plus the static ``features`` and ``light_kinds``).
+    numpy arrays plus the static ``features`` and ``light_kinds``), on
+    ``device`` (the card unless the caller asks for the CPU; without CUDA
+    the default raises).
 
     The kernel BVH's node and leaf arrays are rebuilt from the solid
     tables (the JAX layout keeps only its TPU treelet form); the rebuilt
     ``top_nodes`` / ``rows`` must equal the given ones, else ValueError."""
     from ..accel import Bvh as _Bvh, build_kernel_bvh
 
+    dev = _target_device(device, "from_numpy_tables")
     solids = _from_dict(Solids, tables["solids"])
     media = tuple(
         Medium(boundary=_from_dict(Solids, m["boundary"]),
@@ -743,4 +759,4 @@ def from_numpy_tables(tables, device="cpu") -> CompiledScene:
         features=frozenset(tables["features"]),
         light_kinds=tuple(int(k) for k in tables["light_kinds"]),
     )
-    return _to_device(cs, torch.device(device))
+    return _to_device(cs, dev)

@@ -1,6 +1,6 @@
 """Each kernel module's plain PyTorch version against the JAX function it
-ports, on the CPU: K2 (sweep, both modes) and K3 (medium) against the Pallas
-kernels in interpret mode and the XLA sweeps; K1 (BVH planar hit) against
+ports, on the CPU: K2 (sweep, both modes), K3 (medium) and K4 (the fused
+scene hit) against the Pallas kernels in interpret mode and the XLA sweeps; K1 (BVH planar hit) against
 the Pallas BVH kernel in interpret mode and the XLA brute force; the hit
 attribute and NEE light-table ops; and the wrappers' device routing."""
 import jax.numpy as jnp
@@ -14,10 +14,12 @@ from solstrale_tpu.geo import INF, RAY_T_MIN
 from solstrale_tpu.ops import intersect as JX
 from solstrale_tpu.ops.pallas_bvh import bvh_planar_hit_pallas
 from solstrale_tpu.ops.pallas_sweep import (closest_hit_pallas,
-                                            medium_hit_pallas)
+                                            medium_hit_pallas,
+                                            scene_hit_fused)
 from solstrale_tpu.scene.compile import compile_scene as jcompile
 from solstrale_tpu_torch import fixtures
 from solstrale_tpu_torch.ops import bvh, intersect, sweep
+from solstrale_tpu_torch.renderer.integrator import media_tables
 from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
 
 torch.set_num_threads(2)
@@ -26,9 +28,11 @@ N_RAYS = 1500
 N_PARKED = 100
 
 
-def _soup(api, n_sph=24, n_quads=96, n_tris=96, n_lights=3, seed=5):
+def _soup(api, n_sph=24, n_quads=96, n_tris=96, n_lights=3, seed=5,
+          n_media=1):
     """Procedural prim soup: spheres, quads, triangles, a medium box and
-    sphere / quad / triangle lights (``n_lights`` of each kind)."""
+    sphere / quad / triangle lights (``n_lights`` of each kind); with
+    ``n_media=2`` also a medium ball that overlaps the box."""
     g = np.random.default_rng(seed)
     mat = api.Lambertian(api.SolidColor(0.5, 0.5, 0.5))
     world = [api.Sphere(g.uniform(-6, 6, 3), float(g.uniform(0.2, 1.0)), mat)
@@ -50,6 +54,9 @@ def _soup(api, n_sph=24, n_quads=96, n_tris=96, n_lights=3, seed=5):
     world.append(api.ConstantMedium(
         api.Bvh(api.new_box((-2, -1, -2), (2, 1.5, 2), mat)), 0.5,
         (1, 1, 1)))
+    if n_media == 2:
+        world.append(api.ConstantMedium(api.Sphere((1.5, -0.5, 1.5), 1.5, mat),
+                                        0.8, (1, 1, 1)))
     return api.Scene(api.Bvh(world), api.CameraConfig(look_from=(0, 0, 10)),
                      (0, 0, 0), api.RenderConfig(width=8, height=8))
 
@@ -78,7 +85,7 @@ def _check_hits(t_ref, t_got, same, tol, agree=0.995):
 @pytest.fixture(scope="module")
 def soup():
     cj = jcompile(_soup(J), use_bvh=False)
-    ct = tcompile(_soup(T), use_bvh=False)
+    ct = tcompile(_soup(T), use_bvh=False, device="cpu")
     return cj, ct
 
 
@@ -105,12 +112,15 @@ XLA_TOL = 1e-4
 
 
 def test_k2_closest_solid_hit_matches_xla(soup):
+    """The solid part of the scene hit (the fused path with no medium: K2's
+    sweep and the slot decode) against the JAX package's XLA sweep."""
     cj, ct = soup
     o, d = _rays(seed=1)
     t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
                                          jnp.asarray(d), RAY_T_MIN, INF)
-    t_t, k_t, i_t = intersect.closest_solid_hit(ct.solids, _t(o), _t(d),
-                                                RAY_T_MIN, INF)
+    t_t, k_t, i_t = intersect.scene_hit_fused(
+        ct.solids, sweep.pack_media((), "cpu"), _t(o), _t(d),
+        torch.zeros((0, N_RAYS)))
     same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))
     _check_hits(t_j, t_t.numpy(), same, XLA_TOL)
 
@@ -141,13 +151,40 @@ def test_k3_plain_matches_pallas_interpret(soup):
     np.testing.assert_allclose(got[fin], xla[fin], rtol=1e-4, atol=1e-4)
 
 
+def test_k4_plain_matches_pallas_interpret():
+    """The fused scene hit over the soup with two media (a box and an
+    overlapping ball, so the second clips against the first's events),
+    parked rays included, against the JAX package's scene_hit_fused with its
+    Pallas kernel interpreted."""
+    cj = jcompile(_soup(J, n_media=2), use_bvh=False)
+    ct = tcompile(_soup(T, n_media=2), use_bvh=False, device="cpu")
+    o, d = _rays(seed=15, lo=-4, hi=4)
+    u = np.random.default_rng(16).random((2, N_RAYS)).astype(np.float32)
+    t_j, k_j, i_j = (np.asarray(x) for x in scene_hit_fused(
+        cj, jnp.asarray(o), jnp.asarray(d),
+        tuple(jnp.asarray(x) for x in u), RAY_T_MIN, interpret=True))
+    t_t, k_t, i_t = (x.numpy() for x in intersect.scene_hit_fused(
+        ct.solids, media_tables(ct), _t(o), _t(d), torch.from_numpy(u),
+        plain=True))
+    hit = np.isfinite(t_j)
+    np.testing.assert_array_equal(hit, np.isfinite(t_t))
+    assert not hit[:N_PARKED].any() and (k_t[:N_PARKED] == 0).all()
+    med = hit & (k_j == 3)
+    assert (i_j[med] == 0).sum() > 20 and (i_j[med] == 1).sum() > 20
+    np.testing.assert_allclose(t_t[hit & ~med], t_j[hit & ~med], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(t_t[med], t_j[med], rtol=1e-4, atol=1e-4)
+    same = (k_t == k_j) & (i_t == i_j)
+    assert same[hit].mean() > 0.999
+
+
 @pytest.fixture(scope="module")
 def terrain():
     cfg = dict(width=8, height=8)
     cj = jcompile(fixtures.sponza_class_scene(J.RenderConfig(**cfg),
                                               n_cells=24, api=J))
     ct = tcompile(fixtures.sponza_class_scene(T.RenderConfig(**cfg),
-                                              n_cells=24))
+                                              n_cells=24), device="cpu")
     assert cj.kbvh is not None and ct.kbvh is not None
     return cj, ct
 
@@ -195,7 +232,7 @@ def test_bvh_closest_hit_with_spheres_matches_xla():
     cj = jcompile(fixtures.mixed_bvh_scene(J.RenderConfig(**cfg), n_cells=16,
                                            api=J))
     ct = tcompile(fixtures.mixed_bvh_scene(T.RenderConfig(**cfg),
-                                           n_cells=16))
+                                           n_cells=16), device="cpu")
     assert ct.kbvh.has_spheres
     o, d = _terrain_rays(seed=8)
     t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
@@ -244,7 +281,8 @@ def test_light_pdf_mean3_allclose(n_lights, tol):
     t^2*|d|^2/(cos*area) amplifies that: 1.6e-5 relative on one ray here,
     so the fallback is held at 1e-4."""
     cj = jcompile(_soup(J, n_lights=n_lights), use_bvh=False)
-    ct = tcompile(_soup(T, n_lights=n_lights), use_bvh=False)
+    ct = tcompile(_soup(T, n_lights=n_lights), use_bvh=False,
+                  device="cpu")
     assert len(ct.light_kinds) == 3 * n_lights
     o, d = _rays(parked=0, seed=10)
     # aim half the rays at the lights so the pdfs are non-zero
@@ -295,7 +333,8 @@ def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
     launches no kernel."""
     _, ct = soup
     _, cterr = terrain
-    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.medium_hit):
+    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.medium_hit,
+               sweep.scene_hit):
         fn.launches = 0
     o, d = _rays(seed=14)
     o, d = _t(o), _t(d)
@@ -311,11 +350,16 @@ def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
     args = (m.boundary.sph_table, m.boundary.pl_table, m.neg_inv_density,
             o, d, ts, u)
     assert torch.equal(sweep.medium_hit(*args), sweep.medium_hit_plain(*args))
+    uf = torch.full((1, N_RAYS), 0.5)
+    got = sweep.scene_hit(s.sph_table, s.pl_table, media_tables(ct), o, d, uf)
+    want = sweep.scene_hit_plain(s.sph_table, s.pl_table, media_tables(ct), o,
+                                 d, uf)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     got = bvh.bvh_planar_hit(cterr.kbvh, o, d, RAY_T_MIN)
     want = bvh.bvh_planar_hit_plain(cterr.kbvh.prims, o, d, RAY_T_MIN)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (bvh.bvh_planar_hit.launches, sweep.closest_hit.launches,
-            sweep.medium_hit.launches) == (0, 0, 0)
+            sweep.medium_hit.launches, sweep.scene_hit.launches) == (0,) * 4
 
 
 def test_wrappers_reject_bad_inputs(soup):

@@ -13,7 +13,7 @@ import solstrale_tpu_torch as T
 from solstrale_tpu_torch import fixtures
 from solstrale_tpu_torch.geo import INF, RAY_T_MIN
 from solstrale_tpu_torch.ops import bvh, sweep
-from solstrale_tpu_torch.renderer import integrator
+from solstrale_tpu_torch.renderer import integrator, megakernel
 from solstrale_tpu_torch.scene.compile import compile_scene
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +87,77 @@ def test_k3_matches_plain(cuda):
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin) and fin.sum() > 100
     assert torch.allclose(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+def test_k4_matches_plain(cuda):
+    """The fused scene hit on the normal-mapped kitchen-sink scene (2
+    spheres, 141 planar rows, one medium box), parked rays included."""
+    cs = compile_scene(fixtures.kitchen_sink_scene(
+        T.RenderConfig(width=8, height=8)), device=cuda)
+    s = cs.solids
+    o, d = _rays(16384, 6, cuda, lo=-2.0, hi=3.0)
+    g = torch.Generator().manual_seed(7)
+    u = torch.rand((1, 16384), generator=g).to(cuda)
+    mt = integrator.media_tables(cs)
+    sweep.scene_hit.launches = 0
+    t_k, s_k = sweep.scene_hit(s.sph_table, s.pl_table, mt, o, d, u)
+    t_p, s_p = sweep.scene_hit_plain(s.sph_table, s.pl_table, mt, o, d, u)
+    torch.cuda.synchronize()
+    assert sweep.scene_hit.launches == 1
+    _assert_hits(t_k, s_k, t_p, s_p, tol=1e-4)
+    n_solid = s.sph_table.shape[0] + s.pl_table.shape[0]
+    assert (s_k == n_solid).sum().item() > 20   # medium events
+    assert not torch.isfinite(t_k[:128]).any() and (s_k[:128] == -1).all()
+
+
+@pytest.mark.parametrize("name", ["kitchen_solid", "kitchen_textured"])
+def test_k5_matches_plain_and_repeats(cuda, name):
+    """The megakernel against its plain version (2e-3, equal segments), and
+    bit-identical when repeated: on the solid kitchen-sink scene, and on the
+    kitchen-sink scene without its normal map (an image texture on the
+    ground, triangle prims, sphere / quad / triangle lights)."""
+    build = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
+             "kitchen_textured": lambda c: fixtures.kitchen_sink_scene(
+                 c, normal_map=False)}[name]
+    cs = compile_scene(build(T.RenderConfig(width=8, height=8)), device=cuda)
+    assert megakernel.megakernel_supported(cs, need_aux=False, shader_kind=0)
+    kw = dict(width=64, height=48, max_depth=50)
+    megakernel.render_batch_megakernel.launches = 0
+    a, seg_a = megakernel.render_batch_megakernel(cs, 1, 4, 1, **kw)
+    b, seg_b = megakernel.render_batch_megakernel(cs, 1, 4, 1, **kw)
+    p, seg_p = megakernel.render_batch_megakernel_plain(cs, 1, 4, 1, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.render_batch_megakernel.launches == 2
+    assert torch.equal(a, b) and int(seg_a) == int(seg_b)
+    assert int(seg_a) == int(seg_p) and int(seg_a) >= 64 * 48 * 4
+    assert torch.allclose(a, p, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("name,route", [("kitchen_solid", "K5"),
+                                        ("kitchen", "K4")])
+def test_small_scene_route(cuda, name, route):
+    """A scene the megakernel gate accepts renders in one K5 launch and no
+    other hit kernel; the normal-mapped scene takes the wavefront with K4
+    and never K5."""
+    build = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
+             "kitchen": fixtures.kitchen_sink_scene}[name]
+    cs = compile_scene(build(T.RenderConfig(width=8, height=8)), device=cuda)
+    fns = {"K1": bvh.bvh_planar_hit, "K2": sweep.closest_hit,
+           "K3": sweep.medium_hit, "K4": sweep.scene_hit,
+           "K5": megakernel.render_batch_megakernel}
+    for fn in fns.values():
+        fn.launches = 0
+    img, _, _, segs = integrator.render_sample_batch(
+        cs, 1, 1, width=32, height=24, max_depth=50, shader_kind=0,
+        need_aux=False, n_samples=2)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if route == "K5":
+        assert launches == dict(K1=0, K2=0, K3=0, K4=0, K5=1)
+    else:
+        assert launches["K4"] > 0 and launches["K5"] == 0
+        assert launches["K1"] == launches["K2"] == launches["K3"] == 0
+    assert float(img.sum()) > 0 and int(segs) >= 32 * 24 * 2
 
 
 def test_card_render_matches_cpu_and_repeats(cuda):

@@ -27,6 +27,9 @@ SCENES = {
     "mixed16": lambda cfg, api: fixtures.mixed_bvh_scene(
         cfg, n_cells=16, api=api),
     "small": lambda cfg, api: fixtures.small_scene(cfg, api=api),
+    "kitchen_solid": lambda cfg, api: fixtures.kitchen_sink_solid_scene(
+        cfg, api=api),
+    "kitchen": lambda cfg, api: fixtures.kitchen_sink_scene(cfg, api=api),
 }
 
 
@@ -38,18 +41,33 @@ def _cfg(api, **kw):
 
 def _render_both(name):
     cj = jcompile(SCENES[name](_cfg(J), J))
-    ct = tcompile(SCENES[name](_cfg(T), T))
+    ct = tcompile(SCENES[name](_cfg(T), T), device="cpu")
     img_j, _, _, seg_j = JI.render_sample_batch(cj, jnp.int32(1),
                                                 jnp.int32(SEED), **KW)
     img_t, _, _, seg_t = TI.render_sample_batch(ct, 1, SEED, **KW)
     return (np.asarray(img_j), float(seg_j), img_t.numpy(), int(seg_t))
 
 
-@pytest.mark.parametrize("name", ["sponza24", "small"])
+@pytest.mark.parametrize("name", ["sponza24", "small", "kitchen_solid"])
 def test_render_sample_batch_matches_jax(name):
+    """sponza24 takes the BVH wavefront, small and kitchen_solid the render
+    megakernel (its plain version here; JAX's XLA wavefront)."""
     img_j, seg_j, img_t, seg_t = _render_both(name)
     assert img_t.shape == (H, W, 3) and img_t.mean() > 0.1
     np.testing.assert_allclose(seg_t, seg_j, rtol=1e-3)
+    np.testing.assert_allclose(img_t, img_j, rtol=1e-4, atol=1e-4)
+
+
+def test_render_sample_batch_matches_jax_kitchen(monkeypatch):
+    """The normal-mapped kitchen-sink scene: the wavefront with the fused
+    scene hit (K4) in both packages. SOLSTRALE_PALLAS=1 is the JAX
+    package's own switch (read at trace time): its CPU run then takes its
+    Pallas kernels, interpreted, so both sides intersect with the same
+    formulas."""
+    monkeypatch.setenv("SOLSTRALE_PALLAS", "1")
+    img_j, seg_j, img_t, seg_t = _render_both("kitchen")
+    assert img_t.shape == (H, W, 3) and img_t.mean() > 0.1
+    assert seg_t == int(seg_j)
     np.testing.assert_allclose(img_t, img_j, rtol=1e-4, atol=1e-4)
 
 
@@ -83,7 +101,7 @@ def test_one_step_draw_for_draw_mixed():
     the same hit full_hit_attributes and scatter (every material kind,
     blend, textures, normal map, NEE, medium) give the JAX values."""
     cj = jcompile(SCENES["mixed16"](_cfg(J), J))
-    ct = tcompile(SCENES["mixed16"](_cfg(T), T))
+    ct = tcompile(SCENES["mixed16"](_cfg(T), T), device="cpu")
     pix = torch.arange(W * H, dtype=torch.int64)
     o, d = TI._camera_rays(ct, pix, 1, SEED, W, H)
     # second step: bounce rays leaving the first hits
@@ -205,7 +223,7 @@ def test_abort_stops_between_batches():
 
 
 def test_unported_shaders_and_aux_raise():
-    ct = tcompile(SCENES["small"](_cfg(T), T))
+    ct = tcompile(SCENES["small"](_cfg(T), T), device="cpu")
     with pytest.raises(NotImplementedError, match="aux channels"):
         TI.render_sample_batch(ct, 1, 1, **{**KW, "shader_kind": 1})
     with pytest.raises(NotImplementedError, match="aux channels"):

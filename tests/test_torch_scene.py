@@ -51,7 +51,7 @@ def _both(name, use_bvh=None):
     cj = jcompile(build(J.RenderConfig(width=W, height=H), J),
                   use_bvh=use_bvh)
     ct = tcompile(build(T.RenderConfig(width=W, height=H), T),
-                  use_bvh=use_bvh)
+                  use_bvh=use_bvh, device="cpu")
     return cj, ct
 
 
@@ -87,7 +87,7 @@ def test_from_numpy_tables_rejects_foreign_kernel_bvh():
     tables = tables_of(cj)
     tables["kbvh"]["rows"] = tables["kbvh"]["rows"] + 1.0
     with pytest.raises(ValueError, match="rows"):
-        from_numpy_tables(tables)
+        from_numpy_tables(tables, device="cpu")
 
 
 def test_from_numpy_tables_renders_like_jax():
@@ -97,7 +97,7 @@ def test_from_numpy_tables_renders_like_jax():
     from solstrale_tpu_torch.renderer import integrator as TI
 
     cj, _ = _both("small")
-    conv = from_numpy_tables(tables_of(cj))
+    conv = from_numpy_tables(tables_of(cj), device="cpu")
     kw = dict(width=W, height=H, max_depth=50, shader_kind=0,
               need_aux=False, n_samples=2)
     img_j, _, _, seg_j = JI.render_sample_batch(cj, jnp.int32(1),
@@ -119,11 +119,24 @@ def test_no_light_raises_like_jax():
     with pytest.raises(JSceneError) as ej:
         jcompile(dark(J))
     with pytest.raises(TSceneError) as et:
-        tcompile(dark(T))
+        tcompile(dark(T), device="cpu")
     assert str(et.value) == str(ej.value) == \
         "Scene should have at least one light"
     with pytest.raises(ValueError, match="at least one light"):
         T.Renderer(dark(T), device="cpu")
+
+
+def test_compile_defaults_to_cuda_and_never_falls_back():
+    """compile_scene and from_numpy_tables put the tables on the card unless
+    the caller asks for the CPU; without a card the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cj, _ = _both("small")
+    scene = FIXTURES["small"](T.RenderConfig(width=W, height=H), T)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcompile(scene)
+    with pytest.raises(RuntimeError, match="cuda"):
+        from_numpy_tables(tables_of(cj))
 
 
 def test_kernel_bvh_layout_is_conservative():
