@@ -12,9 +12,11 @@ script exits non-zero):
   1. build: compile the CUDA kernels from ``solstrale_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print ptxas' resource lines;
   2. kernels: K1-K4 against their plain PyTorch versions on the card, with
-     kernel and plain median times and each kernel's bound (K2 in its
-     spheres-only mode and K3 timed again on the mixed BVH scene's tables,
-     the shapes the main path gives them);
+     kernel and plain median times and each kernel's bound (K1 at the main
+     path's 131,072 lanes and at the 16,384 of its tail, slots equal on
+     every hit, with the box and prim tests per ray of the treelet tree
+     and of the kernel tree; K2 in its spheres-only mode and K3 timed again on
+     the mixed BVH scene's tables, the shapes the main path gives them);
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, the benchmark workload, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -42,7 +44,10 @@ import time
 
 TOL_T = 1e-5          # hit t, rtol = atol (tests/test_pallas.py:33-35)
 TOL_MEDIUM = 1e-4     # medium t, rtol = atol (tests/test_pallas.py:59-61)
-SLOT_AGREE = 0.995    # kind/slot agreement on hits (exact ties may differ)
+SLOT_AGREE = 0.995    # K2-K4 slot agreement on hits (exact ties may differ)
+# segments of the sponza 1080p, 1 spp, seed 1 batch (unchanged since the
+# port first rendered it)
+SPONZA_SEGMENTS = 6708708
 TOL_K5 = 2e-3         # megakernel sums, rtol = atol (test_megakernel.py:40)
 
 # bounds: one H100 SXM at its published peaks
@@ -52,6 +57,11 @@ HBM_BPS = 3.35e12     # device memory bytes/s
 # division count one each; compares not counted)
 FLOPS_SPHERE = 31
 FLOPS_PLANAR = 32
+# one box of K1's slab test (csrc/bvh.cu slab2 and its callers): per axis
+# two subtractions and two multiplies, the interval's min and max, and on
+# the second and third axes the fold into near and far; the entry's clamp
+# at 0 and the far widening
+FLOPS_SLAB = 24
 FLOPS_MEDIUM_TAIL = 12    # hit::medium_event
 # K5's f32 operations beyond the sweeps, counted line by line from
 # csrc/megakernel.cu: an add, subtract, multiply, division, square root,
@@ -161,9 +171,10 @@ def cuda_ms(fn, reps=5, warmup=2):
     return times[len(times) // 2]
 
 
-def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None):
-    """Hit sets equal, t within tol, slots agreeing on SLOT_AGREE of hits.
-    Returns the max abs t error over hits."""
+def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None,
+                 agree_min=SLOT_AGREE):
+    """Hit sets equal, t within tol, slots agreeing on ``agree_min`` of
+    hits. Returns the max abs t error over hits."""
     import numpy as np
 
     t_k, s_k, t_p, s_p = (x.cpu().numpy() for x in (t_k, s_k, t_p, s_p))
@@ -175,7 +186,7 @@ def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None):
         raise AssertionError(f"{name}: t differs beyond {tol}")
     if hit_p.any():
         agree = float((s_k == s_p)[hit_p].mean())
-        if agree < SLOT_AGREE:
+        if agree < agree_min:
             raise AssertionError(f"{name}: slots agree on {agree:.4f} of hits")
     if parked is not None and hit_k[parked].any():
         raise AssertionError(f"{name}: a parked (zero-direction) ray hit")
@@ -250,32 +261,78 @@ def _random_rays(n, device, seed, parked=0):
     return (o[:, 0], o[:, 1], o[:, 2]), (d[:, 0], d[:, 1], d[:, 2])
 
 
-def _bvh_rays(cs, device, n=16384, parked=256):
-    """Subsampled 1080p camera rays, cosine bounce rays from their hit
-    points, and parked zero-direction rays."""
+def _treelet_tree(cs):
+    """The treelet tree, for its walk counts: the median split stopped at
+    the treelet roots, leaves of 8 prims in the order of the last split
+    (the JAX layout's order, which K1 walked before the kernel tree split
+    on: its leaf table is recovered from the ``rows`` field), boxes built
+    as the kernel tree's are. Returns (node_min, node_max, prims, leaf
+    size) on the card."""
+    import dataclasses
     import torch
-    from solstrale_tpu_torch.geo import INF, soa
-    from solstrale_tpu_torch.ops import bvh, rng
-    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch import accel
 
-    n_cam = (n - parked) // 2
-    pix = torch.linspace(0, 1920 * 1080 - 1, n_cam, device=device).long()
-    o, d = integrator._camera_rays(cs, pix, 1, 1, 1920, 1080)
-    t, kind, idx = bvh.bvh_closest_hit(cs.kbvh, cs.solids, o, d, 1e-3, INF)
-    hit = torch.isfinite(t)
-    attrs = integrator.full_hit_attributes(
-        cs, o, d, torch.where(hit, t, 0.0), kind, idx, pix, 1, 0, 1)
-    r1, r2, _, _ = rng.uniform4(pix, 1, 0, rng.P_COSINE, 1)
-    frame = soa.onb_from_w3(attrs["normal"])
-    bounce_d = soa.onb_local3(*frame, rng.cosine_direction3(r1, r2))
-    bo = soa.where3(hit, attrs["point"], o)
-    zeros = torch.zeros(parked, device=device)
-    po = tuple(torch.full((parked,), 2.0, device=device) for _ in range(3))
-    oo = tuple(torch.cat([a, b, c]) for a, b, c in zip(o, bo, po))
-    dd = tuple(torch.cat([a, b, zeros]) for a, b in zip(d, bounce_d))
-    parked_mask = torch.zeros(n_cam * 2 + parked, dtype=torch.bool)
-    parked_mask[n_cam * 2:] = True
-    return oo, dd, parked_mask.numpy()
+    kb = cs.kbvh
+    p_t = kb.tr * kb.leaf_size
+    nbt = max(1, (p_t + 127) // 128)
+    prims = kb.rows.reshape(kb.n_troots, nbt, 16, 128).transpose(2, 3) \
+        .reshape(kb.n_troots, nbt * 128, 16)[:, :p_t].reshape(-1, 16) \
+        .contiguous()
+    host = type(cs.solids)(**{f.name: getattr(cs.solids, f.name).cpu()
+                              for f in dataclasses.fields(cs.solids)})
+    lo, hi = accel.leaf_tree(host, prims.cpu(), kb.leaf_size)
+    return (torch.from_numpy(lo).to(prims.device),
+            torch.from_numpy(hi).to(prims.device), prims, kb.leaf_size)
+
+
+def _k1(cs):
+    """K1 on the 262,088-triangle tree at the 16,384 lanes of the
+    wavefront's tail and the main path's 131,072: equal to its plain
+    version (hit sets, t and every slot), kernel and plain times, and the
+    box and prim tests per ray of the walk (``accel.walk_counts``) of the
+    treelet tree and of the kernel tree. The kernels line's row is the 131,072
+    lanes'; its bound counts these rays' box and prim tests against the
+    bytes of the rays and the tree read once."""
+    import torch
+    from solstrale_tpu_torch import k1_bench
+    from solstrale_tpu_torch.geo import RAY_T_MIN
+    from solstrale_tpu_torch.ops import bvh
+
+    kb = cs.kbvh
+    treelet = _treelet_tree(cs)
+    row = None
+    for shape, (o, d) in sorted(k1_bench.shapes(cs).items(), reverse=True):
+        r = o[0].numel()
+        t_k, s_k = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        parked = ((d[0] == 0) & (d[1] == 0) & (d[2] == 0)).cpu().numpy()
+        err = compare_hits(f"K1 ({shape})", t_k, s_k, t_p, s_p, 0.0, parked,
+                           agree_min=1.0)
+        if not torch.equal(s_k, s_p):
+            raise AssertionError(f"K1 ({shape}): slots differ")
+        ms = cuda_ms(lambda: bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN))
+        walk, (t_w, s_w) = k1_bench.walk_stats(
+            (kb.node_min, kb.node_max, kb.prims, kb.walk_leaf), o, d)
+        if not (torch.equal(t_w, t_p) and torch.equal(s_w, s_p)):
+            raise AssertionError(f"K1 ({shape}): the walk's (t, slot) "
+                                 "differ from the brute force")
+        walk_treelet, _ = k1_bench.walk_stats(treelet, o, d)
+        b = bound(r * 36 + nbytes(kb.nodes, kb.prims),
+                  walk["box_tests"] * FLOPS_SLAB
+                  + walk["prim_tests"] * FLOPS_PLANAR)
+        log("kernel", name="K1 bvh_planar_hit", shape=shape, rays=r,
+            live_rays=live_rays(d), prims=int(kb.prims[:, 13].sum().item()),
+            hits=int(torch.isfinite(t_k).sum().item()), max_abs_err=err,
+            slots_equal=True, ms=ms, plain_ms=plain_ms,
+            walk_kernel_tree=walk, walk_treelet_tree=walk_treelet, **b)
+        if shape == "main":
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+    return row
 
 
 def phase_kernels(sponza_cs):
@@ -287,26 +344,7 @@ def phase_kernels(sponza_cs):
     dev = torch.device("cuda")
     out = {}
 
-    # K1 on the full 262,088-triangle kernel BVH
-    kb = sponza_cs.kbvh
-    o, d, parked = _bvh_rays(sponza_cs, dev)
-    t_k, s_k = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
-    t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN)
-    torch.cuda.synchronize()
-    err = compare_hits("K1", t_k, s_k, t_p, s_p, TOL_T, parked)
-    ms = cuda_ms(lambda: bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN))
-    plain_ms = cuda_ms(lambda: bvh.bvh_planar_hit_plain(kb.prims, o, d,
-                                                        RAY_T_MIN), reps=3,
-                       warmup=1)
-    # K1's bound counts the rays and the tree read once and ignores the
-    # traversal's work, which depends on the data
-    r = len(parked)
-    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     **bound(r * 36 + nbytes(kb.nodes, kb.prims), 0))
-    log("kernel", name="K1 bvh_planar_hit", rays=len(parked),
-        prims=int(kb.prims[:, 13].sum().item()), hits=int(
-            torch.isfinite(t_k).sum().item()), max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
+    out["K1"] = _k1(sponza_cs)
 
     # K2 (both modes) and K3 on procedural tables; their rows' times come
     # from the main path's shape (_main_path_k2_k3)
@@ -385,7 +423,7 @@ def _main_path_k2_k3(out):
     rows of the kernels line take these times and bounds."""
     import torch
     import solstrale_tpu_torch as T
-    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch import fixtures, k1_bench
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
     from solstrale_tpu_torch.ops import bvh, sweep
     from solstrale_tpu_torch.scene.compile import compile_scene
@@ -395,7 +433,7 @@ def _main_path_k2_k3(out):
         T.RenderConfig(width=1920, height=1080, samples_per_pixel=1, seed=1),
         n_cells=362), device=dev)
     s = cs.solids
-    o, d, parked = _bvh_rays(cs, dev, n=131072)
+    o, d, parked = k1_bench.subsampled_rays(cs, n=131072)
     n_live, r = live_rays(d), len(parked)
     args = (s.sph_table, s.pl_table, o, d, RAY_T_MIN, INF)
     t_k, s_k = sweep.closest_hit(*args, spheres_only=True)
@@ -558,8 +596,9 @@ def phase_main_path():
     stats = {}
     timing = _batch_timing(compile_scene(scene, device="cuda"), w, h, 1,
                            stats=stats)
-    if timing["segments"] < 2 * w * h:
-        raise AssertionError(f"segments {timing['segments']} < 2 x pixels")
+    if timing["segments"] != SPONZA_SEGMENTS:
+        raise AssertionError(f"sponza segments {timing['segments']}, not "
+                             f"{SPONZA_SEGMENTS}")
     log("main_path", ray_trace_seconds=t_sponza, mixed_ray_trace_seconds=t_mixed,
         mean_u8=float(image.mean()), mixed_mean_u8=float(image_mixed.mean()),
         launches=launches, k1_launches_sponza=k1_sponza, **timing,

@@ -1,12 +1,14 @@
-"""Host-side (numpy) BVH builds: the complete-tree LBVH and the layout the
-BVH hit kernel (``ops/bvh.py``) traverses.
+"""Host-side (numpy) BVH builds: the complete-tree LBVH and the tree the
+BVH hit kernel (``ops/bvh.py``, ``csrc/bvh.cu``) walks; and ``walk_counts``,
+a plain PyTorch walk of that tree which counts its work.
 
 Both trees are *complete* binary trees over a power-of-two leaf count, so
 node i's children are 2i+1 / 2i+2 and no child pointers are stored. The
 builds match the JAX package's ``accel/__init__.py`` array for array
 (``Bvh`` and the ``KernelBvh`` fields ``top_nodes`` / ``rows``); the port's
-``KernelBvh`` additionally keeps the full node arrays and the row-major
-leaf table that its GPU kernel reads.
+``KernelBvh`` additionally holds its own full-depth tree: the median split
+continued down to leaves of ``WALK_LEAF`` prims, with both children's boxes
+in each internal node's row.
 """
 from __future__ import annotations
 
@@ -15,17 +17,36 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..geo import ALMOST_ZERO, INF
 from ..scene.compile import KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE, Solids
 
 LEAF_SIZE = 4
 # Levels of the kernel tree above the treelet roots. This fixes the treelet
-# size (n_leaves / 2^(TOP_LEVELS-1) leaves) and with it the leaf order, so
-# it stays equal to the JAX package's value for the layouts to match.
+# size (n_leaves / 2^(TOP_LEVELS-1) leaves) and with it the JAX layout's
+# leaf order, so it stays equal to the JAX package's value for the layouts
+# to match.
 TOP_LEVELS = 12
+# Prims per leaf of the port's full-depth kernel tree (1, 2 or 4; 2 was
+# measured fastest on the H100, PERF.md).
+WALK_LEAF = 2
 # Box stored for an empty subtree (all-padding leaves): a point far away,
 # which the strict near < far slab test misses. The ±inf box a min/max
 # reduction leaves there would be hit by every ray.
 EMPTY_BOX = 1e30
+# The walk's slab-test widenings (csrc/bvh.cu uses the same f32 values): a
+# box is entered when near < far * FAR_SCALE and near <= best * BEST_SCALE,
+# so rounding in the slab test never drops a box the ray really crosses
+# (FAR_SCALE) or one holding a prim at the best t (BEST_SCALE: exact ties
+# then resolve to the smallest slot, as the brute force resolves them).
+FAR_SCALE = float(np.float32(1.0000004))
+BEST_SCALE = float(np.float32(1.000002))
+# Every prim box of the kernel tree grows by this fraction of the largest
+# coordinate of the scene's prim boxes (at least 1). A prim test accepts
+# points a few f32 ulps of |o| outside the prim (a ray through a shared
+# vertex or edge), which a box that merely holds the prim would cut off at
+# its face or corner; the pad keeps such points inside, far beyond the
+# slab test's own rounding.
+BOX_PAD = 2.0 ** -17
 
 
 @dataclass(frozen=True)
@@ -39,27 +60,33 @@ class Bvh:
 class KernelBvh:
     """Planar-only BVH (quads + triangles; spheres are swept by the caller).
 
-    Fields shared with the JAX package's layout:
+    Fields shared with the JAX package's layout (``n_leaves`` leaves of
+    ``leaf_size`` = 8 prims, median split stopped at the treelet roots):
     - ``top_nodes`` (n_top_p, 8) f32 [min xyz, max xyz, split axis, 0]: the
       first 2*n_troots-1 nodes, down to the treelet roots;
     - ``rows`` (n_troots*nbt*16, 128) f32: the TPU column-block leaf layout.
-    Fields of the port's kernel:
-    - ``node_min`` / ``node_max`` (n_nodes, 3) f32: every node of the
-      complete tree over ``n_leaves`` leaves of ``leaf_size`` prims, as the
-      level reduction leaves them (±inf on empty subtrees);
-    - ``nodes`` (n_nodes, 8) f32 [min xyz, max xyz, split axis, 0]: the
-      boxes the kernel tests, rounded outwards in the f64 -> f32 cast so
-      they never shrink, empty subtrees as an EMPTY_BOX point, split
-      axis of each internal node (recorded by the median-split build above
-      the treelet roots, the axis of widest child-centre separation below);
-    - ``prims`` (n_leaves*leaf_size, 16) f32: one row per leaf slot,
-      n.xyz d g1.xyz g1o g2.xyz g2o is_tri valid slot 0.
+    Fields of the port's kernel tree: the median split continued down to
+    ``walk_leaves`` leaves of ``walk_leaf`` prims (a complete tree with
+    ``walk_leaves - 1`` internal nodes):
+    - ``node_min`` / ``node_max`` (2*walk_leaves-1, 3) f32: every node's
+      box over its prims' boxes grown by BOX_PAD, rounded outwards in the
+      f64 -> f32 cast so it never shrinks, empty subtrees as an EMPTY_BOX
+      point;
+    - ``nodes`` (walk_leaves-1, 16) f32: one 64-byte row per internal node
+      holding both children's boxes, [Lminx Rminx Lmaxx Rmaxx | the same
+      for y | for z | L count, R count, 0, 0], the counts being the valid
+      prims under each child (a leaf child's prims are its first count
+      rows);
+    - ``prims`` (n_leaves*leaf_size, 16) f32: one row per leaf slot in the
+      kernel tree's leaf order, n.xyz d g1.xyz g1o g2.xyz g2o is_tri
+      valid slot 0 (valid rows first in every leaf).
     """
 
     KLEAF = 8
 
     def __init__(self, top_nodes, rows, n_troots, tr, n_leaves, leaf_size,
-                 has_spheres, node_min, node_max, nodes, prims):
+                 has_spheres, walk_leaves, walk_leaf, node_min, node_max,
+                 nodes, prims):
         self.top_nodes = top_nodes
         self.rows = rows
         self.n_troots = int(n_troots)
@@ -67,6 +94,8 @@ class KernelBvh:
         self.n_leaves = int(n_leaves)
         self.leaf_size = int(leaf_size)
         self.has_spheres = bool(has_spheres)
+        self.walk_leaves = int(walk_leaves)
+        self.walk_leaf = int(walk_leaf)
         self.node_min = node_min
         self.node_max = node_max
         self.nodes = nodes
@@ -80,12 +109,14 @@ class KernelBvh:
               for k in self._ARRAYS}
         return KernelBvh(n_troots=self.n_troots, tr=self.tr,
                          n_leaves=self.n_leaves, leaf_size=self.leaf_size,
-                         has_spheres=self.has_spheres, **kw)
+                         has_spheres=self.has_spheres,
+                         walk_leaves=self.walk_leaves,
+                         walk_leaf=self.walk_leaf, **kw)
 
     @property
-    def depth(self):
-        """Number of levels of the complete tree."""
-        return int(np.log2(self.n_leaves)) + 1
+    def levels(self):
+        """Internal levels of the kernel tree (the walk's stack bound)."""
+        return int(np.log2(self.walk_leaves))
 
 
 def _expand_bits(v):
@@ -148,35 +179,44 @@ def solids_aabbs(s: Solids):
     return kinds, idxs, mins, maxs
 
 
-def median_split_order(mins, maxs, leaf_size, n_leaves, stop_leaves=1,
-                       axes_out=None):
+def median_split_order(mins, maxs, leaf_size, n_leaves, keep_leaves=None):
     """Leaf ordering by recursive most-spread-axis median splits (the
     reference's split rule, bvh.rs:116-162) in the complete-tree layout:
     each split puts the first half-capacity of the sorted segment in the
-    left subtree. Splitting stops once a segment covers ``stop_leaves``
-    leaves. axes_out (optional dict) receives {node id: split axis}.
-    Returns a permutation of range(n)."""
+    left subtree, so node j of a level whose segments cover ``nl`` leaves
+    holds the slot range [j*cap, (j+1)*cap), cap = nl * leaf_size, clipped
+    to the n prims. The split runs down to single leaves a level at a time:
+    one stable sort by (segment, key) orders every segment of the level.
+
+    Returns (order, axes, kept): ``order`` a permutation of range(n);
+    ``axes`` (n_leaves-1,) int8, each internal node's split axis (-1 where
+    its segment holds fewer than two prims, which are not split); ``kept``
+    the order at the level whose segments cover ``keep_leaves`` leaves
+    (where a split that stops at that level ends), else None."""
     c = (np.asarray(mins, np.float64) + np.asarray(maxs, np.float64)) * 0.5
     n = c.shape[0]
-    order = np.arange(n)
-    segments = [(0, n, n_leaves, 0)]
-    while segments:
-        nxt = []
-        for s, e, nl, node in segments:
-            if e - s <= 1 or nl <= stop_leaves:
-                continue
-            seg = order[s:e]
-            cs = c[seg]
-            axis = int(np.argmax(cs.max(axis=0) - cs.min(axis=0)))
-            if axes_out is not None:
-                axes_out[node] = axis
-            order[s:e] = seg[np.argsort(cs[:, axis], kind="stable")]
-            half_cap = (nl // 2) * leaf_size
-            split = min(e - s, half_cap)
-            nxt.append((s, s + split, nl // 2, 2 * node + 1))
-            nxt.append((s + split, e, nl - nl // 2, 2 * node + 2))
-        segments = nxt
-    return order
+    pos = np.arange(n)
+    order = pos.copy()
+    axes = np.full(n_leaves - 1, -1, np.int8)
+    kept = None
+    nl = n_leaves
+    while True:
+        if nl == keep_leaves:
+            kept = order.copy()
+        if nl <= 1:
+            return order, axes, kept
+        cap = nl * leaf_size
+        starts = np.arange(0, n, cap)   # the level's non-empty segments
+        if n:
+            cs = c[order]
+            spread = (np.maximum.reduceat(cs, starts)
+                      - np.minimum.reduceat(cs, starts))
+            seg_axis = np.argmax(spread, axis=1)
+            split = np.diff(np.append(starts, n)) >= 2
+            axes[n_leaves // nl - 1 + np.nonzero(split)[0]] = seg_axis[split]
+            seg = pos // cap
+            order = order[np.lexsort((cs[pos, seg_axis[seg]], seg))]
+        nl //= 2
 
 
 def _n_leaves(n, leaf_size):
@@ -240,53 +280,38 @@ def _round_up(x):
                     np.nextafter(y, np.float32(np.inf)), y)
 
 
-def _kernel_nodes(node_min, node_max, split_axes, n_leaves):
-    """(n_nodes, 8) f32 kernel node table: empty boxes replaced by the
-    EMPTY_BOX point, split axis per internal node."""
-    bmin = node_min.copy()
-    bmax = node_max.copy()
-    empty = ~(bmin[:, 0] <= bmax[:, 0])
-    bmin[empty] = EMPTY_BOX
-    bmax[empty] = EMPTY_BOX
-    n_int = n_leaves - 1
-    centre = (bmin + bmax) * 0.5
-    # below the treelet roots the build recorded no split: take the axis
-    # along which the two children's centres lie farthest apart
-    left = 2 * np.arange(n_int) + 1
-    axis = np.zeros(2 * n_leaves - 1)
-    if n_int:
-        sep = np.abs(centre[left + 1] - centre[left])
-        sep[~np.isfinite(sep) | (sep > EMPTY_BOX / 2)] = 0.0
-        axis[:n_int] = np.argmax(sep, axis=1)
-    for node, ax in split_axes.items():
-        axis[node] = ax
-    nodes = np.zeros((2 * n_leaves - 1, 8), np.float32)
-    nodes[:, 0:3] = _round_down(bmin)
-    nodes[:, 3:6] = _round_up(bmax)
-    nodes[empty, 0:6] = EMPTY_BOX  # a point: min == max after the cast too
-    nodes[:, 6] = axis
-    return nodes
 
 
-def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF):
-    """Planar-only BVH for the hit kernel (see KernelBvh), host numpy.
-    Median-split leaf order, stopped at the treelet level like the JAX
-    package's build."""
-    Q = np.asarray(s.qd_valid).shape[0]
-    qi, q_lo, q_hi, ti, t_lo, t_hi = _planar_aabbs(s)
-    slots = np.concatenate([qi, Q + ti]).astype(np.int32)
-    mins = np.concatenate([q_lo, t_lo], axis=0)
-    maxs = np.concatenate([q_hi, t_hi], axis=0)
-    n = slots.shape[0]
+def _conservative(lo, hi):
+    """f64 node boxes -> f32 rounded outwards (boxes only grow in the
+    cast), empty subtrees (the ±inf a min/max reduction leaves) as the
+    EMPTY_BOX point: min == max after the cast too."""
+    empty = ~(lo[:, 0] <= hi[:, 0])
+    lo, hi = _round_down(lo), _round_up(hi)
+    lo[empty] = EMPTY_BOX
+    hi[empty] = EMPTY_BOX
+    return lo, hi
 
-    n_leaves = _n_leaves(n, leaf_size)
-    stop = max(1, n_leaves // (1 << (TOP_LEVELS - 1)))
-    split_axes = {}
-    order = median_split_order(mins, maxs, leaf_size, n_leaves,
-                               stop_leaves=stop, axes_out=split_axes)
-    slots, mins, maxs = slots[order], mins[order], maxs[order]
-    n_slots = n_leaves * leaf_size
 
+def _padded_boxes(mins, maxs):
+    """Prim boxes grown by BOX_PAD of the largest coordinate."""
+    pad = BOX_PAD * max(1.0, float(np.abs(mins).max(initial=0.0)),
+                        float(np.abs(maxs).max(initial=0.0)))
+    return mins - pad, maxs + pad
+
+
+def _slot_boxes(mins, maxs, n_slots):
+    """(n_slots, 3) f64 slot boxes: the given ones first, ±inf padding."""
+    lo = np.full((n_slots, 3), np.inf)
+    hi = np.full((n_slots, 3), -np.inf)
+    lo[:len(mins)] = mins
+    hi[:len(maxs)] = maxs
+    return lo, hi
+
+
+def _prim_rows(s: Solids, slots, n_slots):
+    """(n_slots, 16) leaf table: the planar rows of ``slots`` in order, then
+    padding (valid 0)."""
     rows = np.zeros((n_slots, 16), np.float32)
     pl_cols = np.concatenate(
         [np.asarray(s.pl_n, np.float32),
@@ -296,38 +321,104 @@ def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF):
          np.asarray(s.pl_g2, np.float32),
          np.asarray(s.pl_g2o, np.float32)[:, None],
          np.asarray(s.pl_is_tri, np.float32)[:, None]], axis=1)
+    n = len(slots)
     rows[:n, :13] = pl_cols[slots]
     rows[:n, 13] = 1.0                        # valid
     rows[:n, 14] = slots.astype(np.float32)   # planar slot id
+    return rows
 
-    slot_min = np.full((n_slots, 3), np.inf)
-    slot_max = np.full((n_slots, 3), -np.inf)
-    slot_min[:n] = mins
-    slot_max[:n] = maxs
-    node_min, node_max = _level_boxes(slot_min, slot_max, n_leaves,
-                                      leaf_size)
 
-    # the JAX package's two-level TPU layout, kept field for field
+def _planar_slots(s: Solids):
+    """Valid planar slots (quads, then Q + triangle index) and their f64
+    AABBs."""
+    Q = np.asarray(s.qd_valid).shape[0]
+    qi, q_lo, q_hi, ti, t_lo, t_hi = _planar_aabbs(s)
+    return (np.concatenate([qi, Q + ti]).astype(np.int32),
+            np.concatenate([q_lo, t_lo], axis=0),
+            np.concatenate([q_hi, t_hi], axis=0))
+
+
+def leaf_tree(s: Solids, prims, leaf_size):
+    """(node_min, node_max) f32 boxes of the complete tree whose leaves are
+    the rows of the leaf table ``prims`` in order, ``leaf_size`` to a leaf,
+    built as the kernel tree's are: what ``walk_counts`` takes for another
+    leaf order of the same prims."""
+    slots, mins, maxs = _planar_slots(s)
+    box_lo = np.zeros((np.asarray(s.pl_n).shape[0], 3))
+    box_hi = np.zeros_like(box_lo)
+    box_lo[slots], box_hi[slots] = _padded_boxes(mins, maxs)
+    prims = np.asarray(prims)
+    valid = prims[:, 13] > 0.5
+    slot = prims[:, 14].astype(np.int64)
+    lo = np.where(valid[:, None], box_lo[slot], np.inf)
+    hi = np.where(valid[:, None], box_hi[slot], -np.inf)
+    return _conservative(*_level_boxes(lo, hi, prims.shape[0] // leaf_size,
+                                       leaf_size))
+
+
+def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF,
+                     walk_leaf=WALK_LEAF):
+    """Planar-only BVH for the hit kernel (see KernelBvh), host numpy.
+
+    One median split, down to leaves of ``walk_leaf`` prims, orders the
+    kernel tree. Its levels above the treelet roots are the JAX package's
+    split (same slot ranges, same rule), and its order at the treelet level,
+    where the JAX build stops splitting, gives the JAX layout's fields."""
+    if walk_leaf < 1 or leaf_size % (2 * walk_leaf):
+        raise ValueError(f"walk_leaf {walk_leaf} must be a power of two "
+                         f"dividing {leaf_size // 2}")
+    slots, mins, maxs = _planar_slots(s)
+    n = slots.shape[0]
+    n_leaves = _n_leaves(n, leaf_size)
+    n_slots = n_leaves * leaf_size
+    walk_leaves = n_slots // walk_leaf
     tr = max(1, n_leaves // (1 << (TOP_LEVELS - 1)))
+    order, axes, kept = median_split_order(
+        mins, maxs, walk_leaf, walk_leaves,
+        keep_leaves=tr * leaf_size // walk_leaf)
+
+    # the kernel tree: both children's boxes and prim counts in each
+    # internal node's row (valid slots come first, so leaf j holds
+    # min(walk_leaf, n - j*walk_leaf) of them)
+    mins, maxs = mins[order], maxs[order]
+    node_min, node_max = _conservative(*_level_boxes(
+        *_slot_boxes(*_padded_boxes(mins, maxs), n_slots), walk_leaves,
+        walk_leaf))
+    count = np.clip(n - np.arange(walk_leaves) * walk_leaf, 0, walk_leaf)
+    node_count = np.zeros(2 * walk_leaves - 1)
+    node_count[walk_leaves - 1:] = count
+    while count.shape[0] > 1:
+        count = count.reshape(-1, 2).sum(1)
+        node_count[count.shape[0] - 1:2 * count.shape[0] - 1] = count
+    left = 2 * np.arange(walk_leaves - 1) + 1
+    nodes = np.zeros((walk_leaves - 1, 16), np.float32)
+    for a in range(3):
+        nodes[:, 4 * a:4 * a + 4] = np.stack(
+            [node_min[left, a], node_min[left + 1, a], node_max[left, a],
+             node_max[left + 1, a]], axis=1)
+    nodes[:, 12] = node_count[left]
+    nodes[:, 13] = node_count[left + 1]
+
+    # the JAX package's two-level TPU layout, kept field for field: its
+    # top nodes are the kernel tree's (the same prims under each), split
+    # axes only above the treelet roots, leaves in the treelet-level order
     n_troots = n_leaves // tr
     n_top = 2 * n_troots - 1
-    n_top_p = (n_top + 7) // 8 * 8
-    top = np.zeros((n_top_p, 8), np.float32)
-    tmin_ = node_min[:n_top].copy()
-    tmax_ = node_max[:n_top].copy()
+    top = np.zeros(((n_top + 7) // 8 * 8, 8), np.float32)
+    tmin_, tmax_ = _level_boxes(*_slot_boxes(mins, maxs, n_slots),
+                                walk_leaves, walk_leaf)
+    tmin_, tmax_ = tmin_[:n_top], tmax_[:n_top]
     empty = ~(tmin_[:, 0] <= tmax_[:, 0])
     tmin_[empty] = EMPTY_BOX
     tmax_[empty] = EMPTY_BOX
     top[:n_top, 0:3] = tmin_
     top[:n_top, 3:6] = tmax_
-    for node, axis in split_axes.items():
-        if node < n_top:
-            top[node, 6] = float(axis)
-    has_spheres = bool(np.asarray(s.sph_valid).any())
+    top[:n_troots - 1, 6] = np.maximum(axes[:n_troots - 1], 0)
     p_t = tr * leaf_size
     nbt = max(1, (p_t + 127) // 128)
     blk = np.zeros((n_troots, nbt * 128, 16), np.float32)
-    blk[:, :p_t, :] = rows.reshape(n_troots, p_t, 16)
+    blk[:, :p_t, :] = _prim_rows(s, slots[kept], n_slots).reshape(
+        n_troots, p_t, 16)
     blk = blk.reshape(n_troots, nbt, 128, 16).transpose(0, 1, 3, 2)
 
     return KernelBvh(top_nodes=top,
@@ -335,9 +426,138 @@ def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF):
                          blk.reshape(n_troots * nbt * 16, 128)),
                      n_troots=n_troots, tr=tr,
                      n_leaves=n_leaves, leaf_size=leaf_size,
-                     has_spheres=has_spheres,
-                     node_min=node_min.astype(np.float32),
-                     node_max=node_max.astype(np.float32),
-                     nodes=_kernel_nodes(node_min, node_max, split_axes,
-                                         n_leaves),
-                     prims=rows)
+                     has_spheres=bool(np.asarray(s.sph_valid).any()),
+                     walk_leaves=walk_leaves, walk_leaf=walk_leaf,
+                     node_min=node_min, node_max=node_max, nodes=nodes,
+                     prims=_prim_rows(s, slots[order], n_slots))
+
+
+def _slab(lo, hi, o, inv):
+    """Entry and exit distances of rays (o, inv = 1/d) through boxes
+    (R, 3): the kernel's slab test, in its order (fmin/fmax ignore the NaN
+    of 0 * inf as fminf/fmaxf do), entry clamped at 0."""
+    near = far = None
+    for a in range(3):
+        t0 = (lo[:, a] - o[a]) * inv[a]
+        t1 = (hi[:, a] - o[a]) * inv[a]
+        if near is None:
+            near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        else:
+            near = torch.fmax(near, torch.fmin(t0, t1))
+            far = torch.fmin(far, torch.fmax(t0, t1))
+    return torch.clamp(near, min=0.0), far
+
+
+def walk_counts(node_min, node_max, prims, leaf_size, o, d, tmin):
+    """Plain PyTorch walk of a complete kernel tree, vectorised over rays,
+    counting its work. ``node_min`` / ``node_max`` (2L-1, 3) are the boxes
+    of a tree over L leaves of ``leaf_size`` rows of the leaf table
+    ``prims`` (valid rows first in each leaf).
+
+    The walk is the one ``csrc/bvh.cu`` makes: each internal node's visit
+    slab-tests both children; a child is entered when near < far *
+    FAR_SCALE and near <= best * BEST_SCALE; of two entered internal
+    children the nearer (left on a tie) is visited next and the other
+    pushed with its entry; entered leaf children have their prims tested
+    at once, nearer first, the second only if its entry still passes; a
+    popped entry is skipped once the best t has passed it. Parked rays
+    (zero direction) do no work.
+
+    Returns (t (R,) f32, slot (R,) int32: the closest t >= tmin and its
+    planar slot, ties to the smallest slot, (INF, -1) on a miss; box tests
+    (R,) int32; prim tests (R,) int32)."""
+    dev = o[0].device
+    r = o[0].shape[0]
+    n_leaves = (node_min.shape[0] + 1) // 2
+    n_int = n_leaves - 1
+    valid = prims[:, 13] > 0.5
+    count = torch.zeros(n_leaves * leaf_size, dtype=torch.int32, device=dev)
+    count[:prims.shape[0]] = valid[:n_leaves * leaf_size].to(torch.int32)
+    count = count.view(n_leaves, leaf_size).sum(1)
+    inv = tuple(1.0 / c for c in d)
+    lo_t = torch.as_tensor(tmin, dtype=torch.float32,
+                           device=dev).expand(r)
+    best = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    best_slot = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    boxes = torch.zeros((r,), dtype=torch.int32, device=dev)
+    tests = torch.zeros((r,), dtype=torch.int32, device=dev)
+    depth = max(1, int(np.log2(n_leaves)))
+    stack = torch.zeros((r, depth), dtype=torch.int64, device=dev)
+    stack_near = torch.zeros((r, depth), dtype=torch.float32, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    # node to visit per ray: >= 0 an internal node, -1 pop, -2 done
+    parked = (d[0] == 0) & (d[1] == 0) & (d[2] == 0)
+    node = torch.where(parked, -2, 0 if n_int else -3).to(torch.int64)
+
+    def leaf(ray, lf):
+        """Test the prims of leaf ``lf`` (per ray in ``ray``) in order."""
+        tests[ray] += count[lf]
+        oo = tuple(c[ray] for c in o)
+        dd = tuple(c[ray] for c in d)
+        for k in range(leaf_size):
+            f = prims[torch.clamp(lf * leaf_size + k, max=prims.shape[0] - 1)]
+            on = oo[0] * f[:, 0] + oo[1] * f[:, 1] + oo[2] * f[:, 2]
+            dn = dd[0] * f[:, 0] + dd[1] * f[:, 1] + dd[2] * f[:, 2]
+            og1 = oo[0] * f[:, 4] + oo[1] * f[:, 5] + oo[2] * f[:, 6]
+            dg1 = dd[0] * f[:, 4] + dd[1] * f[:, 5] + dd[2] * f[:, 6]
+            og2 = oo[0] * f[:, 8] + oo[1] * f[:, 9] + oo[2] * f[:, 10]
+            dg2 = dd[0] * f[:, 8] + dd[1] * f[:, 9] + dd[2] * f[:, 10]
+            t = (f[:, 3] - on) / dn
+            u = og1 + t * dg1 + f[:, 7]
+            v = og2 + t * dg2 + f[:, 11]
+            contain = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & torch.where(
+                f[:, 12] > 0.5, u + v <= 1.0, v <= 1.0)
+            slot = f[:, 14].to(torch.int32)
+            b, bs = best[ray], best_slot[ray]
+            take = ((k < count[lf]) & (torch.abs(dn) >= ALMOST_ZERO) & contain
+                    & (t >= lo_t[ray])
+                    & ((t < b) | ((t == b) & (slot < bs))))
+            best[ray] = torch.where(take, t, b)
+            best_slot[ray] = torch.where(take, slot, bs)
+
+    if not n_int:   # a one-leaf tree: its leaf, unless parked
+        live = torch.nonzero(node == -3).squeeze(1)
+        leaf(live, torch.zeros_like(live))
+        node[live] = -2
+    while True:
+        ray = torch.nonzero(node >= 0).squeeze(1)
+        if ray.numel() == 0:
+            break
+        c = node[ray]
+        left = 2 * c + 1
+        oo = tuple(x[ray] for x in o)
+        ii = tuple(x[ray] for x in inv)
+        n_l, f_l = _slab(node_min[left], node_max[left], oo, ii)
+        n_r, f_r = _slab(node_min[left + 1], node_max[left + 1], oo, ii)
+        boxes[ray] += 2
+        lim = best[ray] * BEST_SCALE
+        h_l = (n_l < f_l * FAR_SCALE) & (n_l <= lim)
+        h_r = (n_r < f_r * FAR_SCALE) & (n_r <= lim)
+        r_first = h_r & (~h_l | (n_r < n_l))
+        first = torch.where(r_first, left + 1, left)
+        second = torch.where(r_first, left, left + 1)
+        near2 = torch.where(r_first, n_l, n_r)
+        kids_leaves = left >= n_int
+        go = kids_leaves & (h_l | h_r)
+        leaf(ray[go], first[go] - n_int)
+        go = kids_leaves & h_l & h_r
+        go &= near2 <= best[ray] * BEST_SCALE
+        leaf(ray[go], second[go] - n_int)
+        both = ~kids_leaves & h_l & h_r
+        pb = ray[both]
+        stack[pb, sp[pb]] = second[both]
+        stack_near[pb, sp[pb]] = near2[both]
+        sp[pb] += 1
+        node[ray] = torch.where(~kids_leaves & (h_l | h_r), first,
+                                torch.full_like(first, -1))
+        while True:   # pop until an entry the best t has not passed
+            pr = torch.nonzero(node == -1).squeeze(1)
+            if pr.numel() == 0:
+                break
+            empty = sp[pr] == 0
+            node[pr[empty]] = -2
+            pr = pr[~empty]
+            sp[pr] -= 1
+            ok = stack_near[pr, sp[pr]] <= best[pr] * BEST_SCALE
+            node[pr[ok]] = stack[pr[ok], sp[pr[ok]]]
+    return best, best_slot, boxes, tests

@@ -6,117 +6,244 @@
 // prim (no upper bound) and its planar slot, ties to the smallest slot;
 // INF / -1 on a miss.
 //
-// Design: one thread per ray walking the complete binary tree (children of
-// node i are 2i+1 and 2i+2) with an explicit per-ray stack. At each pop the
-// node's box gets the slab test; a node whose entry distance is at or
-// beyond the ray's current best t is pruned. Internal nodes push the far
-// child first, so the near child -- by the sign of the ray direction along
-// the node's split axis -- is visited first and tightens the best t early.
-// Leaves brute-force their prims with the TPU kernel's unified formula
-// (pallas_bvh.py:250-264): t = (d_pl - o.n)/(d.n), u = o.g1 + t*(d.g1) +
-// g1o, v likewise, containment by is_tri.
+// What bounds it on the card: latency. Every ray chases its own chain of
+// dependent node loads down the tree (a visit's 64 bytes decide the next
+// address), so the card waits on memory far more than it computes: ~30
+// f32 operations a visit, ~32 a prim test. A launch lasts as long as its
+// longest chains, those of bounce rays that graze the surface across many
+// boxes, so 16,384 lanes take nearly as long as 131,072. The design
+// shortens those chains:
+// - the tree is the port's own (accel.build_kernel_bvh): the median split
+//   continued down to leaves of a few prims, so a ray tests a few prims
+//   where a leaf of the TPU treelet layout held 8 in no spatial order;
+// - child boxes in the parent (Aila & Laine, HPG 2009): an internal node's
+//   64-byte row holds both children's boxes, [Lminx Rminx Lmaxx Rmaxx],
+//   the same for y and z, and the children's prim counts. One visit
+//   slab-tests both children from three 16-byte loads, descends into the
+//   nearer entered child and pushes the other only if the ray enters it,
+//   so a missed child costs no load of its own; a leaf child's prims are
+//   tested at once, the count from the row (no padding row is loaded);
+// - the top levels live in shared memory: at block start one thread
+//   copies their rows with asynchronous bulk copies (cp.async.bulk, 32 KB
+//   each, completed on one mbarrier) while the block reads its rays; below
+//   them rows and prims are read with __ldg;
+// - a short stack in shared memory, one column per thread (entry k of
+//   thread t at k * blockDim + t, so a warp's accesses hit distinct
+//   banks): the tree's internal levels bound it (a visit pushes at most
+//   one sibling per level), 8 bytes an entry with the pushed child's
+//   entry distance, so a popped child the best t has passed is skipped
+//   without a load.
+// Entering is strict against the best t, widened by a few ulps (near <=
+// best * kBestScale), and the slab interval by kFarScale; the build pads
+// every prim box (accel.BOX_PAD) and rounds boxes outwards. A box that
+// holds a prim at the best t is therefore always entered, and exact ties
+// resolve to the smallest slot as the brute force resolves them.
 //
-// What bounds it on the card: the latency of divergent, data-dependent node
-// and prim loads (every thread chases its own path through the tree), not
-// FLOPs -- a leaf test is ~40 flops against 64 bytes of prim data. The
-// design keeps nodes (32 B) and prims (64 B) as aligned float4 rows so each
-// visit is two or four 16-byte loads, and lets the read-only path and the
-// 50 MB L2 hold the upper tree. Packet traversal, ray sorting and a wider
-// tree are later work.
+// Leaves use the TPU kernel's unified formula (pallas_bvh.py:250-264):
+// t = (d_pl - o.n)/(d.n), u = o.g1 + t*(d.g1) + g1o, v likewise,
+// containment by is_tri.
 //
 // Tables (f32, 16-byte aligned rows; built by accel.build_kernel_bvh):
-//   nodes (2*n_leaves-1, 8): minx miny minz maxx maxy maxz split_axis 0,
-//         empty subtrees stored as a far-away point box (always missed)
-//   prims (n_leaves*leaf_size, 16): nx ny nz d g1xyz g1o g2xyz g2o
-//         is_tri valid slot 0
+//   nodes (n_int, 16): the internal nodes' rows above (children of node i
+//         are 2i+1 and 2i+2; node ids >= n_int are leaves), empty subtrees
+//         as a far-away point box (always missed, count 0)
+//   prims (n_leaves*walk_leaf, 16): nx ny nz d g1xyz g1o g2xyz g2o
+//         is_tri valid slot 0, a leaf's valid rows first
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kStack = 64;            // > tree depth + 1 (checked on the host)
-constexpr float kAlmostZero = 1e-8f;  // geo.ALMOST_ZERO (vec3.rs:21)
-// far-plane widening (a few ulps) so rounding in the slab test never drops
-// a box the ray really crosses: traversal stays conservative
-constexpr float kFarScale = 1.0000004f;
+constexpr float kAlmostZero = 1e-8f;   // geo.ALMOST_ZERO (vec3.rs:21)
+constexpr float kFarScale = 1.0000004f;   // accel.FAR_SCALE
+constexpr float kBestScale = 1.000002f;   // accel.BEST_SCALE
+constexpr int kMaxCopy = 1 << 20;   // bytes one mbarrier phase can count
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// near/far of the ray through both children's boxes from the three rows
+// of one axis each: (Lmin, Rmin, Lmax, Rmax)
+__device__ __forceinline__ void slab2(float4 b, float o, float inv,
+                                      float& nl, float& fl, float& nr,
+                                      float& fr, bool first) {
+  const float a0 = (b.x - o) * inv, a1 = (b.z - o) * inv;
+  const float b0 = (b.y - o) * inv, b1 = (b.w - o) * inv;
+  if (first) {
+    nl = fminf(a0, a1); fl = fmaxf(a0, a1);
+    nr = fminf(b0, b1); fr = fmaxf(b0, b1);
+  } else {
+    nl = fmaxf(nl, fminf(a0, a1)); fl = fminf(fl, fmaxf(a0, a1));
+    nr = fmaxf(nr, fminf(b0, b1)); fr = fminf(fr, fmaxf(b0, b1));
+  }
+}
+
+struct Ray {
+  float o0, o1, o2, d0, d1, d2, tmin;
+};
+
+// test `count` prims from row `base` on; keep the closest (t, slot)
+__device__ __forceinline__ void leaf(const float4* __restrict__ prims,
+                                     int base, int count, const Ray& r,
+                                     float& best, int& best_slot) {
+  for (int k = 0; k < count; ++k) {
+    const float4* row = prims + 4 * (base + k);
+    const float4 n = __ldg(&row[0]);
+    const float4 g1 = __ldg(&row[1]);
+    const float4 g2 = __ldg(&row[2]);
+    const float4 e = __ldg(&row[3]);  // is_tri valid slot 0
+    const float on = r.o0 * n.x + r.o1 * n.y + r.o2 * n.z;
+    const float dn = r.d0 * n.x + r.d1 * n.y + r.d2 * n.z;
+    const float og1 = r.o0 * g1.x + r.o1 * g1.y + r.o2 * g1.z;
+    const float dg1 = r.d0 * g1.x + r.d1 * g1.y + r.d2 * g1.z;
+    const float og2 = r.o0 * g2.x + r.o1 * g2.y + r.o2 * g2.z;
+    const float dg2 = r.d0 * g2.x + r.d1 * g2.y + r.d2 * g2.z;
+    const float t = (n.w - on) / dn;
+    const float u = og1 + t * dg1 + g1.w;
+    const float v = og2 + t * dg2 + g2.w;
+    const bool tri = e.x > 0.5f;
+    const bool contain = (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
+                         (tri ? (u + v <= 1.f) : (v <= 1.f));
+    if (!(fabsf(dn) >= kAlmostZero) || !contain || !(t >= r.tmin)) continue;
+    const int slot = static_cast<int>(e.z);
+    if (t < best || (t == best && slot < best_slot)) {
+      best = t;
+      best_slot = slot;
+    }
+  }
+}
 
 __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
                        const float* dx, const float* dy, const float* dz,
                        const float* tmin_arr, const float4* __restrict__ nodes,
-                       const float4* __restrict__ prims, int n_leaves,
-                       int leaf_size, int n_rays, float* out_t,
+                       const float4* __restrict__ prims, int n_int,
+                       int walk_leaf, int top_rows, int n_rays, float* out_t,
                        int* out_slot) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(128) float4 smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const float4* top = smem;  // top_rows rows of 4 float4
+  int2* stack = reinterpret_cast<int2*>(smem + 4 * top_rows);
+  const int tid = threadIdx.x;
+  const int stride = blockDim.x;
+
+  // stage the top levels: one thread starts the bulk copy, every thread
+  // reads its ray meanwhile, then all wait on the barrier's first phase
+  const uint32_t bar_a = smem_addr(&bar);
+  if (top_rows > 0) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const uint32_t bytes = static_cast<uint32_t>(top_rows) * 64u;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar_a), "r"(bytes) : "memory");
+      const char* src = reinterpret_cast<const char*>(nodes);
+      const uint32_t dst = smem_addr(smem);
+      for (uint32_t off = 0; off < bytes; off += 32768u) {
+        const uint32_t n = bytes - off < 32768u ? bytes - off : 32768u;
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];" ::"r"(dst + off),
+            "l"(src + off), "r"(n), "r"(bar_a)
+            : "memory");
+      }
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits
+  }
+  const int i = blockIdx.x * blockDim.x + tid;
+  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (i < n_rays) {
+    r = Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i], tmin_arr[i]};
+  }
+  if (top_rows > 0) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(bar_a)
+          : "memory");
+    }
+  }
   if (i >= n_rays) return;
-  const float o0 = ox[i], o1 = oy[i], o2 = oz[i];
-  const float d0 = dx[i], d1 = dy[i], d2 = dz[i];
-  const float tmin = tmin_arr[i];
+
   float best = CUDART_INF_F;
   int best_slot = -1;
   // a parked lane (zero direction) can hit nothing: |d.n| < ALMOST_ZERO
   // for every prim
-  if (d0 == 0.f && d1 == 0.f && d2 == 0.f) {
+  if (r.d0 == 0.f && r.d1 == 0.f && r.d2 == 0.f) {
     out_t[i] = best;
     out_slot[i] = best_slot;
     return;
   }
-  const float inv0 = 1.f / d0, inv1 = 1.f / d1, inv2 = 1.f / d2;
-  const int first_leaf = n_leaves - 1;
+  const float inv0 = 1.f / r.d0, inv1 = 1.f / r.d1, inv2 = 1.f / r.d2;
 
-  int stack[kStack];
+  int node = 0;
   int sp = 0;
-  stack[sp++] = 0;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    const float4 a = __ldg(&nodes[2 * node]);      // minx miny minz maxx
-    const float4 b = __ldg(&nodes[2 * node + 1]);  // maxy maxz axis 0
-    float t0 = (a.x - o0) * inv0, t1 = (a.w - o0) * inv0;
-    float near = fminf(t0, t1), far = fmaxf(t0, t1);
-    t0 = (a.y - o1) * inv1; t1 = (b.x - o1) * inv1;
-    near = fmaxf(near, fminf(t0, t1)); far = fminf(far, fmaxf(t0, t1));
-    t0 = (a.z - o2) * inv2; t1 = (b.y - o2) * inv2;
-    near = fmaxf(near, fminf(t0, t1)); far = fminf(far, fmaxf(t0, t1));
-    near = fmaxf(near, 0.f);
-    // non-empty interval (strict, like Aabb::hit) that can still beat best
-    if (!(near < far * kFarScale) || near >= best) continue;
+  while (true) {
+    const bool shared = node < top_rows;
+    float4 bx, by, bz;
+    if (shared) {
+      bx = top[4 * node];
+      by = top[4 * node + 1];
+      bz = top[4 * node + 2];
+    } else {
+      bx = __ldg(&nodes[4 * node]);
+      by = __ldg(&nodes[4 * node + 1]);
+      bz = __ldg(&nodes[4 * node + 2]);
+    }
+    float nl, fl, nr, fr;
+    slab2(bx, r.o0, inv0, nl, fl, nr, fr, true);
+    slab2(by, r.o1, inv1, nl, fl, nr, fr, false);
+    slab2(bz, r.o2, inv2, nl, fl, nr, fr, false);
+    nl = fmaxf(nl, 0.f);
+    nr = fmaxf(nr, 0.f);
+    const float lim = best * kBestScale;
+    const bool hl = nl < fl * kFarScale && nl <= lim;
+    const bool hr = nr < fr * kFarScale && nr <= lim;
+    // the nearer entered child first (the left one on a tie)
+    const bool r_first = hr && (!hl || nr < nl);
+    const int left = 2 * node + 1;
+    const int first = r_first ? left + 1 : left;
+    const float near2 = r_first ? nl : nr;
 
-    if (node < first_leaf) {
-      const int axis = static_cast<int>(b.z);
-      const float s = axis == 0 ? d0 : (axis == 1 ? d1 : d2);
-      const int left = 2 * node + 1;
-      const int near_child = s < 0.f ? left + 1 : left;
-      stack[sp++] = s < 0.f ? left : left + 1;  // far child, popped later
-      stack[sp++] = near_child;
+    if (left >= n_int) {  // both children are leaves: test them now
+      if (hl || hr) {
+        const float4 cnt =
+            shared ? top[4 * node + 3] : __ldg(&nodes[4 * node + 3]);
+        const int c1 = static_cast<int>(r_first ? cnt.y : cnt.x);
+        const int c2 = static_cast<int>(r_first ? cnt.x : cnt.y);
+        leaf(prims, (first - n_int) * walk_leaf, c1, r, best, best_slot);
+        if (hl && hr && near2 <= best * kBestScale) {
+          leaf(prims, (2 * left + 1 - first - n_int) * walk_leaf, c2, r,
+               best, best_slot);
+        }
+      }
+    } else if (hl || hr) {
+      if (hl && hr) {
+        stack[sp * stride + tid] =
+            make_int2(2 * left + 1 - first, __float_as_int(near2));
+        ++sp;
+      }
+      node = first;
       continue;
     }
-    const int base = (node - first_leaf) * leaf_size;
-    for (int k = 0; k < leaf_size; ++k) {
-      const float4* row = prims + 4 * (base + k);
-      const float4 e = __ldg(&row[3]);  // is_tri valid slot 0
-      if (!(e.y > 0.5f)) continue;      // padding slot
-      const float4 n = __ldg(&row[0]);
-      const float4 g1 = __ldg(&row[1]);
-      const float4 g2 = __ldg(&row[2]);
-      const float on = o0 * n.x + o1 * n.y + o2 * n.z;
-      const float dn = d0 * n.x + d1 * n.y + d2 * n.z;
-      const float og1 = o0 * g1.x + o1 * g1.y + o2 * g1.z;
-      const float dg1 = d0 * g1.x + d1 * g1.y + d2 * g1.z;
-      const float og2 = o0 * g2.x + o1 * g2.y + o2 * g2.z;
-      const float dg2 = d0 * g2.x + d1 * g2.y + d2 * g2.z;
-      const float t = (n.w - on) / dn;
-      const float u = og1 + t * dg1 + g1.w;
-      const float v = og2 + t * dg2 + g2.w;
-      const bool tri = e.x > 0.5f;
-      const bool contain = (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
-                           (tri ? (u + v <= 1.f) : (v <= 1.f));
-      if (!(fabsf(dn) >= kAlmostZero) || !contain || !(t >= tmin)) continue;
-      const int slot = static_cast<int>(e.z);
-      if (t < best || (t == best && slot < best_slot)) {
-        best = t;
-        best_slot = slot;
+    // pop until an entry the best t has not passed
+    bool found = false;
+    while (sp > 0) {
+      const int2 e = stack[--sp * stride + tid];
+      if (__int_as_float(e.y) <= best * kBestScale) {
+        node = e.x;
+        found = true;
+        break;
       }
     }
+    if (!found) break;
   }
   out_t[i] = best;
   out_slot[i] = best_slot;
@@ -124,19 +251,36 @@ __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
 
 }  // namespace
 
+// levels: the tree's internal levels (the stack's depth); top_rows: rows
+// staged in shared memory (the first 2^k - 1 for k top levels, at most
+// n_int); threads: the block size.
 extern "C" int k1_bvh_launch(const float* ox, const float* oy,
                              const float* oz, const float* dx,
                              const float* dy, const float* dz,
                              const float* tmin, const float* nodes,
-                             const float* prims, int n_leaves, int leaf_size,
+                             const float* prims, int n_int, int walk_leaf,
+                             int levels, int top_rows, int threads,
                              int n_rays, float* out_t, int* out_slot,
                              void* stream) {
-  if (n_rays > 0) {
-    const int blocks = (n_rays + kThreads - 1) / kThreads;
-    k1_bvh<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, tmin, reinterpret_cast<const float4*>(nodes),
-        reinterpret_cast<const float4*>(prims), n_leaves, leaf_size, n_rays,
-        out_t, out_slot);
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_int < 1 || top_rows < 0 || top_rows > n_int ||
+      top_rows * 64 >= kMaxCopy)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the staged rows, then the stack; above the default 48 KB a block may
+  // take only after the attribute is raised (once per size: setting it
+  // costs a driver call)
+  const int smem = top_rows * 64 + levels * threads * 8;
+  static int raised = 48 * 1024;
+  if (smem > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_bvh, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised = smem;
   }
+  const int blocks = (n_rays + threads - 1) / threads;
+  k1_bvh<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, tmin, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(prims), n_int, walk_leaf, top_rows,
+      n_rays, out_t, out_slot);
   return static_cast<int>(cudaGetLastError());
 }

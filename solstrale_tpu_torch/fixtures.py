@@ -233,3 +233,24 @@ def small_scene(render_config, api=None):
     camera = api.CameraConfig(vertical_fov_degrees=20, aperture_size=0.1,
                               look_from=(0, 0, 4), look_at=(0, 0, 0))
     return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
+
+
+def edge_rays(solids, n, seed=1, origin=(0.0, 6.0, 9.0)):
+    """``n`` rays from around ``origin`` aimed at the valid triangles' first
+    vertices and edge midpoints of compiled ``solids``: where neighbouring
+    triangles of a mesh meet, so several prims often give the closest t
+    exactly (ties, which resolve to the smallest slot). Returns (origins,
+    directions), (n, 3) f32 numpy arrays."""
+    def host(x):
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+
+    valid = host(solids.tr_valid) > 0
+    v0, e1, e2 = (host(x)[valid] for x in (solids.tr_v0, solids.tr_e1,
+                                           solids.tr_e2))
+    rng = np.random.default_rng(seed)
+    tri = rng.integers(0, len(v0), n)
+    offsets = np.stack([np.zeros_like(e1), 0.5 * e1, 0.5 * (e1 + e2),
+                        0.5 * e2], axis=1)[tri]
+    target = v0[tri] + offsets[np.arange(n), rng.integers(0, 4, n)]
+    o = np.asarray(origin, np.float64) + rng.uniform(-1.0, 1.0, (n, 3))
+    return o.astype(np.float32), (target - o).astype(np.float32)

@@ -411,6 +411,21 @@ def _tile_swizzle(width, height):
     return None
 
 
+def queue_assignment(qpos, width, height, sample_start=0):
+    """trace_queued's queue order: queue position -> (pixel id, sample
+    id), tile-swizzled within each sample where the image allows."""
+    n_pix = width * height
+    pslot = qpos % n_pix
+    samp = sample_start + qpos // n_pix
+    swz = _tile_swizzle(width, height)
+    if swz is None:
+        return pslot, samp
+    tw, th = swz
+    tile, within = pslot // (tw * th), pslot % (tw * th)
+    tx, ty = tile % (width // tw), tile // (width // tw)
+    return (ty * th + within // tw) * width + tx * tw + within % tw, samp
+
+
 def _camera_rays(cs, pixel, sample, seed, width, height):
     """Jittered thin-lens primary rays (renderer/mod.rs:262-265,
     camera.rs:77-89); pixel (x, y) is v-up."""
@@ -461,18 +476,9 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
         lanes = 131072 if total_q >= 1_500_000 else 65536
     lanes = min(lanes, total_q)
     dev = cs.device
-    swz = _tile_swizzle(width, height)
 
     def assignment(qpos):
-        """queue position -> (pixel id, sample id)."""
-        pslot = qpos % n_pix
-        samp = sample_start + qpos // n_pix
-        if swz is None:
-            return pslot, samp
-        tw, th = swz
-        tile, within = pslot // (tw * th), pslot % (tw * th)
-        tx, ty = tile % (width // tw), tile // (width // tw)
-        return (ty * th + within // tw) * width + tx * tw + within % tw, samp
+        return queue_assignment(qpos, width, height, sample_start)
 
     def cam(qpos):
         pixel, samp = assignment(torch.clamp(qpos, max=total_q - 1))

@@ -1,7 +1,9 @@
 """Each kernel module's plain PyTorch version against the JAX function it
 ports, on the CPU: K2 (sweep, both modes), K3 (medium) and K4 (the fused
-scene hit) against the Pallas kernels in interpret mode and the XLA sweeps; K1 (BVH planar hit) against
-the Pallas BVH kernel in interpret mode and the XLA brute force; the hit
+scene hit) against the Pallas kernels in interpret mode and the XLA
+sweeps; K1 (BVH planar hit) against the Pallas BVH kernel in interpret
+mode and the XLA brute force, and K1's walk of the kernel tree
+(``accel.walk_counts``) against the brute force, ties included; the hit
 attribute and NEE light-table ops; and the wrappers' device routing."""
 import jax.numpy as jnp
 import numpy as np
@@ -224,6 +226,58 @@ def test_k1_closest_hit_matches_xla_brute_force(terrain):
                                         RAY_T_MIN, INF)
     same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))
     _check_hits(t_j, t_t.numpy(), same, 1e-5)
+
+
+def _exact_ties(prims, o, d, t_best):
+    """Rays on which two or more valid prims give the closest t exactly
+    (the brute force's formula over every prim)."""
+    f = [prims[:, k][None, :] for k in range(15)]
+    om = [c[:, None] for c in _t(o)]
+    dm = [c[:, None] for c in _t(d)]
+    dot = [lambda v, a=a: v[0] * f[a] + v[1] * f[a + 1] + v[2] * f[a + 2]
+           for a in (0, 4, 8)]
+    dn = dot[0](dm)
+    t = (f[3] - dot[0](om)) / dn
+    u = dot[1](om) + t * dot[1](dm) + f[7]
+    v = dot[2](om) + t * dot[2](dm) + f[11]
+    ok = ((torch.abs(dn) >= 1e-8) & (f[13] > 0.5) & (u >= 0) & (u <= 1)
+          & (v >= 0) & torch.where(f[12] > 0.5, u + v <= 1, v <= 1)
+          & (t >= RAY_T_MIN))
+    return int(((ok & (t == t_best[:, None])).sum(1) >= 2).sum())
+
+
+@pytest.mark.parametrize("name", ["terrain", "mixed"])
+def test_walk_counts_equals_brute_force(terrain, name):
+    """accel.walk_counts, the plain walk of the kernel tree that csrc/bvh.cu
+    makes, returns the brute force's (t, slot) exactly: on camera-like and
+    random rays, parked rays, and rays aimed at shared triangle vertices
+    and edges, where several prims tie at the closest t and the walk must
+    return the smallest slot. It counts box and prim tests per ray."""
+    from solstrale_tpu_torch.accel import walk_counts
+
+    if name == "terrain":
+        ct = terrain[1]
+    else:
+        ct = tcompile(fixtures.mixed_bvh_scene(T.RenderConfig(width=8,
+                                                              height=8),
+                                               n_cells=16), device="cpu")
+    kb = ct.kbvh
+    o1, d1 = _terrain_rays(seed=9)
+    o2, d2 = fixtures.edge_rays(ct.solids, 1024, seed=10)
+    o, d = np.concatenate([o1, o2]), np.concatenate([d1, d2])
+    t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, _t(o), _t(d), RAY_T_MIN)
+    t_w, s_w, boxes, tests = walk_counts(kb.node_min, kb.node_max, kb.prims,
+                                         kb.walk_leaf, _t(o), _t(d),
+                                         RAY_T_MIN)
+    assert torch.equal(t_w, t_p) and torch.equal(s_w, s_p)
+    assert _exact_ties(kb.prims, o2, d2, t_p[len(o1):]) > 50
+    assert torch.isfinite(t_p).sum() > 1500
+    parked = torch.from_numpy((d == 0).all(1))
+    assert parked.sum() == 64
+    assert (boxes[parked] == 0).all() and (tests[parked] == 0).all()
+    assert (boxes[~parked] >= 2).all()
+    n_prims = int((kb.prims[:, 13] > 0.5).sum())
+    assert tests[~parked].float().mean() < 0.1 * n_prims
 
 
 def test_bvh_closest_hit_with_spheres_matches_xla():

@@ -43,16 +43,28 @@ def _assert_hits(t_k, s_k, t_p, s_p, tol=1e-5):
     assert hit.sum().item() > 100
 
 
-def test_k1_matches_plain(cuda):
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_k1_matches_plain(cuda, n):
+    """K1 against its plain version on random rays (parked ones first) and
+    rays aimed at shared triangle vertices and edges (exact ties): equal
+    hit sets, equal t and equal slots on every hit. 8,192 random rays take
+    the tail's launch shape, 32,768 the wide one."""
     cs = compile_scene(fixtures.mixed_bvh_scene(
         T.RenderConfig(width=8, height=8), n_cells=64), device=cuda)
-    o, d = _rays(8192, 1, cuda)
+    o, d = _rays(n, 1, cuda)
+    eo, ed = (torch.from_numpy(x).to(cuda)
+              for x in fixtures.edge_rays(cs.solids, 4096))
+    o = tuple(torch.cat([a, eo[:, k]]) for k, a in enumerate(o))
+    d = tuple(torch.cat([a, ed[:, k]]) for k, a in enumerate(d))
     bvh.bvh_planar_hit.launches = 0
     t_k, s_k = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
     t_p, s_p = bvh.bvh_planar_hit_plain(cs.kbvh.prims, o, d, RAY_T_MIN)
     torch.cuda.synchronize()
     assert bvh.bvh_planar_hit.launches == 1
-    _assert_hits(t_k, s_k, t_p, s_p)
+    hit = torch.isfinite(t_p)
+    assert torch.equal(torch.isfinite(t_k), hit) and hit.sum().item() > 1000
+    assert torch.equal(t_k[hit], t_p[hit])
+    assert torch.equal(s_k, s_p)
     assert not torch.isfinite(t_k[:128]).any()
     assert (s_k[:128] == -1).all()
 

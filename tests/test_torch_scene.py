@@ -139,34 +139,120 @@ def test_compile_defaults_to_cuda_and_never_falls_back():
         from_numpy_tables(tables_of(cj))
 
 
-def test_kernel_bvh_layout_is_conservative():
-    """The port's kernel node table: every internal box holds its children,
-    every leaf box holds its prims' AABBs (boxes only grow in the f32
-    cast), empty subtrees are the far point box, split axes are 0-2."""
+@pytest.mark.parametrize("name", ["mixed16", "sponza24"])
+def test_kernel_bvh_layout_is_conservative(name):
+    """The port's kernel tree: each internal node's row holds both
+    children's boxes and valid-prim counts; every box holds the AABBs of
+    all prims under it (boxes only grow in the f32 cast), so each child box
+    in a parent row holds the child's subtree and each leaf box its prims;
+    a leaf's valid rows come first; empty subtrees are the far point box
+    with count 0."""
     from solstrale_tpu_torch.accel import _planar_aabbs
 
-    _, ct = _both("mixed16")
+    _, ct = _both(name)
     kb = ct.kbvh
-    nodes = kb.nodes.numpy().astype(np.float64)
-    n_leaves, leaf = kb.n_leaves, kb.leaf_size
-    bmin, bmax = nodes[:, 0:3], nodes[:, 3:6]
-    empty = bmin[:, 0] >= EMPTY_BOX
-    inner = np.arange(n_leaves - 1)
-    for child in (2 * inner + 1, 2 * inner + 2):
-        ok = empty[child] | ((bmin[inner] <= bmin[child]).all(1)
-                             & (bmax[inner] >= bmax[child]).all(1))
-        assert ok.all()
-    assert set(np.unique(nodes[inner, 6])) <= {0.0, 1.0, 2.0}
+    n_leaves, wl = kb.walk_leaves, kb.walk_leaf
+    n_int = n_leaves - 1
+    lo = kb.node_min.numpy().astype(np.float64)
+    hi = kb.node_max.numpy().astype(np.float64)
+    rows = kb.nodes.numpy().astype(np.float64)
+    assert rows.shape == (n_int, 16) and kb.levels == int(np.log2(n_leaves))
+    left = 2 * np.arange(n_int) + 1
+    for a in range(3):
+        np.testing.assert_array_equal(
+            rows[:, 4 * a:4 * a + 4],
+            np.stack([lo[left, a], lo[left + 1, a], hi[left, a],
+                      hi[left + 1, a]], 1))
 
     qi, q_lo, q_hi, ti, t_lo, t_hi = _planar_aabbs(ct.solids)
     Q = ct.solids.qd_valid.shape[0]
-    lo = {int(s): b for s, b in zip(np.concatenate([qi, Q + ti]),
-                                    np.concatenate([q_lo, t_lo]))}
-    hi = {int(s): b for s, b in zip(np.concatenate([qi, Q + ti]),
-                                    np.concatenate([q_hi, t_hi]))}
+    box_lo = dict(zip(np.concatenate([qi, Q + ti]).tolist(),
+                      np.concatenate([q_lo, t_lo])))
+    box_hi = dict(zip(np.concatenate([qi, Q + ti]).tolist(),
+                      np.concatenate([q_hi, t_hi])))
     prims = kb.prims.numpy()
-    assert int(prims[:, 13].sum()) == len(lo)
-    for row in np.nonzero(prims[:, 13] > 0.5)[0]:
-        node = n_leaves - 1 + row // leaf
+    valid = prims[:, 13] > 0.5
+    assert int(valid.sum()) == len(box_lo)
+    count = valid.reshape(n_leaves, wl).sum(1)
+    # valid rows first in every leaf
+    assert (valid.reshape(n_leaves, wl)
+            == (np.arange(wl)[None, :] < count[:, None])).all()
+    # counts per node, and every ancestor's box around every prim
+    node_count = np.zeros(2 * n_leaves - 1)
+    for row in np.nonzero(valid)[0]:
         slot = int(prims[row, 14])
-        assert (bmin[node] <= lo[slot]).all() and (bmax[node] >= hi[slot]).all()
+        node = n_int + row // wl
+        while True:
+            node_count[node] += 1
+            assert (lo[node] <= box_lo[slot]).all()
+            assert (hi[node] >= box_hi[slot]).all()
+            if node == 0:
+                break
+            node = (node - 1) // 2
+    np.testing.assert_array_equal(rows[:, 12], node_count[left])
+    np.testing.assert_array_equal(rows[:, 13], node_count[left + 1])
+    empty = node_count == 0
+    far = np.float32(EMPTY_BOX)
+    assert (lo[empty] == far).all() and (hi[empty] == far).all()
+    assert (lo[~empty] < EMPTY_BOX).all()
+
+
+@pytest.mark.parametrize("name", ["mixed16", "sponza24"])
+def test_kernel_tree_refines_the_jax_treelets(name):
+    """The full-depth kernel tree's leaf order is a permutation of the
+    valid planar slots, and it refines the JAX layout's: each treelet of
+    the JAX ``rows`` holds the same prims as the kernel tree's slots in the
+    same range (the split above the treelet roots is the same), while the
+    kernel tree splits on below them, to leaves of ``walk_leaf`` prims."""
+    cj, ct = _both(name)
+    kb = ct.kbvh
+    prims = kb.prims.numpy()
+    n = int((prims[:, 13] > 0.5).sum())
+    Q = ct.solids.qd_valid.shape[0]
+    want = np.concatenate([np.nonzero(ct.solids.qd_valid.numpy())[0],
+                           Q + np.nonzero(ct.solids.tr_valid.numpy())[0]])
+    assert (prims[:n, 13] > 0.5).all()
+    np.testing.assert_array_equal(np.sort(prims[:n, 14]).astype(np.int64),
+                                  np.sort(want))
+    jk = cj.kbvh
+    p_t = jk.tr * jk.leaf_size
+    nbt = max(1, (p_t + 127) // 128)
+    jrows = np.asarray(jk.rows).reshape(jk.n_troots, nbt, 16, 128)
+    jslots = jrows.transpose(0, 1, 3, 2).reshape(
+        jk.n_troots, nbt * 128, 16)[:, :p_t, 14]
+    jvalid = jrows.transpose(0, 1, 3, 2).reshape(
+        jk.n_troots, nbt * 128, 16)[:, :p_t, 13] > 0.5
+    kslots = prims[:, 14].reshape(jk.n_troots, p_t)
+    kvalid = prims[:, 13].reshape(jk.n_troots, p_t) > 0.5
+    for j in range(jk.n_troots):
+        np.testing.assert_array_equal(np.sort(jslots[j][jvalid[j]]),
+                                      np.sort(kslots[j][kvalid[j]]))
+    assert kb.walk_leaf < kb.leaf_size
+    assert kb.walk_leaves * kb.walk_leaf == kb.n_leaves * kb.leaf_size
+    assert not np.array_equal(prims[:n, 14], jslots[jvalid])
+
+
+@pytest.mark.parametrize("n,leaf_size,n_leaves,stop", [
+    (1000, 8, 128, 4), (1000, 4, 256, 1), (37, 2, 32, 2), (5, 8, 1, 1)])
+def test_median_split_matches_jax(n, leaf_size, n_leaves, stop):
+    """The port's level-at-a-time median split equals the JAX package's
+    segment loop: its order where segments cover ``stop`` leaves is the
+    JAX order with splitting stopped there, and its split axes are the
+    JAX build's above that level."""
+    from solstrale_tpu.accel import median_split_order as jsplit
+    from solstrale_tpu_torch.accel import median_split_order
+
+    rng = np.random.default_rng(n)
+    lo = rng.uniform(-5, 5, (n, 3))
+    lo[: n // 3, 1] = 0.25          # ties along one axis keep their order
+    hi = lo + rng.uniform(0, 1, (n, 3))
+    axes_j = {}
+    want = jsplit(lo, hi, leaf_size, n_leaves, stop_leaves=stop,
+                  axes_out=axes_j)
+    order, axes, kept = median_split_order(lo, hi, leaf_size, n_leaves,
+                                           keep_leaves=stop)
+    np.testing.assert_array_equal(kept, want)
+    assert sorted(order.tolist()) == list(range(n))
+    split = {k: int(a) for k, a in enumerate(axes) if a >= 0
+             and k < n_leaves // stop - 1}
+    assert split == axes_j
