@@ -261,6 +261,80 @@ def _random_rays(n, device, seed, parked=0):
     return (o[:, 0], o[:, 1], o[:, 2]), (d[:, 0], d[:, 1], d[:, 2])
 
 
+def _bounces(cs, o, d, pix, park_misses):
+    """Cosine bounce rays from the camera rays' closest hits."""
+    import torch
+    from solstrale_tpu_torch.geo import INF, RAY_T_MIN, soa
+    from solstrale_tpu_torch.ops import bvh, rng
+    from solstrale_tpu_torch.renderer import integrator
+
+    t, kind, idx = bvh.bvh_closest_hit(cs.kbvh, cs.solids, o, d, RAY_T_MIN,
+                                       INF)
+    hit = torch.isfinite(t)
+    attrs = integrator.full_hit_attributes(
+        cs, o, d, torch.where(hit, t, 0.0), kind, idx, pix, 1, 0, 1)
+    r1, r2, _, _ = rng.uniform4(pix, 1, 0, rng.P_COSINE, 1)
+    bd = soa.onb_local3(*soa.onb_from_w3(attrs["normal"]),
+                        rng.cosine_direction3(r1, r2))
+    if park_misses:
+        bd = tuple(torch.where(hit, c, 0.0) for c in bd)
+    return soa.where3(hit, attrs["point"], o), bd
+
+
+def _subsampled_rays(cs, n=16384, parked=256):
+    """Camera rays of (n - parked) / 2 pixels spread evenly over the 1080p
+    image, a cosine bounce from each one's hit point, and ``parked``
+    zero-direction rays. Returns (o, d, parked mask (numpy))."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    dev = cs.device
+    n_cam = (n - parked) // 2
+    pix = torch.linspace(0, 1920 * 1080 - 1, n_cam, device=dev).long()
+    o, d = integrator._camera_rays(cs, pix, 1, 1, 1920, 1080)
+    bo, bd = _bounces(cs, o, d, pix, park_misses=False)
+    zeros = torch.zeros(parked, device=dev)
+    po = tuple(torch.full((parked,), 2.0, device=dev) for _ in range(3))
+    oo = tuple(torch.cat([a, b, c]) for a, b, c in zip(o, bo, po))
+    dd = tuple(torch.cat([a, b, zeros]) for a, b in zip(d, bd))
+    mask = torch.zeros(n_cam * 2 + parked, dtype=torch.bool)
+    mask[n_cam * 2:] = True
+    return oo, dd, mask.numpy()
+
+
+def _queue_rays(cs, lanes=131072):
+    """The first lanes/2 camera rays in trace_queued's queue order (1080p,
+    sample 1, seed 1) and their cosine bounces (parked where the camera ray
+    missed), as the wavefront's first iteration and a later one give them.
+    Returns (o, d)."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    half = lanes // 2
+    pix, samp = integrator.queue_assignment(
+        torch.arange(half, device=cs.device), 1920, 1080, 1)
+    o, d = integrator._camera_rays(cs, pix, samp, 1, 1920, 1080)
+    bo, bd = _bounces(cs, o, d, pix, park_misses=True)
+    return (tuple(torch.cat([a, b]) for a, b in zip(o, bo)),
+            tuple(torch.cat([a, b]) for a, b in zip(d, bd)))
+
+
+def _walk_stats(tree, o, d):
+    """The walk (``accel.walk_counts``) of ``tree`` = (node_min, node_max,
+    prims, leaf size) by these rays: mean and p99 box and prim tests per
+    ray (parked rays included), their sums and the distinct prim rows
+    read; and its (t, slot)."""
+    from solstrale_tpu_torch.accel import walk_counts
+    from solstrale_tpu_torch.geo import RAY_T_MIN
+
+    t, slot, boxes, tests, rows = walk_counts(*tree, o, d, RAY_T_MIN)
+    b, p = boxes.double(), tests.double()
+    return dict(box_mean=b.mean().item(), box_p99=b.quantile(0.99).item(),
+                prim_mean=p.mean().item(), prim_p99=p.quantile(0.99).item(),
+                box_tests=int(b.sum().item()), prim_tests=int(p.sum().item()),
+                prim_rows_read=rows), (t, slot)
+
+
 def _treelet_tree(cs):
     """The treelet tree, for its walk counts: the median split stopped at
     the treelet roots, leaves of 8 prims in the order of the last split
@@ -286,43 +360,45 @@ def _treelet_tree(cs):
 
 
 def _k1(cs):
-    """K1 on the 262,088-triangle tree at the 16,384 lanes of the
-    wavefront's tail and the main path's 131,072: equal to its plain
-    version (hit sets, t and every slot), kernel and plain times, and the
-    box and prim tests per ray of the walk (``accel.walk_counts``) of the
-    treelet tree and of the kernel tree. The kernels line's row is the 131,072
-    lanes'; its bound counts these rays' box and prim tests against the
-    bytes of the rays and the tree read once."""
+    """K1 on the 262,088-triangle tree at the main path's two shapes: 131,072
+    lanes (the first 65,536 camera rays in trace_queued's tile order and
+    their bounces) and the 16,384 of the wavefront's tail (camera and bounce
+    rays of 8,064 pixels spread over the image, 256 parked): equal to its
+    plain version (hit sets, t and every slot), kernel and plain times, and
+    the box and prim tests per ray of the walk (``accel.walk_counts``) of
+    the treelet tree and of the kernel tree. The kernels line's row is the
+    131,072 lanes'. Its bound counts what these rays need: the walk's box
+    and prim tests, against the bytes of the rays in and out and of each
+    prim row some ray tests, read once (the kernel's own node table is not
+    an input of the function and is not charged)."""
     import torch
-    from solstrale_tpu_torch import k1_bench
+    from solstrale_tpu_torch.accel import WALK_LEAF
     from solstrale_tpu_torch.geo import RAY_T_MIN
     from solstrale_tpu_torch.ops import bvh
 
     kb = cs.kbvh
     treelet = _treelet_tree(cs)
     row = None
-    for shape, (o, d) in sorted(k1_bench.shapes(cs).items(), reverse=True):
+    shapes = {"main": _queue_rays(cs), "tail": _subsampled_rays(cs)[:2]}
+    for shape, (o, d) in shapes.items():
         r = o[0].numel()
         t_k, s_k = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        start.record()
         t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        plain_ms = cuda_ms(lambda: bvh.bvh_planar_hit_plain(
+            kb.prims, o, d, RAY_T_MIN), reps=3, warmup=1)
         parked = ((d[0] == 0) & (d[1] == 0) & (d[2] == 0)).cpu().numpy()
         err = compare_hits(f"K1 ({shape})", t_k, s_k, t_p, s_p, 0.0, parked,
                            agree_min=1.0)
         if not torch.equal(s_k, s_p):
             raise AssertionError(f"K1 ({shape}): slots differ")
         ms = cuda_ms(lambda: bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN))
-        walk, (t_w, s_w) = k1_bench.walk_stats(
-            (kb.node_min, kb.node_max, kb.prims, kb.walk_leaf), o, d)
+        walk, (t_w, s_w) = _walk_stats(
+            (kb.node_min, kb.node_max, kb.prims, WALK_LEAF), o, d)
         if not (torch.equal(t_w, t_p) and torch.equal(s_w, s_p)):
             raise AssertionError(f"K1 ({shape}): the walk's (t, slot) "
                                  "differ from the brute force")
-        walk_treelet, _ = k1_bench.walk_stats(treelet, o, d)
-        b = bound(r * 36 + nbytes(kb.nodes, kb.prims),
+        walk_treelet, _ = _walk_stats(treelet, o, d)
+        b = bound(r * 36 + walk["prim_rows_read"] * 64,
                   walk["box_tests"] * FLOPS_SLAB
                   + walk["prim_tests"] * FLOPS_PLANAR)
         log("kernel", name="K1 bvh_planar_hit", shape=shape, rays=r,
@@ -423,7 +499,7 @@ def _main_path_k2_k3(out):
     rows of the kernels line take these times and bounds."""
     import torch
     import solstrale_tpu_torch as T
-    from solstrale_tpu_torch import fixtures, k1_bench
+    from solstrale_tpu_torch import fixtures
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
     from solstrale_tpu_torch.ops import bvh, sweep
     from solstrale_tpu_torch.scene.compile import compile_scene
@@ -433,7 +509,7 @@ def _main_path_k2_k3(out):
         T.RenderConfig(width=1920, height=1080, samples_per_pixel=1, seed=1),
         n_cells=362), device=dev)
     s = cs.solids
-    o, d, parked = k1_bench.subsampled_rays(cs, n=131072)
+    o, d, parked = _subsampled_rays(cs, n=131072)
     n_live, r = live_rays(d), len(parked)
     args = (s.sph_table, s.pl_table, o, d, RAY_T_MIN, INF)
     t_k, s_k = sweep.closest_hit(*args, spheres_only=True)

@@ -26,8 +26,8 @@ LEAF_SIZE = 4
 # leaf order, so it stays equal to the JAX package's value for the layouts
 # to match.
 TOP_LEVELS = 12
-# Prims per leaf of the port's full-depth kernel tree (1, 2 or 4; 2 was
-# measured fastest on the H100, PERF.md).
+# Prims per leaf of the port's full-depth kernel tree (2 was measured
+# faster than 4 on the H100, PERF.md; csrc/bvh.cu's kWalkLeaf).
 WALK_LEAF = 2
 # Box stored for an empty subtree (all-padding leaves): a point far away,
 # which the strict near < far slab test misses. The ±inf box a min/max
@@ -66,7 +66,7 @@ class KernelBvh:
       first 2*n_troots-1 nodes, down to the treelet roots;
     - ``rows`` (n_troots*nbt*16, 128) f32: the TPU column-block leaf layout.
     Fields of the port's kernel tree: the median split continued down to
-    ``walk_leaves`` leaves of ``walk_leaf`` prims (a complete tree with
+    ``walk_leaves`` leaves of WALK_LEAF prims (a complete tree with
     ``walk_leaves - 1`` internal nodes):
     - ``node_min`` / ``node_max`` (2*walk_leaves-1, 3) f32: every node's
       box over its prims' boxes grown by BOX_PAD, rounded outwards in the
@@ -85,8 +85,7 @@ class KernelBvh:
     KLEAF = 8
 
     def __init__(self, top_nodes, rows, n_troots, tr, n_leaves, leaf_size,
-                 has_spheres, walk_leaves, walk_leaf, node_min, node_max,
-                 nodes, prims):
+                 has_spheres, walk_leaves, node_min, node_max, nodes, prims):
         self.top_nodes = top_nodes
         self.rows = rows
         self.n_troots = int(n_troots)
@@ -95,7 +94,6 @@ class KernelBvh:
         self.leaf_size = int(leaf_size)
         self.has_spheres = bool(has_spheres)
         self.walk_leaves = int(walk_leaves)
-        self.walk_leaf = int(walk_leaf)
         self.node_min = node_min
         self.node_max = node_max
         self.nodes = nodes
@@ -110,8 +108,7 @@ class KernelBvh:
         return KernelBvh(n_troots=self.n_troots, tr=self.tr,
                          n_leaves=self.n_leaves, leaf_size=self.leaf_size,
                          has_spheres=self.has_spheres,
-                         walk_leaves=self.walk_leaves,
-                         walk_leaf=self.walk_leaf, **kw)
+                         walk_leaves=self.walk_leaves, **kw)
 
     @property
     def levels(self):
@@ -280,8 +277,6 @@ def _round_up(x):
                     np.nextafter(y, np.float32(np.inf)), y)
 
 
-
-
 def _conservative(lo, hi):
     """f64 node boxes -> f32 rounded outwards (boxes only grow in the
     cast), empty subtrees (the ±inf a min/max reduction leaves) as the
@@ -356,35 +351,31 @@ def leaf_tree(s: Solids, prims, leaf_size):
                                        leaf_size))
 
 
-def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF,
-                     walk_leaf=WALK_LEAF):
+def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF):
     """Planar-only BVH for the hit kernel (see KernelBvh), host numpy.
 
-    One median split, down to leaves of ``walk_leaf`` prims, orders the
+    One median split, down to leaves of WALK_LEAF prims, orders the
     kernel tree. Its levels above the treelet roots are the JAX package's
     split (same slot ranges, same rule), and its order at the treelet level,
     where the JAX build stops splitting, gives the JAX layout's fields."""
-    if walk_leaf < 1 or leaf_size % (2 * walk_leaf):
-        raise ValueError(f"walk_leaf {walk_leaf} must be a power of two "
-                         f"dividing {leaf_size // 2}")
     slots, mins, maxs = _planar_slots(s)
     n = slots.shape[0]
     n_leaves = _n_leaves(n, leaf_size)
     n_slots = n_leaves * leaf_size
-    walk_leaves = n_slots // walk_leaf
+    walk_leaves = n_slots // WALK_LEAF
     tr = max(1, n_leaves // (1 << (TOP_LEVELS - 1)))
     order, axes, kept = median_split_order(
-        mins, maxs, walk_leaf, walk_leaves,
-        keep_leaves=tr * leaf_size // walk_leaf)
+        mins, maxs, WALK_LEAF, walk_leaves,
+        keep_leaves=tr * leaf_size // WALK_LEAF)
 
     # the kernel tree: both children's boxes and prim counts in each
     # internal node's row (valid slots come first, so leaf j holds
-    # min(walk_leaf, n - j*walk_leaf) of them)
+    # min(WALK_LEAF, n - j*WALK_LEAF) of them)
     mins, maxs = mins[order], maxs[order]
     node_min, node_max = _conservative(*_level_boxes(
         *_slot_boxes(*_padded_boxes(mins, maxs), n_slots), walk_leaves,
-        walk_leaf))
-    count = np.clip(n - np.arange(walk_leaves) * walk_leaf, 0, walk_leaf)
+        WALK_LEAF))
+    count = np.clip(n - np.arange(walk_leaves) * WALK_LEAF, 0, WALK_LEAF)
     node_count = np.zeros(2 * walk_leaves - 1)
     node_count[walk_leaves - 1:] = count
     while count.shape[0] > 1:
@@ -406,7 +397,7 @@ def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF,
     n_top = 2 * n_troots - 1
     top = np.zeros(((n_top + 7) // 8 * 8, 8), np.float32)
     tmin_, tmax_ = _level_boxes(*_slot_boxes(mins, maxs, n_slots),
-                                walk_leaves, walk_leaf)
+                                walk_leaves, WALK_LEAF)
     tmin_, tmax_ = tmin_[:n_top], tmax_[:n_top]
     empty = ~(tmin_[:, 0] <= tmax_[:, 0])
     tmin_[empty] = EMPTY_BOX
@@ -427,7 +418,7 @@ def build_kernel_bvh(s: Solids, leaf_size=KernelBvh.KLEAF,
                      n_troots=n_troots, tr=tr,
                      n_leaves=n_leaves, leaf_size=leaf_size,
                      has_spheres=bool(np.asarray(s.sph_valid).any()),
-                     walk_leaves=walk_leaves, walk_leaf=walk_leaf,
+                     walk_leaves=walk_leaves,
                      node_min=node_min, node_max=node_max, nodes=nodes,
                      prims=_prim_rows(s, slots[order], n_slots))
 
@@ -465,7 +456,8 @@ def walk_counts(node_min, node_max, prims, leaf_size, o, d, tmin):
 
     Returns (t (R,) f32, slot (R,) int32: the closest t >= tmin and its
     planar slot, ties to the smallest slot, (INF, -1) on a miss; box tests
-    (R,) int32; prim tests (R,) int32)."""
+    (R,) int32; prim tests (R,) int32; prim rows read: the number of
+    distinct valid rows of ``prims`` that some ray tested)."""
     dev = o[0].device
     r = o[0].shape[0]
     n_leaves = (node_min.shape[0] + 1) // 2
@@ -481,6 +473,7 @@ def walk_counts(node_min, node_max, prims, leaf_size, o, d, tmin):
     best_slot = torch.full((r,), -1, dtype=torch.int32, device=dev)
     boxes = torch.zeros((r,), dtype=torch.int32, device=dev)
     tests = torch.zeros((r,), dtype=torch.int32, device=dev)
+    seen = torch.zeros((n_leaves,), dtype=torch.bool, device=dev)
     depth = max(1, int(np.log2(n_leaves)))
     stack = torch.zeros((r, depth), dtype=torch.int64, device=dev)
     stack_near = torch.zeros((r, depth), dtype=torch.float32, device=dev)
@@ -492,6 +485,7 @@ def walk_counts(node_min, node_max, prims, leaf_size, o, d, tmin):
     def leaf(ray, lf):
         """Test the prims of leaf ``lf`` (per ray in ``ray``) in order."""
         tests[ray] += count[lf]
+        seen[lf] = True
         oo = tuple(c[ray] for c in o)
         dd = tuple(c[ray] for c in d)
         for k in range(leaf_size):
@@ -560,4 +554,4 @@ def walk_counts(node_min, node_max, prims, leaf_size, o, d, tmin):
             sp[pr] -= 1
             ok = stack_near[pr, sp[pr]] <= best[pr] * BEST_SCALE
             node[pr[ok]] = stack[pr[ok], sp[pr[ok]]]
-    return best, best_slot, boxes, tests
+    return best, best_slot, boxes, tests, int(count[seen].sum())

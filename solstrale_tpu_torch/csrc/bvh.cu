@@ -14,8 +14,8 @@
 // boxes, so 16,384 lanes take nearly as long as 131,072. The design
 // shortens those chains:
 // - the tree is the port's own (accel.build_kernel_bvh): the median split
-//   continued down to leaves of a few prims, so a ray tests a few prims
-//   where a leaf of the TPU treelet layout held 8 in no spatial order;
+//   continued down to leaves of kWalkLeaf prims, so a ray tests a few
+//   prims where a leaf of the TPU treelet layout held 8 in no spatial order;
 // - child boxes in the parent (Aila & Laine, HPG 2009): an internal node's
 //   64-byte row holds both children's boxes, [Lminx Rminx Lmaxx Rmaxx],
 //   the same for y and z, and the children's prim counts. One visit
@@ -23,10 +23,12 @@
 //   nearer entered child and pushes the other only if the ray enters it,
 //   so a missed child costs no load of its own; a leaf child's prims are
 //   tested at once, the count from the row (no padding row is loaded);
-// - the top levels live in shared memory: at block start one thread
-//   copies their rows with asynchronous bulk copies (cp.async.bulk, 32 KB
-//   each, completed on one mbarrier) while the block reads its rays; below
-//   them rows and prims are read with __ldg;
+// - the top kTopLevels levels live in shared memory: at block start one
+//   thread copies their rows (63 rows, 4 KB) with one asynchronous bulk
+//   copy (cp.async.bulk, completed on an mbarrier) while the block reads
+//   its rays; below them rows and prims are read with __ldg. On the H100
+//   this gains nothing measurable (0, 4 and 6 levels lie within noise,
+//   PERF.md): the time is in the deep, divergent visits;
 // - a short stack in shared memory, one column per thread (entry k of
 //   thread t at k * blockDim + t, so a warp's accesses hit distinct
 //   banks): the tree's internal levels bound it (a visit pushes at most
@@ -47,7 +49,7 @@
 //   nodes (n_int, 16): the internal nodes' rows above (children of node i
 //         are 2i+1 and 2i+2; node ids >= n_int are leaves), empty subtrees
 //         as a far-away point box (always missed, count 0)
-//   prims (n_leaves*walk_leaf, 16): nx ny nz d g1xyz g1o g2xyz g2o
+//   prims (n_leaves*kWalkLeaf, 16): nx ny nz d g1xyz g1o g2xyz g2o
 //         is_tri valid slot 0, a leaf's valid rows first
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -58,7 +60,15 @@ namespace {
 constexpr float kAlmostZero = 1e-8f;   // geo.ALMOST_ZERO (vec3.rs:21)
 constexpr float kFarScale = 1.0000004f;   // accel.FAR_SCALE
 constexpr float kBestScale = 1.000002f;   // accel.BEST_SCALE
-constexpr int kMaxCopy = 1 << 20;   // bytes one mbarrier phase can count
+constexpr int kWalkLeaf = 2;   // prims per leaf, accel.WALK_LEAF
+// levels staged in shared memory (chosen on the H100, PERF.md), their rows
+constexpr int kTopLevels = 6;
+constexpr int kTopRows = (1 << kTopLevels) - 1;
+
+// rows staged for a tree of n_int internal nodes
+__host__ __device__ __forceinline__ int top_rows(int n_int) {
+  return n_int < kTopRows ? n_int : kTopRows;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -118,57 +128,48 @@ __device__ __forceinline__ void leaf(const float4* __restrict__ prims,
 __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
                        const float* dx, const float* dy, const float* dz,
                        const float* tmin_arr, const float4* __restrict__ nodes,
-                       const float4* __restrict__ prims, int n_int,
-                       int walk_leaf, int top_rows, int n_rays, float* out_t,
-                       int* out_slot) {
+                       const float4* __restrict__ prims, int n_int, int n_rays,
+                       float* out_t, int* out_slot) {
   extern __shared__ __align__(128) float4 smem[];
   __shared__ __align__(8) uint64_t bar;
-  const float4* top = smem;  // top_rows rows of 4 float4
-  int2* stack = reinterpret_cast<int2*>(smem + 4 * top_rows);
+  const int n_top = top_rows(n_int);
+  const float4* top = smem;  // n_top rows of 4 float4
+  int2* stack = reinterpret_cast<int2*>(smem + 4 * n_top);
   const int tid = threadIdx.x;
   const int stride = blockDim.x;
 
   // stage the top levels: one thread starts the bulk copy, every thread
   // reads its ray meanwhile, then all wait on the barrier's first phase
   const uint32_t bar_a = smem_addr(&bar);
-  if (top_rows > 0) {
-    if (tid == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
-                   : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      const uint32_t bytes = static_cast<uint32_t>(top_rows) * 64u;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   ::"r"(bar_a), "r"(bytes) : "memory");
-      const char* src = reinterpret_cast<const char*>(nodes);
-      const uint32_t dst = smem_addr(smem);
-      for (uint32_t off = 0; off < bytes; off += 32768u) {
-        const uint32_t n = bytes - off < 32768u ? bytes - off : 32768u;
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];" ::"r"(dst + off),
-            "l"(src + off), "r"(n), "r"(bar_a)
-            : "memory");
-      }
-    }
-    __syncthreads();  // the barrier is initialised before anyone waits
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    const uint32_t bytes = static_cast<uint32_t>(n_top) * 64u;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(bar_a), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+        "bytes [%0], [%1], %2, [%3];" ::"r"(smem_addr(smem)),
+        "l"(nodes), "r"(bytes), "r"(bar_a)
+        : "memory");
   }
+  __syncthreads();  // the barrier is initialised before anyone waits
   const int i = blockIdx.x * blockDim.x + tid;
   Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (i < n_rays) {
     r = Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i], tmin_arr[i]};
   }
-  if (top_rows > 0) {
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}"
-          : "=r"(done)
-          : "r"(bar_a)
-          : "memory");
-    }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar_a)
+        : "memory");
   }
   if (i >= n_rays) return;
 
@@ -186,7 +187,7 @@ __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
   int node = 0;
   int sp = 0;
   while (true) {
-    const bool shared = node < top_rows;
+    const bool shared = node < n_top;
     float4 bx, by, bz;
     if (shared) {
       bx = top[4 * node];
@@ -218,9 +219,9 @@ __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
             shared ? top[4 * node + 3] : __ldg(&nodes[4 * node + 3]);
         const int c1 = static_cast<int>(r_first ? cnt.y : cnt.x);
         const int c2 = static_cast<int>(r_first ? cnt.x : cnt.y);
-        leaf(prims, (first - n_int) * walk_leaf, c1, r, best, best_slot);
+        leaf(prims, (first - n_int) * kWalkLeaf, c1, r, best, best_slot);
         if (hl && hr && near2 <= best * kBestScale) {
-          leaf(prims, (2 * left + 1 - first - n_int) * walk_leaf, c2, r,
+          leaf(prims, (2 * left + 1 - first - n_int) * kWalkLeaf, c2, r,
                best, best_slot);
         }
       }
@@ -251,36 +252,30 @@ __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
 
 }  // namespace
 
-// levels: the tree's internal levels (the stack's depth); top_rows: rows
-// staged in shared memory (the first 2^k - 1 for k top levels, at most
-// n_int); threads: the block size.
+// levels: the tree's internal levels (the stack's depth); threads: the
+// block size.
 extern "C" int k1_bvh_launch(const float* ox, const float* oy,
                              const float* oz, const float* dx,
                              const float* dy, const float* dz,
                              const float* tmin, const float* nodes,
-                             const float* prims, int n_int, int walk_leaf,
-                             int levels, int top_rows, int threads,
-                             int n_rays, float* out_t, int* out_slot,
-                             void* stream) {
+                             const float* prims, int n_int, int levels,
+                             int threads, int n_rays, float* out_t,
+                             int* out_slot, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_int < 1 || top_rows < 0 || top_rows > n_int ||
-      top_rows * 64 >= kMaxCopy)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_int < 1) return static_cast<int>(cudaErrorInvalidValue);
   // the staged rows, then the stack; above the default 48 KB a block may
-  // take only after the attribute is raised (once per size: setting it
-  // costs a driver call)
-  const int smem = top_rows * 64 + levels * threads * 8;
-  static int raised = 48 * 1024;
-  if (smem > raised) {
+  // take only after the attribute is raised (trees of more than ~2^22
+  // leaves at 256 threads)
+  const int smem = top_rows(n_int) * 64 + levels * threads * 8;
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         k1_bvh, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    raised = smem;
   }
   const int blocks = (n_rays + threads - 1) / threads;
   k1_bvh<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, tmin, reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(prims), n_int, walk_leaf, top_rows,
-      n_rays, out_t, out_slot);
+      reinterpret_cast<const float4*>(prims), n_int, n_rays, out_t,
+      out_slot);
   return static_cast<int>(cudaGetLastError());
 }

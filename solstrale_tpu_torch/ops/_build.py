@@ -42,7 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: argument types (pointers, ints, stream) -> cudaError_t
 _SIGNATURES = {
-    "k1_bvh_launch": [_P] * 7 + [_P, _P] + [_I] * 6 + [_P, _P, _P],
+    "k1_bvh_launch": [_P] * 7 + [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "k2_sweep_launch": [_P] * 8 + [_P, _I, _P, _I, _I, _P, _P, _P],
     "k3_medium_launch": [_P] * 8 + [_P, _I, _P, _I, _P, _I, _P, _P],
     "k4_scene_hit_launch": [_P] * 7 + [_P, _I, _P, _I, _P, _P, _P, _P, _P,

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..accel import WALK_LEAF
 from ..geo import ALMOST_ZERO, INF
 from ..scene.compile import KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE
 from . import _build, sweep
@@ -22,12 +23,10 @@ PRIM_CHUNK = 4096
 # The kernel tree's internal levels the shared-memory stack may hold (8
 # bytes an entry per thread; 2^28 leaves is far beyond any scene).
 MAX_LEVELS = 28
-# Launch shape, chosen by measurement on the H100 (``k1_bench tune``,
-# PERF.md, K1): the levels staged in shared memory, and the block size by
-# lane count. A launch of at most 132 blocks of THREADS (the wavefront's
+# Block size by lane count, chosen by measurement on the H100 (PERF.md,
+# K1): a launch of at most 132 blocks of THREADS (the wavefront's
 # 16,384-lane tail) takes TAIL_THREADS, so that every one of the 132 SMs
 # gets a block.
-SMEM_LEVELS = 6
 THREADS = 256
 TAIL_THREADS = 64
 
@@ -76,33 +75,6 @@ def bvh_planar_hit_plain(prims, o, d, tmin):
     return out_t, out_s
 
 
-def launch(kbvh, rays, tmin, threads, smem_levels):
-    """Launch the K1 kernel on CUDA tensors (the six ray components) with
-    the given block size and levels staged in shared memory, and count the
-    launch; returns (t, slot). ``bvh_planar_hit`` launches it with the
-    measured shape."""
-    dev, r = rays[0].device, rays[0].shape[0]
-    n_int = kbvh.walk_leaves - 1
-    if kbvh.nodes.shape != (n_int, 16) or \
-            kbvh.prims.shape != (kbvh.walk_leaves * kbvh.walk_leaf, 16):
-        raise ValueError("bvh_planar_hit: node/prim tables do not match "
-                         "walk_leaves and walk_leaf")
-    if kbvh.levels > MAX_LEVELS:
-        raise ValueError(f"bvh_planar_hit: tree depth {kbvh.levels} exceeds "
-                         f"the kernel stack ({MAX_LEVELS})")
-    lo = _build.per_ray(tmin, rays[0])
-    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
-    out_s = torch.empty((r,), dtype=torch.int32, device=dev)
-    p = _build.ptr
-    err = _build.library().k1_bvh_launch(
-        *(p(x) for x in rays), p(lo), p(kbvh.nodes), p(kbvh.prims), n_int,
-        kbvh.walk_leaf, kbvh.levels, min(n_int, (1 << smem_levels) - 1),
-        threads, r, p(out_t), p(out_s), _build.stream_of(out_t))
-    _build.check(err, "k1_bvh")
-    bvh_planar_hit.launches += 1
-    return out_t, out_s
-
-
 def bvh_planar_hit(kbvh, o, d, tmin):
     """K1: closest planar hit (t (R,) f32, planar slot (R,) int32; INF/-1
     on a miss). ``kbvh`` is an ``accel.KernelBvh`` on the rays' device."""
@@ -112,8 +84,25 @@ def bvh_planar_hit(kbvh, o, d, tmin):
         return bvh_planar_hit_plain(kbvh.prims, rays[:3], rays[3:], tmin)
     if dev.type != "cuda":
         raise ValueError(f"bvh_planar_hit: unsupported device {dev}")
-    return launch(kbvh, rays, tmin, THREADS if r > 132 * THREADS
-                  else TAIL_THREADS, SMEM_LEVELS)
+    n_int = kbvh.walk_leaves - 1
+    if kbvh.nodes.shape != (n_int, 16) or \
+            kbvh.prims.shape != (kbvh.walk_leaves * WALK_LEAF, 16):
+        raise ValueError("bvh_planar_hit: node/prim tables do not match "
+                         "walk_leaves and WALK_LEAF")
+    if kbvh.levels > MAX_LEVELS:
+        raise ValueError(f"bvh_planar_hit: tree depth {kbvh.levels} exceeds "
+                         f"the kernel stack ({MAX_LEVELS})")
+    lo = _build.per_ray(tmin, rays[0])
+    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+    out_s = torch.empty((r,), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = _build.library().k1_bvh_launch(
+        *(p(x) for x in rays), p(lo), p(kbvh.nodes), p(kbvh.prims), n_int,
+        kbvh.levels, THREADS if r > 132 * THREADS else TAIL_THREADS, r,
+        p(out_t), p(out_s), _build.stream_of(out_t))
+    _build.check(err, "k1_bvh")
+    bvh_planar_hit.launches += 1
+    return out_t, out_s
 
 
 bvh_planar_hit.launches = 0

@@ -252,8 +252,9 @@ def test_walk_counts_equals_brute_force(terrain, name):
     makes, returns the brute force's (t, slot) exactly: on camera-like and
     random rays, parked rays, and rays aimed at shared triangle vertices
     and edges, where several prims tie at the closest t and the walk must
-    return the smallest slot. It counts box and prim tests per ray."""
-    from solstrale_tpu_torch.accel import walk_counts
+    return the smallest slot. It counts box and prim tests per ray and the
+    distinct prim rows read."""
+    from solstrale_tpu_torch.accel import WALK_LEAF, walk_counts
 
     if name == "terrain":
         ct = terrain[1]
@@ -266,9 +267,9 @@ def test_walk_counts_equals_brute_force(terrain, name):
     o2, d2 = fixtures.edge_rays(ct.solids, 1024, seed=10)
     o, d = np.concatenate([o1, o2]), np.concatenate([d1, d2])
     t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, _t(o), _t(d), RAY_T_MIN)
-    t_w, s_w, boxes, tests = walk_counts(kb.node_min, kb.node_max, kb.prims,
-                                         kb.walk_leaf, _t(o), _t(d),
-                                         RAY_T_MIN)
+    t_w, s_w, boxes, tests, rows = walk_counts(
+        kb.node_min, kb.node_max, kb.prims, WALK_LEAF, _t(o), _t(d),
+        RAY_T_MIN)
     assert torch.equal(t_w, t_p) and torch.equal(s_w, s_p)
     assert _exact_ties(kb.prims, o2, d2, t_p[len(o1):]) > 50
     assert torch.isfinite(t_p).sum() > 1500
@@ -278,6 +279,24 @@ def test_walk_counts_equals_brute_force(terrain, name):
     assert (boxes[~parked] >= 2).all()
     n_prims = int((kb.prims[:, 13] > 0.5).sum())
     assert tests[~parked].float().mean() < 0.1 * n_prims
+    assert tests.max() <= rows <= min(n_prims, int(tests.sum()))
+
+
+@pytest.mark.parametrize("cu_name,py_name", [
+    ("kWalkLeaf", "WALK_LEAF"), ("kFarScale", "FAR_SCALE"),
+    ("kBestScale", "BEST_SCALE")])
+def test_bvh_cu_constants_match_accel(cu_name, py_name):
+    """The constants K1's source shares with the tree build and the plain
+    walk (csrc/bvh.cu cannot import them) hold accel's values in f32."""
+    import re
+    from pathlib import Path
+
+    from solstrale_tpu_torch import accel
+
+    src = (Path(bvh.__file__).parent.parent / "csrc" / "bvh.cu").read_text()
+    m = re.search(rf"constexpr (?:int|float) {cu_name} = ([0-9.]+)f?;", src)
+    assert m is not None
+    assert np.float32(m.group(1)) == np.float32(getattr(accel, py_name))
 
 
 def test_bvh_closest_hit_with_spheres_matches_xla():

@@ -12,7 +12,7 @@ import solstrale_tpu_torch as T
 from solstrale_tpu.scene.compile import SceneError as JSceneError
 from solstrale_tpu.scene.compile import compile_scene as jcompile
 from solstrale_tpu_torch import fixtures
-from solstrale_tpu_torch.accel import EMPTY_BOX
+from solstrale_tpu_torch.accel import EMPTY_BOX, WALK_LEAF
 from solstrale_tpu_torch.scene.compile import SceneError as TSceneError
 from solstrale_tpu_torch.scene.compile import (compile_scene as tcompile,
                                                from_numpy_tables, tables_of)
@@ -151,7 +151,7 @@ def test_kernel_bvh_layout_is_conservative(name):
 
     _, ct = _both(name)
     kb = ct.kbvh
-    n_leaves, wl = kb.walk_leaves, kb.walk_leaf
+    n_leaves, wl = kb.walk_leaves, WALK_LEAF
     n_int = n_leaves - 1
     lo = kb.node_min.numpy().astype(np.float64)
     hi = kb.node_max.numpy().astype(np.float64)
@@ -203,7 +203,7 @@ def test_kernel_tree_refines_the_jax_treelets(name):
     valid planar slots, and it refines the JAX layout's: each treelet of
     the JAX ``rows`` holds the same prims as the kernel tree's slots in the
     same range (the split above the treelet roots is the same), while the
-    kernel tree splits on below them, to leaves of ``walk_leaf`` prims."""
+    kernel tree splits on below them, to leaves of WALK_LEAF prims."""
     cj, ct = _both(name)
     kb = ct.kbvh
     prims = kb.prims.numpy()
@@ -227,8 +227,8 @@ def test_kernel_tree_refines_the_jax_treelets(name):
     for j in range(jk.n_troots):
         np.testing.assert_array_equal(np.sort(jslots[j][jvalid[j]]),
                                       np.sort(kslots[j][kvalid[j]]))
-    assert kb.walk_leaf < kb.leaf_size
-    assert kb.walk_leaves * kb.walk_leaf == kb.n_leaves * kb.leaf_size
+    assert WALK_LEAF < kb.leaf_size
+    assert kb.walk_leaves * WALK_LEAF == kb.n_leaves * kb.leaf_size
     assert not np.array_equal(prims[:n, 14], jslots[jvalid])
 
 
