@@ -26,10 +26,14 @@ script exits non-zero):
      kernel) and of the normal-mapped one (K4, never K5), launch counts read
      around each, and ``render_sample_batch`` of both timed at bench.py's
      settings (400x266, 8 spp, depth 50, median of three);
-  3c. K5 against its plain version and a repeated launch bit for bit, at
-     1920x1080x8 on the solid kitchen-sink scene and at 400x266x8 on the
-     kitchen-sink scene without its normal map (image texture, triangles,
-     a triangle light), and K5 against ``trace_queued`` (the K4 route) at
+  3c. K5 against its plain version exactly (max abs error 0, equal
+     segments) and a repeated launch bit for bit, at 1920x1080x8 on the
+     solid kitchen-sink scene (43,809,619 segments, asserted) and at
+     400x266x8 on the kitchen-sink scene without its normal map (image
+     texture, triangles, a triangle light), which is also timed at
+     1920x1080x8; with each launch's work counts (active-lane efficiency,
+     the static one-pixel-per-thread map's, the medium sweep shares, the
+     persistent grid), and K5 against ``trace_queued`` (the K4 route) at
      1920x1080x1;
   4. card against CPU and determinism: four small scenes rendered on the
      card and on the CPU, and the card run repeated bit for bit.
@@ -48,7 +52,12 @@ SLOT_AGREE = 0.995    # K2-K4 slot agreement on hits (exact ties may differ)
 # segments of the sponza 1080p, 1 spp, seed 1 batch (unchanged since the
 # port first rendered it)
 SPONZA_SEGMENTS = 6708708
-TOL_K5 = 2e-3         # megakernel sums, rtol = atol (test_megakernel.py:40)
+# segments of the kitchen-solid 1920x1080, 8 spp, seed 1 K5 batch (unchanged
+# since the port first rendered it)
+KITCHEN_SOLID_SEGMENTS = 43809619
+# K5 against trace_queued, rtol = atol (test_megakernel.py:40); against its
+# plain version K5 is exact
+TOL_K5 = 2e-3
 
 # bounds: one H100 SXM at its published peaks
 PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
@@ -72,8 +81,11 @@ FLOPS_MEDIUM_TAIL = 12    # hit::medium_event
 # prim hit, the light picked, a dielectric's reflection or refraction),
 # the cheapest branch is charged.
 K5_SEGMENT = 16    # every segment: hit::make_ray 15, total_len 1
-K5_MEDIUM = 14     # every segment and medium, beyond its two boundary
-#                    sweeps: the flight uniform 1, t1 + 1e-4 1, the event 12
+K5_INV = 3         # every segment of a scene with media: 1 / d
+K5_BOX = 24        # every segment and medium: box_reach, 8 per axis
+K5_MEDIUM = 14     # every segment and medium that passes box_reach, beyond
+#                    its two boundary sweeps: the flight uniform 1,
+#                    t1 + 1e-4 1, the event 12
 K5_PATH = 58       # every path: camera_ray 46, the terminal fold 12
 K5_HIT = 24        # every emission and scatter: the hit point 6, the
 #                    cheapest attributes (a medium's phase normal) 13,
@@ -113,13 +125,19 @@ def media_flops(mt):
                + FLOPS_MEDIUM_TAIL for m in range(mt.n_media))
 
 
-def k5_flops(t, light_kinds, n_paths, segments, ev):
+def k5_flops(t, light_kinds, n_paths, segments, ev, sweeps):
     """K5's f32 operations for a batch from the kinds of segment it traced
-    (``ev``, from the plain version's ``events``)."""
+    (``ev``, from the plain version's ``events``) and the segment-medium
+    pairs whose ray could reach the medium's box (``sweeps``, from the
+    kernel's count; each charged the cheapest medium's two sweeps)."""
+    mt = t.media
     per_segment = (K5_SEGMENT + sweep_flops(t.sph.shape[0], t.pln.shape[0])
-                   + media_flops(t.media) + K5_MEDIUM * t.media.n_media)
+                   + ((K5_INV + K5_BOX * mt.n_media) if mt.n_media else 0))
+    per_sweep = K5_MEDIUM + min(
+        (2 * sweep_flops(*(x.shape[0] for x in mt.boundary(m)))
+         for m in range(mt.n_media)), default=0)
     hits = ev["emit"] + ev["pdf"] + ev["basic"]
-    return (segments * per_segment + n_paths * K5_PATH
+    return (segments * per_segment + sweeps * per_sweep + n_paths * K5_PATH
             + hits * (K5_HIT + K5_BLEND * (t.flags & 1))
             + ev["pdf"] * (K5_PDF + sum(K5_LIGHT[k] for k in light_kinds))
             + ev["basic"] * K5_BASIC)
@@ -757,14 +775,38 @@ def phase_small_scene():
     return {"K4": kitchen["K4"], "K5": solid["K5"]}
 
 
+def k5_work(stats, segments):
+    """K5's work counts from one launch's ``stats``: the active-lane
+    efficiency (segments over 32 lanes x warp iterations), the same
+    efficiency of the static one-pixel-per-thread map (warps of 32
+    consecutive pixels, each running as long as its longest pixel: mean over
+    max of the per-pixel segments), the shares of segments and of warp
+    iterations that swept a medium, and the persistent grid."""
+    import torch
+
+    ps = stats["pixel_segments"].to(torch.int64)
+    ps = torch.nn.functional.pad(ps, (0, -ps.numel() % 32)).view(-1, 32)
+    return dict(
+        active_lane_efficiency=segments / (32 * stats["warp_iterations"]),
+        static_map_efficiency=int(ps.sum()) / (32 * int(ps.amax(1).sum())),
+        warp_iterations=stats["warp_iterations"],
+        medium_sweeps=stats["medium_sweeps"],
+        medium_sweep_share=stats["medium_sweeps"] / segments,
+        warp_medium_sweep_share=(stats["warp_medium_sweeps"]
+                                 / stats["warp_iterations"]),
+        blocks=stats["blocks"], blocks_per_sm=stats["blocks_per_sm"])
+
+
 def phase_megakernel():
-    """K5 against its plain version, and a repeated launch bit for bit: at
-    the main path's shape (the solid kitchen-sink scene at 1920x1080, 8 spp,
-    depth 50: the kernels line's row, its bound from the kinds of segment
-    the plain version counted), and on the kitchen-sink scene without its
-    normal map (an image texture, triangle prims, a triangle light) at
-    bench.py's 400x266x8; then K5 against trace_queued (the K4 route) at
-    1920x1080, 1 spp."""
+    """K5 against its plain version, exactly (values and segments), and a
+    repeated launch bit for bit: at the main path's shape (the solid
+    kitchen-sink scene at 1920x1080, 8 spp, depth 50: the kernels line's
+    row, its bound from the kinds of segment the plain version counted and
+    the medium sweeps the kernel counted), and on the kitchen-sink scene
+    without its normal map (an image texture, triangle prims, a triangle
+    light) at bench.py's 400x266x8, which is also timed at 1920x1080x8; the
+    work counts of each (``k5_work``); then K5 against trace_queued (the K4
+    route) at 1920x1080, 1 spp."""
     import numpy as np
     import torch
     import solstrale_tpu_torch as T
@@ -772,19 +814,22 @@ def phase_megakernel():
     from solstrale_tpu_torch.renderer import integrator, megakernel
     from solstrale_tpu_torch.scene.compile import compile_scene
 
-    def compare(name, got, seg, want, seg_w):
+    def compare(name, got, seg, want, seg_w, tol):
         got, want = got.cpu().numpy(), want.cpu().numpy()
         if int(seg) != int(seg_w):
             raise AssertionError(f"{name}: segments {int(seg)} vs "
                                  f"{int(seg_w)}")
-        if not np.allclose(got, want, rtol=TOL_K5, atol=TOL_K5):
-            raise AssertionError(f"{name}: values differ beyond {TOL_K5}")
+        if not np.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"{name}: values differ beyond {tol}")
         return float(np.abs(got - want).max())
 
     def check(name, cs, kw, spp, events=None):
-        """K5 twice and its plain version once (timed with CUDA events).
-        Returns (max abs error, segments, plain ms)."""
-        a, seg_a = megakernel.render_batch_megakernel(cs, 1, spp, 1, **kw)
+        """K5 twice and its plain version once (timed with CUDA events),
+        all three equal. Returns (max abs error, segments, plain ms, the
+        first launch's work counts)."""
+        stats = {}
+        a, seg_a = megakernel.render_batch_megakernel(cs, 1, spp, 1,
+                                                      stats=stats, **kw)
         b, seg_b = megakernel.render_batch_megakernel(cs, 1, spp, 1, **kw)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         start.record()
@@ -795,8 +840,9 @@ def phase_megakernel():
         if not (torch.equal(a, b) and int(seg_a) == int(seg_b)):
             raise AssertionError(f"{name}: a repeated launch is not "
                                  "bit-identical")
-        return (compare(name, a, seg_a, p, seg_p), int(seg_a),
-                start.elapsed_time(end))
+        err = compare(name, a, seg_a, p, seg_p, 0.0)
+        return err, int(seg_a), start.elapsed_time(end), k5_work(
+            stats, int(seg_a))
 
     def compiled(build, w, h):
         return compile_scene(build(T.RenderConfig(width=w, height=h,
@@ -806,8 +852,11 @@ def phase_megakernel():
     kw = dict(width=w, height=h, max_depth=50)
     cs = compiled(fixtures.kitchen_sink_solid_scene, w, h)
     ev = {}
-    err, segs, plain_ms = check("K5 vs plain (kitchen_solid)", cs, kw, spp,
-                                events=ev)
+    err, segs, plain_ms, work = check("K5 vs plain (kitchen_solid)", cs, kw,
+                                      spp, events=ev)
+    if segs != KITCHEN_SOLID_SEGMENTS:
+        raise AssertionError(f"kitchen_solid: segments {segs}, not "
+                             f"{KITCHEN_SOLID_SEGMENTS}")
     if ev["miss"] + ev["capped"] + ev["emit"] != w * h * spp or \
             sum(ev.values()) != segs:
         raise AssertionError(f"K5: the segment kinds {ev} do not add up to "
@@ -815,30 +864,43 @@ def phase_megakernel():
     ms = cuda_ms(lambda: megakernel.render_batch_megakernel(cs, 1, spp, 1,
                                                             **kw))
     t = megakernel.scene_tables(cs)
-    flops = k5_flops(t, cs.light_kinds, w * h * spp, segs, ev)
+    flops = k5_flops(t, cs.light_kinds, w * h * spp, segs, ev,
+                     work["medium_sweeps"])
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
         w * h * 16 + nbytes(t.cam, t.sph, t.pln, t.lights, t.mats,
                             t.tex_attr, t.texels, t.media.sph, t.media.pln,
-                            t.med), flops))
+                            t.med, t.mbox), flops))
 
-    tex = compiled(lambda c: fixtures.kitchen_sink_scene(c, normal_map=False),
-                   400, 266)
+    build_tex = lambda c: fixtures.kitchen_sink_scene(  # noqa: E731
+        c, normal_map=False)
+    tex = compiled(build_tex, 400, 266)
     if not megakernel.megakernel_supported(tex, need_aux=False,
                                            shader_kind=0):
         raise AssertionError("kitchen_textured: outside the megakernel gate")
-    err_tex, segs_tex, _ = check("K5 vs plain (kitchen_textured)", tex,
-                                 dict(width=400, height=266, max_depth=50), 8)
+    err_tex, segs_tex, _, work_tex = check(
+        "K5 vs plain (kitchen_textured)", tex,
+        dict(width=400, height=266, max_depth=50), 8)
     out["max_abs_err"] = max(err, err_tex)
+    # the textured kitchen at 1920x1080x8: time and work only (its plain
+    # version would take minutes)
+    tex_hd = compiled(build_tex, w, h)
+    stats = {}
+    _, seg_hd = megakernel.render_batch_megakernel(tex_hd, 1, spp, 1,
+                                                   stats=stats, **kw)
+    tex_hd_run = dict(ms=cuda_ms(lambda: megakernel.render_batch_megakernel(
+        tex_hd, 1, spp, 1, **kw)), segments=int(seg_hd),
+        **k5_work(stats, int(seg_hd)))
 
     k5, seg_k5 = megakernel.render_batch_megakernel(cs, 1, 1, 1, **kw)
     q, seg_q = integrator.trace_queued(cs, 1, 1, 1, **kw)
-    err_q = compare("K5 vs trace_queued", k5, seg_k5, q, seg_q)
+    err_q = compare("K5 vs trace_queued", k5, seg_k5, q, seg_q, TOL_K5)
     log("megakernel", scene="kitchen_solid", shape="1920x1080x8 depth 50",
         segments=segs, segment_kinds=ev, ms=ms, plain_ms=plain_ms,
         max_abs_err=err, bit_identical_repeat=True, flops=flops,
-        flops_per_segment=flops / segs, bound_ms=out["bound_ms"],
+        flops_per_segment=flops / segs, bound_ms=out["bound_ms"], **work,
         textured_400x266x8=dict(segments=segs_tex, max_abs_err=err_tex,
-                                lights=list(tex.light_kinds)),
+                                lights=list(tex.light_kinds), **work_tex),
+        textured_1920x1080x8=tex_hd_run,
         segments_1080p_1spp=int(seg_k5),
         max_abs_err_vs_trace_queued_1080p=err_q)
     return out

@@ -12,23 +12,44 @@
 // follow the plain version expression for expression (and -fmad=false keeps
 // nvcc from contracting them), so the kernel returns its values.
 //
-// Design: one thread per pixel, as on the TPU (megakernel.py:12-20). A
-// thread traces its pixel's n_samples paths back to back in registers and
-// adds each finished path's color to its own accumulator in sample order;
-// nothing crosses threads, and each pixel's segment count is written as an
-// int32 (the wrapper sums them), so there are no atomics and a repeated
-// launch is bit-identical. The scene tables are small (the gate allows at
-// most 128 spheres, 1,024 planar rows, 32 lights, 64 materials) and are read
-// through const __restrict__ pointers: every thread of a warp reads the
-// same row at the same time, which the L1 broadcasts. A lane whose path is
-// a miss, an emission or at the depth cap skips the scatter; lanes of a warp
-// diverge in path length and the warp waits for its longest path.
-//
-// What bounds it: arithmetic. Per segment a thread runs the sweep (~30
-// flops and one division per prim, twice per medium boundary prim more),
-// the attributes and the scatter (a few hundred flops and ~10 transcendental
+// What bounds it: arithmetic. Per segment a lane runs the solid sweep (~30
+// flops and one division per prim), per medium boundary prim two more, the
+// attributes and the scatter (a few hundred flops and ~10 transcendental
 // calls) and NEE over every light; it reads no per-pixel data from memory
-// and writes 16 bytes per pixel at the end.
+// and writes 16 bytes per pixel at the end. Three things keep the card from
+// that arithmetic rate, and the design answers each:
+//
+// - Path length differs from pixel to pixel, and a warp runs as long as its
+//   longest lane. So the grid is persistent (as many blocks as stay
+//   resident) and pixels are handed out as a queue: a warp claims a run of
+//   32 consecutive pixel ids with one atomicAdd, and a lane whose pixel is
+//   done takes the next unclaimed pixel of its warp's run (ballot, then
+//   __popc for its rank), the warp claiming the next run when this one is
+//   used up. A warp stays full until the queue drains, and its lanes still
+//   hold neighbouring pixels, so their rays stay coherent.
+// - Most segments never come near a medium, yet each medium costs two
+//   boundary sweeps. A lane first slab-tests its ray against the medium's
+//   padded box (pack_tables' mbox): a ray that cannot reach the box in
+//   front of its closest hit skips both sweeps and the flight draw. The
+//   pad exceeds every rounding of a boundary hit point, so every hit the
+//   sweeps could accept lies strictly inside the box, and a skipped medium
+//   is one whose event would have been INF: the result does not change.
+//   Lanes of a warp hold neighbouring pixels, so they tend to skip together.
+// - Each segment is long chains of IEEE divisions, square roots and
+//   transcendentals, so latency is hidden by warps in flight; the block
+//   size and __launch_bounds__ minimum were chosen on the card (PERF.md).
+//
+// Each pixel is still traced by one lane, its n_samples paths back to back
+// in registers, each finished path's color added to the pixel's own
+// accumulator in sample order; so which lane takes which pixel changes no
+// value. Each pixel's segment count is written as an int32 (the wrapper sums
+// them). There are no float atomics and a repeated launch is bit-identical;
+// the integer atomics only hand out pixels and count work (warp iterations
+// and medium sweeps, for the active-lane efficiency). The scene tables are
+// small (the gate allows at most 128 spheres, 1,024 planar rows, 32 lights,
+// 64 materials) and are read through const __restrict__ pointers: every
+// lane of a warp reads the same row at the same time, which the L1
+// broadcasts.
 //
 // TPU workarounds left behind: the masked-row table lookups (direct
 // indexing here), the u8 SMEM texture arena and its DMA round trips (the
@@ -42,7 +63,11 @@ namespace {
 
 using hit::Ray;
 
+// launch shape, chosen on the card (PERF.md, PR 4)
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 1;   // __launch_bounds__ minimum blocks per SM
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 // Python float constants as torch rounds them to f32 (geo, math.pi)
 constexpr float kPi = static_cast<float>(3.14159265358979323846);
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
@@ -212,6 +237,7 @@ struct Scene {
   const int* __restrict__ msph_off;   // (M+1,)
   const int* __restrict__ mpln_off;
   const float* __restrict__ med;      // (M, 4) neg_inv_density mat 0 0
+  const float4* __restrict__ mbox;    // (M, 8) padded box: lo 0 hi 0
   int n_media;
   int flags;
 };
@@ -312,6 +338,31 @@ __device__ __forceinline__ float boundary_sweep(const float4* sph, int n_sph,
     if (ok && t >= lo && t <= CUDART_INF_F && t < best) best = t;
   }
   return best;
+}
+
+// One axis of the slab test: narrow [tn, tf] to the parameters where the
+// line is between lo and hi. fminf/fmaxf drop the NaN of 0 * inf (a
+// direction parallel to the axis from an origin on a face).
+__device__ __forceinline__ void slab(float o, float inv, float lo, float hi,
+                                     float* tn, float* tf) {
+  const float a = (lo - o) * inv;
+  const float b = (hi - o) * inv;
+  *tn = fmaxf(*tn, fminf(a, b));
+  *tf = fminf(*tf, fmaxf(a, b));
+}
+
+// Whether medium box [lo, hi] can hold the medium's event: the ray's line
+// meets the box at some parameter in [0, ts]. Every boundary hit the two
+// sweeps accept lies inside the padded box, at a parameter in [tn, tf];
+// an event needs an exit hit beyond RAY_T_MIN (so tf >= 0) and an entry
+// below ts (so tn <= ts). A NaN ray hits no boundary, and fails here too.
+__device__ __forceinline__ bool box_reach(const Ray& r, V3 inv, float4 lo,
+                                          float4 hi, float ts) {
+  float tn = -CUDART_INF_F, tf = CUDART_INF_F;
+  slab(r.o0, inv.x, lo.x, hi.x, &tn, &tf);
+  slab(r.o1, inv.y, lo.y, hi.y, &tn, &tf);
+  slab(r.o2, inv.z, lo.z, hi.z, &tn, &tf);
+  return tn <= tf && tf >= 0.0f && tn <= ts;
 }
 
 // Mean over lights of the per-light sampling pdf towards direction d from
@@ -423,20 +474,37 @@ __device__ __forceinline__ void camera_ray(const Scene& sc, int pixel,
   *d = v3(dd[0], dd[1], dd[2]);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// work[] counters of a launch (int64, zeroed by the wrapper)
+constexpr int kWorkNextPixel = 0;   // the pixel queue's head
+constexpr int kWorkIterations = 1;  // warp iterations that traced a segment
+constexpr int kWorkSweeps = 2;      // (segment, medium) pairs swept
+constexpr int kWorkWarpSweeps = 3;  // warp iterations in which a lane swept
+
+// Persistent: each warp drains the pixel queue (see the note at the top).
+// n_samples > 0 (the wrapper returns zeros itself otherwise).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     k5_render(Scene sc, int width, int height, int sample_start,
               int n_samples, int max_depth, uint32_t seed, float* out_accum,
-              int* out_segments) {
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= width * height) return;
+              int* out_segments, unsigned long long* work) {
+  const long long n_pix = static_cast<long long>(width) * height;
+  const unsigned lane = threadIdx.x & (kWarp - 1);
   const float* bg = sc.cam + 19;
   const int sample_end = sample_start + n_samples;
 
-  int sample = sample_start;
+  // the warp's run of pixel ids [run, run + kWarp), unclaimed from cursor
+  long long run = 0;
+  int cursor = kWarp;
+  bool drained = false;   // every pixel id left is >= n_pix
+  unsigned long long iterations = 0, warp_sweeps = 0;
+  unsigned sweeps = 0;
+  bool swept = false;     // this lane swept a medium in the last iteration
+
+  int pix = -1;           // this lane's pixel, -1 none
+  bool fresh = false;     // the next segment starts with a camera ray
+  int sample = 0;
   int bounce = 0;
   int segments = 0;
-  V3 o, d;
-  camera_ray(sc, pix, sample, seed, width, height, &o, &d);
+  V3 o = v3(0.0f, 0.0f, 0.0f), d = o;
   float acc_len = 0.0f;
   float A[3] = {1.0f, 1.0f, 1.0f};
   float B[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
@@ -444,14 +512,62 @@ __global__ void __launch_bounds__(kThreads)
   bool outer = false;
   float acc[3] = {0.0f, 0.0f, 0.0f};
 
-  while (sample < sample_end) {
+  while (true) {
+    // --- lanes without a pixel take the next ones of the warp's run -------
+    if (!drained) {
+      const unsigned want = __ballot_sync(kFull, pix < 0);
+      if (want != 0u) {
+        const int n_want = __popc(want);
+        const int rank = __popc(want & ((1u << lane) - 1u));
+        long long mine = run + cursor + rank;
+        if (cursor + n_want > kWarp) {   // the run is used up: claim the next
+          unsigned long long base = 0;
+          if (lane == 0) base = atomicAdd(work + kWorkNextPixel,
+                                          static_cast<unsigned long long>(kWarp));
+          base = __shfl_sync(kFull, base, 0);
+          if (cursor + rank >= kWarp)
+            mine = static_cast<long long>(base) + (cursor + rank - kWarp);
+          run = static_cast<long long>(base);
+          cursor += n_want - kWarp;
+        } else {
+          cursor += n_want;
+        }
+        // runs are claimed in increasing order, so nothing below n_pix is
+        // left once this run's cursor passes it
+        drained = run + cursor >= n_pix;
+        if (pix < 0 && mine < n_pix) {
+          pix = static_cast<int>(mine);
+          sample = sample_start;
+          segments = 0;
+          acc[0] = acc[1] = acc[2] = 0.0f;
+          fresh = true;
+        }
+      }
+    }
+    if (__any_sync(kFull, swept)) ++warp_sweeps;
+    swept = false;
+    if (!__any_sync(kFull, pix >= 0)) break;
+    ++iterations;
+    if (pix < 0) continue;
+
+    if (fresh) {
+      camera_ray(sc, pix, sample, seed, width, height, &o, &d);
+      fresh = false;
+    }
     ++segments;
     // --- scene hit: solids, then every medium in order -------------------
     const Ray ray = hit::make_ray(o.x, o.y, o.z, d.x, d.y, d.z);
     int slot;
     float t = solid_sweep(sc, ray, &slot);
     int medium = -1;
+    const V3 inv = sc.n_media > 0 ? v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z)
+                                  : v3(0.0f, 0.0f, 0.0f);
     for (int m = 0; m < sc.n_media; ++m) {
+      // a ray that cannot reach the box before t has the event INF
+      if (!box_reach(ray, inv, sc.mbox[2 * m], sc.mbox[2 * m + 1], t))
+        continue;
+      swept = true;
+      ++sweeps;
       const int s0 = sc.msph_off[m], s1 = sc.msph_off[m + 1];
       const int p0 = sc.mpln_off[m], p1 = sc.mpln_off[m + 1];
       const float4* ms = sc.msph + 2 * s0;
@@ -635,28 +751,77 @@ __global__ void __launch_bounds__(kThreads)
       bounce = 0;
       acc_len = 0.0f;
       ++sample;
-      if (sample < sample_end)
-        camera_ray(sc, pix, sample, seed, width, height, &o, &d);
+      if (sample < sample_end) {
+        fresh = true;
+      } else {   // the pixel is done
+        out_accum[3 * pix] = acc[0];
+        out_accum[3 * pix + 1] = acc[1];
+        out_accum[3 * pix + 2] = acc[2];
+        out_segments[pix] = segments;
+        pix = -1;
+      }
     }
   }
-  out_accum[3 * pix] = acc[0];
-  out_accum[3 * pix + 1] = acc[1];
-  out_accum[3 * pix + 2] = acc[2];
-  out_segments[pix] = segments;
+  sweeps = __reduce_add_sync(kFull, sweeps);
+  if (lane == 0) {
+    atomicAdd(work + kWorkIterations, iterations);
+    atomicAdd(work + kWorkSweeps, static_cast<unsigned long long>(sweeps));
+    atomicAdd(work + kWorkWarpSweeps, warp_sweeps);
+  }
+}
+
+// The persistent grid for n_pix pixels on the current device: the blocks
+// that stay resident on one SM (computed once per device) times the SMs,
+// but no more blocks than the pixels fill.
+cudaError_t resident_grid(long long n_pix, int* blocks, int* per_sm) {
+  constexpr int kMaxDevices = 64;
+  static int occupancy[kMaxDevices] = {};   // 0: not computed yet
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (occupancy[dev] == 0) {
+    int n = 0, s = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k5_render,
+                                                        kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev] = s;
+    occupancy[dev] = n;
+  }
+  const long long fill = (n_pix + kThreads - 1) / kThreads;
+  *per_sm = occupancy[dev];
+  *blocks = static_cast<int>(
+      fill < static_cast<long long>(occupancy[dev]) * sms[dev]
+          ? fill : static_cast<long long>(occupancy[dev]) * sms[dev]);
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// The grid k5_render_launch takes for n_pix pixels: *blocks, and the
+// blocks per SM it was sized from.
+extern "C" int k5_render_grid(long long n_pix, int* blocks, int* per_sm) {
+  return static_cast<int>(resident_grid(n_pix, blocks, per_sm));
+}
+
+// work: 4 int64 counters, zeroed (kWork*); n_samples > 0
 extern "C" int k5_render_launch(
     const float* cam, const float* sph, int n_sph, const float* pln, int n_pl,
     const float* mats, int n_mat, const float* tex_attr, int n_tex,
     const float* texels, int n_texels, const float* lights, int n_light,
     const float* msph, const float* mpln, const int* msph_off,
-    const int* mpln_off, const float* med, int n_media, int width, int height,
-    int sample_start, int n_samples, int max_depth, int seed, int flags,
-    float* out_accum, int* out_segments, void* stream) {
-  const int n_pix = width * height;
-  if (n_pix > 0) {
+    const int* mpln_off, const float* med, const float* mbox, int n_media,
+    int width, int height, int sample_start, int n_samples, int max_depth,
+    int seed, int flags, float* out_accum, int* out_segments,
+    unsigned long long* work, void* stream) {
+  const long long n_pix = static_cast<long long>(width) * height;
+  if (n_pix > 0 && n_samples > 0) {
+    int blocks = 0, per_sm = 0;
+    const cudaError_t err = resident_grid(n_pix, &blocks, &per_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
     Scene sc;
     sc.cam = cam;
     sc.sph = reinterpret_cast<const float4*>(sph);
@@ -676,12 +841,12 @@ extern "C" int k5_render_launch(
     sc.msph_off = msph_off;
     sc.mpln_off = mpln_off;
     sc.med = med;
+    sc.mbox = reinterpret_cast<const float4*>(mbox);
     sc.n_media = n_media;
     sc.flags = flags;
-    k5_render<<<(n_pix + kThreads - 1) / kThreads, kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+    k5_render<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         sc, width, height, sample_start, n_samples, max_depth,
-        static_cast<uint32_t>(seed), out_accum, out_segments);
+        static_cast<uint32_t>(seed), out_accum, out_segments, work);
   }
   return static_cast<int>(cudaGetLastError());
 }

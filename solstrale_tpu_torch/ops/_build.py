@@ -48,8 +48,9 @@ _SIGNATURES = {
     "k4_scene_hit_launch": [_P] * 7 + [_P, _I, _P, _I, _P, _P, _P, _P, _P,
                                        _I, _I, _P, _P, _P],
     "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P],
+                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _P, _P, _P],
+    "k5_render_grid": [ctypes.c_longlong, _P, _P],
 }
 
 

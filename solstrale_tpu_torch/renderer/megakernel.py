@@ -7,13 +7,15 @@ pixel traces the pixel's ``n_samples`` paths back to back — camera ray,
 scene hit with every medium, attributes, material scatter with the 50/50
 NEE mixture, clamp-fold — and when a path ends it folds the path's color
 into the pixel's own accumulator, in sample order, and starts the pixel's
-next sample. Nothing crosses lanes. The randomness is the same counter
+next sample. No value crosses lanes. The randomness is the same counter
 hash as the wavefront's (``ops/rng.py``), so K5 reproduces ``trace_queued``
 draw for draw.
 
 - ``render_batch_megakernel``: the wrapper. CPU scenes take the plain
   version; CUDA scenes launch the hand-written kernel
-  (``csrc/megakernel.cu``) or raise.
+  (``csrc/megakernel.cu``: a persistent grid whose warps take pixels from
+  a queue in runs of 32, and a padded-box cull of the media, neither of
+  which changes a value) or raise.
 - ``render_batch_megakernel_plain``: K5 in torch with K5's execution model.
   Its body is ``integrator.path_step``, the step ``trace_queued`` runs, with
   the scene hit's plain version: no kernel runs in it on any device.
@@ -21,6 +23,7 @@ draw for draw.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -40,6 +43,15 @@ MAX_MEDIUM_PLANAR = 64
 
 # k5_render_launch flag bits
 _FLAG_BLEND = 1
+
+# K5 culls a medium for a ray that cannot reach the medium's box, grown by
+# this fraction of the scene's largest coordinate (at least 1), the scale
+# of every ray origin and hit point. The pad exceeds the rounding of any
+# boundary hit the sweeps accept: the planar test errs by a few f32 ulps of
+# that scale, and the sphere test's expanded form (c2 = |o|^2 - 2 o.c +
+# |c|^2 - r^2) can accept a grazing line up to about sqrt(eps) of it
+# outside the sphere; 2^-9 is 8 sqrt(eps) for eps = 2^-24.
+MEDIUM_BOX_PAD = 2.0 ** -9
 
 
 def megakernel_supported(cs: CompiledScene, *, need_aux, shader_kind):
@@ -86,8 +98,10 @@ class MegakernelTables:
     - ``lights`` (L, 20): kind p0 p1 p2 radius normal d w area 0;
     - ``mats`` (Mt, 9): ``Materials.attr``; ``tex_attr`` (T, 3) and
       ``texels`` (N, 3): ``TexArena.attr`` and ``.pixels``;
-    - ``media``: the packed boundaries (``ops.sweep.MediaTables``) and
-      ``med`` (M, 4): neg_inv_density, phase material, 0, 0."""
+    - ``media``: the packed boundaries (``ops.sweep.MediaTables``),
+      ``med`` (M, 4): neg_inv_density, phase material, 0, 0, and ``mbox``
+      (M, 8): each medium's padded box (``medium_boxes``), lo xyz 0 hi
+      xyz 0."""
 
     cam: torch.Tensor
     sph: torch.Tensor
@@ -98,6 +112,7 @@ class MegakernelTables:
     texels: torch.Tensor
     media: MediaTables
     med: torch.Tensor
+    mbox: torch.Tensor
     flags: int
 
 
@@ -106,6 +121,47 @@ def scene_tables(cs: CompiledScene):
     from .integrator import per_scene
 
     return per_scene(cs, "megakernel", lambda: pack_tables(cs))
+
+
+def _extent(s):
+    """(lo, hi) f64 (3,) over the valid spheres, quad corners and triangle
+    vertices of a ``Solids``; None when it has none."""
+    c = s.sph_center[s.sph_valid].double()
+    r = s.sph_radius[s.sph_valid].double()[:, None]
+    q, u, v = (x[s.qd_valid].double() for x in (s.qd_q, s.qd_u, s.qd_v))
+    v0, e1, e2 = (x[s.tr_valid].double() for x in (s.tr_v0, s.tr_e1,
+                                                     s.tr_e2))
+    corners = torch.cat([q, q + u, q + v, q + u + v, v0, v0 + e1, v0 + e2])
+    lo, hi = torch.cat([c - r, corners]), torch.cat([c + r, corners])
+    if lo.shape[0] == 0:
+        return None
+    return lo.amin(0), hi.amax(0)
+
+
+def medium_boxes(cs: CompiledScene):
+    """(M, 8) f32 box per medium for K5's cull, lo xyz 0 hi xyz 0: the
+    extent of the medium's boundary grown by MEDIUM_BOX_PAD of the scene's
+    largest coordinate (solids, media and the camera's origin and lens).
+    A medium without boundary prims gets lo = inf, hi = -inf, which the slab
+    test never culls (its sweeps find nothing)."""
+    extents = [_extent(m.boundary) for m in cs.media]
+    cam = cs.camera
+    scale = max([1.0, float(cam.origin.abs().max() + cam.lens_radius)]
+                + [float(torch.cat(e).abs().max())
+                   for e in [_extent(cs.solids)] + extents if e is not None])
+    pad = MEDIUM_BOX_PAD * scale
+    rows = []
+    for e in extents:
+        lo, hi = (e[0] - pad, e[1] + pad) if e is not None else (
+            torch.full((3,), torch.inf, dtype=torch.float64,
+                       device=cs.device),
+            torch.full((3,), -torch.inf, dtype=torch.float64,
+                       device=cs.device))
+        zero = lo.new_zeros(1)
+        rows.append(torch.cat([lo, zero, hi, zero]))
+    if not rows:
+        return torch.zeros((0, 8), dtype=torch.float32, device=cs.device)
+    return torch.stack(rows).to(torch.float32).contiguous()
 
 
 def pack_tables(cs: CompiledScene):
@@ -142,6 +198,7 @@ def pack_tables(cs: CompiledScene):
         media=media,
         med=torch.cat([col(media.nid), col(media.mat),
                        zeros(media.n_media, 2)], 1).contiguous(),
+        mbox=medium_boxes(cs),
         flags=_FLAG_BLEND if "blend" in cs.features else 0)
 
 
@@ -205,12 +262,20 @@ def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
 
 
 def render_batch_megakernel(cs: CompiledScene, sample_start, n_samples, seed,
-                            *, width, height, max_depth):
+                            *, width, height, max_depth, stats=None):
     """K5: render ``n_samples`` progressive passes of the full image in one
     launch. Returns (accum (width*height, 3) in pixel-id order, segments as
     a 0-dim int64 tensor). The kernel writes each pixel's segment count as
     int32 and this wrapper sums them: no float atomics, so a repeated
-    launch is bit-identical."""
+    launch is bit-identical.
+
+    ``stats`` (optional dict, CUDA scenes; reading it synchronises)
+    receives the launch's work counts: ``warp_iterations`` (iterations of
+    the kernel's loop summed over warps, each tracing one segment per active
+    lane), ``medium_sweeps`` (segment-medium pairs that passed the box cull
+    and swept the boundary), ``warp_medium_sweeps`` (warp iterations in
+    which a lane swept), ``pixel_segments`` ((width*height,) int32), and the
+    persistent grid, ``blocks`` and ``blocks_per_sm``."""
     dev = cs.device
     if dev.type == "cpu":
         return render_batch_megakernel_plain(
@@ -221,22 +286,36 @@ def render_batch_megakernel(cs: CompiledScene, sample_start, n_samples, seed,
     if not megakernel_supported(cs, need_aux=False, shader_kind=0):
         raise ValueError("render_batch_megakernel: the scene is outside the "
                          "megakernel gate (megakernel_supported)")
-    t = scene_tables(cs)
     n_pix = width * height
+    if int(n_samples) <= 0:   # nothing to trace
+        return (torch.zeros((n_pix, 3), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    t = scene_tables(cs)
     accum = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((n_pix,), dtype=torch.int32, device=dev)
+    work = torch.zeros((4,), dtype=torch.int64, device=dev)
     p = _build.ptr
     m = t.media
-    err = _build.library().k5_render_launch(
+    lib = _build.library()
+    err = lib.k5_render_launch(
         p(t.cam), p(t.sph), t.sph.shape[0], p(t.pln), t.pln.shape[0],
         p(t.mats), t.mats.shape[0], p(t.tex_attr), t.tex_attr.shape[0],
         p(t.texels), t.texels.shape[0], p(t.lights), t.lights.shape[0],
         p(m.sph), p(m.pln), p(m.sph_off_t), p(m.pl_off_t), p(t.med),
-        m.n_media, width, height, int(sample_start), int(n_samples),
-        max_depth, int(seed), t.flags, p(accum), p(segs),
-        _build.stream_of(accum))
+        p(t.mbox), m.n_media, width, height, int(sample_start),
+        int(n_samples), max_depth, int(seed), t.flags, p(accum), p(segs),
+        p(work), _build.stream_of(accum))
     _build.check(err, "k5_render")
     render_batch_megakernel.launches += 1
+    if stats is not None:
+        blocks, per_sm = ctypes.c_int(), ctypes.c_int()
+        _build.check(lib.k5_render_grid(n_pix, ctypes.byref(blocks),
+                                        ctypes.byref(per_sm)),
+                     "k5_render_grid")
+        _, iterations, sweeps, warp_sweeps = work.tolist()
+        stats.update(warp_iterations=iterations, medium_sweeps=sweeps,
+                     warp_medium_sweeps=warp_sweeps, pixel_segments=segs,
+                     blocks=blocks.value, blocks_per_sm=per_sm.value)
     return accum, segs.sum(dtype=torch.int64)
 
 

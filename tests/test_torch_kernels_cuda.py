@@ -122,27 +122,80 @@ def test_k4_matches_plain(cuda):
     assert not torch.isfinite(t_k[:128]).any() and (s_k[:128] == -1).all()
 
 
-@pytest.mark.parametrize("name", ["kitchen_solid", "kitchen_textured"])
-def test_k5_matches_plain_and_repeats(cuda, name):
-    """The megakernel against its plain version (2e-3, equal segments), and
-    bit-identical when repeated: on the solid kitchen-sink scene, and on the
-    kitchen-sink scene without its normal map (an image texture on the
-    ground, triangle prims, sphere / quad / triangle lights)."""
-    build = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
+def _grazing_scene(cfg):
+    """A medium box seen along its top front edge: the pinhole camera sits
+    in the planes y = 2 and z = 1.5 of the box (0, 0, 0.5)-(1, 2, 1.5), so
+    the rays near the image's centre graze two faces and the edge between
+    them (the risk of K5's box cull)."""
+    grey = T.Lambertian(T.SolidColor(0.5, 0.5, 0.5))
+    world = [T.Quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), grey),
+             T.Quad((6, -5, -5), (0, 10, 0), (0, 0, 10), grey),
+             T.ConstantMedium(T.Bvh(T.new_box((0, 0, 0.5), (1, 2, 1.5),
+                                              grey)), 0.5, (1, 1, 1)),
+             T.Sphere((2.5, 1.8, 1.2), 0.5,
+                      T.Metal(T.SolidColor(0.8, 0.8, 0.8), fuzz=0.1)),
+             T.Sphere((0, 10, 0), 3.0, T.DiffuseLight(10, 10, 10))]
+    camera = T.CameraConfig(vertical_fov_degrees=8.0,
+                            look_from=(-4.0, 2.0, 1.5),
+                            look_at=(1.0, 2.0, 1.5))
+    return T.Scene(T.Bvh(world), camera, (0.2, 0.3, 0.5), cfg)
+
+
+K5_SCENES = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
              "kitchen_textured": lambda c: fixtures.kitchen_sink_scene(
-                 c, normal_map=False)}[name]
-    cs = compile_scene(build(T.RenderConfig(width=8, height=8)), device=cuda)
+                 c, normal_map=False),
+             "grazing": _grazing_scene}
+
+
+def _k5_against_plain(cs, spp, **kw):
+    """K5 twice and its plain version: the two launches and the plain
+    version equal bit for bit, segments equal. Returns (accum, segments,
+    the first launch's stats)."""
     assert megakernel.megakernel_supported(cs, need_aux=False, shader_kind=0)
-    kw = dict(width=64, height=48, max_depth=50)
     megakernel.render_batch_megakernel.launches = 0
-    a, seg_a = megakernel.render_batch_megakernel(cs, 1, 4, 1, **kw)
-    b, seg_b = megakernel.render_batch_megakernel(cs, 1, 4, 1, **kw)
-    p, seg_p = megakernel.render_batch_megakernel_plain(cs, 1, 4, 1, **kw)
+    stats = {}
+    a, seg_a = megakernel.render_batch_megakernel(cs, 1, spp, 1, stats=stats,
+                                                  **kw)
+    b, seg_b = megakernel.render_batch_megakernel(cs, 1, spp, 1, **kw)
+    p, seg_p = megakernel.render_batch_megakernel_plain(cs, 1, spp, 1, **kw)
     torch.cuda.synchronize()
     assert megakernel.render_batch_megakernel.launches == 2
     assert torch.equal(a, b) and int(seg_a) == int(seg_b)
-    assert int(seg_a) == int(seg_p) and int(seg_a) >= 64 * 48 * 4
-    assert torch.allclose(a, p, rtol=2e-3, atol=2e-3)
+    assert int(seg_a) == int(seg_p)
+    assert torch.equal(a, p)
+    return a, int(seg_a), stats
+
+
+@pytest.mark.parametrize("name", list(K5_SCENES))
+def test_k5_matches_plain_and_repeats(cuda, name):
+    """The megakernel equals its plain version bit for bit (values and
+    segments) and repeats bit for bit: on the solid kitchen-sink scene, on
+    the kitchen-sink scene without its normal map (an image texture on the
+    ground, triangle prims, sphere / quad / triangle lights), and on a
+    camera that looks along the medium box's faces, where the box cull
+    meets grazing rays."""
+    cs = compile_scene(K5_SCENES[name](T.RenderConfig(width=8, height=8)),
+                       device=cuda)
+    _, segs, stats = _k5_against_plain(cs, 4, width=64, height=48,
+                                       max_depth=50)
+    assert segs >= 64 * 48 * 4
+    assert 0 < stats["medium_sweeps"] < segs
+
+
+def test_k5_fewer_pixels_than_lanes(cuda):
+    """An 8x8 image, far fewer pixels than the persistent grid's lanes:
+    every pixel is traced once, and the work counts add up."""
+    cs = compile_scene(fixtures.kitchen_sink_solid_scene(
+        T.RenderConfig(width=8, height=8)), device=cuda)
+    a, segs, stats = _k5_against_plain(cs, 3, width=8, height=8,
+                                       max_depth=50)
+    ps = stats["pixel_segments"]
+    assert ps.shape == (64,) and int(ps.sum()) == segs
+    assert int(ps.min()) >= 3 and float(a.sum()) > 0
+    assert 1 <= stats["blocks"] <= stats["blocks_per_sm"] * \
+        torch.cuda.get_device_properties(0).multi_processor_count
+    assert segs <= 32 * stats["warp_iterations"]
+    assert stats["warp_medium_sweeps"] <= stats["warp_iterations"]
 
 
 @pytest.mark.parametrize("name,route", [("kitchen_solid", "K5"),

@@ -206,6 +206,126 @@ def test_gate_matches_jax(name):
     assert TM.megakernel_supported(ct, need_aux=False, shader_kind=0) == expect
 
 
+def _corners(s):
+    """(N, 3) f64 numpy: every vertex of a Solids' valid quads and
+    triangles, and each valid sphere's box corners."""
+    n = lambda x: x.double().numpy()   # noqa: E731
+    q, u, v = (n(x[s.qd_valid]) for x in (s.qd_q, s.qd_u, s.qd_v))
+    v0, e1, e2 = (n(x[s.tr_valid]) for x in (s.tr_v0, s.tr_e1, s.tr_e2))
+    c = n(s.sph_center[s.sph_valid])
+    r = n(s.sph_radius[s.sph_valid])[:, None]
+    return np.concatenate([q, q + u, q + v, q + u + v, v0, v0 + e1, v0 + e2,
+                           c - r, c + r])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_medium_boxes_contain_boundaries(name):
+    """K5's cull table: each medium's box holds every vertex of its boundary
+    prims and every boundary sphere with MEDIUM_BOX_PAD of the scene's
+    largest coordinate to spare on every side, and no more than twice that."""
+    _, ct, _, _ = _both(name)
+    box = TM.pack_tables(ct).mbox.double().numpy()
+    assert box.shape == (len(ct.media), 8)
+    cam = ct.camera
+    scale = max([1.0, float(cam.origin.abs().max() + cam.lens_radius)]
+                + [float(np.abs(_corners(s)).max())
+                   for s in [ct.solids] + [m.boundary for m in ct.media]])
+    pad = TM.MEDIUM_BOX_PAD * scale
+    for m, med in enumerate(ct.media):
+        pts = _corners(med.boundary)
+        lo, hi = box[m, 0:3], box[m, 4:7]
+        assert (lo <= pts.min(0) - pad * (1 - 1e-6)).all()
+        assert (hi >= pts.max(0) + pad * (1 - 1e-6)).all()
+        assert (lo >= pts.min(0) - 2 * pad).all()
+        assert (hi <= pts.max(0) + 2 * pad).all()
+
+
+def _box_reach(o, d, lo, hi, ts):
+    """csrc/megakernel.cu::box_reach in f32 torch (torch.fmin / fmax drop
+    NaN as fminf / fmaxf do)."""
+    tn = torch.full_like(ts, -torch.inf)
+    tf = torch.full_like(ts, torch.inf)
+    for k in range(3):
+        inv = 1.0 / d[k]
+        a, b = (float(lo[k]) - o[k]) * inv, (float(hi[k]) - o[k]) * inv
+        tn = torch.fmax(tn, torch.fmin(a, b))
+        tf = torch.fmin(tf, torch.fmax(a, b))
+    return (tn <= tf) & (tf >= 0.0) & (tn <= ts)
+
+
+def _grazing_rays(lo, hi, n, rng):
+    """Rays along the faces, edges and corners of box [lo, hi] (f64): from
+    points on a face plane, offset by 0 to 1e-5 along its normal, in
+    directions tilted from the plane by at most 1e-6; and from random points
+    around the box at its edges and corners. (o, d) (n*2, 3) f32."""
+    size = hi - lo
+    axis = rng.integers(0, 3, n)
+    side = rng.integers(0, 2, n)
+    o = lo + rng.uniform(-0.5, 1.5, (n, 3)) * size
+    o[np.arange(n), axis] = np.where(side, hi[axis], lo[axis]) + rng.choice(
+        [0.0, 1e-7, -1e-7, 1e-6, -1e-6, 1e-5, -1e-5], n)
+    d = rng.normal(size=(n, 3))
+    d[np.arange(n), axis] = rng.choice([0.0, 1e-6, -1e-6, 1e-7], n)
+    # towards a point on an edge or a corner of the box
+    target = lo + rng.uniform(0, 1, (n, 3)) * size
+    for k in range(3):
+        snap = rng.uniform(size=n) < 0.7
+        target[snap, k] = np.where(rng.integers(0, 2, n), hi[k], lo[k])[snap]
+    o2 = target + rng.normal(size=(n, 3)) * size.max() * 2
+    d2 = target - o2
+    return (np.concatenate([o, o2]).astype(np.float32),
+            np.concatenate([d, d2]).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", ["kitchen_solid", "kitchen_textured",
+                                  "small"])
+def test_medium_box_cull_is_conservative(name):
+    """K5 skips a medium's sweeps for a ray whose line cannot meet the
+    medium's padded box in [0, ts]. That must never skip a ray whose event
+    the sweeps would find: with u = 1 every ordered entry and exit is an
+    event, and every such ray must pass the box test. Rays: the camera's,
+    random ones through the scene, and rays that graze the box's faces,
+    edges and corners from outside, on and inside its faces."""
+    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
+    from solstrale_tpu_torch.ops import sweep
+
+    build = GATE_SCENES[name]
+    ct = tcompile(build(T.RenderConfig(width=64, height=48), T),
+                  use_bvh=False, device="cpu")
+    box = TM.pack_tables(ct).mbox
+    rng = np.random.default_rng(11)
+    pix = torch.arange(64 * 48)
+    cam_o, cam_d = TI._camera_rays(ct, pix, 1, SEED, 64, 48)
+    med = ct.media[0]
+    b = med.boundary
+    pts = _corners(b)
+    lo, hi = pts.min(0), pts.max(0)
+    # along the boundary itself, and along the padded box's faces
+    go, gd = (np.concatenate(x) for x in zip(
+        _grazing_rays(lo, hi, 4096, rng),
+        _grazing_rays(box[0, 0:3].double().numpy(),
+                      box[0, 4:7].double().numpy(), 4096, rng)))
+    ro = rng.uniform(lo - 3 * (hi - lo), hi + 3 * (hi - lo), (4096, 3))
+    rd = rng.normal(size=(4096, 3))
+    o = [torch.cat([cam_o[k], torch.from_numpy(go[:, k]),
+                    torch.from_numpy(ro[:, k].astype(np.float32))])
+         for k in range(3)]
+    d = [torch.cat([cam_d[k], torch.from_numpy(gd[:, k]),
+                    torch.from_numpy(rd[:, k].astype(np.float32))])
+         for k in range(3)]
+    s = ct.solids
+    ts, _ = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
+                                    RAY_T_MIN, INF)
+    event = sweep.medium_hit_plain(b.sph_table, b.pl_table,
+                                   med.neg_inv_density, o, d, ts,
+                                   torch.ones_like(ts))
+    reach = _box_reach(o, d, box[0, 0:3], box[0, 4:7], ts)
+    hit = torch.isfinite(event)
+    assert hit.sum() > 500 and hit[64 * 48:64 * 48 + 16384].sum() > 200
+    assert not (hit & ~reach).any(), int((hit & ~reach).sum())
+    assert (~reach).float().mean() > 0.3   # the cull skips most rays
+
+
 def test_wrapper_routes_cpu_scene_to_plain():
     """On a CPU scene the K5 wrapper is the plain version and launches no
     kernel; render_sample_batch takes it for a scene the gate accepts."""
