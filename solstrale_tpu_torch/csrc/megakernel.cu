@@ -63,9 +63,14 @@ namespace {
 
 using hit::Ray;
 
-// launch shape, chosen on the card (PERF.md, PR 4)
-constexpr int kThreads = 128;
-constexpr int kMinBlocks = 1;   // __launch_bounds__ minimum blocks per SM
+// Launch shape, chosen over 14 shapes on an H100 80GB HBM3 at 700 W
+// (PERF.md, PR 4): 512 threads and at least 2 blocks per SM cap a thread
+// at 64 registers (with a few spills) for 32 warps per SM. Against 128
+// threads at 96 registers (20 warps) that costs the solid kitchen-sink
+// scene at 1080p x 8 ~6% and gains the textured one, whose 141-row sweep
+// wants the warps, ~7%: the least time for the two together.
+constexpr int kThreads = 512;
+constexpr int kMinBlocks = 2;   // __launch_bounds__ minimum blocks per SM
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // Python float constants as torch rounds them to f32 (geo, math.pi)

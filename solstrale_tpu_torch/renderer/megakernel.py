@@ -125,43 +125,34 @@ def scene_tables(cs: CompiledScene):
 
 def _extent(s):
     """(lo, hi) f64 (3,) over the valid spheres, quad corners and triangle
-    vertices of a ``Solids``; None when it has none."""
+    vertices of a ``Solids``; lo = inf, hi = -inf when it has none."""
     c = s.sph_center[s.sph_valid].double()
     r = s.sph_radius[s.sph_valid].double()[:, None]
     q, u, v = (x[s.qd_valid].double() for x in (s.qd_q, s.qd_u, s.qd_v))
     v0, e1, e2 = (x[s.tr_valid].double() for x in (s.tr_v0, s.tr_e1,
                                                      s.tr_e2))
     corners = torch.cat([q, q + u, q + v, q + u + v, v0, v0 + e1, v0 + e2])
-    lo, hi = torch.cat([c - r, corners]), torch.cat([c + r, corners])
-    if lo.shape[0] == 0:
-        return None
-    return lo.amin(0), hi.amax(0)
+    inf = torch.full((1, 3), torch.inf, dtype=torch.float64, device=c.device)
+    return (torch.cat([c - r, corners, inf]).amin(0),
+            torch.cat([c + r, corners, -inf]).amax(0))
 
 
 def medium_boxes(cs: CompiledScene):
     """(M, 8) f32 box per medium for K5's cull, lo xyz 0 hi xyz 0: the
     extent of the medium's boundary grown by MEDIUM_BOX_PAD of the scene's
     largest coordinate (solids, media and the camera's origin and lens).
-    A medium without boundary prims gets lo = inf, hi = -inf, which the slab
-    test never culls (its sweeps find nothing)."""
+    A medium without boundary prims keeps lo = inf, hi = -inf, which the
+    slab test never culls (its sweeps find nothing)."""
     extents = [_extent(m.boundary) for m in cs.media]
+    coords = torch.cat([torch.cat(e) for e in [_extent(cs.solids)] + extents])
     cam = cs.camera
-    scale = max([1.0, float(cam.origin.abs().max() + cam.lens_radius)]
-                + [float(torch.cat(e).abs().max())
-                   for e in [_extent(cs.solids)] + extents if e is not None])
+    scale = max(1.0, float(cam.origin.abs().max() + cam.lens_radius),
+                float(coords[coords.isfinite()].abs().max()))
     pad = MEDIUM_BOX_PAD * scale
-    rows = []
-    for e in extents:
-        lo, hi = (e[0] - pad, e[1] + pad) if e is not None else (
-            torch.full((3,), torch.inf, dtype=torch.float64,
-                       device=cs.device),
-            torch.full((3,), -torch.inf, dtype=torch.float64,
-                       device=cs.device))
-        zero = lo.new_zeros(1)
-        rows.append(torch.cat([lo, zero, hi, zero]))
-    if not rows:
-        return torch.zeros((0, 8), dtype=torch.float32, device=cs.device)
-    return torch.stack(rows).to(torch.float32).contiguous()
+    zero = torch.zeros(1, dtype=torch.float64, device=cs.device)
+    rows = [torch.cat([lo - pad, zero, hi + pad, zero]) for lo, hi in extents]
+    return (torch.stack(rows).to(torch.float32) if rows else
+            torch.zeros((0, 8), dtype=torch.float32, device=cs.device))
 
 
 def pack_tables(cs: CompiledScene):
