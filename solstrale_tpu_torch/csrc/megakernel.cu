@@ -37,7 +37,7 @@
 //   Lanes of a warp hold neighbouring pixels, so they tend to skip together.
 // - Each segment is long chains of IEEE divisions, square roots and
 //   transcendentals, so latency is hidden by warps in flight; the block
-//   size and __launch_bounds__ minimum were chosen on the card (PERF.md).
+//   size was chosen on the card (PERF.md).
 //
 // Each pixel is still traced by one lane, its n_samples paths back to back
 // in registers, each finished path's color added to the pixel's own
@@ -63,14 +63,13 @@ namespace {
 
 using hit::Ray;
 
-// Launch shape, chosen over 14 shapes on an H100 80GB HBM3 at 700 W
-// (PERF.md, PR 4): 512 threads and at least 2 blocks per SM cap a thread
-// at 64 registers (with a few spills) for 32 warps per SM. Against 128
-// threads at 96 registers (20 warps) that costs the solid kitchen-sink
-// scene at 1080p x 8 ~6% and gains the textured one, whose 141-row sweep
-// wants the warps, ~7%: the least time for the two together.
-constexpr int kThreads = 512;
-constexpr int kMinBlocks = 2;   // __launch_bounds__ minimum blocks per SM
+// Block size, chosen on an H100 80GB HBM3 at 700 W over 14 shapes of
+// block size and __launch_bounds__ minimum (PERF.md, PR 4): 128 threads with
+// no minimum (96 registers, 20 warps per SM) is the fastest at 400x266x8 on
+// both kitchen-sink scenes and at 1080p x 8 on the solid one; capping
+// registers for more warps (512 threads, 2 blocks) gains the textured
+// scene ~7% at 1080p but costs the solid one ~20% at 400x266.
+constexpr int kThreads = 128;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // Python float constants as torch rounds them to f32 (geo, math.pi)
@@ -487,7 +486,7 @@ constexpr int kWorkWarpSweeps = 3;  // warp iterations in which a lane swept
 
 // Persistent: each warp drains the pixel queue (see the note at the top).
 // n_samples > 0 (the wrapper returns zeros itself otherwise).
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads)
     k5_render(Scene sc, int width, int height, int sample_start,
               int n_samples, int max_depth, uint32_t seed, float* out_accum,
               int* out_segments, unsigned long long* work) {
