@@ -37,7 +37,7 @@
 //   Lanes of a warp hold neighbouring pixels, so they tend to skip together.
 // - Each segment is long chains of IEEE divisions, square roots and
 //   transcendentals, so latency is hidden by warps in flight; the block
-//   size was chosen on the card (PERF.md).
+//   size and register budget were chosen on the card (PERF.md).
 //
 // Each pixel is still traced by one lane, its n_samples paths back to back
 // in registers, each finished path's color added to the pixel's own
@@ -63,13 +63,16 @@ namespace {
 
 using hit::Ray;
 
-// Block size, chosen on an H100 80GB HBM3 at 700 W over 14 shapes of
-// block size and __launch_bounds__ minimum (PERF.md, PR 4): 128 threads with
-// no minimum (96 registers, 20 warps per SM) is the fastest at 400x266x8 on
-// both kitchen-sink scenes and at 1080p x 8 on the solid one; capping
-// registers for more warps (512 threads, 2 blocks) gains the textured
-// scene ~7% at 1080p but costs the solid one ~20% at 400x266.
+// Launch shape, chosen on an H100 80GB HBM3 at 700 W over 14 shapes of
+// block size and __launch_bounds__ minimum (PERF.md, PR 4): 128 threads and
+// a minimum of 1 block per SM (96 registers, no spills, 20 warps per SM) is
+// the fastest at 400x266x8 on both kitchen-sink scenes and at 1080p x 8 on
+// the solid one; capping registers for more warps (512 threads, 2 blocks)
+// gains the textured scene ~7% at 1080p but costs the solid one ~20% at
+// 400x266. The minimum must be stated: with the block size alone ptxas
+// settles on 80 registers and spills, ~10% slower at 400x266.
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 1;   // __launch_bounds__ minimum blocks per SM
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // Python float constants as torch rounds them to f32 (geo, math.pi)
@@ -486,7 +489,7 @@ constexpr int kWorkWarpSweeps = 3;  // warp iterations in which a lane swept
 
 // Persistent: each warp drains the pixel queue (see the note at the top).
 // n_samples > 0 (the wrapper returns zeros itself otherwise).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     k5_render(Scene sc, int width, int height, int sample_start,
               int n_samples, int max_depth, uint32_t seed, float* out_accum,
               int* out_segments, unsigned long long* work) {
@@ -805,13 +808,8 @@ cudaError_t resident_grid(long long n_pix, int* blocks, int* per_sm) {
 
 }  // namespace
 
-// The grid k5_render_launch takes for n_pix pixels: *blocks, and the
-// blocks per SM it was sized from.
-extern "C" int k5_render_grid(long long n_pix, int* blocks, int* per_sm) {
-  return static_cast<int>(resident_grid(n_pix, blocks, per_sm));
-}
-
-// work: 4 int64 counters, zeroed (kWork*); n_samples > 0
+// work: 4 int64 counters, zeroed (kWork*); grid (host): receives the
+// launch's blocks and the blocks per SM it was sized from
 extern "C" int k5_render_launch(
     const float* cam, const float* sph, int n_sph, const float* pln, int n_pl,
     const float* mats, int n_mat, const float* tex_attr, int n_tex,
@@ -820,11 +818,10 @@ extern "C" int k5_render_launch(
     const int* mpln_off, const float* med, const float* mbox, int n_media,
     int width, int height, int sample_start, int n_samples, int max_depth,
     int seed, int flags, float* out_accum, int* out_segments,
-    unsigned long long* work, void* stream) {
+    unsigned long long* work, int* grid, void* stream) {
   const long long n_pix = static_cast<long long>(width) * height;
   if (n_pix > 0 && n_samples > 0) {
-    int blocks = 0, per_sm = 0;
-    const cudaError_t err = resident_grid(n_pix, &blocks, &per_sm);
+    const cudaError_t err = resident_grid(n_pix, &grid[0], &grid[1]);
     if (err != cudaSuccess) return static_cast<int>(err);
     Scene sc;
     sc.cam = cam;
@@ -848,7 +845,7 @@ extern "C" int k5_render_launch(
     sc.mbox = reinterpret_cast<const float4*>(mbox);
     sc.n_media = n_media;
     sc.flags = flags;
-    k5_render<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    k5_render<<<grid[0], kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         sc, width, height, sample_start, n_samples, max_depth,
         static_cast<uint32_t>(seed), out_accum, out_segments, work);
   }

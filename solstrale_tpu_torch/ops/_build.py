@@ -49,8 +49,7 @@ _SIGNATURES = {
                                        _I, _I, _P, _P, _P],
     "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P, _P, _P, _P],
-    "k5_render_grid": [ctypes.c_longlong, _P, _P],
+                         _I, _P, _P, _P, _P, _P],
 }
 
 

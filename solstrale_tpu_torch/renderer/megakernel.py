@@ -285,28 +285,24 @@ def render_batch_megakernel(cs: CompiledScene, sample_start, n_samples, seed,
     accum = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((n_pix,), dtype=torch.int32, device=dev)
     work = torch.zeros((4,), dtype=torch.int64, device=dev)
+    grid = (ctypes.c_int * 2)()
     p = _build.ptr
     m = t.media
-    lib = _build.library()
-    err = lib.k5_render_launch(
+    err = _build.library().k5_render_launch(
         p(t.cam), p(t.sph), t.sph.shape[0], p(t.pln), t.pln.shape[0],
         p(t.mats), t.mats.shape[0], p(t.tex_attr), t.tex_attr.shape[0],
         p(t.texels), t.texels.shape[0], p(t.lights), t.lights.shape[0],
         p(m.sph), p(m.pln), p(m.sph_off_t), p(m.pl_off_t), p(t.med),
         p(t.mbox), m.n_media, width, height, int(sample_start),
         int(n_samples), max_depth, int(seed), t.flags, p(accum), p(segs),
-        p(work), _build.stream_of(accum))
+        p(work), grid, _build.stream_of(accum))
     _build.check(err, "k5_render")
     render_batch_megakernel.launches += 1
     if stats is not None:
-        blocks, per_sm = ctypes.c_int(), ctypes.c_int()
-        _build.check(lib.k5_render_grid(n_pix, ctypes.byref(blocks),
-                                        ctypes.byref(per_sm)),
-                     "k5_render_grid")
         _, iterations, sweeps, warp_sweeps = work.tolist()
         stats.update(warp_iterations=iterations, medium_sweeps=sweeps,
                      warp_medium_sweeps=warp_sweeps, pixel_segments=segs,
-                     blocks=blocks.value, blocks_per_sm=per_sm.value)
+                     blocks=grid[0], blocks_per_sm=grid[1])
     return accum, segs.sum(dtype=torch.int64)
 
 
