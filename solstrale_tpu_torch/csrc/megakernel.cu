@@ -64,7 +64,7 @@ namespace {
 using hit::Ray;
 
 // Launch shape, chosen on an H100 80GB HBM3 at 700 W over 14 shapes of
-// block size and __launch_bounds__ minimum (PERF.md, PR 4): 128 threads and
+// block size and __launch_bounds__ minimum (PERF.md): 128 threads and
 // a minimum of 1 block per SM (96 registers, no spills, 20 warps per SM) is
 // the fastest at 400x266x8 on both kitchen-sink scenes and at 1080p x 8 on
 // the solid one; capping registers for more warps (512 threads, 2 blocks)
