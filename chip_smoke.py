@@ -12,11 +12,15 @@ script exits non-zero):
   1. build: compile the CUDA kernels from ``solstrale_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print ptxas' resource lines;
   2. kernels: K1-K4 against their plain PyTorch versions on the card, with
-     kernel and plain median times and each kernel's bound (K1 at the main
-     path's 131,072 lanes and at the 16,384 of its tail, slots equal on
-     every hit, with the box and prim tests per ray of the treelet tree
-     and of the kernel tree; K2 in its spheres-only mode and K3 timed again on
-     the mixed BVH scene's tables, the shapes the main path gives them);
+     each kernel's device time (``device_ms``: calls queued behind a sleep,
+     so the host's enqueue time is not in it), its wrapper's time on an idle
+     card (``wrapper_ms``: enqueue included), the plain version's time and
+     the bound (K1 at the main path's 131,072 lanes and at the 16,384 of its
+     tail, slots equal on every hit, with the box and prim tests per ray of
+     the treelet tree and of the kernel tree; K2 in its BVH mode, t, kind and
+     idx equal, and K3 on the mixed BVH scene's tables, the shapes the main
+     path gives them, with the device kernels one call runs; K4, t, kind and
+     idx equal, on the kitchen's, likewise);
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, the benchmark workload, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -48,7 +52,7 @@ import time
 
 TOL_T = 1e-5          # hit t, rtol = atol (tests/test_pallas.py:33-35)
 TOL_MEDIUM = 1e-4     # medium t, rtol = atol (tests/test_pallas.py:59-61)
-SLOT_AGREE = 0.995    # K2-K4 slot agreement on hits (exact ties may differ)
+SLOT_AGREE = 0.995    # K2 general-mode slot agreement (ties may differ)
 # segments of the sponza 1080p, 1 spp, seed 1 batch (unchanged since the
 # port first rendered it)
 SPONZA_SEGMENTS = 6708708
@@ -66,12 +70,21 @@ HBM_BPS = 3.35e12     # device memory bytes/s
 # division count one each; compares not counted)
 FLOPS_SPHERE = 31
 FLOPS_PLANAR = 32
+# a planar row's t alone (hit::planar_t: d.n 5, o.n 5, the subtraction and
+# the division): K4 computes the rest only for rows whose t lies in its
+# window [lo, best]
+FLOPS_PLANAR_T = 12
 # one box of K1's slab test (csrc/bvh.cu slab2 and its callers): per axis
 # two subtractions and two multiplies, the interval's min and max, and on
 # the second and third axes the fold into near and far; the entry's clamp
 # at 0 and the far widening
 FLOPS_SLAB = 24
 FLOPS_MEDIUM_TAIL = 12    # hit::medium_event
+# K4 per medium and live ray: hit::box_reach (8 per axis); per ray that
+# reaches the box beyond its two boundary sweeps: the flight uniform 1,
+# t1 + 1e-4 1, the event 12
+K4_BOX = 24
+K4_MEDIUM = 14
 # K5's f32 operations beyond the sweeps, counted line by line from
 # csrc/megakernel.cu: an add, subtract, multiply, division, square root,
 # min or max is one, a call of sinf, cosf, acosf, atan2f, expf or logf is
@@ -118,13 +131,6 @@ def sweep_flops(n_sph, n_pl):
     return n_sph * FLOPS_SPHERE + n_pl * FLOPS_PLANAR
 
 
-def media_flops(mt):
-    """f32 operations of one ray through every medium of packed media
-    tables ``mt``: two boundary sweeps and the event each."""
-    return sum(2 * sweep_flops(*(x.shape[0] for x in mt.boundary(m)))
-               + FLOPS_MEDIUM_TAIL for m in range(mt.n_media))
-
-
 def k5_flops(t, light_kinds, n_paths, segments, ev, sweeps):
     """K5's f32 operations for a batch from the kinds of segment it traced
     (``ev``, from the plain version's ``events``) and the segment-medium
@@ -162,16 +168,20 @@ def launch_counts(wrappers):
 
 
 def all_wrappers():
+    """Each kernel's wrapper on the routes (K2: its BVH mode, the one mode
+    a route launches)."""
     from solstrale_tpu_torch.ops import bvh, sweep
     from solstrale_tpu_torch.renderer import megakernel
 
-    return {"K1": bvh.bvh_planar_hit, "K2": sweep.closest_hit,
+    return {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
             "K3": sweep.medium_hit, "K4": sweep.scene_hit,
             "K5": megakernel.render_batch_megakernel}
 
 
-def cuda_ms(fn, reps=5, warmup=2):
-    """Median milliseconds of fn() on the card (CUDA events)."""
+def wrapper_ms(fn, reps=5, warmup=2):
+    """Median milliseconds of one fn() on an idle card, CUDA events around
+    the call: the host's enqueue (Python, ctypes, the wrapper's own ops)
+    lies inside the interval."""
     import torch
 
     for _ in range(warmup):
@@ -187,6 +197,109 @@ def cuda_ms(fn, reps=5, warmup=2):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+_SLEEP = {}
+
+
+def _sleep_cycles_per_ms():
+    """torch.cuda._sleep's cycles per millisecond on this card (timed once
+    with CUDA events)."""
+    import torch
+
+    if "rate" not in _SLEEP:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP["rate"] = 20_000_000 / a.elapsed_time(b)
+    return _SLEEP["rate"]
+
+
+def device_ms(fn, n=20, reps=3, warmup=2):
+    """Milliseconds of device time per fn(): ``n`` calls queued behind a
+    ``torch.cuda._sleep`` that outlasts their enqueue, CUDA events around
+    the n calls, so the card runs them back to back and the host's time is
+    not in the interval. Median of ``reps``. Where the host falls behind
+    the sleep (a slow enqueue, or a full launch queue, which blocks the
+    host until the card drains it) the sleep grows and n halves; raises if
+    even one call cannot be queued behind a second's sleep (fn must not
+    synchronise)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    rate = _sleep_cycles_per_ms()
+    times, sleep_ms = [], 20.0
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(sleep_ms * rate))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * sleep_ms:
+            times.append(a.elapsed_time(b) / n)
+        elif n == 1 and sleep_ms >= 1000.0:
+            raise RuntimeError("device_ms: the host did not stay ahead of "
+                               "the card")
+        else:
+            sleep_ms = min(1000.0, 2.0 * host_ms + 10.0)
+            n = max(1, n // 2)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_kernels(calls):
+    """For each of ``calls`` (name -> fn), the names of the device kernels
+    one call runs. One torch.profiler session for all: the calls are
+    separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
+    boundaries in the device timeline; memory copies and sets are not
+    counted."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in calls.values():
+            torch.cuda._sleep(100_000)
+            fn()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "memcpy" not in e.name.lower()
+                     and "memset" not in e.name.lower()),
+                    key=lambda e: e.time_range.start)
+    groups, current = [], None
+    for e in events:
+        if "spin_kernel" in e.name or "sleep" in e.name.lower():
+            if current is not None:
+                groups.append(current)
+            current = []
+        elif current is not None:
+            current.append(e.name)
+    if len(groups) != len(calls):
+        raise RuntimeError(f"device_kernels: the trace holds {len(groups)} "
+                           f"of {len(calls)} calls ({len(events)} device "
+                           "events)")
+    return dict(zip(calls, groups))
+
+
+def kernel_times(fn, plain):
+    """The device, wrapper and plain times of a kernel's wrapper ``fn`` and
+    its plain version ``plain``."""
+    return dict(ms=device_ms(fn), wrapper_ms=wrapper_ms(fn),
+                plain_ms=wrapper_ms(plain, reps=3, warmup=1))
 
 
 def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None,
@@ -402,14 +515,14 @@ def _k1(cs):
         r = o[0].numel()
         t_k, s_k = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
         t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN)
-        plain_ms = cuda_ms(lambda: bvh.bvh_planar_hit_plain(
-            kb.prims, o, d, RAY_T_MIN), reps=3, warmup=1)
         parked = ((d[0] == 0) & (d[1] == 0) & (d[2] == 0)).cpu().numpy()
         err = compare_hits(f"K1 ({shape})", t_k, s_k, t_p, s_p, 0.0, parked,
                            agree_min=1.0)
         if not torch.equal(s_k, s_p):
             raise AssertionError(f"K1 ({shape}): slots differ")
-        ms = cuda_ms(lambda: bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN))
+        tm = kernel_times(
+            lambda: bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN),
+            lambda: bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN))
         walk, (t_w, s_w) = _walk_stats(
             (kb.node_min, kb.node_max, kb.prims, WALK_LEAF), o, d)
         if not (torch.equal(t_w, t_p) and torch.equal(s_w, s_p)):
@@ -422,26 +535,26 @@ def _k1(cs):
         log("kernel", name="K1 bvh_planar_hit", shape=shape, rays=r,
             live_rays=live_rays(d), prims=int(kb.prims[:, 13].sum().item()),
             hits=int(torch.isfinite(t_k).sum().item()), max_abs_err=err,
-            slots_equal=True, ms=ms, plain_ms=plain_ms,
-            walk_kernel_tree=walk, walk_treelet_tree=walk_treelet, **b)
+            slots_equal=True, **tm, walk_kernel_tree=walk,
+            walk_treelet_tree=walk_treelet, **b)
         if shape == "main":
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+            row = dict(max_abs_err=err, **tm, **b)
     return row
 
 
 def phase_kernels(sponza_cs):
     import torch
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
-    from solstrale_tpu_torch.ops import bvh, sweep
-    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.ops import sweep
 
     dev = torch.device("cuda")
     out = {}
 
     out["K1"] = _k1(sponza_cs)
 
-    # K2 (both modes) and K3 on procedural tables; their rows' times come
-    # from the main path's shape (_main_path_k2_k3)
+    # K2's general mode (both tables, and spheres only) and K3 on
+    # procedural tables; the kernels line's rows come from the main path's
+    # shapes (_main_path_k2_k3, _check_k4 on the kitchen)
     cs = _procedural_tables(dev)
     s = cs.solids
     o, d = _random_rays(65536, dev, seed=1, parked=256)
@@ -453,14 +566,15 @@ def phase_kernels(sponza_cs):
                                            RAY_T_MIN, INF, spheres_only=mode)
         errs.append(compare_hits(f"K2 spheres_only={mode}", t_k, s_k, t_p,
                                  s_p, TOL_T))
-        ms = cuda_ms(lambda: sweep.closest_hit(
-            s.sph_table, s.pl_table, o, d, RAY_T_MIN, INF, spheres_only=mode))
-        plain_ms = cuda_ms(lambda: sweep.closest_hit_plain(
-            s.sph_table, s.pl_table, o, d, RAY_T_MIN, INF,
-            spheres_only=mode), reps=3, warmup=1)
+        tm = kernel_times(
+            lambda: sweep.closest_hit(s.sph_table, s.pl_table, o, d,
+                                      RAY_T_MIN, INF, spheres_only=mode),
+            lambda: sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
+                                            RAY_T_MIN, INF,
+                                            spheres_only=mode))
         log("kernel", name="K2 closest_hit", spheres_only=mode, rays=65536,
             spheres=s.sph_table.shape[0], planar=s.pl_table.shape[0],
-            max_abs_err=errs[-1], ms=ms, plain_ms=plain_ms)
+            max_abs_err=errs[-1], **tm)
     out["K2"] = dict(max_abs_err=max(errs))
 
     med = cs.media[0]
@@ -480,41 +594,50 @@ def phase_kernels(sponza_cs):
         raise AssertionError("K3: medium t differs beyond tolerance")
     err = float((m_k[fin] - m_p[fin]).abs().max().item()) if fin.any() \
         else 0.0
-    ms = cuda_ms(lambda: sweep.medium_hit(*args))
-    plain_ms = cuda_ms(lambda: sweep.medium_hit_plain(*args), reps=3,
-                       warmup=1)
+    tm = kernel_times(lambda: sweep.medium_hit(*args),
+                      lambda: sweep.medium_hit_plain(*args))
     out["K3"] = dict(max_abs_err=err)
     log("kernel", name="K3 medium_hit", rays=65536, events=int(fin.sum()),
-        max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    _main_path_k2_k3(out)
+        max_abs_err=err, **tm)
+    traces = {}
+    _main_path_k2_k3(out, traces)
 
     # K4 on the same tables with both medium boxes (the second overlaps the
-    # first, so it clips against the first's events)
-    mt = integrator.media_tables(cs)
-    u2 = torch.rand((2, 65536), generator=g).to(dev)
-    err_proc = _check_k4("K4 scene_hit (procedural)", s, mt, o, d, u2)[0]
+    # first, so it clips against the first's events); they exceed what K4
+    # stages whole, so this takes its tiled loop
+    pix = torch.arange(65536, device=dev)
+    _check_k4("K4 scene_hit (procedural)", cs, o, d, (pix, 1, 0, 1))
     # and at the main path's shape: the normal-mapped kitchen-sink scene's
     # tables, 131,072 lanes of 1080p camera rays and their bounces
-    kcs, ko, kd, ku = _kitchen_rays(dev)
-    ks, kmt = kcs.solids, integrator.media_tables(kcs)
-    err, ms, plain_ms = _check_k4("K4 scene_hit (kitchen)", ks, kmt, ko, kd,
-                                  ku)
-    n_k = live_rays(kd)
-    out["K4"] = dict(max_abs_err=max(err, err_proc), ms=ms, plain_ms=plain_ms,
-                     **bound(ko[0].numel() * (32 + 4 * kmt.n_media)
-                             + nbytes(ks.sph_table, ks.pl_table, kmt.sph,
-                                      kmt.pln),
-                             n_k * (sweep_flops(ks.sph_table.shape[0],
-                                                ks.pl_table.shape[0])
-                                    + media_flops(kmt))))
+    kcs, ko, kd, counters = _kitchen_rays(dev)
+    out["K4"] = _check_k4("K4 scene_hit (kitchen)", kcs, ko, kd, counters,
+                          traces)
+    # the device kernels of one call each: K2's and K4's a route makes are
+    # one kernel (no fill, RNG, stack, combine or decode op)
+    kernels = device_kernels(traces)
+    for key, want in (("K2 bvh_sphere_hit", ["k2_bvh_spheres"]),
+                      ("K4 integrator.scene_hit", ["k4_scene_hit"]),
+                      ("bvh_closest_hit", ["", "k1_bvh", "k2_bvh_spheres"])):
+        got = kernels[key]
+        if len(got) != len(want) or not all(w in g for w, g in zip(want, got)):
+            raise AssertionError(f"{key}: one call ran {got}")
+    log("kernels_per_call", **{k: [g.split("(")[0][:60] for g in v]
+                               for k, v in kernels.items()})
     return out
 
 
-def _main_path_k2_k3(out):
-    """K2 (spheres-only, the one mode a route launches) and K3 at the main
+def _main_path_k2_k3(out, traces):
+    """K2 in its BVH mode (the one a route launches) and K3 at the main
     path's shape: the mixed BVH scene's tables at 1080p and one wavefront
-    iteration's 131,072 lanes (camera rays, bounces, parked rays). Their
-    rows of the kernels line take these times and bounds."""
+    iteration's 131,072 lanes (camera rays, bounces, parked rays), K2 fed
+    K1's planar hit of the same rays. K2 equals its plain version exactly
+    (t, kind and idx). Also the wrapper-level call the integrator makes,
+    ``bvh_closest_hit`` (K1's bound fill, K1, K2); both calls go into
+    ``traces`` for their device kernels. Their rows of the kernels line
+    take these times and bounds. K2's bound: the rays, t_p and pslot in,
+    (t, kind, idx) out, the sphere table and the pl_idx and pl_is_tri
+    entries of the distinct planar slots hit, read once; the sphere tests
+    of the live rays."""
     import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
@@ -529,28 +652,40 @@ def _main_path_k2_k3(out):
     s = cs.solids
     o, d, parked = _subsampled_rays(cs, n=131072)
     n_live, r = live_rays(d), len(parked)
-    args = (s.sph_table, s.pl_table, o, d, RAY_T_MIN, INF)
-    t_k, s_k = sweep.closest_hit(*args, spheres_only=True)
-    t_p, s_p = sweep.closest_hit_plain(*args, spheres_only=True)
+    t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+    args = (s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
+            s.pl_is_tri)
+    got = sweep.bvh_sphere_hit(*args)
+    want = sweep.bvh_sphere_hit_plain(*args)
     torch.cuda.synchronize()
-    err = compare_hits("K2 spheres_only (mixed)", t_k, s_k, t_p, s_p, TOL_T,
-                       parked)
-    ms = cuda_ms(lambda: sweep.closest_hit(*args, spheres_only=True))
-    plain_ms = cuda_ms(lambda: sweep.closest_hit_plain(
-        *args, spheres_only=True), reps=3, warmup=1)
+    for name, a, b in zip(("t", "kind", "idx"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K2 (mixed): {name} differs from the plain "
+                                 "version")
+    if torch.isfinite(got[0][torch.from_numpy(parked).to(dev)]).any():
+        raise AssertionError("K2 (mixed): a parked ray hit")
+    tm = kernel_times(lambda: sweep.bvh_sphere_hit(*args),
+                      lambda: sweep.bvh_sphere_hit_plain(*args))
+
+    def closest():
+        return bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)
+
+    traces["K2 bvh_sphere_hit"] = lambda: sweep.bvh_sphere_hit(*args)
+    traces["bvh_closest_hit"] = closest
+    full = dict(device_ms=device_ms(closest), wrapper_ms=wrapper_ms(closest))
     n_sph = s.sph_table.shape[0]
-    out["K2"].update(max_abs_err=max(err, out["K2"]["max_abs_err"]), ms=ms,
-                     plain_ms=plain_ms, **bound(
-                         r * 40 + nbytes(s.sph_table),
-                         n_live * n_sph * FLOPS_SPHERE))
-    log("kernel", name="K2 closest_hit (mixed, main path)", spheres_only=True,
-        rays=r, live_rays=n_live, spheres=n_sph, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
+    slots = int(torch.unique(pslot[pslot >= 0]).numel())
+    out["K2"].update(max_abs_err=0.0, **tm, **bound(
+        r * (24 + 8 + 12) + slots * 5 + nbytes(s.sph_table),
+        n_live * n_sph * FLOPS_SPHERE))
+    log("kernel", name="K2 bvh_sphere_hit (mixed, main path)", rays=r,
+        live_rays=n_live, spheres=n_sph, planar_slots_hit=slots,
+        max_abs_err=0.0, t_kind_idx_equal=True, **tm, bvh_closest_hit=full)
 
     # K3 gets the closest solid t of the same rays, as scene_hit gives it
     med = cs.media[0]
     b = med.boundary
-    t_solid = bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)[0]
+    t_solid = got[0]
     u = torch.rand(r, generator=torch.Generator().manual_seed(8)).to(dev)
     args = (b.sph_table, b.pl_table, med.neg_inv_density, o, d, t_solid, u)
     m_k, m_p = sweep.medium_hit(*args), sweep.medium_hit_plain(*args)
@@ -561,53 +696,141 @@ def _main_path_k2_k3(out):
         raise AssertionError("K3 (mixed): medium t differs")
     err = float((m_k[fin] - m_p[fin]).abs().max().item()) if fin.any() \
         else 0.0
-    ms = cuda_ms(lambda: sweep.medium_hit(*args))
-    plain_ms = cuda_ms(lambda: sweep.medium_hit_plain(*args), reps=3,
-                       warmup=1)
-    out["K3"].update(max_abs_err=max(err, out["K3"]["max_abs_err"]), ms=ms,
-                     plain_ms=plain_ms, **bound(
-                         r * 36 + nbytes(b.sph_table, b.pl_table),
-                         n_live * (2 * sweep_flops(b.sph_table.shape[0],
-                                                   b.pl_table.shape[0])
-                                   + FLOPS_MEDIUM_TAIL)))
+    tm = kernel_times(lambda: sweep.medium_hit(*args),
+                      lambda: sweep.medium_hit_plain(*args))
+    out["K3"].update(max_abs_err=max(err, out["K3"]["max_abs_err"]), **tm,
+                     **bound(r * 36 + nbytes(b.sph_table, b.pl_table),
+                             n_live * (2 * sweep_flops(b.sph_table.shape[0],
+                                                       b.pl_table.shape[0])
+                                       + FLOPS_MEDIUM_TAIL)))
     log("kernel", name="K3 medium_hit (mixed, main path)", rays=r,
-        events=int(fin.sum()), max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        events=int(fin.sum()), max_abs_err=err, **tm)
 
 
-def _check_k4(name, s, mt, o, d, u):
-    """K4 against its plain version: hit sets equal, t within TOL_MEDIUM
-    (TOL_T on solid hits), slots agreeing, parked rays missing; then the
-    kernel's and the plain version's median times. Returns (max abs t
-    error, ms, plain ms)."""
+def _box_reach(o, d, box, ts):
+    """csrc/hit.cuh::box_reach in f32 torch for box row ``box`` (8,):
+    whether each ray's line meets the box in [0, ts]."""
     import torch
+
+    tn = torch.full_like(ts, -torch.inf)
+    tf = torch.full_like(ts, torch.inf)
+    for k in range(3):
+        inv = 1.0 / d[k]
+        a, b = (box[k] - o[k]) * inv, (box[4 + k] - o[k]) * inv
+        tn = torch.fmax(tn, torch.fmin(a, b))
+        tf = torch.fmin(tf, torch.fmax(a, b))
+    return (tn <= tf) & (tf >= 0.0) & (tn <= ts)
+
+
+def _window_rows(pln, o, d, lo, best, mask):
+    """(ray, row) pairs of planar table ``pln`` whose t lies in [lo, best]
+    for the rays in ``mask``: the rows whose hit point and functionals a
+    lane sweep computes past the t test."""
     from solstrale_tpu_torch.ops import sweep
 
-    t_k, s_k = sweep.scene_hit(s.sph_table, s.pl_table, mt, o, d, u)
-    t_p, s_p = sweep.scene_hit_plain(s.sph_table, s.pl_table, mt, o, d, u)
+    n = 0
+    for a in range(0, o[0].numel(), sweep.RAY_CHUNK):
+        sl = slice(a, a + sweep.RAY_CHUNK)
+        _, t = sweep._planar_t(tuple(c[sl][:, None] for c in o),
+                               tuple(c[sl][:, None] for c in d), pln)
+        n += int(((t >= lo[sl][:, None]) & (t <= best[sl][:, None])
+                  & mask[sl][:, None]).sum())
+    return n
+
+
+def _k4_flops(cs, o, d, t_solid):
+    """K4's f32 operations on these rays, from the work their data needs:
+    per live ray each sphere's test (31) and each planar row's t (12), the
+    rest of a planar row (20) only where its t lies in [RAY_T_MIN, the solid
+    hit]; per medium and live ray the box test; per ray that reaches a
+    medium's box the medium's two boundary sweeps (counted the same way,
+    in the windows [-inf, t1] and [t1 + 1e-4, t2]) and the event. The media
+    clip against the solid hit (the scene's media do not overlap)."""
+    import torch
+    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
+    from solstrale_tpu_torch.ops import sweep
+    from solstrale_tpu_torch.renderer import integrator
+
+    s, mt = cs.solids, integrator.media_tables(cs)
+    live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
+    n_live = int(live.sum())
+    lo = torch.full_like(t_solid, RAY_T_MIN)
+    flops = n_live * (s.sph_table.shape[0] * FLOPS_SPHERE
+                      + s.pl_table.shape[0] * FLOPS_PLANAR_T
+                      + mt.n_media * K4_BOX)
+    flops += (FLOPS_PLANAR - FLOPS_PLANAR_T) * _window_rows(
+        s.pl_table, o, d, lo, t_solid, live)
+    reach_rays = torch.zeros_like(live)
+    for m in range(mt.n_media):
+        msph, mpln = mt.boundary(m)
+        reach = live & _box_reach(o, d, mt.box[m], t_solid)
+        reach_rays |= reach
+        n_reach = int(reach.sum())
+        t1 = sweep.closest_hit_plain(msph, mpln, o, d, -INF, INF)[0]
+        t2 = sweep.closest_hit_plain(msph, mpln, o, d, t1 + 1e-4, INF)[0]
+        flops += n_reach * (2 * (msph.shape[0] * FLOPS_SPHERE
+                                 + mpln.shape[0] * FLOPS_PLANAR_T)
+                            + K4_MEDIUM)
+        flops += (FLOPS_PLANAR - FLOPS_PLANAR_T) * (
+            _window_rows(mpln, o, d, torch.full_like(t1, -INF), t1, reach)
+            + _window_rows(mpln, o, d, t1 + 1e-4, t2, reach))
+    return flops, int(reach_rays.sum())
+
+
+def _check_k4(name, cs, o, d, counters, traces=None):
+    """K4 against its plain version: t, kind and idx equal, parked rays
+    missing; at the main path's shape (``traces`` given) also the times,
+    the bound and the kernels-line row, and one ``integrator.scene_hit``
+    call into ``traces`` for its device kernels. K4's bound: the rays in
+    and (t, kind, idx) out, the counters of the rays that reach a medium's
+    box (the only ones it reads), and the solid and media tables, read
+    once; its operations from ``_k4_flops``."""
+    import torch
+    from solstrale_tpu_torch.ops import sweep
+    from solstrale_tpu_torch.renderer import integrator
+
+    s, mt = cs.solids, integrator.media_tables(cs)
+    got = sweep.scene_hit(s, mt, o, d, *counters)
+    want = sweep.scene_hit_plain(s, mt, o, d, *counters)
     torch.cuda.synchronize()
-    parked = ((d[0] == 0) & (d[1] == 0) & (d[2] == 0)).cpu().numpy()
-    err = compare_hits(name, t_k, s_k, t_p, s_p, TOL_MEDIUM, parked)
-    solid = torch.isfinite(t_p) & (s_p < s.sph_table.shape[0]
-                                   + s.pl_table.shape[0])
-    if not torch.allclose(t_k[solid], t_p[solid], rtol=TOL_T, atol=TOL_T):
-        raise AssertionError(f"{name}: solid-hit t differs beyond {TOL_T}")
-    n_med = int((torch.isfinite(t_p) & ~solid).sum().item())
-    ms = cuda_ms(lambda: sweep.scene_hit(s.sph_table, s.pl_table, mt, o, d,
-                                         u))
-    plain_ms = cuda_ms(lambda: sweep.scene_hit_plain(
-        s.sph_table, s.pl_table, mt, o, d, u), reps=3, warmup=1)
-    log("kernel", name=name, rays=o[0].numel(), live_rays=live_rays(d),
-        spheres=s.sph_table.shape[0], planar=s.pl_table.shape[0],
-        media=mt.n_media, medium_events=n_med,
-        hits=int(torch.isfinite(t_p).sum().item()), max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
-    return err, ms, plain_ms
+    for field, a, b in zip(("t", "kind", "idx"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {field} differs from the plain "
+                                 "version")
+    parked = (d[0] == 0) & (d[1] == 0) & (d[2] == 0)
+    if torch.isfinite(got[0][parked]).any():
+        raise AssertionError(f"{name}: a parked (zero-direction) ray hit")
+    t, kind, _ = got
+    info = dict(rays=o[0].numel(), live_rays=live_rays(d),
+                spheres=s.sph_table.shape[0], planar=s.pl_table.shape[0],
+                media=mt.n_media, medium_events=int((kind == 3).sum()),
+                hits=int(torch.isfinite(t).sum()), max_abs_err=0.0,
+                t_kind_idx_equal=True)
+    if traces is None:
+        log("kernel", name=name, **info)
+        return None
+    traces["K4 integrator.scene_hit"] = lambda: integrator.scene_hit(
+        cs, o, d, *counters)
+    tm = kernel_times(lambda: sweep.scene_hit(s, mt, o, d, *counters),
+                      lambda: sweep.scene_hit_plain(s, mt, o, d, *counters))
+    t_solid = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
+                                      1e-3, float("inf"))[0]
+    flops, reach = _k4_flops(cs, o, d, t_solid)
+    counter_bytes = sum(c.element_size() for c in counters
+                        if isinstance(c, torch.Tensor))
+    b = bound(o[0].numel() * (24 + 12) + reach * counter_bytes
+              + nbytes(s.sph_table, s.pl_table, s.pl_idx, mt.sph, mt.pln,
+                       mt.sph_off_t, mt.pl_off_t, mt.nid, mt.box), flops)
+    log("kernel", name=name, **info, rays_reaching_a_medium=reach,
+        flops=flops, **tm, **b)
+    return dict(max_abs_err=0.0, **tm, **b)
 
 
 def _kitchen_rays(device, lanes=131072):
     """The K4 inputs of one wavefront iteration on the normal-mapped
     kitchen-sink scene at 1080p: camera rays of every 16th pixel, bounce
-    rays from their hits, and the media's flight uniforms."""
+    rays from their hits, and their counters (pixel int64, sample 1,
+    bounce int32 0 or 1, seed 1). Returns (cs, o, d, counters)."""
     import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
@@ -633,10 +856,9 @@ def _kitchen_rays(device, lanes=131072):
     bo = soa.where3(hit, attrs["point"], o)
     oo = tuple(torch.cat([a, b]) for a, b in zip(o, bo))
     dd = tuple(torch.cat([a, b]) for a, b in zip(d, bd))
-    pp = torch.cat([pix, pix])
-    u = torch.stack([rng.uniform(pp, 1, 1, integrator._MEDIUM_PURPOSE_BASE + m,
-                                 1) for m in range(len(cs.media))])
-    return cs, oo, dd, u
+    bounce = torch.cat([torch.zeros(half, dtype=torch.int32, device=device),
+                        torch.ones(half, dtype=torch.int32, device=device)])
+    return cs, oo, dd, (torch.cat([pix, pix]), 1, bounce, 1)
 
 
 def _final_image(scene, device):
@@ -861,15 +1083,17 @@ def phase_megakernel():
             sum(ev.values()) != segs:
         raise AssertionError(f"K5: the segment kinds {ev} do not add up to "
                              f"{w * h * spp} paths and {segs} segments")
-    ms = cuda_ms(lambda: megakernel.render_batch_megakernel(cs, 1, spp, 1,
-                                                            **kw))
+    def launch():
+        return megakernel.render_batch_megakernel(cs, 1, spp, 1, **kw)
+
+    tm = dict(ms=device_ms(launch, n=5), wrapper_ms=wrapper_ms(launch))
     t = megakernel.scene_tables(cs)
     flops = k5_flops(t, cs.light_kinds, w * h * spp, segs, ev,
                      work["medium_sweeps"])
-    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+    out = dict(max_abs_err=err, **tm, plain_ms=plain_ms, **bound(
         w * h * 16 + nbytes(t.cam, t.sph, t.pln, t.lights, t.mats,
                             t.tex_attr, t.texels, t.media.sph, t.media.pln,
-                            t.med, t.mbox), flops))
+                            t.med, t.media.box), flops))
 
     build_tex = lambda c: fixtures.kitchen_sink_scene(  # noqa: E731
         c, normal_map=False)
@@ -887,15 +1111,15 @@ def phase_megakernel():
     stats = {}
     _, seg_hd = megakernel.render_batch_megakernel(tex_hd, 1, spp, 1,
                                                    stats=stats, **kw)
-    tex_hd_run = dict(ms=cuda_ms(lambda: megakernel.render_batch_megakernel(
-        tex_hd, 1, spp, 1, **kw)), segments=int(seg_hd),
+    tex_hd_run = dict(ms=device_ms(lambda: megakernel.render_batch_megakernel(
+        tex_hd, 1, spp, 1, **kw), n=5), segments=int(seg_hd),
         **k5_work(stats, int(seg_hd)))
 
     k5, seg_k5 = megakernel.render_batch_megakernel(cs, 1, 1, 1, **kw)
     q, seg_q = integrator.trace_queued(cs, 1, 1, 1, **kw)
     err_q = compare("K5 vs trace_queued", k5, seg_k5, q, seg_q, TOL_K5)
     log("megakernel", scene="kitchen_solid", shape="1920x1080x8 depth 50",
-        segments=segs, segment_kinds=ev, ms=ms, plain_ms=plain_ms,
+        segments=segs, segment_kinds=ev, **tm, plain_ms=plain_ms,
         max_abs_err=err, bit_identical_repeat=True, flops=flops,
         flops_per_segment=flops / segs, bound_ms=out["bound_ms"], **work,
         textured_400x266x8=dict(segments=segs_tex, max_abs_err=err_tex,
@@ -978,7 +1202,7 @@ def main():
                      "solstrale_tpu/ops/pallas_sweep.py:356"),
               "K5": ("solstrale_tpu_torch/csrc/megakernel.cu",
                      "solstrale_tpu/renderer/megakernel.py:228")}
-    names = {"K1": "k1_bvh", "K2": "k2_sweep", "K3": "k3_medium",
+    names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_medium",
              "K4": "k4_scene_hit", "K5": "k5_render"}
     # no single PyTorch call computes any of these functions
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],

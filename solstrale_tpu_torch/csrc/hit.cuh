@@ -1,5 +1,6 @@
-// Ray-primitive tests shared by the sweep kernels (K2-K4, sweep.cu) and the
-// render megakernel (K5, megakernel.cu).
+// Ray-primitive tests, the medium cull and the counter RNG shared by the
+// sweep kernels (K2-K4, sweep.cu) and the render megakernel (K5,
+// megakernel.cu).
 //
 // The formulas are the TPU kernels' (solstrale_tpu/ops/pallas_sweep.py:86-138
 // and :249-313), op for op, so that with -fmad=false a kernel returns the
@@ -10,6 +11,8 @@
 //   planar:  nx ny nz d | g1x g1y g1z g1o | g2x g2y g2z g2o | is_tri valid ..
 //            (the first 4 float4 of a row)
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -38,42 +41,73 @@ __device__ __forceinline__ Ray make_ray(float o0, float o1, float o2,
 // max(x, 0) that keeps NaN, like jnp.maximum / torch.clamp
 __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
 
+// The sphere test's discriminant and half_b (pallas_sweep.py:93-99); the
+// roots exist when disc >= 0 and the row is valid (sphere_ok).
+__device__ __forceinline__ float sphere_disc(const Ray& r, float4 a,
+                                             float* half_b) {
+  const float cx = a.x, cy = a.y, cz = a.z, radius = a.w;
+  const float cd = cx * r.d0 + cy * r.d1 + cz * r.d2;
+  const float co = cx * r.o0 + cy * r.o1 + cz * r.o2;
+  *half_b = r.od - cd;
+  const float c2 = r.oo - 2.0f * co + (cx * cx + cy * cy + cz * cz)
+                   - radius * radius;
+  return *half_b * *half_b - r.dd * c2;
+}
+
+__device__ __forceinline__ bool sphere_ok(float disc, float4 b) {
+  return (disc >= 0.f) && (b.x > 0.5f);
+}
+
+__device__ __forceinline__ void sphere_roots_of(const Ray& r, float disc,
+                                                float half_b, float* r1,
+                                                float* r2) {
+  const float sq = sqrtf(clamp0(disc));
+  *r1 = (-half_b - sq) / r.dd;
+  *r2 = (-half_b + sq) / r.dd;
+}
+
 // Sphere roots in the expanded form of pallas_sweep.py:93-101. Returns
 // false when the discriminant is negative (or NaN) or the row is padding.
 __device__ __forceinline__ bool sphere_roots(const Ray& r, float4 a, float4 b,
                                              float* r1, float* r2) {
-  const float cx = a.x, cy = a.y, cz = a.z, radius = a.w, valid = b.x;
-  const float cd = cx * r.d0 + cy * r.d1 + cz * r.d2;
-  const float co = cx * r.o0 + cy * r.o1 + cz * r.o2;
-  const float half_b = r.od - cd;
-  const float c2 = r.oo - 2.0f * co + (cx * cx + cy * cy + cz * cz)
-                   - radius * radius;
-  const float disc = half_b * half_b - r.dd * c2;
-  const float sq = sqrtf(clamp0(disc));
-  *r1 = (-half_b - sq) / r.dd;
-  *r2 = (-half_b + sq) / r.dd;
-  return (disc >= 0.f) && (valid > 0.5f);
+  float half_b;
+  const float disc = sphere_disc(r, a, &half_b);
+  sphere_roots_of(r, disc, half_b, r1, r2);
+  return sphere_ok(disc, b);
 }
 
-// Unified quad/triangle plane test (pallas_sweep.py:115-135): t on the
-// plane, then two affine barycentric functionals of the hit point.
-// Sets *t; returns whether the hit lies inside the prim (and the row is
-// valid, the ray not parallel).
-__device__ __forceinline__ bool planar_hit(const Ray& r, float4 a, float4 b,
-                                           float4 c, float4 e, float* t) {
-  const float denom = a.x * r.d0 + a.y * r.d1 + a.z * r.d2;
-  const float tt = (a.w - (a.x * r.o0 + a.y * r.o1 + a.z * r.o2)) / denom;
-  const float hx = r.o0 + tt * r.d0;
-  const float hy = r.o1 + tt * r.d1;
-  const float hz = r.o2 + tt * r.d2;
+// The unified quad/triangle plane test (pallas_sweep.py:115-135) in two
+// parts. planar_t: t on the plane and the denominator d.n.
+__device__ __forceinline__ float planar_t(const Ray& r, float4 a,
+                                          float* denom) {
+  *denom = a.x * r.d0 + a.y * r.d1 + a.z * r.d2;
+  return (a.w - (a.x * r.o0 + a.y * r.o1 + a.z * r.o2)) / *denom;
+}
+
+// planar_inside: the two affine barycentric functionals of the hit point at
+// t; whether it lies inside the prim (and the row is valid, the ray not
+// parallel).
+__device__ __forceinline__ bool planar_inside(const Ray& r, float4 b,
+                                              float4 c, float4 e, float t,
+                                              float denom) {
+  const float hx = r.o0 + t * r.d0;
+  const float hy = r.o1 + t * r.d1;
+  const float hz = r.o2 + t * r.d2;
   const float u = hx * b.x + hy * b.y + hz * b.z + b.w;
   const float v = hx * c.x + hy * c.y + hz * c.z + c.w;
   const bool tri = e.x > 0.5f;
   const bool valid = e.y > 0.5f;
   const bool contain = (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
                        (tri ? (u + v <= 1.f) : (v <= 1.f));
-  *t = tt;
   return (fabsf(denom) >= kAlmostZero) && valid && contain;
+}
+
+// Both parts: sets *t; returns whether the hit lies inside the prim.
+__device__ __forceinline__ bool planar_hit(const Ray& r, float4 a, float4 b,
+                                           float4 c, float4 e, float* t) {
+  float denom;
+  *t = planar_t(r, a, &denom);
+  return planar_inside(r, b, c, e, *t, denom);
 }
 
 // A constant medium's free-flight event from its entry t1 and exit t2
@@ -95,6 +129,55 @@ __device__ __forceinline__ float medium_event(const Ray& r, float t1, float t2,
   const bool scatters = hit_dist <= dist_inside;
   const float t = t1c + hit_dist / r_len;
   return (both && ordered && scatters) ? t : CUDART_INF_F;
+}
+
+// One axis of the slab test: narrow [tn, tf] to the parameters where the
+// line is between lo and hi. fminf/fmaxf drop the NaN of 0 * inf (a
+// direction parallel to the axis from an origin on a face).
+__device__ __forceinline__ void slab(float o, float inv, float lo, float hi,
+                                     float* tn, float* tf) {
+  const float a = (lo - o) * inv;
+  const float b = (hi - o) * inv;
+  *tn = fmaxf(*tn, fminf(a, b));
+  *tf = fminf(*tf, fmaxf(a, b));
+}
+
+// Whether a medium's padded box [lo, hi] (ops/sweep.py::medium_boxes) can
+// hold the medium's event for a ray with direction reciprocals inv0..2:
+// the ray's line meets the box at some parameter in [0, ts]. Every boundary
+// hit the two sweeps accept lies inside the padded box, at a parameter in
+// [tn, tf]; an event needs an exit hit beyond RAY_T_MIN (so tf >= 0) and an
+// entry below ts (so tn <= ts). A NaN ray hits no boundary, and fails here
+// too. So a medium this test rejects has the event INF.
+__device__ __forceinline__ bool box_reach(const Ray& r, float inv0,
+                                          float inv1, float inv2, float4 lo,
+                                          float4 hi, float ts) {
+  float tn = -CUDART_INF_F, tf = CUDART_INF_F;
+  slab(r.o0, inv0, lo.x, hi.x, &tn, &tf);
+  slab(r.o1, inv1, lo.y, hi.y, &tn, &tf);
+  slab(r.o2, inv2, lo.z, hi.z, &tn, &tf);
+  return tn <= tf && tf >= 0.0f && tn <= ts;
+}
+
+// Counter RNG: four uniforms in [0, 1) from PCG4D of (pixel, sample,
+// bounce, purpose, seed), each taken as its low 32 bits; bit-equal to
+// ops/rng.py::uniform4.
+__device__ __forceinline__ float4 uniform4(uint32_t pix, uint32_t sample,
+                                           uint32_t bounce, uint32_t purpose,
+                                           uint32_t seed) {
+  uint32_t a = pix, b = sample, c = (bounce << 8) | purpose, d = seed;
+  a = a * 1664525u + 1013904223u;
+  b = b * 1664525u + 1013904223u;
+  c = c * 1664525u + 1013904223u;
+  d = d * 1664525u + 1013904223u;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+  a ^= a >> 16; b ^= b >> 16; c ^= c >> 16; d ^= d >> 16;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+  const float s = 1.0f / 16777216.0f;
+  return make_float4(static_cast<float>(a >> 8) * s,
+                     static_cast<float>(b >> 8) * s,
+                     static_cast<float>(c >> 8) * s,
+                     static_cast<float>(d >> 8) * s);
 }
 
 }  // namespace hit

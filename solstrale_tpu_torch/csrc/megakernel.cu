@@ -29,7 +29,8 @@
 //   hold neighbouring pixels, so their rays stay coherent.
 // - Most segments never come near a medium, yet each medium costs two
 //   boundary sweeps. A lane first slab-tests its ray against the medium's
-//   padded box (pack_tables' mbox): a ray that cannot reach the box in
+//   padded box (hit::box_reach; MediaTables.box, the boxes K4 culls with
+//   too): a ray that cannot reach the box in
 //   front of its closest hit skips both sweeps and the flight draw. The
 //   pad exceeds every rounding of a boundary hit point, so every hit the
 //   sweeps could accept lies strictly inside the box, and a skipped medium
@@ -101,25 +102,8 @@ constexpr int LIGHT_SPHERE = 0, LIGHT_QUAD = 1;
 constexpr int kMaxBlendDepth = 3;
 constexpr int kFlagBlend = 1;
 
-// --- counter RNG: PCG4D, bit-equal to ops/rng.py ---------------------------
-
-__device__ __forceinline__ float4 uniform4(uint32_t pix, uint32_t sample,
-                                           uint32_t bounce, uint32_t purpose,
-                                           uint32_t seed) {
-  uint32_t a = pix, b = sample, c = (bounce << 8) | purpose, d = seed;
-  a = a * 1664525u + 1013904223u;
-  b = b * 1664525u + 1013904223u;
-  c = c * 1664525u + 1013904223u;
-  d = d * 1664525u + 1013904223u;
-  a += b * d; b += c * a; c += a * b; d += b * c;
-  a ^= a >> 16; b ^= b >> 16; c ^= c >> 16; d ^= d >> 16;
-  a += b * d; b += c * a; c += a * b; d += b * c;
-  const float s = 1.0f / 16777216.0f;
-  return make_float4(static_cast<float>(a >> 8) * s,
-                     static_cast<float>(b >> 8) * s,
-                     static_cast<float>(c >> 8) * s,
-                     static_cast<float>(d >> 8) * s);
-}
+// counter RNG: PCG4D, bit-equal to ops/rng.py (hit.cuh)
+using hit::uniform4;
 
 // --- vector helpers in geo/soa.py's association order ------------------------
 
@@ -347,31 +331,6 @@ __device__ __forceinline__ float boundary_sweep(const float4* sph, int n_sph,
   return best;
 }
 
-// One axis of the slab test: narrow [tn, tf] to the parameters where the
-// line is between lo and hi. fminf/fmaxf drop the NaN of 0 * inf (a
-// direction parallel to the axis from an origin on a face).
-__device__ __forceinline__ void slab(float o, float inv, float lo, float hi,
-                                     float* tn, float* tf) {
-  const float a = (lo - o) * inv;
-  const float b = (hi - o) * inv;
-  *tn = fmaxf(*tn, fminf(a, b));
-  *tf = fminf(*tf, fmaxf(a, b));
-}
-
-// Whether medium box [lo, hi] can hold the medium's event: the ray's line
-// meets the box at some parameter in [0, ts]. Every boundary hit the two
-// sweeps accept lies inside the padded box, at a parameter in [tn, tf];
-// an event needs an exit hit beyond RAY_T_MIN (so tf >= 0) and an entry
-// below ts (so tn <= ts). A NaN ray hits no boundary, and fails here too.
-__device__ __forceinline__ bool box_reach(const Ray& r, V3 inv, float4 lo,
-                                          float4 hi, float ts) {
-  float tn = -CUDART_INF_F, tf = CUDART_INF_F;
-  slab(r.o0, inv.x, lo.x, hi.x, &tn, &tf);
-  slab(r.o1, inv.y, lo.y, hi.y, &tn, &tf);
-  slab(r.o2, inv.z, lo.z, hi.z, &tn, &tf);
-  return tn <= tf && tf >= 0.0f && tn <= ts;
-}
-
 // Mean over lights of the per-light sampling pdf towards direction d from
 // point o (intersect.light_pdf_mean3)
 __device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
@@ -571,7 +530,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                                   : v3(0.0f, 0.0f, 0.0f);
     for (int m = 0; m < sc.n_media; ++m) {
       // a ray that cannot reach the box before t has the event INF
-      if (!box_reach(ray, inv, sc.mbox[2 * m], sc.mbox[2 * m + 1], t))
+      if (!hit::box_reach(ray, inv.x, inv.y, inv.z, sc.mbox[2 * m],
+                          sc.mbox[2 * m + 1], t))
         continue;
       swept = true;
       ++sweeps;

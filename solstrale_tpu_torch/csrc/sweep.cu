@@ -7,18 +7,38 @@
 // (hit.cuh), so that with -fmad=false the results equal the plain PyTorch
 // versions (ops/sweep.py) bit for bit on a given device.
 //
-// Design: one thread per ray; a block of 256 rays stages tiles of the prim
-// tables through shared memory, so each table row is read from device
-// memory once per block rather than once per ray. The kernels are bound by
-// arithmetic (~30 flops and one IEEE division per ray-prim pair against 16
-// bytes of shared-memory traffic): the tables are small (a few hundred rows
-// on the scenes that take these paths) and stay resident in L2.
+// One thread per ray. On the scenes that take these kernels the work per
+// ray is small (K2 sweeps the BVH scene's few spheres, K4 ~150 rows), so
+// what bounds a launch is less the arithmetic than what surrounds it: the
+// launches, reads and writes of the glue around the kernel, and the block
+// synchronisations of staging tables tile by tile. The design answers each:
 //
-// K4 is K2 over the solid tables followed by K3 for every medium, in medium
-// order, in one launch: medium m clips against the best t so far, which
-// already holds the events of the media before it (pallas_sweep.py:459-482).
-// Its slot is a sphere [0, S), a planar row [S, S+P), medium m at S+P+m, or
-// -1 for a miss.
+// - K2 in its BVH mode (k2_bvh_spheres, the one mode a route launches)
+//   takes K1's planar (t, slot) and does bvh_closest_hit_pallas's
+//   min-combine and decode itself (pallas_bvh.py:613-628): sphere_wins = t_s
+//   <= t_p, idx = max(slot_s, 0) for a sphere, the planar slot clipped and
+//   decoded by pl_is_tri and pl_idx. Its bounds are scalar arguments. The
+//   wrapper allocates the three outputs and launches once: no fills, no
+//   combine ops. The sphere table is staged whole into shared memory once
+//   per block (in tiles only beyond kSphTileRows spheres).
+// - K4 (k4_scene_hit) draws each medium's free-flight uniform in-kernel
+//   (hit::uniform4 with purpose kMediumPurposeBase + m from the lane's
+//   counters, each taken as its low 32 bits), culls a medium for a ray that
+//   cannot reach the medium's padded box (hit::box_reach, as K5 does: a
+//   culled medium's event is INF, which its sweeps would also give, and a
+//   culled ray reads no counter and draws nothing), and decodes its slot
+//   into (t, kind, idx) as scene_hit_fused does (pallas_sweep.py:563-575).
+//   So integrator.scene_hit is this one launch: no RNG, stack or decode ops.
+// - K4 stages the solid and media tables whole into dynamic shared memory
+//   with one asynchronous bulk copy per table, completed on one mbarrier,
+//   while the block reads its rays (as K1 stages its top levels); each lane
+//   then sweeps on its own, with no block synchronisation. Tables beyond
+//   kStageBytes take the tiled loop (sweep_tables) instead.
+// - Each planar row computes its t first and skips the hit point and the
+//   functionals unless t lies in [lo, hi] and below the best t (a sphere
+//   row skips its square root and divisions unless its discriminant allows
+//   a root): such a row cannot win under the strict '<', so the result is
+//   unchanged.
 #include "hit.cuh"
 
 namespace {
@@ -27,6 +47,12 @@ using hit::Ray;
 
 constexpr int kThreads = 256;
 constexpr int kTileRows = 256;       // prim rows staged per tile
+constexpr int kSphTileRows = 1024;   // K2's BVH mode: spheres staged at once
+constexpr int kStageBytes = 64 * 1024;   // K4 stages tables up to this size
+// scene/compile.py's KIND_*; integrator's per-medium draw purposes
+constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
+              KIND_MEDIUM = 3;
+constexpr uint32_t kMediumPurposeBase = 16;   // rng.P_MEDIUM_BASE
 
 __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
                                         const float* oz, const float* dx,
@@ -81,10 +107,11 @@ __device__ __forceinline__ void sweep_tables(const Ray& r, bool live,
     __syncthreads();
     if (live) {
       for (int p = 0; p < count; ++p) {
-        float t;
-        const bool ok = hit::planar_hit(r, tile[4 * p], tile[4 * p + 1],
-                                        tile[4 * p + 2], tile[4 * p + 3], &t);
-        if (ok && t >= lo && t <= hi && t < best) {
+        float denom;
+        const float t = hit::planar_t(r, tile[4 * p], &denom);
+        if (!(t >= lo && t <= hi && t < best)) continue;
+        if (hit::planar_inside(r, tile[4 * p + 1], tile[4 * p + 2],
+                               tile[4 * p + 3], t, denom)) {
           best = t;
           if (kWithSlot) slot = n_sph + base + p;
         }
@@ -112,6 +139,45 @@ __device__ __forceinline__ float medium_sweep(const Ray& r, bool live,
   return hit::medium_event(r, t1, t2, ts, u, neg_inv_density);
 }
 
+// sweep_tables for one lane on [lo, inf), without block synchronisation:
+// the tables are already in shared memory (or read from global memory).
+// With no upper bound the sphere roots' and the planar t's hi tests always
+// pass, so (t, slot) are sweep_tables' own. A sphere row whose
+// discriminant allows no root skips the square root and the divisions;
+// a planar row whose t is not in [lo, best) skips the hit point and the
+// functionals. ``slot_out`` may be null.
+__device__ __forceinline__ float lane_sweep(const Ray& r, const float4* sph,
+                                            int n_sph, const float4* pln,
+                                            int n_pl, float lo,
+                                            int* slot_out) {
+  float best = CUDART_INF_F;
+  int slot = -1;
+  for (int p = 0; p < n_sph; ++p) {
+    float half_b;
+    const float disc = hit::sphere_disc(r, sph[2 * p], &half_b);
+    if (!hit::sphere_ok(disc, sph[2 * p + 1])) continue;
+    float r1, r2;
+    hit::sphere_roots_of(r, disc, half_b, &r1, &r2);
+    const float t = r1 >= lo ? r1 : (r2 >= lo ? r2 : CUDART_INF_F);
+    if (t < best) {
+      best = t;
+      slot = p;
+    }
+  }
+  for (int p = 0; p < n_pl; ++p) {
+    float denom;
+    const float t = hit::planar_t(r, pln[4 * p], &denom);
+    if (!(t >= lo && t < best)) continue;
+    if (hit::planar_inside(r, pln[4 * p + 1], pln[4 * p + 2], pln[4 * p + 3],
+                           t, denom)) {
+      best = t;
+      slot = n_sph + p;
+    }
+  }
+  if (slot_out) *slot_out = slot;
+  return best;
+}
+
 __global__ void k2_sweep(const float* ox, const float* oy, const float* oz,
                          const float* dx, const float* dy, const float* dz,
                          const float* tmin, const float* tmax,
@@ -134,6 +200,57 @@ __global__ void k2_sweep(const float* ox, const float* oy, const float* oz,
   if (live) {
     out_t[i] = best;
     out_slot[i] = slot;
+  }
+}
+
+// K2 in its BVH mode: the spheres-only sweep on [lo, hi], min-combined with
+// K1's planar hit (t_p, pslot) and decoded to (t, kind, idx).
+__global__ void k2_bvh_spheres(const float* ox, const float* oy,
+                               const float* oz, const float* dx,
+                               const float* dy, const float* dz, float lo,
+                               float hi, const float4* sph, int n_sph,
+                               const float* t_p, const int* pslot,
+                               const int* pl_idx,
+                               const unsigned char* pl_is_tri, int n_pl,
+                               int n_rays, float* out_t, int* out_kind,
+                               int* out_idx) {
+  extern __shared__ __align__(16) float4 spheres[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n_rays;  // no early return: every thread stages
+  Ray r = {};
+  if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  float best = CUDART_INF_F;
+  int slot = -1;
+  for (int base = 0; base < n_sph; base += kSphTileRows) {
+    const int count = min(kSphTileRows, n_sph - base);
+    if (base > 0) __syncthreads();
+    stage(spheres, sph, base, count, 2);
+    __syncthreads();
+    if (!live) continue;
+    for (int p = 0; p < count; ++p) {
+      float r1, r2;
+      const bool ok = hit::sphere_roots(r, spheres[2 * p],
+                                        spheres[2 * p + 1], &r1, &r2);
+      const bool in1 = r1 >= lo && r1 <= hi;
+      const bool in2 = r2 >= lo && r2 <= hi;
+      const float t = (ok && in1) ? r1 : ((ok && in2) ? r2 : CUDART_INF_F);
+      if (t < best) {
+        best = t;
+        slot = base + p;
+      }
+    }
+  }
+  if (!live) return;
+  const float tp = t_p[i];
+  if (best <= tp) {   // the sphere wins ties, and a miss of both
+    out_t[i] = best;
+    out_kind[i] = KIND_SPHERE;
+    out_idx[i] = slot < 0 ? 0 : slot;
+  } else {
+    const int ps = min(max(pslot[i], 0), n_pl - 1);
+    out_t[i] = tp;
+    out_kind[i] = pl_is_tri[ps] ? KIND_TRIANGLE : KIND_QUAD;
+    out_idx[i] = pl_idx[ps];
   }
 }
 
@@ -160,43 +277,172 @@ __global__ void k3_medium(const float* ox, const float* oy, const float* oz,
   if (live) out_t[i] = t;
 }
 
-// K4: the solid sweep on [RAY_T_MIN, inf), then every medium in order. The
-// media's boundary tables are packed into one sphere and one planar table;
-// medium m owns rows [sph_off[m], sph_off[m+1]) and [pl_off[m],
-// pl_off[m+1]). u_flight is (n_media, n_rays).
+// A lane counter (pixel, sample or bounce): an (R,) int32 (size 4) or
+// int64 (size 8) array, or one value for every lane (size 0); taken as its
+// low 32 bits, as rng._u32 does.
+struct Counter {
+  const void* p;
+  long long value;
+  int size;
+
+  __device__ __forceinline__ uint32_t at(int i) const {
+    if (size == 8) return static_cast<uint32_t>(
+        static_cast<const long long*>(p)[i]);
+    if (size == 4) return static_cast<uint32_t>(
+        static_cast<const int*>(p)[i]);
+    return static_cast<uint32_t>(value);
+  }
+};
+
+// K4's scene: the solid tables, and every medium's boundary packed into one
+// sphere and one planar table (medium m owns rows [sph_off[m],
+// sph_off[m+1]) and [pl_off[m], pl_off[m+1])), its neg_inv_density and its
+// padded box (lo xyz 0 hi xyz 0).
+struct Scene {
+  const float4* sph;
+  int n_sph;
+  const float4* pln;
+  int n_pl;
+  const int* pl_idx;
+  const float4* msph;
+  int n_msph;
+  const float4* mpln;
+  int n_mpl;
+  const int* sph_off;
+  const int* pl_off;
+  const float* nid;
+  const float4* box;
+  int n_media;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Bulk-copy ``rows`` float4s from global memory to shared memory,
+// completing on the mbarrier at ``bar`` (which expects the bytes).
+__device__ __forceinline__ void bulk_copy(float4* dst, const float4* src,
+                                          int rows, uint32_t bar) {
+  if (rows <= 0) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(static_cast<uint32_t>(rows) * 16u), "r"(bar)
+      : "memory");
+}
+
+// K4: the solid sweep on [RAY_T_MIN, inf), then every medium in order, each
+// clipped to the best t so far (pallas_sweep.py:459-482). ``staged``: the
+// four tables fit kStageBytes and live in shared memory (the launcher's
+// choice, the same for every block).
 __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
                              const float* dx, const float* dy, const float* dz,
-                             const float* u_flight, const float4* sph,
-                             int n_sph, const float4* pln, int n_pl,
-                             const float4* msph, const float4* mpln,
-                             const int* sph_off, const int* pl_off,
-                             const float* neg_inv_density, int n_media,
-                             int n_rays, float* out_t, int* out_slot) {
-  __shared__ float4 tile[kTileRows * 4];
+                             Counter pix, Counter sample, Counter bounce,
+                             uint32_t seed, Scene sc, bool staged, int n_rays,
+                             float* out_t, int* out_kind, int* out_idx) {
+  extern __shared__ __align__(128) float4 smem[];
+  __shared__ __align__(8) uint64_t bar;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
+  const bool live = i < n_rays;  // no early return: every thread stages
+  const float4 *sph = sc.sph, *pln = sc.pln, *msph = sc.msph,
+               *mpln = sc.mpln;
+  const uint32_t bar_a = smem_addr(&bar);
+  if (staged) {
+    sph = smem;
+    pln = sph + 2 * sc.n_sph;
+    msph = pln + 4 * sc.n_pl;
+    mpln = msph + 2 * sc.n_msph;
+    // one thread starts the copies, every thread reads its ray meanwhile,
+    // then all wait on the barrier's first phase
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const uint32_t bytes = 16u * static_cast<uint32_t>(
+          2 * sc.n_sph + 4 * sc.n_pl + 2 * sc.n_msph + 4 * sc.n_mpl);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar_a), "r"(bytes) : "memory");
+      bulk_copy(smem, sc.sph, 2 * sc.n_sph, bar_a);
+      bulk_copy(smem + 2 * sc.n_sph, sc.pln, 4 * sc.n_pl, bar_a);
+      bulk_copy(smem + 2 * sc.n_sph + 4 * sc.n_pl, sc.msph, 2 * sc.n_msph,
+                bar_a);
+      bulk_copy(smem + 2 * sc.n_sph + 4 * sc.n_pl + 2 * sc.n_msph, sc.mpln,
+                4 * sc.n_mpl, bar_a);
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits
+  }
   Ray r = {};
   if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  float best;
-  int slot;
-  sweep_tables<true>(r, live, tile, sph, n_sph, pln, n_pl, hit::kRayTMin,
-                     CUDART_INF_F, true, &best, &slot);
-  for (int m = 0; m < n_media; ++m) {
-    const int s0 = sph_off[m], s1 = sph_off[m + 1];
-    const int p0 = pl_off[m], p1 = pl_off[m + 1];
-    const float u = live ? u_flight[static_cast<size_t>(m) * n_rays + i] : 0.f;
-    const float t_m = medium_sweep(r, live, tile, msph + 2 * s0, s1 - s0,
-                                   mpln + 4 * p0, p1 - p0, best, u,
-                                   neg_inv_density[m]);
-    if (t_m < best) {
-      best = t_m;
-      slot = n_sph + n_pl + m;
+  if (staged) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(bar_a)
+          : "memory");
     }
   }
-  if (live) {
-    out_t[i] = best;
-    out_slot[i] = slot;
+
+  float best = CUDART_INF_F;
+  int slot = -1;
+  if (!staged) {
+    sweep_tables<true>(r, live, smem, sph, sc.n_sph, pln, sc.n_pl,
+                       hit::kRayTMin, CUDART_INF_F, true, &best, &slot);
+  } else if (live) {
+    best = lane_sweep(r, sph, sc.n_sph, pln, sc.n_pl, hit::kRayTMin, &slot);
   }
+  int medium = -1;
+  const float inv0 = 1.f / r.d0, inv1 = 1.f / r.d1, inv2 = 1.f / r.d2;
+  for (int m = 0; m < sc.n_media; ++m) {
+    const int s0 = sc.sph_off[m], ns = sc.sph_off[m + 1] - s0;
+    const int p0 = sc.pl_off[m], np = sc.pl_off[m + 1] - p0;
+    // a ray that cannot reach the box before best has the event INF
+    const bool reach = live && hit::box_reach(r, inv0, inv1, inv2,
+                                              sc.box[2 * m],
+                                              sc.box[2 * m + 1], best);
+    float t1 = CUDART_INF_F, t2 = CUDART_INF_F;
+    if (!staged) {   // every thread takes part in the tiles
+      int unused;
+      sweep_tables<false>(r, reach, smem, msph + 2 * s0, ns, mpln + 4 * p0,
+                          np, -CUDART_INF_F, CUDART_INF_F, false, &t1,
+                          &unused);
+      sweep_tables<false>(r, reach, smem, msph + 2 * s0, ns, mpln + 4 * p0,
+                          np, t1 + 1e-4f, CUDART_INF_F, false, &t2, &unused);
+    } else if (reach) {
+      t1 = lane_sweep(r, msph + 2 * s0, ns, mpln + 4 * p0, np,
+                      -CUDART_INF_F, nullptr);
+      t2 = lane_sweep(r, msph + 2 * s0, ns, mpln + 4 * p0, np, t1 + 1e-4f,
+                      nullptr);
+    }
+    if (!reach) continue;
+    const float u = hit::uniform4(pix.at(i), sample.at(i), bounce.at(i),
+                                  kMediumPurposeBase + m, seed).x;
+    const float t_m = hit::medium_event(r, t1, t2, best, u, sc.nid[m]);
+    if (t_m < best) {
+      best = t_m;
+      medium = m;
+    }
+  }
+  if (!live) return;
+  int kind, idx;
+  if (medium >= 0) {
+    kind = KIND_MEDIUM;
+    idx = medium;
+  } else if (slot < sc.n_sph) {   // a sphere, or a miss (slot -1)
+    kind = KIND_SPHERE;
+    idx = slot < 0 ? 0 : slot;
+  } else {
+    const int ps = slot - sc.n_sph;
+    kind = pln[4 * ps + 3].x > 0.5f ? KIND_TRIANGLE : KIND_QUAD;
+    idx = sc.pl_idx[ps];
+  }
+  out_t[i] = best;
+  out_kind[i] = kind;
+  out_idx[i] = idx;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -220,6 +466,24 @@ extern "C" int k2_sweep_launch(const float* ox, const float* oy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n_pl >= 1: the planar table K1 walked (pl_idx, pl_is_tri (bool bytes)).
+extern "C" int k2_bvh_spheres_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, float tmin, float tmax,
+    const float* sph, int n_sph, const float* t_p, const int* pslot,
+    const int* pl_idx, const unsigned char* pl_is_tri, int n_pl, int n_rays,
+    float* out_t, int* out_kind, int* out_idx, void* stream) {
+  if (n_rays > 0) {
+    const int smem = (n_sph < kSphTileRows ? n_sph : kSphTileRows) * 32;
+    k2_bvh_spheres<<<blocks_for(n_rays), kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz, tmin, tmax,
+        reinterpret_cast<const float4*>(sph), n_sph, t_p, pslot, pl_idx,
+        pl_is_tri, n_pl, n_rays, out_t, out_kind, out_idx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int k3_medium_launch(const float* ox, const float* oy,
                                 const float* oz, const float* dx,
                                 const float* dy, const float* dz,
@@ -238,25 +502,39 @@ extern "C" int k3_medium_launch(const float* ox, const float* oy,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int k4_scene_hit_launch(const float* ox, const float* oy,
-                                   const float* oz, const float* dx,
-                                   const float* dy, const float* dz,
-                                   const float* u_flight, const float* sph,
-                                   int n_sph, const float* pln, int n_pl,
-                                   const float* msph, const float* mpln,
-                                   const int* sph_off, const int* pl_off,
-                                   const float* neg_inv_density, int n_media,
-                                   int n_rays, float* out_t, int* out_slot,
-                                   void* stream) {
-  if (n_rays > 0) {
-    k4_scene_hit<<<blocks_for(n_rays), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, u_flight,
-        reinterpret_cast<const float4*>(sph), n_sph,
-        reinterpret_cast<const float4*>(pln), n_pl,
-        reinterpret_cast<const float4*>(msph),
-        reinterpret_cast<const float4*>(mpln), sph_off, pl_off,
-        neg_inv_density, n_media, n_rays, out_t, out_slot);
+// Counters: (pointer, element size 4 or 8, or 0 for ``value`` on every
+// lane). Tables 16-byte aligned (the bulk copies need it); n_msph / n_mpl
+// are the packed media tables' rows.
+extern "C" int k4_scene_hit_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const void* pix, int pix_size,
+    long long pix_value, const void* sample, int sample_size,
+    long long sample_value, const void* bounce, int bounce_size,
+    long long bounce_value, unsigned int seed, const float* sph, int n_sph,
+    const float* pln, int n_pl, const int* pl_idx, const float* msph,
+    int n_msph, const float* mpln, int n_mpl, const int* sph_off,
+    const int* pl_off, const float* nid, const float* box, int n_media,
+    int n_rays, float* out_t, int* out_kind, int* out_idx, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const long long bytes = 16LL * (2LL * n_sph + 4LL * n_pl + 2LL * n_msph +
+                                  4LL * n_mpl);
+  const bool staged = bytes <= kStageBytes;
+  const int smem = staged ? static_cast<int>(bytes) : kTileRows * 4 * 16;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k4_scene_hit, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const Scene sc{reinterpret_cast<const float4*>(sph), n_sph,
+                 reinterpret_cast<const float4*>(pln), n_pl, pl_idx,
+                 reinterpret_cast<const float4*>(msph), n_msph,
+                 reinterpret_cast<const float4*>(mpln), n_mpl, sph_off,
+                 pl_off, nid, reinterpret_cast<const float4*>(box), n_media};
+  k4_scene_hit<<<blocks_for(n_rays), kThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, Counter{pix, pix_value, pix_size},
+      Counter{sample, sample_value, sample_size},
+      Counter{bounce, bounce_value, bounce_size}, seed, sc, staged, n_rays,
+      out_t, out_kind, out_idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 """Closest planar hit through the BVH (K1), and the BVH scene's closest
-solid hit (K1 + K2 spheres-only, min-combined).
+solid hit (K1, then K2 in its BVH mode: spheres-only, min-combined).
 
 K1 has a hand-written CUDA kernel (``csrc/bvh.cu``, replacing the JAX
 package's ``ops/pallas_bvh.py::_bvh_kernel``: a walk of the port's
@@ -15,7 +15,7 @@ import torch
 
 from ..accel import WALK_LEAF
 from ..geo import ALMOST_ZERO, INF
-from ..scene.compile import KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE
+from ..scene.compile import KIND_QUAD, KIND_TRIANGLE
 from . import _build, sweep
 
 RAY_CHUNK = 8192
@@ -110,20 +110,15 @@ bvh_planar_hit.launches = 0
 
 def bvh_closest_hit(kbvh, solids, o, d, tmin, tmax):
     """Closest solid hit on a BVH scene: K1 over planar prims, min-combined
-    with K2 in spheres-only mode exactly as the JAX package's
-    ``bvh_closest_hit_pallas`` (pallas_bvh.py:606-629). Returns (t, kind,
-    idx)."""
+    with K2's spheres-only sweep exactly as the JAX package's
+    ``bvh_closest_hit_pallas`` (pallas_bvh.py:606-629); with spheres, the
+    sweep, the combine and the decode are one launch of K2 in its BVH mode
+    (``sweep.bvh_sphere_hit``). Returns (t, kind, idx)."""
     t_p, pslot = bvh_planar_hit(kbvh, o, d, tmin)
+    if kbvh.has_spheres:
+        return sweep.bvh_sphere_hit(solids.sph_table, o, d, tmin, tmax, t_p,
+                                    pslot, solids.pl_idx, solids.pl_is_tri)
     pslot_c = torch.clamp(pslot, 0, solids.pl_idx.shape[0] - 1).long()
     kind_p = torch.where(solids.pl_is_tri[pslot_c], KIND_TRIANGLE,
                          KIND_QUAD).to(torch.int32)
-    idx_p = solids.pl_idx[pslot_c]
-    if not kbvh.has_spheres:
-        return t_p, kind_p, idx_p
-    t_s, slot_s = sweep.closest_hit(solids.sph_table, solids.pl_table, o, d,
-                                    tmin, tmax, spheres_only=True)
-    sphere_wins = t_s <= t_p
-    t = torch.where(sphere_wins, t_s, t_p)
-    kind = torch.where(sphere_wins, KIND_SPHERE, kind_p).to(torch.int32)
-    idx = torch.where(sphere_wins, torch.clamp(slot_s, min=0), idx_p)
-    return t, kind, idx
+    return t_p, kind_p, solids.pl_idx[pslot_c]

@@ -1,6 +1,6 @@
-"""Ray-scene intersection on tensors: the fused scene hit (solids and
-media), constant-medium events, hit attributes and the NEE light-table
-ops.
+"""Ray-scene intersection on tensors: constant-medium events, hit
+attributes and the NEE light-table ops (the fused scene hit of a scene
+without a BVH is ``ops/sweep.py::scene_hit``, K4).
 
 Mirrors the JAX package's ``ops/intersect.py``. Its one-hot matmul lookups
 (an MXU workaround) become direct indexing here, with the one-hot
@@ -15,8 +15,8 @@ import math
 import torch
 
 from ..geo import ALMOST_ZERO, INF, RAY_T_MIN, soa
-from ..scene.compile import (KIND_MEDIUM, KIND_QUAD, KIND_SPHERE,
-                             KIND_TRIANGLE, Lights, Solids)
+from ..scene.compile import (KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE,
+                             Lights, Solids)
 from . import sweep
 
 # light_pdf_mean3 unrolls its light loop up to this many lights; above it
@@ -38,31 +38,6 @@ def table_rows(table, idx):
     rows = table[torch.clamp(idx, 0, n - 1).long()].to(torch.float32)
     rows = torch.where(in_range[:, None], rows, 0.0)
     return tuple(rows.unbind(dim=1))
-
-
-def scene_hit_fused(s: Solids, media, o, d, u_flights, plain=False):
-    """The whole scene hit of a scene without a BVH through the fused
-    kernel (K4; its plain version if ``plain``): closest solid hit plus
-    every medium's event. ``media`` is the scene's packed ``MediaTables``,
-    ``u_flights`` the (M, R) free-flight uniforms. Returns (t, kind, idx)
-    with kind = KIND_MEDIUM and idx = medium index for volume scattering,
-    decoded from the kernel's slot as the JAX ``scene_hit_fused`` does
-    (pallas_sweep.py:563-575)."""
-    fn = sweep.scene_hit_plain if plain else sweep.scene_hit
-    t, slot = fn(s.sph_table, s.pl_table, media, o, d, u_flights)
-    n_sph = s.sph_center.shape[0]
-    n_pl = s.pl_idx.shape[0]
-    is_sphere = slot < n_sph
-    is_med = slot >= n_sph + n_pl
-    pslot = torch.clamp(slot - n_sph, 0, n_pl - 1).long()
-    kind = torch.where(is_med, KIND_MEDIUM,
-                       torch.where(is_sphere, KIND_SPHERE,
-                                   torch.where(s.pl_is_tri[pslot],
-                                               KIND_TRIANGLE, KIND_QUAD)))
-    idx = torch.where(is_med, slot - n_sph - n_pl,
-                      torch.where(is_sphere, torch.clamp(slot, min=0),
-                                  s.pl_idx[pslot]))
-    return t, kind.to(torch.int32), idx.to(torch.int32)
 
 
 def medium_hit(medium, o, d, t_solid, u_flight):

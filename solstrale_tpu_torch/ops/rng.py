@@ -32,6 +32,7 @@ P_MEDIUM = 8
 P_BLEND_SCATTER = 9
 P_BLEND_NORMAL = 10
 P_PHASE = 11
+P_MEDIUM_BASE = 16   # + m: medium m's free-flight draw (the scene hit)
 
 _M32 = 0xFFFFFFFF
 _MUL = 1664525

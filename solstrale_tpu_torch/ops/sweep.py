@@ -8,6 +8,16 @@ version with the same formulas, op for op (the JAX package's
 the tensors' device only: CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise.
 
+- ``closest_hit``: K2 over both tables (or spheres only), (t, slot).
+- ``bvh_sphere_hit``: K2 in its BVH mode, the one a route launches: the
+  spheres-only sweep min-combined with K1's planar hit and decoded to (t,
+  kind, idx) in the same launch, as the JAX package's
+  ``bvh_closest_hit_pallas`` combines them.
+- ``medium_hit``: K3.
+- ``scene_hit``: K4, (t, kind, idx) from the lane counters: the media's
+  flight uniforms are drawn, the media culled by their padded boxes and the
+  slot decoded in the kernel.
+
 Tables (``Solids.sph_table`` / ``Solids.pl_table``):
 - spheres (S, 8): cx cy cz radius valid 0 0 0
 - planar (P, 16): nx ny nz d g1.xyz g1o g2.xyz g2o is_tri valid 0 0
@@ -20,11 +30,22 @@ from dataclasses import dataclass
 import torch
 
 from ..geo import ALMOST_ZERO, INF, RAY_T_MIN
-from . import _build
+from ..scene.compile import (KIND_MEDIUM, KIND_QUAD, KIND_SPHERE,
+                             KIND_TRIANGLE, CompiledScene, Solids)
+from . import _build, rng
 
 # plain versions work on (ray chunk, prim chunk) blocks to bound memory
 RAY_CHUNK = 8192
 PRIM_CHUNK = 1024
+
+# K4 and K5 cull a medium for a ray that cannot reach the medium's box,
+# grown by this fraction of the scene's largest coordinate (at least 1),
+# the scale of every ray origin and hit point. The pad exceeds the rounding
+# of any boundary hit the sweeps accept: the planar test errs by a few f32
+# ulps of that scale, and the sphere test's expanded form (c2 = |o|^2 -
+# 2 o.c + |c|^2 - r^2) can accept a grazing line up to about sqrt(eps) of
+# it outside the sphere; 2^-9 is 8 sqrt(eps) for eps = 2^-24.
+MEDIUM_BOX_PAD = 2.0 ** -9
 
 
 # --- plain versions ---------------------------------------------------------
@@ -81,7 +102,7 @@ def _first_min(t, best_t, best_slot, slot0):
 
 def closest_hit_plain(sph, pln, o, d, tmin, tmax, spheres_only=False):
     """Plain PyTorch K2: (t, slot) with slot < S a sphere, S + p planar row
-    p, -1 a miss (t = INF)."""
+    p, -1 a miss (t = INF). ``pln`` is not read if ``spheres_only``."""
     r = o[0].shape[0]
     tmin = _build.per_ray(tmin, o[0])
     tmax = _build.per_ray(tmax, o[0])
@@ -109,6 +130,27 @@ def closest_hit_plain(sph, pln, o, d, tmin, tmax, spheres_only=False):
             best_t, best_s = _first_min(t, best_t, best_s, n_sph + p)
         out_t[sl], out_s[sl] = best_t, best_s
     return out_t, out_s
+
+
+def bvh_sphere_hit_plain(sph, o, d, tmin, tmax, t_p, pslot, pl_idx,
+                         pl_is_tri):
+    """Plain PyTorch K2 in its BVH mode: the spheres-only sweep min-combined
+    with K1's planar hit (``t_p``, ``pslot``) exactly as
+    ``bvh_closest_hit_pallas`` does (pallas_bvh.py:613-628): the sphere wins
+    ties (and a miss of both, as kind sphere, idx 0), its idx is max(slot,
+    0); a planar hit's clipped slot is decoded by ``pl_is_tri`` and
+    ``pl_idx``. Returns (t, kind, idx)."""
+    t_s, slot_s = closest_hit_plain(sph, None, o, d, tmin, tmax,
+                                    spheres_only=True)
+    pslot_c = torch.clamp(pslot, 0, pl_idx.shape[0] - 1).long()
+    kind_p = torch.where(pl_is_tri[pslot_c], KIND_TRIANGLE,
+                         KIND_QUAD).to(torch.int32)
+    idx_p = pl_idx[pslot_c]
+    sphere_wins = t_s <= t_p
+    t = torch.where(sphere_wins, t_s, t_p)
+    kind = torch.where(sphere_wins, KIND_SPHERE, kind_p).to(torch.int32)
+    idx = torch.where(sphere_wins, torch.clamp(slot_s, min=0), idx_p)
+    return t, kind, idx
 
 
 def _closest_t_plain(sph, pln, o, d, dd, od, oo, lo):
@@ -162,7 +204,8 @@ class MediaTables:
     table (K4's and K5's layout): medium m owns rows ``sph_off[m]:
     sph_off[m+1]`` and ``pl_off[m]:pl_off[m+1]``. The offsets are kept both
     on the host (the plain versions slice with them) and as int32 tensors on
-    the tables' device (the kernels read them)."""
+    the tables' device (the kernels read them). ``box`` holds each medium's
+    padded box (``medium_boxes``), by which K4 and K5 cull the medium."""
 
     sph: torch.Tensor        # (sum S_m, 8) f32
     pln: torch.Tensor        # (sum P_m, 16) f32
@@ -172,6 +215,7 @@ class MediaTables:
     pl_off_t: torch.Tensor
     nid: torch.Tensor        # (M,) f32 neg_inv_density
     mat: torch.Tensor        # (M,) int32 phase material
+    box: torch.Tensor        # (M, 8) f32 lo xyz 0 hi xyz 0
 
     @property
     def n_media(self):
@@ -183,14 +227,47 @@ class MediaTables:
                 self.pln[self.pl_off[m]:self.pl_off[m + 1]])
 
 
-def pack_media(media, device):
-    """MediaTables of a CompiledScene's ``media`` (tuple of Medium)."""
+def _extent(s):
+    """(lo, hi) f64 (3,) over the valid spheres, quad corners and triangle
+    vertices of a ``Solids``; lo = inf, hi = -inf when it has none."""
+    c = s.sph_center[s.sph_valid].double()
+    r = s.sph_radius[s.sph_valid].double()[:, None]
+    q, u, v = (x[s.qd_valid].double() for x in (s.qd_q, s.qd_u, s.qd_v))
+    v0, e1, e2 = (x[s.tr_valid].double() for x in (s.tr_v0, s.tr_e1,
+                                                     s.tr_e2))
+    corners = torch.cat([q, q + u, q + v, q + u + v, v0, v0 + e1, v0 + e2])
+    inf = torch.full((1, 3), torch.inf, dtype=torch.float64, device=c.device)
+    return (torch.cat([c - r, corners, inf]).amin(0),
+            torch.cat([c + r, corners, -inf]).amax(0))
+
+
+def medium_boxes(cs: CompiledScene):
+    """(M, 8) f32 box per medium for the cull, lo xyz 0 hi xyz 0: the
+    extent of the medium's boundary grown by MEDIUM_BOX_PAD of the scene's
+    largest coordinate (solids, media and the camera's origin and lens).
+    A medium without boundary prims keeps lo = inf, hi = -inf, which the
+    slab test never culls (its sweeps find nothing)."""
+    extents = [_extent(m.boundary) for m in cs.media]
+    coords = torch.cat([torch.cat(e) for e in [_extent(cs.solids)] + extents])
+    cam = cs.camera
+    scale = max(1.0, float(cam.origin.abs().max() + cam.lens_radius),
+                float(coords[coords.isfinite()].abs().max()))
+    pad = MEDIUM_BOX_PAD * scale
+    zero = torch.zeros(1, dtype=torch.float64, device=cs.device)
+    rows = [torch.cat([lo - pad, zero, hi + pad, zero]) for lo, hi in extents]
+    return (torch.stack(rows).to(torch.float32) if rows else
+            torch.zeros((0, 8), dtype=torch.float32, device=cs.device))
+
+
+def pack_media(cs: CompiledScene):
+    """MediaTables of a compiled scene's ``media`` (tuple of Medium)."""
     def offsets(tables):
         out = [0]
         for t in tables:
             out.append(out[-1] + t.shape[0])
         return tuple(out)
 
+    media, device = cs.media, cs.device
     sphs = [m.boundary.sph_table for m in media]
     plns = [m.boundary.pl_table for m in media]
     f32 = dict(dtype=torch.float32, device=device)
@@ -204,25 +281,42 @@ def pack_media(media, device):
         nid=(torch.stack([m.neg_inv_density for m in media]).to(torch.float32)
              if media else torch.zeros((0,), **f32)),
         mat=(torch.stack([m.mat for m in media]).to(torch.int32) if media
-             else torch.zeros((0,), dtype=torch.int32, device=device)))
+             else torch.zeros((0,), dtype=torch.int32, device=device)),
+        box=medium_boxes(cs))
 
 
-def scene_hit_plain(sph, pln, media: MediaTables, o, d, u_flights):
+def scene_hit_plain(s: Solids, media: MediaTables, o, d, pixel, sample,
+                    bounce, seed):
     """Plain PyTorch K4: K2 over the solid tables on [RAY_T_MIN, inf), then
     K3 for each medium in order, each clipped to the best t so far (the
-    events of the media before it included). ``u_flights`` is (M, R).
-    Returns (t, slot): slot < S sphere, S + p planar row p, S + P + m
-    medium m, -1 a miss (t = INF)."""
-    t, slot = closest_hit_plain(sph, pln, o, d, RAY_T_MIN, INF)
-    base = sph.shape[0] + pln.shape[0]
+    events of the media before it included). Medium m's flight uniform is
+    ``rng.uniform`` of the lane counters (pixel, sample, bounce, seed) with
+    purpose ``rng.P_MEDIUM_BASE + m``; each counter is an (R,) int tensor or
+    an int. Returns (t, kind, idx): kind KIND_MEDIUM with idx the medium,
+    else the solid hit decoded as the JAX ``scene_hit_fused`` does
+    (pallas_sweep.py:563-575); a miss is (INF, KIND_SPHERE, 0)."""
+    t, slot = closest_hit_plain(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
+                                INF)
+    n_sph, n_pl = s.sph_table.shape[0], s.pl_table.shape[0]
     for m in range(media.n_media):
         msph, mpln = media.boundary(m)
+        u = rng.uniform(pixel, sample, bounce, rng.P_MEDIUM_BASE + m, seed)
         t_m = medium_hit_plain(msph, mpln, media.nid[m], o, d, t,
-                               u_flights[m])
+                               torch.broadcast_to(u, t.shape))
         is_med = t_m < t
         t = torch.where(is_med, t_m, t)
-        slot = torch.where(is_med, base + m, slot)
-    return t, slot
+        slot = torch.where(is_med, n_sph + n_pl + m, slot)
+    is_sphere = slot < n_sph
+    is_med = slot >= n_sph + n_pl
+    pslot = torch.clamp(slot - n_sph, 0, n_pl - 1).long()
+    kind = torch.where(is_med, KIND_MEDIUM,
+                       torch.where(is_sphere, KIND_SPHERE,
+                                   torch.where(s.pl_is_tri[pslot],
+                                               KIND_TRIANGLE, KIND_QUAD)))
+    idx = torch.where(is_med, slot - n_sph - n_pl,
+                      torch.where(is_sphere, torch.clamp(slot, min=0),
+                                  s.pl_idx[pslot]))
+    return t, kind.to(torch.int32), idx.to(torch.int32)
 
 
 # --- wrappers ---------------------------------------------------------------
@@ -256,6 +350,48 @@ def closest_hit(sph, pln, o, d, tmin, tmax, spheres_only=False):
 closest_hit.launches = 0
 
 
+def bvh_sphere_hit(sph, o, d, tmin, tmax, t_p, pslot, pl_idx, pl_is_tri):
+    """K2 in its BVH mode: the closest sphere hit on [tmin, tmax] (Python
+    floats) min-combined with K1's planar hit (``t_p`` (R,) f32, ``pslot``
+    (R,) int32) and decoded by ``pl_idx`` (P,) int32 and ``pl_is_tri`` (P,)
+    bool, in one launch (``bvh_sphere_hit_plain`` says what it computes).
+    Returns (t, kind, idx)."""
+    rays = _build.ray_components(o, d)
+    dev, r = _build.check_rays(rays, sph, t_p)
+    if dev.type == "cpu":
+        return bvh_sphere_hit_plain(sph, rays[:3], rays[3:], tmin, tmax,
+                                    t_p, pslot, pl_idx, pl_is_tri)
+    if dev.type != "cuda":
+        raise ValueError(f"bvh_sphere_hit: unsupported device {dev}")
+    if isinstance(tmin, torch.Tensor) or isinstance(tmax, torch.Tensor):
+        raise TypeError("bvh_sphere_hit: tmin and tmax must be Python floats")
+    n_pl = pl_idx.shape[0]
+    if sph.shape[1] != 8 or t_p.shape != (r,) or n_pl < 1:
+        raise ValueError("bvh_sphere_hit: spheres must be (S, 8), t_p (R,), "
+                         "and the planar table non-empty")
+    for x, dtype, n in ((pslot, torch.int32, r), (pl_idx, torch.int32, n_pl),
+                        (pl_is_tri, torch.bool, n_pl)):
+        if x.device != dev or x.dtype != dtype or x.shape != (n,) or \
+                not x.is_contiguous():
+            raise ValueError("bvh_sphere_hit: pslot must be (R,) int32, "
+                             "pl_idx (P,) int32 and pl_is_tri (P,) bool, "
+                             "contiguous on the rays' device")
+    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+    out_kind = torch.empty((r,), dtype=torch.int32, device=dev)
+    out_idx = torch.empty((r,), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = _build.library().k2_bvh_spheres_launch(
+        *(p(x) for x in rays), float(tmin), float(tmax), p(sph),
+        sph.shape[0], p(t_p), p(pslot), p(pl_idx), p(pl_is_tri), n_pl, r,
+        p(out_t), p(out_kind), p(out_idx), _build.stream_of(out_t))
+    _build.check(err, "k2_bvh_spheres")
+    bvh_sphere_hit.launches += 1
+    return out_t, out_kind, out_idx
+
+
+bvh_sphere_hit.launches = 0
+
+
 def medium_hit(sph, pln, neg_inv_density, o, d, t_solid, u_flight):
     """K3: one constant medium's scattering t per ray (INF = no event).
     ``neg_inv_density`` is a 0-dim f32 tensor on the rays' device."""
@@ -284,37 +420,61 @@ def medium_hit(sph, pln, neg_inv_density, o, d, t_solid, u_flight):
 medium_hit.launches = 0
 
 
-def scene_hit(sph, pln, media: MediaTables, o, d, u_flights):
+def _counter(x, r, dev):
+    """K4's (pointer, element size, value) of a lane counter: an (R,) int32
+    or int64 tensor on the rays' device, or an int for every lane."""
+    if not isinstance(x, torch.Tensor):
+        return None, 0, int(x) & 0xFFFFFFFF
+    if x.shape != (r,) or x.dtype not in (torch.int32, torch.int64) or \
+            x.device != dev or not x.is_contiguous():
+        raise ValueError("scene_hit: a counter must be an int or a "
+                         "contiguous (R,) int32 / int64 tensor on the rays' "
+                         "device")
+    return _build.ptr(x), x.element_size(), 0
+
+
+def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
+              seed):
     """K4: the whole scene hit of a scene without a BVH in one launch —
-    closest solid hit plus every medium's event (``scene_hit_plain`` says
-    what it computes). ``u_flights`` is (M, R) f32. Returns (t, slot)."""
+    closest solid hit plus every medium's event, the flight uniforms drawn
+    from the lane counters (pixel, sample, bounce: (R,) int tensors or
+    ints; seed: an int) in the kernel (``scene_hit_plain`` says what it
+    computes). Returns (t, kind, idx)."""
     rays = _build.ray_components(o, d)
-    u_flights = u_flights.contiguous()
+    sph, pln = s.sph_table, s.pl_table
     dev, r = _build.check_rays(rays, sph, pln, media.sph, media.pln,
-                               media.nid, u_flights)
-    if u_flights.shape != (media.n_media, r):
-        raise ValueError("scene_hit: u_flights must be (n_media, R)")
+                               media.nid, media.box)
     if dev.type == "cpu":
-        return scene_hit_plain(sph, pln, media, rays[:3], rays[3:],
-                               u_flights)
+        return scene_hit_plain(s, media, rays[:3], rays[3:], pixel, sample,
+                               bounce, seed)
     if dev.type != "cuda":
         raise ValueError(f"scene_hit: unsupported device {dev}")
     if sph.shape[1] != 8 or pln.shape[1] != 16 or media.sph.shape[1] != 8 \
             or media.pln.shape[1] != 16:
         raise ValueError("scene_hit: tables must be (S, 8) and (P, 16)")
-    if media.sph_off_t.device != dev or media.pl_off_t.device != dev:
-        raise ValueError("scene_hit: media offsets must be on the rays' device")
+    if media.sph_off_t.device != dev or media.pl_off_t.device != dev or \
+            s.pl_idx.device != dev:
+        raise ValueError("scene_hit: media offsets and pl_idx must be on the "
+                         "rays' device")
+    tables = (sph, pln, media.sph, media.pln)
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("scene_hit: tables must be 16-byte aligned")
+    counters = [x for c in (pixel, sample, bounce)
+                for x in _counter(c, r, dev)]
     out_t = torch.empty((r,), dtype=torch.float32, device=dev)
-    out_s = torch.empty((r,), dtype=torch.int32, device=dev)
+    out_kind = torch.empty((r,), dtype=torch.int32, device=dev)
+    out_idx = torch.empty((r,), dtype=torch.int32, device=dev)
     p = _build.ptr
     err = _build.library().k4_scene_hit_launch(
-        *(p(x) for x in rays), p(u_flights), p(sph), sph.shape[0], p(pln),
-        pln.shape[0], p(media.sph), p(media.pln), p(media.sph_off_t),
-        p(media.pl_off_t), p(media.nid), media.n_media, r, p(out_t),
-        p(out_s), _build.stream_of(out_t))
+        *(p(x) for x in rays), *counters, int(seed) & 0xFFFFFFFF, p(sph),
+        sph.shape[0], p(pln), pln.shape[0], p(s.pl_idx), p(media.sph),
+        media.sph.shape[0], p(media.pln), media.pln.shape[0],
+        p(media.sph_off_t), p(media.pl_off_t), p(media.nid), p(media.box),
+        media.n_media, r, p(out_t), p(out_kind), p(out_idx),
+        _build.stream_of(out_t))
     _build.check(err, "k4_scene_hit")
     scene_hit.launches += 1
-    return out_t, out_s
+    return out_t, out_kind, out_idx
 
 
 scene_hit.launches = 0

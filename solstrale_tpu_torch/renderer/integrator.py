@@ -31,18 +31,16 @@ from ..geo import INF, RAY_T_MIN
 from ..geo import soa
 from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
                        unit3, vneg, vscale, where3)
-from ..ops import rng
+from ..ops import rng, sweep
 from ..ops.bvh import bvh_closest_hit
-from ..ops.sweep import pack_media
 from ..ops.intersect import (hit_attributes_soa, light_pdf_mean3,
                              medium_hit, sample_light_direction3,
-                             scene_hit_fused, table_rows)
+                             table_rows)
 from ..scene.compile import (BLEND, DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC,
                              KIND_MEDIUM, LAMBERTIAN, METAL, CompiledScene)
 from . import megakernel
 
 MAX_BLEND_DEPTH = 3
-_MEDIUM_PURPOSE_BASE = 16  # per-medium free-flight draw purposes
 
 SHADER_PATH = 0
 SHADER_ALBEDO = 1
@@ -127,31 +125,29 @@ def per_scene(cs: CompiledScene, name, make):
 
 
 def media_tables(cs: CompiledScene):
-    """Every medium's boundary packed for the fused scene hit (K4) and the
-    render megakernel (K5): ``ops.sweep.MediaTables``."""
-    return per_scene(cs, "media", lambda: pack_media(cs.media, cs.device))
+    """Every medium's boundary packed, with its padded box, for the fused
+    scene hit (K4) and the render megakernel (K5):
+    ``ops.sweep.MediaTables``."""
+    return per_scene(cs, "media", lambda: sweep.pack_media(cs))
 
 
 def scene_hit(cs: CompiledScene, o, d, pix, sample, bounce, seed,
               plain=False):
     """world.hit: closest solid hit plus constant-medium events. Returns
-    (t, kind, idx) with kind = KIND_MEDIUM for volume scattering.
+    (t, kind, idx) with kind = KIND_MEDIUM for volume scattering. Medium m
+    draws its free-flight uniform with purpose rng.P_MEDIUM_BASE + m.
 
-    BVH scenes: K1 over planar prims, min-combined with K2 in spheres-only
-    mode, then K3 per medium. Other scenes: the fused K4 (its plain version
-    if ``plain``), one launch for the solids and every medium. Medium m
-    draws its free-flight uniform with purpose _MEDIUM_PURPOSE_BASE + m."""
+    BVH scenes: K1 over planar prims, then K2 in its BVH mode (the sphere
+    sweep, min-combined), then K3 per medium. Other scenes: the fused K4
+    (its plain version if ``plain``), one launch that draws, culls and
+    decodes for the solids and every medium."""
     if cs.kbvh is None:
-        u = [rng.uniform(pix, sample, bounce, _MEDIUM_PURPOSE_BASE + m_i,
-                         seed) for m_i in range(len(cs.media))]
-        u_flights = (torch.stack(u) if u else
-                     torch.zeros((0, o[0].shape[0]), dtype=torch.float32,
-                                 device=o[0].device))
-        return scene_hit_fused(cs.solids, media_tables(cs), o, d, u_flights,
-                               plain=plain)
+        fn = sweep.scene_hit_plain if plain else sweep.scene_hit
+        return fn(cs.solids, media_tables(cs), o, d, pix, sample, bounce,
+                  seed)
     t, kind, idx = bvh_closest_hit(cs.kbvh, cs.solids, o, d, RAY_T_MIN, INF)
     for m_i, med in enumerate(cs.media):
-        u = rng.uniform(pix, sample, bounce, _MEDIUM_PURPOSE_BASE + m_i, seed)
+        u = rng.uniform(pix, sample, bounce, rng.P_MEDIUM_BASE + m_i, seed)
         t_m = medium_hit(med, o, d, t, u)
         is_med = t_m < t
         t = torch.where(is_med, t_m, t)

@@ -14,8 +14,8 @@ draw for draw.
 - ``render_batch_megakernel``: the wrapper. CPU scenes take the plain
   version; CUDA scenes launch the hand-written kernel
   (``csrc/megakernel.cu``: a persistent grid whose warps take pixels from
-  a queue in runs of 32, and a padded-box cull of the media, neither of
-  which changes a value) or raise.
+  a queue in runs of 32, and a cull of the media by their padded boxes,
+  ``ops.sweep.medium_boxes``, neither of which changes a value) or raise.
 - ``render_batch_megakernel_plain``: K5 in torch with K5's execution model.
   Its body is ``integrator.path_step``, the step ``trace_queued`` runs, with
   the scene hit's plain version: no kernel runs in it on any device.
@@ -43,15 +43,6 @@ MAX_MEDIUM_PLANAR = 64
 
 # k5_render_launch flag bits
 _FLAG_BLEND = 1
-
-# K5 culls a medium for a ray that cannot reach the medium's box, grown by
-# this fraction of the scene's largest coordinate (at least 1), the scale
-# of every ray origin and hit point. The pad exceeds the rounding of any
-# boundary hit the sweeps accept: the planar test errs by a few f32 ulps of
-# that scale, and the sphere test's expanded form (c2 = |o|^2 - 2 o.c +
-# |c|^2 - r^2) can accept a grazing line up to about sqrt(eps) of it
-# outside the sphere; 2^-9 is 8 sqrt(eps) for eps = 2^-24.
-MEDIUM_BOX_PAD = 2.0 ** -9
 
 
 def megakernel_supported(cs: CompiledScene, *, need_aux, shader_kind):
@@ -98,10 +89,9 @@ class MegakernelTables:
     - ``lights`` (L, 20): kind p0 p1 p2 radius normal d w area 0;
     - ``mats`` (Mt, 9): ``Materials.attr``; ``tex_attr`` (T, 3) and
       ``texels`` (N, 3): ``TexArena.attr`` and ``.pixels``;
-    - ``media``: the packed boundaries (``ops.sweep.MediaTables``),
-      ``med`` (M, 4): neg_inv_density, phase material, 0, 0, and ``mbox``
-      (M, 8): each medium's padded box (``medium_boxes``), lo xyz 0 hi
-      xyz 0."""
+    - ``media``: the packed boundaries and each medium's padded box
+      (``ops.sweep.MediaTables``, ``box``: K5 culls by the boxes K4 culls
+      by), and ``med`` (M, 4): neg_inv_density, phase material, 0, 0."""
 
     cam: torch.Tensor
     sph: torch.Tensor
@@ -112,7 +102,6 @@ class MegakernelTables:
     texels: torch.Tensor
     media: MediaTables
     med: torch.Tensor
-    mbox: torch.Tensor
     flags: int
 
 
@@ -121,38 +110,6 @@ def scene_tables(cs: CompiledScene):
     from .integrator import per_scene
 
     return per_scene(cs, "megakernel", lambda: pack_tables(cs))
-
-
-def _extent(s):
-    """(lo, hi) f64 (3,) over the valid spheres, quad corners and triangle
-    vertices of a ``Solids``; lo = inf, hi = -inf when it has none."""
-    c = s.sph_center[s.sph_valid].double()
-    r = s.sph_radius[s.sph_valid].double()[:, None]
-    q, u, v = (x[s.qd_valid].double() for x in (s.qd_q, s.qd_u, s.qd_v))
-    v0, e1, e2 = (x[s.tr_valid].double() for x in (s.tr_v0, s.tr_e1,
-                                                     s.tr_e2))
-    corners = torch.cat([q, q + u, q + v, q + u + v, v0, v0 + e1, v0 + e2])
-    inf = torch.full((1, 3), torch.inf, dtype=torch.float64, device=c.device)
-    return (torch.cat([c - r, corners, inf]).amin(0),
-            torch.cat([c + r, corners, -inf]).amax(0))
-
-
-def medium_boxes(cs: CompiledScene):
-    """(M, 8) f32 box per medium for K5's cull, lo xyz 0 hi xyz 0: the
-    extent of the medium's boundary grown by MEDIUM_BOX_PAD of the scene's
-    largest coordinate (solids, media and the camera's origin and lens).
-    A medium without boundary prims keeps lo = inf, hi = -inf, which the
-    slab test never culls (its sweeps find nothing)."""
-    extents = [_extent(m.boundary) for m in cs.media]
-    coords = torch.cat([torch.cat(e) for e in [_extent(cs.solids)] + extents])
-    cam = cs.camera
-    scale = max(1.0, float(cam.origin.abs().max() + cam.lens_radius),
-                float(coords[coords.isfinite()].abs().max()))
-    pad = MEDIUM_BOX_PAD * scale
-    zero = torch.zeros(1, dtype=torch.float64, device=cs.device)
-    rows = [torch.cat([lo - pad, zero, hi + pad, zero]) for lo, hi in extents]
-    return (torch.stack(rows).to(torch.float32) if rows else
-            torch.zeros((0, 8), dtype=torch.float32, device=cs.device))
 
 
 def pack_tables(cs: CompiledScene):
@@ -189,7 +146,6 @@ def pack_tables(cs: CompiledScene):
         media=media,
         med=torch.cat([col(media.nid), col(media.mat),
                        zeros(media.n_media, 2)], 1).contiguous(),
-        mbox=medium_boxes(cs),
         flags=_FLAG_BLEND if "blend" in cs.features else 0)
 
 
@@ -293,7 +249,7 @@ def render_batch_megakernel(cs: CompiledScene, sample_start, n_samples, seed,
         p(t.mats), t.mats.shape[0], p(t.tex_attr), t.tex_attr.shape[0],
         p(t.texels), t.texels.shape[0], p(t.lights), t.lights.shape[0],
         p(m.sph), p(m.pln), p(m.sph_off_t), p(m.pl_off_t), p(t.med),
-        p(t.mbox), m.n_media, width, height, int(sample_start),
+        p(m.box), m.n_media, width, height, int(sample_start),
         int(n_samples), max_depth, int(seed), t.flags, p(accum), p(segs),
         p(work), grid, _build.stream_of(accum))
     _build.check(err, "k5_render")

@@ -1,10 +1,13 @@
 """Each kernel module's plain PyTorch version against the JAX function it
-ports, on the CPU: K2 (sweep, both modes), K3 (medium) and K4 (the fused
-scene hit) against the Pallas kernels in interpret mode and the XLA
-sweeps; K1 (BVH planar hit) against the Pallas BVH kernel in interpret
-mode and the XLA brute force, and K1's walk of the kernel tree
+ports, on the CPU: K2 (sweep, both modes, and its BVH mode's min-combine
+with K1's planar hit), K3 (medium) and K4 (the fused scene hit, drawing
+from the lane counters) against the Pallas kernels in interpret mode and
+the XLA sweeps; K1 (BVH planar hit) against the Pallas BVH kernel in
+interpret mode and the XLA brute force, and K1's walk of the kernel tree
 (``accel.walk_counts``) against the brute force, ties included; the hit
 attribute and NEE light-table ops; and the wrappers' device routing."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,13 +17,16 @@ import solstrale_tpu as J
 import solstrale_tpu_torch as T
 from solstrale_tpu.geo import INF, RAY_T_MIN
 from solstrale_tpu.ops import intersect as JX
-from solstrale_tpu.ops.pallas_bvh import bvh_planar_hit_pallas
+from solstrale_tpu.ops import pallas_bvh
+from solstrale_tpu.ops import rng as JR
+from solstrale_tpu.ops.pallas_bvh import (bvh_closest_hit_pallas,
+                                          bvh_planar_hit_pallas)
 from solstrale_tpu.ops.pallas_sweep import (closest_hit_pallas,
                                             medium_hit_pallas,
                                             scene_hit_fused)
 from solstrale_tpu.scene.compile import compile_scene as jcompile
 from solstrale_tpu_torch import fixtures
-from solstrale_tpu_torch.ops import bvh, intersect, sweep
+from solstrale_tpu_torch.ops import bvh, intersect, rng, sweep
 from solstrale_tpu_torch.renderer.integrator import media_tables
 from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
 
@@ -120,9 +126,9 @@ def test_k2_closest_solid_hit_matches_xla(soup):
     o, d = _rays(seed=1)
     t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
                                          jnp.asarray(d), RAY_T_MIN, INF)
-    t_t, k_t, i_t = intersect.scene_hit_fused(
-        ct.solids, sweep.pack_media((), "cpu"), _t(o), _t(d),
-        torch.zeros((0, N_RAYS)))
+    no_media = sweep.pack_media(dataclasses.replace(ct, media=()))
+    t_t, k_t, i_t = sweep.scene_hit(ct.solids, no_media, _t(o), _t(d), 0, 1,
+                                    0, 7)
     same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))
     _check_hits(t_j, t_t.numpy(), same, XLA_TOL)
 
@@ -157,17 +163,30 @@ def test_k4_plain_matches_pallas_interpret():
     """The fused scene hit over the soup with two media (a box and an
     overlapping ball, so the second clips against the first's events),
     parked rays included, against the JAX package's scene_hit_fused with its
-    Pallas kernel interpreted."""
+    Pallas kernel interpreted. The port draws each medium's flight uniform
+    from the lane counters; JAX gets them from its own rng.uniform on the
+    same counters, and the draws are bit-equal."""
     cj = jcompile(_soup(J, n_media=2), use_bvh=False)
     ct = tcompile(_soup(T, n_media=2), use_bvh=False, device="cpu")
     o, d = _rays(seed=15, lo=-4, hi=4)
-    u = np.random.default_rng(16).random((2, N_RAYS)).astype(np.float32)
+    g = np.random.default_rng(16)
+    pix = g.integers(0, 2**31 - 1, N_RAYS).astype(np.int64)
+    bounce = g.integers(0, 50, N_RAYS).astype(np.int32)
+    sample, seed = 3, 16
+    u_j = np.stack([np.asarray(JR.uniform(
+        jnp.asarray(pix.astype(np.int32)), sample, jnp.asarray(bounce),
+        16 + m, jnp.uint32(seed))) for m in range(2)])
+    u_t = np.stack([rng.uniform(torch.from_numpy(pix), sample,
+                                torch.from_numpy(bounce),
+                                rng.P_MEDIUM_BASE + m, seed).numpy()
+                    for m in range(2)])
+    assert np.array_equal(u_j.view(np.uint32), u_t.view(np.uint32))
     t_j, k_j, i_j = (np.asarray(x) for x in scene_hit_fused(
         cj, jnp.asarray(o), jnp.asarray(d),
-        tuple(jnp.asarray(x) for x in u), RAY_T_MIN, interpret=True))
-    t_t, k_t, i_t = (x.numpy() for x in intersect.scene_hit_fused(
-        ct.solids, media_tables(ct), _t(o), _t(d), torch.from_numpy(u),
-        plain=True))
+        tuple(jnp.asarray(x) for x in u_j), RAY_T_MIN, interpret=True))
+    t_t, k_t, i_t = (x.numpy() for x in sweep.scene_hit_plain(
+        ct.solids, media_tables(ct), _t(o), _t(d), torch.from_numpy(pix),
+        sample, torch.from_numpy(bounce), seed))
     hit = np.isfinite(t_j)
     np.testing.assert_array_equal(hit, np.isfinite(t_t))
     assert not hit[:N_PARKED].any() and (k_t[:N_PARKED] == 0).all()
@@ -299,6 +318,83 @@ def test_bvh_cu_constants_match_accel(cu_name, py_name):
     assert np.float32(m.group(1)) == np.float32(getattr(accel, py_name))
 
 
+def _away_rays(n):
+    """Rays from far above the scene pointing away from it: they miss
+    every prim."""
+    o = np.tile(np.array([[0.0, 0.0, 200.0]], np.float32), (n, 1))
+    d = np.random.default_rng(21).normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] = np.abs(d[:, 2]) + 0.5
+    return o, d
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_k2_bvh_combine_matches_pallas_interpret(monkeypatch, ties):
+    """K2's BVH mode (the spheres-only sweep min-combined with K1's planar
+    hit and decoded, ``sweep.bvh_sphere_hit_plain``) against the JAX
+    package's ``bvh_closest_hit_pallas`` with its Pallas kernels
+    interpreted, on a BVH scene with spheres: camera-like and random rays,
+    parked rays, and rays that miss everything (kind sphere, idx 0). With
+    ``ties``, both get the same planar hit, set to a quad at exactly the
+    sphere's t on every sphere hit: the sphere must win."""
+    cfg = dict(width=8, height=8)
+    cj = jcompile(fixtures.mixed_bvh_scene(J.RenderConfig(**cfg), n_cells=16,
+                                           api=J))
+    ct = tcompile(fixtures.mixed_bvh_scene(T.RenderConfig(**cfg),
+                                           n_cells=16), device="cpu")
+    assert ct.kbvh.has_spheres
+    s = ct.solids
+    # camera-like and random rays (the last 64 parked), rays aimed at the
+    # spheres, rays that miss everything
+    o1, d1 = _terrain_rays(seed=17)
+    g = np.random.default_rng(18)
+    centers = s.sph_center[s.sph_valid].numpy()
+    o2 = g.uniform(-11, 11, (768, 3)).astype(np.float32)
+    d2 = (centers[g.integers(0, len(centers), 768)] - o2
+          + 0.3 * g.normal(size=(768, 3))).astype(np.float32)
+    o3, d3 = _away_rays(256)
+    o, d = np.concatenate([o2, o1, o3]), np.concatenate([d2, d1, d3])
+    t_p, pslot = bvh.bvh_planar_hit_plain(ct.kbvh.prims, _t(o), _t(d),
+                                          RAY_T_MIN)
+    if ties:
+        # rays on which both packages' sphere sweeps give the same t (on ~10%
+    # of sphere hits: they round differently in the last bits)
+        t_s, _ = sweep.closest_hit_plain(s.sph_table, None, _t(o), _t(d),
+                                         RAY_T_MIN, INF, spheres_only=True)
+        t_sj, _ = closest_hit_pallas(cj.solids, jnp.asarray(o),
+                                     jnp.asarray(d), RAY_T_MIN, INF,
+                                     spheres_only=True, interpret=True)
+        quad = int(np.flatnonzero(~s.pl_is_tri.numpy()
+                                  & s.pl_valid.numpy())[0])
+        tie = torch.isfinite(t_s) & (t_s == torch.from_numpy(
+            np.asarray(t_sj)))
+        assert tie.sum() > 20
+        t_p = torch.where(tie, t_s, t_p)
+        pslot = torch.where(tie, quad, pslot).to(torch.int32)
+        monkeypatch.setattr(pallas_bvh, "bvh_planar_hit_pallas",
+                            lambda *a, **k: (jnp.asarray(t_p.numpy()),
+                                             jnp.asarray(pslot.numpy())))
+    t_j, k_j, i_j = (np.asarray(x) for x in bvh_closest_hit_pallas(
+        cj.kbvh, cj.solids, jnp.asarray(o), jnp.asarray(d), RAY_T_MIN, INF,
+        interpret=True))
+    t_t, k_t, i_t = (x.numpy() for x in sweep.bvh_sphere_hit_plain(
+        s.sph_table, _t(o), _t(d), RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
+        s.pl_is_tri))
+    hit = np.isfinite(t_j)
+    np.testing.assert_array_equal(hit, np.isfinite(t_t))
+    np.testing.assert_allclose(t_t[hit], t_j[hit], rtol=1e-5, atol=1e-5)
+    same = (k_t == k_j) & (i_t == i_j)
+    assert same[hit].mean() >= 0.995 and same[~hit].all()
+    miss = ~hit
+    assert miss[-256:].all() and miss[-64 - 256:-256].all()  # away, parked
+    assert (k_t[miss] == 0).all() and (i_t[miss] == 0).all()
+    if ties:
+        tie = tie.numpy()
+        assert np.array_equal(t_t[tie], t_j[tie]) and same[tie].all()
+        assert (k_t[tie] == 0).all()
+    else:
+        assert (k_t[hit] == 0).sum() > 10 and (k_t[hit] != 0).sum() > 100
+
+
 def test_bvh_closest_hit_with_spheres_matches_xla():
     """K1 + K2 spheres-only, min-combined, on a BVH scene with spheres."""
     cfg = dict(width=8, height=8)
@@ -406,8 +502,8 @@ def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
     launches no kernel."""
     _, ct = soup
     _, cterr = terrain
-    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.medium_hit,
-               sweep.scene_hit):
+    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.bvh_sphere_hit,
+               sweep.medium_hit, sweep.scene_hit):
         fn.launches = 0
     o, d = _rays(seed=14)
     o, d = _t(o), _t(d)
@@ -423,16 +519,20 @@ def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
     args = (m.boundary.sph_table, m.boundary.pl_table, m.neg_inv_density,
             o, d, ts, u)
     assert torch.equal(sweep.medium_hit(*args), sweep.medium_hit_plain(*args))
-    uf = torch.full((1, N_RAYS), 0.5)
-    got = sweep.scene_hit(s.sph_table, s.pl_table, media_tables(ct), o, d, uf)
-    want = sweep.scene_hit_plain(s.sph_table, s.pl_table, media_tables(ct), o,
-                                 d, uf)
+    pix = torch.arange(N_RAYS)
+    got = sweep.scene_hit(s, media_tables(ct), o, d, pix, 1, 0, 5)
+    want = sweep.scene_hit_plain(s, media_tables(ct), o, d, pix, 1, 0, 5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     got = bvh.bvh_planar_hit(cterr.kbvh, o, d, RAY_T_MIN)
     want = bvh.bvh_planar_hit_plain(cterr.kbvh.prims, o, d, RAY_T_MIN)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    st = cterr.solids
+    args = (st.sph_table, o, d, RAY_T_MIN, INF, *got, st.pl_idx, st.pl_is_tri)
+    assert all(torch.equal(a, b) for a, b in zip(
+        sweep.bvh_sphere_hit(*args), sweep.bvh_sphere_hit_plain(*args)))
     assert (bvh.bvh_planar_hit.launches, sweep.closest_hit.launches,
-            sweep.medium_hit.launches, sweep.scene_hit.launches) == (0,) * 4
+            sweep.bvh_sphere_hit.launches, sweep.medium_hit.launches,
+            sweep.scene_hit.launches) == (0,) * 5
 
 
 def test_wrappers_reject_bad_inputs(soup):

@@ -101,25 +101,125 @@ def test_k3_matches_plain(cuda):
     assert torch.allclose(got[fin], want[fin], rtol=1e-4, atol=1e-4)
 
 
-def test_k4_matches_plain(cuda):
-    """The fused scene hit on the normal-mapped kitchen-sink scene (2
-    spheres, 141 planar rows, one medium box), parked rays included."""
-    cs = compile_scene(fixtures.kitchen_sink_scene(
-        T.RenderConfig(width=8, height=8)), device=cuda)
+def _sphere_rays(cs, n, seed, device):
+    """Rays from random origins aimed near the scene's valid spheres."""
+    g = torch.Generator().manual_seed(seed)
     s = cs.solids
-    o, d = _rays(16384, 6, cuda, lo=-2.0, hi=3.0)
-    g = torch.Generator().manual_seed(7)
-    u = torch.rand((1, 16384), generator=g).to(cuda)
+    centers = s.sph_center[s.sph_valid].cpu()
+    o = torch.rand((n, 3), generator=g) * 22 - 11
+    pick = torch.randint(0, centers.shape[0], (n,), generator=g)
+    d = centers[pick] - o + 0.3 * torch.randn((n, 3), generator=g)
+    o, d = o.to(device), d.to(device)
+    return tuple(o[:, k] for k in range(3)), tuple(d[:, k] for k in range(3))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_k2_bvh_mode_matches_plain(cuda, ties):
+    """K2 in its BVH mode (the sphere sweep min-combined with K1's planar
+    hit and decoded in one launch) equals its plain version exactly on t,
+    kind and idx: random rays (parked ones first) and rays aimed at the
+    spheres on the mixed BVH scene. With ``ties`` the planar hit is set to
+    a quad at exactly the sphere's t on every sphere hit: the sphere wins."""
+    cs = compile_scene(fixtures.mixed_bvh_scene(
+        T.RenderConfig(width=8, height=8), n_cells=64), device=cuda)
+    s = cs.solids
+    o1, d1 = _rays(16384, 11, cuda)
+    o2, d2 = _sphere_rays(cs, 16384, 12, cuda)
+    o = tuple(torch.cat([a, b]) for a, b in zip(o1, o2))
+    d = tuple(torch.cat([a, b]) for a, b in zip(d1, d2))
+    t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+    if ties:
+        t_s, _ = sweep.closest_hit_plain(s.sph_table, None, o, d, RAY_T_MIN,
+                                         INF, spheres_only=True)
+        tie = torch.isfinite(t_s)
+        quad = int(torch.nonzero(~s.pl_is_tri & s.pl_valid)[0])
+        t_p = torch.where(tie, t_s, t_p)
+        pslot = torch.where(tie, quad, pslot).to(torch.int32)
+    args = (s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
+            s.pl_is_tri)
+    sweep.bvh_sphere_hit.launches = 0
+    got = sweep.bvh_sphere_hit(*args)
+    want = sweep.bvh_sphere_hit_plain(*args)
+    torch.cuda.synchronize()
+    assert sweep.bvh_sphere_hit.launches == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    t, kind, idx = got
+    assert not torch.isfinite(t[:128]).any()
+    assert (kind[:128] == 0).all() and (idx[:128] == 0).all()
+    assert (kind == 0).logical_and(torch.isfinite(t)).sum() > 1000
+    if ties:
+        assert tie.sum() > 1000 and (kind[tie] == 0).all()
+
+
+def _grazing_kitchen(cfg):
+    """The normal-mapped kitchen-sink scene seen along its medium box's top
+    front edge: the pinhole camera sits in the planes y = 2 and z = 1.5 of
+    the box (0, 0, 0.5)-(1, 2, 1.5), so the rays near the image's centre
+    graze two faces and the edge between them (the risk of K4's box
+    cull)."""
+    kitchen = fixtures.kitchen_sink_scene(cfg)
+    camera = T.CameraConfig(vertical_fov_degrees=8.0,
+                            look_from=(-4.0, 2.0, 1.5),
+                            look_at=(1.0, 2.0, 1.5))
+    return T.Scene(kitchen.world, camera, kitchen.background_color, cfg)
+
+
+K4_SCENES = {
+    "kitchen": fixtures.kitchen_sink_scene,
+    "grazing": _grazing_kitchen,
+    # 1,156 planar rows, 74.5 KB of tables with the medium's: beyond what
+    # K4 stages whole (csrc/sweep.cu kStageBytes), so it takes the tiled loop
+    "large": lambda c: fixtures.mixed_bvh_scene(c, n_cells=24),
+}
+
+
+@pytest.mark.parametrize("name", list(K4_SCENES))
+def test_k4_matches_plain(cuda, name):
+    """The fused scene hit equals its plain version exactly on t, kind and
+    idx: on the normal-mapped kitchen-sink scene (2 spheres, 141 planar
+    rows, one medium box), on its camera grazing the medium box, and on
+    tables too large to stage whole; camera rays of 96x64 pixels, the
+    bounces from their hits, random rays and parked rays. The counters are
+    an int64 pixel tensor, an int sample and an int32 bounce tensor, as
+    trace_queued gives them."""
+    cs = compile_scene(K4_SCENES[name](T.RenderConfig(width=96, height=64)),
+                       use_bvh=False, device=cuda)
+    assert not cs.media or integrator.media_tables(cs).n_media == len(
+        cs.media)
+    w, h = 96, 64
+    pix = torch.arange(w * h, device=cuda)
+    co, cd = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    t, kind, idx = sweep.scene_hit_plain(cs.solids,
+                                         integrator.media_tables(cs), co, cd,
+                                         pix, 1, 0, 1)
+    hit = torch.isfinite(t)
+    attrs = integrator.full_hit_attributes(
+        cs, co, cd, torch.where(hit, t, 0.0), kind, idx, pix, 1, 0, 1)
+    bd = tuple(torch.where(hit, c, 0.0) for c in attrs["normal"])
+    ro, rd = _rays(4096, 6, cuda, lo=-2.0, hi=3.0)
+    o = tuple(torch.cat([a, b, c]) for a, b, c in zip(ro, co,
+                                                       attrs["point"]))
+    d = tuple(torch.cat([a, b, c]) for a, b, c in zip(rd, cd, bd))
+    n = o[0].numel()
+    pixel = torch.cat([torch.arange(4096, device=cuda), pix, pix])
+    bounce = torch.cat([torch.zeros(4096 + w * h, dtype=torch.int32,
+                                    device=cuda),
+                        torch.ones(w * h, dtype=torch.int32, device=cuda)])
     mt = integrator.media_tables(cs)
     sweep.scene_hit.launches = 0
-    t_k, s_k = sweep.scene_hit(s.sph_table, s.pl_table, mt, o, d, u)
-    t_p, s_p = sweep.scene_hit_plain(s.sph_table, s.pl_table, mt, o, d, u)
+    got = sweep.scene_hit(cs.solids, mt, o, d, pixel, 1, bounce, 1)
+    want = sweep.scene_hit_plain(cs.solids, mt, o, d, pixel, 1, bounce, 1)
     torch.cuda.synchronize()
-    assert sweep.scene_hit.launches == 1
-    _assert_hits(t_k, s_k, t_p, s_p, tol=1e-4)
-    n_solid = s.sph_table.shape[0] + s.pl_table.shape[0]
-    assert (s_k == n_solid).sum().item() > 20   # medium events
-    assert not torch.isfinite(t_k[:128]).any() and (s_k[:128] == -1).all()
+    assert sweep.scene_hit.launches == 1 and got[0].shape == (n,)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    t, kind, idx = got
+    assert not torch.isfinite(t[:128]).any()
+    assert (kind[:128] == 0).all() and (idx[:128] == 0).all()
+    assert torch.isfinite(t).sum() > n // 2
+    if name != "large":
+        assert (kind == 3).sum().item() > 20   # medium events
 
 
 def _grazing_scene(cfg):
@@ -207,7 +307,7 @@ def test_small_scene_route(cuda, name, route):
     build = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
              "kitchen": fixtures.kitchen_sink_scene}[name]
     cs = compile_scene(build(T.RenderConfig(width=8, height=8)), device=cuda)
-    fns = {"K1": bvh.bvh_planar_hit, "K2": sweep.closest_hit,
+    fns = {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
            "K3": sweep.medium_hit, "K4": sweep.scene_hit,
            "K5": megakernel.render_batch_megakernel}
     for fn in fns.values():
@@ -233,12 +333,12 @@ def test_card_render_matches_cpu_and_repeats(cuda):
                                      n_cells=24)
     kw = dict(width=w, height=h, max_depth=50, shader_kind=0,
               need_aux=False, n_samples=2)
-    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.medium_hit):
+    for fn in (bvh.bvh_planar_hit, sweep.bvh_sphere_hit, sweep.medium_hit):
         fn.launches = 0
     cs = compile_scene(scene, device=cuda)
     a, _, _, seg_a = integrator.render_sample_batch(cs, 1, 1, **kw)
     b, _, _, seg_b = integrator.render_sample_batch(cs, 1, 1, **kw)
-    assert min(bvh.bvh_planar_hit.launches, sweep.closest_hit.launches,
+    assert min(bvh.bvh_planar_hit.launches, sweep.bvh_sphere_hit.launches,
                sweep.medium_hit.launches) > 0
     assert torch.equal(a, b) and int(seg_a) == int(seg_b)
     c, _, _, seg_c = integrator.render_sample_batch(
@@ -247,6 +347,54 @@ def test_card_render_matches_cpu_and_repeats(cuda):
     close = np.isclose(a.cpu().numpy(), c.numpy(), rtol=1e-3,
                        atol=1e-3).all(-1)
     assert close.mean() >= 0.995
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` ran (torch.profiler);
+    memory copies and sets are not kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
+
+
+@pytest.mark.parametrize("route", ["K2", "K4"])
+def test_scene_hit_is_one_launch(cuda, route):
+    """On the BVH route the sphere part of ``bvh_closest_hit`` is one launch
+    of K2 (no fill, no combine op), and ``bvh_closest_hit`` as a whole is
+    K1's bound fill, K1 and K2; on the K4 route ``integrator.scene_hit`` is
+    one launch of K4 (no RNG, stack or decode op)."""
+    w, h = 64, 48
+    build = (fixtures.kitchen_sink_scene if route == "K4" else
+             lambda c: fixtures.mixed_bvh_scene(c, n_cells=24))
+    cs = compile_scene(build(T.RenderConfig(width=w, height=h)), device=cuda)
+    pix = torch.arange(w * h, device=cuda)
+    bounce = torch.zeros(w * h, dtype=torch.int32, device=cuda)
+    o, d = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    if route == "K4":
+        integrator.scene_hit(cs, o, d, pix, 1, bounce, 1)  # build, pack
+        names = _device_kernels(
+            lambda: integrator.scene_hit(cs, o, d, pix, 1, bounce, 1))
+        assert len(names) == 1 and "k4_scene_hit" in names[0], names
+        return
+    s = cs.solids
+    # a first call packs the sphere table (a cached property of Solids)
+    bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)
+    t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+    names = _device_kernels(lambda: sweep.bvh_sphere_hit(
+        s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
+        s.pl_is_tri))
+    assert len(names) == 1 and "k2_bvh_spheres" in names[0], names
+    names = _device_kernels(lambda: bvh.bvh_closest_hit(
+        cs.kbvh, s, o, d, RAY_T_MIN, INF))
+    assert len(names) == 3 and "k1_bvh" in names[1] and \
+        "k2_bvh_spheres" in names[2], names
 
 
 def test_wrapper_rejects_cpu_cuda_mix(cuda):

@@ -19,6 +19,7 @@ from solstrale_tpu.renderer import integrator as JI
 from solstrale_tpu.renderer import megakernel as JM
 from solstrale_tpu.scene.compile import compile_scene as jcompile
 from solstrale_tpu_torch import fixtures
+from solstrale_tpu_torch.ops import sweep as TS
 from solstrale_tpu_torch.renderer import integrator as TI
 from solstrale_tpu_torch.renderer import megakernel as TM
 from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
@@ -220,17 +221,19 @@ def _corners(s):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_medium_boxes_contain_boundaries(name):
-    """K5's cull table: each medium's box holds every vertex of its boundary
-    prims and every boundary sphere with MEDIUM_BOX_PAD of the scene's
-    largest coordinate to spare on every side, and no more than twice that."""
+    """K4's and K5's cull table (one copy, ``MediaTables.box``): each
+    medium's box holds every vertex of its boundary prims and every boundary
+    sphere with MEDIUM_BOX_PAD of the scene's largest coordinate to spare on
+    every side, and no more than twice that."""
     _, ct, _, _ = _both(name)
-    box = TM.pack_tables(ct).mbox.double().numpy()
+    assert TM.pack_tables(ct).media is TI.media_tables(ct)
+    box = TI.media_tables(ct).box.double().numpy()
     assert box.shape == (len(ct.media), 8)
     cam = ct.camera
     scale = max([1.0, float(cam.origin.abs().max() + cam.lens_radius)]
                 + [float(np.abs(_corners(s)).max())
                    for s in [ct.solids] + [m.boundary for m in ct.media]])
-    pad = TM.MEDIUM_BOX_PAD * scale
+    pad = TS.MEDIUM_BOX_PAD * scale
     for m, med in enumerate(ct.media):
         pts = _corners(med.boundary)
         lo, hi = box[m, 0:3], box[m, 4:7]
@@ -241,7 +244,7 @@ def test_medium_boxes_contain_boundaries(name):
 
 
 def _box_reach(o, d, lo, hi, ts):
-    """csrc/megakernel.cu::box_reach in f32 torch (torch.fmin / fmax drop
+    """csrc/hit.cuh::box_reach in f32 torch (torch.fmin / fmax drop
     NaN as fminf / fmaxf do)."""
     tn = torch.full_like(ts, -torch.inf)
     tf = torch.full_like(ts, torch.inf)
@@ -278,21 +281,23 @@ def _grazing_rays(lo, hi, n, rng):
 
 
 @pytest.mark.parametrize("name", ["kitchen_solid", "kitchen_textured",
-                                  "small"])
+                                  "small", "kitchen"])
 def test_medium_box_cull_is_conservative(name):
-    """K5 skips a medium's sweeps for a ray whose line cannot meet the
-    medium's padded box in [0, ts]. That must never skip a ray whose event
-    the sweeps would find: with u = 1 every ordered entry and exit is an
-    event, and every such ray must pass the box test. Rays: the camera's,
-    random ones through the scene, and rays that graze the box's faces,
-    edges and corners from outside, on and inside its faces."""
+    """K4 and K5 skip a medium's sweeps for a ray whose line cannot meet the
+    medium's padded box (``MediaTables.box``) in [0, ts]. That must never
+    skip a ray whose event the sweeps would find: with u = 1 every ordered
+    entry and exit is an event, and every such ray must pass the box test.
+    Scenes: the K5 route's, and the normal-mapped kitchen of the K4 route.
+    Rays: the camera's, random ones through the scene, and rays that graze
+    the box's faces, edges and corners from outside, on and inside its
+    faces."""
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
     from solstrale_tpu_torch.ops import sweep
 
     build = GATE_SCENES[name]
     ct = tcompile(build(T.RenderConfig(width=64, height=48), T),
                   use_bvh=False, device="cpu")
-    box = TM.pack_tables(ct).mbox
+    box = TI.media_tables(ct).box
     rng = np.random.default_rng(11)
     pix = torch.arange(64 * 48)
     cam_o, cam_d = TI._camera_rays(ct, pix, 1, SEED, 64, 48)
