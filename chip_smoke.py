@@ -670,7 +670,7 @@ def _main_path_k2_k3(out, traces):
     def closest():
         return bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)
 
-    traces["K2 bvh_sphere_hit"] = lambda: sweep.bvh_sphere_hit(*args)
+    traces["K2 bvh_sphere_hit"] = lambda a=args: sweep.bvh_sphere_hit(*a)
     traces["bvh_closest_hit"] = closest
     full = dict(device_ms=device_ms(closest), wrapper_ms=wrapper_ms(closest))
     n_sph = s.sph_table.shape[0]

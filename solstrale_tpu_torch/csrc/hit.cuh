@@ -76,12 +76,27 @@ __device__ __forceinline__ bool sphere_roots(const Ray& r, float4 a, float4 b,
   return sphere_ok(disc, b);
 }
 
-// The unified quad/triangle plane test (pallas_sweep.py:115-135) in two
-// parts. planar_t: t on the plane and the denominator d.n.
-__device__ __forceinline__ float planar_t(const Ray& r, float4 a,
+// The unified quad/triangle plane test (pallas_sweep.py:115-135) in
+// parts. planar_nd: t = num / denom on the plane, denom = d.n.
+__device__ __forceinline__ void planar_nd(const Ray& r, float4 a, float* num,
                                           float* denom) {
   *denom = a.x * r.d0 + a.y * r.d1 + a.z * r.d2;
-  return (a.w - (a.x * r.o0 + a.y * r.o1 + a.z * r.o2)) / *denom;
+  *num = a.w - (a.x * r.o0 + a.y * r.o1 + a.z * r.o2);
+}
+
+// Whether num / denom can be a positive finite t: num and denom of one
+// sign, neither zero nor NaN. A quotient this rejects is <= 0, infinite
+// or NaN, so it can pass no bound lo > 0 and beat no best t: a sweep on
+// [lo > 0, ...) may skip the row's division.
+__device__ __forceinline__ bool planar_ahead(float num, float denom) {
+  return (num > 0.f && denom > 0.f) || (num < 0.f && denom < 0.f);
+}
+
+__device__ __forceinline__ float planar_t(const Ray& r, float4 a,
+                                          float* denom) {
+  float num;
+  planar_nd(r, a, &num, denom);
+  return num / *denom;
 }
 
 // planar_inside: the two affine barycentric functionals of the hit point at

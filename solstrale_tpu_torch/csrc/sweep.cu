@@ -107,8 +107,10 @@ __device__ __forceinline__ void sweep_tables(const Ray& r, bool live,
     __syncthreads();
     if (live) {
       for (int p = 0; p < count; ++p) {
-        float denom;
-        const float t = hit::planar_t(r, tile[4 * p], &denom);
+        float num, denom;
+        hit::planar_nd(r, tile[4 * p], &num, &denom);
+        if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;
+        const float t = num / denom;
         if (!(t >= lo && t <= hi && t < best)) continue;
         if (hit::planar_inside(r, tile[4 * p + 1], tile[4 * p + 2],
                                tile[4 * p + 3], t, denom)) {
@@ -165,8 +167,10 @@ __device__ __forceinline__ float lane_sweep(const Ray& r, const float4* sph,
     }
   }
   for (int p = 0; p < n_pl; ++p) {
-    float denom;
-    const float t = hit::planar_t(r, pln[4 * p], &denom);
+    float num, denom;
+    hit::planar_nd(r, pln[4 * p], &num, &denom);
+    if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;
+    const float t = num / denom;
     if (!(t >= lo && t < best)) continue;
     if (hit::planar_inside(r, pln[4 * p + 1], pln[4 * p + 2], pln[4 * p + 3],
                            t, denom)) {

@@ -16,10 +16,20 @@ K4 kernel's own time from torch.profiler; then ``render_sample_batch`` of
 the kitchen at 1920x1080x1 and 400x266x8 and of the mixed scene at
 1920x1080x1 (host clock, median of three), each with a hash of its image.
 Every line printed is one JSON object.
+
+    python solstrale_tpu_torch/k24_bench.py variants [--turns 2]
+
+builds scratch copies of this package whose K4 leaves out one design
+point each (``VARIANTS``: the whole-table staging, the planar rows' t
+window, the sign test before a planar row's division, the media's box
+cull) and times K4 on the kitchen at 131,072 lanes in each, in turns;
+every copy must return the same (t, kind, idx).
 """
 import argparse
 import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -27,8 +37,45 @@ from pathlib import Path
 
 T0 = time.perf_counter()
 HERE = Path(__file__).resolve()
-ROOT = HERE.parent.parent
+PKG = HERE.parent
+ROOT = PKG.parent
+SCRATCH = PKG / "_build" / "k24_variants"
 LANES = 131072
+# K4 variants: (pattern, replacement) edits of csrc/sweep.cu
+_TILED = ("constexpr int kStageBytes = 64 * 1024;",
+          "constexpr int kStageBytes = 0;")
+VARIANTS = {
+    "base": [],
+    # the whole tables staged by bulk copies -> the tiled loop
+    "tiled": [_TILED],
+    # no t window before the hit point and functionals
+    "no_window": [(
+        "    if (!(t >= lo && t < best)) continue;\n"
+        "    if (hit::planar_inside(r, pln[4 * p + 1], pln[4 * p + 2], "
+        "pln[4 * p + 3],\n                           t, denom)) {",
+        "    if (hit::planar_inside(r, pln[4 * p + 1], pln[4 * p + 2], "
+        "pln[4 * p + 3],\n                           t, denom) && "
+        "t >= lo && t < best) {")],
+    "tiled_no_window": [_TILED, (
+        "        if (!(t >= lo && t <= hi && t < best)) continue;\n"
+        "        if (hit::planar_inside(r, tile[4 * p + 1], tile[4 * p + 2],"
+        "\n                               tile[4 * p + 3], t, denom)) {",
+        "        if (hit::planar_inside(r, tile[4 * p + 1], tile[4 * p + 2],"
+        "\n                               tile[4 * p + 3], t, denom) &&"
+        "\n            t >= lo && t <= hi && t < best) {")],
+    # no sign test before a planar row's division
+    "no_sign": [
+        ("\n        if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;",
+         ""),
+        ("\n    if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;",
+         "")],
+    # no box cull of the media
+    "no_cull": [(
+        "const bool reach = live && hit::box_reach(r, inv0, inv1, inv2,\n"
+        "                                              sc.box[2 * m],\n"
+        "                                              sc.box[2 * m + 1], "
+        "best);", "const bool reach = live;")],
+}
 
 
 def _events_ms(fn, reps=5):
@@ -199,9 +246,65 @@ def run(root):
     print(json.dumps(out), flush=True)
 
 
-def child(root):
+def run_k4(root):
+    """K4 alone: integrator.scene_hit on the kitchen at LANES lanes."""
+    sys.path.insert(0, str(root))
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.ops import _build
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    _build.library()
+    ptxas = [ln.strip() for ln in _build.BuildInfo.log.splitlines()
+             if "registers" in ln or "k4_scene_hit" in ln]
+    dev = torch.device("cuda")
+    cfg = T.RenderConfig(width=1920, height=1080, samples_per_pixel=1, seed=1)
+    pix = torch.linspace(0, 1920 * 1080 - 1, LANES // 2, device=dev).long()
+    kitchen = compile_scene(fixtures.kitchen_sink_scene(cfg), device=dev)
+    o, d, p, bounce = _rays(kitchen, pix)
+    out = dict(root=str(root), ptxas=ptxas, scene_hit=_call(
+        lambda: integrator.scene_hit(kitchen, o, d, p, 1, bounce, 1), "k4_"))
+    t, kind, idx = integrator.scene_hit(kitchen, o, d, p, 1, bounce, 1)
+    out["scene_hit_hash"] = hashlib.sha256(b"".join(
+        x.cpu().numpy().tobytes() for x in (t, kind, idx))).hexdigest()[:16]
+    print(json.dumps(out), flush=True)
+
+
+def variant_copy(name):
+    """A scratch copy of this package with K4 variant ``name``."""
+    root = SCRATCH / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(PKG, root / PKG.name,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = root / PKG.name / "csrc" / "sweep.cu"
+    text = src.read_text()
+    for pattern, repl in VARIANTS[name]:
+        if text.count(pattern) != 1:
+            raise RuntimeError(f"{name}: edit not found once in {src}")
+        text = text.replace(pattern, repl)
+    src.write_text(text)
+    return root
+
+
+def variants(turns):
+    rows = []
+    names = list(VARIANTS)
+    for turn in range(turns):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            for r in child(variant_copy(name), "k4"):
+                r.update(variant=name, turn=turn)
+                print(json.dumps(r), flush=True)
+                rows.append(r)
+    if len({r["scene_hit_hash"] for r in rows}) != 1:
+        raise AssertionError("the variants' outputs differ")
+    print(json.dumps({"same_outputs": True}), flush=True)
+
+
+def child(root, cmd="run"):
     try:
-        proc = subprocess.run([sys.executable, str(HERE), "run", "--root",
+        proc = subprocess.run([sys.executable, str(HERE), cmd, "--root",
                                str(root)], capture_output=True, text=True,
                               timeout=420)
     except subprocess.TimeoutExpired as e:
@@ -236,15 +339,21 @@ def ab(parent):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("run")
-    r.add_argument("--root", default=str(ROOT))
+    for cmd in ("run", "k4"):
+        sub.add_parser(cmd).add_argument("--root", default=str(ROOT))
     a = sub.add_parser("ab")
     a.add_argument("--parent", required=True)
+    v = sub.add_parser("variants")
+    v.add_argument("--turns", type=int, default=2)
     args = ap.parse_args()
     if args.cmd == "run":
         run(Path(args.root))
-    else:
+    elif args.cmd == "k4":
+        run_k4(Path(args.root))
+    elif args.cmd == "ab":
         ab(Path(args.parent))
+    else:
+        variants(args.turns)
 
 
 if __name__ == "__main__":
