@@ -70,10 +70,10 @@ HBM_BPS = 3.35e12     # device memory bytes/s
 # division count one each; compares not counted)
 FLOPS_SPHERE = 31
 FLOPS_PLANAR = 32
-# a planar row's t alone (hit::planar_t: d.n 5, o.n 5, the subtraction and
-# the division): K4 computes the rest only for rows whose t lies in its
-# window [lo, best]
-FLOPS_PLANAR_T = 12
+# a planar row's numerator and denominator (hit::planar_nd: d.n 5, o.n 5,
+# the subtraction): on a sweep with a positive lower bound K4 divides and
+# tests a row in full only where the two share a sign (t > 0)
+FLOPS_PLANAR_ND = 11
 # one box of K1's slab test (csrc/bvh.cu slab2 and its callers): per axis
 # two subtractions and two multiplies, the interval's min and max, and on
 # the second and third axes the fold into near and far; the entry's clamp
@@ -263,7 +263,8 @@ def device_kernels(calls):
     one call runs. One torch.profiler session for all: the calls are
     separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
     boundaries in the device timeline; memory copies and sets are not
-    counted."""
+    counted. The trace can lose its last few device events, so a few more
+    markers follow the last call, and at least one must arrive."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -273,25 +274,25 @@ def device_kernels(calls):
         for fn in calls.values():
             torch.cuda._sleep(100_000)
             fn()
-        torch.cuda._sleep(100_000)
+        for _ in range(4):
+            torch.cuda._sleep(100_000)
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and "memcpy" not in e.name.lower()
                      and "memset" not in e.name.lower()),
                     key=lambda e: e.time_range.start)
-    groups, current = [], None
+    groups = [[] for _ in calls]
+    markers = 0
     for e in events:
         if "spin_kernel" in e.name or "sleep" in e.name.lower():
-            if current is not None:
-                groups.append(current)
-            current = []
-        elif current is not None:
-            current.append(e.name)
-    if len(groups) != len(calls):
-        raise RuntimeError(f"device_kernels: the trace holds {len(groups)} "
-                           f"of {len(calls)} calls ({len(events)} device "
-                           "events)")
+            markers += 1
+        elif 1 <= markers <= len(calls):
+            groups[markers - 1].append(e.name)
+    if markers <= len(calls):
+        raise RuntimeError(f"device_kernels: the trace holds {markers} "
+                           f"markers for {len(calls)} calls ({len(events)} "
+                           "device events)")
     return dict(zip(calls, groups))
 
 
@@ -603,8 +604,7 @@ def phase_kernels(sponza_cs):
     _main_path_k2_k3(out, traces)
 
     # K4 on the same tables with both medium boxes (the second overlaps the
-    # first, so it clips against the first's events); they exceed what K4
-    # stages whole, so this takes its tiled loop
+    # first, so it clips against the first's events)
     pix = torch.arange(65536, device=dev)
     _check_k4("K4 scene_hit (procedural)", cs, o, d, (pix, 1, 0, 1))
     # and at the main path's shape: the normal-mapped kitchen-sink scene's
@@ -722,10 +722,10 @@ def _box_reach(o, d, box, ts):
     return (tn <= tf) & (tf >= 0.0) & (tn <= ts)
 
 
-def _window_rows(pln, o, d, lo, best, mask):
-    """(ray, row) pairs of planar table ``pln`` whose t lies in [lo, best]
-    for the rays in ``mask``: the rows whose hit point and functionals a
-    lane sweep computes past the t test."""
+def _ahead_rows(pln, o, d, mask):
+    """(ray, row) pairs of planar table ``pln`` whose t is positive, for the
+    rays in ``mask``: the rows a sweep with a positive lower bound divides
+    and tests in full (the others stop at hit::planar_ahead)."""
     from solstrale_tpu_torch.ops import sweep
 
     n = 0
@@ -733,47 +733,38 @@ def _window_rows(pln, o, d, lo, best, mask):
         sl = slice(a, a + sweep.RAY_CHUNK)
         _, t = sweep._planar_t(tuple(c[sl][:, None] for c in o),
                                tuple(c[sl][:, None] for c in d), pln)
-        n += int(((t >= lo[sl][:, None]) & (t <= best[sl][:, None])
-                  & mask[sl][:, None]).sum())
+        n += int(((t > 0) & mask[sl][:, None]).sum())
     return n
 
 
 def _k4_flops(cs, o, d, t_solid):
     """K4's f32 operations on these rays, from the work their data needs:
-    per live ray each sphere's test (31) and each planar row's t (12), the
-    rest of a planar row (20) only where its t lies in [RAY_T_MIN, the solid
-    hit]; per medium and live ray the box test; per ray that reaches a
-    medium's box the medium's two boundary sweeps (counted the same way,
-    in the windows [-inf, t1] and [t1 + 1e-4, t2]) and the event. The media
-    clip against the solid hit (the scene's media do not overlap)."""
+    per live ray each sphere's test (31), each planar row's numerator and
+    denominator (11) and, where its t is positive, the division and the
+    rest of its test (21 more); per medium and live ray the box test; per
+    ray that reaches a medium's box its two boundary sweeps (the first in
+    full, as its lower bound is -inf; the second like the solid sweep) and
+    the event. The media clip against the solid hit (the scene's media do
+    not overlap). Returns (operations, rays that reach a medium's box)."""
     import torch
-    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
-    from solstrale_tpu_torch.ops import sweep
     from solstrale_tpu_torch.renderer import integrator
 
     s, mt = cs.solids, integrator.media_tables(cs)
     live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
-    n_live = int(live.sum())
-    lo = torch.full_like(t_solid, RAY_T_MIN)
-    flops = n_live * (s.sph_table.shape[0] * FLOPS_SPHERE
-                      + s.pl_table.shape[0] * FLOPS_PLANAR_T
-                      + mt.n_media * K4_BOX)
-    flops += (FLOPS_PLANAR - FLOPS_PLANAR_T) * _window_rows(
-        s.pl_table, o, d, lo, t_solid, live)
+    rest = FLOPS_PLANAR - FLOPS_PLANAR_ND
+    flops = int(live.sum()) * (s.sph_table.shape[0] * FLOPS_SPHERE
+                               + s.pl_table.shape[0] * FLOPS_PLANAR_ND
+                               + mt.n_media * K4_BOX)
+    flops += rest * _ahead_rows(s.pl_table, o, d, live)
     reach_rays = torch.zeros_like(live)
     for m in range(mt.n_media):
         msph, mpln = mt.boundary(m)
         reach = live & _box_reach(o, d, mt.box[m], t_solid)
         reach_rays |= reach
-        n_reach = int(reach.sum())
-        t1 = sweep.closest_hit_plain(msph, mpln, o, d, -INF, INF)[0]
-        t2 = sweep.closest_hit_plain(msph, mpln, o, d, t1 + 1e-4, INF)[0]
-        flops += n_reach * (2 * (msph.shape[0] * FLOPS_SPHERE
-                                 + mpln.shape[0] * FLOPS_PLANAR_T)
-                            + K4_MEDIUM)
-        flops += (FLOPS_PLANAR - FLOPS_PLANAR_T) * (
-            _window_rows(mpln, o, d, torch.full_like(t1, -INF), t1, reach)
-            + _window_rows(mpln, o, d, t1 + 1e-4, t2, reach))
+        flops += int(reach.sum()) * (
+            2 * msph.shape[0] * FLOPS_SPHERE
+            + mpln.shape[0] * (FLOPS_PLANAR + FLOPS_PLANAR_ND) + K4_MEDIUM)
+        flops += rest * _ahead_rows(mpln, o, d, reach)
     return flops, int(reach_rays.sum())
 
 

@@ -41,39 +41,21 @@ __device__ __forceinline__ Ray make_ray(float o0, float o1, float o2,
 // max(x, 0) that keeps NaN, like jnp.maximum / torch.clamp
 __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
 
-// The sphere test's discriminant and half_b (pallas_sweep.py:93-99); the
-// roots exist when disc >= 0 and the row is valid (sphere_ok).
-__device__ __forceinline__ float sphere_disc(const Ray& r, float4 a,
-                                             float* half_b) {
-  const float cx = a.x, cy = a.y, cz = a.z, radius = a.w;
-  const float cd = cx * r.d0 + cy * r.d1 + cz * r.d2;
-  const float co = cx * r.o0 + cy * r.o1 + cz * r.o2;
-  *half_b = r.od - cd;
-  const float c2 = r.oo - 2.0f * co + (cx * cx + cy * cy + cz * cz)
-                   - radius * radius;
-  return *half_b * *half_b - r.dd * c2;
-}
-
-__device__ __forceinline__ bool sphere_ok(float disc, float4 b) {
-  return (disc >= 0.f) && (b.x > 0.5f);
-}
-
-__device__ __forceinline__ void sphere_roots_of(const Ray& r, float disc,
-                                                float half_b, float* r1,
-                                                float* r2) {
-  const float sq = sqrtf(clamp0(disc));
-  *r1 = (-half_b - sq) / r.dd;
-  *r2 = (-half_b + sq) / r.dd;
-}
-
 // Sphere roots in the expanded form of pallas_sweep.py:93-101. Returns
 // false when the discriminant is negative (or NaN) or the row is padding.
 __device__ __forceinline__ bool sphere_roots(const Ray& r, float4 a, float4 b,
                                              float* r1, float* r2) {
-  float half_b;
-  const float disc = sphere_disc(r, a, &half_b);
-  sphere_roots_of(r, disc, half_b, r1, r2);
-  return sphere_ok(disc, b);
+  const float cx = a.x, cy = a.y, cz = a.z, radius = a.w, valid = b.x;
+  const float cd = cx * r.d0 + cy * r.d1 + cz * r.d2;
+  const float co = cx * r.o0 + cy * r.o1 + cz * r.o2;
+  const float half_b = r.od - cd;
+  const float c2 = r.oo - 2.0f * co + (cx * cx + cy * cy + cz * cz)
+                   - radius * radius;
+  const float disc = half_b * half_b - r.dd * c2;
+  const float sq = sqrtf(clamp0(disc));
+  *r1 = (-half_b - sq) / r.dd;
+  *r2 = (-half_b + sq) / r.dd;
+  return (disc >= 0.f) && (valid > 0.5f);
 }
 
 // The unified quad/triangle plane test (pallas_sweep.py:115-135) in
@@ -90,13 +72,6 @@ __device__ __forceinline__ void planar_nd(const Ray& r, float4 a, float* num,
 // [lo > 0, ...) may skip the row's division.
 __device__ __forceinline__ bool planar_ahead(float num, float denom) {
   return (num > 0.f && denom > 0.f) || (num < 0.f && denom < 0.f);
-}
-
-__device__ __forceinline__ float planar_t(const Ray& r, float4 a,
-                                          float* denom) {
-  float num;
-  planar_nd(r, a, &num, denom);
-  return num / *denom;
 }
 
 // planar_inside: the two affine barycentric functionals of the hit point at
@@ -117,11 +92,12 @@ __device__ __forceinline__ bool planar_inside(const Ray& r, float4 b,
   return (fabsf(denom) >= kAlmostZero) && valid && contain;
 }
 
-// Both parts: sets *t; returns whether the hit lies inside the prim.
+// The whole test: sets *t; returns whether the hit lies inside the prim.
 __device__ __forceinline__ bool planar_hit(const Ray& r, float4 a, float4 b,
                                            float4 c, float4 e, float* t) {
-  float denom;
-  *t = planar_t(r, a, &denom);
+  float num, denom;
+  planar_nd(r, a, &num, &denom);
+  *t = num / denom;
   return planar_inside(r, b, c, e, *t, denom);
 }
 

@@ -7,11 +7,15 @@
 // (hit.cuh), so that with -fmad=false the results equal the plain PyTorch
 // versions (ops/sweep.py) bit for bit on a given device.
 //
-// One thread per ray. On the scenes that take these kernels the work per
-// ray is small (K2 sweeps the BVH scene's few spheres, K4 ~150 rows), so
-// what bounds a launch is less the arithmetic than what surrounds it: the
-// launches, reads and writes of the glue around the kernel, and the block
-// synchronisations of staging tables tile by tile. The design answers each:
+// One thread per ray; a block of 256 rays stages tiles of the prim tables
+// through shared memory, so each table row is read from device memory once
+// per block rather than once per ray. On the scenes that take these
+// kernels the work per ray is small (K2 sweeps the BVH scene's few spheres,
+// K4 ~150 rows), so a launch lost most of its time to what surrounded it:
+// the launches of the glue around the kernel. The kernels themselves are
+// bound by arithmetic: ~30 f32 operations and one IEEE division per ray-prim
+// pair against 16 bytes of shared-memory traffic (the tables stay in L2).
+// The design answers both, without changing a value:
 //
 // - K2 in its BVH mode (k2_bvh_spheres, the one mode a route launches)
 //   takes K1's planar (t, slot) and does bvh_closest_hit_pallas's
@@ -29,16 +33,14 @@
 //   culled ray reads no counter and draws nothing), and decodes its slot
 //   into (t, kind, idx) as scene_hit_fused does (pallas_sweep.py:563-575).
 //   So integrator.scene_hit is this one launch: no RNG, stack or decode ops.
-// - K4 stages the solid and media tables whole into dynamic shared memory
-//   with one asynchronous bulk copy per table, completed on one mbarrier,
-//   while the block reads its rays (as K1 stages its top levels); each lane
-//   then sweeps on its own, with no block synchronisation. Tables beyond
-//   kStageBytes take the tiled loop (sweep_tables) instead.
-// - Each planar row computes its t first and skips the hit point and the
-//   functionals unless t lies in [lo, hi] and below the best t (a sphere
-//   row skips its square root and divisions unless its discriminant allows
-//   a root): such a row cannot win under the strict '<', so the result is
-//   unchanged.
+// - On a sweep whose lower bound is positive (the solid sweeps), a planar
+//   row whose numerator and denominator differ in sign skips its IEEE
+//   division and the rest of its test (hit::planar_ahead): its t could not
+//   pass the bound (11% of K4's time on the kitchen, PERF.md, PR 5).
+// Measured on the card and left out as gaining nothing (PERF.md, PR 5):
+// staging K4's whole tables at once with bulk copies on an mbarrier (6%
+// slower than these tiles), and testing a planar row's t before its hit
+// point and functionals.
 #include "hit.cuh"
 
 namespace {
@@ -48,7 +50,6 @@ using hit::Ray;
 constexpr int kThreads = 256;
 constexpr int kTileRows = 256;       // prim rows staged per tile
 constexpr int kSphTileRows = 1024;   // K2's BVH mode: spheres staged at once
-constexpr int kStageBytes = 64 * 1024;   // K4 stages tables up to this size
 // scene/compile.py's KIND_*; integrator's per-medium draw purposes
 constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
               KIND_MEDIUM = 3;
@@ -111,9 +112,9 @@ __device__ __forceinline__ void sweep_tables(const Ray& r, bool live,
         hit::planar_nd(r, tile[4 * p], &num, &denom);
         if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;
         const float t = num / denom;
-        if (!(t >= lo && t <= hi && t < best)) continue;
         if (hit::planar_inside(r, tile[4 * p + 1], tile[4 * p + 2],
-                               tile[4 * p + 3], t, denom)) {
+                               tile[4 * p + 3], t, denom) &&
+            t >= lo && t <= hi && t < best) {
           best = t;
           if (kWithSlot) slot = n_sph + base + p;
         }
@@ -139,47 +140,6 @@ __device__ __forceinline__ float medium_sweep(const Ray& r, bool live,
   sweep_tables<false>(r, live, tile, sph, n_sph, pln, n_pl, t1 + 1e-4f,
                       CUDART_INF_F, false, &t2, &unused);
   return hit::medium_event(r, t1, t2, ts, u, neg_inv_density);
-}
-
-// sweep_tables for one lane on [lo, inf), without block synchronisation:
-// the tables are already in shared memory (or read from global memory).
-// With no upper bound the sphere roots' and the planar t's hi tests always
-// pass, so (t, slot) are sweep_tables' own. A sphere row whose
-// discriminant allows no root skips the square root and the divisions;
-// a planar row whose t is not in [lo, best) skips the hit point and the
-// functionals. ``slot_out`` may be null.
-__device__ __forceinline__ float lane_sweep(const Ray& r, const float4* sph,
-                                            int n_sph, const float4* pln,
-                                            int n_pl, float lo,
-                                            int* slot_out) {
-  float best = CUDART_INF_F;
-  int slot = -1;
-  for (int p = 0; p < n_sph; ++p) {
-    float half_b;
-    const float disc = hit::sphere_disc(r, sph[2 * p], &half_b);
-    if (!hit::sphere_ok(disc, sph[2 * p + 1])) continue;
-    float r1, r2;
-    hit::sphere_roots_of(r, disc, half_b, &r1, &r2);
-    const float t = r1 >= lo ? r1 : (r2 >= lo ? r2 : CUDART_INF_F);
-    if (t < best) {
-      best = t;
-      slot = p;
-    }
-  }
-  for (int p = 0; p < n_pl; ++p) {
-    float num, denom;
-    hit::planar_nd(r, pln[4 * p], &num, &denom);
-    if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;
-    const float t = num / denom;
-    if (!(t >= lo && t < best)) continue;
-    if (hit::planar_inside(r, pln[4 * p + 1], pln[4 * p + 2], pln[4 * p + 3],
-                           t, denom)) {
-      best = t;
-      slot = n_sph + p;
-    }
-  }
-  if (slot_out) *slot_out = slot;
-  return best;
 }
 
 __global__ void k2_sweep(const float* ox, const float* oy, const float* oz,
@@ -309,9 +269,7 @@ struct Scene {
   int n_pl;
   const int* pl_idx;
   const float4* msph;
-  int n_msph;
   const float4* mpln;
-  int n_mpl;
   const int* sph_off;
   const int* pl_off;
   const float* nid;
@@ -319,86 +277,22 @@ struct Scene {
   int n_media;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Bulk-copy ``rows`` float4s from global memory to shared memory,
-// completing on the mbarrier at ``bar`` (which expects the bytes).
-__device__ __forceinline__ void bulk_copy(float4* dst, const float4* src,
-                                          int rows, uint32_t bar) {
-  if (rows <= 0) return;
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(static_cast<uint32_t>(rows) * 16u), "r"(bar)
-      : "memory");
-}
-
 // K4: the solid sweep on [RAY_T_MIN, inf), then every medium in order, each
-// clipped to the best t so far (pallas_sweep.py:459-482). ``staged``: the
-// four tables fit kStageBytes and live in shared memory (the launcher's
-// choice, the same for every block).
+// clipped to the best t so far (pallas_sweep.py:459-482).
 __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
                              const float* dx, const float* dy, const float* dz,
                              Counter pix, Counter sample, Counter bounce,
-                             uint32_t seed, Scene sc, bool staged, int n_rays,
+                             uint32_t seed, Scene sc, int n_rays,
                              float* out_t, int* out_kind, int* out_idx) {
-  extern __shared__ __align__(128) float4 smem[];
-  __shared__ __align__(8) uint64_t bar;
+  __shared__ float4 tile[kTileRows * 4];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n_rays;  // no early return: every thread stages
-  const float4 *sph = sc.sph, *pln = sc.pln, *msph = sc.msph,
-               *mpln = sc.mpln;
-  const uint32_t bar_a = smem_addr(&bar);
-  if (staged) {
-    sph = smem;
-    pln = sph + 2 * sc.n_sph;
-    msph = pln + 4 * sc.n_pl;
-    mpln = msph + 2 * sc.n_msph;
-    // one thread starts the copies, every thread reads its ray meanwhile,
-    // then all wait on the barrier's first phase
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
-                   : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      const uint32_t bytes = 16u * static_cast<uint32_t>(
-          2 * sc.n_sph + 4 * sc.n_pl + 2 * sc.n_msph + 4 * sc.n_mpl);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   ::"r"(bar_a), "r"(bytes) : "memory");
-      bulk_copy(smem, sc.sph, 2 * sc.n_sph, bar_a);
-      bulk_copy(smem + 2 * sc.n_sph, sc.pln, 4 * sc.n_pl, bar_a);
-      bulk_copy(smem + 2 * sc.n_sph + 4 * sc.n_pl, sc.msph, 2 * sc.n_msph,
-                bar_a);
-      bulk_copy(smem + 2 * sc.n_sph + 4 * sc.n_pl + 2 * sc.n_msph, sc.mpln,
-                4 * sc.n_mpl, bar_a);
-    }
-    __syncthreads();  // the barrier is initialised before anyone waits
-  }
   Ray r = {};
   if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  if (staged) {
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}"
-          : "=r"(done)
-          : "r"(bar_a)
-          : "memory");
-    }
-  }
-
-  float best = CUDART_INF_F;
-  int slot = -1;
-  if (!staged) {
-    sweep_tables<true>(r, live, smem, sph, sc.n_sph, pln, sc.n_pl,
-                       hit::kRayTMin, CUDART_INF_F, true, &best, &slot);
-  } else if (live) {
-    best = lane_sweep(r, sph, sc.n_sph, pln, sc.n_pl, hit::kRayTMin, &slot);
-  }
+  float best;
+  int slot;
+  sweep_tables<true>(r, live, tile, sc.sph, sc.n_sph, sc.pln, sc.n_pl,
+                     hit::kRayTMin, CUDART_INF_F, true, &best, &slot);
   int medium = -1;
   const float inv0 = 1.f / r.d0, inv1 = 1.f / r.d1, inv2 = 1.f / r.d2;
   for (int m = 0; m < sc.n_media; ++m) {
@@ -408,20 +302,14 @@ __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
     const bool reach = live && hit::box_reach(r, inv0, inv1, inv2,
                                               sc.box[2 * m],
                                               sc.box[2 * m + 1], best);
-    float t1 = CUDART_INF_F, t2 = CUDART_INF_F;
-    if (!staged) {   // every thread takes part in the tiles
-      int unused;
-      sweep_tables<false>(r, reach, smem, msph + 2 * s0, ns, mpln + 4 * p0,
-                          np, -CUDART_INF_F, CUDART_INF_F, false, &t1,
-                          &unused);
-      sweep_tables<false>(r, reach, smem, msph + 2 * s0, ns, mpln + 4 * p0,
-                          np, t1 + 1e-4f, CUDART_INF_F, false, &t2, &unused);
-    } else if (reach) {
-      t1 = lane_sweep(r, msph + 2 * s0, ns, mpln + 4 * p0, np,
-                      -CUDART_INF_F, nullptr);
-      t2 = lane_sweep(r, msph + 2 * s0, ns, mpln + 4 * p0, np, t1 + 1e-4f,
-                      nullptr);
-    }
+    float t1, t2;
+    int unused;
+    sweep_tables<false>(r, reach, tile, sc.msph + 2 * s0, ns,
+                        sc.mpln + 4 * p0, np, -CUDART_INF_F, CUDART_INF_F,
+                        false, &t1, &unused);
+    sweep_tables<false>(r, reach, tile, sc.msph + 2 * s0, ns,
+                        sc.mpln + 4 * p0, np, t1 + 1e-4f, CUDART_INF_F, false,
+                        &t2, &unused);
     if (!reach) continue;
     const float u = hit::uniform4(pix.at(i), sample.at(i), bounce.at(i),
                                   kMediumPurposeBase + m, seed).x;
@@ -439,9 +327,9 @@ __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
   } else if (slot < sc.n_sph) {   // a sphere, or a miss (slot -1)
     kind = KIND_SPHERE;
     idx = slot < 0 ? 0 : slot;
-  } else {
+  } else {   // the planar row's is_tri column and pl_idx
     const int ps = slot - sc.n_sph;
-    kind = pln[4 * ps + 3].x > 0.5f ? KIND_TRIANGLE : KIND_QUAD;
+    kind = sc.pln[4 * ps + 3].x > 0.5f ? KIND_TRIANGLE : KIND_QUAD;
     idx = sc.pl_idx[ps];
   }
   out_t[i] = best;
@@ -507,8 +395,7 @@ extern "C" int k3_medium_launch(const float* ox, const float* oy,
 }
 
 // Counters: (pointer, element size 4 or 8, or 0 for ``value`` on every
-// lane). Tables 16-byte aligned (the bulk copies need it); n_msph / n_mpl
-// are the packed media tables' rows.
+// lane).
 extern "C" int k4_scene_hit_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* pix, int pix_size,
@@ -516,29 +403,21 @@ extern "C" int k4_scene_hit_launch(
     long long sample_value, const void* bounce, int bounce_size,
     long long bounce_value, unsigned int seed, const float* sph, int n_sph,
     const float* pln, int n_pl, const int* pl_idx, const float* msph,
-    int n_msph, const float* mpln, int n_mpl, const int* sph_off,
-    const int* pl_off, const float* nid, const float* box, int n_media,
-    int n_rays, float* out_t, int* out_kind, int* out_idx, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const long long bytes = 16LL * (2LL * n_sph + 4LL * n_pl + 2LL * n_msph +
-                                  4LL * n_mpl);
-  const bool staged = bytes <= kStageBytes;
-  const int smem = staged ? static_cast<int>(bytes) : kTileRows * 4 * 16;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k4_scene_hit, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const float* mpln, const int* sph_off, const int* pl_off,
+    const float* nid, const float* box, int n_media, int n_rays,
+    float* out_t, int* out_kind, int* out_idx, void* stream) {
+  if (n_rays > 0) {
+    const Scene sc{reinterpret_cast<const float4*>(sph), n_sph,
+                   reinterpret_cast<const float4*>(pln), n_pl, pl_idx,
+                   reinterpret_cast<const float4*>(msph),
+                   reinterpret_cast<const float4*>(mpln), sph_off, pl_off,
+                   nid, reinterpret_cast<const float4*>(box), n_media};
+    k4_scene_hit<<<blocks_for(n_rays), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz, Counter{pix, pix_value, pix_size},
+        Counter{sample, sample_value, sample_size},
+        Counter{bounce, bounce_value, bounce_size}, seed, sc, n_rays, out_t,
+        out_kind, out_idx);
   }
-  const Scene sc{reinterpret_cast<const float4*>(sph), n_sph,
-                 reinterpret_cast<const float4*>(pln), n_pl, pl_idx,
-                 reinterpret_cast<const float4*>(msph), n_msph,
-                 reinterpret_cast<const float4*>(mpln), n_mpl, sph_off,
-                 pl_off, nid, reinterpret_cast<const float4*>(box), n_media};
-  k4_scene_hit<<<blocks_for(n_rays), kThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, Counter{pix, pix_value, pix_size},
-      Counter{sample, sample_value, sample_size},
-      Counter{bounce, bounce_value, bounce_size}, seed, sc, staged, n_rays,
-      out_t, out_kind, out_idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,8 +52,8 @@ _SIGNATURES = {
                                          _I, _P, _P, _P, _P],
     "k3_medium_launch": [_P] * 8 + [_P, _I, _P, _I, _P, _I, _P, _P],
     "k4_scene_hit_launch": [_P] * 6 + [_P, _I, _LL] * 3 + [
-        _U, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
-        _P, _P, _P],
+        _U, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+        _P],
     "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P, _P],

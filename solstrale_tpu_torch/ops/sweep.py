@@ -456,9 +456,6 @@ def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
             s.pl_idx.device != dev:
         raise ValueError("scene_hit: media offsets and pl_idx must be on the "
                          "rays' device")
-    tables = (sph, pln, media.sph, media.pln)
-    if any(t.data_ptr() % 16 for t in tables):
-        raise ValueError("scene_hit: tables must be 16-byte aligned")
     counters = [x for c in (pixel, sample, bounce)
                 for x in _counter(c, r, dev)]
     out_t = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -468,8 +465,8 @@ def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
     err = _build.library().k4_scene_hit_launch(
         *(p(x) for x in rays), *counters, int(seed) & 0xFFFFFFFF, p(sph),
         sph.shape[0], p(pln), pln.shape[0], p(s.pl_idx), p(media.sph),
-        media.sph.shape[0], p(media.pln), media.pln.shape[0],
-        p(media.sph_off_t), p(media.pl_off_t), p(media.nid), p(media.box),
+        p(media.pln), p(media.sph_off_t), p(media.pl_off_t), p(media.nid),
+        p(media.box),
         media.n_media, r, p(out_t), p(out_kind), p(out_idx),
         _build.stream_of(out_t))
     _build.check(err, "k4_scene_hit")

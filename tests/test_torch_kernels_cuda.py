@@ -168,8 +168,7 @@ def _grazing_kitchen(cfg):
 K4_SCENES = {
     "kitchen": fixtures.kitchen_sink_scene,
     "grazing": _grazing_kitchen,
-    # 1,156 planar rows, 74.5 KB of tables with the medium's: beyond what
-    # K4 stages whole (csrc/sweep.cu kStageBytes), so it takes the tiled loop
+    # 1,156 planar rows: five of K4's shared-memory tiles
     "large": lambda c: fixtures.mixed_bvh_scene(c, n_cells=24),
 }
 
@@ -179,7 +178,7 @@ def test_k4_matches_plain(cuda, name):
     """The fused scene hit equals its plain version exactly on t, kind and
     idx: on the normal-mapped kitchen-sink scene (2 spheres, 141 planar
     rows, one medium box), on its camera grazing the medium box, and on
-    tables too large to stage whole; camera rays of 96x64 pixels, the
+    tables of several tiles; camera rays of 96x64 pixels, the
     bounces from their hits, random rays and parked rays. The counters are
     an int64 pixel tensor, an int sample and an int32 bounce tensor, as
     trace_queued gives them."""
