@@ -621,8 +621,9 @@ def phase_kernels(sponza_cs):
         got = kernels[key]
         if len(got) != len(want) or not all(w in g for w, g in zip(want, got)):
             raise AssertionError(f"{key}: one call ran {got}")
-    log("kernels_per_call", **{k: [g.split("(")[0][:60] for g in v]
-                               for k, v in kernels.items()})
+    log("kernels_per_call", **{
+        k: [g.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            for g in v] for k, v in kernels.items()})
     return out
 
 
