@@ -258,42 +258,44 @@ def device_ms(fn, n=20, reps=3, warmup=2):
     return times[len(times) // 2]
 
 
-def device_kernels(calls):
+def device_kernels(calls, attempts=5):
     """For each of ``calls`` (name -> fn), the names of the device kernels
     one call runs. One torch.profiler session for all: the calls are
     separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
     boundaries in the device timeline; memory copies and sets are not
-    counted. The trace can lose its last few device events, so a few more
-    markers follow the last call, and at least one must arrive."""
+    counted. On the chip machine a session sometimes comes back without
+    device events, or without its last ones: a few more markers follow the
+    last call, at least one must arrive, and a session that fails that is
+    run again, up to ``attempts`` times."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for fn in calls.values():
-            torch.cuda._sleep(100_000)
-            fn()
-        for _ in range(4):
-            torch.cuda._sleep(100_000)
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "memcpy" not in e.name.lower()
-                     and "memset" not in e.name.lower()),
-                    key=lambda e: e.time_range.start)
-    groups = [[] for _ in calls]
-    markers = 0
-    for e in events:
-        if "spin_kernel" in e.name or "sleep" in e.name.lower():
-            markers += 1
-        elif 1 <= markers <= len(calls):
-            groups[markers - 1].append(e.name)
-    if markers <= len(calls):
-        raise RuntimeError(f"device_kernels: the trace holds {markers} "
-                           f"markers for {len(calls)} calls ({len(events)} "
-                           "device events)")
-    return dict(zip(calls, groups))
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in calls.values():
+                torch.cuda._sleep(100_000)
+                fn()
+            for _ in range(4):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "memcpy" not in e.name.lower()
+                         and "memset" not in e.name.lower()),
+                        key=lambda e: e.time_range.start)
+        groups = [[] for _ in calls]
+        markers = 0
+        for e in events:
+            if "spin_kernel" in e.name or "sleep" in e.name.lower():
+                markers += 1
+            elif 1 <= markers <= len(calls):
+                groups[markers - 1].append(e.name)
+        if markers > len(calls):
+            return dict(zip(calls, groups))
+    raise RuntimeError(f"device_kernels: {attempts} traces held at most "
+                       f"{markers} markers for {len(calls)} calls")
 
 
 def kernel_times(fn, plain):

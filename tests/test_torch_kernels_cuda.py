@@ -348,19 +348,31 @@ def test_card_render_matches_cpu_and_repeats(cuda):
     assert close.mean() >= 0.995
 
 
-def _device_kernels(fn):
+def _device_kernels(fn, attempts=5):
     """Names of the device kernels one call of ``fn`` ran (torch.profiler);
-    memory copies and sets are not kernels."""
+    memory copies and sets are not kernels. A call between two sleep
+    kernels: a trace can come back without device events or without its
+    last ones, so one without the closing sleep is taken again."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "memcpy" not in e.name.lower()
-            and "memset" not in e.name.lower()]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(100_000)
+            fn()
+            for _ in range(4):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "memcpy" not in e.name.lower()
+                         and "memset" not in e.name.lower()),
+                        key=lambda e: e.time_range.start)
+        sleeps = [i for i, e in enumerate(events)
+                  if "spin_kernel" in e.name or "sleep" in e.name.lower()]
+        if len(sleeps) >= 2:
+            return [e.name for e in events[sleeps[0] + 1:sleeps[1]]]
+    raise AssertionError("no complete profiler trace")
 
 
 @pytest.mark.parametrize("route", ["K2", "K4"])
