@@ -263,10 +263,10 @@ def device_kernels(calls, attempts=5):
     one call runs. One torch.profiler session for all: the calls are
     separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
     boundaries in the device timeline; memory copies and sets are not
-    counted. On the chip machine a session sometimes comes back without
-    device events, or without its last ones: a few more markers follow the
-    last call, at least one must arrive, and a session that fails that is
-    run again, up to ``attempts`` times."""
+    counted. A session sometimes comes back without device events, or
+    without its last ones (seen on an H100 with torch 2.11): a few more
+    markers follow the last call, at least one must arrive, and a session
+    that fails that is run again, up to ``attempts`` times."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,

@@ -36,8 +36,8 @@
 // - On a sweep whose lower bound is positive (the solid sweeps), a planar
 //   row whose numerator and denominator differ in sign skips its IEEE
 //   division and the rest of its test (hit::planar_ahead): its t could not
-//   pass the bound (11% of K4's time on the kitchen, PERF.md, PR 5).
-// Measured on the card and left out as gaining nothing (PERF.md, PR 5):
+//   pass the bound (11% of K4's time on the kitchen, PERF.md).
+// Measured on the card and left out as gaining nothing (PERF.md):
 // staging K4's whole tables at once with bulk copies on an mbarrier (6%
 // slower than these tiles), and testing a planar row's t before its hit
 // point and functionals.
