@@ -70,10 +70,14 @@ HBM_BPS = 3.35e12     # device memory bytes/s
 # division count one each; compares not counted)
 FLOPS_SPHERE = 31
 FLOPS_PLANAR = 32
-# a planar row's numerator and denominator (hit::planar_nd: d.n 5, o.n 5,
-# the subtraction): on a sweep with a positive lower bound K4 divides and
-# tests a row in full only where the two share a sign (t > 0)
+# FLOPS_PLANAR in parts: a planar row's numerator and denominator
+# (hit::planar_nd: d.n 5, o.n 5, the subtraction), its division, and the
+# rest of its test (the hit point and both functionals). K3's and K4's
+# bounds charge the division and the rest only where a sweep needs them
+# (_planar_rows)
 FLOPS_PLANAR_ND = 11
+FLOPS_PLANAR_DIV = 1
+FLOPS_PLANAR_REST = FLOPS_PLANAR - FLOPS_PLANAR_ND - FLOPS_PLANAR_DIV
 # one box of K1's slab test (csrc/bvh.cu slab2 and its callers): per axis
 # two subtractions and two multiplies, the interval's min and max, and on
 # the second and third axes the fold into near and far; the entry's clamp
@@ -256,46 +260,6 @@ def device_ms(fn, n=20, reps=3, warmup=2):
             n = max(1, n // 2)
     times.sort()
     return times[len(times) // 2]
-
-
-def device_kernels(calls, attempts=5):
-    """For each of ``calls`` (name -> fn), the names of the device kernels
-    one call runs. One torch.profiler session for all: the calls are
-    separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
-    boundaries in the device timeline; memory copies and sets are not
-    counted. A session sometimes comes back without device events, or
-    without its last ones (seen on an H100 with torch 2.11): a few more
-    markers follow the last call, at least one must arrive, and a session
-    that fails that is run again, up to ``attempts`` times."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for fn in calls.values():
-                torch.cuda._sleep(100_000)
-                fn()
-            for _ in range(4):
-                torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "memcpy" not in e.name.lower()
-                         and "memset" not in e.name.lower()),
-                        key=lambda e: e.time_range.start)
-        groups = [[] for _ in calls]
-        markers = 0
-        for e in events:
-            if "spin_kernel" in e.name or "sleep" in e.name.lower():
-                markers += 1
-            elif 1 <= markers <= len(calls):
-                groups[markers - 1].append(e.name)
-        if markers > len(calls):
-            return dict(zip(calls, groups))
-    raise RuntimeError(f"device_kernels: {attempts} traces held at most "
-                       f"{markers} markers for {len(calls)} calls")
 
 
 def kernel_times(fn, plain):
@@ -547,6 +511,7 @@ def _k1(cs):
 
 def phase_kernels(sponza_cs):
     import torch
+    from solstrale_tpu_torch import profiling
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
     from solstrale_tpu_torch.ops import sweep
 
@@ -608,7 +573,9 @@ def phase_kernels(sponza_cs):
     # K4 on the same tables with both medium boxes (the second overlaps the
     # first, so it clips against the first's events)
     pix = torch.arange(65536, device=dev)
-    _check_k4("K4 scene_hit (procedural)", cs, o, d, (pix, 1, 0, 1))
+    _check_k4("K4 scene_hit (procedural)", cs, o, d,
+              (pix, torch.ones_like(pix),
+               torch.zeros_like(pix, dtype=torch.int32), 1))
     # and at the main path's shape: the normal-mapped kitchen-sink scene's
     # tables, 131,072 lanes of 1080p camera rays and their bounces
     kcs, ko, kd, counters = _kitchen_rays(dev)
@@ -616,7 +583,7 @@ def phase_kernels(sponza_cs):
                           traces)
     # the device kernels of one call each: K2's and K4's a route makes are
     # one kernel (no fill, RNG, stack, combine or decode op)
-    kernels = device_kernels(traces)
+    kernels = profiling.device_kernels(traces)
     for key, want in (("K2 bvh_sphere_hit", ["k2_bvh_spheres"]),
                       ("K4 integrator.scene_hit", ["k4_scene_hit"]),
                       ("bvh_closest_hit", ["", "k1_bvh", "k2_bvh_spheres"])):
@@ -701,74 +668,104 @@ def _main_path_k2_k3(out, traces):
         else 0.0
     tm = kernel_times(lambda: sweep.medium_hit(*args),
                       lambda: sweep.medium_hit_plain(*args))
+    live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
     out["K3"].update(max_abs_err=max(err, out["K3"]["max_abs_err"]), **tm,
                      **bound(r * 36 + nbytes(b.sph_table, b.pl_table),
-                             n_live * (2 * sweep_flops(b.sph_table.shape[0],
-                                                       b.pl_table.shape[0])
-                                       + FLOPS_MEDIUM_TAIL)))
+                             _medium_sweep_flops(b.sph_table, b.pl_table, o,
+                                                 d, live)
+                             + n_live * FLOPS_MEDIUM_TAIL))
     log("kernel", name="K3 medium_hit (mixed, main path)", rays=r,
         events=int(fin.sum()), max_abs_err=err, **tm)
 
 
-def _box_reach(o, d, box, ts):
-    """csrc/hit.cuh::box_reach in f32 torch for box row ``box`` (8,):
-    whether each ray's line meets the box in [0, ts]."""
-    import torch
-
-    tn = torch.full_like(ts, -torch.inf)
-    tf = torch.full_like(ts, torch.inf)
-    for k in range(3):
-        inv = 1.0 / d[k]
-        a, b = (box[k] - o[k]) * inv, (box[4 + k] - o[k]) * inv
-        tn = torch.fmax(tn, torch.fmin(a, b))
-        tf = torch.fmin(tf, torch.fmax(a, b))
-    return (tn <= tf) & (tf >= 0.0) & (tn <= ts)
-
-
-def _ahead_rows(pln, o, d, mask):
-    """(ray, row) pairs of planar table ``pln`` whose t is positive, for the
-    rays in ``mask``: the rows a sweep with a positive lower bound divides
-    and tests in full (the others stop at hit::planar_ahead)."""
+def _planar_rows(pln, o, d, mask, lo, best):
+    """One sweep of planar table ``pln`` by the rays in ``mask`` on [lo,
+    ...) ((R,) f32) whose answer is ``best`` ((R,) f32): (rows it must
+    divide, rows it must test in full), over all those rays. A row needs its
+    division unless the sweep may skip it (lo > 0 and t not positive:
+    hit::planar_ahead), and the rest of its test only where lo <= t <=
+    best, the one window in which it can decide the answer; a row outside
+    the window is rejected on its t alone."""
     from solstrale_tpu_torch.ops import sweep
 
-    n = 0
+    divided = tested = 0
     for a in range(0, o[0].numel(), sweep.RAY_CHUNK):
         sl = slice(a, a + sweep.RAY_CHUNK)
         _, t = sweep._planar_t(tuple(c[sl][:, None] for c in o),
                                tuple(c[sl][:, None] for c in d), pln)
-        n += int(((t > 0) & mask[sl][:, None]).sum())
-    return n
+        m = mask[sl][:, None]
+        lo_c, best_c = lo[sl][:, None], best[sl][:, None]
+        divided += int((m & ((t > 0) | (lo_c <= 0))).sum())
+        tested += int((m & (t >= lo_c) & (t <= best_c)).sum())
+    return divided, tested
+
+
+def _planar_flops(pln, o, d, mask, lo, best):
+    """f32 operations of that sweep's planar rows: every row's numerator
+    and denominator, and the division and the rest of the test where
+    ``_planar_rows`` says the sweep needs them."""
+    divided, tested = _planar_rows(pln, o, d, mask, lo, best)
+    return (int(mask.sum()) * pln.shape[0] * FLOPS_PLANAR_ND
+            + divided * FLOPS_PLANAR_DIV + tested * FLOPS_PLANAR_REST)
+
+
+def _medium_sweep_flops(msph, mpln, o, d, mask):
+    """f32 operations of one medium's two boundary sweeps by the rays in
+    ``mask``: every sphere test of both, and the planar rows as
+    ``_planar_flops`` counts them: the entry sweep on (-inf, ...) up to its
+    answer t1, the exit sweep on [t1 + 1e-4, ...) up to its answer t2."""
+    import torch
+    from solstrale_tpu_torch.geo import INF
+    from solstrale_tpu_torch.ops import sweep
+
+    t1s, t2s = [], []
+    for a in range(0, o[0].numel(), sweep.RAY_CHUNK):
+        sl = slice(a, a + sweep.RAY_CHUNK)
+        oc = tuple(c[sl][:, None] for c in o)
+        dc = tuple(c[sl][:, None] for c in d)
+        dd, od, oo = sweep._ray_scalars(oc, dc)
+        t1 = sweep._closest_t_plain(msph, mpln, oc, dc, dd, od, oo, -INF)
+        t1s.append(t1)
+        t2s.append(sweep._closest_t_plain(msph, mpln, oc, dc, dd, od, oo,
+                                          (t1 + 1e-4)[:, None]))
+    t1, t2 = torch.cat(t1s), torch.cat(t2s)
+    return (int(mask.sum()) * 2 * msph.shape[0] * FLOPS_SPHERE
+            + _planar_flops(mpln, o, d, mask, torch.full_like(t1, -INF), t1)
+            + _planar_flops(mpln, o, d, mask, t1 + 1e-4, t2))
 
 
 def _k4_flops(cs, o, d, t_solid):
     """K4's f32 operations on these rays, from the work their data needs:
-    per live ray each sphere's test (31), each planar row's numerator and
-    denominator (11) and, where its t is positive, the division and the
-    rest of its test (21 more); per medium and live ray the box test; per
-    ray that reaches a medium's box its two boundary sweeps (the first in
-    full, as its lower bound is -inf; the second like the solid sweep) and
-    the event. The media clip against the solid hit (the scene's media do
-    not overlap). Returns (operations, rays that reach a medium's box)."""
+    per live ray each sphere's test (31), the solid planar rows as
+    ``_planar_flops`` counts them on [RAY_T_MIN, ...) up to the closest
+    solid hit ``t_solid``, and per medium the box test; per ray that reaches
+    a medium's box that medium's two boundary sweeps
+    (``_medium_sweep_flops``) and the event. The media clip against the
+    solid hit (the scene's media do not overlap). Returns (operations, rays
+    that reach a medium's box, solid planar rows tested in full per live
+    ray)."""
     import torch
+    from solstrale_tpu_torch.geo import RAY_T_MIN
+    from solstrale_tpu_torch.ops import sweep
     from solstrale_tpu_torch.renderer import integrator
 
     s, mt = cs.solids, integrator.media_tables(cs)
     live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
-    rest = FLOPS_PLANAR - FLOPS_PLANAR_ND
-    flops = int(live.sum()) * (s.sph_table.shape[0] * FLOPS_SPHERE
-                               + s.pl_table.shape[0] * FLOPS_PLANAR_ND
-                               + mt.n_media * K4_BOX)
-    flops += rest * _ahead_rows(s.pl_table, o, d, live)
+    n_live = int(live.sum())
+    lo = torch.full_like(t_solid, RAY_T_MIN)
+    divided, tested = _planar_rows(s.pl_table, o, d, live, lo, t_solid)
+    flops = (n_live * (s.sph_table.shape[0] * FLOPS_SPHERE
+                       + s.pl_table.shape[0] * FLOPS_PLANAR_ND
+                       + mt.n_media * K4_BOX)
+             + divided * FLOPS_PLANAR_DIV + tested * FLOPS_PLANAR_REST)
     reach_rays = torch.zeros_like(live)
     for m in range(mt.n_media):
         msph, mpln = mt.boundary(m)
-        reach = live & _box_reach(o, d, mt.box[m], t_solid)
+        reach = live & sweep.box_reach_plain(o, d, mt.box[m], t_solid)
         reach_rays |= reach
-        flops += int(reach.sum()) * (
-            2 * msph.shape[0] * FLOPS_SPHERE
-            + mpln.shape[0] * (FLOPS_PLANAR + FLOPS_PLANAR_ND) + K4_MEDIUM)
-        flops += rest * _ahead_rows(mpln, o, d, reach)
-    return flops, int(reach_rays.sum())
+        flops += (int(reach.sum()) * K4_MEDIUM
+                  + _medium_sweep_flops(msph, mpln, o, d, reach))
+    return flops, int(reach_rays.sum()), tested / max(n_live, 1)
 
 
 def _check_k4(name, cs, o, d, counters, traces=None):
@@ -809,22 +806,22 @@ def _check_k4(name, cs, o, d, counters, traces=None):
                       lambda: sweep.scene_hit_plain(s, mt, o, d, *counters))
     t_solid = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
                                       1e-3, float("inf"))[0]
-    flops, reach = _k4_flops(cs, o, d, t_solid)
-    counter_bytes = sum(c.element_size() for c in counters
-                        if isinstance(c, torch.Tensor))
+    flops, reach, rows_tested = _k4_flops(cs, o, d, t_solid)
+    counter_bytes = sum(c.element_size() for c in counters[:3])
     b = bound(o[0].numel() * (24 + 12) + reach * counter_bytes
               + nbytes(s.sph_table, s.pl_table, s.pl_idx, mt.sph, mt.pln,
                        mt.sph_off_t, mt.pl_off_t, mt.nid, mt.box), flops)
     log("kernel", name=name, **info, rays_reaching_a_medium=reach,
-        flops=flops, **tm, **b)
+        solid_rows_tested_per_live_ray=rows_tested, flops=flops, **tm, **b)
     return dict(max_abs_err=0.0, **tm, **b)
 
 
 def _kitchen_rays(device, lanes=131072):
     """The K4 inputs of one wavefront iteration on the normal-mapped
     kitchen-sink scene at 1080p: camera rays of every 16th pixel, bounce
-    rays from their hits, and their counters (pixel int64, sample 1,
-    bounce int32 0 or 1, seed 1). Returns (cs, o, d, counters)."""
+    rays from their hits, and their counters (pixel int64, sample int64 1,
+    bounce int32 0 or 1, seed 1), as trace_queued gives them. Returns (cs,
+    o, d, counters)."""
     import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
@@ -839,7 +836,9 @@ def _kitchen_rays(device, lanes=131072):
     half = lanes // 2
     pix = torch.linspace(0, 1920 * 1080 - 1, half, device=device).long()
     o, d = integrator._camera_rays(cs, pix, 1, 1, 1920, 1080)
-    t, kind, idx = integrator.scene_hit(cs, o, d, pix, 1, 0, 1)
+    sample = torch.ones_like(pix)
+    zero = torch.zeros(half, dtype=torch.int32, device=device)
+    t, kind, idx = integrator.scene_hit(cs, o, d, pix, sample, zero, 1)
     hit = torch.isfinite(t)
     attrs = integrator.full_hit_attributes(
         cs, o, d, torch.where(hit, t, 0.0), kind, idx, pix, 1, 0, 1)
@@ -850,9 +849,9 @@ def _kitchen_rays(device, lanes=131072):
     bo = soa.where3(hit, attrs["point"], o)
     oo = tuple(torch.cat([a, b]) for a, b in zip(o, bo))
     dd = tuple(torch.cat([a, b]) for a, b in zip(d, bd))
-    bounce = torch.cat([torch.zeros(half, dtype=torch.int32, device=device),
-                        torch.ones(half, dtype=torch.int32, device=device)])
-    return cs, oo, dd, (torch.cat([pix, pix]), 1, bounce, 1)
+    bounce = torch.cat([zero, torch.ones_like(zero)])
+    return cs, oo, dd, (torch.cat([pix, pix]), torch.cat([sample, sample]),
+                        bounce, 1)
 
 
 def _final_image(scene, device):

@@ -242,19 +242,15 @@ __global__ void k3_medium(const float* ox, const float* oy, const float* oz,
 }
 
 // A lane counter (pixel, sample or bounce): an (R,) int32 (size 4) or
-// int64 (size 8) array, or one value for every lane (size 0); taken as its
-// low 32 bits, as rng._u32 does.
+// int64 (size 8) array; taken as its low 32 bits, as rng._u32 does.
 struct Counter {
   const void* p;
-  long long value;
   int size;
 
   __device__ __forceinline__ uint32_t at(int i) const {
     if (size == 8) return static_cast<uint32_t>(
         static_cast<const long long*>(p)[i]);
-    if (size == 4) return static_cast<uint32_t>(
-        static_cast<const int*>(p)[i]);
-    return static_cast<uint32_t>(value);
+    return static_cast<uint32_t>(static_cast<const int*>(p)[i]);
   }
 };
 
@@ -394,14 +390,12 @@ extern "C" int k3_medium_launch(const float* ox, const float* oy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Counters: (pointer, element size 4 or 8, or 0 for ``value`` on every
-// lane).
+// Counters: (pointer, element size 4 or 8).
 extern "C" int k4_scene_hit_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* pix, int pix_size,
-    long long pix_value, const void* sample, int sample_size,
-    long long sample_value, const void* bounce, int bounce_size,
-    long long bounce_value, unsigned int seed, const float* sph, int n_sph,
+    const void* sample, int sample_size, const void* bounce, int bounce_size,
+    unsigned int seed, const float* sph, int n_sph,
     const float* pln, int n_pl, const int* pl_idx, const float* msph,
     const float* mpln, const int* sph_off, const int* pl_off,
     const float* nid, const float* box, int n_media, int n_rays,
@@ -414,10 +408,9 @@ extern "C" int k4_scene_hit_launch(
                    nid, reinterpret_cast<const float4*>(box), n_media};
     k4_scene_hit<<<blocks_for(n_rays), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, Counter{pix, pix_value, pix_size},
-        Counter{sample, sample_value, sample_size},
-        Counter{bounce, bounce_value, bounce_size}, seed, sc, n_rays, out_t,
-        out_kind, out_idx);
+        ox, oy, oz, dx, dy, dz, Counter{pix, pix_size},
+        Counter{sample, sample_size}, Counter{bounce, bounce_size}, seed, sc,
+        n_rays, out_t, out_kind, out_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,7 +41,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_LL = ctypes.c_longlong
 _U = ctypes.c_uint
 # C entry points: argument types (pointers, ints, floats, stream) ->
 # cudaError_t
@@ -51,7 +50,7 @@ _SIGNATURES = {
     "k2_bvh_spheres_launch": [_P] * 6 + [_F, _F, _P, _I, _P, _P, _P, _P, _I,
                                          _I, _P, _P, _P, _P],
     "k3_medium_launch": [_P] * 8 + [_P, _I, _P, _I, _P, _I, _P, _P],
-    "k4_scene_hit_launch": [_P] * 6 + [_P, _I, _LL] * 3 + [
+    "k4_scene_hit_launch": [_P] * 6 + [_P, _I] * 3 + [
         _U, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
         _P],
     "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,

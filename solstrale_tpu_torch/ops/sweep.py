@@ -31,7 +31,7 @@ import torch
 
 from ..geo import ALMOST_ZERO, INF, RAY_T_MIN
 from ..scene.compile import (KIND_MEDIUM, KIND_QUAD, KIND_SPHERE,
-                             KIND_TRIANGLE, CompiledScene, Solids)
+                             KIND_TRIANGLE, Solids)
 from . import _build, rng
 
 # plain versions work on (ray chunk, prim chunk) blocks to bound memory
@@ -227,7 +227,7 @@ class MediaTables:
                 self.pln[self.pl_off[m]:self.pl_off[m + 1]])
 
 
-def _extent(s):
+def extent(s: Solids):
     """(lo, hi) f64 (3,) over the valid spheres, quad corners and triangle
     vertices of a ``Solids``; lo = inf, hi = -inf when it has none."""
     c = s.sph_center[s.sph_valid].double()
@@ -241,33 +241,44 @@ def _extent(s):
             torch.cat([c + r, corners, -inf]).amax(0))
 
 
-def medium_boxes(cs: CompiledScene):
-    """(M, 8) f32 box per medium for the cull, lo xyz 0 hi xyz 0: the
-    extent of the medium's boundary grown by MEDIUM_BOX_PAD of the scene's
-    largest coordinate (solids, media and the camera's origin and lens).
-    A medium without boundary prims keeps lo = inf, hi = -inf, which the
-    slab test never culls (its sweeps find nothing)."""
-    extents = [_extent(m.boundary) for m in cs.media]
-    coords = torch.cat([torch.cat(e) for e in [_extent(cs.solids)] + extents])
-    cam = cs.camera
-    scale = max(1.0, float(cam.origin.abs().max() + cam.lens_radius),
-                float(coords[coords.isfinite()].abs().max()))
+def medium_boxes(media, device, scale):
+    """(M, 8) f32 box per medium of ``media`` (tuple of Medium) for the
+    cull, lo xyz 0 hi xyz 0: the extent of the medium's boundary grown by
+    MEDIUM_BOX_PAD of ``scale``, the scene's largest coordinate (the
+    renderer's ``integrator.box_scale``). A medium without boundary prims
+    keeps lo = inf, hi = -inf, which the slab test never culls (its sweeps
+    find nothing)."""
     pad = MEDIUM_BOX_PAD * scale
-    zero = torch.zeros(1, dtype=torch.float64, device=cs.device)
-    rows = [torch.cat([lo - pad, zero, hi + pad, zero]) for lo, hi in extents]
+    zero = torch.zeros(1, dtype=torch.float64, device=device)
+    rows = [torch.cat([lo - pad, zero, hi + pad, zero])
+            for lo, hi in (extent(m.boundary) for m in media)]
     return (torch.stack(rows).to(torch.float32) if rows else
-            torch.zeros((0, 8), dtype=torch.float32, device=cs.device))
+            torch.zeros((0, 8), dtype=torch.float32, device=device))
 
 
-def pack_media(cs: CompiledScene):
-    """MediaTables of a compiled scene's ``media`` (tuple of Medium)."""
+def box_reach_plain(o, d, box, ts):
+    """``hit::box_reach`` in f32 torch for one medium's box row ``box``
+    (8,): whether each ray's line meets the box at some parameter in [0,
+    ts] (torch.fmin / fmax drop NaN as fminf / fmaxf do)."""
+    tn = torch.full_like(ts, -torch.inf)
+    tf = torch.full_like(ts, torch.inf)
+    for k in range(3):
+        inv = 1.0 / d[k]
+        a, b = (box[k] - o[k]) * inv, (box[4 + k] - o[k]) * inv
+        tn = torch.fmax(tn, torch.fmin(a, b))
+        tf = torch.fmin(tf, torch.fmax(a, b))
+    return (tn <= tf) & (tf >= 0.0) & (tn <= ts)
+
+
+def pack_media(media, device, scale):
+    """MediaTables of ``media`` (tuple of Medium) on ``device``; ``scale``
+    sizes the boxes' pad (``medium_boxes``)."""
     def offsets(tables):
         out = [0]
         for t in tables:
             out.append(out[-1] + t.shape[0])
         return tuple(out)
 
-    media, device = cs.media, cs.device
     sphs = [m.boundary.sph_table for m in media]
     plns = [m.boundary.pl_table for m in media]
     f32 = dict(dtype=torch.float32, device=device)
@@ -282,7 +293,7 @@ def pack_media(cs: CompiledScene):
              if media else torch.zeros((0,), **f32)),
         mat=(torch.stack([m.mat for m in media]).to(torch.int32) if media
              else torch.zeros((0,), dtype=torch.int32, device=device)),
-        box=medium_boxes(cs))
+        box=medium_boxes(media, device, scale))
 
 
 def scene_hit_plain(s: Solids, media: MediaTables, o, d, pixel, sample,
@@ -421,25 +432,24 @@ medium_hit.launches = 0
 
 
 def _counter(x, r, dev):
-    """K4's (pointer, element size, value) of a lane counter: an (R,) int32
-    or int64 tensor on the rays' device, or an int for every lane."""
-    if not isinstance(x, torch.Tensor):
-        return None, 0, int(x) & 0xFFFFFFFF
-    if x.shape != (r,) or x.dtype not in (torch.int32, torch.int64) or \
-            x.device != dev or not x.is_contiguous():
-        raise ValueError("scene_hit: a counter must be an int or a "
-                         "contiguous (R,) int32 / int64 tensor on the rays' "
-                         "device")
-    return _build.ptr(x), x.element_size(), 0
+    """K4's (pointer, element size) of a lane counter: a contiguous (R,)
+    int32 or int64 tensor on the rays' device."""
+    if not isinstance(x, torch.Tensor) or x.shape != (r,) or \
+            x.dtype not in (torch.int32, torch.int64) or x.device != dev or \
+            not x.is_contiguous():
+        raise ValueError("scene_hit: a counter must be a contiguous (R,) "
+                         "int32 / int64 tensor on the rays' device")
+    return _build.ptr(x), x.element_size()
 
 
 def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
               seed):
     """K4: the whole scene hit of a scene without a BVH in one launch —
     closest solid hit plus every medium's event, the flight uniforms drawn
-    from the lane counters (pixel, sample, bounce: (R,) int tensors or
-    ints; seed: an int) in the kernel (``scene_hit_plain`` says what it
-    computes). Returns (t, kind, idx)."""
+    from the lane counters (pixel, sample, bounce: (R,) int32 / int64
+    tensors, as ``trace_queued`` passes them; seed: an int) in the kernel
+    (``scene_hit_plain`` says what it computes; on CPU rays it also takes
+    ints for counters). Returns (t, kind, idx)."""
     rays = _build.ray_components(o, d)
     sph, pln = s.sph_table, s.pl_table
     dev, r = _build.check_rays(rays, sph, pln, media.sph, media.pln,

@@ -50,6 +50,44 @@ def device_kernel_times(prof):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def device_kernels(calls, attempts=5):
+    """For each of ``calls`` (name -> fn), the names of the device kernels
+    one call runs. One torch.profiler session for all: the calls are
+    separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
+    boundaries in the device timeline; memory copies and sets are not
+    counted. A session sometimes comes back without device events, or
+    without its last ones (seen on an H100 with torch 2.11): a few more
+    markers follow the last call, at least one must arrive, and a session
+    that fails that is run again, up to ``attempts`` times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in calls.values():
+                torch.cuda._sleep(100_000)
+                fn()
+            for _ in range(4):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "memcpy" not in e.name.lower()
+                         and "memset" not in e.name.lower()),
+                        key=lambda e: e.time_range.start)
+        groups = [[] for _ in calls]
+        markers = 0
+        for e in events:
+            if "spin_kernel" in e.name or "sleep" in e.name.lower():
+                markers += 1
+            elif 1 <= markers <= len(calls):
+                groups[markers - 1].append(e.name)
+        if markers > len(calls):
+            return dict(zip(calls, groups))
+    raise RuntimeError(f"device_kernels: {attempts} traces held at most "
+                       f"{markers} markers for {len(calls)} calls")
+
+
 def profile_batch(scene_name="sponza"):
     from .renderer import integrator
     from .scene.compile import compile_scene

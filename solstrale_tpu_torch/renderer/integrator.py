@@ -128,7 +128,20 @@ def media_tables(cs: CompiledScene):
     """Every medium's boundary packed, with its padded box, for the fused
     scene hit (K4) and the render megakernel (K5):
     ``ops.sweep.MediaTables``."""
-    return per_scene(cs, "media", lambda: sweep.pack_media(cs))
+    return per_scene(cs, "media", lambda: sweep.pack_media(
+        cs.media, cs.device, box_scale(cs)))
+
+
+def box_scale(cs: CompiledScene):
+    """The scene's largest coordinate, at least 1: over the solids, the
+    media's boundaries and the camera's origin and lens, the scale of every
+    ray origin and hit point. The media's boxes are padded by
+    ``ops.sweep.MEDIUM_BOX_PAD`` of it."""
+    coords = torch.cat([torch.cat(sweep.extent(s)) for s in
+                        [cs.solids] + [m.boundary for m in cs.media]])
+    cam = cs.camera
+    return max(1.0, float(cam.origin.abs().max() + cam.lens_radius),
+               float(coords[coords.isfinite()].abs().max()))
 
 
 def scene_hit(cs: CompiledScene, o, d, pix, sample, bounce, seed,

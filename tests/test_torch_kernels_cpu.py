@@ -6,8 +6,6 @@ the XLA sweeps; K1 (BVH planar hit) against the Pallas BVH kernel in
 interpret mode and the XLA brute force, and K1's walk of the kernel tree
 (``accel.walk_counts``) against the brute force, ties included; the hit
 attribute and NEE light-table ops; and the wrappers' device routing."""
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,7 +124,7 @@ def test_k2_closest_solid_hit_matches_xla(soup):
     o, d = _rays(seed=1)
     t_j, k_j, i_j = JX.closest_solid_hit(cj.solids, jnp.asarray(o),
                                          jnp.asarray(d), RAY_T_MIN, INF)
-    no_media = sweep.pack_media(dataclasses.replace(ct, media=()))
+    no_media = sweep.pack_media((), "cpu", 1.0)
     t_t, k_t, i_t = sweep.scene_hit(ct.solids, no_media, _t(o), _t(d), 0, 1,
                                     0, 7)
     same = (k_t.numpy() == np.asarray(k_j)) & (i_t.numpy() == np.asarray(i_j))

@@ -13,6 +13,7 @@ import solstrale_tpu_torch as T
 from solstrale_tpu_torch import fixtures
 from solstrale_tpu_torch.geo import INF, RAY_T_MIN
 from solstrale_tpu_torch.ops import bvh, sweep
+from solstrale_tpu_torch.profiling import device_kernels
 from solstrale_tpu_torch.renderer import integrator, megakernel
 from solstrale_tpu_torch.scene.compile import compile_scene
 
@@ -180,7 +181,7 @@ def test_k4_matches_plain(cuda, name):
     rows, one medium box), on its camera grazing the medium box, and on
     tables of several tiles; camera rays of 96x64 pixels, the
     bounces from their hits, random rays and parked rays. The counters are
-    an int64 pixel tensor, an int sample and an int32 bounce tensor, as
+    int64 pixel and sample tensors and an int32 bounce tensor, as
     trace_queued gives them."""
     cs = compile_scene(K4_SCENES[name](T.RenderConfig(width=96, height=64)),
                        use_bvh=False, device=cuda)
@@ -205,10 +206,12 @@ def test_k4_matches_plain(cuda, name):
     bounce = torch.cat([torch.zeros(4096 + w * h, dtype=torch.int32,
                                     device=cuda),
                         torch.ones(w * h, dtype=torch.int32, device=cuda)])
+    sample = torch.ones(n, dtype=torch.int64, device=cuda)
     mt = integrator.media_tables(cs)
     sweep.scene_hit.launches = 0
-    got = sweep.scene_hit(cs.solids, mt, o, d, pixel, 1, bounce, 1)
-    want = sweep.scene_hit_plain(cs.solids, mt, o, d, pixel, 1, bounce, 1)
+    got = sweep.scene_hit(cs.solids, mt, o, d, pixel, sample, bounce, 1)
+    want = sweep.scene_hit_plain(cs.solids, mt, o, d, pixel, sample, bounce,
+                                 1)
     torch.cuda.synchronize()
     assert sweep.scene_hit.launches == 1 and got[0].shape == (n,)
     for a, b in zip(got, want):
@@ -348,31 +351,10 @@ def test_card_render_matches_cpu_and_repeats(cuda):
     assert close.mean() >= 0.995
 
 
-def _device_kernels(fn, attempts=5):
-    """Names of the device kernels one call of ``fn`` ran (torch.profiler);
-    memory copies and sets are not kernels. A call between two sleep
-    kernels: a trace can come back without device events or without its
-    last ones, so one without the closing sleep is taken again."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(100_000)
-            fn()
-            for _ in range(4):
-                torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "memcpy" not in e.name.lower()
-                         and "memset" not in e.name.lower()),
-                        key=lambda e: e.time_range.start)
-        sleeps = [i for i, e in enumerate(events)
-                  if "spin_kernel" in e.name or "sleep" in e.name.lower()]
-        if len(sleeps) >= 2:
-            return [e.name for e in events[sleeps[0] + 1:sleeps[1]]]
-    raise AssertionError("no complete profiler trace")
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` ran (torch.profiler,
+    ``profiling.device_kernels``)."""
+    return device_kernels({"call": fn})["call"]
 
 
 @pytest.mark.parametrize("route", ["K2", "K4"])
@@ -386,12 +368,13 @@ def test_scene_hit_is_one_launch(cuda, route):
              lambda c: fixtures.mixed_bvh_scene(c, n_cells=24))
     cs = compile_scene(build(T.RenderConfig(width=w, height=h)), device=cuda)
     pix = torch.arange(w * h, device=cuda)
+    sample = torch.ones(w * h, dtype=torch.int64, device=cuda)
     bounce = torch.zeros(w * h, dtype=torch.int32, device=cuda)
     o, d = integrator._camera_rays(cs, pix, 1, 1, w, h)
     if route == "K4":
-        integrator.scene_hit(cs, o, d, pix, 1, bounce, 1)  # build, pack
+        integrator.scene_hit(cs, o, d, pix, sample, bounce, 1)  # build, pack
         names = _device_kernels(
-            lambda: integrator.scene_hit(cs, o, d, pix, 1, bounce, 1))
+            lambda: integrator.scene_hit(cs, o, d, pix, sample, bounce, 1))
         assert len(names) == 1 and "k4_scene_hit" in names[0], names
         return
     s = cs.solids

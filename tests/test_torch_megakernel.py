@@ -243,19 +243,6 @@ def test_medium_boxes_contain_boundaries(name):
         assert (hi <= pts.max(0) + 2 * pad).all()
 
 
-def _box_reach(o, d, lo, hi, ts):
-    """csrc/hit.cuh::box_reach in f32 torch (torch.fmin / fmax drop
-    NaN as fminf / fmaxf do)."""
-    tn = torch.full_like(ts, -torch.inf)
-    tf = torch.full_like(ts, torch.inf)
-    for k in range(3):
-        inv = 1.0 / d[k]
-        a, b = (float(lo[k]) - o[k]) * inv, (float(hi[k]) - o[k]) * inv
-        tn = torch.fmax(tn, torch.fmin(a, b))
-        tf = torch.fmin(tf, torch.fmax(a, b))
-    return (tn <= tf) & (tf >= 0.0) & (tn <= ts)
-
-
 def _grazing_rays(lo, hi, n, rng):
     """Rays along the faces, edges and corners of box [lo, hi] (f64): from
     points on a face plane, offset by 0 to 1e-5 along its normal, in
@@ -324,7 +311,7 @@ def test_medium_box_cull_is_conservative(name):
     event = sweep.medium_hit_plain(b.sph_table, b.pl_table,
                                    med.neg_inv_density, o, d, ts,
                                    torch.ones_like(ts))
-    reach = _box_reach(o, d, box[0, 0:3], box[0, 4:7], ts)
+    reach = sweep.box_reach_plain(o, d, box[0], ts)
     hit = torch.isfinite(event)
     assert hit.sum() > 500 and hit[64 * 48:64 * 48 + 16384].sum() > 200
     assert not (hit & ~reach).any(), int((hit & ~reach).sum())
