@@ -17,10 +17,12 @@ script exits non-zero):
      card (``wrapper_ms``: enqueue included), the plain version's time and
      the bound (K1 at the main path's 131,072 lanes and at the 16,384 of its
      tail, slots equal on every hit, with the box and prim tests per ray of
-     the treelet tree and of the kernel tree; K2 in its BVH mode, t, kind and
-     idx equal, and K3 on the mixed BVH scene's tables, the shapes the main
-     path gives them, with the device kernels one call runs; K4, t, kind and
-     idx equal, on the kitchen's, likewise);
+     the treelet tree and of the kernel tree; K2 and K3, t, kind and idx
+     equal, on the mixed BVH scene's tables and lane counters, the shapes
+     the main path gives them, with the device kernels one call of each and
+     of the scene's whole ``integrator.scene_hit`` runs, and K3 also on two
+     overlapping media; K4, t, kind and idx equal, on the kitchen's,
+     likewise, and on the same two media);
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, the benchmark workload, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -50,9 +52,6 @@ import subprocess
 import sys
 import time
 
-TOL_T = 1e-5          # hit t, rtol = atol (tests/test_pallas.py:33-35)
-TOL_MEDIUM = 1e-4     # medium t, rtol = atol (tests/test_pallas.py:59-61)
-SLOT_AGREE = 0.995    # K2 general-mode slot agreement (ties may differ)
 # segments of the sponza 1080p, 1 spp, seed 1 batch (unchanged since the
 # port first rendered it)
 SPONZA_SEGMENTS = 6708708
@@ -83,12 +82,14 @@ FLOPS_PLANAR_REST = FLOPS_PLANAR - FLOPS_PLANAR_ND - FLOPS_PLANAR_DIV
 # the second and third axes the fold into near and far; the entry's clamp
 # at 0 and the far widening
 FLOPS_SLAB = 24
-FLOPS_MEDIUM_TAIL = 12    # hit::medium_event
-# K4 per medium and live ray: hit::box_reach (8 per axis); per ray that
-# reaches the box beyond its two boundary sweeps: the flight uniform 1,
-# t1 + 1e-4 1, the event 12
-K4_BOX = 24
-K4_MEDIUM = 14
+# The media loop of K3, K4 and K5 (csrc/sweep.cu media_events,
+# csrc/megakernel.cu): per live ray of a scene with media the direction's
+# reciprocals; per ray and medium hit::box_reach (8 per axis); per ray that
+# reaches the box beyond its two boundary sweeps the flight uniform 1,
+# t1 + 1e-4 1 and hit::medium_event 12
+MEDIUM_INV = 3
+MEDIUM_BOX = 24
+MEDIUM_EVENT = 14
 # K5's f32 operations beyond the sweeps, counted line by line from
 # csrc/megakernel.cu: an add, subtract, multiply, division, square root,
 # min or max is one, a call of sinf, cosf, acosf, atan2f, expf or logf is
@@ -98,11 +99,7 @@ K4_MEDIUM = 14
 # prim hit, the light picked, a dielectric's reflection or refraction),
 # the cheapest branch is charged.
 K5_SEGMENT = 16    # every segment: hit::make_ray 15, total_len 1
-K5_INV = 3         # every segment of a scene with media: 1 / d
-K5_BOX = 24        # every segment and medium: box_reach, 8 per axis
-K5_MEDIUM = 14     # every segment and medium that passes box_reach, beyond
-#                    its two boundary sweeps: the flight uniform 1,
-#                    t1 + 1e-4 1, the event 12
+#                    (and the media loop's MEDIUM_* per segment)
 K5_PATH = 58       # every path: camera_ray 46, the terminal fold 12
 K5_HIT = 24        # every emission and scatter: the hit point 6, the
 #                    cheapest attributes (a medium's phase normal) 13,
@@ -142,8 +139,9 @@ def k5_flops(t, light_kinds, n_paths, segments, ev, sweeps):
     kernel's count; each charged the cheapest medium's two sweeps)."""
     mt = t.media
     per_segment = (K5_SEGMENT + sweep_flops(t.sph.shape[0], t.pln.shape[0])
-                   + ((K5_INV + K5_BOX * mt.n_media) if mt.n_media else 0))
-    per_sweep = K5_MEDIUM + min(
+                   + ((MEDIUM_INV + MEDIUM_BOX * mt.n_media) if mt.n_media
+                      else 0))
+    per_sweep = MEDIUM_EVENT + min(
         (2 * sweep_flops(*(x.shape[0] for x in mt.boundary(m)))
          for m in range(mt.n_media)), default=0)
     hits = ev["emit"] + ev["pdf"] + ev["basic"]
@@ -172,13 +170,12 @@ def launch_counts(wrappers):
 
 
 def all_wrappers():
-    """Each kernel's wrapper on the routes (K2: its BVH mode, the one mode
-    a route launches)."""
+    """Each kernel's wrapper on the routes."""
     from solstrale_tpu_torch.ops import bvh, sweep
     from solstrale_tpu_torch.renderer import megakernel
 
     return {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
-            "K3": sweep.medium_hit, "K4": sweep.scene_hit,
+            "K3": sweep.media_hit, "K4": sweep.scene_hit,
             "K5": megakernel.render_batch_megakernel}
 
 
@@ -269,10 +266,9 @@ def kernel_times(fn, plain):
                 plain_ms=wrapper_ms(plain, reps=3, warmup=1))
 
 
-def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None,
-                 agree_min=SLOT_AGREE):
-    """Hit sets equal, t within tol, slots agreeing on ``agree_min`` of
-    hits. Returns the max abs t error over hits."""
+def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None):
+    """Hit sets equal, t within tol, slots equal on every hit. Returns the
+    max abs t error over hits."""
     import numpy as np
 
     t_k, s_k, t_p, s_p = (x.cpu().numpy() for x in (t_k, s_k, t_p, s_p))
@@ -282,10 +278,8 @@ def compare_hits(name, t_k, s_k, t_p, s_p, tol, parked=None,
                              f"{int((hit_k != hit_p).sum())} rays")
     if not np.allclose(t_k[hit_p], t_p[hit_p], rtol=tol, atol=tol):
         raise AssertionError(f"{name}: t differs beyond {tol}")
-    if hit_p.any():
-        agree = float((s_k == s_p)[hit_p].mean())
-        if agree < agree_min:
-            raise AssertionError(f"{name}: slots agree on {agree:.4f} of hits")
+    if not np.array_equal(s_k[hit_p], s_p[hit_p]):
+        raise AssertionError(f"{name}: slots differ on a hit")
     if parked is not None and hit_k[parked].any():
         raise AssertionError(f"{name}: a parked (zero-direction) ray hit")
     return float(np.abs(t_k[hit_p] - t_p[hit_p]).max()) if hit_p.any() else 0.0
@@ -321,8 +315,8 @@ def phase_build():
 
 
 def _procedural_tables(device):
-    """64 spheres and 1,024 quads + triangles (K2), a medium box (K3) and a
-    second medium box overlapping it (K4)."""
+    """64 spheres and 1,024 quads + triangles and two overlapping medium
+    boxes (K3, K4)."""
     import numpy as np
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch.scene.compile import compile_scene
@@ -483,8 +477,7 @@ def _k1(cs):
         t_k, s_k = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
         t_p, s_p = bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN)
         parked = ((d[0] == 0) & (d[1] == 0) & (d[2] == 0)).cpu().numpy()
-        err = compare_hits(f"K1 ({shape})", t_k, s_k, t_p, s_p, 0.0, parked,
-                           agree_min=1.0)
+        err = compare_hits(f"K1 ({shape})", t_k, s_k, t_p, s_p, 0.0, parked)
         if not torch.equal(s_k, s_p):
             raise AssertionError(f"K1 ({shape}): slots differ")
         tm = kernel_times(
@@ -512,81 +505,43 @@ def _k1(cs):
 def phase_kernels(sponza_cs):
     import torch
     from solstrale_tpu_torch import profiling
-    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
-    from solstrale_tpu_torch.ops import sweep
 
     dev = torch.device("cuda")
     out = {}
 
     out["K1"] = _k1(sponza_cs)
 
-    # K2's general mode (both tables, and spheres only) and K3 on
-    # procedural tables; the kernels line's rows come from the main path's
-    # shapes (_main_path_k2_k3, _check_k4 on the kitchen)
-    cs = _procedural_tables(dev)
-    s = cs.solids
-    o, d = _random_rays(65536, dev, seed=1, parked=256)
-    errs = []
-    for mode in (False, True):
-        t_k, s_k = sweep.closest_hit(s.sph_table, s.pl_table, o, d,
-                                     RAY_T_MIN, INF, spheres_only=mode)
-        t_p, s_p = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
-                                           RAY_T_MIN, INF, spheres_only=mode)
-        errs.append(compare_hits(f"K2 spheres_only={mode}", t_k, s_k, t_p,
-                                 s_p, TOL_T))
-        tm = kernel_times(
-            lambda: sweep.closest_hit(s.sph_table, s.pl_table, o, d,
-                                      RAY_T_MIN, INF, spheres_only=mode),
-            lambda: sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
-                                            RAY_T_MIN, INF,
-                                            spheres_only=mode))
-        log("kernel", name="K2 closest_hit", spheres_only=mode, rays=65536,
-            spheres=s.sph_table.shape[0], planar=s.pl_table.shape[0],
-            max_abs_err=errs[-1], **tm)
-    out["K2"] = dict(max_abs_err=max(errs))
-
-    med = cs.media[0]
-    b = med.boundary
-    g = torch.Generator().manual_seed(3)
-    t_solid = (torch.rand(65536, generator=g) * 30).to(dev)
-    u = torch.rand(65536, generator=g).to(dev)
-    args = (b.sph_table, b.pl_table, med.neg_inv_density, o, d, t_solid, u)
-    m_k = sweep.medium_hit(*args)
-    m_p = sweep.medium_hit_plain(*args)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(m_p)
-    if not torch.equal(torch.isfinite(m_k), fin):
-        raise AssertionError("K3: finite sets differ")
-    if not torch.allclose(m_k[fin], m_p[fin], rtol=TOL_MEDIUM,
-                          atol=TOL_MEDIUM):
-        raise AssertionError("K3: medium t differs beyond tolerance")
-    err = float((m_k[fin] - m_p[fin]).abs().max().item()) if fin.any() \
-        else 0.0
-    tm = kernel_times(lambda: sweep.medium_hit(*args),
-                      lambda: sweep.medium_hit_plain(*args))
-    out["K3"] = dict(max_abs_err=err)
-    log("kernel", name="K3 medium_hit", rays=65536, events=int(fin.sum()),
-        max_abs_err=err, **tm)
+    # the kernels line's K2 and K3 rows come from the main path's shapes
+    # (_main_path_k2_k3), K4's from the kitchen's (_check_k4)
     traces = {}
     _main_path_k2_k3(out, traces)
 
-    # K4 on the same tables with both medium boxes (the second overlaps the
-    # first, so it clips against the first's events)
-    pix = torch.arange(65536, device=dev)
-    _check_k4("K4 scene_hit (procedural)", cs, o, d,
-              (pix, torch.ones_like(pix),
-               torch.zeros_like(pix, dtype=torch.int32), 1))
+    # K3 and K4 on procedural tables with two media boxes (the second
+    # overlaps the first, so it clips against the first's events) and
+    # seeded counters
+    cs = _procedural_tables(dev)
+    o, d = _random_rays(65536, dev, seed=1, parked=256)
+    g = torch.Generator().manual_seed(3)
+    counters = (torch.randint(0, 2**40, (65536,), generator=g).to(dev),
+                torch.randint(0, 64, (65536,), generator=g).to(dev),
+                torch.randint(0, 50, (65536,), generator=g,
+                              dtype=torch.int32).to(dev), 3)
+    _check_k3("K3 media_hit (procedural)", cs, o, d, counters)
+    _check_k4("K4 scene_hit (procedural)", cs, o, d, counters)
     # and at the main path's shape: the normal-mapped kitchen-sink scene's
     # tables, 131,072 lanes of 1080p camera rays and their bounces
     kcs, ko, kd, counters = _kitchen_rays(dev)
     out["K4"] = _check_k4("K4 scene_hit (kitchen)", kcs, ko, kd, counters,
                           traces)
-    # the device kernels of one call each: K2's and K4's a route makes are
-    # one kernel (no fill, RNG, stack, combine or decode op)
+    # the device kernels of one call each: K2's, K3's and K4's a route makes
+    # are one kernel (no fill, RNG, stack, combine, where or decode op)
     kernels = profiling.device_kernels(traces)
     for key, want in (("K2 bvh_sphere_hit", ["k2_bvh_spheres"]),
+                      ("K3 media_hit", ["k3_media"]),
                       ("K4 integrator.scene_hit", ["k4_scene_hit"]),
-                      ("bvh_closest_hit", ["", "k1_bvh", "k2_bvh_spheres"])):
+                      ("bvh_closest_hit", ["", "k1_bvh", "k2_bvh_spheres"]),
+                      ("BVH integrator.scene_hit",
+                       ["", "k1_bvh", "k2_bvh_spheres", "k3_media"])):
         got = kernels[key]
         if len(got) != len(want) or not all(w in g for w, g in zip(want, got)):
             raise AssertionError(f"{key}: one call ran {got}")
@@ -596,23 +551,76 @@ def phase_kernels(sponza_cs):
     return out
 
 
+def _check_k3(name, cs, o, d, counters):
+    """K3 against its plain version on top of the solid hit of these rays
+    (K4's plain solid sweep): t, kind and idx equal, parked rays keeping
+    their input. Returns (the solid hit, K3's output)."""
+    import torch
+    from solstrale_tpu_torch.ops import sweep
+    from solstrale_tpu_torch.renderer import integrator
+
+    mt = integrator.media_tables(cs)
+    solid = sweep.scene_hit_plain(cs.solids, sweep.pack_media(
+        (), cs.device, 1.0), o, d, *counters)
+    args = (mt, o, d, *solid, *counters)
+    got, want = sweep.media_hit(*args), sweep.media_hit_plain(*args)
+    torch.cuda.synchronize()
+    for field, a, b in zip(("t", "kind", "idx"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {field} differs from the plain "
+                                 "version")
+    parked = (d[0] == 0) & (d[1] == 0) & (d[2] == 0)
+    if not all(torch.equal(a[parked], b[parked]) for a, b in zip(got,
+                                                                  solid)):
+        raise AssertionError(f"{name}: a parked (zero-direction) ray changed")
+    kind, idx = got[1], got[2]
+    log("kernel", name=name, rays=o[0].numel(), live_rays=live_rays(d),
+        media=mt.n_media, boundary_rows=[sum(x.shape[0] for x in
+                                              mt.boundary(m))
+                                          for m in range(mt.n_media)],
+        medium_events=[int(((kind == 3) & (idx == m)).sum())
+                       for m in range(mt.n_media)],
+        max_abs_err=0.0, t_kind_idx_equal=True)
+    return solid, got
+
+
+def _lane_counters(n_cam, parked, device):
+    """trace_queued's counters of _subsampled_rays' lanes: the camera
+    rays' pixels (int64), their bounces' (the same pixels), parked lanes
+    pixel 0; sample 1 (int64); bounce 0, 1 and 0 (int32); seed 1."""
+    import torch
+
+    pix = torch.linspace(0, 1920 * 1080 - 1, n_cam, device=device).long()
+    pixel = torch.cat([pix, pix, torch.zeros(parked, dtype=torch.int64,
+                                             device=device)])
+    bounce = torch.cat([torch.zeros(n_cam, dtype=torch.int32, device=device),
+                        torch.ones(n_cam, dtype=torch.int32, device=device),
+                        torch.zeros(parked, dtype=torch.int32,
+                                    device=device)])
+    return pixel, torch.ones_like(pixel), bounce, 1
+
+
 def _main_path_k2_k3(out, traces):
-    """K2 in its BVH mode (the one a route launches) and K3 at the main
-    path's shape: the mixed BVH scene's tables at 1080p and one wavefront
-    iteration's 131,072 lanes (camera rays, bounces, parked rays), K2 fed
-    K1's planar hit of the same rays. K2 equals its plain version exactly
-    (t, kind and idx). Also the wrapper-level call the integrator makes,
-    ``bvh_closest_hit`` (K1's bound fill, K1, K2); both calls go into
-    ``traces`` for their device kernels. Their rows of the kernels line
-    take these times and bounds. K2's bound: the rays, t_p and pslot in,
-    (t, kind, idx) out, the sphere table and the pl_idx and pl_is_tri
+    """K2 and K3 at the main path's shape: the mixed BVH scene's tables at
+    1080p and one wavefront iteration's 131,072 lanes (camera rays,
+    bounces, parked rays) with trace_queued's counters, K2 fed K1's planar
+    hit of the same rays and K3 K2's (t, kind, idx). Both equal their plain
+    versions exactly (t, kind and idx). Also the wrapper-level calls the
+    integrator makes, ``bvh_closest_hit`` (K1's bound fill, K1, K2) and
+    the whole ``integrator.scene_hit`` (those and K3); all four calls go
+    into ``traces`` for their device kernels. The kernels line's K2 and K3
+    rows take these times and bounds. K2's bound: the rays, t_p and pslot
+    in, (t, kind, idx) out, the sphere table and the pl_idx and pl_is_tri
     entries of the distinct planar slots hit, read once; the sphere tests
-    of the live rays."""
+    of the live rays. K3's bound: the rays and (t, kind, idx) in, (t, kind,
+    idx) out, the media tables, and the counters of the rays that reach a
+    medium's box, read once; its operations from ``_media_flops``."""
     import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
     from solstrale_tpu_torch.geo import INF, RAY_T_MIN
     from solstrale_tpu_torch.ops import bvh, sweep
+    from solstrale_tpu_torch.renderer import integrator
     from solstrale_tpu_torch.scene.compile import compile_scene
 
     dev = torch.device("cuda")
@@ -622,6 +630,7 @@ def _main_path_k2_k3(out, traces):
     s = cs.solids
     o, d, parked = _subsampled_rays(cs, n=131072)
     n_live, r = live_rays(d), len(parked)
+    counters = _lane_counters((r - 256) // 2, 256, dev)
     t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
     args = (s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
             s.pl_is_tri)
@@ -645,37 +654,47 @@ def _main_path_k2_k3(out, traces):
     full = dict(device_ms=device_ms(closest), wrapper_ms=wrapper_ms(closest))
     n_sph = s.sph_table.shape[0]
     slots = int(torch.unique(pslot[pslot >= 0]).numel())
-    out["K2"].update(max_abs_err=0.0, **tm, **bound(
+    out["K2"] = dict(max_abs_err=0.0, **tm, **bound(
         r * (24 + 8 + 12) + slots * 5 + nbytes(s.sph_table),
         n_live * n_sph * FLOPS_SPHERE))
     log("kernel", name="K2 bvh_sphere_hit (mixed, main path)", rays=r,
         live_rays=n_live, spheres=n_sph, planar_slots_hit=slots,
         max_abs_err=0.0, t_kind_idx_equal=True, **tm, bvh_closest_hit=full)
 
-    # K3 gets the closest solid t of the same rays, as scene_hit gives it
-    med = cs.media[0]
-    b = med.boundary
-    t_solid = got[0]
-    u = torch.rand(r, generator=torch.Generator().manual_seed(8)).to(dev)
-    args = (b.sph_table, b.pl_table, med.neg_inv_density, o, d, t_solid, u)
-    m_k, m_p = sweep.medium_hit(*args), sweep.medium_hit_plain(*args)
+    # K3 gets K2's (t, kind, idx) of the same rays, as scene_hit gives it
+    mt = integrator.media_tables(cs)
+    margs = (mt, o, d, *got, *counters)
+    m_k, m_p = sweep.media_hit(*margs), sweep.media_hit_plain(*margs)
     torch.cuda.synchronize()
-    fin = torch.isfinite(m_p)
-    if not (torch.equal(torch.isfinite(m_k), fin) and torch.allclose(
-            m_k[fin], m_p[fin], rtol=TOL_MEDIUM, atol=TOL_MEDIUM)):
-        raise AssertionError("K3 (mixed): medium t differs")
-    err = float((m_k[fin] - m_p[fin]).abs().max().item()) if fin.any() \
-        else 0.0
-    tm = kernel_times(lambda: sweep.medium_hit(*args),
-                      lambda: sweep.medium_hit_plain(*args))
+    for name, a, b in zip(("t", "kind", "idx"), m_k, m_p):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K3 (mixed): {name} differs from the plain "
+                                 "version")
+    tm = kernel_times(lambda: sweep.media_hit(*margs),
+                      lambda: sweep.media_hit_plain(*margs))
+
+    def scene_hit():
+        return integrator.scene_hit(cs, o, d, *counters)
+
+    if not all(torch.equal(a, b) for a, b in zip(scene_hit(), m_k)):
+        raise AssertionError("K3 (mixed): integrator.scene_hit differs from "
+                             "K1, K2 and K3 called one by one")
+    traces["K3 media_hit"] = lambda a=margs: sweep.media_hit(*a)
+    traces["BVH integrator.scene_hit"] = scene_hit
+    full = dict(device_ms=device_ms(scene_hit),
+                wrapper_ms=wrapper_ms(scene_hit))
     live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
-    out["K3"].update(max_abs_err=max(err, out["K3"]["max_abs_err"]), **tm,
-                     **bound(r * 36 + nbytes(b.sph_table, b.pl_table),
-                             _medium_sweep_flops(b.sph_table, b.pl_table, o,
-                                                 d, live)
-                             + n_live * FLOPS_MEDIUM_TAIL))
-    log("kernel", name="K3 medium_hit (mixed, main path)", rays=r,
-        events=int(fin.sum()), max_abs_err=err, **tm)
+    flops, reach = _media_flops(mt, o, d, got[0], live, counters)
+    counter_bytes = sum(c.element_size() for c in counters[:3])
+    out["K3"] = dict(max_abs_err=0.0, **tm, **bound(
+        r * (24 + 12 + 12) + reach * counter_bytes
+        + nbytes(mt.sph, mt.pln, mt.sph_off_t, mt.pl_off_t, mt.nid, mt.box),
+        flops))
+    log("kernel", name="K3 media_hit (mixed, main path)", rays=r,
+        live_rays=n_live, media=mt.n_media, rays_reaching_a_medium=reach,
+        medium_events=int((m_k[1] == 3).sum()), flops=flops,
+        max_abs_err=0.0, t_kind_idx_equal=True, **tm,
+        integrator_scene_hit=full)
 
 
 def _planar_rows(pln, o, d, mask, lo, best):
@@ -734,38 +753,59 @@ def _medium_sweep_flops(msph, mpln, o, d, mask):
             + _planar_flops(mpln, o, d, mask, t1 + 1e-4, t2))
 
 
-def _k4_flops(cs, o, d, t_solid):
+def _media_flops(mt, o, d, t, live, counters):
+    """The media loop's f32 operations on these rays (K3's, and K4's after
+    its solid sweep), from the work their data needs: per live ray the
+    direction's reciprocals and per medium its box test; per ray that
+    reaches medium m's box, against the best t after the media before it
+    (the plain loop's), that medium's two boundary sweeps
+    (``_medium_sweep_flops``) and the event. ``t`` is the solid hit.
+    Returns (operations, rays that reach some medium's box)."""
+    import torch
+    from solstrale_tpu_torch.geo import INF
+    from solstrale_tpu_torch.ops import rng, sweep
+
+    n_live = int(live.sum())
+    flops = n_live * (MEDIUM_INV + mt.n_media * MEDIUM_BOX) if mt.n_media \
+        else 0
+    reach_rays = torch.zeros_like(live)
+    best = t
+    for m in range(mt.n_media):
+        msph, mpln = mt.boundary(m)
+        ts = torch.where(torch.isfinite(best), best, INF)
+        reach = live & sweep.box_reach_plain(o, d, mt.box[m], ts)
+        reach_rays |= reach
+        flops += (int(reach.sum()) * MEDIUM_EVENT
+                  + _medium_sweep_flops(msph, mpln, o, d, reach))
+        u = rng.uniform(*counters[:3], rng.P_MEDIUM_BASE + m, counters[3])
+        t_m = sweep.medium_hit_plain(msph, mpln, mt.nid[m], o, d, best, u)
+        best = torch.where(t_m < best, t_m, best)
+    return flops, int(reach_rays.sum())
+
+
+def _k4_flops(cs, o, d, t_solid, counters):
     """K4's f32 operations on these rays, from the work their data needs:
-    per live ray each sphere's test (31), the solid planar rows as
+    per live ray each sphere's test (31) and the solid planar rows as
     ``_planar_flops`` counts them on [RAY_T_MIN, ...) up to the closest
-    solid hit ``t_solid``, and per medium the box test; per ray that reaches
-    a medium's box that medium's two boundary sweeps
-    (``_medium_sweep_flops``) and the event. The media clip against the
-    solid hit (the scene's media do not overlap). Returns (operations, rays
-    that reach a medium's box, solid planar rows tested in full per live
-    ray)."""
+    solid hit ``t_solid``; then the media loop (``_media_flops``). Returns
+    (operations, rays that reach a medium's box, solid planar rows tested
+    in full per live ray)."""
     import torch
     from solstrale_tpu_torch.geo import RAY_T_MIN
-    from solstrale_tpu_torch.ops import sweep
     from solstrale_tpu_torch.renderer import integrator
 
-    s, mt = cs.solids, integrator.media_tables(cs)
+    s = cs.solids
     live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
     n_live = int(live.sum())
     lo = torch.full_like(t_solid, RAY_T_MIN)
     divided, tested = _planar_rows(s.pl_table, o, d, live, lo, t_solid)
+    media, reach = _media_flops(integrator.media_tables(cs), o, d, t_solid,
+                                live, counters)
     flops = (n_live * (s.sph_table.shape[0] * FLOPS_SPHERE
-                       + s.pl_table.shape[0] * FLOPS_PLANAR_ND
-                       + mt.n_media * K4_BOX)
-             + divided * FLOPS_PLANAR_DIV + tested * FLOPS_PLANAR_REST)
-    reach_rays = torch.zeros_like(live)
-    for m in range(mt.n_media):
-        msph, mpln = mt.boundary(m)
-        reach = live & sweep.box_reach_plain(o, d, mt.box[m], t_solid)
-        reach_rays |= reach
-        flops += (int(reach.sum()) * K4_MEDIUM
-                  + _medium_sweep_flops(msph, mpln, o, d, reach))
-    return flops, int(reach_rays.sum()), tested / max(n_live, 1)
+                       + s.pl_table.shape[0] * FLOPS_PLANAR_ND)
+             + divided * FLOPS_PLANAR_DIV + tested * FLOPS_PLANAR_REST
+             + media)
+    return flops, reach, tested / max(n_live, 1)
 
 
 def _check_k4(name, cs, o, d, counters, traces=None):
@@ -806,7 +846,7 @@ def _check_k4(name, cs, o, d, counters, traces=None):
                       lambda: sweep.scene_hit_plain(s, mt, o, d, *counters))
     t_solid = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
                                       1e-3, float("inf"))[0]
-    flops, reach, rows_tested = _k4_flops(cs, o, d, t_solid)
+    flops, reach, rows_tested = _k4_flops(cs, o, d, t_solid, counters)
     counter_bytes = sum(c.element_size() for c in counters[:3])
     b = bound(o[0].numel() * (24 + 12) + reach * counter_bytes
               + nbytes(s.sph_table, s.pl_table, s.pl_idx, mt.sph, mt.pln,
@@ -1195,7 +1235,7 @@ def main():
                      "solstrale_tpu/ops/pallas_sweep.py:356"),
               "K5": ("solstrale_tpu_torch/csrc/megakernel.cu",
                      "solstrale_tpu/renderer/megakernel.py:228")}
-    names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_medium",
+    names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_media",
              "K4": "k4_scene_hit", "K5": "k5_render"}
     # no single PyTorch call computes any of these functions
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],

@@ -1,5 +1,5 @@
-// Brute-force closest-hit sweep (K2), constant-medium event (K3) and the
-// fused scene hit (K4).
+// The BVH route's sphere sweep (K2), every medium's event on the BVH route
+// (K3) and the fused scene hit (K4).
 //
 // Replace the TPU kernels solstrale_tpu/ops/pallas_sweep.py::_sweep_kernel
 // (closest_hit_pallas), ::_medium_kernel (medium_hit_pallas) and
@@ -7,39 +7,49 @@
 // (hit.cuh), so that with -fmad=false the results equal the plain PyTorch
 // versions (ops/sweep.py) bit for bit on a given device.
 //
-// One thread per ray; a block of 256 rays stages tiles of the prim tables
-// through shared memory, so each table row is read from device memory once
-// per block rather than once per ray. On the scenes that take these
-// kernels the work per ray is small (K2 sweeps the BVH scene's few spheres,
-// K4 ~150 rows), so a launch lost most of its time to what surrounded it:
-// the launches of the glue around the kernel. The kernels themselves are
-// bound by arithmetic: ~30 f32 operations and one IEEE division per ray-prim
-// pair against 16 bytes of shared-memory traffic (the tables stay in L2).
-// The design answers both, without changing a value:
+// One thread per ray. On the scenes that take these kernels the work per
+// ray is small (K2 sweeps the BVH scene's few spheres, K3 a medium's few
+// boundary rows, K4 ~150 rows), so a launch lost most of its time to what
+// surrounded it: the launches of the glue around the kernel. The kernels
+// themselves are bound by arithmetic: ~30 f32 operations and one IEEE
+// division per ray-prim pair against 16 bytes of shared-memory traffic
+// (the tables stay in L2). The design answers both, without changing a
+// value:
 //
-// - K2 in its BVH mode (k2_bvh_spheres, the one mode a route launches)
-//   takes K1's planar (t, slot) and does bvh_closest_hit_pallas's
-//   min-combine and decode itself (pallas_bvh.py:613-628): sphere_wins = t_s
-//   <= t_p, idx = max(slot_s, 0) for a sphere, the planar slot clipped and
-//   decoded by pl_is_tri and pl_idx. Its bounds are scalar arguments. The
-//   wrapper allocates the three outputs and launches once: no fills, no
-//   combine ops. The sphere table is staged whole into shared memory once
-//   per block (in tiles only beyond kSphTileRows spheres).
-// - K4 (k4_scene_hit) draws each medium's free-flight uniform in-kernel
+// - K2 (k2_bvh_spheres) takes K1's planar (t, slot) and does
+//   bvh_closest_hit_pallas's min-combine and decode itself
+//   (pallas_bvh.py:613-628): sphere_wins = t_s <= t_p, idx = max(slot_s, 0)
+//   for a sphere, the planar slot clipped and decoded by pl_is_tri and
+//   pl_idx. Its bounds are scalar arguments. The wrapper allocates the
+//   three outputs and launches once: no fills, no combine ops. The sphere
+//   table is staged whole into shared memory once per block (in tiles only
+//   beyond kSphTileRows spheres).
+// - K3 (k3_media) takes K2's (t, kind, idx) and runs every medium of the
+//   scene in order in one launch (integrator.py:153-165 of the JAX
+//   package): the media's boundary rows are staged into shared memory once
+//   per block (read from device memory, unstaged, beyond kMediaSmemBytes),
+//   so the media loop has no barrier; a ray that cannot reach a medium's
+//   padded box skips it; the flight uniform is drawn in-kernel; a medium
+//   wins by a strict '<' and sets (t, KIND_MEDIUM, m). So the media part
+//   of a BVH scene's hit is this one launch: no RNG, compare or where ops.
+// - K4 (k4_scene_hit) runs the solid sweep in shared-memory tiles, then the
+//   same media loop as K3 (media_events) on once-staged boundary rows, and
+//   decodes its slot into (t, kind, idx) as scene_hit_fused does
+//   (pallas_sweep.py:563-575). So integrator.scene_hit is this one launch.
+// - The media loop draws each medium's free-flight uniform in-kernel
 //   (hit::uniform4 with purpose kMediumPurposeBase + m from the lane's
-//   counters, each taken as its low 32 bits), culls a medium for a ray that
-//   cannot reach the medium's padded box (hit::box_reach, as K5 does: a
-//   culled medium's event is INF, which its sweeps would also give, and a
-//   culled ray reads no counter and draws nothing), and decodes its slot
-//   into (t, kind, idx) as scene_hit_fused does (pallas_sweep.py:563-575).
-//   So integrator.scene_hit is this one launch: no RNG, stack or decode ops.
-// - On a sweep whose lower bound is positive (the solid sweeps), a planar
-//   row whose numerator and denominator differ in sign skips its IEEE
-//   division and the rest of its test (hit::planar_ahead): its t could not
-//   pass the bound (11% of K4's time on the kitchen, PERF.md).
+//   counters, each taken as its low 32 bits) and culls a medium for a ray
+//   that cannot reach the medium's padded box (hit::box_reach, as K5 does:
+//   a culled medium's event is INF, which its sweeps would also give, and a
+//   culled ray reads no counter and draws nothing).
+// - On a sweep whose lower bound is positive (the solid sweeps, a medium's
+//   exit sweep), a planar row whose numerator and denominator differ in
+//   sign skips its IEEE division and the rest of its test
+//   (hit::planar_ahead): its t could not pass the bound (11% of K4's time
+//   on the kitchen, PERF.md).
 // Measured on the card and left out as gaining nothing (PERF.md):
-// staging K4's whole tables at once with bulk copies on an mbarrier (6%
-// slower than these tiles), and testing a planar row's t before its hit
+// staging K4's whole solid tables at once with bulk copies on an mbarrier
+// (6% slower than these tiles), and testing a planar row's t before its hit
 // point and functionals.
 #include "hit.cuh"
 
@@ -48,8 +58,13 @@ namespace {
 using hit::Ray;
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 256;       // prim rows staged per tile
-constexpr int kSphTileRows = 1024;   // K2's BVH mode: spheres staged at once
+constexpr int kTileRows = 256;       // K4's solid rows staged per tile
+constexpr int kSphTileRows = 1024;   // K2: spheres staged at once
+// K3 and K4 stage the media's boundary rows whole into dynamic shared
+// memory up to this size (512 planar rows; with K4's 16 KB of tiles a block
+// stays within the 48 KB it may use without opting in); beyond it they
+// read the rows from device memory.
+constexpr int kMediaSmemBytes = 32 * 1024;
 // scene/compile.py's KIND_*; integrator's per-medium draw purposes
 constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
               KIND_MEDIUM = 3;
@@ -69,15 +84,58 @@ __device__ __forceinline__ void stage(float4* tile, const float4* table,
     tile[k] = table[base * width + k];
 }
 
-// Closest hit of one ray over both tables with the TPU kernel's strict
-// '<' (the first, smallest slot wins ties). lo/hi bound t. Every thread of
-// the block calls it (it synchronises); ``live`` masks the ray's own tests.
+// Fold sphere rows [0, count) into the running (best, slot) with the TPU
+// kernel's strict '<' (the first, smallest slot wins ties); row p is slot
+// slot0 + p. A root counts on [lo, hi], or on [lo, inf) unless
+// ``hi_on_sphere``.
 template <bool kWithSlot>
+__device__ __forceinline__ void sphere_rows(const Ray& r, const float4* rows,
+                                            int count, int slot0, float lo,
+                                            float hi, bool hi_on_sphere,
+                                            float* best, int* slot) {
+  for (int p = 0; p < count; ++p) {
+    float r1, r2;
+    const bool ok = hit::sphere_roots(r, rows[2 * p], rows[2 * p + 1], &r1,
+                                      &r2);
+    const bool in1 = r1 >= lo && (!hi_on_sphere || r1 <= hi);
+    const bool in2 = r2 >= lo && (!hi_on_sphere || r2 <= hi);
+    const float t = (ok && in1) ? r1 : ((ok && in2) ? r2 : CUDART_INF_F);
+    if (t < *best) {
+      *best = t;
+      if (kWithSlot) *slot = slot0 + p;
+    }
+  }
+}
+
+// The same for planar rows on [lo, hi]; with lo > 0 a row whose t cannot be
+// positive skips its division (hit::planar_ahead).
+template <bool kWithSlot>
+__device__ __forceinline__ void planar_rows(const Ray& r, const float4* rows,
+                                            int count, int slot0, float lo,
+                                            float hi, float* best,
+                                            int* slot) {
+  for (int p = 0; p < count; ++p) {
+    float num, denom;
+    hit::planar_nd(r, rows[4 * p], &num, &denom);
+    if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;
+    const float t = num / denom;
+    if (hit::planar_inside(r, rows[4 * p + 1], rows[4 * p + 2],
+                           rows[4 * p + 3], t, denom) &&
+        t >= lo && t <= hi && t < *best) {
+      *best = t;
+      if (kWithSlot) *slot = slot0 + p;
+    }
+  }
+}
+
+// Closest hit of one ray over both tables on [lo, hi], staged tile by tile
+// through shared memory. Every thread of the block calls it (it
+// synchronises); ``live`` masks the ray's own tests.
 __device__ __forceinline__ void sweep_tables(const Ray& r, bool live,
                                              float4* tile,
                                              const float4* sph, int n_sph,
                                              const float4* pln, int n_pl,
-                                             float lo, float hi, bool hi_on_sphere,
+                                             float lo, float hi,
                                              float* best_t, int* best_slot) {
   float best = CUDART_INF_F;
   int slot = -1;
@@ -86,89 +144,129 @@ __device__ __forceinline__ void sweep_tables(const Ray& r, bool live,
     __syncthreads();
     stage(tile, sph, base, count, 2);
     __syncthreads();
-    if (live) {
-      for (int p = 0; p < count; ++p) {
-        float r1, r2;
-        const bool ok = hit::sphere_roots(r, tile[2 * p], tile[2 * p + 1],
-                                          &r1, &r2);
-        const bool in1 = r1 >= lo && (!hi_on_sphere || r1 <= hi);
-        const bool in2 = r2 >= lo && (!hi_on_sphere || r2 <= hi);
-        const float t = (ok && in1) ? r1 : ((ok && in2) ? r2 : CUDART_INF_F);
-        if (t < best) {
-          best = t;
-          if (kWithSlot) slot = base + p;
-        }
-      }
-    }
+    if (live)
+      sphere_rows<true>(r, tile, count, base, lo, hi, true, &best, &slot);
   }
   for (int base = 0; base < n_pl; base += kTileRows) {
     const int count = min(kTileRows, n_pl - base);
     __syncthreads();
     stage(tile, pln, base, count, 4);
     __syncthreads();
-    if (live) {
-      for (int p = 0; p < count; ++p) {
-        float num, denom;
-        hit::planar_nd(r, tile[4 * p], &num, &denom);
-        if (lo > 0.f && !hit::planar_ahead(num, denom)) continue;
-        const float t = num / denom;
-        if (hit::planar_inside(r, tile[4 * p + 1], tile[4 * p + 2],
-                               tile[4 * p + 3], t, denom) &&
-            t >= lo && t <= hi && t < best) {
-          best = t;
-          if (kWithSlot) slot = n_sph + base + p;
-        }
-      }
-    }
+    if (live)
+      planar_rows<true>(r, tile, count, n_sph + base, lo, hi, &best, &slot);
   }
   *best_t = best;
   *best_slot = slot;
 }
 
-// One medium's event for a ray against its boundary tables: entry = the
-// closest boundary hit on (-inf, inf), exit = the closest past entry + 1e-4
-// (sphere roots take no upper bound, as in the TPU kernel).
-__device__ __forceinline__ float medium_sweep(const Ray& r, bool live,
-                                              float4* tile, const float4* sph,
-                                              int n_sph, const float4* pln,
-                                              int n_pl, float ts, float u,
-                                              float neg_inv_density) {
-  float t1, t2;
+// A lane counter (pixel, sample or bounce): an (R,) int32 (size 4) or
+// int64 (size 8) array; taken as its low 32 bits, as rng._u32 does.
+struct Counter {
+  const void* p;
+  int size;
+
+  __device__ __forceinline__ uint32_t at(int i) const {
+    if (size == 8) return static_cast<uint32_t>(
+        static_cast<const long long*>(p)[i]);
+    return static_cast<uint32_t>(static_cast<const int*>(p)[i]);
+  }
+};
+
+// The lanes' counters and the seed: medium m's flight uniform for lane i
+// is rng.uniform(pixel, sample, bounce, P_MEDIUM_BASE + m, seed).
+struct Draw {
+  Counter pix, sample, bounce;
+  uint32_t seed;
+
+  __device__ __forceinline__ float flight(int i, int m) const {
+    return hit::uniform4(pix.at(i), sample.at(i), bounce.at(i),
+                         kMediumPurposeBase + m, seed).x;
+  }
+};
+
+// Every medium's boundary packed into one sphere and one planar table
+// (ops/sweep.py::MediaTables): medium m owns rows [sph_off[m],
+// sph_off[m+1]) and [pl_off[m], pl_off[m+1]), its neg_inv_density and its
+// padded box (lo xyz 0 hi xyz 0).
+struct Media {
+  const float4* sph;
+  int n_sph;
+  const float4* pln;
+  int n_pl;
+  const int* sph_off;
+  const int* pl_off;
+  const float* nid;
+  const float4* box;
+  int n_media;
+};
+
+// Bytes of dynamic shared memory the media's rows take when staged: 0 (not
+// staged) beyond kMediaSmemBytes.
+__host__ __device__ __forceinline__ int media_smem_bytes(int n_sph,
+                                                         int n_pl) {
+  const int bytes = n_sph * 32 + n_pl * 64;
+  return bytes <= kMediaSmemBytes ? bytes : 0;
+}
+
+// The media with their rows staged into ``rows`` (dynamic shared memory of
+// media_smem_bytes) when they fit; the caller synchronises before use.
+__device__ __forceinline__ Media stage_media(Media md, float4* rows) {
+  if (media_smem_bytes(md.n_sph, md.n_pl) == 0) return md;
+  stage(rows, md.sph, 0, md.n_sph, 2);
+  stage(rows + 2 * md.n_sph, md.pln, 0, md.n_pl, 4);
+  md.sph = rows;
+  md.pln = rows + 2 * md.n_sph;
+  return md;
+}
+
+// Closest boundary t >= lo of one medium (no upper bound; sphere roots take
+// none either, as in the TPU kernel), one thread alone: no barrier.
+__device__ __forceinline__ float boundary_t(const Ray& r, const float4* sph,
+                                            int n_sph, const float4* pln,
+                                            int n_pl, float lo) {
+  float best = CUDART_INF_F;
   int unused;
-  sweep_tables<false>(r, live, tile, sph, n_sph, pln, n_pl, -CUDART_INF_F,
-                      CUDART_INF_F, false, &t1, &unused);
-  sweep_tables<false>(r, live, tile, sph, n_sph, pln, n_pl, t1 + 1e-4f,
-                      CUDART_INF_F, false, &t2, &unused);
-  return hit::medium_event(r, t1, t2, ts, u, neg_inv_density);
+  sphere_rows<false>(r, sph, n_sph, 0, lo, CUDART_INF_F, false, &best,
+                     &unused);
+  planar_rows<false>(r, pln, n_pl, 0, lo, CUDART_INF_F, &best, &unused);
+  return best;
 }
 
-__global__ void k2_sweep(const float* ox, const float* oy, const float* oz,
-                         const float* dx, const float* dy, const float* dz,
-                         const float* tmin, const float* tmax,
-                         const float4* sph, int n_sph, const float4* pln,
-                         int n_pl, int n_rays, float* out_t, int* out_slot) {
-  __shared__ float4 tile[kTileRows * 4];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;  // no early return: every thread stages
-  Ray r = {};
-  float lo = 0.f, hi = 0.f;
-  if (live) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    lo = tmin[i];
-    hi = tmax[i];
+// Every medium in order against the ray's best t so far (*best; a
+// non-finite t clips as INF), each clipped to the best t before it
+// (pallas_sweep.py:459-482): a ray that cannot reach medium m's padded box
+// skips it; else the entry t1 = the closest boundary hit on (-inf, inf),
+// the exit t2 = the closest past t1 + 1e-4, the flight uniform and the
+// event, which replaces the best by a strict '<'. Returns the last medium
+// that did, -1 if none.
+__device__ __forceinline__ int media_events(const Ray& r, const Media& md,
+                                            const Draw& draw, int i,
+                                            float* best) {
+  int medium = -1;
+  const float inv0 = 1.f / r.d0, inv1 = 1.f / r.d1, inv2 = 1.f / r.d2;
+  for (int m = 0; m < md.n_media; ++m) {
+    const float ts = isfinite(*best) ? *best : CUDART_INF_F;
+    if (!hit::box_reach(r, inv0, inv1, inv2, md.box[2 * m],
+                        md.box[2 * m + 1], ts))
+      continue;
+    const int s0 = md.sph_off[m], ns = md.sph_off[m + 1] - s0;
+    const int p0 = md.pl_off[m], np = md.pl_off[m + 1] - p0;
+    const float4* sph = md.sph + 2 * s0;
+    const float4* pln = md.pln + 4 * p0;
+    const float t1 = boundary_t(r, sph, ns, pln, np, -CUDART_INF_F);
+    const float t2 = boundary_t(r, sph, ns, pln, np, t1 + 1e-4f);
+    const float t_m = hit::medium_event(r, t1, t2, ts, draw.flight(i, m),
+                                        md.nid[m]);
+    if (t_m < *best) {
+      *best = t_m;
+      medium = m;
+    }
   }
-  float best;
-  int slot;
-  sweep_tables<true>(r, live, tile, sph, n_sph, pln, n_pl, lo, hi, true,
-                     &best, &slot);
-  if (live) {
-    out_t[i] = best;
-    out_slot[i] = slot;
-  }
+  return medium;
 }
 
-// K2 in its BVH mode: the spheres-only sweep on [lo, hi], min-combined with
-// K1's planar hit (t_p, pslot) and decoded to (t, kind, idx).
+// K2: the spheres-only sweep on [lo, hi], min-combined with K1's planar hit
+// (t_p, pslot) and decoded to (t, kind, idx).
 __global__ void k2_bvh_spheres(const float* ox, const float* oy,
                                const float* oz, const float* dx,
                                const float* dy, const float* dz, float lo,
@@ -190,19 +288,8 @@ __global__ void k2_bvh_spheres(const float* ox, const float* oy,
     if (base > 0) __syncthreads();
     stage(spheres, sph, base, count, 2);
     __syncthreads();
-    if (!live) continue;
-    for (int p = 0; p < count; ++p) {
-      float r1, r2;
-      const bool ok = hit::sphere_roots(r, spheres[2 * p],
-                                        spheres[2 * p + 1], &r1, &r2);
-      const bool in1 = r1 >= lo && r1 <= hi;
-      const bool in2 = r2 >= lo && r2 <= hi;
-      const float t = (ok && in1) ? r1 : ((ok && in2) ? r2 : CUDART_INF_F);
-      if (t < best) {
-        best = t;
-        slot = base + p;
-      }
-    }
+    if (live)
+      sphere_rows<true>(r, spheres, count, base, lo, hi, true, &best, &slot);
   }
   if (!live) return;
   const float tp = t_p[i];
@@ -218,115 +305,59 @@ __global__ void k2_bvh_spheres(const float* ox, const float* oy,
   }
 }
 
-// K3: one medium's event per ray, clipped to the ray's solid hit t_solid.
-__global__ void k3_medium(const float* ox, const float* oy, const float* oz,
-                          const float* dx, const float* dy, const float* dz,
-                          const float* t_solid, const float* u_flight,
-                          const float4* sph, int n_sph, const float4* pln,
-                          int n_pl, const float* neg_inv_density, int n_rays,
-                          float* out_t) {
-  __shared__ float4 tile[kTileRows * 4];
+// K3: every medium's event on top of the solid hit (t, kind, idx); a medium
+// that wins sets kind KIND_MEDIUM and idx its index.
+__global__ void k3_media(const float* ox, const float* oy, const float* oz,
+                         const float* dx, const float* dy, const float* dz,
+                         Draw draw, Media md, const float* t_in,
+                         const int* kind_in, const int* idx_in, int n_rays,
+                         float* out_t, int* out_kind, int* out_idx) {
+  extern __shared__ __align__(16) float4 media_rows[];
+  const Media smd = stage_media(md, media_rows);
+  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  Ray r = {};
-  float ts = 0.f, u = 0.f;
-  if (live) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    ts = t_solid[i];
-    ts = isfinite(ts) ? ts : CUDART_INF_F;
-    u = u_flight[i];
-  }
-  const float t = medium_sweep(r, live, tile, sph, n_sph, pln, n_pl, ts, u,
-                               neg_inv_density[0]);
-  if (live) out_t[i] = t;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  float best = t_in[i];
+  const int medium = media_events(r, smd, draw, i, &best);
+  out_t[i] = best;
+  out_kind[i] = medium >= 0 ? KIND_MEDIUM : kind_in[i];
+  out_idx[i] = medium >= 0 ? medium : idx_in[i];
 }
 
-// A lane counter (pixel, sample or bounce): an (R,) int32 (size 4) or
-// int64 (size 8) array; taken as its low 32 bits, as rng._u32 does.
-struct Counter {
-  const void* p;
-  int size;
-
-  __device__ __forceinline__ uint32_t at(int i) const {
-    if (size == 8) return static_cast<uint32_t>(
-        static_cast<const long long*>(p)[i]);
-    return static_cast<uint32_t>(static_cast<const int*>(p)[i]);
-  }
-};
-
-// K4's scene: the solid tables, and every medium's boundary packed into one
-// sphere and one planar table (medium m owns rows [sph_off[m],
-// sph_off[m+1]) and [pl_off[m], pl_off[m+1])), its neg_inv_density and its
-// padded box (lo xyz 0 hi xyz 0).
-struct Scene {
-  const float4* sph;
-  int n_sph;
-  const float4* pln;
-  int n_pl;
-  const int* pl_idx;
-  const float4* msph;
-  const float4* mpln;
-  const int* sph_off;
-  const int* pl_off;
-  const float* nid;
-  const float4* box;
-  int n_media;
-};
-
-// K4: the solid sweep on [RAY_T_MIN, inf), then every medium in order, each
-// clipped to the best t so far (pallas_sweep.py:459-482).
+// K4: the solid sweep on [RAY_T_MIN, inf), then every medium in order
+// (media_events), and the decode.
 __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
                              const float* dx, const float* dy, const float* dz,
-                             Counter pix, Counter sample, Counter bounce,
-                             uint32_t seed, Scene sc, int n_rays,
-                             float* out_t, int* out_kind, int* out_idx) {
+                             Draw draw, const float4* sph, int n_sph,
+                             const float4* pln, int n_pl, const int* pl_idx,
+                             Media md, int n_rays, float* out_t,
+                             int* out_kind, int* out_idx) {
   __shared__ float4 tile[kTileRows * 4];
+  extern __shared__ __align__(16) float4 media_rows[];
+  const Media smd = stage_media(md, media_rows);
+  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n_rays;  // no early return: every thread stages
   Ray r = {};
   if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
   float best;
   int slot;
-  sweep_tables<true>(r, live, tile, sc.sph, sc.n_sph, sc.pln, sc.n_pl,
-                     hit::kRayTMin, CUDART_INF_F, true, &best, &slot);
-  int medium = -1;
-  const float inv0 = 1.f / r.d0, inv1 = 1.f / r.d1, inv2 = 1.f / r.d2;
-  for (int m = 0; m < sc.n_media; ++m) {
-    const int s0 = sc.sph_off[m], ns = sc.sph_off[m + 1] - s0;
-    const int p0 = sc.pl_off[m], np = sc.pl_off[m + 1] - p0;
-    // a ray that cannot reach the box before best has the event INF
-    const bool reach = live && hit::box_reach(r, inv0, inv1, inv2,
-                                              sc.box[2 * m],
-                                              sc.box[2 * m + 1], best);
-    float t1, t2;
-    int unused;
-    sweep_tables<false>(r, reach, tile, sc.msph + 2 * s0, ns,
-                        sc.mpln + 4 * p0, np, -CUDART_INF_F, CUDART_INF_F,
-                        false, &t1, &unused);
-    sweep_tables<false>(r, reach, tile, sc.msph + 2 * s0, ns,
-                        sc.mpln + 4 * p0, np, t1 + 1e-4f, CUDART_INF_F, false,
-                        &t2, &unused);
-    if (!reach) continue;
-    const float u = hit::uniform4(pix.at(i), sample.at(i), bounce.at(i),
-                                  kMediumPurposeBase + m, seed).x;
-    const float t_m = hit::medium_event(r, t1, t2, best, u, sc.nid[m]);
-    if (t_m < best) {
-      best = t_m;
-      medium = m;
-    }
-  }
+  sweep_tables(r, live, tile, sph, n_sph, pln, n_pl, hit::kRayTMin,
+               CUDART_INF_F, &best, &slot);
   if (!live) return;
+  const int medium = media_events(r, smd, draw, i, &best);
   int kind, idx;
   if (medium >= 0) {
     kind = KIND_MEDIUM;
     idx = medium;
-  } else if (slot < sc.n_sph) {   // a sphere, or a miss (slot -1)
+  } else if (slot < n_sph) {   // a sphere, or a miss (slot -1)
     kind = KIND_SPHERE;
     idx = slot < 0 ? 0 : slot;
   } else {   // the planar row's is_tri column and pl_idx
-    const int ps = slot - sc.n_sph;
-    kind = sc.pln[4 * ps + 3].x > 0.5f ? KIND_TRIANGLE : KIND_QUAD;
-    idx = sc.pl_idx[ps];
+    const int ps = slot - n_sph;
+    kind = pln[4 * ps + 3].x > 0.5f ? KIND_TRIANGLE : KIND_QUAD;
+    idx = pl_idx[ps];
   }
   out_t[i] = best;
   out_kind[i] = kind;
@@ -335,24 +366,15 @@ __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-}  // namespace
-
-extern "C" int k2_sweep_launch(const float* ox, const float* oy,
-                               const float* oz, const float* dx,
-                               const float* dy, const float* dz,
-                               const float* tmin, const float* tmax,
-                               const float* sph, int n_sph, const float* pln,
-                               int n_pl, int n_rays, float* out_t,
-                               int* out_slot, void* stream) {
-  if (n_rays > 0) {
-    k2_sweep<<<blocks_for(n_rays), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, tmin, tmax,
-        reinterpret_cast<const float4*>(sph), n_sph,
-        reinterpret_cast<const float4*>(pln), n_pl, n_rays, out_t, out_slot);
-  }
-  return static_cast<int>(cudaGetLastError());
+Media media_of(const float* msph, int n_msph, const float* mpln, int n_mpl,
+               const int* sph_off, const int* pl_off, const float* nid,
+               const float* box, int n_media) {
+  return Media{reinterpret_cast<const float4*>(msph), n_msph,
+               reinterpret_cast<const float4*>(mpln), n_mpl, sph_off, pl_off,
+               nid, reinterpret_cast<const float4*>(box), n_media};
 }
+
+}  // namespace
 
 // n_pl >= 1: the planar table K1 walked (pl_idx, pl_is_tri (bool bytes)).
 extern "C" int k2_bvh_spheres_launch(
@@ -372,20 +394,26 @@ extern "C" int k2_bvh_spheres_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int k3_medium_launch(const float* ox, const float* oy,
-                                const float* oz, const float* dx,
-                                const float* dy, const float* dz,
-                                const float* t_solid, const float* u_flight,
-                                const float* sph, int n_sph, const float* pln,
-                                int n_pl, const float* neg_inv_density,
-                                int n_rays, float* out_t, void* stream) {
+// Counters: (pointer, element size 4 or 8). The media: MediaTables' packed
+// tables, offsets (int32), neg_inv_density and boxes.
+extern "C" int k3_media_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const void* pix, int pix_size,
+    const void* sample, int sample_size, const void* bounce, int bounce_size,
+    unsigned int seed, const float* msph, int n_msph, const float* mpln,
+    int n_mpl, const int* sph_off, const int* pl_off, const float* nid,
+    const float* box, int n_media, const float* t_in, const int* kind_in,
+    const int* idx_in, int n_rays, float* out_t, int* out_kind, int* out_idx,
+    void* stream) {
   if (n_rays > 0) {
-    k3_medium<<<blocks_for(n_rays), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, t_solid, u_flight,
-        reinterpret_cast<const float4*>(sph), n_sph,
-        reinterpret_cast<const float4*>(pln), n_pl, neg_inv_density, n_rays,
-        out_t);
+    k3_media<<<blocks_for(n_rays), kThreads, media_smem_bytes(n_msph, n_mpl),
+               static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz,
+        Draw{Counter{pix, pix_size}, Counter{sample, sample_size},
+             Counter{bounce, bounce_size}, seed},
+        media_of(msph, n_msph, mpln, n_mpl, sph_off, pl_off, nid, box,
+                 n_media),
+        t_in, kind_in, idx_in, n_rays, out_t, out_kind, out_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -397,19 +425,20 @@ extern "C" int k4_scene_hit_launch(
     const void* sample, int sample_size, const void* bounce, int bounce_size,
     unsigned int seed, const float* sph, int n_sph,
     const float* pln, int n_pl, const int* pl_idx, const float* msph,
-    const float* mpln, const int* sph_off, const int* pl_off,
-    const float* nid, const float* box, int n_media, int n_rays,
-    float* out_t, int* out_kind, int* out_idx, void* stream) {
+    int n_msph, const float* mpln, int n_mpl, const int* sph_off,
+    const int* pl_off, const float* nid, const float* box, int n_media,
+    int n_rays, float* out_t, int* out_kind, int* out_idx, void* stream) {
   if (n_rays > 0) {
-    const Scene sc{reinterpret_cast<const float4*>(sph), n_sph,
-                   reinterpret_cast<const float4*>(pln), n_pl, pl_idx,
-                   reinterpret_cast<const float4*>(msph),
-                   reinterpret_cast<const float4*>(mpln), sph_off, pl_off,
-                   nid, reinterpret_cast<const float4*>(box), n_media};
-    k4_scene_hit<<<blocks_for(n_rays), kThreads, 0,
+    k4_scene_hit<<<blocks_for(n_rays), kThreads,
+                   media_smem_bytes(n_msph, n_mpl),
                    static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, Counter{pix, pix_size},
-        Counter{sample, sample_size}, Counter{bounce, bounce_size}, seed, sc,
+        ox, oy, oz, dx, dy, dz,
+        Draw{Counter{pix, pix_size}, Counter{sample, sample_size},
+             Counter{bounce, bounce_size}, seed},
+        reinterpret_cast<const float4*>(sph), n_sph,
+        reinterpret_cast<const float4*>(pln), n_pl, pl_idx,
+        media_of(msph, n_msph, mpln, n_mpl, sph_off, pl_off, nid, box,
+                 n_media),
         n_rays, out_t, out_kind, out_idx);
   }
   return static_cast<int>(cudaGetLastError());

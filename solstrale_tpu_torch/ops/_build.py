@@ -46,13 +46,14 @@ _U = ctypes.c_uint
 # cudaError_t
 _SIGNATURES = {
     "k1_bvh_launch": [_P] * 7 + [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "k2_sweep_launch": [_P] * 8 + [_P, _I, _P, _I, _I, _P, _P, _P],
     "k2_bvh_spheres_launch": [_P] * 6 + [_F, _F, _P, _I, _P, _P, _P, _P, _I,
                                          _I, _P, _P, _P, _P],
-    "k3_medium_launch": [_P] * 8 + [_P, _I, _P, _I, _P, _I, _P, _P],
-    "k4_scene_hit_launch": [_P] * 6 + [_P, _I] * 3 + [
-        _U, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+    "k3_media_launch": [_P] * 6 + [_P, _I] * 3 + [
+        _U, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
         _P],
+    "k4_scene_hit_launch": [_P] * 6 + [_P, _I] * 3 + [
+        _U, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+        _P, _P, _P],
     "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P, _P],

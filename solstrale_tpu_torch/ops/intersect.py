@@ -1,6 +1,6 @@
-"""Ray-scene intersection on tensors: constant-medium events, hit
-attributes and the NEE light-table ops (the fused scene hit of a scene
-without a BVH is ``ops/sweep.py::scene_hit``, K4).
+"""Ray-scene intersection on tensors: hit attributes and the NEE
+light-table ops (the scene hit itself is ``ops/bvh.py`` and
+``ops/sweep.py``: K1-K3 on BVH scenes, the fused K4 otherwise).
 
 Mirrors the JAX package's ``ops/intersect.py``. Its one-hot matmul lookups
 (an MXU workaround) become direct indexing here, with the one-hot
@@ -17,7 +17,6 @@ import torch
 from ..geo import ALMOST_ZERO, INF, RAY_T_MIN, soa
 from ..scene.compile import (KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE,
                              Lights, Solids)
-from . import sweep
 
 # light_pdf_mean3 unrolls its light loop up to this many lights; above it
 # the batched (R, L) form (light_pdf_values) takes over, as in the JAX
@@ -38,14 +37,6 @@ def table_rows(table, idx):
     rows = table[torch.clamp(idx, 0, n - 1).long()].to(torch.float32)
     rows = torch.where(in_range[:, None], rows, 0.0)
     return tuple(rows.unbind(dim=1))
-
-
-def medium_hit(medium, o, d, t_solid, u_flight):
-    """Constant-medium scattering distance (constant_medium.rs:35-79)
-    through the medium kernel (K3). Returns t (INF = no medium event)."""
-    b = medium.boundary
-    return sweep.medium_hit(b.sph_table, b.pl_table, medium.neg_inv_density,
-                            o, d, t_solid, u_flight)
 
 
 def hit_attributes_soa(s: Solids, o, d, t, kind, idx, has_spheres=True):

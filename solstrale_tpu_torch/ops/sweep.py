@@ -1,6 +1,6 @@
-"""Brute-force sweeps: closest hit over the sphere + planar tables (K2),
-one constant medium's scattering event (K3), and both fused into the whole
-scene hit of a scene without a BVH (K4).
+"""Brute-force sweeps: the BVH route's sphere sweep (K2), every constant
+medium's scattering event on the BVH route (K3), and both fused into the
+whole scene hit of a scene without a BVH (K4).
 
 Each has a hand-written CUDA kernel (``csrc/sweep.cu``) and a plain PyTorch
 version with the same formulas, op for op (the JAX package's
@@ -8,15 +8,18 @@ version with the same formulas, op for op (the JAX package's
 the tensors' device only: CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise.
 
-- ``closest_hit``: K2 over both tables (or spheres only), (t, slot).
-- ``bvh_sphere_hit``: K2 in its BVH mode, the one a route launches: the
-  spheres-only sweep min-combined with K1's planar hit and decoded to (t,
-  kind, idx) in the same launch, as the JAX package's
-  ``bvh_closest_hit_pallas`` combines them.
-- ``medium_hit``: K3.
-- ``scene_hit``: K4, (t, kind, idx) from the lane counters: the media's
-  flight uniforms are drawn, the media culled by their padded boxes and the
-  slot decoded in the kernel.
+- ``bvh_sphere_hit``: K2, the spheres-only sweep min-combined with K1's
+  planar hit and decoded to (t, kind, idx) in the same launch, as the JAX
+  package's ``bvh_closest_hit_pallas`` combines them.
+- ``media_hit``: K3, every medium in order on top of a solid hit (t, kind,
+  idx): the flight uniforms are drawn from the lane counters, the media
+  culled by their padded boxes and (t, kind, idx) updated in the kernel.
+- ``scene_hit``: K4, (t, kind, idx) from the lane counters: the solid
+  sweep, then the media as in K3, and the slot decoded in the kernel.
+
+``closest_hit_plain`` (K2's sweep over both tables, (t, slot)) and
+``medium_hit_plain`` (one medium's event) are the plain references these
+build on.
 
 Tables (``Solids.sph_table`` / ``Solids.pl_table``):
 - spheres (S, 8): cx cy cz radius valid 0 0 0
@@ -101,8 +104,10 @@ def _first_min(t, best_t, best_slot, slot0):
 
 
 def closest_hit_plain(sph, pln, o, d, tmin, tmax, spheres_only=False):
-    """Plain PyTorch K2: (t, slot) with slot < S a sphere, S + p planar row
-    p, -1 a miss (t = INF). ``pln`` is not read if ``spheres_only``."""
+    """Brute-force closest hit over both tables (K2's sweep; the JAX
+    package's ``closest_hit_pallas``): (t, slot) with slot < S a sphere,
+    S + p planar row p, -1 a miss (t = INF). ``pln`` is not read if
+    ``spheres_only``."""
     r = o[0].shape[0]
     tmin = _build.per_ray(tmin, o[0])
     tmax = _build.per_ray(tmax, o[0])
@@ -170,8 +175,9 @@ def _closest_t_plain(sph, pln, o, d, dd, od, oo, lo):
 
 
 def medium_hit_plain(sph, pln, neg_inv_density, o, d, t_solid, u_flight):
-    """Plain PyTorch K3: the medium event t per ray, INF when none
-    (constant_medium.rs:35-79, pallas_sweep.py:249-313)."""
+    """One constant medium's event t per ray, INF when none
+    (constant_medium.rs:35-79; the JAX package's ``medium_hit_pallas``,
+    pallas_sweep.py:249-313)."""
     r = o[0].shape[0]
     out = torch.empty((r,), dtype=torch.float32, device=o[0].device)
     t_solid = torch.where(torch.isfinite(t_solid), t_solid, INF)
@@ -296,19 +302,15 @@ def pack_media(media, device, scale):
         box=medium_boxes(media, device, scale))
 
 
-def scene_hit_plain(s: Solids, media: MediaTables, o, d, pixel, sample,
+def media_hit_plain(media: MediaTables, o, d, t, kind, idx, pixel, sample,
                     bounce, seed):
-    """Plain PyTorch K4: K2 over the solid tables on [RAY_T_MIN, inf), then
-    K3 for each medium in order, each clipped to the best t so far (the
-    events of the media before it included). Medium m's flight uniform is
-    ``rng.uniform`` of the lane counters (pixel, sample, bounce, seed) with
-    purpose ``rng.P_MEDIUM_BASE + m``; each counter is an (R,) int tensor or
-    an int. Returns (t, kind, idx): kind KIND_MEDIUM with idx the medium,
-    else the solid hit decoded as the JAX ``scene_hit_fused`` does
-    (pallas_sweep.py:563-575); a miss is (INF, KIND_SPHERE, 0)."""
-    t, slot = closest_hit_plain(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
-                                INF)
-    n_sph, n_pl = s.sph_table.shape[0], s.pl_table.shape[0]
+    """Plain PyTorch K3: every medium of ``media`` in order on top of the hit
+    (t, kind, idx), as the JAX package's integrator runs them
+    (integrator.py:153-165): medium m's flight uniform is ``rng.uniform``
+    of the lane counters (pixel, sample, bounce, seed; each an (R,) int
+    tensor or an int) with purpose ``rng.P_MEDIUM_BASE + m``, its event is
+    ``medium_hit_plain`` clipped to the t so far, and it wins by a strict
+    '<', setting (t_m, KIND_MEDIUM, m). Returns (t, kind, idx)."""
     for m in range(media.n_media):
         msph, mpln = media.boundary(m)
         u = rng.uniform(pixel, sample, bounce, rng.P_MEDIUM_BASE + m, seed)
@@ -316,49 +318,39 @@ def scene_hit_plain(s: Solids, media: MediaTables, o, d, pixel, sample,
                                torch.broadcast_to(u, t.shape))
         is_med = t_m < t
         t = torch.where(is_med, t_m, t)
-        slot = torch.where(is_med, n_sph + n_pl + m, slot)
+        kind = torch.where(is_med, KIND_MEDIUM, kind)
+        idx = torch.where(is_med, m, idx)
+    return t, kind, idx
+
+
+def scene_hit_plain(s: Solids, media: MediaTables, o, d, pixel, sample,
+                    bounce, seed):
+    """Plain PyTorch K4: the closest solid hit on [RAY_T_MIN, inf), decoded
+    as the JAX ``scene_hit_fused`` does (pallas_sweep.py:563-575; a miss is
+    (INF, KIND_SPHERE, 0)), then every medium in order (``media_hit_plain``;
+    a medium wins only by a strict '<', as in the fused slot encoding).
+    Each counter is an (R,) int tensor or an int. Returns (t, kind, idx)."""
+    t, slot = closest_hit_plain(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
+                                INF)
+    n_sph, n_pl = s.sph_table.shape[0], s.pl_table.shape[0]
     is_sphere = slot < n_sph
-    is_med = slot >= n_sph + n_pl
     pslot = torch.clamp(slot - n_sph, 0, n_pl - 1).long()
-    kind = torch.where(is_med, KIND_MEDIUM,
-                       torch.where(is_sphere, KIND_SPHERE,
-                                   torch.where(s.pl_is_tri[pslot],
-                                               KIND_TRIANGLE, KIND_QUAD)))
-    idx = torch.where(is_med, slot - n_sph - n_pl,
-                      torch.where(is_sphere, torch.clamp(slot, min=0),
-                                  s.pl_idx[pslot]))
-    return t, kind.to(torch.int32), idx.to(torch.int32)
+    kind = torch.where(is_sphere, KIND_SPHERE,
+                       torch.where(s.pl_is_tri[pslot], KIND_TRIANGLE,
+                                   KIND_QUAD)).to(torch.int32)
+    idx = torch.where(is_sphere, torch.clamp(slot, min=0),
+                      s.pl_idx[pslot]).to(torch.int32)
+    return media_hit_plain(media, o, d, t, kind, idx, pixel, sample, bounce,
+                           seed)
 
 
 # --- wrappers ---------------------------------------------------------------
 
-def closest_hit(sph, pln, o, d, tmin, tmax, spheres_only=False):
-    """K2: closest hit over both tables (spheres only if ``spheres_only``).
-    Returns (t (R,) f32, slot (R,) int32): slot < S sphere, S + p planar,
-    -1 miss."""
-    rays = _build.ray_components(o, d)
-    dev, r = _build.check_rays(rays, sph, pln)
-    if dev.type == "cpu":
-        return closest_hit_plain(sph, pln, rays[:3], rays[3:], tmin, tmax,
-                                 spheres_only)
-    if dev.type != "cuda":
-        raise ValueError(f"closest_hit: unsupported device {dev}")
-    if sph.shape[1] != 8 or pln.shape[1] != 16:
-        raise ValueError("closest_hit: tables must be (S, 8) and (P, 16)")
-    lo, hi = _build.per_ray(tmin, rays[0]), _build.per_ray(tmax, rays[0])
-    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
-    out_s = torch.empty((r,), dtype=torch.int32, device=dev)
-    p = _build.ptr
-    err = _build.library().k2_sweep_launch(
-        *(p(x) for x in rays), p(lo), p(hi), p(sph), sph.shape[0], p(pln),
-        0 if spheres_only else pln.shape[0], r, p(out_t), p(out_s),
-        _build.stream_of(out_t))
-    _build.check(err, "k2_sweep")
-    closest_hit.launches += 1
-    return out_t, out_s
-
-
-closest_hit.launches = 0
+def _hit_outputs(r, dev):
+    """Empty (t, kind, idx) for R rays: f32, int32, int32."""
+    return (torch.empty((r,), dtype=torch.float32, device=dev),
+            torch.empty((r,), dtype=torch.int32, device=dev),
+            torch.empty((r,), dtype=torch.int32, device=dev))
 
 
 def bvh_sphere_hit(sph, o, d, tmin, tmax, t_p, pslot, pl_idx, pl_is_tri):
@@ -387,59 +379,87 @@ def bvh_sphere_hit(sph, o, d, tmin, tmax, t_p, pslot, pl_idx, pl_is_tri):
             raise ValueError("bvh_sphere_hit: pslot must be (R,) int32, "
                              "pl_idx (P,) int32 and pl_is_tri (P,) bool, "
                              "contiguous on the rays' device")
-    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
-    out_kind = torch.empty((r,), dtype=torch.int32, device=dev)
-    out_idx = torch.empty((r,), dtype=torch.int32, device=dev)
+    outs = _hit_outputs(r, dev)
     p = _build.ptr
     err = _build.library().k2_bvh_spheres_launch(
         *(p(x) for x in rays), float(tmin), float(tmax), p(sph),
         sph.shape[0], p(t_p), p(pslot), p(pl_idx), p(pl_is_tri), n_pl, r,
-        p(out_t), p(out_kind), p(out_idx), _build.stream_of(out_t))
+        *(p(x) for x in outs), _build.stream_of(outs[0]))
     _build.check(err, "k2_bvh_spheres")
     bvh_sphere_hit.launches += 1
-    return out_t, out_kind, out_idx
+    return outs
 
 
 bvh_sphere_hit.launches = 0
 
 
-def medium_hit(sph, pln, neg_inv_density, o, d, t_solid, u_flight):
-    """K3: one constant medium's scattering t per ray (INF = no event).
-    ``neg_inv_density`` is a 0-dim f32 tensor on the rays' device."""
-    rays = _build.ray_components(o, d)
-    t_solid = t_solid.contiguous()
-    u_flight = u_flight.contiguous()
-    dev, r = _build.check_rays(rays + (t_solid, u_flight), sph, pln)
-    if dev.type == "cpu":
-        return medium_hit_plain(sph, pln, neg_inv_density, rays[:3],
-                                rays[3:], t_solid, u_flight)
-    if dev.type != "cuda":
-        raise ValueError(f"medium_hit: unsupported device {dev}")
-    if sph.shape[1] != 8 or pln.shape[1] != 16:
-        raise ValueError("medium_hit: tables must be (S, 8) and (P, 16)")
-    nid = neg_inv_density.to(device=dev, dtype=torch.float32).reshape(1)
-    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+def _draw_args(name, pixel, sample, bounce, seed, r, dev):
+    """The kernels' lane counters as (pointer, element size) pairs and the
+    seed as its low 32 bits: each counter a contiguous (R,) int32 or int64
+    tensor on the rays' device."""
+    args = []
+    for x in (pixel, sample, bounce):
+        if not isinstance(x, torch.Tensor) or x.shape != (r,) or \
+                x.dtype not in (torch.int32, torch.int64) or \
+                x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: a counter must be a contiguous (R,) "
+                             "int32 / int64 tensor on the rays' device")
+        args += [_build.ptr(x), x.element_size()]
+    return args + [int(seed) & 0xFFFFFFFF]
+
+
+def _media_args(name, media: MediaTables, dev):
+    """The kernels' media arguments: packed tables and their row counts,
+    offsets, neg_inv_density, boxes and the number of media."""
+    if media.sph.shape[1] != 8 or media.pln.shape[1] != 16 or \
+            media.box.shape != (media.n_media, 8) or \
+            media.nid.shape != (media.n_media,):
+        raise ValueError(f"{name}: media tables must be (S, 8) and (P, 16), "
+                         "boxes (M, 8) and densities (M,)")
+    if media.sph_off_t.device != dev or media.pl_off_t.device != dev:
+        raise ValueError(f"{name}: media offsets must be on the rays' device")
     p = _build.ptr
-    err = _build.library().k3_medium_launch(
-        *(p(x) for x in rays), p(t_solid), p(u_flight), p(sph), sph.shape[0],
-        p(pln), pln.shape[0], p(nid), r, p(out_t), _build.stream_of(out_t))
-    _build.check(err, "k3_medium")
-    medium_hit.launches += 1
-    return out_t
+    return [p(media.sph), media.sph.shape[0], p(media.pln),
+            media.pln.shape[0], p(media.sph_off_t), p(media.pl_off_t),
+            p(media.nid), p(media.box), media.n_media]
 
 
-medium_hit.launches = 0
+def media_hit(media: MediaTables, o, d, t, kind, idx, pixel, sample, bounce,
+              seed):
+    """K3: every medium of ``media`` in order on top of the hit (``t`` (R,)
+    f32, ``kind`` and ``idx`` (R,) int32, as K2 gives them), in one launch:
+    each medium culled by its padded box, its flight uniform drawn from the
+    lane counters (pixel, sample, bounce: (R,) int32 / int64 tensors, as
+    ``trace_queued`` passes them; seed: an int) and its event won by a
+    strict '<' (``media_hit_plain`` says what it computes; on CPU rays it
+    also takes ints for counters). Returns new (t, kind, idx)."""
+    rays = _build.ray_components(o, d)
+    dev, r = _build.check_rays(rays, t, media.sph, media.pln, media.nid,
+                               media.box)
+    if dev.type == "cpu":
+        return media_hit_plain(media, rays[:3], rays[3:], t, kind, idx, pixel,
+                               sample, bounce, seed)
+    if dev.type != "cuda":
+        raise ValueError(f"media_hit: unsupported device {dev}")
+    for x, dtype in ((t, torch.float32), (kind, torch.int32),
+                     (idx, torch.int32)):
+        if x.device != dev or x.dtype != dtype or x.shape != (r,) or \
+                not x.is_contiguous():
+            raise ValueError("media_hit: t must be (R,) f32, kind and idx "
+                             "(R,) int32, contiguous on the rays' device")
+    draw = _draw_args("media_hit", pixel, sample, bounce, seed, r, dev)
+    outs = _hit_outputs(r, dev)
+    p = _build.ptr
+    err = _build.library().k3_media_launch(
+        *(p(x) for x in rays), *draw, *_media_args("media_hit", media, dev),
+        p(t), p(kind), p(idx), r, *(p(x) for x in outs),
+        _build.stream_of(outs[0]))
+    _build.check(err, "k3_media")
+    media_hit.launches += 1
+    return outs
 
 
-def _counter(x, r, dev):
-    """K4's (pointer, element size) of a lane counter: a contiguous (R,)
-    int32 or int64 tensor on the rays' device."""
-    if not isinstance(x, torch.Tensor) or x.shape != (r,) or \
-            x.dtype not in (torch.int32, torch.int64) or x.device != dev or \
-            not x.is_contiguous():
-        raise ValueError("scene_hit: a counter must be a contiguous (R,) "
-                         "int32 / int64 tensor on the rays' device")
-    return _build.ptr(x), x.element_size()
+media_hit.launches = 0
 
 
 def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
@@ -459,29 +479,20 @@ def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
                                bounce, seed)
     if dev.type != "cuda":
         raise ValueError(f"scene_hit: unsupported device {dev}")
-    if sph.shape[1] != 8 or pln.shape[1] != 16 or media.sph.shape[1] != 8 \
-            or media.pln.shape[1] != 16:
+    if sph.shape[1] != 8 or pln.shape[1] != 16:
         raise ValueError("scene_hit: tables must be (S, 8) and (P, 16)")
-    if media.sph_off_t.device != dev or media.pl_off_t.device != dev or \
-            s.pl_idx.device != dev:
-        raise ValueError("scene_hit: media offsets and pl_idx must be on the "
-                         "rays' device")
-    counters = [x for c in (pixel, sample, bounce)
-                for x in _counter(c, r, dev)]
-    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
-    out_kind = torch.empty((r,), dtype=torch.int32, device=dev)
-    out_idx = torch.empty((r,), dtype=torch.int32, device=dev)
+    if s.pl_idx.device != dev:
+        raise ValueError("scene_hit: pl_idx must be on the rays' device")
+    draw = _draw_args("scene_hit", pixel, sample, bounce, seed, r, dev)
+    outs = _hit_outputs(r, dev)
     p = _build.ptr
     err = _build.library().k4_scene_hit_launch(
-        *(p(x) for x in rays), *counters, int(seed) & 0xFFFFFFFF, p(sph),
-        sph.shape[0], p(pln), pln.shape[0], p(s.pl_idx), p(media.sph),
-        p(media.pln), p(media.sph_off_t), p(media.pl_off_t), p(media.nid),
-        p(media.box),
-        media.n_media, r, p(out_t), p(out_kind), p(out_idx),
-        _build.stream_of(out_t))
+        *(p(x) for x in rays), *draw, p(sph), sph.shape[0], p(pln),
+        pln.shape[0], p(s.pl_idx), *_media_args("scene_hit", media, dev), r,
+        *(p(x) for x in outs), _build.stream_of(outs[0]))
     _build.check(err, "k4_scene_hit")
     scene_hit.launches += 1
-    return out_t, out_kind, out_idx
+    return outs
 
 
 scene_hit.launches = 0

@@ -34,8 +34,7 @@ from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
 from ..ops import rng, sweep
 from ..ops.bvh import bvh_closest_hit
 from ..ops.intersect import (hit_attributes_soa, light_pdf_mean3,
-                             medium_hit, sample_light_direction3,
-                             table_rows)
+                             sample_light_direction3, table_rows)
 from ..scene.compile import (BLEND, DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC,
                              KIND_MEDIUM, LAMBERTIAN, METAL, CompiledScene)
 from . import megakernel
@@ -125,8 +124,8 @@ def per_scene(cs: CompiledScene, name, make):
 
 
 def media_tables(cs: CompiledScene):
-    """Every medium's boundary packed, with its padded box, for the fused
-    scene hit (K4) and the render megakernel (K5):
+    """Every medium's boundary packed, with its padded box, for the media
+    hit (K3), the fused scene hit (K4) and the render megakernel (K5):
     ``ops.sweep.MediaTables``."""
     return per_scene(cs, "media", lambda: sweep.pack_media(
         cs.media, cs.device, box_scale(cs)))
@@ -150,23 +149,20 @@ def scene_hit(cs: CompiledScene, o, d, pix, sample, bounce, seed,
     (t, kind, idx) with kind = KIND_MEDIUM for volume scattering. Medium m
     draws its free-flight uniform with purpose rng.P_MEDIUM_BASE + m.
 
-    BVH scenes: K1 over planar prims, then K2 in its BVH mode (the sphere
-    sweep, min-combined), then K3 per medium. Other scenes: the fused K4
-    (its plain version if ``plain``), one launch that draws, culls and
-    decodes for the solids and every medium."""
+    BVH scenes: K1 over planar prims, then K2 (the sphere sweep,
+    min-combined and decoded), then, with media, K3: one launch that draws,
+    culls and updates (t, kind, idx) for every medium. Other scenes: the
+    fused K4 (its plain version if ``plain``), one launch that draws, culls
+    and decodes for the solids and every medium."""
     if cs.kbvh is None:
         fn = sweep.scene_hit_plain if plain else sweep.scene_hit
         return fn(cs.solids, media_tables(cs), o, d, pix, sample, bounce,
                   seed)
     t, kind, idx = bvh_closest_hit(cs.kbvh, cs.solids, o, d, RAY_T_MIN, INF)
-    for m_i, med in enumerate(cs.media):
-        u = rng.uniform(pix, sample, bounce, rng.P_MEDIUM_BASE + m_i, seed)
-        t_m = medium_hit(med, o, d, t, u)
-        is_med = t_m < t
-        t = torch.where(is_med, t_m, t)
-        kind = torch.where(is_med, KIND_MEDIUM, kind)
-        idx = torch.where(is_med, m_i, idx)
-    return t, kind, idx
+    if not cs.media:
+        return t, kind, idx
+    return sweep.media_hit(media_tables(cs), o, d, t, kind, idx, pix, sample,
+                           bounce, seed)
 
 
 def full_hit_attributes(cs, o, d, t, kind, idx, pix, sample, bounce, seed):

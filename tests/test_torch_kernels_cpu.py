@@ -1,11 +1,13 @@
 """Each kernel module's plain PyTorch version against the JAX function it
-ports, on the CPU: K2 (sweep, both modes, and its BVH mode's min-combine
-with K1's planar hit), K3 (medium) and K4 (the fused scene hit, drawing
-from the lane counters) against the Pallas kernels in interpret mode and
-the XLA sweeps; K1 (BVH planar hit) against the Pallas BVH kernel in
-interpret mode and the XLA brute force, and K1's walk of the kernel tree
-(``accel.walk_counts``) against the brute force, ties included; the hit
-attribute and NEE light-table ops; and the wrappers' device routing."""
+ports, on the CPU: K2's sweep (both modes, and its BVH mode's min-combine
+with K1's planar hit), K3 (one medium, and every medium in order on top of
+a solid hit, drawing from the lane counters) and K4 (the fused scene hit)
+against the Pallas kernels in interpret mode and the XLA sweeps; K1 (BVH
+planar hit) against the Pallas BVH kernel in interpret mode and the XLA
+brute force, and K1's walk of the kernel tree (``accel.walk_counts``)
+against the brute force, ties included; the hit attribute and NEE
+light-table ops; the wrappers' device routing; and the kernels' C entry
+points against their ctypes signatures."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,9 +24,10 @@ from solstrale_tpu.ops.pallas_bvh import (bvh_closest_hit_pallas,
 from solstrale_tpu.ops.pallas_sweep import (closest_hit_pallas,
                                             medium_hit_pallas,
                                             scene_hit_fused)
+from solstrale_tpu.renderer.integrator import _MEDIUM_PURPOSE_BASE
 from solstrale_tpu.scene.compile import compile_scene as jcompile
 from solstrale_tpu_torch import fixtures
-from solstrale_tpu_torch.ops import bvh, intersect, rng, sweep
+from solstrale_tpu_torch.ops import _build, bvh, intersect, rng, sweep
 from solstrale_tpu_torch.renderer.integrator import media_tables
 from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
 
@@ -155,6 +158,72 @@ def test_k3_plain_matches_pallas_interpret(soup):
                                    jnp.asarray(u)))
     np.testing.assert_array_equal(np.isfinite(xla), fin)
     np.testing.assert_allclose(got[fin], xla[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("counter", ["int32", "int64"])
+def test_media_hit_plain_matches_jax(counter):
+    """K3's plain version, every medium in order on top of a solid hit (a
+    box and a ball that overlaps it, so order and clipping matter), against
+    the loop the JAX package's integrator runs on BVH scenes
+    (integrator.py:153-165): its own rng.uniform per medium and
+    medium_hit_pallas interpreted. The lane counters are int32 or int64
+    tensors (int64 pixels above 2^32, taken as their low 32 bits; JAX gets
+    those bits as int32); parked lanes keep their input."""
+    cj = jcompile(_soup(J, n_media=2), use_bvh=False)
+    ct = tcompile(_soup(T, n_media=2), use_bvh=False, device="cpu")
+    o, d = _rays(seed=22, lo=-4, hi=4)
+    g = np.random.default_rng(23)
+    pix32 = g.integers(0, 2**31 - 1, N_RAYS).astype(np.int32)
+    bounce = g.integers(0, 50, N_RAYS).astype(np.int32)
+    sample, seed = 2, 23
+    t0 = g.uniform(0.5, 12.0, N_RAYS).astype(np.float32)
+    t0[g.random(N_RAYS) < 0.3] = np.inf
+    t0[:N_PARKED] = np.inf
+    kind0 = g.integers(0, 3, N_RAYS).astype(np.int32)
+    idx0 = g.integers(0, 40, N_RAYS).astype(np.int32)
+    pix_t = torch.from_numpy(pix32)
+    if counter == "int64":
+        pix_t = pix_t.long() + (torch.from_numpy(
+            g.integers(1, 4, N_RAYS)) << 32)
+    bounce_t = torch.from_numpy(bounce).to(getattr(torch, counter))
+
+    t_j, k_j, i_j = (jnp.asarray(x) for x in (t0, kind0, idx0))
+    oj, dj = jnp.asarray(o), jnp.asarray(d)
+    for m, med in enumerate(cj.media):
+        u_j = JR.uniform(jnp.asarray(pix32), sample, jnp.asarray(bounce),
+                         _MEDIUM_PURPOSE_BASE + m, jnp.uint32(seed))
+        u_t = rng.uniform(pix_t, sample, bounce_t, rng.P_MEDIUM_BASE + m,
+                          seed)
+        assert np.array_equal(np.asarray(u_j).view(np.uint32),
+                              u_t.numpy().view(np.uint32))
+        t_m = medium_hit_pallas(med, oj, dj, t_j, u_j, interpret=True)
+        is_med = t_m < t_j
+        t_j = jnp.where(is_med, t_m, t_j)
+        k_j = jnp.where(is_med, 3, k_j)
+        i_j = jnp.where(is_med, m, i_j)
+    t_j, k_j, i_j = (np.asarray(x) for x in (t_j, k_j, i_j))
+
+    args = (media_tables(ct), _t(o), _t(d), torch.from_numpy(t0),
+            torch.from_numpy(kind0), torch.from_numpy(idx0), pix_t, sample,
+            bounce_t, seed)
+    t_t, k_t, i_t = (x.numpy() for x in sweep.media_hit_plain(*args))
+    assert k_t.dtype == np.int32 and i_t.dtype == np.int32
+    np.testing.assert_array_equal(k_t, k_j)
+    np.testing.assert_array_equal(i_t, i_j)
+    fin = np.isfinite(t_j)
+    np.testing.assert_array_equal(fin, np.isfinite(t_t))
+    np.testing.assert_allclose(t_t[fin], t_j[fin], rtol=1e-4, atol=1e-4)
+    med = k_t == 3
+    assert (i_t[med] == 0).sum() > 20 and (i_t[med] == 1).sum() > 20
+    assert (med & (t0 < np.inf)).sum() > 20   # media clip solid hits
+    assert not med[:N_PARKED].any()
+    assert np.array_equal(t_t[:N_PARKED], t0[:N_PARKED])
+    # the wrapper on CPU tensors is the plain version
+    sweep.media_hit.launches = 0
+    got = sweep.media_hit(*args)
+    assert sweep.media_hit.launches == 0
+    assert all(np.array_equal(a.numpy(), b) for a, b in
+               zip(got, (t_t, k_t, i_t)))
 
 
 def test_k4_plain_matches_pallas_interpret():
@@ -314,6 +383,37 @@ def test_bvh_cu_constants_match_accel(cu_name, py_name):
     m = re.search(rf"constexpr (?:int|float) {cu_name} = ([0-9.]+)f?;", src)
     assert m is not None
     assert np.float32(m.group(1)) == np.float32(getattr(accel, py_name))
+
+
+def _c_launchers():
+    """Each source's ``extern "C"`` launcher: name -> its parameters."""
+    import re
+    from pathlib import Path
+
+    out = {}
+    for src in _build.SOURCES:
+        text = (Path(_build.__file__).parent.parent / "csrc" / src).read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            out[m.group(1)] = [p.strip() for p in m.group(2).split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_launch_signature_matches_source(name):
+    """The ctypes argument types of each kernel's C entry point follow its
+    declaration in ``csrc`` (no compiler here to catch a mismatch): a
+    pointer is c_void_p, an unsigned int c_uint, a float c_float, an int
+    c_int."""
+    import ctypes
+
+    def ctype(param):
+        decl = param.rsplit(" ", 1)[0] if "*" not in param else "*"
+        return {"*": ctypes.c_void_p, "unsigned int": ctypes.c_uint,
+                "float": ctypes.c_float, "int": ctypes.c_int}[decl]
+
+    launchers = _c_launchers()
+    assert set(launchers) == set(_build._SIGNATURES)
+    assert [ctype(p) for p in launchers[name]] == _build._SIGNATURES[name]
 
 
 def _away_rays(n):
@@ -500,26 +600,31 @@ def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
     launches no kernel."""
     _, ct = soup
     _, cterr = terrain
-    for fn in (bvh.bvh_planar_hit, sweep.closest_hit, sweep.bvh_sphere_hit,
-               sweep.medium_hit, sweep.scene_hit):
+    for fn in (bvh.bvh_planar_hit, sweep.bvh_sphere_hit, sweep.media_hit,
+               sweep.scene_hit):
         fn.launches = 0
-    o, d = _rays(seed=14)
-    o, d = _t(o), _t(d)
+    o, d = _t(_rays(seed=14)[0]), _t(_rays(seed=14)[1])
     s = ct.solids
-    for mode in (False, True):
-        got = sweep.closest_hit(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
-                                INF, spheres_only=mode)
-        want = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
-                                       RAY_T_MIN, INF, spheres_only=mode)
+    # K2 on the soup's spheres, combined with its planar sweep, on two
+    # windows
+    t_p, slot_p = sweep.closest_hit_plain(s.sph_table[:0], s.pl_table, o, d,
+                                          RAY_T_MIN, INF)
+    for tmax in (INF, 5.0):
+        args = (s.sph_table, o, d, RAY_T_MIN, tmax, t_p, slot_p, s.pl_idx,
+                s.pl_is_tri)
+        got = sweep.bvh_sphere_hit(*args)
+        want = sweep.bvh_sphere_hit_plain(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    m = ct.media[0]
-    ts, u = torch.full((N_RAYS,), 20.0), torch.full((N_RAYS,), 0.5)
-    args = (m.boundary.sph_table, m.boundary.pl_table, m.neg_inv_density,
-            o, d, ts, u)
-    assert torch.equal(sweep.medium_hit(*args), sweep.medium_hit_plain(*args))
     pix = torch.arange(N_RAYS)
-    got = sweep.scene_hit(s, media_tables(ct), o, d, pix, 1, 0, 5)
-    want = sweep.scene_hit_plain(s, media_tables(ct), o, d, pix, 1, 0, 5)
+    mt = media_tables(ct)
+    t0 = torch.full((N_RAYS,), 20.0)
+    k0 = torch.zeros(N_RAYS, dtype=torch.int32)
+    args = (mt, o, d, t0, k0, k0 + 1, pix, 1, 0, 5)
+    got, want = sweep.media_hit(*args), sweep.media_hit_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[1] == 3).any()
+    got = sweep.scene_hit(s, mt, o, d, pix, 1, 0, 5)
+    want = sweep.scene_hit_plain(s, mt, o, d, pix, 1, 0, 5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     got = bvh.bvh_planar_hit(cterr.kbvh, o, d, RAY_T_MIN)
     want = bvh.bvh_planar_hit_plain(cterr.kbvh.prims, o, d, RAY_T_MIN)
@@ -528,17 +633,25 @@ def test_wrappers_route_cpu_tensors_to_plain(soup, terrain):
     args = (st.sph_table, o, d, RAY_T_MIN, INF, *got, st.pl_idx, st.pl_is_tri)
     assert all(torch.equal(a, b) for a, b in zip(
         sweep.bvh_sphere_hit(*args), sweep.bvh_sphere_hit_plain(*args)))
-    assert (bvh.bvh_planar_hit.launches, sweep.closest_hit.launches,
-            sweep.bvh_sphere_hit.launches, sweep.medium_hit.launches,
-            sweep.scene_hit.launches) == (0,) * 5
+    assert (bvh.bvh_planar_hit.launches, sweep.bvh_sphere_hit.launches,
+            sweep.media_hit.launches, sweep.scene_hit.launches) == (0,) * 4
 
 
 def test_wrappers_reject_bad_inputs(soup):
     _, ct = soup
     s = ct.solids
     o, d = _t(_rays()[0]), _t(_rays()[1])
+    t_p = torch.full((N_RAYS,), INF)
+    slot = torch.zeros(N_RAYS, dtype=torch.int32)
     with pytest.raises(ValueError):
-        sweep.closest_hit(s.sph_table, s.pl_table,
-                          tuple(c.double() for c in o), d, RAY_T_MIN, INF)
+        sweep.bvh_sphere_hit(s.sph_table, tuple(c.double() for c in o), d,
+                             RAY_T_MIN, INF, t_p, slot, s.pl_idx, s.pl_is_tri)
     with pytest.raises(ValueError):
-        sweep.closest_hit(s.sph_table.t(), s.pl_table, o, d, RAY_T_MIN, INF)
+        sweep.bvh_sphere_hit(s.sph_table.t(), o, d, RAY_T_MIN, INF, t_p, slot,
+                             s.pl_idx, s.pl_is_tri)
+    mt = media_tables(ct)
+    with pytest.raises(ValueError):
+        sweep.media_hit(mt, tuple(c.double() for c in o), d, t_p, slot, slot,
+                        0, 1, 0, 1)
+    with pytest.raises(ValueError):
+        sweep.media_hit(mt, o, d, t_p.double(), slot, slot, 0, 1, 0, 1)

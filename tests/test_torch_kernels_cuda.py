@@ -70,38 +70,6 @@ def test_k1_matches_plain(cuda, n):
     assert (s_k[:128] == -1).all()
 
 
-@pytest.mark.parametrize("spheres_only", [False, True])
-def test_k2_matches_plain(cuda, spheres_only):
-    cs = compile_scene(fixtures.mixed_bvh_scene(
-        T.RenderConfig(width=8, height=8), n_cells=8), use_bvh=False,
-        device=cuda)
-    s = cs.solids
-    o, d = _rays(16384, 2, cuda)
-    t_k, s_k = sweep.closest_hit(s.sph_table, s.pl_table, o, d, RAY_T_MIN,
-                                 INF, spheres_only=spheres_only)
-    t_p, s_p = sweep.closest_hit_plain(s.sph_table, s.pl_table, o, d,
-                                       RAY_T_MIN, INF,
-                                       spheres_only=spheres_only)
-    _assert_hits(t_k, s_k, t_p, s_p)
-
-
-def test_k3_matches_plain(cuda):
-    cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8,
-                                                           height=8)),
-                       device=cuda)
-    med = cs.media[0]
-    o, d = _rays(16384, 3, cuda, lo=-1.5, hi=1.5)
-    g = torch.Generator().manual_seed(4)
-    t_solid = (torch.rand(16384, generator=g) * 5).to(cuda)
-    u = torch.rand(16384, generator=g).to(cuda)
-    args = (med.boundary.sph_table, med.boundary.pl_table,
-            med.neg_inv_density, o, d, t_solid, u)
-    got, want = sweep.medium_hit(*args), sweep.medium_hit_plain(*args)
-    fin = torch.isfinite(want)
-    assert torch.equal(torch.isfinite(got), fin) and fin.sum() > 100
-    assert torch.allclose(got[fin], want[fin], rtol=1e-4, atol=1e-4)
-
-
 def _sphere_rays(cs, n, seed, device):
     """Rays from random origins aimed near the scene's valid spheres."""
     g = torch.Generator().manual_seed(seed)
@@ -243,6 +211,100 @@ def _grazing_scene(cfg):
     return T.Scene(T.Bvh(world), camera, (0.2, 0.3, 0.5), cfg)
 
 
+def _two_media_scene(cfg):
+    """A medium box and a medium ball that overlaps it, on a floor: the
+    ball's events clip against the box's."""
+    grey = T.Lambertian(T.SolidColor(0.5, 0.5, 0.5))
+    world = [T.Quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), grey),
+             T.ConstantMedium(T.Bvh(T.new_box((-1, 0, -1), (1, 2, 1), grey)),
+                              0.5, (1, 1, 1)),
+             T.ConstantMedium(T.Sphere((0.8, 1.2, 0.8), 0.9, grey), 0.8,
+                              (1, 1, 1)),
+             T.Sphere((0, 10, 0), 3.0, T.DiffuseLight(10, 10, 10))]
+    camera = T.CameraConfig(vertical_fov_degrees=40.0, look_from=(0, 1, 6),
+                            look_at=(0, 1, 0))
+    return T.Scene(T.Bvh(world), camera, (0.2, 0.3, 0.5), cfg)
+
+
+def _large_medium_scene(cfg):
+    """The two-media scene with 600 quads more in the box's boundary: more
+    rows than K3 stages in shared memory (kMediaSmemBytes), so the kernel
+    reads them from device memory."""
+    scene = _two_media_scene(cfg)
+    grey = T.Lambertian(T.SolidColor(0.5, 0.5, 0.5))
+    g = np.random.default_rng(7)
+    quads = [T.Quad(g.uniform(-1, 1, 3) + (0, 1, 0), 0.3 * g.normal(size=3),
+                    0.3 * g.normal(size=3), grey) for _ in range(600)]
+    box = T.ConstantMedium(T.Bvh(T.new_box((-1, 0, -1), (1, 2, 1), grey)
+                                 + quads), 0.5, (1, 1, 1))
+    world = scene.world.children
+    world = [world[0], box] + world[2:]
+    return T.Scene(T.Bvh(world), scene.camera, scene.background_color, cfg)
+
+
+K3_SCENES = {"two_media": _two_media_scene, "grazing": _grazing_scene,
+             "large": _large_medium_scene}
+
+
+@pytest.mark.parametrize("counter", ["int32", "int64"])
+@pytest.mark.parametrize("name", list(K3_SCENES))
+def test_k3_matches_plain(cuda, name, counter):
+    """K3 (every medium in order on top of a solid hit, drawn, culled and
+    updated in one launch) equals its plain version exactly on t, kind and
+    idx: two overlapping media, a camera grazing a medium box's faces and
+    edge, and a boundary of more rows than K3 stages in shared memory; on
+    camera rays of 96x64 pixels, the bounces from their hits, random rays
+    and parked rays, with int32 or int64 pixel and sample counters. Parked
+    lanes keep their input."""
+    w, h = 96, 64
+    cs = compile_scene(K3_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       use_bvh=False, device=cuda)
+    mt = integrator.media_tables(cs)
+    assert mt.n_media == len(cs.media) >= 1
+    if name == "large":
+        assert mt.pln.shape[0] * 64 > 32 * 1024
+    no_media = sweep.pack_media((), cuda, 1.0)
+    pix = torch.arange(w * h, device=cuda)
+    co, cd = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    t, kind, idx = sweep.scene_hit_plain(cs.solids, mt, co, cd, pix, 1, 0, 1)
+    hit = torch.isfinite(t)
+    attrs = integrator.full_hit_attributes(
+        cs, co, cd, torch.where(hit, t, 0.0), kind, idx, pix, 1, 0, 1)
+    bd = tuple(torch.where(hit, c, 0.0) for c in attrs["normal"])
+    ro, rd = _rays(4096, 13, cuda, lo=-3.0, hi=3.0)
+    o = tuple(torch.cat([a, b, c]) for a, b, c in zip(ro, co,
+                                                       attrs["point"]))
+    d = tuple(torch.cat([a, b, c]) for a, b, c in zip(rd, cd, bd))
+    n = o[0].numel()
+    dtype = getattr(torch, counter)
+    pixel = torch.cat([torch.arange(4096, device=cuda), pix, pix]).to(dtype)
+    bounce = torch.cat([torch.zeros(4096 + w * h, dtype=torch.int32,
+                                    device=cuda),
+                        torch.ones(w * h, dtype=torch.int32, device=cuda)])
+    sample = torch.ones(n, dtype=dtype, device=cuda)
+    solid = sweep.scene_hit_plain(cs.solids, no_media, o, d, pixel, sample,
+                                  bounce, 1)
+    args = (mt, o, d, *solid, pixel, sample, bounce, 1)
+    sweep.media_hit.launches = 0
+    got = sweep.media_hit(*args)
+    want = sweep.media_hit_plain(*args)
+    torch.cuda.synchronize()
+    assert sweep.media_hit.launches == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got, solid):   # parked lanes keep their input
+        assert torch.equal(a[:128], b[:128])
+    kind = got[1]
+    assert (kind == 3).sum().item() > 20   # medium events
+    if name == "two_media":
+        assert (got[2][kind == 3] == 1).sum().item() > 20
+    # and the fused K4 on the same scene agrees with K3 on top of K2's
+    # sweep (K4 sweeps the solids itself)
+    k4 = sweep.scene_hit(cs.solids, mt, o, d, pixel, sample, bounce, 1)
+    for a, b in zip(k4, got):
+        assert torch.equal(a, b)
+
+
 K5_SCENES = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
              "kitchen_textured": lambda c: fixtures.kitchen_sink_scene(
                  c, normal_map=False),
@@ -310,7 +372,7 @@ def test_small_scene_route(cuda, name, route):
              "kitchen": fixtures.kitchen_sink_scene}[name]
     cs = compile_scene(build(T.RenderConfig(width=8, height=8)), device=cuda)
     fns = {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
-           "K3": sweep.medium_hit, "K4": sweep.scene_hit,
+           "K3": sweep.media_hit, "K4": sweep.scene_hit,
            "K5": megakernel.render_batch_megakernel}
     for fn in fns.values():
         fn.launches = 0
@@ -335,13 +397,13 @@ def test_card_render_matches_cpu_and_repeats(cuda):
                                      n_cells=24)
     kw = dict(width=w, height=h, max_depth=50, shader_kind=0,
               need_aux=False, n_samples=2)
-    for fn in (bvh.bvh_planar_hit, sweep.bvh_sphere_hit, sweep.medium_hit):
+    for fn in (bvh.bvh_planar_hit, sweep.bvh_sphere_hit, sweep.media_hit):
         fn.launches = 0
     cs = compile_scene(scene, device=cuda)
     a, _, _, seg_a = integrator.render_sample_batch(cs, 1, 1, **kw)
     b, _, _, seg_b = integrator.render_sample_batch(cs, 1, 1, **kw)
     assert min(bvh.bvh_planar_hit.launches, sweep.bvh_sphere_hit.launches,
-               sweep.medium_hit.launches) > 0
+               sweep.media_hit.launches) > 0
     assert torch.equal(a, b) and int(seg_a) == int(seg_b)
     c, _, _, seg_c = integrator.render_sample_batch(
         compile_scene(scene, device="cpu"), 1, 1, **kw)
@@ -360,9 +422,11 @@ def _device_kernels(fn):
 @pytest.mark.parametrize("route", ["K2", "K4"])
 def test_scene_hit_is_one_launch(cuda, route):
     """On the BVH route the sphere part of ``bvh_closest_hit`` is one launch
-    of K2 (no fill, no combine op), and ``bvh_closest_hit`` as a whole is
-    K1's bound fill, K1 and K2; on the K4 route ``integrator.scene_hit`` is
-    one launch of K4 (no RNG, stack or decode op)."""
+    of K2 (no fill, no combine op), ``bvh_closest_hit`` as a whole is K1's
+    bound fill, K1 and K2, and ``integrator.scene_hit`` of a scene with a
+    medium adds one launch of K3 (no RNG, compare or where op); on the K4
+    route ``integrator.scene_hit`` is one launch of K4 (no RNG, stack or
+    decode op)."""
     w, h = 64, 48
     build = (fixtures.kitchen_sink_scene if route == "K4" else
              lambda c: fixtures.mixed_bvh_scene(c, n_cells=24))
@@ -371,15 +435,15 @@ def test_scene_hit_is_one_launch(cuda, route):
     sample = torch.ones(w * h, dtype=torch.int64, device=cuda)
     bounce = torch.zeros(w * h, dtype=torch.int32, device=cuda)
     o, d = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    # a first call packs the tables (K2's sphere table, the media)
+    integrator.scene_hit(cs, o, d, pix, sample, bounce, 1)
     if route == "K4":
-        integrator.scene_hit(cs, o, d, pix, sample, bounce, 1)  # build, pack
         names = _device_kernels(
             lambda: integrator.scene_hit(cs, o, d, pix, sample, bounce, 1))
         assert len(names) == 1 and "k4_scene_hit" in names[0], names
         return
     s = cs.solids
-    # a first call packs the sphere table (a cached property of Solids)
-    bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)
+    assert cs.media
     t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
     names = _device_kernels(lambda: sweep.bvh_sphere_hit(
         s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
@@ -389,6 +453,10 @@ def test_scene_hit_is_one_launch(cuda, route):
         cs.kbvh, s, o, d, RAY_T_MIN, INF))
     assert len(names) == 3 and "k1_bvh" in names[1] and \
         "k2_bvh_spheres" in names[2], names
+    names = _device_kernels(
+        lambda: integrator.scene_hit(cs, o, d, pix, sample, bounce, 1))
+    assert len(names) == 4 and "k1_bvh" in names[1] and \
+        "k2_bvh_spheres" in names[2] and "k3_media" in names[3], names
 
 
 def test_wrapper_rejects_cpu_cuda_mix(cuda):
@@ -396,6 +464,8 @@ def test_wrapper_rejects_cpu_cuda_mix(cuda):
                                                            height=8)),
                        device=cuda)
     o, d = _rays(256, 5, "cpu")
+    t = torch.full((256,), INF)
+    zero = torch.zeros(256, dtype=torch.int32)
     with pytest.raises(ValueError):
-        sweep.closest_hit(cs.solids.sph_table, cs.solids.pl_table, o, d,
-                          RAY_T_MIN, INF)
+        sweep.media_hit(integrator.media_tables(cs), o, d, t, zero, zero,
+                        zero, zero, zero, 1)
