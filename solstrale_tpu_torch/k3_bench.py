@@ -20,10 +20,20 @@ with a hash of its output; then ``render_sample_batch`` of the mixed scene
 and of the sponza-class interior at 1920x1080x1 (host clock, median of
 three), each with its segments and a hash of its image. Every line printed
 is one JSON object.
+
+    python solstrale_tpu_torch/k3_bench.py variants [--turns 2]
+
+builds scratch copies of this package whose K3 differs in one design point
+each (``VARIANTS``: no box cull, the media's rows read from device memory
+instead of staged, 128 or 64 threads a block) and times K3 at the same
+shape in each, in turns, beside K3 with no media at all (the launch and
+its input and output alone); every copy must return the same (t, kind,
+idx).
 """
 import argparse
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -31,8 +41,23 @@ from pathlib import Path
 
 T0 = time.perf_counter()
 HERE = Path(__file__).resolve()
-ROOT = HERE.parent.parent
+PKG = HERE.parent
+ROOT = PKG.parent
+SCRATCH = PKG / "_build" / "k3_variants"
 LANES = 131072
+# K3 variants: (pattern, replacement) edits of csrc/sweep.cu
+VARIANTS = {
+    "base": [],
+    "no_cull": [("    if (!hit::box_reach(r, inv0, inv1, inv2, md.box[2 * m],\n"
+                 "                        md.box[2 * m + 1], ts))\n"
+                 "      continue;\n", "")],
+    "unstaged": [("  return bytes <= kMediaSmemBytes ? bytes : 0;",
+                  "  return 0;")],
+    "threads_128": [("constexpr int kThreads = 256;",
+                     "constexpr int kThreads = 128;")],
+    "threads_64": [("constexpr int kThreads = 256;",
+                    "constexpr int kThreads = 64;")],
+}
 
 
 def _events_ms(fn, reps=5):
@@ -228,6 +253,72 @@ def run(root):
     print(json.dumps(out), flush=True)
 
 
+def run_k3(root):
+    """K3 alone at LANES lanes of the mixed scene, with its media and with
+    none."""
+    sys.path.insert(0, str(root))
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
+    from solstrale_tpu_torch.ops import _build, bvh, sweep
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    _build.library()
+    ptxas = [ln.strip() for ln in _build.BuildInfo.log.splitlines()
+             if "registers" in ln or "k3_media" in ln]
+    dev = torch.device("cuda")
+    cfg = T.RenderConfig(width=1920, height=1080, samples_per_pixel=1, seed=1)
+    pix = torch.linspace(0, 1920 * 1080 - 1, LANES // 2, device=dev).long()
+    mixed = compile_scene(fixtures.mixed_bvh_scene(cfg, n_cells=362),
+                          device=dev)
+    o, d, counters = _lanes(mixed, pix)
+    hit3 = bvh.bvh_closest_hit(mixed.kbvh, mixed.solids, o, d, RAY_T_MIN, INF)
+    mt = integrator.media_tables(mixed)
+    none = sweep.pack_media((), dev, 1.0)
+    out = dict(root=str(root), ptxas=ptxas, k3=_call(
+        lambda: sweep.media_hit(mt, o, d, *hit3, *counters), "k3_"),
+        k3_no_media=_call(
+            lambda: sweep.media_hit(none, o, d, *hit3, *counters), "k3_"))
+    print(json.dumps(out), flush=True)
+
+
+def variant_copy(name):
+    """A scratch copy of this package with K3 variant ``name``."""
+    root = SCRATCH / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(PKG, root / PKG.name,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = root / PKG.name / "csrc" / "sweep.cu"
+    text = src.read_text()
+    for pattern, repl in VARIANTS[name]:
+        if text.count(pattern) != 1:
+            raise RuntimeError(f"{name}: edit not found once in {src}")
+        text = text.replace(pattern, repl)
+    src.write_text(text)
+    return root
+
+
+def variants(turns):
+    hashes = set()
+    names = list(VARIANTS)
+    for turn in range(turns):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            proc = subprocess.run(
+                [sys.executable, str(HERE), "k3", "--root",
+                 str(variant_copy(name))], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name} failed:\n{proc.stderr[-3000:]}")
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            hashes.add(line["k3"]["hash"])
+            print(json.dumps({"variant": name, "turn": turn, **line}),
+                  flush=True)
+    if len(hashes) != 1:
+        raise AssertionError(f"the variants' outputs differ: {hashes}")
+    print(json.dumps({"same_outputs": True}), flush=True)
+
+
 def ab(parent):
     """Parent, change, change, parent: each side in its own process."""
     order = [("parent", parent), ("change", ROOT), ("change", ROOT),
@@ -246,15 +337,21 @@ def ab(parent):
 def main():
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("run")
-    r.add_argument("--root", default=str(ROOT))
+    for cmd in ("run", "k3"):
+        sub.add_parser(cmd).add_argument("--root", default=str(ROOT))
     a = sub.add_parser("ab")
     a.add_argument("--parent", required=True)
+    v = sub.add_parser("variants")
+    v.add_argument("--turns", type=int, default=2)
     args = ap.parse_args()
     if args.cmd == "run":
         run(Path(args.root).resolve())
-    else:
+    elif args.cmd == "k3":
+        run_k3(Path(args.root).resolve())
+    elif args.cmd == "ab":
         ab(Path(args.parent).resolve())
+    else:
+        variants(args.turns)
 
 
 if __name__ == "__main__":
