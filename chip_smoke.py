@@ -554,7 +554,7 @@ def phase_kernels(sponza_cs):
 def _check_k3(name, cs, o, d, counters):
     """K3 against its plain version on top of the solid hit of these rays
     (K4's plain solid sweep): t, kind and idx equal, parked rays keeping
-    their input. Returns (the solid hit, K3's output)."""
+    their input."""
     import torch
     from solstrale_tpu_torch.ops import sweep
     from solstrale_tpu_torch.renderer import integrator
@@ -581,7 +581,6 @@ def _check_k3(name, cs, o, d, counters):
         medium_events=[int(((kind == 3) & (idx == m)).sum())
                        for m in range(mt.n_media)],
         max_abs_err=0.0, t_kind_idx_equal=True)
-    return solid, got
 
 
 def _lane_counters(n_cam, parked, device):
@@ -685,6 +684,10 @@ def _main_path_k2_k3(out, traces):
                 wrapper_ms=wrapper_ms(scene_hit))
     live = (d[0] != 0) | (d[1] != 0) | (d[2] != 0)
     flops, reach = _media_flops(mt, o, d, got[0], live, counters)
+    # a warp whose lanes all miss the boxes skips the sweeps: the share of
+    # warps (32 consecutive lanes) with a lane that reaches one
+    warps = reach.view(-1, 32).any(1).double().mean().item()
+    reach = int(reach.sum())
     counter_bytes = sum(c.element_size() for c in counters[:3])
     out["K3"] = dict(max_abs_err=0.0, **tm, **bound(
         r * (24 + 12 + 12) + reach * counter_bytes
@@ -692,6 +695,7 @@ def _main_path_k2_k3(out, traces):
         flops))
     log("kernel", name="K3 media_hit (mixed, main path)", rays=r,
         live_rays=n_live, media=mt.n_media, rays_reaching_a_medium=reach,
+        warps_reaching_a_medium=warps,
         medium_events=int((m_k[1] == 3).sum()), flops=flops,
         max_abs_err=0.0, t_kind_idx_equal=True, **tm,
         integrator_scene_hit=full)
@@ -760,7 +764,8 @@ def _media_flops(mt, o, d, t, live, counters):
     reaches medium m's box, against the best t after the media before it
     (the plain loop's), that medium's two boundary sweeps
     (``_medium_sweep_flops``) and the event. ``t`` is the solid hit.
-    Returns (operations, rays that reach some medium's box)."""
+    Returns (operations, the (R,) mask of rays that reach some medium's
+    box)."""
     import torch
     from solstrale_tpu_torch.geo import INF
     from solstrale_tpu_torch.ops import rng, sweep
@@ -780,7 +785,7 @@ def _media_flops(mt, o, d, t, live, counters):
         u = rng.uniform(*counters[:3], rng.P_MEDIUM_BASE + m, counters[3])
         t_m = sweep.medium_hit_plain(msph, mpln, mt.nid[m], o, d, best, u)
         best = torch.where(t_m < best, t_m, best)
-    return flops, int(reach_rays.sum())
+    return flops, reach_rays
 
 
 def _k4_flops(cs, o, d, t_solid, counters):
@@ -801,6 +806,7 @@ def _k4_flops(cs, o, d, t_solid, counters):
     divided, tested = _planar_rows(s.pl_table, o, d, live, lo, t_solid)
     media, reach = _media_flops(integrator.media_tables(cs), o, d, t_solid,
                                 live, counters)
+    reach = int(reach.sum())
     flops = (n_live * (s.sph_table.shape[0] * FLOPS_SPHERE
                        + s.pl_table.shape[0] * FLOPS_PLANAR_ND)
              + divided * FLOPS_PLANAR_DIV + tested * FLOPS_PLANAR_REST

@@ -21,7 +21,7 @@ from collections import defaultdict
 
 import torch
 
-HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_medium", "k4_scene_hit",
+HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
                "k5_render")
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
