@@ -41,8 +41,20 @@ script exits non-zero):
      the static one-pixel-per-thread map's, the medium sweep shares, the
      persistent grid), and K5 against ``trace_queued`` (the K4 route) at
      1920x1080x1;
+  3d. the renderer's surface at full size: ``ray_trace`` on the interior
+     at 1920x1080 with bloom and the denoiser, checkpointed every sample and
+     resumed from sample 1 bit for bit (K1, never K5); the albedo, normal
+     and simple shaders at 1920x1080 on the interior (K1) and the kitchen
+     (K4), never K5; ``render_pixels`` on the mixed scene at 1920x1080,
+     depth 50, with and without early exit, bit for bit (K1, K2, K3); K1
+     and K4 over all 2,073,600 camera rays of a 1080p image in one launch
+     equal to 16 launches of 131,072; the CNN denoiser on the card against
+     the CPU; times of the denoiser, bloom, ``first_hit_aux``, the debug
+     shaders and the aux-on batch against the aux-off one;
   4. card against CPU and determinism: four small scenes rendered on the
-     card and on the CPU, and the card run repeated bit for bit.
+     card and on the CPU with the path shader (with and without the aux
+     channels) and the three debug shaders, and the card run repeated bit
+     for bit.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the result line.
 """
@@ -1019,6 +1031,220 @@ def phase_small_scene():
     return {"K4": kitchen["K4"], "K5": solid["K5"]}
 
 
+def _median_ms(fn, reps=3):
+    """Median milliseconds of fn() over ``reps`` calls, CUDA events around
+    each (after one warm-up call)."""
+    return wrapper_ms(fn, reps=reps, warmup=1)
+
+
+def _slices_equal(full, fn, n, width=131072):
+    """fn(a, b) over [a, b) slices of ``width`` lanes, concatenated, equals
+    ``full`` (a tuple of (n,) tensors) exactly."""
+    import torch
+
+    parts = [fn(a, min(a + width, n)) for a in range(0, n, width)]
+    return len(parts), all(torch.equal(f, torch.cat(p)) for f, p in
+                           zip(full, zip(*parts)))
+
+
+def _check_image(name, img, h, w):
+    if img is None or img.shape != (h, w, 3):
+        raise AssertionError(f"{name}: no final image of shape {(h, w)}")
+    if not float(img.mean()) >= 2.0:
+        raise AssertionError(f"{name}: black frame (mean u8 "
+                             f"{float(img.mean()):.3f})")
+
+
+def phase_surface(sponza_cs):
+    """3d: the renderer's surface beyond the path shader at full size."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures, post
+    from solstrale_tpu_torch.geo import RAY_T_MIN
+    from solstrale_tpu_torch.ops import bvh, sweep
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+    from solstrale_tpu_torch.utils import to_float
+
+    w, h = 1920, 1080
+    n_pix = w * h
+    wrappers = all_wrappers()
+    out = {}
+    start = time.perf_counter()
+
+    # ray_trace with bloom and the denoiser, a checkpoint every sample, and
+    # a resume from sample 1's
+    def sponza(**kw):
+        return fixtures.sponza_class_scene(T.RenderConfig(
+            width=w, height=h, samples_per_pixel=2, samples_per_batch=1,
+            seed=1, post_processors=[post.BloomPostProcessor(0.02),
+                                     post.DenoiserPostProcessor()], **kw))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, ck1 = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "ck1.npz")
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        straight = None
+        for n, p in enumerate(T.Renderer(sponza(), device="cuda").render(
+                checkpoint_path=ck, checkpoint_every=1), 1):
+            if n == 1:
+                shutil.copy(ck, ck1)
+            straight = p.render_image if p.render_image is not None \
+                else straight
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(wrappers)
+        renderer = T.Renderer(sponza(), device="cuda")
+        resumed = [p.render_image for p in renderer.render(resume_from=ck1)]
+        if len(resumed) != 1 or renderer.samples_done != 2:
+            raise AssertionError("resume: expected one batch from sample 1")
+    _check_image("sponza with bloom and the denoiser", straight, h, w)
+    if not np.array_equal(resumed[-1], straight):
+        raise AssertionError("the render resumed from sample 1 is not "
+                             "bit-identical to the straight one")
+    if launches["K1"] <= 0 or launches["K5"] != 0:
+        raise AssertionError(f"sponza with aux: expected K1 and no K5, got "
+                             f"{launches}")
+    out["sponza_bloom_denoiser"] = dict(
+        ray_trace_seconds=seconds, mean_u8=float(straight.mean()),
+        launches=launches, resume_bit_identical=True)
+
+    # the debug shaders through ray_trace on the interior (K1) and the
+    # kitchen (K4), then one sample of each timed
+    kitchen_cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=w, height=h, seed=1)), device="cuda")
+    shaders = {"albedo": T.AlbedoShader, "normal": T.NormalShader,
+               "simple": T.SimpleShader}
+    for scene_name, build, cs, kernel in (
+            ("sponza", fixtures.sponza_class_scene, sponza_cs, "K1"),
+            ("kitchen", fixtures.kitchen_sink_scene, kitchen_cs, "K4")):
+        runs = {}
+        for shader_name, shader in shaders.items():
+            reset_launches(wrappers)
+            img = _final_image(build(T.RenderConfig(
+                width=w, height=h, samples_per_pixel=1, seed=1,
+                shader=shader())), "cuda")
+            launches = launch_counts(wrappers)
+            _check_image(f"{scene_name} {shader_name}", img, h, w)
+            if launches[kernel] <= 0 or launches["K5"] != 0:
+                raise AssertionError(f"{scene_name} {shader_name}: expected "
+                                     f"{kernel} and no K5, got {launches}")
+            kw = dict(width=w, height=h, max_depth=50,
+                      shader_kind=shader.kind, need_aux=False, n_samples=1)
+            runs[shader_name] = dict(
+                mean_u8=float(img.mean()), launches=launches,
+                one_sample_ms=_median_ms(
+                    lambda: integrator.render_sample_batch(cs, 1, 1, **kw)))
+        pix = torch.arange(n_pix, device="cuda")
+        _, o, d = integrator.camera_rays(cs, pix, w, h, 1, 1)
+        runs["first_hit_aux_ms"] = _median_ms(
+            lambda: integrator.first_hit_aux(cs, o, d, pix, 1, 1))
+        out[f"{scene_name}_debug_shaders"] = runs
+
+    # the aux-on batch against the aux-off one (the interior, 1 spp), in
+    # turns: off, on, on, off (the host-bound batches spread widely)
+    kw = dict(width=w, height=h, max_depth=50,
+              shader_kind=integrator.SHADER_PATH, n_samples=1)
+    turns = {False: [], True: []}
+    for aux in (False, True, True, False):
+        turns[aux].append(_median_ms(lambda a=aux: float(
+            integrator.render_sample_batch(sponza_cs, 1, 1, need_aux=a,
+                                           **kw)[0].sum())))
+    out["sponza_batch_ms"] = {f"need_aux={a}": v for a, v in turns.items()}
+
+    # render_pixels on the mixed scene, depth 50, both early_exit modes
+    mixed = compile_scene(fixtures.mixed_bvh_scene(T.RenderConfig(
+        width=w, height=h, seed=1), n_cells=362), device="cuda")
+    pix = torch.arange(n_pix, device="cuda")
+    colors, rp = {}, {}
+    for early in (True, False):
+        reset_launches(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        colors[early] = integrator.render_pixels(
+            mixed, pix, 1, 1, width=w, height=h, max_depth=50,
+            shader_kind=integrator.SHADER_PATH, need_aux=False,
+            early_exit=early)[0]
+        torch.cuda.synchronize()
+        rp[f"early_exit={early}"] = dict(
+            seconds=time.perf_counter() - t0,
+            launches=launch_counts(wrappers))
+        if min(rp[f"early_exit={early}"]["launches"][k]
+               for k in ("K1", "K2", "K3")) <= 0:
+            raise AssertionError(f"render_pixels missed a kernel: {rp}")
+    if not torch.equal(colors[True], colors[False]):
+        raise AssertionError("render_pixels: early_exit=False differs from "
+                             "early_exit=True")
+    if not (bool(torch.isfinite(colors[True]).all())
+            and float(colors[True].mean()) > 0):
+        raise AssertionError("render_pixels: non-finite or black image")
+    out["mixed_render_pixels"] = dict(**rp, bit_identical=True,
+                                      mean=float(colors[True].mean()))
+
+    # K1 and K4 over all 2,073,600 camera rays of a 1080p image in one
+    # launch, against 131,072-lane slices (their plain versions are checked
+    # at 131,072 lanes in phase 2)
+    o, d = integrator._camera_rays(sponza_cs, pix, 1, 1, w, h)
+    kb = sponza_cs.kbvh
+    full = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
+    n_k1, k1_equal = _slices_equal(full, lambda a, b: bvh.bvh_planar_hit(
+        kb, tuple(c[a:b] for c in o), tuple(c[a:b] for c in d), RAY_T_MIN),
+        n_pix)
+    o, d = integrator._camera_rays(kitchen_cs, pix, 1, 1, w, h)
+    counters = (pix, torch.ones_like(pix),
+                torch.zeros(n_pix, dtype=torch.int32, device="cuda"))
+    mt = integrator.media_tables(kitchen_cs)
+    full4 = sweep.scene_hit(kitchen_cs.solids, mt, o, d, *counters, 1)
+    n_k4, k4_equal = _slices_equal(full4, lambda a, b: sweep.scene_hit(
+        kitchen_cs.solids, mt, tuple(c[a:b] for c in o),
+        tuple(c[a:b] for c in d), *(c[a:b] for c in counters), 1), n_pix)
+    torch.cuda.synchronize()
+    if not (k1_equal and k4_equal):
+        raise AssertionError(f"one launch of {n_pix} lanes differs from "
+                             f"131,072-lane slices: K1 {k1_equal}, K4 "
+                             f"{k4_equal}")
+    out["one_launch_of_2073600"] = dict(
+        k1_equal_to_slices=n_k1, k4_equal_to_slices=n_k4,
+        k1_hits=int(torch.isfinite(full[0]).sum()),
+        k4_hits=int(torch.isfinite(full4[0]).sum()))
+
+    # the denoiser and bloom at 1080p, on the interior's aux planes
+    color, albedo, normal = integrator.render_sample_batch(
+        sponza_cs, 1, 1, width=w, height=h, max_depth=50,
+        shader_kind=integrator.SHADER_PATH, need_aux=True, n_samples=1)[:3]
+    proc = post.DenoiserPostProcessor()
+    tone = (to_float(color, 1), to_float(albedo, 1), normal)
+    out["denoiser_cnn_1080p_ms"] = _median_ms(lambda: proc.denoise(*tone))
+    out["bloom_1080p_ms"] = {
+        str(f): _median_ms(lambda f=f: post.BloomPostProcessor(f)
+                           .intermediate_post_process(color, albedo, normal,
+                                                      w, h, 1))
+        for f in (0.02, 0.5)}
+
+    # the CNN on the card against the CPU at 256x256
+    g = torch.Generator().manual_seed(11)
+    sums = [torch.rand((256, 256, 3), generator=g) * 3 for _ in range(2)]
+    sums.append(torch.randn((256, 256, 3), generator=g))
+    tone = (to_float(sums[0], 2), to_float(sums[1], 2), sums[2] / 2)
+    cpu = proc.denoise(*tone)
+    card = proc.denoise(*(x.cuda() for x in tone)).cpu()
+    err = float((card - cpu).abs().max())
+    u8_cpu = proc.post_process(*sums, 256, 256, 2)
+    u8_card = proc.post_process(*(x.cuda() for x in sums), 256, 256, 2)
+    diff = np.abs(u8_card.astype(np.int16) - u8_cpu.astype(np.int16))
+    same = float((diff == 0).all(axis=-1).mean())
+    if err > 1e-4 or diff.max() > 1 or same < 0.999:
+        raise AssertionError(f"CNN card vs CPU: max abs {err}, u8 equal on "
+                             f"{same}, max u8 diff {diff.max()}")
+    out["cnn_card_vs_cpu_256"] = dict(max_abs_err=err,
+                                      u8_pixels_equal=same,
+                                      u8_max_diff=int(diff.max()))
+    log("surface", **out, seconds=time.perf_counter() - start)
+
+
 def k5_work(stats, segments):
     """K5's work counts from one launch's ``stats``: the active-lane
     efficiency (segments over 32 lanes x warp iterations), the same
@@ -1153,17 +1379,23 @@ def phase_megakernel():
 
 
 def phase_card_vs_cpu():
+    """Four small scenes rendered on the card and on the CPU, with the path
+    shader (aux off and on) and the three debug shaders: segments within
+    1e-3, 99.9% of pixels within 1e-3 on every plane, and the card run
+    repeated bit for bit."""
     import numpy as np
-    import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
     from solstrale_tpu_torch.renderer import integrator
     from solstrale_tpu_torch.scene.compile import compile_scene
 
     w, h, spp = 64, 48, 2
-    kw = dict(width=w, height=h, max_depth=50,
-              shader_kind=integrator.SHADER_PATH, need_aux=False,
-              n_samples=spp)
+    start = time.perf_counter()
+    variants = (("path", integrator.SHADER_PATH, False),
+                ("path+aux", integrator.SHADER_PATH, True),
+                ("albedo", integrator.SHADER_ALBEDO, False),
+                ("normal", integrator.SHADER_NORMAL, False),
+                ("simple", integrator.SHADER_SIMPLE, False))
     for name, build in (
             ("mixed_bvh_scene", lambda c: fixtures.mixed_bvh_scene(
                 c, n_cells=48)),
@@ -1171,24 +1403,38 @@ def phase_card_vs_cpu():
             ("kitchen_sink_solid_scene", fixtures.kitchen_sink_solid_scene),
             ("kitchen_sink_scene", fixtures.kitchen_sink_scene)):
         scene = build(T.RenderConfig(width=w, height=h, seed=1))
-        runs = {}
-        for dev in ("cuda", "cpu", "cuda"):
-            cs = compile_scene(scene, device=dev)
-            img, _, _, segs = integrator.render_sample_batch(cs, 1, 1, **kw)
-            runs.setdefault(dev, []).append((img.cpu().numpy(), int(segs)))
-        (gpu, gseg), (gpu2, gseg2) = runs["cuda"]
-        cpu, cseg = runs["cpu"][0]
-        if not (np.array_equal(gpu, gpu2) and gseg == gseg2):
-            raise AssertionError(f"{name}: repeated card run not bit-identical")
-        if abs(gseg - cseg) > 1e-3 * cseg:
-            raise AssertionError(f"{name}: segments card {gseg} cpu {cseg}")
-        close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-3).all(axis=-1)
-        if close.mean() < 0.999:
-            raise AssertionError(f"{name}: only {close.mean():.4f} of pixels "
-                                 "agree card vs CPU within 1e-3")
-        log("card_vs_cpu", scene=name, segments_card=gseg, segments_cpu=cseg,
-            pixels_within_1e3=float(close.mean()),
-            max_abs_diff=float(np.abs(gpu - cpu).max()), bit_identical=True)
+        compiled = {dev: compile_scene(scene, device=dev)
+                    for dev in ("cuda", "cpu")}
+        for variant, shader_kind, need_aux in variants:
+            kw = dict(width=w, height=h, max_depth=50,
+                      shader_kind=shader_kind, need_aux=need_aux,
+                      n_samples=spp)
+            runs = {}
+            for dev in ("cuda", "cpu", "cuda"):
+                planes = integrator.render_sample_batch(compiled[dev], 1, 1,
+                                                        **kw)
+                img = np.concatenate([p.cpu().numpy() for p in
+                                      planes[:3 if need_aux else 1]], -1)
+                runs.setdefault(dev, []).append((img, int(planes[3])))
+            (gpu, gseg), (gpu2, gseg2) = runs["cuda"]
+            cpu, cseg = runs["cpu"][0]
+            label = f"{name} {variant}"
+            if not (np.array_equal(gpu, gpu2) and gseg == gseg2):
+                raise AssertionError(f"{label}: repeated card run not "
+                                     "bit-identical")
+            if abs(gseg - cseg) > 1e-3 * cseg:
+                raise AssertionError(f"{label}: segments card {gseg} cpu "
+                                     f"{cseg}")
+            close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-3).reshape(
+                h, w, -1, 3).all(axis=-1)
+            if close.mean(axis=(0, 1)).min() < 0.999:
+                raise AssertionError(f"{label}: only {close.mean():.4f} of "
+                                     "pixels agree card vs CPU within 1e-3")
+            log("card_vs_cpu", scene=name, shader=variant,
+                segments_card=gseg, segments_cpu=cseg,
+                pixels_within_1e3=float(close.mean(axis=(0, 1)).min()),
+                max_abs_diff=float(np.abs(gpu - cpu).max()),
+                bit_identical=True, seconds=time.perf_counter() - start)
 
 
 def main():
@@ -1212,6 +1458,7 @@ def main():
     launches = phase_main_path()
     launches.update(phase_small_scene())
     timings["K5"] = phase_megakernel()
+    phase_surface(sponza_cs)
     phase_card_vs_cpu()
 
     source = {"K1": ("solstrale_tpu_torch/csrc/bvh.cu",

@@ -2,15 +2,24 @@
 
 Processors operate on *unnormalized accumulated* color sums (the renderer's
 progressive buffers) plus the sample count. The last processor in the chain
-produces the u8 image; the others transform the float accumulation. Bloom
-and the denoiser are not ported yet (ROADMAP queue A: bloom and
-denoiser).
+produces the u8 image; the others transform the float accumulation. The
+albedo / normal aux planes are filled iff a processor asks for them.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..utils import to_rgb_u8
+
+
+def exact_conv():
+    """The context bloom's and the denoiser's convolutions run in: cuDNN in
+    f32 (not TF32, its default, which is ~1e-3 off the JAX package's f32
+    result), with deterministic algorithms, so a resumed render repeats the
+    straight one bit for bit."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
 
 
 class PostProcessor:
@@ -42,3 +51,7 @@ class NopPostProcessor(PostProcessor):
     def post_process(self, pixel_sums, albedo_sums, normal_sums, width,
                      height, num_samples):
         return np.asarray(to_rgb_u8(pixel_sums, num_samples).cpu())
+
+
+from .bloom import BloomPostProcessor  # noqa: E402,F401
+from .denoise import DenoiserPostProcessor, OidnPostProcessor  # noqa: E402,F401

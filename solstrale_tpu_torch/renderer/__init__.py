@@ -1,13 +1,12 @@
 """Renderer orchestration: the progressive sample loop, progress/abort
 protocol and post-processing chain (the reference's
 ``renderer/mod.rs:138-358``), with the accumulation buffers on the
-renderer's device.
-
-Not ported yet: ``resume_from`` / ``checkpoint_path`` and ``profile_dir``
-(ROADMAP queue A: checkpoint/resume).
+renderer's device, checkpoint / resume (``checkpoint.py``) and an optional
+``torch.profiler`` trace of the loop.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -96,11 +95,22 @@ class Renderer:
         # aborted or closed early)
         self.samples_done = 0
 
-    def render(self, abort=None):
-        """Generator yielding a RenderProgress per sample batch. ``abort``
-        is a zero-arg callable checked between batches (the cooperative
-        abort channel of renderer/mod.rs:237-239)."""
+    def render(self, abort=None, resume_from=None, checkpoint_path=None,
+               checkpoint_every=0, profile_dir=None):
+        """Generator yielding a RenderProgress per sample batch.
+
+        - ``abort``: zero-arg callable checked between batches (the
+          cooperative abort channel of renderer/mod.rs:237-239);
+        - ``resume_from``: path of a checkpoint (this package's or the JAX
+          package's) to continue from;
+        - ``checkpoint_path`` + ``checkpoint_every``: write the
+          accumulation state every N samples and at the end;
+        - ``profile_dir``: run a ``torch.profiler`` session over the loop
+          and write its Chrome trace to ``profile_dir/trace.json`` when the
+          loop ends, is aborted or is closed.
+        """
         from . import integrator
+        from .checkpoint import load_checkpoint, save_checkpoint
 
         cfg = self.config
         w, h = cfg.width, cfg.height
@@ -113,9 +123,22 @@ class Renderer:
         albedo_sums = torch.zeros_like(pixel_sums)
         normal_sums = torch.zeros_like(pixel_sums)
         sample = 0
-        self.samples_done = 0
+        if resume_from is not None:
+            ck = load_checkpoint(resume_from)
+            pixel_sums, albedo_sums, normal_sums = (
+                torch.from_numpy(ck[k]).to(self.device)
+                for k in ("pixel_sums", "albedo_sums", "normal_sums"))
+            sample = ck["samples_done"]
+        self.samples_done = sample
         start = time.monotonic()
         last_image_time = -1e30
+        profiler = None
+        if profile_dir is not None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.__enter__()
         try:
             while sample < spp:
                 batch = min(cfg.samples_per_batch, spp - sample)
@@ -131,6 +154,10 @@ class Renderer:
                 if need_aux:
                     albedo_sums = albedo_sums + albedo
                     normal_sums = normal_sums + normal
+                if checkpoint_path and checkpoint_every and \
+                        (sample % checkpoint_every == 0 or sample == spp):
+                    save_checkpoint(checkpoint_path, pixel_sums, albedo_sums,
+                                    normal_sums, sample, cfg.seed)
 
                 now = time.monotonic()
                 render_image = None
@@ -156,6 +183,11 @@ class Renderer:
         finally:
             # runs on completion, abort and generator close alike
             self.samples_done = sample
+            if profiler is not None:
+                profiler.__exit__(None, None, None)
+                os.makedirs(profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(
+                    os.path.join(profile_dir, "trace.json"))
 
     def render_final(self, abort=None):
         """Run to completion, return the final u8 image (H, W, 3)."""

@@ -1,6 +1,7 @@
-"""Wavefront path-tracing integrator on tensors (the path-tracing shader).
+"""Wavefront path-tracing integrator on tensors: the path-tracing shader,
+the debug shaders and the aux channels.
 
-Port of the JAX package's ``renderer/integrator.py`` main path: a fixed
+Port of the JAX package's ``renderer/integrator.py``. The main path: a fixed
 pool of lanes drains the global (pixel, sample) work queue
 (``trace_queued``); every iteration runs ``path_step``: ``scene_hit`` (the
 BVH kernels K1-K3, or the fused scene hit K4 below 512 solids),
@@ -9,6 +10,9 @@ maps, the 50/50 NEE mixture) and the forward clamp-fold, then accumulates
 the finished paths. Scenes the megakernel gate accepts skip the wavefront:
 ``render_sample_batch`` renders their whole batch in one launch of K5
 (``renderer/megakernel.py``), whose plain version runs ``path_step`` too.
+``trace`` runs ``path_step`` on a wavefront of one lane per pixel
+(``render_pixels``, the unit the debug shaders, aux channels and
+``render_sample`` use).
 
 The reference's nested ``clamp(<=3) + NaN->0`` ScatterPdf semantics
 (shader.rs:95-125) are folded forward with O(1) per-lane state using
@@ -455,6 +459,154 @@ def _camera_rays(cs, pixel, sample, seed, width, height):
     return tuple(o), tuple(d)
 
 
+def camera_rays(cs: CompiledScene, pix, width, height, sample, seed):
+    """Jittered thin-lens primary rays for an arbitrary batch of pixel ids
+    (the JAX name and signature). Returns (pix, o, d), o and d component
+    tuples."""
+    o, d = _camera_rays(cs, pix, sample, seed, width, height)
+    return pix, o, d
+
+
+def _lanes(x, pix):
+    """A lane counter as the hit kernels take it: a contiguous tensor of
+    ``pix``'s shape (an int becomes an int64 fill)."""
+    if isinstance(x, torch.Tensor):
+        return x.expand(pix.shape).contiguous()
+    return torch.full(pix.shape, int(x), dtype=torch.int64, device=pix.device)
+
+
+def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
+          early_exit=True):
+    """Full path trace of a ray wavefront -> linear color (R, 3), one
+    ``path_step`` per bounce for every lane (the body ``trace_queued``
+    runs). A lane whose path ends keeps its color and parks with a zero
+    direction, which every hit kernel rejects. Step ``max_depth`` is the
+    depth cap: a ray still alive that hits shades to black, a miss takes
+    the background (renderer/mod.rs:164-206).
+
+    ``early_exit=True`` stops once no lane is alive (one host sync per
+    bounce); ``early_exit=False`` always runs all ``max_depth + 1`` steps
+    and gives the same image bit for bit, because a parked lane's step
+    changes nothing."""
+    sample = _lanes(sample, pix)
+    zero = torch.zeros_like(o[0])
+    bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
+    alive = torch.ones(pix.shape, dtype=torch.bool, device=zero.device)
+    acc_len, fold = zero, fold_init(zero)
+    color = torch.zeros((zero.shape[0], 3), dtype=torch.float32,
+                        device=zero.device)
+    for _ in range(max_depth + 1):
+        if early_exit and not bool(alive.any()):
+            break
+        st = path_step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
+                       alive, max_depth)
+        color = torch.where(st["terminal"][:, None], st["color"], color)
+        alive = alive & ~st["terminal"]
+        o, bounce, acc_len, fold = (st["o"], st["bounce"], st["acc_len"],
+                                    st["fold"])
+        d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
+    return color
+
+
+def _first_hit(cs, o, d, pix, sample, seed):
+    """Scene hit and attributes at depth 0: (hit mask, attrs, the sample
+    and bounce counters as lane tensors)."""
+    sample = _lanes(sample, pix)
+    bounce = torch.zeros(pix.shape, dtype=torch.int32, device=pix.device)
+    t, kind, idx = scene_hit(cs, o, d, pix, sample, bounce, seed)
+    hit = torch.isfinite(t)
+    attrs = full_hit_attributes(cs, o, d, torch.where(hit, t, 0.0), kind,
+                                idx, pix, sample, bounce, seed)
+    return hit, attrs, sample, bounce
+
+
+def first_hit_aux(cs: CompiledScene, o, d, pix, sample, seed):
+    """Albedo and normal aux channels at depth 0 (renderer/mod.rs:175-189
+    with the reference's flag inversion fixed): albedo = the scatter color
+    (the emission color on a light), normal = the shading normal; the
+    background and zero on a miss. Returns two (R, 3) tensors."""
+    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed)
+    sc = scatter(cs, o, d, attrs, pix, sample, bounce, seed)
+    albedo = torch.stack([
+        torch.where(hit, torch.where(sc["is_emission"], sc["emit_color"][c],
+                                     sc["tape_color"][c]), cs.bg_color[c])
+        for c in range(3)], -1)
+    normal = torch.stack([torch.where(hit, sc["shading_normal"][c], 0.0)
+                          for c in range(3)], -1)
+    return albedo, normal
+
+
+# --- single-bounce debug shaders (shader.rs:127-215) ----------------------
+
+def shade_albedo(cs, o, d, pix, sample, seed):
+    albedo, _ = first_hit_aux(cs, o, d, pix, sample, seed)
+    return albedo
+
+
+def shade_normal(cs, o, d, pix, sample, seed):
+    """The shading normal at the first hit (the blend chain resolved with
+    the normal draw), the background on a miss."""
+    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed)
+    u_bn = rng.uniform4(pix, sample, bounce, rng.P_BLEND_NORMAL, seed)
+    eff_n = resolve_blend(cs.materials, attrs["mat"], u_bn, cs.features)
+    normal = shading_normal_of(cs, eff_n, attrs)
+    return torch.stack([torch.where(hit, normal[c], cs.bg_color[c])
+                        for c in range(3)], -1)
+
+
+def shade_simple(cs, o, d, pix, sample, seed):
+    """Flat shading: the emission color, or the albedo times
+    (n.l * 0.5 + 0.75) with l = (1, 1, -1) (shader.rs:191-215)."""
+    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed)
+    sc = scatter(cs, o, d, attrs, pix, sample, bounce, seed)
+    n = sc["shading_normal"]
+    factor = (n[0] * 1.0 + n[1] * 1.0 + n[2] * -1.0) * 0.5 + 0.75
+    return torch.stack([
+        torch.where(hit, torch.where(sc["is_emission"], sc["emit_color"][c],
+                                     sc["tape_color"][c] * factor),
+                    cs.bg_color[c]) for c in range(3)], -1)
+
+
+_DEBUG_SHADERS = {SHADER_ALBEDO: shade_albedo, SHADER_NORMAL: shade_normal,
+                  SHADER_SIMPLE: shade_simple}
+
+
+def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
+                  max_depth, shader_kind, need_aux, early_exit=True):
+    """Render a wavefront of pixel ids (one lane each, the whole wavefront
+    in every launch) -> (color, albedo, normal), (R, 3) linear colors. The
+    RNG keys off the pixel id, so any partition of the ids renders the
+    same values. Without ``need_aux`` albedo and normal are zero."""
+    _, o, d = camera_rays(cs, pix, width, height, sample, seed)
+    if shader_kind == SHADER_PATH:
+        color = trace(cs, o, d, pix, sample, seed, max_depth,
+                      early_exit=early_exit)
+    else:
+        color = _DEBUG_SHADERS[shader_kind](cs, o, d, pix, sample, seed)
+    if need_aux:
+        albedo, normal = first_hit_aux(cs, o, d, pix, sample, seed)
+    else:
+        albedo = normal = torch.zeros_like(color)
+    return color, albedo, normal
+
+
+def _to_image(c, width, height):
+    """(width*height, 3) in pixel-id order -> (height, width, 3) image rows,
+    top row first (renderer/mod.rs:261)."""
+    return torch.flip(c.reshape(height, width, 3), dims=(0,))
+
+
+def render_sample(cs: CompiledScene, sample, seed, *, width, height,
+                  max_depth, shader_kind, need_aux):
+    """Render one full-image sample pass -> (pixel, albedo, normal) linear
+    planes of shape (height, width, 3) in image-row order."""
+    pix = torch.arange(width * height, dtype=torch.int64, device=cs.device)
+    planes = render_pixels(cs, pix, sample, seed, width=width, height=height,
+                           max_depth=max_depth, shader_kind=shader_kind,
+                           need_aux=need_aux)
+    return tuple(_to_image(c, width, height) for c in planes)
+
+
 def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
                  height, max_depth, lanes=None, stats=None):
     """Work-queue wavefront over the full image: a pool of ``lanes`` lanes
@@ -572,29 +724,41 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
                         stats=None):
     """Accumulate n_samples consecutive sample passes: in one launch of the
     render megakernel (K5) when ``megakernel_supported`` accepts the scene,
-    else with the work-queue wavefront. Returns summed (pixel, albedo,
-    normal) (height, width, 3) planes in image-row order (top row first,
-    renderer/mod.rs:261) plus the traced-segment count. Only the
-    path-tracing shader without aux channels is ported. ``stats`` receives
-    the wavefront's iteration counts (it stays empty on the K5 route)."""
-
-    if shader_kind != SHADER_PATH:
-        raise NotImplementedError(
-            "debug shaders (albedo/normal/simple) are not ported yet "
-            "(ROADMAP queue A: debug shaders and aux channels)")
-    if need_aux:
-        raise NotImplementedError(
-            "albedo/normal aux channels are not ported yet (ROADMAP queue "
-            "A: debug shaders and aux channels)")
+    else the path shader with the work-queue wavefront and a debug shader
+    with one ``render_pixels`` per sample. With ``need_aux`` the albedo and
+    normal planes sum one ``first_hit_aux`` per sample (K5's gate refuses
+    aux, so the path color then comes from the wavefront). Returns summed
+    (pixel, albedo, normal) (height, width, 3) planes in image-row order
+    (top row first, renderer/mod.rs:261) plus the traced-segment count (a
+    debug shader counts one per pixel and sample). ``stats`` receives the
+    wavefront's iteration counts (it stays empty on the other routes)."""
+    n_pix = width * height
+    pix = torch.arange(n_pix, dtype=torch.int64, device=cs.device)
+    zero = torch.zeros((n_pix, 3), dtype=torch.float32, device=cs.device)
     if megakernel.megakernel_supported(cs, need_aux=need_aux,
                                        shader_kind=shader_kind):
         color, segments = megakernel.render_batch_megakernel(
             cs, sample_start, n_samples, seed, width=width, height=height,
             max_depth=max_depth)
-    else:
+    elif shader_kind == SHADER_PATH:
         color, segments = trace_queued(cs, sample_start, n_samples, seed,
                                        width=width, height=height,
                                        max_depth=max_depth, stats=stats)
-    image = torch.flip(color.reshape(height, width, 3), dims=(0,))
-    zero = torch.zeros_like(image)
-    return image, zero, zero, segments
+    else:
+        color = zero
+        for i in range(n_samples):
+            c, _, _ = render_pixels(
+                cs, pix, sample_start + i, seed, width=width, height=height,
+                max_depth=max_depth, shader_kind=shader_kind, need_aux=False)
+            color = color + c
+        segments = torch.tensor(n_pix * n_samples, dtype=torch.int64,
+                                device=cs.device)
+    albedo = normal = zero
+    if need_aux:
+        for i in range(n_samples):
+            _, o, d = camera_rays(cs, pix, width, height, sample_start + i,
+                                  seed)
+            a, n = first_hit_aux(cs, o, d, pix, sample_start + i, seed)
+            albedo, normal = albedo + a, normal + n
+    return (_to_image(color, width, height), _to_image(albedo, width, height),
+            _to_image(normal, width, height), segments)

@@ -1,8 +1,4 @@
-"""Shader descriptors (host side), mirroring ``renderer/shader.rs:35-44``.
-
-Only ``PathTracingShader`` renders in this port so far; the debug shaders
-exist for API parity and ``render_sample_batch`` refuses them.
-"""
+"""Shader descriptors (host side), mirroring ``renderer/shader.rs:35-44``."""
 from __future__ import annotations
 
 from . import integrator

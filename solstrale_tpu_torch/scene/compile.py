@@ -641,7 +641,7 @@ def compile_scene(scene: Scene, use_bvh=None, device="cuda") -> CompiledScene:
     if use_bvh == "device":
         raise NotImplementedError(
             "on-device BVH build (build_bvh_device) is not ported yet "
-            "(ROADMAP queue A step 5)")
+            "(ROADMAP queue A item 8, On-device BVH build)")
     out = {"spheres": [], "quads": [], "triangles": [], "meshes": [],
            "media": []}
     _walk(scene.world, out, False)

@@ -1,5 +1,5 @@
-"""Image/color utilities: tone mapping (tensors), height->normal maps and
-the golden-image similarity score (numpy).
+"""Image/color utilities: tone mapping (tensors), Gaussian blur weights,
+height->normal maps and the golden-image similarity score (numpy).
 
 Mirrors the reference's ``src/util/`` semantics.
 """
@@ -25,6 +25,20 @@ def to_rgb_u8(col, samples_per_pixel):
     reference's `as u8` cast (rgb_color.rs:14-17)."""
     c = to_float(col, samples_per_pixel)
     return torch.clamp(torch.floor(256.0 * c), 0, 255).to(torch.uint8)
+
+
+def rgb_to_vec3(pixel_u8):
+    """u8 rgb -> float color in [0,1] (rgb_color.rs:37-43)."""
+    return np.asarray(pixel_u8, np.float64) / 255.0
+
+
+def create_gaussian_blur_weights(kernel_size, std_dev):
+    """Normalized 1-D Gaussian kernel (gaussian.rs:11-25)."""
+    mean = (kernel_size - 1) / 2.0
+    xs = np.arange(kernel_size, dtype=np.float64)
+    a = (xs - mean) / std_dev
+    w = np.exp(-0.5 * a * a)
+    return w / w.sum()
 
 
 HEIGHT_MAP_STRENGTH = 6.0

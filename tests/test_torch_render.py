@@ -222,14 +222,6 @@ def test_abort_stops_between_batches():
     assert renderer.samples_done == 1
 
 
-def test_unported_shaders_and_aux_raise():
-    ct = tcompile(SCENES["small"](_cfg(T), T), device="cpu")
-    with pytest.raises(NotImplementedError, match="aux channels"):
-        TI.render_sample_batch(ct, 1, 1, **{**KW, "shader_kind": 1})
-    with pytest.raises(NotImplementedError, match="aux channels"):
-        TI.render_sample_batch(ct, 1, 1, **{**KW, "need_aux": True})
-
-
 def test_renderer_refuses_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
