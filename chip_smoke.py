@@ -54,7 +54,21 @@ script exits non-zero):
   4. card against CPU and determinism: four small scenes rendered on the
      card and on the CPU with the path shader (with and without the aux
      channels) and the three debug shaders, and the card run repeated bit
-     for bit.
+     for bit;
+  5. diff and parallel: the inverse-rendering step
+     (``diff.image_and_texture_grad``: the fixed trip's forward and its
+     checkpointed path-replay backward) on the mixed scene at 1920x1080,
+     depth 50 (K1-K3) and on the kitchen at 400x266 (K4), against a target
+     at seed 2: finite loss, a non-zero finite gradient, two runs agreeing
+     (rtol 1e-5), its time (CUDA events, median of 3), its peak memory
+     beside the flat-tape estimate (one bounce's saved bytes x 51) and the
+     kernels' launches in the forward and in the replay; card against CPU
+     gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a one-rank
+     NCCL group, ``render_batch_sharded`` on the interior at 1080p equal to
+     ``render_sample_batch`` (6,708,708 segments), ``train_step_sharded``
+     equal to one ``image_and_texture_grad`` SGD step and
+     ``render_distributed``'s final image; the denoiser trainer for a few
+     steps at 64x64, and one Adam step on the card against the CPU.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the result line.
 """
@@ -1437,6 +1451,271 @@ def phase_card_vs_cpu():
                 bit_identical=True, seconds=time.perf_counter() - start)
 
 
+def _grad_step(cs, target, w, h, depth, wrappers=None):
+    """One inverse-rendering step (``diff.image_and_texture_grad``'s loss
+    and arena gradient) taken by hand, so that the kernels' launches of the
+    forward and of the backward's replay are read apart. Returns (loss,
+    gradient, launches)."""
+    import torch
+    from solstrale_tpu_torch import diff
+
+    p = cs.textures.pixels.detach().requires_grad_(True)
+    counts = {}
+    if wrappers:
+        reset_launches(wrappers)
+    img = diff.render_linear(diff.set_texture_params(cs, p), width=w,
+                             height=h, max_depth=depth, n_samples=1, seed=1)
+    loss = torch.mean((img - target) ** 2)
+    if wrappers:
+        counts["forward"] = launch_counts(wrappers)
+        reset_launches(wrappers)
+    g, = torch.autograd.grad(loss, p)
+    if wrappers:
+        counts["replay"] = launch_counts(wrappers)
+    return loss.detach(), g, counts
+
+
+def _one_step_saved_bytes(cs, w, h):
+    """Bytes autograd saves for one bounce of a w x h wavefront (a fixed
+    trip of depth 0 is one path step, outside any checkpoint)."""
+    import torch
+    from solstrale_tpu_torch import diff
+
+    total = [0]
+
+    def pack(x):
+        total[0] += x.numel() * x.element_size()
+        return x
+
+    p = cs.textures.pixels.detach().requires_grad_(True)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        img = diff.render_linear(diff.set_texture_params(cs, p), width=w,
+                                 height=h, max_depth=0, n_samples=1, seed=1)
+    del img
+    return total[0]
+
+
+def _grad_checks(name, g, again, img):
+    import torch
+
+    if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+        raise AssertionError(f"{name}: gradient not finite or all zero")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{name}: image not finite")
+    torch.testing.assert_close(again, g, rtol=1e-5, atol=1e-7)
+
+
+def phase_diff_parallel(sponza_cs, smi):
+    """5: the inverse-rendering step at full size (K1-K3 on mixed 1080p,
+    K4 on the kitchen), card against CPU, the shard route and the sharded
+    step on a one-rank NCCL group, and the denoiser trainer."""
+    import numpy as np
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import diff, fixtures, parallel
+    from solstrale_tpu_torch.models import denoiser, train_denoiser
+    from solstrale_tpu_torch.ops import _build
+    from solstrale_tpu_torch.parallel import distributed
+    from solstrale_tpu_torch.post.denoise import BUNDLED_WEIGHTS
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+    from solstrale_tpu_torch.utils import to_rgb_u8
+
+    wrappers = all_wrappers()
+    start = time.perf_counter()
+    depth = 50
+    for name, build, (w, h), need in (
+            ("mixed", lambda c: fixtures.mixed_bvh_scene(c, n_cells=362),
+             (1920, 1080), ("K1", "K2", "K3")),
+            ("kitchen", fixtures.kitchen_sink_scene, (400, 266), ("K4",))):
+        cs = compile_scene(build(T.RenderConfig(width=w, height=h, seed=1)),
+                           device="cuda")
+        with torch.no_grad():
+            target = diff.render_linear(cs, width=w, height=h,
+                                        max_depth=depth, n_samples=1, seed=2)
+            img = diff.render_linear(cs, width=w, height=h, max_depth=depth,
+                                     n_samples=1, seed=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, g, counts = _grad_step(cs, target, w, h, depth, wrappers)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        step_bytes = _one_step_saved_bytes(cs, w, h)
+        times, again = [], None
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss2, g2 = diff.image_and_texture_grad(
+                cs, target, width=w, height=h, max_depth=depth, n_samples=1,
+                seed=1)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+            again = g2 if again is None else again
+        _grad_checks(name, g, again, img)
+        torch.testing.assert_close(loss2, loss, rtol=1e-5, atol=0)
+        if not float(loss) > 0:
+            raise AssertionError(f"{name}: loss {float(loss)}")
+        for k in need:
+            if counts["forward"][k] < depth or counts["replay"][k] < depth:
+                raise AssertionError(f"{name}: {k} launches {counts}")
+        if name == "kitchen" and any(counts["forward"][k] for k in
+                                     ("K1", "K2", "K3", "K5")):
+            raise AssertionError(f"kitchen: launches off the K4 route "
+                                 f"{counts}")
+        times.sort()
+        log("diff_step", gpu=smi, scene=name, width=w, height=h,
+            max_depth=depth, loss=float(loss), step_ms=times[1],
+            step_ms_all=times, peak_bytes=peak, baseline_bytes=base,
+            one_step_saved_bytes=step_bytes,
+            flat_tape_estimate_bytes=step_bytes * (depth + 1),
+            chunk=integrator.remat_chunk(depth),
+            grad_nonzero=int((g != 0).sum()), launches=counts,
+            seconds=time.perf_counter() - start)
+        del cs, target, img, g, again
+
+    # card against CPU at 64x32, depth 8
+    for name, build in (
+            ("mixed", lambda c: fixtures.mixed_bvh_scene(c, n_cells=32)),
+            ("kitchen", fixtures.kitchen_sink_scene)):
+        scene = build(T.RenderConfig(width=64, height=32, seed=1))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            cs = compile_scene(scene, device=dev)
+            with torch.no_grad():
+                target = diff.render_linear(cs, width=64, height=32,
+                                            max_depth=8, n_samples=1, seed=2)
+            out[dev] = [x.cpu() for x in diff.image_and_texture_grad(
+                cs, target, width=64, height=32, max_depth=8, n_samples=1,
+                seed=1)]
+        (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+        torch.testing.assert_close(lg, lc, rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(gg, gc, rtol=1e-3, atol=1e-4)
+        log("diff_card_vs_cpu", gpu=smi, scene=name, loss_card=float(lg),
+            loss_cpu=float(lc), grad_max_abs_err=float((gg - gc).abs().max()),
+            grad_max_abs=float(gc.abs().max()),
+            seconds=time.perf_counter() - start)
+
+    # a one-rank NCCL group: the shard route and the sharded step
+    store = _build._BUILD / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    n, rank = distributed.initialize(f"file://{store}", 1, 0, "cuda")
+    try:
+        mesh = parallel.make_mesh(1, 1, device_type="cuda")
+        w, h = 1920, 1080
+        kw = dict(width=w, height=h, max_depth=50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_s, segs_s = parallel.render_batch_sharded(sponza_cs, 1, 1, 1,
+                                                      mesh, **kw)
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        img, _, _, segs = integrator.render_sample_batch(
+            sponza_cs, 1, 1, shader_kind=integrator.SHADER_PATH,
+            need_aux=False, n_samples=1, **kw)
+        if not torch.equal(img_s, img) or int(segs_s) != int(segs) or \
+                int(segs) != SPONZA_SEGMENTS:
+            raise AssertionError(f"render_batch_sharded: segments "
+                                 f"{int(segs_s)} / {int(segs)}, images "
+                                 f"equal {torch.equal(img_s, img)}")
+        kitchen = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+            width=400, height=266, seed=1)), device="cuda")
+        with torch.no_grad():
+            target = diff.render_linear(kitchen, width=400, height=266,
+                                        max_depth=50, n_samples=1, seed=2)
+        lr = 10.0
+        loss_s, new_cs = diff.train_step_sharded(
+            kitchen, target, mesh, width=400, height=266, max_depth=50,
+            lr=lr, seed=1)
+        loss, g = diff.image_and_texture_grad(
+            kitchen, target, width=400, height=266, max_depth=50,
+            n_samples=1, seed=1)
+        # the step's gradient against the unsharded one: their sums of
+        # ~10^5 path contributions per arena entry accumulate in another
+        # order (atomics), 1.2e-5 apart at most (PR 8's first run)
+        torch.testing.assert_close(loss_s, loss, rtol=1e-5, atol=0)
+        torch.testing.assert_close(
+            (kitchen.textures.pixels - new_cs.textures.pixels) / lr, g,
+            rtol=1e-4, atol=1e-7)
+        small = fixtures.small_scene(T.RenderConfig(
+            width=320, height=180, samples_per_pixel=2, seed=1))
+        images = [im for _, im in distributed.render_distributed(
+            small, device_type="cuda")]
+        cs = compile_scene(small, device="cuda")
+        total = sum(integrator.render_sample(
+            cs, s, 1, width=320, height=180, max_depth=50,
+            shader_kind=integrator.SHADER_PATH, need_aux=False)[0]
+            for s in (1, 2))
+        if len(images) != 2 or not np.array_equal(
+                images[-1], to_rgb_u8(total, 2).cpu().numpy()):
+            raise AssertionError("render_distributed: final image differs")
+        _check_image("render_distributed", images[-1], 180, 320)
+        log("nccl_one_rank", gpu=smi, world=n, rank=rank,
+            backend=torch.distributed.get_backend(),
+            sponza_segments=int(segs_s), sponza_sharded_s=t_shard,
+            sharded_step_loss=float(loss_s),
+            sharded_step_equals_sgd=True, distributed_images=len(images),
+            seconds=time.perf_counter() - start)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # the denoiser trainer: a few steps on two fixture scenes at 64x64, and
+    # one step on the card against one on the CPU
+    size = 64
+    scenes = [lambda spp: fixtures.small_scene(T.RenderConfig(
+                  width=size, height=size, samples_per_pixel=spp, seed=3)),
+              lambda spp: fixtures.kitchen_sink_solid_scene(T.RenderConfig(
+                  width=size, height=size, samples_per_pixel=spp, seed=3))]
+    t0 = time.perf_counter()
+    net = train_denoiser.train(4, None, size=size, clean_spp=16,
+                               scenes=scenes, device="cuda")
+    t_train = time.perf_counter() - t0
+    init = train_denoiser.init_like_flax(denoiser.DenoiserCNN()).cuda()
+    if all(torch.equal(a, b) for a, b in zip(net.parameters(),
+                                            init.parameters())):
+        raise AssertionError("train_denoiser: parameters did not move")
+    if not all(bool(torch.isfinite(p).all()) for p in net.parameters()):
+        raise AssertionError("train_denoiser: non-finite parameters")
+    pair = [x.cpu() for x in train_denoiser._render_pair(
+        scenes[1], 4, 16, size, "cuda")]
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        model = denoiser.params_from_flax(denoiser.load_weights(
+            BUNDLED_WEIGHTS)).to(dev)
+        opt, sched = train_denoiser.make_optimizer(model, 10)
+        loss = train_denoiser.train_step(model, opt, sched,
+                                         *(x.to(dev) for x in pair))
+        steps[dev] = (float(loss),
+                      [p.grad.cpu() for p in model.parameters()],
+                      [p.detach().cpu() for p in model.parameters()])
+    (lg, gg, pg), (lc, gc, pc) = steps["cuda"], steps["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    scale = max(float(g.abs().max()) for g in gc)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * scale)
+    # the Adam step on the card from the CPU's gradient equals the CPU's
+    # step (a weight whose gradient is near Adam's eps, 1e-8, moves by
+    # lr * g / (|g| + eps), so the gradients' last bits would reach it)
+    model = denoiser.params_from_flax(denoiser.load_weights(
+        BUNDLED_WEIGHTS)).cuda()
+    opt, _ = train_denoiser.make_optimizer(model, 10)
+    for p, g in zip(model.parameters(), gc):
+        p.grad = g.cuda()
+    opt.step()
+    for p, b in zip(model.parameters(), pc):
+        torch.testing.assert_close(p.detach().cpu(), b, rtol=1e-5, atol=5e-8)
+    log("train_denoiser", gpu=smi, steps=4, size=size, seconds_train=t_train,
+        loss_card=lg, loss_cpu=lc,
+        grad_max_abs_err=max(float((a - b).abs().max())
+                             for a, b in zip(gg, gc)),
+        param_max_abs_err_own_gradients=max(
+            float((a - b).abs().max()) for a, b in zip(pg, pc)),
+        seconds=time.perf_counter() - start)
+
 def main():
     import torch
 
@@ -1460,6 +1739,7 @@ def main():
     timings["K5"] = phase_megakernel()
     phase_surface(sponza_cs)
     phase_card_vs_cpu()
+    phase_diff_parallel(sponza_cs, smi)
 
     source = {"K1": ("solstrale_tpu_torch/csrc/bvh.cu",
                      "solstrale_tpu/ops/pallas_bvh.py:104"),

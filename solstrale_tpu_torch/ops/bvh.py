@@ -17,6 +17,7 @@ from ..accel import WALK_LEAF
 from ..geo import ALMOST_ZERO, INF
 from ..scene.compile import KIND_QUAD, KIND_TRIANGLE
 from . import _build, sweep
+from .detached import detached
 
 RAY_CHUNK = 8192
 PRIM_CHUNK = 4096
@@ -75,6 +76,7 @@ def bvh_planar_hit_plain(prims, o, d, tmin):
     return out_t, out_s
 
 
+@detached
 def bvh_planar_hit(kbvh, o, d, tmin):
     """K1: closest planar hit (t (R,) f32, planar slot (R,) int32; INF/-1
     on a miss). ``kbvh`` is an ``accel.KernelBvh`` on the rays' device."""
@@ -108,6 +110,7 @@ def bvh_planar_hit(kbvh, o, d, tmin):
 bvh_planar_hit.launches = 0
 
 
+@detached
 def bvh_closest_hit(kbvh, solids, o, d, tmin, tmax):
     """Closest solid hit on a BVH scene: K1 over planar prims, min-combined
     with K2's spheres-only sweep exactly as the JAX package's

@@ -36,6 +36,7 @@ from ..geo import ALMOST_ZERO, INF, RAY_T_MIN
 from ..scene.compile import (KIND_MEDIUM, KIND_QUAD, KIND_SPHERE,
                              KIND_TRIANGLE, Solids)
 from . import _build, rng
+from .detached import detached
 
 # plain versions work on (ray chunk, prim chunk) blocks to bound memory
 RAY_CHUNK = 8192
@@ -424,6 +425,7 @@ def _media_args(name, media: MediaTables, dev):
             p(media.nid), p(media.box), media.n_media]
 
 
+@detached
 def media_hit(media: MediaTables, o, d, t, kind, idx, pixel, sample, bounce,
               seed):
     """K3: every medium of ``media`` in order on top of the hit (``t`` (R,)
@@ -462,6 +464,7 @@ def media_hit(media: MediaTables, o, d, t, kind, idx, pixel, sample, bounce,
 media_hit.launches = 0
 
 
+@detached
 def scene_hit(s: Solids, media: MediaTables, o, d, pixel, sample, bounce,
               seed):
     """K4: the whole scene hit of a scene without a BVH in one launch —

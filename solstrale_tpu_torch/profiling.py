@@ -1,6 +1,8 @@
-"""Where one render batch spends its time on the card.
+"""Where one render batch, or one inverse-rendering step, spends its time
+on the card.
 
     python -m solstrale_tpu_torch.profiling [--scene sponza|mixed|kitchen]
+    python -m solstrale_tpu_torch.profiling --step [--scene mixed|kitchen]
 
 Compiles the fixture scene (1920x1080; sponza and mixed: 362 terrain
 cells, the 262,088-triangle interior; kitchen: the normal-mapped
@@ -9,8 +11,12 @@ the GPU, warms up, then times one
 ``render_sample_batch`` (1 spp, depth 50) twice: once bare (CUDA-synced
 host clock: the end-to-end number) and once under ``torch.profiler``
 (device time per kernel name, the device's busy and idle share of the
-profiled wall time, and the hit kernels' share). Prints one JSON
-object. Needs a CUDA device; there is no CPU fallback.
+profiled wall time, and the hit kernels' share). ``--step`` times one
+``diff.image_and_texture_grad`` step instead (1 spp, depth 50, against a
+target at seed 2): its forward and its backward (the checkpointed replay
+and the gradient) apart with CUDA events, then the whole step under
+``torch.profiler``. Prints one JSON object. Needs a CUDA device; there is
+no CPU fallback.
 """
 from __future__ import annotations
 
@@ -88,6 +94,62 @@ def device_kernels(calls, attempts=5):
                        f"{markers} markers for {len(calls)} calls")
 
 
+def _profile(fn):
+    """fn() under torch.profiler: its wall ms and the device's kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernel_times(prof)
+    busy_us = sum(v[1] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:20]
+    return dict(
+        profiled_wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+        device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+        kernel_launches=sum(v[0] for v in kernels.values()),
+        hit_kernel_ms={name: sum(v[1] for k, v in kernels.items()
+                                 if name in k) / 1e3
+                       for name in HIT_KERNELS},
+        top_kernels=[dict(name=k[:90], count=v[0], ms=v[1] / 1e3)
+                     for k, v in top])
+
+
+def profile_step(scene_name="mixed"):
+    from . import diff
+    from .scene.compile import compile_scene
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+    cs = compile_scene(_scene(scene_name), device="cuda")
+    kw = dict(width=WIDTH, height=HEIGHT, max_depth=50, n_samples=1)
+    with torch.no_grad():
+        target = diff.render_linear(cs, seed=2, **kw)
+    diff.image_and_texture_grad(cs, target, seed=1, **kw)
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    p = cs.textures.pixels.detach().requires_grad_(True)
+    img = diff.render_linear(diff.set_texture_params(cs, p), seed=1, **kw)
+    loss = torch.mean((img - target) ** 2)
+    marks[1].record()
+    torch.autograd.grad(loss, p)
+    marks[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(
+        scene=scene_name, width=WIDTH, height=HEIGHT, max_depth=50,
+        gpu=torch.cuda.get_device_name(0), step_seconds=wall,
+        forward_ms=marks[0].elapsed_time(marks[1]),
+        backward_ms=marks[1].elapsed_time(marks[2]),
+        **_profile(lambda: diff.image_and_texture_grad(cs, target, seed=1,
+                                                       **kw)))
+
+
 def profile_batch(scene_name="sponza"):
     from .renderer import integrator
     from .scene.compile import compile_scene
@@ -107,38 +169,26 @@ def profile_batch(scene_name="sponza"):
     float(color.sum())
     wall = time.perf_counter() - t0
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        color, _, _, _ = integrator.render_sample_batch(cs, 1, 1, **kw)
-        float(color.sum())
-        prof_wall = time.perf_counter() - t1
-    kernels = device_kernel_times(prof)
-    busy_us = sum(v[1] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:20]
-    hit = {name: sum(v[1] for k, v in kernels.items() if name in k) / 1e3
-           for name in HIT_KERNELS}
     return dict(
         scene=scene_name, width=WIDTH, height=HEIGHT,
         gpu=torch.cuda.get_device_name(0),
         batch_seconds=wall, segments=int(segs),
         segments_per_second=int(segs) / wall, iterations=stats["iters"],
         ms_per_iteration=wall * 1e3 / stats["iters"],
-        profiled_wall_ms=prof_wall * 1e3, device_busy_ms=busy_us / 1e3,
-        device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / (prof_wall * 1e3)),
-        kernel_launches=sum(v[0] for v in kernels.values()),
-        hit_kernel_ms=hit,
-        top_kernels=[dict(name=k[:90], count=v[0], ms=v[1] / 1e3)
-                     for k, v in top])
+        **_profile(lambda: integrator.render_sample_batch(cs, 1, 1, **kw)))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("sponza", "mixed", "kitchen"),
-                    default="sponza")
+                    default=None, help="default: sponza, mixed with --step")
+    ap.add_argument("--step", action="store_true",
+                    help="one inverse-rendering step, not a render batch")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_batch(args.scene)))
+    if args.step:
+        print(json.dumps(profile_step(args.scene or "mixed")))
+    else:
+        print(json.dumps(profile_batch(args.scene or "sponza")))
 
 
 if __name__ == "__main__":

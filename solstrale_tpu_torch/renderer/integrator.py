@@ -30,6 +30,7 @@ import math
 import weakref
 
 import torch
+import torch.utils.checkpoint
 
 from ..geo import INF, RAY_T_MIN
 from ..geo import soa
@@ -127,6 +128,16 @@ def per_scene(cs: CompiledScene, name, make):
     return _PER_SCENE[key]
 
 
+def share_geometry_tables(src: CompiledScene, dst: CompiledScene):
+    """Give ``dst``, a copy of ``src`` with the same geometry (another
+    texture arena: ``diff.set_texture_params``), ``src``'s packed media
+    tables, so that the copy neither repacks them nor syncs for the box
+    scale. K5's tables hold the texels and are not shared."""
+    key = (id(src), "media")
+    if key in _PER_SCENE:
+        per_scene(dst, "media", lambda: _PER_SCENE[key])
+
+
 def media_tables(cs: CompiledScene):
     """Every medium's boundary packed, with its padded box, for the media
     hit (K3), the fused scene hit (K4) and the render megakernel (K5):
@@ -215,14 +226,18 @@ def fold_scatter(state, color, prob, is_pdf, scat):
     pdf_lvl = scat & is_pdf
     basic_lvl = scat & ~is_pdf
     nA, nB, nD = [], [], []
+    # the level's factor is 0 on a lane that does not scatter and on a
+    # channel the fold drops: the forward discards both, and a finite
+    # operand there keeps the backward from 0 x NaN
+    prob_scat = torch.where(scat, prob, 0.0)
     for c in range(3):
-        a = color[c] * prob
-        nan_a = torch.isnan(a)
+        nan_a = torch.isnan(color[c] * prob)
         # pdf level: records its clamp bound 3*A_prev, filters its own NaNs
         nB.append(torch.where(pdf_lvl, torch.minimum(B[c], 3.0 * A[c]), B[c]))
         # basic level: its NaN is filtered by the nearest OUTER pdf level
-        nD.append(dead[c] | (pdf_lvl & nan_a)
-                  | (basic_lvl & nan_a & outer_pdf))
+        d = dead[c] | (pdf_lvl & nan_a) | (basic_lvl & nan_a & outer_pdf)
+        nD.append(d)
+        a = color[c] * torch.where(d, 0.0, prob_scat)
         nA.append(torch.where(scat, A[c] * a, A[c]))
     return tuple(nA), tuple(nB), tuple(nD), outer_pdf | pdf_lvl
 
@@ -234,8 +249,9 @@ def fold_resolve(state, term_color):
     out = []
     for c in range(3):
         dead_t = dead[c] | (torch.isnan(term_color[c]) & outer_pdf)
+        t_c = torch.where(dead_t, 0.0, term_color[c])
         out.append(torch.where(dead_t, 0.0,
-                               torch.minimum(A[c] * term_color[c], B[c])))
+                               torch.minimum(A[c] * t_c, B[c])))
     return tuple(out)
 
 
@@ -339,6 +355,12 @@ def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
                           reflect3(udir, s_normal),
                           refract3(udir, s_normal, rr))
         new_dir = where3(is_diel, diel_dir, new_dir)
+
+    # Detached-sampling estimator: gradients flow through color and
+    # emission values, never through sample directions or pdf weights
+    # (material/mod.rs:202-206's probability is a sampling artifact).
+    new_dir = tuple(c.detach() for c in new_dir)
+    prob = prob.detach()
 
     return dict(
         is_emission=is_light,
@@ -475,6 +497,14 @@ def _lanes(x, pix):
     return torch.full(pix.shape, int(x), dtype=torch.int64, device=pix.device)
 
 
+def remat_chunk(max_depth):
+    """Bounces per checkpointed chunk of the fixed trip's backward: the
+    largest divisor k of ``max_depth`` with k * k <= 2 * max_depth (10 at
+    depth 50), the JAX package's rule."""
+    return max((k for k in range(1, max_depth + 1)
+                if max_depth % k == 0 and k * k <= 2 * max_depth), default=1)
+
+
 def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
           early_exit=True):
     """Full path trace of a ray wavefront -> linear color (R, 3), one
@@ -487,25 +517,47 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     ``early_exit=True`` stops once no lane is alive (one host sync per
     bounce); ``early_exit=False`` always runs all ``max_depth + 1`` steps
     and gives the same image bit for bit, because a parked lane's step
-    changes nothing."""
+    changes nothing. Under grad the fixed trip is the path-replay backward:
+    its first ``max_depth`` steps run in chunks of ``remat_chunk`` under
+    ``torch.utils.checkpoint``, so only the lane carry (~30 values a lane)
+    is kept between chunks and the backward replays each chunk; the
+    counter-keyed RNG and the deterministic kernels draw the same paths
+    again."""
     sample = _lanes(sample, pix)
     zero = torch.zeros_like(o[0])
     bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
     alive = torch.ones(pix.shape, dtype=torch.bool, device=zero.device)
-    acc_len, fold = zero, fold_init(zero)
     color = torch.zeros((zero.shape[0], 3), dtype=torch.float32,
                         device=zero.device)
-    for _ in range(max_depth + 1):
-        if early_exit and not bool(alive.any()):
-            break
-        st = path_step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
-                       alive, max_depth)
-        color = torch.where(st["terminal"][:, None], st["color"], color)
-        alive = alive & ~st["terminal"]
-        o, bounce, acc_len, fold = (st["o"], st["bounce"], st["acc_len"],
-                                    st["fold"])
-        d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
-    return color
+    carry = (o, d, bounce, zero, fold_init(zero), alive, color)
+
+    def steps(carry, n):
+        o, d, bounce, acc_len, fold, alive, color = carry
+        for _ in range(n):
+            st = path_step(cs, o, d, bounce, acc_len, fold, pix, sample,
+                           seed, alive, max_depth)
+            color = torch.where(st["terminal"][:, None], st["color"], color)
+            alive = alive & ~st["terminal"]
+            o, bounce, acc_len, fold = (st["o"], st["bounce"],
+                                        st["acc_len"], st["fold"])
+            d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
+        return o, d, bounce, acc_len, fold, alive, color
+
+    if early_exit:
+        for _ in range(max_depth + 1):
+            if not bool(carry[5].any()):
+                break
+            carry = steps(carry, 1)
+    elif torch.is_grad_enabled():
+        chunk = remat_chunk(max_depth)
+        for _ in range(max_depth // chunk):
+            carry = torch.utils.checkpoint.checkpoint(
+                steps, carry, chunk, use_reentrant=False,
+                preserve_rng_state=False)
+        carry = steps(carry, 1)
+    else:
+        carry = steps(carry, max_depth + 1)
+    return carry[6]
 
 
 def _first_hit(cs, o, d, pix, sample, seed):
@@ -608,34 +660,59 @@ def render_sample(cs: CompiledScene, sample, seed, *, width, height,
 
 
 def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
-                 height, max_depth, lanes=None, stats=None):
-    """Work-queue wavefront over the full image: a pool of ``lanes`` lanes
-    drains the (pixel, sample) queue. Terminating lanes claim the next
-    queue positions in order (rank by an exclusive cumsum) and start the
-    next camera ray; once the queue is spent, lanes park with a zero
-    direction, which every hit kernel rejects. When the live count falls
-    to lanes/8 after the queue is fully claimed, the survivors are
-    compacted (stable order) into a pool an eighth the width.
+                 height, max_depth, lanes=None, stats=None, pix_ids=None,
+                 n_valid=None):
+    """Work-queue wavefront: a pool of ``lanes`` lanes drains the (pixel,
+    sample) queue. Terminating lanes claim the next queue positions in
+    order (rank by an exclusive cumsum) and start the next camera ray; once
+    the queue is spent, lanes park with a zero direction, which every hit
+    kernel rejects. When the live count falls to lanes/8 after the queue is
+    fully claimed, the survivors are compacted (stable order) into a pool
+    an eighth the width.
+
+    ``pix_ids`` (Np,) int64: the pixel ids this call owns (a shard), in
+    queue order; None is the full image in tile-swizzled order. Only the
+    first ``n_valid`` (an int; all if None) are real work: sharded callers
+    pad their last shard with repeated ids and leave them out here, so
+    segment counts stay exact.
 
     Accumulation is deterministic: each (pixel, sample) queue entry ends
     exactly once, so its color is stored (not added) in a per-sample
     buffer, and the samples are summed in order at the end — no float
     atomics.
 
-    Returns (accum (width*height, 3) summed over n_samples, in pixel-id
-    order, segments traced as a 0-dim int64 tensor). ``stats`` (optional
+    Returns (accum summed over n_samples, segments traced as a 0-dim int64
+    tensor): accum is (width*height, 3) in pixel-id order, or (Np, 3) in
+    ``pix_ids`` order with zero rows for the padding. ``stats`` (optional
     dict) receives the loop's iteration counts."""
-    n_pix = width * height
+    dev = cs.device
+    if pix_ids is None:
+        n_pix = n_rows = width * height
+
+        def assignment(qpos):
+            return queue_assignment(qpos, width, height, sample_start)
+
+        def row_of(qpos, pixel):
+            return (qpos // n_pix) * n_pix + pixel
+    else:
+        n_rows = pix_ids.shape[0]
+        n_pix = n_rows if n_valid is None else int(n_valid)
+
+        def assignment(qpos):
+            return pix_ids[qpos % n_pix], sample_start + qpos // n_pix
+
+        def row_of(qpos, pixel):
+            return qpos
     total_q = n_pix * n_samples
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    if total_q == 0:
+        return torch.zeros((n_rows, 3), dtype=torch.float32,
+                           device=dev), segments
     if lanes is None:
         # large queues amortize per-iteration cost over more lanes; small
         # ones finish their drain tail sooner with half-size pools
         lanes = 131072 if total_q >= 1_500_000 else 65536
     lanes = min(lanes, total_q)
-    dev = cs.device
-
-    def assignment(qpos):
-        return queue_assignment(qpos, width, height, sample_start)
 
     def cam(qpos):
         pixel, samp = assignment(torch.clamp(qpos, max=total_q - 1))
@@ -650,10 +727,10 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
                  bounce=torch.zeros((lanes,), dtype=torch.int32, device=dev),
                  o=o0, d=d0, acc_len=zero_l, fold=fold_init(zero_l))
     next_q = torch.tensor(lanes, dtype=torch.int64, device=dev)
-    # one row per queue entry (sample-major, pixel id within a sample)
-    # plus a discard row for lanes that did not finish this iteration
+    # one row per queue entry (sample-major, pixel id or slot within a
+    # sample) plus a discard row for lanes that did not finish this
+    # iteration
     accum = torch.zeros((total_q + 1, 3), dtype=torch.float32, device=dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
 
     def one_step(state, next_q):
         qpos = state["qpos"]
@@ -663,7 +740,7 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
                        state["acc_len"], state["fold"], pixel, sample, seed,
                        active, max_depth)
         terminal = st["terminal"]
-        row = (qpos // n_pix) * n_pix + pixel
+        row = row_of(qpos, pixel)
         accum.index_put_((torch.where(terminal, row, total_q),), st["color"])
 
         # terminal lanes claim the next queue positions (exclusive cumsum)
@@ -716,6 +793,8 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
         stats.update(iters=iters_wide + iters_tail, iters_wide=iters_wide,
                      iters_tail=iters_tail, lanes=lanes,
                      tail_lanes=tail_lanes)
+    if n_rows > n_pix:
+        color = torch.cat([color, color.new_zeros((n_rows - n_pix, 3))])
     return color, segments
 
 

@@ -591,13 +591,21 @@ def _features(mats, arena, spheres):
     return frozenset(features)
 
 
+def to_device(cs: CompiledScene, device) -> CompiledScene:
+    """A copy of the compiled scene with every table on ``device``."""
+    return _to_device(cs, torch.device(device))
+
+
 def _to_device(obj, device):
     """Cast every numpy leaf to f32/int32/bool and move it to ``device``:
-    the one host->device pass of a compile."""
+    the one host->device pass of a compile. Tensor leaves keep their
+    dtype."""
     from ..accel import KernelBvh
 
     if obj is None or isinstance(obj, (frozenset, str, int, float, bool)):
         return obj
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
     if isinstance(obj, (tuple, list)):
         return tuple(_to_device(x, device) for x in obj)
     if isinstance(obj, KernelBvh):

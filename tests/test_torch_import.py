@@ -1,6 +1,7 @@
 """The port stands alone: with JAX made unimportable, importing
-solstrale_tpu_torch, building a scene and rendering on the CPU works, and
-none of it builds or loads a CUDA kernel."""
+solstrale_tpu_torch and its modules (diff, parallel, the denoiser trainer
+among them), building a scene, rendering and taking a texture gradient on
+the CPU works, and none of it builds or loads a CUDA kernel."""
 import os
 import subprocess
 import sys
@@ -15,6 +16,10 @@ from solstrale_tpu_torch import fixtures
 from solstrale_tpu_torch.ops import _build
 from solstrale_tpu_torch.renderer import integrator
 from solstrale_tpu_torch.scene.compile import compile_scene
+from solstrale_tpu_torch import diff, parallel
+from solstrale_tpu_torch.models import train_denoiser
+from solstrale_tpu_torch.ops import detached
+from solstrale_tpu_torch.parallel import distributed
 
 assert _build.library.cache_info().currsize == 0
 cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8, height=8)),
@@ -23,6 +28,11 @@ img, _, _, segs = integrator.render_sample_batch(
     cs, 1, 1, width=8, height=8, max_depth=50, shader_kind=0,
     need_aux=False, n_samples=1)
 assert img.shape == (8, 8, 3) and float(img.sum()) > 0 and int(segs) >= 64
+loss, grad = diff.image_and_texture_grad(
+    cs, img.reshape(-1, 3) * 0.5, width=8, height=8, max_depth=3,
+    n_samples=1, seed=1)
+assert float(loss) > 0 and bool(grad.isfinite().all())
+assert distributed.initialize() == (1, 0)
 assert _build.library.cache_info().currsize == 0   # no kernel was loaded
 assert not any(m == "jax" or m.startswith(("jax.", "solstrale_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
