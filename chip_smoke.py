@@ -61,8 +61,9 @@ script exits non-zero):
      depth 50 (K1-K3) and on the kitchen at 400x266 (K4), against a target
      at seed 2: finite loss, a non-zero finite gradient, two runs agreeing
      (rtol 1e-5), its time (CUDA events, median of 3), its peak memory
-     beside the flat-tape estimate (one bounce's saved bytes x 51) and the
-     kernels' launches in the forward and in the replay; card against CPU
+     and the kernels' launches in the forward and in the replay, beside
+     the peak memory, time and gradient (rtol 1e-5) of the step that keeps
+     the whole tape (checkpoint replaced by a plain call); card against CPU
      gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a one-rank
      NCCL group, ``render_batch_sharded`` on the interior at 1080p equal to
      ``render_sample_batch`` (6,708,708 segments), ``train_step_sharded``
@@ -1475,34 +1476,30 @@ def _grad_step(cs, target, w, h, depth, wrappers=None):
     return loss.detach(), g, counts
 
 
-def _one_step_saved_bytes(cs, w, h):
-    """Bytes autograd saves for one bounce of a w x h wavefront (a fixed
-    trip of depth 0 is one path step, outside any checkpoint)."""
+def _unchunked_step(cs, target, w, h, depth):
+    """The step with the whole tape kept: the fixed trip's checkpoint
+    replaced by a plain call, as tests/test_torch_diff.py's unchunked test
+    does on the CPU. Returns (peak bytes above the step's start, step ms
+    as the median of 3 after the measured call, gradient)."""
     import torch
+    import torch.utils.checkpoint
     from solstrale_tpu_torch import diff
 
-    total = [0]
-
-    def pack(x):
-        total[0] += x.numel() * x.element_size()
-        return x
-
-    p = cs.textures.pixels.detach().requires_grad_(True)
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
-        img = diff.render_linear(diff.set_texture_params(cs, p), width=w,
-                                 height=h, max_depth=0, n_samples=1, seed=1)
-    del img
-    return total[0]
-
-
-def _grad_checks(name, g, again, img):
-    import torch
-
-    if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
-        raise AssertionError(f"{name}: gradient not finite or all zero")
-    if not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"{name}: image not finite")
-    torch.testing.assert_close(again, g, rtol=1e-5, atol=1e-7)
+    chunked = torch.utils.checkpoint.checkpoint
+    torch.utils.checkpoint.checkpoint = lambda fn, *args, **kw: fn(*args)
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, g, _ = _grad_step(cs, target, w, h, depth)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = wrapper_ms(lambda: diff.image_and_texture_grad(
+            cs, target, width=w, height=h, max_depth=depth, n_samples=1,
+            seed=1), reps=3, warmup=0)
+    finally:
+        torch.utils.checkpoint.checkpoint = chunked
+    return peak, ms, g
 
 
 def phase_diff_parallel(sponza_cs, smi):
@@ -1541,7 +1538,7 @@ def phase_diff_parallel(sponza_cs, smi):
         loss, g, counts = _grad_step(cs, target, w, h, depth, wrappers)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        step_bytes = _one_step_saved_bytes(cs, w, h)
+        flat_peak, flat_ms, g_flat = _unchunked_step(cs, target, w, h, depth)
         times, again = [], None
         for _ in range(3):
             a = torch.cuda.Event(enable_timing=True)
@@ -1554,7 +1551,12 @@ def phase_diff_parallel(sponza_cs, smi):
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
             again = g2 if again is None else again
-        _grad_checks(name, g, again, img)
+        if not (bool(torch.isfinite(img).all())
+                and bool(torch.isfinite(g).all()) and bool((g != 0).any())):
+            raise AssertionError(f"{name}: image or gradient not finite, "
+                                 "or the gradient all zero")
+        torch.testing.assert_close(again, g, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(g_flat, g, rtol=1e-5, atol=1e-7)
         torch.testing.assert_close(loss2, loss, rtol=1e-5, atol=0)
         if not float(loss) > 0:
             raise AssertionError(f"{name}: loss {float(loss)}")
@@ -1569,12 +1571,11 @@ def phase_diff_parallel(sponza_cs, smi):
         log("diff_step", gpu=smi, scene=name, width=w, height=h,
             max_depth=depth, loss=float(loss), step_ms=times[1],
             step_ms_all=times, peak_bytes=peak, baseline_bytes=base,
-            one_step_saved_bytes=step_bytes,
-            flat_tape_estimate_bytes=step_bytes * (depth + 1),
+            flat_tape_peak_bytes=flat_peak, flat_tape_step_ms=flat_ms,
             chunk=integrator.remat_chunk(depth),
             grad_nonzero=int((g != 0).sum()), launches=counts,
             seconds=time.perf_counter() - start)
-        del cs, target, img, g, again
+        del cs, target, img, g, again, g_flat
 
     # card against CPU at 64x32, depth 8
     for name, build in (
@@ -1636,7 +1637,7 @@ def phase_diff_parallel(sponza_cs, smi):
             n_samples=1, seed=1)
         # the step's gradient against the unsharded one: their sums of
         # ~10^5 path contributions per arena entry accumulate in another
-        # order (atomics), 1.2e-5 apart at most (PR 8's first run)
+        # order (atomics): 1.2e-5 apart at most on an H100
         torch.testing.assert_close(loss_s, loss, rtol=1e-5, atol=0)
         torch.testing.assert_close(
             (kitchen.textures.pixels - new_cs.textures.pixels) / lr, g,

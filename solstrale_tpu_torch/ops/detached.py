@@ -3,9 +3,9 @@
 Port of the JAX package's ``ops/detached.py``. A kernel launched through
 ctypes builds no autograd graph, while its plain PyTorch version on CPU
 tensors would differentiate ``t`` with respect to the rays and the
-geometry. ``detached_call`` runs either under one ``torch.autograd.Function``
-whose backward returns no gradient for any input, so both devices give the
-same gradients.
+geometry. ``detached_call`` runs either with grad off, recorded as one
+``torch.autograd.Function`` whose backward returns no gradient for any
+input, so both devices give the same gradients.
 
 That zero is exact for what the renderer differentiates: the estimator is
 detached-sampling (``integrator.scatter`` detaches the sampled direction
@@ -52,14 +52,18 @@ class _Detached(torch.autograd.Function):
 
 
 def detached_call(fn, *args, **kwargs):
-    """``fn(*args, **kwargs)`` under a zero backward. Where grad is off or no
-    input tensor requires grad, ``fn`` runs as it is (no autograd record,
-    no cost on the render loop)."""
+    """``fn(*args, **kwargs)`` under a zero backward, whatever requires
+    grad: ``fn`` always runs with grad off, so neither the rays nor the
+    geometry held in the scene's tables get a graph through it. Where a ray
+    tensor requires grad, the call is recorded as ``_Detached`` (its
+    outputs require grad and give that tensor no gradient, as JAX's
+    ``custom_vjp`` does); otherwise ``fn`` runs under ``torch.no_grad()``
+    with no autograd record on the render loop."""
     tensors = _tensors(args)
-    if not torch.is_grad_enabled() or \
-            not any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Detached.apply(fn, args, kwargs, *tensors)
+    with torch.no_grad():
         return fn(*args, **kwargs)
-    return _Detached.apply(fn, args, kwargs, *tensors)
 
 
 def detached(fn):

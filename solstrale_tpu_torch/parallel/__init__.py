@@ -92,10 +92,6 @@ def tile_ids(n_pix, mesh):
     return ids, max(0, min(per_tile, n_pix - start))
 
 
-def _to_image(c, n_pix, width, height):
-    return torch.flip(c[:n_pix].reshape(height, width, 3), dims=(0,))
-
-
 def render_sample_sharded(cs, sample, seed, mesh, *, width, height, max_depth,
                           shader_kind, need_aux):
     """One full-image sample pass sharded over the mesh: pixels over
@@ -114,7 +110,8 @@ def render_sample_sharded(cs, sample, seed, mesh, *, width, height, max_depth,
     out = []
     for c in planes:
         c = all_reduce(c.contiguous(), mesh, "sample")
-        out.append(_to_image(gather_tiles(c, mesh), n_pix, width, height))
+        out.append(integrator.to_image(gather_tiles(c, mesh)[:n_pix],
+                                        width, height))
     return tuple(out)
 
 
@@ -145,7 +142,8 @@ def render_batch_sharded(cs, sample_start, n_samples, seed, mesh, *, width,
     accum = all_reduce(accum, mesh, "sample")
     segs_tile = all_reduce(segs.reshape(1), mesh, "sample")
     per_tile = gather_tiles(segs_tile, mesh)
-    color = _to_image(gather_tiles(accum, mesh), n_pix, width, height)
+    color = integrator.to_image(gather_tiles(accum, mesh)[:n_pix], width,
+                                 height)
     if shard_stats:
         return color, per_tile.sum(), per_tile
     return color, per_tile.sum()

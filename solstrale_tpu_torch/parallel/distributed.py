@@ -19,8 +19,19 @@ size and rank from the environment).
 """
 from __future__ import annotations
 
+import os
+import pickle
+import queue
+import tempfile
+import time
+
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ..scene.compile import compile_scene
+from ..utils import to_rgb_u8
+from . import make_mesh, mesh_device, render_sample_sharded
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -33,10 +44,9 @@ def initialize(init_method=None, world_size=None, rank=None,
     ``rank % device_count``. Without ``init_method`` nothing is started.
     Returns (world size, rank): (1, 0) for a single process."""
     if init_method is not None:
-        if device_type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("initialize: device_type 'cuda' but "
-                                   "torch.cuda.is_available() is false")
+        if device_type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("initialize: device_type 'cuda' but "
+                               "torch.cuda.is_available() is false")
         ids = {} if world_size is None else dict(world_size=world_size,
                                                  rank=rank)
         dist.init_process_group(BACKENDS[device_type],
@@ -51,8 +61,6 @@ def initialize(init_method=None, world_size=None, rank=None,
 def global_mesh(n_sample=1, device_type="cuda"):
     """Mesh over every rank of the group, tile-major: neighbouring image
     tiles sit on neighbouring ranks."""
-    from . import make_mesh
-
     return make_mesh(n_tile=dist.get_world_size() // n_sample,
                      n_sample=n_sample, device_type=device_type)
 
@@ -66,10 +74,6 @@ def render_distributed(scene, n_sample_axis=1, abort=None,
     Yields (progress, u8 image as a numpy (H, W, 3) array) on rank 0 and
     (progress, None) elsewhere. ``abort`` (a callable) is asked before each
     pass; every rank must give the same answer."""
-    from ..scene.compile import compile_scene
-    from ..utils import to_rgb_u8
-    from . import mesh_device, render_sample_sharded
-
     cfg = scene.render_config
     mesh = global_mesh(n_sample_axis, device_type)
     cs = compile_scene(scene, device=mesh_device(mesh))
@@ -95,12 +99,14 @@ def render_distributed(scene, n_sample_axis=1, abort=None,
 
 def _rank_main(fn, rank, world_size, init_method, device_type, args,
                results):
-    """One process of ``launch``: join the group, run ``fn``, report (the
-    report is flushed before the group is torn down, which can block while
-    another rank waits in a collective)."""
+    """One process of ``launch``: join the group, run ``fn``, report. The
+    result travels as plain pickle bytes (the queue's own pickler would
+    share tensors by file descriptor, which dies with this process), and
+    the report is flushed before the group is torn down, which can block
+    while another rank waits in a collective."""
     try:
         initialize(init_method, world_size, rank, device_type)
-        item = (rank, fn(*args), None)
+        item = (rank, pickle.dumps(fn(*args)), None)
     except BaseException as e:  # reported to the launcher, which raises
         item = (rank, None, f"{type(e).__name__}: {e}")
     results.put(item)
@@ -110,20 +116,14 @@ def _rank_main(fn, rank, world_size, init_method, device_type, args,
         dist.destroy_process_group()
 
 
-def launch(fn, world_size, args=(), device_type="cpu", timeout=300.0):
+def launch(fn, world_size, args=(), device_type="cuda", timeout=300.0):
     """Run ``fn(*args)`` on ``world_size`` new processes (spawned), each a
     rank of one process group (a FileStore in a temporary directory) with
-    the backend of ``device_type``. ``fn`` must be importable by name.
+    the backend of ``device_type`` (NCCL on the card, one card a rank;
+    ``"cpu"`` for gloo). ``fn`` must be importable by name.
     Returns the ranks' results in rank order; a rank that raises, or a run
     that outlasts ``timeout`` seconds, raises here (the processes are
     ended)."""
-    import os
-    import queue
-    import tempfile
-    import time
-
-    import torch.multiprocessing as mp
-
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
@@ -146,7 +146,7 @@ def launch(fn, world_size, args=(), device_type="cpu", timeout=300.0):
                                        f"not finish in {timeout} s") from None
                 if err is not None:
                     raise RuntimeError(f"launch: rank {rank}: {err}")
-                out[rank] = res
+                out[rank] = pickle.loads(res)
         finally:
             for p in procs:
                 p.join(timeout=10)

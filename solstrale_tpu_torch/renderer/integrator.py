@@ -646,7 +646,7 @@ def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
     return color, albedo, normal
 
 
-def _to_image(c, width, height):
+def to_image(c, width, height):
     """(width*height, 3) in pixel-id order -> (height, width, 3) image rows,
     top row first (renderer/mod.rs:261)."""
     return torch.flip(c.reshape(height, width, 3), dims=(0,))
@@ -660,7 +660,7 @@ def render_sample(cs: CompiledScene, sample, seed, *, width, height,
     planes = render_pixels(cs, pix, sample, seed, width=width, height=height,
                            max_depth=max_depth, shader_kind=shader_kind,
                            need_aux=need_aux)
-    return tuple(_to_image(c, width, height) for c in planes)
+    return tuple(to_image(c, width, height) for c in planes)
 
 
 def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
@@ -843,5 +843,5 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
                                   seed)
             a, n = first_hit_aux(cs, o, d, pix, sample_start + i, seed)
             albedo, normal = albedo + a, normal + n
-    return (_to_image(color, width, height), _to_image(albedo, width, height),
-            _to_image(normal, width, height), segments)
+    return (to_image(color, width, height), to_image(albedo, width, height),
+            to_image(normal, width, height), segments)

@@ -5,6 +5,7 @@ hit kernels, the checkpointed path-replay backward and the port's own
 finite-difference check. The JAX reference of each scene (image and arena
 gradient of sum(image), 16x8, depth 4, 1 spp, seed 1) is computed once.
 """
+import copy
 import dataclasses
 
 import jax
@@ -177,8 +178,23 @@ def test_grad_matches_finite_differences():
                                        err_msg=f"arena[{i},{c}]")
 
 
-def _hit_calls():
-    """(name, compiled scene, call(o, d)) for each detached hit wrapper."""
+def _requiring_grad(tables, leaves):
+    """A shallow copy of a scene table whose float tensors are new leaves
+    that require grad (appended to ``leaves``): geometry that the plain
+    versions could differentiate."""
+    out = copy.copy(tables)
+    for k, v in vars(tables).items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            v = v.detach().clone().requires_grad_(True)
+            leaves.append(v)
+            object.__setattr__(out, k, v)
+    return out
+
+
+def _hit_calls(geometry_grad=False):
+    """{name: (compiled scene, call(o, d), geometry leaves)} for each
+    detached hit wrapper; with ``geometry_grad`` the BVH, solid and media
+    tables the calls read require grad."""
     mixed = tcompile(fixtures.mixed_bvh_scene(T.RenderConfig(
         width=W, height=H, samples_per_pixel=1, seed=SEED), n_cells=16),
         device="cpu")
@@ -186,33 +202,42 @@ def _hit_calls():
     assert mixed.kbvh is not None and mixed.media
     pix = torch.arange(W * H, dtype=torch.int64)
     zero = torch.zeros_like(pix)
+    leaves = []
+    kbvh, solids_m, solids_k = mixed.kbvh, mixed.solids, kitchen.solids
     mt_m, mt_k = TI.media_tables(mixed), TI.media_tables(kitchen)
+    if geometry_grad:
+        kbvh, solids_m, solids_k, mt_m, mt_k = (
+            _requiring_grad(x, leaves)
+            for x in (kbvh, solids_m, solids_k, mt_m, mt_k))
 
     def k3(o, d):
-        t, kind, idx = TB.bvh_closest_hit(mixed.kbvh, mixed.solids, o, d,
-                                          1e-3, float("inf"))
+        t, kind, idx = TB.bvh_closest_hit(kbvh, solids_m, o, d, 1e-3,
+                                          float("inf"))
         return TS.media_hit(mt_m, o, d, t.detach(), kind, idx, pix, 1, zero,
                             SEED)
 
     return {
         "bvh_planar_hit": (mixed, lambda o, d: TB.bvh_planar_hit(
-            mixed.kbvh, o, d, 1e-3)),
+            kbvh, o, d, 1e-3), leaves),
         "bvh_closest_hit": (mixed, lambda o, d: TB.bvh_closest_hit(
-            mixed.kbvh, mixed.solids, o, d, 1e-3, float("inf"))),
-        "media_hit": (mixed, k3),
+            kbvh, solids_m, o, d, 1e-3, float("inf")), leaves),
+        "media_hit": (mixed, k3, leaves),
         "scene_hit": (kitchen, lambda o, d: TS.scene_hit(
-            kitchen.solids, mt_k, o, d, pix, 1, zero, SEED)),
+            solids_k, mt_k, o, d, pix, 1, zero, SEED), leaves),
     }
 
 
-@pytest.mark.parametrize("name", ["bvh_planar_hit", "bvh_closest_hit",
-                                  "media_hit", "scene_hit"])
+HIT_WRAPPERS = ["bvh_planar_hit", "bvh_closest_hit", "media_hit",
+                "scene_hit"]
+
+
+@pytest.mark.parametrize("name", HIT_WRAPPERS)
 def test_detached_geometry(name):
     """With the ray directions requiring grad, the CPU route (the plain
     versions, which autograd could differentiate) gives the geometry a zero
     gradient, as a kernel launch on the card does, and its outputs are
     those of the call without grad."""
-    cs, call = _hit_calls()[name]
+    cs, call, _ = _hit_calls()[name]
     pix = torch.arange(W * H, dtype=torch.int64)
     o, d = TI._camera_rays(cs, pix, 1, SEED, W, H)
     with torch.no_grad():
@@ -227,6 +252,25 @@ def test_detached_geometry(name):
     grads = torch.autograd.grad((t[hit] * 2.0).sum(), d_g, allow_unused=True,
                                 materialize_grads=True)
     assert all(not gr.any() for gr in grads)
+
+
+@pytest.mark.parametrize("name", HIT_WRAPPERS)
+def test_detached_geometry_in_tables(name):
+    """With the geometry held in the scene's tables requiring grad (and no
+    ray), the CPU route builds no graph through the plain versions, as a
+    kernel launch on the card builds none: ``t`` does not require grad and
+    the outputs are those of the call without grad."""
+    cs, call, leaves = _hit_calls(geometry_grad=True)[name]
+    pix = torch.arange(W * H, dtype=torch.int64)
+    o, d = TI._camera_rays(cs, pix, 1, SEED, W, H)
+    assert leaves and all(x.requires_grad for x in leaves)
+    with torch.no_grad():
+        want = call(o, d)
+    got = call(o, d)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.isfinite(got[0]).any()
+    assert not any(x.requires_grad for x in got)
 
 
 def test_remat_chunk_rule():

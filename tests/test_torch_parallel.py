@@ -93,7 +93,7 @@ def _one_rank():
 
 @pytest.fixture(scope="module")
 def ranks():
-    return PD.launch(_four_ranks, 4, timeout=TIMEOUT)
+    return PD.launch(_four_ranks, 4, device_type="cpu", timeout=TIMEOUT)
 
 
 def test_mesh_rank_order(ranks):
@@ -162,10 +162,21 @@ def test_initialize_without_group():
     assert PD.initialize() == (1, 0)
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="tests the CPU-only "
+                    "case: without a card the default raises")
+def test_launch_defaults_to_the_card():
+    """``launch`` runs its ranks on the card (NCCL) unless asked for the
+    CPU, like every entry point of ``parallel``: without a card the rank
+    raises and ``launch`` reports it."""
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        PD.launch(_one_rank, 1, timeout=TIMEOUT)
+
+
 def test_render_distributed_one_rank():
     """One gloo rank: the generator yields the progressive u8 images, the
     last one the renderer's sum of both samples."""
-    images, = PD.launch(_one_rank, 1, timeout=TIMEOUT)
+    images, = PD.launch(_one_rank, 1, device_type="cpu",
+                        timeout=TIMEOUT)
     assert len(images) == 2 and images[-1].shape == (16, 32, 3)
     cs = tcompile(_small(32, 16), device="cpu")
     total = sum(TI.render_sample(cs, s, SEED, width=32, height=16,
