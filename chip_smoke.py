@@ -51,10 +51,11 @@ script exits non-zero):
      equal to 16 launches of 131,072; the CNN denoiser on the card against
      the CPU; times of the denoiser, bloom, ``first_hit_aux``, the debug
      shaders and the aux-on batch against the aux-off one;
-  4. card against CPU and determinism: four small scenes rendered on the
-     card and on the CPU with the path shader (with and without the aux
-     channels) and the three debug shaders, and the card run repeated bit
-     for bit;
+  4. card against CPU and determinism: five small scenes (the fifth a
+     128-triangle terrain loaded from an OBJ with textures, a normal map and
+     a height map: the wavefront with K4) rendered on the card and on the
+     CPU with the path shader (with and without the aux channels) and the
+     three debug shaders, and the card run repeated bit for bit;
   5. diff and parallel: the inverse-rendering step
      (``diff.image_and_texture_grad``: the fixed trip's forward and its
      checkpointed path-replay backward) on the mixed scene at 1920x1080,
@@ -69,7 +70,17 @@ script exits non-zero):
      ``render_sample_batch`` (6,708,708 segments), ``train_step_sharded``
      equal to one ``image_and_texture_grad`` SGD step and
      ``render_distributed``'s final image; the denoiser trainer for a few
-     steps at 64x64, and one Adam step on the card against the CPU.
+     steps at 64x64, and one Adam step on the card against the CPU;
+  6. OBJ ingest and the device BVH build: the sponza-class terrain written
+     as a 262,088-triangle OBJ with its MTL and PNG textures
+     (``fixtures.write_obj_scene``), parsed by the native C++ parser and by
+     the plain Python one (every triangle equal), loaded with ``Obj``,
+     compiled with ``use_bvh="device"`` (the LBVH built with torch on the
+     card) and with ``use_bvh=True``: the card's tree equal exactly to the
+     host build's and to the same function on the CPU; ``ray_trace`` of the
+     loaded scene at 1920x1080, 1 spp, depth 50 through K1 (K1's launches
+     count in the kernels line), a non-black frame; the write, parse, load,
+     compile and build times.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the result line.
 """
@@ -1394,10 +1405,13 @@ def phase_megakernel():
 
 
 def phase_card_vs_cpu():
-    """Four small scenes rendered on the card and on the CPU, with the path
-    shader (aux off and on) and the three debug shaders: segments within
-    1e-3, 99.9% of pixels within 1e-3 on every plane, and the card run
-    repeated bit for bit."""
+    """Five small scenes (the fifth the terrain loaded from an OBJ of 128
+    triangles) rendered on the card and on the CPU, with the path shader
+    (aux off and on) and the three debug shaders: segments within 1e-3,
+    99.9% of pixels within 1e-3 on every plane, and the card run repeated
+    bit for bit."""
+    import tempfile
+
     import numpy as np
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
@@ -1406,6 +1420,8 @@ def phase_card_vs_cpu():
 
     w, h, spp = 64, 48, 2
     start = time.perf_counter()
+    objdir = tempfile.TemporaryDirectory()
+    fixtures.write_obj_scene(objdir.name, n_cells=8)
     variants = (("path", integrator.SHADER_PATH, False),
                 ("path+aux", integrator.SHADER_PATH, True),
                 ("albedo", integrator.SHADER_ALBEDO, False),
@@ -1416,7 +1432,8 @@ def phase_card_vs_cpu():
                 c, n_cells=48)),
             ("small_scene", fixtures.small_scene),
             ("kitchen_sink_solid_scene", fixtures.kitchen_sink_solid_scene),
-            ("kitchen_sink_scene", fixtures.kitchen_sink_scene)):
+            ("kitchen_sink_scene", fixtures.kitchen_sink_scene),
+            ("obj_scene", lambda c: fixtures.obj_scene(c, objdir.name))):
         scene = build(T.RenderConfig(width=w, height=h, seed=1))
         compiled = {dev: compile_scene(scene, device=dev)
                     for dev in ("cuda", "cpu")}
@@ -1450,6 +1467,7 @@ def phase_card_vs_cpu():
                 pixels_within_1e3=float(close.mean(axis=(0, 1)).min()),
                 max_abs_diff=float(np.abs(gpu - cpu).max()),
                 bit_identical=True, seconds=time.perf_counter() - start)
+    objdir.cleanup()
 
 
 def _grad_step(cs, target, w, h, depth, wrappers=None):
@@ -1717,6 +1735,130 @@ def phase_diff_parallel(sponza_cs, smi):
             float((a - b).abs().max()) for a, b in zip(pg, pc)),
         seconds=time.perf_counter() - start)
 
+
+def phase_obj_ingest(smi):
+    """6: a 262,088-triangle OBJ written, parsed (native and plain), loaded,
+    compiled with the LBVH built on the card and on the host (the trees
+    equal exactly, and equal to the same build on the CPU), and rendered
+    with ray_trace at 1080p through K1. Returns the kernels' launches of
+    that render."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import accel, fixtures, native
+    from solstrale_tpu_torch.scene import loader
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    w, h = 1920, 1080
+    start = time.perf_counter()
+    cfg = T.RenderConfig(width=w, height=h, samples_per_pixel=1, seed=1,
+                         shader=T.PathTracingShader(50))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = fixtures.write_obj_scene(d)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.library()    # built by the first compile of a large scene
+        t_native_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = native.parse_obj(path)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = loader.parse_obj_arrays(path)
+        t_plain = time.perf_counter() - t0
+        n_tris = parsed[0].shape[0]
+        if n_tris != 262088:
+            raise AssertionError(f"OBJ parsed to {n_tris} triangles, not "
+                                 "262,088")
+        if not (all(np.array_equal(a, b) for a, b in zip(parsed[:3],
+                                                         plain[:3]))
+                and parsed[3:] == plain[3:]):
+            raise AssertionError("native OBJ parse differs from the plain "
+                                 "parse")
+        t0 = time.perf_counter()
+        scene = fixtures.obj_scene(cfg, d)
+        t_load = time.perf_counter() - t0
+        obj_bytes = os.path.getsize(path)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # in turns (device, host, host, device): the first compile also warms
+    # up torch's kernels
+    compiles, compiled = {"device": [], True: []}, {}
+    for use_bvh in ("device", True, True, "device"):
+        compiled[use_bvh], seconds = timed(lambda: compile_scene(
+            scene, use_bvh=use_bvh, device="cuda"))
+        compiles[use_bvh].append(seconds)
+    cs_dev, cs_host = compiled["device"], compiled[True]
+    host = compile_scene(scene, use_bvh=False, device="cpu")
+    kinds, idxs, mins, maxs = accel.solids_aabbs(host.solids)
+    args = [torch.from_numpy(a) for a in (mins.astype(np.float32),
+                                          maxs.astype(np.float32), kinds,
+                                          idxs)]
+    on_card = [a.cuda() for a in args]
+    # the first call warms up; median of the next three
+    build_ms = [timed(lambda: accel.build_bvh_device(*on_card))[1] * 1e3
+                for _ in range(4)][1:]
+    cpu_bvh, t_build_cpu = timed(lambda: accel.build_bvh_device(*args))
+    t_build_host = timed(lambda: accel.build_bvh(host.solids))[1]
+    for name, other in (("host build", cs_host.bvh),
+                        ("device build on the CPU", cpu_bvh)):
+        for f in ("node_min", "node_max", "lp_kind", "lp_idx"):
+            a = getattr(cs_dev.bvh, f)
+            b = torch.as_tensor(getattr(other, f)).to(a.device)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"device-built bvh.{f} differs from "
+                                     f"the {name}")
+    for k in ("nodes", "prims", "node_min", "node_max"):
+        if not torch.equal(getattr(cs_dev.kbvh, k), getattr(cs_host.kbvh, k)):
+            raise AssertionError(f"kbvh.{k} differs between the routes")
+
+    wrappers = all_wrappers()
+    reset_launches(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = _final_image(scene, "cuda")
+    t_render = time.perf_counter() - t0
+    launches = launch_counts(wrappers)
+    _check_image("obj_scene", image, h, w)
+    if launches["K1"] <= 0 or launches["K4"] or launches["K5"]:
+        raise AssertionError(f"the loaded mesh did not take K1 alone: "
+                             f"{launches}")
+    segments = _segments(cs_dev, w, h)
+    log("obj_ingest", gpu=smi, triangles=n_tris, obj_bytes=obj_bytes,
+        write_seconds=t_write, native_build_seconds=t_native_build,
+        parse_native_seconds=t_native, parse_plain_seconds=t_plain,
+        load_seconds=t_load, compile_device_bvh_seconds=compiles["device"],
+        compile_host_bvh_seconds=compiles[True],
+        build_bvh_device_ms=sorted(build_ms)[1],
+        build_bvh_device_ms_all=build_ms,
+        build_bvh_device_cpu_seconds=t_build_cpu,
+        build_bvh_host_seconds=t_build_host,
+        bvh_nodes=int(cs_dev.bvh.node_min.shape[0]),
+        bvh_slots=int(cs_dev.bvh.lp_kind.shape[0]),
+        ray_trace_seconds=t_render, mean_u8=float(image.mean()),
+        launches=launches, k1_launches=launches["K1"],
+        segments_device_bvh_scene=segments,
+        seconds=time.perf_counter() - start)
+    return launches
+
+
+def _segments(cs, w, h):
+    """Segments of one 1 spp, depth-50 render_sample_batch of ``cs``."""
+    from solstrale_tpu_torch.renderer import integrator
+
+    return int(integrator.render_sample_batch(
+        cs, 1, 1, width=w, height=h, max_depth=50,
+        shader_kind=integrator.SHADER_PATH, need_aux=False, n_samples=1)[3])
+
+
 def main():
     import torch
 
@@ -1741,6 +1883,8 @@ def main():
     phase_surface(sponza_cs)
     phase_card_vs_cpu()
     phase_diff_parallel(sponza_cs, smi)
+    for k, n in phase_obj_ingest(smi).items():
+        launches[k] += n
 
     source = {"K1": ("solstrale_tpu_torch/csrc/bvh.cu",
                      "solstrale_tpu/ops/pallas_bvh.py:104"),

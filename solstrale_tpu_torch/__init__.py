@@ -20,5 +20,6 @@ from .scene import (Blend, Bvh, CameraConfig, ConstantMedium, Dielectric,
                     DiffuseLight, ImageMap, Isotropic, Lambertian, Metal,
                     Quad, Scene, SolidColor, Sphere, Triangle,
                     load_normal_texture, new_box)
+from .scene.loader import Obj
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
-"""Host-side (numpy) BVH builds: the complete-tree LBVH and the tree the
-BVH hit kernel (``ops/bvh.py``, ``csrc/bvh.cu``) walks; and ``walk_counts``,
-a plain PyTorch walk of that tree which counts its work.
+"""BVH builds: the complete-tree LBVH on the host (numpy, or the native
+sort for large scenes) or on a device (``build_bvh_device``, torch), and
+the tree the BVH hit kernel (``ops/bvh.py``, ``csrc/bvh.cu``) walks; and
+``walk_counts``, a plain PyTorch walk of that tree which counts its work.
 
 Both trees are *complete* binary trees over a power-of-two leaf count, so
 node i's children are 2i+1 / 2i+2 and no child pointers are stored. The
@@ -17,10 +18,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..geo import ALMOST_ZERO, INF
 from ..scene.compile import KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE, Solids
 
 LEAF_SIZE = 4
+# prim count from which build_bvh takes the native C++ parallel Morton sort
+# and node reduction (native/) over numpy: the JAX package's threshold, so
+# its trees and the port's are equal at every size
+NATIVE_SORT_THRESHOLD = 100_000
 # Levels of the kernel tree above the treelet roots. This fixes the treelet
 # size (n_leaves / 2^(TOP_LEVELS-1) leaves) and with it the JAX layout's
 # leaf order, so it stays equal to the JAX package's value for the layouts
@@ -240,10 +246,17 @@ def _level_boxes(slot_min, slot_max, n_leaves, leaf_size):
 
 
 def build_bvh(s: Solids, leaf_size=LEAF_SIZE) -> Bvh:
-    """Host-side LBVH build: Morton sort + complete-tree AABBs (numpy)."""
+    """Host-side LBVH build: Morton sort + complete-tree AABBs. numpy below
+    NATIVE_SORT_THRESHOLD prims; the native C++ parallel sort and node
+    reduction (in f32) from there on, as the JAX package's build does."""
     kinds, idxs, mins, maxs = solids_aabbs(s)
     n = len(kinds)
-    order = np.argsort(morton_codes((mins + maxs) / 2.0), kind="stable")
+    large = n >= NATIVE_SORT_THRESHOLD
+    if large:
+        order = native.lbvh_sort(mins.astype(np.float32),
+                                 maxs.astype(np.float32))
+    else:
+        order = np.argsort(morton_codes((mins + maxs) / 2.0), kind="stable")
     kinds, idxs = kinds[order], idxs[order]
     mins, maxs = mins[order], maxs[order]
 
@@ -257,10 +270,69 @@ def build_bvh(s: Solids, leaf_size=LEAF_SIZE) -> Bvh:
     slot_max = np.full((n_slots, 3), -np.inf)
     slot_min[:n] = mins
     slot_max[:n] = maxs
-    node_min, node_max = _level_boxes(slot_min, slot_max, n_leaves,
-                                      leaf_size)
+    if large:
+        node_min, node_max = native.lbvh_nodes(slot_min.astype(np.float32),
+                                               slot_max.astype(np.float32),
+                                               leaf_size)
+    else:
+        node_min, node_max = _level_boxes(slot_min, slot_max, n_leaves,
+                                          leaf_size)
     return Bvh(node_min=node_min.astype(np.float32),
                node_max=node_max.astype(np.float32),
+               lp_kind=lp_kind, lp_idx=lp_idx)
+
+
+def build_bvh_device(aabb_min, aabb_max, kinds, idxs, leaf_size=LEAF_SIZE):
+    """On-device LBVH build (torch, on the tensors' device): Morton sort +
+    bottom-up level reductions, the steps of the JAX package's
+    ``build_bvh_device``. Takes per-prim boxes (n, 3) f32 and their kinds
+    and indices (n,) int32; returns a Bvh of tensors on that device.
+
+    The centroids and their quantisation are f32 in JAX's order of
+    operations, so the tree equals the JAX one and, from
+    NATIVE_SORT_THRESHOLD prims, the host build's native f32 sort."""
+    n = aabb_min.shape[0]
+    dev = aabb_min.device
+    centroid = (aabb_min + aabb_max) * 0.5
+    lo = centroid.amin(0)
+    hi = centroid.amax(0)
+    ext = torch.maximum(hi - lo, torch.tensor(1e-12, dtype=torch.float32,
+                                              device=dev))
+    q = ((centroid - lo) / ext * 1023.0).clamp(0, 1023).to(torch.int64)
+
+    # Torch has no uint32 arithmetic: spread in int64 with the uint32
+    # masks. The inputs are below 2^10 and every mask below 2^32, so each
+    # step equals its uint32 wraparound (no product even reaches 2^32).
+    def expand(v):
+        v = (v * 0x00010001) & 0xFF0000FF
+        v = (v * 0x00000101) & 0x0F00F00F
+        v = (v * 0x00000011) & 0xC30C30C3
+        v = (v * 0x00000005) & 0x49249249
+        return v
+
+    code = (expand(q[:, 0]) << 2) | (expand(q[:, 1]) << 1) | expand(q[:, 2])
+    order = torch.argsort(code, stable=True)
+
+    n_leaves = _n_leaves(n, leaf_size)
+    pad = n_leaves * leaf_size - n
+    lp_kind = torch.cat([kinds[order].to(torch.int32),
+                         torch.full((pad,), -1, dtype=torch.int32,
+                                    device=dev)])
+    lp_idx = torch.cat([idxs[order].to(torch.int32),
+                        torch.zeros(pad, dtype=torch.int32, device=dev)])
+    slot_min = torch.cat([aabb_min[order],
+                          torch.full((pad, 3), INF, dtype=aabb_min.dtype,
+                                     device=dev)])
+    slot_max = torch.cat([aabb_max[order],
+                          torch.full((pad, 3), -INF, dtype=aabb_max.dtype,
+                                     device=dev)])
+    levels_min = [slot_min.reshape(n_leaves, leaf_size, 3).amin(1)]
+    levels_max = [slot_max.reshape(n_leaves, leaf_size, 3).amax(1)]
+    while levels_min[-1].shape[0] > 1:
+        levels_min.append(levels_min[-1].reshape(-1, 2, 3).amin(1))
+        levels_max.append(levels_max[-1].reshape(-1, 2, 3).amax(1))
+    return Bvh(node_min=torch.cat(levels_min[::-1]),
+               node_max=torch.cat(levels_max[::-1]),
                lp_kind=lp_kind, lp_idx=lp_idx)
 
 

@@ -4,11 +4,13 @@ Every scene function takes the API module as ``api`` (default: this
 package), so the same code builds one scene through ``solstrale_tpu_torch``
 and through the JAX package ``solstrale_tpu`` from the same numpy arrays —
 the parity tests compare what the two make of it. Textures are procedural
-numpy images made from a seed; nothing is read from disk.
+numpy images made from a seed; nothing is read from disk but the files
+``write_obj_scene`` writes.
 """
 from __future__ import annotations
 
 import importlib
+import os
 
 import numpy as np
 
@@ -23,26 +25,33 @@ def _submodule(api, name):
     return importlib.import_module(f"{api.__name__}.{name}")
 
 
-def _terrain(n_cells, seed, with_uvs):
-    """Displaced-terrain triangle soup of 2*n_cells^2 triangles over
-    [-10, 10]^2 (the sponza-class fixture's geometry), plus tiled UVs
-    (one texture repeat per 8x8 cells) when asked."""
+def _terrain_grid(n_cells, seed):
+    """The terrain's (n_cells+1, n_cells+1) grid of points (x, y, z) over
+    [-10, 10]^2, displaced in y, and of tiled UVs (one texture repeat per
+    8x8 cells)."""
     rng = np.random.default_rng(seed)
     xs = np.linspace(-10.0, 10.0, n_cells + 1)
     zs = np.linspace(-10.0, 10.0, n_cells + 1)
     X, Z = np.meshgrid(xs, zs, indexing="ij")
     Y = (np.sin(X * 0.7) * np.cos(Z * 0.9)
          + 0.15 * rng.standard_normal(X.shape))
-    P = np.stack([X, Y, Z], -1)
+    UV = np.stack([X / 20.0 * (n_cells / 8.0), Z / 20.0 * (n_cells / 8.0)],
+                  -1)
+    return np.stack([X, Y, Z], -1), UV
+
+
+def _terrain(n_cells, seed, with_uvs):
+    """Displaced-terrain triangle soup of 2*n_cells^2 triangles (the
+    sponza-class fixture's geometry): cell (i, j) with corners a = (i, j),
+    b = (i+1, j), c = (i+1, j+1), d = (i, j+1) gives triangles abc and
+    acd; plus the tiled UVs when asked."""
+    P, UV = _terrain_grid(n_cells, seed)
     a, b, c, d = P[:-1, :-1], P[1:, :-1], P[1:, 1:], P[:-1, 1:]
     verts = np.concatenate(
         [np.stack([a, b, c], axis=2).reshape(-1, 3, 3),
          np.stack([a, c, d], axis=2).reshape(-1, 3, 3)], 0)
     if not with_uvs:
         return verts, None
-    U = X / 20.0 * (n_cells / 8.0)
-    V = Z / 20.0 * (n_cells / 8.0)
-    UV = np.stack([U, V], -1)
     ua, ub, uc, ud = UV[:-1, :-1], UV[1:, :-1], UV[1:, 1:], UV[:-1, 1:]
     uvs = np.concatenate(
         [np.stack([ua, ub, uc], axis=2).reshape(-1, 3, 2),
@@ -100,6 +109,95 @@ def procedural_textures(size=64, seed=11):
     height = np.repeat(h[..., None], 3, axis=-1)
     return ((albedo * 255).astype(np.uint8),
             (np.clip(height, 0, 1) * 255).astype(np.uint8))
+
+
+OBJ_FILE = "terrain.obj"
+MTL_FILE = "terrain.mtl"
+# the OBJ's material groups, in file order: faces before any usemtl (the
+# loader's default material), then these
+OBJ_GROUPS = ("colour", "textured", "bumpy")
+_MTL = """# terrain materials
+newmtl colour
+Kd 0.73 0.73 0.73
+newmtl textured
+Kd 1 1 1
+map_Kd albedo.png
+map_Bump normal.png
+newmtl bumpy
+Kd 0.6 0.5 0.4
+map_Bump -bm 1.0 height.png
+"""
+
+
+def write_obj_scene(dirpath, n_cells=362, seed=7):
+    """Write the sponza-class terrain (2*n_cells^2 triangles, 262,088 at
+    the default) as a Wavefront OBJ into ``dirpath``, with its MTL and PNG
+    textures; returns the OBJ's path.
+
+    The cells go in row-major order, split into four runs: the first before
+    any ``usemtl`` (the default material), then ``colour`` (a Kd colour),
+    ``textured`` (a map_Kd albedo and a map_Bump normal map) and ``bumpy``
+    (a Kd colour and a grey map_Bump height map), the last run with
+    negative (relative) indices. The first cell is one quad face without
+    UVs (fan-triangulated into its two triangles), the first face of
+    ``colour`` carries a normal index. Every coordinate is written as
+    ``%.9g`` of its f32 value, so a native f32 parse and Python's float
+    rounded to f32 read the same number."""
+    from PIL import Image
+
+    from .utils import height_to_normal_map
+
+    P, UV = _terrain_grid(n_cells, seed)
+    m = n_cells + 1
+    n_verts = m * m
+    lines = [f"mtllib {MTL_FILE}"]
+    lines += ["v %.9g %.9g %.9g" % tuple(p) for p in
+              P.reshape(-1, 3).astype(np.float32).astype(np.float64).tolist()]
+    lines += ["vt %.9g %.9g" % tuple(t) for t in
+              UV.reshape(-1, 2).astype(np.float32).astype(np.float64).tolist()]
+    lines.append("vn 0 1 0")
+    i, j = np.divmod(np.arange(n_cells * n_cells), n_cells)
+    a, b = i * m + j + 1, (i + 1) * m + j + 1     # 1-based vertex ids
+    c, d = b + 1, a + 1
+    runs = np.array_split(np.arange(n_cells * n_cells), 4)
+    tri = "f {0}/{0} {1}/{1} {2}/{2}\nf {0}/{0} {2}/{2} {3}/{3}"
+    for run, group in zip(runs, (None,) + OBJ_GROUPS):
+        if group is not None:
+            lines.append(f"usemtl {group}")
+        rel = -n_verts - 1 if group == OBJ_GROUPS[-1] else 0
+        cells = np.stack([a[run], b[run], c[run], d[run]], 1) + rel
+        faces = [tri.format(*q) for q in cells.tolist()]
+        if group is None:
+            faces[0] = "f %d %d %d %d" % tuple(cells[0])
+        elif group == OBJ_GROUPS[0]:
+            q = cells[0]
+            faces[0] = (f"f {q[0]}/{q[0]}/1 {q[1]}/{q[1]}/1 {q[2]}/{q[2]}/1"
+                        f"\nf {q[0]}/{q[0]} {q[2]}/{q[2]} {q[3]}/{q[3]}")
+        lines += faces
+    path = os.path.join(dirpath, OBJ_FILE)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(dirpath, MTL_FILE), "w") as f:
+        f.write(_MTL)
+    albedo, height = procedural_textures()
+    for name, image in (("albedo", albedo), ("height", height),
+                        ("normal", height_to_normal_map(height))):
+        Image.fromarray(image).save(os.path.join(dirpath, f"{name}.png"))
+    return path
+
+
+def obj_scene(render_config, dirpath, api=None):
+    """The terrain that ``write_obj_scene`` wrote into ``dirpath``, loaded
+    with the API's ``Obj`` loader, inside the sponza-class room and lights
+    (``sponza_class_scene``'s shell and camera)."""
+    api = _api(api)
+    loader = _submodule(api, "scene.loader")
+    terrain = loader.Obj(os.path.join(dirpath, ""), OBJ_FILE).load(
+        api.NopTransformer())
+    world = [terrain] + _room(
+        api, api.Lambertian(api.SolidColor(0.5, 0.5, 0.5)))
+    return api.Scene(api.Bvh(world), _interior_camera(api), (0.0, 0.0, 0.0),
+                     render_config)
 
 
 def mixed_bvh_scene(render_config, n_cells=48, seed=7, api=None):

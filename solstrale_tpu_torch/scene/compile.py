@@ -640,16 +640,14 @@ def compile_scene(scene: Scene, use_bvh=None, device="cuda") -> CompiledScene:
     raises).
 
     use_bvh: None = auto (build the BVH when the solid count exceeds
-    BVH_THRESHOLD), True/False = force.
+    BVH_THRESHOLD), True/False = force, "device" = build the LBVH
+    (``cs.bvh``) with torch on ``device`` (``accel.build_bvh_device``; the
+    kernel tree stays a host build).
 
     Raises SceneError("Scene should have at least one light") like
     renderer/mod.rs:143-147.
     """
     dev = _target_device(device, "compile_scene")
-    if use_bvh == "device":
-        raise NotImplementedError(
-            "on-device BVH build (build_bvh_device) is not ported yet "
-            "(ROADMAP queue A item 8, On-device BVH build)")
     out = {"spheres": [], "quads": [], "triangles": [], "meshes": [],
            "media": []}
     _walk(scene.world, out, False)
@@ -676,9 +674,17 @@ def compile_scene(scene: Scene, use_bvh=None, device="cuda") -> CompiledScene:
                 + len(out["triangles"]) + sum(len(m) for m in out["meshes"]))
     bvh = kbvh = None
     if use_bvh or (use_bvh is None and n_solids > BVH_THRESHOLD):
-        from ..accel import build_bvh, build_kernel_bvh
+        from ..accel import (build_bvh, build_bvh_device, build_kernel_bvh,
+                             solids_aabbs)
 
-        bvh = build_bvh(solids)
+        if use_bvh == "device":
+            kinds, idxs, mins, maxs = solids_aabbs(solids)
+            bvh = build_bvh_device(*(
+                torch.from_numpy(a).to(dev) for a in (
+                    mins.astype(np.float32), maxs.astype(np.float32),
+                    kinds, idxs)))
+        else:
+            bvh = build_bvh(solids)
         kbvh = build_kernel_bvh(solids)
 
     material_table = mats.build()

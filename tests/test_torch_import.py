@@ -1,7 +1,9 @@
 """The port stands alone: with JAX made unimportable, importing
-solstrale_tpu_torch and its modules (diff, parallel, the denoiser trainer
-among them), building a scene, rendering and taking a texture gradient on
-the CPU works, and none of it builds or loads a CUDA kernel."""
+solstrale_tpu_torch and its modules (diff, parallel, the denoiser trainer,
+the OBJ loader and the native library's bindings among them), building a
+scene, loading an OBJ, building a BVH on the device, rendering and taking
+a texture gradient on the CPU works, and none of it builds or loads a CUDA
+kernel."""
 import os
 import subprocess
 import sys
@@ -20,6 +22,9 @@ from solstrale_tpu_torch import diff, parallel
 from solstrale_tpu_torch.models import train_denoiser
 from solstrale_tpu_torch.ops import detached
 from solstrale_tpu_torch.parallel import distributed
+from solstrale_tpu_torch import native
+from solstrale_tpu_torch.scene import loader
+import tempfile
 
 assert _build.library.cache_info().currsize == 0
 cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8, height=8)),
@@ -33,6 +38,11 @@ loss, grad = diff.image_and_texture_grad(
     n_samples=1, seed=1)
 assert float(loss) > 0 and bool(grad.isfinite().all())
 assert distributed.initialize() == (1, 0)
+with tempfile.TemporaryDirectory() as d:
+    fixtures.write_obj_scene(d, n_cells=4)
+    obj = compile_scene(fixtures.obj_scene(T.RenderConfig(width=8, height=8),
+                                           d), use_bvh="device", device="cpu")
+assert int(obj.solids.tr_valid.sum()) == 32 and obj.bvh is not None
 assert _build.library.cache_info().currsize == 0   # no kernel was loaded
 assert not any(m == "jax" or m.startswith(("jax.", "solstrale_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -63,3 +73,6 @@ def test_port_source_has_no_jax_import():
                         (words[1].split(".")[0] in ("jax", "solstrale_tpu")):
                     bad.append(f"{path}:{n}: {line.strip()}")
     assert not bad, bad
+    scanned = {os.path.relpath(p, ROOT) for p in paths}
+    assert {"solstrale_tpu_torch/native/__init__.py",
+            "solstrale_tpu_torch/scene/loader.py"} <= scanned
