@@ -20,11 +20,12 @@ script exits non-zero):
      the treelet tree and of the kernel tree; K2 and K3, t, kind and idx
      equal, on the mixed BVH scene's tables and lane counters, the shapes
      the main path gives them, with the device kernels one call of each and
-     of the scene's whole ``integrator.scene_hit`` runs, and K3 also on two
-     overlapping media; K4, t, kind and idx equal, on the kitchen's,
+     of the scene's whole ``integrator.scene_hit`` runs, K2 also on the
+     many-light scene's 63 sphere emitters, and K3 also on two overlapping
+     media; K4, t, kind and idx equal, on the kitchen's,
      likewise, and on the same two media);
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
-     at 1920x1080 (untextured, the benchmark workload, then with spheres,
+     at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
      ``render_sample_batch`` timed like ``bench.py`` (median of three);
   3b. the small-scene path at full size: ``ray_trace`` at 1920x1080 of the
@@ -80,7 +81,16 @@ script exits non-zero):
      host build's and to the same function on the CPU; ``ray_trace`` of the
      loaded scene at 1920x1080, 1 spp, depth 50 through K1 (K1's launches
      count in the kernels line), a non-black frame; the write, parse, load,
-     compile and build times.
+     compile and build times;
+  7. bench: the port's throughput script (``solstrale_tpu_torch.bench``)
+     over bench.py's five workloads at full size, its JSON lines printed
+     as they end (Mrays/s, every run's seconds, segments, route, launches),
+     each workload's route and hit kernels checked (K1 and K2 on the
+     production and many-light interiors, K1 on the textured sponza, one
+     K5 launch a batch on the kitchen and the megakernel workload, K5 on
+     no BVH scene; these launches count in the kernels line), and its three
+     new scenes at a small size on the card against the CPU, repeated bit
+     for bit.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the result line.
 """
@@ -208,13 +218,10 @@ def launch_counts(wrappers):
 
 
 def all_wrappers():
-    """Each kernel's wrapper on the routes."""
-    from solstrale_tpu_torch.ops import bvh, sweep
-    from solstrale_tpu_torch.renderer import megakernel
+    """Each kernel's wrapper on the routes, by kernel name."""
+    from solstrale_tpu_torch import bench
 
-    return {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
-            "K3": sweep.media_hit, "K4": sweep.scene_hit,
-            "K5": megakernel.render_batch_megakernel}
+    return bench.hit_kernels()
 
 
 def wrapper_ms(fn, reps=5, warmup=2):
@@ -536,6 +543,7 @@ def phase_kernels(sponza_cs):
     # (_main_path_k2_k3), K4's from the kitchen's (_check_k4)
     traces = {}
     _main_path_k2_k3(out, traces)
+    _many_light_k2()
 
     # K3 and K4 on procedural tables with two media boxes (the second
     # overlaps the first, so it clips against the first's events) and
@@ -620,6 +628,74 @@ def _lane_counters(n_cam, parked, device):
     return pixel, torch.ones_like(pixel), bounce, 1
 
 
+def _check_k2(label, cs, o, d, parked, traces=None):
+    """K2 fed K1's planar hit of these rays, against its plain version: t,
+    kind and idx equal, no parked ray hit. Logs its device, wrapper and
+    plain times, those of the whole ``bvh_closest_hit`` (K1's bound fill,
+    K1, K2) and its bound; puts both calls into ``traces`` when given.
+    K2's bound: the rays, t_p and pslot in, (t, kind, idx) out, the sphere
+    table and the pl_idx and pl_is_tri entries of the distinct planar
+    slots hit, read once; the sphere tests of the live rays. Returns K2's
+    (t, kind, idx) and its row of the kernels line."""
+    import torch
+    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
+    from solstrale_tpu_torch.ops import bvh, sweep
+
+    s = cs.solids
+    n_live, r = live_rays(d), len(parked)
+    t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+    args = (s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
+            s.pl_is_tri)
+    got = sweep.bvh_sphere_hit(*args)
+    want = sweep.bvh_sphere_hit_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "kind", "idx"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K2 ({label}): {name} differs from the "
+                                 "plain version")
+    if torch.isfinite(got[0][torch.from_numpy(parked).to(cs.device)]).any():
+        raise AssertionError(f"K2 ({label}): a parked ray hit")
+    tm = kernel_times(lambda: sweep.bvh_sphere_hit(*args),
+                      lambda: sweep.bvh_sphere_hit_plain(*args))
+
+    def closest():
+        return bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)
+
+    if traces is not None:
+        traces["K2 bvh_sphere_hit"] = lambda a=args: sweep.bvh_sphere_hit(*a)
+        traces["bvh_closest_hit"] = closest
+    full = dict(device_ms=device_ms(closest), wrapper_ms=wrapper_ms(closest))
+    n_sph = s.sph_table.shape[0]
+    slots = int(torch.unique(pslot[pslot >= 0]).numel())
+    row = dict(max_abs_err=0.0, **tm, **bound(
+        r * (24 + 8 + 12) + slots * 5 + nbytes(s.sph_table),
+        n_live * n_sph * FLOPS_SPHERE))
+    log("kernel", name=f"K2 bvh_sphere_hit ({label})", rays=r,
+        live_rays=n_live, spheres=n_sph, planar_slots_hit=slots,
+        sphere_hits=int(((got[1] == 0) & torch.isfinite(got[0])).sum()),
+        t_kind_idx_equal=True, **row,
+        bvh_closest_hit=full)
+    return got, row
+
+
+def _many_light_k2():
+    """K2 at the many-light workload's 63 sphere emitters (bench.py's
+    ``many_lights``, 64 lights, 96 terrain cells): its tables and 131,072
+    lanes of camera rays, their bounces and parked rays, exactly equal to
+    its plain version."""
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import fixtures
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    cs = compile_scene(fixtures.many_light_scene(
+        T.RenderConfig(width=960, height=540, samples_per_pixel=1, seed=1),
+        n_lights=64), device="cuda")
+    if cs.solids.sph_table.shape[0] != 63:
+        raise AssertionError("many-lights: expected 63 sphere emitters")
+    o, d, parked = _subsampled_rays(cs, n=131072)
+    _check_k2("many-lights, 63 spheres", cs, o, d, parked)
+
+
 def _main_path_k2_k3(out, traces):
     """K2 and K3 at the main path's shape: the mixed BVH scene's tables at
     1080p and one wavefront iteration's 131,072 lanes (camera rays,
@@ -629,17 +705,14 @@ def _main_path_k2_k3(out, traces):
     integrator makes, ``bvh_closest_hit`` (K1's bound fill, K1, K2) and
     the whole ``integrator.scene_hit`` (those and K3); all four calls go
     into ``traces`` for their device kernels. The kernels line's K2 and K3
-    rows take these times and bounds. K2's bound: the rays, t_p and pslot
-    in, (t, kind, idx) out, the sphere table and the pl_idx and pl_is_tri
-    entries of the distinct planar slots hit, read once; the sphere tests
-    of the live rays. K3's bound: the rays and (t, kind, idx) in, (t, kind,
-    idx) out, the media tables, and the counters of the rays that reach a
-    medium's box, read once; its operations from ``_media_flops``."""
+    rows take these times and bounds. K2's bound: ``_check_k2``. K3's
+    bound: the rays and (t, kind, idx) in, (t, kind, idx) out, the media
+    tables, and the counters of the rays that reach a medium's box, read
+    once; its operations from ``_media_flops``."""
     import torch
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
-    from solstrale_tpu_torch.geo import INF, RAY_T_MIN
-    from solstrale_tpu_torch.ops import bvh, sweep
+    from solstrale_tpu_torch.ops import sweep
     from solstrale_tpu_torch.renderer import integrator
     from solstrale_tpu_torch.scene.compile import compile_scene
 
@@ -647,39 +720,10 @@ def _main_path_k2_k3(out, traces):
     cs = compile_scene(fixtures.mixed_bvh_scene(
         T.RenderConfig(width=1920, height=1080, samples_per_pixel=1, seed=1),
         n_cells=362), device=dev)
-    s = cs.solids
     o, d, parked = _subsampled_rays(cs, n=131072)
     n_live, r = live_rays(d), len(parked)
     counters = _lane_counters((r - 256) // 2, 256, dev)
-    t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
-    args = (s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
-            s.pl_is_tri)
-    got = sweep.bvh_sphere_hit(*args)
-    want = sweep.bvh_sphere_hit_plain(*args)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("t", "kind", "idx"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"K2 (mixed): {name} differs from the plain "
-                                 "version")
-    if torch.isfinite(got[0][torch.from_numpy(parked).to(dev)]).any():
-        raise AssertionError("K2 (mixed): a parked ray hit")
-    tm = kernel_times(lambda: sweep.bvh_sphere_hit(*args),
-                      lambda: sweep.bvh_sphere_hit_plain(*args))
-
-    def closest():
-        return bvh.bvh_closest_hit(cs.kbvh, s, o, d, RAY_T_MIN, INF)
-
-    traces["K2 bvh_sphere_hit"] = lambda a=args: sweep.bvh_sphere_hit(*a)
-    traces["bvh_closest_hit"] = closest
-    full = dict(device_ms=device_ms(closest), wrapper_ms=wrapper_ms(closest))
-    n_sph = s.sph_table.shape[0]
-    slots = int(torch.unique(pslot[pslot >= 0]).numel())
-    out["K2"] = dict(max_abs_err=0.0, **tm, **bound(
-        r * (24 + 8 + 12) + slots * 5 + nbytes(s.sph_table),
-        n_live * n_sph * FLOPS_SPHERE))
-    log("kernel", name="K2 bvh_sphere_hit (mixed, main path)", rays=r,
-        live_rays=n_live, spheres=n_sph, planar_slots_hit=slots,
-        max_abs_err=0.0, t_kind_idx_equal=True, **tm, bvh_closest_hit=full)
+    got, out["K2"] = _check_k2("mixed, main path", cs, o, d, parked, traces)
 
     # K3 gets K2's (t, kind, idx) of the same rays, as scene_hit gives it
     mt = integrator.media_tables(cs)
@@ -1404,6 +1448,46 @@ def phase_megakernel():
     return out
 
 
+def _card_vs_cpu(name, scene, variants, w, h, spp, start):
+    """``scene`` compiled on the card and on the CPU and rendered with each
+    of ``variants`` ((label, shader kind, aux)) at w x h, ``spp`` samples:
+    segments within 1e-3, 99.9% of pixels within 1e-3 on every plane, and
+    the card run repeated bit for bit."""
+    import numpy as np
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    compiled = {dev: compile_scene(scene, device=dev)
+                for dev in ("cuda", "cpu")}
+    for variant, shader_kind, need_aux in variants:
+        kw = dict(width=w, height=h, max_depth=50, shader_kind=shader_kind,
+                  need_aux=need_aux, n_samples=spp)
+        runs = {}
+        for dev in ("cuda", "cpu", "cuda"):
+            planes = integrator.render_sample_batch(compiled[dev], 1, 1, **kw)
+            img = np.concatenate([p.cpu().numpy() for p in
+                                  planes[:3 if need_aux else 1]], -1)
+            runs.setdefault(dev, []).append((img, int(planes[3])))
+        (gpu, gseg), (gpu2, gseg2) = runs["cuda"]
+        cpu, cseg = runs["cpu"][0]
+        label = f"{name} {variant}"
+        if not (np.array_equal(gpu, gpu2) and gseg == gseg2):
+            raise AssertionError(f"{label}: repeated card run not "
+                                 "bit-identical")
+        if abs(gseg - cseg) > 1e-3 * cseg:
+            raise AssertionError(f"{label}: segments card {gseg} cpu {cseg}")
+        close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-3).reshape(
+            h, w, -1, 3).all(axis=-1)
+        if close.mean(axis=(0, 1)).min() < 0.999:
+            raise AssertionError(f"{label}: only {close.mean():.4f} of "
+                                 "pixels agree card vs CPU within 1e-3")
+        log("card_vs_cpu", scene=name, shader=variant, segments_card=gseg,
+            segments_cpu=cseg,
+            pixels_within_1e3=float(close.mean(axis=(0, 1)).min()),
+            max_abs_diff=float(np.abs(gpu - cpu).max()), bit_identical=True,
+            seconds=time.perf_counter() - start)
+
+
 def phase_card_vs_cpu():
     """Five small scenes (the fifth the terrain loaded from an OBJ of 128
     triangles) rendered on the card and on the CPU, with the path shader
@@ -1412,11 +1496,9 @@ def phase_card_vs_cpu():
     bit for bit."""
     import tempfile
 
-    import numpy as np
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
     from solstrale_tpu_torch.renderer import integrator
-    from solstrale_tpu_torch.scene.compile import compile_scene
 
     w, h, spp = 64, 48, 2
     start = time.perf_counter()
@@ -1434,39 +1516,8 @@ def phase_card_vs_cpu():
             ("kitchen_sink_solid_scene", fixtures.kitchen_sink_solid_scene),
             ("kitchen_sink_scene", fixtures.kitchen_sink_scene),
             ("obj_scene", lambda c: fixtures.obj_scene(c, objdir.name))):
-        scene = build(T.RenderConfig(width=w, height=h, seed=1))
-        compiled = {dev: compile_scene(scene, device=dev)
-                    for dev in ("cuda", "cpu")}
-        for variant, shader_kind, need_aux in variants:
-            kw = dict(width=w, height=h, max_depth=50,
-                      shader_kind=shader_kind, need_aux=need_aux,
-                      n_samples=spp)
-            runs = {}
-            for dev in ("cuda", "cpu", "cuda"):
-                planes = integrator.render_sample_batch(compiled[dev], 1, 1,
-                                                        **kw)
-                img = np.concatenate([p.cpu().numpy() for p in
-                                      planes[:3 if need_aux else 1]], -1)
-                runs.setdefault(dev, []).append((img, int(planes[3])))
-            (gpu, gseg), (gpu2, gseg2) = runs["cuda"]
-            cpu, cseg = runs["cpu"][0]
-            label = f"{name} {variant}"
-            if not (np.array_equal(gpu, gpu2) and gseg == gseg2):
-                raise AssertionError(f"{label}: repeated card run not "
-                                     "bit-identical")
-            if abs(gseg - cseg) > 1e-3 * cseg:
-                raise AssertionError(f"{label}: segments card {gseg} cpu "
-                                     f"{cseg}")
-            close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-3).reshape(
-                h, w, -1, 3).all(axis=-1)
-            if close.mean(axis=(0, 1)).min() < 0.999:
-                raise AssertionError(f"{label}: only {close.mean():.4f} of "
-                                     "pixels agree card vs CPU within 1e-3")
-            log("card_vs_cpu", scene=name, shader=variant,
-                segments_card=gseg, segments_cpu=cseg,
-                pixels_within_1e3=float(close.mean(axis=(0, 1)).min()),
-                max_abs_diff=float(np.abs(gpu - cpu).max()),
-                bit_identical=True, seconds=time.perf_counter() - start)
+        _card_vs_cpu(name, build(T.RenderConfig(width=w, height=h, seed=1)),
+                     variants, w, h, spp, start)
     objdir.cleanup()
 
 
@@ -1850,6 +1901,60 @@ def phase_obj_ingest(smi):
     return launches
 
 
+def phase_bench():
+    """The port's throughput script at full size (``bench.run``: bench.py's
+    five workloads, five timed batches each; its lines are printed as they
+    end) with each workload's route and launches held to what its scene
+    must take: the production and many-light interiors K1 and K2, never
+    K5; the textured sponza K1, never K5; the kitchen and the megakernel
+    workload one K5 launch a batch and no other hit kernel. Then the three
+    new scenes at a small size (24 terrain cells, 64-texel textures,
+    64x48, 1 spp, path shader) on the card against the CPU and repeated
+    bit for bit. Returns the hit kernels' launches in the bench's run."""
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import bench, fixtures
+    from solstrale_tpu_torch.renderer import integrator
+
+    start = time.perf_counter()
+    wrappers = all_wrappers()
+    reset_launches(wrappers)
+    lines = bench.run(bench.WORKLOADS, "cuda", runs=5)
+    launches = launch_counts(wrappers)
+    failed = [ln for ln in lines if "error" in ln]
+    if failed:
+        raise AssertionError(f"bench: {failed}")
+    by_name = {w.name: ln for w, ln in zip(bench.WORKLOADS, lines)}
+    for name, route, must, never in (
+            ("sponza_production", "wavefront", ("K1", "K2"), ("K5",)),
+            ("many_lights", "wavefront", ("K1", "K2"), ("K5",)),
+            ("sponza", "wavefront", ("K1",), ("K5",)),
+            ("kitchen_sink", "k5", ("K5",), ("K1", "K2", "K3", "K4")),
+            ("megakernel", "k5", ("K5",), ("K1", "K2", "K3", "K4"))):
+        ln = by_name[name]
+        if ln["route"] != route or any(ln["launches"][k] <= 0 for k in must) \
+                or any(ln["launches"][k] for k in never):
+            raise AssertionError(f"bench {name}: route {ln['route']}, "
+                                 f"launches {ln['launches']}")
+        if route == "k5" and ln["launches"]["K5"] != 1:
+            raise AssertionError(f"bench {name}: {ln['launches']['K5']} K5 "
+                                 "launches in one batch")
+    log("bench", seconds=time.perf_counter() - start, launches=launches)
+
+    w, h = 64, 48
+    path = (("path", integrator.SHADER_PATH, False),)
+    for name, build in (
+            ("sponza_textured_scene", lambda c: fixtures.sponza_textured_scene(
+                c, n_cells=24, tex_size=64)),
+            ("sponza_production_scene",
+             lambda c: fixtures.sponza_production_scene(
+                 c, n_cells=24, tex_size=64)),
+            ("many_light_scene", lambda c: fixtures.many_light_scene(
+                c, n_cells=24))):
+        _card_vs_cpu(name, build(T.RenderConfig(width=w, height=h, seed=1)),
+                     path, w, h, 1, start)
+    return launches
+
+
 def _segments(cs, w, h):
     """Segments of one 1 spp, depth-50 render_sample_batch of ``cs``."""
     from solstrale_tpu_torch.renderer import integrator
@@ -1883,8 +1988,9 @@ def main():
     phase_surface(sponza_cs)
     phase_card_vs_cpu()
     phase_diff_parallel(sponza_cs, smi)
-    for k, n in phase_obj_ingest(smi).items():
-        launches[k] += n
+    for phase in (lambda: phase_obj_ingest(smi), phase_bench):
+        for k, n in phase().items():
+            launches[k] += n
 
     source = {"K1": ("solstrale_tpu_torch/csrc/bvh.cu",
                      "solstrale_tpu/ops/pallas_bvh.py:104"),

@@ -40,17 +40,16 @@ def _terrain_grid(n_cells, seed):
     return np.stack([X, Y, Z], -1), UV
 
 
-def _terrain(n_cells, seed, with_uvs):
-    """Displaced-terrain triangle soup of 2*n_cells^2 triangles (the
-    sponza-class fixture's geometry): cell (i, j) with corners a = (i, j),
+def _cells(P, UV=None):
+    """Triangle soup of a grid block: cell (i, j) with corners a = (i, j),
     b = (i+1, j), c = (i+1, j+1), d = (i, j+1) gives triangles abc and
-    acd; plus the tiled UVs when asked."""
-    P, UV = _terrain_grid(n_cells, seed)
+    acd (all abc triangles first); plus the UVs of the same corners when
+    ``UV`` is given."""
     a, b, c, d = P[:-1, :-1], P[1:, :-1], P[1:, 1:], P[:-1, 1:]
     verts = np.concatenate(
         [np.stack([a, b, c], axis=2).reshape(-1, 3, 3),
          np.stack([a, c, d], axis=2).reshape(-1, 3, 3)], 0)
-    if not with_uvs:
+    if UV is None:
         return verts, None
     ua, ub, uc, ud = UV[:-1, :-1], UV[1:, :-1], UV[1:, 1:], UV[:-1, 1:]
     uvs = np.concatenate(
@@ -59,9 +58,22 @@ def _terrain(n_cells, seed, with_uvs):
     return verts, uvs
 
 
-def _room(api, floor_material):
-    """Room shell (floor, back and front walls) and the ceiling light of the
-    sponza-class fixture."""
+def _terrain(n_cells, seed, with_uvs):
+    """Displaced-terrain triangle soup of 2*n_cells^2 triangles (the
+    sponza-class fixture's geometry), with the tiled UVs when asked."""
+    P, UV = _terrain_grid(n_cells, seed)
+    return _cells(P, UV if with_uvs else None)
+
+
+def _region_mesh(api, P, UV, i0, i1, j0, j1, material):
+    """TriangleMesh over the cell block [i0, i1) x [j0, j1) of the grid."""
+    verts, uvs = _cells(P[i0:i1 + 1, j0:j1 + 1], UV[i0:i1 + 1, j0:j1 + 1])
+    return _submodule(api, "scene").TriangleMesh(verts, material, uvs=uvs)
+
+
+def _room(api, floor_material, light=15.0):
+    """Room shell (floor, back and front walls) and the ceiling quad light
+    of the sponza-class fixture."""
     return [
         api.Quad((-12, -3, -12), (24, 0, 0), (0, 0, 24), floor_material),
         api.Quad((-12, -3, -12), (24, 0, 0), (0, 14, 0),
@@ -69,7 +81,7 @@ def _room(api, floor_material):
         api.Quad((-12, -3, 12), (24, 0, 0), (0, 14, 0),
                  api.Lambertian(api.SolidColor(0.4, 0.5, 0.6))),
         api.Quad((-4, 10.5, -4), (8, 0, 0), (0, 0, 8),
-                 api.DiffuseLight(15.0, 15.0, 15.0)),
+                 api.DiffuseLight(light, light, light)),
     ]
 
 
@@ -109,6 +121,153 @@ def procedural_textures(size=64, seed=11):
     height = np.repeat(h[..., None], 3, axis=-1)
     return ((albedo * 255).astype(np.uint8),
             (np.clip(height, 0, 1) * 255).astype(np.uint8))
+
+
+def bench_textures(size=1024, seed=5):
+    """Stand-ins for the five image assets the benchmark scenes of the JAX
+    package load (``tests/scenes.py``), as procedural (size, size, 3) u8
+    images keyed by the asset's name:
+
+    - ``wall_color``: a tinted checker (8 x 8 squares) with noise;
+    - ``wall_n``: a tangent-space normal map, ``height_to_normal_map`` of a
+      smooth bump field (one bump per 64 x 64 texels, at least one): what
+      ``load_normal_texture`` makes of a height image;
+    - ``tex``: colour noise, one draw per texel;
+    - ``checker``: a black and white checker (8 x 8 squares);
+    - ``earth_height``: a smooth grey field with noise (the production
+      scene uses it as an albedo).
+
+    The originals' sizes are not known here. 1024 x 1024 is a common
+    wall-texture size: the five then hold 15.7 M texels, 62,914,560 bytes
+    of f32 in the compiled texture arena, so texel reads miss the cache
+    as a real scene's do."""
+    from .utils import height_to_normal_map
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    checker = ((np.floor(x * 8) + np.floor(y * 8)) % 2)[..., None]
+    tint = np.array([0.25, 0.35, 0.55]) + checker * np.array([0.6, 0.4, -0.2])
+    wall = tint + 0.05 * rng.standard_normal(tint.shape)
+    n_bumps = max(1, size // 64)
+    bumps = 0.5 + 0.25 * np.sin(2 * np.pi * n_bumps * x) * np.cos(
+        2 * np.pi * n_bumps * y)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    earth = (0.5 + 0.2 * np.sin(2 * np.pi * 3 * x + phase[0])
+             * np.cos(2 * np.pi * 2 * y + phase[1])
+             + 0.1 * np.sin(2 * np.pi * 7 * (x + y) + phase[2])
+             + 0.03 * rng.standard_normal(x.shape))
+
+    def u8(img):
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    def grey(img):
+        return np.repeat(u8(img)[..., None], 3, axis=-1)
+
+    return {"wall_color": u8(wall),
+            "wall_n": height_to_normal_map(grey(bumps)),
+            "tex": u8(rng.random((size, size, 3))),
+            "checker": np.repeat(u8(checker), 3, axis=-1),
+            "earth_height": grey(earth)}
+
+
+def sponza_textured_scene(render_config, n_cells=362, seed=7, tex_size=1024,
+                          api=None):
+    """The benchmark's headline interior: ``sponza_class_scene`` with the
+    terrain image-textured and normal-mapped (tiled UVs, one texture repeat
+    per 8x8 cells) — the JAX package's
+    ``tests/scenes.py::create_sponza_class_scene(textured=True)``, line for
+    line, with ``bench_textures``' ``wall_color`` and ``wall_n`` for the
+    loaded images."""
+    api = _api(api)
+    images = bench_textures(tex_size)
+    verts, uvs = _terrain(n_cells, seed, with_uvs=True)
+    terrain = _submodule(api, "scene").TriangleMesh(
+        verts, api.Lambertian(api.ImageMap(images["wall_color"]),
+                              api.ImageMap(images["wall_n"])), uvs=uvs)
+    world = [terrain] + _room(
+        api, api.Lambertian(api.SolidColor(0.5, 0.5, 0.5)))
+    return api.Scene(api.Bvh(world), _interior_camera(api), (0.0, 0.0, 0.0),
+                     render_config)
+
+
+def sponza_production_scene(render_config, n_cells=360, seed=7,
+                            tex_size=1024, api=None):
+    """The production-diversity interior: the displaced terrain (2*n_cells^2
+    = 259,200 triangles at the default) split into a 4x4 grid of material
+    regions covering every material kind (image-textured and solid
+    lambertians, some normal-mapped, fuzzy and textured metals,
+    dielectrics, blends with a metal and with a dielectric), 5 image
+    textures and 4 emitters of all three light shapes — the JAX package's
+    ``tests/scenes.py::create_sponza_production_scene``, line for line,
+    with ``bench_textures`` for the loaded images."""
+    api = _api(api)
+    images = bench_textures(tex_size)
+    wall_c = api.ImageMap(images["wall_color"])
+    wall_n = api.ImageMap(images["wall_n"])
+    tex_j = api.ImageMap(images["tex"])
+    checker = api.ImageMap(images["checker"])
+    earth = api.ImageMap(images["earth_height"])
+    L, M, D = api.Lambertian, api.Metal, api.Dielectric
+    S = api.SolidColor
+
+    mats = [
+        L(wall_c, wall_n),
+        L(tex_j),
+        L(checker),
+        L(S(0.8, 0.3, 0.25)),
+        M(S(0.9, 0.8, 0.6), None, 0.1),
+        M(checker, None, 0.3),
+        D(S(1.0, 1.0, 1.0), None, 1.5),
+        api.Blend(L(wall_c), M(S(0.8, 0.8, 0.9), None, 0.05), 0.5),
+        L(earth),
+        M(S(0.7, 0.7, 0.8), None, 0.05),
+        api.Blend(L(checker), D(S(1.0, 1.0, 1.0), None, 1.3), 0.3),
+        L(S(0.2, 0.5, 0.8), wall_n),
+        M(wall_c, None, 0.2),
+        D(S(0.9, 0.95, 1.0), None, 1.1),
+        api.Blend(M(tex_j, None, 0.4), L(S(0.6, 0.6, 0.2)), 0.7),
+        L(tex_j, wall_n),
+    ]
+    P, UV = _terrain_grid(n_cells, seed)
+    step = n_cells // 4
+    world = [_region_mesh(api, P, UV, i * step, (i + 1) * step, j * step,
+                          (j + 1) * step, mats[i * 4 + j])
+             for i in range(4) for j in range(4)]
+    world += _room(api, L(S(0.5, 0.5, 0.5)), light=12.0) + [
+        api.Sphere((-8.0, 7.0, -8.0), 1.2, api.DiffuseLight(18.0, 14.0, 8.0)),
+        api.Sphere((8.0, 7.0, 8.0), 1.2, api.DiffuseLight(8.0, 12.0, 18.0)),
+        api.Triangle((-3, 9.0, 11.5), (3, 9.0, 11.5), (0, 11.5, 11.5),
+                     api.DiffuseLight(14.0, 14.0, 14.0)),
+    ]
+    return api.Scene(api.Bvh(world), _interior_camera(api), (0.0, 0.0, 0.0),
+                     render_config)
+
+
+def many_light_scene(render_config, n_lights=64, n_cells=96, seed=3,
+                     api=None):
+    """A displaced-terrain BVH scene lit by one quad emitter and a grid of
+    ``n_lights - 1`` sphere emitters (colours and heights drawn from
+    ``seed``): above 16 lights next-event estimation takes the batched
+    (rays, lights) light-pdf form — the JAX package's
+    ``tests/scenes.py::create_many_light_scene``, line for line, with the
+    same draws in the same order."""
+    api = _api(api)
+    verts, _ = _terrain(n_cells, seed, with_uvs=False)
+    world = [_submodule(api, "scene").TriangleMesh(
+                 verts, api.Lambertian(api.SolidColor(0.7, 0.7, 0.7))),
+             api.Quad((-4, 10.5, -4), (8, 0, 0), (0, 0, 8),
+                      api.DiffuseLight(6.0, 6.0, 6.0))]
+    side = int(np.ceil(np.sqrt(n_lights - 1)))
+    rng = np.random.default_rng(seed)
+    for k in range(n_lights - 1):
+        i, j = divmod(k, side)
+        x = -9.0 + 18.0 * i / max(side - 1, 1)
+        z = -9.0 + 18.0 * j / max(side - 1, 1)
+        col = 4.0 + 8.0 * rng.random(3)
+        world.append(api.Sphere((x, 6.0 + 2.0 * rng.random(), z), 0.3,
+                                api.DiffuseLight(*col)))
+    return api.Scene(api.Bvh(world), _interior_camera(api), (0.0, 0.0, 0.0),
+                     render_config)
 
 
 OBJ_FILE = "terrain.obj"

@@ -1,17 +1,18 @@
 """Where one render batch, or one inverse-rendering step, spends its time
 on the card.
 
-    python -m solstrale_tpu_torch.profiling [--scene sponza|mixed|kitchen]
+    python -m solstrale_tpu_torch.profiling [--scene NAME]
     python -m solstrale_tpu_torch.profiling --step [--scene mixed|kitchen]
 
 Compiles the fixture scene (1920x1080; sponza and mixed: 362 terrain
 cells, the 262,088-triangle interior; kitchen: the normal-mapped
-kitchen-sink scene, which takes the wavefront with the fused scene hit) on
-the GPU, warms up, then times one
-``render_sample_batch`` (1 spp, depth 50) twice: once bare (CUDA-synced
-host clock: the end-to-end number) and once under ``torch.profiler``
-(device time per kernel name, the device's busy and idle share of the
-profiled wall time, and the hit kernels' share). ``--step`` times one
+kitchen-sink scene, which takes the wavefront with the fused scene hit;
+or a wavefront workload of ``bench`` at its size: sponza_textured, the
+bench's headline ``sponza``; sponza_production; many_lights) on the GPU,
+warms up, then times one ``render_sample_batch`` (1 spp, depth 50)
+twice: once bare (CUDA-synced host clock: the end-to-end number) and once
+under ``torch.profiler`` (device time per kernel name, the device's busy
+and idle share of the profiled wall time, and the hit kernels' share). ``--step`` times one
 ``diff.image_and_texture_grad`` step instead (1 spp, depth 50, against a
 target at seed 2): its forward and its backward (the checkpointed replay
 and the gradient) apart with CUDA events, then the whole step under
@@ -32,17 +33,31 @@ HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
 
-def _scene(name):
-    import solstrale_tpu_torch as T
-    from . import fixtures
+# --scene names of the bench's wavefront workloads -> their bench names
+BENCH_SCENES = {"sponza_textured": "sponza",
+                "sponza_production": "sponza_production",
+                "many_lights": "many_lights"}
 
+
+def _scene(name):
+    """(scene, width, height) of a --scene name."""
+    import solstrale_tpu_torch as T
+    from . import bench, fixtures
+
+    if name in BENCH_SCENES:
+        w = next(w for w in bench.WORKLOADS if w.name == BENCH_SCENES[name])
+        return (w.scene(T.RenderConfig(width=w.width, height=w.height,
+                                       samples_per_pixel=1, seed=1)),
+                w.width, w.height)
     cfg = T.RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=1,
                          seed=1)
     if name == "sponza":
-        return fixtures.sponza_class_scene(cfg, n_cells=N_CELLS)
-    if name == "kitchen":
-        return fixtures.kitchen_sink_scene(cfg)
-    return fixtures.mixed_bvh_scene(cfg, n_cells=N_CELLS)
+        scene = fixtures.sponza_class_scene(cfg, n_cells=N_CELLS)
+    elif name == "kitchen":
+        scene = fixtures.kitchen_sink_scene(cfg)
+    else:
+        scene = fixtures.mixed_bvh_scene(cfg, n_cells=N_CELLS)
+    return scene, WIDTH, HEIGHT
 
 
 def device_kernel_times(prof):
@@ -123,8 +138,9 @@ def profile_step(scene_name="mixed"):
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
-    cs = compile_scene(_scene(scene_name), device="cuda")
-    kw = dict(width=WIDTH, height=HEIGHT, max_depth=50, n_samples=1)
+    scene, width, height = _scene(scene_name)
+    cs = compile_scene(scene, device="cuda")
+    kw = dict(width=width, height=height, max_depth=50, n_samples=1)
     with torch.no_grad():
         target = diff.render_linear(cs, seed=2, **kw)
     diff.image_and_texture_grad(cs, target, seed=1, **kw)
@@ -142,7 +158,7 @@ def profile_step(scene_name="mixed"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(
-        scene=scene_name, width=WIDTH, height=HEIGHT, max_depth=50,
+        scene=scene_name, width=width, height=height, max_depth=50,
         gpu=torch.cuda.get_device_name(0), step_seconds=wall,
         forward_ms=marks[0].elapsed_time(marks[1]),
         backward_ms=marks[1].elapsed_time(marks[2]),
@@ -156,8 +172,9 @@ def profile_batch(scene_name="sponza"):
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
-    cs = compile_scene(_scene(scene_name), device="cuda")
-    kw = dict(width=WIDTH, height=HEIGHT, max_depth=50,
+    scene, width, height = _scene(scene_name)
+    cs = compile_scene(scene, device="cuda")
+    kw = dict(width=width, height=height, max_depth=50,
               shader_kind=integrator.SHADER_PATH, need_aux=False, n_samples=1)
     float(integrator.render_sample_batch(cs, 100, 1, **kw)[0].sum())
 
@@ -170,7 +187,7 @@ def profile_batch(scene_name="sponza"):
     wall = time.perf_counter() - t0
 
     return dict(
-        scene=scene_name, width=WIDTH, height=HEIGHT,
+        scene=scene_name, width=width, height=height,
         gpu=torch.cuda.get_device_name(0),
         batch_seconds=wall, segments=int(segs),
         segments_per_second=int(segs) / wall, iterations=stats["iters"],
@@ -180,7 +197,8 @@ def profile_batch(scene_name="sponza"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", choices=("sponza", "mixed", "kitchen"),
+    ap.add_argument("--scene", choices=("sponza", "mixed", "kitchen",
+                                        *BENCH_SCENES),
                     default=None, help="default: sponza, mixed with --step")
     ap.add_argument("--step", action="store_true",
                     help="one inverse-rendering step, not a render batch")

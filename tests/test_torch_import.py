@@ -1,9 +1,10 @@
 """The port stands alone: with JAX made unimportable, importing
 solstrale_tpu_torch and its modules (diff, parallel, the denoiser trainer,
-the OBJ loader and the native library's bindings among them), building a
-scene, loading an OBJ, building a BVH on the device, rendering and taking
-a texture gradient on the CPU works, and none of it builds or loads a CUDA
-kernel."""
+the OBJ loader, the native library's bindings and the throughput script
+among them), building a scene, loading an OBJ, building a BVH on the
+device, rendering, measuring a bench workload and taking a texture
+gradient on the CPU works, and none of it builds or loads a CUDA kernel
+or imports the JAX package's test fixtures."""
 import os
 import subprocess
 import sys
@@ -24,7 +25,8 @@ from solstrale_tpu_torch.ops import detached
 from solstrale_tpu_torch.parallel import distributed
 from solstrale_tpu_torch import native
 from solstrale_tpu_torch.scene import loader
-import tempfile
+from solstrale_tpu_torch import bench
+import contextlib, dataclasses, io, tempfile
 
 assert _build.library.cache_info().currsize == 0
 cs = compile_scene(fixtures.small_scene(T.RenderConfig(width=8, height=8)),
@@ -43,6 +45,14 @@ with tempfile.TemporaryDirectory() as d:
     obj = compile_scene(fixtures.obj_scene(T.RenderConfig(width=8, height=8),
                                            d), use_bvh="device", device="cpu")
 assert int(obj.solids.tr_valid.sum()) == 32 and obj.bvh is not None
+tiny = dataclasses.replace(
+    bench.WORKLOADS[-1], width=8, height=8,
+    scene=lambda c: fixtures.sponza_production_scene(c, n_cells=16,
+                                                     tex_size=16))
+with contextlib.redirect_stdout(io.StringIO()):
+    lines = bench.run([tiny], "cpu", runs=1)
+assert "error" not in lines[0] and lines[0]["value"] > 0
+assert "scenes" not in sys.modules
 assert _build.library.cache_info().currsize == 0   # no kernel was loaded
 assert not any(m == "jax" or m.startswith(("jax.", "solstrale_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -75,4 +85,5 @@ def test_port_source_has_no_jax_import():
     assert not bad, bad
     scanned = {os.path.relpath(p, ROOT) for p in paths}
     assert {"solstrale_tpu_torch/native/__init__.py",
-            "solstrale_tpu_torch/scene/loader.py"} <= scanned
+            "solstrale_tpu_torch/scene/loader.py",
+            "solstrale_tpu_torch/bench.py"} <= scanned
