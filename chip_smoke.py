@@ -56,7 +56,10 @@ script exits non-zero):
      128-triangle terrain loaded from an OBJ with textures, a normal map and
      a height map: the wavefront with K4) rendered on the card and on the
      CPU with the path shader (with and without the aux channels) and the
-     three debug shaders, and the card run repeated bit for bit;
+     three debug shaders, and the card run repeated bit for bit; every
+     pixel outside 1e-3 there and in phase 7 (up to 8 a scene) is traced
+     to the first (sample, bounce) and quantity at which the two devices'
+     lanes part, one ``card_vs_cpu_outlier`` line each;
   5. diff and parallel: the inverse-rendering step
      (``diff.image_and_texture_grad``: the fixed trip's forward and its
      checkpointed path-replay backward) on the mixed scene at 1920x1080,
@@ -1448,17 +1451,312 @@ def phase_megakernel():
     return out
 
 
+# what one replayed bounce computes, in the order the bounce decides it
+REPLAY_ORDER = ("draws", "o", "d", "t", "kind", "idx", "point", "uv",
+                "texel", "normal", "cos_dir", "light_dir", "light_pdf",
+                "new_dir", "prob", "throughput", "color", "terminal")
+DISCRETE = ("draws", "kind", "idx", "texel", "terminal")
+MAX_OUTLIERS = 8          # pixels traced per scene
+
+
+def _replay_start(cs, pix, sample, seed, w, h):
+    """The lane state ``integrator.trace`` starts from: camera rays."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    _, o, d = integrator.camera_rays(cs, pix, w, h, sample, seed)
+    zero = torch.zeros_like(o[0])
+    return (o, d, torch.zeros(pix.shape, dtype=torch.int32,
+                              device=zero.device),
+            zero, integrator.fold_init(zero),
+            torch.ones(pix.shape, dtype=torch.bool, device=zero.device))
+
+
+def _replay_bounce(cs, state, pix, sample, seed, max_depth):
+    """One bounce of every lane as ``integrator.trace`` runs it (its
+    ``path_step``), with what the bounce computes on the way: the draws of
+    every purpose, (t, kind, idx), the hit point and uv, the albedo and
+    normal-map texels it reads, the shading normal, the cosine and light
+    directions it samples, the light pdf of the direction it takes, that
+    direction and its weight, and after the bounce the throughput (the
+    clamp-fold's state), the color of the ended paths and which ended.
+    Returns (quantities as (R, k) tensors, the next state)."""
+    import torch
+    from solstrale_tpu_torch.ops import intersect, rng
+    from solstrale_tpu_torch.renderer import integrator
+
+    o, d, bounce, acc_len, fold, alive = state
+    sample = integrator._lanes(sample, pix)
+    purposes = list(range(rng.P_PHASE + 1)) + [
+        rng.P_MEDIUM_BASE + m for m in range(len(cs.media))]
+    q = {"draws": torch.stack([u for p in purposes for u in rng.uniform4(
+        pix, sample, bounce, p, seed)], -1),
+        "o": torch.stack(o, -1), "d": torch.stack(d, -1)}
+    t, kind, idx = integrator.scene_hit(cs, o, d, pix, sample, bounce, seed)
+    attrs = integrator.full_hit_attributes(
+        cs, o, d, torch.where(torch.isfinite(t), t, 0.0), kind, idx, pix,
+        sample, bounce, seed)
+    sc = integrator.scatter(cs, o, d, attrs, pix, sample, bounce, seed)
+    mats = [integrator.resolve_blend(cs.materials, attrs["mat"], rng.uniform4(
+        pix, sample, bounce, p, seed), cs.features)
+        for p in (rng.P_BLEND_SCATTER, rng.P_BLEND_NORMAL)]
+    r1, r2, _, _ = rng.uniform4(pix, sample, bounce, rng.P_COSINE, seed)
+    n_l = cs.lights.kind.shape[0]
+    pick = torch.clamp((rng.uniform(pix, sample, bounce, rng.P_LIGHT_PICK,
+                                    seed) * n_l).to(torch.int32),
+                       max=n_l - 1)
+    l1, l2, _, _ = rng.uniform4(pix, sample, bounce, rng.P_LIGHT_SAMPLE,
+                                seed)
+    q.update(
+        t=t[:, None], kind=kind[:, None], idx=idx[:, None],
+        point=torch.stack(attrs["point"], -1),
+        uv=torch.stack(attrs["uv"], -1),
+        texel=torch.stack([torch.where(tid >= 0, integrator.texel_index(
+            cs.textures, tid, attrs["uv"]), -1) for tid in (
+                integrator.mat_row(cs.materials, m)[key] for m, key in zip(
+                    mats, ("albedo_tex", "normal_tex")))], -1),
+        normal=torch.stack(sc["shading_normal"], -1),
+        cos_dir=torch.stack(rng.cosine_direction3(r1, r2), -1),
+        light_dir=torch.stack(intersect.sample_light_direction3(
+            cs.lights, attrs["point"], pick, l1, l2, kinds=cs.light_kinds),
+            -1),
+        light_pdf=intersect.light_pdf_mean3(
+            cs.lights, attrs["point"], sc["new_dir"],
+            kinds=cs.light_kinds)[:, None],
+        new_dir=torch.stack(sc["new_dir"], -1), prob=sc["prob"][:, None])
+    st = integrator.path_step(cs, o, d, bounce, acc_len, fold, pix, sample,
+                              seed, alive, max_depth)
+    q.update(throughput=torch.stack(st["fold"][0] + st["fold"][1], -1),
+             color=st["color"], terminal=st["terminal"][:, None])
+    alive = alive & ~st["terminal"]
+    d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
+    return q, (st["o"], d, st["bounce"], st["acc_len"], st["fold"], alive)
+
+
+def _replay(cs, lanes, sample, seed, w, h, max_depth):
+    """Every pixel's lane of one sample pass (the whole image, as the
+    render runs it), bounce by bounce until the paths of the pixel ids
+    ``lanes`` have ended: per bounce their quantities and every lane's
+    state going in, on the host."""
+    import torch
+
+    pix = torch.arange(w * h, dtype=torch.int64, device=cs.device)
+    lanes = lanes.to(cs.device)
+    state = _replay_start(cs, pix, sample, seed, w, h)
+    recs, states = [], []
+    for _ in range(max_depth + 1):
+        if not bool(state[5][lanes].any()):
+            break
+        states.append(_to(state, "cpu"))
+        q, state = _replay_bounce(cs, state, pix, sample, seed, max_depth)
+        recs.append({k: v[lanes].cpu() for k, v in q.items()})
+    return recs, states
+
+
+def _to(tree, device):
+    """A nest of tuples of tensors, moved to ``device``."""
+    if isinstance(tree, tuple):
+        return tuple(_to(x, device) for x in tree)
+    return tree.to(device)
+
+
+def _ulps(a, b):
+    """Largest distance between two f32 tensors in units in the last
+    place (0 where both are the same NaN or infinity); for integers the
+    largest difference."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i + 2 ** 31), i)
+
+    if not a.is_floating_point():
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _differs(name, a, b, bits):
+    """Whether quantity ``name`` differs between the devices: in any bit
+    (``bits``), else beyond rounding (a discrete quantity in any bit, a
+    float beyond rtol 1e-3 / atol 1e-3, or NaN or infinity on one side)."""
+    import torch
+
+    if bits or name in DISCRETE or not a.is_floating_point():
+        if a.is_floating_point():
+            return not torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return not torch.equal(a, b)
+    return not bool(torch.isclose(a, b, rtol=1e-3, atol=1e-3,
+                                  equal_nan=True).all())
+
+
+def _first_difference(card, cpu, alive_card, alive_cpu, j, bits):
+    """The first (bounce, quantity) at which lane j of the two replays
+    differs, looking at the bounces where the lane is alive on either
+    (``alive_*``: per bounce, whether it is)."""
+    for b in range(min(len(card), len(cpu))):
+        if not (alive_card[b] or alive_cpu[b]):
+            return None
+        for name in REPLAY_ORDER:
+            if _differs(name, card[b][name][j], cpu[b][name][j], bits):
+                return b, name
+    return None
+
+
+def _same_inputs(cs_card, state_cpu, cpu_rec, j, lanes, w, h, sample,
+                 seed, max_depth):
+    """The quantities of lane j that still differ in some bit when the card
+    runs a bounce from the CPU's own state going into it (``state_cpu``,
+    its rays included): what that bounce's torch ops compute differently
+    on the two devices."""
+    import torch
+
+    pix = torch.arange(w * h, dtype=torch.int64, device=cs_card.device)
+    q, _ = _replay_bounce(cs_card, _to(state_cpu, cs_card.device), pix,
+                          sample, seed, max_depth)
+    return [n for n in REPLAY_ORDER if _differs(
+        n, q[n][lanes.to(cs_card.device)][j].cpu(), cpu_rec[n][j], True)]
+
+
+def _camera_probe(compiled, pid, sample, seed, w, h):
+    """The camera's screen coordinates of pixel ``pid``, u = (x + j1) /
+    (w - 1) and v = (y + j2) / (h - 1) as ``integrator.camera_rays``
+    computes them: their ulps between the devices, and the card's against
+    the CPU's multiply by the f32 reciprocal of the divisor (0: the card
+    divides by a Python number that way, the CPU exactly)."""
+    import torch
+    from solstrale_tpu_torch.ops import rng
+
+    out = {}
+    for dev, cs in compiled.items():
+        pix = torch.tensor([pid], dtype=torch.int64, device=cs.device)
+        j1, j2, _, _ = rng.uniform4(pix, sample, 0, rng.P_JITTER, seed)
+        x = (pix % w).to(torch.float32) + j1
+        y = (pix // w).to(torch.float32) + j2
+        out[dev] = [z.cpu() for z in (x / (w - 1), y / (h - 1),
+                                      x * (1.0 / (w - 1)),
+                                      y * (1.0 / (h - 1)))]
+    card, cpu = out["cuda"], out["cpu"]
+    return dict(u_ulps=_ulps(card[0], cpu[0]), v_ulps=_ulps(card[1], cpu[1]),
+                card_vs_cpu_reciprocal_ulps=[_ulps(card[0], cpu[2]),
+                                             _ulps(card[1], cpu[3])])
+
+
+def _light_probe(compiled, recs, b, j):
+    """Each light whose pdf for lane j's direction at bounce b differs
+    between the devices (``intersect.light_pdf_values`` of that device's
+    own point and direction): its index and kind, both pdfs, and for a
+    sphere both devices' discriminant half_b^2 - |d|^2 c of the
+    re-intersection test with its share of half_b^2 (near 0: a graze)."""
+    import torch
+    from solstrale_tpu_torch.geo import soa
+    from solstrale_tpu_torch.ops import intersect
+
+    per = {}
+    for dev, cs in compiled.items():
+        p, d = (recs[dev][b][k][j:j + 1].to(cs.device).unbind(-1)
+                for k in ("point", "new_dir"))
+        pdf = intersect.light_pdf_values(cs.lights, p, d)[0]
+        # the sphere test's operations in light_pdf_values' order
+        oc = soa.vsub(p, cs.lights.p0.unbind(-1))
+        half_b = soa.dot3(oc, d)
+        radius = cs.lights.radius
+        disc = half_b * half_b - soa.dot3(d, d) * (soa.dot3(oc, oc)
+                                                   - radius * radius)
+        per[dev] = [x.cpu() for x in (pdf, disc, disc / (half_b * half_b))]
+    kind = compiled["cpu"].lights.kind.cpu()
+    out = []
+    for li in torch.nonzero(per["cuda"][0] != per["cpu"][0]).flatten():
+        li = int(li)
+        row = dict(light=li, kind=int(kind[li]),
+                   pdf=[float(per[k][0][li]) for k in ("cuda", "cpu")])
+        if int(kind[li]) == 0:
+            row.update(disc=[float(per[k][1][li]) for k in ("cuda", "cpu")],
+                       disc_share=[float(per[k][2][li])
+                                   for k in ("cuda", "cpu")])
+        out.append(row)
+    return out
+
+
+def _values(x):
+    return [float(v) if x.is_floating_point() else int(v)
+            for v in x.flatten().tolist()]
+
+
+def _trace_outliers(name, variant, compiled, outliers, gpu, cpu, w, h, spp,
+                    seed=1, sample_start=1, max_depth=50):
+    """For each outlier pixel ((image row, column) of ``gpu`` / ``cpu``),
+    find the first (sample, bounce) at which the two devices' lanes part:
+    replay its samples on both devices one bounce at a time, until one
+    parts, and compare the draws, o, d, (t, kind, idx) and the rest of
+    ``REPLAY_ORDER``. Prints one ``card_vs_cpu_outlier`` line per pixel:
+    the first difference beyond rounding and the first in any bit, each
+    with both values, the ulps of o and d going into that bounce, what
+    still differs when the card runs that bounce from the CPU's inputs,
+    the camera's screen coordinates' ulps, and for a light pdf each light
+    whose pdf differs."""
+    import torch
+
+    ids = [(h - 1 - r) * w + c for r, c in outliers]
+    lanes = torch.tensor(ids, dtype=torch.int64)
+    lines = [dict(scene=name, shader=variant, pixel=[r, c], pixel_id=pid,
+                  card=gpu[r, c].tolist(), cpu=cpu[r, c].tolist())
+             for (r, c), pid in zip(outliers, ids)]
+    for s in range(sample_start, sample_start + spp):
+        todo = [j for j, ln in enumerate(lines)
+                if "first_difference" not in ln]
+        if not todo:
+            break
+        run = {dev: _replay(compiled[dev], lanes, s, seed, w, h, max_depth)
+               for dev in ("cuda", "cpu")}
+        recs = {dev: r[0] for dev, r in run.items()}
+        st_cpu = run["cpu"][1]
+        for j in todo:
+            alive = [[bool(x[5][ids[j]]) for x in run[dev][1]]
+                     for dev in ("cuda", "cpu")]
+            first = {}
+            for key, bits in (("first_difference", False),
+                              ("first_bit_difference", True)):
+                hit = _first_difference(recs["cuda"], recs["cpu"], *alive,
+                                        j, bits)
+                if hit is None:
+                    continue
+                b, qn = hit
+                card, host = recs["cuda"][b], recs["cpu"][b]
+                first[key] = dict(
+                    bounce=b, quantity=qn, card=_values(card[qn][j]),
+                    cpu=_values(host[qn][j]),
+                    ulps=_ulps(card[qn][j], host[qn][j]),
+                    ulps_in=dict(o=_ulps(card["o"][j], host["o"][j]),
+                                 d=_ulps(card["d"][j], host["d"][j])),
+                    same_inputs_differ=_same_inputs(
+                        compiled["cuda"], st_cpu[b], host, j, lanes, w, h,
+                        s, seed, max_depth))
+                if b == 0:
+                    first[key]["camera"] = _camera_probe(
+                        compiled, ids[j], s, seed, w, h)
+                if qn == "light_pdf":
+                    first[key]["lights"] = _light_probe(compiled, recs, b, j)
+            if "first_difference" in first or "sample" not in lines[j]:
+                lines[j].update(sample=s, **first)
+    for ln in lines:
+        ln["reproduced"] = "first_difference" in ln
+        log("card_vs_cpu_outlier", **ln)
+
+
 def _card_vs_cpu(name, scene, variants, w, h, spp, start):
     """``scene`` compiled on the card and on the CPU and rendered with each
     of ``variants`` ((label, shader kind, aux)) at w x h, ``spp`` samples:
     segments within 1e-3, 99.9% of pixels within 1e-3 on every plane, and
-    the card run repeated bit for bit."""
+    the card run repeated bit for bit. The first ``MAX_OUTLIERS`` pixels
+    of the scene outside 1e-3 are traced to their first difference
+    (``_trace_outliers``)."""
     import numpy as np
     from solstrale_tpu_torch.renderer import integrator
     from solstrale_tpu_torch.scene.compile import compile_scene
 
     compiled = {dev: compile_scene(scene, device=dev)
                 for dev in ("cuda", "cpu")}
+    traced = set()
     for variant, shader_kind, need_aux in variants:
         kw = dict(width=w, height=h, max_depth=50, shader_kind=shader_kind,
                   need_aux=need_aux, n_samples=spp)
@@ -1478,6 +1776,15 @@ def _card_vs_cpu(name, scene, variants, w, h, spp, start):
             raise AssertionError(f"{label}: segments card {gseg} cpu {cseg}")
         close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-3).reshape(
             h, w, -1, 3).all(axis=-1)
+        # the replay is the path whatever the shader: one line a pixel
+        outliers = [(int(r), int(c)) for r, c in
+                    zip(*np.nonzero(~close.all(axis=-1)))
+                    if (int(r), int(c)) not in traced]
+        outliers = outliers[:max(0, MAX_OUTLIERS - len(traced))]
+        if outliers:
+            _trace_outliers(name, variant, compiled, outliers, gpu, cpu, w,
+                            h, spp)
+            traced.update(outliers)
         if close.mean(axis=(0, 1)).min() < 0.999:
             raise AssertionError(f"{label}: only {close.mean():.4f} of "
                                  "pixels agree card vs CPU within 1e-3")

@@ -58,10 +58,12 @@ class Workload:
 
 # bench.py's workloads in its order, the headline last
 WORKLOADS = (
-    # the reference's own profiling workload (bench.py:61-70); without a
-    # normal map the megakernel gate takes it: one K5 launch per batch
+    # the reference's own profiling workload (bench.py:61-70), its tex.jpg
+    # the production interior's image; without a normal map the megakernel
+    # gate takes it: one K5 launch per batch
     Workload("kitchen_sink", "kitchen_sink_mrays_per_s",
-             partial(fixtures.kitchen_sink_scene, normal_map=False),
+             partial(fixtures.kitchen_sink_scene, normal_map=False,
+                     tex_size=1024),
              400, 266, 8),
     Workload("sponza_production", "sponza_production_mrays_per_s",
              fixtures.sponza_production_scene, 1920, 1080, 1),

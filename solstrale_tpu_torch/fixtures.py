@@ -419,7 +419,8 @@ def kitchen_sink_solid_scene(render_config, api=None):
     return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
 
 
-def kitchen_sink_scene(render_config, api=None, normal_map=True):
+def kitchen_sink_scene(render_config, api=None, normal_map=True,
+                       tex_size=None):
     """The reference's kitchen-sink scene (quads, glass sphere, boxes, a
     constant medium, a triangle grid, sphere / quad / triangle lights) —
     the JAX package's ``tests/scenes.py::create_test_scene``, line for line,
@@ -428,9 +429,15 @@ def kitchen_sink_scene(render_config, api=None, normal_map=True):
     The normal map keeps the scene off the megakernel in both packages: it
     takes the wavefront with the fused scene hit (K4). Without it
     (``normal_map=False``) the megakernel gate accepts the scene: it is
-    K5's case with an image texture, triangle prims and a triangle light."""
+    K5's case with an image texture, triangle prims and a triangle light.
+    With ``tex_size`` the ground's image is ``bench_textures(tex_size)``'s
+    ``tex``, the stand-in for ``tex.jpg`` that the production interior
+    loads too: with ``normal_map=False`` that is ``create_test_scene``
+    itself, the benchmark's kitchen."""
     api = _api(api)
     albedo, height = procedural_textures()
+    if tex_size is not None:
+        albedo = bench_textures(tex_size)["tex"]
     normal = (api.ImageMap(_submodule(api, "utils").height_to_normal_map(
         height)) if normal_map else None)
     camera = api.CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.1,

@@ -68,6 +68,17 @@ def sample_texture(tex, tex_id, uv):
     """Arena texture lookup: nearest neighbour, abs-wrap, flipped v
     (texture.rs:167-180). uv is an (u, v) tuple of (R,); returns an
     (r, g, b) tuple. tex_id = -1 reads texture 0 (callers mask)."""
+    idx = texel_index(tex, tex_id, uv)
+    # index_select, not pixels[idx]: the same gather, but its backward is
+    # index_add_ (atomic adds on the card), where indexing's sorts the
+    # indices and adds each run of equal ones serially, which took 450 ms
+    # a bounce at 1080p (a solid color is one texel that most rays read)
+    px = torch.index_select(tex.pixels, 0, idx)
+    return (px[:, 0], px[:, 1], px[:, 2])
+
+
+def texel_index(tex, tex_id, uv):
+    """The arena row (int64) that ``sample_texture`` reads."""
     tid = torch.clamp(tex_id, min=0)
     ta = table_rows(tex.attr, tid)
     off = ta[0].to(torch.int32)
@@ -80,13 +91,7 @@ def sample_texture(tex, tex_id, uv):
     y = (v * (h - 1).to(torch.float32)).to(torch.int32)
     idx = off + y * w + x
     # out-of-range (NaN-derived) indices clamp, like a JAX gather
-    idx = torch.clamp(idx, 0, tex.pixels.shape[0] - 1).long()
-    # index_select, not pixels[idx]: the same gather, but its backward is
-    # index_add_ (atomic adds on the card), where indexing's sorts the
-    # indices and adds each run of equal ones serially, which took 450 ms
-    # a bounce at 1080p (a solid color is one texel that most rays read)
-    px = torch.index_select(tex.pixels, 0, idx)
-    return (px[:, 0], px[:, 1], px[:, 2])
+    return torch.clamp(idx, 0, tex.pixels.shape[0] - 1).long()
 
 
 def resolve_blend(mats, mat_id, u_levels, features=frozenset(("blend",))):

@@ -1,11 +1,13 @@
 """The benchmark's asset-free stand-ins against the JAX package: the
-textured sponza-class interior, the production-diversity interior and the
-many-light scene (``fixtures.sponza_textured_scene``,
-``sponza_production_scene``, ``many_light_scene``), built at a small size
+textured sponza-class interior, the production-diversity interior, the
+many-light scene and the kitchen (``fixtures.sponza_textured_scene``,
+``sponza_production_scene``, ``many_light_scene``, and
+``kitchen_sink_scene`` as the bench builds it), built at a small size
 through both packages. The compiled tables are equal (tolerance 0), the
 JAX package's own fixtures (``tests/scenes.py``, its image loads answered
 with the same procedural images) compile to the same tables, and the
-port's render_sample_batch agrees with the JAX package's."""
+port's render_sample_batch agrees with the JAX package's on the three
+interiors."""
 import os
 
 import jax.numpy as jnp
@@ -18,7 +20,7 @@ import solstrale_tpu as J
 import solstrale_tpu_torch as T
 from solstrale_tpu.renderer import integrator as JI
 from solstrale_tpu.scene.compile import compile_scene as jcompile
-from solstrale_tpu_torch import fixtures
+from solstrale_tpu_torch import bench, fixtures
 from solstrale_tpu_torch.renderer import integrator as TI
 from solstrale_tpu_torch.scene import materials
 from solstrale_tpu_torch.scene.compile import (KIND_QUAD, KIND_SPHERE,
@@ -39,7 +41,12 @@ FIXTURES = {
         cfg, n_cells=24, tex_size=TEX, api=api),
     "many_light": lambda cfg, api: fixtures.many_light_scene(
         cfg, n_lights=20, n_cells=16, api=api),
+    # bench.WORKLOADS' kitchen_sink at a small texture size
+    "kitchen_sink": lambda cfg, api: fixtures.kitchen_sink_scene(
+        cfg, api=api, normal_map=False, tex_size=TEX),
 }
+# the scenes with a BVH (the kitchen's 141 planar rows take none)
+BVH_SCENES = ("many_light", "sponza_production", "sponza_textured")
 REFERENCE = {
     "sponza_textured": lambda cfg: scenes.create_sponza_class_scene(
         cfg, n_cells=24),
@@ -47,6 +54,7 @@ REFERENCE = {
         cfg, n_cells=24),
     "many_light": lambda cfg: scenes.create_many_light_scene(
         cfg, n_lights=20, n_cells=16),
+    "kitchen_sink": scenes.create_test_scene,
 }
 
 
@@ -66,7 +74,8 @@ def test_compiled_tables_equal_jax(name):
     """Every table of the port's compile equals the JAX package's, built
     from the same fixture through each package's API."""
     cj, ct = _both(name)
-    assert ct.kbvh is not None and cj.kbvh is not None
+    has_bvh = name in BVH_SCENES
+    assert (ct.kbvh is not None) == has_bvh == (cj.kbvh is not None)
     assert_tables_equal(tables_of(cj), tables_of(ct))
 
 
@@ -91,6 +100,33 @@ def test_fixture_is_the_jax_scene(name, monkeypatch):
     assert_tables_equal(want, got)
 
 
+def _images(obj, seen=None):
+    """The images of every ImageMap reachable from ``obj``'s attributes."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen or isinstance(obj, (str, bytes, int, float,
+                                           np.ndarray)):
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, T.ImageMap):
+        return [obj.image]
+    items = (obj if isinstance(obj, (list, tuple)) else
+             getattr(obj, "__dict__", {}).values())
+    return [img for v in items for img in _images(v, seen)]
+
+
+def test_bench_kitchen_grounds_on_the_production_tex():
+    """bench.py's kitchen and production interior load one asset,
+    ``tex.jpg``: the bench's kitchen workload takes the image the
+    production stand-in takes for it, ``bench_textures()["tex"]``."""
+    kitchen = next(w for w in bench.WORKLOADS if w.name == "kitchen_sink")
+    cfg = T.RenderConfig(width=8, height=8)
+    tex = fixtures.bench_textures()["tex"]
+    production = _images(fixtures.sponza_production_scene(cfg, n_cells=4))
+    assert any(np.array_equal(img, tex) for img in production)
+    images = _images(kitchen.scene(cfg))
+    assert len(images) == 1 and np.array_equal(images[0], tex)
+
+
 def test_bench_textures():
     """Five (size, size, 3) u8 images, none flat; the normal map points
     out of the surface (blue channel high)."""
@@ -104,7 +140,7 @@ def test_bench_textures():
     assert np.array_equal(images["tex"], fixtures.bench_textures(64)["tex"])
 
 
-@pytest.mark.parametrize("name", sorted(FIXTURES))
+@pytest.mark.parametrize("name", BVH_SCENES)
 def test_render_sample_batch_matches_jax(name, monkeypatch):
     """32x24, 2 spp, depth 50: the port's render against the JAX package's,
     its Pallas kernels interpreted (SOLSTRALE_PALLAS=1, as for the

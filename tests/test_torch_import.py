@@ -3,8 +3,9 @@ solstrale_tpu_torch and its modules (diff, parallel, the denoiser trainer,
 the OBJ loader, the native library's bindings and the throughput script
 among them), building a scene, loading an OBJ, building a BVH on the
 device, rendering, measuring a bench workload and taking a texture
-gradient on the CPU works, and none of it builds or loads a CUDA kernel
-or imports the JAX package's test fixtures."""
+gradient on the CPU works (``models`` exporting ``DenoiserCNN`` and
+``denoise_bilateral`` as the JAX package's does), and none of it builds or
+loads a CUDA kernel or imports the JAX package's test fixtures."""
 import os
 import subprocess
 import sys
@@ -21,6 +22,10 @@ from solstrale_tpu_torch.renderer import integrator
 from solstrale_tpu_torch.scene.compile import compile_scene
 from solstrale_tpu_torch import diff, parallel
 from solstrale_tpu_torch.models import train_denoiser
+from solstrale_tpu_torch.models import DenoiserCNN, denoise_bilateral
+from solstrale_tpu_torch.models import denoiser
+assert (DenoiserCNN, denoise_bilateral) == (denoiser.DenoiserCNN,
+                                            denoiser.denoise_bilateral)
 from solstrale_tpu_torch.ops import detached
 from solstrale_tpu_torch.parallel import distributed
 from solstrale_tpu_torch import native
