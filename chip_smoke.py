@@ -24,6 +24,13 @@ script exits non-zero):
      many-light scene's 63 sphere emitters, and K3 also on two overlapping
      media; K4, t, kind and idx equal, on the kitchen's,
      likewise, and on the same two media);
+  2b. the draw kernel (``csrc/rng.cu``, ``ops.rng.uniform4``) against its
+     plain chain, bit for bit, at the main path's shapes (the wide pool's
+     131,072 lanes, the tail's 16,384, the camera's int bounce, a 1080p
+     ``render_pixels`` wavefront) and every argument form the callers pass
+     (int32 and int64 lanes, ints, 0-dim sample and seed on the card, a
+     broadcast pair, pixel ids past 2**32), one launch and one device
+     kernel a call, timed at 131,072 lanes against its byte bound;
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -42,6 +49,13 @@ script exits non-zero):
      the static one-pixel-per-thread map's, the medium sweep shares, the
      persistent grid), and K5 against ``trace_queued`` (the K4 route) at
      1920x1080x1;
+  3e. ``trace_queued``'s card driver (CUDA graph replays of
+     ``integrator.GRAPH_STEPS`` steps, one stop read a replay) against its
+     eager driver bit for bit, image and segments: sponza 1080p (its
+     recorded segments), production, many_lights, the mixed scene (K1-K3)
+     and the normal-mapped kitchen (K4) at 400x266x8; one capture replayed
+     at two sample_starts, a second seed its own capture, and a replayed
+     batch's launches equal to its steps;
   3d. the renderer's surface at full size: ``ray_trace`` on the interior
      at 1920x1080 with bloom and the denoiser, checkpointed every sample and
      resumed from sample 1 bit for bit (K1, never K5); the albedo, normal
@@ -95,7 +109,7 @@ script exits non-zero):
      new scenes at a small size on the card against the CPU, repeated bit
      for bit.
 The last lines are the card's name and power limit, the kernels' JSON
-summary and the result line.
+summary (K1-K5 and the draw kernel) and the result line.
 """
 import json
 import os
@@ -221,10 +235,11 @@ def launch_counts(wrappers):
 
 
 def all_wrappers():
-    """Each kernel's wrapper on the routes, by kernel name."""
+    """Each kernel's wrapper on the routes, by kernel name (K1-K5 and the
+    draw kernel)."""
     from solstrale_tpu_torch import bench
 
-    return bench.hit_kernels()
+    return bench.kernel_wrappers()
 
 
 def wrapper_ms(fn, reps=5, warmup=2):
@@ -581,6 +596,200 @@ def phase_kernels(sponza_cs):
         k: [g.replace("(anonymous namespace)::", "").split("(")[0][:60]
             for g in v] for k, v in kernels.items()})
     return out
+
+
+def phase_draws():
+    """2b: the draw kernel (``csrc/rng.cu``, ``ops.rng.uniform4``) against
+    its plain chain (``uniform4_plain``) at the main path's shapes and at
+    every argument form the callers pass: the four floats bit for bit (so
+    the top 24 bits of every PCG4D word), one launch a call (one device
+    kernel at the wide pool's form), ``uniform`` row 0 of it. Timed at the wide pool's 131,072
+    lanes; bound: the counters read once (int64 pixel and sample, int32
+    bounce) and four f32 written, over the memory rate. Returns its row of
+    the kernels line."""
+    import torch
+    from solstrale_tpu_torch import profiling
+    from solstrale_tpu_torch.ops import rng
+    from solstrale_tpu_torch.renderer import integrator
+
+    dev = torch.device("cuda")
+    lanes = 131072
+    start = torch.tensor(1, device=dev)
+    pix, samp = integrator.queue_assignment(
+        torch.arange(lanes, device=dev), 1920, 1080, start)
+    g = torch.Generator().manual_seed(5)
+    bounce = torch.randint(0, 51, (lanes,), generator=g,
+                           dtype=torch.int32).to(dev)
+    full = torch.arange(1920 * 1080, device=dev)
+    wide = (pix, samp, bounce, 1)
+    forms = {
+        "wide pool": wide,
+        "tail pool": (pix[:16384], samp[:16384], bounce[:16384], 1),
+        "camera (int bounce 0)": (pix, samp, 0, 1),
+        "1080p wavefront of render_pixels": (
+            full, torch.full_like(full, 3),
+            torch.zeros_like(full, dtype=torch.int32), 1),
+        "int32 counters": (pix.int(), samp.int(), bounce, 1),
+        "int sample": (pix, 7, bounce, 1),
+        "0-dim seed on the card": (pix, samp, bounce,
+                                   torch.tensor(2**31 - 1, device=dev)),
+        "0-dim sample on the card": (pix, start, bounce, 1),
+        "broadcast (512, 1) x (1, 256)": (pix[:512, None], samp[None, :256],
+                                          2, 9),
+        "pixel ids past 2**32": (pix + 2**33, samp, bounce, 1),
+    }
+    checked = 0
+    for purpose in (rng.P_JITTER, rng.P_COSINE, rng.P_MEDIUM_BASE + 2):
+        for name, (a, b, c, seed) in forms.items():
+            before = rng.uniform4.launches
+            got = rng.uniform4(a, b, c, purpose, seed)
+            if rng.uniform4.launches != before + 1:
+                raise AssertionError(f"draws ({name}): not one launch")
+            want = rng.uniform4_plain(a, b, c, purpose, seed)
+            words = rng.words4(a, b, c, purpose, seed)
+            for x, y, w in zip(got, want, words):
+                if x.shape != y.shape or not torch.equal(
+                        x.view(torch.int32), y.view(torch.int32)) or \
+                        not torch.equal((x * 16777216.0).long(), w >> 8):
+                    raise AssertionError(f"draws ({name}, purpose "
+                                         f"{purpose}): the kernel differs "
+                                         "from the plain chain")
+            if not torch.equal(rng.uniform(a, b, c, purpose, seed), got[0]):
+                raise AssertionError(f"draws ({name}): uniform is not row 0")
+            checked += 1
+    kernels = profiling.device_kernels(
+        {"draw": lambda: rng.uniform4(*wide[:3], rng.P_COSINE, wide[3])})
+    if len(kernels["draw"]) != 1 or "rng_uniform4" not in kernels["draw"][0]:
+        raise AssertionError(f"draws: one call ran {kernels['draw']}")
+    tm = kernel_times(lambda: rng.uniform4(*wide[:3], rng.P_COSINE, 1),
+                      lambda: rng.uniform4_plain(*wide[:3], rng.P_COSINE, 1))
+    row = dict(max_abs_err=0.0, **tm,
+               **bound(nbytes(pix, samp, bounce) + 16 * lanes, 0))
+    log("kernel", name="rng_uniform4 (draws)", lanes=lanes,
+        forms=list(forms), calls_checked=checked, bit_equal=True,
+        device_kernels_per_call=1, **row)
+    return row
+
+
+def _graph_entries(cs):
+    """The card driver's captures cached for the compiled scene ``cs``."""
+    from solstrale_tpu_torch.renderer import integrator
+
+    return {k[1] for k in integrator._PER_SCENE
+            if k[0] == id(cs) and k[1][0] == "wavefront"}
+
+
+def phase_graphs(sponza_cs):
+    """3e: trace_queued's card driver (each pool's GRAPH_STEPS steps and
+    stop test replayed as one CUDA graph) against its eager driver, bit for
+    bit (image and segments), on sponza 1080p (its recorded segments),
+    production, many_lights, the mixed scene (K1-K3) and the normal-mapped
+    kitchen (K4, 400x266x8): one capture replayed at two sample_starts
+    equal to the eager driver at each, a second seed its own capture, and
+    a replayed batch's launches (K1-K4 once a step, the draws at the eager
+    driver's rate a step) equal to the steps it ran."""
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import bench, fixtures
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    start = time.perf_counter()
+    wrappers = all_wrappers()
+    wl = {w.name: w for w in bench.WORKLOADS}
+
+    def bench_scene(name):
+        w = wl[name]
+        return (compile_scene(w.scene(T.RenderConfig(
+            width=w.width, height=w.height, samples_per_pixel=w.spp,
+            seed=1)), device="cuda"), w.width, w.height, 1)
+
+    def mixed():
+        return (compile_scene(fixtures.mixed_bvh_scene(T.RenderConfig(
+            width=1920, height=1080, seed=1), n_cells=362), device="cuda"),
+            1920, 1080, 1)
+
+    def kitchen():
+        return (compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+            width=400, height=266, samples_per_pixel=8, seed=1)),
+            device="cuda"), 400, 266, 8)
+
+    per_step = {"sponza": ("K1",), "sponza_production": ("K1", "K2"),
+                "many_lights": ("K1", "K2"), "mixed": ("K1", "K2", "K3"),
+                "kitchen": ("K4",)}
+    out = {}
+    for name, make in (("sponza", lambda: (sponza_cs, 1920, 1080, 1)),
+                       ("sponza_production",
+                        lambda: bench_scene("sponza_production")),
+                       ("many_lights", lambda: bench_scene("many_lights")),
+                       ("mixed", mixed), ("kitchen", kitchen)):
+        cs, w, h, spp = make()
+        kw = dict(width=w, height=h, max_depth=50)
+
+        def run(drive, sample_start, seed=1):
+            stats = {}
+            reset_launches(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            color, segs = drive(cs, sample_start, spp, seed, stats=stats,
+                                **kw)
+            segs = int(segs)
+            return dict(color=color, segments=segs, stats=stats,
+                        launches=launch_counts(wrappers),
+                        seconds=time.perf_counter() - t0)
+
+        def same(a, b, what):
+            if a["segments"] != b["segments"] or not torch.equal(
+                    a["color"], b["color"]):
+                raise AssertionError(f"graphs ({name}, {what}): the card "
+                                     "driver differs from the eager one")
+
+        before = _graph_entries(cs)
+        eager = run(integrator.trace_queued_eager, 1)
+        first = run(integrator.trace_queued, 1)      # captures
+        graph = run(integrator.trace_queued, 1)      # replays only
+        same(eager, first, "sample 1, capture")
+        same(eager, graph, "sample 1")
+        keys = _graph_entries(cs) - before
+        if len(keys) != 1:
+            raise AssertionError(f"graphs ({name}): {len(keys)} captures")
+        iters, reads = graph["stats"]["iters"], graph["stats"]["host_reads"]
+        if graph["stats"]["replays"] != reads or \
+                iters != reads * integrator.GRAPH_STEPS:
+            raise AssertionError(f"graphs ({name}): stats {graph['stats']}")
+        draws_a_step = (eager["launches"]["draw"] - 2) / eager["stats"][
+            "iters"]
+        want = {k: iters if k in per_step[name] else 0
+                for k in ("K1", "K2", "K3", "K4", "K5")}
+        want["draw"] = 2 + iters * draws_a_step
+        if graph["launches"] != want:
+            raise AssertionError(f"graphs ({name}): launches "
+                                 f"{graph['launches']}, want {want}")
+        line = dict(segments=graph["segments"],
+                    eager_seconds=eager["seconds"],
+                    first_graph_seconds=first["seconds"],
+                    graph_seconds=graph["seconds"],
+                    eager_iterations=eager["stats"]["iters"],
+                    eager_host_reads=eager["stats"]["host_reads"],
+                    iterations=iters, host_reads=reads,
+                    launches=graph["launches"], draws_a_step=draws_a_step)
+        if name == "sponza":
+            if graph["segments"] != SPONZA_SEGMENTS:
+                raise AssertionError(f"sponza segments {graph['segments']}, "
+                                     f"not {SPONZA_SEGMENTS}")
+            same(run(integrator.trace_queued_eager, 2),
+                 run(integrator.trace_queued, 2), "sample 2")
+            if _graph_entries(cs) - before != keys:
+                raise AssertionError("graphs: sample 2 captured anew")
+            same(run(integrator.trace_queued_eager, 1, seed=2),
+                 run(integrator.trace_queued, 1, seed=2), "seed 2")
+            if len(_graph_entries(cs) - before) != 2:
+                raise AssertionError("graphs: seed 2 took no capture of its "
+                                     "own")
+            line.update(sample_2_equal=True, seed_2_own_capture=True)
+        out[name] = line
+    log("graphs", graph_steps=integrator.GRAPH_STEPS, bit_equal=True,
+        seconds=time.perf_counter() - start, **out)
 
 
 def _check_k3(name, cs, o, d, counters):
@@ -1027,6 +1236,7 @@ def phase_main_path():
         launches=launches, k1_launches_sponza=k1_sponza, **timing,
         iterations=stats["iters"], iterations_wide=stats["iters_wide"],
         iterations_tail=stats["iters_tail"], lanes=stats["lanes"],
+        host_reads=stats["host_reads"], replays=stats["replays"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches
 
@@ -1095,13 +1305,14 @@ def phase_small_scene():
                           bench_400x266x8=_batch_timing(cs, 400, 266, 8))
     solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
         "launches"]
-    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1):
+    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0):
         raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
-                             f"other hit kernel, got {solid}")
+                             f"other kernel, got {solid}")
     if kitchen["K4"] <= 0 or kitchen["K5"] != 0:
         raise AssertionError(f"kitchen: expected K4 and no K5, got {kitchen}")
     log("small_scene_path", **runs)
-    return {"K4": kitchen["K4"], "K5": solid["K5"]}
+    return {"K4": kitchen["K4"], "K5": solid["K5"],
+            "draw": kitchen["draw"] + solid["draw"]}
 
 
 def _median_ms(fn, reps=3):
@@ -2289,8 +2500,10 @@ def main():
         triangles=int(sponza_cs.solids.tr_valid.sum().item()),
         leaves=sponza_cs.kbvh.n_leaves)
     timings = phase_kernels(sponza_cs)
+    timings["draw"] = phase_draws()
     launches = phase_main_path()
     launches.update(phase_small_scene())
+    phase_graphs(sponza_cs)
     timings["K5"] = phase_megakernel()
     phase_surface(sponza_cs)
     phase_card_vs_cpu()
@@ -2308,10 +2521,14 @@ def main():
               "K4": ("solstrale_tpu_torch/csrc/sweep.cu",
                      "solstrale_tpu/ops/pallas_sweep.py:356"),
               "K5": ("solstrale_tpu_torch/csrc/megakernel.cu",
-                     "solstrale_tpu/renderer/megakernel.py:228")}
+                     "solstrale_tpu/renderer/megakernel.py:228"),
+              "draw": ("solstrale_tpu_torch/csrc/rng.cu",
+                       "solstrale_tpu/ops/rng.py:68")}
     names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_media",
-             "K4": "k4_scene_hit", "K5": "k5_render"}
-    # no single PyTorch call computes any of these functions
+             "K4": "k4_scene_hit", "K5": "k5_render",
+             "draw": "rng_uniform4"}
+    # no single PyTorch call computes any of these functions (the draw
+    # kernel's counter hash included: torch has no PCG4D)
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
                     library_ms=None, **timings[k]) for k in names]

@@ -8,9 +8,11 @@ image-textured, normal-mapped 262,088-triangle interior at 1920x1080) last,
 under ``bench.py``'s metric names: ``value`` is the median over ``runs``
 timed batches of the path segments traced per second, in Mrays/s, beside
 every run's seconds, the segments, the route (``k5``: one megakernel
-launch per batch; ``wavefront``: the work-queue loop), the hit kernels'
-launches in one batch, the wavefront's iterations, the peak device memory
-and the card's name and power limit. A workload that fails prints an
+launch per batch; ``wavefront``: the work-queue loop, on the card CUDA
+graph replays), the kernels' launches in one batch (the hit kernels K1-K5
+and the draw kernel), the wavefront's iterations and its stop-test reads
+(host reads), the peak device memory and the card's name and power
+limit. A workload that fails prints an
 ``error`` line; the others still run, and the script exits with 1. There
 is no ``vs_baseline``: ``bench.py``'s 100 Mrays/s is a per-chip target of
 the TPU work, not a number of this card.
@@ -79,15 +81,15 @@ WORKLOADS = (
 )
 
 
-def hit_kernels():
-    """The hit kernels' wrappers by kernel name; each counts its launches
-    in ``launches``."""
-    from .ops import bvh, sweep
+def kernel_wrappers():
+    """The kernels' wrappers by name, the hit kernels K1-K5 and the draw
+    kernel; each counts its launches in ``launches``."""
+    from .ops import bvh, rng, sweep
     from .renderer import megakernel
 
     return {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
             "K3": sweep.media_hit, "K4": sweep.scene_hit,
-            "K5": megakernel.render_batch_megakernel}
+            "K5": megakernel.render_batch_megakernel, "draw": rng.uniform4}
 
 
 def device_info(device):
@@ -111,11 +113,11 @@ def measure(cs, width, height, spp, max_depth, runs=5, k5_direct=False):
     ``sample_start`` 100 (it also builds the kernels outside the clock).
     Each timed batch ends in a device synchronise before the clock stops;
     a black batch (``color.sum() <= 0``) raises, and so do batches that do
-    not repeat their segments and launches exactly. Returns the median
-    Mrays/s (segments over seconds), every run's seconds, the segments,
-    the route, the hit kernels' launches in one batch, the wavefront's
-    iterations (None on the K5 route) and the peak device memory in GB
-    (None on the CPU)."""
+    not repeat their segments, iterations, host reads and launches exactly.
+    Returns the median Mrays/s (segments over seconds), every run's
+    seconds, the segments, the route, the kernels' launches in one batch,
+    the wavefront's iterations and stop-test reads (None on the K5 route)
+    and the peak device memory in GB (None on the CPU)."""
     from .renderer import integrator, megakernel
 
     cuda = cs.device.type == "cuda"
@@ -124,7 +126,7 @@ def measure(cs, width, height, spp, max_depth, runs=5, k5_direct=False):
     if k5_direct and not gate:
         raise ValueError("k5_direct: the scene is outside the megakernel "
                          "gate")
-    kernels = hit_kernels()
+    kernels = kernel_wrappers()
 
     def batch(sample_start, stats):
         if k5_direct:
@@ -158,15 +160,16 @@ def measure(cs, width, height, spp, max_depth, runs=5, k5_direct=False):
         if not checksum > 0:
             raise RuntimeError(f"degenerate render: checksum={checksum}")
         launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
-        repeats.add((int(segs), stats.get("iters"),
+        repeats.add((int(segs), stats.get("iters"), stats.get("host_reads"),
                      tuple(launches.values())))
     if len(repeats) != 1:
         raise RuntimeError(f"the batches did not repeat: {sorted(repeats)}")
-    segments, iterations, _ = repeats.pop()
+    segments, iterations, host_reads, _ = repeats.pop()
     return dict(
         value=segments / statistics.median(seconds) / 1e6, unit="Mrays/s",
         route="k5" if gate else "wavefront", segments=segments,
         runs_s=seconds, launches=launches, iterations=iterations,
+        host_reads=host_reads,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
         else None)
 

@@ -171,4 +171,24 @@ __device__ __forceinline__ float4 uniform4(uint32_t pix, uint32_t sample,
                      static_cast<float>(d >> 8) * s);
 }
 
+// A counter of uniform4 (pixel, sample, bounce or seed) for lane i: an
+// int32 (size 4) or int64 (size 8) array read at i * stride (stride 1: one
+// value a lane; stride 0: one value for every lane, a broadcast scalar or a
+// 0-dim tensor read on the device), or without an array (p null) the
+// constant ``value``; taken as its low 32 bits, as ops/rng.py::_u32 does.
+struct Counter {
+  const void* p;
+  int size;
+  int stride;
+  uint32_t value;
+
+  __device__ __forceinline__ uint32_t at(long long i) const {
+    if (p == nullptr) return value;
+    const long long j = i * stride;
+    if (size == 8) return static_cast<uint32_t>(
+        static_cast<const long long*>(p)[j]);
+    return static_cast<uint32_t>(static_cast<const int*>(p)[j]);
+  }
+};
+
 }  // namespace hit

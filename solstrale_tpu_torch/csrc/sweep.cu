@@ -55,6 +55,7 @@
 
 namespace {
 
+using hit::Counter;
 using hit::Ray;
 
 constexpr int kThreads = 256;
@@ -158,19 +159,6 @@ __device__ __forceinline__ void sweep_tables(const Ray& r, bool live,
   *best_t = best;
   *best_slot = slot;
 }
-
-// A lane counter (pixel, sample or bounce): an (R,) int32 (size 4) or
-// int64 (size 8) array; taken as its low 32 bits, as rng._u32 does.
-struct Counter {
-  const void* p;
-  int size;
-
-  __device__ __forceinline__ uint32_t at(int i) const {
-    if (size == 8) return static_cast<uint32_t>(
-        static_cast<const long long*>(p)[i]);
-    return static_cast<uint32_t>(static_cast<const int*>(p)[i]);
-  }
-};
 
 // The lanes' counters and the seed: medium m's flight uniform for lane i
 // is rng.uniform(pixel, sample, bounce, P_MEDIUM_BASE + m, seed).
@@ -394,8 +382,8 @@ extern "C" int k2_bvh_spheres_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Counters: (pointer, element size 4 or 8). The media: MediaTables' packed
-// tables, offsets (int32), neg_inv_density and boxes.
+// Counters: (pointer, element size 4 or 8), one value a lane. The media:
+// MediaTables' packed tables, offsets (int32), neg_inv_density and boxes.
 extern "C" int k3_media_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* pix, int pix_size,
@@ -409,8 +397,9 @@ extern "C" int k3_media_launch(
     k3_media<<<blocks_for(n_rays), kThreads, media_smem_bytes(n_msph, n_mpl),
                static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz,
-        Draw{Counter{pix, pix_size}, Counter{sample, sample_size},
-             Counter{bounce, bounce_size}, seed},
+        Draw{Counter{pix, pix_size, 1, 0u},
+             Counter{sample, sample_size, 1, 0u},
+             Counter{bounce, bounce_size, 1, 0u}, seed},
         media_of(msph, n_msph, mpln, n_mpl, sph_off, pl_off, nid, box,
                  n_media),
         t_in, kind_in, idx_in, n_rays, out_t, out_kind, out_idx);
@@ -418,7 +407,7 @@ extern "C" int k3_media_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Counters: (pointer, element size 4 or 8).
+// Counters: (pointer, element size 4 or 8), one value a lane.
 extern "C" int k4_scene_hit_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* pix, int pix_size,
@@ -433,8 +422,9 @@ extern "C" int k4_scene_hit_launch(
                    media_smem_bytes(n_msph, n_mpl),
                    static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz,
-        Draw{Counter{pix, pix_size}, Counter{sample, sample_size},
-             Counter{bounce, bounce_size}, seed},
+        Draw{Counter{pix, pix_size, 1, 0u},
+             Counter{sample, sample_size, 1, 0u},
+             Counter{bounce, bounce_size, 1, 0u}, seed},
         reinterpret_cast<const float4*>(sph), n_sph,
         reinterpret_cast<const float4*>(pln), n_pl, pl_idx,
         media_of(msph, n_msph, mpln, n_mpl, sph_off, pl_off, nid, box,

@@ -33,7 +33,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("bvh.cu", "sweep.cu", "megakernel.cu")
+SOURCES = ("bvh.cu", "sweep.cu", "megakernel.cu", "rng.cu")
 HEADERS = ("hit.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 # C entry points: argument types (pointers, ints, floats, stream) ->
 # cudaError_t
 _SIGNATURES = {
@@ -57,6 +58,9 @@ _SIGNATURES = {
     "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P, _P],
+    # counters: (pointer, element size, stride, value) each
+    "rng_uniform4_launch": [_P, _I, _I, _U] * 3 + [_U, _P, _I, _I, _U, _L,
+                                                   _P, _P],
 }
 
 

@@ -12,12 +12,21 @@ masked to 32 bits after every multiply and add. An int64 product wraps mod
 
 Hash: PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering", JCGT
 2020).
+
+The draws (``uniform4``, ``uniform``) have a hand-written CUDA kernel
+(``csrc/rng.cu``, one launch a draw, in place of the JAX package's fused
+PCG4D chains) and a plain PyTorch version (``uniform4_plain``: the int64
+chain above, the CPU path and the kernel's oracle). The wrapper picks by
+the counters' device only: CPU tensors and Python ints take the plain
+version, CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from . import _build
 
 # Purpose tags: draw-site identifiers (same values as the JAX package).
 P_JITTER = 0
@@ -90,14 +99,70 @@ def words4(pixel_id, sample, bounce, purpose, seed):
     return pcg4d(a, b, c, d)
 
 
-def uniform4(pixel_id, sample, bounce, purpose, seed):
-    """Four independent uniforms in [0,1) per counter tuple."""
+def uniform4_plain(pixel_id, sample, bounce, purpose, seed):
+    """Four independent uniforms in [0,1) per counter tuple: the plain
+    PyTorch chain (``words4``, ``to_unit_float``)."""
     return tuple(to_unit_float(w) for w in
                  words4(pixel_id, sample, bounce, purpose, seed))
 
 
+def kernel_counter(x, shape, dev):
+    """One counter as the draw kernel reads it: (tensor, stride, value).
+    A one-element tensor on ``dev`` is read there by every lane (stride 0:
+    no host read); a tensor of the broadcast ``shape`` one value a lane
+    (stride 1; any other broadcastable form is first made a contiguous
+    tensor of that shape); a Python int is passed by value (no tensor).
+    The lane's word is the value's low 32 bits, as ``_u32`` takes it."""
+    if isinstance(x, torch.Tensor) and x.dtype not in (torch.int32,
+                                                       torch.int64):
+        raise TypeError(f"uniform4: counters must be ints or int32 / int64 "
+                        f"tensors, not {x.dtype}")
+    if not isinstance(x, torch.Tensor):
+        return None, 0, int(x) & _M32
+    if x.device != dev:
+        raise ValueError(f"uniform4: counters on {x.device} and {dev}")
+    if x.numel() == 1:
+        return x, 0, 0
+    if x.shape != shape or not x.is_contiguous():
+        x = x.expand(shape).contiguous()
+    return x, 1, 0
+
+
+def uniform4(pixel_id, sample, bounce, purpose, seed):
+    """Four independent uniforms in [0,1) per counter tuple. pixel_id /
+    sample / bounce may be tensors (broadcastable) or ints; purpose is a
+    Python int; seed is an int or a 0-dim tensor. With a CUDA tensor among
+    the counters, one launch of the draw kernel (``csrc/rng.cu``; counters
+    as ``kernel_counter`` gives them) writes a (4, ...) f32 tensor whose
+    rows are returned; else the plain chain."""
+    args = (pixel_id, sample, bounce, seed)
+    tensors = [x for x in args if isinstance(x, torch.Tensor)]
+    dev = next((x.device for x in tensors if x.device.type != "cpu"), None)
+    if dev is None:
+        return uniform4_plain(pixel_id, sample, bounce, purpose, seed)
+    if dev.type != "cuda":
+        raise ValueError(f"uniform4: unsupported device {dev}")
+    shape = torch.broadcast_shapes(*(x.shape for x in tensors))
+    counters = [kernel_counter(x, shape, dev) for x in args]
+    c_args = []
+    for t, stride, value in counters:
+        c_args.append([None, 0, 0, value] if t is None else
+                      [_build.ptr(t), t.element_size(), stride, 0])
+    out = torch.empty((4, *shape), dtype=torch.float32, device=dev)
+    err = _build.library().rng_uniform4_launch(
+        *c_args[0], *c_args[1], *c_args[2], int(purpose) & _M32,
+        *c_args[3], out[0].numel(), _build.ptr(out), _build.stream_of(out))
+    _build.check(err, "rng_uniform4")
+    uniform4.launches += 1
+    return tuple(out.unbind(0))
+
+
+uniform4.launches = 0
+
+
 def uniform(pixel_id, sample, bounce, purpose, seed):
-    """Single uniform in [0,1)."""
+    """Single uniform in [0,1): the first of ``uniform4``'s (on the card,
+    the first row of the same launch)."""
     return uniform4(pixel_id, sample, bounce, purpose, seed)[0]
 
 

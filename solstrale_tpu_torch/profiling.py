@@ -9,10 +9,15 @@ cells, the 262,088-triangle interior; kitchen: the normal-mapped
 kitchen-sink scene, which takes the wavefront with the fused scene hit;
 or a wavefront workload of ``bench`` at its size: sponza_textured, the
 bench's headline ``sponza``; sponza_production; many_lights) on the GPU,
-warms up, then times one ``render_sample_batch`` (1 spp, depth 50)
-twice: once bare (CUDA-synced host clock: the end-to-end number) and once
-under ``torch.profiler`` (device time per kernel name, the device's busy
-and idle share of the profiled wall time, and the hit kernels' share). ``--step`` times one
+warms up (on the wavefront, the warm-up batch also captures its CUDA
+graphs), then times one ``render_sample_batch`` (1 spp, depth 50) twice:
+once bare (CUDA-synced host clock: the end-to-end number, with the steps
+run, the stop-test reads and the graph replays) and once under
+``torch.profiler`` (device time per kernel name, the device's busy and
+idle share of the profiled wall time, the hit kernels' and the draw
+kernel's share, the device kernels a step, and the launches the profiler
+saw of K1 and the draw kernel beside the wrappers' counts: kernels inside
+a graph replay are attributed only if the two agree). ``--step`` times one
 ``diff.image_and_texture_grad`` step instead (1 spp, depth 50, against a
 target at seed 2): its forward and its backward (the checkpointed replay
 and the gradient) apart with CUDA events, then the whole step under
@@ -29,7 +34,7 @@ from collections import defaultdict
 import torch
 
 HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
-               "k5_render")
+               "k5_render", "rng_uniform4")
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
 
@@ -110,7 +115,8 @@ def device_kernels(calls, attempts=5):
 
 
 def _profile(fn):
-    """fn() under torch.profiler: its wall ms and the device's kernels."""
+    """fn() under torch.profiler: its wall ms and the device's kernels (a
+    summary, and ``device_kernel_times``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -129,7 +135,7 @@ def _profile(fn):
                                  if name in k) / 1e3
                        for name in HIT_KERNELS},
         top_kernels=[dict(name=k[:90], count=v[0], ms=v[1] / 1e3)
-                     for k, v in top])
+                     for k, v in top]), kernels
 
 
 def profile_step(scene_name="mixed"):
@@ -163,10 +169,11 @@ def profile_step(scene_name="mixed"):
         forward_ms=marks[0].elapsed_time(marks[1]),
         backward_ms=marks[1].elapsed_time(marks[2]),
         **_profile(lambda: diff.image_and_texture_grad(cs, target, seed=1,
-                                                       **kw)))
+                                                       **kw))[0])
 
 
 def profile_batch(scene_name="sponza"):
+    from . import bench
     from .renderer import integrator
     from .scene.compile import compile_scene
 
@@ -186,13 +193,27 @@ def profile_batch(scene_name="sponza"):
     float(color.sum())
     wall = time.perf_counter() - t0
 
+    wrappers = bench.kernel_wrappers()
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    prof, kernels = _profile(
+        lambda: integrator.render_sample_batch(cs, 1, 1, **kw))
+    counted = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    seen = {name: sum(v[0] for k, v in kernels.items() if name in k)
+            for name in ("k1_bvh", "rng_uniform4")}
+    iters = stats.get("iters")
     return dict(
         scene=scene_name, width=width, height=height,
         gpu=torch.cuda.get_device_name(0),
         batch_seconds=wall, segments=int(segs),
-        segments_per_second=int(segs) / wall, iterations=stats["iters"],
-        ms_per_iteration=wall * 1e3 / stats["iters"],
-        **_profile(lambda: integrator.render_sample_batch(cs, 1, 1, **kw)))
+        segments_per_second=int(segs) / wall, iterations=iters,
+        host_reads=stats.get("host_reads"), replays=stats.get("replays"),
+        ms_per_iteration=wall * 1e3 / iters if iters else None,
+        launches_per_iteration=(prof["kernel_launches"] / iters if iters
+                                else None),
+        profiled_vs_counted={"k1_bvh": [seen["k1_bvh"], counted["K1"]],
+                             "rng_uniform4": [seen["rng_uniform4"],
+                                              counted["draw"]]},
+        **prof)
 
 
 def main(argv=None):

@@ -21,8 +21,9 @@ for the derivation. The loop carries the prefix product A, the running
 bound B, a per-channel dead flag and an outer-pdf flag.
 
 Vectors and colors are component tuples of (R,) tensors (``geo/soa.py``).
-The JAX ``while_loop``s become Python loops; each loop test is one host
-sync per iteration.
+The JAX ``while_loop``s become Python loops. On the card, ``trace_queued``
+replays each pool's steps as CUDA graphs and reads its loop test once a
+replay; elsewhere each loop test is one host read.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from ..geo import soa
 from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
                        unit3, vneg, vscale, where3)
 from ..ops import rng, sweep
-from ..ops.bvh import bvh_closest_hit
+from ..ops.bvh import bvh_closest_hit, bvh_planar_hit
 from ..ops.intersect import (hit_attributes_soa, light_pdf_mean3,
                              sample_light_direction3, table_rows)
 from ..scene.compile import (BLEND, DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC,
@@ -668,6 +669,305 @@ def render_sample(cs: CompiledScene, sample, seed, *, width, height,
     return tuple(to_image(c, width, height) for c in planes)
 
 
+# Steps of one pool that a CUDA graph of the wavefront's card driver holds,
+# and so the steps between two reads of its stop test: chosen from {1, 2,
+# 4, 8} by measurement on the H100 (PERF.md, PR 12).
+GRAPH_STEPS = 2
+
+
+def _counted_wrappers():
+    """The kernel wrappers a wavefront step launches through, each with its
+    ``launches`` count: the hit kernels K1-K4 and the draw kernel."""
+    return (bvh_planar_hit, sweep.bvh_sphere_hit, sweep.media_hit,
+            sweep.scene_hit, rng.uniform4)
+
+
+def _queue_sizes(width, height, n_samples, lanes, pix_ids, n_valid):
+    """(rows of the result, pixels of the queue, queue entries, lanes of the
+    wide pool)."""
+    if pix_ids is None:
+        n_rows = n_pix = width * height
+    else:
+        n_rows = pix_ids.shape[0]
+        n_pix = n_rows if n_valid is None else int(n_valid)
+    total_q = n_pix * n_samples
+    if lanes is None:
+        # large queues amortize per-iteration cost over more lanes; small
+        # ones finish their drain tail sooner with half-size pools
+        lanes = 131072 if total_q >= 1_500_000 else 65536
+    return n_rows, n_pix, total_q, min(lanes, total_q)
+
+
+class _Pool:
+    """One pool of lanes: queue position, bounce, ray, accumulated length
+    and fold state, each a tensor of its own that every step overwrites in
+    place (so a captured step reads and writes the same memory on every
+    replay)."""
+
+    def __init__(self, n, dev):
+        def zeros(dtype=torch.float32):
+            return torch.zeros((n,), dtype=dtype, device=dev)
+
+        self.qpos = zeros(torch.int64)
+        self.bounce = zeros(torch.int32)
+        self.o = tuple(zeros() for _ in range(3))
+        self.d = tuple(zeros() for _ in range(3))
+        self.acc_len = zeros()
+        self.fold = (tuple(zeros() for _ in range(3)),
+                     tuple(zeros() for _ in range(3)),
+                     tuple(zeros(torch.bool) for _ in range(3)),
+                     zeros(torch.bool))
+
+    def tensors(self):
+        A, B, dead, outer = self.fold
+        return [self.qpos, self.bounce, *self.o, *self.d, self.acc_len, *A,
+                *B, *dead, outer]
+
+
+class _Wavefront:
+    """trace_queued's work queue for one (image or shard, n_samples,
+    lanes, seed) in fixed tensors: the wide pool and, for 32,768 lanes or
+    more, the tail pool an eighth as wide; the next free queue position;
+    one accumulation row per queue entry plus a discard row; the segment
+    count; the first sample id (``start``, a 0-dim int64 tensor) and the
+    shard's pixel ids. ``step`` runs one iteration of a pool and writes its
+    results back in place; ``stop_test`` writes whether the pool must go on
+    into ``go``. Holds no reference to the scene: each method that needs it
+    takes it."""
+
+    def __init__(self, dev, width, height, max_depth, n_samples, seed,
+                 lanes, pix_ids, n_valid):
+        self.width, self.height = width, height
+        self.max_depth, self.n_samples, self.seed = max_depth, n_samples, seed
+        self.n_rows, self.n_pix, self.total_q, self.lanes = _queue_sizes(
+            width, height, n_samples, lanes, pix_ids, n_valid)
+        self.pix = None if pix_ids is None else torch.zeros_like(pix_ids)
+        self.tail_lanes = self.lanes // 8 if self.lanes >= 32768 else 0
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.start = torch.zeros((), **i64)
+        self.next_q = torch.zeros((), **i64)
+        self.segments = torch.zeros((), **i64)
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.accum = torch.zeros((self.total_q + 1, 3), dtype=torch.float32,
+                                 device=dev)
+        self.pools = [_Pool(n, dev) for n in (self.lanes, self.tail_lanes)
+                      if n]
+
+    def assignment(self, qpos):
+        """Queue position -> (pixel id, sample id)."""
+        if self.pix is None:
+            return queue_assignment(qpos, self.width, self.height,
+                                    self.start)
+        return (self.pix[qpos % self.n_pix],
+                self.start + qpos // self.n_pix)
+
+    def row_of(self, qpos, pixel):
+        """The accumulation row of a queue position: sample-major, by pixel
+        id in the full image, by slot in a shard."""
+        if self.pix is None:
+            return (qpos // self.n_pix) * self.n_pix + pixel
+        return qpos
+
+    def camera(self, cs, qpos):
+        """Camera rays of these queue positions; a position past the queue
+        parks with a zero direction."""
+        pixel, samp = self.assignment(torch.clamp(qpos, max=self.total_q - 1))
+        o, d = _camera_rays(cs, pixel, samp, self.seed, self.width,
+                            self.height)
+        parked = qpos >= self.total_q
+        return o, tuple(torch.where(parked, 0.0, c) for c in d)
+
+    def reset(self, cs, sample_start, pix_ids):
+        """A new batch from ``sample_start`` (an int or a 0-dim tensor): the
+        wide pool on the first queue positions, the queue, rows and
+        segments zeroed."""
+        if isinstance(sample_start, torch.Tensor):
+            self.start.copy_(sample_start)
+        else:
+            self.start.fill_(int(sample_start))
+        if self.pix is not None:
+            self.pix.copy_(pix_ids)
+        self.accum.zero_()
+        self.segments.zero_()
+        self.next_q.fill_(self.lanes)
+        pool = self.pools[0]
+        qpos = torch.arange(self.lanes, dtype=torch.int64,
+                            device=self.start.device)
+        o, d = self.camera(cs, qpos)
+        A, B, dead, outer = pool.fold
+        for dst, src in zip((pool.qpos, *pool.o, *pool.d), (qpos, *o, *d)):
+            dst.copy_(src)
+        for x, v in ((pool.bounce, 0), (pool.acc_len, 0.0), *((a, 1.0)
+                     for a in A), *((b, INF) for b in B),
+                     *((x, False) for x in dead), (outer, False)):
+            x.fill_(v)
+
+    def step(self, cs, pool):
+        """One iteration of ``pool``: ``path_step`` on every lane, the
+        finished paths' colors stored in their rows, and terminal lanes
+        claiming the next queue positions in order (rank by an exclusive
+        cumsum) with new camera rays."""
+        total_q = self.total_q
+        qpos = pool.qpos
+        pixel, sample = self.assignment(torch.clamp(qpos, max=total_q - 1))
+        active = qpos < total_q
+        st = path_step(cs, pool.o, pool.d, pool.bounce, pool.acc_len,
+                       pool.fold, pixel, sample, self.seed, active,
+                       self.max_depth)
+        terminal = st["terminal"]
+        row = self.row_of(qpos, pixel)
+        self.accum.index_put_((torch.where(terminal, row, total_q),),
+                              st["color"])
+        term_i = terminal.to(torch.int64)
+        rank = torch.cumsum(term_i, 0) - term_i
+        new_qpos = torch.where(terminal, self.next_q + rank, qpos)
+        o_new, d_new = self.camera(cs, new_qpos)
+        self.segments.add_(active.sum())
+        A, B, dead, outer = st["fold"]
+        new = [new_qpos, torch.where(terminal, 0, st["bounce"]),
+               *where3(terminal, o_new, st["o"]),
+               *where3(terminal, d_new, st["d"]),
+               torch.where(terminal, 0.0, st["acc_len"]), *A, *B, *dead,
+               outer]
+        self.next_q.add_(term_i.sum())
+        for dst, src in zip(pool.tensors(), new):
+            dst.copy_(src)
+
+    def stop_test(self, pool):
+        """Into ``go``: whether ``pool`` must go on. The wide pool of a run
+        with a tail pool, while the queue is not fully claimed or more
+        lanes than the tail pool holds are live; else while a lane is
+        live."""
+        live = pool.qpos < self.total_q
+        if pool is self.pools[0] and len(self.pools) > 1:
+            go = (self.next_q < self.total_q) | (live.sum() > self.tail_lanes)
+        else:
+            go = live.any()
+        self.go.copy_(go)
+
+    def compact(self):
+        """The wide pool's live lanes, in a stable alive-first order, into
+        the tail pool."""
+        wide, tail = self.pools
+        active = wide.qpos < self.total_q
+        perm = torch.argsort(torch.where(active, 0, 1), stable=True)[
+            :self.tail_lanes]
+        for dst, src in zip(tail.tensors(), wide.tensors()):
+            torch.index_select(src, 0, perm, out=dst)
+
+    def result(self):
+        """The color summed over the samples in sample order (deterministic)
+        and the segments, both new tensors."""
+        per_sample = self.accum[:self.total_q].view(self.n_samples,
+                                                    self.n_pix, 3)
+        color = per_sample[0].clone()
+        for s in range(1, self.n_samples):
+            color = color + per_sample[s]
+        if self.n_rows > self.n_pix:
+            color = torch.cat([color,
+                               color.new_zeros((self.n_rows - self.n_pix, 3))])
+        return color, self.segments.clone()
+
+
+def _empty_result(n_rows, dev):
+    """The result of an empty queue: zero rows, zero segments."""
+    return (torch.zeros((n_rows, 3), dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _drain(wf, advance, steps, stats, replays):
+    """Run each pool of ``wf`` until its stop test fails, the live lanes
+    compacted into the tail pool between the two: ``advance(k)`` runs
+    ``steps`` steps of pool k and its stop test, and ``go`` is read once
+    after each (the one host read). Fills ``stats``."""
+    iters = []
+    for k in range(len(wf.pools)):
+        if k:
+            wf.compact()
+        n = 0
+        while True:
+            advance(k)
+            n += 1
+            if not bool(wf.go):
+                break
+        iters.append(n)
+    if stats is not None:
+        stats.update(iters=sum(iters) * steps,
+                     iters_wide=iters[0] * steps if len(iters) > 1 else 0,
+                     iters_tail=iters[-1] * steps, lanes=wf.lanes,
+                     tail_lanes=wf.tail_lanes, host_reads=sum(iters),
+                     replays=sum(iters) if replays else 0)
+
+
+class _WavefrontGraphs:
+    """The card driver's capture of one ``_Wavefront``: per pool one CUDA
+    graph of ``GRAPH_STEPS`` steps and the stop test, and the launches each
+    kernel wrapper makes in one replay. Built once per compiled scene and
+    key (``per_scene``): a warm-up on a side stream first (the kernels'
+    build, the scene's packed tables and every lazy state exist before
+    capture), then the captures, sharing one memory pool. The graphs hold
+    the scene's tables by address: they are dropped with the scene."""
+
+    def __init__(self, cs, wf, sample_start, pix_ids):
+        self.wf, self.steps = wf, GRAPH_STEPS
+        side = torch.cuda.Stream(device=cs.device)
+        side.wait_stream(torch.cuda.current_stream(cs.device))
+        with torch.cuda.stream(side):
+            wf.reset(cs, sample_start, pix_ids)
+            for k, pool in enumerate(wf.pools):
+                if k:
+                    wf.compact()
+                wf.step(cs, pool)
+                wf.stop_test(pool)
+        torch.cuda.current_stream(cs.device).wait_stream(side)
+        mempool = torch.cuda.graph_pool_handle()
+        wrappers = _counted_wrappers()
+        self.graphs = []
+        for pool in wf.pools:
+            before = [fn.launches for fn in wrappers]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=mempool):
+                for _ in range(self.steps):
+                    wf.step(cs, pool)
+                wf.stop_test(pool)
+            # the wrappers counted their launches once, at capture, where
+            # nothing ran: each replay adds them instead
+            counts = []
+            for fn, b in zip(wrappers, before):
+                counts.append(fn.launches - b)
+                fn.launches = b
+            self.graphs.append((graph, counts))
+
+    def advance(self, k):
+        graph, counts = self.graphs[k]
+        graph.replay()
+        for fn, c in zip(_counted_wrappers(), counts):
+            fn.launches += c
+
+
+def trace_queued_eager(cs: CompiledScene, sample_start, n_samples, seed, *,
+                       width, height, max_depth, lanes=None, stats=None,
+                       pix_ids=None, n_valid=None, steps=1):
+    """``trace_queued``'s eager driver, the CPU path and the card driver's
+    plain version: each pool's steps dispatched op by op from Python, the
+    stop test read every ``steps`` steps (1: after each; the card driver's
+    ``GRAPH_STEPS`` gives its exact schedule). Same arguments and result
+    as ``trace_queued``."""
+    wf = _Wavefront(cs.device, width, height, max_depth, n_samples, seed,
+                    lanes, pix_ids, n_valid)
+    if wf.total_q == 0:
+        return _empty_result(wf.n_rows, cs.device)
+    wf.reset(cs, sample_start, pix_ids)
+
+    def advance(k):
+        for _ in range(steps):
+            wf.step(cs, wf.pools[k])
+        wf.stop_test(wf.pools[k])
+
+    _drain(wf, advance, steps, stats, replays=False)
+    return wf.result()
+
+
 def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
                  height, max_depth, lanes=None, stats=None, pix_ids=None,
                  n_valid=None):
@@ -690,121 +990,44 @@ def trace_queued(cs: CompiledScene, sample_start, n_samples, seed, *, width,
     buffer, and the samples are summed in order at the end — no float
     atomics.
 
+    The driver follows the scene's device. On the CPU, the eager driver
+    (``trace_queued_eager``). On the card, the JAX package's one device
+    program per batch: each pool runs as replays of one CUDA graph of
+    ``GRAPH_STEPS`` steps and the stop test, read once a replay, with no
+    host work between its steps. The graphs are captured once per compiled
+    scene and (width, height, max_depth, n_samples, lanes, seed, shard
+    shape and n_valid), ``seed`` taken as an int; ``sample_start`` (an int
+    or a 0-dim tensor) is written into the capture's own tensor each batch.
+    A pool may run up to ``GRAPH_STEPS - 1`` steps past its stop test: a
+    step on parked lanes changes nothing, so the image and the segments
+    equal the eager driver's bit for bit. A failed capture raises.
+
     Returns (accum summed over n_samples, segments traced as a 0-dim int64
     tensor): accum is (width*height, 3) in pixel-id order, or (Np, 3) in
     ``pix_ids`` order with zero rows for the padding. ``stats`` (optional
-    dict) receives the loop's iteration counts."""
-    dev = cs.device
-    if pix_ids is None:
-        n_pix = n_rows = width * height
-
-        def assignment(qpos):
-            return queue_assignment(qpos, width, height, sample_start)
-
-        def row_of(qpos, pixel):
-            return (qpos // n_pix) * n_pix + pixel
-    else:
-        n_rows = pix_ids.shape[0]
-        n_pix = n_rows if n_valid is None else int(n_valid)
-
-        def assignment(qpos):
-            return pix_ids[qpos % n_pix], sample_start + qpos // n_pix
-
-        def row_of(qpos, pixel):
-            return qpos
-    total_q = n_pix * n_samples
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    dict) receives the steps run (``iters``, ``iters_wide``,
+    ``iters_tail``), the pools' widths, the stop-test reads
+    (``host_reads``) and the graph replays (``replays``; 0 on the CPU)."""
+    kw = dict(width=width, height=height, max_depth=max_depth, lanes=lanes,
+              stats=stats, pix_ids=pix_ids, n_valid=n_valid)
+    if cs.device.type != "cuda":
+        return trace_queued_eager(cs, sample_start, n_samples, seed, **kw)
+    seed = int(seed)
+    n_rows, n_pix, total_q, lanes = _queue_sizes(width, height, n_samples,
+                                                 lanes, pix_ids, n_valid)
     if total_q == 0:
-        return torch.zeros((n_rows, 3), dtype=torch.float32,
-                           device=dev), segments
-    if lanes is None:
-        # large queues amortize per-iteration cost over more lanes; small
-        # ones finish their drain tail sooner with half-size pools
-        lanes = 131072 if total_q >= 1_500_000 else 65536
-    lanes = min(lanes, total_q)
-
-    def cam(qpos):
-        pixel, samp = assignment(torch.clamp(qpos, max=total_q - 1))
-        o, d = _camera_rays(cs, pixel, samp, seed, width, height)
-        parked = qpos >= total_q
-        return o, tuple(torch.where(parked, 0.0, c) for c in d)
-
-    qpos0 = torch.arange(lanes, dtype=torch.int64, device=dev)
-    o0, d0 = cam(qpos0)
-    zero_l = torch.zeros((lanes,), dtype=torch.float32, device=dev)
-    state = dict(qpos=qpos0,
-                 bounce=torch.zeros((lanes,), dtype=torch.int32, device=dev),
-                 o=o0, d=d0, acc_len=zero_l, fold=fold_init(zero_l))
-    next_q = torch.tensor(lanes, dtype=torch.int64, device=dev)
-    # one row per queue entry (sample-major, pixel id or slot within a
-    # sample) plus a discard row for lanes that did not finish this
-    # iteration
-    accum = torch.zeros((total_q + 1, 3), dtype=torch.float32, device=dev)
-
-    def one_step(state, next_q):
-        qpos = state["qpos"]
-        pixel, sample = assignment(torch.clamp(qpos, max=total_q - 1))
-        active = qpos < total_q
-        st = path_step(cs, state["o"], state["d"], state["bounce"],
-                       state["acc_len"], state["fold"], pixel, sample, seed,
-                       active, max_depth)
-        terminal = st["terminal"]
-        row = row_of(qpos, pixel)
-        accum.index_put_((torch.where(terminal, row, total_q),), st["color"])
-
-        # terminal lanes claim the next queue positions (exclusive cumsum)
-        term_i = terminal.to(torch.int64)
-        rank = torch.cumsum(term_i, 0) - term_i
-        new_qpos = torch.where(terminal, next_q + rank, qpos)
-        next_q = next_q + term_i.sum()
-        o_new, d_new = cam(new_qpos)
-        segments.add_(active.sum())
-        return dict(qpos=new_qpos,
-                    bounce=torch.where(terminal, 0, st["bounce"]).to(
-                        torch.int32),
-                    o=where3(terminal, o_new, st["o"]),
-                    d=where3(terminal, d_new, st["d"]),
-                    acc_len=torch.where(terminal, 0.0, st["acc_len"]),
-                    fold=st["fold"]), next_q
-
-    tail_lanes = lanes // 8 if lanes >= 32768 else 0
-    iters_wide = iters_tail = 0
-    if tail_lanes:
-        while True:
-            live = (state["qpos"] < total_q).sum()
-            if not bool((next_q < total_q) | (live > tail_lanes)):
-                break
-            state, next_q = one_step(state, next_q)
-            iters_wide += 1
-        # compact live lanes (alive-first stable order) into the tail pool
-        active = state["qpos"] < total_q
-        perm = torch.argsort(torch.where(active, 0, 1), stable=True)[
-            :tail_lanes]
-        A, B, dead, outer = state["fold"]
-        state = dict(qpos=state["qpos"][perm],
-                     bounce=state["bounce"][perm],
-                     o=tuple(c[perm] for c in state["o"]),
-                     d=tuple(c[perm] for c in state["d"]),
-                     acc_len=state["acc_len"][perm],
-                     fold=(tuple(c[perm] for c in A),
-                           tuple(c[perm] for c in B),
-                           tuple(c[perm] for c in dead), outer[perm]))
-    while bool((state["qpos"] < total_q).any()):
-        state, next_q = one_step(state, next_q)
-        iters_tail += 1
-
-    # sum the per-sample buffers in sample order (deterministic)
-    per_sample = accum[:total_q].view(n_samples, n_pix, 3)
-    color = per_sample[0]
-    for s in range(1, n_samples):
-        color = color + per_sample[s]
-    if stats is not None:
-        stats.update(iters=iters_wide + iters_tail, iters_wide=iters_wide,
-                     iters_tail=iters_tail, lanes=lanes,
-                     tail_lanes=tail_lanes)
-    if n_rows > n_pix:
-        color = torch.cat([color, color.new_zeros((n_rows - n_pix, 3))])
-    return color, segments
+        return _empty_result(n_rows, cs.device)
+    key = ("wavefront", width, height, max_depth, n_samples, lanes, seed,
+           None if pix_ids is None else tuple(pix_ids.shape), n_pix,
+           GRAPH_STEPS)
+    with torch.no_grad():
+        graphs = per_scene(cs, key, lambda: _WavefrontGraphs(
+            cs, _Wavefront(cs.device, width, height, max_depth, n_samples,
+                           seed, lanes, pix_ids, n_valid),
+            sample_start, pix_ids))
+        graphs.wf.reset(cs, sample_start, pix_ids)
+        _drain(graphs.wf, graphs.advance, graphs.steps, stats, replays=True)
+        return graphs.wf.result()
 
 
 def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,

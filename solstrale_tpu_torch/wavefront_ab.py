@@ -1,0 +1,240 @@
+"""The wavefront route on the card, measured on two trees in turns, or over
+the card driver's steps per replay.
+
+    python -m solstrale_tpu_torch.wavefront_ab --parent DIR
+    python -m solstrale_tpu_torch.wavefront_ab --steps 1,2,4,8
+
+The workloads: the bench's three wavefront workloads at its settings
+(``sponza_production`` 1080p, ``many_lights`` 960x540, ``sponza``, the
+headline, 1080p; 1 spp) and the normal-mapped kitchen, which K5's gate
+refuses (the wavefront with K4), at the bench kitchen's 400x266, 8 spp.
+Depth 50, seed 1. Per workload: one warm-up batch at ``sample_start`` 100
+(the kernels' build and, on a tree with the card driver, its graph
+capture), then ``RUNS`` batches at ``sample_start`` 1, each ending in a
+synchronise (the Mrays/s median and every run), the steps a batch ran
+(``iterations``), its stop-test reads (``host_reads``: the driver's own
+count, or on a tree without one its loop's, one read a step plus one a
+pool), the kernels' launches a batch by their wrappers' counts, and one
+more batch under ``torch.profiler``: its device kernels (and memory ops)
+a step, its device busy time, its idle share of the profiled wall time
+and of the unprofiled median batch, and the launches of K1 the profiler
+saw beside the wrapper's count.
+
+``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
+unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
+tree and DIR again, each in a process of its own that imports that tree's
+package. ``--steps`` runs this tree alone, with ``integrator.GRAPH_STEPS``
+set to each value in turn and then in the reverse order (each value
+recaptures its graphs). Prints one JSON line per tree (or steps value) and
+workload, the card's name and power limit in each, and writes them to
+``chiprun_out/wavefront_ab.jsonl``. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+RUNS = 5
+SEED = 1
+DEPTH = 50
+WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4")
+HERE = Path(__file__).resolve().parent.parent
+
+
+def _workload(name):
+    """(scene, width, height, spp) of a workload of this module."""
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import bench, fixtures
+
+    if name == "kitchen_k4":
+        w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
+    else:
+        wl = next(x for x in bench.WORKLOADS if x.name == name)
+        w, h, spp, build = wl.width, wl.height, wl.spp, wl.scene
+    return build(T.RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                                samples_per_batch=spp, seed=SEED)), w, h, spp
+
+
+def _wrappers():
+    from solstrale_tpu_torch import bench
+
+    fn = getattr(bench, "kernel_wrappers", None) or bench.hit_kernels
+    return fn()
+
+
+def _host_reads(stats):
+    if "host_reads" in stats:
+        return stats["host_reads"], "driver"
+    # the eager loop of a tree without the count: a read before every step
+    # and one that ends each pool
+    pools = 2 if stats["tail_lanes"] else 1
+    return stats["iters"] + pools, "loop"
+
+
+def _profiled(batch):
+    """One batch under torch.profiler: device ops, busy ms, wall ms and the
+    K1 kernels seen."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return dict(device_ops=len(ops), device_busy_ms=busy_ms,
+                profiled_wall_ms=wall_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                k1_seen=sum("k1_bvh" in e.name for e in ops))
+
+
+def measure(cs, w, h, spp, profile=True):
+    """The line of one workload on a compiled scene (see the module
+    docstring)."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    kw = dict(width=w, height=h, max_depth=DEPTH,
+              shader_kind=integrator.SHADER_PATH, need_aux=False,
+              n_samples=spp)
+    wrappers = _wrappers()
+
+    def batch(stats=None):
+        color, _, _, segs = integrator.render_sample_batch(
+            cs, 1, SEED, stats=stats, **kw)
+        return color, segs
+
+    float(integrator.render_sample_batch(cs, 100, SEED, **kw)[0].sum())
+    seconds, seen = [], set()
+    for _ in range(RUNS):
+        stats = {}
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        color, segs = batch(stats)
+        checksum = float(color.sum())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if not checksum > 0:
+            raise RuntimeError(f"degenerate render: checksum={checksum}")
+        launches = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        seen.add((int(segs), stats["iters"], _host_reads(stats),
+                  tuple(launches.values())))
+    if len(seen) != 1:
+        raise RuntimeError(f"the batches did not repeat: {sorted(seen)}")
+    segments, iters, (reads, reads_from), _ = seen.pop()
+    median = statistics.median(seconds)
+    line = dict(mrays_per_s=segments / median / 1e6, runs_s=seconds,
+                segments=segments, iterations=iters, host_reads=reads,
+                host_reads_from=reads_from,
+                ms_per_iteration=median * 1e3 / iters, launches=launches,
+                replays=stats.get("replays"))
+    if profile:
+        before = wrappers["K1"].launches
+        prof = _profiled(batch)
+        prof["k1_counted"] = wrappers["K1"].launches - before
+        prof["device_ops_per_iteration"] = prof["device_ops"] / iters
+        # the profiler slows the host: the share against the unprofiled
+        # median batch of the same workload
+        prof["device_idle_share_of_median"] = max(
+            0.0, 1.0 - prof["device_busy_ms"] / (median * 1e3))
+        line.update(prof)
+    return line
+
+
+def _device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("wavefront_ab needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return smi
+
+
+def worker(root, steps, side):
+    """In a process whose package is ``root``'s: each workload measured,
+    at each of ``steps`` (None: the tree's own driver), one JSON line
+    each."""
+    # run as a script, this file's directory heads sys.path: the package
+    # must come from ``root`` alone
+    here = Path(__file__).resolve().parent
+    sys.path[:] = [str(root)] + [p for p in sys.path
+                                 if Path(p or ".").resolve() != here]
+    import solstrale_tpu_torch
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    if Path(solstrale_tpu_torch.__file__).resolve().parent.parent != \
+            Path(root).resolve():
+        raise RuntimeError(f"imported {solstrale_tpu_torch.__file__}, not "
+                           f"the tree at {root}")
+    gpu = _device()
+    for name in WORKLOADS:
+        scene, w, h, spp = _workload(name)
+        t0 = time.perf_counter()
+        cs = compile_scene(scene, device="cuda")
+        compile_s = time.perf_counter() - t0
+        for k in steps or (None,):
+            if k is not None:
+                integrator.GRAPH_STEPS = k
+            line = measure(cs, w, h, spp, profile=k is None)
+            print(json.dumps(dict(side=side, workload=name, graph_steps=k,
+                                  width=w, height=h, spp=spp,
+                                  compile_s=compile_s, gpu=gpu, **line)),
+                  flush=True)
+
+
+def _run_side(root, side, steps=None):
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
+           str(root), "--side", side]
+    if steps:
+        cmd += ["--steps", ",".join(map(str, steps))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        raise RuntimeError(f"{side} at {root} failed ({proc.returncode})")
+    return [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, help="root of the parent's tree")
+    ap.add_argument("--steps", help="GRAPH_STEPS values, comma-separated")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--side", default="change", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    steps = [int(x) for x in args.steps.split(",")] if args.steps else None
+    if args.worker:
+        worker(args.worker, steps, args.side)
+        return 0
+    if args.parent:
+        plan = [(args.parent, "parent", None), (HERE, "change", None),
+                (HERE, "change", None), (args.parent, "parent", None)]
+    elif steps:
+        plan = [(HERE, "change", steps + steps[::-1])]
+    else:
+        ap.error("give --parent DIR or --steps LIST")
+    out = HERE / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with open(out / "wavefront_ab.jsonl", "a") as f:
+        for root, side, k in plan:
+            for line in _run_side(root, side, k):
+                print(line, flush=True)
+                f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

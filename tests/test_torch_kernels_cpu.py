@@ -403,13 +403,14 @@ def test_launch_signature_matches_source(name):
     """The ctypes argument types of each kernel's C entry point follow its
     declaration in ``csrc`` (no compiler here to catch a mismatch): a
     pointer is c_void_p, an unsigned int c_uint, a float c_float, an int
-    c_int."""
+    c_int, a long long c_longlong."""
     import ctypes
 
     def ctype(param):
         decl = param.rsplit(" ", 1)[0] if "*" not in param else "*"
         return {"*": ctypes.c_void_p, "unsigned int": ctypes.c_uint,
-                "float": ctypes.c_float, "int": ctypes.c_int}[decl]
+                "float": ctypes.c_float, "int": ctypes.c_int,
+                "long long": ctypes.c_longlong}[decl]
 
     launchers = _c_launchers()
     assert set(launchers) == set(_build._SIGNATURES)

@@ -469,3 +469,57 @@ def test_wrapper_rejects_cpu_cuda_mix(cuda):
     with pytest.raises(ValueError):
         sweep.media_hit(integrator.media_tables(cs), o, d, t, zero, zero,
                         zero, zero, zero, 1)
+
+
+@pytest.mark.parametrize("form", ["lanes", "int bounce", "0-dim seed",
+                                  "broadcast"])
+def test_draw_kernel_matches_plain(cuda, form):
+    """The draw kernel (csrc/rng.cu) against the plain PCG4D chain, the
+    floats bit for bit, one launch a call: one device kernel for lanes and
+    scalars, and before it a contiguous copy of each operand of a broadcast
+    pair that is not of the full shape (rng.kernel_counter)."""
+    from solstrale_tpu_torch.ops import rng
+
+    g = torch.Generator().manual_seed(4)
+    pix = torch.randint(0, 2**40, (4099,), generator=g).to(cuda)
+    sample = torch.randint(0, 64, (4099,), generator=g).to(cuda)
+    bounce = torch.randint(0, 51, (4099,), generator=g,
+                           dtype=torch.int32).to(cuda)
+    args = {"lanes": (pix, sample, bounce, 7),
+            "int bounce": (pix, sample, 0, 7),
+            "0-dim seed": (pix, 3, bounce, torch.tensor(9, device=cuda)),
+            "broadcast": (pix[:64, None], sample[None, :33], 2, 1)}[form]
+    before = rng.uniform4.launches
+    got = rng.uniform4(*args[:3], rng.P_COSINE, args[3])
+    assert rng.uniform4.launches == before + 1
+    want = rng.uniform4_plain(*args[:3], rng.P_COSINE, args[3])
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    names = _device_kernels(
+        lambda: rng.uniform4(*args[:3], rng.P_COSINE, args[3]))
+    copies = 2 if form == "broadcast" else 0
+    assert len(names) == 1 + copies and "rng_uniform4" in names[-1], names
+    assert all("copy" in n for n in names[:copies]), names
+
+
+@pytest.mark.parametrize("name", ["mixed", "kitchen"])
+def test_graph_driver_matches_eager(cuda, name):
+    """trace_queued's card driver (CUDA graph replays) against its eager
+    driver at 128x64x4 (a wide and a tail pool): image and segments bit for
+    bit at two sample_starts from one capture, one stop read a replay."""
+    build = {"mixed": lambda c: fixtures.mixed_bvh_scene(c, n_cells=24),
+             "kitchen": fixtures.kitchen_sink_scene}[name]
+    w, h, spp = 128, 64, 4
+    cs = compile_scene(build(T.RenderConfig(width=w, height=h)), device=cuda)
+    kw = dict(width=w, height=h, max_depth=50)
+    for start in (1, 5):
+        stats = {}
+        color, segs = integrator.trace_queued(cs, start, spp, 1,
+                                              stats=stats, **kw)
+        want, want_segs = integrator.trace_queued_eager(cs, start, spp, 1,
+                                                        **kw)
+        assert torch.equal(color, want) and int(segs) == int(want_segs)
+        assert stats["replays"] == stats["host_reads"] > 0
+        assert stats["iters"] == stats["host_reads"] * integrator.GRAPH_STEPS
+    assert sum(1 for k in integrator._PER_SCENE
+               if k[0] == id(cs) and k[1][0] == "wavefront") == 1

@@ -195,8 +195,9 @@ def test_full_image_route_unchanged():
     below the BVH threshold, so the queue code dominates the CPU time) at
     128x64x4, 32,768 queue entries, so the wide pool and the tail pool both
     run: the image (its sha256), segments and iteration counts are those
-    the route gave before it took pix_ids, and the shard route over every
-    pixel id gives the same image and segments."""
+    the route gave before it took pix_ids (one stop-test read a step, no
+    graph replay on the CPU), and the shard route over every pixel id gives
+    the same image and segments."""
     w, h, spp = 128, 64, 4
     cs = tcompile(fixtures.sponza_class_scene(T.RenderConfig(
         width=w, height=h, samples_per_pixel=spp, seed=SEED), n_cells=8),
@@ -208,7 +209,7 @@ def test_full_image_route_unchanged():
         "485f2c63cd940f3f")
     assert int(segs) == 70624
     assert stats == dict(iters=20, iters_wide=3, iters_tail=17, lanes=32768,
-                         tail_lanes=4096)
+                         tail_lanes=4096, host_reads=20, replays=0)
     pix = torch.arange(w * h, dtype=torch.int64)
     shard, segs_s = TI.trace_queued(cs, 1, spp, SEED, width=w, height=h,
                                     max_depth=50, pix_ids=pix)
