@@ -74,19 +74,29 @@ script exits non-zero):
      pixel outside 1e-3 there and in phase 7 (up to 8 a scene) is traced
      to the first (sample, bounce) and quantity at which the two devices'
      lanes part, one ``card_vs_cpu_outlier`` line each;
-  5. diff and parallel: the inverse-rendering step
-     (``diff.image_and_texture_grad``: the fixed trip's forward and its
-     checkpointed path-replay backward) on the mixed scene at 1920x1080,
-     depth 50 (K1-K3) and on the kitchen at 400x266 (K4), against a target
-     at seed 2: finite loss, a non-zero finite gradient, two runs agreeing
-     (rtol 1e-5), its time (CUDA events, median of 3), its peak memory
-     and the kernels' launches in the forward and in the replay, beside
-     the peak memory, time and gradient (rtol 1e-5) of the step that keeps
-     the whole tape (checkpoint replaced by a plain call); card against CPU
-     gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a one-rank
-     NCCL group, ``render_batch_sharded`` on the interior at 1080p equal to
-     ``render_sample_batch`` (6,708,708 segments), ``train_step_sharded``
-     equal to one ``image_and_texture_grad`` SGD step and
+  5. diff and parallel: the inverse-rendering step (the fixed trip's
+     forward and its checkpointed path-replay backward) on the mixed scene
+     at 1920x1080, depth 50 (K1-K3) and on the kitchen at 400x266 (K4),
+     against a target at seed 2: taken by hand, a finite loss, a non-zero
+     finite gradient, its peak memory and the kernels' launches in the
+     forward and in the replay, beside the peak memory, time and gradient
+     (rtol 1e-5) of the step that keeps the whole tape (checkpoint
+     replaced by a plain call); then ``diff.image_and_texture_grad`` as it
+     runs on the card (one captured CUDA graph, replayed) beside the same
+     step run op by op (``diff._GradStep.eager``): one capture, the
+     replay equal to the eager step (loss rtol 1e-5, gradient rtol 1e-5,
+     atol 1e-7), no host read in a call, a replay's launches equal to the
+     eager forward's and replay's, each step's time (CUDA events, three of
+     each in turns, median and all), the capture's time and the peak bytes
+     of the capture, a replay and the eager step, and the graph pool's
+     resident bytes; on the kitchen, a 10-step SGD loop through
+     ``set_texture_params`` from a scene of its own, one capture, its
+     final arena equal to the eager loop's (rtol 1e-4, atol 1e-7); card
+     against CPU gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a
+     one-rank NCCL group, ``render_batch_sharded`` on the interior at 1080p
+     equal to ``render_sample_batch`` (6,708,708 segments),
+     ``train_step_sharded`` (its shard step graphed too) equal to one
+     ``image_and_texture_grad`` SGD step and
      ``render_distributed``'s final image; the denoiser trainer for a few
      steps at 64x64, and one Adam step on the card against the CPU;
   6. OBJ ingest and the device BVH build: the sponza-class terrain written
@@ -2063,14 +2073,36 @@ def _grad_step(cs, target, w, h, depth, wrappers=None):
     return loss.detach(), g, counts
 
 
+def _eager_step(cs, target, w, h, depth):
+    """The inverse step dispatched op by op on the card (``diff._GradStep``
+    without its graph: the plain version of a replay)."""
+    from solstrale_tpu_torch import diff
+
+    return diff._GradStep(cs, target, width=w, height=h, max_depth=depth,
+                          n_samples=1, seed=1)
+
+
+def _event_ms(fn):
+    """One call of fn timed by CUDA events (ms)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
 def _unchunked_step(cs, target, w, h, depth):
     """The step with the whole tape kept: the fixed trip's checkpoint
     replaced by a plain call, as tests/test_torch_diff.py's unchunked test
-    does on the CPU. Returns (peak bytes above the step's start, step ms
-    as the median of 3 after the measured call, gradient)."""
+    does on the CPU, run eagerly (a cached graph would keep its chunks).
+    Returns (peak bytes above the step's start, step ms as the median of 3
+    after the measured call, gradient)."""
     import torch
     import torch.utils.checkpoint
-    from solstrale_tpu_torch import diff
 
     chunked = torch.utils.checkpoint.checkpoint
     torch.utils.checkpoint.checkpoint = lambda fn, *args, **kw: fn(*args)
@@ -2081,12 +2113,119 @@ def _unchunked_step(cs, target, w, h, depth):
         _, g, _ = _grad_step(cs, target, w, h, depth)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        ms = wrapper_ms(lambda: diff.image_and_texture_grad(
-            cs, target, width=w, height=h, max_depth=depth, n_samples=1,
-            seed=1), reps=3, warmup=0)
+        step = _eager_step(cs, target, w, h, depth)
+        ms = wrapper_ms(lambda: step.eager(cs, target), reps=3, warmup=0)
     finally:
         torch.utils.checkpoint.checkpoint = chunked
     return peak, ms, g
+
+
+def _pool_bytes(graph):
+    """Bytes of the device segments held by ``graph``'s private memory
+    pool (the allocator's snapshot), and the segments counted."""
+    import torch
+
+    pool = tuple(graph.pool())
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id") or ()) == pool]
+    return sum(s["total_size"] for s in segs), len(segs)
+
+
+def _graphed_step_cell(name, cs, target, w, h, depth, eager_counts,
+                       wrappers):
+    """The step as ``diff.image_and_texture_grad`` runs it on the card (one
+    CUDA graph a geometry and key) beside the eager step on the same
+    inputs: its first call (the capture), three replays and three eager
+    steps (CUDA events, in turns), each's peak bytes above the step's start,
+    the graph pool's resident bytes, the host reads inside a call, and the
+    launches of one replay against the eager step's forward + replay.
+    Checks the replay against the eager step (loss rtol 1e-5; gradient
+    rtol 1e-5, atol 1e-7) and the launches. Returns the log fields."""
+    import torch
+    from solstrale_tpu_torch import diff
+    from solstrale_tpu_torch.profiling import HostReads
+
+    kw = dict(width=w, height=h, max_depth=depth, n_samples=1, seed=1)
+    eager = _eager_step(cs, target, w, h, depth)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out
+
+    captures = diff._GradStep.captures
+    t0 = time.perf_counter()
+    capture_peak, (loss_g, g_g) = peak_of(
+        lambda: diff.image_and_texture_grad(cs, target, **kw))
+    capture_s = time.perf_counter() - t0
+    if diff._GradStep.captures != captures + 1:
+        raise AssertionError(f"{name}: {diff._GradStep.captures - captures}"
+                             " captures on a key's first call")
+    step = diff.grad_step(cs, target, **kw)
+    pool, pool_segments = _pool_bytes(step.graph)
+    reset_launches(wrappers)
+    with HostReads() as reads:
+        replay_peak, (loss_r, g_r) = peak_of(
+            lambda: diff.image_and_texture_grad(cs, target, **kw))
+    counts = launch_counts(wrappers)
+    with HostReads() as eager_reads:
+        eager_peak, (loss_e, g_e) = peak_of(lambda: eager.eager(cs, target))
+    # three of each in turns: graph, eager, eager, graph, graph, eager
+    ms = {"graph": [], "eager": []}
+    for side in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        ms[side].append(_event_ms(
+            (lambda: diff.image_and_texture_grad(cs, target, **kw))
+            if side == "graph" else (lambda: eager.eager(cs, target))))
+    if diff._GradStep.captures != captures + 1:
+        raise AssertionError(f"{name}: a replay captured again")
+    torch.testing.assert_close(loss_r, loss_e, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_r, g_e, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(loss_g, loss_e, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_g, g_e, rtol=1e-5, atol=1e-7)
+    want = {k: eager_counts["forward"][k] + eager_counts["replay"][k]
+            for k in counts}
+    if counts != want or reads.n:
+        raise AssertionError(f"{name}: a replay launched {counts}, the "
+                             f"eager step {want}; host reads {reads.n}")
+    return dict(
+        graph_step_ms=sorted(ms["graph"])[1], graph_step_ms_all=ms["graph"],
+        eager_step_ms=sorted(ms["eager"])[1], eager_step_ms_all=ms["eager"],
+        capture_s=capture_s,
+        capture_peak_bytes=capture_peak, replay_peak_bytes=replay_peak,
+        eager_peak_bytes=eager_peak, pool_bytes=pool,
+        pool_segments=pool_segments,
+        host_reads_replay=reads.n, host_reads_eager=eager_reads.n,
+        replay_launches=counts,
+        replay_grad_max_abs_err=float((g_r - g_e).abs().max()),
+        replay_loss_rel_err=float(abs(loss_r - loss_e) / loss_e)), (loss_e,
+                                                                   g_e)
+
+
+def _sgd_loop(cs, target, w, h, depth, lr, steps=10):
+    """``steps`` SGD steps through ``set_texture_params``, graphed
+    (``image_and_texture_grad``) and eager (one ``_GradStep`` run op by op),
+    from the same scene. Returns (final arenas, captures of the graphed
+    loop, losses of each)."""
+    from solstrale_tpu_torch import diff
+
+    kw = dict(width=w, height=h, max_depth=depth, n_samples=1, seed=1)
+    eager = _eager_step(cs, target, w, h, depth)
+    captures = diff._GradStep.captures
+    out = {}
+    for side in ("graph", "eager"):
+        p, losses = cs, []
+        for _ in range(steps):
+            loss, g = (diff.image_and_texture_grad(p, target, **kw)
+                       if side == "graph" else eager.eager(p, target))
+            losses.append(float(loss))
+            p = diff.set_texture_params(p, p.textures.pixels - lr * g)
+        out[side] = (p.textures.pixels, losses)
+        if side == "graph":
+            captured = diff._GradStep.captures - captures
+    return out, captured
 
 
 def phase_diff_parallel(sponza_cs, smi):
@@ -2126,18 +2265,8 @@ def phase_diff_parallel(sponza_cs, smi):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         flat_peak, flat_ms, g_flat = _unchunked_step(cs, target, w, h, depth)
-        times, again = [], None
-        for _ in range(3):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            loss2, g2 = diff.image_and_texture_grad(
-                cs, target, width=w, height=h, max_depth=depth, n_samples=1,
-                seed=1)
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-            again = g2 if again is None else again
+        cell, (loss2, again) = _graphed_step_cell(name, cs, target, w, h,
+                                                  depth, counts, wrappers)
         if not (bool(torch.isfinite(img).all())
                 and bool(torch.isfinite(g).all()) and bool((g != 0).any())):
             raise AssertionError(f"{name}: image or gradient not finite, "
@@ -2154,14 +2283,33 @@ def phase_diff_parallel(sponza_cs, smi):
                                      ("K1", "K2", "K3", "K5")):
             raise AssertionError(f"kitchen: launches off the K4 route "
                                  f"{counts}")
-        times.sort()
         log("diff_step", gpu=smi, scene=name, width=w, height=h,
-            max_depth=depth, loss=float(loss), step_ms=times[1],
-            step_ms_all=times, peak_bytes=peak, baseline_bytes=base,
+            max_depth=depth, loss=float(loss), step_ms=cell["graph_step_ms"],
+            peak_bytes=peak, baseline_bytes=base,
             flat_tape_peak_bytes=flat_peak, flat_tape_step_ms=flat_ms,
             chunk=integrator.remat_chunk(depth),
-            grad_nonzero=int((g != 0).sum()), launches=counts,
+            grad_nonzero=int((g != 0).sum()), launches=counts, **cell,
             seconds=time.perf_counter() - start)
+        if name == "kitchen":
+            # a 10-step SGD loop from a scene of its own: one capture, and
+            # the eager loop's arena (lr 0.3: the loss falls at every step
+            # of a 40x27, depth-8 CPU run; 1.0 oscillates, 3.0 diverges)
+            fresh = compile_scene(build(T.RenderConfig(width=w, height=h,
+                                                       seed=1)),
+                                  device="cuda")
+            lr = 0.3
+            loop, captured = _sgd_loop(fresh, target, w, h, depth, lr)
+            (p_g, losses_g), (p_e, losses_e) = loop["graph"], loop["eager"]
+            if captured != 1:
+                raise AssertionError(f"SGD loop: {captured} captures")
+            torch.testing.assert_close(p_g, p_e, rtol=1e-4, atol=1e-7)
+            log("diff_sgd_loop", gpu=smi, scene=name, steps=10, lr=lr,
+                captures=captured, losses_graph=losses_g,
+                losses_eager=losses_e,
+                arena_max_abs_err=float((p_g - p_e).abs().max()),
+                arena_moved=float((p_g - fresh.textures.pixels).abs().max()),
+                seconds=time.perf_counter() - start)
+            del fresh, loop, p_g, p_e
         del cs, target, img, g, again, g_flat
 
     # card against CPU at 64x32, depth 8

@@ -3,6 +3,7 @@ on the card.
 
     python -m solstrale_tpu_torch.profiling [--scene NAME]
     python -m solstrale_tpu_torch.profiling --step [--scene mixed|kitchen]
+    python -m solstrale_tpu_torch.profiling --step --eager [--scene ...]
 
 Compiles the fixture scene (1920x1080; sponza and mixed: 362 terrain
 cells, the 262,088-triangle interior; kitchen: the normal-mapped
@@ -19,9 +20,12 @@ kernel's share, the device kernels a step, and the launches the profiler
 saw of K1 and the draw kernel beside the wrappers' counts: kernels inside
 a graph replay are attributed only if the two agree). ``--step`` times one
 ``diff.image_and_texture_grad`` step instead (1 spp, depth 50, against a
-target at seed 2): its forward and its backward (the checkpointed replay
-and the gradient) apart with CUDA events, then the whole step under
-``torch.profiler``. Prints one JSON object. Needs a CUDA device; there is
+target at seed 2), which on the card replays the step's CUDA graph: its
+first call (the capture), one call by CUDA events, the host reads of a
+call, and one call under ``torch.profiler`` (its device ops, busy and idle
+share); ``--eager`` runs the same step op by op (``diff._GradStep.eager``)
+and times its forward and its backward (the checkpointed replay and the
+gradient) apart. Prints one JSON object. Needs a CUDA device; there is
 no CPU fallback.
 """
 from __future__ import annotations
@@ -32,6 +36,7 @@ import time
 from collections import defaultdict
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
                "k5_render", "rng_uniform4")
@@ -138,7 +143,26 @@ def _profile(fn):
                      for k, v in top]), kernels
 
 
-def profile_step(scene_name="mixed"):
+class HostReads(TorchDispatchMode):
+    """While active, counts in ``n`` the ops that read a tensor back to the
+    host (each a sync on the card). Ops inside a CUDA graph replay are not
+    dispatched, so they read nothing."""
+
+    SYNCS = frozenset({"_local_scalar_dense", "nonzero", "is_nonzero",
+                       "equal", "masked_select", "allclose", "argwhere",
+                       "unique", "_unique2", "repeat_interleave"})
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in self.SYNCS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def profile_step(scene_name="mixed", eager=False):
     from . import diff
     from .scene.compile import compile_scene
 
@@ -149,27 +173,53 @@ def profile_step(scene_name="mixed"):
     kw = dict(width=width, height=height, max_depth=50, n_samples=1)
     with torch.no_grad():
         target = diff.render_linear(cs, seed=2, **kw)
-    diff.image_and_texture_grad(cs, target, seed=1, **kw)
+    if eager:
+        step = diff._GradStep(cs, target, seed=1, **kw)
 
+        def call():
+            return step.eager(cs, target)
+    else:
+        def call():
+            return diff.image_and_texture_grad(cs, target, seed=1, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+
+    out = dict(scene=scene_name, width=width, height=height, max_depth=50,
+               gpu=torch.cuda.get_device_name(0),
+               route="eager" if eager else "graph", first_call_seconds=first)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     marks[0].record()
-    p = cs.textures.pixels.detach().requires_grad_(True)
-    img = diff.render_linear(diff.set_texture_params(cs, p), seed=1, **kw)
-    loss = torch.mean((img - target) ** 2)
-    marks[1].record()
-    torch.autograd.grad(loss, p)
+    if eager:
+        # the forward and the backward (the checkpointed replay and the
+        # gradient) apart
+        p = cs.textures.pixels.detach().requires_grad_(True)
+        img = diff.render_linear(diff.set_texture_params(cs, p), seed=1,
+                                 **kw)
+        loss = torch.mean((img - target) ** 2)
+        marks[1].record()
+        torch.autograd.grad(loss, p)
+    else:
+        call()
     marks[2].record()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return dict(
-        scene=scene_name, width=width, height=height, max_depth=50,
-        gpu=torch.cuda.get_device_name(0), step_seconds=wall,
-        forward_ms=marks[0].elapsed_time(marks[1]),
-        backward_ms=marks[1].elapsed_time(marks[2]),
-        **_profile(lambda: diff.image_and_texture_grad(cs, target, seed=1,
-                                                       **kw))[0])
+    out["step_seconds"] = time.perf_counter() - t0
+    out["step_ms"] = marks[0].elapsed_time(marks[2])
+    if eager:
+        out["forward_ms"] = marks[0].elapsed_time(marks[1])
+        out["backward_ms"] = marks[1].elapsed_time(marks[2])
+    with HostReads() as reads:
+        call()
+    torch.cuda.synchronize()
+    out["host_reads"] = reads.n
+    prof = _profile(call)[0]
+    # every kernel of the step, inside a replay too
+    prof["device_ops_per_step"] = prof["kernel_launches"]
+    return dict(out, **prof)
 
 
 def profile_batch(scene_name="sponza"):
@@ -223,9 +273,14 @@ def main(argv=None):
                     default=None, help="default: sponza, mixed with --step")
     ap.add_argument("--step", action="store_true",
                     help="one inverse-rendering step, not a render batch")
+    ap.add_argument("--eager", action="store_true",
+                    help="with --step: the step dispatched op by op, its "
+                         "forward and backward timed apart")
     args = ap.parse_args(argv)
+    if args.eager and not args.step:
+        ap.error("--eager needs --step")
     if args.step:
-        print(json.dumps(profile_step(args.scene or "mixed")))
+        print(json.dumps(profile_step(args.scene or "mixed", args.eager)))
     else:
         print(json.dumps(profile_batch(args.scene or "sponza")))
 

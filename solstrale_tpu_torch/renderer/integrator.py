@@ -138,14 +138,22 @@ def per_scene(cs: CompiledScene, name, make):
     return _PER_SCENE[key]
 
 
+# The per_scene name (the first item of its key tuple) of ``diff``'s
+# captured inverse steps, which ``share_geometry_tables`` carries across
+GRAD_STEP = "grad_step"
+
+
 def share_geometry_tables(src: CompiledScene, dst: CompiledScene):
     """Give ``dst``, a copy of ``src`` with the same geometry (another
     texture arena: ``diff.set_texture_params``), ``src``'s packed media
     tables, so that the copy neither repacks them nor syncs for the box
-    scale. K5's tables hold the texels and are not shared."""
-    key = (id(src), "media")
-    if key in _PER_SCENE:
-        per_scene(dst, "media", lambda: _PER_SCENE[key])
+    scale, and its inverse steps (``GRAD_STEP``), which copy the arena in
+    at each call, so that an SGD loop captures its step once. K5's tables
+    and the wavefront's graphs hold the texels and are not shared."""
+    for (sid, name), value in list(_PER_SCENE.items()):
+        if sid == id(src) and (name == "media" or (
+                isinstance(name, tuple) and name[0] == GRAD_STEP)):
+            per_scene(dst, name, lambda v=value: v)
 
 
 def media_tables(cs: CompiledScene):
@@ -899,50 +907,72 @@ def _drain(wf, advance, steps, stats, replays):
                      replays=sum(iters) if replays else 0)
 
 
+def warm_up(dev, fn):
+    """``fn()`` on a side stream, the current stream waiting for it: the
+    step a capture runs first, so that the kernels' build, the scene's
+    packed tables and every lazy state exist before capture."""
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+
+def capture_counted(fn, pool=None):
+    """``fn()`` captured as a CUDA graph, in ``pool`` (a private pool if
+    None) -> (graph, the launches each counted wrapper made in it). The
+    wrappers count their launches once, at capture, where nothing runs:
+    their counts are restored here, and ``replay_counted`` adds them on
+    every replay. A failed capture raises."""
+    wrappers = _counted_wrappers()
+    before = [w.launches for w in wrappers]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        fn()
+    counts = [w.launches - b for w, b in zip(wrappers, before)]
+    for w, b in zip(wrappers, before):
+        w.launches = b
+    return graph, counts
+
+
+def replay_counted(graph, counts):
+    """One replay of a ``capture_counted`` graph, its launches counted."""
+    graph.replay()
+    for w, c in zip(_counted_wrappers(), counts):
+        w.launches += c
+
+
 class _WavefrontGraphs:
     """The card driver's capture of one ``_Wavefront``: per pool one CUDA
     graph of ``GRAPH_STEPS`` steps and the stop test, and the launches each
     kernel wrapper makes in one replay. Built once per compiled scene and
-    key (``per_scene``): a warm-up on a side stream first (the kernels'
-    build, the scene's packed tables and every lazy state exist before
-    capture), then the captures, sharing one memory pool. The graphs hold
-    the scene's tables by address: they are dropped with the scene."""
+    key (``per_scene``): a warm-up on a side stream first (``warm_up``),
+    then the captures, sharing one memory pool. The graphs hold the
+    scene's tables by address: they are dropped with the scene."""
 
     def __init__(self, cs, wf, sample_start, pix_ids):
         self.wf, self.steps = wf, GRAPH_STEPS
-        side = torch.cuda.Stream(device=cs.device)
-        side.wait_stream(torch.cuda.current_stream(cs.device))
-        with torch.cuda.stream(side):
+
+        def warm():
             wf.reset(cs, sample_start, pix_ids)
             for k, pool in enumerate(wf.pools):
                 if k:
                     wf.compact()
                 wf.step(cs, pool)
                 wf.stop_test(pool)
-        torch.cuda.current_stream(cs.device).wait_stream(side)
+
+        def steps(pool):
+            for _ in range(self.steps):
+                wf.step(cs, pool)
+            wf.stop_test(pool)
+
+        warm_up(cs.device, warm)
         mempool = torch.cuda.graph_pool_handle()
-        wrappers = _counted_wrappers()
-        self.graphs = []
-        for pool in wf.pools:
-            before = [fn.launches for fn in wrappers]
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=mempool):
-                for _ in range(self.steps):
-                    wf.step(cs, pool)
-                wf.stop_test(pool)
-            # the wrappers counted their launches once, at capture, where
-            # nothing ran: each replay adds them instead
-            counts = []
-            for fn, b in zip(wrappers, before):
-                counts.append(fn.launches - b)
-                fn.launches = b
-            self.graphs.append((graph, counts))
+        self.graphs = [capture_counted(lambda p=pool: steps(p), mempool)
+                       for pool in wf.pools]
 
     def advance(self, k):
-        graph, counts = self.graphs[k]
-        graph.replay()
-        for fn, c in zip(_counted_wrappers(), counts):
-            fn.launches += c
+        replay_counted(*self.graphs[k])
 
 
 def trace_queued_eager(cs: CompiledScene, sample_start, n_samples, seed, *,

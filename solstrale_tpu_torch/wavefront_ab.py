@@ -1,7 +1,7 @@
-"""The wavefront route on the card, measured on two trees in turns, or over
-the card driver's steps per replay.
+"""The wavefront route and the inverse step on the card, measured on two
+trees in turns, or over the card driver's steps per replay.
 
-    python -m solstrale_tpu_torch.wavefront_ab --parent DIR
+    python -m solstrale_tpu_torch.wavefront_ab --parent DIR [--workloads A,B]
     python -m solstrale_tpu_torch.wavefront_ab --steps 1,2,4,8
 
 The workloads: the bench's three wavefront workloads at its settings
@@ -20,14 +20,26 @@ a step, its device busy time, its idle share of the profiled wall time
 and of the unprofiled median batch, and the launches of K1 the profiler
 saw beside the wrapper's count.
 
+The inverse step's cells (``step_kitchen``: the normal-mapped kitchen at
+400x266, K4; ``step_mixed``: the mixed BVH scene at 1920x1080, K1-K3;
+depth 50, 1 spp, against a target at seed 2): ``diff.image_and_texture_grad``
+called once (on a tree with the graphed step, the capture), then ``RUNS``
+steps by CUDA events (the median and every run), the peak bytes of the
+first call and of a step, the allocator's reserved bytes after them, the
+kernels' launches a step, the host reads of a step (null on a tree
+without ``profiling.HostReads``), the loss and the gradient's absolute
+sum, and one step under ``torch.profiler`` (device ops, busy ms, idle).
+
 ``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
 unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
 tree and DIR again, each in a process of its own that imports that tree's
 package. ``--steps`` runs this tree alone, with ``integrator.GRAPH_STEPS``
 set to each value in turn and then in the reverse order (each value
-recaptures its graphs). Prints one JSON line per tree (or steps value) and
-workload, the card's name and power limit in each, and writes them to
-``chiprun_out/wavefront_ab.jsonl``. Needs a CUDA device.
+recaptures its graphs; the step cells run once a process).
+``--workloads`` picks some of them (default: all). Prints one JSON line
+per tree (or steps value) and workload, the card's name and power limit
+in each, and writes them to ``chiprun_out/wavefront_ab.jsonl``. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -42,7 +54,10 @@ from pathlib import Path
 RUNS = 5
 SEED = 1
 DEPTH = 50
-WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4")
+WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
+             "step_kitchen", "step_mixed")
+# the inverse step's cells: (width, height) of each
+STEPS = {"step_kitchen": (400, 266), "step_mixed": (1920, 1080)}
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -53,6 +68,10 @@ def _workload(name):
 
     if name == "kitchen_k4":
         w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
+    elif name in STEPS:
+        (w, h), spp = STEPS[name], 1
+        build = (fixtures.kitchen_sink_scene if name == "step_kitchen" else
+                 lambda c: fixtures.mixed_bvh_scene(c, n_cells=362))
     else:
         wl = next(x for x in bench.WORKLOADS if x.name == name)
         w, h, spp, build = wl.width, wl.height, wl.spp, wl.scene
@@ -151,6 +170,66 @@ def measure(cs, w, h, spp, profile=True):
     return line
 
 
+def measure_step(cs, w, h):
+    """The line of an inverse-step cell: ``diff.image_and_texture_grad``
+    against a target at seed 2 (on a tree with the graphed step, its first
+    call captures), then ``RUNS`` calls timed by CUDA events, each's peak
+    bytes above its start, the kernels' launches a call, the host reads of
+    one call, and one call under ``torch.profiler``."""
+    import torch
+    from solstrale_tpu_torch import diff, profiling
+
+    kw = dict(width=w, height=h, max_depth=DEPTH, n_samples=1)
+    with torch.no_grad():
+        target = diff.render_linear(cs, seed=2, **kw)
+    wrappers = _wrappers()
+
+    def step():
+        return diff.image_and_texture_grad(cs, target, seed=SEED, **kw)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated() - base
+    ms, peaks, seen = [], [], set()
+    for _ in range(RUNS):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, g = step()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        seen.add(tuple(fn.launches - before[k]
+                       for k, fn in wrappers.items()))
+        if not (float(loss) > 0 and bool(torch.isfinite(g).all())):
+            raise RuntimeError(f"degenerate step: loss {float(loss)}")
+    if len(seen) != 1:
+        raise RuntimeError(f"the steps did not repeat: {sorted(seen)}")
+    reads = None
+    if hasattr(profiling, "HostReads"):
+        with profiling.HostReads() as counter:
+            step()
+        reads = counter.n
+    prof = _profiled(step)
+    return dict(step_ms=statistics.median(ms), runs_ms=ms,
+                first_call_s=first_s, first_call_peak_bytes=first_peak,
+                step_peak_bytes=max(peaks),
+                reserved_bytes=torch.cuda.memory_reserved(),
+                launches=dict(zip(wrappers, seen.pop())), host_reads=reads,
+                loss=float(loss), grad_abs_sum=float(g.double().abs().sum()),
+                **prof)
+
+
 def _device():
     import torch
 
@@ -163,10 +242,10 @@ def _device():
     return smi
 
 
-def worker(root, steps, side):
+def worker(root, steps, side, workloads=WORKLOADS):
     """In a process whose package is ``root``'s: each workload measured,
-    at each of ``steps`` (None: the tree's own driver), one JSON line
-    each."""
+    at each of ``steps`` (None: the tree's own driver; the step cells only
+    at None), one JSON line each."""
     # run as a script, this file's directory heads sys.path: the package
     # must come from ``root`` alone
     here = Path(__file__).resolve().parent
@@ -181,11 +260,19 @@ def worker(root, steps, side):
         raise RuntimeError(f"imported {solstrale_tpu_torch.__file__}, not "
                            f"the tree at {root}")
     gpu = _device()
-    for name in WORKLOADS:
+    for name in workloads:
         scene, w, h, spp = _workload(name)
         t0 = time.perf_counter()
         cs = compile_scene(scene, device="cuda")
         compile_s = time.perf_counter() - t0
+        if name in STEPS:
+            line = measure_step(cs, w, h)
+            print(json.dumps(dict(side=side, workload=name, width=w,
+                                  height=h, max_depth=DEPTH,
+                                  compile_s=compile_s, gpu=gpu, **line)),
+                  flush=True)
+            cs = None
+            continue
         for k in steps or (None,):
             if k is not None:
                 integrator.GRAPH_STEPS = k
@@ -196,9 +283,9 @@ def worker(root, steps, side):
                   flush=True)
 
 
-def _run_side(root, side, steps=None):
+def _run_side(root, side, steps=None, workloads=WORKLOADS):
     cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-           str(root), "--side", side]
+           str(root), "--side", side, "--workloads", ",".join(workloads)]
     if steps:
         cmd += ["--steps", ",".join(map(str, steps))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -212,12 +299,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="root of the parent's tree")
     ap.add_argument("--steps", help="GRAPH_STEPS values, comma-separated")
+    ap.add_argument("--workloads", default=",".join(WORKLOADS),
+                    help="comma-separated, of: " + ", ".join(WORKLOADS))
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--side", default="change", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     steps = [int(x) for x in args.steps.split(",")] if args.steps else None
+    workloads = args.workloads.split(",")
+    unknown = set(workloads) - set(WORKLOADS)
+    if unknown:
+        ap.error(f"unknown workloads {sorted(unknown)}")
     if args.worker:
-        worker(args.worker, steps, args.side)
+        worker(args.worker, steps, args.side, workloads)
         return 0
     if args.parent:
         plan = [(args.parent, "parent", None), (HERE, "change", None),
@@ -230,7 +323,7 @@ def main(argv=None):
     out.mkdir(exist_ok=True)
     with open(out / "wavefront_ab.jsonl", "a") as f:
         for root, side, k in plan:
-            for line in _run_side(root, side, k):
+            for line in _run_side(root, side, k, workloads):
                 print(line, flush=True)
                 f.write(line + "\n")
     return 0

@@ -523,3 +523,40 @@ def test_graph_driver_matches_eager(cuda, name):
         assert stats["iters"] == stats["host_reads"] * integrator.GRAPH_STEPS
     assert sum(1 for k in integrator._PER_SCENE
                if k[0] == id(cs) and k[1][0] == "wavefront") == 1
+
+
+@pytest.mark.parametrize("name", ["mixed", "kitchen"])
+def test_graphed_step_matches_eager(cuda, name):
+    """The inverse step as image_and_texture_grad runs it on the card (one
+    captured CUDA graph, replayed) against the same step run op by op, at
+    64x32, depth 8: the loss to rtol 1e-5, the gradient to rtol 1e-5, atol
+    1e-7 (the arena's index_add_ adds with atomics); one capture for two
+    calls; a replay launches each kernel as often as the eager step's
+    forward and path replay together."""
+    from solstrale_tpu_torch import bench, diff
+
+    build = {"mixed": lambda c: fixtures.mixed_bvh_scene(c, n_cells=32),
+             "kitchen": fixtures.kitchen_sink_scene}[name]
+    w, h = 64, 32
+    kw = dict(width=w, height=h, max_depth=8, n_samples=1, seed=1)
+    cs = compile_scene(build(T.RenderConfig(width=w, height=h)), device=cuda)
+    with torch.no_grad():
+        target = diff.render_linear(cs, **dict(kw, seed=2))
+    eager = diff._GradStep(cs, target, **kw)
+    wrappers = bench.kernel_wrappers()
+    captures = diff._GradStep.captures
+    diff.image_and_texture_grad(cs, target, **kw)
+
+    def launched(fn):
+        before = {k: f.launches for k, f in wrappers.items()}
+        out = fn()
+        return out, {k: f.launches - before[k] for k, f in wrappers.items()}
+
+    got, replayed = launched(lambda: diff.image_and_texture_grad(cs, target,
+                                                                 **kw))
+    want, dispatched = launched(lambda: eager.eager(cs, target))
+    assert diff._GradStep.captures == captures + 1
+    assert replayed == dispatched
+    assert replayed["draw"] > 0 and (replayed["K1"] or replayed["K4"])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-7)
