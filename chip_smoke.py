@@ -31,13 +31,23 @@ script exits non-zero):
      (int32 and int64 lanes, ints, 0-dim sample and seed on the card, a
      broadcast pair, pixel ids past 2**32), one launch and one device
      kernel a call, timed at 131,072 lanes against its byte bound;
+  2c. the wavefront step's kernels (``csrc/step.cu``): S1
+     (``ops.step.step_shade``, the shading, the fold and the flags) and S2
+     (``ops.step.step_regen``, the rows, the queue and the regeneration)
+     against their plain versions (``integrator.shade_plain``,
+     ``_Wavefront.step_plain`` / ``reset_plain``) bit for bit at the wide
+     pool's 131,072 lanes on six scenes (the interior, the textured
+     sponza, production, many_lights, the mixed scene at depth 4, the
+     normal-mapped kitchen on K4 at depth 4), S2's reset and six chained
+     steps each, every output equal (NaN where the plain has NaN); each
+     kernel's device, wrapper and plain time against its byte bound;
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
      ``render_sample_batch`` timed like ``bench.py`` (median of three);
   3b. the small-scene path at full size: ``ray_trace`` at 1920x1080 of the
      solid kitchen-sink scene (one K5 launch per batch, no other hit
-     kernel) and of the normal-mapped one (K4, never K5), launch counts read
+     kernel) and of the normal-mapped one (K4, S1 and S2, never K5), launch counts read
      around each, and ``render_sample_batch`` of both timed at bench.py's
      settings (400x266, 8 spp, depth 50, median of three);
   3c. K5 against its plain version exactly (max abs error 0, equal
@@ -45,23 +55,27 @@ script exits non-zero):
      solid kitchen-sink scene (43,809,619 segments, asserted) and at
      400x266x8 on the kitchen-sink scene without its normal map (image
      texture, triangles, a triangle light), which is also timed at
-     1920x1080x8; with each launch's work counts (active-lane efficiency,
-     the static one-pixel-per-thread map's, the medium sweep shares, the
-     persistent grid), and K5 against ``trace_queued`` (the K4 route) at
+     1920x1080x8, and on a 24-light scene (the light-pdf mean above its
+     unroll of 16) at 160x120x8; with each launch's work counts
+     (active-lane efficiency, the static one-pixel-per-thread map's, the
+     medium sweep shares, the persistent grid), and K5 against ``trace_queued`` (the K4 route) at
      1920x1080x1;
   3e. ``trace_queued``'s card driver (CUDA graph replays of
-     ``integrator.GRAPH_STEPS`` steps, one stop read a replay) against its
-     eager driver bit for bit, image and segments: sponza 1080p (its
-     recorded segments), production, many_lights, the mixed scene (K1-K3)
-     and the normal-mapped kitchen (K4) at 400x266x8; one capture replayed
-     at two sample_starts, a second seed its own capture, and a replayed
-     batch's launches equal to its steps;
+     ``integrator.GRAPH_STEPS`` steps of the hit kernels, S1, the scan and
+     S2, one stop read a replay) against its eager driver (the plain step)
+     bit for bit, image and segments: sponza 1080p (its recorded
+     segments), the textured sponza, production, many_lights, the mixed
+     scene (K1-K3) and the normal-mapped kitchen (K4) at 400x266x8; one
+     capture replayed at two sample_starts, a second seed its own capture,
+     and a replayed batch's launches equal to its steps (no draw kernel);
   3d. the renderer's surface at full size: ``ray_trace`` on the interior
      at 1920x1080 with bloom and the denoiser, checkpointed every sample and
      resumed from sample 1 bit for bit (K1, never K5); the albedo, normal
      and simple shaders at 1920x1080 on the interior (K1) and the kitchen
      (K4), never K5; ``render_pixels`` on the mixed scene at 1920x1080,
-     depth 50, with and without early exit, bit for bit (K1, K2, K3); K1
+     depth 50, with and without early exit, bit for bit (K1, K2, K3, and
+     S1 once a bounce, grad mode on as a user calls it), and
+     ``render_sample`` of the same (one S1 launch a bounce, its image); K1
      and K4 over all 2,073,600 camera rays of a 1080p image in one launch
      equal to 16 launches of 131,072; the CNN denoiser on the card against
      the CPU; times of the denoiser, bloom, ``first_hit_aux``, the debug
@@ -95,9 +109,11 @@ script exits non-zero):
      against CPU gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a
      one-rank NCCL group, ``render_batch_sharded`` on the interior at 1080p
      equal to ``render_sample_batch`` (6,708,708 segments),
+     ``render_sample_sharded`` on the kitchen at 400x266 equal to
+     ``render_sample`` (planes and launches: one S1 launch a bounce),
      ``train_step_sharded`` (its shard step graphed too) equal to one
      ``image_and_texture_grad`` SGD step and
-     ``render_distributed``'s final image; the denoiser trainer for a few
+     ``render_distributed``'s final image (S1 launched); the denoiser trainer for a few
      steps at 64x64, and one Adam step on the card against the CPU;
   6. OBJ ingest and the device BVH build: the sponza-class terrain written
      as a 262,088-triangle OBJ with its MTL and PNG textures
@@ -119,7 +135,9 @@ script exits non-zero):
      new scenes at a small size on the card against the CPU, repeated bit
      for bit.
 The last lines are the card's name and power limit, the kernels' JSON
-summary (K1-K5 and the draw kernel) and the result line.
+summary (K1-K5, the draw kernel, S1 and S2; the draw kernel's launches
+are those of the denoised render of phase 3d, its one path left on the
+card: ``first_hit_aux``) and the result line.
 """
 import json
 import os
@@ -189,6 +207,16 @@ K5_BASIC = 51      # every metal or dielectric scatter: the cheaper, a
 #                    dielectric reflection off a back face, 45, the fold 6
 K5_LIGHT = {0: 31, 1: 55, 2: 57}   # light_pdf_mean per sphere / quad /
 #                                    triangle light, per NEE scatter
+# S1's and S2's f32 operations (csrc/step.cu, counted as K5's): every lane of
+# S1 the hit point 6 and the terminal fold 12; each emission and scatter
+# K5_HIT - 6 more (attributes, texture), each scatter K5_PDF plus its light
+# pdfs or K5_BASIC; every lane S2 regenerates its camera ray, 46
+S1_LANE = 18
+S2_REGEN = 46
+# the lanes of the step kernels' checks and times: the wide pool's
+STEP_LANES = 131072
+# chained steps checked per scene in phase 2c
+STEP_BOUNCES = 6
 
 
 def log(phase, **kw):
@@ -681,6 +709,239 @@ def phase_draws():
     return row
 
 
+_SCENES = {}
+
+
+def _wavefront_scene(name, sponza_cs=None):
+    """(cs, width, height, spp) of a wavefront scene of phases 2c and 3e,
+    compiled once: ``sponza`` (the main path's untextured interior, 1080p),
+    the bench's ``sponza_textured``, ``sponza_production`` (1080p) and
+    ``many_lights`` (960x540), ``mixed`` (K1-K3, 1080p) and the normal-mapped
+    ``kitchen`` (K4, 400x266x8)."""
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import bench, fixtures
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    if name == "sponza":
+        return sponza_cs, 1920, 1080, 1
+    if name not in _SCENES:
+        if name == "mixed":
+            cs = compile_scene(fixtures.mixed_bvh_scene(T.RenderConfig(
+                width=1920, height=1080, seed=1), n_cells=362), device="cuda")
+            _SCENES[name] = (cs, 1920, 1080, 1)
+        elif name == "kitchen":
+            cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+                width=400, height=266, samples_per_pixel=8, seed=1)),
+                device="cuda")
+            _SCENES[name] = (cs, 400, 266, 8)
+        else:
+            w = next(x for x in bench.WORKLOADS
+                     if x.name == {"sponza_textured": "sponza"}.get(name,
+                                                                    name))
+            cs = compile_scene(w.scene(T.RenderConfig(
+                width=w.width, height=w.height, samples_per_pixel=w.spp,
+                seed=1)), device="cuda")
+            _SCENES[name] = (cs, w.width, w.height, 1)
+    return _SCENES[name]
+
+
+def _same(a, b):
+    """Bit-equal values: the same NaNs, the rest equal (torch.equal)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _same_wavefront(wk, wp):
+    """The names of the state that differs between two ``_Wavefront``s: the
+    wide pool's per-lane tensors, the rows below the discard row, the queue
+    head and the segments."""
+    from solstrale_tpu_torch.ops import step
+
+    names = ("qpos", "pixel", "sample", *step.LANE_ARRAYS)
+    bad = [n for n, a, b in zip(names, wk.pools[0].tensors(),
+                                wp.pools[0].tensors()) if not _same(a, b)]
+    for n in ("next_q", "segments"):
+        if not _same(getattr(wk, n), getattr(wp, n)):
+            bad.append(n)
+    if not _same(wk.accum[:wk.total_q], wp.accum[:wp.total_q]):
+        bad.append("accum")
+    return bad
+
+
+def _s1_work(cs, st, kind, idx, r):
+    """S1's bytes (the lane arrays in and out, the hit, the counters, the
+    flags and colors, the distinct attribute rows the lanes read and the
+    small tables whole; texel rows not counted) and f32 operations on one
+    call's inputs and results ``st``."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+    from solstrale_tpu_torch.scene.compile import (KIND_QUAD, KIND_SPHERE,
+                                                   KIND_TRIANGLE)
+
+    tab = step.step_tables(cs)
+    planar = (kind == KIND_QUAD) | (kind == KIND_TRIANGLE)
+    slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
+    rows = (int(torch.unique(slot[planar]).numel()) * 112
+            + int(torch.unique(idx[kind == KIND_SPHERE]).numel()) * 32)
+    lane = (4 * 3 + 8 + 8 + 1          # t kind idx, pixel sample, active
+            + 2 * (4 * 14 + 4)         # the lane arrays in and out
+            + 12 + 6)                  # color, flags
+    small = nbytes(tab.mats, tab.lights, tab.tex_attr, tab.cam, tab.med_mat)
+    scat, pdf = st["scat"], st["scat"] & st["is_pdf"]
+    hits = int((st["emit"] | scat).sum())
+    light = sum(K5_LIGHT[k] for k in cs.light_kinds)
+    flops = (r * S1_LANE + hits * (K5_HIT - 6 + K5_BLEND * (tab.flags & 1))
+             + int(pdf.sum()) * (K5_PDF + light)
+             + int((scat & ~st["is_pdf"]).sum()) * K5_BASIC)
+    return r * lane + rows + small, flops
+
+
+def _step_times(cs, w, h, spp, depth):
+    """S1 and S2 timed on the wide pool after two plain steps: S1 in
+    path_step's form (new outputs) against ``shade_plain``; S2 on S1's
+    flags and the scan (idempotent once the queue head is put back before
+    each call; that 8-byte copy's own time is subtracted) against
+    ``regen_plain``. Returns their kernels-line rows."""
+    import torch
+    from solstrale_tpu_torch.ops import bvh, step
+    from solstrale_tpu_torch.renderer import integrator
+
+    wf = integrator._Wavefront(cs.device, w, h, depth, spp, 1, STEP_LANES,
+                               None, None)
+    wf.begin(1, None)
+    wf.reset_plain(cs, wf.pools[0])
+    pool = wf.pools[0]
+    for _ in range(2):
+        wf.step_plain(cs, pool)
+    r = STEP_LANES
+    t, kind, idx = integrator.step_hit(cs, pool.o, pool.d, pool.pixel,
+                                       pool.sample, pool.bounce, 1)
+    kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
+        cs.solids, idx)
+    active = pool.qpos < wf.total_q
+    args = (pool.o, pool.d, pool.bounce, pool.acc_len, pool.fold, pool.pixel,
+            pool.sample, 1, active, depth)
+    st = integrator.shade_plain(cs, pool.o, pool.d, t, kp, ip, *args[2:])
+    s1 = kernel_times(
+        lambda: step.step_shade(cs, t, kind, idx, *args),
+        lambda: integrator.shade_plain(cs, pool.o, pool.d, t, kp, ip,
+                                       *args[2:]))
+    s1.update(bound(*_s1_work(cs, st, kp, ip, r)))
+    # S1 in place, then S2 on its flags
+    step.step_shade(cs, t, kind, idx, pool.o, pool.d, pool.bounce,
+                    pool.acc_len, pool.fold, pool.pixel, pool.sample, 1,
+                    (pool.qpos, wf.total_q), depth, out=pool.shade_out())
+    term = pool.terminal.clone()
+    rank = torch.cumsum(term, 0)
+    head = wf.next_q.clone()
+    n_term = int(term.sum())
+    if int(head) + n_term > wf.total_q:
+        raise AssertionError("step times: the queue runs out, so repeated "
+                             "regenerations would not repeat")
+
+    def restore():
+        wf.next_q.copy_(head)
+
+    def s2():
+        restore()
+        step.step_regen(cs, wf, pool, term, rank)
+
+    def s2_plain():
+        restore()
+        wf.regen_plain(cs, pool, pool.color, term)
+
+    base = kernel_times(restore, restore)
+    s2t = kernel_times(s2, s2_plain)
+    for k in ("ms", "wrapper_ms", "plain_ms"):
+        s2t[k] -= base[k]
+    s2t.update(bound(9 * r + 104 * n_term, S2_REGEN * n_term))
+    return dict(s1=dict(max_abs_err=0.0, **s1),
+                s2=dict(max_abs_err=0.0, **s2t), terminal_lanes=n_term)
+
+
+def phase_step(sponza_cs):
+    """2c: the wavefront step's kernels S1 (``ops.step.step_shade``) and S2
+    (``ops.step.step_regen``) against their plain versions at the wide
+    pool's 131,072 lanes on six scenes (the main path's interior, the
+    textured sponza, production, many_lights, the mixed scene, the
+    normal-mapped kitchen on K4): S2's reset mode against ``reset_plain``,
+    then ``STEP_BOUNCES`` chained steps, each S1 alone against
+    ``shade_plain`` on the same inputs (every output: colors, the six
+    flags, the lane state) and the whole step (``_Wavefront.step``: the hit
+    kernels, S1 in place, the scan, S2) against ``step_plain`` (the pool,
+    the accumulation rows, the queue head, the segments), all bit for bit;
+    the kitchen and the mixed scene at depth 4, so that the depth cap ends
+    paths. Then each kernel's device, wrapper and plain time against its
+    bound on each scene. Returns the main path's rows of the kernels
+    line."""
+    import torch
+    from solstrale_tpu_torch.ops import bvh, step
+    from solstrale_tpu_torch.renderer import integrator
+
+    start = time.perf_counter()
+    out, rows = {}, None
+    for name in ("sponza", "sponza_textured", "sponza_production",
+                 "many_lights", "mixed", "kitchen"):
+        cs, w, h, spp = _wavefront_scene(name, sponza_cs)
+        depth = 4 if name in ("mixed", "kitchen") else 50
+        wk, wp = (integrator._Wavefront(cs.device, w, h, depth, spp, 1,
+                                        STEP_LANES, None, None)
+                  for _ in range(2))
+        wk.reset(cs, 1, None)
+        wp.begin(1, None)
+        wp.reset_plain(cs, wp.pools[0])
+        bad = _same_wavefront(wk, wp)
+        if bad:
+            raise AssertionError(f"step ({name}): S2's reset differs from "
+                                 f"reset_plain in {bad}")
+        counts = dict(miss=0, capped=0, emit=0, scat=0)
+        for b in range(STEP_BOUNCES):
+            pk, pp = wk.pools[0], wp.pools[0]
+            t, kind, idx = integrator.step_hit(cs, pp.o, pp.d, pp.pixel,
+                                               pp.sample, pp.bounce, 1)
+            kp, ip = (kind, idx) if kind is not None else \
+                bvh.decode_planar_slot(cs.solids, idx)
+            active = pp.qpos < wp.total_q
+            args = (pp.bounce, pp.acc_len, pp.fold, pp.pixel, pp.sample, 1,
+                    active, depth)
+            got = step.step_shade(cs, t, kind, idx, pp.o, pp.d, *args)
+            want = integrator.shade_plain(cs, pp.o, pp.d, t, kp, ip, *args)
+            bad = [k for k in ("color",) + step.FLAGS
+                   if not _same(got[k], want[k])]
+            bad += [k for k, a, c in zip(step.LANE_ARRAYS,
+                                         step.lane_arrays(got),
+                                         step.lane_arrays(want))
+                    if not _same(a, c)]
+            if bad:
+                raise AssertionError(f"step ({name}, bounce {b}): S1 differs "
+                                     f"from shade_plain in {bad}")
+            for k in counts:
+                counts[k] += int(want[k].sum())
+            wk.step(cs, pk)
+            wp.step_plain(cs, pp)
+            bad = _same_wavefront(wk, wp)
+            if bad:
+                raise AssertionError(f"step ({name}, bounce {b}): the kernel "
+                                     f"step differs from step_plain in {bad}")
+        if name in ("mixed", "kitchen") and counts["capped"] == 0:
+            raise AssertionError(f"step ({name}): no lane met the depth cap")
+        times = _step_times(cs, w, h, spp, 50)
+        if name == "sponza":
+            rows = {"S1": times["s1"], "S2": times["s2"]}
+        out[name] = dict(depth=depth, bounces=STEP_BOUNCES, segments=counts,
+                         **times)
+    torch.cuda.synchronize()
+    log("step", lanes=STEP_LANES, bit_equal=True,
+        seconds=time.perf_counter() - start, **out)
+    return rows
+
+
 def _graph_entries(cs):
     """The card driver's captures cached for the compiled scene ``cs``."""
     from solstrale_tpu_torch.renderer import integrator
@@ -691,49 +952,27 @@ def _graph_entries(cs):
 
 def phase_graphs(sponza_cs):
     """3e: trace_queued's card driver (each pool's GRAPH_STEPS steps and
-    stop test replayed as one CUDA graph) against its eager driver, bit for
-    bit (image and segments), on sponza 1080p (its recorded segments),
-    production, many_lights, the mixed scene (K1-K3) and the normal-mapped
-    kitchen (K4, 400x266x8): one capture replayed at two sample_starts
-    equal to the eager driver at each, a second seed its own capture, and
-    a replayed batch's launches (K1-K4 once a step, the draws at the eager
-    driver's rate a step) equal to the steps it ran."""
+    stop test replayed as one CUDA graph: the hit kernels, S1, the scan and
+    S2 a step) against its eager driver (the plain step,
+    ``_Wavefront.step_plain``), bit for bit (image and segments), on sponza
+    1080p (its recorded segments), the textured sponza, production,
+    many_lights, the mixed scene (K1-K3) and the normal-mapped kitchen (K4,
+    400x266x8): one capture replayed at two sample_starts equal to the
+    eager driver at each, a second seed its own capture, and a replayed
+    batch's launches (K1-K4 and S1 once a step, S2 once a step and once for
+    the reset, no draw kernel) equal to the steps it ran."""
     import torch
-    import solstrale_tpu_torch as T
-    from solstrale_tpu_torch import bench, fixtures
     from solstrale_tpu_torch.renderer import integrator
-    from solstrale_tpu_torch.scene.compile import compile_scene
 
     start = time.perf_counter()
     wrappers = all_wrappers()
-    wl = {w.name: w for w in bench.WORKLOADS}
-
-    def bench_scene(name):
-        w = wl[name]
-        return (compile_scene(w.scene(T.RenderConfig(
-            width=w.width, height=w.height, samples_per_pixel=w.spp,
-            seed=1)), device="cuda"), w.width, w.height, 1)
-
-    def mixed():
-        return (compile_scene(fixtures.mixed_bvh_scene(T.RenderConfig(
-            width=1920, height=1080, seed=1), n_cells=362), device="cuda"),
-            1920, 1080, 1)
-
-    def kitchen():
-        return (compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
-            width=400, height=266, samples_per_pixel=8, seed=1)),
-            device="cuda"), 400, 266, 8)
-
-    per_step = {"sponza": ("K1",), "sponza_production": ("K1", "K2"),
+    per_step = {"sponza": ("K1",), "sponza_textured": ("K1",),
+                "sponza_production": ("K1", "K2"),
                 "many_lights": ("K1", "K2"), "mixed": ("K1", "K2", "K3"),
                 "kitchen": ("K4",)}
     out = {}
-    for name, make in (("sponza", lambda: (sponza_cs, 1920, 1080, 1)),
-                       ("sponza_production",
-                        lambda: bench_scene("sponza_production")),
-                       ("many_lights", lambda: bench_scene("many_lights")),
-                       ("mixed", mixed), ("kitchen", kitchen)):
-        cs, w, h, spp = make()
+    for name in per_step:
+        cs, w, h, spp = _wavefront_scene(name, sponza_cs)
         kw = dict(width=w, height=h, max_depth=50)
 
         def run(drive, sample_start, seed=1):
@@ -771,7 +1010,7 @@ def phase_graphs(sponza_cs):
             "iters"]
         want = {k: iters if k in per_step[name] else 0
                 for k in ("K1", "K2", "K3", "K4", "K5")}
-        want["draw"] = 2 + iters * draws_a_step
+        want.update(draw=0, S1=iters, S2=iters + 1)
         if graph["launches"] != want:
             raise AssertionError(f"graphs ({name}): launches "
                                  f"{graph['launches']}, want {want}")
@@ -1228,10 +1467,12 @@ def phase_main_path():
         if not float(img.mean()) >= 2.0:
             raise AssertionError(f"{name}: black frame (mean u8 "
                                  f"{float(img.mean()):.3f})")
-    if k1_sponza <= 0 or min(launches[k] for k in ("K1", "K2", "K3")) <= 0:
+    if k1_sponza <= 0 or min(launches[k] for k in ("K1", "K2", "K3", "S1",
+                                                    "S2")) <= 0:
         raise AssertionError(f"main path missed a kernel: {launches}")
-    if launches["K4"] or launches["K5"]:
-        raise AssertionError(f"the BVH path launched K4/K5: {launches}")
+    if launches["K4"] or launches["K5"] or launches["draw"]:
+        raise AssertionError(f"the BVH path launched K4, K5 or the draw "
+                             f"kernel: {launches}")
 
     # one render_sample_batch timed like bench.py (the loop is host-bound:
     # the three times show the spread)
@@ -1315,14 +1556,16 @@ def phase_small_scene():
                           bench_400x266x8=_batch_timing(cs, 400, 266, 8))
     solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
         "launches"]
-    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0):
+    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0):
         raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
                              f"other kernel, got {solid}")
-    if kitchen["K4"] <= 0 or kitchen["K5"] != 0:
-        raise AssertionError(f"kitchen: expected K4 and no K5, got {kitchen}")
+    if min(kitchen[k] for k in ("K4", "S1", "S2")) <= 0 or kitchen["K5"] or \
+            kitchen["draw"]:
+        raise AssertionError(f"kitchen: expected K4, S1 and S2 and neither "
+                             f"K5 nor a draw launch, got {kitchen}")
     log("small_scene_path", **runs)
-    return {"K4": kitchen["K4"], "K5": solid["K5"],
-            "draw": kitchen["draw"] + solid["draw"]}
+    return {k: kitchen[k] + solid[k] for k in ("K4", "K5", "draw", "S1",
+                                               "S2")}
 
 
 def _median_ms(fn, reps=3):
@@ -1399,9 +1642,12 @@ def phase_surface(sponza_cs):
     if not np.array_equal(resumed[-1], straight):
         raise AssertionError("the render resumed from sample 1 is not "
                              "bit-identical to the straight one")
-    if launches["K1"] <= 0 or launches["K5"] != 0:
-        raise AssertionError(f"sponza with aux: expected K1 and no K5, got "
+    if min(launches[k] for k in ("K1", "S1", "S2", "draw")) <= 0 or \
+            launches["K5"] != 0:
+        raise AssertionError(f"sponza with aux: expected K1, S1, S2 and the "
+                             f"draw kernel (first_hit_aux) and no K5, got "
                              f"{launches}")
+    aux_launches = launches
     out["sponza_bloom_denoiser"] = dict(
         ray_trace_seconds=seconds, mean_u8=float(straight.mean()),
         launches=launches, resume_bit_identical=True)
@@ -1466,9 +1712,13 @@ def phase_surface(sponza_cs):
         rp[f"early_exit={early}"] = dict(
             seconds=time.perf_counter() - t0,
             launches=launch_counts(wrappers))
-        if min(rp[f"early_exit={early}"]["launches"][k]
-               for k in ("K1", "K2", "K3")) <= 0:
+        got = rp[f"early_exit={early}"]["launches"]
+        if min(got[k] for k in ("K1", "K2", "K3")) <= 0:
             raise AssertionError(f"render_pixels missed a kernel: {rp}")
+        # grad mode is on, as a user calls it: every bounce is one S1
+        if got["S1"] != got["K1"] or (not early and got["S1"] != 51):
+            raise AssertionError(f"render_pixels: expected one S1 launch "
+                                 f"a bounce, got {got}")
     if not torch.equal(colors[True], colors[False]):
         raise AssertionError("render_pixels: early_exit=False differs from "
                              "early_exit=True")
@@ -1477,6 +1727,17 @@ def phase_surface(sponza_cs):
         raise AssertionError("render_pixels: non-finite or black image")
     out["mixed_render_pixels"] = dict(**rp, bit_identical=True,
                                       mean=float(colors[True].mean()))
+    # render_sample, grad mode on: one S1 launch a bounce
+    reset_launches(wrappers)
+    planes = integrator.render_sample(
+        mixed, 1, 1, width=w, height=h, max_depth=50,
+        shader_kind=integrator.SHADER_PATH, need_aux=False)
+    got = launch_counts(wrappers)
+    if not 1 <= got["S1"] == got["K1"] <= 51 or not torch.equal(
+            planes[0], integrator.to_image(colors[True], w, h)):
+        raise AssertionError(f"render_sample: expected one S1 launch a "
+                             f"bounce and render_pixels' image, got {got}")
+    out["mixed_render_sample"] = dict(launches=got, bit_identical=True)
 
     # K1 and K4 over all 2,073,600 camera rays of a 1080p image in one
     # launch, against 131,072-lane slices (their plain versions are checked
@@ -1537,6 +1798,9 @@ def phase_surface(sponza_cs):
                                       u8_pixels_equal=same,
                                       u8_max_diff=int(diff.max()))
     log("surface", **out, seconds=time.perf_counter() - start)
+    # the draw kernel's launches on the path that still runs it: ray_trace
+    # with the denoiser's aux planes (first_hit_aux)
+    return {"draw": aux_launches["draw"]}
 
 
 def k5_work(stats, segments):
@@ -1561,6 +1825,11 @@ def k5_work(stats, segments):
         blocks=stats["blocks"], blocks_per_sm=stats["blocks_per_sm"])
 
 
+# K5's many-light case: lights above the light-pdf mean's unroll of 16,
+# within the megakernel's gate of 32
+K5_MANY_LIGHTS = 24
+
+
 def phase_megakernel():
     """K5 against its plain version, exactly (values and segments), and a
     repeated launch bit for bit: at the main path's shape (the solid
@@ -1568,9 +1837,10 @@ def phase_megakernel():
     row, its bound from the kinds of segment the plain version counted and
     the medium sweeps the kernel counted), and on the kitchen-sink scene
     without its normal map (an image texture, triangle prims, a triangle
-    light) at bench.py's 400x266x8, which is also timed at 1920x1080x8; the
-    work counts of each (``k5_work``); then K5 against trace_queued (the K4
-    route) at 1920x1080, 1 spp."""
+    light) at bench.py's 400x266x8, which is also timed at 1920x1080x8, and
+    on a 24-light scene (above the light-pdf mean's unroll of 16) at
+    160x120x8; the work counts of each (``k5_work``); then K5 against
+    trace_queued (the K4 route) at 1920x1080, 1 spp."""
     import numpy as np
     import torch
     import solstrale_tpu_torch as T
@@ -1646,7 +1916,18 @@ def phase_megakernel():
     err_tex, segs_tex, _, work_tex = check(
         "K5 vs plain (kitchen_textured)", tex,
         dict(width=400, height=266, max_depth=50), 8)
-    out["max_abs_err"] = max(err, err_tex)
+    # 24 lights: above the 16 the unrolled light-pdf mean takes, the
+    # batched form's rule, within K5's gate of 32
+    many = compiled(lambda c: fixtures.many_light_scene(
+        c, n_lights=K5_MANY_LIGHTS, n_cells=4), 160, 120)
+    if not megakernel.megakernel_supported(many, need_aux=False,
+                                           shader_kind=0) or \
+            len(many.light_kinds) != K5_MANY_LIGHTS:
+        raise AssertionError("many_lights_24: outside the megakernel gate")
+    err_many, segs_many, _, work_many = check(
+        "K5 vs plain (many_lights_24)", many,
+        dict(width=160, height=120, max_depth=50), 8)
+    out["max_abs_err"] = max(err, err_tex, err_many)
     # the textured kitchen at 1920x1080x8: time and work only (its plain
     # version would take minutes)
     tex_hd = compiled(build_tex, w, h)
@@ -1667,6 +1948,8 @@ def phase_megakernel():
         textured_400x266x8=dict(segments=segs_tex, max_abs_err=err_tex,
                                 lights=list(tex.light_kinds), **work_tex),
         textured_1920x1080x8=tex_hd_run,
+        many_lights_24_160x120x8=dict(segments=segs_many,
+                                      max_abs_err=err_many, **work_many),
         segments_1080p_1spp=int(seg_k5),
         max_abs_err_vs_trace_queued_1080p=err_q)
     return out
@@ -2377,10 +2660,32 @@ def phase_diff_parallel(sponza_cs, smi):
         torch.testing.assert_close(
             (kitchen.textures.pixels - new_cs.textures.pixels) / lr, g,
             rtol=1e-4, atol=1e-7)
+        # render_sample_sharded, grad mode on as a user calls it: one S1
+        # launch a bounce, and render_sample's planes and launches
+        kw = dict(width=400, height=266, max_depth=50,
+                  shader_kind=integrator.SHADER_PATH, need_aux=False)
+        runs = {}
+        for name, fn in (
+                ("sharded", lambda: parallel.render_sample_sharded(
+                    kitchen, 1, 1, mesh, **kw)),
+                ("render_sample", lambda: integrator.render_sample(
+                    kitchen, 1, 1, **kw))):
+            reset_launches(wrappers)
+            runs[name] = (fn(), launch_counts(wrappers))
+        (p_s, l_s), (p_r, l_r) = runs["sharded"], runs["render_sample"]
+        if not 1 <= l_s["S1"] == l_s["K4"] <= 51 or l_s != l_r or not all(
+                torch.equal(a, b) for a, b in zip(p_s, p_r)):
+            raise AssertionError(f"render_sample_sharded: expected one S1 "
+                                 f"launch a bounce and render_sample's "
+                                 f"planes, got {l_s} / {l_r}")
         small = fixtures.small_scene(T.RenderConfig(
             width=320, height=180, samples_per_pixel=2, seed=1))
+        reset_launches(wrappers)
         images = [im for _, im in distributed.render_distributed(
             small, device_type="cuda")]
+        l_d = launch_counts(wrappers)
+        if l_d["S1"] <= 0:
+            raise AssertionError(f"render_distributed launched no S1: {l_d}")
         cs = compile_scene(small, device="cuda")
         total = sum(integrator.render_sample(
             cs, s, 1, width=320, height=180, max_depth=50,
@@ -2395,6 +2700,8 @@ def phase_diff_parallel(sponza_cs, smi):
             sponza_segments=int(segs_s), sponza_sharded_s=t_shard,
             sharded_step_loss=float(loss_s),
             sharded_step_equals_sgd=True, distributed_images=len(images),
+            render_sample_sharded_launches=l_s,
+            render_distributed_launches=l_d,
             seconds=time.perf_counter() - start)
     finally:
         torch.distributed.destroy_process_group()
@@ -2571,9 +2878,10 @@ def phase_bench():
     """The port's throughput script at full size (``bench.run``: bench.py's
     five workloads, five timed batches each; its lines are printed as they
     end) with each workload's route and launches held to what its scene
-    must take: the production and many-light interiors K1 and K2, never
-    K5; the textured sponza K1, never K5; the kitchen and the megakernel
-    workload one K5 launch a batch and no other hit kernel. Then the three
+    must take: the production and many-light interiors K1, K2, S1 and S2,
+    never K5 or the draw kernel; the textured sponza K1, S1 and S2, never
+    K5 or the draw kernel; the kitchen and the megakernel workload one K5
+    launch a batch and no other hit or step kernel. Then the three
     new scenes at a small size (24 terrain cells, 64-texel textures,
     64x48, 1 spp, path shader) on the card against the CPU and repeated
     bit for bit. Returns the hit kernels' launches in the bench's run."""
@@ -2591,11 +2899,15 @@ def phase_bench():
         raise AssertionError(f"bench: {failed}")
     by_name = {w.name: ln for w, ln in zip(bench.WORKLOADS, lines)}
     for name, route, must, never in (
-            ("sponza_production", "wavefront", ("K1", "K2"), ("K5",)),
-            ("many_lights", "wavefront", ("K1", "K2"), ("K5",)),
-            ("sponza", "wavefront", ("K1",), ("K5",)),
-            ("kitchen_sink", "k5", ("K5",), ("K1", "K2", "K3", "K4")),
-            ("megakernel", "k5", ("K5",), ("K1", "K2", "K3", "K4"))):
+            ("sponza_production", "wavefront", ("K1", "K2", "S1", "S2"),
+             ("K5", "draw")),
+            ("many_lights", "wavefront", ("K1", "K2", "S1", "S2"),
+             ("K5", "draw")),
+            ("sponza", "wavefront", ("K1", "S1", "S2"), ("K5", "draw")),
+            ("kitchen_sink", "k5", ("K5",),
+             ("K1", "K2", "K3", "K4", "S1", "S2")),
+            ("megakernel", "k5", ("K5",),
+             ("K1", "K2", "K3", "K4", "S1", "S2"))):
         ln = by_name[name]
         if ln["route"] != route or any(ln["launches"][k] <= 0 for k in must) \
                 or any(ln["launches"][k] for k in never):
@@ -2649,11 +2961,14 @@ def main():
         leaves=sponza_cs.kbvh.n_leaves)
     timings = phase_kernels(sponza_cs)
     timings["draw"] = phase_draws()
+    timings.update(phase_step(sponza_cs))
     launches = phase_main_path()
-    launches.update(phase_small_scene())
+    for k, n in phase_small_scene().items():
+        launches[k] += n
     phase_graphs(sponza_cs)
     timings["K5"] = phase_megakernel()
-    phase_surface(sponza_cs)
+    for k, n in phase_surface(sponza_cs).items():
+        launches[k] += n
     phase_card_vs_cpu()
     phase_diff_parallel(sponza_cs, smi)
     for phase in (lambda: phase_obj_ingest(smi), phase_bench):
@@ -2671,12 +2986,17 @@ def main():
               "K5": ("solstrale_tpu_torch/csrc/megakernel.cu",
                      "solstrale_tpu/renderer/megakernel.py:228"),
               "draw": ("solstrale_tpu_torch/csrc/rng.cu",
-                       "solstrale_tpu/ops/rng.py:68")}
+                       "solstrale_tpu/ops/rng.py:68"),
+              "S1": ("solstrale_tpu_torch/csrc/step.cu",
+                     "solstrale_tpu/renderer/integrator.py:765"),
+              "S2": ("solstrale_tpu_torch/csrc/step.cu",
+                     "solstrale_tpu/renderer/integrator.py:808")}
     names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_media",
              "K4": "k4_scene_hit", "K5": "k5_render",
-             "draw": "rng_uniform4"}
+             "draw": "rng_uniform4", "S1": "step_shade", "S2": "step_regen"}
     # no single PyTorch call computes any of these functions (the draw
-    # kernel's counter hash included: torch has no PCG4D)
+    # kernel's counter hash included: torch has no PCG4D; nor the step's
+    # shading or regeneration)
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
                     library_ms=None, **timings[k]) for k in names]

@@ -1,6 +1,6 @@
 // Ray-primitive tests, the medium cull and the counter RNG shared by the
-// sweep kernels (K2-K4, sweep.cu) and the render megakernel (K5,
-// megakernel.cu).
+// sweep kernels (K2-K4, sweep.cu), the render megakernel (K5,
+// megakernel.cu), the draw kernel (rng.cu) and the step kernels (step.cu).
 //
 // The formulas are the TPU kernels' (solstrale_tpu/ops/pallas_sweep.py:86-138
 // and :249-313), op for op, so that with -fmad=false a kernel returns the

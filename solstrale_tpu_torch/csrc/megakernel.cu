@@ -10,7 +10,8 @@
 // mixture and its light pdf, the forward clamp-fold, accumulation and
 // regeneration, with the counter-hash PCG4D in native uint32. The formulas
 // follow the plain version expression for expression (and -fmad=false keeps
-// nvcc from contracting them), so the kernel returns its values.
+// nvcc from contracting them), so the kernel returns its values; those it
+// shares with the wavefront step's kernels (step.cu) are in shade.cuh.
 //
 // What bounds it: arithmetic. Per segment a lane runs the solid sweep (~30
 // flops and one division per prim), per medium boundary prim two more, the
@@ -59,10 +60,12 @@
 #include <cstdint>
 
 #include "hit.cuh"
+#include "shade.cuh"
 
 namespace {
 
 using hit::Ray;
+using namespace shade;  // the shading step's functions (shade.cuh)
 
 // Launch shape, chosen on an H100 80GB HBM3 at 700 W over 14 shapes of
 // block size and __launch_bounds__ minimum (PERF.md): 128 threads and
@@ -76,208 +79,6 @@ constexpr int kThreads = 128;
 constexpr int kMinBlocks = 1;   // __launch_bounds__ minimum blocks per SM
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-// Python float constants as torch rounds them to f32 (geo, math.pi)
-constexpr float kPi = static_cast<float>(3.14159265358979323846);
-constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
-constexpr float kSphereValue =
-    static_cast<float>(1.0 / (4.0 * 3.14159265358979323846));
-
-// x / s with s a Python scalar: PyTorch's CUDA division multiplies by the
-// scalar's f32 reciprocal (div_true_kernel_cuda), so the plain version on
-// the card does that, and so does this kernel (the CPU divides exactly).
-__device__ __forceinline__ float div_scalar(float x, float s) {
-  return x * (1.0f / s);
-}
-
-// RNG purposes (ops/rng.py)
-constexpr uint32_t P_JITTER = 0, P_LENS = 1, P_MIX_COIN = 2,
-                   P_LIGHT_PICK = 3, P_LIGHT_SAMPLE = 4, P_COSINE = 5,
-                   P_DIELECTRIC = 6, P_FUZZ = 7, P_BLEND_SCATTER = 9,
-                   P_PHASE = 11, P_MEDIUM_BASE = 16;
-
-// material kinds (scene/materials.py) and light kinds (scene/compile.py)
-constexpr int LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, DIFFUSE_LIGHT = 3,
-              ISOTROPIC = 4, BLEND = 5;
-constexpr int LIGHT_SPHERE = 0, LIGHT_QUAD = 1;
-constexpr int kMaxBlendDepth = 3;
-constexpr int kFlagBlend = 1;
-
-// counter RNG: PCG4D, bit-equal to ops/rng.py (hit.cuh)
-using hit::uniform4;
-
-// --- vector helpers in geo/soa.py's association order ------------------------
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 scale(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-          a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ V3 unit(V3 a) {
-  const float inv = 1.0f / sqrtf(dot(a, a));
-  return scale(a, inv);
-}
-__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
-
-// torch.clamp / torch.minimum keep NaN (fminf/fmaxf would drop it)
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return x < lo ? lo : x;
-}
-__device__ __forceinline__ float clamp_max(float x, float hi) {
-  return x > hi ? hi : x;
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (a != a || b != b) return a + b;  // NaN
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ V3 reflect(V3 v, V3 n) {
-  const float k = 2.0f * dot(v, n);
-  return {v.x - n.x * k, v.y - n.y * k, v.z - n.z * k};
-}
-
-__device__ __forceinline__ V3 refract(V3 v, V3 n, float ir) {
-  const float cos_theta = clamp_max(dot(neg(v), n), 1.0f);
-  const V3 perp = scale(add(scale(n, cos_theta), v), ir);
-  const float par_k = -sqrtf(fabsf(1.0f - dot(perp, perp)));
-  return add(perp, scale(n, par_k));
-}
-
-// (tangent, bitangent, normal) from a direction (geo/soa.py::onb_from_w3)
-__device__ __forceinline__ void onb_from_w(V3 w, V3* t, V3* b, V3* n) {
-  const V3 uw = unit(w);
-  const bool pick = fabsf(uw.x) > 0.9f;
-  const V3 a = v3(pick ? 0.0f : 1.0f, pick ? 1.0f : 0.0f, 0.0f);
-  const V3 v = unit(cross(uw, a));
-  *t = cross(uw, v);
-  *b = v;
-  *n = uw;
-}
-
-__device__ __forceinline__ V3 onb_local(V3 t, V3 b, V3 n, V3 v) {
-  return {t.x * v.x + b.x * v.y + n.x * v.z,
-          t.y * v.x + b.y * v.y + n.y * v.z,
-          t.z * v.x + b.z * v.y + n.z * v.z};
-}
-
-// --- samplers (ops/rng.py) -------------------------------------------------
-
-__device__ __forceinline__ V3 cosine_direction(float r1, float r2) {
-  const float z = sqrtf(1.0f - r2);
-  const float phi = kTwoPi * r1;
-  const float sq_r2 = sqrtf(r2);
-  return {cosf(phi) * sq_r2, sinf(phi) * sq_r2, z};
-}
-
-__device__ __forceinline__ V3 unit_vector(float r1, float r2) {
-  const float z = 1.0f - 2.0f * r1;
-  const float phi = kTwoPi * r2;
-  const float zz = sqrtf(clamp_min(1.0f - z * z, 0.0f));
-  return {cosf(phi) * zz, sinf(phi) * zz, z};
-}
-
-__device__ __forceinline__ V3 in_unit_sphere(float r1, float r2, float r3) {
-  const V3 d = unit_vector(r1, r2);
-  const float radius = expf(div_scalar(logf(clamp_min(r3, 1e-12f)), 3.0f));
-  return {d.x * radius, d.y * radius, d.z * radius};
-}
-
-__device__ __forceinline__ V3 to_sphere(float radius, float dist_sq, float r1,
-                                        float r2) {
-  const float z = 1.0f + r2 * (sqrtf(clamp_min(
-                      1.0f - radius * radius / dist_sq, 0.0f)) - 1.0f);
-  const float phi = kTwoPi * r1;
-  const float zz = sqrtf(clamp_min(1.0f - z * z, 0.0f));
-  return {cosf(phi) * zz, sinf(phi) * zz, z};
-}
-
-// --- scene tables ------------------------------------------------------------
-
-struct Scene {
-  const float* __restrict__ cam;      // (24,)
-  const float4* __restrict__ sph;     // (S, 8)
-  int n_sph;
-  const float4* __restrict__ pln;     // (P, 28)
-  int n_pl;
-  const float* __restrict__ mats;     // (Mt, 9)
-  int n_mat;
-  const float* __restrict__ tex_attr; // (T, 3) offset w h
-  int n_tex;
-  const float* __restrict__ texels;   // (N, 3)
-  int n_texels;
-  const float* __restrict__ lights;   // (L, 20)
-  int n_light;
-  const float4* __restrict__ msph;    // packed medium boundaries (., 8)
-  const float4* __restrict__ mpln;    // (., 16)
-  const int* __restrict__ msph_off;   // (M+1,)
-  const int* __restrict__ mpln_off;
-  const float* __restrict__ med;      // (M, 4) neg_inv_density mat 0 0
-  const float4* __restrict__ mbox;    // (M, 8) padded box: lo 0 hi 0
-  int n_media;
-  int flags;
-};
-
-constexpr int kPlnRow = 7;  // float4s per (P, 28) planar row
-
-struct MatRow {
-  int kind, albedo_tex;
-  float fuzz, ior, atten, blend_factor;
-  int m1, m2;
-};
-
-// Materials.attr row; an out-of-range id reads a zero row (table_rows)
-__device__ __forceinline__ MatRow mat_row(const Scene& sc, int id) {
-  MatRow r = {0, 0, 0.f, 0.f, 0.f, 0.f, 0, 0};
-  if (id >= 0 && id < sc.n_mat) {
-    const float* m = sc.mats + 9 * id;
-    r.kind = static_cast<int>(m[0]);
-    r.albedo_tex = static_cast<int>(m[1]);
-    r.fuzz = m[3];
-    r.ior = m[4];
-    r.atten = m[5];
-    r.blend_factor = m[6];
-    r.m1 = static_cast<int>(m[7]);
-    r.m2 = static_cast<int>(m[8]);
-  }
-  return r;
-}
-
-// integrator.sample_texture: nearest neighbour, abs-wrap, flipped v,
-// out-of-range texel indices clamped
-__device__ __forceinline__ V3 sample_texture(const Scene& sc, int tex_id,
-                                             float u_in, float v_in) {
-  const int tid = tex_id < 0 ? 0 : tex_id;
-  int off = 0, w = 0, h = 0;
-  if (tid < sc.n_tex) {
-    off = static_cast<int>(sc.tex_attr[3 * tid]);
-    w = static_cast<int>(sc.tex_attr[3 * tid + 1]);
-    h = static_cast<int>(sc.tex_attr[3 * tid + 2]);
-  }
-  const float u = fmodf(fabsf(u_in), 1.0f);
-  const float v = 1.0f - fmodf(fabsf(v_in), 1.0f);
-  const int x = static_cast<int>(u * static_cast<float>(w - 1));
-  const int y = static_cast<int>(v * static_cast<float>(h - 1));
-  int idx = off + y * w + x;
-  idx = idx < 0 ? 0 : (idx > sc.n_texels - 1 ? sc.n_texels - 1 : idx);
-  const float* px = sc.texels + 3 * static_cast<size_t>(idx);
-  return {px[0], px[1], px[2]};
-}
 
 // Closest solid hit on [RAY_T_MIN, inf): slot < S sphere, S + p planar row
 // p, -1 miss (the K2 sweep, ties to the first slot)
@@ -331,114 +132,6 @@ __device__ __forceinline__ float boundary_sweep(const float4* sph, int n_sph,
   return best;
 }
 
-// Mean over lights of the per-light sampling pdf towards direction d from
-// point o (intersect.light_pdf_mean3)
-__device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
-  const float dd = dot(d, d);
-  float acc = 0.0f;
-  for (int i = 0; i < sc.n_light; ++i) {
-    const float* L = sc.lights + 20 * i;
-    const int kind = static_cast<int>(L[0]);
-    const V3 p0 = v3(L[1], L[2], L[3]);
-    if (kind == LIGHT_SPHERE) {
-      const V3 oc = sub(o, p0);
-      const float half_b = dot(oc, d);
-      const float radius = L[10];
-      const float dist_sq = dot(oc, oc);
-      const float c2 = dist_sq - radius * radius;
-      const float disc = half_b * half_b - dd * c2;
-      const float sq = sqrtf(clamp_min(disc, 0.0f));
-      const float r1 = (-half_b - sq) / dd;
-      const float r2 = (-half_b + sq) / dd;
-      const bool sph_hit = (disc >= 0.0f) &&
-                           ((r1 >= hit::kRayTMin && r1 <= CUDART_INF_F) ||
-                            (r2 >= hit::kRayTMin && r2 <= CUDART_INF_F));
-      const float cos_theta_max = sqrtf(1.0f - radius * radius / dist_sq);
-      const float solid_angle = kTwoPi * (1.0f - cos_theta_max);
-      acc = acc + (sph_hit ? 1.0f / solid_angle : 0.0f);
-      continue;
-    }
-    const V3 p1 = v3(L[4], L[5], L[6]);
-    const V3 p2 = v3(L[7], L[8], L[9]);
-    const V3 nrm = v3(L[11], L[12], L[13]);
-    float t_pl, denom;
-    bool ok;
-    if (kind == LIGHT_QUAD) {
-      denom = dot(d, nrm);
-      t_pl = (L[14] - dot(o, nrm)) / denom;
-      const V3 hp = v3(o.x + d.x * t_pl, o.y + d.y * t_pl, o.z + d.z * t_pl);
-      const V3 pv = sub(hp, p0);
-      const V3 w = v3(L[15], L[16], L[17]);
-      const float pu = dot(w, cross(pv, p2));
-      const float pvv = dot(w, cross(p1, pv));
-      ok = (fabsf(denom) >= hit::kAlmostZero) && (pu >= 0.0f) &&
-           (pu <= 1.0f) && (pvv >= 0.0f) && (pvv <= 1.0f) &&
-           (t_pl >= hit::kRayTMin && t_pl <= CUDART_INF_F);
-    } else {  // triangle: Moller-Trumbore on (v0, e1, e2)
-      const V3 pvec = cross(d, p2);
-      const float det = dot(p1, pvec);
-      const float inv_det = 1.0f / det;
-      const V3 tvec = sub(o, p0);
-      const V3 qvec = cross(tvec, p1);
-      const float bu = dot(tvec, pvec) * inv_det;
-      const float bv = dot(d, qvec) * inv_det;
-      t_pl = dot(p2, qvec) * inv_det;
-      denom = dot(d, nrm);
-      ok = (fabsf(det) >= hit::kAlmostZero) && (bu >= 0.0f) &&
-           (bu <= 1.0f) && (bv >= 0.0f) && (bu + bv <= 1.0f) &&
-           (t_pl >= hit::kRayTMin && t_pl <= CUDART_INF_F);
-    }
-    const float cos_planar = fabsf(denom) / sqrtf(dd);
-    acc = acc + (ok ? t_pl * t_pl * dd / (cos_planar * L[18]) : 0.0f);
-  }
-  return div_scalar(acc, static_cast<float>(sc.n_light));
-}
-
-// Direction from o towards a point sampled on light ``pick``
-// (intersect.sample_light_direction3)
-__device__ __forceinline__ V3 sample_light(const Scene& sc, V3 o, int pick,
-                                           float r1, float r2) {
-  const float* L = sc.lights + 20 * pick;
-  const V3 p0 = v3(L[1], L[2], L[3]);
-  if (static_cast<int>(L[0]) == LIGHT_SPHERE) {
-    const V3 to_c = sub(p0, o);
-    const float dist_sq = dot(to_c, to_c);
-    V3 t, b, n;
-    onb_from_w(to_c, &t, &b, &n);
-    return onb_local(t, b, n, to_sphere(L[10], dist_sq, r1, r2));
-  }
-  const V3 p1 = v3(L[4], L[5], L[6]);
-  const V3 p2 = v3(L[7], L[8], L[9]);
-  return sub(add(p0, add(scale(p1, r1), scale(p2, r2))), o);
-}
-
-// integrator._camera_rays for one pixel and sample
-__device__ __forceinline__ void camera_ray(const Scene& sc, int pixel,
-                                           int sample, uint32_t seed,
-                                           int width, int height, V3* o,
-                                           V3* d) {
-  const float* c = sc.cam;
-  const float x = static_cast<float>(pixel % width);
-  const float y = static_cast<float>(pixel / width);
-  const float4 j = uniform4(pixel, sample, 0, P_JITTER, seed);
-  const float u = div_scalar(x + j.x, static_cast<float>(width - 1));
-  const float v = div_scalar(y + j.y, static_cast<float>(height - 1));
-  const float4 l = uniform4(pixel, sample, 0, P_LENS, seed);
-  const float r = sqrtf(l.x);
-  const float phi = kTwoPi * l.y;
-  const float lr = c[18];
-  const float rd0 = r * cosf(phi) * lr;
-  const float rd1 = r * sinf(phi) * lr;
-  const bool use_lens = lr > 0.0f;
-  float oo[3], dd[3];
-  for (int k = 0; k < 3; ++k) {
-    const float off = use_lens ? c[12 + k] * rd0 + c[15 + k] * rd1 : 0.0f;
-    oo[k] = c[k] + off;
-    dd[k] = c[3 + k] + c[6 + k] * u + c[9 + k] * v - c[k] - off;
-  }
-  *o = v3(oo[0], oo[1], oo[2]);
-  *d = v3(dd[0], dd[1], dd[2]);
-}
 
 // work[] counters of a launch (int64, zeroed by the wrapper)
 constexpr int kWorkNextPixel = 0;   // the pixel queue's head

@@ -1,0 +1,632 @@
+// The wavefront step's shading and regeneration: S1 (step_shade) and S2
+// (step_regen), the body of renderer/integrator.py::_Wavefront.step around
+// the scene-hit kernels (K1-K3 or K4) and one exclusive scan.
+//
+// Replaces the step body of the JAX package's one-program wavefront
+// (solstrale_tpu/renderer/integrator.py:765-836, one_step inside
+// trace_queued), which XLA fuses into a few fusions per step: the hit
+// attributes, the material scatter with its draws, the clamp-fold, the
+// accumulation store and the regeneration. The port's plain versions run the
+// same step as ~700-1,300 torch kernels:
+//
+// - S1: integrator.shade_plain, everything path_step does after the scene
+//   hit: full_hit_attributes (the planar and sphere rows of the Solids
+//   tables, the medium overrides), scatter (the blend walk, the shading
+//   normal with its normal map, the texture lookup, the 50/50 NEE mixture,
+//   metal fuzz, dielectric), the terminal classification and the fold
+//   (fold_resolve, fold_scatter, the reset of terminal lanes);
+// - S2: integrator._Wavefront.regen_plain, the rest of the step after the
+//   scan of the terminal flags: the finished colors into their
+//   accumulation rows, the next queue positions and their camera rays
+//   (parked lanes with a zero direction), the write-back of the pool, and
+//   the segment and queue counters; with ``reset`` set, the pool's first
+//   camera rays (_Wavefront.reset_plain).
+//
+// One thread a lane. Every draw is the counter hash computed in registers
+// (hit::uniform4); no draw goes through memory. The formulas are the plain
+// versions' expression for expression (shade.cuh; -fmad=false), so the
+// kernels return their values bit for bit on the card; the plain versions
+// run every branch for every lane and select, the kernels run the branch a
+// lane takes.
+//
+// What bounds them: bytes. S1 reads a lane's ~100 bytes of state and hit,
+// one attribute row (112 bytes for a planar prim) and a few material,
+// texel and light rows, and writes ~80 bytes; its arithmetic (a few hundred
+// flops and ~10 transcendentals, plus ~60 flops a light for the NEE pdf)
+// is under the byte time at the card's f32 rate except with many lights.
+// The lane state is structure-of-arrays, so a warp's loads and stores of
+// it coalesce; the attribute tables are read through const __restrict__
+// pointers with no cap on their size (sponza's 262,092 planar rows). S2
+// reads ~30 bytes a lane and writes ~80 bytes for each lane that ends.
+//
+// The wavefront passes its pool as both the input and the output of S1
+// (the update is in place): a thread reads its lane's whole state before
+// it writes any of it, and no thread reads another lane's. S2 updates the
+// queue head (next_q) after every block has read it: the last block to
+// finish (a counter of finished blocks, reset by that block) writes it.
+#include <cstdint>
+
+#include "hit.cuh"
+#include "shade.cuh"
+
+namespace {
+
+using namespace shade;
+
+constexpr int kShadeThreads = 128;
+constexpr int kRegenThreads = 256;
+
+// hit kinds (scene/compile.py) and the step's flag bits (ops/step.py;
+// kFlagBlend, K5's, is 1)
+constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
+              KIND_MEDIUM = 3;
+constexpr int kFlagNormalMaps = 2, kFlagSpheres = 4;
+constexpr int kSphCols = 8;    // sph_attr's 5 columns, padded
+constexpr int kPlnCols = 28;   // pl_attr's 25 columns, padded
+
+// A lane's state in the pool's order: o, d, bounce, acc_len and the fold
+// (A, B, dead, outer), one (R,) array each.
+struct Lanes {
+  float* o[3];
+  float* d[3];
+  int* bounce;
+  float* acc_len;
+  float* A[3];
+  float* B[3];
+  bool* dead[3];
+  bool* outer;
+};
+constexpr int kLaneArrays = 18;
+
+struct Shade {
+  Scene sc;                        // cam mats textures lights, flags
+  const float* __restrict__ sph;   // (S, 8) sph_attr
+  int n_sph;
+  const float* __restrict__ pln;   // (P, 28) pl_attr
+  int n_pl;
+  int n_q;                         // quads: the planar rows before triangles
+  const int* __restrict__ pl_idx;  // (P,): decodes K1's slot
+  const bool* __restrict__ pl_is_tri;
+  const int* __restrict__ med_mat; // (M,) phase materials
+  int n_media;
+  const float* t;
+  const int* kind;                 // null: idx holds K1's planar slot
+  const int* idx;
+  hit::Counter pixel, sample, seed;
+  const bool* active;              // null: qpos < total_q
+  const long long* qpos;
+  long long total_q;
+  Lanes in, out;
+  float* color;                    // (R, 3)
+  bool* flag[6];                   // terminal miss capped emit scat is_pdf
+  long long n;
+  int max_depth;
+};
+
+struct Attrs {
+  V3 normal, tangent, bitangent;
+  float u, v;
+  bool front;
+  int mat;
+};
+
+// hit_attributes_soa's planar branch: pl_attr row (kind, idx) (clamped; a
+// zero row when the table is empty)
+__device__ __forceinline__ Attrs planar_attrs(const Shade& a, V3 point, V3 d,
+                                              int kind, int idx) {
+  int slot = kind == KIND_TRIANGLE ? a.n_q + idx : idx;
+  slot = slot < 0 ? 0 : slot;
+  slot = slot > a.n_pl - 1 ? a.n_pl - 1 : slot;
+  float c[kPlnCols];
+  if (slot >= 0 && slot < a.n_pl) {
+    const float4* row = reinterpret_cast<const float4*>(a.pln) +
+                        (kPlnCols / 4) * static_cast<size_t>(slot);
+    for (int k = 0; k < kPlnCols / 4; ++k) {
+      const float4 q = row[k];
+      c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z; c[4 * k + 3] = q.w;
+    }
+  } else {
+    for (int k = 0; k < kPlnCols; ++k) c[k] = 0.0f;
+  }
+  Attrs h;
+  const V3 n = v3(c[0], c[1], c[2]);
+  const float bu = dot(point, v3(c[3], c[4], c[5])) + c[6];
+  const float bv = dot(point, v3(c[7], c[8], c[9])) + c[10];
+  h.tangent = v3(c[11], c[12], c[13]);
+  h.bitangent = v3(c[14], c[15], c[16]);
+  h.u = c[17] + bu * c[19] + bv * c[21];
+  h.v = c[18] + bu * c[20] + bv * c[22];
+  h.front = dot(d, n) < 0.0f;
+  h.normal = h.front ? n : neg(n);
+  h.mat = static_cast<int>(c[23]);
+  return h;
+}
+
+// hit_attributes_soa's sphere branch (sphere.rs:84-107)
+__device__ __forceinline__ Attrs sphere_attrs(const Shade& a, V3 point, V3 d,
+                                              int idx) {
+  int row = idx < 0 ? 0 : idx;
+  row = row > a.n_sph - 1 ? a.n_sph - 1 : row;
+  float c[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (row >= 0 && row < a.n_sph) {
+    const float* s = a.sph + kSphCols * static_cast<size_t>(row);
+    for (int k = 0; k < 5; ++k) c[k] = s[k];
+  }
+  Attrs h;
+  const V3 n_raw = sub(point, v3(c[0], c[1], c[2]));
+  const V3 n_unit = unit(n_raw);
+  h.front = dot(d, n_unit) < 0.0f;
+  h.normal = h.front ? n_unit : neg(n_unit);
+  const float theta = acosf(clamp_max(clamp_min(-n_unit.y, -1.0f), 1.0f));
+  const float phi = -atan2f(n_unit.z, n_unit.x) + kPi;
+  h.u = div_scalar(phi, kTwoPi);
+  h.v = div_scalar(theta, kPi);
+  // cross(unit_y, n_raw) = (n_raw.z, 0, -n_raw.x), normalised; the
+  // bitangent stays unnormalised (sphere.rs:89-90)
+  h.tangent = unit(v3(n_raw.z, 0.0f, -n_raw.x));
+  h.bitangent = cross(n_raw, h.tangent);
+  h.mat = static_cast<int>(c[4]);
+  return h;
+}
+
+// resolve_blend: three levels, material_1 where U > blend_factor
+__device__ __forceinline__ int blend_walk(const Scene& sc, int mat,
+                                          float4 u) {
+  const float ul[kMaxBlendDepth] = {u.x, u.y, u.z};
+  for (int lvl = 0; lvl < kMaxBlendDepth; ++lvl) {
+    const MatRow r = mat_row(sc, mat);
+    if (r.kind == BLEND) mat = ul[lvl] > r.blend_factor ? r.m1 : r.m2;
+  }
+  return mat;
+}
+
+// Materials.attr's normal_tex column (a zero row out of range: mat_row)
+__device__ __forceinline__ int normal_tex(const Scene& sc, int id) {
+  return (id >= 0 && id < sc.n_mat) ? static_cast<int>(sc.mats[9 * id + 2])
+                                    : 0;
+}
+
+__global__ void __launch_bounds__(kShadeThreads)
+    step_shade(const Shade a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
+                      threadIdx.x;
+  if (i >= a.n) return;
+  const Scene& sc = a.sc;
+
+  // --- the lane: hit, ray, counters and fold, all read before any write ---
+  const float t = a.t[i];
+  int kind, idx;
+  if (a.kind != nullptr) {
+    kind = a.kind[i];
+    idx = a.idx[i];
+  } else {  // K1's planar slot, decoded as ops.bvh.bvh_closest_hit does
+    int ps = a.idx[i];
+    ps = ps < 0 ? 0 : ps;
+    ps = ps > a.n_pl - 1 ? a.n_pl - 1 : ps;
+    kind = a.pl_is_tri[ps] ? KIND_TRIANGLE : KIND_QUAD;
+    idx = a.pl_idx[ps];
+  }
+  const V3 o = v3(a.in.o[0][i], a.in.o[1][i], a.in.o[2][i]);
+  const V3 d = v3(a.in.d[0][i], a.in.d[1][i], a.in.d[2][i]);
+  const int bounce = a.in.bounce[i];
+  const float acc_len = a.in.acc_len[i];
+  float A[3], B[3];
+  bool dead[3];
+  for (int c = 0; c < 3; ++c) {
+    A[c] = a.in.A[c][i];
+    B[c] = a.in.B[c][i];
+    dead[c] = a.in.dead[c][i];
+  }
+  bool outer = a.in.outer[i];
+  const bool active = a.active != nullptr ? a.active[i]
+                                          : a.qpos[i] < a.total_q;
+  const uint32_t pix = a.pixel.at(i), smp = a.sample.at(i),
+                 seed = a.seed.at(i), bnc = static_cast<uint32_t>(bounce);
+
+  // --- hit attributes (full_hit_attributes), on every lane ---------------
+  const bool finite = isfinite(t);
+  const bool miss = active && !finite;
+  const float t_safe = finite ? t : 0.0f;
+  const V3 point = v3(o.x + d.x * t_safe, o.y + d.y * t_safe,
+                      o.z + d.z * t_safe);
+  Attrs h;
+  if (a.n_media > 0 && kind == KIND_MEDIUM) {
+    // constant_medium.rs:63-74: random phase normal, unit tangents
+    const float4 pr = uniform4(pix, smp, bnc, P_PHASE, seed);
+    h.normal = unit_vector(pr.x, pr.y);
+    h.tangent = h.bitangent = v3(1.0f, 1.0f, 1.0f);
+    h.u = h.v = 0.0f;
+    h.front = false;
+    int m = idx < 0 ? 0 : idx;
+    m = m > a.n_media - 1 ? a.n_media - 1 : m;
+    h.mat = a.med_mat[m];
+  } else if ((sc.flags & kFlagSpheres) && kind == KIND_SPHERE) {
+    h = sphere_attrs(a, point, d, idx);
+  } else {
+    h = planar_attrs(a, point, d, kind, idx);
+  }
+
+  // --- material and the terminal classification --------------------------
+  int eff = h.mat;
+  if (sc.flags & kFlagBlend)
+    eff = blend_walk(sc, eff, uniform4(pix, smp, bnc, P_BLEND_SCATTER, seed));
+  const MatRow row = mat_row(sc, eff);
+  const bool is_light = row.kind == DIFFUSE_LIGHT;
+  const bool is_iso = row.kind == ISOTROPIC;
+  const bool is_pdf = row.kind == LAMBERTIAN || is_iso;
+  const bool capped = active && finite && bounce >= a.max_depth;
+  const bool emit = active && finite && !capped && is_light;
+  const bool scat = active && finite && !capped && !is_light;
+  const bool terminal = miss || capped || emit;
+  const float total_len = acc_len + t_safe;
+  const V3 albedo = (emit || scat)
+                        ? sample_texture(sc, row.albedo_tex, h.u, h.v)
+                        : v3(0.0f, 0.0f, 0.0f);
+  const float alb[3] = {albedo.x, albedo.y, albedo.z};
+
+  // --- the terminal color through the folded clamps (fold_resolve) -------
+  const float* bg = sc.cam + 19;
+  const float term_af = emit ? row.atten : 0.0f;
+  const float term_acc = emit ? total_len : 0.0f;
+  const float att = term_af > 0.0f ? 1.0f / (1.0f + term_af * term_acc)
+                                   : 1.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float term = miss ? bg[c] : (emit && h.front ? alb[c] : 0.0f);
+    const bool dead_t = dead[c] || ((term != term) && outer);
+    const float tc = dead_t ? 0.0f : term;
+    const float L = dead_t ? 0.0f : nan_min(A[c] * tc, B[c]);
+    a.color[3 * i + c] = L * att;
+  }
+
+  // --- scatter (material/mod.rs), on lanes that go on --------------------
+  V3 new_dir = d;
+  float prob = 1.0f;
+  if (scat) {
+    V3 s_normal = h.normal;
+    if (sc.flags & kFlagNormalMaps) {
+      // shading_normal_of: the tangent-space map through the hit frame,
+      // with the material the normal draw's blend walk picks
+      int eff_n = eff;
+      if (sc.flags & kFlagBlend)
+        eff_n = blend_walk(sc, h.mat,
+                           uniform4(pix, smp, bnc, P_BLEND_NORMAL, seed));
+      const int ntex = normal_tex(sc, eff_n);
+      if (ntex >= 0) {
+        const V3 tc = sample_texture(sc, ntex, h.u, h.v);
+        const V3 tn = v3(tc.x * 2.0f - 1.0f, tc.y * 2.0f - 1.0f,
+                         tc.z * 2.0f - 1.0f);
+        s_normal = onb_local(h.tangent, h.bitangent, h.normal, tn);
+      }
+    }
+    if (row.kind == METAL) {
+      // metal (material/mod.rs:239-249)
+      const float4 f = uniform4(pix, smp, bnc, P_FUZZ, seed);
+      const V3 reflected = reflect(unit(d), s_normal);
+      new_dir = add(reflected, scale(in_unit_sphere(f.x, f.y, f.z),
+                                     row.fuzz));
+    } else if (row.kind == DIELECTRIC) {
+      // dielectric (material/mod.rs:279-316)
+      const float ior = row.ior;
+      const float rr = h.front ? 1.0f / ior : ior;
+      const V3 udir = unit(d);
+      const float cos_t = clamp_max(dot(neg(udir), s_normal), 1.0f);
+      const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
+      const bool cannot = rr * sin_t > 1.0f;
+      float r0 = (1.0f - rr) / (1.0f + rr);
+      r0 = r0 * r0;
+      const float q = 1.0f - cos_t;
+      const float q2 = q * q;
+      const float reflectance = r0 + (1.0f - r0) * (q * (q2 * q2));
+      const float u_d = uniform4(pix, smp, bnc, P_DIELECTRIC, seed).x;
+      new_dir = (cannot || reflectance > u_d) ? reflect(udir, s_normal)
+                                              : refract(udir, s_normal, rr);
+    } else {
+      // pdf-mixture scatter (material/mod.rs:191-207, 396-410)
+      const float4 rc = uniform4(pix, smp, bnc, P_COSINE, seed);
+      V3 ct, cb, cn;
+      onb_from_w(s_normal, &ct, &cb, &cn);
+      const V3 bsdf_dir =
+          is_iso ? unit_vector(rc.x, rc.y)
+                 : onb_local(ct, cb, cn, cosine_direction(rc.x, rc.y));
+      const float u_pick = uniform4(pix, smp, bnc, P_LIGHT_PICK, seed).x;
+      int pick = static_cast<int>(u_pick * static_cast<float>(sc.n_light));
+      pick = pick > sc.n_light - 1 ? sc.n_light - 1 : pick;
+      const float4 l = uniform4(pix, smp, bnc, P_LIGHT_SAMPLE, seed);
+      const V3 light_dir = sample_light(sc, point, pick, l.x, l.y);
+      const float u_coin = uniform4(pix, smp, bnc, P_MIX_COIN, seed).x;
+      const V3 pdf_dir = sel(u_coin < 0.5f, light_dir, bsdf_dir);
+      const float light_val = light_pdf_mean(sc, point, pdf_dir);
+      const V3 unit_pdf_dir = unit(pdf_dir);
+      const float cos_value = div_scalar(
+          clamp_min(dot(unit_pdf_dir, unit(s_normal)), 0.0f), kPi);
+      const float bsdf_val = is_iso ? kSphereValue : cos_value;
+      const float mix_val = 0.5f * light_val + 0.5f * bsdf_val;
+      const float cos_sc = dot(s_normal, unit_pdf_dir);
+      const float lamb_sc = cos_sc < 0.0f ? 0.0f : div_scalar(cos_sc, kPi);
+      const float scat_pdf = is_iso ? kSphereValue : lamb_sc;
+      if (is_pdf) prob = scat_pdf / mix_val;
+      new_dir = pdf_dir;
+    }
+  }
+
+  // --- fold this bounce's scatter level (fold_scatter); reset terminal ---
+  const bool pdf_lvl = scat && is_pdf;
+  const bool basic_lvl = scat && !is_pdf;
+  const float prob_scat = scat ? prob : 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float ap = alb[c] * prob;
+    const bool nan_a = ap != ap;
+    if (pdf_lvl) B[c] = nan_min(B[c], 3.0f * A[c]);
+    dead[c] = dead[c] || (pdf_lvl && nan_a) || (basic_lvl && nan_a && outer);
+    if (scat) A[c] = A[c] * (alb[c] * (dead[c] ? 0.0f : prob_scat));
+    if (terminal) {
+      A[c] = 1.0f;
+      B[c] = CUDART_INF_F;
+      dead[c] = false;
+    }
+    a.out.A[c][i] = A[c];
+    a.out.B[c][i] = B[c];
+    a.out.dead[c][i] = dead[c];
+  }
+  a.out.outer[i] = (outer || pdf_lvl) && !terminal;
+
+  const V3 o2 = scat ? point : o;
+  const V3 d2 = scat ? new_dir : d;
+  a.out.o[0][i] = o2.x; a.out.o[1][i] = o2.y; a.out.o[2][i] = o2.z;
+  a.out.d[0][i] = d2.x; a.out.d[1][i] = d2.y; a.out.d[2][i] = d2.z;
+  a.out.bounce[i] = scat ? bounce + 1 : bounce;
+  a.out.acc_len[i] = scat ? total_len : acc_len;
+  const bool flags[6] = {terminal, miss, capped, emit, scat, is_pdf};
+  for (int k = 0; k < 6; ++k)
+    if (a.flag[k] != nullptr) a.flag[k][i] = flags[k];
+}
+
+struct Regen {
+  Scene sc;                          // cam
+  Lanes pool;
+  long long* qpos;
+  long long* pixel;
+  long long* sample;
+  const bool* terminal;              // step mode: S1's flags
+  const long long* rank;             // their inclusive scan
+  const float* color;                // (R, 3)
+  float* accum;                      // (total_q + 1, 3)
+  long long* next_q;
+  long long* segments;
+  unsigned int* done;                // finished blocks, 0 between launches
+  const long long* start;            // first sample id
+  const long long* pix_ids;          // a shard's pixel ids, or null
+  long long n, total_q, n_pix;
+  int width, height, tile_w, tile_h; // tile_w 0: no swizzle
+  uint32_t seed;
+  int reset;
+};
+
+// _Wavefront.assignment / queue_assignment: queue position -> (pixel id,
+// sample id), tile-swizzled in the full image
+__device__ __forceinline__ void assignment(const Regen& a, long long q,
+                                           long long* pixel,
+                                           long long* samp) {
+  const long long pslot = q % a.n_pix;
+  *samp = *a.start + q / a.n_pix;
+  if (a.pix_ids != nullptr) {
+    *pixel = a.pix_ids[pslot];
+    return;
+  }
+  if (a.tile_w == 0) {
+    *pixel = pslot;
+    return;
+  }
+  const long long tw = a.tile_w, th = a.tile_h;
+  const long long tile = pslot / (tw * th), within = pslot % (tw * th);
+  const long long tx = tile % (a.width / tw), ty = tile / (a.width / tw);
+  *pixel = (ty * th + within / tw) * a.width + tx * tw + within % tw;
+}
+
+__global__ void __launch_bounds__(kRegenThreads)
+    step_regen(const Regen a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kRegenThreads +
+                      threadIdx.x;
+  // the queue head before this step: every thread reads it before its
+  // block counts itself finished
+  const long long base = a.reset ? 0 : *a.next_q;
+  int active = 0;
+  if (i < a.n) {
+    long long q = a.reset ? i : a.qpos[i];
+    bool regen = a.reset != 0;
+    if (!a.reset) {
+      active = q < a.total_q;
+      if (a.terminal[i]) {
+        // the finished color into its row (row_of: sample-major by pixel
+        // id in the full image, by queue position in a shard)
+        const long long row = a.pix_ids != nullptr
+                                  ? q : (q / a.n_pix) * a.n_pix + a.pixel[i];
+        for (int c = 0; c < 3; ++c)
+          a.accum[3 * row + c] = a.color[3 * i + c];
+        q = base + a.rank[i] - 1;   // the exclusive rank
+        regen = true;
+      }
+    }
+    if (regen) {
+      long long px, sp;
+      assignment(a, q < a.total_q - 1 ? q : a.total_q - 1, &px, &sp);
+      V3 o, d;
+      camera_ray(a.sc, static_cast<int>(px), static_cast<int>(sp), a.seed,
+                 a.width, a.height, &o, &d);
+      if (q >= a.total_q) d = v3(0.0f, 0.0f, 0.0f);   // parked
+      a.qpos[i] = q;
+      a.pixel[i] = px;
+      a.sample[i] = sp;
+      a.pool.o[0][i] = o.x; a.pool.o[1][i] = o.y; a.pool.o[2][i] = o.z;
+      a.pool.d[0][i] = d.x; a.pool.d[1][i] = d.y; a.pool.d[2][i] = d.z;
+      a.pool.bounce[i] = 0;
+      a.pool.acc_len[i] = 0.0f;
+      if (a.reset) {   // in a step, S1 has reset the fold of ended lanes
+        for (int c = 0; c < 3; ++c) {
+          a.pool.A[c][i] = 1.0f;
+          a.pool.B[c][i] = CUDART_INF_F;
+          a.pool.dead[c][i] = false;
+        }
+        a.pool.outer[i] = false;
+      }
+    }
+  }
+  if (a.reset) return;
+  // the segments of this step (its active lanes), and the queue head once
+  // every block has read it
+  const int count = __syncthreads_count(active);
+  if (threadIdx.x == 0) {
+    if (count > 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.segments),
+                static_cast<unsigned long long>(count));
+    __threadfence();
+    if (atomicAdd(a.done, 1u) == gridDim.x - 1) {
+      *a.next_q = base + a.rank[a.n - 1];
+      *a.done = 0u;
+    }
+  }
+}
+
+Lanes lanes_at(const void* const* p) {
+  Lanes s;
+  for (int c = 0; c < 3; ++c) {
+    s.o[c] = static_cast<float*>(const_cast<void*>(p[c]));
+    s.d[c] = static_cast<float*>(const_cast<void*>(p[3 + c]));
+    s.A[c] = static_cast<float*>(const_cast<void*>(p[8 + c]));
+    s.B[c] = static_cast<float*>(const_cast<void*>(p[11 + c]));
+    s.dead[c] = static_cast<bool*>(const_cast<void*>(p[14 + c]));
+  }
+  s.bounce = static_cast<int*>(const_cast<void*>(p[6]));
+  s.acc_len = static_cast<float*>(const_cast<void*>(p[7]));
+  s.outer = static_cast<bool*>(const_cast<void*>(p[17]));
+  return s;
+}
+
+// The scene tables both kernels read: cam, materials, textures, lights.
+Scene scene_at(const void* const* p, const long long* v, int i_cam,
+               int i_mats, int i_tex_attr, int i_texels, int i_lights,
+               int v_mat, int v_tex, int v_texels, int v_light, int flags) {
+  Scene sc = {};
+  sc.cam = static_cast<const float*>(p[i_cam]);
+  sc.mats = static_cast<const float*>(p[i_mats]);
+  sc.n_mat = static_cast<int>(v[v_mat]);
+  sc.tex_attr = static_cast<const float*>(p[i_tex_attr]);
+  sc.n_tex = static_cast<int>(v[v_tex]);
+  sc.texels = static_cast<const float*>(p[i_texels]);
+  sc.n_texels = static_cast<int>(v[v_texels]);
+  sc.lights = static_cast<const float*>(p[i_lights]);
+  sc.n_light = static_cast<int>(v[v_light]);
+  sc.flags = flags;
+  return sc;
+}
+
+hit::Counter counter_at(const void* p, const long long* v) {
+  return hit::Counter{p, static_cast<int>(v[0]), static_cast<int>(v[1]),
+                      static_cast<uint32_t>(v[2])};
+}
+
+}  // namespace
+
+// S1's arguments, by index into p (pointers) and v (int64 values); the
+// names match ops/step.py's SHADE_PTRS and SHADE_INTS.
+enum ShadePtr {
+  SP_CAM, SP_SPH, SP_PLN, SP_MATS, SP_TEX_ATTR, SP_TEXELS, SP_LIGHTS,
+  SP_MED_MAT, SP_PL_IDX, SP_PL_IS_TRI, SP_T, SP_KIND, SP_IDX, SP_PIXEL,
+  SP_SAMPLE, SP_SEED, SP_ACTIVE, SP_QPOS, SP_COLOR, SP_TERMINAL, SP_MISS,
+  SP_CAPPED, SP_EMIT, SP_SCAT, SP_IS_PDF, SP_IN, SP_OUT = SP_IN + 18,
+  SP_COUNT = SP_OUT + 18
+};
+enum ShadeInt {
+  SV_N, SV_MAX_DEPTH, SV_FLAGS, SV_N_SPH, SV_N_PL, SV_N_Q, SV_N_MAT,
+  SV_N_TEX, SV_N_TEXELS, SV_N_LIGHT, SV_N_MEDIA, SV_TOTAL_Q, SV_PIXEL,
+  SV_SAMPLE = SV_PIXEL + 3, SV_SEED = SV_SAMPLE + 3, SV_COUNT = SV_SEED + 3
+};
+
+// S2's arguments, as ops/step.py's REGEN_PTRS and REGEN_INTS name them.
+enum RegenPtr {
+  RP_CAM, RP_QPOS, RP_PIXEL, RP_SAMPLE, RP_TERMINAL, RP_RANK, RP_COLOR,
+  RP_ACCUM, RP_NEXT_Q, RP_SEGMENTS, RP_DONE, RP_START, RP_PIX_IDS, RP_POOL,
+  RP_COUNT = RP_POOL + 18
+};
+enum RegenInt {
+  RV_N, RV_TOTAL_Q, RV_N_PIX, RV_WIDTH, RV_HEIGHT, RV_TILE_W, RV_TILE_H,
+  RV_SEED, RV_RESET, RV_COUNT
+};
+
+extern "C" int step_shade_launch(const void* const* p, const long long* v,
+                                 void* stream) {
+  static_assert(SP_OUT - SP_IN == kLaneArrays, "lane arrays");
+  static_assert(RP_COUNT - RP_POOL == kLaneArrays, "lane arrays");
+  const long long n = v[SV_N];
+  if (n > 0) {
+    Shade a;
+    a.sc = scene_at(p, v, SP_CAM, SP_MATS, SP_TEX_ATTR, SP_TEXELS,
+                    SP_LIGHTS, SV_N_MAT, SV_N_TEX, SV_N_TEXELS, SV_N_LIGHT,
+                    static_cast<int>(v[SV_FLAGS]));
+    a.sph = static_cast<const float*>(p[SP_SPH]);
+    a.n_sph = static_cast<int>(v[SV_N_SPH]);
+    a.pln = static_cast<const float*>(p[SP_PLN]);
+    a.n_pl = static_cast<int>(v[SV_N_PL]);
+    a.n_q = static_cast<int>(v[SV_N_Q]);
+    a.pl_idx = static_cast<const int*>(p[SP_PL_IDX]);
+    a.pl_is_tri = static_cast<const bool*>(p[SP_PL_IS_TRI]);
+    a.med_mat = static_cast<const int*>(p[SP_MED_MAT]);
+    a.n_media = static_cast<int>(v[SV_N_MEDIA]);
+    a.t = static_cast<const float*>(p[SP_T]);
+    a.kind = static_cast<const int*>(p[SP_KIND]);
+    a.idx = static_cast<const int*>(p[SP_IDX]);
+    a.pixel = counter_at(p[SP_PIXEL], v + SV_PIXEL);
+    a.sample = counter_at(p[SP_SAMPLE], v + SV_SAMPLE);
+    a.seed = counter_at(p[SP_SEED], v + SV_SEED);
+    a.active = static_cast<const bool*>(p[SP_ACTIVE]);
+    a.qpos = static_cast<const long long*>(p[SP_QPOS]);
+    a.total_q = v[SV_TOTAL_Q];
+    a.in = lanes_at(p + SP_IN);
+    a.out = lanes_at(p + SP_OUT);
+    a.color = static_cast<float*>(const_cast<void*>(p[SP_COLOR]));
+    for (int k = 0; k < 6; ++k)
+      a.flag[k] = static_cast<bool*>(const_cast<void*>(p[SP_TERMINAL + k]));
+    a.n = n;
+    a.max_depth = static_cast<int>(v[SV_MAX_DEPTH]);
+    const long long blocks = (n + kShadeThreads - 1) / kShadeThreads;
+    step_shade<<<static_cast<unsigned int>(blocks), kShadeThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int step_regen_launch(const void* const* p, const long long* v,
+                                 void* stream) {
+  const long long n = v[RV_N];
+  if (n > 0) {
+    Regen a;
+    a.sc = Scene{};
+    a.sc.cam = static_cast<const float*>(p[RP_CAM]);
+    a.pool = lanes_at(p + RP_POOL);
+    a.qpos = static_cast<long long*>(const_cast<void*>(p[RP_QPOS]));
+    a.pixel = static_cast<long long*>(const_cast<void*>(p[RP_PIXEL]));
+    a.sample = static_cast<long long*>(const_cast<void*>(p[RP_SAMPLE]));
+    a.terminal = static_cast<const bool*>(p[RP_TERMINAL]);
+    a.rank = static_cast<const long long*>(p[RP_RANK]);
+    a.color = static_cast<const float*>(p[RP_COLOR]);
+    a.accum = static_cast<float*>(const_cast<void*>(p[RP_ACCUM]));
+    a.next_q = static_cast<long long*>(const_cast<void*>(p[RP_NEXT_Q]));
+    a.segments = static_cast<long long*>(const_cast<void*>(p[RP_SEGMENTS]));
+    a.done = static_cast<unsigned int*>(const_cast<void*>(p[RP_DONE]));
+    a.start = static_cast<const long long*>(p[RP_START]);
+    a.pix_ids = static_cast<const long long*>(p[RP_PIX_IDS]);
+    a.n = n;
+    a.total_q = v[RV_TOTAL_Q];
+    a.n_pix = v[RV_N_PIX];
+    a.width = static_cast<int>(v[RV_WIDTH]);
+    a.height = static_cast<int>(v[RV_HEIGHT]);
+    a.tile_w = static_cast<int>(v[RV_TILE_W]);
+    a.tile_h = static_cast<int>(v[RV_TILE_H]);
+    a.seed = static_cast<uint32_t>(v[RV_SEED]);
+    a.reset = static_cast<int>(v[RV_RESET]);
+    const long long blocks = (n + kRegenThreads - 1) / kRegenThreads;
+    step_regen<<<static_cast<unsigned int>(blocks), kRegenThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

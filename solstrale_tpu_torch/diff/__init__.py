@@ -46,15 +46,16 @@ def set_texture_params(cs: CompiledScene, params) -> CompiledScene:
 def render_linear(cs: CompiledScene, *, width, height, max_depth, n_samples,
                   seed, sample_start=1):
     """Differentiable expected-radiance image: the mean of ``n_samples``
-    sample passes (``render_pixels`` with the fixed trip), linear color,
-    shape (height*width, 3) in pixel-id order."""
+    sample passes (``render_pixels`` with the fixed trip on the
+    differentiable route), linear color, shape (height*width, 3) in
+    pixel-id order."""
     pix = torch.arange(width * height, dtype=torch.int64, device=cs.device)
     total = 0.0
     for s in range(n_samples):
         color, _, _ = integrator.render_pixels(
             cs, pix, sample_start + s, seed, width=width, height=height,
             max_depth=max_depth, shader_kind=integrator.SHADER_PATH,
-            need_aux=False, early_exit=False)
+            need_aux=False, early_exit=False, differentiable=True)
         total = total + color
     return total / n_samples
 
@@ -145,7 +146,7 @@ class _GradStep:
                 color, _, _ = integrator.render_pixels(
                     self.cs, self.pix, self.sample,
                     shader_kind=integrator.SHADER_PATH, need_aux=False,
-                    early_exit=False, **self.kw)
+                    early_exit=False, differentiable=True, **self.kw)
                 loss = torch.sum((color - self.target) ** 2 * self.valid)
             grad, = torch.autograd.grad(loss, self.arena)
         with torch.no_grad():

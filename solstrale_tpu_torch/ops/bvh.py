@@ -121,7 +121,15 @@ def bvh_closest_hit(kbvh, solids, o, d, tmin, tmax):
     if kbvh.has_spheres:
         return sweep.bvh_sphere_hit(solids.sph_table, o, d, tmin, tmax, t_p,
                                     pslot, solids.pl_idx, solids.pl_is_tri)
-    pslot_c = torch.clamp(pslot, 0, solids.pl_idx.shape[0] - 1).long()
-    kind_p = torch.where(solids.pl_is_tri[pslot_c], KIND_TRIANGLE,
-                         KIND_QUAD).to(torch.int32)
-    return t_p, kind_p, solids.pl_idx[pslot_c]
+    return (t_p, *decode_planar_slot(solids, pslot))
+
+
+def decode_planar_slot(solids, slot):
+    """K1's planar slot -> (kind, idx) (R,) int32: the solid row of a
+    quad or triangle (a miss's slot decodes to a row of no meaning; its t
+    is infinite). S1 (``ops.step.step_shade``) decodes the slot the same
+    way in its kernel."""
+    c = torch.clamp(slot, 0, solids.pl_idx.shape[0] - 1).long()
+    kind = torch.where(solids.pl_is_tri[c], KIND_TRIANGLE,
+                       KIND_QUAD).to(torch.int32)
+    return kind, solids.pl_idx[c]

@@ -165,13 +165,19 @@ def light_pdf_mean3(lights: Lights, o, d, kinds):
     a self re-intersection (sphere.rs:40-56), quad/tri -> dist^2/(cos*area)
     (quad.rs:132-143). NaNs propagate as in the reference and are filtered
     later by the clamp-fold. Above _MEAN3_UNROLL_MAX lights the batched
-    (R, L) form takes over."""
+    (R, L) form takes over. Either way the pdfs are summed in light order
+    and the sum divided by the count, as the step kernels sum them
+    (``csrc/shade.cuh``; a ``torch.mean`` would sum in the device's
+    order)."""
     tmin, tmax = RAY_T_MIN, INF
     n_l = len(kinds)
-    if n_l > _MEAN3_UNROLL_MAX:
-        return torch.mean(light_pdf_values(lights, o, d), dim=1)
-    dd = soa.dot3(d, d)
     acc = torch.zeros_like(o[0])
+    if n_l > _MEAN3_UNROLL_MAX:
+        values = light_pdf_values(lights, o, d)
+        for i in range(n_l):
+            acc = acc + values[:, i]
+        return acc / n_l
+    dd = soa.dot3(d, d)
     for i, kind in enumerate(kinds):
         if kind == KIND_SPHERE:
             acc = acc + _sphere_light_pdf(lights, i, o, d, dd, tmin, tmax)

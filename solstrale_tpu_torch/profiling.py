@@ -15,10 +15,11 @@ graphs), then times one ``render_sample_batch`` (1 spp, depth 50) twice:
 once bare (CUDA-synced host clock: the end-to-end number, with the steps
 run, the stop-test reads and the graph replays) and once under
 ``torch.profiler`` (device time per kernel name, the device's busy and
-idle share of the profiled wall time, the hit kernels' and the draw
-kernel's share, the device kernels a step, and the launches the profiler
-saw of K1 and the draw kernel beside the wrappers' counts: kernels inside
-a graph replay are attributed only if the two agree). ``--step`` times one
+idle share of the profiled wall time, the hit kernels', the draw
+kernel's and the step kernels' (S1, S2) share, the device kernels a step,
+and the launches the profiler saw of K1, the draw kernel, S1 and S2 beside
+the wrappers' counts: kernels inside a graph replay are attributed only if
+the two agree). ``--step`` times one
 ``diff.image_and_texture_grad`` step instead (1 spp, depth 50, against a
 target at seed 2), which on the card replays the step's CUDA graph: its
 first call (the capture), one call by CUDA events, the host reads of a
@@ -39,7 +40,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
-               "k5_render", "rng_uniform4")
+               "k5_render", "rng_uniform4", "step_shade", "step_regen")
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
 
@@ -86,10 +87,12 @@ def device_kernels(calls, attempts=5):
     one call runs. One torch.profiler session for all: the calls are
     separated by a short ``torch.cuda._sleep``, whose spin kernel marks the
     boundaries in the device timeline; memory copies and sets are not
-    counted. A session sometimes comes back without device events, or
-    without its last ones (seen on an H100 with torch 2.11): a few more
-    markers follow the last call, at least one must arrive, and a session
-    that fails that is run again, up to ``attempts`` times."""
+    counted. A session sometimes comes back without device events, without
+    its last ones, or without one call's kernel between markers that
+    arrived (seen on an H100 with torch 2.11): a few more markers follow
+    the last call, at least one must arrive, every call must show a
+    kernel (each of the callers' calls launches one), and a session that
+    fails that is run again, up to ``attempts`` times."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(attempts):
@@ -113,10 +116,12 @@ def device_kernels(calls, attempts=5):
                 markers += 1
             elif 1 <= markers <= len(calls):
                 groups[markers - 1].append(e.name)
-        if markers > len(calls):
+        if markers > len(calls) and all(groups):
             return dict(zip(calls, groups))
-    raise RuntimeError(f"device_kernels: {attempts} traces held at most "
-                       f"{markers} markers for {len(calls)} calls")
+    raise RuntimeError(f"device_kernels: none of {attempts} traces held "
+                       f"every call's kernels between {len(calls) + 1} "
+                       f"markers (the last: {markers} markers, kernels "
+                       f"{groups})")
 
 
 def _profile(fn):
@@ -248,8 +253,10 @@ def profile_batch(scene_name="sponza"):
     prof, kernels = _profile(
         lambda: integrator.render_sample_batch(cs, 1, 1, **kw))
     counted = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    pairs = {"k1_bvh": "K1", "rng_uniform4": "draw", "step_shade": "S1",
+             "step_regen": "S2"}
     seen = {name: sum(v[0] for k, v in kernels.items() if name in k)
-            for name in ("k1_bvh", "rng_uniform4")}
+            for name in pairs}
     iters = stats.get("iters")
     return dict(
         scene=scene_name, width=width, height=height,
@@ -260,9 +267,8 @@ def profile_batch(scene_name="sponza"):
         ms_per_iteration=wall * 1e3 / iters if iters else None,
         launches_per_iteration=(prof["kernel_launches"] / iters if iters
                                 else None),
-        profiled_vs_counted={"k1_bvh": [seen["k1_bvh"], counted["K1"]],
-                             "rng_uniform4": [seen["rng_uniform4"],
-                                              counted["draw"]]},
+        profiled_vs_counted={name: [seen[name], counted[key]]
+                             for name, key in pairs.items()},
         **prof)
 
 

@@ -7,7 +7,11 @@ pool of lanes drains the global (pixel, sample) work queue
 BVH kernels K1-K3, or the fused scene hit K4 below 512 solids),
 ``full_hit_attributes``, ``scatter`` (materials, blend, textures, normal
 maps, the 50/50 NEE mixture) and the forward clamp-fold, then accumulates
-the finished paths. Scenes the megakernel gate accepts skip the wavefront:
+the finished paths and regenerates their lanes. On the card everything
+after the scene hit is two kernels, S1 and S2 (``ops/step.py``); the torch
+composition (``path_step_plain``, ``_Wavefront.step_plain``) is their plain
+version and, under grad, the differentiable route. Scenes the megakernel
+gate accepts skip the wavefront:
 ``render_sample_batch`` renders their whole batch in one launch of K5
 (``renderer/megakernel.py``), whose plain version runs ``path_step`` too.
 ``trace`` runs ``path_step`` on a wavefront of one lane per pixel
@@ -38,6 +42,7 @@ from ..geo import soa
 from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
                        unit3, vneg, vscale, where3)
 from ..ops import rng, sweep
+from ..ops import step as step_ops
 from ..ops.bvh import bvh_closest_hit, bvh_planar_hit
 from ..ops.intersect import (hit_attributes_soa, light_pdf_mean3,
                              sample_light_direction3, table_rows)
@@ -393,13 +398,25 @@ def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
     )
 
 
+def step_hit(cs: CompiledScene, o, d, pixel, sample, bounce, seed):
+    """The scene hit as S1 (``ops.step.step_shade``) takes it: ``scene_hit``'s
+    (t, kind, idx), or on a BVH scene without spheres and media K1's (t,
+    planar slot) with kind None, which S1 decodes itself (the decode
+    ``bvh_closest_hit`` runs in torch)."""
+    if cs.kbvh is not None and not cs.kbvh.has_spheres and not cs.media:
+        t, slot = bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+        return t, None, slot
+    return scene_hit(cs, o, d, pixel, sample, bounce, seed)
+
+
 def path_step(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel, sample,
-              seed, active, max_depth, plain=False):
+              seed, active, max_depth):
     """One bounce of every lane, the body that ``trace_queued`` and the
     plain megakernel share: scene hit, attributes, scatter, terminal
     classification, the terminal color through the clamp-fold, and the fold
-    of this bounce's scatter level. ``plain`` takes the scene hit's plain
-    version (no kernel). Returns a dict:
+    of this bounce's scatter level. The scene-hit kernels (``step_hit``),
+    then S1 (``ops.step.step_shade``: one launch on the card, its plain
+    version ``shade_plain`` on the CPU). Returns a dict:
 
     - ``terminal``: lanes whose path ended here (miss, depth cap, emission);
     - ``miss``, ``capped``, ``emit``, ``scat``: the four kinds of segment
@@ -409,8 +426,26 @@ def path_step(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel, sample,
     - ``o``, ``d``, ``bounce``, ``acc_len``: the state a lane that goes on
       carries (a terminal lane's are the caller's to regenerate);
     - ``fold``: the fold state, already reset on terminal lanes."""
+    t, kind, idx = step_hit(cs, o, d, pixel, sample, bounce, seed)
+    return step_ops.step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold,
+                               pixel, sample, seed, active, max_depth)
+
+
+def path_step_plain(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
+                    sample, seed, active, max_depth, plain=False):
+    """``path_step`` as the torch composition: ``scene_hit`` (its plain
+    version if ``plain``), then ``shade_plain``. S1's plain version, and the
+    differentiable route (autograd runs through it; S1 has no backward)."""
     t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed,
                              plain=plain)
+    return shade_plain(cs, o, d, t, kind, idx, bounce, acc_len, fold, pixel,
+                       sample, seed, active, max_depth)
+
+
+def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
+                pixel, sample, seed, active, max_depth):
+    """Everything ``path_step`` does after the scene hit, in torch: S1's
+    plain version. Same dict as ``path_step``."""
     finite = torch.isfinite(t)
     miss = active & ~finite
     t_safe = torch.where(finite, t, 0.0)
@@ -524,7 +559,7 @@ def remat_chunk(max_depth):
 
 
 def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
-          early_exit=True):
+          early_exit=True, differentiable=False):
     """Full path trace of a ray wavefront -> linear color (R, 3), one
     ``path_step`` per bounce for every lane (the body ``trace_queued``
     runs). A lane whose path ends keeps its color and parks with a zero
@@ -540,7 +575,13 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     ``torch.utils.checkpoint``, so only the lane carry (~30 values a lane)
     is kept between chunks and the backward replays each chunk; the
     counter-keyed RNG and the deterministic kernels draw the same paths
-    again."""
+    again.
+
+    ``differentiable`` names the route autograd runs through: every bounce
+    is ``path_step_plain``, the torch composition, since S1 has no
+    backward. Otherwise every bounce is ``path_step`` (S1 on the card),
+    whether grad mode is on or not; S1's wrapper raises when a table it
+    reads requires grad."""
     sample = _lanes(sample, pix)
     zero = torch.zeros_like(o[0])
     bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
@@ -549,11 +590,13 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
                         device=zero.device)
     carry = (o, d, bounce, zero, fold_init(zero), alive, color)
 
+    step = path_step_plain if differentiable else path_step
+
     def steps(carry, n):
         o, d, bounce, acc_len, fold, alive, color = carry
         for _ in range(n):
-            st = path_step(cs, o, d, bounce, acc_len, fold, pix, sample,
-                           seed, alive, max_depth)
+            st = step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
+                      alive, max_depth)
             color = torch.where(st["terminal"][:, None], st["color"], color)
             alive = alive & ~st["terminal"]
             o, bounce, acc_len, fold = (st["o"], st["bounce"],
@@ -642,15 +685,17 @@ _DEBUG_SHADERS = {SHADER_ALBEDO: shade_albedo, SHADER_NORMAL: shade_normal,
 
 
 def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
-                  max_depth, shader_kind, need_aux, early_exit=True):
+                  max_depth, shader_kind, need_aux, early_exit=True,
+                  differentiable=False):
     """Render a wavefront of pixel ids (one lane each, the whole wavefront
     in every launch) -> (color, albedo, normal), (R, 3) linear colors. The
     RNG keys off the pixel id, so any partition of the ids renders the
-    same values. Without ``need_aux`` albedo and normal are zero."""
+    same values. Without ``need_aux`` albedo and normal are zero.
+    ``differentiable``: the path shader's route for autograd (``trace``)."""
     _, o, d = camera_rays(cs, pix, width, height, sample, seed)
     if shader_kind == SHADER_PATH:
         color = trace(cs, o, d, pix, sample, seed, max_depth,
-                      early_exit=early_exit)
+                      early_exit=early_exit, differentiable=differentiable)
     else:
         color = _DEBUG_SHADERS[shader_kind](cs, o, d, pix, sample, seed)
     if need_aux:
@@ -685,9 +730,11 @@ GRAPH_STEPS = 2
 
 def _counted_wrappers():
     """The kernel wrappers a wavefront step launches through, each with its
-    ``launches`` count: the hit kernels K1-K4 and the draw kernel."""
+    ``launches`` count: the hit kernels K1-K4, the draw kernel and the step
+    kernels S1 and S2."""
     return (bvh_planar_hit, sweep.bvh_sphere_hit, sweep.media_hit,
-            sweep.scene_hit, rng.uniform4)
+            sweep.scene_hit, rng.uniform4, step_ops.step_shade,
+            step_ops.step_regen)
 
 
 def _queue_sizes(width, height, n_samples, lanes, pix_ids, n_valid):
@@ -707,16 +754,19 @@ def _queue_sizes(width, height, n_samples, lanes, pix_ids, n_valid):
 
 
 class _Pool:
-    """One pool of lanes: queue position, bounce, ray, accumulated length
-    and fold state, each a tensor of its own that every step overwrites in
-    place (so a captured step reads and writes the same memory on every
-    replay)."""
+    """One pool of lanes: queue position, the pixel and sample ids it
+    assigns, bounce, ray, accumulated length and fold state, each a tensor
+    of its own that every step overwrites in place (so a captured step
+    reads and writes the same memory on every replay), and a step's
+    scratch: S1's colors and terminal flags."""
 
     def __init__(self, n, dev):
         def zeros(dtype=torch.float32):
             return torch.zeros((n,), dtype=dtype, device=dev)
 
         self.qpos = zeros(torch.int64)
+        self.pixel = zeros(torch.int64)
+        self.sample = zeros(torch.int64)
         self.bounce = zeros(torch.int32)
         self.o = tuple(zeros() for _ in range(3))
         self.d = tuple(zeros() for _ in range(3))
@@ -725,11 +775,23 @@ class _Pool:
                      tuple(zeros() for _ in range(3)),
                      tuple(zeros(torch.bool) for _ in range(3)),
                      zeros(torch.bool))
+        self.color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        self.terminal = zeros(torch.bool)
+
+    def lanes(self):
+        """The lane state S1 updates, in ``ops.step.LANE_ARRAYS`` order."""
+        return step_ops.lane_arrays(vars(self))
 
     def tensors(self):
-        A, B, dead, outer = self.fold
-        return [self.qpos, self.bounce, *self.o, *self.d, self.acc_len, *A,
-                *B, *dead, outer]
+        """Every per-lane tensor a compaction carries."""
+        return [self.qpos, self.pixel, self.sample, *self.lanes()]
+
+    def shade_out(self):
+        """S1's outputs in this pool: the lane state in place, the colors
+        and the terminal flags."""
+        return dict(color=self.color, terminal=self.terminal, o=self.o,
+                    d=self.d, bounce=self.bounce, acc_len=self.acc_len,
+                    fold=self.fold)
 
 
 class _Wavefront:
@@ -750,12 +812,16 @@ class _Wavefront:
         self.n_rows, self.n_pix, self.total_q, self.lanes = _queue_sizes(
             width, height, n_samples, lanes, pix_ids, n_valid)
         self.pix = None if pix_ids is None else torch.zeros_like(pix_ids)
+        self.swizzle = _tile_swizzle(width, height) if pix_ids is None \
+            else None
         self.tail_lanes = self.lanes // 8 if self.lanes >= 32768 else 0
         i64 = dict(dtype=torch.int64, device=dev)
         self.start = torch.zeros((), **i64)
         self.next_q = torch.zeros((), **i64)
         self.segments = torch.zeros((), **i64)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        # S2's count of finished blocks (0 between launches)
+        self.done = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.accum = torch.zeros((self.total_q + 1, 3), dtype=torch.float32,
                                  device=dev)
         self.pools = [_Pool(n, dev) for n in (self.lanes, self.tail_lanes)
@@ -777,18 +843,18 @@ class _Wavefront:
         return qpos
 
     def camera(self, cs, qpos):
-        """Camera rays of these queue positions; a position past the queue
-        parks with a zero direction."""
+        """(pixel id, sample id, o, d) of these queue positions: camera
+        rays, a position past the queue parked with a zero direction."""
         pixel, samp = self.assignment(torch.clamp(qpos, max=self.total_q - 1))
         o, d = _camera_rays(cs, pixel, samp, self.seed, self.width,
                             self.height)
         parked = qpos >= self.total_q
-        return o, tuple(torch.where(parked, 0.0, c) for c in d)
+        return pixel, samp, o, tuple(torch.where(parked, 0.0, c) for c in d)
 
-    def reset(self, cs, sample_start, pix_ids):
-        """A new batch from ``sample_start`` (an int or a 0-dim tensor): the
-        wide pool on the first queue positions, the queue, rows and
-        segments zeroed."""
+    def begin(self, sample_start, pix_ids):
+        """A new batch's counters from ``sample_start`` (an int or a 0-dim
+        tensor): the queue, rows and segments zeroed. The pool's first
+        camera rays are ``reset``'s."""
         if isinstance(sample_start, torch.Tensor):
             self.start.copy_(sample_start)
         else:
@@ -798,12 +864,23 @@ class _Wavefront:
         self.accum.zero_()
         self.segments.zero_()
         self.next_q.fill_(self.lanes)
-        pool = self.pools[0]
-        qpos = torch.arange(self.lanes, dtype=torch.int64,
+
+    def reset(self, cs, sample_start, pix_ids):
+        """A new batch: ``begin``, then the wide pool on the first queue
+        positions (S2's camera part, ``ops.step.step_regen``; its plain
+        version is ``reset_plain``)."""
+        self.begin(sample_start, pix_ids)
+        step_ops.step_regen(cs, self, self.pools[0])
+
+    def reset_plain(self, cs, pool):
+        """The camera part of ``reset`` in torch (S2's plain version in its
+        reset mode): every lane on its own queue position, fold identity."""
+        qpos = torch.arange(pool.qpos.shape[0], dtype=torch.int64,
                             device=self.start.device)
-        o, d = self.camera(cs, qpos)
+        pixel, samp, o, d = self.camera(cs, qpos)
         A, B, dead, outer = pool.fold
-        for dst, src in zip((pool.qpos, *pool.o, *pool.d), (qpos, *o, *d)):
+        for dst, src in zip((pool.qpos, pool.pixel, pool.sample, *pool.o,
+                             *pool.d), (qpos, pixel, samp, *o, *d)):
             dst.copy_(src)
         for x, v in ((pool.bounce, 0), (pool.acc_len, 0.0), *((a, 1.0)
                      for a in A), *((b, INF) for b in B),
@@ -811,34 +888,62 @@ class _Wavefront:
             x.fill_(v)
 
     def step(self, cs, pool):
-        """One iteration of ``pool``: ``path_step`` on every lane, the
+        """One iteration of ``pool``: the scene-hit kernels, S1
+        (``ops.step.step_shade``) into the pool in place, the inclusive scan
+        of its terminal flags, and S2 (``ops.step.step_regen``): the
         finished paths' colors stored in their rows, and terminal lanes
-        claiming the next queue positions in order (rank by an exclusive
-        cumsum) with new camera rays."""
+        claiming the next queue positions in order with new camera rays. On
+        CPU tensors the wrappers run their plain versions; ``step_plain``
+        is the whole step's."""
+        t, kind, idx = step_hit(cs, pool.o, pool.d, pool.pixel, pool.sample,
+                                pool.bounce, self.seed)
+        step_ops.step_shade(cs, t, kind, idx, pool.o, pool.d, pool.bounce,
+                            pool.acc_len, pool.fold, pool.pixel, pool.sample,
+                            self.seed, (pool.qpos, self.total_q),
+                            self.max_depth, out=pool.shade_out())
+        rank = torch.cumsum(pool.terminal, 0)
+        step_ops.step_regen(cs, self, pool, pool.terminal, rank)
+
+    def step_plain(self, cs, pool):
+        """``step`` in torch: ``path_step_plain`` on every lane (with the
+        scene-hit kernels), its lane state written back, then
+        ``regen_plain``."""
+        qpos = pool.qpos
+        pixel, sample = self.assignment(torch.clamp(qpos,
+                                                    max=self.total_q - 1))
+        st = path_step_plain(cs, pool.o, pool.d, pool.bounce, pool.acc_len,
+                             pool.fold, pixel, sample, self.seed,
+                             qpos < self.total_q, self.max_depth)
+        for dst, src in zip(pool.lanes(), step_ops.lane_arrays(st)):
+            dst.copy_(src)
+        self.regen_plain(cs, pool, st["color"], st["terminal"])
+
+    def regen_plain(self, cs, pool, color, terminal):
+        """The step after the shading, in torch (S2's plain version): the
+        pool holds the shaded lane state; the finished paths' colors
+        (``color`` (R, 3) where ``terminal``) go to their rows, terminal
+        lanes claim the next queue positions in order (rank by an exclusive
+        cumsum) and start there with new camera rays, and the segment and
+        queue counters advance."""
         total_q = self.total_q
         qpos = pool.qpos
-        pixel, sample = self.assignment(torch.clamp(qpos, max=total_q - 1))
+        pixel, _ = self.assignment(torch.clamp(qpos, max=total_q - 1))
         active = qpos < total_q
-        st = path_step(cs, pool.o, pool.d, pool.bounce, pool.acc_len,
-                       pool.fold, pixel, sample, self.seed, active,
-                       self.max_depth)
-        terminal = st["terminal"]
         row = self.row_of(qpos, pixel)
-        self.accum.index_put_((torch.where(terminal, row, total_q),),
-                              st["color"])
+        self.accum.index_put_((torch.where(terminal, row, total_q),), color)
         term_i = terminal.to(torch.int64)
         rank = torch.cumsum(term_i, 0) - term_i
         new_qpos = torch.where(terminal, self.next_q + rank, qpos)
-        o_new, d_new = self.camera(cs, new_qpos)
+        new_pixel, new_sample, o_new, d_new = self.camera(cs, new_qpos)
         self.segments.add_(active.sum())
-        A, B, dead, outer = st["fold"]
-        new = [new_qpos, torch.where(terminal, 0, st["bounce"]),
-               *where3(terminal, o_new, st["o"]),
-               *where3(terminal, d_new, st["d"]),
-               torch.where(terminal, 0.0, st["acc_len"]), *A, *B, *dead,
-               outer]
+        new = [new_qpos, new_pixel, new_sample,
+               *where3(terminal, o_new, pool.o),
+               *where3(terminal, d_new, pool.d),
+               torch.where(terminal, 0, pool.bounce),
+               torch.where(terminal, 0.0, pool.acc_len)]
         self.next_q.add_(term_i.sum())
-        for dst, src in zip(pool.tensors(), new):
+        for dst, src in zip((pool.qpos, pool.pixel, pool.sample, *pool.o,
+                             *pool.d, pool.bounce, pool.acc_len), new):
             dst.copy_(src)
 
     def stop_test(self, pool):
@@ -979,7 +1084,8 @@ def trace_queued_eager(cs: CompiledScene, sample_start, n_samples, seed, *,
                        width, height, max_depth, lanes=None, stats=None,
                        pix_ids=None, n_valid=None, steps=1):
     """``trace_queued``'s eager driver, the CPU path and the card driver's
-    plain version: each pool's steps dispatched op by op from Python, the
+    plain version (``_Wavefront.step_plain``, no step kernel): each pool's
+    steps dispatched op by op from Python, the
     stop test read every ``steps`` steps (1: after each; the card driver's
     ``GRAPH_STEPS`` gives its exact schedule). Same arguments and result
     as ``trace_queued``."""
@@ -987,11 +1093,12 @@ def trace_queued_eager(cs: CompiledScene, sample_start, n_samples, seed, *,
                     lanes, pix_ids, n_valid)
     if wf.total_q == 0:
         return _empty_result(wf.n_rows, cs.device)
-    wf.reset(cs, sample_start, pix_ids)
+    wf.begin(sample_start, pix_ids)
+    wf.reset_plain(cs, wf.pools[0])
 
     def advance(k):
         for _ in range(steps):
-            wf.step(cs, wf.pools[k])
+            wf.step_plain(cs, wf.pools[k])
         wf.stop_test(wf.pools[k])
 
     _drain(wf, advance, steps, stats, replays=False)

@@ -17,8 +17,9 @@ draw for draw.
   a queue in runs of 32, and a cull of the media by their padded boxes,
   ``ops.sweep.medium_boxes``, neither of which changes a value) or raise.
 - ``render_batch_megakernel_plain``: K5 in torch with K5's execution model.
-  Its body is ``integrator.path_step``, the step ``trace_queued`` runs, with
-  the scene hit's plain version: no kernel runs in it on any device.
+  Its body is ``integrator.path_step_plain``, the torch composition of the
+  step ``trace_queued`` runs, with the scene hit's plain version: no hit or
+  step kernel runs in it on any device.
 - ``megakernel_supported``: the static gate that sends a render to K5.
 """
 from __future__ import annotations
@@ -112,39 +113,55 @@ def scene_tables(cs: CompiledScene):
     return per_scene(cs, "megakernel", lambda: pack_tables(cs))
 
 
+def _col(x):
+    return x.to(torch.float32)[:, None]
+
+
+def camera_table(cs: CompiledScene):
+    """(24,) f32: origin lower_left horizontal vertical u v (3 each),
+    lens_radius, background color (3), 0 0 (K5's and the step kernels')."""
+    cam = cs.camera
+    return torch.cat([cam.origin, cam.lower_left, cam.horizontal,
+                      cam.vertical, cam.u, cam.v, cam.lens_radius.reshape(1),
+                      cs.bg_color, torch.zeros(2, dtype=torch.float32,
+                                               device=cs.device)]).contiguous()
+
+
+def light_table(cs: CompiledScene):
+    """(L, 20) f32: kind p0 p1 p2 radius normal d w area 0 (K5's and the
+    step kernels')."""
+    lt = cs.lights
+    return torch.cat([_col(lt.kind), lt.p0, lt.p1, lt.p2, _col(lt.radius),
+                      lt.normal, _col(lt.d), lt.w, _col(lt.area),
+                      torch.zeros((lt.kind.shape[0], 1), dtype=torch.float32,
+                                  device=cs.device)], 1).contiguous()
+
+
 def pack_tables(cs: CompiledScene):
     """MegakernelTables of a compiled scene."""
     from .integrator import media_tables
 
-    s, lt, cam = cs.solids, cs.lights, cs.camera
+    s = cs.solids
     f32 = dict(dtype=torch.float32, device=cs.device)
 
     def zeros(rows, cols):
         return torch.zeros((rows, cols), **f32)
 
-    def col(x):
-        return x.to(torch.float32)[:, None]
-
-    n_sph, n_pl, n_l = s.sph_center.shape[0], s.pl_n.shape[0], lt.kind.shape[0]
+    n_sph, n_pl = s.sph_center.shape[0], s.pl_n.shape[0]
     media = media_tables(cs)
     return MegakernelTables(
-        cam=torch.cat([cam.origin, cam.lower_left, cam.horizontal,
-                       cam.vertical, cam.u, cam.v,
-                       cam.lens_radius.reshape(1), cs.bg_color,
-                       torch.zeros(2, **f32)]).contiguous(),
-        sph=torch.cat([s.sph_center, col(s.sph_radius), col(s.sph_valid),
-                       col(s.sph_mat), zeros(n_sph, 2)], 1).contiguous(),
+        cam=camera_table(cs),
+        sph=torch.cat([s.sph_center, _col(s.sph_radius), _col(s.sph_valid),
+                       _col(s.sph_mat), zeros(n_sph, 2)], 1).contiguous(),
         pln=torch.cat([s.pl_table[:, :14], s.pl_attr[:, 23:24],
                        zeros(n_pl, 1), s.pl_attr[:, 0:3], zeros(n_pl, 1),
                        s.pl_attr[:, 17:23], zeros(n_pl, 2)], 1).contiguous(),
-        lights=torch.cat([col(lt.kind), lt.p0, lt.p1, lt.p2, col(lt.radius),
-                          lt.normal, col(lt.d), lt.w, col(lt.area),
-                          zeros(n_l, 1)], 1).contiguous(),
+        lights=light_table(cs),
         mats=cs.materials.attr.to(torch.float32).contiguous(),
         tex_attr=cs.textures.attr.to(torch.float32).contiguous(),
         texels=cs.textures.pixels.to(torch.float32).contiguous(),
         media=media,
-        med=torch.cat([col(media.nid), col(media.mat),
+        med=torch.cat([_col(media.nid), _col(media.mat),
                        zeros(media.n_media, 2)], 1).contiguous(),
         flags=_FLAG_BLEND if "blend" in cs.features else 0)
 
@@ -152,10 +169,11 @@ def pack_tables(cs: CompiledScene):
 def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
                                   seed, *, width, height, max_depth,
                                   events=None):
-    """Plain PyTorch K5: one lane per pixel, each running ``path_step`` (the
-    scene hit's plain version) and, when its path ends, adding the color to
-    its pixel's sum and regenerating at its own pixel with ``sample + 1``;
-    lanes whose samples are spent park with a zero direction. Returns
+    """Plain PyTorch K5: one lane per pixel, each running
+    ``path_step_plain`` (with the scene hit's plain version) and, when its
+    path ends, adding the color to its pixel's sum and regenerating at its
+    own pixel with ``sample + 1``; lanes whose samples are spent park with
+    a zero direction. Returns
     (accum (width*height, 3) in pixel-id order, segments as a 0-dim int64
     tensor): the values of ``trace_queued``, which draws the same numbers
     and sums each pixel's samples in the same order.
@@ -164,7 +182,7 @@ def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
     batch traced (the work K5 does depends on them): ``miss``, ``capped``
     (the depth cap), ``emit``, ``pdf`` (a scatter with the NEE mixture) and
     ``basic`` (a metal or dielectric scatter)."""
-    from .integrator import _camera_rays, fold_init, path_step
+    from .integrator import _camera_rays, fold_init, path_step_plain
 
     n_pix = width * height
     dev = cs.device
@@ -183,8 +201,8 @@ def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
         active = sample < end
         if not bool(active.any()):
             break
-        st = path_step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
-                       active, max_depth, plain=True)
+        st = path_step_plain(cs, o, d, bounce, acc_len, fold, pix, sample,
+                             seed, active, max_depth, plain=True)
         terminal = st["terminal"]
         accum = accum + torch.where(terminal[:, None], st["color"], 0.0)
         sample = torch.where(terminal, sample + 1, sample)

@@ -6,8 +6,11 @@ trees in turns, or over the card driver's steps per replay.
 
 The workloads: the bench's three wavefront workloads at its settings
 (``sponza_production`` 1080p, ``many_lights`` 960x540, ``sponza``, the
-headline, 1080p; 1 spp) and the normal-mapped kitchen, which K5's gate
-refuses (the wavefront with K4), at the bench kitchen's 400x266, 8 spp.
+headline, 1080p; 1 spp), the normal-mapped kitchen, which K5's gate
+refuses (the wavefront with K4), at the bench kitchen's 400x266, 8 spp,
+and the bench's two K5 workloads (``kitchen_sink``, ``megakernel``: one
+K5 launch a batch through ``render_sample_batch``, no steps), the
+controls of a change to the wavefront.
 Depth 50, seed 1. Per workload: one warm-up batch at ``sample_start`` 100
 (the kernels' build and, on a tree with the card driver, its graph
 capture), then ``RUNS`` batches at ``sample_start`` 1, each ending in a
@@ -17,8 +20,9 @@ count, or on a tree without one its loop's, one read a step plus one a
 pool), the kernels' launches a batch by their wrappers' counts, and one
 more batch under ``torch.profiler``: its device kernels (and memory ops)
 a step, its device busy time, its idle share of the profiled wall time
-and of the unprofiled median batch, and the launches of K1 the profiler
-saw beside the wrapper's count.
+and of the unprofiled median batch, the launches of K1 the profiler saw
+beside the wrapper's count, and on a batch of few ops (K5's route) each
+op's name.
 
 The inverse step's cells (``step_kitchen``: the normal-mapped kitchen at
 400x266, K4; ``step_mixed``: the mixed BVH scene at 1920x1080, K1-K3;
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from collections import Counter
 import statistics
 import subprocess
 import sys
@@ -52,10 +57,12 @@ import time
 from pathlib import Path
 
 RUNS = 5
+# a profiled batch of at most this many device ops lists them by name
+NAMED_OPS = 64
 SEED = 1
 DEPTH = 50
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
-             "step_kitchen", "step_mixed")
+             "kitchen_sink", "megakernel", "step_kitchen", "step_mixed")
 # the inverse step's cells: (width, height) of each
 STEPS = {"step_kitchen": (400, 266), "step_mixed": (1920, 1080)}
 HERE = Path(__file__).resolve().parent.parent
@@ -96,8 +103,9 @@ def _host_reads(stats):
 
 
 def _profiled(batch):
-    """One batch under torch.profiler: device ops, busy ms, wall ms and the
-    K1 kernels seen."""
+    """One batch under torch.profiler: device ops, busy ms, wall ms, the
+    K1 kernels seen and, for a batch of at most ``NAMED_OPS`` device ops
+    (K5's route), each op's name with its count."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -113,7 +121,9 @@ def _profiled(batch):
     return dict(device_ops=len(ops), device_busy_ms=busy_ms,
                 profiled_wall_ms=wall_ms,
                 device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                k1_seen=sum("k1_bvh" in e.name for e in ops))
+                k1_seen=sum("k1_bvh" in e.name for e in ops),
+                device_op_names=(dict(Counter(e.name[:80] for e in ops))
+                                 if len(ops) <= NAMED_OPS else None))
 
 
 def measure(cs, w, h, spp, profile=True):
@@ -146,7 +156,9 @@ def measure(cs, w, h, spp, profile=True):
         if not checksum > 0:
             raise RuntimeError(f"degenerate render: checksum={checksum}")
         launches = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-        seen.add((int(segs), stats["iters"], _host_reads(stats),
+        # K5's route fills no stats: no steps, no stop-test reads
+        seen.add((int(segs), stats.get("iters"),
+                  _host_reads(stats) if stats else (None, "k5"),
                   tuple(launches.values())))
     if len(seen) != 1:
         raise RuntimeError(f"the batches did not repeat: {sorted(seen)}")
@@ -155,13 +167,14 @@ def measure(cs, w, h, spp, profile=True):
     line = dict(mrays_per_s=segments / median / 1e6, runs_s=seconds,
                 segments=segments, iterations=iters, host_reads=reads,
                 host_reads_from=reads_from,
-                ms_per_iteration=median * 1e3 / iters, launches=launches,
-                replays=stats.get("replays"))
+                ms_per_iteration=median * 1e3 / iters if iters else None,
+                launches=launches, replays=stats.get("replays"))
     if profile:
         before = wrappers["K1"].launches
         prof = _profiled(batch)
         prof["k1_counted"] = wrappers["K1"].launches - before
-        prof["device_ops_per_iteration"] = prof["device_ops"] / iters
+        prof["device_ops_per_iteration"] = (prof["device_ops"] / iters
+                                            if iters else None)
         # the profiler slows the host: the share against the unprofiled
         # median batch of the same workload
         prof["device_idle_share_of_median"] = max(

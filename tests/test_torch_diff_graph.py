@@ -235,7 +235,8 @@ def _eager_sharded(cs, target, mesh, *, width, height, max_depth, lr, seed):
             TD.set_texture_params(cs, params), pix,
             1 + mesh.get_local_rank("sample"), seed, width=width,
             height=height, max_depth=max_depth,
-            shader_kind=TI.SHADER_PATH, need_aux=False, early_exit=False)
+            shader_kind=TI.SHADER_PATH, need_aux=False, early_exit=False,
+            differentiable=True)
         err = torch.sum((color - tgt) ** 2 * valid)
         grad, = torch.autograd.grad(err, params)
     loss = P.all_reduce(err.detach().reshape(1), mesh)[0]

@@ -346,6 +346,18 @@ def test_k5_matches_plain_and_repeats(cuda, name):
     assert 0 < stats["medium_sweeps"] < segs
 
 
+def test_k5_many_lights_matches_plain(cuda):
+    """24 lights, above the 16 the unrolled light-pdf mean takes and
+    within K5's gate of 32: K5 equals its plain version (whose mean sums
+    the batched (R, L) table in light order) bit for bit."""
+    cs = compile_scene(fixtures.many_light_scene(
+        T.RenderConfig(width=8, height=8), n_lights=24, n_cells=4),
+        device=cuda)
+    assert len(cs.light_kinds) == 24 > 16
+    _, segs, _ = _k5_against_plain(cs, 4, width=64, height=48, max_depth=50)
+    assert segs >= 64 * 48 * 4
+
+
 def test_k5_fewer_pixels_than_lanes(cuda):
     """An 8x8 image, far fewer pixels than the persistent grid's lanes:
     every pixel is traced once, and the work counts add up."""
@@ -560,3 +572,162 @@ def test_graphed_step_matches_eager(cuda, name):
     assert replayed["draw"] > 0 and (replayed["K1"] or replayed["K4"])
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-7)
+
+
+STEP_SCENES = {
+    "mixed": lambda c: fixtures.mixed_bvh_scene(c, n_cells=32),
+    "sponza_textured": lambda c: fixtures.sponza_textured_scene(
+        c, n_cells=24, tex_size=64),
+    "many_lights": lambda c: fixtures.many_light_scene(c, n_lights=24,
+                                                       n_cells=24),
+    "production": lambda c: fixtures.sponza_production_scene(
+        c, n_cells=24, tex_size=64),
+    "kitchen": fixtures.kitchen_sink_scene,
+}
+
+
+def _same(a, b):
+    """Bit-equal values, NaN where the other has NaN."""
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                                 b[~nan])
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(STEP_SCENES))
+def test_step_kernels_match_plain(cuda, name):
+    """S1 (ops.step.step_shade) and S2 (step_regen) against their plain
+    versions bit for bit on a 128x64x4 queue of 4,096 lanes, depth 3 (the
+    cap ends paths): S2's reset against reset_plain, then eight chained
+    steps, each S1 alone against shade_plain on the same inputs (colors,
+    flags, lane state) and the whole kernel step against step_plain (the
+    pool, the rows, the queue head, the segments); one launch of each a
+    step."""
+    from solstrale_tpu_torch.ops import step
+
+    w, h, spp, depth = 128, 64, 4, 3
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    wk, wp = (integrator._Wavefront(cs.device, w, h, depth, spp, 1, 4096,
+                                    None, None) for _ in range(2))
+    wk.reset(cs, 1, None)
+    wp.begin(1, None)
+    wp.reset_plain(cs, wp.pools[0])
+    capped = 0
+    for _ in range(8):
+        pk, pp = wk.pools[0], wp.pools[0]
+        for a, b in zip(pk.tensors(), pp.tensors()):
+            assert _same(a, b)
+        assert _same(wk.accum[:wk.total_q], wp.accum[:wp.total_q])
+        assert int(wk.next_q) == int(wp.next_q)
+        assert int(wk.segments) == int(wp.segments)
+        t, kind, idx = integrator.step_hit(cs, pp.o, pp.d, pp.pixel,
+                                           pp.sample, pp.bounce, 1)
+        kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
+            cs.solids, idx)
+        args = (pp.bounce, pp.acc_len, pp.fold, pp.pixel, pp.sample, 1,
+                pp.qpos < wp.total_q, depth)
+        got = step.step_shade(cs, t, kind, idx, pp.o, pp.d, *args)
+        want = integrator.shade_plain(cs, pp.o, pp.d, t, kp, ip, *args)
+        for k in ("color",) + step.FLAGS:
+            assert _same(got[k], want[k]), k
+        for k, a, b in zip(step.LANE_ARRAYS, step.lane_arrays(got),
+                           step.lane_arrays(want)):
+            assert _same(a, b), k
+        capped += int(want["capped"].sum())
+        before = (step.step_shade.launches, step.step_regen.launches)
+        wk.step(cs, pk)
+        assert (step.step_shade.launches, step.step_regen.launches) == (
+            before[0] + 1, before[1] + 1)
+        wp.step_plain(cs, pp)
+    assert capped > 0
+
+
+@pytest.mark.parametrize("name", ["sponza_textured", "many_lights"])
+def test_step_graph_batch_matches_plain_batch(cuda, name):
+    """trace_queued's card driver, whose graphs hold the hit kernels, S1,
+    the scan and S2, against the eager plain driver at 128x64x4: image and
+    segments bit for bit; a replayed batch launches no draw kernel."""
+    from solstrale_tpu_torch import bench
+
+    w, h, spp = 128, 64, 4
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    kw = dict(width=w, height=h, max_depth=50)
+    integrator.trace_queued(cs, 1, spp, 1, **kw)   # the capture
+    wrappers = bench.kernel_wrappers()
+    before = {k: f.launches for k, f in wrappers.items()}
+    stats = {}
+    color, segs = integrator.trace_queued(cs, 1, spp, 1, stats=stats, **kw)
+    launches = {k: f.launches - before[k] for k, f in wrappers.items()}
+    want, want_segs = integrator.trace_queued_eager(cs, 1, spp, 1, **kw)
+    assert torch.equal(color, want) and int(segs) == int(want_segs)
+    assert launches["draw"] == 0
+    assert launches["S1"] == stats["iters"] == launches["S2"] - 1
+
+
+def _counted(fn):
+    """``fn()`` with the launches of S1 and of K1 (the first kernel of a
+    BVH scene's hit) it made: (result, S1's, K1's)."""
+    from solstrale_tpu_torch.ops import step
+
+    before = step.step_shade.launches, bvh.bvh_planar_hit.launches
+    out = fn()
+    return (out, step.step_shade.launches - before[0],
+            bvh.bvh_planar_hit.launches - before[1])
+
+
+def test_forward_renders_launch_s1_once_a_bounce(cuda, tmp_path):
+    """The forward renders as a user calls them, grad mode on:
+    render_sample, render_pixels on the fixed trip and render_sample_sharded
+    (a one-rank NCCL group) shade every bounce with one S1 launch (as many
+    as K1's; max_depth + 1 on the fixed trip), and the sharded planes
+    equal render_sample's."""
+    from solstrale_tpu_torch import parallel
+    from solstrale_tpu_torch.parallel import distributed
+
+    w, h, depth = 64, 32, 8
+    cs = compile_scene(STEP_SCENES["mixed"](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    assert torch.is_grad_enabled() and cs.kbvh is not None
+    kw = dict(width=w, height=h, max_depth=depth,
+              shader_kind=integrator.SHADER_PATH, need_aux=False)
+    want, s1, k1 = _counted(lambda: integrator.render_sample(cs, 1, 1, **kw))
+    assert 1 <= s1 == k1 <= depth + 1
+    pix = torch.arange(w * h, device=cuda)
+    _, s1, k1 = _counted(lambda: integrator.render_pixels(
+        cs, pix, 1, 1, early_exit=False, **kw))
+    assert s1 == k1 == depth + 1
+    distributed.initialize(f"file://{tmp_path / 'store'}", 1, 0, "cuda")
+    try:
+        mesh = parallel.make_mesh(1, 1, device_type="cuda")
+        got, s1, k1 = _counted(lambda: parallel.render_sample_sharded(
+            cs, 1, 1, mesh, **kw))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert 1 <= s1 == k1 <= depth + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_s1_raises_where_autograd_needs_a_graph(cuda):
+    """S1 has no backward: a render on the card whose arena requires grad
+    raises unless it takes the differentiable route by name, which
+    launches no S1 and gives the gradient."""
+    from solstrale_tpu_torch import diff
+
+    w, h = 32, 16
+    cs = compile_scene(fixtures.kitchen_sink_scene(
+        T.RenderConfig(width=w, height=h)), device=cuda)
+    params = cs.textures.pixels.clone().requires_grad_(True)
+    leaf = diff.set_texture_params(cs, params)
+    pix = torch.arange(w * h, device=cuda)
+    kw = dict(width=w, height=h, max_depth=4,
+              shader_kind=integrator.SHADER_PATH, need_aux=False)
+    with pytest.raises(ValueError, match="no backward"):
+        integrator.render_pixels(leaf, pix, 1, 1, **kw)
+    (color, _, _), s1, _ = _counted(lambda: integrator.render_pixels(
+        leaf, pix, 1, 1, differentiable=True, **kw))
+    assert s1 == 0
+    grad, = torch.autograd.grad(color.sum(), params)
+    assert torch.isfinite(grad).all() and (grad != 0).any()
