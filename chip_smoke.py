@@ -39,8 +39,15 @@ script exits non-zero):
      pool's 131,072 lanes on six scenes (the interior, the textured
      sponza, production, many_lights, the mixed scene at depth 4, the
      normal-mapped kitchen on K4 at depth 4), S2's reset and six chained
-     steps each, every output equal (NaN where the plain has NaN); each
-     kernel's device, wrapper and plain time against its byte bound;
+     steps each, every output equal (NaN where the plain has NaN); at each
+     step S1 with its record (``ops.step.shade_with_record``) against
+     ``shade_plain(..., record=True)`` bit for bit and S1B
+     (``ops.step.step_shade_backward``, the differentiable route's
+     backward) against ``step_shade_backward_plain`` on that record and
+     upstream gradients from a seed: the fold's gradients bit for bit, the
+     arena's and the background's within rtol 1e-5, atol 1e-7; each
+     kernel's device, wrapper and plain time against its byte bound (S1B's
+     on the mixed scene's record);
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -89,11 +96,17 @@ script exits non-zero):
      to the first (sample, bounce) and quantity at which the two devices'
      lanes part, one ``card_vs_cpu_outlier`` line each;
   5. diff and parallel: the inverse-rendering step (the fixed trip's
-     forward and its checkpointed path-replay backward) on the mixed scene
-     at 1920x1080, depth 50 (K1-K3) and on the kitchen at 400x266 (K4),
-     against a target at seed 2: taken by hand, a finite loss, a non-zero
-     finite gradient, its peak memory and the kernels' launches in the
-     forward and in the replay, beside the peak memory, time and gradient
+     forward and its checkpointed path-replay backward, every bounce S1
+     with its backward S1B) on the mixed scene at 1920x1080, depth 50
+     (K1-K3) and on the kitchen at 400x266 (K4), against a target at seed
+     2: taken by hand, a finite loss, a non-zero finite gradient, its peak
+     memory and the kernels' launches in the forward (S1 51) and in the
+     replay (S1 50, S1B 51; the draw kernel 2 for the camera rays and 0),
+     its loss equal to
+     that of the route before S1B (autograd through ``shade_plain``, put in
+     place of ``path_step_grad`` by ``_parent_route_step``) and its
+     gradient within rtol 1e-4, atol 1e-7 (atomic sums grouped otherwise),
+     beside the peak memory, time and gradient
      (rtol 1e-5) of the step that keeps the whole tape (checkpoint
      replaced by a plain call); then ``diff.image_and_texture_grad`` as it
      runs on the card (one captured CUDA graph, replayed) beside the same
@@ -103,7 +116,8 @@ script exits non-zero):
      eager forward's and replay's, each step's time (CUDA events, three of
      each in turns, median and all), the capture's time and the peak bytes
      of the capture, a replay and the eager step, and the graph pool's
-     resident bytes; on the kitchen, a 10-step SGD loop through
+     resident bytes, and one replay under ``torch.profiler`` (device ops a
+     step, busy time, each kernel's time); on the kitchen, a 10-step SGD loop through
      ``set_texture_params`` from a scene of its own, one capture, its
      final arena equal to the eager loop's (rtol 1e-4, atol 1e-7); card
      against CPU gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a
@@ -213,6 +227,13 @@ K5_LIGHT = {0: 31, 1: 55, 2: 57}   # light_pdf_mean per sphere / quad /
 # pdfs or K5_BASIC; every lane S2 regenerates its camera ray, 46
 S1_LANE = 18
 S2_REGEN = 46
+# S1B's f32 operations a lane (csrc/step.cu::step_shade_backward): per
+# channel the terminal color's reverse 7 (A t_c, the upstream times att,
+# the minimum's halving, gx A, gx t_c, the two sums into g_B and g_bg's
+# share), the fold's 10 (3A, the minimum's halving, go 3, g_p A, that
+# times m, albedo m, g_p times it, g_A's three sums less one, g_B's sum),
+# and the albedo gradient's sum 1; the block sum of g_bg 3 a lane
+S1B_LANE = 3 * 18 + 3
 # the lanes of the step kernels' checks and times: the wide pool's
 STEP_LANES = 131072
 # chained steps checked per scene in phase 2c
@@ -861,8 +882,126 @@ def _step_times(cs, w, h, spp, depth):
     for k in ("ms", "wrapper_ms", "plain_ms"):
         s2t[k] -= base[k]
     s2t.update(bound(9 * r + 104 * n_term, S2_REGEN * n_term))
+    s1b = _s1b_times(cs, integrator.step_hit(cs, pool.o, pool.d, pool.pixel,
+                                             pool.sample, pool.bounce, 1),
+                     pool, active, depth)
     return dict(s1=dict(max_abs_err=0.0, **s1),
-                s2=dict(max_abs_err=0.0, **s2t), terminal_lanes=n_term)
+                s2=dict(max_abs_err=0.0, **s2t), s1b=s1b,
+                terminal_lanes=n_term)
+
+
+def _upstream(r, seed):
+    """Upstream gradients of S1's color and fold outputs, from a seed: (R,
+    3) and six (R,) f32 on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((r, 3), generator=gen, device="cuda"),
+            [torch.randn((r,), generator=gen, device="cuda")
+             for _ in range(6)])
+
+
+def _sums_close(name, got, want, scale):
+    """An atomic sum against the plain version's: within 1e-5 of the sum
+    of the magnitudes added into each entry (``scale``; the rounding of a
+    float32 sum taken in another order is relative to it, not to the sum
+    itself, where signed terms cancel), and 1e-7."""
+    import torch
+
+    bad = (got - want).abs() > 1e-5 * scale + 1e-7
+    if bool(bad.any()) or not torch.equal(torch.isnan(got),
+                                          torch.isnan(want)):
+        raise AssertionError(f"{name}: {int(bad.sum())} entries differ, the "
+                             f"largest by {float((got - want).abs().max())}")
+
+
+def _s1b_check(cs, hit, lanes, args, seed):
+    """S1 with its record (``ops.step.shade_with_record``) against
+    ``shade_plain(..., record=True)`` bit for bit (record, colors, flags,
+    lane state), then S1B (``ops.step.step_shade_backward``) against
+    ``step_shade_backward_plain`` on that record, the lanes' fold and
+    upstream gradients from ``seed``: the fold's gradients bit for bit, the
+    arena's and the background's (sums of signed terms, by atomics on the
+    card) within 1e-5 of the magnitudes summed into each entry, and 1e-7
+    (``_sums_close``; the magnitudes: the plain backward of the upstream's
+    absolute values, every coefficient being non-negative). Returns the
+    largest absolute differences and the lanes whose minimums tie."""
+    import torch
+    from solstrale_tpu_torch.ops import bvh, step
+    from solstrale_tpu_torch.renderer import integrator
+
+    t, kind, idx = hit
+    o, d = lanes
+    kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
+        cs.solids, idx)
+    got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args)
+    want = integrator.shade_plain(cs, o, d, t, kp, ip, *args, record=True)
+    bad = [k for k in ("color",) + step.FLAGS if not _same(got[k], want[k])]
+    bad += [k for k, a, c in zip(step.LANE_ARRAYS, step.lane_arrays(got),
+                                 step.lane_arrays(want)) if not _same(a, c)]
+    if not _same(rec, want["record"]):
+        bad.append("record")
+    if bad:
+        raise AssertionError(f"S1 with its record differs from shade_plain "
+                             f"in {bad}")
+    A, B = args[2][0], args[2][1]
+    g_color, g_out = _upstream(t.shape[0], seed)
+    arena, bg = cs.textures.pixels, cs.bg_color
+    k_arena, k_bg, k_ab = step.step_shade_backward(rec, (*A, *B), arena, bg,
+                                                   g_color, g_out)
+    p_arena, p_bg, p_ab = step.step_shade_backward_plain(
+        rec, (*A, *B), arena, bg, g_color, g_out)
+    bad = [n for n, a, c in zip(step.FOLD_ARRAYS, k_ab, p_ab)
+           if not _same(a, c)]
+    if bad:
+        raise AssertionError(f"S1B's fold gradients differ from the plain "
+                             f"backward's in {bad}")
+    s_arena, s_bg, _ = step.step_shade_backward_plain(
+        rec, (*A, *B), arena, bg, g_color.abs(), [g.abs() for g in g_out])
+    _sums_close("S1B's arena gradient", k_arena, p_arena, s_arena)
+    _sums_close("S1B's background gradient", k_bg, p_bg, s_bg)
+    pdf = (rec[3] & step.REC_PDF) != 0
+    ties = sum(int(((B[c] == 3.0 * A[c]) & pdf).sum()) for c in range(3))
+    return dict(arena=float((k_arena - p_arena).abs().max()),
+                bg=float((k_bg - p_bg).abs().max()), pdf_ties=ties)
+
+
+def _s1b_work(cs, rec):
+    """S1B's bytes (per lane: the record 16, the fold in 24, the upstream
+    gradients 36 and the fold's gradients out 24; each distinct texel row
+    re-read, 12; the arena's gradient written whole and the background's)
+    and f32 operations on one call's record."""
+    import torch
+
+    r = rec.shape[1]
+    rows = int(torch.unique(rec[0][rec[0] >= 0]).numel())
+    n = cs.textures.pixels.shape[0]
+    return r * (16 + 24 + 36 + 24) + 12 * rows + 12 * n + 12, r * S1B_LANE
+
+
+def _s1b_times(cs, hit, pool, active, depth):
+    """S1B timed on the wide pool's lanes (their fold, S1's record of this
+    bounce, upstream gradients from a seed) against its plain version;
+    returns its kernels-line row."""
+    from solstrale_tpu_torch.ops import step
+
+    t, kind, idx = hit
+    _, rec = step.shade_with_record(cs, t, kind, idx, pool.o, pool.d,
+                                    pool.bounce, pool.acc_len, pool.fold,
+                                    pool.pixel, pool.sample, 1, active,
+                                    depth)
+    ab = (*pool.fold[0], *pool.fold[1])
+    g_color, g_out = _upstream(rec.shape[1], 5)
+    arena, bg = cs.textures.pixels, cs.bg_color
+    tm = kernel_times(
+        lambda: step.step_shade_backward(rec, ab, arena, bg, g_color, g_out),
+        lambda: step.step_shade_backward_plain(rec, ab, arena, bg, g_color,
+                                               g_out))
+    k = step.step_shade_backward(rec, ab, arena, bg, g_color, g_out)
+    p = step.step_shade_backward_plain(rec, ab, arena, bg, g_color, g_out)
+    err = max(float((k[0] - p[0]).abs().max()),
+              float((k[1] - p[1]).abs().max()))
+    return dict(max_abs_err=err, **tm, **bound(*_s1b_work(cs, rec)))
 
 
 def phase_step(sponza_cs):
@@ -876,10 +1015,12 @@ def phase_step(sponza_cs):
     flags, the lane state) and the whole step (``_Wavefront.step``: the hit
     kernels, S1 in place, the scan, S2) against ``step_plain`` (the pool,
     the accumulation rows, the queue head, the segments), all bit for bit;
-    the kitchen and the mixed scene at depth 4, so that the depth cap ends
-    paths. Then each kernel's device, wrapper and plain time against its
-    bound on each scene. Returns the main path's rows of the kernels
-    line."""
+    at each step too S1 with its record and S1B against their plain
+    versions (``_s1b_check``); the kitchen and the mixed scene at depth 4,
+    so that the depth cap ends paths. Then each kernel's device, wrapper
+    and plain time against its bound on each scene. Returns the rows of
+    the kernels line: S1's and S2's of the main path's interior, S1B's of
+    the mixed scene (the inverse step's cell on K1-K3)."""
     import torch
     from solstrale_tpu_torch.ops import bvh, step
     from solstrale_tpu_torch.renderer import integrator
@@ -901,6 +1042,7 @@ def phase_step(sponza_cs):
             raise AssertionError(f"step ({name}): S2's reset differs from "
                                  f"reset_plain in {bad}")
         counts = dict(miss=0, capped=0, emit=0, scat=0)
+        s1b_seen = {}
         for b in range(STEP_BOUNCES):
             pk, pp = wk.pools[0], wp.pools[0]
             t, kind, idx = integrator.step_hit(cs, pp.o, pp.d, pp.pixel,
@@ -923,6 +1065,10 @@ def phase_step(sponza_cs):
                                      f"from shade_plain in {bad}")
             for k in counts:
                 counts[k] += int(want[k].sum())
+            s1b = _s1b_check(cs, (t, kind, idx), (pp.o, pp.d), args, b)
+            for k, v in s1b.items():
+                s1b_seen[k] = (max(s1b_seen.get(k, 0), v) if k != "pdf_ties"
+                               else s1b_seen.get(k, 0) + v)
             wk.step(cs, pk)
             wp.step_plain(cs, pp)
             bad = _same_wavefront(wk, wp)
@@ -935,7 +1081,9 @@ def phase_step(sponza_cs):
         if name == "sponza":
             rows = {"S1": times["s1"], "S2": times["s2"]}
         out[name] = dict(depth=depth, bounces=STEP_BOUNCES, segments=counts,
-                         **times)
+                         s1b_check=s1b_seen, **times)
+    # S1B's row: the mixed scene, the inverse step's cell on K1-K3
+    rows["S1B"] = out["mixed"]["s1b"]
     torch.cuda.synchronize()
     log("step", lanes=STEP_LANES, bit_equal=True,
         seconds=time.perf_counter() - start, **out)
@@ -1010,7 +1158,7 @@ def phase_graphs(sponza_cs):
             "iters"]
         want = {k: iters if k in per_step[name] else 0
                 for k in ("K1", "K2", "K3", "K4", "K5")}
-        want.update(draw=0, S1=iters, S2=iters + 1)
+        want.update(draw=0, S1=iters, S2=iters + 1, S1B=0)
         if graph["launches"] != want:
             raise AssertionError(f"graphs ({name}): launches "
                                  f"{graph['launches']}, want {want}")
@@ -1556,7 +1704,8 @@ def phase_small_scene():
                           bench_400x266x8=_batch_timing(cs, 400, 266, 8))
     solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
         "launches"]
-    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0):
+    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0,
+                     S1B=0):
         raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
                              f"other kernel, got {solid}")
     if min(kitchen[k] for k in ("K4", "S1", "S2")) <= 0 or kitchen["K5"] or \
@@ -2356,6 +2505,22 @@ def _grad_step(cs, target, w, h, depth, wrappers=None):
     return loss.detach(), g, counts
 
 
+def _parent_route_step(cs, target, w, h, depth, wrappers):
+    """``_grad_step`` on the route the differentiable bounce took before S1B:
+    autograd through the torch composition (``integrator.path_step_plain``:
+    the hit, then ``shade_plain``, with the draw kernel), put in place of
+    ``path_step_grad`` for this call only. Returns what ``_grad_step``
+    does."""
+    from solstrale_tpu_torch.renderer import integrator
+
+    route = integrator.path_step_grad
+    integrator.path_step_grad = integrator.path_step_plain
+    try:
+        return _grad_step(cs, target, w, h, depth, wrappers)
+    finally:
+        integrator.path_step_grad = route
+
+
 def _eager_step(cs, target, w, h, depth):
     """The inverse step dispatched op by op on the card (``diff._GradStep``
     without its graph: the plain version of a replay)."""
@@ -2513,8 +2678,14 @@ def _sgd_loop(cs, target, w, h, depth, lr, steps=10):
 
 def phase_diff_parallel(sponza_cs, smi):
     """5: the inverse-rendering step at full size (K1-K3 on mixed 1080p,
-    K4 on the kitchen), card against CPU, the shard route and the sharded
-    step on a one-rank NCCL group, and the denoiser trainer."""
+    K4 on the kitchen): its bounces on S1 and S1B (S1 51 + 50 launches, S1B
+    51, the draw kernel only for the camera rays), its loss equal to the
+    route before S1B's (autograd through the torch composition) and its
+    gradient within rtol 1e-4, atol 1e-7, the graphed step's device ops and
+    pool; card against CPU, the
+    shard route and the sharded step on a one-rank NCCL group, and the
+    denoiser trainer. Returns the launches of the two graphed inverse
+    steps' replays (their kernels' main path)."""
     import numpy as np
     import torch
     import solstrale_tpu_torch as T
@@ -2527,9 +2698,12 @@ def phase_diff_parallel(sponza_cs, smi):
     from solstrale_tpu_torch.scene.compile import compile_scene
     from solstrale_tpu_torch.utils import to_rgb_u8
 
+    from solstrale_tpu_torch.profiling import _profile
+
     wrappers = all_wrappers()
     start = time.perf_counter()
     depth = 50
+    path_launches = dict.fromkeys(wrappers, 0)
     for name, build, (w, h), need in (
             ("mixed", lambda c: fixtures.mixed_bvh_scene(c, n_cells=362),
              (1920, 1080), ("K1", "K2", "K3")),
@@ -2547,9 +2721,31 @@ def phase_diff_parallel(sponza_cs, smi):
         loss, g, counts = _grad_step(cs, target, w, h, depth, wrappers)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
+        # the draw kernel: the camera rays' jitter and lens, none a bounce
+        want = {"forward": dict(S1=depth + 1, S1B=0, draw=2),
+                "replay": dict(S1=depth, S1B=depth + 1, draw=0)}
+        if any(counts[part][k] != n for part, ks in want.items()
+               for k, n in ks.items()):
+            raise AssertionError(f"{name}: the inverse step's launches "
+                                 f"{counts}, expected {want}")
+        loss_p, g_p, counts_p = _parent_route_step(cs, target, w, h, depth,
+                                                   wrappers)
+        if not torch.equal(loss_p, loss) or counts_p["forward"]["S1"] or \
+                counts_p["replay"]["S1B"]:
+            raise AssertionError(f"{name}: loss {float(loss)} against the "
+                                 f"route before S1B's {float(loss_p)}; its "
+                                 f"launches {counts_p}")
+        # the texels' sums of ~10^5 signed path contributions, added in
+        # another grouping (S1B's warp sums against index_add_'s lanes)
+        torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-7)
         flat_peak, flat_ms, g_flat = _unchunked_step(cs, target, w, h, depth)
         cell, (loss2, again) = _graphed_step_cell(name, cs, target, w, h,
                                                   depth, counts, wrappers)
+        for k, n in cell["replay_launches"].items():
+            path_launches[k] += n
+        prof = _profile(lambda: diff.image_and_texture_grad(
+            cs, target, width=w, height=h, max_depth=depth, n_samples=1,
+            seed=1))[0]
         if not (bool(torch.isfinite(img).all())
                 and bool(torch.isfinite(g).all()) and bool((g != 0).any())):
             raise AssertionError(f"{name}: image or gradient not finite, "
@@ -2571,7 +2767,13 @@ def phase_diff_parallel(sponza_cs, smi):
             peak_bytes=peak, baseline_bytes=base,
             flat_tape_peak_bytes=flat_peak, flat_tape_step_ms=flat_ms,
             chunk=integrator.remat_chunk(depth),
-            grad_nonzero=int((g != 0).sum()), launches=counts, **cell,
+            grad_nonzero=int((g != 0).sum()), launches=counts,
+            parent_route_loss_equal=True, parent_route_launches=counts_p,
+            parent_route_grad_max_abs_err=float((g - g_p).abs().max()),
+            device_ops_per_step=prof["kernel_launches"],
+            device_busy_ms=prof["device_busy_ms"],
+            device_idle_share=prof["device_idle_share"],
+            kernel_ms=prof["hit_kernel_ms"], **cell,
             seconds=time.perf_counter() - start)
         if name == "kitchen":
             # a 10-step SGD loop from a scene of its own: one capture, and
@@ -2593,7 +2795,11 @@ def phase_diff_parallel(sponza_cs, smi):
                 arena_moved=float((p_g - fresh.textures.pixels).abs().max()),
                 seconds=time.perf_counter() - start)
             del fresh, loop, p_g, p_e
-        del cs, target, img, g, again, g_flat
+        del cs, target, img, g, again, g_flat, g_p
+    if path_launches["S1"] <= 0 or path_launches["S1B"] <= 0 or \
+            path_launches["draw"] != 4:
+        raise AssertionError(f"the graphed inverse steps launched "
+                             f"{path_launches}")
 
     # card against CPU at 64x32, depth 8
     for name, build in (
@@ -2758,6 +2964,7 @@ def phase_diff_parallel(sponza_cs, smi):
         param_max_abs_err_own_gradients=max(
             float((a - b).abs().max()) for a, b in zip(pg, pc)),
         seconds=time.perf_counter() - start)
+    return path_launches
 
 
 def phase_obj_ingest(smi):
@@ -2970,7 +3177,8 @@ def main():
     for k, n in phase_surface(sponza_cs).items():
         launches[k] += n
     phase_card_vs_cpu()
-    phase_diff_parallel(sponza_cs, smi)
+    # S1B's main path is the inverse step (its two graphed cells)
+    launches["S1B"] += phase_diff_parallel(sponza_cs, smi)["S1B"]
     for phase in (lambda: phase_obj_ingest(smi), phase_bench):
         for k, n in phase().items():
             launches[k] += n
@@ -2990,13 +3198,16 @@ def main():
               "S1": ("solstrale_tpu_torch/csrc/step.cu",
                      "solstrale_tpu/renderer/integrator.py:765"),
               "S2": ("solstrale_tpu_torch/csrc/step.cu",
-                     "solstrale_tpu/renderer/integrator.py:808")}
+                     "solstrale_tpu/renderer/integrator.py:808"),
+              "S1B": ("solstrale_tpu_torch/csrc/step.cu",
+                      "solstrale_tpu/renderer/integrator.py:364")}
     names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_media",
              "K4": "k4_scene_hit", "K5": "k5_render",
-             "draw": "rng_uniform4", "S1": "step_shade", "S2": "step_regen"}
+             "draw": "rng_uniform4", "S1": "step_shade", "S2": "step_regen",
+             "S1B": "step_shade_backward"}
     # no single PyTorch call computes any of these functions (the draw
     # kernel's counter hash included: torch has no PCG4D; nor the step's
-    # shading or regeneration)
+    # shading or regeneration, nor their reverse)
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
                     library_ms=None, **timings[k]) for k in names]

@@ -201,10 +201,10 @@ __device__ __forceinline__ MatRow mat_row(const Scene& sc, int id) {
   return r;
 }
 
-// integrator.sample_texture: nearest neighbour, abs-wrap, flipped v,
-// out-of-range texel indices clamped
-__device__ __forceinline__ V3 sample_texture(const Scene& sc, int tex_id,
-                                             float u_in, float v_in) {
+// integrator.texel_index: the arena row sample_texture reads (nearest
+// neighbour, abs-wrap, flipped v, out-of-range indices clamped)
+__device__ __forceinline__ int texel_row(const Scene& sc, int tex_id,
+                                         float u_in, float v_in) {
   const int tid = tex_id < 0 ? 0 : tex_id;
   int off = 0, w = 0, h = 0;
   if (tid < sc.n_tex) {
@@ -216,9 +216,15 @@ __device__ __forceinline__ V3 sample_texture(const Scene& sc, int tex_id,
   const float v = 1.0f - fmodf(fabsf(v_in), 1.0f);
   const int x = static_cast<int>(u * static_cast<float>(w - 1));
   const int y = static_cast<int>(v * static_cast<float>(h - 1));
-  int idx = off + y * w + x;
-  idx = idx < 0 ? 0 : (idx > sc.n_texels - 1 ? sc.n_texels - 1 : idx);
-  const float* px = sc.texels + 3 * static_cast<size_t>(idx);
+  const int idx = off + y * w + x;
+  return idx < 0 ? 0 : (idx > sc.n_texels - 1 ? sc.n_texels - 1 : idx);
+}
+
+// integrator.sample_texture: the texel at texel_row
+__device__ __forceinline__ V3 sample_texture(const Scene& sc, int tex_id,
+                                             float u_in, float v_in) {
+  const float* px =
+      sc.texels + 3 * static_cast<size_t>(texel_row(sc, tex_id, u_in, v_in));
   return {px[0], px[1], px[2]};
 }
 

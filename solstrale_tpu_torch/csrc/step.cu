@@ -1,6 +1,8 @@
 // The wavefront step's shading and regeneration: S1 (step_shade) and S2
 // (step_regen), the body of renderer/integrator.py::_Wavefront.step around
-// the scene-hit kernels (K1-K3 or K4) and one exclusive scan.
+// the scene-hit kernels (K1-K3 or K4) and one exclusive scan; and S1's
+// backward, S1B (step_shade_backward), the differentiable route's reverse
+// of a bounce.
 //
 // Replaces the step body of the JAX package's one-program wavefront
 // (solstrale_tpu/renderer/integrator.py:765-836, one_step inside
@@ -29,6 +31,15 @@
 // run every branch for every lane and select, the kernels run the branch a
 // lane takes.
 //
+// S1B replaces the transpose of the bounce body that XLA fuses under
+// jax.value_and_grad in the JAX package's inverse step
+// (solstrale_tpu/renderer/integrator.py:364 bounce_step, differentiated by
+// solstrale_tpu/diff/__init__.py:54-66), which the port ran as autograd
+// through the torch composition. On the differentiable route S1 also
+// writes a 16-byte record a lane (the albedo texel row, the pdf weight,
+// the attenuation and the branch flags) and S1B reads it back with the
+// fold's A and B, so the backward re-evaluates none of the shading.
+//
 // What bounds them: bytes. S1 reads a lane's ~100 bytes of state and hit,
 // one attribute row (112 bytes for a planar prim) and a few material,
 // texel and light rows, and writes ~80 bytes; its arithmetic (a few hundred
@@ -38,6 +49,10 @@
 // it coalesce; the attribute tables are read through const __restrict__
 // pointers with no cap on their size (sponza's 262,092 planar rows). S2
 // reads ~30 bytes a lane and writes ~80 bytes for each lane that ends.
+// S1B reads 88 bytes a lane (record, fold, upstream gradients) and one
+// texel row, and writes 24; its arena gradient is an atomic add into the
+// texel row a lane read, which serialises where many lanes read one texel
+// (a solid colour), so a warp adds one sum for each row its lanes read.
 //
 // The wavefront passes its pool as both the input and the output of S1
 // (the update is in place): a thread reads its lane's whole state before
@@ -99,9 +114,18 @@ struct Shade {
   Lanes in, out;
   float* color;                    // (R, 3)
   bool* flag[6];                   // terminal miss capped emit scat is_pdf
+  const float* bg;                 // (3,), or null: the camera table's
+  int* rec;                        // (4, R) S1B's record, or null
   long long n;
   int max_depth;
 };
+
+// S1's record of a lane for its backward (S1B), four int32 rows of (4, R):
+// the albedo texel row (-1 where the lane reads none), the scatter level's
+// pdf weight prob_scat and the terminal attenuation att (f32 bits), and the
+// flag word below (ops/step.py's REC_* bits)
+constexpr int kRecMiss = 1, kRecEmitFront = 2, kRecScat = 4, kRecPdf = 8,
+              kRecTerminal = 16, kRecDeadT = 32, kRecDead = 256;
 
 struct Attrs {
   V3 normal, tangent, bitangent;
@@ -259,20 +283,25 @@ __global__ void __launch_bounds__(kShadeThreads)
   const bool scat = active && finite && !capped && !is_light;
   const bool terminal = miss || capped || emit;
   const float total_len = acc_len + t_safe;
-  const V3 albedo = (emit || scat)
-                        ? sample_texture(sc, row.albedo_tex, h.u, h.v)
-                        : v3(0.0f, 0.0f, 0.0f);
-  const float alb[3] = {albedo.x, albedo.y, albedo.z};
+  const int alb_row =
+      (emit || scat) ? texel_row(sc, row.albedo_tex, h.u, h.v) : -1;
+  float alb[3] = {0.0f, 0.0f, 0.0f};
+  if (alb_row >= 0)
+    for (int c = 0; c < 3; ++c)
+      alb[c] = sc.texels[3 * static_cast<size_t>(alb_row) + c];
 
   // --- the terminal color through the folded clamps (fold_resolve) -------
-  const float* bg = sc.cam + 19;
+  const float* bg = a.bg != nullptr ? a.bg : sc.cam + 19;
   const float term_af = emit ? row.atten : 0.0f;
   const float term_acc = emit ? total_len : 0.0f;
   const float att = term_af > 0.0f ? 1.0f / (1.0f + term_af * term_acc)
                                    : 1.0f;
+  int rec = (miss ? kRecMiss : 0) | (emit && h.front ? kRecEmitFront : 0) |
+            (scat ? kRecScat : 0) | (terminal ? kRecTerminal : 0);
   for (int c = 0; c < 3; ++c) {
     const float term = miss ? bg[c] : (emit && h.front ? alb[c] : 0.0f);
     const bool dead_t = dead[c] || ((term != term) && outer);
+    if (dead_t) rec |= kRecDeadT << c;
     const float tc = dead_t ? 0.0f : term;
     const float L = dead_t ? 0.0f : nan_min(A[c] * tc, B[c]);
     a.color[3 * i + c] = L * att;
@@ -358,6 +387,7 @@ __global__ void __launch_bounds__(kShadeThreads)
     const bool nan_a = ap != ap;
     if (pdf_lvl) B[c] = nan_min(B[c], 3.0f * A[c]);
     dead[c] = dead[c] || (pdf_lvl && nan_a) || (basic_lvl && nan_a && outer);
+    if (dead[c]) rec |= kRecDead << c;
     if (scat) A[c] = A[c] * (alb[c] * (dead[c] ? 0.0f : prob_scat));
     if (terminal) {
       A[c] = 1.0f;
@@ -379,6 +409,141 @@ __global__ void __launch_bounds__(kShadeThreads)
   const bool flags[6] = {terminal, miss, capped, emit, scat, is_pdf};
   for (int k = 0; k < 6; ++k)
     if (a.flag[k] != nullptr) a.flag[k][i] = flags[k];
+  if (a.rec != nullptr) {
+    a.rec[i] = alb_row;
+    a.rec[a.n + i] = __float_as_int(prob_scat);
+    a.rec[2 * a.n + i] = __float_as_int(att);
+    a.rec[3 * a.n + i] = rec | (pdf_lvl ? kRecPdf : 0);
+  }
+}
+
+// S1B's arguments: S1's record and its inputs that the backward reads (the
+// fold's A and B, the arena, the background), the upstream gradients of
+// S1's differentiable outputs (color, the fold's A' and B'; a null pointer
+// is a zero gradient) and the gradients it writes (a null pointer: not
+// wanted).
+struct ShadeBack {
+  const int* rec;                  // (4, R)
+  const float* texels;             // (N, 3) the arena
+  const float* bg;                 // (3,)
+  const float* g_color;            // (R, 3)
+  float* g_texels;                 // (N, 3), accumulated
+  float* g_bg;                     // (3,), accumulated
+  const float* A[3];
+  const float* B[3];
+  const float* g_A_out[3];
+  const float* g_B_out[3];
+  float* g_A[3];
+  float* g_B[3];
+  long long n;
+};
+
+// torch.minimum's backward (derivatives.yaml): the gradient g of min(x, y)
+// to each side, halved at a tie, whole to both sides where either is NaN
+__device__ __forceinline__ void min_grads(float x, float y, float g,
+                                          float* gx, float* gy) {
+  const float h = x == y ? g * 0.5f : g;
+  *gx = x > y ? 0.0f : h;
+  *gy = x < y ? 0.0f : h;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* shared) {
+  for (int k = 16; k > 0; k >>= 1) v += __shfl_down_sync(0xffffffffu, v, k);
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) shared[warp] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kShadeThreads / 32; ++w) s += shared[w];
+  __syncthreads();
+  return s;
+}
+
+// S1B: the reverse of S1's differentiable part, lane by lane, as autograd
+// runs it through the plain version (integrator.shade_plain; plain
+// ops.step.step_shade_backward_plain): per channel c,
+//
+//   color = (dead_t ? 0 : min(A * t_c, B)) * att, t_c = dead_t ? 0 : term,
+//           term = miss ? bg : (emit && front ? albedo : 0)
+//   A' = terminal ? 1 : (scat ? A * (albedo * m) : A), m = dead ? 0 : prob
+//   B' = terminal ? inf : (pdf ? min(B, 3 A) : B)
+//
+// with every product's gradient taken as torch's backward takes it (so a
+// masked branch's zero meets the same operands), torch.minimum's tie and
+// NaN rule, and the sum of each input's contributions (at most two of them
+// non-zero on a lane, so their order is immaterial). prob, att and the
+// directions carry no gradient (the JAX package's stop_gradients), and the
+// shading normal reaches only them, so a normal map's texels get none. The
+// albedo texel's gradient is added with atomics to its arena row (as
+// index_select's backward, index_add_, adds on the card), once a warp for
+// each row its lanes read; the background's summed over the block and
+// added once a block.
+__global__ void __launch_bounds__(kShadeThreads)
+    step_shade_backward(const ShadeBack a) {
+  __shared__ float warp_sums[kShadeThreads / 32];
+  const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
+                      threadIdx.x;
+  float g_bg[3] = {0.0f, 0.0f, 0.0f}, g_alb[3] = {0.0f, 0.0f, 0.0f};
+  int row = -1;
+  if (i < a.n) {
+    row = a.rec[i];
+    const float prob = __int_as_float(a.rec[a.n + i]);
+    const float att = __int_as_float(a.rec[2 * a.n + i]);
+    const int f = a.rec[3 * a.n + i];
+    const bool miss = f & kRecMiss, emit_front = f & kRecEmitFront,
+               scat = f & kRecScat, pdf = f & kRecPdf,
+               terminal = f & kRecTerminal;
+    for (int c = 0; c < 3; ++c) {
+      const float A = a.A[c][i], B = a.B[c][i];
+      const float alb =
+          row >= 0 ? a.texels[3 * static_cast<size_t>(row) + c] : 0.0f;
+      const bool dead_t = f & (kRecDeadT << c), dead = f & (kRecDead << c);
+      // fold_resolve
+      const float term = miss ? a.bg[c] : (emit_front ? alb : 0.0f);
+      const float t_c = dead_t ? 0.0f : term;
+      const float g_l =
+          (a.g_color != nullptr ? a.g_color[3 * i + c] : 0.0f) * att;
+      float gx, gy;
+      min_grads(A * t_c, B, dead_t ? 0.0f : g_l, &gx, &gy);
+      const float g_term = dead_t ? 0.0f : gx * A;
+      if (miss) g_bg[c] = g_term;
+      // the terminal reset and fold_scatter
+      const float g_a2 = terminal || a.g_A_out[c] == nullptr
+                             ? 0.0f : a.g_A_out[c][i];
+      const float g_b2 = terminal || a.g_B_out[c] == nullptr
+                             ? 0.0f : a.g_B_out[c][i];
+      const float m = dead ? 0.0f : prob;
+      const float g_p = scat ? g_a2 : 0.0f;
+      float gs, go;
+      min_grads(B, 3.0f * A, pdf ? g_b2 : 0.0f, &gs, &go);
+      g_alb[c] = (emit_front ? g_term : 0.0f) + (g_p * A) * m;
+      if (a.g_A[c] != nullptr)
+        a.g_A[c][i] = gx * t_c + go * 3.0f + g_p * (alb * m) +
+                      (scat ? 0.0f : g_a2);
+      if (a.g_B[c] != nullptr) a.g_B[c][i] = gy + gs + (pdf ? 0.0f : g_b2);
+    }
+  }
+  // the albedo texels' gradients: the lanes of a warp that read one texel
+  // row add their sum once (a solid colour is one texel that most lanes
+  // read, whose atomics would otherwise serialise), summed in lane order
+  if (a.g_texels != nullptr) {
+    const unsigned peers = __match_any_sync(0xffffffffu, row);
+    if (row >= 0) {
+      for (int c = 0; c < 3; ++c) {
+        float sum = 0.0f;
+        for (unsigned m = peers; m != 0u; m &= m - 1u)
+          sum += __shfl_sync(peers, g_alb[c], __ffs(m) - 1);
+        if (static_cast<int>(threadIdx.x % 32) == __ffs(peers) - 1 &&
+            sum != 0.0f)
+          atomicAdd(a.g_texels + 3 * static_cast<size_t>(row) + c, sum);
+      }
+    }
+  }
+  if (a.g_bg == nullptr) return;
+  for (int c = 0; c < 3; ++c) {
+    const float s = block_sum(g_bg[c], warp_sums);
+    if (threadIdx.x == 0 && s != 0.0f) atomicAdd(a.g_bg + c, s);
+  }
 }
 
 struct Regen {
@@ -534,7 +699,7 @@ enum ShadePtr {
   SP_MED_MAT, SP_PL_IDX, SP_PL_IS_TRI, SP_T, SP_KIND, SP_IDX, SP_PIXEL,
   SP_SAMPLE, SP_SEED, SP_ACTIVE, SP_QPOS, SP_COLOR, SP_TERMINAL, SP_MISS,
   SP_CAPPED, SP_EMIT, SP_SCAT, SP_IS_PDF, SP_IN, SP_OUT = SP_IN + 18,
-  SP_COUNT = SP_OUT + 18
+  SP_BG = SP_OUT + 18, SP_REC, SP_COUNT
 };
 enum ShadeInt {
   SV_N, SV_MAX_DEPTH, SV_FLAGS, SV_N_SPH, SV_N_PL, SV_N_Q, SV_N_MAT,
@@ -552,6 +717,14 @@ enum RegenInt {
   RV_N, RV_TOTAL_Q, RV_N_PIX, RV_WIDTH, RV_HEIGHT, RV_TILE_W, RV_TILE_H,
   RV_SEED, RV_RESET, RV_COUNT
 };
+
+// S1B's arguments, as ops/step.py's BACK_PTRS and BACK_INTS name them
+// (each fold group: a0 a1 a2 b0 b1 b2).
+enum BackPtr {
+  BP_REC, BP_TEXELS, BP_BG, BP_G_COLOR, BP_G_TEXELS, BP_G_BG, BP_IN,
+  BP_G_OUT = BP_IN + 6, BP_G_IN = BP_G_OUT + 6, BP_COUNT = BP_G_IN + 6
+};
+enum BackInt { BV_N, BV_COUNT };
 
 extern "C" int step_shade_launch(const void* const* p, const long long* v,
                                  void* stream) {
@@ -584,6 +757,8 @@ extern "C" int step_shade_launch(const void* const* p, const long long* v,
     a.in = lanes_at(p + SP_IN);
     a.out = lanes_at(p + SP_OUT);
     a.color = static_cast<float*>(const_cast<void*>(p[SP_COLOR]));
+    a.bg = static_cast<const float*>(p[SP_BG]);
+    a.rec = static_cast<int*>(const_cast<void*>(p[SP_REC]));
     for (int k = 0; k < 6; ++k)
       a.flag[k] = static_cast<bool*>(const_cast<void*>(p[SP_TERMINAL + k]));
     a.n = n;
@@ -627,6 +802,33 @@ extern "C" int step_regen_launch(const void* const* p, const long long* v,
     const long long blocks = (n + kRegenThreads - 1) / kRegenThreads;
     step_regen<<<static_cast<unsigned int>(blocks), kRegenThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int step_shade_backward_launch(const void* const* p,
+                                          const long long* v, void* stream) {
+  const long long n = v[BV_N];
+  if (n > 0) {
+    ShadeBack a;
+    a.rec = static_cast<const int*>(p[BP_REC]);
+    a.texels = static_cast<const float*>(p[BP_TEXELS]);
+    a.bg = static_cast<const float*>(p[BP_BG]);
+    a.g_color = static_cast<const float*>(p[BP_G_COLOR]);
+    a.g_texels = static_cast<float*>(const_cast<void*>(p[BP_G_TEXELS]));
+    a.g_bg = static_cast<float*>(const_cast<void*>(p[BP_G_BG]));
+    for (int c = 0; c < 3; ++c) {
+      a.A[c] = static_cast<const float*>(p[BP_IN + c]);
+      a.B[c] = static_cast<const float*>(p[BP_IN + 3 + c]);
+      a.g_A_out[c] = static_cast<const float*>(p[BP_G_OUT + c]);
+      a.g_B_out[c] = static_cast<const float*>(p[BP_G_OUT + 3 + c]);
+      a.g_A[c] = static_cast<float*>(const_cast<void*>(p[BP_G_IN + c]));
+      a.g_B[c] = static_cast<float*>(const_cast<void*>(p[BP_G_IN + 3 + c]));
+    }
+    a.n = n;
+    const long long blocks = (n + kShadeThreads - 1) / kShadeThreads;
+    step_shade_backward<<<static_cast<unsigned int>(blocks), kShadeThreads,
+                          0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,13 +2,15 @@
 parameters.
 
 Port of the JAX package's ``diff``. The fixed-trip ``integrator.trace``
-(``early_exit=False``) carries autograd through every bounce; under grad it
-runs its bounces in chunks under ``torch.utils.checkpoint``, so the backward
-is a path replay that keeps only the lane carry between chunks. The
-estimator is detached-sampling (``integrator.scatter`` detaches sample
-directions and pdf weights) with detached geometry (``ops/detached.py``):
-gradients flow through material albedos, texture maps, emitter radiance and
-the background.
+(``early_exit=False``) on its differentiable route carries autograd through
+every bounce: the hit kernels, then S1 with its hand-written backward S1B
+(``ops.step.step_shade_grad``; their plain versions on the CPU). Under grad
+it runs its bounces in chunks under ``torch.utils.checkpoint``, so the
+backward is a path replay that keeps only the lane carry between chunks
+and reruns S1 for each chunk's records. The estimator is detached-sampling
+(sample directions and pdf weights are constants) with detached geometry
+(``ops/detached.py``): gradients flow through material albedos, texture
+maps and emitter radiance (the texture arena) and the background.
 
 The inverse step (``image_and_texture_grad``, and each rank's loss and
 gradient in ``train_step_sharded``) is one ``_GradStep`` per scene geometry

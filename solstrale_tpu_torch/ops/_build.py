@@ -64,6 +64,7 @@ _SIGNATURES = {
     # an array of pointers and one of int64 values (ops/step.py names them)
     "step_shade_launch": [_P, _P, _P],
     "step_regen_launch": [_P, _P, _P],
+    "step_shade_backward_launch": [_P, _P, _P],
 }
 
 

@@ -1,5 +1,7 @@
 """The wavefront step's shading and regeneration as two hand-written kernels
-(``csrc/step.cu``): S1 ``step_shade`` and S2 ``step_regen``.
+(``csrc/step.cu``): S1 ``step_shade`` and S2 ``step_regen``; and S1's
+backward, S1B ``step_shade_backward``, which makes S1 the differentiable
+route's bounce (``step_shade_grad``).
 
 Replaces the step body of the JAX package's one-program wavefront
 (``solstrale_tpu/renderer/integrator.py:765-836``, ``one_step`` inside
@@ -18,14 +20,24 @@ kernels (K1-K3 or K4), S1, one scan and S2.
   part of ``_Wavefront.reset``. Plain versions: ``_Wavefront.regen_plain``
   and ``_Wavefront.reset_plain``.
 
+- ``step_shade_grad``: S1 as a ``torch.autograd.Function``
+  (``StepShadeFn``) for ``integrator.trace(..., differentiable=True)``.
+  The forward is S1 writing new tensors and a record of 16 bytes a lane
+  (``shade_record``); the backward is S1B (``step_shade_backward``: the
+  fold's, the texture arena's and the background's gradients from the
+  record, one thread a lane). Plain versions: ``shade_plain(...,
+  record=True)`` and ``step_shade_backward_plain``, the reverse that
+  autograd runs through ``shade_plain``.
+
 Each wrapper picks by the device of its tensors only: CPU tensors take the
-plain version, CUDA tensors launch the kernel or raise. Both launch on the
-current stream (the wavefront's CUDA graphs capture them as they are) and
-count their launches (``launches``). S1 has no backward: on the card it
-raises where autograd would want a graph through it (``trace``'s
-differentiable route is the torch composition). The arguments go to the kernels as one
-array of pointers and one of int64 values, indexed by the names below,
-which ``csrc/step.cu``'s enums list in the same order.
+plain version, CUDA tensors launch the kernel or raise. All launch on the
+current stream (the wavefront's and the inverse step's CUDA graphs capture
+them as they are) and count their launches (``launches``). ``step_shade``
+alone builds no autograd graph: on the card it raises where autograd would
+want one (``trace``'s differentiable route takes ``step_shade_grad``). The
+arguments go to the kernels as one array of pointers and one of int64
+values, indexed by the names below, which ``csrc/step.cu``'s enums list in
+the same order.
 """
 from __future__ import annotations
 
@@ -48,12 +60,22 @@ LANE_ARRAYS = ("o0", "o1", "o2", "d0", "d1", "d2", "bounce", "acc_len",
                "outer")
 FLAGS = ("terminal", "miss", "capped", "emit", "scat", "is_pdf")
 _COUNTER = ("size", "stride", "value")
+# the fold's differentiable arrays, in S1B's argument groups
+FOLD_ARRAYS = ("a0", "a1", "a2", "b0", "b1", "b2")
+
+# S1's record for S1B, a (4, R) int32 tensor: the albedo texel row (-1
+# where a lane reads none), prob_scat and att as f32 bits, and a flag word
+# of these bits (csrc/step.cu's kRec*); channel c's at REC_DEAD_T << c and
+# REC_DEAD << c
+REC_MISS, REC_EMIT_FRONT, REC_SCAT, REC_PDF, REC_TERMINAL = 1, 2, 4, 8, 16
+REC_DEAD_T = 32    # the channel was dead at the terminal color (dead_t)
+REC_DEAD = 256     # the channel is dead after this level's fold
 
 SHADE_PTRS = (("cam", "sph", "pln", "mats", "tex_attr", "texels", "lights",
                "med_mat", "pl_idx", "pl_is_tri", "t", "kind", "idx", "pixel",
                "sample", "seed", "active", "qpos", "color") + FLAGS
               + tuple("in_" + n for n in LANE_ARRAYS)
-              + tuple("out_" + n for n in LANE_ARRAYS))
+              + tuple("out_" + n for n in LANE_ARRAYS) + ("bg", "rec"))
 SHADE_INTS = (("n", "max_depth", "flags", "n_sph", "n_pl", "n_q", "n_mat",
                "n_tex", "n_texels", "n_light", "n_media", "total_q")
               + tuple(f"{c}_{k}" for c in ("pixel", "sample", "seed")
@@ -63,6 +85,11 @@ REGEN_PTRS = (("cam", "qpos", "pixel", "sample", "terminal", "rank",
                "pix_ids") + tuple("pool_" + n for n in LANE_ARRAYS))
 REGEN_INTS = ("n", "total_q", "n_pix", "width", "height", "tile_w", "tile_h",
               "seed", "reset")
+BACK_PTRS = (("rec", "texels", "bg", "g_color", "g_texels", "g_bg")
+             + tuple("in_" + n for n in FOLD_ARRAYS)
+             + tuple("g_out_" + n for n in FOLD_ARRAYS)
+             + tuple("g_in_" + n for n in FOLD_ARRAYS))
+BACK_INTS = ("n",)
 
 
 @dataclass(frozen=True)
@@ -146,29 +173,32 @@ def lane_arrays(st):
 
 
 def _new_outputs(r, dev):
-    """S1's outputs as path_step's dict, in new tensors."""
-    f = torch.empty((13, r), dtype=torch.float32, device=dev)
+    """S1's outputs as path_step's dict, in new tensors: the fold's A and B
+    each in a tensor of its own (an autograd Function's differentiable
+    outputs, on the differentiable route), the rest views of two blocks."""
+    f = torch.empty((7, r), dtype=torch.float32, device=dev)
     b = torch.empty((10, r), dtype=torch.bool, device=dev)
+    A, B = (tuple(torch.empty((r,), dtype=torch.float32, device=dev)
+                  for _ in range(3)) for _ in range(2))
     out = dict(zip(FLAGS, b[4:].unbind(0)))
     out.update(color=torch.empty((r, 3), dtype=torch.float32, device=dev),
                o=tuple(f[0:3].unbind(0)), d=tuple(f[3:6].unbind(0)),
                bounce=torch.empty((r,), dtype=torch.int32, device=dev),
-               acc_len=f[6],
-               fold=(tuple(f[7:10].unbind(0)), tuple(f[10:13].unbind(0)),
-                     tuple(b[0:3].unbind(0)), b[3]))
+               acc_len=f[6], fold=(A, B, tuple(b[0:3].unbind(0)), b[3]))
     return out
 
 
-def needs_grad(cs, *args):
+def needs_grad(cs, *args, skip=()):
     """Whether autograd would record a graph through the step: grad mode
     on, and a tensor among ``args`` (one level into tuples) or among the
-    compiled scene's tables (its dataclass fields, nested) requires grad."""
+    compiled scene's tables (its dataclass fields, nested) requires grad;
+    the tensors in ``skip`` (by identity) do not count."""
     if not torch.is_grad_enabled():
         return False
 
     def walk(x):
         if isinstance(x, torch.Tensor):
-            return x.requires_grad
+            return x.requires_grad and not any(x is y for y in skip)
         if isinstance(x, (tuple, list)):
             return any(walk(v) for v in x)
         if dataclasses.is_dataclass(x) and not isinstance(x, type):
@@ -183,6 +213,14 @@ def _check(name, x, dtype, r, dev):
     if not isinstance(x, torch.Tensor) or x.device != dev or \
             x.dtype != dtype or x.shape != (r,) or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous ({r},) {dtype} "
+                         f"tensor on {dev}")
+
+
+def _check_table(name, x, shape, dev, dtype=torch.float32):
+    if not isinstance(x, torch.Tensor) or x.device != dev or \
+            x.dtype != dtype or tuple(x.shape) != shape or \
+            not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {shape} {dtype} "
                          f"tensor on {dev}")
 
 
@@ -230,9 +268,10 @@ def step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel, sample,
     if dev.type != "cuda":
         raise ValueError(f"step_shade: unsupported device {dev}")
     if needs_grad(cs, o, d, acc_len, fold):
-        raise ValueError("step_shade: S1 has no backward; a render that "
-                         "autograd runs through takes the differentiable "
-                         "route (integrator.trace(..., differentiable=True))")
+        raise ValueError("step_shade: S1 alone builds no autograd graph; a "
+                         "render that autograd runs through takes the "
+                         "differentiable route (integrator.trace(..., "
+                         "differentiable=True): S1 with its backward S1B)")
     out = shade_kernel(_build.library().step_shade_launch, cs, t, kind, idx,
                        o, d, bounce, acc_len, fold, pixel, sample, seed,
                        active, max_depth, out, _build.stream_of(t))
@@ -244,10 +283,14 @@ step_shade.launches = 0
 
 
 def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
-                 sample, seed, active, max_depth, out, stream):
+                 sample, seed, active, max_depth, out, stream, texels=None,
+                 bg=None, rec=None):
     """S1's launch through its C entry ``fn`` (``step_shade_launch``) on
-    ``stream``: the argument checks and the two argument arrays. Returns
-    the output dict."""
+    ``stream``: the argument checks and the two argument arrays. ``texels``
+    ((N, 3) f32) and ``bg`` ((3,) f32): the arena and background read in
+    place of the packed tables' (the differentiable route's own inputs);
+    ``rec``: a (4, R) int32 tensor for S1's record. Returns the output
+    dict."""
     dev = t.device
     r = t.shape[0]
     tab = step_tables(cs)
@@ -276,10 +319,12 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
             color.device != dev or not color.is_contiguous():
         raise ValueError("step_shade: color must be a contiguous (R, 3) "
                          "float32 tensor")
+    texels = tab.texels if texels is None else texels
+    _check_table("step_shade: texels", texels, (texels.shape[0], 3), dev)
     p = _build.ptr
     ptrs = dict(cam=p(tab.cam), sph=p(tab.sph), pln=p(tab.pln),
                 mats=p(tab.mats), tex_attr=p(tab.tex_attr),
-                texels=p(tab.texels), lights=p(tab.lights),
+                texels=p(texels), lights=p(tab.lights),
                 med_mat=p(tab.med_mat), pl_idx=p(tab.pl_idx),
                 pl_is_tri=p(tab.pl_is_tri), t=p(t), idx=p(idx), color=p(color))
     if kind is not None:
@@ -291,10 +336,16 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     else:
         _check("step_shade: active", active, torch.bool, r, dev)
         ptrs["active"], total_q = p(active), 0
+    if bg is not None:
+        _check_table("step_shade: bg", bg, (3,), dev)
+        ptrs["bg"] = p(bg)
+    if rec is not None:
+        _check_table("step_shade: rec", rec, (4, r), dev, torch.int32)
+        ptrs["rec"] = p(rec)
     ints = dict(n=r, max_depth=max_depth, flags=tab.flags,
                 n_sph=tab.sph.shape[0], n_pl=tab.pln.shape[0], n_q=tab.n_q,
                 n_mat=tab.mats.shape[0], n_tex=tab.tex_attr.shape[0],
-                n_texels=tab.texels.shape[0], n_light=tab.lights.shape[0],
+                n_texels=texels.shape[0], n_light=tab.lights.shape[0],
                 n_media=tab.med_mat.shape[0], total_q=total_q)
     counters = []   # held until the launch: a counter may be a new tensor
     for name, x in (("pixel", pixel), ("sample", sample), ("seed", seed)):
@@ -317,7 +368,7 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
 
 
 def _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
-                      sample, seed, active, max_depth, out):
+                      sample, seed, active, max_depth, out, record=False):
     """S1's CPU side: ``integrator.shade_plain``, copied into ``out`` when
     given."""
     from ..renderer.integrator import shade_plain
@@ -327,7 +378,7 @@ def _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     if isinstance(active, tuple):
         active = active[0] < active[1]
     st = shade_plain(cs, o, d, t, kind, idx, bounce, acc_len, fold, pixel,
-                     sample, seed, active, max_depth)
+                     sample, seed, active, max_depth, record=record)
     if out is None:
         return st
     for dst, src in zip(lane_arrays(out), lane_arrays(st)):
@@ -336,6 +387,258 @@ def _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
         if out.get(k) is not None:
             out[k].copy_(st[k])
     return out
+
+
+def shade_record(row, prob_scat, att, miss, emit_front, scat, pdf,
+                 terminal, dead_t, dead):
+    """S1's record of a bounce for its backward, as ``csrc/step.cu`` writes
+    it: a (4, R) int32 tensor of the albedo texel row (-1: none read), the
+    scatter level's pdf weight ``prob_scat`` and the terminal attenuation
+    ``att`` as f32 bits, and the flag word (``REC_*``; ``dead_t`` and
+    ``dead`` are per-channel tuples)."""
+    bits = [(miss, REC_MISS), (emit_front, REC_EMIT_FRONT), (scat, REC_SCAT),
+            (pdf, REC_PDF), (terminal, REC_TERMINAL)]
+    bits += [(dead_t[c], REC_DEAD_T << c) for c in range(3)]
+    bits += [(dead[c], REC_DEAD << c) for c in range(3)]
+    word = sum(b.to(torch.int32) * k for b, k in bits)
+    return torch.stack([row, prob_scat.view(torch.int32),
+                        att.view(torch.int32), word])
+
+
+def step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
+                    sample, seed, active, max_depth):
+    """``step_shade`` on the differentiable route: S1, and S1B in the
+    backward (``StepShadeFn``), with path_step's arguments and dict (new
+    tensors). Gradients reach the fold's A and B, the texture arena
+    (``cs.textures.pixels``: albedos, texture maps and emitter radiance)
+    and the background (``cs.bg_color``). Raises, on every device, where a
+    lane input or another table of the scene requires grad. Where none of
+    the four requires grad (or grad mode is off) it is ``step_shade``."""
+    A, B, dead, outer = fold
+    arena, bg = cs.textures.pixels, cs.bg_color
+    if needs_grad(cs, t, o, d, acc_len, skip=(arena, bg)):
+        raise ValueError("step_shade_grad: gradients reach only the fold, "
+                         "the texture arena (cs.textures.pixels) and the "
+                         "background (cs.bg_color); a lane input or "
+                         "another scene table requires grad")
+    if not (torch.is_grad_enabled() and any(
+            x.requires_grad for x in (arena, bg, *A, *B))):
+        return step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold,
+                          pixel, sample, seed, active, max_depth)
+    outs = StepShadeFn.apply(cs, (t, kind, idx, o, d, bounce, acc_len, dead,
+                                  outer, pixel, sample, seed, active,
+                                  max_depth), arena, bg, *A, *B)
+    out = dict(zip(FLAGS, outs[19:]))
+    out.update(color=outs[0], o=outs[7:10], d=outs[10:13], bounce=outs[13],
+               acc_len=outs[14], fold=(outs[1:4], outs[4:7], outs[15:18],
+                                       outs[18]))
+    return out
+
+
+class StepShadeFn(torch.autograd.Function):
+    """S1 with S1B as its backward. Inputs: the compiled scene, the rest of
+    path_step's arguments (one tuple), then the differentiable ones: the
+    arena, the background and the fold's A and B (3 each), which the
+    kernels read from these tensors, not from the scene's packed tables
+    (an inverse step swaps its own leaf arena in). Outputs: color, A', B'
+    (differentiable), then o, d, bounce, acc_len, dead, outer and the six
+    flags (not). The record (16 bytes a lane) and the fold's A and B are
+    saved for the backward, which reads nothing back to the host."""
+
+    @staticmethod
+    def forward(ctx, cs, call, arena, bg, *ab):
+        (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
+         seed, active, max_depth) = call
+        out, rec = shade_with_record(
+            cs, t, kind, idx, o, d, bounce, acc_len,
+            (ab[:3], ab[3:], dead, outer), pixel, sample, seed, active,
+            max_depth, arena, bg)
+        ctx.save_for_backward(rec, arena, bg, *ab)
+        ctx.set_materialize_grads(False)
+        A, B, dead, outer = out["fold"]
+        rest = (*out["o"], *out["d"], out["bounce"], out["acc_len"], *dead,
+                outer, *(out[k] for k in FLAGS))
+        ctx.mark_non_differentiable(*rest)
+        return (out["color"], *A, *B) + rest
+
+    @staticmethod
+    def backward(ctx, g_color, *g_out):
+        rec, arena, bg, *ab = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_arena, g_bg, g_ab = step_shade_backward(
+            rec, ab, arena, bg, g_color, g_out[:6], need[2], need[3],
+            need[4:10])
+        return (None, None, g_arena, g_bg, *g_ab)
+
+
+def shade_with_record(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
+                      sample, seed, active, max_depth, arena=None, bg=None):
+    """S1 with its record for S1B: (path_step's dict in new tensors, the
+    (4, R) int32 record). ``arena`` and ``bg`` (default: the scene's) are
+    the texels and background it reads. One S1 launch on the card (counted
+    in ``step_shade.launches``), ``shade_plain(..., record=True)`` on the
+    CPU."""
+    arena = cs.textures.pixels if arena is None else arena
+    bg = cs.bg_color if bg is None else bg
+    dev = t.device
+    if dev.type == "cpu":
+        out = _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold,
+                                pixel, sample, seed, active, max_depth, None,
+                                record=True)
+        return out, out.pop("record")
+    if dev.type != "cuda":
+        raise ValueError(f"step_shade_grad: unsupported device {dev}")
+    r = t.shape[0]
+    rec = torch.empty((4, r), dtype=torch.int32, device=dev)
+    out = shade_kernel(_build.library().step_shade_launch, cs, t, kind, idx,
+                       o, d, bounce, acc_len, fold, pixel, sample, seed,
+                       active, max_depth,
+                       _new_outputs(r, dev),
+                       _build.stream_of(t), texels=arena, bg=bg, rec=rec)
+    step_shade.launches += 1
+    return out, rec
+
+
+def step_shade_backward(rec, ab, texels, bg, g_color, g_ab_out,
+                        want_texels=True, want_bg=True, want_ab=(True,) * 6):
+    """S1B: the gradients of one S1 call's inputs from its record ``rec``
+    ((4, R) int32), its fold inputs ``ab`` (A then B, six (R,) f32), the
+    arena ``texels`` ((N, 3) f32) and ``bg`` ((3,) f32), and the upstream
+    gradients of its color ((R, 3)) and of its fold outputs A' and B' (six;
+    None is a zero gradient). Returns (the arena's (N, 3), the
+    background's (3,), the six fold inputs'), each None where its ``want_*``
+    is false. One launch on the card; ``step_shade_backward_plain`` on the
+    CPU."""
+    dev = rec.device
+    if dev.type == "cpu":
+        return step_shade_backward_plain(rec, ab, texels, bg, g_color,
+                                         g_ab_out, want_texels, want_bg,
+                                         want_ab)
+    if dev.type != "cuda":
+        raise ValueError(f"step_shade_backward: unsupported device {dev}")
+    out = backward_kernel(_build.library().step_shade_backward_launch, rec,
+                          ab, texels, bg, g_color, g_ab_out, want_texels,
+                          want_bg, want_ab, _build.stream_of(rec))
+    step_shade_backward.launches += 1
+    return out
+
+
+step_shade_backward.launches = 0
+
+
+def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, want_texels,
+                    want_bg, want_ab, stream):
+    """S1B's launch through its C entry ``fn``
+    (``step_shade_backward_launch``) on ``stream``: the checks, the new
+    gradient tensors (the arena's and the background's zeroed, for the
+    kernel's atomic adds) and the two argument arrays."""
+    dev = rec.device
+    r = rec.shape[1]
+    _check_table("step_shade_backward: rec", rec, (4, r), dev, torch.int32)
+    _check_table("step_shade_backward: texels", texels,
+                 (texels.shape[0], 3), dev)
+    _check_table("step_shade_backward: bg", bg, (3,), dev)
+    p = _build.ptr
+    keep = []   # the upstream gradients made contiguous, held to the launch
+    ptrs = dict(rec=p(rec), texels=p(texels), bg=p(bg))
+    if g_color is not None:
+        g_color = g_color.contiguous()
+        _check_table("step_shade_backward: g_color", g_color, (r, 3), dev)
+        keep.append(g_color)
+        ptrs["g_color"] = p(g_color)
+    g_texels = torch.zeros_like(texels) if want_texels else None
+    g_bg = torch.zeros_like(bg) if want_bg else None
+    if g_texels is not None:
+        ptrs["g_texels"] = p(g_texels)
+    if g_bg is not None:
+        ptrs["g_bg"] = p(g_bg)
+    g_ab = [torch.empty_like(x) if w else None for x, w in zip(ab, want_ab)]
+    for name, x, g, gi in zip(FOLD_ARRAYS, ab, g_ab_out, g_ab):
+        _check(f"step_shade_backward: {name}", x, torch.float32, r, dev)
+        ptrs["in_" + name] = p(x)
+        if g is not None:
+            g = g.contiguous()
+            _check(f"step_shade_backward: g_out_{name}", g, torch.float32,
+                   r, dev)
+            keep.append(g)
+            ptrs["g_out_" + name] = p(g)
+        if gi is not None:
+            ptrs["g_in_" + name] = p(gi)
+    _build.check(_launch(fn, BACK_PTRS, BACK_INTS, ptrs, dict(n=r), stream),
+                 "step_shade_backward")
+    return g_texels, g_bg, tuple(g_ab)
+
+
+def _min_grads(x, y, g):
+    """torch.minimum's backward (derivatives.yaml): the gradient ``g`` of
+    min(x, y) to x and to y, halved at a tie, whole to both where either is
+    NaN."""
+    h = torch.where(x == y, g / 2, g)
+    return torch.where(x > y, 0.0, h), torch.where(x < y, 0.0, h)
+
+
+def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out,
+                              want_texels=True, want_bg=True,
+                              want_ab=(True,) * 6):
+    """S1B's plain version: the reverse that autograd runs through
+    ``integrator.shade_plain``, written out in torch ops from the record,
+    each product's gradient taken as torch's backward takes it (a masked
+    branch's zero meets the same operands) and ``torch.minimum``'s tie and
+    NaN rule (``_min_grads``). Per channel c:
+
+    - ``color = (dead_t ? 0 : min(A * t_c, B)) * att``, ``t_c = dead_t ? 0 :
+      term``, ``term = miss ? bg : (emit && front ? albedo : 0)``;
+    - ``A' = terminal ? 1 : (scat ? A * (albedo * m) : A)``, ``m = dead ? 0 :
+      prob_scat``;
+    - ``B' = terminal ? inf : (pdf ? min(B, 3 A) : B)``.
+
+    ``prob_scat``, ``att`` and the directions are detached (the JAX
+    package's stop_gradients). The shading normal reaches only them, so a
+    normal map's texels get no gradient. Each input's contributions (at
+    most two non-zero on a lane) are summed; the arena's gradient is
+    ``index_add_`` into the lanes' albedo rows, as ``index_select``'s
+    backward adds them. Same arguments and returns as
+    ``step_shade_backward``."""
+    row, word = rec[0], rec[3]
+    prob, att = rec[1].view(torch.float32), rec[2].view(torch.float32)
+
+    def bit(k):
+        return (word & k) != 0
+
+    miss, emit_front = bit(REC_MISS), bit(REC_EMIT_FRONT)
+    scat, pdf, terminal = bit(REC_SCAT), bit(REC_PDF), bit(REC_TERMINAL)
+    read = row >= 0
+    rows = torch.clamp(row, min=0).long()
+    texel = torch.index_select(texels, 0, rows)
+    zero = torch.zeros_like(prob)
+    g_ab, g_alb, g_bg = [None] * 6, [], []
+    for c in range(3):
+        A, B = ab[c], ab[3 + c]
+        alb = torch.where(read, texel[:, c], 0.0)
+        dead_t, dead = bit(REC_DEAD_T << c), bit(REC_DEAD << c)
+        # fold_resolve
+        term = torch.where(miss, bg[c], torch.where(emit_front, alb, 0.0))
+        t_c = torch.where(dead_t, 0.0, term)
+        g_l = (zero if g_color is None else g_color[:, c]) * att
+        gx, gy = _min_grads(A * t_c, B, torch.where(dead_t, 0.0, g_l))
+        g_term = torch.where(dead_t, 0.0, gx * A)
+        g_bg.append(torch.where(miss, g_term, 0.0).sum())
+        # the terminal reset and fold_scatter
+        g_a2, g_b2 = (torch.where(terminal, 0.0, zero if g is None else g)
+                      for g in (g_ab_out[c], g_ab_out[3 + c]))
+        m = torch.where(dead, 0.0, prob)
+        g_p = torch.where(scat, g_a2, 0.0)
+        gs, go = _min_grads(B, 3.0 * A, torch.where(pdf, g_b2, 0.0))
+        g_alb.append(torch.where(emit_front, g_term, 0.0) + (g_p * A) * m)
+        g_ab[c] = (gx * t_c + go * 3.0 + g_p * (alb * m)
+                   + torch.where(scat, 0.0, g_a2))
+        g_ab[3 + c] = gy + gs + torch.where(pdf, 0.0, g_b2)
+    g_texels = None
+    if want_texels:
+        g_texels = torch.zeros_like(texels).index_add_(
+            0, rows, torch.where(read[:, None], torch.stack(g_alb, -1), 0.0))
+    return (g_texels, torch.stack(g_bg) if want_bg else None,
+            tuple(g if w else None for g, w in zip(g_ab, want_ab)))
 
 
 def step_regen(cs, wf, pool, terminal=None, rank=None):

@@ -23,8 +23,9 @@ the two agree). ``--step`` times one
 ``diff.image_and_texture_grad`` step instead (1 spp, depth 50, against a
 target at seed 2), which on the card replays the step's CUDA graph: its
 first call (the capture), one call by CUDA events, the host reads of a
-call, and one call under ``torch.profiler`` (its device ops, busy and idle
-share); ``--eager`` runs the same step op by op (``diff._GradStep.eager``)
+call and the kernels' launches in it (S1 and its backward S1B among
+them), and one call under ``torch.profiler`` (its device ops, busy and
+idle share, each kernel's time); ``--eager`` runs the same step op by op (``diff._GradStep.eager``)
 and times its forward and its backward (the checkpointed replay and the
 gradient) apart. Prints one JSON object. Needs a CUDA device; there is
 no CPU fallback.
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
 
@@ -40,7 +42,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
-               "k5_render", "rng_uniform4", "step_shade", "step_regen")
+               "k5_render", "rng_uniform4", "step_shade", "step_regen",
+               "step_shade_backward")
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
 
@@ -124,6 +127,12 @@ def device_kernels(calls, attempts=5):
                        f"{groups})")
 
 
+def _is_kernel(name, event):
+    """Whether a profiler event's name is the kernel ``name`` (not one whose
+    name it begins, as step_shade begins step_shade_backward)."""
+    return re.search(rf"\b{name}\(", event) is not None or event == name
+
+
 def _profile(fn):
     """fn() under torch.profiler: its wall ms and the device's kernels (a
     summary, and ``device_kernel_times``)."""
@@ -142,7 +151,7 @@ def _profile(fn):
         device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
         kernel_launches=sum(v[0] for v in kernels.values()),
         hit_kernel_ms={name: sum(v[1] for k, v in kernels.items()
-                                 if name in k) / 1e3
+                                 if _is_kernel(name, k)) / 1e3
                        for name in HIT_KERNELS},
         top_kernels=[dict(name=k[:90], count=v[0], ms=v[1] / 1e3)
                      for k, v in top]), kernels
@@ -217,10 +226,16 @@ def profile_step(scene_name="mixed", eager=False):
     if eager:
         out["forward_ms"] = marks[0].elapsed_time(marks[1])
         out["backward_ms"] = marks[1].elapsed_time(marks[2])
+    from . import bench
+
+    wrappers = bench.kernel_wrappers()
+    before = {k: fn.launches for k, fn in wrappers.items()}
     with HostReads() as reads:
         call()
     torch.cuda.synchronize()
     out["host_reads"] = reads.n
+    out["launches"] = {k: fn.launches - before[k]
+                       for k, fn in wrappers.items()}
     prof = _profile(call)[0]
     # every kernel of the step, inside a replay too
     prof["device_ops_per_step"] = prof["kernel_launches"]
@@ -255,8 +270,8 @@ def profile_batch(scene_name="sponza"):
     counted = {k: fn.launches - before[k] for k, fn in wrappers.items()}
     pairs = {"k1_bvh": "K1", "rng_uniform4": "draw", "step_shade": "S1",
              "step_regen": "S2"}
-    seen = {name: sum(v[0] for k, v in kernels.items() if name in k)
-            for name in pairs}
+    seen = {name: sum(v[0] for k, v in kernels.items()
+                      if _is_kernel(name, k)) for name in pairs}
     iters = stats.get("iters")
     return dict(
         scene=scene_name, width=width, height=height,

@@ -10,7 +10,8 @@ maps, the 50/50 NEE mixture) and the forward clamp-fold, then accumulates
 the finished paths and regenerates their lanes. On the card everything
 after the scene hit is two kernels, S1 and S2 (``ops/step.py``); the torch
 composition (``path_step_plain``, ``_Wavefront.step_plain``) is their plain
-version and, under grad, the differentiable route. Scenes the megakernel
+version. The differentiable route (``path_step_grad``) is S1 with its
+backward kernel S1B, an autograd Function. Scenes the megakernel
 gate accepts skip the wavefront:
 ``render_sample_batch`` renders their whole batch in one launch of K5
 (``renderer/megakernel.py``), whose plain version runs ``path_step`` too.
@@ -391,6 +392,7 @@ def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
         atten=atten,
         new_dir=new_dir,
         tape_color=albedo,
+        albedo_tex=row["albedo_tex"],
         prob=torch.where(is_pdf, prob, 1.0),
         is_pdf=is_pdf,
         shading_normal=s_normal,
@@ -431,11 +433,24 @@ def path_step(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel, sample,
                                pixel, sample, seed, active, max_depth)
 
 
+def path_step_grad(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
+                   sample, seed, active, max_depth):
+    """``path_step`` on the differentiable route: the scene-hit kernels
+    (``step_hit``), then ``ops.step.step_shade_grad``, S1 as an autograd
+    Function whose backward is S1B (the plain versions of both on the
+    CPU). Gradients reach the fold, the texture arena and the background.
+    Same dict as ``path_step``."""
+    t, kind, idx = step_hit(cs, o, d, pixel, sample, bounce, seed)
+    return step_ops.step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len,
+                                    fold, pixel, sample, seed, active,
+                                    max_depth)
+
+
 def path_step_plain(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
                     sample, seed, active, max_depth, plain=False):
     """``path_step`` as the torch composition: ``scene_hit`` (its plain
-    version if ``plain``), then ``shade_plain``. S1's plain version, and the
-    differentiable route (autograd runs through it; S1 has no backward)."""
+    version if ``plain``), then ``shade_plain``. S1's plain version; autograd
+    through it is the reference S1B is held to."""
     t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed,
                              plain=plain)
     return shade_plain(cs, o, d, t, kind, idx, bounce, acc_len, fold, pixel,
@@ -443,9 +458,10 @@ def path_step_plain(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
 
 
 def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
-                pixel, sample, seed, active, max_depth):
+                pixel, sample, seed, active, max_depth, record=False):
     """Everything ``path_step`` does after the scene hit, in torch: S1's
-    plain version. Same dict as ``path_step``."""
+    plain version. Same dict as ``path_step``; with ``record`` it also holds
+    S1's record for the backward (``ops.step.shade_record``)."""
     finite = torch.isfinite(t)
     miss = active & ~finite
     t_safe = torch.where(finite, t, 0.0)
@@ -471,6 +487,16 @@ def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
     # fold this bounce's scatter level; reset terminal lanes
     A, B, dead, outer = fold_scatter(fold, sc["tape_color"], sc["prob"],
                                      sc["is_pdf"], scat)
+    extra = {}
+    if record:
+        dead_t = tuple(fold[2][c] | (torch.isnan(term_color[c]) & fold[3])
+                       for c in range(3))
+        row = torch.where(emit | scat, texel_index(
+            cs.textures, sc["albedo_tex"], attrs["uv"]).to(torch.int32), -1)
+        extra["record"] = step_ops.shade_record(
+            row, torch.where(scat, sc["prob"], 0.0), att, miss,
+            emit & attrs["front_face"], scat, scat & sc["is_pdf"], terminal,
+            dead_t, dead)
     fold = (tuple(torch.where(terminal, 1.0, A[c]) for c in range(3)),
             tuple(torch.where(terminal, INF, B[c]) for c in range(3)),
             tuple(torch.where(terminal, False, dead[c]) for c in range(3)),
@@ -481,7 +507,8 @@ def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
                 o=where3(scat, attrs["point"], o),
                 d=where3(scat, sc["new_dir"], d),
                 bounce=torch.where(scat, bounce + 1, bounce),
-                acc_len=torch.where(scat, total_len, acc_len), fold=fold)
+                acc_len=torch.where(scat, total_len, acc_len), fold=fold,
+                **extra)
 
 
 def _tile_swizzle(width, height):
@@ -578,10 +605,11 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     again.
 
     ``differentiable`` names the route autograd runs through: every bounce
-    is ``path_step_plain``, the torch composition, since S1 has no
-    backward. Otherwise every bounce is ``path_step`` (S1 on the card),
-    whether grad mode is on or not; S1's wrapper raises when a table it
-    reads requires grad."""
+    is ``path_step_grad``, S1 with its backward S1B, which take gradients
+    to the fold, the texture arena and the background (the plain versions
+    on the CPU). Otherwise every bounce is ``path_step`` (S1 alone on the
+    card), whether grad mode is on or not; S1's wrapper raises when a
+    table it reads requires grad."""
     sample = _lanes(sample, pix)
     zero = torch.zeros_like(o[0])
     bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
@@ -590,7 +618,7 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
                         device=zero.device)
     carry = (o, d, bounce, zero, fold_init(zero), alive, color)
 
-    step = path_step_plain if differentiable else path_step
+    step = path_step_grad if differentiable else path_step
 
     def steps(carry, n):
         o, d, bounce, acc_len, fold, alive, color = carry
@@ -729,12 +757,12 @@ GRAPH_STEPS = 2
 
 
 def _counted_wrappers():
-    """The kernel wrappers a wavefront step launches through, each with its
-    ``launches`` count: the hit kernels K1-K4, the draw kernel and the step
-    kernels S1 and S2."""
+    """The kernel wrappers a wavefront step or an inverse step launches
+    through, each with its ``launches`` count: the hit kernels K1-K4, the
+    draw kernel, the step kernels S1 and S2 and S1's backward S1B."""
     return (bvh_planar_hit, sweep.bvh_sphere_hit, sweep.media_hit,
             sweep.scene_hit, rng.uniform4, step_ops.step_shade,
-            step_ops.step_regen)
+            step_ops.step_regen, step_ops.step_shade_backward)
 
 
 def _queue_sizes(width, height, n_samples, lanes, pix_ids, n_valid):

@@ -29,10 +29,12 @@ The inverse step's cells (``step_kitchen``: the normal-mapped kitchen at
 depth 50, 1 spp, against a target at seed 2): ``diff.image_and_texture_grad``
 called once (on a tree with the graphed step, the capture), then ``RUNS``
 steps by CUDA events (the median and every run), the peak bytes of the
-first call and of a step, the allocator's reserved bytes after them, the
-kernels' launches a step, the host reads of a step (null on a tree
-without ``profiling.HostReads``), the loss and the gradient's absolute
-sum, and one step under ``torch.profiler`` (device ops, busy ms, idle).
+first call and of a step, the allocator's reserved bytes after them and
+the graph pool's resident bytes (null without a graph), the kernels'
+launches a step (S1 and its backward S1B among them, on a tree that has
+S1B), the host reads of a step (null on a tree without
+``profiling.HostReads``), the loss and the gradient's absolute sum, and
+one step under ``torch.profiler`` (device ops, busy ms, idle).
 
 ``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
 unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
@@ -234,10 +236,17 @@ def measure_step(cs, w, h):
             step()
         reads = counter.n
     prof = _profiled(step)
+    graph = diff.grad_step(cs, target, seed=SEED, **kw).graph
+    pool = None
+    if graph is not None:
+        pid = tuple(graph.pool())
+        pool = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id") or ()) == pid)
     return dict(step_ms=statistics.median(ms), runs_ms=ms,
                 first_call_s=first_s, first_call_peak_bytes=first_peak,
                 step_peak_bytes=max(peaks),
                 reserved_bytes=torch.cuda.memory_reserved(),
+                pool_bytes=pool,
                 launches=dict(zip(wrappers, seen.pop())), host_reads=reads,
                 loss=float(loss), grad_abs_sum=float(g.double().abs().sum()),
                 **prof)

@@ -544,7 +544,8 @@ def test_graphed_step_matches_eager(cuda, name):
     64x32, depth 8: the loss to rtol 1e-5, the gradient to rtol 1e-5, atol
     1e-7 (the arena's index_add_ adds with atomics); one capture for two
     calls; a replay launches each kernel as often as the eager step's
-    forward and path replay together."""
+    forward and path replay together: S1 and its backward S1B, and no
+    draw kernel."""
     from solstrale_tpu_torch import bench, diff
 
     build = {"mixed": lambda c: fixtures.mixed_bvh_scene(c, n_cells=32),
@@ -569,7 +570,9 @@ def test_graphed_step_matches_eager(cuda, name):
     want, dispatched = launched(lambda: eager.eager(cs, target))
     assert diff._GradStep.captures == captures + 1
     assert replayed == dispatched
-    assert replayed["draw"] > 0 and (replayed["K1"] or replayed["K4"])
+    # the draw kernel: the camera rays' jitter and lens, none a bounce
+    assert replayed["draw"] == 2 and (replayed["K1"] or replayed["K4"])
+    assert replayed["S1"] > replayed["S1B"] > 0
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-7)
 
@@ -711,9 +714,10 @@ def test_forward_renders_launch_s1_once_a_bounce(cuda, tmp_path):
 
 
 def test_s1_raises_where_autograd_needs_a_graph(cuda):
-    """S1 has no backward: a render on the card whose arena requires grad
-    raises unless it takes the differentiable route by name, which
-    launches no S1 and gives the gradient."""
+    """S1 alone builds no autograd graph: a render on the card whose arena
+    requires grad raises unless it takes the differentiable route by name,
+    which launches S1 a bounce in the forward and S1B a bounce in the
+    backward, and gives the gradient."""
     from solstrale_tpu_torch import diff
 
     w, h = 32, 16
@@ -724,10 +728,98 @@ def test_s1_raises_where_autograd_needs_a_graph(cuda):
     pix = torch.arange(w * h, device=cuda)
     kw = dict(width=w, height=h, max_depth=4,
               shader_kind=integrator.SHADER_PATH, need_aux=False)
-    with pytest.raises(ValueError, match="no backward"):
+    from solstrale_tpu_torch.ops import step
+
+    with pytest.raises(ValueError, match="builds no autograd graph"):
         integrator.render_pixels(leaf, pix, 1, 1, **kw)
     (color, _, _), s1, _ = _counted(lambda: integrator.render_pixels(
         leaf, pix, 1, 1, differentiable=True, **kw))
-    assert s1 == 0
+    assert s1 > 0
+    before = step.step_shade_backward.launches
     grad, = torch.autograd.grad(color.sum(), params)
+    assert step.step_shade_backward.launches - before == s1
     assert torch.isfinite(grad).all() and (grad != 0).any()
+
+
+def _numpy_fold(g, r, device):
+    """A fold from the numpy generator ``g`` with ties (A = B = 0, B = 3A),
+    NaN and infinite B and dead channels (tests/test_torch_step_grad.py's
+    ``_fold``), on ``device``."""
+    A, B = [], []
+    for _ in range(3):
+        a = torch.from_numpy(g.uniform(0.0, 2.0, r).astype(np.float32))
+        a = torch.where(torch.from_numpy(g.random(r) < 0.2), 0.0, a)
+        u = torch.from_numpy(g.random(r))
+        b = torch.from_numpy(g.uniform(0.0, 4.0, r).astype(np.float32))
+        b = torch.where(u < 0.2, 3.0 * a, b)
+        b = torch.where((u >= 0.2) & (u < 0.3), float("inf"), b)
+        b = torch.where((u >= 0.3) & (u < 0.35), float("nan"), b)
+        b = torch.where((u >= 0.35) & (u < 0.45), 0.0, b)
+        A.append(a.to(device))
+        B.append(b.to(device))
+    dead = tuple(torch.from_numpy(g.random(r) < 0.1).to(device)
+                 for _ in range(3))
+    return (tuple(A), tuple(B), dead,
+            torch.from_numpy(g.random(r) < 0.5).to(device))
+
+
+@pytest.mark.parametrize("name", list(STEP_SCENES))
+def test_s1b_matches_plain(cuda, name):
+    """S1 with its record against shade_plain(record=True), bit for bit, and
+    S1B (ops.step.step_shade_backward) against its plain version on the same
+    record and inputs: the fold's gradients bit for bit, the arena's and the
+    background's (sums of signed terms, by atomics on the card) within 1e-5
+    of the magnitudes summed into each entry (the plain backward of the
+    upstream's absolute values) and 1e-7; three chained
+    bounces of 8,192 lanes at depth cap 2, folds and upstream gradients
+    from a numpy seed; one S1B launch a call."""
+    from solstrale_tpu_torch.ops import step
+
+    w, h, depth = 128, 64, 2
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    g = np.random.default_rng(7)
+    pix = torch.arange(w * h, device=cuda)
+    r = pix.shape[0]
+    sample = torch.ones_like(pix)
+    o, d = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    bounce = torch.from_numpy(g.integers(0, depth + 1, r).astype(
+        np.int32)).to(cuda)
+    acc_len = torch.zeros(r, device=cuda)
+    active = torch.from_numpy(g.random(r) > 0.1).to(cuda)
+    arena, bg = cs.textures.pixels, cs.bg_color
+    for _ in range(3):
+        A, B, dead, outer = _numpy_fold(g, r, cuda)
+        t, kind, idx = integrator.step_hit(cs, o, d, pix, sample, bounce, 1)
+        kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
+            cs.solids, idx)
+        fold = (A, B, dead, outer)
+        args = (bounce, acc_len, fold, pix, sample, 1, active, depth)
+        got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args)
+        want = integrator.shade_plain(cs, o, d, t, kp, ip, *args,
+                                      record=True)
+        assert torch.equal(rec, want["record"])
+        for k in ("color",) + step.FLAGS:
+            assert _same(got[k], want[k]), k
+        for k, a, b in zip(step.LANE_ARRAYS, step.lane_arrays(got),
+                           step.lane_arrays(want)):
+            assert _same(a, b), k
+        g_color = torch.from_numpy(g.normal(size=(r, 3)).astype(
+            np.float32)).to(cuda)
+        g_out = [torch.from_numpy(g.normal(size=r).astype(np.float32)).to(
+            cuda) for _ in range(6)]
+        before = step.step_shade_backward.launches
+        k_arena, k_bg, k_ab = step.step_shade_backward(
+            rec, (*A, *B), arena, bg, g_color, g_out)
+        assert step.step_shade_backward.launches == before + 1
+        p_arena, p_bg, p_ab = step.step_shade_backward_plain(
+            rec, (*A, *B), arena, bg, g_color, g_out)
+        for a, b in zip(k_ab, p_ab):
+            assert _same(a, b)
+        s_arena, s_bg, _ = step.step_shade_backward_plain(
+            rec, (*A, *B), arena, bg, g_color.abs(), [x.abs() for x in g_out])
+        for got_, want_, scale in ((k_arena, p_arena, s_arena),
+                                   (k_bg, p_bg, s_bg)):
+            assert ((got_ - want_).abs() <= 1e-5 * scale + 1e-7).all()
+        o, d = want["o"], want["d"]
+        bounce, acc_len = want["bounce"], want["acc_len"]

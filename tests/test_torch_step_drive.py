@@ -254,7 +254,11 @@ def _enum(src, name):
                                        "SV_SAMPLE": "sample_size",
                                        "SV_SEED": "seed_size"}),
     ("RegenPtr", "RP_", S.REGEN_PTRS, {"RP_POOL": "pool_o0"}),
-    ("RegenInt", "RV_", S.REGEN_INTS, {})])
+    ("RegenInt", "RV_", S.REGEN_INTS, {}),
+    ("BackPtr", "BP_", S.BACK_PTRS, {"BP_IN": "in_a0",
+                                     "BP_G_OUT": "g_out_a0",
+                                     "BP_G_IN": "g_in_a0"}),
+    ("BackInt", "BV_", S.BACK_INTS, {})])
 def test_kernel_argument_names(enum, prefix, names, groups):
     """The wrappers fill the kernels' argument arrays by the names of
     ops/step.py, at the indices csrc/step.cu's enums give them: each
@@ -288,14 +292,15 @@ def test_wrappers_refuse_other_devices():
 
 def test_trace_takes_the_differentiable_route_under_grad(monkeypatch):
     """trace runs path_step (S1 on the card) whether grad mode is on or
-    not, and the torch composition path_step_plain (autograd's route: S1
-    has no backward) only when asked by name, differentiable=True, as
-    diff's renders ask; same colors, and the gradient reaches the arena."""
+    not, and path_step_grad (S1 with its backward S1B; on the CPU their
+    plain versions) only when asked by name, differentiable=True, as
+    diff's renders ask; same colors, and the gradient reaches the arena
+    through S1B's plain version, once a bounce that shades a lane."""
     cs = _cs("kitchen")
     pix = torch.arange(W * H, dtype=torch.int64)
     _, o, d = TI.camera_rays(cs, pix, W, H, 1, SEED)
     calls = []
-    for fn in ("path_step", "path_step_plain"):
+    for fn in ("path_step", "path_step_grad", "path_step_plain"):
         orig = getattr(TI, fn)
         monkeypatch.setattr(TI, fn, lambda *a, _f=orig, _n=fn, **k: (
             calls.append(_n), _f(*a, **k))[1])
@@ -311,10 +316,14 @@ def test_trace_takes_the_differentiable_route_under_grad(monkeypatch):
     from solstrale_tpu_torch import diff
     color = TI.trace(diff.set_texture_params(cs, params), o, d, pix, 1,
                      SEED, 6, differentiable=True)
-    assert set(calls) == {"path_step_plain"}
+    assert set(calls) == {"path_step_grad"}
     assert torch.equal(color.detach(), plain)
+    backward = S.step_shade_backward_plain
+    monkeypatch.setattr(S, "step_shade_backward_plain", lambda *a, **k: (
+        calls.append("backward"), backward(*a, **k))[1])
     grad, = torch.autograd.grad(color.sum(), params)
     assert grad.abs().sum() > 0
+    assert calls.count("backward") == calls.count("path_step_grad") > 1
 
 
 def test_needs_grad_reads_the_lanes_and_every_table():
