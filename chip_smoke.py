@@ -33,8 +33,9 @@ script exits non-zero):
      kernel a call, timed at 131,072 lanes against its byte bound;
   2c. the wavefront step's kernels (``csrc/step.cu``): S1
      (``ops.step.step_shade``, the shading, the fold and the flags) and S2
-     (``ops.step.step_regen``, the rows, the queue and the regeneration)
-     against their plain versions (``integrator.shade_plain``,
+     (``ops.step.step_regen``, the scan of the terminal flags, the rows,
+     the queue and the regeneration) against their plain versions
+     (``integrator.shade_plain``,
      ``_Wavefront.step_plain`` / ``reset_plain``) bit for bit at the wide
      pool's 131,072 lanes on six scenes (the interior, the textured
      sponza, production, many_lights, the mixed scene at depth 4, the
@@ -45,9 +46,16 @@ script exits non-zero):
      (``ops.step.step_shade_backward``, the differentiable route's
      backward) against ``step_shade_backward_plain`` on that record and
      upstream gradients from a seed: the fold's gradients bit for bit, the
-     arena's and the background's within rtol 1e-5, atol 1e-7; each
-     kernel's device, wrapper and plain time against its byte bound (S1B's
-     on the mixed scene's record);
+     arena's and the background's within rtol 1e-5, atol 1e-7; S2 alone
+     against ``regen_plain`` on edge pools (20,000 and 131,149 lanes, no
+     multiple of its block; 16,384 and 131,072; random flags, every
+     active lane terminal, none), three calls each; one captured step
+     replayed 8 times against as many plain steps; each kernel's device,
+     wrapper and plain time against its byte bound (S1B's on the mixed
+     scene's record); S1's and S2's device time and bound at 16,384,
+     131,072 and 2,073,600 lanes and ptxas' registers and spills of the
+     step kernels; S1 and the step on a seventh scene, whose small tables
+     are too large to stage in shared memory, chained as on the six;
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -68,9 +76,9 @@ script exits non-zero):
      medium sweep shares, the persistent grid), and K5 against ``trace_queued`` (the K4 route) at
      1920x1080x1;
   3e. ``trace_queued``'s card driver (CUDA graph replays of
-     ``integrator.GRAPH_STEPS`` steps of the hit kernels, S1, the scan and
-     S2, one stop read a replay) against its eager driver (the plain step)
-     bit for bit, image and segments: sponza 1080p (its recorded
+     ``integrator.GRAPH_STEPS`` steps of the hit kernels, S1 and S2 (its
+     scan inside), one stop read a replay) against the eager loop (the
+     plain step) bit for bit, image and segments: sponza 1080p (its recorded
      segments), the textured sponza, production, many_lights, the mixed
      scene (K1-K3) and the normal-mapped kitchen (K4) at 400x266x8; one
      capture replayed at two sample_starts, a second seed its own capture,
@@ -234,8 +242,14 @@ S2_REGEN = 46
 # times m, albedo m, g_p times it, g_A's three sums less one, g_B's sum),
 # and the albedo gradient's sum 1; the block sum of g_bg 3 a lane
 S1B_LANE = 3 * 18 + 3
-# the lanes of the step kernels' checks and times: the wide pool's
+# the lanes of the step kernels' checks and times: the wide pool's; phase
+# 2c's scenes (``_wavefront_scene``) and the widths its S1 and S2 are timed
+# at besides (the tail pool's, and a 1080p render_pixels', the inverse
+# step's)
 STEP_LANES = 131072
+STEP_SCENES = ("sponza", "sponza_textured", "sponza_production",
+               "many_lights", "mixed", "kitchen")
+STEP_WIDTHS = (16384, 131072, 2073600)
 # chained steps checked per scene in phase 2c
 STEP_BOUNCES = 6
 
@@ -737,8 +751,10 @@ def _wavefront_scene(name, sponza_cs=None):
     """(cs, width, height, spp) of a wavefront scene of phases 2c and 3e,
     compiled once: ``sponza`` (the main path's untextured interior, 1080p),
     the bench's ``sponza_textured``, ``sponza_production`` (1080p) and
-    ``many_lights`` (960x540), ``mixed`` (K1-K3, 1080p) and the normal-mapped
-    ``kitchen`` (K4, 400x266x8)."""
+    ``many_lights`` (960x540), ``mixed`` (K1-K3, 1080p), the normal-mapped
+    ``kitchen`` (K4, 400x266x8) and ``many_materials`` (K1, 640x360: the
+    1,152 tiles of ``fixtures.many_material_scene``, whose small tables S1
+    reads from device memory)."""
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import bench, fixtures
     from solstrale_tpu_torch.scene.compile import compile_scene
@@ -746,7 +762,11 @@ def _wavefront_scene(name, sponza_cs=None):
     if name == "sponza":
         return sponza_cs, 1920, 1080, 1
     if name not in _SCENES:
-        if name == "mixed":
+        if name == "many_materials":
+            cs = compile_scene(fixtures.many_material_scene(T.RenderConfig(
+                width=640, height=360, seed=1)), device="cuda")
+            _SCENES[name] = (cs, 640, 360, 1)
+        elif name == "mixed":
             cs = compile_scene(fixtures.mixed_bvh_scene(T.RenderConfig(
                 width=1920, height=1080, seed=1), n_cells=362), device="cuda")
             _SCENES[name] = (cs, 1920, 1080, 1)
@@ -795,25 +815,39 @@ def _same_wavefront(wk, wp):
     return bad
 
 
-def _s1_work(cs, st, kind, idx, r):
-    """S1's bytes (the lane arrays in and out, the hit, the counters, the
-    flags and colors, the distinct attribute rows the lanes read and the
-    small tables whole; texel rows not counted) and f32 operations on one
-    call's inputs and results ``st``."""
+def _s1_work(cs, hit, st, r):
+    """S1's bytes and f32 operations on one call's hit (t, kind, idx as S1
+    takes them: no kind where idx is K1's planar slot) and results ``st``.
+    Bytes: per lane the hit (``kind`` only where given), the counters, the
+    active flag, the lane arrays in and out, the color and the flags; the
+    distinct attribute rows the lanes read (on K1's slot, each slot's entry
+    of ``pl_row`` too) and the small tables whole; texel rows not
+    counted."""
     import torch
     from solstrale_tpu_torch.ops import step
-    from solstrale_tpu_torch.scene.compile import (KIND_QUAD, KIND_SPHERE,
+    from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
                                                    KIND_TRIANGLE)
 
     tab = step.step_tables(cs)
-    planar = (kind == KIND_QUAD) | (kind == KIND_TRIANGLE)
-    slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
-    rows = (int(torch.unique(slot[planar]).numel()) * 112
-            + int(torch.unique(idx[kind == KIND_SPHERE]).numel()) * 32)
-    lane = (4 * 3 + 8 + 8 + 1          # t kind idx, pixel sample, active
+    _, kind, idx = hit
+    n_pl = tab.pln.shape[0]
+    if kind is None:
+        # S1 maps every lane's clamped slot to its row through pl_row
+        ps = idx.clamp(0, max(n_pl - 1, 0))
+        rows = int(torch.unique(ps).numel()) * (112 + 4) if n_pl else 0
+        lane_hit = 4 * 2
+    else:
+        sph = (kind == KIND_SPHERE) & bool(tab.flags & step.FLAG_SPHERES)
+        pl = ~sph & ~((kind == KIND_MEDIUM) & (tab.med_mat.shape[0] > 0))
+        slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
+        slot = slot.clamp(0, max(n_pl - 1, 0))
+        rows = ((int(torch.unique(slot[pl]).numel()) * 112 if n_pl else 0)
+                + int(torch.unique(idx[sph]).numel()) * 32)
+        lane_hit = 4 * 3
+    lane = (lane_hit + 8 + 8 + 1       # t (kind) idx, pixel sample, active
             + 2 * (4 * 14 + 4)         # the lane arrays in and out
             + 12 + 6)                  # color, flags
-    small = nbytes(tab.mats, tab.lights, tab.tex_attr, tab.cam, tab.med_mat)
+    small = nbytes(tab.small, tab.med_mat)
     scat, pdf = st["scat"], st["scat"] & st["is_pdf"]
     hits = int((st["emit"] | scat).sum())
     light = sum(K5_LIGHT[k] for k in cs.light_kinds)
@@ -823,71 +857,181 @@ def _s1_work(cs, st, kind, idx, r):
     return r * lane + rows + small, flops
 
 
+def _s2_work(cs, r, n_term):
+    """S2's bytes and f32 operations on ``r`` lanes of which ``n_term``
+    end: per lane its queue position and terminal flag (9 B); per lane it
+    regenerates the color read and its row written (24), the queue
+    position, pixel and sample ids (24), the ray (24), bounce and acc_len
+    (8); a status word a block (8), the camera row, and the queue head,
+    segment count and ticket read and written once; the camera ray of each
+    regenerated lane."""
+    from solstrale_tpu_torch.ops import step
+
+    words = step.scan_words(r)
+    return (9 * r + 80 * n_term + 8 * words
+            + nbytes(step.step_tables(cs).cam) + 2 * (8 + 8 + 8),
+            S2_REGEN * n_term)
+
+
 def _step_times(cs, w, h, spp, depth):
-    """S1 and S2 timed on the wide pool after two plain steps: S1 in
-    path_step's form (new outputs) against ``shade_plain``; S2 on S1's
-    flags and the scan (idempotent once the queue head is put back before
-    each call; that 8-byte copy's own time is subtracted) against
-    ``regen_plain``. Returns their kernels-line rows."""
-    import torch
-    from solstrale_tpu_torch.ops import bvh, step
+    """S1 and S2 timed on the wide pool after two plain steps
+    (``wavefront_ab.step_kernel_calls``): S1 in path_step's form (new
+    outputs) against ``shade_plain``; S2, its scan of S1's flags inside,
+    on those flags (idempotent once the queue head is put back before each
+    call; that 8-byte copy's own time is subtracted) against
+    ``regen_plain``; S1B on the pool's next hit. Returns their
+    kernels-line rows."""
+    from solstrale_tpu_torch import wavefront_ab
+    from solstrale_tpu_torch.ops import bvh
     from solstrale_tpu_torch.renderer import integrator
 
-    wf = integrator._Wavefront(cs.device, w, h, depth, spp, 1, STEP_LANES,
-                               None, None)
-    wf.begin(1, None)
-    wf.reset_plain(cs, wf.pools[0])
-    pool = wf.pools[0]
-    for _ in range(2):
-        wf.step_plain(cs, pool)
     r = STEP_LANES
-    t, kind, idx = integrator.step_hit(cs, pool.o, pool.d, pool.pixel,
-                                       pool.sample, pool.bounce, 1)
+    c = wavefront_ab.step_kernel_calls(cs, w, h, spp, r, depth)
+    wf, pool, (t, kind, idx), args = c["wf"], c["pool"], c["hit"], c["args"]
     kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
         cs.solids, idx)
-    active = pool.qpos < wf.total_q
-    args = (pool.o, pool.d, pool.bounce, pool.acc_len, pool.fold, pool.pixel,
-            pool.sample, 1, active, depth)
-    st = integrator.shade_plain(cs, pool.o, pool.d, t, kp, ip, *args[2:])
-    s1 = kernel_times(
-        lambda: step.step_shade(cs, t, kind, idx, *args),
-        lambda: integrator.shade_plain(cs, pool.o, pool.d, t, kp, ip,
-                                       *args[2:]))
-    s1.update(bound(*_s1_work(cs, st, kp, ip, r)))
-    # S1 in place, then S2 on its flags
-    step.step_shade(cs, t, kind, idx, pool.o, pool.d, pool.bounce,
-                    pool.acc_len, pool.fold, pool.pixel, pool.sample, 1,
-                    (pool.qpos, wf.total_q), depth, out=pool.shade_out())
-    term = pool.terminal.clone()
-    rank = torch.cumsum(term, 0)
-    head = wf.next_q.clone()
+    s1 = kernel_times(c["s1"], lambda: integrator.shade_plain(
+        cs, c["o"], c["d"], t, kp, ip, *args))
+    s1.update(bound(*_s1_work(cs, c["hit"], c["shaded"], r)))
+    term = c["terminal"]
     n_term = int(term.sum())
-    if int(head) + n_term > wf.total_q:
+    if int(wf.next_q) + n_term > wf.total_q:
         raise AssertionError("step times: the queue runs out, so repeated "
                              "regenerations would not repeat")
 
-    def restore():
-        wf.next_q.copy_(head)
-
-    def s2():
-        restore()
-        step.step_regen(cs, wf, pool, term, rank)
-
     def s2_plain():
-        restore()
+        c["restore"]()
         wf.regen_plain(cs, pool, pool.color, term)
 
-    base = kernel_times(restore, restore)
-    s2t = kernel_times(s2, s2_plain)
+    base = kernel_times(c["restore"], c["restore"])
+    s2t = kernel_times(c["s2"], s2_plain)
     for k in ("ms", "wrapper_ms", "plain_ms"):
         s2t[k] -= base[k]
-    s2t.update(bound(9 * r + 104 * n_term, S2_REGEN * n_term))
+    s2t.update(bound(*_s2_work(cs, r, n_term)))
     s1b = _s1b_times(cs, integrator.step_hit(cs, pool.o, pool.d, pool.pixel,
                                              pool.sample, pool.bounce, 1),
-                     pool, active, depth)
+                     pool, args[-2], depth)
     return dict(s1=dict(max_abs_err=0.0, **s1),
                 s2=dict(max_abs_err=0.0, **s2t), s1b=s1b,
                 terminal_lanes=n_term)
+
+
+def _width_times(cs, w, h, spp, lanes):
+    """S1's and S2's device ms and bound at ``lanes`` lanes (depth 50), as
+    ``_step_times`` sets them up."""
+    from solstrale_tpu_torch import wavefront_ab
+
+    c = wavefront_ab.step_kernel_calls(cs, w, h, spp, lanes)
+    n_term = int(c["terminal"].sum())
+    restore = device_ms(c["restore"])
+    return dict(
+        s1=dict(ms=device_ms(c["s1"]),
+                **bound(*_s1_work(cs, c["hit"], c["shaded"], lanes))),
+        s2=dict(ms=device_ms(c["s2"]) - restore, restore_ms=restore,
+                **bound(*_s2_work(cs, lanes, n_term))),
+        terminal_lanes=n_term)
+
+
+def _ptxas(log):
+    """ptxas' lines for the step kernels in a build log: each entry's
+    name, then its stack, spills and registers."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = "step_" in ln
+            if keep:
+                out.append(ln.split("'")[1] if "'" in ln else ln)
+        elif keep and ("registers" in ln or "spill" in ln
+                       or "stack frame" in ln):
+            out.append(ln.split("ptxas info    :")[-1].strip())
+    return out
+
+
+# S2's edge pools of phase 2c: (lanes, flags) with lanes no multiple of its
+# block or the tail pool's width, every active lane terminal, or none
+S2_EDGES = ((20000, "ragged"), (131149, "all"), (16384, "none"),
+            (131072, "ragged"))
+# replays of one captured step held to as many plain steps in phase 2c
+STEP_REPLAYS = 8
+
+
+def _s2_edges(cs, w, h):
+    """S2 with its in-kernel scan against ``regen_plain`` bit for bit on
+    ``S2_EDGES``: two wavefronts in one state (reset and one plain step),
+    then three calls each on the last one's state, with flags from a seed
+    (random, every active lane, none) and random colors; after each the
+    pool, the rows, the queue head and the segments equal, the ticket back
+    at 0 and the launch counted. Returns the terminal lanes of each
+    call."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+    from solstrale_tpu_torch.renderer import integrator
+
+    out = {}
+    for lanes, case in S2_EDGES:
+        spp = -(-3 * lanes // (w * h)) + 1
+        wk, wp = (integrator._Wavefront(cs.device, w, h, 50, spp, 1, lanes,
+                                        None, None) for _ in range(2))
+        for wf in (wk, wp):
+            wf.begin(1, None)
+            wf.reset_plain(cs, wf.pools[0])
+            wf.step_plain(cs, wf.pools[0])
+        pk, pp = wk.pools[0], wp.pools[0]
+        gen = torch.Generator(device="cuda").manual_seed(lanes)
+        seen = []
+        for k in range(3):
+            active = pp.qpos < wp.total_q
+            if case == "ragged":
+                term = torch.rand(lanes, generator=gen, device="cuda") < 0.3
+            else:
+                term = torch.full((lanes,), case == "all", device="cuda")
+            term &= active
+            color = torch.rand((lanes, 3), generator=gen, device="cuda")
+            pk.color.copy_(color)
+            pp.color.copy_(color)
+            step.step_regen(cs, wk, pk, term.clone())
+            wp.regen_plain(cs, pp, color, term)
+            bad = _same_wavefront(wk, wp)
+            if wk.ticket.tolist() != [0, k + 1]:
+                bad.append(f"ticket {wk.ticket.tolist()}")
+            if bad:
+                raise AssertionError(f"S2 ({lanes} lanes, {case}, call {k}) "
+                                     f"differs from regen_plain in {bad}")
+            seen.append(int(term.sum()))
+        out[f"{lanes}_{case}"] = seen
+    return out
+
+
+def _replayed_steps(cs, w, h, spp, depth):
+    """One ``_Wavefront.step`` (the hit kernels, S1 and S2 with its scan)
+    captured as a CUDA graph after a warm-up step, replayed
+    ``STEP_REPLAYS`` times, each replay held bit for bit to a plain step
+    (``step_plain``) of a twin wavefront: the pool, the rows, the queue
+    head, the segments (so the scan's ticket comes back to 0 and its
+    launch count moves on inside a graph, as the kernel promises)."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    wk, wp = (integrator._Wavefront(cs.device, w, h, depth, spp, 1,
+                                    STEP_LANES, None, None)
+              for _ in range(2))
+    wk.reset(cs, 1, None)
+    wp.begin(1, None)
+    wp.reset_plain(cs, wp.pools[0])
+    pk, pp = wk.pools[0], wp.pools[0]
+    integrator.warm_up(cs.device, lambda: wk.step(cs, pk))
+    wp.step_plain(cs, pp)
+    graph, counts = integrator.capture_counted(lambda: wk.step(cs, pk))
+    for k in range(STEP_REPLAYS):
+        integrator.replay_counted(graph, counts)
+        wp.step_plain(cs, pp)
+        bad = _same_wavefront(wk, wp)
+        if bad:
+            raise AssertionError(f"replay {k} of a captured step differs "
+                                 f"from step_plain in {bad}")
+    torch.cuda.synchronize()
+    return dict(replays=STEP_REPLAYS, next_q=int(wk.next_q),
+                segments=int(wk.segments))
 
 
 def _upstream(r, seed):
@@ -1006,30 +1150,43 @@ def _s1b_times(cs, hit, pool, active, depth):
 
 def phase_step(sponza_cs):
     """2c: the wavefront step's kernels S1 (``ops.step.step_shade``) and S2
-    (``ops.step.step_regen``) against their plain versions at the wide
-    pool's 131,072 lanes on six scenes (the main path's interior, the
-    textured sponza, production, many_lights, the mixed scene, the
-    normal-mapped kitchen on K4): S2's reset mode against ``reset_plain``,
-    then ``STEP_BOUNCES`` chained steps, each S1 alone against
-    ``shade_plain`` on the same inputs (every output: colors, the six
-    flags, the lane state) and the whole step (``_Wavefront.step``: the hit
-    kernels, S1 in place, the scan, S2) against ``step_plain`` (the pool,
-    the accumulation rows, the queue head, the segments), all bit for bit;
-    at each step too S1 with its record and S1B against their plain
-    versions (``_s1b_check``); the kitchen and the mixed scene at depth 4,
-    so that the depth cap ends paths. Then each kernel's device, wrapper
-    and plain time against its bound on each scene. Returns the rows of
-    the kernels line: S1's and S2's of the main path's interior, S1B's of
-    the mixed scene (the inverse step's cell on K1-K3)."""
+    (``ops.step.step_regen``, its scan of the terminal flags inside)
+    against their plain versions at the wide pool's 131,072 lanes on six
+    scenes (``STEP_SCENES``: the main path's interior, the textured
+    sponza, production, many_lights, the mixed scene, the normal-mapped
+    kitchen on K4), and on a seventh whose small tables are too large to
+    stage (``many_materials``, which takes S1's route that reads them from
+    device memory): S2's reset mode against ``reset_plain``, then
+    ``STEP_BOUNCES`` chained steps, each S1 alone against ``shade_plain``
+    on the same inputs (every output: colors, the six flags, the lane
+    state) and the whole step (``_Wavefront.step``: the hit kernels, S1 in
+    place, S2) against ``step_plain`` (the pool, the accumulation rows, the
+    queue head, the segments), all bit for bit; at each step too S1 with
+    its record and S1B against their plain versions (``_s1b_check``); the
+    kitchen and the mixed scene at depth 4, so that the depth cap ends
+    paths. Then, on the six, S2 alone against ``regen_plain`` on its edge
+    pools
+    (``_s2_edges``), a captured step's replays against plain steps
+    (``_replayed_steps``), each kernel's device, wrapper and plain time
+    against its bound, and S1's and S2's device time and bound at
+    ``STEP_WIDTHS`` (16,384, 131,072 and 2,073,600 lanes); the log
+    carries ptxas' registers, stack and spills of the step kernels.
+    Returns the rows of the kernels line: S1's and S2's of the main path's
+    interior, S1B's of the mixed scene (the inverse step's cell on
+    K1-K3)."""
     import torch
-    from solstrale_tpu_torch.ops import bvh, step
+    from solstrale_tpu_torch.ops import _build, bvh, step
     from solstrale_tpu_torch.renderer import integrator
 
     start = time.perf_counter()
     out, rows = {}, None
-    for name in ("sponza", "sponza_textured", "sponza_production",
-                 "many_lights", "mixed", "kitchen"):
+    for name in (*STEP_SCENES, "many_materials"):
         cs, w, h, spp = _wavefront_scene(name, sponza_cs)
+        staged = step.stage_floats(step.step_tables(cs)) > 0
+        if staged != (name != "many_materials"):
+            raise AssertionError(f"step ({name}): S1 would "
+                                 f"{'' if staged else 'not '}stage its "
+                                 f"small tables")
         depth = 4 if name in ("mixed", "kitchen") else 50
         wk, wp = (integrator._Wavefront(cs.device, w, h, depth, spp, 1,
                                         STEP_LANES, None, None)
@@ -1077,15 +1234,32 @@ def phase_step(sponza_cs):
                                      f"step differs from step_plain in {bad}")
         if name in ("mixed", "kitchen") and counts["capped"] == 0:
             raise AssertionError(f"step ({name}): no lane met the depth cap")
+        if not staged:
+            out[name] = dict(depth=depth, bounces=STEP_BOUNCES,
+                             segments=counts, s1b_check=s1b_seen,
+                             small_bytes=nbytes(step.step_tables(cs).small))
+            continue
+        edges = _s2_edges(cs, w, h)
+        replays = _replayed_steps(cs, w, h, spp, depth)
         times = _step_times(cs, w, h, spp, 50)
         if name == "sponza":
             rows = {"S1": times["s1"], "S2": times["s2"]}
+        widths = {lanes: _width_times(cs, w, h, spp, lanes)
+                  if lanes != STEP_LANES else
+                  dict(s1={k: times["s1"][k] for k in ("ms", "bound_ms",
+                                                       "bound_by")},
+                       s2={k: times["s2"][k] for k in ("ms", "bound_ms",
+                                                       "bound_by")},
+                       terminal_lanes=times["terminal_lanes"])
+                  for lanes in STEP_WIDTHS}
         out[name] = dict(depth=depth, bounces=STEP_BOUNCES, segments=counts,
-                         s1b_check=s1b_seen, **times)
+                         s1b_check=s1b_seen, s2_edges=edges,
+                         graph_replays=replays, widths=widths, **times)
     # S1B's row: the mixed scene, the inverse step's cell on K1-K3
     rows["S1B"] = out["mixed"]["s1b"]
     torch.cuda.synchronize()
     log("step", lanes=STEP_LANES, bit_equal=True,
+        ptxas=_ptxas(_build.BuildInfo.log),
         seconds=time.perf_counter() - start, **out)
     return rows
 
@@ -1100,8 +1274,8 @@ def _graph_entries(cs):
 
 def phase_graphs(sponza_cs):
     """3e: trace_queued's card driver (each pool's GRAPH_STEPS steps and
-    stop test replayed as one CUDA graph: the hit kernels, S1, the scan and
-    S2 a step) against its eager driver (the plain step,
+    stop test replayed as one CUDA graph: the hit kernels, S1 and S2 a
+    step) against the eager loop (the plain step,
     ``_Wavefront.step_plain``), bit for bit (image and segments), on sponza
     1080p (its recorded segments), the textured sponza, production,
     many_lights, the mixed scene (K1-K3) and the normal-mapped kitchen (K4,

@@ -233,7 +233,11 @@ __device__ __forceinline__ V3 sample_texture(const Scene& sc, int tex_id,
 // kMeanUnrollMax lights the plain version takes each light's pdf from the
 // batched (R, L) table (intersect.light_pdf_values), which counts a planar
 // light only where its t is finite; below, an accepted infinite t counts.
-static __device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
+// kSkipMisses (S1's form): a light the direction cannot hit (a sphere's
+// negative discriminant, a planar light's failed test) adds its 0 without
+// the divisions and square roots of its pdf; the sum is the same bits.
+template <bool kSkipMisses = false>
+__device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
   const bool batched = sc.n_light > kMeanUnrollMax;
   const float dd = dot(d, d);
   float acc = 0.0f;
@@ -248,6 +252,10 @@ static __device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
       const float dist_sq = dot(oc, oc);
       const float c2 = dist_sq - radius * radius;
       const float disc = half_b * half_b - dd * c2;
+      if (kSkipMisses && !(disc >= 0.0f)) {
+        acc = acc + 0.0f;
+        continue;
+      }
       const float sq = sqrtf(clamp_min(disc, 0.0f));
       const float r1 = (-half_b - sq) / dd;
       const float r2 = (-half_b + sq) / dd;
@@ -290,6 +298,10 @@ static __device__ float light_pdf_mean(const Scene& sc, V3 o, V3 d) {
            (t_pl >= hit::kRayTMin && t_pl <= CUDART_INF_F);
     }
     if (batched) ok = ok && isfinite(t_pl);
+    if (kSkipMisses && !ok) {
+      acc = acc + 0.0f;
+      continue;
+    }
     const float cos_planar = fabsf(denom) / sqrtf(dd);
     acc = acc + (ok ? t_pl * t_pl * dd / (cos_planar * L[18]) : 0.0f);
   }

@@ -1,8 +1,7 @@
 // The wavefront step's shading and regeneration: S1 (step_shade) and S2
 // (step_regen), the body of renderer/integrator.py::_Wavefront.step around
-// the scene-hit kernels (K1-K3 or K4) and one exclusive scan; and S1's
-// backward, S1B (step_shade_backward), the differentiable route's reverse
-// of a bounce.
+// the scene-hit kernels (K1-K3 or K4); and S1's backward, S1B
+// (step_shade_backward), the differentiable route's reverse of a bounce.
 //
 // Replaces the step body of the JAX package's one-program wavefront
 // (solstrale_tpu/renderer/integrator.py:765-836, one_step inside
@@ -17,8 +16,8 @@
 //   normal with its normal map, the texture lookup, the 50/50 NEE mixture,
 //   metal fuzz, dielectric), the terminal classification and the fold
 //   (fold_resolve, fold_scatter, the reset of terminal lanes);
-// - S2: integrator._Wavefront.regen_plain, the rest of the step after the
-//   scan of the terminal flags: the finished colors into their
+// - S2: integrator._Wavefront.regen_plain, the rest of the step: the
+//   exclusive scan of the terminal flags, the finished colors into their
 //   accumulation rows, the next queue positions and their camera rays
 //   (parked lanes with a zero direction), the write-back of the pool, and
 //   the segment and queue counters; with ``reset`` set, the pool's first
@@ -29,7 +28,8 @@
 // versions' expression for expression (shade.cuh; -fmad=false), so the
 // kernels return their values bit for bit on the card; the plain versions
 // run every branch for every lane and select, the kernels run the branch a
-// lane takes.
+// lane takes (and S1's light pdf skips the divisions of a light the
+// direction misses, whose term is 0 either way).
 //
 // S1B replaces the transpose of the bounce body that XLA fuses under
 // jax.value_and_grad in the JAX package's inverse step
@@ -40,25 +40,35 @@
 // the attenuation and the branch flags) and S1B reads it back with the
 // fold's A and B, so the backward re-evaluates none of the shading.
 //
-// What bounds them: bytes. S1 reads a lane's ~100 bytes of state and hit,
-// one attribute row (112 bytes for a planar prim) and a few material,
-// texel and light rows, and writes ~80 bytes; its arithmetic (a few hundred
+// What bounds them. S1 reads a lane's ~100 bytes of state and hit, one
+// attribute row (112 bytes for a planar prim) and a few material, texel
+// and light rows, and writes ~80 bytes; its arithmetic (a few hundred
 // flops and ~10 transcendentals, plus ~60 flops a light for the NEE pdf)
 // is under the byte time at the card's f32 rate except with many lights.
-// The lane state is structure-of-arrays, so a warp's loads and stores of
-// it coalesce; the attribute tables are read through const __restrict__
-// pointers with no cap on their size (sponza's 262,092 planar rows). S2
-// reads ~30 bytes a lane and writes ~80 bytes for each lane that ends.
-// S1B reads 88 bytes a lane (record, fold, upstream gradients) and one
-// texel row, and writes 24; its arena gradient is an atomic add into the
-// texel row a lane read, which serialises where many lanes read one texel
-// (a solid colour), so a warp adds one sum for each row its lanes read.
+// At the wavefront's widths what holds it back is latency: the launch must
+// fit on the card in one wave, and each lane walks a chain of dependent
+// loads (slot, row, material, texture, texel). So S1 is compiled to 64
+// registers (8 blocks of 128 an SM: the wide pool's 1,024 blocks in one
+// wave) by reading the fold only after the scatter (it is not live across
+// the NEE block); K1's slot goes to its attribute row through one (P,)
+// map; and a block stages the small tables (camera, materials, texture
+// attributes, lights) in shared memory with cp.async. The lane state is
+// structure-of-arrays, so a warp's loads and stores of it coalesce; the
+// attribute tables are read through const __restrict__ pointers with no
+// cap on their size (sponza's 262,092 planar rows). S2 reads ~30 bytes a
+// lane and writes ~80 bytes for each lane that ends; it is latency too:
+// its scan is one pass (decoupled look-back, no second launch), and its
+// queue arithmetic has no 64-bit division. S1B reads 88 bytes a lane
+// (record, fold, upstream gradients) and one texel row, and writes 24; its
+// arena gradient is an atomic add into the texel row a lane read, which
+// serialises where many lanes read one texel (a solid colour), so a warp
+// adds one sum for each row its lanes read.
 //
 // The wavefront passes its pool as both the input and the output of S1
-// (the update is in place): a thread reads its lane's whole state before
-// it writes any of it, and no thread reads another lane's. S2 updates the
-// queue head (next_q) after every block has read it: the last block to
-// finish (a counter of finished blocks, reset by that block) writes it.
+// (the update is in place): a thread reads each array of its lane's state
+// before it writes that array, and no thread reads another lane's. S2
+// reads the queue head once a block; the block with the last ticket writes
+// the new head after its look-back has seen every block's status word.
 #include <cstdint>
 
 #include "hit.cuh"
@@ -68,7 +78,12 @@ namespace {
 
 using namespace shade;
 
+// S1's block and the blocks an SM it is compiled to keep resident
+// (__launch_bounds__: 64 registers, no spills; chosen on the H100 by a
+// sweep of block sizes and minimums, PERF.md)
 constexpr int kShadeThreads = 128;
+constexpr int kShadeMinBlocks = 8;
+constexpr int kBackThreads = 128;
 constexpr int kRegenThreads = 256;
 
 // hit kinds (scene/compile.py) and the step's flag bits (ops/step.py;
@@ -100,8 +115,9 @@ struct Shade {
   const float* __restrict__ pln;   // (P, 28) pl_attr
   int n_pl;
   int n_q;                         // quads: the planar rows before triangles
-  const int* __restrict__ pl_idx;  // (P,): decodes K1's slot
-  const bool* __restrict__ pl_is_tri;
+  const int* __restrict__ pl_row;  // (P,) K1's slot -> its pln row
+  const float* small;              // the packed small tables sc points into
+  int stage_floats;                // staged in shared memory (0: none)
   const int* __restrict__ med_mat; // (M,) phase materials
   int n_media;
   const float* t;
@@ -134,13 +150,10 @@ struct Attrs {
   int mat;
 };
 
-// hit_attributes_soa's planar branch: pl_attr row (kind, idx) (clamped; a
-// zero row when the table is empty)
+// hit_attributes_soa's planar branch: pl_attr row ``slot`` (clamped by
+// the caller; a zero row when the table is empty)
 __device__ __forceinline__ Attrs planar_attrs(const Shade& a, V3 point, V3 d,
-                                              int kind, int idx) {
-  int slot = kind == KIND_TRIANGLE ? a.n_q + idx : idx;
-  slot = slot < 0 ? 0 : slot;
-  slot = slot > a.n_pl - 1 ? a.n_pl - 1 : slot;
+                                              int slot) {
   float c[kPlnCols];
   if (slot >= 0 && slot < a.n_pl) {
     const float4* row = reinterpret_cast<const float4*>(a.pln) +
@@ -210,38 +223,34 @@ __device__ __forceinline__ int normal_tex(const Scene& sc, int id) {
                                     : 0;
 }
 
-__global__ void __launch_bounds__(kShadeThreads)
-    step_shade(const Shade a) {
-  const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
-                      threadIdx.x;
-  if (i >= a.n) return;
-  const Scene& sc = a.sc;
-
-  // --- the lane: hit, ray, counters and fold, all read before any write ---
+// One lane of S1. The lane's state is read where it is first needed: the
+// fold (A, B, dead, outer) only after the scatter, so it is not live across
+// the NEE block. A lane reads each array of its own state before it writes
+// that array, and no other lane's, so the update may be in place (the pool
+// is both ``in`` and ``out``; they are not __restrict__).
+__device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
+                                           long long i) {
+  // --- the hit, its attribute row, the ray --------------------------------
   const float t = a.t[i];
-  int kind, idx;
+  int kind, idx, slot;
   if (a.kind != nullptr) {
     kind = a.kind[i];
     idx = a.idx[i];
-  } else {  // K1's planar slot, decoded as ops.bvh.bvh_closest_hit does
+    slot = kind == KIND_TRIANGLE ? a.n_q + idx : idx;
+    slot = slot < 0 ? 0 : slot;
+    slot = slot > a.n_pl - 1 ? a.n_pl - 1 : slot;
+  } else {  // K1's planar slot: its pl_attr row in one gather
     int ps = a.idx[i];
     ps = ps < 0 ? 0 : ps;
     ps = ps > a.n_pl - 1 ? a.n_pl - 1 : ps;
-    kind = a.pl_is_tri[ps] ? KIND_TRIANGLE : KIND_QUAD;
-    idx = a.pl_idx[ps];
+    kind = KIND_QUAD;   // planar: quad or triangle, the row says which
+    idx = 0;
+    slot = a.pl_row[ps];
   }
   const V3 o = v3(a.in.o[0][i], a.in.o[1][i], a.in.o[2][i]);
   const V3 d = v3(a.in.d[0][i], a.in.d[1][i], a.in.d[2][i]);
   const int bounce = a.in.bounce[i];
   const float acc_len = a.in.acc_len[i];
-  float A[3], B[3];
-  bool dead[3];
-  for (int c = 0; c < 3; ++c) {
-    A[c] = a.in.A[c][i];
-    B[c] = a.in.B[c][i];
-    dead[c] = a.in.dead[c][i];
-  }
-  bool outer = a.in.outer[i];
   const bool active = a.active != nullptr ? a.active[i]
                                           : a.qpos[i] < a.total_q;
   const uint32_t pix = a.pixel.at(i), smp = a.sample.at(i),
@@ -267,7 +276,7 @@ __global__ void __launch_bounds__(kShadeThreads)
   } else if ((sc.flags & kFlagSpheres) && kind == KIND_SPHERE) {
     h = sphere_attrs(a, point, d, idx);
   } else {
-    h = planar_attrs(a, point, d, kind, idx);
+    h = planar_attrs(a, point, d, slot);
   }
 
   // --- material and the terminal classification --------------------------
@@ -290,22 +299,12 @@ __global__ void __launch_bounds__(kShadeThreads)
     for (int c = 0; c < 3; ++c)
       alb[c] = sc.texels[3 * static_cast<size_t>(alb_row) + c];
 
-  // --- the terminal color through the folded clamps (fold_resolve) -------
-  const float* bg = a.bg != nullptr ? a.bg : sc.cam + 19;
-  const float term_af = emit ? row.atten : 0.0f;
-  const float term_acc = emit ? total_len : 0.0f;
-  const float att = term_af > 0.0f ? 1.0f / (1.0f + term_af * term_acc)
-                                   : 1.0f;
-  int rec = (miss ? kRecMiss : 0) | (emit && h.front ? kRecEmitFront : 0) |
-            (scat ? kRecScat : 0) | (terminal ? kRecTerminal : 0);
-  for (int c = 0; c < 3; ++c) {
-    const float term = miss ? bg[c] : (emit && h.front ? alb[c] : 0.0f);
-    const bool dead_t = dead[c] || ((term != term) && outer);
-    if (dead_t) rec |= kRecDeadT << c;
-    const float tc = dead_t ? 0.0f : term;
-    const float L = dead_t ? 0.0f : nan_min(A[c] * tc, B[c]);
-    a.color[3 * i + c] = L * att;
-  }
+  // the ray's and the path length's next state (o and acc_len are not read
+  // again)
+  const V3 o2 = scat ? point : o;
+  a.out.o[0][i] = o2.x; a.out.o[1][i] = o2.y; a.out.o[2][i] = o2.z;
+  a.out.bounce[i] = scat ? bounce + 1 : bounce;
+  a.out.acc_len[i] = scat ? total_len : acc_len;
 
   // --- scatter (material/mod.rs), on lanes that go on --------------------
   V3 new_dir = d;
@@ -364,7 +363,7 @@ __global__ void __launch_bounds__(kShadeThreads)
       const V3 light_dir = sample_light(sc, point, pick, l.x, l.y);
       const float u_coin = uniform4(pix, smp, bnc, P_MIX_COIN, seed).x;
       const V3 pdf_dir = sel(u_coin < 0.5f, light_dir, bsdf_dir);
-      const float light_val = light_pdf_mean(sc, point, pdf_dir);
+      const float light_val = light_pdf_mean<true>(sc, point, pdf_dir);
       const V3 unit_pdf_dir = unit(pdf_dir);
       const float cos_value = div_scalar(
           clamp_min(dot(unit_pdf_dir, unit(s_normal)), 0.0f), kPi);
@@ -377,8 +376,35 @@ __global__ void __launch_bounds__(kShadeThreads)
       new_dir = pdf_dir;
     }
   }
+  const V3 d2 = scat ? new_dir : d;
+  a.out.d[0][i] = d2.x; a.out.d[1][i] = d2.y; a.out.d[2][i] = d2.z;
 
-  // --- fold this bounce's scatter level (fold_scatter); reset terminal ---
+  // --- the fold: the terminal color through the folded clamps
+  // (fold_resolve), then this bounce's scatter level (fold_scatter) and the
+  // reset of terminal lanes -----------------------------------------------
+  float A[3], B[3];
+  bool dead[3];
+  for (int c = 0; c < 3; ++c) {
+    A[c] = a.in.A[c][i];
+    B[c] = a.in.B[c][i];
+    dead[c] = a.in.dead[c][i];
+  }
+  const bool outer = a.in.outer[i];
+  const float* bg = a.bg != nullptr ? a.bg : sc.cam + 19;
+  const float term_af = emit ? row.atten : 0.0f;
+  const float term_acc = emit ? total_len : 0.0f;
+  const float att = term_af > 0.0f ? 1.0f / (1.0f + term_af * term_acc)
+                                   : 1.0f;
+  int rec = (miss ? kRecMiss : 0) | (emit && h.front ? kRecEmitFront : 0) |
+            (scat ? kRecScat : 0) | (terminal ? kRecTerminal : 0);
+  for (int c = 0; c < 3; ++c) {
+    const float term = miss ? bg[c] : (emit && h.front ? alb[c] : 0.0f);
+    const bool dead_t = dead[c] || ((term != term) && outer);
+    if (dead_t) rec |= kRecDeadT << c;
+    const float tc = dead_t ? 0.0f : term;
+    const float L = dead_t ? 0.0f : nan_min(A[c] * tc, B[c]);
+    a.color[3 * i + c] = L * att;
+  }
   const bool pdf_lvl = scat && is_pdf;
   const bool basic_lvl = scat && !is_pdf;
   const float prob_scat = scat ? prob : 0.0f;
@@ -400,12 +426,6 @@ __global__ void __launch_bounds__(kShadeThreads)
   }
   a.out.outer[i] = (outer || pdf_lvl) && !terminal;
 
-  const V3 o2 = scat ? point : o;
-  const V3 d2 = scat ? new_dir : d;
-  a.out.o[0][i] = o2.x; a.out.o[1][i] = o2.y; a.out.o[2][i] = o2.z;
-  a.out.d[0][i] = d2.x; a.out.d[1][i] = d2.y; a.out.d[2][i] = d2.z;
-  a.out.bounce[i] = scat ? bounce + 1 : bounce;
-  a.out.acc_len[i] = scat ? total_len : acc_len;
   const bool flags[6] = {terminal, miss, capped, emit, scat, is_pdf};
   for (int k = 0; k < 6; ++k)
     if (a.flag[k] != nullptr) a.flag[k][i] = flags[k];
@@ -415,6 +435,40 @@ __global__ void __launch_bounds__(kShadeThreads)
     a.rec[2 * a.n + i] = __float_as_int(att);
     a.rec[3 * a.n + i] = rec | (pdf_lvl ? kRecPdf : 0);
   }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// S1: with a.stage_floats > 0 the block first copies the small tables
+// (camera, materials, texture attributes, lights: one packed buffer,
+// ops.step.StepTables.small) into shared memory with cp.async and points
+// its Scene at the copies, so shade.cuh's lookups (and the light loop of
+// every NEE lane) read shared memory; then each thread shades its lane.
+__global__ void __launch_bounds__(kShadeThreads, kShadeMinBlocks)
+    step_shade(const Shade a) {
+  extern __shared__ __align__(16) float4 staged[];
+  Scene sc = a.sc;
+  if (a.stage_floats > 0) {
+    const float4* src = reinterpret_cast<const float4*>(a.small);
+    for (int k = threadIdx.x; k < a.stage_floats / 4; k += kShadeThreads)
+      cp_async16(staged + k, src + k);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const float* base = reinterpret_cast<const float*>(staged);
+    sc.cam = base + (a.sc.cam - a.small);
+    sc.mats = base + (a.sc.mats - a.small);
+    sc.tex_attr = base + (a.sc.tex_attr - a.small);
+    sc.lights = base + (a.sc.lights - a.small);
+  }
+  const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
+                      threadIdx.x;
+  if (i < a.n) shade_lane(a, sc, i);
 }
 
 // S1B's arguments: S1's record and its inputs that the backward reads (the
@@ -454,7 +508,7 @@ __device__ __forceinline__ float block_sum(float v, float* shared) {
   __syncthreads();
   float s = 0.0f;
   if (threadIdx.x == 0)
-    for (int w = 0; w < kShadeThreads / 32; ++w) s += shared[w];
+    for (int w = 0; w < kBackThreads / 32; ++w) s += shared[w];
   __syncthreads();
   return s;
 }
@@ -478,10 +532,10 @@ __device__ __forceinline__ float block_sum(float v, float* shared) {
 // index_select's backward, index_add_, adds on the card), once a warp for
 // each row its lanes read; the background's summed over the block and
 // added once a block.
-__global__ void __launch_bounds__(kShadeThreads)
+__global__ void __launch_bounds__(kBackThreads)
     step_shade_backward(const ShadeBack a) {
-  __shared__ float warp_sums[kShadeThreads / 32];
-  const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
+  __shared__ float warp_sums[kBackThreads / 32];
+  const long long i = static_cast<long long>(blockIdx.x) * kBackThreads +
                       threadIdx.x;
   float g_bg[3] = {0.0f, 0.0f, 0.0f}, g_alb[3] = {0.0f, 0.0f, 0.0f};
   int row = -1;
@@ -553,103 +607,224 @@ struct Regen {
   long long* pixel;
   long long* sample;
   const bool* terminal;              // step mode: S1's flags
-  const long long* rank;             // their inclusive scan
   const float* color;                // (R, 3)
   float* accum;                      // (total_q + 1, 3)
   long long* next_q;
   long long* segments;
-  unsigned int* done;                // finished blocks, 0 between launches
+  unsigned int* ticket;              // (2,) started blocks (0 between
+                                     // launches), the launch count
+  unsigned long long* status;        // the scan's words, one a block
   const long long* start;            // first sample id
   const long long* pix_ids;          // a shard's pixel ids, or null
-  long long n, total_q, n_pix;
-  int width, height, tile_w, tile_h; // tile_w 0: no swizzle
+  long long n, total_q;
+  unsigned long long npix_magic;     // q / n_pix = (t + ((q - t) >> sh1))
+  int npix_sh1, npix_sh2;            //   >> sh2, t = umulhi(magic, q)
+  unsigned int n_pix;
+  int width, height;
+  int swizzle, tile_wl, tile_hl;     // the tile's log2 width and height
   uint32_t seed;
   int reset;
 };
 
-// _Wavefront.assignment / queue_assignment: queue position -> (pixel id,
-// sample id), tile-swizzled in the full image
-__device__ __forceinline__ void assignment(const Regen& a, long long q,
-                                           long long* pixel,
-                                           long long* samp) {
-  const long long pslot = q % a.n_pix;
-  *samp = *a.start + q / a.n_pix;
-  if (a.pix_ids != nullptr) {
-    *pixel = a.pix_ids[pslot];
-    return;
-  }
-  if (a.tile_w == 0) {
-    *pixel = pslot;
-    return;
-  }
-  const long long tw = a.tile_w, th = a.tile_h;
-  const long long tile = pslot / (tw * th), within = pslot % (tw * th);
-  const long long tx = tile % (a.width / tw), ty = tile / (a.width / tw);
-  *pixel = (ty * th + within / tw) * a.width + tx * tw + within % tw;
+// q / n_pix for any queue position, exactly, by a multiply-high with the
+// host's round-up constant (Granlund and Montgomery, 1994, fig. 4.1;
+// ops.step.div_magic): no 64-bit division, which the card emulates
+__device__ __forceinline__ unsigned long long div_npix(const Regen& a,
+                                                       unsigned long long q) {
+  const unsigned long long t = __umul64hi(a.npix_magic, q);
+  return (t + ((q - t) >> a.npix_sh1)) >> a.npix_sh2;
 }
 
+// _Wavefront.assignment / queue_assignment: queue position q -> (pixel id,
+// q / n_pix), tile-swizzled in the full image. Past the division, 32-bit:
+// the slot is below n_pix < 2^31, and a tile's sides are powers of two.
+__device__ __forceinline__ unsigned int assignment(const Regen& a,
+                                                   long long q,
+                                                   unsigned long long* qq) {
+  *qq = div_npix(a, static_cast<unsigned long long>(q));
+  const unsigned int pslot = static_cast<unsigned int>(q) -
+                             static_cast<unsigned int>(*qq) * a.n_pix;
+  if (a.pix_ids != nullptr) return static_cast<unsigned int>(
+      a.pix_ids[pslot]);
+  if (!a.swizzle) return pslot;
+  const int tl = a.tile_wl + a.tile_hl;
+  const unsigned int tile = pslot >> tl;
+  const unsigned int within = pslot & ((1u << tl) - 1u);
+  const unsigned int tiles_x = static_cast<unsigned int>(a.width) >> a.tile_wl;
+  const unsigned int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  return ((ty << a.tile_hl) + (within >> a.tile_wl)) *
+             static_cast<unsigned int>(a.width) +
+         (tx << a.tile_wl) + (within & ((1u << a.tile_wl) - 1u));
+}
+
+// The scan's status word of a block, one 64-bit word so that no reader sees
+// a flag without its count: the launch's tag (bits 32-63), the flag (30-31:
+// 0 nothing yet, 1 the block's own count, 2 the count of it and every
+// block before it) and the count (0-29). A word with another launch's tag
+// reads as nothing yet, so the words need no clearing between launches.
+constexpr unsigned int kAggregate = 1u, kInclusive = 2u;
+constexpr unsigned int kCountBits = 30, kCountMask = (1u << kCountBits) - 1u;
+
+__device__ __forceinline__ void publish(unsigned long long* status, int b,
+                                        unsigned int tag, unsigned int flag,
+                                        unsigned int count) {
+  *reinterpret_cast<volatile unsigned long long*>(status + b) =
+      (static_cast<unsigned long long>(tag) << 32) |
+      (static_cast<unsigned long long>(flag) << kCountBits) | count;
+}
+
+// The terminal lanes of the blocks before logical block b (decoupled
+// look-back, Merrill and Garland 2016), by one warp: each lane reads one
+// predecessor's word, nearest first, 32 at a time; the window up to the
+// nearest inclusive count is summed once none of it is still unpublished.
+// Only blocks with a smaller ticket are waited on, and those have started.
+__device__ __forceinline__ unsigned int look_back(
+    const unsigned long long* status, int b, unsigned int tag, int lane) {
+  unsigned int excl = 0;
+  for (int j = b - 1;; j -= 32) {
+    unsigned int flag, count, incl, mask;
+    do {
+      const int k = j - lane;
+      flag = kInclusive;   // before block 0: an inclusive 0
+      count = 0u;
+      if (k >= 0) {
+        const unsigned long long w =
+            *reinterpret_cast<const volatile unsigned long long*>(status + k);
+        const bool mine = static_cast<unsigned int>(w >> 32) == tag;
+        flag = mine ? static_cast<unsigned int>(w >> kCountBits) & 3u : 0u;
+        count = static_cast<unsigned int>(w) & kCountMask;
+      }
+      incl = __ballot_sync(0xffffffffu, flag == kInclusive);
+      // the lanes up to the nearest inclusive count (all 32 without one)
+      mask = incl ? ((incl & (0u - incl)) << 1) - 1u : 0xffffffffu;
+    } while (__ballot_sync(0xffffffffu, flag == 0u) & mask);
+    unsigned int v = (mask >> lane) & 1u ? count : 0u;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (incl) return excl;
+  }
+}
+
+// One regenerated lane: queue position q, its camera ray (parked with a
+// zero direction past the queue), the pool's write-back
+__device__ __forceinline__ void regen_lane(const Regen& a, long long i,
+                                           long long q) {
+  unsigned long long qq;
+  const unsigned int px =
+      assignment(a, q < a.total_q - 1 ? q : a.total_q - 1, &qq);
+  const long long sp = *a.start + static_cast<long long>(qq);
+  V3 o, d;
+  camera_ray(a.sc, static_cast<int>(px), static_cast<int>(sp), a.seed,
+             a.width, a.height, &o, &d);
+  if (q >= a.total_q) d = v3(0.0f, 0.0f, 0.0f);   // parked
+  a.qpos[i] = q;
+  a.pixel[i] = px;
+  a.sample[i] = sp;
+  a.pool.o[0][i] = o.x; a.pool.o[1][i] = o.y; a.pool.o[2][i] = o.z;
+  a.pool.d[0][i] = d.x; a.pool.d[1][i] = d.y; a.pool.d[2][i] = d.z;
+  a.pool.bounce[i] = 0;
+  a.pool.acc_len[i] = 0.0f;
+}
+
+// S2. Reset mode: every lane on its own queue position, fold identity.
+// Step mode: blocks take their lanes in ticket order; each finished lane
+// stores its color in its row, and the block's terminal lanes take the
+// next queue positions in lane order, ranked by a single-pass scan
+// (decoupled look-back) over the blocks' status words. The block with the
+// last ticket, whose look-back has seen every other block's word (each
+// written after that block read the queue head and the launch count),
+// writes the new queue head, puts the ticket back to 0 and counts the
+// launch, so the launch needs no host set-up and a CUDA graph replays it
+// as it is.
 __global__ void __launch_bounds__(kRegenThreads)
     step_regen(const Regen a) {
-  const long long i = static_cast<long long>(blockIdx.x) * kRegenThreads +
-                      threadIdx.x;
-  // the queue head before this step: every thread reads it before its
-  // block counts itself finished
-  const long long base = a.reset ? 0 : *a.next_q;
-  int active = 0;
-  if (i < a.n) {
-    long long q = a.reset ? i : a.qpos[i];
-    bool regen = a.reset != 0;
-    if (!a.reset) {
-      active = q < a.total_q;
-      if (a.terminal[i]) {
-        // the finished color into its row (row_of: sample-major by pixel
-        // id in the full image, by queue position in a shard)
-        const long long row = a.pix_ids != nullptr
-                                  ? q : (q / a.n_pix) * a.n_pix + a.pixel[i];
-        for (int c = 0; c < 3; ++c)
-          a.accum[3 * row + c] = a.color[3 * i + c];
-        q = base + a.rank[i] - 1;   // the exclusive rank
-        regen = true;
-      }
+  constexpr int kWarps = kRegenThreads / 32;
+  __shared__ long long s_base;              // the queue head before the step
+  __shared__ int s_block;                   // this block's ticket
+  __shared__ unsigned int s_tag;            // this launch's tag
+  __shared__ unsigned int s_term[kWarps];   // a warp's terminal lanes, then
+                                            // those before it in the block
+  __shared__ unsigned int s_active[kWarps];
+  __shared__ unsigned int s_excl;           // ... before this block
+  if (a.reset) {
+    const long long i = static_cast<long long>(blockIdx.x) * kRegenThreads +
+                        threadIdx.x;
+    if (i >= a.n) return;
+    regen_lane(a, i, i);
+    for (int c = 0; c < 3; ++c) {
+      a.pool.A[c][i] = 1.0f;
+      a.pool.B[c][i] = CUDART_INF_F;
+      a.pool.dead[c][i] = false;
     }
-    if (regen) {
-      long long px, sp;
-      assignment(a, q < a.total_q - 1 ? q : a.total_q - 1, &px, &sp);
-      V3 o, d;
-      camera_ray(a.sc, static_cast<int>(px), static_cast<int>(sp), a.seed,
-                 a.width, a.height, &o, &d);
-      if (q >= a.total_q) d = v3(0.0f, 0.0f, 0.0f);   // parked
-      a.qpos[i] = q;
-      a.pixel[i] = px;
-      a.sample[i] = sp;
-      a.pool.o[0][i] = o.x; a.pool.o[1][i] = o.y; a.pool.o[2][i] = o.z;
-      a.pool.d[0][i] = d.x; a.pool.d[1][i] = d.y; a.pool.d[2][i] = d.z;
-      a.pool.bounce[i] = 0;
-      a.pool.acc_len[i] = 0.0f;
-      if (a.reset) {   // in a step, S1 has reset the fold of ended lanes
-        for (int c = 0; c < 3; ++c) {
-          a.pool.A[c][i] = 1.0f;
-          a.pool.B[c][i] = CUDART_INF_F;
-          a.pool.dead[c][i] = false;
-        }
-        a.pool.outer[i] = false;
-      }
-    }
+    a.pool.outer[i] = false;
+    return;
   }
-  if (a.reset) return;
-  // the segments of this step (its active lanes), and the queue head once
-  // every block has read it
-  const int count = __syncthreads_count(active);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    if (count > 0)
-      atomicAdd(reinterpret_cast<unsigned long long*>(a.segments),
-                static_cast<unsigned long long>(count));
-    __threadfence();
-    if (atomicAdd(a.done, 1u) == gridDim.x - 1) {
-      *a.next_q = base + a.rank[a.n - 1];
-      *a.done = 0u;
+    s_block = static_cast<int>(atomicAdd(a.ticket, 1u));
+    s_base = *a.next_q;
+    s_tag = *reinterpret_cast<volatile unsigned int*>(a.ticket + 1) + 1u;
+  }
+  __syncthreads();
+  const int b = s_block;
+  const long long i = static_cast<long long>(b) * kRegenThreads + threadIdx.x;
+  const bool in = i < a.n;
+  const long long q = in ? a.qpos[i] : a.total_q;
+  const bool term = in && a.terminal[i];
+  float color[3] = {0.0f, 0.0f, 0.0f};
+  if (term)
+    for (int c = 0; c < 3; ++c) color[c] = a.color[3 * i + c];
+  const unsigned int ballot = __ballot_sync(0xffffffffu, term);
+  const unsigned int act = __ballot_sync(0xffffffffu, q < a.total_q);
+  if (lane == 0) {
+    s_term[warp] = __popc(ballot);
+    s_active[warp] = __popc(act);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the warps' exclusive offsets, the block's count, its status word
+    const unsigned int v = lane < kWarps ? s_term[lane] : 0u;
+    unsigned int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned int x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const unsigned int agg = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane < kWarps) s_term[lane] = incl - v;
+    const unsigned int tag = s_tag;
+    if (lane == 0)
+      publish(a.status, b, tag, b == 0 ? kInclusive : kAggregate, agg);
+    const unsigned int excl = look_back(a.status, b, tag, lane);
+    unsigned int n_act = lane < kWarps ? s_active[lane] : 0u;
+    for (int o = 16; o > 0; o >>= 1)
+      n_act += __shfl_xor_sync(0xffffffffu, n_act, o);
+    if (lane == 0) {
+      if (b > 0) publish(a.status, b, tag, kInclusive, excl + agg);
+      s_excl = excl;
+      // the segments of this step: its active lanes
+      if (n_act > 0)
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.segments),
+                  static_cast<unsigned long long>(n_act));
+      if (b == static_cast<int>(gridDim.x) - 1) {
+        *a.next_q = s_base + static_cast<long long>(excl + agg);
+        a.ticket[0] = 0u;
+        a.ticket[1] = tag;
+      }
     }
   }
+  __syncthreads();
+  if (!term) return;
+  // the finished color into its row (row_of: sample-major by pixel id in
+  // the full image, by queue position in a shard), then the next position
+  long long row = q;
+  if (a.pix_ids == nullptr) {
+    unsigned long long qq;
+    const unsigned int px = assignment(a, q, &qq);
+    row = static_cast<long long>(qq * a.n_pix) + px;
+  }
+  for (int c = 0; c < 3; ++c) a.accum[3 * row + c] = color[c];
+  regen_lane(a, i, s_base + s_excl + s_term[warp] +
+                       __popc(ballot & ((1u << lane) - 1u)));
 }
 
 Lanes lanes_at(const void* const* p) {
@@ -696,25 +871,27 @@ hit::Counter counter_at(const void* p, const long long* v) {
 // names match ops/step.py's SHADE_PTRS and SHADE_INTS.
 enum ShadePtr {
   SP_CAM, SP_SPH, SP_PLN, SP_MATS, SP_TEX_ATTR, SP_TEXELS, SP_LIGHTS,
-  SP_MED_MAT, SP_PL_IDX, SP_PL_IS_TRI, SP_T, SP_KIND, SP_IDX, SP_PIXEL,
+  SP_MED_MAT, SP_PL_ROW, SP_SMALL, SP_T, SP_KIND, SP_IDX, SP_PIXEL,
   SP_SAMPLE, SP_SEED, SP_ACTIVE, SP_QPOS, SP_COLOR, SP_TERMINAL, SP_MISS,
   SP_CAPPED, SP_EMIT, SP_SCAT, SP_IS_PDF, SP_IN, SP_OUT = SP_IN + 18,
   SP_BG = SP_OUT + 18, SP_REC, SP_COUNT
 };
 enum ShadeInt {
   SV_N, SV_MAX_DEPTH, SV_FLAGS, SV_N_SPH, SV_N_PL, SV_N_Q, SV_N_MAT,
-  SV_N_TEX, SV_N_TEXELS, SV_N_LIGHT, SV_N_MEDIA, SV_TOTAL_Q, SV_PIXEL,
-  SV_SAMPLE = SV_PIXEL + 3, SV_SEED = SV_SAMPLE + 3, SV_COUNT = SV_SEED + 3
+  SV_N_TEX, SV_N_TEXELS, SV_N_LIGHT, SV_N_MEDIA, SV_TOTAL_Q, SV_STAGE,
+  SV_PIXEL, SV_SAMPLE = SV_PIXEL + 3, SV_SEED = SV_SAMPLE + 3,
+  SV_COUNT = SV_SEED + 3
 };
 
 // S2's arguments, as ops/step.py's REGEN_PTRS and REGEN_INTS name them.
 enum RegenPtr {
-  RP_CAM, RP_QPOS, RP_PIXEL, RP_SAMPLE, RP_TERMINAL, RP_RANK, RP_COLOR,
-  RP_ACCUM, RP_NEXT_Q, RP_SEGMENTS, RP_DONE, RP_START, RP_PIX_IDS, RP_POOL,
-  RP_COUNT = RP_POOL + 18
+  RP_CAM, RP_QPOS, RP_PIXEL, RP_SAMPLE, RP_TERMINAL, RP_COLOR, RP_ACCUM,
+  RP_NEXT_Q, RP_SEGMENTS, RP_TICKET, RP_STATUS, RP_START, RP_PIX_IDS,
+  RP_POOL, RP_COUNT = RP_POOL + 18
 };
 enum RegenInt {
-  RV_N, RV_TOTAL_Q, RV_N_PIX, RV_WIDTH, RV_HEIGHT, RV_TILE_W, RV_TILE_H,
+  RV_N, RV_TOTAL_Q, RV_N_PIX, RV_NPIX_MAGIC, RV_NPIX_SH1, RV_NPIX_SH2,
+  RV_WIDTH, RV_HEIGHT, RV_SWIZZLE, RV_TILE_WL, RV_TILE_HL, RV_N_STATUS,
   RV_SEED, RV_RESET, RV_COUNT
 };
 
@@ -741,8 +918,9 @@ extern "C" int step_shade_launch(const void* const* p, const long long* v,
     a.pln = static_cast<const float*>(p[SP_PLN]);
     a.n_pl = static_cast<int>(v[SV_N_PL]);
     a.n_q = static_cast<int>(v[SV_N_Q]);
-    a.pl_idx = static_cast<const int*>(p[SP_PL_IDX]);
-    a.pl_is_tri = static_cast<const bool*>(p[SP_PL_IS_TRI]);
+    a.pl_row = static_cast<const int*>(p[SP_PL_ROW]);
+    a.small = static_cast<const float*>(p[SP_SMALL]);
+    a.stage_floats = static_cast<int>(v[SV_STAGE]);
     a.med_mat = static_cast<const int*>(p[SP_MED_MAT]);
     a.n_media = static_cast<int>(v[SV_N_MEDIA]);
     a.t = static_cast<const float*>(p[SP_T]);
@@ -763,8 +941,9 @@ extern "C" int step_shade_launch(const void* const* p, const long long* v,
       a.flag[k] = static_cast<bool*>(const_cast<void*>(p[SP_TERMINAL + k]));
     a.n = n;
     a.max_depth = static_cast<int>(v[SV_MAX_DEPTH]);
+    const int smem = a.stage_floats * static_cast<int>(sizeof(float));
     const long long blocks = (n + kShadeThreads - 1) / kShadeThreads;
-    step_shade<<<static_cast<unsigned int>(blocks), kShadeThreads, 0,
+    step_shade<<<static_cast<unsigned int>(blocks), kShadeThreads, smem,
                  static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
@@ -782,24 +961,32 @@ extern "C" int step_regen_launch(const void* const* p, const long long* v,
     a.pixel = static_cast<long long*>(const_cast<void*>(p[RP_PIXEL]));
     a.sample = static_cast<long long*>(const_cast<void*>(p[RP_SAMPLE]));
     a.terminal = static_cast<const bool*>(p[RP_TERMINAL]);
-    a.rank = static_cast<const long long*>(p[RP_RANK]);
     a.color = static_cast<const float*>(p[RP_COLOR]);
     a.accum = static_cast<float*>(const_cast<void*>(p[RP_ACCUM]));
     a.next_q = static_cast<long long*>(const_cast<void*>(p[RP_NEXT_Q]));
     a.segments = static_cast<long long*>(const_cast<void*>(p[RP_SEGMENTS]));
-    a.done = static_cast<unsigned int*>(const_cast<void*>(p[RP_DONE]));
+    a.ticket = static_cast<unsigned int*>(const_cast<void*>(p[RP_TICKET]));
+    a.status = static_cast<unsigned long long*>(
+        const_cast<void*>(p[RP_STATUS]));
     a.start = static_cast<const long long*>(p[RP_START]);
     a.pix_ids = static_cast<const long long*>(p[RP_PIX_IDS]);
     a.n = n;
     a.total_q = v[RV_TOTAL_Q];
-    a.n_pix = v[RV_N_PIX];
+    a.n_pix = static_cast<unsigned int>(v[RV_N_PIX]);
+    a.npix_magic = static_cast<unsigned long long>(v[RV_NPIX_MAGIC]);
+    a.npix_sh1 = static_cast<int>(v[RV_NPIX_SH1]);
+    a.npix_sh2 = static_cast<int>(v[RV_NPIX_SH2]);
     a.width = static_cast<int>(v[RV_WIDTH]);
     a.height = static_cast<int>(v[RV_HEIGHT]);
-    a.tile_w = static_cast<int>(v[RV_TILE_W]);
-    a.tile_h = static_cast<int>(v[RV_TILE_H]);
+    a.swizzle = static_cast<int>(v[RV_SWIZZLE]);
+    a.tile_wl = static_cast<int>(v[RV_TILE_WL]);
+    a.tile_hl = static_cast<int>(v[RV_TILE_HL]);
     a.seed = static_cast<uint32_t>(v[RV_SEED]);
     a.reset = static_cast<int>(v[RV_RESET]);
     const long long blocks = (n + kRegenThreads - 1) / kRegenThreads;
+    // the scan's words: one a block; its counts: 30 bits
+    if (!a.reset && (blocks > v[RV_N_STATUS] || n > kCountMask))
+      return static_cast<int>(cudaErrorInvalidValue);
     step_regen<<<static_cast<unsigned int>(blocks), kRegenThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(a);
   }
@@ -826,8 +1013,8 @@ extern "C" int step_shade_backward_launch(const void* const* p,
       a.g_B[c] = static_cast<float*>(const_cast<void*>(p[BP_G_IN + 3 + c]));
     }
     a.n = n;
-    const long long blocks = (n + kShadeThreads - 1) / kShadeThreads;
-    step_shade_backward<<<static_cast<unsigned int>(blocks), kShadeThreads,
+    const long long blocks = (n + kBackThreads - 1) / kBackThreads;
+    step_shade_backward<<<static_cast<unsigned int>(blocks), kBackThreads,
                           0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());

@@ -482,6 +482,46 @@ def kitchen_sink_scene(render_config, api=None, normal_map=True,
     return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
 
 
+def many_material_scene(render_config, n_side=24, seed=13, api=None):
+    """A closed room whose floor and ceiling are ``n_side``^2 quad tiles
+    each (1,152 at the default: a BVH scene, planar prims only), a floor
+    tile and the ceiling tile above it sharing a material of its own
+    (Lambertian, every fifth a fuzzy metal, colors from a seed), grey
+    walls and a quad light under the ceiling: its material and texture
+    tables are too large for S1 to stage in shared memory
+    (``ops.step.STAGE_MAX_BYTES``)."""
+    api = _api(api)
+    rng = np.random.default_rng(seed)
+    colors = rng.uniform(0.05, 0.95, (n_side * n_side, 3))
+    size = 20.0 / n_side
+    world = []
+    for k, (r, g, b) in enumerate(colors.tolist()):
+        i, j = divmod(k, n_side)
+        color = api.SolidColor(r, g, b)
+        mat = (api.Metal(color, None, 0.3) if k % 5 == 4 else
+               api.Lambertian(color))
+        for y in (0.0, 10.0):
+            world.append(api.Quad((-10.0 + i * size, y, -10.0 + j * size),
+                                  (size, 0.0, 0.0), (0.0, 0.0, size), mat))
+    wall = api.Lambertian(api.SolidColor(0.6, 0.6, 0.6))
+    world += [
+        api.Quad((-10.0, 0.0, -10.0), (20.0, 0.0, 0.0), (0.0, 10.0, 0.0),
+                 wall),
+        api.Quad((-10.0, 0.0, 10.0), (20.0, 0.0, 0.0), (0.0, 10.0, 0.0),
+                 wall),
+        api.Quad((-10.0, 0.0, -10.0), (0.0, 0.0, 20.0), (0.0, 10.0, 0.0),
+                 wall),
+        api.Quad((10.0, 0.0, -10.0), (0.0, 0.0, 20.0), (0.0, 10.0, 0.0),
+                 wall),
+        api.Quad((-2.0, 9.9, -2.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0),
+                 api.DiffuseLight(15, 15, 15)),
+    ]
+    camera = api.CameraConfig(vertical_fov_degrees=60.0, aperture_size=0.0,
+                              look_from=(0.0, 6.0, 9.0),
+                              look_at=(0.0, 1.0, 0.0))
+    return api.Scene(api.Bvh(world), camera, (0.0, 0.0, 0.0), render_config)
+
+
 def small_scene(render_config, api=None):
     """The README scene (a sphere light above a yellow sphere, below 512
     solids: the sweep path) plus one constant-medium box."""

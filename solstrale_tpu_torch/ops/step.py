@@ -8,17 +8,18 @@ Replaces the step body of the JAX package's one-program wavefront
 ``trace_queued``), which XLA fuses: hit attributes, scatter, clamp-fold,
 accumulation, regeneration and the draws. The port's plain versions run it
 as ~700-1,300 torch kernels a step; with these a step is the scene-hit
-kernels (K1-K3 or K4), S1, one scan and S2.
+kernels (K1-K3 or K4), S1 and S2.
 
 - ``step_shade`` (S1): everything ``integrator.path_step`` does after the
   scene hit, one thread a lane, every draw computed in registers. Plain
   version: ``integrator.shade_plain``.
-- ``step_regen`` (S2): the rest of ``integrator._Wavefront.step`` after the
-  inclusive scan of S1's terminal flags (the one library op left in the
-  step): accumulation rows, queue positions, camera rays, the pool's
-  write-back and the segment and queue counters; without flags, the camera
-  part of ``_Wavefront.reset``. Plain versions: ``_Wavefront.regen_plain``
-  and ``_Wavefront.reset_plain``.
+- ``step_regen`` (S2): the rest of ``integrator._Wavefront.step``: the
+  exclusive scan of S1's terminal flags (in the kernel: a single-pass scan
+  with decoupled look-back over one status word a block, ``scan_words``),
+  accumulation rows, queue positions, camera rays, the pool's write-back
+  and the segment and queue counters; without flags, the camera part of
+  ``_Wavefront.reset``. Plain versions: ``_Wavefront.regen_plain`` and
+  ``_Wavefront.reset_plain``.
 
 - ``step_shade_grad``: S1 as a ``torch.autograd.Function``
   (``StepShadeFn``) for ``integrator.trace(..., differentiable=True)``.
@@ -72,19 +73,29 @@ REC_DEAD_T = 32    # the channel was dead at the terminal color (dead_t)
 REC_DEAD = 256     # the channel is dead after this level's fold
 
 SHADE_PTRS = (("cam", "sph", "pln", "mats", "tex_attr", "texels", "lights",
-               "med_mat", "pl_idx", "pl_is_tri", "t", "kind", "idx", "pixel",
+               "med_mat", "pl_row", "small", "t", "kind", "idx", "pixel",
                "sample", "seed", "active", "qpos", "color") + FLAGS
               + tuple("in_" + n for n in LANE_ARRAYS)
               + tuple("out_" + n for n in LANE_ARRAYS) + ("bg", "rec"))
 SHADE_INTS = (("n", "max_depth", "flags", "n_sph", "n_pl", "n_q", "n_mat",
-               "n_tex", "n_texels", "n_light", "n_media", "total_q")
+               "n_tex", "n_texels", "n_light", "n_media", "total_q", "stage")
               + tuple(f"{c}_{k}" for c in ("pixel", "sample", "seed")
                       for k in _COUNTER))
-REGEN_PTRS = (("cam", "qpos", "pixel", "sample", "terminal", "rank",
-               "color", "accum", "next_q", "segments", "done", "start",
+REGEN_PTRS = (("cam", "qpos", "pixel", "sample", "terminal", "color",
+               "accum", "next_q", "segments", "ticket", "status", "start",
                "pix_ids") + tuple("pool_" + n for n in LANE_ARRAYS))
-REGEN_INTS = ("n", "total_q", "n_pix", "width", "height", "tile_w", "tile_h",
+REGEN_INTS = ("n", "total_q", "n_pix", "npix_magic", "npix_sh1", "npix_sh2",
+              "width", "height", "swizzle", "tile_wl", "tile_hl", "n_status",
               "seed", "reset")
+# S2's block (csrc/step.cu kRegenThreads): its scan keeps one status word a
+# block (``scan_words``)
+REGEN_THREADS = 256
+# S1 stages the small tables (camera, materials, texture attributes,
+# lights: ``StepTables.small``) in shared memory once a block where they
+# fit in this many bytes (``stage_floats``); a scene with more (about 300
+# materials) reads them from device memory. At 8 blocks an SM, 12 KB a
+# block leaves shared memory to spare (PERF.md §6).
+STAGE_MAX_BYTES = 12288
 BACK_PTRS = (("rec", "texels", "bg", "g_color", "g_texels", "g_bg")
              + tuple("in_" + n for n in FOLD_ARRAYS)
              + tuple("g_out_" + n for n in FOLD_ARRAYS)
@@ -97,18 +108,22 @@ class StepTables:
     """S1's and S2's scene tables, packed once per compiled scene
     (``step_tables``), contiguous on the scene's device:
 
-    - ``cam`` (24,) and ``lights`` (L, 20): K5's
-      (``megakernel.camera_table``, ``light_table``);
+    - ``small``: one f32 buffer holding the small tables below, each from
+      a 16-byte boundary (S1 stages it in shared memory whole), and
+      ``cam``, ``mats``, ``tex_attr``, ``lights`` views of it:
+      ``cam`` (24,) and ``lights`` (L, 20) K5's
+      (``megakernel.camera_table``, ``light_table``), ``mats`` (Mt, 9) and
+      ``tex_attr`` (T, 3) ``Materials.attr`` and ``TexArena.attr``;
     - ``sph`` (S, 8) f32: ``Solids.sph_attr`` (center, radius, mat) padded;
     - ``pln`` (P, 28) f32: ``Solids.pl_attr`` padded (16-byte rows);
-    - ``mats`` (Mt, 9), ``tex_attr`` (T, 3), ``texels`` (N, 3) f32:
-      ``Materials.attr``, ``TexArena.attr`` and ``.pixels``;
+    - ``texels`` (N, 3) f32: ``TexArena.pixels``;
     - ``med_mat`` (M,) int32: each medium's phase material;
-    - ``pl_idx`` (P,) int32 and ``pl_is_tri`` (P,) bool: the decode of
-      K1's planar slot;
+    - ``pl_row`` (P,) int32: K1's planar slot -> its ``pln`` row (the
+      decode of ``ops.bvh.decode_planar_slot``, clamped as S1 clamps);
     - ``n_q``: the quads, which come before the triangles in ``pln``;
     - ``flags``: ``FLAG_*`` of the scene's features."""
 
+    small: torch.Tensor
     cam: torch.Tensor
     sph: torch.Tensor
     pln: torch.Tensor
@@ -117,8 +132,7 @@ class StepTables:
     texels: torch.Tensor
     lights: torch.Tensor
     med_mat: torch.Tensor
-    pl_idx: torch.Tensor
-    pl_is_tri: torch.Tensor
+    pl_row: torch.Tensor
     n_q: int
     flags: int
 
@@ -129,6 +143,31 @@ def feature_flags(features):
     return ((FLAG_BLEND if "blend" in features else 0)
             | (FLAG_NORMAL_MAPS if "normal_maps" in features else 0)
             | (FLAG_SPHERES if "spheres" in features else 0))
+
+
+def _packed(parts, dev):
+    """One f32 buffer of ``parts`` (f32 tensors), each from a multiple of 4
+    floats, and a view of each part in it."""
+    offsets, n = [], 0
+    for x in parts:
+        offsets.append(n)
+        n += -(-x.numel() // 4) * 4
+    buf = torch.zeros((max(n, 4),), dtype=torch.float32, device=dev)
+    views = []
+    for x, off in zip(parts, offsets):
+        view = buf[off:off + x.numel()].view(x.shape)
+        view.copy_(x)
+        views.append(view)
+    return buf, views
+
+
+def slot_rows(solids, n_q):
+    """K1's planar slot -> its row of the planar table, (P,) int32: a
+    triangle's after the ``n_q`` quads, clamped to the table."""
+    row = torch.where(solids.pl_is_tri, n_q + solids.pl_idx.long(),
+                      solids.pl_idx.long())
+    n_pl = solids.pl_attr.shape[0]
+    return torch.clamp(row, 0, max(n_pl - 1, 0)).to(torch.int32).contiguous()
 
 
 def pack_tables(cs):
@@ -144,17 +183,24 @@ def pack_tables(cs):
 
     med_mat = (torch.stack([m.mat for m in cs.media]) if cs.media else
                torch.zeros((0,), device=dev))
+    n_q = s.qd_q.shape[0]
+    small, (cam, mats, tex_attr, lights) = _packed(
+        [camera_table(cs), cs.materials.attr.to(torch.float32),
+         cs.textures.attr.to(torch.float32), light_table(cs)], dev)
     return StepTables(
-        cam=camera_table(cs), sph=padded(s.sph_attr, 8),
-        pln=padded(s.pl_attr, 28),
-        mats=cs.materials.attr.to(torch.float32).contiguous(),
-        tex_attr=cs.textures.attr.to(torch.float32).contiguous(),
+        small=small, cam=cam, sph=padded(s.sph_attr, 8),
+        pln=padded(s.pl_attr, 28), mats=mats, tex_attr=tex_attr,
         texels=cs.textures.pixels.to(torch.float32).contiguous(),
-        lights=light_table(cs),
-        med_mat=med_mat.to(torch.int32).contiguous(),
-        pl_idx=s.pl_idx.to(torch.int32).contiguous(),
-        pl_is_tri=s.pl_is_tri.to(torch.bool).contiguous(),
-        n_q=s.qd_q.shape[0], flags=feature_flags(cs.features))
+        lights=lights, med_mat=med_mat.to(torch.int32).contiguous(),
+        pl_row=slot_rows(s, n_q), n_q=n_q, flags=feature_flags(cs.features))
+
+
+def stage_floats(tab):
+    """The floats of ``tab.small`` that S1 stages in shared memory: all of
+    them where they fit in ``STAGE_MAX_BYTES``, else none (S1 then reads
+    the small tables from device memory)."""
+    n = tab.small.numel()
+    return n if n * 4 <= STAGE_MAX_BYTES else 0
 
 
 def step_tables(cs):
@@ -307,7 +353,7 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     _check("step_shade: idx", idx, torch.int32, r, dev)
     if kind is not None:
         _check("step_shade: kind", kind, torch.int32, r, dev)
-    elif tab.pl_idx.shape[0] == 0:
+    elif tab.pl_row.shape[0] == 0:
         raise ValueError("step_shade: a planar slot needs a planar table")
     if out is None:
         out = _new_outputs(r, dev)
@@ -325,8 +371,8 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     ptrs = dict(cam=p(tab.cam), sph=p(tab.sph), pln=p(tab.pln),
                 mats=p(tab.mats), tex_attr=p(tab.tex_attr),
                 texels=p(texels), lights=p(tab.lights),
-                med_mat=p(tab.med_mat), pl_idx=p(tab.pl_idx),
-                pl_is_tri=p(tab.pl_is_tri), t=p(t), idx=p(idx), color=p(color))
+                med_mat=p(tab.med_mat), pl_row=p(tab.pl_row),
+                small=p(tab.small), t=p(t), idx=p(idx), color=p(color))
     if kind is not None:
         ptrs["kind"] = p(kind)
     if isinstance(active, tuple):
@@ -346,7 +392,8 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
                 n_sph=tab.sph.shape[0], n_pl=tab.pln.shape[0], n_q=tab.n_q,
                 n_mat=tab.mats.shape[0], n_tex=tab.tex_attr.shape[0],
                 n_texels=texels.shape[0], n_light=tab.lights.shape[0],
-                n_media=tab.med_mat.shape[0], total_q=total_q)
+                n_media=tab.med_mat.shape[0], total_q=total_q,
+                stage=stage_floats(tab))
     counters = []   # held until the launch: a counter may be a new tensor
     for name, x in (("pixel", pixel), ("sample", sample), ("seed", seed)):
         t_c, vals = _counter_args(x, r, dev)
@@ -641,13 +688,49 @@ def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out,
             tuple(g if w else None for g, w in zip(g_ab, want_ab)))
 
 
-def step_regen(cs, wf, pool, terminal=None, rank=None):
+def div_magic(d):
+    """The constants of an exact unsigned 64-bit division by ``d`` (1 <= d
+    < 2**63) as a multiply-high (Granlund and Montgomery, 1994, fig. 4.1),
+    S2's ``q / n_pix``: (m, sh1, sh2) with, for every 0 <= q < 2**64,
+    ``t = (m * q) >> 64`` and ``q // d == (t + ((q - t) >> sh1)) >> sh2``.
+    m is returned as the int64 of its 64 bits (the kernels' argument
+    array holds int64)."""
+    if not 1 <= d < 2 ** 63:
+        raise ValueError(f"div_magic: divisor {d} out of range")
+    ell = (d - 1).bit_length()            # ceil(log2 d)
+    m = (2 ** 64 * (2 ** ell - d)) // d + 1
+    m -= 2 ** 64 if m >= 2 ** 63 else 0
+    return m, min(ell, 1), max(ell - 1, 0)
+
+
+def regen_constants(wf):
+    """S2's queue constants of the wavefront ``wf``: the division by its
+    pixels (``div_magic``) and the tile swizzle's log2 width and height
+    (``integrator._tile_swizzle``'s sides are powers of two; swizzle 0:
+    none, or a shard's pixel ids)."""
+    m, sh1, sh2 = div_magic(wf.n_pix)
+    tile_w, tile_h = wf.swizzle or (1, 1)
+    return dict(npix_magic=m, npix_sh1=sh1, npix_sh2=sh2,
+                swizzle=int(wf.swizzle is not None),
+                tile_wl=tile_w.bit_length() - 1,
+                tile_hl=tile_h.bit_length() - 1)
+
+
+def scan_words(lanes):
+    """The status words S2's scan needs for a pool of ``lanes`` lanes: one
+    a block of ``REGEN_THREADS``."""
+    return -(-lanes // REGEN_THREADS)
+
+
+def step_regen(cs, wf, pool, terminal=None):
     """S2 on ``pool`` of the wavefront ``wf`` (an ``integrator._Wavefront``)
     in one launch. With ``terminal`` (S1's (R,) bool flags, its colors in
-    ``pool.color``) and ``rank`` (their inclusive ``torch.cumsum``, int64):
-    the rest of ``wf.step`` (``wf.regen_plain`` says what it computes).
-    Without them: the camera part of ``wf.reset`` for the wide pool
-    (``wf.reset_plain``). Returns None."""
+    ``pool.color``): the rest of ``wf.step`` (``wf.regen_plain`` says what
+    it computes), the exclusive scan of the flags included (a single-pass
+    scan in the kernel over ``wf.scan_status``, blocks ordered by
+    ``wf.ticket``, which the kernel puts back). Without them: the camera
+    part of ``wf.reset`` for the wide pool (``wf.reset_plain``). Returns
+    None."""
     dev = pool.qpos.device
     reset = terminal is None
     if dev.type == "cpu":
@@ -659,14 +742,14 @@ def step_regen(cs, wf, pool, terminal=None, rank=None):
     if dev.type != "cuda":
         raise ValueError(f"step_regen: unsupported device {dev}")
     regen_kernel(_build.library().step_regen_launch, cs, wf, pool, terminal,
-                 rank, _build.stream_of(pool.qpos))
+                 _build.stream_of(pool.qpos))
     step_regen.launches += 1
 
 
 step_regen.launches = 0
 
 
-def regen_kernel(fn, cs, wf, pool, terminal, rank, stream):
+def regen_kernel(fn, cs, wf, pool, terminal, stream):
     """S2's launch through its C entry ``fn`` (``step_regen_launch``) on
     ``stream``: the argument checks and the two argument arrays."""
     dev = pool.qpos.device
@@ -695,21 +778,29 @@ def regen_kernel(fn, cs, wf, pool, terminal, rank, stream):
         ptrs["pix_ids"] = p(wf.pix)
     if not reset:
         _check("step_regen: terminal", terminal, torch.bool, r, dev)
-        _check("step_regen: rank", rank, torch.int64, r, dev)
         if pool.color.shape != (r, 3) or not pool.color.is_contiguous():
             raise ValueError("step_regen: color must be contiguous (R, 3)")
         if wf.accum.shape != (wf.total_q + 1, 3) or \
                 not wf.accum.is_contiguous():
             raise ValueError("step_regen: accum must be contiguous "
                              "(total_q + 1, 3)")
-        ptrs.update(terminal=p(terminal), rank=p(rank), color=p(pool.color),
+        status = wf.scan_status
+        if status.dtype != torch.int64 or status.device != dev or \
+                status.dim() != 1 or not status.is_contiguous() or \
+                status.shape[0] < scan_words(r):
+            raise ValueError(f"step_regen: scan_status must be a contiguous "
+                             f"int64 tensor of {scan_words(r)} words or more "
+                             f"on {dev}")
+        _check("step_regen: ticket", wf.ticket, torch.int32, 2, dev)
+        ptrs.update(terminal=p(terminal), color=p(pool.color),
                     accum=p(wf.accum), next_q=p(wf.next_q),
-                    segments=p(wf.segments), done=p(wf.done))
+                    segments=p(wf.segments), ticket=p(wf.ticket),
+                    status=p(wf.scan_status))
     for name, x in zip(LANE_ARRAYS, lanes):
         ptrs["pool_" + name] = p(x)
-    tile_w, tile_h = wf.swizzle or (0, 0)
     ints = dict(n=r, total_q=wf.total_q, n_pix=wf.n_pix, width=wf.width,
-                height=wf.height, tile_w=tile_w, tile_h=tile_h,
-                seed=int(wf.seed) & 0xFFFFFFFF, reset=int(reset))
+                height=wf.height, n_status=wf.scan_status.shape[0],
+                seed=int(wf.seed) & 0xFFFFFFFF, reset=int(reset),
+                **regen_constants(wf))
     _build.check(_launch(fn, REGEN_PTRS, REGEN_INTS, ptrs, ints, stream),
                  "step_regen")

@@ -848,8 +848,12 @@ class _Wavefront:
         self.next_q = torch.zeros((), **i64)
         self.segments = torch.zeros((), **i64)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
-        # S2's count of finished blocks (0 between launches)
-        self.done = torch.zeros((1,), dtype=torch.int32, device=dev)
+        # S2's scan: its count of started blocks (0 between launches: the
+        # kernel puts it back) and of its launches, and one status word a
+        # block of the wide pool (tagged by the launch: never cleared)
+        self.ticket = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.scan_status = torch.zeros((step_ops.scan_words(self.lanes),),
+                                       dtype=torch.int64, device=dev)
         self.accum = torch.zeros((self.total_q + 1, 3), dtype=torch.float32,
                                  device=dev)
         self.pools = [_Pool(n, dev) for n in (self.lanes, self.tail_lanes)
@@ -917,10 +921,10 @@ class _Wavefront:
 
     def step(self, cs, pool):
         """One iteration of ``pool``: the scene-hit kernels, S1
-        (``ops.step.step_shade``) into the pool in place, the inclusive scan
-        of its terminal flags, and S2 (``ops.step.step_regen``): the
-        finished paths' colors stored in their rows, and terminal lanes
-        claiming the next queue positions in order with new camera rays. On
+        (``ops.step.step_shade``) into the pool in place, and S2
+        (``ops.step.step_regen``): the finished paths' colors stored in
+        their rows, and terminal lanes claiming the next queue positions in
+        order (S2 scans the terminal flags itself) with new camera rays. On
         CPU tensors the wrappers run their plain versions; ``step_plain``
         is the whole step's."""
         t, kind, idx = step_hit(cs, pool.o, pool.d, pool.pixel, pool.sample,
@@ -929,8 +933,7 @@ class _Wavefront:
                             pool.acc_len, pool.fold, pool.pixel, pool.sample,
                             self.seed, (pool.qpos, self.total_q),
                             self.max_depth, out=pool.shade_out())
-        rank = torch.cumsum(pool.terminal, 0)
-        step_ops.step_regen(cs, self, pool, pool.terminal, rank)
+        step_ops.step_regen(cs, self, pool, pool.terminal)
 
     def step_plain(self, cs, pool):
         """``step`` in torch: ``path_step_plain`` on every lane (with the

@@ -36,6 +36,18 @@ S1B), the host reads of a step (null on a tree without
 ``profiling.HostReads``), the loss and the gradient's absolute sum, and
 one step under ``torch.profiler`` (device ops, busy ms, idle).
 
+The step kernels' cells (``kernels_<scene>``, ``KERNEL_SCENES``: the
+262,088-triangle interior at 1920x1080, the bench's textured sponza,
+sponza_production and many_lights at their bench sizes, the mixed BVH
+scene at 1920x1080 and the normal-mapped kitchen, K4, at 400x266x8):
+S1 (``ops.step.step_shade``) and S2 (``ops.step.step_regen`` with the
+scan of the terminal flags it needs) on one pool at each of
+``KERNEL_WIDTHS`` lanes (the tail pool's 16,384, the wide pool's 131,072
+and the 2,073,600 of a 1080p ``render_pixels``, the inverse step's), set
+up by ``step_kernel_calls``; device ms by ``device_ms``, S2's less the
+put-back of the queue head that makes it repeat, and the pool's terminal
+lanes.
+
 ``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
 unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
 tree and DIR again, each in a process of its own that imports that tree's
@@ -50,7 +62,9 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import math
 from collections import Counter
 import statistics
 import subprocess
@@ -63,8 +77,17 @@ RUNS = 5
 NAMED_OPS = 64
 SEED = 1
 DEPTH = 50
+# the step kernels' cells: each one's scene, as the workload of that name
+# builds it ("interior": the untextured 262,088-triangle sponza-class
+# scene at 1920x1080), and their widths
+KERNEL_SCENES = {"sponza": "interior", "sponza_textured": "sponza",
+                 "sponza_production": "sponza_production",
+                 "many_lights": "many_lights", "mixed": "step_mixed",
+                 "kitchen": "kitchen_k4"}
+KERNEL_WIDTHS = (16384, 131072, 2073600)
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
-             "kitchen_sink", "megakernel", "step_kitchen", "step_mixed")
+             "kitchen_sink", "megakernel", "step_kitchen", "step_mixed",
+             *(f"kernels_{x}" for x in KERNEL_SCENES))
 # the inverse step's cells: (width, height) of each
 STEPS = {"step_kitchen": (400, 266), "step_mixed": (1920, 1080)}
 HERE = Path(__file__).resolve().parent.parent
@@ -75,8 +98,12 @@ def _workload(name):
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import bench, fixtures
 
+    if name.startswith("kernels_"):
+        name = KERNEL_SCENES[name.removeprefix("kernels_")]
     if name == "kitchen_k4":
         w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
+    elif name == "interior":
+        w, h, spp, build = 1920, 1080, 1, fixtures.sponza_class_scene
     elif name in STEPS:
         (w, h), spp = STEPS[name], 1
         build = (fixtures.kitchen_sink_scene if name == "step_kitchen" else
@@ -252,6 +279,106 @@ def measure_step(cs, w, h):
                 **prof)
 
 
+def device_ms(fn, n=20, reps=3):
+    """Milliseconds of device time per fn(): ``n`` calls queued behind a
+    ``torch.cuda._sleep`` that outlasts their enqueue, CUDA events around
+    the calls; median of ``reps``."""
+    import torch
+
+    fn()
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def step_kernel_calls(cs, w, h, spp, lanes, depth=DEPTH):
+    """The wavefront step's kernels as calls that repeat, on one pool: a
+    ``_Wavefront`` of ``lanes`` lanes (its samples raised so that the queue
+    holds three pools) after ``reset_plain`` and two plain steps, and the
+    hit of its next step. ``s1``: S1 in ``path_step``'s form (new
+    outputs) on a copy of the pool's state. S1 then runs once in place on
+    the pool; ``s2``: S2 on its flags, the queue head put back first
+    (``restore``, which the caller times alone and subtracts). On a tree
+    whose S2 takes the ranks of an outside scan (a ``rank`` argument),
+    ``s2`` runs ``torch.cumsum`` of the flags first, as that tree's step
+    does. Returns a dict: ``wf``, ``pool``, ``hit`` (t, kind, idx as S1
+    takes them), ``o``, ``d`` and ``args`` (the copies ``s1`` reads; args:
+    its inputs after o and d), ``shaded`` (the outputs of one ``s1``),
+    ``terminal`` (the flags S2 reads), ``s1``, ``s2``, ``restore``."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+    from solstrale_tpu_torch.renderer import integrator
+
+    spp = max(spp, math.ceil(3 * lanes / (w * h)))
+    wf = integrator._Wavefront(cs.device, w, h, depth, spp, 1, lanes, None,
+                               None)
+    wf.begin(1, None)
+    pool = wf.pools[0]
+    wf.reset_plain(cs, pool)
+    for _ in range(2):
+        wf.step_plain(cs, pool)
+    hit = integrator.step_hit(cs, pool.o, pool.d, pool.pixel, pool.sample,
+                              pool.bounce, 1)
+    o, d, args = _copied((pool.o, pool.d, (
+        pool.bounce, pool.acc_len, pool.fold, pool.pixel, pool.sample, 1,
+        pool.qpos < wf.total_q, depth)))
+
+    def s1():
+        return step.step_shade(cs, *hit, o, d, *args)
+
+    shaded = s1()
+    step.step_shade(cs, *hit, pool.o, pool.d, pool.bounce, pool.acc_len,
+                    pool.fold, pool.pixel, pool.sample, 1,
+                    (pool.qpos, wf.total_q), depth, out=pool.shade_out())
+    term = pool.terminal.clone()
+    head = wf.next_q.clone()
+    ranked = "rank" in inspect.signature(step.step_regen).parameters
+
+    def restore():
+        wf.next_q.copy_(head)
+
+    def s2():
+        restore()
+        if ranked:
+            step.step_regen(cs, wf, pool, term, torch.cumsum(term, 0))
+        else:
+            step.step_regen(cs, wf, pool, term)
+
+    return dict(wf=wf, pool=pool, hit=hit, o=o, d=d, args=args,
+                shaded=shaded, terminal=term, s1=s1, s2=s2, restore=restore)
+
+
+def _copied(x):
+    """A copy of the tensors in nested tuples ``x``, the rest as it is."""
+    if isinstance(x, tuple):
+        return tuple(_copied(v) for v in x)
+    return x.clone() if hasattr(x, "clone") else x
+
+
+def measure_kernels(cs, w, h, spp):
+    """The line of a step kernels' cell (see the module docstring)."""
+    out = {}
+    for lanes in KERNEL_WIDTHS:
+        calls = step_kernel_calls(cs, w, h, spp, lanes)
+        restore = device_ms(calls["restore"])
+        out[str(lanes)] = dict(
+            s1_ms=device_ms(calls["s1"]),
+            s2_ms=device_ms(calls["s2"]) - restore, restore_ms=restore,
+            terminal_lanes=int(calls["terminal"].sum()))
+    return dict(widths=out)
+
+
 def _device():
     import torch
 
@@ -287,8 +414,9 @@ def worker(root, steps, side, workloads=WORKLOADS):
         t0 = time.perf_counter()
         cs = compile_scene(scene, device="cuda")
         compile_s = time.perf_counter() - t0
-        if name in STEPS:
-            line = measure_step(cs, w, h)
+        if name in STEPS or name.startswith("kernels_"):
+            line = (measure_step(cs, w, h) if name in STEPS else
+                    measure_kernels(cs, w, h, spp))
             print(json.dumps(dict(side=side, workload=name, width=w,
                                   height=h, max_depth=DEPTH,
                                   compile_s=compile_s, gpu=gpu, **line)),

@@ -586,6 +586,8 @@ STEP_SCENES = {
     "production": lambda c: fixtures.sponza_production_scene(
         c, n_cells=24, tex_size=64),
     "kitchen": fixtures.kitchen_sink_scene,
+    # small tables too large to stage: S1 reads them from device memory
+    "many_materials": fixtures.many_material_scene,
 }
 
 
@@ -668,6 +670,50 @@ def test_step_graph_batch_matches_plain_batch(cuda, name):
     assert torch.equal(color, want) and int(segs) == int(want_segs)
     assert launches["draw"] == 0
     assert launches["S1"] == stats["iters"] == launches["S2"] - 1
+
+
+@pytest.mark.parametrize("lanes,case", [
+    (20000, "ragged"), (20000, "all"), (20000, "none"), (16384, "ragged"),
+    (8192, "all"), (131149, "ragged"), (131149, "all")])
+def test_s2_scan_matches_plain_on_edge_pools(cuda, lanes, case):
+    """S2 with its in-kernel scan (decoupled look-back over its blocks'
+    status words) against regen_plain bit for bit on pools whose lanes are
+    no multiple of its block (20,000, 131,149), the tail pool's widths
+    (16,384, 8,192), and flag patterns of every kind: random, every active
+    lane terminal (the queue runs out on the second call of the widest) and
+    none; three calls in a row, each on the last one's state, and after
+    each the ticket back at 0 and the launch counted."""
+    from solstrale_tpu_torch.ops import step
+
+    w, h, spp = 128, 64, 40
+    cs = compile_scene(STEP_SCENES["kitchen"](T.RenderConfig(width=w,
+                                                             height=h)),
+                       device=cuda)
+    wk, wp = (integrator._Wavefront(cs.device, w, h, 3, spp, 1, lanes, None,
+                                    None) for _ in range(2))
+    for wf in (wk, wp):
+        wf.begin(1, None)
+        wf.reset_plain(cs, wf.pools[0])
+        wf.step_plain(cs, wf.pools[0])
+    pk, pp = wk.pools[0], wp.pools[0]
+    gen = torch.Generator().manual_seed(lanes)
+    for k in range(3):
+        active = pp.qpos < wp.total_q
+        pattern = {"ragged": torch.rand(lanes, generator=gen) < 0.3,
+                   "all": torch.ones(lanes, dtype=torch.bool),
+                   "none": torch.zeros(lanes, dtype=torch.bool)}[case]
+        term = pattern.to(cuda) & active
+        color = torch.rand((lanes, 3), generator=gen).to(cuda)
+        pk.color.copy_(color)
+        pp.color.copy_(color)
+        step.step_regen(cs, wk, pk, term.clone())
+        wp.regen_plain(cs, pp, color, term)
+        for a, b in zip(pk.tensors(), pp.tensors()):
+            assert _same(a, b)
+        assert _same(wk.accum[:wk.total_q], wp.accum[:wp.total_q])
+        assert int(wk.next_q) == int(wp.next_q)
+        assert int(wk.segments) == int(wp.segments)
+        assert wk.ticket.tolist() == [0, k + 1]
 
 
 def _counted(fn):

@@ -195,10 +195,11 @@ def test_wavefront_step_with_a_tail_pool_and_a_shard():
 def test_step_tables_layout(name):
     """S1's and S2's tables against the compiled scene: f32 rows padded to
     16 bytes (sph_attr to 8 columns, pl_attr to 28), the materials, texel
-    and texture tables as they are, K5's camera and light rows, the media's
-    phase materials, K1's slot decode, the quads' count and the feature
-    flag bits; every table contiguous on the scene's device and packed
-    once per scene."""
+    and texture tables as they are, K5's camera and light rows, the four
+    small tables as views of one buffer, each from a 16-byte boundary (S1
+    stages the buffer whole), the media's phase materials, K1's slot ->
+    row map, the quads' count and the feature flag bits; every table
+    contiguous on the scene's device and packed once per scene."""
     cs = _cs(name)
     tab = S.step_tables(cs)
     assert S.step_tables(cs) is tab
@@ -207,8 +208,8 @@ def test_step_tables_layout(name):
                      (tab.pln, torch.float32), (tab.mats, torch.float32),
                      (tab.tex_attr, torch.float32),
                      (tab.texels, torch.float32), (tab.lights, torch.float32),
-                     (tab.med_mat, torch.int32), (tab.pl_idx, torch.int32),
-                     (tab.pl_is_tri, torch.bool)):
+                     (tab.med_mat, torch.int32), (tab.pl_row, torch.int32),
+                     (tab.small, torch.float32)):
         assert x.dtype == dtype and x.is_contiguous()
         assert x.device == cs.device
     assert tab.sph.shape == (s.sph_attr.shape[0], 8)
@@ -223,9 +224,15 @@ def test_step_tables_layout(name):
     assert torch.equal(tab.cam, megakernel.camera_table(cs))
     assert torch.equal(tab.lights, megakernel.light_table(cs))
     assert torch.equal(tab.lights[:, :11], cs.lights.attr)
+    base = tab.small.data_ptr()
+    ends = []
+    for x in (tab.cam, tab.mats, tab.tex_attr, tab.lights):
+        off = x.data_ptr() - base
+        assert off % 16 == 0 and off >= (ends[-1] if ends else 0)
+        ends.append(off + x.numel() * 4)
+    assert ends[-1] <= tab.small.numel() * 4 and tab.small.numel() % 4 == 0
     assert tab.med_mat.tolist() == [int(m.mat) for m in cs.media]
-    assert torch.equal(tab.pl_idx, s.pl_idx.int())
-    assert torch.equal(tab.pl_is_tri, s.pl_is_tri)
+    assert tab.pl_row.shape == s.pl_idx.shape
     assert tab.n_q == s.qd_q.shape[0]
     flags = {"blend": S.FLAG_BLEND, "normal_maps": S.FLAG_NORMAL_MAPS,
              "spheres": S.FLAG_SPHERES}
