@@ -42,18 +42,28 @@ script exits non-zero):
      normal-mapped kitchen on K4 at depth 4), S2's reset and six chained
      steps each, every output equal (NaN where the plain has NaN); at each
      step S1 with its record (``ops.step.shade_with_record``) against
-     ``shade_plain(..., record=True)`` bit for bit and S1B
-     (``ops.step.step_shade_backward``, the differentiable route's
-     backward) against ``step_shade_backward_plain`` on that record and
-     upstream gradients from a seed: the fold's gradients bit for bit, the
-     arena's and the background's within rtol 1e-5, atol 1e-7; S2 alone
+     ``shade_plain(..., record=True)`` bit for bit, a quarter of the lanes
+     parked, and S1B (``ops.step.step_shade_backward``, the differentiable
+     route's backward) against ``step_shade_backward_plain`` on that record
+     and finite upstream gradients from a seed (the color's 0 on a third
+     of the lanes), each adding into sums of its own: the fold's gradients
+     bit for bit, lanes S1B passes through included, the arena's and the
+     background's sums (all finite) within 1e-5 of the magnitudes summed,
+     and 1e-7; then the fold's gradients alone again with the color's
+     gradient inf or NaN on a few lanes, which must not pass; S2 alone
      against ``regen_plain`` on edge pools (20,000 and 131,149 lanes, no
      multiple of its block; 16,384 and 131,072; random flags, every
      active lane terminal, none), three calls each; one captured step
      replayed 8 times against as many plain steps; each kernel's device,
      wrapper and plain time against its byte bound (S1B's on the mixed
-     scene's record); S1's and S2's device time and bound at 16,384,
-     131,072 and 2,073,600 lanes and ptxas' registers and spills of the
+     scene's record, with the fixed trip's upstream gradients, as the
+     inverse step calls it: into a sums buffer made once, so its device
+     time is the kernel's alone; and checked on the same record with every
+     lane's texel row one row, a solid colour); S1's, S2's and S1B's
+     device time and bound at 16,384, 106,400, 131,072 and 2,073,600
+     lanes, S1B checked against its plain version at each (at 2,073,600
+     each block of its resident grid loops over several tiles), and
+     ptxas' registers and spills of the
      step kernels; S1 and the step on a seventh scene, whose small tables
      are too large to stage in shared memory, chained as on the six;
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
@@ -110,7 +120,8 @@ script exits non-zero):
      2: taken by hand, a finite loss, a non-zero finite gradient, its peak
      memory and the kernels' launches in the forward (S1 51) and in the
      replay (S1 50, S1B 51; the draw kernel 2 for the camera rays and 0),
-     its loss equal to
+     one zero fill of the arena's size in the backward and no add of one
+     (the pass's gradient sums), its loss equal to
      that of the route before S1B (autograd through ``shade_plain``, put in
      place of ``path_step_grad`` by ``_parent_route_step``) and its
      gradient within rtol 1e-4, atol 1e-7 (atomic sums grouped otherwise),
@@ -125,7 +136,8 @@ script exits non-zero):
      each in turns, median and all), the capture's time and the peak bytes
      of the capture, a replay and the eager step, and the graph pool's
      resident bytes, and one replay under ``torch.profiler`` (device ops a
-     step, busy time, each kernel's time); on the kitchen, a 10-step SGD loop through
+     step, the fills and adds among them, busy time, each kernel's time);
+     on the kitchen, a 10-step SGD loop through
      ``set_texture_params`` from a scene of its own, one capture, its
      final arena equal to the eager loop's (rtol 1e-4, atol 1e-7); card
      against CPU gradients at 64x32, depth 8 (rtol 1e-3, atol 1e-4); on a
@@ -157,9 +169,10 @@ script exits non-zero):
      new scenes at a small size on the card against the CPU, repeated bit
      for bit.
 The last lines are the card's name and power limit, the kernels' JSON
-summary (K1-K5, the draw kernel, S1 and S2; the draw kernel's launches
-are those of the denoised render of phase 3d, its one path left on the
-card: ``first_hit_aux``) and the result line.
+summary (K1-K5, the draw kernel, S1, S2 and S1B; the draw kernel's
+launches are those of the denoised render of phase 3d, its one path left
+on the card: ``first_hit_aux``; S1B's those of phase 5's graphed steps,
+its ``ms`` the kernel alone) and the result line.
 """
 import json
 import os
@@ -177,9 +190,6 @@ KITCHEN_SOLID_SEGMENTS = 43809619
 # plain version K5 is exact
 TOL_K5 = 2e-3
 
-# bounds: one H100 SXM at its published peaks
-PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12     # device memory bytes/s
 # f32 operations of one ray-prim test, counted from csrc/hit.cuh (sqrt and
 # division count one each; compares not counted)
 FLOPS_SPHERE = 31
@@ -235,21 +245,14 @@ K5_LIGHT = {0: 31, 1: 55, 2: 57}   # light_pdf_mean per sphere / quad /
 # pdfs or K5_BASIC; every lane S2 regenerates its camera ray, 46
 S1_LANE = 18
 S2_REGEN = 46
-# S1B's f32 operations a lane (csrc/step.cu::step_shade_backward): per
-# channel the terminal color's reverse 7 (A t_c, the upstream times att,
-# the minimum's halving, gx A, gx t_c, the two sums into g_B and g_bg's
-# share), the fold's 10 (3A, the minimum's halving, go 3, g_p A, that
-# times m, albedo m, g_p times it, g_A's three sums less one, g_B's sum),
-# and the albedo gradient's sum 1; the block sum of g_bg 3 a lane
-S1B_LANE = 3 * 18 + 3
 # the lanes of the step kernels' checks and times: the wide pool's; phase
-# 2c's scenes (``_wavefront_scene``) and the widths its S1 and S2 are timed
-# at besides (the tail pool's, and a 1080p render_pixels', the inverse
-# step's)
+# 2c's scenes (``_wavefront_scene``) and the widths its S1, S2 and S1B are
+# timed at besides (the tail pool's, a 400x266 inverse step's, and a 1080p
+# render_pixels', the inverse step's)
 STEP_LANES = 131072
 STEP_SCENES = ("sponza", "sponza_textured", "sponza_production",
                "many_lights", "mixed", "kitchen")
-STEP_WIDTHS = (16384, 131072, 2073600)
+STEP_WIDTHS = (16384, 106400, 131072, 2073600)
 # chained steps checked per scene in phase 2c
 STEP_BOUNCES = 6
 
@@ -259,11 +262,13 @@ def log(phase, **kw):
 
 
 def bound(nbytes, flops):
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the f32 operations over the f32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_F32 * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    """The least time the card could take (``wavefront_ab.bound_ms``: the
+    larger of the bytes over the memory rate and the f32 operations over
+    the f32 peak, one H100 SXM's published peaks)."""
+    from solstrale_tpu_torch.wavefront_ab import bound_ms
+
+    ms, by = bound_ms(nbytes, flops)
+    return dict(bound_ms=ms, bound_by=by)
 
 
 def sweep_flops(n_sph, n_pl):
@@ -676,10 +681,11 @@ def phase_draws():
     its plain chain (``uniform4_plain``) at the main path's shapes and at
     every argument form the callers pass: the four floats bit for bit (so
     the top 24 bits of every PCG4D word), one launch a call (one device
-    kernel at the wide pool's form), ``uniform`` row 0 of it. Timed at the wide pool's 131,072
-    lanes; bound: the counters read once (int64 pixel and sample, int32
-    bounce) and four f32 written, over the memory rate. Returns its row of
-    the kernels line."""
+    kernel at the wide pool's form), ``uniform`` row 0 of it. Timed at the
+    wide pool's 131,072 lanes and at its callers' 2,073,600 (a 1080p
+    image's camera rays); bound: the counters read once (int64 pixel and
+    sample, int32 bounce; an int is no bytes) and four f32 written, over
+    the memory rate. Returns its row of the kernels line."""
     import torch
     from solstrale_tpu_torch import profiling
     from solstrale_tpu_torch.ops import rng
@@ -736,8 +742,14 @@ def phase_draws():
         raise AssertionError(f"draws: one call ran {kernels['draw']}")
     tm = kernel_times(lambda: rng.uniform4(*wide[:3], rng.P_COSINE, 1),
                       lambda: rng.uniform4_plain(*wide[:3], rng.P_COSINE, 1))
+    # its callers' width: a 1080p render_pixels' camera rays (the inverse
+    # step's two launches), the pixel ids with an int sample and bounce
+    camera = dict(ms=device_ms(lambda: rng.uniform4(full, 1, 0, rng.P_JITTER,
+                                                    1)),
+                  **bound(nbytes(full) + 16 * full.shape[0], 0))
     row = dict(max_abs_err=0.0, **tm,
-               **bound(nbytes(pix, samp, bounce) + 16 * lanes, 0))
+               **bound(nbytes(pix, samp, bounce) + 16 * lanes, 0),
+               widths={full.shape[0]: camera})
     log("kernel", name="rng_uniform4 (draws)", lanes=lanes,
         forms=list(forms), calls_checked=checked, bit_equal=True,
         device_kernels_per_call=1, **row)
@@ -879,8 +891,12 @@ def _step_times(cs, w, h, spp, depth):
     outputs) against ``shade_plain``; S2, its scan of S1's flags inside,
     on those flags (idempotent once the queue head is put back before each
     call; that 8-byte copy's own time is subtracted) against
-    ``regen_plain``; S1B on the pool's next hit. Returns their
-    kernels-line rows."""
+    ``regen_plain``; S1B on the pool's next hit (``wavefront_ab.s1b_calls``:
+    upstream gradients as the fixed trip gives them), and on the same
+    record with every lane's texel row one row (``s1b_one_row``: a solid
+    colour, where a warp sums one row). Returns their kernels-line
+    rows."""
+    import torch
     from solstrale_tpu_torch import wavefront_ab
     from solstrale_tpu_torch.ops import bvh
     from solstrale_tpu_torch.renderer import integrator
@@ -908,43 +924,42 @@ def _step_times(cs, w, h, spp, depth):
     for k in ("ms", "wrapper_ms", "plain_ms"):
         s2t[k] -= base[k]
     s2t.update(bound(*_s2_work(cs, r, n_term)))
-    s1b = _s1b_times(cs, integrator.step_hit(cs, pool.o, pool.d, pool.pixel,
-                                             pool.sample, pool.bounce, 1),
-                     pool, args[-2], depth)
+    s1b = _s1b_row(cs, wavefront_ab.s1b_calls(cs, pool, args[-2], depth))
+    # a solid colour: every lane's texel row one row, the most read one
+    rows = s1b.pop("rec")[0]
+    read = rows[rows >= 0]
+    top = int(torch.mode(read).values) if read.numel() else 0
+    solid = _s1b_row(cs, wavefront_ab.s1b_calls(cs, pool, args[-2], depth,
+                                                 one_row=top), timed=False)
+    solid.pop("rec")
     return dict(s1=dict(max_abs_err=0.0, **s1),
-                s2=dict(max_abs_err=0.0, **s2t), s1b=s1b,
+                s2=dict(max_abs_err=0.0, **s2t), s1b=s1b, s1b_one_row=solid,
                 terminal_lanes=n_term)
 
 
 def _width_times(cs, w, h, spp, lanes):
-    """S1's and S2's device ms and bound at ``lanes`` lanes (depth 50), as
-    ``_step_times`` sets them up."""
+    """S1's, S2's and S1B's device ms and bound at ``lanes`` lanes (depth
+    50), as ``_step_times`` sets them up; S1B as the inverse step calls it
+    (``wavefront_ab.s1b_calls``), and checked there against its plain
+    version (``_s1b_against_plain``): above ~270,000 lanes each block of
+    its resident grid loops over several tiles of lanes."""
     from solstrale_tpu_torch import wavefront_ab
 
     c = wavefront_ab.step_kernel_calls(cs, w, h, spp, lanes)
     n_term = int(c["terminal"].sum())
     restore = device_ms(c["restore"])
+    pool = c["pool"]
+    b = wavefront_ab.s1b_calls(cs, pool, pool.qpos < c["wf"].total_q)
+    err = _s1b_against_plain(b["rec"], b["ab"], cs.textures.pixels,
+                             cs.bg_color, b["g_color"], b["g_out"])
     return dict(
         s1=dict(ms=device_ms(c["s1"]),
                 **bound(*_s1_work(cs, c["hit"], c["shaded"], lanes))),
         s2=dict(ms=device_ms(c["s2"]) - restore, restore_ms=restore,
                 **bound(*_s2_work(cs, lanes, n_term))),
+        s1b=dict(ms=device_ms(b["launch"]), max_abs_err=max(err.values()),
+                 **bound(*wavefront_ab.s1b_work(b["rec"], b["g_color"]))),
         terminal_lanes=n_term)
-
-
-def _ptxas(log):
-    """ptxas' lines for the step kernels in a build log: each entry's
-    name, then its stack, spills and registers."""
-    out, keep = [], False
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            keep = "step_" in ln
-            if keep:
-                out.append(ln.split("'")[1] if "'" in ln else ln)
-        elif keep and ("registers" in ln or "spill" in ln
-                       or "stack frame" in ln):
-            out.append(ln.split("ptxas info    :")[-1].strip())
-    return out
 
 
 # S2's edge pools of phase 2c: (lanes, flags) with lanes no multiple of its
@@ -1036,13 +1051,29 @@ def _replayed_steps(cs, w, h, spp, depth):
 
 def _upstream(r, seed):
     """Upstream gradients of S1's color and fold outputs, from a seed: (R,
-    3) and six (R,) f32 on the card."""
+    3) and six (R,) f32 on the card, finite; the color's 0 (+0 or -0) on a
+    third of the lanes, where S1B passes a quiet lane's fold gradients
+    through."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return (torch.randn((r, 3), generator=gen, device="cuda"),
-            [torch.randn((r,), generator=gen, device="cuda")
-             for _ in range(6)])
+    g_color = torch.randn((r, 3), generator=gen, device="cuda")
+    u = torch.rand((r, 1), generator=gen, device="cuda")
+    g_color = torch.where(u < 1 / 6, 0.0, torch.where(u < 1 / 3, -0.0,
+                                                      g_color))
+    return (g_color, [torch.randn((r,), generator=gen, device="cuda")
+                      for _ in range(6)])
+
+
+def _wild(g_color, seed):
+    """``g_color`` with inf on 0.5% of the lanes and NaN on another 0.5%
+    (from a seed), which S1B must not pass through."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand((g_color.shape[0], 1), generator=gen, device="cuda")
+    g_color = torch.where((u > 0.99) & (u < 0.995), float("inf"), g_color)
+    return torch.where(u >= 0.995, float("nan"), g_color)
 
 
 def _sums_close(name, got, want, scale):
@@ -1059,23 +1090,68 @@ def _sums_close(name, got, want, scale):
                              f"largest by {float((got - want).abs().max())}")
 
 
+def _s1b_against_plain(rec, ab, arena, bg, g_color, g_out, sums=True):
+    """S1B (``ops.step.step_shade_backward``) against its plain version on
+    the same inputs, each adding into sums of its own: the fold's
+    gradients bit for bit and, with ``sums``, the arena's and the
+    background's sums (by atomics on the card) within 1e-5 of the
+    magnitudes summed into each entry, and 1e-7 (``_sums_close``; the
+    magnitudes: the plain backward of the upstream's absolute values, every
+    coefficient being non-negative), the plain sums all finite, so that no
+    entry is held as NaN against NaN. Returns the largest absolute
+    differences of the sums (with ``sums``)."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+
+    k_sums, p_sums, s_sums = (torch.zeros((arena.shape[0] + 1, 3),
+                                          device=arena.device)
+                              for _ in range(3))
+    k_ab = step.step_shade_backward(rec, ab, arena, bg, g_color, g_out,
+                                    k_sums)
+    p_ab = step.step_shade_backward_plain(rec, ab, arena, bg, g_color, g_out,
+                                          p_sums)
+    bad = [n for n, a, c in zip(step.FOLD_ARRAYS, k_ab, p_ab)
+           if not _same(a, c)]
+    if bad:
+        raise AssertionError(f"S1B's fold gradients differ from the plain "
+                             f"backward's in {bad}")
+    if not sums:
+        return {}
+    if not bool(torch.isfinite(p_sums).all()):
+        raise AssertionError("S1B's check: the plain version's sums are not "
+                             "all finite")
+    step.step_shade_backward_plain(rec, ab, arena, bg, g_color.abs(),
+                                   [g.abs() for g in g_out], s_sums)
+    _sums_close("S1B's arena gradient", k_sums[:-1], p_sums[:-1],
+                s_sums[:-1])
+    _sums_close("S1B's background gradient", k_sums[-1], p_sums[-1],
+                s_sums[-1])
+    diff = (k_sums - p_sums).abs()
+    return dict(arena=float(diff[:-1].max()), bg=float(diff[-1].max()))
+
+
 def _s1b_check(cs, hit, lanes, args, seed):
     """S1 with its record (``ops.step.shade_with_record``) against
     ``shade_plain(..., record=True)`` bit for bit (record, colors, flags,
-    lane state), then S1B (``ops.step.step_shade_backward``) against
-    ``step_shade_backward_plain`` on that record, the lanes' fold and
-    upstream gradients from ``seed``: the fold's gradients bit for bit, the
-    arena's and the background's (sums of signed terms, by atomics on the
-    card) within 1e-5 of the magnitudes summed into each entry, and 1e-7
-    (``_sums_close``; the magnitudes: the plain backward of the upstream's
-    absolute values, every coefficient being non-negative). Returns the
-    largest absolute differences and the lanes whose minimums tie."""
+    lane state), with a quarter of the active lanes parked (from
+    ``seed``), then S1B against ``step_shade_backward_plain`` on that
+    record, the lanes' fold and upstream gradients from ``seed``
+    (``_upstream``; ``_s1b_against_plain``), and again with the color's
+    gradient inf or NaN on a few lanes (``_wild``), where only the fold's
+    gradients are held (a lane that missed or emitted makes its sums NaN).
+    Returns the largest absolute differences of the sums, the lanes whose
+    minimums tie and the lane channels S1B passes through (a parked
+    lane's, with a zero color gradient)."""
     import torch
+    from solstrale_tpu_torch import wavefront_ab
     from solstrale_tpu_torch.ops import bvh, step
     from solstrale_tpu_torch.renderer import integrator
 
     t, kind, idx = hit
     o, d = lanes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    parked = torch.rand(t.shape, generator=gen, device="cuda") < 0.25
+    args = (*args[:6], args[6] & ~parked, args[7])
     kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
         cs.solids, idx)
     got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args)
@@ -1090,62 +1166,41 @@ def _s1b_check(cs, hit, lanes, args, seed):
                              f"in {bad}")
     A, B = args[2][0], args[2][1]
     g_color, g_out = _upstream(t.shape[0], seed)
-    arena, bg = cs.textures.pixels, cs.bg_color
-    k_arena, k_bg, k_ab = step.step_shade_backward(rec, (*A, *B), arena, bg,
-                                                   g_color, g_out)
-    p_arena, p_bg, p_ab = step.step_shade_backward_plain(
-        rec, (*A, *B), arena, bg, g_color, g_out)
-    bad = [n for n, a, c in zip(step.FOLD_ARRAYS, k_ab, p_ab)
-           if not _same(a, c)]
-    if bad:
-        raise AssertionError(f"S1B's fold gradients differ from the plain "
-                             f"backward's in {bad}")
-    s_arena, s_bg, _ = step.step_shade_backward_plain(
-        rec, (*A, *B), arena, bg, g_color.abs(), [g.abs() for g in g_out])
-    _sums_close("S1B's arena gradient", k_arena, p_arena, s_arena)
-    _sums_close("S1B's background gradient", k_bg, p_bg, s_bg)
+    out = _s1b_against_plain(rec, (*A, *B), cs.textures.pixels, cs.bg_color,
+                             g_color, g_out)
+    _s1b_against_plain(rec, (*A, *B), cs.textures.pixels, cs.bg_color,
+                       _wild(g_color, seed), g_out, sums=False)
     pdf = (rec[3] & step.REC_PDF) != 0
-    ties = sum(int(((B[c] == 3.0 * A[c]) & pdf).sum()) for c in range(3))
-    return dict(arena=float((k_arena - p_arena).abs().max()),
-                bg=float((k_bg - p_bg).abs().max()), pdf_ties=ties)
+    out["pdf_ties"] = sum(int(((B[c] == 3.0 * A[c]) & pdf).sum())
+                          for c in range(3))
+    out["passed_through"] = int(wavefront_ab.s1b_through(rec, g_color).sum())
+    return out
 
 
-def _s1b_work(cs, rec):
-    """S1B's bytes (per lane: the record 16, the fold in 24, the upstream
-    gradients 36 and the fold's gradients out 24; each distinct texel row
-    re-read, 12; the arena's gradient written whole and the background's)
-    and f32 operations on one call's record."""
+def _s1b_row(cs, b, timed=True):
+    """S1B on ``wavefront_ab.s1b_calls``'s call ``b``, against its plain
+    version (``_s1b_against_plain``), and with ``timed`` its kernels-line
+    row: its device time as the inverse step calls it (``ms``: the wrapper
+    adding into a sums buffer made once, so the card runs the kernel
+    alone), one call on an idle card (``wrapper_ms``), the plain version's
+    time and the bound (``wavefront_ab.s1b_work``). The row keeps the
+    record (``rec``) for the caller."""
     import torch
-
-    r = rec.shape[1]
-    rows = int(torch.unique(rec[0][rec[0] >= 0]).numel())
-    n = cs.textures.pixels.shape[0]
-    return r * (16 + 24 + 36 + 24) + 12 * rows + 12 * n + 12, r * S1B_LANE
-
-
-def _s1b_times(cs, hit, pool, active, depth):
-    """S1B timed on the wide pool's lanes (their fold, S1's record of this
-    bounce, upstream gradients from a seed) against its plain version;
-    returns its kernels-line row."""
+    from solstrale_tpu_torch import wavefront_ab
     from solstrale_tpu_torch.ops import step
 
-    t, kind, idx = hit
-    _, rec = step.shade_with_record(cs, t, kind, idx, pool.o, pool.d,
-                                    pool.bounce, pool.acc_len, pool.fold,
-                                    pool.pixel, pool.sample, 1, active,
-                                    depth)
-    ab = (*pool.fold[0], *pool.fold[1])
-    g_color, g_out = _upstream(rec.shape[1], 5)
     arena, bg = cs.textures.pixels, cs.bg_color
-    tm = kernel_times(
-        lambda: step.step_shade_backward(rec, ab, arena, bg, g_color, g_out),
-        lambda: step.step_shade_backward_plain(rec, ab, arena, bg, g_color,
-                                               g_out))
-    k = step.step_shade_backward(rec, ab, arena, bg, g_color, g_out)
-    p = step.step_shade_backward_plain(rec, ab, arena, bg, g_color, g_out)
-    err = max(float((k[0] - p[0]).abs().max()),
-              float((k[1] - p[1]).abs().max()))
-    return dict(max_abs_err=err, **tm, **bound(*_s1b_work(cs, rec)))
+    args = (b["rec"], b["ab"], arena, bg, b["g_color"], b["g_out"])
+    err = _s1b_against_plain(*args)
+    row = dict(rec=b["rec"], max_abs_err=max(err.values()),
+               **bound(*wavefront_ab.s1b_work(b["rec"], b["g_color"])))
+    if timed:
+        scratch = torch.zeros((arena.shape[0] + 1, 3), device=arena.device)
+        row.update(ms=device_ms(b["launch"]),
+                   wrapper_ms=wrapper_ms(b["launch"]),
+                   plain_ms=wrapper_ms(lambda: step.step_shade_backward_plain(
+                       *args, scratch), reps=3, warmup=1))
+    return row
 
 
 def phase_step(sponza_cs):
@@ -1175,6 +1230,7 @@ def phase_step(sponza_cs):
     interior, S1B's of the mixed scene (the inverse step's cell on
     K1-K3)."""
     import torch
+    from solstrale_tpu_torch import wavefront_ab
     from solstrale_tpu_torch.ops import _build, bvh, step
     from solstrale_tpu_torch.renderer import integrator
 
@@ -1224,7 +1280,8 @@ def phase_step(sponza_cs):
                 counts[k] += int(want[k].sum())
             s1b = _s1b_check(cs, (t, kind, idx), (pp.o, pp.d), args, b)
             for k, v in s1b.items():
-                s1b_seen[k] = (max(s1b_seen.get(k, 0), v) if k != "pdf_ties"
+                s1b_seen[k] = (max(s1b_seen.get(k, 0), v)
+                               if k in ("arena", "bg")
                                else s1b_seen.get(k, 0) + v)
             wk.step(cs, pk)
             wp.step_plain(cs, pp)
@@ -1234,6 +1291,9 @@ def phase_step(sponza_cs):
                                      f"step differs from step_plain in {bad}")
         if name in ("mixed", "kitchen") and counts["capped"] == 0:
             raise AssertionError(f"step ({name}): no lane met the depth cap")
+        if not s1b_seen["passed_through"]:
+            raise AssertionError(f"step ({name}): S1B passed no lane's "
+                                 f"fold gradients through")
         if not staged:
             out[name] = dict(depth=depth, bounces=STEP_BOUNCES,
                              segments=counts, s1b_check=s1b_seen,
@@ -1244,22 +1304,25 @@ def phase_step(sponza_cs):
         times = _step_times(cs, w, h, spp, 50)
         if name == "sponza":
             rows = {"S1": times["s1"], "S2": times["s2"]}
+        keys = ("ms", "bound_ms", "bound_by")
         widths = {lanes: _width_times(cs, w, h, spp, lanes)
                   if lanes != STEP_LANES else
-                  dict(s1={k: times["s1"][k] for k in ("ms", "bound_ms",
-                                                       "bound_by")},
-                       s2={k: times["s2"][k] for k in ("ms", "bound_ms",
-                                                       "bound_by")},
+                  dict(s1={k: times["s1"][k] for k in keys},
+                       s2={k: times["s2"][k] for k in keys},
+                       s1b={k: times["s1b"][k]
+                            for k in keys + ("max_abs_err",)},
                        terminal_lanes=times["terminal_lanes"])
                   for lanes in STEP_WIDTHS}
         out[name] = dict(depth=depth, bounces=STEP_BOUNCES, segments=counts,
                          s1b_check=s1b_seen, s2_edges=edges,
                          graph_replays=replays, widths=widths, **times)
-    # S1B's row: the mixed scene, the inverse step's cell on K1-K3
-    rows["S1B"] = out["mixed"]["s1b"]
+    # S1B's row: the mixed scene, the inverse step's cell on K1-K3, with its
+    # times at each width
+    rows["S1B"] = dict(out["mixed"]["s1b"], widths={
+        lanes: v["s1b"] for lanes, v in out["mixed"]["widths"].items()})
     torch.cuda.synchronize()
     log("step", lanes=STEP_LANES, bit_equal=True,
-        ptxas=_ptxas(_build.BuildInfo.log),
+        ptxas=wavefront_ab.ptxas_lines(_build.BuildInfo.log),
         seconds=time.perf_counter() - start, **out)
     return rows
 
@@ -2658,10 +2721,12 @@ def phase_card_vs_cpu():
 def _grad_step(cs, target, w, h, depth, wrappers=None):
     """One inverse-rendering step (``diff.image_and_texture_grad``'s loss
     and arena gradient) taken by hand, so that the kernels' launches of the
-    forward and of the backward's replay are read apart. Returns (loss,
-    gradient, launches)."""
+    forward and of the backward's replay are read apart, and the backward's
+    zero fills and adds of the arena's size (``profiling.ArenaOps``) are
+    counted. Returns (loss, gradient, launches and arena ops)."""
     import torch
     from solstrale_tpu_torch import diff
+    from solstrale_tpu_torch.profiling import ArenaOps
 
     p = cs.textures.pixels.detach().requires_grad_(True)
     counts = {}
@@ -2673,7 +2738,9 @@ def _grad_step(cs, target, w, h, depth, wrappers=None):
     if wrappers:
         counts["forward"] = launch_counts(wrappers)
         reset_launches(wrappers)
-    g, = torch.autograd.grad(loss, p)
+    with ArenaOps(p.shape[0]) as ops:
+        g, = torch.autograd.grad(loss, p)
+    counts["arena_ops"] = dict(fills=ops.fills, adds=ops.adds)
     if wrappers:
         counts["replay"] = launch_counts(wrappers)
     return loss.detach(), g, counts
@@ -2872,7 +2939,7 @@ def phase_diff_parallel(sponza_cs, smi):
     from solstrale_tpu_torch.scene.compile import compile_scene
     from solstrale_tpu_torch.utils import to_rgb_u8
 
-    from solstrale_tpu_torch.profiling import _profile
+    from solstrale_tpu_torch.profiling import _profile, fills_and_adds
 
     wrappers = all_wrappers()
     start = time.perf_counter()
@@ -2895,9 +2962,13 @@ def phase_diff_parallel(sponza_cs, smi):
         loss, g, counts = _grad_step(cs, target, w, h, depth, wrappers)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        # the draw kernel: the camera rays' jitter and lens, none a bounce
+        # the draw kernel: the camera rays' jitter and lens, none a bounce;
+        # the arena's gradient zeroed once a backward pass (the pass's
+        # sums, ops.step.GradSums) and added to nothing else: no S1B call
+        # zeroes a gradient of its own, and autograd adds none a bounce
         want = {"forward": dict(S1=depth + 1, S1B=0, draw=2),
-                "replay": dict(S1=depth, S1B=depth + 1, draw=0)}
+                "replay": dict(S1=depth, S1B=depth + 1, draw=0),
+                "arena_ops": dict(fills=1, adds=0)}
         if any(counts[part][k] != n for part, ks in want.items()
                for k, n in ks.items()):
             raise AssertionError(f"{name}: the inverse step's launches "
@@ -2917,9 +2988,10 @@ def phase_diff_parallel(sponza_cs, smi):
                                                   depth, counts, wrappers)
         for k, n in cell["replay_launches"].items():
             path_launches[k] += n
-        prof = _profile(lambda: diff.image_and_texture_grad(
+        prof, kernels = _profile(lambda: diff.image_and_texture_grad(
             cs, target, width=w, height=h, max_depth=depth, n_samples=1,
-            seed=1))[0]
+            seed=1))
+        fills, adds = fills_and_adds(kernels)
         if not (bool(torch.isfinite(img).all())
                 and bool(torch.isfinite(g).all()) and bool((g != 0).any())):
             raise AssertionError(f"{name}: image or gradient not finite, "
@@ -2945,6 +3017,7 @@ def phase_diff_parallel(sponza_cs, smi):
             parent_route_loss_equal=True, parent_route_launches=counts_p,
             parent_route_grad_max_abs_err=float((g - g_p).abs().max()),
             device_ops_per_step=prof["kernel_launches"],
+            device_fills_per_step=fills, device_adds_per_step=adds,
             device_busy_ms=prof["device_busy_ms"],
             device_idle_share=prof["device_idle_share"],
             kernel_ms=prof["hit_kernel_ms"], **cell,

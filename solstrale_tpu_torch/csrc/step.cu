@@ -58,11 +58,19 @@
 // cap on their size (sponza's 262,092 planar rows). S2 reads ~30 bytes a
 // lane and writes ~80 bytes for each lane that ends; it is latency too:
 // its scan is one pass (decoupled look-back, no second launch), and its
-// queue arithmetic has no 64-bit division. S1B reads 88 bytes a lane
-// (record, fold, upstream gradients) and one texel row, and writes 24; its
-// arena gradient is an atomic add into the texel row a lane read, which
-// serialises where many lanes read one texel (a solid colour), so a warp
-// adds one sum for each row its lanes read.
+// queue arithmetic has no 64-bit division. S1B reads at most 100 bytes a
+// lane (record, fold, upstream gradients) and one texel row, and writes 24;
+// it adds the arena's and the background's gradients into sums that one
+// backward pass owns (ops.step.GradSums), so it zeroes nothing. Without
+// its arena sums it runs at 1.2-1.4x its byte bound; with them, where each
+// warp added its rows straight to the sums, it ran 5-10x, because most
+// warps add to one hot row (a solid colour) and atomic adds to one address
+// serialise (in the L2, by sector). So a warp first sums each row its lanes
+// read (log2 steps), a block sums its warps' rows in a table in shared
+// memory over all the lanes it takes (a resident grid of large blocks,
+// each looping), and adds each row once. A lane whose record has no
+// branch, the inverse step's parked lanes, passes its fold gradients
+// through and does not read the fold.
 //
 // The wavefront passes its pool as both the input and the output of S1
 // (the update is in place): a thread reads each array of its lane's state
@@ -83,7 +91,6 @@ using namespace shade;
 // sweep of block sizes and minimums, PERF.md)
 constexpr int kShadeThreads = 128;
 constexpr int kShadeMinBlocks = 8;
-constexpr int kBackThreads = 128;
 constexpr int kRegenThreads = 256;
 
 // hit kinds (scene/compile.py) and the step's flag bits (ops/step.py;
@@ -142,6 +149,10 @@ struct Shade {
 // flag word below (ops/step.py's REC_* bits)
 constexpr int kRecMiss = 1, kRecEmitFront = 2, kRecScat = 4, kRecPdf = 8,
               kRecTerminal = 16, kRecDeadT = 32, kRecDead = 256;
+// the branch bits: a lane with none of them (and no texel row, and a zero
+// pdf weight) shades nothing this bounce
+constexpr int kRecBranch =
+    kRecMiss | kRecEmitFront | kRecScat | kRecPdf | kRecTerminal;
 
 struct Attrs {
   V3 normal, tangent, bitangent;
@@ -474,15 +485,16 @@ __global__ void __launch_bounds__(kShadeThreads, kShadeMinBlocks)
 // S1B's arguments: S1's record and its inputs that the backward reads (the
 // fold's A and B, the arena, the background), the upstream gradients of
 // S1's differentiable outputs (color, the fold's A' and B'; a null pointer
-// is a zero gradient) and the gradients it writes (a null pointer: not
+// is a zero gradient), the sums it adds the arena's and the background's
+// gradients into, and the fold's gradients it writes (a null pointer: not
 // wanted).
 struct ShadeBack {
   const int* rec;                  // (4, R)
   const float* texels;             // (N, 3) the arena
   const float* bg;                 // (3,)
   const float* g_color;            // (R, 3)
-  float* g_texels;                 // (N, 3), accumulated
-  float* g_bg;                     // (3,), accumulated
+  float* g_texels;                 // (N, 3) the pass's sums, added into
+  float* g_bg;                     // (3,) the pass's sums, added into
   const float* A[3];
   const float* B[3];
   const float* g_A_out[3];
@@ -501,16 +513,67 @@ __device__ __forceinline__ void min_grads(float x, float y, float g,
   *gy = x < y ? 0.0f : h;
 }
 
-__device__ __forceinline__ float block_sum(float v, float* shared) {
-  for (int k = 16; k > 0; k >>= 1) v += __shfl_down_sync(0xffffffffu, v, k);
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0) shared[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kBackThreads / 32; ++w) s += shared[w];
-  __syncthreads();
-  return s;
+// v summed over each group of a warp's lanes that share ``peers``
+// (__match_any_sync's mask), into the group's lowest lane, in ceil(log2)
+// of the largest group's size steps (a tree over the ranks within the
+// group; the other lanes end with partial sums). Every lane of the warp
+// calls it. At each step a lane still in play adds the value of the next
+// lane of its group still in play, and the lanes of odd rank among those
+// leave.
+__device__ __forceinline__ void peer_sums(unsigned peers, float v[3]) {
+  const unsigned lane = threadIdx.x % 32;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & ~((2u << lane) - 1u);  // lane 31: 2u << 31 = 0
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above) - 1;
+    const int src = next < 0 ? static_cast<int>(lane) : next;
+    for (int c = 0; c < 3; ++c) {
+      const float t = __shfl_sync(0xffffffffu, v[c], src);
+      if (next >= 0) v[c] += t;
+    }
+    above &= __ballot_sync(0xffffffffu, (rank & 1u) == 0u);
+    rank >>= 1;
+  }
+}
+
+// S1B's block table of texel-row sums in shared memory: kBackSlots rows
+// (open addressing, a multiplicative hash, kBackProbes probes); a row that
+// finds no slot is added to the pass's sums directly
+constexpr int kBackSlotBits = 10;
+constexpr int kBackSlots = 1 << kBackSlotBits;
+constexpr int kBackProbes = 8;
+// S1B's block, and the blocks it is compiled to keep resident on a SM (32
+// registers a thread, 8 bytes spilled; at 40 registers, a block stays alone
+// on its SM and the parked lanes' bounces stream slower). Large blocks add
+// each hot texel row to the pass's sums fewer times; the inverse step runs
+// S1B at 106,400 lanes and more, where 1,024 threads took 0.55-0.92x the
+// time of 256 (PERF.md)
+constexpr int kBackThreads = 1024;
+constexpr int kBackMinBlocks = 2;
+struct RowTable {
+  int row[kBackSlots];
+  float sum[kBackSlots][3];
+};
+
+// v added to row ``row``'s slot of the block's table, or to the pass's
+// sums ``g_texels`` where the probes find no slot for it
+__device__ __forceinline__ void add_row(RowTable& t, float* g_texels, int row,
+                                        const float v[3]) {
+  if (v[0] == 0.0f && v[1] == 0.0f && v[2] == 0.0f) return;
+  unsigned h = (static_cast<unsigned>(row) * 2654435761u) >>
+               (32 - kBackSlotBits);
+  for (int p = 0; p < kBackProbes; ++p) {
+    const int k = atomicCAS(&t.row[h], -1, row);
+    if (k == -1 || k == row) {
+      for (int c = 0; c < 3; ++c)
+        if (v[c] != 0.0f) atomicAdd(&t.sum[h][c], v[c]);
+      return;
+    }
+    h = (h + 1u) & (kBackSlots - 1);
+  }
+  for (int c = 0; c < 3; ++c)
+    if (v[c] != 0.0f)
+      atomicAdd(g_texels + 3 * static_cast<size_t>(row) + c, v[c]);
 }
 
 // S1B: the reverse of S1's differentiable part, lane by lane, as autograd
@@ -527,77 +590,165 @@ __device__ __forceinline__ float block_sum(float v, float* shared) {
 // NaN rule, and the sum of each input's contributions (at most two of them
 // non-zero on a lane, so their order is immaterial). prob, att and the
 // directions carry no gradient (the JAX package's stop_gradients), and the
-// shading normal reaches only them, so a normal map's texels get none. The
-// albedo texel's gradient is added with atomics to its arena row (as
-// index_select's backward, index_add_, adds on the card), once a warp for
-// each row its lanes read; the background's summed over the block and
-// added once a block.
-__global__ void __launch_bounds__(kBackThreads)
-    step_shade_backward(const ShadeBack a) {
-  __shared__ float warp_sums[kBackThreads / 32];
-  const long long i = static_cast<long long>(blockIdx.x) * kBackThreads +
-                      threadIdx.x;
-  float g_bg[3] = {0.0f, 0.0f, 0.0f}, g_alb[3] = {0.0f, 0.0f, 0.0f};
-  int row = -1;
-  if (i < a.n) {
-    row = a.rec[i];
-    const float prob = __int_as_float(a.rec[a.n + i]);
-    const float att = __int_as_float(a.rec[2 * a.n + i]);
-    const int f = a.rec[3 * a.n + i];
-    const bool miss = f & kRecMiss, emit_front = f & kRecEmitFront,
-               scat = f & kRecScat, pdf = f & kRecPdf,
-               terminal = f & kRecTerminal;
-    for (int c = 0; c < 3; ++c) {
-      const float A = a.A[c][i], B = a.B[c][i];
-      const float alb =
-          row >= 0 ? a.texels[3 * static_cast<size_t>(row) + c] : 0.0f;
-      const bool dead_t = f & (kRecDeadT << c), dead = f & (kRecDead << c);
-      // fold_resolve
-      const float term = miss ? a.bg[c] : (emit_front ? alb : 0.0f);
-      const float t_c = dead_t ? 0.0f : term;
-      const float g_l =
-          (a.g_color != nullptr ? a.g_color[3 * i + c] : 0.0f) * att;
-      float gx, gy;
-      min_grads(A * t_c, B, dead_t ? 0.0f : g_l, &gx, &gy);
-      const float g_term = dead_t ? 0.0f : gx * A;
-      if (miss) g_bg[c] = g_term;
-      // the terminal reset and fold_scatter
-      const float g_a2 = terminal || a.g_A_out[c] == nullptr
-                             ? 0.0f : a.g_A_out[c][i];
-      const float g_b2 = terminal || a.g_B_out[c] == nullptr
-                             ? 0.0f : a.g_B_out[c][i];
-      const float m = dead ? 0.0f : prob;
-      const float g_p = scat ? g_a2 : 0.0f;
-      float gs, go;
-      min_grads(B, 3.0f * A, pdf ? g_b2 : 0.0f, &gs, &go);
-      g_alb[c] = (emit_front ? g_term : 0.0f) + (g_p * A) * m;
-      if (a.g_A[c] != nullptr)
-        a.g_A[c][i] = gx * t_c + go * 3.0f + g_p * (alb * m) +
-                      (scat ? 0.0f : g_a2);
-      if (a.g_B[c] != nullptr) a.g_B[c][i] = gy + gs + (pdf ? 0.0f : g_b2);
+// shading normal reaches only them, so a normal map's texels get none.
+//
+// A lane with no branch bit, no texel row and a zero prob (a lane parked
+// by the fixed trip) whose channel's color gradient times att, g, is 0:
+// every term of that channel's fold gradients but the upstream one is +0
+// (t_c = 0, so gx and gy are +-0 whatever A and B are, and gx t_c, go 3,
+// g_p (alb m), gs are +-0 too), so they are g_A_out + 0 and g_B_out + 0,
+// the same bits (-0 becomes +0 as in the full sum), without reading A and
+// B. A non-zero g, NaN included, takes the full formula (min_grads' NaN
+// rule reaches the result through gx t_c).
+//
+// Returns the albedo texel's gradient in g_alb and the background's in
+// g_bg (0 unless the lane missed).
+__device__ __forceinline__ void shade_back_lane(const ShadeBack& a,
+                                                long long i, int row,
+                                                float g_alb[3],
+                                                float g_bg[3]) {
+  const float prob = __int_as_float(a.rec[a.n + i]);
+  const float att = __int_as_float(a.rec[2 * a.n + i]);
+  const int f = a.rec[3 * a.n + i];
+  const bool miss = f & kRecMiss, emit_front = f & kRecEmitFront,
+             scat = f & kRecScat, pdf = f & kRecPdf,
+             terminal = f & kRecTerminal;
+  const bool quiet = (f & kRecBranch) == 0 && row < 0 && prob == 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const bool dead_t = f & (kRecDeadT << c), dead = f & (kRecDead << c);
+    const float g_l =
+        (a.g_color != nullptr ? a.g_color[3 * i + c] : 0.0f) * att;
+    const float g = dead_t ? 0.0f : g_l;
+    const float g_a2 = terminal || a.g_A_out[c] == nullptr
+                           ? 0.0f : a.g_A_out[c][i];
+    const float g_b2 = terminal || a.g_B_out[c] == nullptr
+                           ? 0.0f : a.g_B_out[c][i];
+    g_alb[c] = g_bg[c] = 0.0f;
+    if (quiet && g == 0.0f) {
+      if (a.g_A[c] != nullptr) a.g_A[c][i] = g_a2 + 0.0f;
+      if (a.g_B[c] != nullptr) a.g_B[c][i] = g_b2 + 0.0f;
+      continue;
     }
+    const float A = a.A[c][i], B = a.B[c][i];
+    const float alb =
+        row >= 0 ? a.texels[3 * static_cast<size_t>(row) + c] : 0.0f;
+    // fold_resolve
+    const float term = miss ? a.bg[c] : (emit_front ? alb : 0.0f);
+    const float t_c = dead_t ? 0.0f : term;
+    float gx, gy;
+    min_grads(A * t_c, B, g, &gx, &gy);
+    const float g_term = dead_t ? 0.0f : gx * A;
+    if (miss) g_bg[c] = g_term;
+    // the terminal reset and fold_scatter
+    const float m = dead ? 0.0f : prob;
+    const float g_p = scat ? g_a2 : 0.0f;
+    float gs, go;
+    min_grads(B, 3.0f * A, pdf ? g_b2 : 0.0f, &gs, &go);
+    g_alb[c] = (emit_front ? g_term : 0.0f) + (g_p * A) * m;
+    if (a.g_A[c] != nullptr)
+      a.g_A[c][i] = gx * t_c + go * 3.0f + g_p * (alb * m) +
+                    (scat ? 0.0f : g_a2);
+    if (a.g_B[c] != nullptr) a.g_B[c][i] = gy + gs + (pdf ? 0.0f : g_b2);
   }
-  // the albedo texels' gradients: the lanes of a warp that read one texel
-  // row add their sum once (a solid colour is one texel that most lanes
-  // read, whose atomics would otherwise serialise), summed in lane order
-  if (a.g_texels != nullptr) {
-    const unsigned peers = __match_any_sync(0xffffffffu, row);
-    if (row >= 0) {
+}
+
+// S1B over every lane (shade_back_lane): a resident grid of blocks that
+// each loop over the lanes (backward_grid). The albedo texels' gradients
+// meet in few rows (a solid colour is one row that most lanes read), and
+// atomic adds to one address serialise, so they are summed first: within a
+// warp, one sum for each row its lanes read (peer_sums, only in a warp
+// with a lane that read one), then in the block's table over all the lanes
+// it takes, and each row of the table is added to the pass's sums once, at
+// the block's end (a row the table has no slot for goes there directly).
+// The background's gradient is summed a thread over its lanes, then a
+// warp, then, after the block's last barrier, over the warps in order, and
+// added once a block with a lane that missed (a non-zero term). Two
+// barriers a block.
+__global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
+    step_shade_backward(const ShadeBack a) {
+  __shared__ RowTable table;
+  __shared__ float warp_bg[kBackThreads / 32][3];
+  const unsigned lane = threadIdx.x % 32;
+  const bool sums = a.g_texels != nullptr;
+  if (sums) {
+    for (int s = threadIdx.x; s < kBackSlots; s += kBackThreads) {
+      table.row[s] = -1;
+      table.sum[s][0] = table.sum[s][1] = table.sum[s][2] = 0.0f;
+    }
+    __syncthreads();
+  }
+  float bg[3] = {0.0f, 0.0f, 0.0f};
+  bool missed = false;
+  const long long stride = static_cast<long long>(gridDim.x) * kBackThreads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kBackThreads;
+       base < a.n; base += stride) {
+    const long long i = base + threadIdx.x;
+    float g_alb[3] = {0.0f, 0.0f, 0.0f}, g_bg[3];
+    int row = -1;
+    if (i < a.n) {
+      row = a.rec[i];
+      shade_back_lane(a, i, row, g_alb, g_bg);
       for (int c = 0; c < 3; ++c) {
-        float sum = 0.0f;
-        for (unsigned m = peers; m != 0u; m &= m - 1u)
-          sum += __shfl_sync(peers, g_alb[c], __ffs(m) - 1);
-        if (static_cast<int>(threadIdx.x % 32) == __ffs(peers) - 1 &&
-            sum != 0.0f)
-          atomicAdd(a.g_texels + 3 * static_cast<size_t>(row) + c, sum);
+        bg[c] += g_bg[c];
+        missed |= g_bg[c] != 0.0f;
       }
     }
+    if (sums && __any_sync(0xffffffffu, row >= 0)) {
+      const unsigned peers = __match_any_sync(0xffffffffu, row);
+      peer_sums(peers, g_alb);
+      if ((peers & ((1u << lane) - 1u)) == 0u && row >= 0)
+        add_row(table, a.g_texels, row, g_alb);
+    }
   }
-  if (a.g_bg == nullptr) return;
-  for (int c = 0; c < 3; ++c) {
-    const float s = block_sum(g_bg[c], warp_sums);
-    if (threadIdx.x == 0 && s != 0.0f) atomicAdd(a.g_bg + c, s);
+  if (a.g_bg != nullptr && __any_sync(0xffffffffu, missed))
+    for (int c = 0; c < 3; ++c)
+      for (int k = 16; k > 0; k >>= 1)
+        bg[c] += __shfl_down_sync(0xffffffffu, bg[c], k);
+  if (lane == 0)
+    for (int c = 0; c < 3; ++c) warp_bg[threadIdx.x / 32][c] = bg[c];
+  // the block's last barrier: the table's adds and the warps' sums are
+  // in, and it tells whether a lane of the block added a background term
+  const bool block_missed = __syncthreads_or(missed);
+  if (sums)
+    for (int s = threadIdx.x; s < kBackSlots; s += kBackThreads) {
+      const int row = table.row[s];
+      if (row < 0) continue;
+      for (int c = 0; c < 3; ++c)
+        if (table.sum[s][c] != 0.0f)
+          atomicAdd(a.g_texels + 3 * static_cast<size_t>(row) + c,
+                    table.sum[s][c]);
+    }
+  if (a.g_bg != nullptr && block_missed && threadIdx.x == 0)
+    for (int c = 0; c < 3; ++c) {
+      float s = 0.0f;
+      for (int w = 0; w < kBackThreads / 32; ++w) s += warp_bg[w][c];
+      if (s != 0.0f) atomicAdd(a.g_bg + c, s);
+    }
+}
+
+// S1B's resident grid on the current device: the blocks that stay resident
+// on one SM (computed once a device) times the SMs, but no more blocks than
+// the lanes fill
+cudaError_t backward_grid(long long n, unsigned int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static long long resident[kMaxDevices] = {};   // 0: not computed yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, step_shade_backward, kBackThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    resident[dev] = static_cast<long long>(per_sm) * sms;
   }
+  const long long fill = (n + kBackThreads - 1) / kBackThreads;
+  *blocks = static_cast<unsigned int>(fill < resident[dev] ? fill
+                                                           : resident[dev]);
+  return cudaSuccess;
 }
 
 struct Regen {
@@ -1013,9 +1164,11 @@ extern "C" int step_shade_backward_launch(const void* const* p,
       a.g_B[c] = static_cast<float*>(const_cast<void*>(p[BP_G_IN + 3 + c]));
     }
     a.n = n;
-    const long long blocks = (n + kBackThreads - 1) / kBackThreads;
-    step_shade_backward<<<static_cast<unsigned int>(blocks), kBackThreads,
-                          0, static_cast<cudaStream_t>(stream)>>>(a);
+    unsigned int blocks = 0;
+    const cudaError_t err = backward_grid(n, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    step_shade_backward<<<blocks, kBackThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,10 +25,12 @@ kernels (K1-K3 or K4), S1 and S2.
   (``StepShadeFn``) for ``integrator.trace(..., differentiable=True)``.
   The forward is S1 writing new tensors and a record of 16 bytes a lane
   (``shade_record``); the backward is S1B (``step_shade_backward``: the
-  fold's, the texture arena's and the background's gradients from the
-  record, one thread a lane). Plain versions: ``shade_plain(...,
-  record=True)`` and ``step_shade_backward_plain``, the reverse that
-  autograd runs through ``shade_plain``.
+  fold's gradients from the record, one thread a lane, and the texture
+  arena's and the background's added into the sums of the backward pass,
+  ``GradSums``, which the trace's head, ``grad_scene``, hands to autograd
+  once a pass). Plain versions: ``shade_plain(..., record=True)`` and
+  ``step_shade_backward_plain``, the reverse that autograd runs through
+  ``shade_plain``.
 
 Each wrapper picks by the device of its tensors only: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise. All launch on the
@@ -452,13 +454,111 @@ def shade_record(row, prob_scat, att, miss, emit_front, scat, pdf,
                         att.view(torch.int32), word])
 
 
+class GradSums:
+    """The texture arena's and the background's gradients summed over one
+    backward pass of a differentiable trace: one (N + 1, 3) buffer, the
+    arena's N rows, then the background. The first S1B of a pass that
+    wants either makes it, zeroed (``buffer``: the pass's one fill, which
+    a captured inverse step replays), every S1B of the pass adds into it,
+    and the trace's head (``_GradSink``) hands it to autograd once
+    (``take``), as the JAX transpose carries one cotangent for the arena.
+    A pass is autograd's graph task, so a second backward over a retained
+    graph, or one that stops short of the head, starts from zero; a
+    gradient handed out is never added to again."""
+
+    def __init__(self, arena, bg):
+        self.rows = arena.shape[0]
+        self.dtype, self.device = arena.dtype, arena.device
+        self.want_texels = arena.requires_grad
+        self.want_bg = bg.requires_grad
+        self._buf = self._task = None
+
+    def buffer(self):
+        """This pass's buffer, made and zeroed at its first use."""
+        task = torch._C._current_graph_task_id()
+        if self._buf is None or self._task != task:
+            self._buf = torch.zeros((self.rows + 1, 3), dtype=self.dtype,
+                                    device=self.device)
+            self._task = task
+        return self._buf
+
+    def take(self):
+        """This pass's (arena, background) gradients, (N, 3) and (3,) views
+        of its buffer, or (None, None) where no S1B of it added; the next
+        use starts a new buffer."""
+        buf = self._buf if self._task == \
+            torch._C._current_graph_task_id() else None
+        self._buf = self._task = None
+        return (None, None) if buf is None else (buf[:-1], buf[-1])
+
+
+def _plus(a, b):
+    return b if a is None else a if b is None else a + b
+
+
+class _GradSink(torch.autograd.Function):
+    """A differentiable trace's head: the arena and the background passed
+    on as views, and in the backward their gradients from the pass's
+    ``GradSums`` (the trace's S1B calls add into it and return none of
+    their own), plus any that reached the views another way (a torch
+    op, as the plain route's texel gather). Autograd runs it after every
+    S1B of the trace, whose inputs the views are."""
+
+    @staticmethod
+    def forward(ctx, sums, arena, bg):
+        ctx.grad_sums = sums
+        ctx.set_materialize_grads(False)
+        return arena.view_as(arena), bg.view_as(bg)
+
+    @staticmethod
+    def backward(ctx, g_arena, g_bg):
+        s_arena, s_bg = ctx.grad_sums.take()
+        need = ctx.needs_input_grad
+        return (None, _plus(g_arena, s_arena) if need[1] else None,
+                _plus(g_bg, s_bg) if need[2] else None)
+
+
+def grad_scene(cs):
+    """``cs`` for one differentiable trace: a copy whose arena and
+    background are ``_GradSink``'s views of the scene's, which carry the
+    trace's ``GradSums`` (``sums_of``), sharing the scene's packed tables
+    (S1's with the view as its texels, and the media's), which are packed
+    for ``cs`` at its first trace, so that a trace captured after a
+    warm-up one packs nothing (a pack reads back to the host). ``cs``
+    itself where grad mode is off or neither requires grad."""
+    from ..renderer.integrator import (media_tables, per_scene,
+                                       share_geometry_tables)
+
+    arena, bg = cs.textures.pixels, cs.bg_color
+    if not (torch.is_grad_enabled()
+            and (arena.requires_grad or bg.requires_grad)):
+        return cs
+    tab = step_tables(cs)
+    media_tables(cs)
+    view, bg_view = _GradSink.apply(GradSums(arena, bg), arena, bg)
+    out = dataclasses.replace(
+        cs, textures=dataclasses.replace(cs.textures, pixels=view),
+        bg_color=bg_view)
+    share_geometry_tables(cs, out)
+    per_scene(out, "step", lambda: dataclasses.replace(
+        tab, texels=view.to(torch.float32).contiguous()))
+    return out
+
+
+def sums_of(arena):
+    """The ``GradSums`` an arena from ``grad_scene`` carries, else None."""
+    return getattr(arena.grad_fn, "grad_sums", None)
+
+
 def step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
                     sample, seed, active, max_depth):
     """``step_shade`` on the differentiable route: S1, and S1B in the
     backward (``StepShadeFn``), with path_step's arguments and dict (new
     tensors). Gradients reach the fold's A and B, the texture arena
     (``cs.textures.pixels``: albedos, texture maps and emitter radiance)
-    and the background (``cs.bg_color``). Raises, on every device, where a
+    and the background (``cs.bg_color``); the last two through the sums of
+    the arena's ``grad_scene`` (``trace`` makes one a trace; a scene
+    without one gets one for this call). Raises, on every device, where a
     lane input or another table of the scene requires grad. Where none of
     the four requires grad (or grad mode is off) it is ``step_shade``."""
     A, B, dead, outer = fold
@@ -472,9 +572,13 @@ def step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
             x.requires_grad for x in (arena, bg, *A, *B))):
         return step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold,
                           pixel, sample, seed, active, max_depth)
+    if (arena.requires_grad or bg.requires_grad) and sums_of(arena) is None:
+        cs = grad_scene(cs)
+        arena, bg = cs.textures.pixels, cs.bg_color
     outs = StepShadeFn.apply(cs, (t, kind, idx, o, d, bounce, acc_len, dead,
                                   outer, pixel, sample, seed, active,
-                                  max_depth), arena, bg, *A, *B)
+                                  max_depth, sums_of(arena)), arena, bg,
+                             *A, *B)
     out = dict(zip(FLAGS, outs[19:]))
     out.update(color=outs[0], o=outs[7:10], d=outs[10:13], bounce=outs[13],
                acc_len=outs[14], fold=(outs[1:4], outs[4:7], outs[15:18],
@@ -484,23 +588,28 @@ def step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
 
 class StepShadeFn(torch.autograd.Function):
     """S1 with S1B as its backward. Inputs: the compiled scene, the rest of
-    path_step's arguments (one tuple), then the differentiable ones: the
-    arena, the background and the fold's A and B (3 each), which the
-    kernels read from these tensors, not from the scene's packed tables
-    (an inverse step swaps its own leaf arena in). Outputs: color, A', B'
+    path_step's arguments and the pass's ``GradSums`` (or None: neither
+    the arena nor the background wants a gradient) in one tuple, then the
+    differentiable ones: the arena and the background (``grad_scene``'s
+    views), which the kernels read from these tensors, not from the
+    scene's packed tables (an inverse step swaps its own leaf arena in),
+    and the fold's A and B (3 each). Outputs: color, A', B'
     (differentiable), then o, d, bounce, acc_len, dead, outer and the six
     flags (not). The record (16 bytes a lane) and the fold's A and B are
-    saved for the backward, which reads nothing back to the host."""
+    saved for the backward, which reads nothing back to the host; it adds
+    the arena's and the background's gradients into the sums and returns
+    none for them (the sums' sink does)."""
 
     @staticmethod
     def forward(ctx, cs, call, arena, bg, *ab):
         (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
-         seed, active, max_depth) = call
+         seed, active, max_depth, sums) = call
         out, rec = shade_with_record(
             cs, t, kind, idx, o, d, bounce, acc_len,
             (ab[:3], ab[3:], dead, outer), pixel, sample, seed, active,
             max_depth, arena, bg)
         ctx.save_for_backward(rec, arena, bg, *ab)
+        ctx.sums = sums
         ctx.set_materialize_grads(False)
         A, B, dead, outer = out["fold"]
         rest = (*out["o"], *out["d"], out["bounce"], out["acc_len"], *dead,
@@ -511,11 +620,14 @@ class StepShadeFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, *g_out):
         rec, arena, bg, *ab = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        g_arena, g_bg, g_ab = step_shade_backward(
-            rec, ab, arena, bg, g_color, g_out[:6], need[2], need[3],
-            need[4:10])
-        return (None, None, g_arena, g_bg, *g_ab)
+        sums = ctx.sums
+        want_texels = sums is not None and sums.want_texels
+        want_bg = sums is not None and sums.want_bg
+        g_ab = step_shade_backward(
+            rec, ab, arena, bg, g_color, g_out[:6],
+            sums.buffer() if want_texels or want_bg else None, want_texels,
+            want_bg, ctx.needs_input_grad[4:10])
+        return (None, None, None, None, *g_ab)
 
 
 def shade_with_record(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
@@ -546,26 +658,29 @@ def shade_with_record(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     return out, rec
 
 
-def step_shade_backward(rec, ab, texels, bg, g_color, g_ab_out,
+def step_shade_backward(rec, ab, texels, bg, g_color, g_ab_out, sums,
                         want_texels=True, want_bg=True, want_ab=(True,) * 6):
     """S1B: the gradients of one S1 call's inputs from its record ``rec``
     ((4, R) int32), its fold inputs ``ab`` (A then B, six (R,) f32), the
     arena ``texels`` ((N, 3) f32) and ``bg`` ((3,) f32), and the upstream
     gradients of its color ((R, 3)) and of its fold outputs A' and B' (six;
-    None is a zero gradient). Returns (the arena's (N, 3), the
-    background's (3,), the six fold inputs'), each None where its ``want_*``
-    is false. One launch on the card; ``step_shade_backward_plain`` on the
-    CPU."""
+    None is a zero gradient). Adds the arena's gradient into ``sums[:N]``
+    and the background's into ``sums[N]`` (``sums``: an (N + 1, 3) f32
+    tensor, ``GradSums.buffer``; None where neither is wanted), each where
+    its ``want_*`` is true; returns the six fold inputs' gradients (None
+    where not wanted). One launch on the card, which allocates only those
+    six; ``step_shade_backward_plain`` on the CPU."""
     dev = rec.device
     if dev.type == "cpu":
         return step_shade_backward_plain(rec, ab, texels, bg, g_color,
-                                         g_ab_out, want_texels, want_bg,
-                                         want_ab)
+                                         g_ab_out, sums, want_texels,
+                                         want_bg, want_ab)
     if dev.type != "cuda":
         raise ValueError(f"step_shade_backward: unsupported device {dev}")
     out = backward_kernel(_build.library().step_shade_backward_launch, rec,
-                          ab, texels, bg, g_color, g_ab_out, want_texels,
-                          want_bg, want_ab, _build.stream_of(rec))
+                          ab, texels, bg, g_color, g_ab_out, sums,
+                          want_texels, want_bg, want_ab,
+                          _build.stream_of(rec))
     step_shade_backward.launches += 1
     return out
 
@@ -573,17 +688,17 @@ def step_shade_backward(rec, ab, texels, bg, g_color, g_ab_out,
 step_shade_backward.launches = 0
 
 
-def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, want_texels,
-                    want_bg, want_ab, stream):
+def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, sums,
+                    want_texels, want_bg, want_ab, stream):
     """S1B's launch through its C entry ``fn``
-    (``step_shade_backward_launch``) on ``stream``: the checks, the new
-    gradient tensors (the arena's and the background's zeroed, for the
-    kernel's atomic adds) and the two argument arrays."""
+    (``step_shade_backward_launch``) on ``stream``: the checks, the fold's
+    new gradient tensors and the two argument arrays; the arena's and the
+    background's gradients go into ``sums``."""
     dev = rec.device
     r = rec.shape[1]
+    n = texels.shape[0]
     _check_table("step_shade_backward: rec", rec, (4, r), dev, torch.int32)
-    _check_table("step_shade_backward: texels", texels,
-                 (texels.shape[0], 3), dev)
+    _check_table("step_shade_backward: texels", texels, (n, 3), dev)
     _check_table("step_shade_backward: bg", bg, (3,), dev)
     p = _build.ptr
     keep = []   # the upstream gradients made contiguous, held to the launch
@@ -593,12 +708,12 @@ def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, want_texels,
         _check_table("step_shade_backward: g_color", g_color, (r, 3), dev)
         keep.append(g_color)
         ptrs["g_color"] = p(g_color)
-    g_texels = torch.zeros_like(texels) if want_texels else None
-    g_bg = torch.zeros_like(bg) if want_bg else None
-    if g_texels is not None:
-        ptrs["g_texels"] = p(g_texels)
-    if g_bg is not None:
-        ptrs["g_bg"] = p(g_bg)
+    if want_texels or want_bg:
+        _check_table("step_shade_backward: sums", sums, (n + 1, 3), dev)
+        if want_texels:
+            ptrs["g_texels"] = p(sums)
+        if want_bg:
+            ptrs["g_bg"] = p(sums[n])
     g_ab = [torch.empty_like(x) if w else None for x, w in zip(ab, want_ab)]
     for name, x, g, gi in zip(FOLD_ARRAYS, ab, g_ab_out, g_ab):
         _check(f"step_shade_backward: {name}", x, torch.float32, r, dev)
@@ -613,7 +728,7 @@ def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, want_texels,
             ptrs["g_in_" + name] = p(gi)
     _build.check(_launch(fn, BACK_PTRS, BACK_INTS, ptrs, dict(n=r), stream),
                  "step_shade_backward")
-    return g_texels, g_bg, tuple(g_ab)
+    return tuple(g_ab)
 
 
 def _min_grads(x, y, g):
@@ -624,7 +739,7 @@ def _min_grads(x, y, g):
     return torch.where(x > y, 0.0, h), torch.where(x < y, 0.0, h)
 
 
-def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out,
+def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out, sums,
                               want_texels=True, want_bg=True,
                               want_ab=(True,) * 6):
     """S1B's plain version: the reverse that autograd runs through
@@ -643,8 +758,9 @@ def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out,
     package's stop_gradients). The shading normal reaches only them, so a
     normal map's texels get no gradient. Each input's contributions (at
     most two non-zero on a lane) are summed; the arena's gradient is
-    ``index_add_`` into the lanes' albedo rows, as ``index_select``'s
-    backward adds them. Same arguments and returns as
+    ``index_add_`` into the sums' rows of the lanes' albedos, as
+    ``index_select``'s backward adds them, and the background's sum added
+    to the sums' last row. Same arguments and returns as
     ``step_shade_backward``."""
     row, word = rec[0], rec[3]
     prob, att = rec[1].view(torch.float32), rec[2].view(torch.float32)
@@ -680,12 +796,12 @@ def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out,
         g_ab[c] = (gx * t_c + go * 3.0 + g_p * (alb * m)
                    + torch.where(scat, 0.0, g_a2))
         g_ab[3 + c] = gy + gs + torch.where(pdf, 0.0, g_b2)
-    g_texels = None
     if want_texels:
-        g_texels = torch.zeros_like(texels).index_add_(
-            0, rows, torch.where(read[:, None], torch.stack(g_alb, -1), 0.0))
-    return (g_texels, torch.stack(g_bg) if want_bg else None,
-            tuple(g if w else None for g, w in zip(g_ab, want_ab)))
+        sums[:-1].index_add_(0, rows, torch.where(
+            read[:, None], torch.stack(g_alb, -1), 0.0))
+    if want_bg:
+        sums[-1] += torch.stack(g_bg)
+    return tuple(g if w else None for g, w in zip(g_ab, want_ab))
 
 
 def div_magic(d):

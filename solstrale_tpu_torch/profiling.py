@@ -24,8 +24,9 @@ the two agree). ``--step`` times one
 target at seed 2), which on the card replays the step's CUDA graph: its
 first call (the capture), one call by CUDA events, the host reads of a
 call and the kernels' launches in it (S1 and its backward S1B among
-them), and one call under ``torch.profiler`` (its device ops, busy and
-idle share, each kernel's time); ``--eager`` runs the same step op by op (``diff._GradStep.eager``)
+them), and one call under ``torch.profiler`` (its device ops, the fills
+and adds among them, busy and idle share, each kernel's time); ``--eager``
+runs the same step op by op (``diff._GradStep.eager``)
 and times its forward and its backward (the checkpointed replay and the
 gradient) apart. Prints one JSON object. Needs a CUDA device; there is
 no CPU fallback.
@@ -176,6 +177,42 @@ class HostReads(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+class ArenaOps(TorchDispatchMode):
+    """While active, counts the zero fills (``fills``) and the adds
+    (``adds``) whose result has a texture arena's shape, (rows, 3), or its
+    gradient sums' (``ops.step.GradSums``), (rows + 1, 3): what one
+    backward pass spends on the arena's gradient outside S1B. Ops inside
+    a CUDA graph replay are not dispatched."""
+
+    FILLS = frozenset({"zeros", "zeros_like", "new_zeros", "zero_", "fill_"})
+    ADDS = frozenset({"add", "add_"})
+
+    def __init__(self, rows):
+        super().__init__()
+        self.shapes = {(rows, 3), (rows + 1, 3)}
+        self.fills = self.adds = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, torch.Tensor) and tuple(out.shape) in self.shapes:
+            name = func.overloadpacket.__name__
+            self.fills += name in self.FILLS
+            self.adds += name in self.ADDS
+        return out
+
+
+def fills_and_adds(kernels):
+    """(fill ops, add ops) among a profile's device kernels
+    (``device_kernel_times``), by ``wavefront_ab``'s name patterns."""
+    from .wavefront_ab import ADD_OPS, FILL_OPS
+
+    def count(keys):
+        return sum(v[0] for k, v in kernels.items()
+                   if any(x in k for x in keys))
+
+    return count(FILL_OPS), count(ADD_OPS)
+
+
 def profile_step(scene_name="mixed", eager=False):
     from . import diff
     from .scene.compile import compile_scene
@@ -236,9 +273,10 @@ def profile_step(scene_name="mixed", eager=False):
     out["host_reads"] = reads.n
     out["launches"] = {k: fn.launches - before[k]
                        for k, fn in wrappers.items()}
-    prof = _profile(call)[0]
+    prof, kernels = _profile(call)
     # every kernel of the step, inside a replay too
     prof["device_ops_per_step"] = prof["kernel_launches"]
+    prof["fills"], prof["adds"] = fills_and_adds(kernels)
     return dict(out, **prof)
 
 

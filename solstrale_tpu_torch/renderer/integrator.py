@@ -607,9 +607,11 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     ``differentiable`` names the route autograd runs through: every bounce
     is ``path_step_grad``, S1 with its backward S1B, which take gradients
     to the fold, the texture arena and the background (the plain versions
-    on the CPU). Otherwise every bounce is ``path_step`` (S1 alone on the
-    card), whether grad mode is on or not; S1's wrapper raises when a
-    table it reads requires grad."""
+    on the CPU), the last two summed over the trace's bounces in one
+    buffer a backward pass (``ops.step.grad_scene``, applied here once).
+    Otherwise every bounce is ``path_step`` (S1 alone on the card),
+    whether grad mode is on or not; S1's wrapper raises when a table it
+    reads requires grad."""
     sample = _lanes(sample, pix)
     zero = torch.zeros_like(o[0])
     bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
@@ -618,7 +620,9 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
                         device=zero.device)
     carry = (o, d, bounce, zero, fold_init(zero), alive, color)
 
-    step = path_step_grad if differentiable else path_step
+    step = path_step
+    if differentiable:
+        step, cs = path_step_grad, step_ops.grad_scene(cs)
 
     def steps(carry, n):
         o, d, bounce, acc_len, fold, alive, color = carry

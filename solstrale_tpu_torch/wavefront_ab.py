@@ -25,7 +25,9 @@ beside the wrapper's count, and on a batch of few ops (K5's route) each
 op's name.
 
 The inverse step's cells (``step_kitchen``: the normal-mapped kitchen at
-400x266, K4; ``step_mixed``: the mixed BVH scene at 1920x1080, K1-K3;
+400x266, K4; ``step_kitchen_tex1024``: the same with its ground's albedo
+the 1024x1024 stand-in texture, an arena of ~12.6 MB, the size users
+optimise; ``step_mixed``: the mixed BVH scene at 1920x1080, K1-K3;
 depth 50, 1 spp, against a target at seed 2): ``diff.image_and_texture_grad``
 called once (on a tree with the graphed step, the capture), then ``RUNS``
 steps by CUDA events (the median and every run), the peak bytes of the
@@ -34,19 +36,28 @@ the graph pool's resident bytes (null without a graph), the kernels'
 launches a step (S1 and its backward S1B among them, on a tree that has
 S1B), the host reads of a step (null on a tree without
 ``profiling.HostReads``), the loss and the gradient's absolute sum, and
-one step under ``torch.profiler`` (device ops, busy ms, idle).
+one step under ``torch.profiler`` (device ops, busy ms, idle; the fills
+and adds among the ops, the most frequent op names, and S1B's device
+microseconds by bounce, 0 to ``DEPTH``: the backward runs the bounces
+last to first).
 
 The step kernels' cells (``kernels_<scene>``, ``KERNEL_SCENES``: the
 262,088-triangle interior at 1920x1080, the bench's textured sponza,
 sponza_production and many_lights at their bench sizes, the mixed BVH
 scene at 1920x1080 and the normal-mapped kitchen, K4, at 400x266x8):
-S1 (``ops.step.step_shade``) and S2 (``ops.step.step_regen`` with the
-scan of the terminal flags it needs) on one pool at each of
-``KERNEL_WIDTHS`` lanes (the tail pool's 16,384, the wide pool's 131,072
-and the 2,073,600 of a 1080p ``render_pixels``, the inverse step's), set
-up by ``step_kernel_calls``; device ms by ``device_ms``, S2's less the
-put-back of the queue head that makes it repeat, and the pool's terminal
-lanes.
+S1 (``ops.step.step_shade``), S2 (``ops.step.step_regen`` with the
+scan of the terminal flags it needs) and S1B (``ops.step.step_shade_backward``)
+on one pool at each of ``KERNEL_WIDTHS`` lanes (the tail pool's 16,384,
+the 106,400 of a 400x266 inverse step, the wide pool's 131,072 and the
+2,073,600 of a 1080p ``render_pixels``, the inverse step's), set up by
+``step_kernel_calls`` and ``s1b_calls``; device ms by ``device_ms``, S2's
+less the put-back of the queue head that makes it repeat, the pool's
+terminal lanes; S1B as the inverse step calls it (its wrapper, adding
+into a sums buffer made once, so the device runs the kernel alone) with
+its bound (``s1b_work``), without the arena's and background's sums (the
+fold's gradients alone), on the same record with every lane reading
+texel row 0 (a solid colour), and how its arena adds meet
+(``s1b_rows``); and ptxas' lines for the step kernels.
 
 ``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
 unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
@@ -62,7 +73,6 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import math
 from collections import Counter
@@ -84,12 +94,26 @@ KERNEL_SCENES = {"sponza": "interior", "sponza_textured": "sponza",
                  "sponza_production": "sponza_production",
                  "many_lights": "many_lights", "mixed": "step_mixed",
                  "kitchen": "kitchen_k4"}
-KERNEL_WIDTHS = (16384, 131072, 2073600)
+KERNEL_WIDTHS = (16384, 106400, 131072, 2073600)
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
-             "kitchen_sink", "megakernel", "step_kitchen", "step_mixed",
+             "kitchen_sink", "megakernel", "step_kitchen",
+             "step_kitchen_tex1024", "step_mixed",
              *(f"kernels_{x}" for x in KERNEL_SCENES))
 # the inverse step's cells: (width, height) of each
-STEPS = {"step_kitchen": (400, 266), "step_mixed": (1920, 1080)}
+STEPS = {"step_kitchen": (400, 266), "step_kitchen_tex1024": (400, 266),
+         "step_mixed": (1920, 1080)}
+# published peaks of one H100 SXM, the bounds' (``bound_ms``; chip_smoke.py
+# takes its bounds from it too): f32 FLOP/s outside the tensor cores, and
+# device memory bytes/s
+PEAK_F32 = 67e12
+HBM_BPS = 3.35e12
+# S1B's f32 operations a lane (csrc/step.cu::step_shade_backward): per
+# channel the terminal color's reverse 7 (A t_c, the upstream times att,
+# the minimum's halving, gx A, gx t_c, the two sums into g_B and g_bg's
+# share), the fold's 10 (3A, the minimum's halving, go 3, g_p A, that
+# times m, albedo m, g_p times it, g_A's three sums less one, g_B's sum),
+# and the albedo gradient's sum 1; the background's sum 3 a lane
+S1B_LANE = 3 * 18 + 3
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -106,8 +130,11 @@ def _workload(name):
         w, h, spp, build = 1920, 1080, 1, fixtures.sponza_class_scene
     elif name in STEPS:
         (w, h), spp = STEPS[name], 1
-        build = (fixtures.kitchen_sink_scene if name == "step_kitchen" else
-                 lambda c: fixtures.mixed_bvh_scene(c, n_cells=362))
+        build = {"step_kitchen": fixtures.kitchen_sink_scene,
+                 "step_kitchen_tex1024": lambda c: fixtures.kitchen_sink_scene(
+                     c, tex_size=1024),
+                 "step_mixed": lambda c: fixtures.mixed_bvh_scene(
+                     c, n_cells=362)}[name]
     else:
         wl = next(x for x in bench.WORKLOADS if x.name == name)
         w, h, spp, build = wl.width, wl.height, wl.spp, wl.scene
@@ -131,10 +158,21 @@ def _host_reads(stats):
     return stats["iters"] + pools, "loop"
 
 
-def _profiled(batch):
+# the names of torch's fill and add kernels (and of the copy engine's
+# memsets) among a profiled step's device ops
+FILL_OPS = ("FillFunctor", "Memset")
+ADD_OPS = ("CUDAFunctor_add", "CUDAFunctorOnSelf_add")
+# the most frequent device op names a profiled step lists
+TOP_OPS = 12
+
+
+def _profiled(batch, step_ops=False):
     """One batch under torch.profiler: device ops, busy ms, wall ms, the
     K1 kernels seen and, for a batch of at most ``NAMED_OPS`` device ops
-    (K5's route), each op's name with its count."""
+    (K5's route), each op's name with its count. With ``step_ops`` (an
+    inverse step) also the fills and adds among the ops, the ``TOP_OPS``
+    most frequent names, and S1B's device microseconds in bounce order
+    (its launches run last bounce first)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -147,12 +185,24 @@ def _profiled(batch):
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
-    return dict(device_ops=len(ops), device_busy_ms=busy_ms,
-                profiled_wall_ms=wall_ms,
-                device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                k1_seen=sum("k1_bvh" in e.name for e in ops),
-                device_op_names=(dict(Counter(e.name[:80] for e in ops))
-                                 if len(ops) <= NAMED_OPS else None))
+    out = dict(device_ops=len(ops), device_busy_ms=busy_ms,
+               profiled_wall_ms=wall_ms,
+               device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+               k1_seen=sum("k1_bvh" in e.name for e in ops),
+               device_op_names=(dict(Counter(e.name[:80] for e in ops))
+                                if len(ops) <= NAMED_OPS else None))
+    if step_ops:
+        from solstrale_tpu_torch.profiling import _is_kernel
+
+        s1b = sorted((e for e in ops
+                      if _is_kernel("step_shade_backward", e.name)),
+                     key=lambda e: e.time_range.start)
+        out.update(
+            fills=sum(any(k in e.name for k in FILL_OPS) for e in ops),
+            adds=sum(any(k in e.name for k in ADD_OPS) for e in ops),
+            top_ops=Counter(e.name[:100] for e in ops).most_common(TOP_OPS),
+            s1b_us_by_bounce=[e.time_range.elapsed_us() for e in s1b][::-1])
+    return out
 
 
 def measure(cs, w, h, spp, profile=True):
@@ -262,7 +312,7 @@ def measure_step(cs, w, h):
         with profiling.HostReads() as counter:
             step()
         reads = counter.n
-    prof = _profiled(step)
+    prof = _profiled(step, step_ops=True)
     graph = diff.grad_step(cs, target, seed=SEED, **kw).graph
     pool = None
     if graph is not None:
@@ -309,14 +359,11 @@ def step_kernel_calls(cs, w, h, spp, lanes, depth=DEPTH):
     hit of its next step. ``s1``: S1 in ``path_step``'s form (new
     outputs) on a copy of the pool's state. S1 then runs once in place on
     the pool; ``s2``: S2 on its flags, the queue head put back first
-    (``restore``, which the caller times alone and subtracts). On a tree
-    whose S2 takes the ranks of an outside scan (a ``rank`` argument),
-    ``s2`` runs ``torch.cumsum`` of the flags first, as that tree's step
-    does. Returns a dict: ``wf``, ``pool``, ``hit`` (t, kind, idx as S1
-    takes them), ``o``, ``d`` and ``args`` (the copies ``s1`` reads; args:
-    its inputs after o and d), ``shaded`` (the outputs of one ``s1``),
-    ``terminal`` (the flags S2 reads), ``s1``, ``s2``, ``restore``."""
-    import torch
+    (``restore``, which the caller times alone and subtracts). Returns a
+    dict: ``wf``, ``pool``, ``hit`` (t, kind, idx as S1 takes them),
+    ``o``, ``d`` and ``args`` (the copies ``s1`` reads; args: its inputs
+    after o and d), ``shaded`` (the outputs of one ``s1``), ``terminal``
+    (the flags S2 reads), ``s1``, ``s2``, ``restore``."""
     from solstrale_tpu_torch.ops import step
     from solstrale_tpu_torch.renderer import integrator
 
@@ -343,17 +390,13 @@ def step_kernel_calls(cs, w, h, spp, lanes, depth=DEPTH):
                     (pool.qpos, wf.total_q), depth, out=pool.shade_out())
     term = pool.terminal.clone()
     head = wf.next_q.clone()
-    ranked = "rank" in inspect.signature(step.step_regen).parameters
 
     def restore():
         wf.next_q.copy_(head)
 
     def s2():
         restore()
-        if ranked:
-            step.step_regen(cs, wf, pool, term, torch.cumsum(term, 0))
-        else:
-            step.step_regen(cs, wf, pool, term)
+        step.step_regen(cs, wf, pool, term)
 
     return dict(wf=wf, pool=pool, hit=hit, o=o, d=d, args=args,
                 shaded=shaded, terminal=term, s1=s1, s2=s2, restore=restore)
@@ -366,17 +409,152 @@ def _copied(x):
     return x.clone() if hasattr(x, "clone") else x
 
 
+def s1b_calls(cs, pool, active, depth=DEPTH, seed=5, one_row=None):
+    """S1B as a call that repeats, on the next bounce of ``pool``'s lanes:
+    S1's record of it (``shade_with_record``; with ``one_row``, every
+    lane's texel row replaced by that row, as if the whole arena were one
+    solid colour), the pool's fold, and upstream gradients from ``seed``
+    as the fixed trip gives them (the color's on the lanes that end, 0 on
+    the rest, whose color ``torch.where`` drops; the fold's on every
+    lane). ``launch(sums=True)``: ``ops.step.step_shade_backward`` as the
+    inverse step calls it, adding into one sums buffer made here (a step
+    zeroes its pass's once), so that the card runs S1B's kernel alone;
+    with ``sums`` False, without the arena's and the background's
+    gradients (the fold's alone). Returns a dict: ``rec``, ``ab``,
+    ``g_color``, ``g_out`` and ``launch``."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+    from solstrale_tpu_torch.renderer import integrator
+
+    hit = integrator.step_hit(cs, pool.o, pool.d, pool.pixel, pool.sample,
+                              pool.bounce, 1)
+    _, rec = step.shade_with_record(cs, *hit, pool.o, pool.d, pool.bounce,
+                                    pool.acc_len, pool.fold, pool.pixel,
+                                    pool.sample, 1, active, depth)
+    if one_row is not None:
+        rec[0] = one_row
+    r, dev = rec.shape[1], rec.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    end = (rec[3] & step.REC_TERMINAL) != 0
+    g_color = torch.where(end[:, None], torch.randn(
+        (r, 3), generator=gen, device=dev), 0.0)
+    g_out = [torch.randn((r,), generator=gen, device=dev) for _ in range(6)]
+    ab = tuple(x.clone() for x in (*pool.fold[0], *pool.fold[1]))
+    arena, bg = cs.textures.pixels, cs.bg_color
+    buf = torch.zeros((arena.shape[0] + 1, 3), dtype=torch.float32,
+                      device=dev)
+
+    def launch(sums=True):
+        return step.step_shade_backward(rec, ab, arena, bg, g_color, g_out,
+                                        buf if sums else None, sums, sums)
+
+    return dict(rec=rec, ab=ab, g_color=g_color, g_out=g_out, launch=launch)
+
+
+def s1b_through(rec, g_color):
+    """(R, 3) bool: the lane channels whose fold gradients S1B passes
+    through without reading the fold (csrc/step.cu): a lane whose record
+    sets no branch flag, reads no texel and has a zero pdf weight, on a
+    channel whose color gradient times the attenuation (0 where the channel
+    was dead at the terminal color) is 0."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+
+    word = rec[3]
+    att = rec[2].view(torch.float32)
+    quiet = ((word & (step.REC_MISS | step.REC_EMIT_FRONT | step.REC_SCAT
+                      | step.REC_PDF | step.REC_TERMINAL)) == 0) & \
+        (rec[0] < 0) & (rec[1].view(torch.float32) == 0.0)
+    return torch.stack([quiet & (torch.where(
+        (word & (step.REC_DEAD_T << c)) != 0, 0.0, g_color[:, c] * att)
+        == 0.0) for c in range(3)], -1)
+
+
+def s1b_work(rec, g_color):
+    """S1B's bytes and f32 operations on one call's record and upstream
+    color gradient, counted as the function needs them: per lane the
+    record (16), the color's gradient (12) and the fold's gradients out
+    (24); the fold's gradients in (24) on each lane that does not end; the
+    fold's A and B (8 a channel) on each channel whose gradients are not a
+    pass-through of those (``s1b_through``); each distinct texel row read
+    (12) and its sums read and written (24); the background (12) and its
+    sums (24). Operations: ``S1B_LANE`` a lane."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+
+    r = rec.shape[1]
+    through = int(s1b_through(rec, g_color).sum())
+    going = int(((rec[3] & step.REC_TERMINAL) == 0).sum())
+    rows = int(torch.unique(rec[0][rec[0] >= 0]).numel())
+    return (r * (16 + 12 + 24) + 24 * going + 8 * (3 * r - through)
+            + 36 * rows + 12 + 24, r * S1B_LANE)
+
+
+def s1b_rows(rec):
+    """How S1B's arena sums meet on one call's record: the distinct texel
+    rows the lanes read, the (warp, row) pairs (a warp adds each row its
+    lanes read once, so each pair is one atomic add a channel), and the
+    most warps that add to one row (the adds one address takes in turn)."""
+    import torch
+
+    row = rec[0].long()
+    read = row >= 0
+    warp = torch.arange(row.shape[0], device=row.device)[read] // 32
+    pairs = torch.unique(warp * (int(row.max()) + 1) + row[read])
+    per_row = torch.bincount(pairs % (int(row.max()) + 1)) if \
+        pairs.numel() else torch.zeros(1)
+    return dict(rows=int(torch.unique(row[read]).numel()),
+                warp_rows=int(pairs.numel()), hot_row_warps=int(per_row.max()))
+
+
+def bound_ms(nbytes, flops):
+    """(the least ms the card could take, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the f32 operations over
+    the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_lines(log):
+    """ptxas' lines for the step kernels in a build log: each entry's
+    name, then its stack, spills and registers."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = "step_" in ln
+            if keep:
+                out.append(ln.split("'")[1] if "'" in ln else ln)
+        elif keep and ("registers" in ln or "spill" in ln
+                       or "stack frame" in ln):
+            out.append(ln.split("ptxas info    :")[-1].strip())
+    return out
+
+
 def measure_kernels(cs, w, h, spp):
     """The line of a step kernels' cell (see the module docstring)."""
+    from solstrale_tpu_torch.ops import _build
+
     out = {}
     for lanes in KERNEL_WIDTHS:
         calls = step_kernel_calls(cs, w, h, spp, lanes)
         restore = device_ms(calls["restore"])
-        out[str(lanes)] = dict(
+        line = dict(
             s1_ms=device_ms(calls["s1"]),
             s2_ms=device_ms(calls["s2"]) - restore, restore_ms=restore,
             terminal_lanes=int(calls["terminal"].sum()))
-    return dict(widths=out)
+        wf, pool = calls["wf"], calls["pool"]
+        b = s1b_calls(cs, pool, pool.qpos < wf.total_q)
+        nbytes, flops = s1b_work(b["rec"], b["g_color"])
+        bound, by = bound_ms(nbytes, flops)
+        solid = s1b_calls(cs, pool, pool.qpos < wf.total_q, one_row=0)
+        line.update(s1b_ms=device_ms(b["launch"]),
+                    s1b_fold_only_ms=device_ms(lambda: b["launch"](False)),
+                    s1b_one_row_ms=device_ms(solid["launch"]),
+                    s1b_bound_ms=bound, s1b_bound_by=by, s1b_bytes=nbytes,
+                    s1b_rows=s1b_rows(b["rec"]))
+        out[str(lanes)] = line
+    return dict(widths=out,
+                ptxas=ptxas_lines(_build.BuildInfo.log))
 
 
 def _device():

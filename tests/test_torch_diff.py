@@ -306,6 +306,33 @@ def test_checkpointed_backward_equals_unchunked(monkeypatch):
     assert chunked_bytes * 3 < flat_bytes, (chunked_bytes, flat_bytes)
 
 
+@pytest.mark.parametrize("name", list(SCENES))
+def test_two_sample_step_matches_jax(name, monkeypatch):
+    """``image_and_texture_grad`` with two samples, whose two traces sum
+    their arena gradients each in one buffer a backward pass (the pass's
+    sums, ``ops.step.GradSums``), with the bounces checkpointed one a chunk
+    (``remat_chunk`` 1), against the JAX package's: the loss to rtol
+    1e-5, the gradient to rtol 1e-3, atol 1e-4 on the entries where JAX's
+    is finite (the kitchen's NaN rows, ROADMAP C), as
+    tests/test_torch_diff_graph.py holds the one-sample step."""
+    if name == "kitchen":
+        monkeypatch.setenv("SOLSTRALE_PALLAS", "1")
+    monkeypatch.setattr(TI, "remat_chunk", lambda depth: 1)
+    cj, ct = _compile(name, J), _compile(name, T)
+    target = torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(W * H, 3)).astype(np.float32))
+    kw = dict(width=W, height=H, max_depth=DEPTH, n_samples=2, seed=SEED)
+    loss_j, g_j = JD.image_and_texture_grad(
+        cj, jnp.asarray(target.numpy()), **kw)
+    loss, g = TD.image_and_texture_grad(ct, target, **kw)
+    assert float(loss) > 0 and torch.isfinite(g).all() and (g != 0).any()
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
+    g_j = np.asarray(g_j)
+    ok = np.isfinite(g_j)
+    assert ok.mean() > 0.99
+    np.testing.assert_allclose(g.numpy()[ok], g_j[ok], rtol=1e-3, atol=1e-4)
+
+
 def test_fixed_trip_without_grad_unchanged():
     """Outside grad the fixed trip takes no checkpoint, and under grad its
     forward is the same image bit for bit."""

@@ -121,6 +121,24 @@ def test_run_reads_nothing_back(scenes, name):
         TD.render_linear = render
 
 
+@pytest.mark.parametrize("name", list(SCENES))
+def test_run_reads_nothing_back_on_a_fresh_scene(name):
+    """The same on a scene compiled for the step alone, whose target comes
+    from elsewhere: nothing of the scene was packed before the step's
+    warm-up, and the differentiable trace's scene copy (``grad_scene``)
+    packs nothing in the captured body either (a pack of the media tables
+    reads back to the host, which fails a capture)."""
+    cs = _compile(name)
+    target = torch.from_numpy(np.random.default_rng(6).uniform(
+        size=(W * H, 3)).astype(np.float32))
+    step = TD.grad_step(cs, target, **KW)
+    step(cs, target)
+    step.load(cs, target)
+    with _NoHostReads():
+        step.run()
+    assert torch.isfinite(step.grad).all() and float(step.loss) > 0
+
+
 @pytest.mark.parametrize("depth", [DEPTH, 5])
 @pytest.mark.parametrize("name", list(SCENES))
 def test_step_equals_eager_bit_for_bit(scenes, name, depth):

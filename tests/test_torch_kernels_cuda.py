@@ -809,22 +809,55 @@ def _numpy_fold(g, r, device):
             torch.from_numpy(g.random(r) < 0.5).to(device))
 
 
-@pytest.mark.parametrize("name", list(STEP_SCENES))
-def test_s1b_matches_plain(cuda, name):
-    """S1 with its record against shade_plain(record=True), bit for bit, and
-    S1B (ops.step.step_shade_backward) against its plain version on the same
-    record and inputs: the fold's gradients bit for bit, the arena's and the
-    background's (sums of signed terms, by atomics on the card) within 1e-5
-    of the magnitudes summed into each entry (the plain backward of the
-    upstream's absolute values) and 1e-7; three chained
-    bounces of 8,192 lanes at depth cap 2, folds and upstream gradients
-    from a numpy seed; one S1B launch a call."""
+def _s1b_vs_plain(rec, ab, arena, bg, g_color, g_out):
+    """S1B (ops.step.step_shade_backward) against its plain version, each
+    adding into sums of its own: one launch, the fold's gradients bit for
+    bit, the arena's and the background's sums (by atomics on the card)
+    within 1e-5 of the magnitudes summed into each entry (the plain
+    backward of the upstream's absolute values) and 1e-7. Returns the
+    kernel's sums."""
     from solstrale_tpu_torch.ops import step
 
-    w, h, depth = 128, 64, 2
-    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
-                       device=cuda)
-    g = np.random.default_rng(7)
+    k_sums, p_sums, s_sums = (torch.zeros((arena.shape[0] + 1, 3),
+                                          device=arena.device)
+                              for _ in range(3))
+    before = step.step_shade_backward.launches
+    k_ab = step.step_shade_backward(rec, ab, arena, bg, g_color, g_out,
+                                    k_sums)
+    assert step.step_shade_backward.launches == before + 1
+    p_ab = step.step_shade_backward_plain(rec, ab, arena, bg, g_color, g_out,
+                                          p_sums)
+    for a, b in zip(k_ab, p_ab):
+        assert _same(a, b)
+    step.step_shade_backward_plain(rec, ab, arena, bg, g_color.abs(),
+                                   [x.abs() for x in g_out], s_sums)
+    assert ((k_sums - p_sums).abs() <= 1e-5 * s_sums + 1e-7).all()
+    return k_sums
+
+
+def _upstream(g, r, device):
+    """Upstream gradients from the numpy generator ``g``: the color's (R, 3)
+    with 0 (+0 or -0) on a third of the lanes, where S1B passes a parked
+    lane's fold gradients through, and the fold's six (R,)."""
+    g_color = g.normal(size=(r, 3)).astype(np.float32)
+    u = g.random(r)
+    g_color[u < 1 / 6] = 0.0
+    g_color[(u >= 1 / 6) & (u < 1 / 3)] = -0.0
+    return (torch.from_numpy(g_color).to(device),
+            [torch.from_numpy(g.normal(size=r).astype(np.float32)).to(device)
+             for _ in range(6)])
+
+
+def _s1b_bounces(cs, w, h, depth, bounces, g, one_row=None):
+    """``bounces`` chained bounces of S1 with its record against
+    shade_plain(record=True), bit for bit, each followed by S1B against its
+    plain version (``_s1b_vs_plain``) on that record (with ``one_row``,
+    every lane's texel row replaced by that row: a solid colour), on
+    ``w * h`` lanes with a fold, parked lanes and upstream gradients from
+    the numpy generator ``g``."""
+    from solstrale_tpu_torch.ops import step
+
+    cuda = cs.device
     pix = torch.arange(w * h, device=cuda)
     r = pix.shape[0]
     sample = torch.ones_like(pix)
@@ -834,7 +867,7 @@ def test_s1b_matches_plain(cuda, name):
     acc_len = torch.zeros(r, device=cuda)
     active = torch.from_numpy(g.random(r) > 0.1).to(cuda)
     arena, bg = cs.textures.pixels, cs.bg_color
-    for _ in range(3):
+    for _ in range(bounces):
         A, B, dead, outer = _numpy_fold(g, r, cuda)
         t, kind, idx = integrator.step_hit(cs, o, d, pix, sample, bounce, 1)
         kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
@@ -850,22 +883,72 @@ def test_s1b_matches_plain(cuda, name):
         for k, a, b in zip(step.LANE_ARRAYS, step.lane_arrays(got),
                            step.lane_arrays(want)):
             assert _same(a, b), k
-        g_color = torch.from_numpy(g.normal(size=(r, 3)).astype(
-            np.float32)).to(cuda)
-        g_out = [torch.from_numpy(g.normal(size=r).astype(np.float32)).to(
-            cuda) for _ in range(6)]
-        before = step.step_shade_backward.launches
-        k_arena, k_bg, k_ab = step.step_shade_backward(
-            rec, (*A, *B), arena, bg, g_color, g_out)
-        assert step.step_shade_backward.launches == before + 1
-        p_arena, p_bg, p_ab = step.step_shade_backward_plain(
-            rec, (*A, *B), arena, bg, g_color, g_out)
-        for a, b in zip(k_ab, p_ab):
-            assert _same(a, b)
-        s_arena, s_bg, _ = step.step_shade_backward_plain(
-            rec, (*A, *B), arena, bg, g_color.abs(), [x.abs() for x in g_out])
-        for got_, want_, scale in ((k_arena, p_arena, s_arena),
-                                   (k_bg, p_bg, s_bg)):
-            assert ((got_ - want_).abs() <= 1e-5 * scale + 1e-7).all()
+        if one_row is not None:
+            rec[0] = one_row
+        g_color, g_out = _upstream(g, r, cuda)
+        _s1b_vs_plain(rec, (*A, *B), arena, bg, g_color, g_out)
         o, d = want["o"], want["d"]
         bounce, acc_len = want["bounce"], want["acc_len"]
+
+
+@pytest.mark.parametrize("name", list(STEP_SCENES))
+def test_s1b_matches_plain(cuda, name):
+    """S1 with its record against shade_plain(record=True), bit for bit, and
+    S1B (ops.step.step_shade_backward) against its plain version on the same
+    record and inputs (``_s1b_vs_plain``: the fold's gradients bit for bit,
+    the lanes S1B passes through included, the sums within 1e-5 of the
+    magnitudes summed); three chained bounces of 8,192 lanes at depth cap
+    2, folds and upstream gradients from a numpy seed; one S1B launch a
+    call."""
+    w, h = 128, 64
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    _s1b_bounces(cs, w, h, 2, 3, np.random.default_rng(7))
+
+
+@pytest.mark.parametrize("name", ["mixed", "sponza_textured"])
+def test_s1b_one_row_matches_plain(cuda, name):
+    """A solid colour: every lane's texel row the same row, so each warp's
+    lanes sum one row in log2 steps before one atomic add; S1B against its
+    plain version as in ``test_s1b_matches_plain``, on an untextured and a
+    textured scene."""
+    w, h = 128, 64
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    _s1b_bounces(cs, w, h, 2, 3, np.random.default_rng(8), one_row=3)
+
+
+@pytest.mark.parametrize("name,w,h,seed", [("kitchen", 400, 266, 9),
+                                           ("mixed", 960, 540, 10)])
+def test_s1b_at_step_width_matches_plain(cuda, name, w, h, seed):
+    """S1B against its plain version at a 400x266 inverse step's 106,400
+    lanes (the kitchen, K4) and at 960x540 (518,400 lanes, the mixed
+    scene), where each block of its resident grid loops over more than one
+    tile of lanes, its row table and background sum carried across tiles;
+    two chained bounces at depth cap 2."""
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    _s1b_bounces(cs, w, h, 2, 2, np.random.default_rng(seed))
+
+
+def test_graphed_step_at_step_width_matches_eager(cuda):
+    """The inverse step at 400x266, depth 50 on the kitchen (106,400 lanes,
+    S1B adding into one sums buffer a backward pass): one replay of its
+    CUDA graph against the same step run op by op (``_GradStep.eager``,
+    the eager route with the same sums): the loss the same bits, the
+    gradient within rtol 1e-4, atol 1e-7 (its sums by atomics)."""
+    from solstrale_tpu_torch import diff
+
+    w, h = 400, 266
+    kw = dict(width=w, height=h, max_depth=50, n_samples=1, seed=1)
+    cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=w, height=h)), device=cuda)
+    with torch.no_grad():
+        target = diff.render_linear(cs, **dict(kw, seed=2))
+    eager = diff._GradStep(cs, target, **kw)
+    diff.image_and_texture_grad(cs, target, **kw)
+    loss, g = diff.image_and_texture_grad(cs, target, **kw)
+    loss_e, g_e = eager.eager(cs, target)
+    assert torch.equal(loss, loss_e)
+    assert torch.isfinite(g).all() and (g != 0).any()
+    torch.testing.assert_close(g, g_e, rtol=1e-4, atol=1e-7)

@@ -16,7 +16,18 @@ many_lights, the mixed BVH scene and the normal-mapped kitchen), checked:
     ``render_linear`` (16x8, depth 4, 1 spp; tests/test_torch_diff.py's
     rtol 1e-3, atol 1e-4, on the entries where JAX's is finite);
 (c) a normal map's texels get a gradient of exactly 0;
-(d) the route raises where another scene table requires grad.
+(d) the route raises where another scene table requires grad;
+(e) the arena's and the background's gradients summed in one buffer a
+    backward pass (``ops.step.GradSums``) against the route before it,
+    which zeroed a buffer every S1B call and let autograd add them
+    (``_per_call_shade_grad``, kept here over ``step_shade_backward_plain``),
+    with two samples and the bounces checkpointed one a chunk; one zero
+    fill of the arena's size a trace and a backward pass, and no per-bounce
+    add; a second backward over a retained graph gives the same gradient,
+    not twice it, and leaves the first one as it was;
+(f) the lanes whose fold gradients S1B passes through without reading
+    the fold (no branch, no texel, a zero pdf weight, a zero color
+    gradient) get the same bits from the full formula.
 """
 import dataclasses
 
@@ -35,6 +46,7 @@ from solstrale_tpu_torch import fixtures
 from solstrale_tpu_torch.ops import bvh as TB
 from solstrale_tpu_torch.ops import step as S
 from solstrale_tpu_torch.renderer import integrator as TI
+from solstrale_tpu_torch.profiling import ArenaOps
 from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
 
 torch.set_num_threads(2)
@@ -138,13 +150,15 @@ def test_plain_backward_matches_autograd(name):
         for k in ("color",) + S.FLAGS:
             torch.testing.assert_close(rec_st[k], st[k].detach(), rtol=0,
                                        atol=0, equal_nan=True, msg=k)
-        got_arena, got_bg, got_ab = S.step_shade_backward_plain(
-            rec, (*A, *B), cs.textures.pixels, cs.bg_color, g_color, g_out)
+        sums = torch.zeros((cs.textures.pixels.shape[0] + 1, 3))
+        got_ab = S.step_shade_backward_plain(
+            rec, (*A, *B), cs.textures.pixels, cs.bg_color, g_color, g_out,
+            sums)
         for k, (a, b) in enumerate(zip(got_ab, want[:6])):
             torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
                                        msg=f"fold input {k}")
-        torch.testing.assert_close(got_arena, want[6], rtol=1e-6, atol=0)
-        torch.testing.assert_close(got_bg, want[7], rtol=1e-6, atol=0)
+        torch.testing.assert_close(sums[:-1], want[6], rtol=1e-6, atol=0)
+        torch.testing.assert_close(sums[-1], want[7], rtol=1e-6, atol=0)
 
         # the lanes where a minimum's operands tie or one is NaN, with a
         # gradient to split: min(A t_c, B) at the terminal color (t_c the
@@ -286,3 +300,227 @@ def test_route_raises_on_other_tables(table):
         img = TD.render_linear(bad, width=16, height=8, max_depth=4,
                                n_samples=1, seed=SEED)
     assert torch.isfinite(img).all()
+
+
+class _PerCallShadeFn(torch.autograd.Function):
+    """The differentiable bounce before the pass's sums: S1 with its record,
+    and in the backward S1B's plain version into a buffer zeroed for this
+    call, whose arena and background rows it returns for autograd to add
+    to the other bounces'."""
+
+    @staticmethod
+    def forward(ctx, cs, call, arena, bg, *ab):
+        (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
+         seed, active, max_depth) = call
+        out, rec = S.shade_with_record(
+            cs, t, kind, idx, o, d, bounce, acc_len,
+            (ab[:3], ab[3:], dead, outer), pixel, sample, seed, active,
+            max_depth, arena, bg)
+        ctx.save_for_backward(rec, arena, bg, *ab)
+        ctx.set_materialize_grads(False)
+        A, B, dead, outer = out["fold"]
+        rest = (*out["o"], *out["d"], out["bounce"], out["acc_len"], *dead,
+                outer, *(out[k] for k in S.FLAGS))
+        ctx.mark_non_differentiable(*rest)
+        return (out["color"], *A, *B) + rest
+
+    @staticmethod
+    def backward(ctx, g_color, *g_out):
+        rec, arena, bg, *ab = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        sums = torch.zeros((arena.shape[0] + 1, 3), dtype=arena.dtype)
+        g_ab = S.step_shade_backward_plain(rec, ab, arena, bg, g_color,
+                                           g_out[:6], sums, need[2], need[3],
+                                           need[4:10])
+        return (None, None, sums[:-1] if need[2] else None,
+                sums[-1] if need[3] else None, *g_ab)
+
+
+def _per_call_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold,
+                         pixel, sample, seed, active, max_depth):
+    """``ops.step.step_shade_grad`` on ``_PerCallShadeFn``."""
+    A, B, dead, outer = fold
+    outs = _PerCallShadeFn.apply(
+        cs, (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
+             seed, active, max_depth), cs.textures.pixels, cs.bg_color,
+        *A, *B)
+    out = dict(zip(S.FLAGS, outs[19:]))
+    out.update(color=outs[0], o=outs[7:10], d=outs[10:13], bounce=outs[13],
+               acc_len=outs[14], fold=(outs[1:4], outs[4:7], outs[15:18],
+                                       outs[18]))
+    return out
+
+
+def _two_sample_grads(cs, w=16, h=8, depth=4, samples=2):
+    """(image, arena gradient, background gradient) of a weighted sum of
+    ``render_linear``'s image with ``samples`` samples (weights from a
+    numpy seed), and the arena-sized zero fills and adds of the backward
+    pass (``profiling.ArenaOps``)."""
+    arena = cs.textures.pixels.detach().clone().requires_grad_(True)
+    bg = cs.bg_color.detach().clone().requires_grad_(True)
+    img = TD.render_linear(_with_leaves(cs, arena, bg), width=w, height=h,
+                           max_depth=depth, n_samples=samples, seed=SEED)
+    weight = torch.from_numpy(np.random.default_rng(3).normal(
+        size=img.shape).astype(np.float32))
+    with ArenaOps(arena.shape[0]) as ops:
+        g_arena, g_bg = torch.autograd.grad((img * weight).sum(), (arena, bg))
+    return img.detach(), g_arena, g_bg, ops
+
+
+@pytest.mark.parametrize("name", ["kitchen", "mixed"])
+def test_sums_route_matches_per_call_route(name, monkeypatch):
+    """(e) With two samples and the bounces checkpointed one a chunk
+    (``remat_chunk`` 1: four chunks and the last bounce), the arena's and
+    the background's gradients of the pass's sums against the per-call
+    route's: the same image bit for bit, the gradients within 1e-6 of the
+    largest entry (the same lanes' terms, added into one running sum
+    instead of into a sum a bounce and then across bounces); the backward
+    pass zeroes one arena-sized buffer a sample (a trace) and adds two
+    arena-sized gradients once (the samples'), where the per-call route
+    zeroes one a bounce and adds them a bounce at a time."""
+    monkeypatch.setattr(TI, "remat_chunk", lambda depth: 1)
+    cs = _compile(name, T, 16, 8)
+    img, g, g_bg, ops = _two_sample_grads(cs)
+    assert torch.isfinite(g).all() and (g != 0).any()
+    assert torch.isfinite(g_bg).all() and (g_bg != 0).any()
+    assert (ops.fills, ops.adds) == (2, 1), (ops.fills, ops.adds)
+    monkeypatch.setattr(S, "step_shade_grad", _per_call_shade_grad)
+    img_p, g_p, g_bg_p, ops_p = _two_sample_grads(cs)
+    assert torch.equal(img, img_p)
+    assert ops_p.fills == 2 * 5 and ops_p.adds > 2 * 4, (ops_p.fills,
+                                                         ops_p.adds)
+    for a, b in ((g, g_p), (g_bg, g_bg_p)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+def test_retained_second_backward_does_not_double():
+    """(e) Backward passes over one retained graph of three chained
+    bounces (``path_step_grad`` on one ``grad_scene``): a second pass for
+    the arena and the background starts its sums from zero (a pass is
+    autograd's graph task), so it gives the first's gradients bit for bit,
+    and the first's tensors keep their values; a pass for the first fold
+    only runs every S1B but not the sums' sink, and leaves nothing that the
+    next pass adds to."""
+    cs = _compile("kitchen", T, 16, 8)
+    arena = cs.textures.pixels.detach().clone().requires_grad_(True)
+    bg = cs.bg_color.detach().clone().requires_grad_(True)
+    scene = S.grad_scene(_with_leaves(cs, arena, bg))
+    assert S.sums_of(scene.textures.pixels) is not None
+    pix = torch.arange(16 * 8, dtype=torch.int64)
+    _, o, d = TI.camera_rays(scene, pix, 16, 8, 1, SEED)
+    zero = torch.zeros_like(o[0])
+    A, B, dead, outer = TI.fold_init(zero)
+    a0 = tuple(x.clone().requires_grad_(True) for x in A)
+    fold = (a0, B, dead, outer)
+    bounce = torch.zeros(pix.shape, dtype=torch.int32)
+    alive = torch.ones(pix.shape, dtype=torch.bool)
+    loss, acc_len = 0.0, zero
+    for _ in range(3):
+        st = TI.path_step_grad(scene, o, d, bounce, acc_len, fold, pix, 1,
+                               SEED, alive, 4)
+        loss = loss + (st["color"] * st["color"]).sum()
+        alive = alive & ~st["terminal"]
+        o, bounce, acc_len, fold = (st["o"], st["bounce"], st["acc_len"],
+                                    st["fold"])
+        d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
+    g1 = torch.autograd.grad(loss, (arena, bg), retain_graph=True)
+    kept = [g.clone() for g in g1]
+    g2 = torch.autograd.grad(loss, (arena, bg), retain_graph=True)
+    for a, b, k in zip(g1, g2, kept):
+        assert torch.equal(a, b) and torch.equal(a, k)
+        assert (a != 0).any() and a.data_ptr() != b.data_ptr()
+    g_a0 = torch.autograd.grad(loss, a0, retain_graph=True)
+    assert any((g != 0).any() for g in g_a0)
+    g3 = torch.autograd.grad(loss, (arena, bg))
+    for a, b in zip(g1, g3):
+        assert torch.equal(a, b)
+
+
+def test_bounce_without_a_trace_head_keeps_its_arena_gradient():
+    """(e) ``path_step_grad`` called on a scene that no trace passed through
+    ``grad_scene`` makes the sums' head for its own call: the arena's and
+    the background's gradients of one bounce equal those of the same
+    bounce on a ``grad_scene`` copy, and are not all zero."""
+    cs = _compile("kitchen", T, 16, 8)
+    pix = torch.arange(16 * 8, dtype=torch.int64)
+    grads = []
+    for head in (False, True):
+        arena = cs.textures.pixels.detach().clone().requires_grad_(True)
+        bg = cs.bg_color.detach().clone().requires_grad_(True)
+        scene = _with_leaves(cs, arena, bg)
+        if head:
+            scene = S.grad_scene(scene)
+        assert (S.sums_of(scene.textures.pixels) is not None) == head
+        _, o, d = TI.camera_rays(scene, pix, 16, 8, 1, SEED)
+        zero = torch.zeros_like(o[0])
+        st = TI.path_step_grad(scene, o, d, torch.zeros(pix.shape,
+                                                        dtype=torch.int32),
+                               zero, TI.fold_init(zero), pix, 1, SEED,
+                               torch.ones(pix.shape, dtype=torch.bool), 4)
+        grads.append(torch.autograd.grad(
+            (st["color"] * st["color"]).sum(), (arena, bg)))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b) and (a != 0).any()
+
+
+def test_pass_through_lanes_equal_full_formula():
+    """(f) S1B does not read A and B on a lane whose record sets no branch
+    bit, reads no texel and has a zero pdf weight, on a channel whose color
+    gradient times the attenuation is 0 (csrc/step.cu): it writes the
+    upstream fold gradients plus 0. The plain version's full formula gives
+    those bits on every such lane and channel, with A and B 0, 1, inf,
+    NaN, tied (B = 3A, B = A * 0) or random, the color gradient +0 or -0
+    (or any value on a dead-at-terminal channel), the attenuation from a
+    record, and upstream fold gradients +0, -0, inf, NaN or random; and a
+    color gradient that is not 0 (NaN, inf, a number) gives what the full
+    formula gives, which the kernel then computes."""
+    g = np.random.default_rng(11)
+    r = 4096
+    special = np.array([0.0, -0.0, 1.0, np.inf, -np.inf, np.nan],
+                       dtype=np.float32)
+
+    def draw(p_special):
+        x = g.normal(size=r).astype(np.float32)
+        pick = g.random(r) < p_special
+        x[pick] = special[g.integers(0, len(special), int(pick.sum()))]
+        return torch.from_numpy(x)
+
+    A = [draw(0.5) for _ in range(3)]
+    B = [draw(0.5) for _ in range(3)]
+    B[0][:64] = 3.0 * A[0][:64]
+    B[1][64:128] = A[1][64:128] * 0.0
+    g_out = [draw(0.3) for _ in range(6)]
+    dead_t = [torch.from_numpy(g.random(r) < 0.2) for _ in range(3)]
+    dead = [torch.from_numpy(g.random(r) < 0.2) for _ in range(3)]
+    att = torch.from_numpy(g.uniform(0.1, 1.0, r).astype(np.float32))
+    att[::3] = 1.0
+    none = torch.zeros(r, dtype=torch.bool)
+    rec = S.shade_record(torch.full((r,), -1, dtype=torch.int32),
+                         torch.zeros(r), att, none, none, none, none, none,
+                         dead_t, dead)
+    zero = torch.from_numpy(np.where(g.random((r, 3)) < 0.5, 0.0, -0.0)
+                            .astype(np.float32))
+    # a third of the lanes: a color gradient that is not 0
+    g_color = torch.where(torch.arange(r)[:, None] % 3 == 0,
+                          draw(0.5)[:, None].expand(r, 3), zero)
+    texels, bg = torch.rand(8, 3), torch.rand(3)
+    sums = torch.zeros((9, 3))
+    got = S.step_shade_backward_plain(rec, (*A, *B), texels, bg, g_color,
+                                      g_out, sums)
+    assert not sums.any()
+    passed = 0
+    for c in range(3):
+        gl = torch.where(dead_t[c], 0.0, g_color[:, c] * att)
+        through = gl == 0.0
+        passed += int(through.sum())
+        for k, up in ((c, g_out[c]), (3 + c, g_out[3 + c])):
+            want = (up + 0.0)[through]
+            assert torch.equal(got[k][through].view(torch.int32),
+                               want.view(torch.int32)), (c, k)
+        # a gradient that is not 0 reaches the result through the terminal
+        # color's minimum: gx t_c is NaN where gx is not finite, which
+        # happens unless A t_c > B (min_grads' NaN rule)
+        nan = ~through & ~torch.isfinite(gl) & ~(A[c] * 0.0 > B[c])
+        assert nan.any() and torch.isnan(got[c][nan]).all()
+    assert passed > 2 * r
