@@ -66,6 +66,17 @@ script exits non-zero):
      ptxas' registers and spills of the
      step kernels; S1 and the step on a seventh scene, whose small tables
      are too large to stage in shared memory, chained as on the six;
+  2d. the first hit's kernels (``csrc/first_hit.cu``): CR
+     (``ops.first_hit.camera_rays``, the camera rays of a list of pixel
+     ids) against ``integrator.camera_rays_plain`` and FH
+     (``ops.first_hit.first_hit_shade``, the debug shaders' color and the
+     aux planes from the depth-0 hit) against the plain functions
+     (``first_hit_aux_plain``, ``shade_*_plain``) bit for bit at the wide
+     pool's 131,072 lanes and at a 1080p image's 2,073,600 on 2c's six
+     scenes, every shader kind and plane combination; each one's device,
+     wrapper and plain time against its byte bound, ptxas' registers and
+     spills of both, and S1 still at 64 registers or fewer without
+     spills;
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -95,16 +106,19 @@ script exits non-zero):
      and a replayed batch's launches equal to its steps (no draw kernel);
   3d. the renderer's surface at full size: ``ray_trace`` on the interior
      at 1920x1080 with bloom and the denoiser, checkpointed every sample and
-     resumed from sample 1 bit for bit (K1, never K5); the albedo, normal
-     and simple shaders at 1920x1080 on the interior (K1) and the kitchen
-     (K4), never K5; ``render_pixels`` on the mixed scene at 1920x1080,
-     depth 50, with and without early exit, bit for bit (K1, K2, K3, and
-     S1 once a bounce, grad mode on as a user calls it), and
+     resumed from sample 1 bit for bit (K1, S1, S2, and CR and FH once a
+     sample for the aux planes; never K5 or the draw kernel); the albedo,
+     normal and simple shaders at 1920x1080 on the interior (K1) and the
+     kitchen (K4), one CR and one FH launch a sample, never K5 or the draw
+     kernel; ``render_pixels`` on the mixed scene at 1920x1080,
+     depth 50, with and without early exit, bit for bit (K1, K2, K3, CR
+     once, and S1 once a bounce, grad mode on as a user calls it), and
      ``render_sample`` of the same (one S1 launch a bounce, its image); K1
      and K4 over all 2,073,600 camera rays of a 1080p image in one launch
      equal to 16 launches of 131,072; the CNN denoiser on the card against
-     the CPU; times of the denoiser, bloom, ``first_hit_aux``, the debug
-     shaders and the aux-on batch against the aux-off one;
+     the CPU; times of the denoiser, bloom, ``first_hit_aux``, the hit
+     kernels alone and CR on the 2,073,600 camera rays, the debug shaders
+     and the aux-on batch against the aux-off one;
   4. card against CPU and determinism: five small scenes (the fifth a
      128-triangle terrain loaded from an OBJ with textures, a normal map and
      a height map: the wavefront with K4) rendered on the card and on the
@@ -118,8 +132,9 @@ script exits non-zero):
      with its backward S1B) on the mixed scene at 1920x1080, depth 50
      (K1-K3) and on the kitchen at 400x266 (K4), against a target at seed
      2: taken by hand, a finite loss, a non-zero finite gradient, its peak
-     memory and the kernels' launches in the forward (S1 51) and in the
-     replay (S1 50, S1B 51; the draw kernel 2 for the camera rays and 0),
+     memory and the kernels' launches in the forward (S1 51, CR 1 for
+     the camera rays) and in the replay (S1 50, S1B 51; no draw kernel in
+     either),
      one zero fill of the arena's size in the backward and no add of one
      (the pass's gradient sums), its loss equal to
      that of the route before S1B (autograd through ``shade_plain``, put in
@@ -169,10 +184,12 @@ script exits non-zero):
      new scenes at a small size on the card against the CPU, repeated bit
      for bit.
 The last lines are the card's name and power limit, the kernels' JSON
-summary (K1-K5, the draw kernel, S1, S2 and S1B; the draw kernel's
-launches are those of the denoised render of phase 3d, its one path left
-on the card: ``first_hit_aux``; S1B's those of phase 5's graphed steps,
-its ``ms`` the kernel alone) and the result line.
+summary (K1-K5, the draw kernel, S1, S2, S1B, CR and FH; the draw
+kernel's launches are those of the denoised render of phase 3d, 0: no
+route on the card launches it since CR and FH draw in registers; CR's and
+FH's those of phase 3d's denoised render and debug shaders, and CR's of
+phase 5's graphed steps too; S1B's those of phase 5's graphed steps, its
+``ms`` the kernel alone) and the result line.
 """
 import json
 import os
@@ -505,7 +522,7 @@ def _subsampled_rays(cs, n=16384, parked=256):
     dev = cs.device
     n_cam = (n - parked) // 2
     pix = torch.linspace(0, 1920 * 1080 - 1, n_cam, device=dev).long()
-    o, d = integrator._camera_rays(cs, pix, 1, 1, 1920, 1080)
+    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, 1920, 1080)
     bo, bd = _bounces(cs, o, d, pix, park_misses=False)
     zeros = torch.zeros(parked, device=dev)
     po = tuple(torch.full((parked,), 2.0, device=dev) for _ in range(3))
@@ -527,7 +544,7 @@ def _queue_rays(cs, lanes=131072):
     half = lanes // 2
     pix, samp = integrator.queue_assignment(
         torch.arange(half, device=cs.device), 1920, 1080, 1)
-    o, d = integrator._camera_rays(cs, pix, samp, 1, 1920, 1080)
+    o, d = integrator.camera_rays_plain(cs, pix, samp, 1, 1920, 1080)
     bo, bd = _bounces(cs, o, d, pix, park_misses=True)
     return (tuple(torch.cat([a, b]) for a, b in zip(o, bo)),
             tuple(torch.cat([a, b]) for a, b in zip(d, bd)))
@@ -682,8 +699,9 @@ def phase_draws():
     every argument form the callers pass: the four floats bit for bit (so
     the top 24 bits of every PCG4D word), one launch a call (one device
     kernel at the wide pool's form), ``uniform`` row 0 of it. Timed at the
-    wide pool's 131,072 lanes and at its callers' 2,073,600 (a 1080p
-    image's camera rays); bound: the counters read once (int64 pixel and
+    wide pool's 131,072 lanes and at 2,073,600 (a 1080p image's camera
+    rays, whose draws CR now makes in registers: no route on the card
+    launches the draw kernel); bound: the counters read once (int64 pixel and
     sample, int32 bounce; an int is no bytes) and four f32 written, over
     the memory rate. Returns its row of the kernels line."""
     import torch
@@ -742,8 +760,8 @@ def phase_draws():
         raise AssertionError(f"draws: one call ran {kernels['draw']}")
     tm = kernel_times(lambda: rng.uniform4(*wide[:3], rng.P_COSINE, 1),
                       lambda: rng.uniform4_plain(*wide[:3], rng.P_COSINE, 1))
-    # its callers' width: a 1080p render_pixels' camera rays (the inverse
-    # step's two launches), the pixel ids with an int sample and bounce
+    # a 1080p render_pixels' camera rays' width (the draws CR now makes in
+    # registers), the pixel ids with an int sample and bounce
     camera = dict(ms=device_ms(lambda: rng.uniform4(full, 1, 0, rng.P_JITTER,
                                                     1)),
                   **bound(nbytes(full) + 16 * full.shape[0], 0))
@@ -1327,6 +1345,256 @@ def phase_step(sponza_cs):
     return rows
 
 
+# phase 2d's widths: the wide pool's (pixel ids in the wavefront's queue
+# order, a sample a lane) and a 1080p image's (every pixel id and an int
+# sample, render_pixels' form and the denoised render's)
+FIRST_WIDTHS = (131072, 2073600)
+# FH's f32 operations beyond K5_HIT (csrc/first_hit.cu, counted as K5's):
+# a normal map's tangent-space normal 6 and its frame 15; the simple
+# shader's factor 5 and product 3
+FH_NORMAL_MAP = 21
+FH_SIMPLE = 8
+
+
+def _ptxas_log():
+    """ptxas' report of the kernel library in use: this process's build's,
+    or the one written beside the library when it was built."""
+    from solstrale_tpu_torch.ops import _build
+
+    log = _build.library_path().with_suffix(".log")
+    return _build.BuildInfo.log or (log.read_text() if log.exists() else "")
+
+
+def _lane_bytes(x):
+    """The bytes a lane reads of a draw counter: its element where it is a
+    lane array, none where it is one value."""
+    import torch
+
+    return (x.element_size() if isinstance(x, torch.Tensor) and x.numel() > 1
+            else 0)
+
+
+def _fh_work(cs, o, d, hit, pix, sample, planes, shader=None):
+    """FH's bytes and f32 operations on one call's hit (t, kind, idx as FH
+    takes them: no kind where idx is K1's planar slot), as
+    ``csrc/first_hit.cu::first_lane`` loads them. Bytes: per lane t and
+    each (R, 3) plane written; per hit lane idx (and kind where given), the
+    ray, the pixel id (and the sample where it is a lane array); per
+    distinct row the hit lanes read, the attribute rows (a planar row 112
+    B, with its ``pl_row`` entry on K1's slot; a sphere row 32), the albedo
+    texels where the albedo is read (the albedo plane, or a color but the
+    normal shader's) and, on a scene with normal maps where a normal is
+    read (the normal plane, or the normal or simple shader's color), the
+    normal map's texels (12 B each); the small tables, read once a block,
+    not counted. Operations: every hit lane K5_HIT, K5_BLEND a blend walk
+    on a scene with blends (the albedo's, the normal map's), a mapped
+    normal FH_NORMAL_MAP, the simple shader FH_SIMPLE."""
+    import torch
+    from solstrale_tpu_torch.ops import rng, step
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
+                                                   KIND_TRIANGLE)
+
+    tab = step.step_tables(cs)
+    t, kind, idx = hit
+    r = t.shape[0]
+    live = torch.isfinite(t)
+    hits = int(live.sum())
+    n_pl = tab.pln.shape[0]
+    if kind is None:
+        rows = int(torch.unique(idx[live].clamp(0, max(n_pl - 1, 0)))
+                   .numel()) * (112 + 4)
+    else:
+        sph = live & (kind == KIND_SPHERE) & bool(tab.flags
+                                                  & step.FLAG_SPHERES)
+        pl = live & ~sph & ~((kind == KIND_MEDIUM)
+                             & (tab.med_mat.shape[0] > 0))
+        slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
+        rows = (int(torch.unique(slot[pl].clamp(0, max(n_pl - 1, 0)))
+                    .numel()) * 112
+                + int(torch.unique(idx[sph]).numel()) * 32)
+    want_alb = planes["albedo"] or shader in (integrator.SHADER_ALBEDO,
+                                              integrator.SHADER_SIMPLE)
+    want_n = planes["normal"] or shader in (integrator.SHADER_NORMAL,
+                                            integrator.SHADER_SIMPLE)
+    maps = want_n and bool(tab.flags & step.FLAG_NORMAL_MAPS)
+    _, attrs, samp, bounce = integrator._first_hit(cs, o, d, pix, sample, 1,
+                                                   hit)
+    mats = cs.materials
+    texels = mapped = 0
+    if want_alb:
+        eff = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
+            pix, samp, bounce, rng.P_BLEND_SCATTER, 1), cs.features)
+        texels += int(torch.unique(integrator.texel_index(
+            cs.textures, integrator.mat_row(mats, eff)["albedo_tex"],
+            attrs["uv"])[live]).numel())
+    if maps:
+        eff_n = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
+            pix, samp, bounce, rng.P_BLEND_NORMAL, 1), cs.features)
+        ntex = integrator.mat_row(mats, eff_n)["normal_tex"]
+        on = live & (ntex >= 0)
+        mapped = int(on.sum())
+        texels += int(torch.unique(integrator.texel_index(
+            cs.textures, ntex, attrs["uv"])[on]).numel())
+    n_planes = sum(bool(v) for v in planes.values()) + (shader is not None)
+    lane = 4 + 12 * n_planes
+    hit_lane = (4 * (1 if kind is None else 2) + 24 + pix.element_size()
+                + _lane_bytes(sample))
+    walks = (int(want_alb) + int(maps)) * bool(tab.flags & step.FLAG_BLEND)
+    flops = (hits * (K5_HIT + K5_BLEND * walks) + mapped * FH_NORMAL_MAP
+             + (hits * FH_SIMPLE if shader == integrator.SHADER_SIMPLE
+                else 0))
+    return r * lane + hits * hit_lane + rows + 12 * texels, flops
+
+
+def _cr_work(cs, pix, sample):
+    """CR's bytes and f32 operations: per lane the pixel id read (and the
+    sample where it is a lane array) and the ray written, the camera row
+    once; the camera ray (S2_REGEN) a lane."""
+    from solstrale_tpu_torch.ops import step
+
+    r = pix.shape[0]
+    lane = pix.element_size() + 24 + _lane_bytes(sample)
+    return r * lane + nbytes(step.step_tables(cs).cam), r * S2_REGEN
+
+
+def _first_hit_check(name, cs, pix, sample, w, h):
+    """CR and FH against their plain versions bit for bit (NaN where the
+    plain has NaN) on ``pix`` with ``sample``: CR against
+    ``camera_rays_plain``; then on CR's rays and their depth-0 hit
+    (``integrator.step_hit``, as ``first_hit_planes`` takes it) FH with
+    every debug shader and none, and every combination of the aux planes,
+    each plane against the plain functions' (``integrator._DEBUG_PLAIN``,
+    ``first_hit_aux_plain``), a plane not asked for not returned; one
+    launch a call. Returns (CR's rays, the hit, the calls checked, the hit
+    lanes)."""
+    import torch
+    from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.renderer import integrator
+
+    before = first_hit.camera_rays.launches
+    o, d = first_hit.camera_rays(cs, pix, sample, 1, w, h)
+    if first_hit.camera_rays.launches != before + 1:
+        raise AssertionError(f"first hit ({name}): CR not one launch")
+    po, pd = integrator.camera_rays_plain(cs, pix, sample, 1, w, h)
+    bad = [k for k, a, b in zip(("o0", "o1", "o2", "d0", "d1", "d2"),
+                                (*o, *d), (*po, *pd)) if not _same(a, b)]
+    if bad:
+        raise AssertionError(f"first hit ({name}, {pix.shape[0]} lanes): CR "
+                             f"differs from camera_rays_plain in {bad}")
+    samp, bounce = integrator._depth0(pix, sample)
+    hit = integrator.step_hit(cs, o, d, pix, samp, bounce, 1)
+    want = {k: fn(cs, o, d, pix, sample, 1, hit)
+            for k, fn in integrator._DEBUG_PLAIN.items()}
+    want_aux = integrator.first_hit_aux_plain(cs, o, d, pix, sample, 1, hit)
+    checked = 0
+    for shader in (None, *integrator._DEBUG_PLAIN):
+        for alb in (False, True):
+            for nrm in (False, True):
+                if shader is None and not (alb or nrm):
+                    continue
+                before = first_hit.first_hit_shade.launches
+                got = first_hit.first_hit_shade(cs, *hit, o, d, pix, sample,
+                                                1, shader, alb, nrm)
+                if first_hit.first_hit_shade.launches != before + 1:
+                    raise AssertionError(f"first hit ({name}): FH not one "
+                                         f"launch")
+                expect = dict(color=want.get(shader),
+                              albedo=want_aux[0] if alb else None,
+                              normal=want_aux[1] if nrm else None)
+                bad = [k for k, v in expect.items()
+                       if (v is None) != (got[k] is None)
+                       or (v is not None and not _same(got[k], v))]
+                if bad:
+                    raise AssertionError(
+                        f"first hit ({name}, {pix.shape[0]} lanes, shader "
+                        f"{shader}, albedo {alb}, normal {nrm}): FH differs "
+                        f"from the plain functions in {bad}")
+                checked += 1
+    return o, d, hit, checked, int(torch.isfinite(hit[0]).sum())
+
+
+def phase_first_hit(sponza_cs):
+    """2d: the first hit's kernels (``csrc/first_hit.cu``): CR
+    (``ops.first_hit.camera_rays``) and FH (``first_hit_shade``) against
+    their plain versions (``_first_hit_check``) at the wide pool's 131,072
+    lanes (the queue's pixel ids, a sample a lane) and at a 1080p image's
+    2,073,600 (every pixel id, an int sample) on phase 2c's six scenes
+    (camera rays of a 1920x1080 image from each scene's camera), every
+    shader kind and plane combination; each kernel's device, wrapper and
+    plain time (FH asked for the aux planes, the denoiser's form; and each
+    debug shader's device time) against its bound; ptxas' registers and
+    spills of CR and FH, and S1 still at 64 registers or fewer with no
+    spills. Returns the rows of the kernels line: CR's and FH's on the
+    main path's interior at 2,073,600 lanes (the denoised render's)."""
+    import re
+
+    import torch
+    from solstrale_tpu_torch import wavefront_ab
+    from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.renderer import integrator
+
+    start = time.perf_counter()
+    w, h = 1920, 1080
+    dev = torch.device("cuda")
+    ptxas = _ptxas_log()
+    # S1's entry alone ("step_shadeE" in its mangled name, not S1B's)
+    s1 = wavefront_ab.ptxas_lines(ptxas, ("step_shadeE",))
+    regs = [int(m.group(1)) for ln in s1
+            for m in [re.search(r"Used (\d+) registers", ln)] if m]
+    spills = [ln for ln in s1 if re.search(r"[1-9]\d* bytes spill", ln)]
+    if len(regs) != 1 or regs[0] > 64 or spills:
+        raise AssertionError(f"first hit: S1 at {regs} registers, spills "
+                             f"{spills} ({s1})")
+    out, rows = {}, {}
+    for name in STEP_SCENES:
+        cs = _wavefront_scene(name, sponza_cs)[0]
+        per = {}
+        for lanes in FIRST_WIDTHS:
+            if lanes == w * h:
+                pix, sample = torch.arange(lanes, device=dev), 1
+            else:
+                pix, sample = integrator.queue_assignment(
+                    torch.arange(lanes, device=dev), w, h,
+                    torch.tensor(1, device=dev))
+            o, d, hit, checked, hits = _first_hit_check(name, cs, pix, sample,
+                                                        w, h)
+            aux = dict(albedo=True, normal=True)
+
+            def cr():
+                return first_hit.camera_rays(cs, pix, sample, 1, w, h)
+
+            def fh(shader=None, planes=aux):
+                return first_hit.first_hit_shade(cs, *hit, o, d, pix, sample,
+                                                 1, shader, **planes)
+
+            cr_row = dict(max_abs_err=0.0, **kernel_times(
+                cr, lambda: integrator.camera_rays_plain(cs, pix, sample, 1,
+                                                         w, h)),
+                **bound(*_cr_work(cs, pix, sample)))
+            fh_row = dict(max_abs_err=0.0, **kernel_times(
+                fh, lambda: integrator.first_hit_plain(
+                    cs, o, d, *hit, pix, sample, 1, None, True, True)),
+                **bound(*_fh_work(cs, o, d, hit, pix, sample, aux)))
+            none = dict(albedo=False, normal=False)
+            shaders = {k: dict(ms=device_ms(lambda k=k: fh(k, none)),
+                               **bound(*_fh_work(cs, o, d, hit, pix, sample,
+                                                 none, k)))
+                       for k in integrator._DEBUG_PLAIN}
+            per[lanes] = dict(checked=checked, hit_lanes=hits, CR=cr_row,
+                              FH=fh_row, FH_shader=shaders)
+            if name == "sponza" and lanes == w * h:
+                rows = {"CR": cr_row, "FH": fh_row}
+        out[name] = per
+    torch.cuda.synchronize()
+    log("first_hit", bit_equal=True, widths=list(FIRST_WIDTHS),
+        ptxas=wavefront_ab.ptxas_lines(ptxas, ("camera_rays",
+                                               "first_hit_shade",
+                                               "step_shade")),
+        seconds=time.perf_counter() - start, **out)
+    return rows
+
+
 def _graph_entries(cs):
     """The card driver's captures cached for the compiled scene ``cs``."""
     from solstrale_tpu_torch.renderer import integrator
@@ -1395,7 +1663,7 @@ def phase_graphs(sponza_cs):
             "iters"]
         want = {k: iters if k in per_step[name] else 0
                 for k in ("K1", "K2", "K3", "K4", "K5")}
-        want.update(draw=0, S1=iters, S2=iters + 1, S1B=0)
+        want.update(draw=0, S1=iters, S2=iters + 1, S1B=0, CR=0, FH=0)
         if graph["launches"] != want:
             raise AssertionError(f"graphs ({name}): launches "
                                  f"{graph['launches']}, want {want}")
@@ -1792,7 +2060,7 @@ def _kitchen_rays(device, lanes=131072):
                        seed=1)), device=device)
     half = lanes // 2
     pix = torch.linspace(0, 1920 * 1080 - 1, half, device=device).long()
-    o, d = integrator._camera_rays(cs, pix, 1, 1, 1920, 1080)
+    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, 1920, 1080)
     sample = torch.ones_like(pix)
     zero = torch.zeros(half, dtype=torch.int32, device=device)
     t, kind, idx = integrator.scene_hit(cs, o, d, pix, sample, zero, 1)
@@ -1942,7 +2210,7 @@ def phase_small_scene():
     solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
         "launches"]
     if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0,
-                     S1B=0):
+                     S1B=0, CR=0, FH=0):
         raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
                              f"other kernel, got {solid}")
     if min(kitchen[k] for k in ("K4", "S1", "S2")) <= 0 or kitchen["K5"] or \
@@ -2028,10 +2296,13 @@ def phase_surface(sponza_cs):
     if not np.array_equal(resumed[-1], straight):
         raise AssertionError("the render resumed from sample 1 is not "
                              "bit-identical to the straight one")
-    if min(launches[k] for k in ("K1", "S1", "S2", "draw")) <= 0 or \
-            launches["K5"] != 0:
-        raise AssertionError(f"sponza with aux: expected K1, S1, S2 and the "
-                             f"draw kernel (first_hit_aux) and no K5, got "
+    # the aux planes: one CR and one FH launch a sample (first_hit_aux, 2
+    # samples), their draws in registers: no draw kernel
+    if min(launches[k] for k in ("K1", "S1", "S2")) <= 0 or \
+            launches["CR"] != 2 or launches["FH"] != 2 or \
+            launches["K5"] != 0 or launches["draw"] != 0:
+        raise AssertionError(f"sponza with aux: expected K1, S1, S2, CR 2, "
+                             f"FH 2 and no K5 or draw kernel, got "
                              f"{launches}")
     aux_launches = launches
     out["sponza_bloom_denoiser"] = dict(
@@ -2044,6 +2315,7 @@ def phase_surface(sponza_cs):
         width=w, height=h, seed=1)), device="cuda")
     shaders = {"albedo": T.AlbedoShader, "normal": T.NormalShader,
                "simple": T.SimpleShader}
+    debug_launches = dict(CR=0, FH=0)
     for scene_name, build, cs, kernel in (
             ("sponza", fixtures.sponza_class_scene, sponza_cs, "K1"),
             ("kitchen", fixtures.kitchen_sink_scene, kitchen_cs, "K4")):
@@ -2055,9 +2327,15 @@ def phase_surface(sponza_cs):
                 shader=shader())), "cuda")
             launches = launch_counts(wrappers)
             _check_image(f"{scene_name} {shader_name}", img, h, w)
-            if launches[kernel] <= 0 or launches["K5"] != 0:
+            # one sample: one CR and one FH launch, no draw kernel
+            if launches[kernel] <= 0 or launches["K5"] != 0 or \
+                    launches["CR"] != 1 or launches["FH"] != 1 or \
+                    launches["draw"] != 0:
                 raise AssertionError(f"{scene_name} {shader_name}: expected "
-                                     f"{kernel} and no K5, got {launches}")
+                                     f"{kernel}, CR 1, FH 1 and no K5 or "
+                                     f"draw kernel, got {launches}")
+            for k in ("CR", "FH"):
+                debug_launches[k] += launches[k]
             kw = dict(width=w, height=h, max_depth=50,
                       shader_kind=shader.kind, need_aux=False, n_samples=1)
             runs[shader_name] = dict(
@@ -2068,6 +2346,17 @@ def phase_surface(sponza_cs):
         _, o, d = integrator.camera_rays(cs, pix, w, h, 1, 1)
         runs["first_hit_aux_ms"] = _median_ms(
             lambda: integrator.first_hit_aux(cs, o, d, pix, 1, 1))
+        # the hit kernels alone on the 2,073,600 camera rays (the hit
+        # first_hit_aux takes: step_hit)
+        samp, bounce = integrator._depth0(pix, 1)
+
+        def hit0():
+            return integrator.step_hit(cs, o, d, pix, samp, bounce, 1)
+
+        runs["camera_hit_ms"] = _median_ms(hit0)
+        runs["camera_hit_device_ms"] = device_ms(hit0)
+        runs["camera_rays_ms"] = _median_ms(
+            lambda: integrator.camera_rays(cs, pix, w, h, 1, 1))
         out[f"{scene_name}_debug_shaders"] = runs
 
     # the aux-on batch against the aux-off one (the interior, 1 spp), in
@@ -2101,6 +2390,10 @@ def phase_surface(sponza_cs):
         got = rp[f"early_exit={early}"]["launches"]
         if min(got[k] for k in ("K1", "K2", "K3")) <= 0:
             raise AssertionError(f"render_pixels missed a kernel: {rp}")
+        # the camera rays: one CR launch, no draw kernel
+        if got["CR"] != 1 or got["draw"] != 0:
+            raise AssertionError(f"render_pixels: expected CR 1 and no draw "
+                                 f"kernel, got {got}")
         # grad mode is on, as a user calls it: every bounce is one S1
         if got["S1"] != got["K1"] or (not early and got["S1"] != 51):
             raise AssertionError(f"render_pixels: expected one S1 launch "
@@ -2119,22 +2412,24 @@ def phase_surface(sponza_cs):
         mixed, 1, 1, width=w, height=h, max_depth=50,
         shader_kind=integrator.SHADER_PATH, need_aux=False)
     got = launch_counts(wrappers)
-    if not 1 <= got["S1"] == got["K1"] <= 51 or not torch.equal(
-            planes[0], integrator.to_image(colors[True], w, h)):
+    if not 1 <= got["S1"] == got["K1"] <= 51 or got["CR"] != 1 or \
+            got["draw"] != 0 or not torch.equal(
+                planes[0], integrator.to_image(colors[True], w, h)):
         raise AssertionError(f"render_sample: expected one S1 launch a "
-                             f"bounce and render_pixels' image, got {got}")
+                             f"bounce, CR 1, no draw kernel and "
+                             f"render_pixels' image, got {got}")
     out["mixed_render_sample"] = dict(launches=got, bit_identical=True)
 
     # K1 and K4 over all 2,073,600 camera rays of a 1080p image in one
     # launch, against 131,072-lane slices (their plain versions are checked
     # at 131,072 lanes in phase 2)
-    o, d = integrator._camera_rays(sponza_cs, pix, 1, 1, w, h)
+    o, d = integrator.camera_rays_plain(sponza_cs, pix, 1, 1, w, h)
     kb = sponza_cs.kbvh
     full = bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN)
     n_k1, k1_equal = _slices_equal(full, lambda a, b: bvh.bvh_planar_hit(
         kb, tuple(c[a:b] for c in o), tuple(c[a:b] for c in d), RAY_T_MIN),
         n_pix)
-    o, d = integrator._camera_rays(kitchen_cs, pix, 1, 1, w, h)
+    o, d = integrator.camera_rays_plain(kitchen_cs, pix, 1, 1, w, h)
     counters = (pix, torch.ones_like(pix),
                 torch.zeros(n_pix, dtype=torch.int32, device="cuda"))
     mt = integrator.media_tables(kitchen_cs)
@@ -2184,9 +2479,12 @@ def phase_surface(sponza_cs):
                                       u8_pixels_equal=same,
                                       u8_max_diff=int(diff.max()))
     log("surface", **out, seconds=time.perf_counter() - start)
-    # the draw kernel's launches on the path that still runs it: ray_trace
-    # with the denoiser's aux planes (first_hit_aux)
-    return {"draw": aux_launches["draw"]}
+    # the first hit's kernels and the draw kernel on ray_trace with the
+    # denoiser's aux planes (first_hit_aux; the draw kernel 0) and the
+    # debug shaders
+    return {"draw": aux_launches["draw"],
+            "CR": aux_launches["CR"] + debug_launches["CR"],
+            "FH": aux_launches["FH"] + debug_launches["FH"]}
 
 
 def k5_work(stats, segments):
@@ -2962,12 +3260,13 @@ def phase_diff_parallel(sponza_cs, smi):
         loss, g, counts = _grad_step(cs, target, w, h, depth, wrappers)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        # the draw kernel: the camera rays' jitter and lens, none a bounce;
-        # the arena's gradient zeroed once a backward pass (the pass's
-        # sums, ops.step.GradSums) and added to nothing else: no S1B call
-        # zeroes a gradient of its own, and autograd adds none a bounce
-        want = {"forward": dict(S1=depth + 1, S1B=0, draw=2),
-                "replay": dict(S1=depth, S1B=depth + 1, draw=0),
+        # the camera rays: one CR launch in the forward, none in the
+        # replay, and no draw kernel; the arena's gradient zeroed once a
+        # backward pass (the pass's sums, ops.step.GradSums) and added to
+        # nothing else: no S1B call zeroes a gradient of its own, and
+        # autograd adds none a bounce
+        want = {"forward": dict(S1=depth + 1, S1B=0, CR=1, draw=0),
+                "replay": dict(S1=depth, S1B=depth + 1, CR=0, draw=0),
                 "arena_ops": dict(fills=1, adds=0)}
         if any(counts[part][k] != n for part, ks in want.items()
                for k, n in ks.items()):
@@ -3044,7 +3343,7 @@ def phase_diff_parallel(sponza_cs, smi):
             del fresh, loop, p_g, p_e
         del cs, target, img, g, again, g_flat, g_p
     if path_launches["S1"] <= 0 or path_launches["S1B"] <= 0 or \
-            path_launches["draw"] != 4:
+            path_launches["CR"] != 2 or path_launches["draw"] != 0:
         raise AssertionError(f"the graphed inverse steps launched "
                              f"{path_launches}")
 
@@ -3416,6 +3715,7 @@ def main():
     timings = phase_kernels(sponza_cs)
     timings["draw"] = phase_draws()
     timings.update(phase_step(sponza_cs))
+    timings.update(phase_first_hit(sponza_cs))
     launches = phase_main_path()
     for k, n in phase_small_scene().items():
         launches[k] += n
@@ -3424,8 +3724,11 @@ def main():
     for k, n in phase_surface(sponza_cs).items():
         launches[k] += n
     phase_card_vs_cpu()
-    # S1B's main path is the inverse step (its two graphed cells)
-    launches["S1B"] += phase_diff_parallel(sponza_cs, smi)["S1B"]
+    # S1B's main path is the inverse step (its two graphed cells), and it
+    # is on CR's too (the camera rays of each step)
+    diff_launches = phase_diff_parallel(sponza_cs, smi)
+    for k in ("S1B", "CR"):
+        launches[k] += diff_launches[k]
     for phase in (lambda: phase_obj_ingest(smi), phase_bench):
         for k, n in phase().items():
             launches[k] += n
@@ -3447,14 +3750,20 @@ def main():
               "S2": ("solstrale_tpu_torch/csrc/step.cu",
                      "solstrale_tpu/renderer/integrator.py:808"),
               "S1B": ("solstrale_tpu_torch/csrc/step.cu",
-                      "solstrale_tpu/renderer/integrator.py:364")}
+                      "solstrale_tpu/renderer/integrator.py:364"),
+              "CR": ("solstrale_tpu_torch/csrc/first_hit.cu",
+                     "solstrale_tpu/renderer/integrator.py:401"),
+              "FH": ("solstrale_tpu_torch/csrc/first_hit.cu",
+                     "solstrale_tpu/renderer/integrator.py:515")}
     names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_media",
              "K4": "k4_scene_hit", "K5": "k5_render",
              "draw": "rng_uniform4", "S1": "step_shade", "S2": "step_regen",
-             "S1B": "step_shade_backward"}
+             "S1B": "step_shade_backward", "CR": "camera_rays",
+             "FH": "first_hit_shade"}
     # no single PyTorch call computes any of these functions (the draw
     # kernel's counter hash included: torch has no PCG4D; nor the step's
-    # shading or regeneration, nor their reverse)
+    # shading or regeneration, nor their reverse, nor the camera rays' and
+    # the first hit's draws and lookups)
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
                     library_ms=None, **timings[k]) for k in names]

@@ -83,16 +83,18 @@ WORKLOADS = (
 
 def kernel_wrappers():
     """The kernels' wrappers by name, the hit kernels K1-K5, the draw
-    kernel, the wavefront step's S1 and S2 and S1's backward S1B; each
-    counts its launches in ``launches``."""
-    from .ops import bvh, rng, step, sweep
+    kernel, the wavefront step's S1 and S2, S1's backward S1B and the first
+    hit's camera rays CR and shading FH; each counts its launches in
+    ``launches``."""
+    from .ops import bvh, first_hit, rng, step, sweep
     from .renderer import megakernel
 
     return {"K1": bvh.bvh_planar_hit, "K2": sweep.bvh_sphere_hit,
             "K3": sweep.media_hit, "K4": sweep.scene_hit,
             "K5": megakernel.render_batch_megakernel, "draw": rng.uniform4,
             "S1": step.step_shade, "S2": step.step_regen,
-            "S1B": step.step_shade_backward}
+            "S1B": step.step_shade_backward, "CR": first_hit.camera_rays,
+            "FH": first_hit.first_hit_shade}
 
 
 def device_info(device):

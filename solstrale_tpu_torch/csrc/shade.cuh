@@ -1,8 +1,11 @@
 // The shading step's device functions, shared by the render megakernel (K5,
-// megakernel.cu) and the wavefront step kernels (S1 and S2, step.cu):
+// megakernel.cu), the wavefront step kernels (S1 and S2, step.cu) and the
+// first-hit kernels (CR and FH, first_hit.cu):
 // vector helpers in geo/soa.py's association order, the samplers of
 // ops/rng.py, the material, texture and light-table lookups, the NEE light
-// pdf and light sample, and the thin-lens camera ray.
+// pdf and light sample, the hit's attributes, blend walk and normal map
+// (S1 and the first-hit kernel FH, first_hit.cu), and the thin-lens camera
+// ray (K5, S2 and the camera-ray kernel CR, first_hit.cu).
 //
 // Each formula follows its plain PyTorch version expression for expression;
 // compiled with -fmad=false (ops/_build.py) a kernel returns that version's
@@ -326,18 +329,212 @@ __device__ __forceinline__ V3 sample_light(const Scene& sc, V3 o, int pick,
   return sub(add(p0, add(scale(p1, r1), scale(p2, r2))), o);
 }
 
-// integrator._camera_rays for one pixel and sample
-__device__ __forceinline__ void camera_ray(const Scene& sc, int pixel,
+// --- the small tables in shared memory (S1 and FH) --------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// The block copies ``n`` floats of ``small`` (the packed small tables that
+// sc's camera, materials, texture attributes and lights point into,
+// ops.step.StepTables.small; n a multiple of 4) into ``staged`` with
+// cp.async, ``threads`` threads a block, and points sc at the copies. Every
+// thread of the block calls it (a barrier).
+__device__ __forceinline__ void stage_small(Scene* sc, const float* small,
+                                            int n, float4* staged,
+                                            int threads) {
+  const float4* src = reinterpret_cast<const float4*>(small);
+  for (int k = threadIdx.x; k < n / 4; k += threads)
+    cp_async16(staged + k, src + k);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const float* base = reinterpret_cast<const float*>(staged);
+  sc->cam = base + (sc->cam - small);
+  sc->mats = base + (sc->mats - small);
+  sc->tex_attr = base + (sc->tex_attr - small);
+  sc->lights = base + (sc->lights - small);
+}
+
+// --- the hit's attributes and material (S1 and FH) --------------------------
+
+// hit kinds (scene/compile.py)
+constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
+              KIND_MEDIUM = 3;
+// the step's and FH's flag bits (ops/step.py; kFlagBlend, K5's, is 1)
+constexpr int kFlagNormalMaps = 2, kFlagSpheres = 4;
+constexpr int kSphCols = 8;    // sph_attr's 5 columns, padded
+constexpr int kPlnCols = 28;   // pl_attr's 25 columns, padded
+
+// full_hit_attributes' fields but the hit point
+struct Attrs {
+  V3 normal, tangent, bitangent;
+  float u, v;
+  bool front;
+  int mat;
+};
+
+// hit_attributes_soa's planar branch: row ``slot`` of the (P, 28) pl_attr
+// table ``pln`` (clamped by the caller; a zero row when the table is empty)
+__device__ __forceinline__ Attrs planar_attrs(const float* __restrict__ pln,
+                                              int n_pl, V3 point, V3 d,
+                                              int slot) {
+  float c[kPlnCols];
+  if (slot >= 0 && slot < n_pl) {
+    const float4* row = reinterpret_cast<const float4*>(pln) +
+                        (kPlnCols / 4) * static_cast<size_t>(slot);
+    for (int k = 0; k < kPlnCols / 4; ++k) {
+      const float4 q = row[k];
+      c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z; c[4 * k + 3] = q.w;
+    }
+  } else {
+    for (int k = 0; k < kPlnCols; ++k) c[k] = 0.0f;
+  }
+  Attrs h;
+  const V3 n = v3(c[0], c[1], c[2]);
+  const float bu = dot(point, v3(c[3], c[4], c[5])) + c[6];
+  const float bv = dot(point, v3(c[7], c[8], c[9])) + c[10];
+  h.tangent = v3(c[11], c[12], c[13]);
+  h.bitangent = v3(c[14], c[15], c[16]);
+  h.u = c[17] + bu * c[19] + bv * c[21];
+  h.v = c[18] + bu * c[20] + bv * c[22];
+  h.front = dot(d, n) < 0.0f;
+  h.normal = h.front ? n : neg(n);
+  h.mat = static_cast<int>(c[23]);
+  return h;
+}
+
+// hit_attributes_soa's sphere branch (sphere.rs:84-107): row ``idx`` of the
+// (S, 8) sph_attr table ``sph``, clamped
+__device__ __forceinline__ Attrs sphere_attrs(const float* __restrict__ sph,
+                                              int n_sph, V3 point, V3 d,
+                                              int idx) {
+  int row = idx < 0 ? 0 : idx;
+  row = row > n_sph - 1 ? n_sph - 1 : row;
+  float c[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (row >= 0 && row < n_sph) {
+    const float* s = sph + kSphCols * static_cast<size_t>(row);
+    for (int k = 0; k < 5; ++k) c[k] = s[k];
+  }
+  Attrs h;
+  const V3 n_raw = sub(point, v3(c[0], c[1], c[2]));
+  const V3 n_unit = unit(n_raw);
+  h.front = dot(d, n_unit) < 0.0f;
+  h.normal = h.front ? n_unit : neg(n_unit);
+  const float theta = acosf(clamp_max(clamp_min(-n_unit.y, -1.0f), 1.0f));
+  const float phi = -atan2f(n_unit.z, n_unit.x) + kPi;
+  h.u = div_scalar(phi, kTwoPi);
+  h.v = div_scalar(theta, kPi);
+  // cross(unit_y, n_raw) = (n_raw.z, 0, -n_raw.x), normalised; the
+  // bitangent stays unnormalised (sphere.rs:89-90)
+  h.tangent = unit(v3(n_raw.z, 0.0f, -n_raw.x));
+  h.bitangent = cross(n_raw, h.tangent);
+  h.mat = static_cast<int>(c[4]);
+  return h;
+}
+
+// resolve_blend: three levels, material_1 where U > blend_factor
+__device__ __forceinline__ int blend_walk(const Scene& sc, int mat,
+                                          float4 u) {
+  const float ul[kMaxBlendDepth] = {u.x, u.y, u.z};
+  for (int lvl = 0; lvl < kMaxBlendDepth; ++lvl) {
+    const MatRow r = mat_row(sc, mat);
+    if (r.kind == BLEND) mat = ul[lvl] > r.blend_factor ? r.m1 : r.m2;
+  }
+  return mat;
+}
+
+// Materials.attr's normal_tex column (a zero row out of range: mat_row)
+__device__ __forceinline__ int normal_tex(const Scene& sc, int id) {
+  return (id >= 0 && id < sc.n_mat) ? static_cast<int>(sc.mats[9 * id + 2])
+                                    : 0;
+}
+
+// shading_normal_of: the tangent-space normal map of material ``eff_n``
+// (the normal draw's blend walk picks it) through the hit frame; the
+// geometric normal where the material has no map
+__device__ __forceinline__ V3 normal_mapped(const Scene& sc, const Attrs& h,
+                                            int eff_n) {
+  const int ntex = normal_tex(sc, eff_n);
+  if (ntex < 0) return h.normal;
+  const V3 tc = sample_texture(sc, ntex, h.u, h.v);
+  const V3 tn = v3(tc.x * 2.0f - 1.0f, tc.y * 2.0f - 1.0f,
+                   tc.z * 2.0f - 1.0f);
+  return onb_local(h.tangent, h.bitangent, h.normal, tn);
+}
+
+// A lane's hit as the scene-hit kernels give it: (kind, idx) and the
+// planar attribute row it names, clamped to the table. Without a kind array
+// (kind_in null, a BVH scene without spheres or media), idx_in holds K1's
+// planar slot, mapped to its row through the (P,) ``pl_row`` in one gather.
+__device__ __forceinline__ void decode_hit(const int* kind_in,
+                                           const int* idx_in,
+                                           const int* __restrict__ pl_row,
+                                           int n_q, int n_pl, long long i,
+                                           int* kind, int* idx, int* slot) {
+  if (kind_in != nullptr) {
+    *kind = kind_in[i];
+    *idx = idx_in[i];
+    int s = *kind == KIND_TRIANGLE ? n_q + *idx : *idx;
+    s = s < 0 ? 0 : s;
+    *slot = s > n_pl - 1 ? n_pl - 1 : s;
+  } else {
+    int ps = idx_in[i];
+    ps = ps < 0 ? 0 : ps;
+    ps = ps > n_pl - 1 ? n_pl - 1 : ps;
+    *kind = KIND_QUAD;   // planar: quad or triangle, the row says which
+    *idx = 0;
+    *slot = pl_row[ps];
+  }
+}
+
+// full_hit_attributes of one lane at ``point``: on a medium hit the
+// medium's overrides (constant_medium.rs:63-74: a random phase normal on
+// P_PHASE, unit tangents, zero uv, a back face, the medium's phase material
+// from ``med_mat``), else the sphere row of ``sph`` or the planar row of
+// ``pln``
+__device__ __forceinline__ Attrs hit_attrs(
+    int flags, const float* __restrict__ sph, int n_sph,
+    const float* __restrict__ pln, int n_pl,
+    const int* __restrict__ med_mat, int n_media, int kind, int idx,
+    int slot, V3 point, V3 d, uint32_t pix, uint32_t smp, uint32_t bnc,
+    uint32_t seed) {
+  Attrs h;
+  if (n_media > 0 && kind == KIND_MEDIUM) {
+    const float4 pr = uniform4(pix, smp, bnc, P_PHASE, seed);
+    h.normal = unit_vector(pr.x, pr.y);
+    h.tangent = h.bitangent = v3(1.0f, 1.0f, 1.0f);
+    h.u = h.v = 0.0f;
+    h.front = false;
+    int m = idx < 0 ? 0 : idx;
+    m = m > n_media - 1 ? n_media - 1 : m;
+    h.mat = med_mat[m];
+  } else if ((flags & kFlagSpheres) && kind == KIND_SPHERE) {
+    h = sphere_attrs(sph, n_sph, point, d, idx);
+  } else {
+    h = planar_attrs(pln, n_pl, point, d, slot);
+  }
+  return h;
+}
+
+// integrator.camera_rays_plain for one pixel and sample (the pixel id an
+// int, or CR's int64; the draws take its low 32 bits)
+template <typename Pixel>
+__device__ __forceinline__ void camera_ray(const Scene& sc, Pixel pixel,
                                            int sample, uint32_t seed,
                                            int width, int height, V3* o,
                                            V3* d) {
   const float* c = sc.cam;
   const float x = static_cast<float>(pixel % width);
   const float y = static_cast<float>(pixel / width);
-  const float4 j = uniform4(pixel, sample, 0, P_JITTER, seed);
+  const uint32_t pix = static_cast<uint32_t>(pixel);
+  const float4 j = uniform4(pix, sample, 0, P_JITTER, seed);
   const float u = div_scalar(x + j.x, static_cast<float>(width - 1));
   const float v = div_scalar(y + j.y, static_cast<float>(height - 1));
-  const float4 l = uniform4(pixel, sample, 0, P_LENS, seed);
+  const float4 l = uniform4(pix, sample, 0, P_LENS, seed);
   const float r = sqrtf(l.x);
   const float phi = kTwoPi * l.y;
   const float lr = c[18];

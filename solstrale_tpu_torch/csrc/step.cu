@@ -93,14 +93,6 @@ constexpr int kShadeThreads = 128;
 constexpr int kShadeMinBlocks = 8;
 constexpr int kRegenThreads = 256;
 
-// hit kinds (scene/compile.py) and the step's flag bits (ops/step.py;
-// kFlagBlend, K5's, is 1)
-constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
-              KIND_MEDIUM = 3;
-constexpr int kFlagNormalMaps = 2, kFlagSpheres = 4;
-constexpr int kSphCols = 8;    // sph_attr's 5 columns, padded
-constexpr int kPlnCols = 28;   // pl_attr's 25 columns, padded
-
 // A lane's state in the pool's order: o, d, bounce, acc_len and the fold
 // (A, B, dead, outer), one (R,) array each.
 struct Lanes {
@@ -154,86 +146,6 @@ constexpr int kRecMiss = 1, kRecEmitFront = 2, kRecScat = 4, kRecPdf = 8,
 constexpr int kRecBranch =
     kRecMiss | kRecEmitFront | kRecScat | kRecPdf | kRecTerminal;
 
-struct Attrs {
-  V3 normal, tangent, bitangent;
-  float u, v;
-  bool front;
-  int mat;
-};
-
-// hit_attributes_soa's planar branch: pl_attr row ``slot`` (clamped by
-// the caller; a zero row when the table is empty)
-__device__ __forceinline__ Attrs planar_attrs(const Shade& a, V3 point, V3 d,
-                                              int slot) {
-  float c[kPlnCols];
-  if (slot >= 0 && slot < a.n_pl) {
-    const float4* row = reinterpret_cast<const float4*>(a.pln) +
-                        (kPlnCols / 4) * static_cast<size_t>(slot);
-    for (int k = 0; k < kPlnCols / 4; ++k) {
-      const float4 q = row[k];
-      c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z; c[4 * k + 3] = q.w;
-    }
-  } else {
-    for (int k = 0; k < kPlnCols; ++k) c[k] = 0.0f;
-  }
-  Attrs h;
-  const V3 n = v3(c[0], c[1], c[2]);
-  const float bu = dot(point, v3(c[3], c[4], c[5])) + c[6];
-  const float bv = dot(point, v3(c[7], c[8], c[9])) + c[10];
-  h.tangent = v3(c[11], c[12], c[13]);
-  h.bitangent = v3(c[14], c[15], c[16]);
-  h.u = c[17] + bu * c[19] + bv * c[21];
-  h.v = c[18] + bu * c[20] + bv * c[22];
-  h.front = dot(d, n) < 0.0f;
-  h.normal = h.front ? n : neg(n);
-  h.mat = static_cast<int>(c[23]);
-  return h;
-}
-
-// hit_attributes_soa's sphere branch (sphere.rs:84-107)
-__device__ __forceinline__ Attrs sphere_attrs(const Shade& a, V3 point, V3 d,
-                                              int idx) {
-  int row = idx < 0 ? 0 : idx;
-  row = row > a.n_sph - 1 ? a.n_sph - 1 : row;
-  float c[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (row >= 0 && row < a.n_sph) {
-    const float* s = a.sph + kSphCols * static_cast<size_t>(row);
-    for (int k = 0; k < 5; ++k) c[k] = s[k];
-  }
-  Attrs h;
-  const V3 n_raw = sub(point, v3(c[0], c[1], c[2]));
-  const V3 n_unit = unit(n_raw);
-  h.front = dot(d, n_unit) < 0.0f;
-  h.normal = h.front ? n_unit : neg(n_unit);
-  const float theta = acosf(clamp_max(clamp_min(-n_unit.y, -1.0f), 1.0f));
-  const float phi = -atan2f(n_unit.z, n_unit.x) + kPi;
-  h.u = div_scalar(phi, kTwoPi);
-  h.v = div_scalar(theta, kPi);
-  // cross(unit_y, n_raw) = (n_raw.z, 0, -n_raw.x), normalised; the
-  // bitangent stays unnormalised (sphere.rs:89-90)
-  h.tangent = unit(v3(n_raw.z, 0.0f, -n_raw.x));
-  h.bitangent = cross(n_raw, h.tangent);
-  h.mat = static_cast<int>(c[4]);
-  return h;
-}
-
-// resolve_blend: three levels, material_1 where U > blend_factor
-__device__ __forceinline__ int blend_walk(const Scene& sc, int mat,
-                                          float4 u) {
-  const float ul[kMaxBlendDepth] = {u.x, u.y, u.z};
-  for (int lvl = 0; lvl < kMaxBlendDepth; ++lvl) {
-    const MatRow r = mat_row(sc, mat);
-    if (r.kind == BLEND) mat = ul[lvl] > r.blend_factor ? r.m1 : r.m2;
-  }
-  return mat;
-}
-
-// Materials.attr's normal_tex column (a zero row out of range: mat_row)
-__device__ __forceinline__ int normal_tex(const Scene& sc, int id) {
-  return (id >= 0 && id < sc.n_mat) ? static_cast<int>(sc.mats[9 * id + 2])
-                                    : 0;
-}
-
 // One lane of S1. The lane's state is read where it is first needed: the
 // fold (A, B, dead, outer) only after the scatter, so it is not live across
 // the NEE block. A lane reads each array of its own state before it writes
@@ -244,20 +156,7 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   // --- the hit, its attribute row, the ray --------------------------------
   const float t = a.t[i];
   int kind, idx, slot;
-  if (a.kind != nullptr) {
-    kind = a.kind[i];
-    idx = a.idx[i];
-    slot = kind == KIND_TRIANGLE ? a.n_q + idx : idx;
-    slot = slot < 0 ? 0 : slot;
-    slot = slot > a.n_pl - 1 ? a.n_pl - 1 : slot;
-  } else {  // K1's planar slot: its pl_attr row in one gather
-    int ps = a.idx[i];
-    ps = ps < 0 ? 0 : ps;
-    ps = ps > a.n_pl - 1 ? a.n_pl - 1 : ps;
-    kind = KIND_QUAD;   // planar: quad or triangle, the row says which
-    idx = 0;
-    slot = a.pl_row[ps];
-  }
+  decode_hit(a.kind, a.idx, a.pl_row, a.n_q, a.n_pl, i, &kind, &idx, &slot);
   const V3 o = v3(a.in.o[0][i], a.in.o[1][i], a.in.o[2][i]);
   const V3 d = v3(a.in.d[0][i], a.in.d[1][i], a.in.d[2][i]);
   const int bounce = a.in.bounce[i];
@@ -273,22 +172,9 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   const float t_safe = finite ? t : 0.0f;
   const V3 point = v3(o.x + d.x * t_safe, o.y + d.y * t_safe,
                       o.z + d.z * t_safe);
-  Attrs h;
-  if (a.n_media > 0 && kind == KIND_MEDIUM) {
-    // constant_medium.rs:63-74: random phase normal, unit tangents
-    const float4 pr = uniform4(pix, smp, bnc, P_PHASE, seed);
-    h.normal = unit_vector(pr.x, pr.y);
-    h.tangent = h.bitangent = v3(1.0f, 1.0f, 1.0f);
-    h.u = h.v = 0.0f;
-    h.front = false;
-    int m = idx < 0 ? 0 : idx;
-    m = m > a.n_media - 1 ? a.n_media - 1 : m;
-    h.mat = a.med_mat[m];
-  } else if ((sc.flags & kFlagSpheres) && kind == KIND_SPHERE) {
-    h = sphere_attrs(a, point, d, idx);
-  } else {
-    h = planar_attrs(a, point, d, slot);
-  }
+  const Attrs h = hit_attrs(sc.flags, a.sph, a.n_sph, a.pln, a.n_pl,
+                            a.med_mat, a.n_media, kind, idx, slot, point, d,
+                            pix, smp, bnc, seed);
 
   // --- material and the terminal classification --------------------------
   int eff = h.mat;
@@ -323,19 +209,13 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   if (scat) {
     V3 s_normal = h.normal;
     if (sc.flags & kFlagNormalMaps) {
-      // shading_normal_of: the tangent-space map through the hit frame,
-      // with the material the normal draw's blend walk picks
+      // shading_normal_of, with the material the normal draw's blend walk
+      // picks
       int eff_n = eff;
       if (sc.flags & kFlagBlend)
         eff_n = blend_walk(sc, h.mat,
                            uniform4(pix, smp, bnc, P_BLEND_NORMAL, seed));
-      const int ntex = normal_tex(sc, eff_n);
-      if (ntex >= 0) {
-        const V3 tc = sample_texture(sc, ntex, h.u, h.v);
-        const V3 tn = v3(tc.x * 2.0f - 1.0f, tc.y * 2.0f - 1.0f,
-                         tc.z * 2.0f - 1.0f);
-        s_normal = onb_local(h.tangent, h.bitangent, h.normal, tn);
-      }
+      s_normal = normal_mapped(sc, h, eff_n);
     }
     if (row.kind == METAL) {
       // metal (material/mod.rs:239-249)
@@ -448,35 +328,15 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned int s =
-      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-// S1: with a.stage_floats > 0 the block first copies the small tables
-// (camera, materials, texture attributes, lights: one packed buffer,
-// ops.step.StepTables.small) into shared memory with cp.async and points
-// its Scene at the copies, so shade.cuh's lookups (and the light loop of
-// every NEE lane) read shared memory; then each thread shades its lane.
+// S1: with a.stage_floats > 0 the block first stages the small tables in
+// shared memory (stage_small), so shade.cuh's lookups (and the light loop
+// of every NEE lane) read shared memory; then each thread shades its lane.
 __global__ void __launch_bounds__(kShadeThreads, kShadeMinBlocks)
     step_shade(const Shade a) {
   extern __shared__ __align__(16) float4 staged[];
   Scene sc = a.sc;
-  if (a.stage_floats > 0) {
-    const float4* src = reinterpret_cast<const float4*>(a.small);
-    for (int k = threadIdx.x; k < a.stage_floats / 4; k += kShadeThreads)
-      cp_async16(staged + k, src + k);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    const float* base = reinterpret_cast<const float*>(staged);
-    sc.cam = base + (a.sc.cam - a.small);
-    sc.mats = base + (a.sc.mats - a.small);
-    sc.tex_attr = base + (a.sc.tex_attr - a.small);
-    sc.lights = base + (a.sc.lights - a.small);
-  }
+  if (a.stage_floats > 0)
+    stage_small(&sc, a.small, a.stage_floats, staged, kShadeThreads);
   const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
                       threadIdx.x;
   if (i < a.n) shade_lane(a, sc, i);

@@ -33,7 +33,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("bvh.cu", "sweep.cu", "megakernel.cu", "rng.cu", "step.cu")
+SOURCES = ("bvh.cu", "sweep.cu", "megakernel.cu", "rng.cu", "step.cu",
+           "first_hit.cu")
 HEADERS = ("hit.cuh", "shade.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,10 +62,13 @@ _SIGNATURES = {
     # counters: (pointer, element size, stride, value) each
     "rng_uniform4_launch": [_P, _I, _I, _U] * 3 + [_U, _P, _I, _I, _U, _L,
                                                    _P, _P],
-    # an array of pointers and one of int64 values (ops/step.py names them)
+    # an array of pointers and one of int64 values (ops/step.py and
+    # ops/first_hit.py name them)
     "step_shade_launch": [_P, _P, _P],
     "step_regen_launch": [_P, _P, _P],
     "step_shade_backward_launch": [_P, _P, _P],
+    "camera_rays_launch": [_P, _P, _P],
+    "first_hit_launch": [_P, _P, _P],
 }
 
 

@@ -281,12 +281,29 @@ def _counter_args(x, r, dev):
     return t, (t.element_size(), stride, 0)
 
 
+def _add_counters(ptrs, ints, counters, r, dev):
+    """Each (name, draw counter) of ``counters`` into a kernel's argument
+    arrays as the kernels take it (``_counter_args``): its tensor's pointer
+    under the name, its (size, stride, value) under ``name_size`` ...
+    Returns the counters' tensors, which the caller holds until the launch
+    (one may be a new tensor)."""
+    held = []
+    for name, x in counters:
+        t_c, vals = _counter_args(x, r, dev)
+        held.append(t_c)
+        if t_c is not None:
+            ptrs[name] = _build.ptr(t_c)
+        ints.update(zip((f"{name}_{k}" for k in _COUNTER), vals))
+    return held
+
+
 def _launch(fn, names_p, names_v, ptrs, ints, stream):
-    """Call a step kernel's C entry with its pointer and int64 arrays, each
-    filled by name (a name left out is a null pointer)."""
+    """Call a kernel's C entry (the step kernels', ``ops.first_hit``'s) with
+    its pointer and int64 arrays, each filled by name (a name left out is a
+    null pointer)."""
     unknown = (set(ptrs) - set(names_p)) | (set(ints) - set(names_v))
     if unknown:
-        raise KeyError(f"step kernel arguments: unknown {sorted(unknown)}")
+        raise KeyError(f"kernel arguments: unknown {sorted(unknown)}")
     p = (ctypes.c_void_p * len(names_p))(*(ptrs.get(n) for n in names_p))
     v = (ctypes.c_longlong * len(names_v))(*(int(ints.get(n, 0))
                                              for n in names_v))
@@ -396,13 +413,8 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
                 n_texels=texels.shape[0], n_light=tab.lights.shape[0],
                 n_media=tab.med_mat.shape[0], total_q=total_q,
                 stage=stage_floats(tab))
-    counters = []   # held until the launch: a counter may be a new tensor
-    for name, x in (("pixel", pixel), ("sample", sample), ("seed", seed)):
-        t_c, vals = _counter_args(x, r, dev)
-        counters.append(t_c)
-        if t_c is not None:
-            ptrs[name] = p(t_c)
-        ints.update(zip((f"{name}_{k}" for k in _COUNTER), vals))
+    held = _add_counters(ptrs, ints, (("pixel", pixel), ("sample", sample),
+                                      ("seed", seed)), r, dev)
     for k in FLAGS:
         if out.get(k) is not None:
             _check(f"step_shade: {k}", out[k], torch.bool, r, dev)

@@ -44,7 +44,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 HIT_KERNELS = ("k1_bvh", "k2_bvh_spheres", "k3_media", "k4_scene_hit",
                "k5_render", "rng_uniform4", "step_shade", "step_regen",
-               "step_shade_backward")
+               "step_shade_backward", "camera_rays", "first_hit_shade")
 WIDTH, HEIGHT, N_CELLS = 1920, 1080, 362
 
 

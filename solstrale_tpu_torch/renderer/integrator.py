@@ -17,7 +17,11 @@ gate accepts skip the wavefront:
 (``renderer/megakernel.py``), whose plain version runs ``path_step`` too.
 ``trace`` runs ``path_step`` on a wavefront of one lane per pixel
 (``render_pixels``, the unit the debug shaders, aux channels and
-``render_sample`` use).
+``render_sample`` use). On the card the camera rays are one kernel, CR,
+and the first hit's shading for the debug shaders and the aux planes one
+more, FH (``ops/first_hit.py``); ``camera_rays_plain`` and
+``first_hit_plain`` (built on ``first_hit_aux_plain`` and the
+``shade_*_plain`` shaders) are their plain versions.
 
 The reference's nested ``clamp(<=3) + NaN->0`` ScatterPdf semantics
 (shader.rs:95-125) are folded forward with O(1) per-lane state using
@@ -42,9 +46,9 @@ from ..geo import INF, RAY_T_MIN
 from ..geo import soa
 from ..geo.soa import (dot3, onb_from_w3, onb_local3, reflect3, refract3,
                        unit3, vneg, vscale, where3)
-from ..ops import rng, sweep
+from ..ops import first_hit, rng, sweep
 from ..ops import step as step_ops
-from ..ops.bvh import bvh_closest_hit, bvh_planar_hit
+from ..ops.bvh import bvh_closest_hit, bvh_planar_hit, decode_planar_slot
 from ..ops.intersect import (hit_attributes_soa, light_pdf_mean3,
                              sample_light_direction3, table_rows)
 from ..scene.compile import (BLEND, DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC,
@@ -537,9 +541,11 @@ def queue_assignment(qpos, width, height, sample_start=0):
     return (ty * th + within // tw) * width + tx * tw + within % tw, samp
 
 
-def _camera_rays(cs, pixel, sample, seed, width, height):
+def camera_rays_plain(cs, pixel, sample, seed, width, height):
     """Jittered thin-lens primary rays (renderer/mod.rs:262-265,
-    camera.rs:77-89); pixel (x, y) is v-up."""
+    camera.rs:77-89); pixel (x, y) is v-up. CR's plain version
+    (``ops.first_hit.camera_rays``), and the camera part of the plain
+    versions of S2 (``_Wavefront.camera``) and K5."""
     x = (pixel % width).to(torch.float32)
     y = (pixel // width).to(torch.float32)
     j1, j2, _, _ = rng.uniform4(pixel, sample, 0, rng.P_JITTER, seed)
@@ -563,9 +569,10 @@ def _camera_rays(cs, pixel, sample, seed, width, height):
 
 def camera_rays(cs: CompiledScene, pix, width, height, sample, seed):
     """Jittered thin-lens primary rays for an arbitrary batch of pixel ids
-    (the JAX name and signature). Returns (pix, o, d), o and d component
-    tuples."""
-    o, d = _camera_rays(cs, pix, sample, seed, width, height)
+    (the JAX name and signature): CR (``ops.first_hit.camera_rays``; on the
+    CPU its plain version ``camera_rays_plain``). Returns (pix, o, d), o
+    and d component tuples."""
+    o, d = first_hit.camera_rays(cs, pix, sample, seed, width, height)
     return pix, o, d
 
 
@@ -653,24 +660,37 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     return carry[6]
 
 
-def _first_hit(cs, o, d, pix, sample, seed):
-    """Scene hit and attributes at depth 0: (hit mask, attrs, the sample
+def _depth0(pix, sample):
+    """The sample and bounce counters of the first hit as lane tensors."""
+    return _lanes(sample, pix), torch.zeros(pix.shape, dtype=torch.int32,
+                                            device=pix.device)
+
+
+def _first_hit(cs, o, d, pix, sample, seed, hit=None):
+    """Scene hit (``hit``: (t, kind, idx) as ``step_hit`` gives it, else
+    ``scene_hit``'s) and attributes at depth 0: (hit mask, attrs, the sample
     and bounce counters as lane tensors)."""
-    sample = _lanes(sample, pix)
-    bounce = torch.zeros(pix.shape, dtype=torch.int32, device=pix.device)
-    t, kind, idx = scene_hit(cs, o, d, pix, sample, bounce, seed)
+    sample, bounce = _depth0(pix, sample)
+    if hit is None:
+        hit = scene_hit(cs, o, d, pix, sample, bounce, seed)
+    t, kind, idx = hit
+    if kind is None:
+        kind, idx = decode_planar_slot(cs.solids, idx)
     hit = torch.isfinite(t)
     attrs = full_hit_attributes(cs, o, d, torch.where(hit, t, 0.0), kind,
                                 idx, pix, sample, bounce, seed)
     return hit, attrs, sample, bounce
 
 
-def first_hit_aux(cs: CompiledScene, o, d, pix, sample, seed):
+def first_hit_aux_plain(cs: CompiledScene, o, d, pix, sample, seed,
+                        hit=None):
     """Albedo and normal aux channels at depth 0 (renderer/mod.rs:175-189
     with the reference's flag inversion fixed): albedo = the scatter color
     (the emission color on a light), normal = the shading normal; the
-    background and zero on a miss. Returns two (R, 3) tensors."""
-    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed)
+    background and zero on a miss. Returns two (R, 3) tensors. The torch
+    composition (``first_hit_aux`` on the CPU), from ``scene_hit`` or the
+    given ``hit``."""
+    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed, hit)
     sc = scatter(cs, o, d, attrs, pix, sample, bounce, seed)
     albedo = torch.stack([
         torch.where(hit, torch.where(sc["is_emission"], sc["emit_color"][c],
@@ -682,16 +702,19 @@ def first_hit_aux(cs: CompiledScene, o, d, pix, sample, seed):
 
 
 # --- single-bounce debug shaders (shader.rs:127-215) ----------------------
+# The torch compositions (``*_plain``, from ``scene_hit`` or the given
+# ``hit``); ``shade_albedo`` / ``shade_normal`` / ``shade_simple`` run the
+# scene-hit kernels and FH (``first_hit_planes``).
 
-def shade_albedo(cs, o, d, pix, sample, seed):
-    albedo, _ = first_hit_aux(cs, o, d, pix, sample, seed)
+def shade_albedo_plain(cs, o, d, pix, sample, seed, hit=None):
+    albedo, _ = first_hit_aux_plain(cs, o, d, pix, sample, seed, hit)
     return albedo
 
 
-def shade_normal(cs, o, d, pix, sample, seed):
+def shade_normal_plain(cs, o, d, pix, sample, seed, hit=None):
     """The shading normal at the first hit (the blend chain resolved with
     the normal draw), the background on a miss."""
-    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed)
+    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed, hit)
     u_bn = rng.uniform4(pix, sample, bounce, rng.P_BLEND_NORMAL, seed)
     eff_n = resolve_blend(cs.materials, attrs["mat"], u_bn, cs.features)
     normal = shading_normal_of(cs, eff_n, attrs)
@@ -699,10 +722,10 @@ def shade_normal(cs, o, d, pix, sample, seed):
                         for c in range(3)], -1)
 
 
-def shade_simple(cs, o, d, pix, sample, seed):
+def shade_simple_plain(cs, o, d, pix, sample, seed, hit=None):
     """Flat shading: the emission color, or the albedo times
     (n.l * 0.5 + 0.75) with l = (1, 1, -1) (shader.rs:191-215)."""
-    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed)
+    hit, attrs, sample, bounce = _first_hit(cs, o, d, pix, sample, seed, hit)
     sc = scatter(cs, o, d, attrs, pix, sample, bounce, seed)
     n = sc["shading_normal"]
     factor = (n[0] * 1.0 + n[1] * 1.0 + n[2] * -1.0) * 0.5 + 0.75
@@ -712,8 +735,66 @@ def shade_simple(cs, o, d, pix, sample, seed):
                     cs.bg_color[c]) for c in range(3)], -1)
 
 
-_DEBUG_SHADERS = {SHADER_ALBEDO: shade_albedo, SHADER_NORMAL: shade_normal,
-                  SHADER_SIMPLE: shade_simple}
+_DEBUG_PLAIN = {SHADER_ALBEDO: shade_albedo_plain,
+                SHADER_NORMAL: shade_normal_plain,
+                SHADER_SIMPLE: shade_simple_plain}
+
+
+def first_hit_plain(cs, o, d, t, kind, idx, pix, sample, seed,
+                    shader_kind=None, albedo=False, normal=False):
+    """FH's plain version (``ops.first_hit.first_hit_shade``): from the
+    scene hit at depth 0 (t, kind, idx; kind None: K1's planar slot), the
+    debug shader ``shader_kind``'s color (None: none) and the aux albedo
+    and normal planes asked for, by the torch compositions above. Returns
+    a dict of (R, 3) tensors, None where not asked for."""
+    hit = (t, kind, idx)
+    out = dict(color=None, albedo=None, normal=None)
+    if shader_kind is not None:
+        out["color"] = _DEBUG_PLAIN[shader_kind](cs, o, d, pix, sample, seed,
+                                                 hit)
+    if albedo or normal:
+        a, n = first_hit_aux_plain(cs, o, d, pix, sample, seed, hit)
+        out.update(albedo=a if albedo else None, normal=n if normal else None)
+    return out
+
+
+def first_hit_planes(cs: CompiledScene, o, d, pix, sample, seed,
+                     shader_kind=None, aux=False):
+    """The first hit's planes from one scene hit (``step_hit`` at depth 0)
+    and one FH launch (``ops.first_hit.first_hit_shade``; on the CPU their
+    plain versions): the debug shader ``shader_kind``'s color (None: none)
+    and, with ``aux``, the albedo and normal planes. Returns FH's dict."""
+    t, kind, idx = step_hit(cs, o, d, pix, *_depth0(pix, sample), seed)
+    return first_hit.first_hit_shade(cs, t, kind, idx, o, d, pix, sample,
+                                     seed, shader_kind, albedo=aux,
+                                     normal=aux)
+
+
+def first_hit_aux(cs: CompiledScene, o, d, pix, sample, seed):
+    """Albedo and normal aux channels at depth 0 (``first_hit_aux_plain``
+    says what they hold): the scene-hit kernels and FH. Returns two (R, 3)
+    tensors."""
+    planes = first_hit_planes(cs, o, d, pix, sample, seed, aux=True)
+    return planes["albedo"], planes["normal"]
+
+
+# The counterparts of the JAX package's public debug shaders, one debug
+# color each from ``first_hit_planes``; ``render_pixels`` calls that
+# directly, since a debug view with aux takes its planes from the same hit.
+
+def shade_albedo(cs, o, d, pix, sample, seed):
+    return first_hit_planes(cs, o, d, pix, sample, seed,
+                            SHADER_ALBEDO)["color"]
+
+
+def shade_normal(cs, o, d, pix, sample, seed):
+    return first_hit_planes(cs, o, d, pix, sample, seed,
+                            SHADER_NORMAL)["color"]
+
+
+def shade_simple(cs, o, d, pix, sample, seed):
+    return first_hit_planes(cs, o, d, pix, sample, seed,
+                            SHADER_SIMPLE)["color"]
 
 
 def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
@@ -722,14 +803,21 @@ def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
     """Render a wavefront of pixel ids (one lane each, the whole wavefront
     in every launch) -> (color, albedo, normal), (R, 3) linear colors. The
     RNG keys off the pixel id, so any partition of the ids renders the
-    same values. Without ``need_aux`` albedo and normal are zero.
-    ``differentiable``: the path shader's route for autograd (``trace``)."""
+    same values. Without ``need_aux`` albedo and normal are zero. The
+    camera rays are CR; a debug shader writes its color, and with
+    ``need_aux`` the aux planes, from one scene hit and one FH launch
+    (``first_hit_planes``). ``differentiable``: the path shader's route for
+    autograd (``trace``)."""
     _, o, d = camera_rays(cs, pix, width, height, sample, seed)
-    if shader_kind == SHADER_PATH:
-        color = trace(cs, o, d, pix, sample, seed, max_depth,
-                      early_exit=early_exit, differentiable=differentiable)
-    else:
-        color = _DEBUG_SHADERS[shader_kind](cs, o, d, pix, sample, seed)
+    if shader_kind != SHADER_PATH:
+        planes = first_hit_planes(cs, o, d, pix, sample, seed, shader_kind,
+                                  aux=need_aux)
+        color = planes["color"]
+        if need_aux:
+            return color, planes["albedo"], planes["normal"]
+        return color, torch.zeros_like(color), torch.zeros_like(color)
+    color = trace(cs, o, d, pix, sample, seed, max_depth,
+                  early_exit=early_exit, differentiable=differentiable)
     if need_aux:
         albedo, normal = first_hit_aux(cs, o, d, pix, sample, seed)
     else:
@@ -763,10 +851,12 @@ GRAPH_STEPS = 2
 def _counted_wrappers():
     """The kernel wrappers a wavefront step or an inverse step launches
     through, each with its ``launches`` count: the hit kernels K1-K4, the
-    draw kernel, the step kernels S1 and S2 and S1's backward S1B."""
+    draw kernel, the step kernels S1 and S2, S1's backward S1B and the
+    first hit's CR and FH."""
     return (bvh_planar_hit, sweep.bvh_sphere_hit, sweep.media_hit,
             sweep.scene_hit, rng.uniform4, step_ops.step_shade,
-            step_ops.step_regen, step_ops.step_shade_backward)
+            step_ops.step_regen, step_ops.step_shade_backward,
+            first_hit.camera_rays, first_hit.first_hit_shade)
 
 
 def _queue_sizes(width, height, n_samples, lanes, pix_ids, n_valid):
@@ -882,8 +972,8 @@ class _Wavefront:
         """(pixel id, sample id, o, d) of these queue positions: camera
         rays, a position past the queue parked with a zero direction."""
         pixel, samp = self.assignment(torch.clamp(qpos, max=self.total_q - 1))
-        o, d = _camera_rays(cs, pixel, samp, self.seed, self.width,
-                            self.height)
+        o, d = camera_rays_plain(cs, pixel, samp, self.seed, self.width,
+                                 self.height)
         parked = qpos >= self.total_q
         return pixel, samp, o, tuple(torch.where(parked, 0.0, c) for c in d)
 
@@ -1210,7 +1300,8 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
     else the path shader with the work-queue wavefront and a debug shader
     with one ``render_pixels`` per sample. With ``need_aux`` the albedo and
     normal planes sum one ``first_hit_aux`` per sample (K5's gate refuses
-    aux, so the path color then comes from the wavefront). Returns summed
+    aux, so the path color then comes from the wavefront; a debug shader's
+    ``render_pixels`` writes them with its color). Returns summed
     (pixel, albedo, normal) (height, width, 3) planes in image-row order
     (top row first, renderer/mod.rs:261) plus the traced-segment count (a
     debug shader counts one per pixel and sample). ``stats`` receives the
@@ -1218,6 +1309,7 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
     n_pix = width * height
     pix = torch.arange(n_pix, dtype=torch.int64, device=cs.device)
     zero = torch.zeros((n_pix, 3), dtype=torch.float32, device=cs.device)
+    albedo = normal = zero
     if megakernel.megakernel_supported(cs, need_aux=need_aux,
                                        shader_kind=shader_kind):
         color, segments = megakernel.render_batch_megakernel(
@@ -1230,14 +1322,16 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
     else:
         color = zero
         for i in range(n_samples):
-            c, _, _ = render_pixels(
+            c, a, n = render_pixels(
                 cs, pix, sample_start + i, seed, width=width, height=height,
-                max_depth=max_depth, shader_kind=shader_kind, need_aux=False)
+                max_depth=max_depth, shader_kind=shader_kind,
+                need_aux=need_aux)
             color = color + c
+            if need_aux:
+                albedo, normal = albedo + a, normal + n
         segments = torch.tensor(n_pix * n_samples, dtype=torch.int64,
                                 device=cs.device)
-    albedo = normal = zero
-    if need_aux:
+    if need_aux and shader_kind == SHADER_PATH:
         for i in range(n_samples):
             _, o, d = camera_rays(cs, pix, width, height, sample_start + i,
                                   seed)

@@ -182,7 +182,7 @@ def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
     batch traced (the work K5 does depends on them): ``miss``, ``capped``
     (the depth cap), ``emit``, ``pdf`` (a scatter with the NEE mixture) and
     ``basic`` (a metal or dielectric scatter)."""
-    from .integrator import _camera_rays, fold_init, path_step_plain
+    from .integrator import camera_rays_plain, fold_init, path_step_plain
 
     n_pix = width * height
     dev = cs.device
@@ -190,7 +190,7 @@ def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
     end = sample_start + int(n_samples)
     pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
     sample = torch.full((n_pix,), sample_start, dtype=torch.int64, device=dev)
-    o, d = _camera_rays(cs, pix, sample, seed, width, height)
+    o, d = camera_rays_plain(cs, pix, sample, seed, width, height)
     zero = torch.zeros((n_pix,), dtype=torch.float32, device=dev)
     bounce = torch.zeros((n_pix,), dtype=torch.int32, device=dev)
     acc_len, fold = zero, fold_init(zero)
@@ -206,7 +206,8 @@ def render_batch_megakernel_plain(cs: CompiledScene, sample_start, n_samples,
         terminal = st["terminal"]
         accum = accum + torch.where(terminal[:, None], st["color"], 0.0)
         sample = torch.where(terminal, sample + 1, sample)
-        o_new, d_new = _camera_rays(cs, pix, sample, seed, width, height)
+        o_new, d_new = camera_rays_plain(cs, pix, sample, seed, width,
+                                         height)
         parked = sample >= end
         d_new = tuple(torch.where(parked, 0.0, c) for c in d_new)
         o = where3(terminal, o_new, st["o"])

@@ -59,6 +59,20 @@ fold's gradients alone), on the same record with every lane reading
 texel row 0 (a solid colour), and how its arena adds meet
 (``s1b_rows``); and ptxas' lines for the step kernels.
 
+The first hit's cells (``aux_interior``: the untextured interior at
+1920x1080, the main path's denoised render, K1; ``aux_kitchen``: the
+normal-mapped kitchen at 1920x1080, K4; seed 1, sample 1): the camera rays
+of all 2,073,600 pixels (``integrator.camera_rays``), the scene hit at
+depth 0 on them alone (``integrator.scene_hit`` and, where the tree has
+it, ``step_hit``, the hit the first-hit kernel FH takes),
+``integrator.first_hit_aux`` on them (the hit and the planes), one sample
+of each debug shader through ``render_sample_batch``, and the 1 spp,
+depth-50 path batch with and without the aux planes: each by CUDA events
+(the median and every run of ``RUNS``, after one warm-up call) with its
+kernels' launches a call; the camera rays and the hits also by
+``device_ms``, and ``first_hit_aux`` by its device ops and busy time
+under ``torch.profiler``.
+
 ``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
 unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
 tree and DIR again, each in a process of its own that imports that tree's
@@ -95,10 +109,13 @@ KERNEL_SCENES = {"sponza": "interior", "sponza_textured": "sponza",
                  "many_lights": "many_lights", "mixed": "step_mixed",
                  "kitchen": "kitchen_k4"}
 KERNEL_WIDTHS = (16384, 106400, 131072, 2073600)
+# the first hit's cells: each one's scene, as the workload of that name
+# builds it, at 1920x1080
+AUX = {"aux_interior": "interior", "aux_kitchen": "kitchen_1080p"}
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
              "kitchen_sink", "megakernel", "step_kitchen",
              "step_kitchen_tex1024", "step_mixed",
-             *(f"kernels_{x}" for x in KERNEL_SCENES))
+             *(f"kernels_{x}" for x in KERNEL_SCENES), *AUX)
 # the inverse step's cells: (width, height) of each
 STEPS = {"step_kitchen": (400, 266), "step_kitchen_tex1024": (400, 266),
          "step_mixed": (1920, 1080)}
@@ -124,8 +141,11 @@ def _workload(name):
 
     if name.startswith("kernels_"):
         name = KERNEL_SCENES[name.removeprefix("kernels_")]
+    name = AUX.get(name, name)
     if name == "kitchen_k4":
         w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
+    elif name == "kitchen_1080p":
+        w, h, spp, build = 1920, 1080, 1, fixtures.kitchen_sink_scene
     elif name == "interior":
         w, h, spp, build = 1920, 1080, 1, fixtures.sponza_class_scene
     elif name in STEPS:
@@ -329,6 +349,74 @@ def measure_step(cs, w, h):
                 **prof)
 
 
+def _timed(fn, wrappers):
+    """fn() timed by CUDA events after one warm-up call: the median ms and
+    every run of ``RUNS``, and the kernels' launches of one call."""
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(RUNS):
+        before = {k: f.launches for k, f in wrappers.items()}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return dict(ms=statistics.median(ms), runs_ms=ms,
+                launches={k: f.launches - before[k]
+                          for k, f in wrappers.items()})
+
+
+def measure_aux(cs, w, h):
+    """The line of a first hit's cell (see the module docstring)."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    wrappers = _wrappers()
+    pix = torch.arange(w * h, dtype=torch.int64, device="cuda")
+    _, o, d = integrator.camera_rays(cs, pix, w, h, 1, SEED)
+    sample = torch.ones_like(pix)
+    bounce = torch.zeros(pix.shape, dtype=torch.int32, device="cuda")
+    calls = {
+        "camera_rays": lambda: integrator.camera_rays(cs, pix, w, h, 1,
+                                                      SEED),
+        "scene_hit": lambda: integrator.scene_hit(cs, o, d, pix, sample,
+                                                  bounce, SEED),
+        "step_hit": lambda: integrator.step_hit(cs, o, d, pix, sample,
+                                                bounce, SEED),
+        "first_hit_aux": lambda: integrator.first_hit_aux(cs, o, d, pix, 1,
+                                                          SEED)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            out[name] = _timed(fn, wrappers)
+            # device_ms queues 20 calls behind one sleep, which a tree that
+            # runs first_hit_aux as a chain of torch ops does not keep up
+            # with
+            if name != "first_hit_aux":
+                out[name]["device_ms"] = device_ms(fn)
+        prof = _profiled(calls["first_hit_aux"])
+        out["first_hit_aux"].update(device_ops=prof["device_ops"],
+                                    device_busy_ms=prof["device_busy_ms"])
+        for shader in ("albedo", "normal", "simple"):
+            kind = getattr(integrator, f"SHADER_{shader.upper()}")
+            out[f"{shader}_sample"] = _timed(
+                lambda k=kind: integrator.render_sample_batch(
+                    cs, 1, SEED, width=w, height=h, max_depth=DEPTH,
+                    shader_kind=k, need_aux=False, n_samples=1), wrappers)
+        for aux in (False, True):
+            out[f"batch_need_aux={aux}"] = _timed(
+                lambda a=aux: float(integrator.render_sample_batch(
+                    cs, 1, SEED, width=w, height=h, max_depth=DEPTH,
+                    shader_kind=integrator.SHADER_PATH, need_aux=a,
+                    n_samples=1)[0].sum()), wrappers)
+    return out
+
+
 def device_ms(fn, n=20, reps=3):
     """Milliseconds of device time per fn(): ``n`` calls queued behind a
     ``torch.cuda._sleep`` that outlasts their enqueue, CUDA events around
@@ -515,13 +603,14 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ptxas_lines(log):
-    """ptxas' lines for the step kernels in a build log: each entry's
-    name, then its stack, spills and registers."""
+def ptxas_lines(log, names=("step_",)):
+    """ptxas' lines for the kernels in a build log whose entry names hold
+    one of ``names`` (default: the step kernels): each entry's name, then
+    its stack, spills and registers."""
     out, keep = [], False
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            keep = "step_" in ln
+            keep = any(n in ln for n in names)
             if keep:
                 out.append(ln.split("'")[1] if "'" in ln else ln)
         elif keep and ("registers" in ln or "spill" in ln
@@ -592,8 +681,9 @@ def worker(root, steps, side, workloads=WORKLOADS):
         t0 = time.perf_counter()
         cs = compile_scene(scene, device="cuda")
         compile_s = time.perf_counter() - t0
-        if name in STEPS or name.startswith("kernels_"):
+        if name in STEPS or name in AUX or name.startswith("kernels_"):
             line = (measure_step(cs, w, h) if name in STEPS else
+                    measure_aux(cs, w, h) if name in AUX else
                     measure_kernels(cs, w, h, spp))
             print(json.dumps(dict(side=side, workload=name, width=w,
                                   height=h, max_depth=DEPTH,

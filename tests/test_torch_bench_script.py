@@ -43,7 +43,7 @@ def test_measure_returns_the_line(scene, route, k5_direct):
         line["segments"] / sorted(line["runs_s"])[1] / 1e6)
     # the wrappers count only launches of their kernels: none on the CPU
     assert line["launches"] == dict(K1=0, K2=0, K3=0, K4=0, K5=0, draw=0,
-                                   S1=0, S2=0, S1B=0)
+                                   S1=0, S2=0, S1B=0, CR=0, FH=0)
     assert (line["iterations"] is None) == (route == "k5")
     # the CPU's eager driver reads the stop test after every step
     assert line["host_reads"] == line["iterations"]

@@ -239,7 +239,7 @@ def test_detached_geometry(name):
     those of the call without grad."""
     cs, call, _ = _hit_calls()[name]
     pix = torch.arange(W * H, dtype=torch.int64)
-    o, d = TI._camera_rays(cs, pix, 1, SEED, W, H)
+    o, d = TI.camera_rays_plain(cs, pix, 1, SEED, W, H)
     with torch.no_grad():
         want = call(o, d)
     d_g = tuple(c.detach().clone().requires_grad_(True) for c in d)
@@ -262,7 +262,7 @@ def test_detached_geometry_in_tables(name):
     the outputs are those of the call without grad."""
     cs, call, leaves = _hit_calls(geometry_grad=True)[name]
     pix = torch.arange(W * H, dtype=torch.int64)
-    o, d = TI._camera_rays(cs, pix, 1, SEED, W, H)
+    o, d = TI.camera_rays_plain(cs, pix, 1, SEED, W, H)
     assert leaves and all(x.requires_grad for x in leaves)
     with torch.no_grad():
         want = call(o, d)

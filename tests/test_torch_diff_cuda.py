@@ -68,7 +68,7 @@ def test_kernels_detached_on_card(cuda):
     zero = torch.zeros_like(pix)
     one = torch.ones_like(pix)
     for cs in (mixed, kitchen):
-        o, d = integrator._camera_rays(cs, pix, 1, 1, W, H)
+        o, d = integrator.camera_rays_plain(cs, pix, 1, 1, W, H)
         d_g = tuple(c.detach().clone().requires_grad_(True) for c in d)
         for dirs in (d, d_g):
             if cs.kbvh is not None:

@@ -157,7 +157,7 @@ def test_k4_matches_plain(cuda, name):
         cs.media)
     w, h = 96, 64
     pix = torch.arange(w * h, device=cuda)
-    co, cd = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    co, cd = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
     t, kind, idx = sweep.scene_hit_plain(cs.solids,
                                          integrator.media_tables(cs), co, cd,
                                          pix, 1, 0, 1)
@@ -265,7 +265,7 @@ def test_k3_matches_plain(cuda, name, counter):
         assert mt.pln.shape[0] * 64 > 32 * 1024
     no_media = sweep.pack_media((), cuda, 1.0)
     pix = torch.arange(w * h, device=cuda)
-    co, cd = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    co, cd = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
     t, kind, idx = sweep.scene_hit_plain(cs.solids, mt, co, cd, pix, 1, 0, 1)
     hit = torch.isfinite(t)
     attrs = integrator.full_hit_attributes(
@@ -446,7 +446,7 @@ def test_scene_hit_is_one_launch(cuda, route):
     pix = torch.arange(w * h, device=cuda)
     sample = torch.ones(w * h, dtype=torch.int64, device=cuda)
     bounce = torch.zeros(w * h, dtype=torch.int32, device=cuda)
-    o, d = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
     # a first call packs the tables (K2's sphere table, the media)
     integrator.scene_hit(cs, o, d, pix, sample, bounce, 1)
     if route == "K4":
@@ -544,8 +544,8 @@ def test_graphed_step_matches_eager(cuda, name):
     64x32, depth 8: the loss to rtol 1e-5, the gradient to rtol 1e-5, atol
     1e-7 (the arena's index_add_ adds with atomics); one capture for two
     calls; a replay launches each kernel as often as the eager step's
-    forward and path replay together: S1 and its backward S1B, and no
-    draw kernel."""
+    forward and path replay together: S1 and its backward S1B, the camera
+    rays' CR once, and no draw kernel."""
     from solstrale_tpu_torch import bench, diff
 
     build = {"mixed": lambda c: fixtures.mixed_bvh_scene(c, n_cells=32),
@@ -570,8 +570,10 @@ def test_graphed_step_matches_eager(cuda, name):
     want, dispatched = launched(lambda: eager.eager(cs, target))
     assert diff._GradStep.captures == captures + 1
     assert replayed == dispatched
-    # the draw kernel: the camera rays' jitter and lens, none a bounce
-    assert replayed["draw"] == 2 and (replayed["K1"] or replayed["K4"])
+    # the camera rays: one CR launch, their draws in registers; no draw
+    # kernel, none a bounce
+    assert replayed["CR"] == 1 and replayed["draw"] == 0
+    assert replayed["K1"] or replayed["K4"]
     assert replayed["S1"] > replayed["S1B"] > 0
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-7)
@@ -861,7 +863,7 @@ def _s1b_bounces(cs, w, h, depth, bounces, g, one_row=None):
     pix = torch.arange(w * h, device=cuda)
     r = pix.shape[0]
     sample = torch.ones_like(pix)
-    o, d = integrator._camera_rays(cs, pix, 1, 1, w, h)
+    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
     bounce = torch.from_numpy(g.integers(0, depth + 1, r).astype(
         np.int32)).to(cuda)
     acc_len = torch.zeros(r, device=cuda)
@@ -952,3 +954,110 @@ def test_graphed_step_at_step_width_matches_eager(cuda):
     assert torch.equal(loss, loss_e)
     assert torch.isfinite(g).all() and (g != 0).any()
     torch.testing.assert_close(g, g_e, rtol=1e-4, atol=1e-7)
+
+
+def _first_hit_against_plain(cs, pix, sample, w, h):
+    """CR against camera_rays_plain, then FH on CR's rays and their depth-0
+    hit (step_hit, as first_hit_planes takes it) with every debug shader
+    and none and every combination of the aux planes against the plain
+    functions, bit for bit (NaN where the plain has NaN), a plane not asked
+    for not returned; one launch a call. Returns the hit lanes."""
+    from solstrale_tpu_torch.ops import first_hit
+
+    before = first_hit.camera_rays.launches
+    o, d = first_hit.camera_rays(cs, pix, sample, 1, w, h)
+    assert first_hit.camera_rays.launches == before + 1
+    po, pd = integrator.camera_rays_plain(cs, pix, sample, 1, w, h)
+    assert all(_same(a, b) for a, b in zip((*o, *d), (*po, *pd)))
+    samp, bounce = integrator._depth0(pix, sample)
+    hit = integrator.step_hit(cs, o, d, pix, samp, bounce, 1)
+    want = {k: fn(cs, o, d, pix, sample, 1, hit)
+            for k, fn in integrator._DEBUG_PLAIN.items()}
+    aux = integrator.first_hit_aux_plain(cs, o, d, pix, sample, 1, hit)
+    for shader in (None, *integrator._DEBUG_PLAIN):
+        for alb in (False, True):
+            for nrm in (False, True):
+                if shader is None and not (alb or nrm):
+                    continue
+                before = first_hit.first_hit_shade.launches
+                got = first_hit.first_hit_shade(cs, *hit, o, d, pix, sample,
+                                                1, shader, alb, nrm)
+                assert first_hit.first_hit_shade.launches == before + 1
+                expect = dict(color=want.get(shader),
+                              albedo=aux[0] if alb else None,
+                              normal=aux[1] if nrm else None)
+                for k, v in expect.items():
+                    assert (got[k] is None) == (v is None), k
+                    assert v is None or _same(got[k], v), (shader, alb, k)
+    return int(torch.isfinite(hit[0]).sum())
+
+
+@pytest.mark.parametrize("name", list(STEP_SCENES))
+def test_first_hit_kernels_match_plain(cuda, name):
+    """CR (ops.first_hit.camera_rays) and FH (first_hit_shade) against
+    their plain versions bit for bit at 128x64: on 3,001 lanes (an odd
+    count: a shuffled subset of the pixel ids, a sample a lane) and on
+    the whole image (an int sample), and on 8,191 lanes of a 1080p
+    camera's pixel ids (a 0-dim sample on the card); FH with every shader
+    kind and plane combination."""
+    w, h = 128, 64
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    g = torch.Generator().manual_seed(7)
+    subset = torch.randperm(w * h, generator=g)[:3001].to(cuda)
+    tall = torch.randperm(1920 * 1080, generator=g)[:8191].to(cuda)
+    for pix, sample, (pw, ph) in (
+            (subset, torch.full_like(subset, 3), (w, h)),
+            (torch.arange(w * h, device=cuda), 2, (w, h)),
+            (tall, torch.tensor(5, device=cuda), (1920, 1080))):
+        assert _first_hit_against_plain(cs, pix, sample, pw, ph) > 0
+
+
+def test_first_hit_routes_launch_cr_and_fh(cuda):
+    """On the card the first hit's routes launch CR and FH and never the
+    draw kernel: render_pixels with a debug shader and the aux planes one
+    CR and one FH (its three planes equal to the plain compositions'),
+    first_hit_aux one FH, the aux-on path batch one CR and one FH a
+    sample; FH raises where a scene table requires grad, CR where a camera
+    tensor does."""
+    import dataclasses
+
+    from solstrale_tpu_torch import bench
+    from solstrale_tpu_torch.ops import first_hit
+
+    w, h = 64, 32
+    cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=w, height=h)), device=cuda)
+    wrappers = bench.kernel_wrappers()
+
+    def launched(fn):
+        before = {k: f.launches for k, f in wrappers.items()}
+        out = fn()
+        return out, {k: f.launches - before[k] for k, f in wrappers.items()}
+
+    pix = torch.arange(w * h, device=cuda)
+    kw = dict(width=w, height=h, max_depth=50)
+    got, n = launched(lambda: integrator.render_pixels(
+        cs, pix, 1, 1, shader_kind=integrator.SHADER_SIMPLE, need_aux=True,
+        **kw))
+    assert (n["CR"], n["FH"], n["draw"], n["S1"]) == (1, 1, 0, 0)
+    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
+    want = (integrator.shade_simple_plain(cs, o, d, pix, 1, 1),
+            *integrator.first_hit_aux_plain(cs, o, d, pix, 1, 1))
+    assert all(_same(a, b) for a, b in zip(got, want))
+    _, n = launched(lambda: integrator.first_hit_aux(cs, o, d, pix, 1, 1))
+    assert (n["FH"], n["CR"], n["draw"]) == (1, 0, 0)
+    _, n = launched(lambda: integrator.render_sample_batch(
+        cs, 1, 1, shader_kind=integrator.SHADER_PATH, need_aux=True,
+        n_samples=2, **kw))
+    assert (n["CR"], n["FH"], n["draw"]) == (2, 2, 0) and n["S1"] > 0
+    arena = cs.textures.pixels.detach().requires_grad_(True)
+    grad_cs = dataclasses.replace(cs, textures=dataclasses.replace(
+        cs.textures, pixels=arena))
+    with pytest.raises(ValueError, match="autograd"):
+        integrator.first_hit_aux(grad_cs, o, d, pix, 1, 1)
+    cam = dataclasses.replace(cs.camera, origin=cs.camera.origin.detach()
+                              .requires_grad_(True))
+    with pytest.raises(ValueError, match="autograd"):
+        first_hit.camera_rays(dataclasses.replace(cs, camera=cam), pix, 1, 1,
+                              w, h)

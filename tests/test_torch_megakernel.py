@@ -287,7 +287,7 @@ def test_medium_box_cull_is_conservative(name):
     box = TI.media_tables(ct).box
     rng = np.random.default_rng(11)
     pix = torch.arange(64 * 48)
-    cam_o, cam_d = TI._camera_rays(ct, pix, 1, SEED, 64, 48)
+    cam_o, cam_d = TI.camera_rays_plain(ct, pix, 1, SEED, 64, 48)
     med = ct.media[0]
     b = med.boundary
     pts = _corners(b)

@@ -103,7 +103,7 @@ def test_one_step_draw_for_draw_mixed():
     cj = jcompile(SCENES["mixed16"](_cfg(J), J))
     ct = tcompile(SCENES["mixed16"](_cfg(T), T), device="cpu")
     pix = torch.arange(W * H, dtype=torch.int64)
-    o, d = TI._camera_rays(ct, pix, 1, SEED, W, H)
+    o, d = TI.camera_rays_plain(ct, pix, 1, SEED, W, H)
     # second step: bounce rays leaving the first hits
     t0, k0, i0 = TI.scene_hit(ct, o, d, pix, 1, 0, SEED)
     hit0 = torch.isfinite(t0)

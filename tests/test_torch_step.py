@@ -133,7 +133,7 @@ def _chain(ct, steps=STEPS):
     ``path_step`` on the CPU: yields each step's inputs (the port's lane
     state and the hit as S1 takes it) and the port's result."""
     pix, sample, active = _lanes()
-    o, d = TI._camera_rays(ct, pix, sample, SEED, W, H)
+    o, d = TI.camera_rays_plain(ct, pix, sample, SEED, W, H)
     zero = torch.zeros(pix.shape[0])
     bounce = torch.zeros(pix.shape[0], dtype=torch.int32)
     acc_len, fold = zero, TI.fold_init(zero)

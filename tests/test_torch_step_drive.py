@@ -54,7 +54,7 @@ def _start(cs, n=400):
     last eighth inactive."""
     pix = torch.arange(n, dtype=torch.int64) * 2 % (W * H)
     sample = torch.full((n,), 2, dtype=torch.int64)
-    o, d = TI._camera_rays(cs, pix, sample, SEED, W, H)
+    o, d = TI.camera_rays_plain(cs, pix, sample, SEED, W, H)
     zero = torch.zeros(n)
     active = torch.arange(n) < n - n // 8
     return (o, d, torch.zeros(n, dtype=torch.int32), zero,

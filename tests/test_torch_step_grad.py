@@ -116,7 +116,7 @@ def test_plain_backward_matches_autograd(name):
     g = np.random.default_rng(7)
     pix = torch.arange(w * h, dtype=torch.int64)
     r = pix.shape[0]
-    o, d = TI._camera_rays(cs, pix, 1, SEED, w, h)
+    o, d = TI.camera_rays_plain(cs, pix, 1, SEED, w, h)
     bounce = torch.from_numpy(g.integers(0, depth + 1, r).astype(np.int32))
     acc_len = torch.zeros(r)
     active = torch.from_numpy(g.random(r) > 0.1)

@@ -59,17 +59,17 @@ def test_queue_assignment_tensor_start_is_bit_equal(w, h):
 
 
 def test_camera_rays_tensor_sample_is_bit_equal():
-    """_camera_rays with a 0-dim int64 sample (the draws broadcast it) and
+    """camera_rays_plain with a 0-dim int64 sample (the draws broadcast it) and
     with per-lane samples from a tensor start equal the int forms."""
     cs = _compiled("mixed", 48, 32, 1)
     pix = torch.arange(48 * 32, dtype=torch.int64)
-    want = TI._camera_rays(cs, pix, 7, SEED, 48, 32)
+    want = TI.camera_rays_plain(cs, pix, 7, SEED, 48, 32)
     for sample in (torch.tensor(7), torch.full_like(pix, 7)):
-        got = TI._camera_rays(cs, pix, sample, SEED, 48, 32)
+        got = TI.camera_rays_plain(cs, pix, sample, SEED, 48, 32)
         for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
             assert torch.equal(a, b)
     _, samp = TI.queue_assignment(pix, 48, 32, torch.tensor(7))
-    got = TI._camera_rays(cs, pix, samp, SEED, 48, 32)
+    got = TI.camera_rays_plain(cs, pix, samp, SEED, 48, 32)
     for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
         assert torch.equal(a, b)
 
