@@ -1345,117 +1345,24 @@ def phase_step(sponza_cs):
     return rows
 
 
-# phase 2d's widths: the wide pool's (pixel ids in the wavefront's queue
-# order, a sample a lane) and a 1080p image's (every pixel id and an int
-# sample, render_pixels' form and the denoised render's)
-FIRST_WIDTHS = (131072, 2073600)
-# FH's f32 operations beyond K5_HIT (csrc/first_hit.cu, counted as K5's):
-# a normal map's tangent-space normal 6 and its frame 15; the simple
-# shader's factor 5 and product 3
-FH_NORMAL_MAP = 21
-FH_SIMPLE = 8
+# phase 2d's widths, by lanes: (width, height, the pixel ids' form) of a
+# whole 400x266 image (the inverse step's small width: every pixel id and
+# an int sample, render_pixels' form), the wide pool's (pixel ids of a
+# 1080p image in the wavefront's queue order, a sample a lane) and a 1080p
+# image's (every pixel id and an int sample, the denoised render's)
+FIRST_WIDTHS = {106400: (400, 266, "image"), 131072: (1920, 1080, "queue"),
+                2073600: (1920, 1080, "image")}
 
 
-def _ptxas_log():
-    """ptxas' report of the kernel library in use: this process's build's,
-    or the one written beside the library when it was built."""
-    from solstrale_tpu_torch.ops import _build
-
-    log = _build.library_path().with_suffix(".log")
-    return _build.BuildInfo.log or (log.read_text() if log.exists() else "")
-
-
-def _lane_bytes(x):
-    """The bytes a lane reads of a draw counter: its element where it is a
-    lane array, none where it is one value."""
+def _copy_floor_ms(nbytes):
+    """The card's own streaming floor for ``nbytes``: the device ms of one
+    ``torch.Tensor.copy_`` that reads nbytes / 2 and writes as many (a
+    yardstick beside a kernel's byte bound; the port never calls it)."""
     import torch
 
-    return (x.element_size() if isinstance(x, torch.Tensor) and x.numel() > 1
-            else 0)
-
-
-def _fh_work(cs, o, d, hit, pix, sample, planes, shader=None):
-    """FH's bytes and f32 operations on one call's hit (t, kind, idx as FH
-    takes them: no kind where idx is K1's planar slot), as
-    ``csrc/first_hit.cu::first_lane`` loads them. Bytes: per lane t and
-    each (R, 3) plane written; per hit lane idx (and kind where given), the
-    ray, the pixel id (and the sample where it is a lane array); per
-    distinct row the hit lanes read, the attribute rows (a planar row 112
-    B, with its ``pl_row`` entry on K1's slot; a sphere row 32), the albedo
-    texels where the albedo is read (the albedo plane, or a color but the
-    normal shader's) and, on a scene with normal maps where a normal is
-    read (the normal plane, or the normal or simple shader's color), the
-    normal map's texels (12 B each); the small tables, read once a block,
-    not counted. Operations: every hit lane K5_HIT, K5_BLEND a blend walk
-    on a scene with blends (the albedo's, the normal map's), a mapped
-    normal FH_NORMAL_MAP, the simple shader FH_SIMPLE."""
-    import torch
-    from solstrale_tpu_torch.ops import rng, step
-    from solstrale_tpu_torch.renderer import integrator
-    from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
-                                                   KIND_TRIANGLE)
-
-    tab = step.step_tables(cs)
-    t, kind, idx = hit
-    r = t.shape[0]
-    live = torch.isfinite(t)
-    hits = int(live.sum())
-    n_pl = tab.pln.shape[0]
-    if kind is None:
-        rows = int(torch.unique(idx[live].clamp(0, max(n_pl - 1, 0)))
-                   .numel()) * (112 + 4)
-    else:
-        sph = live & (kind == KIND_SPHERE) & bool(tab.flags
-                                                  & step.FLAG_SPHERES)
-        pl = live & ~sph & ~((kind == KIND_MEDIUM)
-                             & (tab.med_mat.shape[0] > 0))
-        slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
-        rows = (int(torch.unique(slot[pl].clamp(0, max(n_pl - 1, 0)))
-                    .numel()) * 112
-                + int(torch.unique(idx[sph]).numel()) * 32)
-    want_alb = planes["albedo"] or shader in (integrator.SHADER_ALBEDO,
-                                              integrator.SHADER_SIMPLE)
-    want_n = planes["normal"] or shader in (integrator.SHADER_NORMAL,
-                                            integrator.SHADER_SIMPLE)
-    maps = want_n and bool(tab.flags & step.FLAG_NORMAL_MAPS)
-    _, attrs, samp, bounce = integrator._first_hit(cs, o, d, pix, sample, 1,
-                                                   hit)
-    mats = cs.materials
-    texels = mapped = 0
-    if want_alb:
-        eff = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
-            pix, samp, bounce, rng.P_BLEND_SCATTER, 1), cs.features)
-        texels += int(torch.unique(integrator.texel_index(
-            cs.textures, integrator.mat_row(mats, eff)["albedo_tex"],
-            attrs["uv"])[live]).numel())
-    if maps:
-        eff_n = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
-            pix, samp, bounce, rng.P_BLEND_NORMAL, 1), cs.features)
-        ntex = integrator.mat_row(mats, eff_n)["normal_tex"]
-        on = live & (ntex >= 0)
-        mapped = int(on.sum())
-        texels += int(torch.unique(integrator.texel_index(
-            cs.textures, ntex, attrs["uv"])[on]).numel())
-    n_planes = sum(bool(v) for v in planes.values()) + (shader is not None)
-    lane = 4 + 12 * n_planes
-    hit_lane = (4 * (1 if kind is None else 2) + 24 + pix.element_size()
-                + _lane_bytes(sample))
-    walks = (int(want_alb) + int(maps)) * bool(tab.flags & step.FLAG_BLEND)
-    flops = (hits * (K5_HIT + K5_BLEND * walks) + mapped * FH_NORMAL_MAP
-             + (hits * FH_SIMPLE if shader == integrator.SHADER_SIMPLE
-                else 0))
-    return r * lane + hits * hit_lane + rows + 12 * texels, flops
-
-
-def _cr_work(cs, pix, sample):
-    """CR's bytes and f32 operations: per lane the pixel id read (and the
-    sample where it is a lane array) and the ray written, the camera row
-    once; the camera ray (S2_REGEN) a lane."""
-    from solstrale_tpu_torch.ops import step
-
-    r = pix.shape[0]
-    lane = pix.element_size() + 24 + _lane_bytes(sample)
-    return r * lane + nbytes(step.step_tables(cs).cam), r * S2_REGEN
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return device_ms(lambda: dst.copy_(src))
 
 
 def _first_hit_check(name, cs, pix, sample, w, h):
@@ -1517,16 +1424,19 @@ def _first_hit_check(name, cs, pix, sample, w, h):
 def phase_first_hit(sponza_cs):
     """2d: the first hit's kernels (``csrc/first_hit.cu``): CR
     (``ops.first_hit.camera_rays``) and FH (``first_hit_shade``) against
-    their plain versions (``_first_hit_check``) at the wide pool's 131,072
-    lanes (the queue's pixel ids, a sample a lane) and at a 1080p image's
-    2,073,600 (every pixel id, an int sample) on phase 2c's six scenes
-    (camera rays of a 1920x1080 image from each scene's camera), every
-    shader kind and plane combination; each kernel's device, wrapper and
-    plain time (FH asked for the aux planes, the denoiser's form; and each
-    debug shader's device time) against its bound; ptxas' registers and
-    spills of CR and FH, and S1 still at 64 registers or fewer with no
-    spills. Returns the rows of the kernels line: CR's and FH's on the
-    main path's interior at 2,073,600 lanes (the denoised render's)."""
+    their plain versions (``_first_hit_check``) at ``FIRST_WIDTHS``: a whole
+    400x266 image's 106,400 lanes, the wide pool's 131,072 (the queue's
+    pixel ids, a sample a lane) and a 1080p image's 2,073,600 (every pixel
+    id, an int sample) on phase 2c's six scenes (camera rays from each
+    scene's camera), every shader kind and plane combination; each
+    kernel's device, wrapper and plain time (FH asked for the aux planes,
+    the denoiser's form; and each debug shader's device time) against its
+    bound (``wavefront_ab.cr_work`` / ``fh_work``) and beside the copy
+    floor of as many bytes (``_copy_floor_ms``); FH's persistent grid
+    (``first_hit_grid``); ptxas' registers and spills of CR and FH, and S1
+    still at 64 registers or fewer with no spills. Returns the rows of the
+    kernels line: CR's and FH's on the main path's interior at 2,073,600
+    lanes (the denoised render's)."""
     import re
 
     import torch
@@ -1535,9 +1445,8 @@ def phase_first_hit(sponza_cs):
     from solstrale_tpu_torch.renderer import integrator
 
     start = time.perf_counter()
-    w, h = 1920, 1080
     dev = torch.device("cuda")
-    ptxas = _ptxas_log()
+    ptxas = wavefront_ab.build_log()
     # S1's entry alone ("step_shadeE" in its mangled name, not S1B's)
     s1 = wavefront_ab.ptxas_lines(ptxas, ("step_shadeE",))
     regs = [int(m.group(1)) for ln in s1
@@ -1546,12 +1455,12 @@ def phase_first_hit(sponza_cs):
     if len(regs) != 1 or regs[0] > 64 or spills:
         raise AssertionError(f"first hit: S1 at {regs} registers, spills "
                              f"{spills} ({s1})")
-    out, rows = {}, {}
+    out, rows, floors = {}, {}, {}
     for name in STEP_SCENES:
         cs = _wavefront_scene(name, sponza_cs)[0]
         per = {}
-        for lanes in FIRST_WIDTHS:
-            if lanes == w * h:
+        for lanes, (w, h, form) in FIRST_WIDTHS.items():
+            if form == "image":
                 pix, sample = torch.arange(lanes, device=dev), 1
             else:
                 pix, sample = integrator.queue_assignment(
@@ -1568,22 +1477,29 @@ def phase_first_hit(sponza_cs):
                 return first_hit.first_hit_shade(cs, *hit, o, d, pix, sample,
                                                  1, shader, **planes)
 
+            cr_bytes, cr_ops = wavefront_ab.cr_work(cs, pix, sample)
+            fh_bytes, fh_ops = wavefront_ab.fh_work(cs, o, d, hit, pix,
+                                                    sample, aux)
+            for nb in (cr_bytes, fh_bytes):
+                if nb not in floors:
+                    floors[nb] = _copy_floor_ms(nb)
             cr_row = dict(max_abs_err=0.0, **kernel_times(
                 cr, lambda: integrator.camera_rays_plain(cs, pix, sample, 1,
                                                          w, h)),
-                **bound(*_cr_work(cs, pix, sample)))
+                **bound(cr_bytes, cr_ops), copy_floor_ms=floors[cr_bytes])
             fh_row = dict(max_abs_err=0.0, **kernel_times(
                 fh, lambda: integrator.first_hit_plain(
                     cs, o, d, *hit, pix, sample, 1, None, True, True)),
-                **bound(*_fh_work(cs, o, d, hit, pix, sample, aux)))
+                **bound(fh_bytes, fh_ops), copy_floor_ms=floors[fh_bytes])
             none = dict(albedo=False, normal=False)
             shaders = {k: dict(ms=device_ms(lambda k=k: fh(k, none)),
-                               **bound(*_fh_work(cs, o, d, hit, pix, sample,
-                                                 none, k)))
+                               **bound(*wavefront_ab.fh_work(
+                                   cs, o, d, hit, pix, sample, none, k)))
                        for k in integrator._DEBUG_PLAIN}
             per[lanes] = dict(checked=checked, hit_lanes=hits, CR=cr_row,
-                              FH=fh_row, FH_shader=shaders)
-            if name == "sponza" and lanes == w * h:
+                              FH=fh_row, FH_shader=shaders,
+                              FH_grid=first_hit.first_hit_grid(lanes))
+            if name == "sponza" and lanes == 2073600:
                 rows = {"CR": cr_row, "FH": fh_row}
         out[name] = per
     torch.cuda.synchronize()

@@ -13,22 +13,28 @@
 // chains of torch ops, a draw-kernel launch for each draw, over every pixel
 // of the image.
 //
-// One thread a lane, every draw computed in registers (hit::uniform4). The
-// device functions are S1's and S2's (shade.cuh: camera_ray, decode_hit,
+// Every draw is computed in registers (hit::uniform4). The device
+// functions are S1's and S2's (shade.cuh: camera_ray, decode_hit_values,
 // hit_attrs, blend_walk, normal_mapped, sample_texture), compiled with
 // -fmad=false, so both kernels return their plain versions' values bit for
 // bit on the card. The plain versions compute every branch of every lane
 // and select; FH computes the branch a lane takes and only the planes it is
 // asked for.
 //
-// What bounds them. CR reads a lane's pixel id (and its sample, where that
-// is a lane array) and writes its ray, 24 bytes: bytes. FH reads a lane's
-// hit and ray (36 bytes), its pixel id, its attribute row (112 bytes for a
-// planar prim, shared by the lanes that hit it) and a material row, texel
-// and normal-map texel, and writes up to three (R, 3) planes; it stages the
-// small tables (camera, materials, texture attributes) in shared memory as
-// S1 does. Both run at 1080p over 2,073,600 lanes, many waves: the loads'
-// latency hides behind other warps.
+// What bounds them: bytes. CR reads a lane's pixel id (and its sample,
+// where that is a lane array) and writes its ray, 24 bytes, one thread a
+// lane, each ray component a coalesced row store. FH reads a lane's t, and
+// on a hit its (kind, idx), ray (24 bytes) and pixel id, its attribute row
+// (112 bytes for a planar prim, shared by the lanes that hit it), a
+// material row, the albedo texel and the normal-map texel, and writes up
+// to three (R, 3) planes. Both run at 1080p over 2,073,600 lanes, many
+// waves. FH's lane is a chain of dependent loads (t, idx, the row, the
+// texels), so its design keeps loads in flight and spends nothing per lane
+// beyond them: a persistent grid (first_grid: the blocks that stay
+// resident), each block staging the small tables (camera, materials,
+// texture attributes) in shared memory once, as S1 does, and each thread
+// walking its lanes with the next lane's inputs loaded while this lane
+// waits on its texels.
 #include <cstdint>
 
 #include "hit.cuh"
@@ -40,6 +46,8 @@ using namespace shade;
 
 constexpr int kCamThreads = 256;
 constexpr int kFirstThreads = 256;
+// the most bytes of small tables FH stages (ops.step.STAGE_MAX_BYTES)
+constexpr int kMaxStageBytes = 12288;
 
 // integrator.SHADER_*: the debug shader FH writes into its color plane
 constexpr int SHADER_ALBEDO = 1, SHADER_NORMAL = 2, SHADER_SIMPLE = 3;
@@ -95,8 +103,37 @@ struct First {
   long long n;
 };
 
+// A lane's inputs, loaded a grid's lanes ahead of its shading (load_in):
+// its t and, on a hit, its (kind, idx), its ray and its three draw counters
+struct In {
+  float t;
+  int kind, idx;
+  V3 o, d;
+  uint32_t pix, smp, seed;
+};
+
+// Lane i's t (NaN past the end: no loads, no stores)
+__device__ __forceinline__ float lane_t(const First& a, long long i) {
+  return i < a.n ? a.t[i] : CUDART_NAN_F;
+}
+
+// Lane i's inputs with its t already loaded: a miss reads only t
+__device__ __forceinline__ In load_in(const First& a, long long i, float t) {
+  In x = {t, 0, 0, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), 0u, 0u, 0u};
+  if (isfinite(t)) {
+    if (a.kind != nullptr) x.kind = a.kind[i];
+    x.idx = a.idx[i];
+    x.o = v3(a.o[0][i], a.o[1][i], a.o[2][i]);
+    x.d = v3(a.d[0][i], a.d[1][i], a.d[2][i]);
+    x.pix = a.pixel.at(i);
+    x.smp = a.sample.at(i);
+    x.seed = a.seed.at(i);
+  }
+  return x;
+}
+
 // One lane of FH at depth 0 (integrator.first_hit_aux_plain and the debug
-// shaders' plain versions):
+// shaders' plain versions), lane i from its inputs x:
 //   albedo = hit ? (light ? (front ? texel : 0) : texel) : bg
 //   normal = hit ? shading normal : 0
 //   color  = albedo (SHADER_ALBEDO), hit ? shading normal : bg
@@ -104,26 +141,31 @@ struct First {
 //            texel * ((n0 * 1 + n1 * 1 + n2 * -1) * 0.5 + 0.75)) : bg
 //            (SHADER_SIMPLE)
 // with the material of the blend walk on P_BLEND_SCATTER for the texel and
-// the light test, and the normal map of the walk on P_BLEND_NORMAL.
+// the light test, and the normal map of the walk on P_BLEND_NORMAL. Once
+// the hit's attributes are in, it loads lane j's inputs (t_next its t) into
+// ``next``, so that they are in flight while this lane waits on its texels.
 __device__ __forceinline__ void first_lane(const First& a, const Scene& sc,
-                                           long long i) {
-  const float t = a.t[i];
+                                           const In& x, long long i,
+                                           long long j, float t_next,
+                                           In* next) {
   const float* bg = sc.cam + 19;
   float alb[3] = {bg[0], bg[1], bg[2]};
   float nrm[3] = {0.0f, 0.0f, 0.0f};
   float col[3] = {bg[0], bg[1], bg[2]};
-  if (isfinite(t)) {
+  const bool hit = isfinite(x.t);
+  Attrs h;
+  if (hit) {
     int kind, idx, slot;
-    decode_hit(a.kind, a.idx, a.pl_row, a.n_q, a.n_pl, i, &kind, &idx,
-               &slot);
-    const V3 o = v3(a.o[0][i], a.o[1][i], a.o[2][i]);
-    const V3 d = v3(a.d[0][i], a.d[1][i], a.d[2][i]);
-    const uint32_t pix = a.pixel.at(i), smp = a.sample.at(i),
-                   seed = a.seed.at(i);
-    const V3 point = v3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
-    const Attrs h = hit_attrs(sc.flags, a.sph, a.n_sph, a.pln, a.n_pl,
-                              a.med_mat, a.n_media, kind, idx, slot, point,
-                              d, pix, smp, 0u, seed);
+    decode_hit_values(a.kind != nullptr, x.kind, x.idx, a.pl_row, a.n_q,
+                      a.n_pl, &kind, &idx, &slot);
+    const V3 point = v3(x.o.x + x.d.x * x.t, x.o.y + x.d.y * x.t,
+                        x.o.z + x.d.z * x.t);
+    h = hit_attrs(sc.flags, a.sph, a.n_sph, a.pln, a.n_pl, a.med_mat,
+                  a.n_media, kind, idx, slot, point, x.d, x.pix, x.smp, 0u,
+                  x.seed);
+  }
+  *next = load_in(a, j, t_next);
+  if (hit) {
     const bool want_alb = a.albedo != nullptr ||
                           (a.color != nullptr && a.shader != SHADER_NORMAL);
     const bool want_n = a.normal != nullptr ||
@@ -133,11 +175,11 @@ __device__ __forceinline__ void first_lane(const First& a, const Scene& sc,
     if (want_alb) {
       int eff = h.mat;
       if (sc.flags & kFlagBlend)
-        eff = blend_walk(sc, eff,
-                         uniform4(pix, smp, 0u, P_BLEND_SCATTER, seed));
+        eff = blend_walk(sc, eff, uniform4(x.pix, x.smp, 0u, P_BLEND_SCATTER,
+                                           x.seed));
       const MatRow row = mat_row(sc, eff);
-      const V3 x = sample_texture(sc, row.albedo_tex, h.u, h.v);
-      tex[0] = x.x; tex[1] = x.y; tex[2] = x.z;
+      const V3 t = sample_texture(sc, row.albedo_tex, h.u, h.v);
+      tex[0] = t.x; tex[1] = t.y; tex[2] = t.z;
       light = row.kind == DIFFUSE_LIGHT;
       for (int c = 0; c < 3; ++c)
         alb[c] = light ? (h.front ? tex[c] : 0.0f) : tex[c];
@@ -146,8 +188,8 @@ __device__ __forceinline__ void first_lane(const First& a, const Scene& sc,
     if (want_n && (sc.flags & kFlagNormalMaps)) {
       const int eff_n =
           (sc.flags & kFlagBlend)
-              ? blend_walk(sc, h.mat,
-                           uniform4(pix, smp, 0u, P_BLEND_NORMAL, seed))
+              ? blend_walk(sc, h.mat, uniform4(x.pix, x.smp, 0u,
+                                               P_BLEND_NORMAL, x.seed))
               : h.mat;
       s_normal = normal_mapped(sc, h, eff_n);
     }
@@ -169,17 +211,58 @@ __device__ __forceinline__ void first_lane(const First& a, const Scene& sc,
   }
 }
 
-// FH: with a.stage_floats > 0 the block stages the small tables in shared
-// memory first (stage_small, as S1 does); then each thread shades its lane.
+// FH on a persistent grid (first_grid): with a.stage_floats > 0 each block
+// stages the small tables in shared memory once (stage_small, as S1 does);
+// then each thread walks its lanes a grid's threads apart, loading the
+// next lane's inputs while it shades this one.
 __global__ void __launch_bounds__(kFirstThreads)
     first_hit_shade(const First a) {
   extern __shared__ __align__(16) float4 staged[];
   Scene sc = a.sc;
   if (a.stage_floats > 0)
     stage_small(&sc, a.small, a.stage_floats, staged, kFirstThreads);
-  const long long i = static_cast<long long>(blockIdx.x) * kFirstThreads +
-                      threadIdx.x;
-  if (i < a.n) first_lane(a, sc, i);
+  const long long step = static_cast<long long>(gridDim.x) * kFirstThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kFirstThreads +
+                threadIdx.x;
+  In x = load_in(a, i, lane_t(a, i));
+  for (; i < a.n; i += step) {
+    In next;
+    first_lane(a, sc, x, i, i + step, lane_t(a, i + step), &next);
+    x = next;
+  }
+}
+
+// FH's persistent grid on the current device: the blocks that stay
+// resident on one SM with FH's most shared memory (kMaxStageBytes of
+// staged tables; queried once a device, at its first launch), times the
+// SMs, but no more blocks than the lanes fill. Also gives the blocks a SM
+// and the SMs (per_sm, sms; either may be null).
+cudaError_t first_grid(long long n, unsigned int* blocks, int* per_sm,
+                       int* sms) {
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices][2] = {};   // {0, 0}: not queried yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int* r = resident[dev];
+  if (r[0] == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &r[0], first_hit_shade, kFirstThreads, kMaxStageBytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&r[1], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) {
+      r[0] = 0;
+      return err;
+    }
+  }
+  const long long fill = (n + kFirstThreads - 1) / kFirstThreads;
+  const long long most = static_cast<long long>(r[0]) * r[1];
+  *blocks = static_cast<unsigned int>(fill < most ? fill : most);
+  if (per_sm != nullptr) *per_sm = r[0];
+  if (sms != nullptr) *sms = r[1];
+  return cudaSuccess;
 }
 
 hit::Counter counter_at(const void* p, const long long* v) {
@@ -273,10 +356,22 @@ extern "C" int first_hit_launch(const void* const* p, const long long* v,
     a.normal = static_cast<float*>(const_cast<void*>(p[FHP_NORMAL]));
     a.shader = static_cast<int>(v[FHV_SHADER]);
     a.n = n;
-    const int smem = a.stage_floats * static_cast<int>(sizeof(float));
-    const long long blocks = (n + kFirstThreads - 1) / kFirstThreads;
-    first_hit_shade<<<static_cast<unsigned int>(blocks), kFirstThreads, smem,
+    const int stage = a.stage_floats * static_cast<int>(sizeof(float));
+    if (stage > kMaxStageBytes) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned int blocks = 0;
+    const cudaError_t err = first_grid(n, &blocks, nullptr, nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    first_hit_shade<<<blocks, kFirstThreads, stage,
                       static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// FH's grid for n lanes on the current device: out = {blocks, blocks a
+// SM, SMs} (the first call queries the device)
+extern "C" int first_hit_grid(long long n, int* out) {
+  unsigned int blocks = 0;
+  const cudaError_t err = first_grid(n, &blocks, &out[1], &out[2]);
+  out[0] = static_cast<int>(blocks);
+  return static_cast<int>(err);
 }

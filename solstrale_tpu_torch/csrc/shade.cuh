@@ -466,29 +466,39 @@ __device__ __forceinline__ V3 normal_mapped(const Scene& sc, const Attrs& h,
   return onb_local(h.tangent, h.bitangent, h.normal, tn);
 }
 
-// A lane's hit as the scene-hit kernels give it: (kind, idx) and the
-// planar attribute row it names, clamped to the table. Without a kind array
-// (kind_in null, a BVH scene without spheres or media), idx_in holds K1's
-// planar slot, mapped to its row through the (P,) ``pl_row`` in one gather.
-__device__ __forceinline__ void decode_hit(const int* kind_in,
-                                           const int* idx_in,
-                                           const int* __restrict__ pl_row,
-                                           int n_q, int n_pl, long long i,
-                                           int* kind, int* idx, int* slot) {
-  if (kind_in != nullptr) {
-    *kind = kind_in[i];
-    *idx = idx_in[i];
+// A lane's hit as the scene-hit kernels give it, from its values: (kind,
+// idx) and the planar attribute row it names, clamped to the table. Without
+// a kind (has_kind false, a BVH scene without spheres or media), idx_in is
+// K1's planar slot, mapped to its row through the (P,) ``pl_row`` in one
+// gather.
+__device__ __forceinline__ void decode_hit_values(
+    bool has_kind, int kind_in, int idx_in, const int* __restrict__ pl_row,
+    int n_q, int n_pl, int* kind, int* idx, int* slot) {
+  if (has_kind) {
+    *kind = kind_in;
+    *idx = idx_in;
     int s = *kind == KIND_TRIANGLE ? n_q + *idx : *idx;
     s = s < 0 ? 0 : s;
     *slot = s > n_pl - 1 ? n_pl - 1 : s;
   } else {
-    int ps = idx_in[i];
+    int ps = idx_in;
     ps = ps < 0 ? 0 : ps;
     ps = ps > n_pl - 1 ? n_pl - 1 : ps;
     *kind = KIND_QUAD;   // planar: quad or triangle, the row says which
     *idx = 0;
     *slot = pl_row[ps];
   }
+}
+
+// decode_hit_values of lane i of the scene-hit kernels' arrays (kind_in
+// null: idx_in holds K1's planar slot)
+__device__ __forceinline__ void decode_hit(const int* kind_in,
+                                           const int* idx_in,
+                                           const int* __restrict__ pl_row,
+                                           int n_q, int n_pl, long long i,
+                                           int* kind, int* idx, int* slot) {
+  decode_hit_values(kind_in != nullptr, kind_in != nullptr ? kind_in[i] : 0,
+                    idx_in[i], pl_row, n_q, n_pl, kind, idx, slot);
 }
 
 // full_hit_attributes of one lane at ``point``: on a medium hit the

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "step_shade_backward_launch": [_P, _P, _P],
     "camera_rays_launch": [_P, _P, _P],
     "first_hit_launch": [_P, _P, _P],
+    # FH's grid for n lanes: out = {blocks, blocks a SM, SMs}
+    "first_hit_grid": [_L, _P],
 }
 
 

@@ -15,8 +15,9 @@ torch ops, a draw-kernel launch for each draw, over every pixel:
 - ``first_hit_shade`` (FH): from the scene hit at depth 0 (``t``, ``kind``,
   ``idx`` as ``integrator.step_hit`` gives them), the debug shader's color
   and the aux albedo and normal planes, each written only where asked for,
-  in one launch. Plain version: ``integrator.first_hit_plain`` (the torch
-  compositions ``first_hit_aux_plain`` and ``shade_*_plain``).
+  in one launch, on a persistent grid (``first_hit_grid``). Plain version:
+  ``integrator.first_hit_plain`` (the torch compositions
+  ``first_hit_aux_plain`` and ``shade_*_plain``).
 
 Each wrapper picks by the device of its tensors only: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise. Both launch on the
@@ -29,6 +30,8 @@ pointers and one of int64 values, indexed by the names below, which
 ``csrc/first_hit.cu``'s enums list in the same order.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -49,6 +52,8 @@ FIRST_INTS = (("n", "flags", "shader", "n_sph", "n_pl", "n_q", "n_mat",
                       for k in _COUNTER))
 # the debug shaders FH writes into its color plane (integrator.SHADER_*)
 SHADERS = (1, 2, 3)
+# FH's threads a block (csrc/first_hit.cu's kFirstThreads)
+THREADS = 256
 
 
 def camera_rays(cs, pixel, sample, seed, width, height):
@@ -137,6 +142,17 @@ def first_hit_shade(cs, t, kind, idx, o, d, pixel, sample, seed,
 
 
 first_hit_shade.launches = 0
+
+
+def first_hit_grid(n):
+    """FH's persistent grid for ``n`` lanes on the current CUDA device, as
+    its launch computes it (the device's occupancy query, made once, at the
+    first call or launch): a dict of ``blocks``, ``per_sm`` (the blocks
+    that stay resident on one SM) and ``sms``. A wave of the grid is
+    ``blocks * THREADS`` lanes."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().first_hit_grid(n, out), "first_hit_grid")
+    return dict(blocks=out[0], per_sm=out[1], sms=out[2])
 
 
 def first_hit_kernel(fn, cs, t, kind, idx, o, d, pixel, sample, seed,

@@ -57,7 +57,14 @@ into a sums buffer made once, so the device runs the kernel alone) with
 its bound (``s1b_work``), without the arena's and background's sums (the
 fold's gradients alone), on the same record with every lane reading
 texel row 0 (a solid colour), and how its arena adds meet
-(``s1b_rows``); and ptxas' lines for the step kernels.
+(``s1b_rows``); the first hit's kernels, FH and CR, at the whole-image
+widths of ``FIRST_IMAGES`` (106,400 lanes of a 400x266 image, 2,073,600 of
+a 1920x1080 one: every pixel id once, an int sample, the scene's camera),
+set up and timed by ``first_hit_times``: CR, FH with the aux planes and
+FH with each debug shader alone, each by ``device_ms`` beside its bound
+(``cr_work``, ``fh_work``); and ptxas' lines for the step kernels, FH and
+CR. The first hit's kernel cells (``first_hit_<scene>``, the same scenes)
+run FH's and CR's part alone, with their ptxas lines.
 
 The first hit's cells (``aux_interior``: the untextured interior at
 1920x1080, the main path's denoised render, K1; ``aux_kitchen``: the
@@ -109,13 +116,18 @@ KERNEL_SCENES = {"sponza": "interior", "sponza_textured": "sponza",
                  "many_lights": "many_lights", "mixed": "step_mixed",
                  "kitchen": "kitchen_k4"}
 KERNEL_WIDTHS = (16384, 106400, 131072, 2073600)
+# the first hit's images in the step kernels' and the first hit's kernel
+# cells (first_hit_times), and its kernels' entry names
+FIRST_IMAGES = ((400, 266), (1920, 1080))
+FIRST_KERNELS = ("first_hit_shade", "camera_rays")
 # the first hit's cells: each one's scene, as the workload of that name
 # builds it, at 1920x1080
 AUX = {"aux_interior": "interior", "aux_kitchen": "kitchen_1080p"}
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
              "kitchen_sink", "megakernel", "step_kitchen",
              "step_kitchen_tex1024", "step_mixed",
-             *(f"kernels_{x}" for x in KERNEL_SCENES), *AUX)
+             *(f"kernels_{x}" for x in KERNEL_SCENES),
+             *(f"first_hit_{x}" for x in KERNEL_SCENES), *AUX)
 # the inverse step's cells: (width, height) of each
 STEPS = {"step_kitchen": (400, 266), "step_kitchen_tex1024": (400, 266),
          "step_mixed": (1920, 1080)}
@@ -131,6 +143,16 @@ HBM_BPS = 3.35e12
 # times m, albedo m, g_p times it, g_A's three sums less one, g_B's sum),
 # and the albedo gradient's sum 1; the background's sum 3 a lane
 S1B_LANE = 3 * 18 + 3
+# FH's f32 operations (csrc/first_hit.cu::first_lane): a hit lane's point
+# and attributes 24 (chip_smoke.py's K5_HIT: the same device code), a blend
+# walk 3 (K5_BLEND), a normal map's tangent-space normal 6 and its frame 15,
+# the simple shader's factor 5 and product 3; CR's camera ray a lane 46
+# (chip_smoke.py's S2_REGEN, the same camera_ray)
+FH_HIT = 24
+FH_BLEND = 3
+FH_NORMAL_MAP = 21
+FH_SIMPLE = 8
+CR_LANE = 46
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -139,8 +161,9 @@ def _workload(name):
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import bench, fixtures
 
-    if name.startswith("kernels_"):
-        name = KERNEL_SCENES[name.removeprefix("kernels_")]
+    for cell in ("kernels_", "first_hit_"):
+        if name.startswith(cell):
+            name = KERNEL_SCENES[name.removeprefix(cell)]
     name = AUX.get(name, name)
     if name == "kitchen_k4":
         w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
@@ -603,6 +626,154 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def lane_bytes(x):
+    """The bytes a lane reads of a draw counter: its element where it is a
+    lane array, none where it is one value."""
+    import torch
+
+    return (x.element_size() if isinstance(x, torch.Tensor) and x.numel() > 1
+            else 0)
+
+
+def fh_work(cs, o, d, hit, pix, sample, planes, shader=None, grain=12):
+    """FH's bytes and f32 operations on one call's hit (t, kind, idx as FH
+    takes them: no kind where idx is K1's planar slot), as
+    ``csrc/first_hit.cu::first_lane`` loads them. Bytes: per lane t and
+    each (R, 3) plane written; per hit lane idx (and kind where given), the
+    ray, the pixel id (and the sample where it is a lane array); per
+    distinct row the hit lanes read, the attribute rows (a planar row 112
+    B, with its ``pl_row`` entry on K1's slot; a sphere row 32), the albedo
+    texels where the albedo is read (the albedo plane, or a color but the
+    normal shader's) and, on a scene with normal maps where a normal is
+    read (the normal plane, or the normal or simple shader's color), the
+    normal map's texels (12 B each; with ``grain`` 32, each distinct
+    32-byte sector of the texel arena those texels lie in, 32 B: what the
+    card's memory moves for them at the least); the small tables, read
+    once a block, not counted. Operations: every hit lane FH_HIT, FH_BLEND
+    a blend walk on a scene with blends (the albedo's, the normal map's), a
+    mapped normal FH_NORMAL_MAP, the simple shader FH_SIMPLE."""
+    import torch
+    from solstrale_tpu_torch.ops import rng, step
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
+                                                   KIND_TRIANGLE)
+
+    tab = step.step_tables(cs)
+    t, kind, idx = hit
+    r = t.shape[0]
+    live = torch.isfinite(t)
+    hits = int(live.sum())
+    n_pl = tab.pln.shape[0]
+    if kind is None:
+        rows = int(torch.unique(idx[live].clamp(0, max(n_pl - 1, 0)))
+                   .numel()) * (112 + 4)
+    else:
+        sph = live & (kind == KIND_SPHERE) & bool(tab.flags
+                                                  & step.FLAG_SPHERES)
+        pl = live & ~sph & ~((kind == KIND_MEDIUM)
+                             & (tab.med_mat.shape[0] > 0))
+        slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
+        rows = (int(torch.unique(slot[pl].clamp(0, max(n_pl - 1, 0)))
+                    .numel()) * 112
+                + int(torch.unique(idx[sph]).numel()) * 32)
+    want_alb = planes["albedo"] or shader in (integrator.SHADER_ALBEDO,
+                                              integrator.SHADER_SIMPLE)
+    want_n = planes["normal"] or shader in (integrator.SHADER_NORMAL,
+                                            integrator.SHADER_SIMPLE)
+    maps = want_n and bool(tab.flags & step.FLAG_NORMAL_MAPS)
+    _, attrs, samp, bounce = integrator._first_hit(cs, o, d, pix, sample, 1,
+                                                   hit)
+    mats = cs.materials
+    texel_bytes = mapped = 0
+
+    def read(rows):
+        return int(torch.unique(rows * 12 // grain).numel()) * grain
+
+    if want_alb:
+        eff = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
+            pix, samp, bounce, rng.P_BLEND_SCATTER, 1), cs.features)
+        texel_bytes += read(integrator.texel_index(
+            cs.textures, integrator.mat_row(mats, eff)["albedo_tex"],
+            attrs["uv"])[live])
+    if maps:
+        eff_n = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
+            pix, samp, bounce, rng.P_BLEND_NORMAL, 1), cs.features)
+        ntex = integrator.mat_row(mats, eff_n)["normal_tex"]
+        on = live & (ntex >= 0)
+        mapped = int(on.sum())
+        texel_bytes += read(integrator.texel_index(cs.textures, ntex,
+                                                   attrs["uv"])[on])
+    n_planes = sum(bool(v) for v in planes.values()) + (shader is not None)
+    lane = 4 + 12 * n_planes
+    hit_lane = (4 * (1 if kind is None else 2) + 24 + pix.element_size()
+                + lane_bytes(sample))
+    walks = (int(want_alb) + int(maps)) * bool(tab.flags & step.FLAG_BLEND)
+    flops = (hits * (FH_HIT + FH_BLEND * walks) + mapped * FH_NORMAL_MAP
+             + (hits * FH_SIMPLE if shader == integrator.SHADER_SIMPLE
+                else 0))
+    return r * lane + hits * hit_lane + rows + texel_bytes, flops
+
+
+def cr_work(cs, pix, sample):
+    """CR's bytes and f32 operations: per lane the pixel id read (and the
+    sample where it is a lane array) and the ray written, the camera row
+    once; the camera ray (CR_LANE) a lane."""
+    from solstrale_tpu_torch.ops import step
+
+    r = pix.shape[0]
+    lane = pix.element_size() + 24 + lane_bytes(sample)
+    cam = step.step_tables(cs).cam
+    return r * lane + cam.numel() * cam.element_size(), r * CR_LANE
+
+
+def first_hit_times(cs):
+    """FH's and CR's device ms in a step kernels' cell: at each image of
+    ``FIRST_IMAGES`` (every pixel id once, sample 1, seed ``SEED``, the
+    scene's camera), CR, and FH on CR's rays and their depth-0 hit
+    (``integrator.step_hit``, as ``first_hit_planes`` takes it) with the
+    aux planes (the denoiser's form) and with each debug shader alone, each
+    beside its bound (``cr_work``, ``fh_work``) and FH's also beside the
+    bound that counts each texel read as the 32-byte sectors it lies in
+    (``fh_work``'s ``grain``). Keys by lane count."""
+    import torch
+    from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.renderer import integrator
+
+    out = {}
+    for w, h in FIRST_IMAGES:
+        pix = torch.arange(w * h, device="cuda")
+        o, d = first_hit.camera_rays(cs, pix, 1, SEED, w, h)
+        samp, bounce = integrator._depth0(pix, 1)
+        hit = integrator.step_hit(cs, o, d, pix, samp, bounce, SEED)
+        line = dict(cr_ms=device_ms(lambda: first_hit.camera_rays(
+            cs, pix, 1, SEED, w, h)),
+            cr_bound_ms=bound_ms(*cr_work(cs, pix, 1))[0],
+            hit_lanes=int(torch.isfinite(hit[0]).sum()))
+        none = dict(albedo=False, normal=False)
+        for name, shader, planes in (
+                ("aux", None, dict(albedo=True, normal=True)),
+                ("albedo", integrator.SHADER_ALBEDO, none),
+                ("normal", integrator.SHADER_NORMAL, none),
+                ("simple", integrator.SHADER_SIMPLE, none)):
+            line[f"fh_{name}_ms"] = device_ms(
+                lambda k=shader, p=planes: first_hit.first_hit_shade(
+                    cs, *hit, o, d, pix, 1, SEED, k, **p))
+            for key, grain in (("bound", 12), ("sector_bound", 32)):
+                line[f"fh_{name}_{key}_ms"] = bound_ms(*fh_work(
+                    cs, o, d, hit, pix, 1, planes, shader, grain))[0]
+        out[str(w * h)] = line
+    return out
+
+
+def build_log():
+    """The compiler's report of the kernel library in use: this process's
+    build's, or the one written beside the library when it was built."""
+    from solstrale_tpu_torch.ops import _build
+
+    log = _build.library_path().with_suffix(".log")
+    return _build.BuildInfo.log or (log.read_text() if log.exists() else "")
+
+
 def ptxas_lines(log, names=("step_",)):
     """ptxas' lines for the kernels in a build log whose entry names hold
     one of ``names`` (default: the step kernels): each entry's name, then
@@ -619,10 +790,15 @@ def ptxas_lines(log, names=("step_",)):
     return out
 
 
+def measure_first_hit(cs):
+    """The line of a first hit's kernel cell: FH and CR alone
+    (``first_hit_times``) and their ptxas lines."""
+    return dict(first_hit=first_hit_times(cs),
+                ptxas=ptxas_lines(build_log(), FIRST_KERNELS))
+
+
 def measure_kernels(cs, w, h, spp):
     """The line of a step kernels' cell (see the module docstring)."""
-    from solstrale_tpu_torch.ops import _build
-
     out = {}
     for lanes in KERNEL_WIDTHS:
         calls = step_kernel_calls(cs, w, h, spp, lanes)
@@ -642,8 +818,8 @@ def measure_kernels(cs, w, h, spp):
                     s1b_bound_ms=bound, s1b_bound_by=by, s1b_bytes=nbytes,
                     s1b_rows=s1b_rows(b["rec"]))
         out[str(lanes)] = line
-    return dict(widths=out,
-                ptxas=ptxas_lines(_build.BuildInfo.log))
+    return dict(widths=out, first_hit=first_hit_times(cs),
+                ptxas=ptxas_lines(build_log(), ("step_",) + FIRST_KERNELS))
 
 
 def _device():
@@ -681,10 +857,12 @@ def worker(root, steps, side, workloads=WORKLOADS):
         t0 = time.perf_counter()
         cs = compile_scene(scene, device="cuda")
         compile_s = time.perf_counter() - t0
-        if name in STEPS or name in AUX or name.startswith("kernels_"):
+        if name in STEPS or name in AUX or name.startswith(("kernels_",
+                                                             "first_hit_")):
             line = (measure_step(cs, w, h) if name in STEPS else
                     measure_aux(cs, w, h) if name in AUX else
-                    measure_kernels(cs, w, h, spp))
+                    measure_first_hit(cs) if name.startswith("first_hit_")
+                    else measure_kernels(cs, w, h, spp))
             print(json.dumps(dict(side=side, workload=name, width=w,
                                   height=h, max_depth=DEPTH,
                                   compile_s=compile_s, gpu=gpu, **line)),

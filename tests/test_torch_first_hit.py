@@ -23,6 +23,7 @@ from solstrale_tpu.renderer import integrator as JI
 from solstrale_tpu.scene.compile import compile_scene as jcompile
 from solstrale_tpu_torch import fixtures
 from solstrale_tpu_torch.ops import first_hit as FH
+from solstrale_tpu_torch.ops import step as TS
 from solstrale_tpu_torch.renderer import integrator as TI
 from solstrale_tpu_torch.scene.compile import compile_scene as tcompile
 
@@ -297,6 +298,19 @@ def test_first_hit_argument_names(enum, prefix, names, groups):
         assert names[value] == want, key
     if enum == "FirstPtr":
         assert values["FHP_PIXEL"] - values["FHP_RAY"] == len(FH.RAY)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kFirstThreads", FH.THREADS),
+    ("kMaxStageBytes", TS.STAGE_MAX_BYTES)])
+def test_first_hit_constants_match_the_wrapper(name, value):
+    """FH's block size (the wave ``first_hit_grid`` counts in) and the
+    largest staging its persistent grid is sized for, as
+    csrc/first_hit.cu states them, are the wrapper's: ``THREADS`` and
+    ``ops.step.STAGE_MAX_BYTES``, the most ``stage_floats`` hands it."""
+    src = (Path(FH.__file__).parent.parent / "csrc" /
+           "first_hit.cu").read_text()
+    assert f"constexpr int {name} = {value};" in src
 
 
 def test_shader_kinds_match_the_kernel():

@@ -1013,6 +1013,35 @@ def test_first_hit_kernels_match_plain(cuda, name):
         assert _first_hit_against_plain(cs, pix, sample, pw, ph) > 0
 
 
+@pytest.mark.parametrize("name", ["sponza_textured", "kitchen"])
+@pytest.mark.parametrize("lanes", ["1", "255", "257", "wave+1"])
+def test_first_hit_ragged_lanes_match_plain(cuda, name, lanes):
+    """FH's persistent loop at its edges: CR and FH against their plain
+    versions bit for bit (``_first_hit_against_plain``: every shader and
+    plane combination) on 1 lane, 255 and 257 (a block's threads less and
+    more one, so the last warp is ragged) and one more than a full wave of
+    FH's persistent grid (``first_hit_grid``: its blocks times 256 lanes,
+    so one warp walks a second time with one lane); pixel ids of a 1080p
+    camera from a seeded shuffle, a sample a lane on odd counts, an int on
+    even ones; on K1's planar slots (the textured sponza) and on K4's
+    (kind, idx) (the normal-mapped kitchen)."""
+    from solstrale_tpu_torch.ops import first_hit
+
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=128,
+                                                        height=64)),
+                       device=cuda)
+    grid = first_hit.first_hit_grid(1 << 30)
+    assert grid["blocks"] == grid["per_sm"] * grid["sms"] > 0
+    n = (grid["blocks"] * first_hit.THREADS + 1 if lanes == "wave+1"
+         else int(lanes))
+    assert first_hit.first_hit_grid(n)["blocks"] == min(
+        grid["blocks"], -(-n // first_hit.THREADS))
+    g = torch.Generator().manual_seed(n)
+    pix = torch.randperm(1920 * 1080, generator=g)[:n].to(cuda)
+    sample = torch.full_like(pix, 3) if n % 2 else 2
+    _first_hit_against_plain(cs, pix, sample, 1920, 1080)
+
+
 def test_first_hit_routes_launch_cr_and_fh(cuda):
     """On the card the first hit's routes launch CR and FH and never the
     draw kernel: render_pixels with a debug shader and the aux planes one
