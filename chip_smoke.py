@@ -77,6 +77,27 @@ script exits non-zero):
      wrapper and plain time against its byte bound, ptxas' registers and
      spills of both, and S1 still at 64 registers or fewer without
      spills;
+  2e. the first hit's backward kernels (``csrc/first_hit.cu``): FHB
+     (``ops.first_hit.first_hit_backward``, the planes' gradients to the
+     arena, the background, the rays and the frame columns of sph_attr and
+     pl_attr) and CRB (``camera_rays_backward``, the rays' gradients to the
+     camera's seven tensors) against their plain versions
+     (``first_hit_backward_plain``, ``camera_rays_backward_plain``) at
+     phase 2d's widths on its six scenes, on CR's rays and their depth-0
+     hit (K1's planar slots and (kind, idx)), every shader kind and plane
+     combination, upstream gradients from a seed: the rays' gradients bit
+     for bit, every sum within 1e-5 of the magnitudes summed into each
+     entry, and 1e-7; each kernel's device, wrapper and plain time against
+     its byte bound and the copy floor, FH's time on the same planes
+     beside FHB's, ptxas' lines of both; then the route at full width:
+     ``torch.autograd.grad`` of a seeded loss over ``render_pixels`` at
+     1920x1080 with the simple shader and the aux planes on the interior
+     and the textured sponza, the arena, the background, the camera, and
+     sph_attr and pl_attr requiring grad: CR, FH, CRB and FHB one launch
+     each, no draw kernel and no S1, against autograd through
+     ``camera_rays_plain`` and ``first_hit_plain`` on the card (the same
+     planes bit for bit, the gradients within 1e-5 of the magnitudes),
+     its forward and forward + backward ms;
   3. main path at full size: ``ray_trace`` on the 262,088-triangle interior
      at 1920x1080 (untextured, then with spheres,
      a medium and textures), launch counts read around both renders, and
@@ -142,7 +163,9 @@ script exits non-zero):
      gradient within rtol 1e-4, atol 1e-7 (atomic sums grouped otherwise),
      beside the peak memory, time and gradient
      (rtol 1e-5) of the step that keeps the whole tape (checkpoint
-     replaced by a plain call); then ``diff.image_and_texture_grad`` as it
+     replaced by a plain call), the first hit's backwards CRB and FHB
+     never launched, the step's dispatched ops and kernel launches, forward
+     and backward, as before them (``STEP_DEVICE_WORK``); then ``diff.image_and_texture_grad`` as it
      runs on the card (one captured CUDA graph, replayed) beside the same
      step run op by op (``diff._GradStep.eager``): one capture, the
      replay equal to the eager step (loss rtol 1e-5, gradient rtol 1e-5,
@@ -184,12 +207,14 @@ script exits non-zero):
      new scenes at a small size on the card against the CPU, repeated bit
      for bit.
 The last lines are the card's name and power limit, the kernels' JSON
-summary (K1-K5, the draw kernel, S1, S2, S1B, CR and FH; the draw
-kernel's launches are those of the denoised render of phase 3d, 0: no
-route on the card launches it since CR and FH draw in registers; CR's and
-FH's those of phase 3d's denoised render and debug shaders, and CR's of
-phase 5's graphed steps too; S1B's those of phase 5's graphed steps, its
-``ms`` the kernel alone) and the result line.
+summary (K1-K5, the draw kernel, S1, S2, S1B, CR, FH, CRB and FHB; the
+draw kernel's launches are those of the denoised render of phase 3d, 0:
+no route on the card launches it since CR and FH draw in registers; CR's
+and FH's those of phase 3d's denoised render and debug shaders and of
+phase 2e's routes, and CR's of phase 5's graphed steps too; S1B's those
+of phase 5's graphed steps, its ``ms`` the kernel alone; CRB's and FHB's
+those of phase 2e's routes, their ``ms`` at 2,073,600 lanes on the
+interior, CRB's with the fill of its (19,) sums) and the result line.
 """
 import json
 import os
@@ -330,11 +355,14 @@ def launch_counts(wrappers):
 
 
 def all_wrappers():
-    """Each kernel's wrapper on the routes, by kernel name (K1-K5 and the
-    draw kernel)."""
+    """Each kernel's wrapper on the routes, by kernel name: the bench's
+    (K1-K5, the draw kernel, S1, S2, S1B, CR, FH) and the first hit's
+    backwards, CRB and FHB."""
     from solstrale_tpu_torch import bench
+    from solstrale_tpu_torch.ops import first_hit
 
-    return bench.kernel_wrappers()
+    return dict(bench.kernel_wrappers(), CRB=first_hit.camera_rays_backward,
+                FHB=first_hit.first_hit_backward)
 
 
 def wrapper_ms(fn, reps=5, warmup=2):
@@ -1345,6 +1373,20 @@ def phase_step(sponza_cs):
     return rows
 
 
+# the inverse step's device work in phase 5's step taken by hand, as
+# measured on the tree before the first hit's backward kernels existed
+# (the mixed scene at 1080p, the kitchen at 400x266, depth 50; an H100
+# 80GB HBM3 at 700.00 W): for the forward and the backward, the ops
+# dispatched that are not views (``wavefront_ab.dispatched_ops_mode``) and the
+# hand-written kernels' launches (every wrapper's count). Both are the
+# same in every run; a profiler trace's count of device ops is not (it
+# read 1,616 to 1,625 a mixed step on one tree), so phase 5 logs that
+# one and holds these. The trees before and with those kernels gave these
+# counts in two steps each, where the profiler read 1,652 and 1,349 device
+# ops in a process of their own
+STEP_DEVICE_WORK = {"mixed": dict(forward=(1526, 205), replay=(1914, 251)),
+                    "kitchen": dict(forward=(1220, 103), replay=(1614, 151))}
+
 # phase 2d's widths, by lanes: (width, height, the pixel ids' form) of a
 # whole 400x266 image (the inverse step's small width: every pixel id and
 # an int sample, render_pixels' form), the wide pool's (pixel ids of a
@@ -1511,6 +1553,319 @@ def phase_first_hit(sponza_cs):
     return rows
 
 
+def _fhb_calls(cs, o, d, hit, pix, sample):
+    """The arguments of FHB's calls on one hit: (shader, planes' upstream
+    gradients) for every debug shader and none and every combination of
+    the aux planes, each gradient (R, 3) from a seed, finite."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    r = pix.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(r)
+    g = {k: torch.randn((r, 3), generator=gen, device="cuda")
+         for k in ("color", "albedo", "normal")}
+    return [(shader, dict(color=g["color"] if shader else None,
+                          albedo=g["albedo"] if alb else None,
+                          normal=g["normal"] if nrm else None))
+            for shader in (None, *integrator._DEBUG_PLAIN)
+            for alb in (False, True) for nrm in (False, True)
+            if shader is not None or alb or nrm]
+
+
+def _fhb_run(fn, cs, o, d, hit, pix, sample, shader, planes, **kw):
+    """One FHB call (``fn``: the kernel's wrapper or a plain version) into
+    new sums: (the rays' gradients, (arena and background sums, sph_attr's,
+    pl_attr's))."""
+    import torch
+
+    texels = cs.textures.pixels
+    sums = torch.zeros((texels.shape[0] + 1, 3), device="cuda")
+    g_sph = torch.zeros_like(cs.solids.sph_attr)
+    g_pl = torch.zeros_like(cs.solids.pl_attr)
+    ray = fn(cs, *hit, o, d, pix, sample, 1, texels, planes, shader, sums,
+             g_sph=g_sph, g_pl=g_pl, **kw)
+    return ray, (sums, g_sph, g_pl)
+
+
+def _first_hit_grad_check(name, cs, o, d, hit, pix, sample, w, h):
+    """FHB (``ops.first_hit.first_hit_backward``) and CRB
+    (``camera_rays_backward``) against their plain versions on CR's rays
+    and their depth-0 hit: FHB with every debug shader and none and every
+    combination of the aux planes (``_fhb_calls``), one launch a call, the
+    rays' gradients bit for bit, the arena's, the background's, sph_attr's
+    and pl_attr's sums within 1e-5 of the magnitudes summed into each entry
+    (the plain version's ``magnitudes``), and 1e-7 (``_sums_close``), the
+    plain sums all finite; CRB likewise on seeded gradients of the rays.
+    Returns (the calls checked, the largest difference of a sum)."""
+    import torch
+    from solstrale_tpu_torch.ops import first_hit
+
+    checked, worst = 0, 0.0
+    for shader, planes in _fhb_calls(cs, o, d, hit, pix, sample):
+        before = first_hit.first_hit_backward.launches
+        k_ray, k_sums = _fhb_run(first_hit.first_hit_backward, cs, o, d, hit,
+                                 pix, sample, shader, planes)
+        if first_hit.first_hit_backward.launches != before + 1:
+            raise AssertionError(f"FHB ({name}): not one launch")
+        p_ray, p_sums = _fhb_run(first_hit.first_hit_backward_plain, cs, o,
+                                 d, hit, pix, sample, shader, planes)
+        _, m_sums = _fhb_run(first_hit.first_hit_backward_plain, cs, o, d,
+                             hit, pix, sample, shader, planes,
+                             magnitudes=True)
+        label = (f"FHB ({name}, {pix.shape[0]} lanes, shader {shader}, "
+                 f"planes {[k for k, v in planes.items() if v is not None]})")
+        bad = [k for k, a, b in zip(first_hit.RAY, k_ray, p_ray)
+               if not _same(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: the rays' gradients differ from "
+                                 f"the plain version's in {bad}")
+        for part, a, b, m in zip(("sums", "sph_attr", "pl_attr"), k_sums,
+                                 p_sums, m_sums):
+            if not bool(torch.isfinite(b).all()):
+                raise AssertionError(f"{label}: the plain {part} are not "
+                                     f"all finite")
+            _sums_close(f"{label} {part}", a, b, m)
+            if a.numel():
+                worst = max(worst, float((a - b).abs().max()))
+        checked += 1
+    gen = torch.Generator(device="cuda").manual_seed(pix.shape[0] + 1)
+    g_ray = torch.randn((6, pix.shape[0]), generator=gen, device="cuda")
+    before = first_hit.camera_rays_backward.launches
+    k_cam = first_hit.camera_rays_backward(cs, pix, sample, 1, w, h, g_ray)
+    if first_hit.camera_rays_backward.launches != before + 1:
+        raise AssertionError(f"CRB ({name}): not one launch")
+    p_cam = first_hit.camera_rays_backward_plain(cs, pix, sample, 1, w, h,
+                                                 g_ray)
+    m_cam = first_hit.camera_rays_backward_plain(cs, pix, sample, 1, w, h,
+                                                 g_ray, magnitudes=True)
+    for field, a, b, m in zip(first_hit.CAMERA_FIELDS, k_cam, p_cam, m_cam):
+        _sums_close(f"CRB ({name}, {pix.shape[0]} lanes) {field}", a, b, m)
+        worst = max(worst, float((a - b).abs().max()))
+    return checked + 1, worst, g_ray
+
+
+# the upstream gradients FHB is timed on, the route's form: the simple
+# shader's color and both aux planes (a debug view fitted with its aux
+# planes, every output's gradient wanted)
+ROUTE_PLANES = ("color", "albedo", "normal")
+
+
+def phase_first_hit_grad(sponza_cs):
+    """2e: the first hit's backward kernels (``csrc/first_hit.cu``): FHB
+    (``ops.first_hit.first_hit_backward``) and CRB
+    (``camera_rays_backward``) against their plain versions
+    (``_first_hit_grad_check``) at ``FIRST_WIDTHS`` on phase 2c's six
+    scenes, CR's rays and their depth-0 hit as in phase 2d (K1's planar
+    slots on the textured sponza, (kind, idx) elsewhere); each kernel's
+    device, wrapper and plain time (FHB in the route's form,
+    ``ROUTE_PLANES``, into sums made once) against its bound
+    (``wavefront_ab.fhb_work`` / ``crb_work``: the bytes of its own loads)
+    and the copy floor of as many bytes; FH's time on the same hit beside
+    it (the recompute's share); ptxas' lines of both. Returns the rows of
+    the kernels line: CRB's and FHB's on the interior at 2,073,600 lanes
+    (the denoised render's width, the route's)."""
+    import torch
+    from solstrale_tpu_torch import wavefront_ab
+    from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.renderer import integrator
+
+    start = time.perf_counter()
+    dev = torch.device("cuda")
+    out, rows, floors = {}, {}, {}
+    for name in STEP_SCENES:
+        cs = _wavefront_scene(name, sponza_cs)[0]
+        per = {}
+        for lanes, (w, h, form) in FIRST_WIDTHS.items():
+            if form == "image":
+                pix, sample = torch.arange(lanes, device=dev), 1
+            else:
+                pix, sample = integrator.queue_assignment(
+                    torch.arange(lanes, device=dev), w, h,
+                    torch.tensor(1, device=dev))
+            o, d = first_hit.camera_rays(cs, pix, sample, 1, w, h)
+            samp, bounce = integrator._depth0(pix, sample)
+            hit = integrator.step_hit(cs, o, d, pix, samp, bounce, 1)
+            checked, worst, g_ray = _first_hit_grad_check(
+                name, cs, o, d, hit, pix, sample, w, h)
+            shader, planes = _fhb_calls(cs, o, d, hit, pix, sample)[-1]
+            if shader != integrator.SHADER_SIMPLE or \
+                    any(planes[k] is None for k in ROUTE_PLANES):
+                raise AssertionError("2e: the route's FHB call is not the "
+                                     "last of _fhb_calls")
+            texels = cs.textures.pixels
+            sums = torch.zeros((texels.shape[0] + 1, 3), device=dev)
+            g_sph = torch.zeros_like(cs.solids.sph_attr)
+            g_pl = torch.zeros_like(cs.solids.pl_attr)
+
+            def fhb(fn=first_hit.first_hit_backward):
+                return fn(cs, *hit, o, d, pix, sample, 1, texels, planes,
+                          shader, sums, g_sph=g_sph, g_pl=g_pl)
+
+            def crb(fn=first_hit.camera_rays_backward):
+                return fn(cs, pix, sample, 1, w, h, g_ray)
+
+            fhb_bytes, fhb_ops = wavefront_ab.fhb_work(
+                cs, o, d, hit, pix, sample, dict(albedo=True, normal=True),
+                shader)
+            crb_bytes, crb_ops = wavefront_ab.crb_work(cs, pix, sample)
+            for nb in (fhb_bytes, crb_bytes):
+                if nb not in floors:
+                    floors[nb] = _copy_floor_ms(nb)
+            fhb_row = dict(max_abs_err=worst, **kernel_times(
+                fhb, lambda: fhb(first_hit.first_hit_backward_plain)),
+                **bound(fhb_bytes, fhb_ops), copy_floor_ms=floors[fhb_bytes])
+            crb_row = dict(max_abs_err=worst, **kernel_times(
+                crb, lambda: crb(first_hit.camera_rays_backward_plain)),
+                **bound(crb_bytes, crb_ops), copy_floor_ms=floors[crb_bytes])
+            fh_ms = device_ms(lambda: first_hit.first_hit_shade(
+                cs, *hit, o, d, pix, sample, 1, shader, True, True))
+            per[lanes] = dict(checked=checked,
+                              hit_lanes=int(torch.isfinite(hit[0]).sum()),
+                              FHB=fhb_row, CRB=crb_row,
+                              FH_same_planes_ms=fh_ms)
+            if name == "sponza" and lanes == 2073600:
+                rows = {"CRB": crb_row, "FHB": fhb_row}
+        out[name] = per
+    torch.cuda.synchronize()
+    log("first_hit_grad", widths=list(FIRST_WIDTHS),
+        ptxas=wavefront_ab.ptxas_lines(wavefront_ab.build_log(),
+                                       ("camera_rays_backward",
+                                        "first_hit_backward")),
+        seconds=time.perf_counter() - start, **out)
+    return rows
+
+
+def _route_leaves(cs):
+    """(``cs`` with its arena, background, the camera's seven tensors,
+    sph_attr and pl_attr each a new leaf that requires grad, the leaves by
+    name)."""
+    import dataclasses
+
+    from solstrale_tpu_torch.ops import first_hit
+
+    leaves = {k: getattr(cs.camera, k).detach().clone().requires_grad_(True)
+              for k in first_hit.CAMERA_FIELDS}
+    cam = dataclasses.replace(cs.camera, **leaves)
+    leaves.update(
+        arena=cs.textures.pixels.detach().clone().requires_grad_(True),
+        bg=cs.bg_color.detach().clone().requires_grad_(True),
+        sph_attr=cs.solids.sph_attr.detach().clone().requires_grad_(True),
+        pl_attr=cs.solids.pl_attr.detach().clone().requires_grad_(True))
+    out = dataclasses.replace(
+        cs, camera=cam,
+        textures=dataclasses.replace(cs.textures, pixels=leaves["arena"]),
+        bg_color=leaves["bg"],
+        solids=dataclasses.replace(cs.solids, sph_attr=leaves["sph_attr"],
+                                   pl_attr=leaves["pl_attr"]))
+    return out, leaves
+
+
+def phase_first_hit_route(sponza_cs):
+    """2e, the route at full width: ``torch.autograd.grad`` of a seeded
+    weighted sum of ``render_pixels(..., width=1920, height=1080,
+    shader_kind=SHADER_SIMPLE, need_aux=True)``'s three planes on the
+    interior (K1) and the textured sponza (K1, image textures, a normal
+    map), with the arena, the background, the camera's seven tensors,
+    sph_attr and pl_attr requiring grad: launches CR 1, FH 1, CRB 1, FHB 1,
+    draw 0, S1 0 (the counts set to 0 just before and read just after);
+    against the same loss through ``camera_rays_plain`` and
+    ``first_hit_plain`` on the card (autograd): the same planes bit for
+    bit, every gradient within 1e-5 of the magnitudes summed into each
+    entry (the plain backwards' ``magnitudes`` on the plain route's
+    upstream gradients), and 1e-7; the route's forward and forward +
+    backward ms (CUDA events, median of 3 after one warm-up). Returns the
+    launches of the two routes."""
+    import torch
+    from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.renderer import integrator
+
+    start = time.perf_counter()
+    wrappers = all_wrappers()
+    w, h = 1920, 1080
+    pix = torch.arange(w * h, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ws = [torch.randn((w * h, 3), generator=gen, device="cuda")
+          for _ in range(3)]
+    kw = dict(width=w, height=h, max_depth=50,
+              shader_kind=integrator.SHADER_SIMPLE, need_aux=True)
+    total = dict.fromkeys(wrappers, 0)
+    out = {}
+    for name in ("sponza", "sponza_textured"):
+        cs = _wavefront_scene(name, sponza_cs)[0]
+        c, leaves = _route_leaves(cs)
+
+        def route():
+            planes = integrator.render_pixels(c, pix, 1, 1, **kw)
+            loss = sum((x * g).sum() for x, g in zip(planes, ws))
+            return planes, torch.autograd.grad(loss, list(leaves.values()),
+                                               allow_unused=True)
+
+        reset_launches(wrappers)
+        planes, grads = route()
+        launches = launch_counts(wrappers)
+        want = dict(CR=1, FH=1, CRB=1, FHB=1, draw=0, S1=0, K5=0)
+        if any(launches[k] != n for k, n in want.items()) or \
+                launches["K1"] <= 0:
+            raise AssertionError(f"the first hit's route ({name}) launched "
+                                 f"{launches}, expected {want} and K1")
+        for k, n in launches.items():
+            total[k] += n
+        c2, leaves2 = _route_leaves(cs)
+        o, d = integrator.camera_rays_plain(c2, pix, 1, 1, w, h)
+        samp, bounce = integrator._depth0(pix, 1)
+        hit = integrator.step_hit(c2, o, d, pix, samp, bounce, 1)
+        ref = integrator.first_hit_plain(c2, o, d, *hit, pix, 1, 1,
+                                         integrator.SHADER_SIMPLE, True,
+                                         True)
+        ref = (ref["color"], ref["albedo"], ref["normal"])
+        if not all(_same(a, b) for a, b in zip(planes, ref)):
+            raise AssertionError(f"the first hit's route ({name}): its "
+                                 f"planes differ from the plain versions'")
+        loss2 = sum((x * g).sum() for x, g in zip(ref, ws))
+        want_g = torch.autograd.grad(loss2, list(leaves2.values()),
+                                     allow_unused=True)
+        # the magnitudes summed into each entry, from the plain backwards
+        with torch.no_grad():
+            od = [x.detach() for x in (*o, *d)]
+            n = cs.textures.pixels.shape[0]
+            m_sums = torch.zeros((n + 1, 3), device="cuda")
+            m_sph = torch.zeros_like(cs.solids.sph_attr)
+            m_pl = torch.zeros_like(cs.solids.pl_attr)
+            g_planes = dict(color=ws[0], albedo=ws[1], normal=ws[2])
+            g_ray = first_hit.first_hit_backward_plain(
+                cs, *hit, tuple(od[:3]), tuple(od[3:]), pix, 1, 1,
+                cs.textures.pixels, g_planes, integrator.SHADER_SIMPLE,
+                m_sums, g_sph=m_sph, g_pl=m_pl, magnitudes=True)
+            m_cam = first_hit.camera_rays_backward_plain(
+                cs, pix, 1, 1, w, h, torch.stack(g_ray), magnitudes=True)
+        mags = dict(zip(first_hit.CAMERA_FIELDS, m_cam),
+                    arena=m_sums[:-1], bg=m_sums[-1], sph_attr=m_sph,
+                    pl_attr=m_pl)
+        errs = {}
+        for k, a, b in zip(leaves, grads, want_g):
+            a = torch.zeros_like(leaves[k]) if a is None else a
+            b = torch.zeros_like(leaves[k]) if b is None else b
+            _sums_close(f"the first hit's route ({name}) {k}", a, b,
+                        mags[k])
+            errs[k] = float((a - b).abs().max()) if a.numel() else 0.0
+        nonzero = {k: bool((g != 0).any()) for k, g in zip(leaves, grads)
+                   if g is not None}
+        if not (nonzero["arena"] and nonzero["pl_attr"]):
+            raise AssertionError(f"the first hit's route ({name}): zero "
+                                 f"gradients {nonzero}")
+        fwd = [_event_ms(lambda: integrator.render_pixels(c, pix, 1, 1,
+                                                          **kw))
+               for _ in range(4)][1:]
+        both = [_event_ms(route) for _ in range(4)][1:]
+        out[name] = dict(launches=launches, grad_max_abs_err=errs,
+                         nonzero=nonzero, forward_ms=sorted(fwd)[1],
+                         forward_ms_all=fwd,
+                         forward_backward_ms=sorted(both)[1],
+                         forward_backward_ms_all=both)
+    log("first_hit_route", seconds=time.perf_counter() - start, **out)
+    return total
+
+
 def _graph_entries(cs):
     """The card driver's captures cached for the compiled scene ``cs``."""
     from solstrale_tpu_torch.renderer import integrator
@@ -1579,7 +1934,8 @@ def phase_graphs(sponza_cs):
             "iters"]
         want = {k: iters if k in per_step[name] else 0
                 for k in ("K1", "K2", "K3", "K4", "K5")}
-        want.update(draw=0, S1=iters, S2=iters + 1, S1B=0, CR=0, FH=0)
+        want.update(draw=0, S1=iters, S2=iters + 1, S1B=0, CR=0, FH=0,
+                    CRB=0, FHB=0)
         if graph["launches"] != want:
             raise AssertionError(f"graphs ({name}): launches "
                                  f"{graph['launches']}, want {want}")
@@ -2126,7 +2482,7 @@ def phase_small_scene():
     solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
         "launches"]
     if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0,
-                     S1B=0, CR=0, FH=0):
+                     S1B=0, CR=0, FH=0, CRB=0, FHB=0):
         raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
                              f"other kernel, got {solid}")
     if min(kitchen[k] for k in ("K4", "S1", "S2")) <= 0 or kitchen["K5"] or \
@@ -2935,26 +3291,32 @@ def phase_card_vs_cpu():
 def _grad_step(cs, target, w, h, depth, wrappers=None):
     """One inverse-rendering step (``diff.image_and_texture_grad``'s loss
     and arena gradient) taken by hand, so that the kernels' launches of the
-    forward and of the backward's replay are read apart, and the backward's
+    forward and of the backward's replay are read apart, the backward's
     zero fills and adds of the arena's size (``profiling.ArenaOps``) are
-    counted. Returns (loss, gradient, launches and arena ops)."""
+    counted, and so are the ops each part dispatches that are not views
+    (``wavefront_ab.dispatched_ops_mode``). Returns (loss, gradient,
+    launches, arena ops and dispatched ops)."""
     import torch
     from solstrale_tpu_torch import diff
     from solstrale_tpu_torch.profiling import ArenaOps
+    from solstrale_tpu_torch.wavefront_ab import dispatched_ops_mode
 
     p = cs.textures.pixels.detach().requires_grad_(True)
     counts = {}
     if wrappers:
         reset_launches(wrappers)
-    img = diff.render_linear(diff.set_texture_params(cs, p), width=w,
-                             height=h, max_depth=depth, n_samples=1, seed=1)
-    loss = torch.mean((img - target) ** 2)
+    with dispatched_ops_mode() as fwd:
+        img = diff.render_linear(diff.set_texture_params(cs, p), width=w,
+                                 height=h, max_depth=depth, n_samples=1,
+                                 seed=1)
+        loss = torch.mean((img - target) ** 2)
     if wrappers:
         counts["forward"] = launch_counts(wrappers)
         reset_launches(wrappers)
-    with ArenaOps(p.shape[0]) as ops:
+    with dispatched_ops_mode() as bwd, ArenaOps(p.shape[0]) as ops:
         g, = torch.autograd.grad(loss, p)
     counts["arena_ops"] = dict(fills=ops.fills, adds=ops.adds)
+    counts["dispatched_ops"] = dict(forward=fwd.n, replay=bwd.n)
     if wrappers:
         counts["replay"] = launch_counts(wrappers)
     return loss.detach(), g, counts
@@ -3181,8 +3543,10 @@ def phase_diff_parallel(sponza_cs, smi):
         # backward pass (the pass's sums, ops.step.GradSums) and added to
         # nothing else: no S1B call zeroes a gradient of its own, and
         # autograd adds none a bounce
-        want = {"forward": dict(S1=depth + 1, S1B=0, CR=1, draw=0),
-                "replay": dict(S1=depth, S1B=depth + 1, CR=0, draw=0),
+        want = {"forward": dict(S1=depth + 1, S1B=0, CR=1, draw=0, CRB=0,
+                                FHB=0),
+                "replay": dict(S1=depth, S1B=depth + 1, CR=0, draw=0, CRB=0,
+                               FHB=0),
                 "arena_ops": dict(fills=1, adds=0)}
         if any(counts[part][k] != n for part, ks in want.items()
                for k, n in ks.items()):
@@ -3207,6 +3571,15 @@ def phase_diff_parallel(sponza_cs, smi):
             cs, target, width=w, height=h, max_depth=depth, n_samples=1,
             seed=1))
         fills, adds = fills_and_adds(kernels)
+        # the first hit's backwards add nothing to the step: its dispatched
+        # ops and kernel launches, forward and backward, as before them
+        work = {part: (counts["dispatched_ops"][part],
+                       sum(counts[part].values()))
+                for part in ("forward", "replay")}
+        if work != STEP_DEVICE_WORK[name]:
+            raise AssertionError(f"{name}: the step's (dispatched ops, "
+                                 f"kernel launches) {work}, "
+                                 f"{STEP_DEVICE_WORK[name]} before")
         if not (bool(torch.isfinite(img).all())
                 and bool(torch.isfinite(g).all()) and bool((g != 0).any())):
             raise AssertionError(f"{name}: image or gradient not finite, "
@@ -3632,7 +4005,11 @@ def main():
     timings["draw"] = phase_draws()
     timings.update(phase_step(sponza_cs))
     timings.update(phase_first_hit(sponza_cs))
+    timings.update(phase_first_hit_grad(sponza_cs))
+    route_launches = phase_first_hit_route(sponza_cs)
     launches = phase_main_path()
+    for k, n in route_launches.items():
+        launches[k] += n
     for k, n in phase_small_scene().items():
         launches[k] += n
     phase_graphs(sponza_cs)
@@ -3670,16 +4047,21 @@ def main():
               "CR": ("solstrale_tpu_torch/csrc/first_hit.cu",
                      "solstrale_tpu/renderer/integrator.py:401"),
               "FH": ("solstrale_tpu_torch/csrc/first_hit.cu",
-                     "solstrale_tpu/renderer/integrator.py:515")}
+                     "solstrale_tpu/renderer/integrator.py:515"),
+              "CRB": ("solstrale_tpu_torch/csrc/first_hit.cu",
+                      "solstrale_tpu/renderer/integrator.py:401"),
+              "FHB": ("solstrale_tpu_torch/csrc/first_hit.cu",
+                      "solstrale_tpu/renderer/integrator.py:515")}
     names = {"K1": "k1_bvh", "K2": "k2_bvh_spheres", "K3": "k3_media",
              "K4": "k4_scene_hit", "K5": "k5_render",
              "draw": "rng_uniform4", "S1": "step_shade", "S2": "step_regen",
              "S1B": "step_shade_backward", "CR": "camera_rays",
-             "FH": "first_hit_shade"}
+             "FH": "first_hit_shade", "CRB": "camera_rays_backward",
+             "FHB": "first_hit_backward"}
     # no single PyTorch call computes any of these functions (the draw
     # kernel's counter hash included: torch has no PCG4D; nor the step's
     # shading or regeneration, nor their reverse, nor the camera rays' and
-    # the first hit's draws and lookups)
+    # the first hit's draws and lookups, nor their reverse)
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
                     library_ms=None, **timings[k]) for k in names]

@@ -4,8 +4,10 @@
 // vector helpers in geo/soa.py's association order, the samplers of
 // ops/rng.py, the material, texture and light-table lookups, the NEE light
 // pdf and light sample, the hit's attributes, blend walk and normal map
-// (S1 and the first-hit kernel FH, first_hit.cu), and the thin-lens camera
-// ray (K5, S2 and the camera-ray kernel CR, first_hit.cu).
+// (S1 and the first-hit kernels FH and FHB, first_hit.cu), the sums over a
+// warp's lanes that share a row (the backward kernels S1B and FHB), and the
+// thin-lens camera ray (K5, S2 and the camera-ray kernels CR and CRB,
+// first_hit.cu).
 //
 // Each formula follows its plain PyTorch version expression for expression;
 // compiled with -fmad=false (ops/_build.py) a kernel returns that version's
@@ -528,6 +530,32 @@ __device__ __forceinline__ Attrs hit_attrs(
     h = planar_attrs(pln, n_pl, point, d, slot);
   }
   return h;
+}
+
+// --- sums over a warp's lanes (S1B and FHB) ---------------------------------
+
+// v (K values) summed over each group of a warp's lanes that share
+// ``peers`` (__match_any_sync's mask), into the group's lowest lane, in
+// ceil(log2) of the largest group's size steps (a tree over the ranks
+// within the group; the other lanes end with partial sums). Every lane of
+// the warp calls it. At each step a lane still in play adds the value of
+// the next lane of its group still in play, and the lanes of odd rank
+// among those leave.
+template <int K>
+__device__ __forceinline__ void peer_sums(unsigned peers, float (&v)[K]) {
+  const unsigned lane = threadIdx.x % 32;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & ~((2u << lane) - 1u);  // lane 31: 2u << 31 = 0
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above) - 1;
+    const int src = next < 0 ? static_cast<int>(lane) : next;
+    for (int c = 0; c < K; ++c) {
+      const float t = __shfl_sync(0xffffffffu, v[c], src);
+      if (next >= 0) v[c] += t;
+    }
+    above &= __ballot_sync(0xffffffffu, (rank & 1u) == 0u);
+    rank >>= 1;
+  }
 }
 
 // integrator.camera_rays_plain for one pixel and sample (the pixel id an

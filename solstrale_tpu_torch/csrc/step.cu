@@ -373,29 +373,6 @@ __device__ __forceinline__ void min_grads(float x, float y, float g,
   *gy = x < y ? 0.0f : h;
 }
 
-// v summed over each group of a warp's lanes that share ``peers``
-// (__match_any_sync's mask), into the group's lowest lane, in ceil(log2)
-// of the largest group's size steps (a tree over the ranks within the
-// group; the other lanes end with partial sums). Every lane of the warp
-// calls it. At each step a lane still in play adds the value of the next
-// lane of its group still in play, and the lanes of odd rank among those
-// leave.
-__device__ __forceinline__ void peer_sums(unsigned peers, float v[3]) {
-  const unsigned lane = threadIdx.x % 32;
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & ~((2u << lane) - 1u);  // lane 31: 2u << 31 = 0
-  while (__any_sync(0xffffffffu, above != 0u)) {
-    const int next = __ffs(above) - 1;
-    const int src = next < 0 ? static_cast<int>(lane) : next;
-    for (int c = 0; c < 3; ++c) {
-      const float t = __shfl_sync(0xffffffffu, v[c], src);
-      if (next >= 0) v[c] += t;
-    }
-    above &= __ballot_sync(0xffffffffu, (rank & 1u) == 0u);
-    rank >>= 1;
-  }
-}
-
 // S1B's block table of texel-row sums in shared memory: kBackSlots rows
 // (open addressing, a multiplicative hash, kBackProbes probes); a row that
 // finds no slot is added to the pass's sums directly

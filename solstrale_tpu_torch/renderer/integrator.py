@@ -21,7 +21,11 @@ gate accepts skip the wavefront:
 and the first hit's shading for the debug shaders and the aux planes one
 more, FH (``ops/first_hit.py``); ``camera_rays_plain`` and
 ``first_hit_plain`` (built on ``first_hit_aux_plain`` and the
-``shade_*_plain`` shaders) are their plain versions.
+``shade_*_plain`` shaders) are their plain versions. Where a camera
+tensor, a ray or a scene table requires grad, CR and FH run as autograd
+Functions whose backwards are the kernels CRB and FHB (their plain
+versions on the CPU), so the debug shaders and the aux planes
+differentiate on both devices.
 
 The reference's nested ``clamp(<=3) + NaN->0`` ScatterPdf semantics
 (shader.rs:95-125) are folded forward with O(1) per-lane state using
@@ -180,9 +184,10 @@ def box_scale(cs: CompiledScene):
     ray origin and hit point. The media's boxes are padded by
     ``ops.sweep.MEDIUM_BOX_PAD`` of it."""
     coords = torch.cat([torch.cat(sweep.extent(s)) for s in
-                        [cs.solids] + [m.boundary for m in cs.media]])
+                        [cs.solids] + [m.boundary for m in cs.media]]).detach()
     cam = cs.camera
-    return max(1.0, float(cam.origin.abs().max() + cam.lens_radius),
+    return max(1.0, float(cam.origin.detach().abs().max()
+                          + cam.lens_radius.detach()),
                float(coords[coords.isfinite()].abs().max()))
 
 
@@ -570,8 +575,9 @@ def camera_rays_plain(cs, pixel, sample, seed, width, height):
 def camera_rays(cs: CompiledScene, pix, width, height, sample, seed):
     """Jittered thin-lens primary rays for an arbitrary batch of pixel ids
     (the JAX name and signature): CR (``ops.first_hit.camera_rays``; on the
-    CPU its plain version ``camera_rays_plain``). Returns (pix, o, d), o
-    and d component tuples."""
+    CPU its plain version ``camera_rays_plain``), differentiable in the
+    camera's tensors (CRB). Returns (pix, o, d), o and d component
+    tuples."""
     o, d = first_hit.camera_rays(cs, pix, sample, seed, width, height)
     return pix, o, d
 
@@ -763,7 +769,9 @@ def first_hit_planes(cs: CompiledScene, o, d, pix, sample, seed,
     """The first hit's planes from one scene hit (``step_hit`` at depth 0)
     and one FH launch (``ops.first_hit.first_hit_shade``; on the CPU their
     plain versions): the debug shader ``shader_kind``'s color (None: none)
-    and, with ``aux``, the albedo and normal planes. Returns FH's dict."""
+    and, with ``aux``, the albedo and normal planes. Returns FH's dict;
+    the planes differentiate in the arena, the background, the rays and
+    the frame columns of ``sph_attr`` and ``pl_attr`` (FHB)."""
     t, kind, idx = step_hit(cs, o, d, pix, *_depth0(pix, sample), seed)
     return first_hit.first_hit_shade(cs, t, kind, idx, o, d, pix, sample,
                                      seed, shader_kind, albedo=aux,
@@ -806,8 +814,9 @@ def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
     same values. Without ``need_aux`` albedo and normal are zero. The
     camera rays are CR; a debug shader writes its color, and with
     ``need_aux`` the aux planes, from one scene hit and one FH launch
-    (``first_hit_planes``). ``differentiable``: the path shader's route for
-    autograd (``trace``)."""
+    (``first_hit_planes``), which differentiate through CR's and FH's
+    autograd Functions (CRB, FHB). ``differentiable``: the path shader's
+    route for autograd (``trace``)."""
     _, o, d = camera_rays(cs, pix, width, height, sample, seed)
     if shader_kind != SHADER_PATH:
         planes = first_hit_planes(cs, o, d, pix, sample, seed, shader_kind,

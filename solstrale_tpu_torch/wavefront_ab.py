@@ -39,7 +39,9 @@ S1B), the host reads of a step (null on a tree without
 one step under ``torch.profiler`` (device ops, busy ms, idle; the fills
 and adds among the ops, the most frequent op names, and S1B's device
 microseconds by bounce, 0 to ``DEPTH``: the backward runs the bounces
-last to first).
+last to first), and the step taken by hand twice (``step_by_hand``: the
+ops it dispatches that are not views and its kernel launches, forward and
+backward, the same in every run).
 
 The step kernels' cells (``kernels_<scene>``, ``KERNEL_SCENES``: the
 262,088-triangle interior at 1920x1080, the bench's textured sponza,
@@ -153,6 +155,19 @@ FH_BLEND = 3
 FH_NORMAL_MAP = 21
 FH_SIMPLE = 8
 CR_LANE = 46
+# FHB's f32 operations beyond FH's (csrc/first_hit.cu::first_back_lane):
+# a hit lane's plane gradients summed 6; a mapped normal's reverse 27 (the
+# frame's 9 products, the map texel's three dot products and doublings); the
+# simple shader's factor 7, the texel's share 6, the normal's 9; a sphere
+# frame's reverse 88 (the two unit vectors recomputed 17, the cross
+# products' reverses 21, the unit vectors' reverses 45, the ray's 3, the
+# center's 2). CRB's a lane 61: u, v and the disc point 12 (the draws'
+# integer hash not counted), the six products' sums 45, lens_radius's 4
+FHB_LANE = 6
+FHB_NORMAL_MAP = 27
+FHB_SIMPLE = 22
+FHB_SPHERE = 88
+CRB_LANE = 61
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -305,12 +320,64 @@ def measure(cs, w, h, spp, profile=True):
     return line
 
 
+def dispatched_ops_mode():
+    """A ``TorchDispatchMode`` that counts in ``n`` the ops dispatched that
+    are not views (a view or an alias, ``OpOverload.is_view``, launches
+    nothing on the card). With the hand-written kernels' launches (their
+    wrappers' counts: no op dispatches them) it is a count of a step's
+    device work that is the same in every run, which a profiler trace's
+    count is not (a trace can lose events). Ops inside a CUDA graph replay
+    are not dispatched. Defined here, not in the package, so that it
+    counts on any tree this file runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class DispatchedOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    return DispatchedOps()
+
+
+def step_by_hand(cs, target, w, h, wrappers, seed=SEED):
+    """One inverse step taken by hand (``diff.render_linear`` with the arena
+    requiring grad, the mean squared error against ``target``, then
+    ``torch.autograd.grad`` to the arena), op by op on any tree: the
+    forward's and the backward's (ops dispatched that are not views,
+    kernel launches) by ``dispatched_ops_mode`` and the wrappers' counts,
+    and the loss and the gradient."""
+    import torch
+    from solstrale_tpu_torch import diff
+
+    p = cs.textures.pixels.detach().requires_grad_(True)
+    work = {}
+    before = {k: f.launches for k, f in wrappers.items()}
+    with dispatched_ops_mode() as fwd:
+        img = diff.render_linear(diff.set_texture_params(cs, p), width=w,
+                                 height=h, max_depth=DEPTH, n_samples=1,
+                                 seed=seed)
+        loss = torch.mean((img - target) ** 2)
+    mid = {k: f.launches for k, f in wrappers.items()}
+    with dispatched_ops_mode() as bwd:
+        g, = torch.autograd.grad(loss, p)
+    after = {k: f.launches for k, f in wrappers.items()}
+    work["forward"] = (fwd.n, sum(mid[k] - before[k] for k in wrappers))
+    work["backward"] = (bwd.n, sum(after[k] - mid[k] for k in wrappers))
+    return work, loss.detach(), g
+
+
 def measure_step(cs, w, h):
     """The line of an inverse-step cell: ``diff.image_and_texture_grad``
     against a target at seed 2 (on a tree with the graphed step, its first
     call captures), then ``RUNS`` calls timed by CUDA events, each's peak
     bytes above its start, the kernels' launches a call, the host reads of
-    one call, and one call under ``torch.profiler``."""
+    one call, one call under ``torch.profiler``, and the step taken by
+    hand twice (``step_by_hand``: its dispatched ops and launches, forward
+    and backward, each time)."""
     import torch
     from solstrale_tpu_torch import diff, profiling
 
@@ -369,6 +436,8 @@ def measure_step(cs, w, h):
                 pool_bytes=pool,
                 launches=dict(zip(wrappers, seen.pop())), host_reads=reads,
                 loss=float(loss), grad_abs_sum=float(g.double().abs().sum()),
+                step_by_hand=[step_by_hand(cs, target, w, h, wrappers)[0]
+                              for _ in range(2)],
                 **prof)
 
 
@@ -635,6 +704,57 @@ def lane_bytes(x):
             else 0)
 
 
+def _texel_rows(cs, o, d, hit, pix, sample, want_alb, want_n):
+    """The texel rows FH and FHB read on one call's hit: (the albedo
+    texels' rows of the hit lanes where ``want_alb``, else None; the
+    normal map's of the lanes it applies to where ``want_n`` on a scene
+    with normal maps, else None), (R',) int64 each."""
+    import torch
+    from solstrale_tpu_torch.ops import rng, step
+    from solstrale_tpu_torch.renderer import integrator
+
+    live = torch.isfinite(hit[0])
+    _, attrs, samp, bounce = integrator._first_hit(cs, o, d, pix, sample, 1,
+                                                   hit)
+    mats = cs.materials
+    alb = nrm = None
+    if want_alb:
+        eff = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
+            pix, samp, bounce, rng.P_BLEND_SCATTER, 1), cs.features)
+        alb = integrator.texel_index(
+            cs.textures, integrator.mat_row(mats, eff)["albedo_tex"],
+            attrs["uv"])[live]
+    if want_n and step.step_tables(cs).flags & step.FLAG_NORMAL_MAPS:
+        eff_n = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
+            pix, samp, bounce, rng.P_BLEND_NORMAL, 1), cs.features)
+        ntex = integrator.mat_row(mats, eff_n)["normal_tex"]
+        on = live & (ntex >= 0)
+        nrm = integrator.texel_index(cs.textures, ntex, attrs["uv"])[on]
+    return alb, nrm
+
+
+def _hit_rows(cs, hit):
+    """The attribute rows one call's hit lanes read: (distinct planar
+    slots, distinct sphere rows), each counted once."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+    from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
+                                                   KIND_TRIANGLE)
+
+    tab = step.step_tables(cs)
+    t, kind, idx = hit
+    live = torch.isfinite(t)
+    n_pl = tab.pln.shape[0]
+    if kind is None:
+        return int(torch.unique(idx[live].clamp(0, max(n_pl - 1, 0)))
+                   .numel()), 0
+    sph = live & (kind == KIND_SPHERE) & bool(tab.flags & step.FLAG_SPHERES)
+    pl = live & ~sph & ~((kind == KIND_MEDIUM) & (tab.med_mat.shape[0] > 0))
+    slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
+    return (int(torch.unique(slot[pl].clamp(0, max(n_pl - 1, 0))).numel()),
+            int(torch.unique(idx[sph]).numel()))
+
+
 def fh_work(cs, o, d, hit, pix, sample, planes, shader=None, grain=12):
     """FH's bytes and f32 operations on one call's hit (t, kind, idx as FH
     takes them: no kind where idx is K1's planar slot), as
@@ -653,65 +773,79 @@ def fh_work(cs, o, d, hit, pix, sample, planes, shader=None, grain=12):
     a blend walk on a scene with blends (the albedo's, the normal map's), a
     mapped normal FH_NORMAL_MAP, the simple shader FH_SIMPLE."""
     import torch
-    from solstrale_tpu_torch.ops import rng, step
+    from solstrale_tpu_torch.ops import step
     from solstrale_tpu_torch.renderer import integrator
-    from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
-                                                   KIND_TRIANGLE)
 
     tab = step.step_tables(cs)
-    t, kind, idx = hit
+    t, kind, _ = hit
     r = t.shape[0]
-    live = torch.isfinite(t)
-    hits = int(live.sum())
-    n_pl = tab.pln.shape[0]
-    if kind is None:
-        rows = int(torch.unique(idx[live].clamp(0, max(n_pl - 1, 0)))
-                   .numel()) * (112 + 4)
-    else:
-        sph = live & (kind == KIND_SPHERE) & bool(tab.flags
-                                                  & step.FLAG_SPHERES)
-        pl = live & ~sph & ~((kind == KIND_MEDIUM)
-                             & (tab.med_mat.shape[0] > 0))
-        slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
-        rows = (int(torch.unique(slot[pl].clamp(0, max(n_pl - 1, 0)))
-                    .numel()) * 112
-                + int(torch.unique(idx[sph]).numel()) * 32)
+    hits = int(torch.isfinite(t).sum())
+    n_pl_rows, n_sph_rows = _hit_rows(cs, hit)
+    rows = n_pl_rows * (112 + (4 if kind is None else 0)) + n_sph_rows * 32
     want_alb = planes["albedo"] or shader in (integrator.SHADER_ALBEDO,
                                               integrator.SHADER_SIMPLE)
     want_n = planes["normal"] or shader in (integrator.SHADER_NORMAL,
                                             integrator.SHADER_SIMPLE)
-    maps = want_n and bool(tab.flags & step.FLAG_NORMAL_MAPS)
-    _, attrs, samp, bounce = integrator._first_hit(cs, o, d, pix, sample, 1,
-                                                   hit)
-    mats = cs.materials
-    texel_bytes = mapped = 0
+    alb, nrm = _texel_rows(cs, o, d, hit, pix, sample, want_alb, want_n)
 
     def read(rows):
         return int(torch.unique(rows * 12 // grain).numel()) * grain
 
-    if want_alb:
-        eff = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
-            pix, samp, bounce, rng.P_BLEND_SCATTER, 1), cs.features)
-        texel_bytes += read(integrator.texel_index(
-            cs.textures, integrator.mat_row(mats, eff)["albedo_tex"],
-            attrs["uv"])[live])
-    if maps:
-        eff_n = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
-            pix, samp, bounce, rng.P_BLEND_NORMAL, 1), cs.features)
-        ntex = integrator.mat_row(mats, eff_n)["normal_tex"]
-        on = live & (ntex >= 0)
-        mapped = int(on.sum())
-        texel_bytes += read(integrator.texel_index(cs.textures, ntex,
-                                                   attrs["uv"])[on])
+    texel_bytes = sum(read(x) for x in (alb, nrm) if x is not None)
+    mapped = 0 if nrm is None else nrm.numel()
     n_planes = sum(bool(v) for v in planes.values()) + (shader is not None)
     lane = 4 + 12 * n_planes
     hit_lane = (4 * (1 if kind is None else 2) + 24 + pix.element_size()
                 + lane_bytes(sample))
-    walks = (int(want_alb) + int(maps)) * bool(tab.flags & step.FLAG_BLEND)
+    walks = ((int(want_alb) + int(nrm is not None))
+             * bool(tab.flags & step.FLAG_BLEND))
     flops = (hits * (FH_HIT + FH_BLEND * walks) + mapped * FH_NORMAL_MAP
              + (hits * FH_SIMPLE if shader == integrator.SHADER_SIMPLE
                 else 0))
     return r * lane + hits * hit_lane + rows + texel_bytes, flops
+
+
+def fhb_work(cs, o, d, hit, pix, sample, planes, shader=None):
+    """FHB's bytes and f32 operations on one call's hit and upstream
+    gradients (``planes``: which of the aux planes have one; ``shader``:
+    the color's, or None), every gradient wanted (the rays', the arena's
+    and the background's sums, the frame tables'), as
+    ``csrc/first_hit.cu::first_back_lane`` loads them: what FH reads for
+    the same planes (``fh_work``; an upstream gradient is read where FH
+    writes its plane, as many bytes), the rays' gradients written (24 B a
+    lane), each distinct texel row's sums read and written (24 B), each
+    distinct sphere row's center sums (24 B) and planar row's frame sums
+    (72 B), and the background's sums (24 B). Operations: FH's, and a
+    lane's reverse: every hit lane FHB_LANE, a mapped normal
+    FHB_NORMAL_MAP, the simple shader FHB_SIMPLE, a sphere hit
+    FHB_SPHERE."""
+    import torch
+    from solstrale_tpu_torch.ops import step
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import KIND_SPHERE
+
+    nbytes, flops = fh_work(cs, o, d, hit, pix, sample, planes, shader)
+    t, kind, _ = hit
+    live = torch.isfinite(t)
+    want_alb = planes["albedo"] or shader in (integrator.SHADER_ALBEDO,
+                                              integrator.SHADER_SIMPLE)
+    want_n = planes["normal"] or shader in (integrator.SHADER_NORMAL,
+                                            integrator.SHADER_SIMPLE)
+    alb, nrm = _texel_rows(cs, o, d, hit, pix, sample, want_alb, want_n)
+    texel_rows = torch.cat([x for x in (alb, nrm) if x is not None]
+                           or [torch.zeros(0, dtype=torch.int64)])
+    n_pl_rows, n_sph_rows = _hit_rows(cs, hit)
+    hits = int(live.sum())
+    spheres = 0
+    if kind is not None and step.step_tables(cs).flags & step.FLAG_SPHERES:
+        spheres = int((live & (kind == KIND_SPHERE)).sum())
+    mapped = 0 if nrm is None else nrm.numel()
+    nbytes += (24 * t.shape[0] + 24 * int(torch.unique(texel_rows).numel())
+               + 24 * n_sph_rows + 72 * n_pl_rows + 24)
+    flops += (hits * FHB_LANE + mapped * FHB_NORMAL_MAP + spheres * FHB_SPHERE
+              + (hits * FHB_SIMPLE if shader == integrator.SHADER_SIMPLE
+                 else 0))
+    return nbytes, flops
 
 
 def cr_work(cs, pix, sample):
@@ -724,6 +858,21 @@ def cr_work(cs, pix, sample):
     lane = pix.element_size() + 24 + lane_bytes(sample)
     cam = step.step_tables(cs).cam
     return r * lane + cam.numel() * cam.element_size(), r * CR_LANE
+
+
+def crb_work(cs, pix, sample):
+    """CRB's bytes and f32 operations: per lane the pixel id (and the
+    sample where it is a lane array) and the rays' six gradients read, the
+    camera row once and its 19 sums read and written once a block of its
+    grid (at most 1,024 blocks); CRB_LANE a lane."""
+    from solstrale_tpu_torch.ops import step
+
+    r = pix.shape[0]
+    lane = pix.element_size() + 24 + lane_bytes(sample)
+    cam = step.step_tables(cs).cam
+    blocks = min(1024, -(-r // 256))
+    return (r * lane + cam.numel() * cam.element_size() + blocks * 19 * 8,
+            r * CRB_LANE)
 
 
 def first_hit_times(cs):

@@ -280,13 +280,19 @@ def test_debug_render_with_aux_takes_one_hit_and_one_fh(compiled,
     ("FirstPtr", "FHP_", FH.FIRST_PTRS, {"FHP_RAY": "o0"}),
     ("FirstInt", "FHV_", FH.FIRST_INTS, {"FHV_PIXEL": "pixel_size",
                                         "FHV_SAMPLE": "sample_size",
-                                        "FHV_SEED": "seed_size"})])
+                                        "FHV_SEED": "seed_size"}),
+    ("CamBackPtr", "CBP_", FH.CAM_BACK_PTRS, {}),
+    ("BackPtr", "FBP_", FH.FIRST_BACK_PTRS, {"FBP_RAY": "o0",
+                                            "FBP_G_RAY": "g_o0"}),
+    ("BackInt", "FBV_", FH.FIRST_BACK_INTS, {"FBV_PIXEL": "pixel_size",
+                                            "FBV_SAMPLE": "sample_size",
+                                            "FBV_SEED": "seed_size"})])
 def test_first_hit_argument_names(enum, prefix, names, groups):
-    """CR's and FH's wrappers fill the kernels' argument arrays by the
-    names of ops/first_hit.py, at the indices csrc/first_hit.cu's enums
-    give them: each enumerator is its name's index, a group's first name
-    sits at its enumerator, and the arrays are as long as the enums
-    count."""
+    """CR's, FH's, CRB's and FHB's wrappers fill the kernels' argument
+    arrays by the names of ops/first_hit.py, at the indices
+    csrc/first_hit.cu's enums give them: each enumerator is its name's
+    index, a group's first name sits at its enumerator, and the arrays are
+    as long as the enums count (CRB takes CR's int64 values)."""
     src = (Path(FH.__file__).parent.parent / "csrc" /
            "first_hit.cu").read_text()
     values = _enum(src, enum)
@@ -298,6 +304,9 @@ def test_first_hit_argument_names(enum, prefix, names, groups):
         assert names[value] == want, key
     if enum == "FirstPtr":
         assert values["FHP_PIXEL"] - values["FHP_RAY"] == len(FH.RAY)
+    if enum == "BackPtr":
+        assert values["FBP_PIXEL"] - values["FBP_RAY"] == len(FH.RAY)
+        assert values["FBP_G_SPH"] - values["FBP_G_RAY"] == len(FH.RAY)
 
 
 @pytest.mark.parametrize("name,value", [

@@ -1047,8 +1047,11 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
     draw kernel: render_pixels with a debug shader and the aux planes one
     CR and one FH (its three planes equal to the plain compositions'),
     first_hit_aux one FH, the aux-on path batch one CR and one FH a
-    sample; FH raises where a scene table requires grad, CR where a camera
-    tensor does."""
+    sample. Where a scene table requires grad, first_hit_aux's backward is
+    one FHB launch, its arena gradient within 1e-5 of the magnitudes of
+    first_hit_backward_plain's; where a camera tensor does, CR's backward
+    is one CRB launch, the camera's gradient as camera_rays_backward_plain
+    gives it."""
     import dataclasses
 
     from solstrale_tpu_torch import bench
@@ -1058,6 +1061,8 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
     cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
         width=w, height=h)), device=cuda)
     wrappers = bench.kernel_wrappers()
+    wrappers.update(CRB=first_hit.camera_rays_backward,
+                    FHB=first_hit.first_hit_backward)
 
     def launched(fn):
         before = {k: f.launches for k, f in wrappers.items()}
@@ -1080,13 +1085,153 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
         cs, 1, 1, shader_kind=integrator.SHADER_PATH, need_aux=True,
         n_samples=2, **kw))
     assert (n["CR"], n["FH"], n["draw"]) == (2, 2, 0) and n["S1"] > 0
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g_alb, g_nrm = (torch.randn((w * h, 3), generator=gen, device=cuda)
+                    for _ in range(2))
     arena = cs.textures.pixels.detach().requires_grad_(True)
     grad_cs = dataclasses.replace(cs, textures=dataclasses.replace(
         cs.textures, pixels=arena))
-    with pytest.raises(ValueError, match="autograd"):
-        integrator.first_hit_aux(grad_cs, o, d, pix, 1, 1)
+    aux, n = launched(lambda: integrator.first_hit_aux(grad_cs, o, d, pix,
+                                                       1, 1))
+    assert (n["FH"], n["FHB"]) == (1, 0)
+    (g_arena,), n = launched(lambda: torch.autograd.grad(
+        (aux[0] * g_alb).sum() + (aux[1] * g_nrm).sum(), [arena]))
+    assert (n["FHB"], n["FH"], n["draw"]) == (1, 0, 0)
+    samp, bounce = integrator._depth0(pix, 1)
+    hit = integrator.step_hit(cs, o, d, pix, samp, bounce, 1)
+    planes = dict(albedo=g_alb, normal=g_nrm)
+    sums, mags = (torch.zeros((arena.shape[0] + 1, 3), device=cuda)
+                  for _ in range(2))
+    first_hit.first_hit_backward_plain(cs, *hit, o, d, pix, 1, 1,
+                                       cs.textures.pixels, planes, None,
+                                       sums, want_bg=False)
+    first_hit.first_hit_backward_plain(cs, *hit, o, d, pix, 1, 1,
+                                       cs.textures.pixels, planes, None,
+                                       mags, want_bg=False, magnitudes=True)
+    assert (g_arena != 0).any()
+    _grad_sums_close(g_arena, sums[:-1], mags[:-1])
     cam = dataclasses.replace(cs.camera, origin=cs.camera.origin.detach()
                               .requires_grad_(True))
-    with pytest.raises(ValueError, match="autograd"):
-        first_hit.camera_rays(dataclasses.replace(cs, camera=cam), pix, 1, 1,
-                              w, h)
+    cam_cs = dataclasses.replace(cs, camera=cam)
+    (o2, d2), n = launched(lambda: first_hit.camera_rays(cam_cs, pix, 1, 1,
+                                                         w, h))
+    assert (n["CR"], n["CRB"]) == (1, 0)
+    assert all(_same(a, b) for a, b in zip((*o2, *d2), (*o, *d)))
+    g_ray = torch.randn((6, w * h), generator=gen, device=cuda)
+    (g_origin,), n = launched(lambda: torch.autograd.grad(
+        (torch.stack([*o2, *d2]) * g_ray).sum(), [cam.origin]))
+    assert (n["CRB"], n["CR"]) == (1, 0)
+    plain = first_hit.camera_rays_backward_plain(cs, pix, 1, 1, w, h, g_ray)
+    mag = first_hit.camera_rays_backward_plain(cs, pix, 1, 1, w, h, g_ray,
+                                               magnitudes=True)
+    _grad_sums_close(g_origin, plain[0], mag[0])
+
+
+def _grad_sums_close(got, want, scale):
+    """An atomic sum against the plain version's: within 1e-5 of the
+    magnitudes summed into each entry (``scale``), and 1e-7; the plain
+    version's finite."""
+    assert torch.isfinite(want).all()
+    bad = (got - want).abs() > 1e-5 * scale + 1e-7
+    assert not bad.any(), (int(bad.sum()), float((got - want).abs().max()))
+
+
+def _first_hit_grad_against_plain(cs, pix, sample, w, h, seed=5):
+    """CRB and FHB against their plain versions on CR's rays of ``pix``
+    and their depth-0 hit (step_hit, as first_hit_planes takes it), with
+    upstream gradients from ``seed``: FHB with every debug shader and none
+    and every combination of the aux planes, one launch a call, the rays'
+    gradients bit for bit, the arena's, the background's and the frame
+    tables' sums within 1e-5 of the magnitudes summed into each entry
+    (``magnitudes=True``), and 1e-7; CRB's camera gradients likewise.
+    Returns the calls checked."""
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    dev = pix.device
+    o, d = fh.camera_rays(cs, pix, sample, 1, w, h)
+    samp, bounce = integrator._depth0(pix, sample)
+    hit = integrator.step_hit(cs, o, d, pix, samp, bounce, 1)
+    r = pix.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = {k: torch.randn((r, 3), generator=gen, device=dev)
+         for k in fh.PLANES}
+    texels = cs.textures.pixels
+
+    def run(fn, planes, shader, **kw):
+        sums = torch.zeros((texels.shape[0] + 1, 3), device=dev)
+        g_sph = torch.zeros_like(cs.solids.sph_attr)
+        g_pl = torch.zeros_like(cs.solids.pl_attr)
+        ray = fn(cs, *hit, o, d, pix, sample, 1, texels, planes, shader,
+                 sums, g_sph=g_sph, g_pl=g_pl, **kw)
+        return ray, (sums, g_sph, g_pl)
+
+    checked = 0
+    for shader in (None, *integrator._DEBUG_PLAIN):
+        for alb in (False, True):
+            for nrm in (False, True):
+                if shader is None and not (alb or nrm):
+                    continue
+                planes = dict(color=g["color"] if shader else None,
+                              albedo=g["albedo"] if alb else None,
+                              normal=g["normal"] if nrm else None)
+                before = fh.first_hit_backward.launches
+                k_ray, k_sums = run(fh.first_hit_backward, planes, shader)
+                assert fh.first_hit_backward.launches == before + 1
+                p_ray, p_sums = run(fh.first_hit_backward_plain, planes,
+                                    shader)
+                _, m_sums = run(fh.first_hit_backward_plain, planes, shader,
+                                magnitudes=True)
+                assert all(_same(a, b) for a, b in zip(k_ray, p_ray)), (
+                    shader, alb, nrm)
+                for a, b, m in zip(k_sums, p_sums, m_sums):
+                    _grad_sums_close(a, b, m)
+                checked += 1
+    g_ray = torch.randn((6, r), generator=gen, device=dev)
+    before = fh.camera_rays_backward.launches
+    k_cam = fh.camera_rays_backward(cs, pix, sample, 1, w, h, g_ray)
+    assert fh.camera_rays_backward.launches == before + 1
+    p_cam = fh.camera_rays_backward_plain(cs, pix, sample, 1, w, h, g_ray)
+    m_cam = fh.camera_rays_backward_plain(cs, pix, sample, 1, w, h, g_ray,
+                                          magnitudes=True)
+    for a, b, m in zip(k_cam, p_cam, m_cam):
+        assert a.shape == b.shape
+        _grad_sums_close(a, b, m)
+    return checked
+
+
+@pytest.mark.parametrize("name", list(STEP_SCENES))
+def test_first_hit_backward_kernels_match_plain(cuda, name):
+    """CRB (ops.first_hit.camera_rays_backward) and FHB
+    (first_hit_backward) against their plain versions
+    (``_first_hit_grad_against_plain``) at 128x64: on 3,001 lanes (a
+    shuffled subset of the pixel ids, a sample a lane) and on the whole
+    image (an int sample), and on 8,191 lanes of a 1080p camera's pixel
+    ids (a 0-dim sample on the card); every shader kind and plane
+    combination, K1's planar slots (the textured sponza, many_materials)
+    and (kind, idx) (the rest)."""
+    w, h = 128, 64
+    cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
+                       device=cuda)
+    g = torch.Generator().manual_seed(9)
+    subset = torch.randperm(w * h, generator=g)[:3001].to(cuda)
+    tall = torch.randperm(1920 * 1080, generator=g)[:8191].to(cuda)
+    for pix, sample, (pw, ph) in (
+            (subset, torch.full_like(subset, 3), (w, h)),
+            (torch.arange(w * h, device=cuda), 2, (w, h)),
+            (tall, torch.tensor(5, device=cuda), (1920, 1080))):
+        assert _first_hit_grad_against_plain(cs, pix, sample, pw, ph) == 15
+
+
+@pytest.mark.parametrize("lanes", [1, 255, 257, 300001])
+def test_first_hit_backward_ragged_lanes_match_plain(cuda, lanes):
+    """CRB and FHB at their edges: 1 lane, a block's threads less and more
+    one, and more lanes than CRB's grid holds at one lane a thread (its
+    threads then sum several lanes each), on the normal-mapped kitchen
+    (spheres, a medium, K4's (kind, idx)) and a 1080p camera's pixel
+    ids."""
+    cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=128, height=64)), device=cuda)
+    g = torch.Generator().manual_seed(lanes)
+    pix = torch.randperm(1920 * 1080, generator=g)[:lanes].to(cuda)
+    sample = torch.full_like(pix, 3) if lanes % 2 else 2
+    assert _first_hit_grad_against_plain(cs, pix, sample, 1920, 1080) == 15
