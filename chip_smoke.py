@@ -1649,6 +1649,39 @@ def _first_hit_grad_check(name, cs, o, d, hit, pix, sample, w, h):
 # planes, every output's gradient wanted)
 ROUTE_PLANES = ("color", "albedo", "normal")
 
+# ptxas' two lines (stack and spills; registers, barriers, shared memory)
+# of the kernels FHB's redesign leaves alone, as the build before it gave
+# them (sm_90a, on an H100 80GB HBM3)
+PTXAS_KEPT = {
+    "first_hit_shade": (
+        "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 61 registers, used 1 barriers, 32 bytes cumulative stack "
+        "size"),
+    "camera_rays": (
+        "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 31 registers, used 0 barriers, 32 bytes cumulative stack "
+        "size"),
+    "camera_rays_backward": (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 63 registers, used 1 barriers, 608 bytes smem"),
+    "step_shade_backward": (
+        "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "Used 32 registers, used 1 barriers, 8 bytes cumulative stack size, "
+        "16768 bytes smem")}
+
+
+def _ptxas_of(log, name):
+    """ptxas' lines (after its entry's name) of the kernel ``name`` in a
+    build log: the entry whose mangled name holds the name itself (its
+    length, then the name, then its arguments), so that ``camera_rays``
+    is not ``camera_rays_backward``."""
+    from solstrale_tpu_torch import wavefront_ab
+
+    lines = wavefront_ab.ptxas_lines(log, (f"{len(name)}{name}E",))
+    if not lines or sum("_GLOBAL__" in ln for ln in lines) != 1:
+        raise AssertionError(f"ptxas: no single entry for {name}: {lines}")
+    return tuple(lines[1:])
+
 
 def phase_first_hit_grad(sponza_cs):
     """2e: the first hit's backward kernels (``csrc/first_hit.cu``): FHB
@@ -1661,12 +1694,22 @@ def phase_first_hit_grad(sponza_cs):
     ``ROUTE_PLANES``, into sums made once) against its bound
     (``wavefront_ab.fhb_work`` / ``crb_work``: the bytes of its own loads)
     and the copy floor of as many bytes; FH's time on the same hit beside
-    it (the recompute's share); ptxas' lines of both. Returns the rows of
-    the kernels line: CRB's and FHB's on the interior at 2,073,600 lanes
-    (the denoised render's width, the route's)."""
+    it (the recompute's share); FHB also without its sums, with the
+    arena's alone and with the frame tables' alone
+    (``wavefront_ab.fhb_calls``), its resident grid
+    (``first_hit_backward_grid``: two blocks a SM or more) and its shared
+    memory a block (its row tables, and the staged tables); FHB's ptxas
+    line without spills, and FH's, CR's, CRB's and S1B's the same as
+    before FHB's redesign (``PTXAS_KEPT``). Returns the rows of the kernels line: CRB's and
+    FHB's on the interior at 2,073,600 lanes (the denoised render's width,
+    the route's)."""
+    import re
+
     import torch
     from solstrale_tpu_torch import wavefront_ab
     from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.ops.step import (STAGE_MAX_BYTES, stage_floats,
+                                              step_tables)
     from solstrale_tpu_torch.renderer import integrator
 
     start = time.perf_counter()
@@ -1719,19 +1762,49 @@ def phase_first_hit_grad(sponza_cs):
                 **bound(crb_bytes, crb_ops), copy_floor_ms=floors[crb_bytes])
             fh_ms = device_ms(lambda: first_hit.first_hit_shade(
                 cs, *hit, o, d, pix, sample, 1, shader, True, True))
+            # FHB without its sums, with the arena's alone, with the frame
+            # tables' alone (wavefront_ab.fhb_calls, the same upstream)
+            parts = wavefront_ab.fhb_calls(cs, o, d, hit, pix, sample, 1)
+            if not all(torch.equal(parts["planes"][k], planes[k])
+                       for k in ROUTE_PLANES):
+                raise AssertionError("2e: fhb_calls' upstream is not the "
+                                     "route's")
+            decomposed = {f"{k}_ms": device_ms(parts[k])
+                          for k in ("rays_only", "texels_only",
+                                    "frames_only")}
             per[lanes] = dict(checked=checked,
                               hit_lanes=int(torch.isfinite(hit[0]).sum()),
-                              FHB=fhb_row, CRB=crb_row,
-                              FH_same_planes_ms=fh_ms)
+                              FHB=fhb_row, FHB_parts=decomposed,
+                              FHB_grid=first_hit.first_hit_backward_grid(
+                                  lanes),
+                              FHB_stage_bytes=4 * stage_floats(
+                                  step_tables(cs)),
+                              CRB=crb_row, FH_same_planes_ms=fh_ms)
             if name == "sponza" and lanes == 2073600:
                 rows = {"CRB": crb_row, "FHB": fhb_row}
         out[name] = per
     torch.cuda.synchronize()
-    log("first_hit_grad", widths=list(FIRST_WIDTHS),
-        ptxas=wavefront_ab.ptxas_lines(wavefront_ab.build_log(),
-                                       ("camera_rays_backward",
-                                        "first_hit_backward")),
+    build = wavefront_ab.build_log()
+    fhb = _ptxas_of(build, "first_hit_backward")
+    smem = re.search(r"(\d+) bytes smem", fhb[1])
+    smem = int(smem.group(1)) if smem else 0
+    grid = first_hit.first_hit_backward_grid(1 << 30)
+    kept = {k: _ptxas_of(build, k) for k in PTXAS_KEPT}
+    moved = {k: v for k, v in kept.items() if v != PTXAS_KEPT[k]}
+    log("first_hit_grad", widths=list(FIRST_WIDTHS), ptxas_fhb=fhb,
+        fhb_grid=dict(grid, threads=first_hit.BACK_THREADS,
+                      slots=first_hit.BACK_SLOTS),
+        fhb_static_smem_bytes=smem,
+        fhb_smem_bytes_most=smem + STAGE_MAX_BYTES, ptxas_kept=kept,
         seconds=time.perf_counter() - start, **out)
+    if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", fhb[0]):
+        raise AssertionError(f"2e: FHB spills: {fhb}")
+    if grid["per_sm"] < 2:
+        raise AssertionError(f"2e: FHB keeps {grid} resident, not two "
+                             f"blocks a SM")
+    if moved:
+        raise AssertionError(f"2e: ptxas lines moved from PTXAS_KEPT's: "
+                             f"{moved}")
     return rows
 
 

@@ -39,11 +39,14 @@
 // resident), each block staging the small tables (camera, materials,
 // texture attributes) in shared memory once, as S1 does, and each thread
 // walking its lanes with the next lane's inputs loaded while this lane
-// waits on its texels. CRB reads what CR reads and the rays' gradients;
-// FHB what FH reads and the planes' gradients, and writes the rays'
-// gradients and its sums. Both are simple: one thread a lane (CRB's
-// threads a grid of lanes apart), their sums taken in the warp or the
-// block before one atomic add.
+// waits on its texels. CRB reads what CR reads and the rays' gradients,
+// one thread a lane (its threads a grid of lanes apart), its 19 sums taken
+// in the block before one atomic add each. FHB reads what FH reads and the
+// planes' gradients, and writes the rays' gradients and its sums; its time
+// was the sums' (atomic adds that serialise on the few rows many lanes
+// share: a solid colour's texel, a large quad's frame), so it runs on FH's
+// kind of resident grid and sums each row a warp's lanes share in shared
+// memory over its block before one add (first_hit_backward).
 #include <cstdint>
 
 #include "hit.cuh"
@@ -121,13 +124,16 @@ struct In {
   uint32_t pix, smp, seed;
 };
 
-// Lane i's t (NaN past the end: no loads, no stores)
-__device__ __forceinline__ float lane_t(const First& a, long long i) {
+// Lane i's t (NaN past the end: no loads, no stores); Args is FH's First
+// or FHB's FirstBack, which read their lanes alike
+template <typename Args>
+__device__ __forceinline__ float lane_t(const Args& a, long long i) {
   return i < a.n ? a.t[i] : CUDART_NAN_F;
 }
 
 // Lane i's inputs with its t already loaded: a miss reads only t
-__device__ __forceinline__ In load_in(const First& a, long long i, float t) {
+template <typename Args>
+__device__ __forceinline__ In load_in(const Args& a, long long i, float t) {
   In x = {t, 0, 0, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), 0u, 0u, 0u};
   if (isfinite(t)) {
     if (a.kind != nullptr) x.kind = a.kind[i];
@@ -241,23 +247,26 @@ __global__ void __launch_bounds__(kFirstThreads)
   }
 }
 
-// FH's persistent grid on the current device: the blocks that stay
-// resident on one SM with FH's most shared memory (kMaxStageBytes of
-// staged tables; queried once a device, at its first launch), times the
-// SMs, but no more blocks than the lanes fill. Also gives the blocks a SM
-// and the SMs (per_sm, sms; either may be null).
-cudaError_t first_grid(long long n, unsigned int* blocks, int* per_sm,
-                       int* sms) {
-  constexpr int kMaxDevices = 64;
-  static int resident[kMaxDevices][2] = {};   // {0, 0}: not queried yet
+// A persistent grid of ``kernel`` (``threads`` a block) on the current
+// device: the blocks that stay resident on one SM with the kernel's most
+// dynamic shared memory (kMaxStageBytes of staged tables; queried once a
+// device into ``resident``, at the kernel's first launch), times the SMs,
+// but no more blocks than n lanes fill. Also gives the blocks a SM and the
+// SMs (per_sm, sms; either may be null).
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads,
+                            int (&resident)[kMaxDevices][2], long long n,
+                            unsigned int* blocks, int* per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   int* r = resident[dev];
   if (r[0] == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &r[0], first_hit_shade, kFirstThreads, kMaxStageBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[0], kernel,
+                                                        threads,
+                                                        kMaxStageBytes);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&r[1], cudaDevAttrMultiProcessorCount,
                                    dev);
@@ -266,12 +275,20 @@ cudaError_t first_grid(long long n, unsigned int* blocks, int* per_sm,
       return err;
     }
   }
-  const long long fill = (n + kFirstThreads - 1) / kFirstThreads;
+  const long long fill = (n + threads - 1) / threads;
   const long long most = static_cast<long long>(r[0]) * r[1];
   *blocks = static_cast<unsigned int>(fill < most ? fill : most);
   if (per_sm != nullptr) *per_sm = r[0];
   if (sms != nullptr) *sms = r[1];
   return cudaSuccess;
+}
+
+// FH's persistent grid (persistent_grid)
+cudaError_t first_grid(long long n, unsigned int* blocks, int* per_sm,
+                       int* sms) {
+  static int resident[kMaxDevices][2] = {};   // {0, 0}: not queried yet
+  return persistent_grid(first_hit_shade, kFirstThreads, resident, n, blocks,
+                         per_sm, sms);
 }
 
 // --- the reverse: CRB and FHB ------------------------------------------------
@@ -363,22 +380,36 @@ __global__ void __launch_bounds__(kCamBackThreads)
   }
 }
 
-// FHB's block
+// FHB's block (512 threads tied with 256; PERF.md §6)
 constexpr int kBackThreads = 256;
 // the columns of Solids.sph_attr (center 0:3) and Solids.pl_attr (unit
 // normal 0:3, tangent 11:14, bitangent 14:17) FHB adds gradients to
 constexpr int kSphAttrCols = 5, kPlAttrCols = 25;
 constexpr int kPlNormal = 0, kPlTangent = 11, kPlBitangent = 14;
+// FHB's block tables of row sums in shared memory (RowTable), by log2 of
+// their slots: texel rows (the albedo's and the normal map's, 3 floats),
+// planar frame rows (normal, tangent, bitangent: 9) and sphere centers (3);
+// 28 KB with the background's warp sums, so that with the most staged
+// tables (kMaxStageBytes) a block takes 40 KB, under the 48 KB a block has
+// without asking (tables 4x as large left less room for L1 and lost;
+// PERF.md §6)
+constexpr int kTexelSlotBits = 10;
+constexpr int kFrameSlotBits = 8;
+constexpr int kSphereSlotBits = 7;
+constexpr int kRowProbes = 8;
 
 struct FirstBack {
   Scene sc;                        // mats tex_attr, texels: the arena
-                                   // autograd holds, flags
+                                   // autograd holds, flags (cam and lights:
+                                   // not read)
   const float* __restrict__ sph;   // (S, 8) sph_attr padded (the values)
   int n_sph;
   const float* __restrict__ pln;   // (P, 28) pl_attr padded
   int n_pl;
   int n_q;
   const int* __restrict__ pl_row;
+  const float* small;              // the packed small tables sc points into
+  int stage_floats;                // staged in shared memory (0: none)
   const int* __restrict__ med_mat;
   int n_media;
   const float* t;
@@ -413,9 +444,9 @@ __device__ __forceinline__ float load3(const float* p, long long i, int c) {
   return p != nullptr ? p[3 * i + c] : 0.0f;
 }
 
-// FHB, one lane: FH's forward at depth 0 recomputed from FH's inputs
-// (first_lane; the texels read from the arena autograd holds), then its
-// reverse as ops.first_hit.first_hit_backward_plain writes it out:
+// FHB, one lane: FH's forward at depth 0 recomputed from FH's inputs x of
+// lane i (first_lane; the texels read from the arena autograd holds), then
+// its reverse as ops.first_hit.first_hit_backward_plain writes it out:
 //
 // - on a miss the background takes the albedo plane's and the color's
 //   gradients (every debug shader shows it there);
@@ -434,38 +465,48 @@ __device__ __forceinline__ float load3(const float* p, long long i, int c) {
 //   (n_raw.z, 0, -n_raw.x) and the bitangent cross(n_raw, tangent); the
 //   ray takes n_raw's gradient (d times t) and the center its negation;
 // - a medium's frame is a draw and constants: nothing.
+//
+// Once the hit's attributes are in, it loads lane j's inputs (t_next its
+// t) into ``next``, as FH does, so that they are in flight while this lane
+// waits on its texels.
 __device__ __forceinline__ void first_back_lane(const FirstBack& a,
-                                                long long i, BackLane* b) {
+                                                const Scene& sc, const In& x,
+                                                long long i, long long j,
+                                                float t_next, In* next,
+                                                BackLane* b) {
   b->r_alb = b->r_nrm = b->sph_row = b->pl_slot = -1;
   for (int c = 0; c < 3; ++c)
     b->g_alb[c] = b->g_nrm[c] = b->g_bg[c] = b->g_c[c] = b->g_o[c] =
         b->g_d[c] = 0.0f;
   for (int k = 0; k < 9; ++k) b->g_pl[k] = 0.0f;
-  if (i >= a.n) return;
-  const Scene& sc = a.sc;
-  const float t = a.t[i];
-  float gc[3], ga[3], gn[3];
-  for (int c = 0; c < 3; ++c) {
-    gc[c] = load3(a.g_color, i, c);
-    ga[c] = load3(a.g_albedo, i, c);
-    gn[c] = load3(a.g_normal, i, c);
+  float gc[3] = {0.0f, 0.0f, 0.0f}, ga[3] = {0.0f, 0.0f, 0.0f},
+        gn[3] = {0.0f, 0.0f, 0.0f};
+  if (i < a.n)
+    for (int c = 0; c < 3; ++c) {
+      gc[c] = load3(a.g_color, i, c);
+      ga[c] = load3(a.g_albedo, i, c);
+      gn[c] = load3(a.g_normal, i, c);
+    }
+  const bool hit = isfinite(x.t);
+  int kind = 0, idx = 0, slot = -1;
+  V3 point = v3(0.0f, 0.0f, 0.0f);
+  Attrs h;
+  if (hit) {
+    decode_hit_values(a.kind != nullptr, x.kind, x.idx, a.pl_row, a.n_q,
+                      a.n_pl, &kind, &idx, &slot);
+    point = v3(x.o.x + x.d.x * x.t, x.o.y + x.d.y * x.t,
+               x.o.z + x.d.z * x.t);
+    h = hit_attrs(sc.flags, a.sph, a.n_sph, a.pln, a.n_pl, a.med_mat,
+                  a.n_media, kind, idx, slot, point, x.d, x.pix, x.smp, 0u,
+                  x.seed);
   }
+  *next = load_in(a, j, t_next);
+  if (i >= a.n) return;
   const bool has_c = a.g_color != nullptr;
-  if (!isfinite(t)) {
+  if (!hit) {
     for (int c = 0; c < 3; ++c) b->g_bg[c] = ga[c] + gc[c];
     return;
   }
-  int kind, idx, slot;
-  decode_hit_values(a.kind != nullptr, a.kind != nullptr ? a.kind[i] : 0,
-                    a.idx[i], a.pl_row, a.n_q, a.n_pl, &kind, &idx, &slot);
-  const V3 o = v3(a.o[0][i], a.o[1][i], a.o[2][i]);
-  const V3 d = v3(a.d[0][i], a.d[1][i], a.d[2][i]);
-  const V3 point = v3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
-  const uint32_t pix = a.pixel.at(i), smp = a.sample.at(i),
-                 seed = a.seed.at(i);
-  const Attrs h = hit_attrs(sc.flags, a.sph, a.n_sph, a.pln, a.n_pl,
-                            a.med_mat, a.n_media, kind, idx, slot, point, d,
-                            pix, smp, 0u, seed);
   const bool want_alb = a.g_albedo != nullptr ||
                         (has_c && a.shader != SHADER_NORMAL);
   const bool want_n = a.g_normal != nullptr ||
@@ -475,8 +516,8 @@ __device__ __forceinline__ void first_back_lane(const FirstBack& a,
   if (want_alb) {
     int eff = h.mat;
     if (sc.flags & kFlagBlend)
-      eff = blend_walk(sc, eff, uniform4(pix, smp, 0u, P_BLEND_SCATTER,
-                                         seed));
+      eff = blend_walk(sc, eff, uniform4(x.pix, x.smp, 0u, P_BLEND_SCATTER,
+                                         x.seed));
     const MatRow row = mat_row(sc, eff);
     b->r_alb = texel_row(sc, row.albedo_tex, h.u, h.v);
     const float* px = sc.texels + 3 * static_cast<size_t>(b->r_alb);
@@ -489,8 +530,8 @@ __device__ __forceinline__ void first_back_lane(const FirstBack& a,
   if (want_n && (sc.flags & kFlagNormalMaps)) {
     const int eff_n =
         (sc.flags & kFlagBlend)
-            ? blend_walk(sc, h.mat, uniform4(pix, smp, 0u, P_BLEND_NORMAL,
-                                             seed))
+            ? blend_walk(sc, h.mat, uniform4(x.pix, x.smp, 0u,
+                                             P_BLEND_NORMAL, x.seed))
             : h.mat;
     const int ntex = normal_tex(sc, eff_n);
     if (ntex >= 0) {
@@ -566,7 +607,7 @@ __device__ __forceinline__ void first_back_lane(const FirstBack& a,
     b->sph_row = row;
     b->g_c[0] = -g_a.x; b->g_c[1] = -g_a.y; b->g_c[2] = -g_a.z;
     b->g_o[0] = g_a.x; b->g_o[1] = g_a.y; b->g_o[2] = g_a.z;
-    b->g_d[0] = g_a.x * t; b->g_d[1] = g_a.y * t; b->g_d[2] = g_a.z * t;
+    b->g_d[0] = g_a.x * x.t; b->g_d[1] = g_a.y * x.t; b->g_d[2] = g_a.z * x.t;
     return;
   }
   if (slot < 0 || slot >= a.n_pl) return;
@@ -576,65 +617,197 @@ __device__ __forceinline__ void first_back_lane(const FirstBack& a,
   for (int k = 0; k < 9; ++k) b->g_pl[k] = g9[k];
 }
 
-// v added to row ``row`` of the (., cols) table ``out`` at column ``col``
-// by the lowest lane of each group of a warp's lanes that share the row
-// (their sum, peer_sums); a row of -1 adds nothing. Every lane of the warp
-// calls it.
+// Atomic adds to device memory, a value or a pair that is 0 left out:
+// one float, two neighbouring floats at an 8-byte aligned address as one
+// float2 (Hopper adds float2 and float4 in device memory; a row of 3 then
+// takes two adds, not three), and three neighbouring floats as a pair and
+// one, whichever way round the address aligns
+__device__ __forceinline__ void red1(float* q, float a) {
+  if (a != 0.0f) atomicAdd(q, a);
+}
+__device__ __forceinline__ void red2(float* q, float a, float b) {
+  if (a != 0.0f || b != 0.0f)
+    atomicAdd(reinterpret_cast<float2*>(q), make_float2(a, b));
+}
+__device__ __forceinline__ void red3(float* q, float a, float b, float c) {
+  if ((reinterpret_cast<uintptr_t>(q) & 7u) == 0u) {
+    red2(q, a, b);
+    red1(q + 2, c);
+  } else {
+    red1(q, a);
+    red2(q + 1, b, c);
+  }
+}
+
+// v added to row ``row`` of the (., cols) table ``out`` in device memory:
+// a texel's or a sphere center's 3 values at columns 0:3, a planar frame's
+// 9 at its normal's, tangent's and bitangent's columns (K = 9)
 template <int K>
-__device__ __forceinline__ void add_rows(float* out, int cols, int col,
-                                         int row, float (&v)[K]) {
+__device__ __forceinline__ void add_to(float* out, int cols, int row,
+                                       const float (&v)[K]) {
+  float* p = out + static_cast<size_t>(row) * cols;
+  if constexpr (K == 9) {
+    red3(p + kPlNormal, v[0], v[1], v[2]);
+    red3(p + kPlTangent, v[3], v[4], v[5]);
+    red3(p + kPlBitangent, v[6], v[7], v[8]);
+  } else {
+    static_assert(K == 3, "a row of 3 or 9 values");
+    red3(p, v[0], v[1], v[2]);
+  }
+}
+
+// A block's table of row sums in shared memory, as S1B's (csrc/step.cu):
+// 2^kBits slots of K floats, open addressing from a multiplicative hash,
+// kRowProbes probes; a row that finds no slot goes to device memory
+// directly. Filled between the block's barriers, flushed after its last.
+template <int K, int kBits>
+struct RowTable {
+  static constexpr int kSlots = 1 << kBits;
+  int row[kSlots];
+  float sum[kSlots][K];
+
+  __device__ __forceinline__ void clear() {
+    for (int s = threadIdx.x; s < kSlots; s += kBackThreads) {
+      row[s] = -1;
+      for (int k = 0; k < K; ++k) sum[s][k] = 0.0f;
+    }
+  }
+
+  // v added to ``r``'s slot, or to ``out`` where it has none
+  __device__ __forceinline__ void add(float* out, int cols, int r,
+                                     const float (&v)[K]) {
+    bool any = false;
+    for (int k = 0; k < K; ++k) any |= v[k] != 0.0f;
+    if (!any) return;
+    unsigned h = (static_cast<unsigned>(r) * 2654435761u) >> (32 - kBits);
+    for (int p = 0; p < kRowProbes; ++p) {
+      const int got = atomicCAS(&row[h], -1, r);
+      if (got == -1 || got == r) {
+        for (int k = 0; k < K; ++k)
+          if (v[k] != 0.0f) atomicAdd(&sum[h][k], v[k]);
+        return;
+      }
+      h = (h + 1u) & (kSlots - 1);
+    }
+    add_to(out, cols, r, v);
+  }
+
+  // each row of the table added to ``out`` once
+  __device__ __forceinline__ void flush(float* out, int cols) const {
+    for (int s = threadIdx.x; s < kSlots; s += kBackThreads)
+      if (row[s] >= 0) add_to(out, cols, row[s], sum[s]);
+  }
+};
+
+// v (the K values lane ``row`` adds; -1: none) summed over each group of a
+// warp's lanes that share the row (one match, peer_sums) and added by the
+// group's lowest lane: to the block's table t where two lanes or more share
+// it (a row that neighbouring lanes share is one that many warps add to: a
+// solid colour, a large quad), else to device memory directly (a row one
+// lane of the warp reads, as most of an image texture's are, would only
+// fill the table). Every lane of the warp calls it.
+template <int K, int kBits>
+__device__ __forceinline__ void add_rows(RowTable<K, kBits>& t, float* out,
+                                         int cols, int row, float (&v)[K]) {
   if (out == nullptr || !__any_sync(0xffffffffu, row >= 0)) return;
   const unsigned peers = __match_any_sync(0xffffffffu, row);
   peer_sums(peers, v);
   const unsigned lane = threadIdx.x % 32;
   if (row < 0 || (peers & ((1u << lane) - 1u)) != 0u) return;
-  for (int k = 0; k < K; ++k)
-    if (v[k] != 0.0f)
-      atomicAdd(out + static_cast<size_t>(row) * cols + col + k, v[k]);
+  if (__popc(peers) > 1)
+    t.add(out, cols, row, v);
+  else
+    add_to(out, cols, row, v);
 }
 
-// FHB: first_back_lane, one thread a lane. The sums: each texel row,
-// sphere row and planar row a warp's lanes share summed in the warp and
-// added once (add_rows); the background's summed over the block (warp
-// shuffles, then the warps in order) and added once a block with a miss.
+// FHB: first_back_lane over every lane, on a resident grid
+// (backward_grid). Each block stages the small tables in shared memory
+// once (stage_small, as FH does), and each thread walks its lanes a grid's
+// threads apart with the next lane's inputs loaded early (load_in). The
+// sums meet in few rows (a solid colour is one texel row that most lanes
+// read, a large quad one frame row that much of the image hits), and
+// atomic adds to one address serialise, so they are summed first: within
+// a warp, one match and one sum for each kind of row (the albedo texel,
+// the normal map's texel, the sphere, the planar frame's 9 values
+// together), then, for a row two lanes of the warp or more share, in the
+// block's tables over all its lanes (both texels in one), and each row of
+// a table is added to device memory once, at the block's end; a row one
+// lane of the warp reads goes to device memory at once (add_rows). Every
+// add to device memory takes float2 pairs (red3). The background's
+// gradient is summed a thread over its lanes, then a warp, then, after
+// the block's last barrier, over the warps in order, and added once a
+// block with a lane that missed. Design points timed against this one and
+// dropped (PERF.md §6): 512 threads a block, 2 probes, larger tables,
+// a cap on the tables' fill, every row to the tables, and
+// __launch_bounds__ for 3 or 4 blocks a SM (which spill).
 __global__ void __launch_bounds__(kBackThreads)
     first_hit_backward(const FirstBack a) {
+  extern __shared__ __align__(16) float4 staged[];
+  __shared__ RowTable<3, kTexelSlotBits> texel;
+  __shared__ RowTable<9, kFrameSlotBits> frame;
+  __shared__ RowTable<3, kSphereSlotBits> sphere;
   __shared__ float warp_bg[kBackThreads / 32][3];
-  const long long i = static_cast<long long>(blockIdx.x) * kBackThreads +
-                      threadIdx.x;
-  BackLane b;
-  first_back_lane(a, i, &b);
-  if (i < a.n)
-    for (int c = 0; c < 3; ++c) {
-      if (a.g_o[c] != nullptr) a.g_o[c][i] = b.g_o[c];
-      if (a.g_d[c] != nullptr) a.g_d[c][i] = b.g_d[c];
-    }
-  add_rows(a.g_texels, 3, 0, b.r_alb, b.g_alb);
-  add_rows(a.g_texels, 3, 0, b.r_nrm, b.g_nrm);
-  add_rows(a.g_sph, kSphAttrCols, 0, b.sph_row, b.g_c);
-  float g_frame[3][3] = {{b.g_pl[0], b.g_pl[1], b.g_pl[2]},
-                         {b.g_pl[3], b.g_pl[4], b.g_pl[5]},
-                         {b.g_pl[6], b.g_pl[7], b.g_pl[8]}};
-  add_rows(a.g_pl, kPlAttrCols, kPlNormal, b.pl_slot, g_frame[0]);
-  add_rows(a.g_pl, kPlAttrCols, kPlTangent, b.pl_slot, g_frame[1]);
-  add_rows(a.g_pl, kPlAttrCols, kPlBitangent, b.pl_slot, g_frame[2]);
-  if (a.g_bg == nullptr) return;
-  const bool missed = b.g_bg[0] != 0.0f || b.g_bg[1] != 0.0f ||
-                      b.g_bg[2] != 0.0f;
-  if (!__syncthreads_or(missed)) return;
-  for (int c = 0; c < 3; ++c) {
-    float v = b.g_bg[c];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x % 32 == 0) warp_bg[threadIdx.x / 32][c] = v;
+  if (a.g_texels != nullptr) texel.clear();
+  if (a.g_pl != nullptr) frame.clear();
+  if (a.g_sph != nullptr) sphere.clear();
+  Scene sc = a.sc;
+  if (a.stage_floats > 0)   // its barrier also ends the clears
+    stage_small(&sc, a.small, a.stage_floats, staged, kBackThreads);
+  else
+    __syncthreads();
+  float bg[3] = {0.0f, 0.0f, 0.0f};
+  bool missed = false;
+  const long long step = static_cast<long long>(gridDim.x) * kBackThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kBackThreads +
+                threadIdx.x;
+  In x = load_in(a, i, lane_t(a, i));
+  // block-uniform: every lane of a warp takes each turn (the matches)
+  for (long long base = static_cast<long long>(blockIdx.x) * kBackThreads;
+       base < a.n; base += step, i += step) {
+    BackLane b;
+    In next;
+    first_back_lane(a, sc, x, i, i + step, lane_t(a, i + step), &next, &b);
+    x = next;
+    if (i < a.n)
+      for (int c = 0; c < 3; ++c) {
+        if (a.g_o[c] != nullptr) a.g_o[c][i] = b.g_o[c];
+        if (a.g_d[c] != nullptr) a.g_d[c][i] = b.g_d[c];
+        bg[c] += b.g_bg[c];
+        missed |= b.g_bg[c] != 0.0f;
+      }
+    add_rows(texel, a.g_texels, 3, b.r_alb, b.g_alb);
+    add_rows(texel, a.g_texels, 3, b.r_nrm, b.g_nrm);
+    add_rows(sphere, a.g_sph, kSphAttrCols, b.sph_row, b.g_c);
+    add_rows(frame, a.g_pl, kPlAttrCols, b.pl_slot, b.g_pl);
   }
-  __syncthreads();
-  if (threadIdx.x < 3) {
+  const unsigned lane = threadIdx.x % 32;
+  if (a.g_bg != nullptr && __any_sync(0xffffffffu, missed))
+    for (int c = 0; c < 3; ++c)
+      for (int k = 16; k > 0; k >>= 1)
+        bg[c] += __shfl_down_sync(0xffffffffu, bg[c], k);
+  if (lane == 0)
+    for (int c = 0; c < 3; ++c) warp_bg[threadIdx.x / 32][c] = bg[c];
+  // the block's last barrier: the tables' adds and the warps' sums are in,
+  // and it tells whether a lane of the block added a background term
+  const bool block_missed = __syncthreads_or(missed);
+  if (a.g_texels != nullptr) texel.flush(a.g_texels, 3);
+  if (a.g_pl != nullptr) frame.flush(a.g_pl, kPlAttrCols);
+  if (a.g_sph != nullptr) sphere.flush(a.g_sph, kSphAttrCols);
+  if (a.g_bg != nullptr && block_missed && threadIdx.x < 3) {
     float sum = 0.0f;
     for (int w = 0; w < kBackThreads / 32; ++w)
       sum += warp_bg[w][threadIdx.x];
     if (sum != 0.0f) atomicAdd(a.g_bg + threadIdx.x, sum);
   }
+}
+
+// FHB's resident grid (persistent_grid: its row tables and the most staged
+// tables)
+cudaError_t backward_grid(long long n, unsigned int* blocks, int* per_sm,
+                          int* sms) {
+  static int resident[kMaxDevices][2] = {};   // {0, 0}: not queried yet
+  return persistent_grid(first_hit_backward, kBackThreads, resident, n,
+                         blocks, per_sm, sms);
 }
 
 hit::Counter counter_at(const void* p, const long long* v) {
@@ -677,14 +850,15 @@ enum CamBackPtr {
 // FIRST_BACK_INTS name them (the ray and its gradients: o0 o1 o2 d0 d1 d2)
 enum BackPtr {
   FBP_SPH, FBP_PLN, FBP_MATS, FBP_TEX_ATTR, FBP_TEXELS, FBP_MED_MAT,
-  FBP_PL_ROW, FBP_T, FBP_KIND, FBP_IDX, FBP_RAY, FBP_PIXEL = FBP_RAY + 6,
+  FBP_PL_ROW, FBP_SMALL, FBP_T, FBP_KIND, FBP_IDX, FBP_RAY,
+  FBP_PIXEL = FBP_RAY + 6,
   FBP_SAMPLE, FBP_SEED, FBP_G_COLOR, FBP_G_ALBEDO, FBP_G_NORMAL,
   FBP_G_TEXELS, FBP_G_BG, FBP_G_RAY, FBP_G_SPH = FBP_G_RAY + 6, FBP_G_PLN,
   FBP_COUNT
 };
 enum BackInt {
   FBV_N, FBV_FLAGS, FBV_SHADER, FBV_N_SPH, FBV_N_PL, FBV_N_Q, FBV_N_MAT,
-  FBV_N_TEX, FBV_N_TEXELS, FBV_N_MEDIA, FBV_PIXEL,
+  FBV_N_TEX, FBV_N_TEXELS, FBV_N_MEDIA, FBV_STAGE, FBV_PIXEL,
   FBV_SAMPLE = FBV_PIXEL + 3, FBV_SEED = FBV_SAMPLE + 3,
   FBV_COUNT = FBV_SEED + 3
 };
@@ -813,6 +987,11 @@ extern "C" int first_hit_backward_launch(const void* const* p,
     a.n_pl = static_cast<int>(v[FBV_N_PL]);
     a.n_q = static_cast<int>(v[FBV_N_Q]);
     a.pl_row = static_cast<const int*>(p[FBP_PL_ROW]);
+    a.small = static_cast<const float*>(p[FBP_SMALL]);
+    a.stage_floats = static_cast<int>(v[FBV_STAGE]);
+    // stage_small points the camera and the lights at their copies too:
+    // FHB reads neither, so they point at the start of the small tables
+    a.sc.cam = a.sc.lights = a.small;
     a.med_mat = static_cast<const int*>(p[FBP_MED_MAT]);
     a.n_media = static_cast<int>(v[FBV_N_MEDIA]);
     a.t = static_cast<const float*>(p[FBP_T]);
@@ -837,9 +1016,22 @@ extern "C" int first_hit_backward_launch(const void* const* p,
     a.g_sph = static_cast<float*>(const_cast<void*>(p[FBP_G_SPH]));
     a.g_pl = static_cast<float*>(const_cast<void*>(p[FBP_G_PLN]));
     a.n = n;
-    const long long blocks = (n + kBackThreads - 1) / kBackThreads;
-    first_hit_backward<<<static_cast<unsigned int>(blocks), kBackThreads, 0,
+    const int stage = a.stage_floats * static_cast<int>(sizeof(float));
+    if (stage > kMaxStageBytes) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned int blocks = 0;
+    const cudaError_t err = backward_grid(n, &blocks, nullptr, nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    first_hit_backward<<<blocks, kBackThreads, stage,
                          static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// FHB's grid for n lanes on the current device: out = {blocks, blocks a
+// SM, SMs} (the first call queries the device)
+extern "C" int first_hit_backward_grid(long long n, int* out) {
+  unsigned int blocks = 0;
+  const cudaError_t err = backward_grid(n, &blocks, &out[1], &out[2]);
+  out[0] = static_cast<int>(blocks);
+  return static_cast<int>(err);
 }

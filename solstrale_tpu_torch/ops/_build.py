@@ -71,8 +71,9 @@ _SIGNATURES = {
     "first_hit_launch": [_P, _P, _P],
     "camera_rays_backward_launch": [_P, _P, _P],
     "first_hit_backward_launch": [_P, _P, _P],
-    # FH's grid for n lanes: out = {blocks, blocks a SM, SMs}
+    # FH's and FHB's grids for n lanes: out = {blocks, blocks a SM, SMs}
     "first_hit_grid": [_L, _P],
+    "first_hit_backward_grid": [_L, _P],
 }
 
 

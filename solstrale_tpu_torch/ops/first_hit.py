@@ -29,7 +29,9 @@ each draw, over every pixel:
   and the background (added into the backward pass's ``ops.step.GradSums``,
   as S1B adds), to the rays (detached t: the hit point's), and to the
   frame columns of ``Solids.sph_attr`` (center) and ``Solids.pl_attr``
-  (normal, tangent, bitangent). Plain version:
+  (normal, tangent, bitangent); on a resident grid
+  (``first_hit_backward_grid``) whose blocks sum each row in shared memory
+  (``BACK_SLOTS``) before one atomic add. Plain version:
   ``first_hit_backward_plain``.
 
 Each wrapper picks by the device of its tensors only: CPU tensors take the
@@ -69,12 +71,12 @@ FIRST_INTS = (("n", "flags", "shader", "n_sph", "n_pl", "n_q", "n_mat",
 # CRB's pointers (its int64 values are CR's, CAM_INTS)
 CAM_BACK_PTRS = ("cam", "pixel", "sample", "seed", "g_ray", "g_cam")
 FIRST_BACK_PTRS = (("sph", "pln", "mats", "tex_attr", "texels", "med_mat",
-                    "pl_row", "t", "kind", "idx") + RAY
+                    "pl_row", "small", "t", "kind", "idx") + RAY
                    + _COUNTERS + ("g_color", "g_albedo", "g_normal",
                                   "g_texels", "g_bg")
                    + tuple("g_" + n for n in RAY) + ("g_sph", "g_pln"))
 FIRST_BACK_INTS = (("n", "flags", "shader", "n_sph", "n_pl", "n_q", "n_mat",
-                    "n_tex", "n_texels", "n_media")
+                    "n_tex", "n_texels", "n_media", "stage")
                    + tuple(f"{c}_{k}" for c in _COUNTERS for k in _COUNTER))
 # the debug shaders FH writes into its color plane (integrator.SHADER_*)
 SHADERS = (1, 2, 3)
@@ -84,8 +86,14 @@ PLANES = ("color", "albedo", "normal")
 # (scene.compile.CameraSoA; 3 values each, lens_radius one)
 CAMERA_FIELDS = ("origin", "lower_left", "horizontal", "vertical", "u", "v",
                  "lens_radius")
-# FH's threads a block (csrc/first_hit.cu's kFirstThreads)
+# FH's and FHB's threads a block (csrc/first_hit.cu's kFirstThreads and
+# kBackThreads)
 THREADS = 256
+BACK_THREADS = 256
+# the slots of FHB's block tables of row sums (csrc/first_hit.cu's
+# kTexelSlotBits, kFrameSlotBits, kSphereSlotBits): a block's distinct rows
+# beyond them are added to device memory directly
+BACK_SLOTS = dict(texel=1 << 10, frame=1 << 8, sphere=1 << 7)
 
 
 def camera_rays(cs, pixel, sample, seed, width, height):
@@ -328,6 +336,17 @@ def first_hit_grid(n):
     return dict(blocks=out[0], per_sm=out[1], sms=out[2])
 
 
+def first_hit_backward_grid(n):
+    """FHB's resident grid for ``n`` lanes on the current CUDA device, as
+    its launch computes it (as ``first_hit_grid`` does FH's): a dict of
+    ``blocks``, ``per_sm`` and ``sms``. A wave of the grid is ``blocks *
+    BACK_THREADS`` lanes."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().first_hit_backward_grid(n, out),
+                 "first_hit_backward_grid")
+    return dict(blocks=out[0], per_sm=out[1], sms=out[2])
+
+
 def first_hit_kernel(fn, cs, t, kind, idx, o, d, pixel, sample, seed,
                      shader_kind, albedo, normal, stream):
     """FH's launch through its C entry ``fn`` (``first_hit_launch``) on
@@ -505,8 +524,8 @@ def first_back_kernel(fn, cs, t, kind, idx, o, d, pixel, sample, seed,
     keep = []   # the upstream gradients made contiguous, held to the launch
     ptrs = dict(sph=p(tab.sph), pln=p(tab.pln), mats=p(tab.mats),
                 tex_attr=p(tab.tex_attr), texels=p(texels),
-                med_mat=p(tab.med_mat), pl_row=p(tab.pl_row), t=p(t),
-                idx=p(idx))
+                med_mat=p(tab.med_mat), pl_row=p(tab.pl_row),
+                small=p(tab.small), t=p(t), idx=p(idx))
     if kind is not None:
         ptrs["kind"] = p(kind)
     ray = [c.contiguous() for c in (*o, *d)]
@@ -540,7 +559,8 @@ def first_back_kernel(fn, cs, t, kind, idx, o, d, pixel, sample, seed,
     ints = dict(n=r, flags=tab.flags, shader=shader_kind or 0,
                 n_sph=tab.sph.shape[0], n_pl=tab.pln.shape[0], n_q=tab.n_q,
                 n_mat=tab.mats.shape[0], n_tex=tab.tex_attr.shape[0],
-                n_texels=n, n_media=tab.med_mat.shape[0])
+                n_texels=n, n_media=tab.med_mat.shape[0],
+                stage=stage_floats(tab))
     held = _add_counters(ptrs, ints, (("pixel", pixel), ("sample", sample),
                                       ("seed", seed)), r, dev)
     _build.check(_launch(fn, FIRST_BACK_PTRS, FIRST_BACK_INTS, ptrs, ints,

@@ -59,14 +59,19 @@ into a sums buffer made once, so the device runs the kernel alone) with
 its bound (``s1b_work``), without the arena's and background's sums (the
 fold's gradients alone), on the same record with every lane reading
 texel row 0 (a solid colour), and how its arena adds meet
-(``s1b_rows``); the first hit's kernels, FH and CR, at the whole-image
-widths of ``FIRST_IMAGES`` (106,400 lanes of a 400x266 image, 2,073,600 of
-a 1920x1080 one: every pixel id once, an int sample, the scene's camera),
+(``s1b_rows``); the first hit's kernels at the whole-image widths of
+``FIRST_IMAGES`` (106,400 lanes of a 400x266 image, 2,073,600 of a
+1920x1080 one: every pixel id once, an int sample, the scene's camera),
 set up and timed by ``first_hit_times``: CR, FH with the aux planes and
-FH with each debug shader alone, each by ``device_ms`` beside its bound
-(``cr_work``, ``fh_work``); and ptxas' lines for the step kernels, FH and
-CR. The first hit's kernel cells (``first_hit_<scene>``, the same scenes)
-run FH's and CR's part alone, with their ptxas lines.
+FH with each debug shader alone, CRB, and FHB in the route's form
+(``fhb_calls``) and without its sums, with the arena's alone and with the
+frame tables' alone, each by ``device_ms`` beside its bound (``cr_work``,
+``fh_work``, ``crb_work``, ``fhb_work``), with how FHB's rows meet
+(``fhb_rows``) and its grid; and ptxas' lines for the step kernels and
+the first hit's four (``FIRST_KERNELS``). The first hit's kernel cells
+(``first_hit_<scene>``, the same scenes) run the first hit's part alone,
+with its ptxas lines: ``--parent DIR --workloads first_hit_...`` A/Bs
+FHB.
 
 The first hit's cells (``aux_interior``: the untextured interior at
 1920x1080, the main path's denoised render, K1; ``aux_kitchen``: the
@@ -121,7 +126,8 @@ KERNEL_WIDTHS = (16384, 106400, 131072, 2073600)
 # the first hit's images in the step kernels' and the first hit's kernel
 # cells (first_hit_times), and its kernels' entry names
 FIRST_IMAGES = ((400, 266), (1920, 1080))
-FIRST_KERNELS = ("first_hit_shade", "camera_rays")
+FIRST_KERNELS = ("first_hit_shade", "camera_rays", "first_hit_backward",
+                 "camera_rays_backward")
 # the first hit's cells: each one's scene, as the workload of that name
 # builds it, at 1920x1080
 AUX = {"aux_interior": "interior", "aux_kitchen": "kitchen_1080p"}
@@ -704,11 +710,11 @@ def lane_bytes(x):
             else 0)
 
 
-def _texel_rows(cs, o, d, hit, pix, sample, want_alb, want_n):
-    """The texel rows FH and FHB read on one call's hit: (the albedo
-    texels' rows of the hit lanes where ``want_alb``, else None; the
-    normal map's of the lanes it applies to where ``want_n`` on a scene
-    with normal maps, else None), (R',) int64 each."""
+def _texel_lanes(cs, o, d, hit, pix, sample, want_alb, want_n):
+    """The texel row each lane of one call's hit reads in FH and FHB, (R,)
+    int64, -1 where it reads none: (the albedo texel's where
+    ``want_alb``, else None; the normal map's where ``want_n`` on a scene
+    with normal maps, else None)."""
     import torch
     from solstrale_tpu_torch.ops import rng, step
     from solstrale_tpu_torch.renderer import integrator
@@ -721,21 +727,31 @@ def _texel_rows(cs, o, d, hit, pix, sample, want_alb, want_n):
     if want_alb:
         eff = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
             pix, samp, bounce, rng.P_BLEND_SCATTER, 1), cs.features)
-        alb = integrator.texel_index(
+        alb = torch.where(live, integrator.texel_index(
             cs.textures, integrator.mat_row(mats, eff)["albedo_tex"],
-            attrs["uv"])[live]
+            attrs["uv"]).long(), -1)
     if want_n and step.step_tables(cs).flags & step.FLAG_NORMAL_MAPS:
         eff_n = integrator.resolve_blend(mats, attrs["mat"], rng.uniform4(
             pix, samp, bounce, rng.P_BLEND_NORMAL, 1), cs.features)
         ntex = integrator.mat_row(mats, eff_n)["normal_tex"]
-        on = live & (ntex >= 0)
-        nrm = integrator.texel_index(cs.textures, ntex, attrs["uv"])[on]
+        nrm = torch.where(live & (ntex >= 0), integrator.texel_index(
+            cs.textures, ntex, attrs["uv"]).long(), -1)
     return alb, nrm
 
 
-def _hit_rows(cs, hit):
-    """The attribute rows one call's hit lanes read: (distinct planar
-    slots, distinct sphere rows), each counted once."""
+def _texel_rows(cs, o, d, hit, pix, sample, want_alb, want_n):
+    """The texel rows FH and FHB read on one call's hit: (the albedo
+    texels' rows of the hit lanes where ``want_alb``, else None; the
+    normal map's of the lanes it applies to where ``want_n`` on a scene
+    with normal maps, else None), (R',) int64 each."""
+    return tuple(None if x is None else x[x >= 0] for x in _texel_lanes(
+        cs, o, d, hit, pix, sample, want_alb, want_n))
+
+
+def _frame_lanes(cs, hit):
+    """The attribute row each lane of one call's hit reads and FHB adds its
+    frame's gradient to, (R,) int64, -1 where none: (the planar slot, the
+    sphere row)."""
     import torch
     from solstrale_tpu_torch.ops import step
     from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
@@ -744,15 +760,53 @@ def _hit_rows(cs, hit):
     tab = step.step_tables(cs)
     t, kind, idx = hit
     live = torch.isfinite(t)
-    n_pl = tab.pln.shape[0]
+    top = max(tab.pln.shape[0] - 1, 0)
+    none = torch.full(t.shape, -1, dtype=torch.int64, device=t.device)
     if kind is None:
-        return int(torch.unique(idx[live].clamp(0, max(n_pl - 1, 0)))
-                   .numel()), 0
+        return torch.where(live, idx.long().clamp(0, top), -1), none
     sph = live & (kind == KIND_SPHERE) & bool(tab.flags & step.FLAG_SPHERES)
     pl = live & ~sph & ~((kind == KIND_MEDIUM) & (tab.med_mat.shape[0] > 0))
-    slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx)
-    return (int(torch.unique(slot[pl].clamp(0, max(n_pl - 1, 0))).numel()),
-            int(torch.unique(idx[sph]).numel()))
+    slot = torch.where(kind == KIND_TRIANGLE, tab.n_q + idx, idx).long()
+    return (torch.where(pl, slot.clamp(0, top), -1),
+            torch.where(sph, idx.long(), -1))
+
+
+def _hit_rows(cs, hit):
+    """The attribute rows one call's hit lanes read: (distinct planar
+    slots, distinct sphere rows), each counted once."""
+    import torch
+
+    return tuple(int(torch.unique(x[x >= 0]).numel())
+                 for x in _frame_lanes(cs, hit))
+
+
+def fhb_rows(rows, blocks, threads=256):
+    """How FHB's sums of one kind of row meet, from the row each lane adds
+    to (``rows``: (R,) int64, -1 where none; or a tuple of such, a lane's
+    rows of one kind): the distinct rows, the (warp, row) pairs (one warp
+    match and sum each), the most warps that add to one row (the adds one
+    address takes in turn when each warp adds its sums to device memory)
+    and, on a grid of ``blocks`` blocks of ``threads`` threads that each
+    walk their lanes a grid apart, the most and the mean distinct rows one
+    block adds to (a block table's load)."""
+    import torch
+
+    rows = rows if isinstance(rows, tuple) else (rows,)
+    lane = torch.cat([torch.arange(x.shape[0], device=x.device)[x >= 0]
+                      for x in rows])
+    row = torch.cat([x[x >= 0] for x in rows])
+    if row.numel() == 0:
+        return dict(rows=0, warp_rows=0, hot_row_warps=0, block_rows_max=0,
+                    block_rows_mean=0.0)
+    span = int(row.max()) + 1
+    pairs = torch.unique((lane // 32) * span + row)
+    block = torch.unique(((lane // threads) % blocks) * span + row) // span
+    per_block = torch.bincount(block, minlength=blocks)
+    return dict(rows=int(torch.unique(row).numel()),
+                warp_rows=int(pairs.numel()),
+                hot_row_warps=int(torch.bincount(pairs % span).max()),
+                block_rows_max=int(per_block.max()),
+                block_rows_mean=float(per_block.float().mean()))
 
 
 def fh_work(cs, o, d, hit, pix, sample, planes, shader=None, grain=12):
@@ -875,15 +929,57 @@ def crb_work(cs, pix, sample):
             r * CRB_LANE)
 
 
+def fhb_calls(cs, o, d, hit, pix, sample, seed=SEED):
+    """FHB (``ops.first_hit.first_hit_backward``) as calls that repeat, on
+    one hit of CR's rays, in the route's form (phase 2e's: the simple
+    shader's color and both aux planes, upstream gradients seeded by the
+    lane count; ``seed`` the draws' seed of the hit) into sums made once,
+    so that the card runs FHB's kernel alone (its wrapper allocating only
+    the rays' six gradients): ``full``, every
+    gradient; ``rays_only``, no sums (the rays' gradients alone);
+    ``texels_only``, the arena's and the background's sums (the pass's
+    ``GradSums``) and no frame tables; ``frames_only``,
+    the frame tables' sums (``sph_attr``, ``pl_attr``) and no arena.
+    Returns a dict of the four calls and ``planes``."""
+    import torch
+    from solstrale_tpu_torch.ops import first_hit
+    from solstrale_tpu_torch.renderer import integrator
+
+    r = pix.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(r)
+    planes = {k: torch.randn((r, 3), generator=gen, device="cuda")
+              for k in first_hit.PLANES}
+    texels = cs.textures.pixels
+    sums = torch.zeros((texels.shape[0] + 1, 3), device="cuda")
+    g_sph = torch.zeros_like(cs.solids.sph_attr)
+    g_pl = torch.zeros_like(cs.solids.pl_attr)
+
+    def call(arena, frames):
+        return lambda: first_hit.first_hit_backward(
+            cs, *hit, o, d, pix, sample, seed, texels, planes,
+            integrator.SHADER_SIMPLE, sums if arena else None, arena, arena,
+            g_sph=g_sph if frames else None, g_pl=g_pl if frames else None)
+
+    return dict(full=call(True, True), rays_only=call(False, False),
+                texels_only=call(True, False), frames_only=call(False, True),
+                planes=planes)
+
+
 def first_hit_times(cs):
-    """FH's and CR's device ms in a step kernels' cell: at each image of
-    ``FIRST_IMAGES`` (every pixel id once, sample 1, seed ``SEED``, the
-    scene's camera), CR, and FH on CR's rays and their depth-0 hit
-    (``integrator.step_hit``, as ``first_hit_planes`` takes it) with the
-    aux planes (the denoiser's form) and with each debug shader alone, each
-    beside its bound (``cr_work``, ``fh_work``) and FH's also beside the
-    bound that counts each texel read as the 32-byte sectors it lies in
-    (``fh_work``'s ``grain``). Keys by lane count."""
+    """The first hit's kernels' device ms in a step kernels' cell: at each
+    image of ``FIRST_IMAGES`` (every pixel id once, sample 1, seed
+    ``SEED``, the scene's camera), CR, and FH on CR's rays and their
+    depth-0 hit (``integrator.step_hit``, as ``first_hit_planes`` takes it)
+    with the aux planes (the denoiser's form) and with each debug shader
+    alone, each beside its bound (``cr_work``, ``fh_work``) and FH's also
+    beside the bound that counts each texel read as the 32-byte sectors it
+    lies in (``fh_work``'s ``grain``); CRB on seeded gradients of the rays
+    and FHB in the route's form (``fhb_calls``), each beside its bound
+    (``crb_work``, ``fhb_work``), FHB also without its sums, with the
+    arena's alone and with the frame tables' alone; how FHB's texel,
+    planar and sphere rows meet (``fhb_rows``, on its grid where the tree
+    has ``first_hit_backward_grid``, else on FH's) and that grid. Keys by
+    lane count."""
     import torch
     from solstrale_tpu_torch.ops import first_hit
     from solstrale_tpu_torch.renderer import integrator
@@ -910,6 +1006,30 @@ def first_hit_times(cs):
             for key, grain in (("bound", 12), ("sector_bound", 32)):
                 line[f"fh_{name}_{key}_ms"] = bound_ms(*fh_work(
                     cs, o, d, hit, pix, 1, planes, shader, grain))[0]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        g_ray = torch.randn((6, w * h), generator=gen, device="cuda")
+        line.update(crb_ms=device_ms(lambda: first_hit.camera_rays_backward(
+            cs, pix, 1, SEED, w, h, g_ray)),
+            crb_bound_ms=bound_ms(*crb_work(cs, pix, 1))[0])
+        calls = fhb_calls(cs, o, d, hit, pix, 1)
+        for key in ("full", "rays_only", "texels_only", "frames_only"):
+            name = "fhb_ms" if key == "full" else f"fhb_{key}_ms"
+            line[name] = device_ms(calls[key])
+        line["fhb_bound_ms"], line["fhb_bound_by"] = bound_ms(*fhb_work(
+            cs, o, d, hit, pix, 1, dict(albedo=True, normal=True),
+            integrator.SHADER_SIMPLE))
+        grid_of = getattr(first_hit, "first_hit_backward_grid", None)
+        grid = (grid_of or first_hit.first_hit_grid)(w * h)
+        threads = getattr(first_hit, "BACK_THREADS", first_hit.THREADS)
+        texel = _texel_lanes(cs, o, d, hit, pix, 1, True, True)
+        pl, sph = _frame_lanes(cs, hit)
+        line.update(fhb_grid=dict(grid, threads=threads,
+                                  own=grid_of is not None),
+                    fhb_rows={k: fhb_rows(v, grid["blocks"], threads)
+                              for k, v in (
+                                  ("texel", tuple(x for x in texel
+                                                  if x is not None)),
+                                  ("planar", pl), ("sphere", sph))})
         out[str(w * h)] = line
     return out
 
@@ -940,7 +1060,7 @@ def ptxas_lines(log, names=("step_",)):
 
 
 def measure_first_hit(cs):
-    """The line of a first hit's kernel cell: FH and CR alone
+    """The line of a first hit's kernel cell: CR, FH, CRB and FHB alone
     (``first_hit_times``) and their ptxas lines."""
     return dict(first_hit=first_hit_times(cs),
                 ptxas=ptxas_lines(build_log(), FIRST_KERNELS))

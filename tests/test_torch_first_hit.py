@@ -307,16 +307,32 @@ def test_first_hit_argument_names(enum, prefix, names, groups):
     if enum == "BackPtr":
         assert values["FBP_PIXEL"] - values["FBP_RAY"] == len(FH.RAY)
         assert values["FBP_G_SPH"] - values["FBP_G_RAY"] == len(FH.RAY)
+    # FHB stages the small tables as FH does: FH's pointer and count, each
+    # after the same argument as in FH's arrays
+    if enum == "BackPtr":
+        assert values["FBP_SMALL"] == values["FBP_PL_ROW"] + 1
+        assert FH.FIRST_PTRS.index("small") == FH.FIRST_PTRS.index(
+            "pl_row") + 1
+    if enum == "BackInt":
+        assert values["FBV_STAGE"] == values["FBV_N_MEDIA"] + 1
+        assert FH.FIRST_INTS.index("stage") == FH.FIRST_INTS.index(
+            "n_media") + 1
 
 
 @pytest.mark.parametrize("name,value", [
     ("kFirstThreads", FH.THREADS),
-    ("kMaxStageBytes", TS.STAGE_MAX_BYTES)])
+    ("kMaxStageBytes", TS.STAGE_MAX_BYTES),
+    ("kBackThreads", FH.BACK_THREADS),
+    ("kTexelSlotBits", FH.BACK_SLOTS["texel"].bit_length() - 1),
+    ("kFrameSlotBits", FH.BACK_SLOTS["frame"].bit_length() - 1),
+    ("kSphereSlotBits", FH.BACK_SLOTS["sphere"].bit_length() - 1)])
 def test_first_hit_constants_match_the_wrapper(name, value):
-    """FH's block size (the wave ``first_hit_grid`` counts in) and the
-    largest staging its persistent grid is sized for, as
-    csrc/first_hit.cu states them, are the wrapper's: ``THREADS`` and
-    ``ops.step.STAGE_MAX_BYTES``, the most ``stage_floats`` hands it."""
+    """FH's and FHB's block sizes (the waves ``first_hit_grid`` and
+    ``first_hit_backward_grid`` count in), the largest staging their
+    grids are sized for and FHB's block tables' slots, as
+    csrc/first_hit.cu states them, are the wrapper's: ``THREADS``,
+    ``BACK_THREADS``, ``ops.step.STAGE_MAX_BYTES`` (the most
+    ``stage_floats`` hands them) and ``BACK_SLOTS``."""
     src = (Path(FH.__file__).parent.parent / "csrc" /
            "first_hit.cu").read_text()
     assert f"constexpr int {name} = {value};" in src
@@ -332,3 +348,62 @@ def test_shader_kinds_match_the_kernel():
         assert f"SHADER_{name} = {value}" in src
         assert value in FH.SHADERS
     assert TI.SHADER_PATH not in FH.SHADERS
+
+
+def test_fhb_rows_counts_warps_and_blocks():
+    """wavefront_ab.fhb_rows, which sizes FHB's block tables and reports
+    how its sums meet: distinct rows, (warp, row) pairs, the most warps on
+    one row and the distinct rows a block of a grid-stride walk meets, on
+    lanes whose rows are known (-1: no row; a tuple: two rows a lane)."""
+    from solstrale_tpu_torch import wavefront_ab
+
+    rows = torch.full((128,), -1, dtype=torch.int64)
+    rows[:40] = 5          # warp 0 and 8 lanes of warp 1
+    rows[40:64] = 7        # the rest of warp 1
+    rows[64:96] = 5        # warp 2
+    rows[100] = 9          # one lane of warp 3
+    got = wavefront_ab.fhb_rows(rows, blocks=2, threads=32)
+    # warps 0-2 add row 5, warp 1 row 7 too, warp 3 row 9; blocks of 32
+    # threads a grid of 2 apart: lanes 0-31 and 64-95 in block 0 (row 5),
+    # 32-63 and 96-127 in block 1 (rows 5, 7, 9)
+    assert got == dict(rows=3, warp_rows=5, hot_row_warps=3,
+                       block_rows_max=3, block_rows_mean=2.0)
+    other = torch.full((128,), -1, dtype=torch.int64)
+    other[96:128] = 5
+    got = wavefront_ab.fhb_rows((rows, other), blocks=1, threads=32)
+    assert got == dict(rows=3, warp_rows=6, hot_row_warps=4,
+                       block_rows_max=3, block_rows_mean=3.0)
+    none = torch.full((8,), -1, dtype=torch.int64)
+    assert wavefront_ab.fhb_rows(none, 4)["rows"] == 0
+
+
+@pytest.mark.parametrize("name", ["kitchen", "sponza24"])
+def test_fhb_row_lanes_match_the_row_counts(compiled, name):
+    """The rows FHB adds to, lane by lane (wavefront_ab._texel_lanes,
+    _frame_lanes), are the rows fh_work and fhb_work count (_texel_rows,
+    _hit_rows): the same texel rows read, the same distinct planar slots
+    and sphere rows; -1 exactly on the lanes without one (a miss; a
+    sphere or medium for the planar slot)."""
+    from solstrale_tpu_torch import wavefront_ab
+
+    _, ct = compiled(name)
+    pix = torch.from_numpy(_pixel_ids(500))
+    o, d = TI.camera_rays_plain(ct, pix, SAMPLE, SEED, W, H)
+    samp, bounce = TI._depth0(pix, SAMPLE)
+    hit = TI.step_hit(ct, o, d, pix, samp, bounce, SEED)
+    lanes = wavefront_ab._texel_lanes(ct, o, d, hit, pix, SAMPLE, True, True)
+    counted = wavefront_ab._texel_rows(ct, o, d, hit, pix, SAMPLE, True,
+                                       True)
+    assert (lanes[1] is None) == (counted[1] is None) == (name != "kitchen")
+    for a, b in zip(lanes, counted):
+        if a is not None:
+            assert torch.equal(a[a >= 0], b)
+    live = torch.isfinite(hit[0])
+    assert torch.equal(lanes[0] >= 0, live)
+    pl, sph = wavefront_ab._frame_lanes(ct, hit)
+    assert not ((pl >= 0) & (sph >= 0)).any()
+    assert not ((pl >= 0) & ~live).any() and not ((sph >= 0) & ~live).any()
+    assert wavefront_ab._hit_rows(ct, hit) == (
+        int(torch.unique(pl[pl >= 0]).numel()),
+        int(torch.unique(sph[sph >= 0]).numel()))
+    assert (pl >= 0).sum() > 100

@@ -86,28 +86,45 @@ def spheremap_scene(cfg, api):
     return api.Scene(api.Bvh(world), camera, (0.3, 0.4, 0.6), cfg)
 
 
+def hotquad_scene(cfg, api):
+    """One large quad of one solid colour filling most of the view, a small
+    sphere light above it and the background past its far edge: most
+    lanes hit one planar row and read one texel row, the hottest rows
+    FHB's sums meet."""
+    world = [
+        api.Quad((-4, 0, -4), (8, 0, 0), (0, 0, 8),
+                 api.Lambertian(api.SolidColor(0.6, 0.5, 0.3))),
+        api.Sphere((0.0, 3.0, 0.0), 0.3, api.DiffuseLight(5, 5, 5)),
+    ]
+    camera = api.CameraConfig(vertical_fov_degrees=50.0, aperture_size=0.0,
+                              look_from=(0.0, 4.0, 4.0),
+                              look_at=(0.0, 0.0, -0.5))
+    return api.Scene(api.Bvh(world), camera, (0.3, 0.4, 0.6), cfg)
+
+
+# scenes of this file's own, beside test_torch_first_hit.py's fixtures
+OWN = {"spheremap": spheremap_scene, "hotquad": hotquad_scene}
 ALL = FIXTURES + ["spheremap"]
 
 
 def _scene(compiled, name):
     """(JAX compiled scene, port compiled scene on the CPU)."""
-    if name != "spheremap":
+    if name not in OWN:
         return compiled(name)
     if name not in _COMPILED:
         def cfg(api):
             return api.RenderConfig(width=W, height=H, samples_per_pixel=2,
                                     seed=SEED)
 
-        _COMPILED[name] = (jcompile(spheremap_scene(cfg(J), J)),
-                           tcompile(spheremap_scene(cfg(T), T),
-                                    device="cpu"))
+        _COMPILED[name] = (jcompile(OWN[name](cfg(J), J)),
+                           tcompile(OWN[name](cfg(T), T), device="cpu"))
     return _COMPILED[name]
 
 
 def _args(compiled, name):
     """(cj, ct, JAX arguments, port arguments): ``o, d, pix, sample,
     seed`` of the same rays on both sides."""
-    if name != "spheremap":
+    if name not in OWN:
         return _jax_and_port(compiled, name)
     cj, ct = _scene(compiled, name)
     pix, o, d = _rays(name, ct)
@@ -288,6 +305,48 @@ def test_arena_and_background_grad_matches_jax(compiled, same_hit, name,
     for g, w in zip((g_arena, g_bg), gj):
         assert bool((g != 0).any()) == bool((np.asarray(w) != 0).any())
     assert plane == "normal" or (g_arena != 0).any()
+
+
+@pytest.mark.parametrize("plane", PLANES)
+def test_hot_row_grad_matches_jax(compiled, same_hit, plane):
+    """(a) on the hottest rows (``hotquad``: most lanes hit one quad of
+    one solid colour, so that their gradients meet in one texel row and
+    one frame row, as FHB's block tables sum them on the card): jax.grad
+    of a seeded weighted sum of a plane through JAX's own first_hit_aux /
+    shade_* with respect to the arena, the background and pl_attr, both
+    packages shading the port's hit (``same_hit``; t a constant, so
+    pl_attr's gradient is its frame's), against torch.autograd.grad
+    through the port's public functions (their plain backward here):
+    within 1e-5 of the magnitudes summed into each entry, and 1e-6; the
+    quad's frame row non-zero."""
+    cj, ct, jargs, targs = _args(compiled, "hotquad")
+    same_hit(ct, targs)
+    t, kind, idx = _port_hit(ct, targs)
+    quad = np.isfinite(t) & (kind == 1) & (idx == 0)
+    assert quad.mean() > 0.5, quad.mean()
+    r = targs[2].shape[0]
+    ws = _weights(r, 2 if plane == "aux" else 1, seed=29)
+
+    def f(p, bg, pl):
+        c = dataclasses.replace(
+            cj, textures=dataclasses.replace(cj.textures, pixels=p),
+            bg_color=bg, solids=dataclasses.replace(cj.solids, pl_attr=pl))
+        return sum(jnp.sum(x * w) for x, w in
+                   zip(_jax_planes(c, jargs, plane), ws))
+
+    gj = jax.grad(f, argnums=(0, 1, 2))(cj.textures.pixels, cj.bg_color,
+                                        cj.solids.pl_attr)
+    c, leaves = _leaves(ct, (ARENA, BG, PL))
+    out = _port_planes(c, targs, plane)
+    loss = sum((x * torch.from_numpy(w)).sum() for x, w in zip(out, ws))
+    got = torch.autograd.grad(loss, [leaves[p] for p in (ARENA, BG, PL)])
+    s_arena, s_bg, _, s_pl = _magnitudes(ct, targs, {plane: [
+        torch.from_numpy(w) for w in ws]})
+    for label, g, w, m in zip(("arena", "background", "pl_attr"), got, gj,
+                              (s_arena, s_bg, s_pl)):
+        _close(g, w, m, label)
+    assert plane == "albedo" or (got[2][0] != 0).any()
+    assert plane == "normal" or (got[0] != 0).any()
 
 
 # --- (b) and (e): the rays and every float table against JAX's pieces -------

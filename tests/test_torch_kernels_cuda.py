@@ -1136,15 +1136,67 @@ def _grad_sums_close(got, want, scale):
     assert not bad.any(), (int(bad.sum()), float((got - want).abs().max()))
 
 
+def _fhb_run(fn, cs, hit, o, d, pix, sample, planes, shader, **kw):
+    """One FHB call (``fn``: the wrapper or a plain version) into new sums:
+    (the rays' gradients, (arena and background sums, sph_attr's,
+    pl_attr's))."""
+    texels = cs.textures.pixels
+    sums = torch.zeros((texels.shape[0] + 1, 3), device=pix.device)
+    g_sph = torch.zeros_like(cs.solids.sph_attr)
+    g_pl = torch.zeros_like(cs.solids.pl_attr)
+    ray = fn(cs, *hit, o, d, pix, sample, 1, texels, planes, shader, sums,
+             g_sph=g_sph, g_pl=g_pl, **kw)
+    return ray, (sums, g_sph, g_pl)
+
+
+def _fhb_against_plain(cs, hit, o, d, pix, sample, g, forms, nan=False):
+    """FHB against its plain version on one hit of rays ``o``, ``d`` with
+    the upstream gradients ``g`` (by plane), for each (shader, albedo,
+    normal) of ``forms``: one launch a call, the rays' gradients bit for
+    bit (NaN where the plain has NaN), the arena's, the background's and
+    the frame tables' sums within 1e-5 of the magnitudes summed into each
+    entry (``magnitudes=True``), and 1e-7, the plain sums finite; with
+    ``nan`` (a NaN upstream), NaN where the plain sums are NaN and held so
+    elsewhere. Returns the calls checked."""
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    checked = 0
+    for shader, alb, nrm in forms:
+        planes = dict(color=g["color"] if shader else None,
+                      albedo=g["albedo"] if alb else None,
+                      normal=g["normal"] if nrm else None)
+        before = fh.first_hit_backward.launches
+        k_ray, k_sums = _fhb_run(fh.first_hit_backward, cs, hit, o, d, pix,
+                                 sample, planes, shader)
+        assert fh.first_hit_backward.launches == before + 1
+        p_ray, p_sums = _fhb_run(fh.first_hit_backward_plain, cs, hit, o, d,
+                                 pix, sample, planes, shader)
+        _, m_sums = _fhb_run(fh.first_hit_backward_plain, cs, hit, o, d, pix,
+                             sample, planes, shader, magnitudes=True)
+        assert all(_same(a, b) for a, b in zip(k_ray, p_ray)), (
+            shader, alb, nrm)
+        for a, b, m in zip(k_sums, p_sums, m_sums):
+            bad = torch.isnan(b) if nan else torch.zeros_like(b, dtype=bool)
+            assert torch.equal(torch.isnan(a), bad), (shader, alb, nrm)
+            _grad_sums_close(a[~bad], b[~bad], m[~bad])
+        checked += 1
+    return checked
+
+
+# every debug shader and none, and every combination of the aux planes
+FHB_FORMS = [(shader, alb, nrm)
+             for shader in (None, *integrator._DEBUG_PLAIN)
+             for alb in (False, True) for nrm in (False, True)
+             if shader is not None or alb or nrm]
+
+
 def _first_hit_grad_against_plain(cs, pix, sample, w, h, seed=5):
     """CRB and FHB against their plain versions on CR's rays of ``pix``
     and their depth-0 hit (step_hit, as first_hit_planes takes it), with
     upstream gradients from ``seed``: FHB with every debug shader and none
-    and every combination of the aux planes, one launch a call, the rays'
-    gradients bit for bit, the arena's, the background's and the frame
-    tables' sums within 1e-5 of the magnitudes summed into each entry
-    (``magnitudes=True``), and 1e-7; CRB's camera gradients likewise.
-    Returns the calls checked."""
+    and every combination of the aux planes (``_fhb_against_plain``), CRB's
+    camera gradients within 1e-5 of the magnitudes summed, and 1e-7.
+    Returns FHB's calls checked."""
     from solstrale_tpu_torch.ops import first_hit as fh
 
     dev = pix.device
@@ -1155,37 +1207,7 @@ def _first_hit_grad_against_plain(cs, pix, sample, w, h, seed=5):
     gen = torch.Generator(device=dev).manual_seed(seed)
     g = {k: torch.randn((r, 3), generator=gen, device=dev)
          for k in fh.PLANES}
-    texels = cs.textures.pixels
-
-    def run(fn, planes, shader, **kw):
-        sums = torch.zeros((texels.shape[0] + 1, 3), device=dev)
-        g_sph = torch.zeros_like(cs.solids.sph_attr)
-        g_pl = torch.zeros_like(cs.solids.pl_attr)
-        ray = fn(cs, *hit, o, d, pix, sample, 1, texels, planes, shader,
-                 sums, g_sph=g_sph, g_pl=g_pl, **kw)
-        return ray, (sums, g_sph, g_pl)
-
-    checked = 0
-    for shader in (None, *integrator._DEBUG_PLAIN):
-        for alb in (False, True):
-            for nrm in (False, True):
-                if shader is None and not (alb or nrm):
-                    continue
-                planes = dict(color=g["color"] if shader else None,
-                              albedo=g["albedo"] if alb else None,
-                              normal=g["normal"] if nrm else None)
-                before = fh.first_hit_backward.launches
-                k_ray, k_sums = run(fh.first_hit_backward, planes, shader)
-                assert fh.first_hit_backward.launches == before + 1
-                p_ray, p_sums = run(fh.first_hit_backward_plain, planes,
-                                    shader)
-                _, m_sums = run(fh.first_hit_backward_plain, planes, shader,
-                                magnitudes=True)
-                assert all(_same(a, b) for a, b in zip(k_ray, p_ray)), (
-                    shader, alb, nrm)
-                for a, b, m in zip(k_sums, p_sums, m_sums):
-                    _grad_sums_close(a, b, m)
-                checked += 1
+    checked = _fhb_against_plain(cs, hit, o, d, pix, sample, g, FHB_FORMS)
     g_ray = torch.randn((6, r), generator=gen, device=dev)
     before = fh.camera_rays_backward.launches
     k_cam = fh.camera_rays_backward(cs, pix, sample, 1, w, h, g_ray)
@@ -1235,3 +1257,166 @@ def test_first_hit_backward_ragged_lanes_match_plain(cuda, lanes):
     pix = torch.randperm(1920 * 1080, generator=g)[:lanes].to(cuda)
     sample = torch.full_like(pix, 3) if lanes % 2 else 2
     assert _first_hit_grad_against_plain(cs, pix, sample, 1920, 1080) == 15
+
+
+def _route_upstream(r, dev, seed):
+    """The route's upstream gradients (every plane), (r, 3) each, from
+    ``seed``."""
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn((r, 3), generator=gen, device=dev)
+            for k in fh.PLANES}
+
+
+def _camera_hit(cs, n, seed):
+    """CR's rays of ``n`` shuffled pixel ids of a 1080p camera (a sample
+    a lane) and their depth-0 hit: (pix, sample, o, d, hit)."""
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    g = torch.Generator().manual_seed(seed)
+    pix = torch.randperm(1920 * 1080, generator=g)[:n].to("cuda")
+    sample = torch.full_like(pix, 3)
+    o, d = fh.camera_rays(cs, pix, sample, 1, 1920, 1080)
+    samp, bounce = integrator._depth0(pix, sample)
+    return pix, sample, o, d, integrator.step_hit(cs, o, d, pix, samp,
+                                                  bounce, 1)
+
+
+def _wave(fh):
+    """FHB's lanes in one wave of its resident grid."""
+    return fh.first_hit_backward_grid(1 << 30)["blocks"] * fh.BACK_THREADS
+
+
+def test_first_hit_backward_grid_stays_in_the_lanes(cuda):
+    """FHB's resident grid (first_hit_backward_grid): at least two blocks a
+    SM, and never more blocks than the lanes fill (1, a block less one, a
+    block, a block and one, a wave and one, many waves)."""
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    full = fh.first_hit_backward_grid(1 << 30)
+    assert full["per_sm"] >= 2 and full["sms"] > 0
+    assert full["blocks"] == full["per_sm"] * full["sms"]
+    t = fh.BACK_THREADS
+    for n in (1, t - 1, t, t + 1, _wave(fh) + 1, 1 << 30):
+        got = fh.first_hit_backward_grid(n)
+        assert got["blocks"] == min(full["blocks"], -(-n // t)), n
+        assert (got["per_sm"], got["sms"]) == (full["per_sm"], full["sms"])
+
+
+@pytest.mark.parametrize("lanes", ["wave+1", "2waves+77"])
+def test_first_hit_backward_grid_edges_match_plain(cuda, lanes):
+    """FHB where the lanes are not a multiple of its grid's stride: a wave
+    of the resident grid and one lane (one warp walks a second time with
+    one lane), two waves and 77 (a ragged warp on the third walk), on the
+    normal-mapped kitchen (spheres, a medium, K4's (kind, idx)); every
+    shader kind and plane combination (``_fhb_against_plain``)."""
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=128, height=64)), device=cuda)
+    wave = _wave(fh)
+    n = wave + 1 if lanes == "wave+1" else 2 * wave + 77
+    pix, sample, o, d, hit = _camera_hit(cs, n, n)
+    assert _fhb_against_plain(cs, hit, o, d, pix, sample,
+                              _route_upstream(n, cuda, 5), FHB_FORMS) == 15
+
+
+def test_first_hit_backward_hot_row_matches_plain(cuda):
+    """The hottest row: every lane of two waves and one of FHB's grid on
+    one planar row under a solid colour (the lane of the kitchen's 1080p
+    camera rays whose albedo texel row most planar hits read, its ray and
+    hit given to every lane, each lane its own pixel id), so that every
+    warp and every block adds to the same texel rows and frame row; FHB
+    in the route's form and with each aux plane alone against its plain
+    version (``_fhb_against_plain``)."""
+    from solstrale_tpu_torch import wavefront_ab
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=128, height=64)), device=cuda)
+    n = 2 * _wave(fh) + 1
+    pix, sample, o, d, hit = _camera_hit(cs, 65536, 3)
+    alb, _ = wavefront_ab._texel_lanes(cs, o, d, hit, pix, sample, True,
+                                       False)
+    pl, _ = wavefront_ab._frame_lanes(cs, hit)
+    on = (alb >= 0) & (pl >= 0)
+    solid = torch.mode(alb[on]).values
+    assert int((on & (alb == solid)).sum()) > 1000
+    j = int(torch.nonzero(on & (alb == solid))[0])
+    one = torch.zeros(n, dtype=torch.int64, device=cuda) + j
+    hit = tuple(x[one] for x in hit)
+    o, d = (tuple(x[one] for x in v) for v in (o, d))
+    g = torch.Generator().manual_seed(11)
+    pix = torch.randperm(1920 * 1080, generator=g)[:n].to(cuda)
+    sample = torch.full_like(pix, 3)
+    rows = wavefront_ab._frame_lanes(cs, hit)[0]
+    assert bool((rows == rows[0]).all()) and int(rows[0]) >= 0
+    forms = [(integrator.SHADER_SIMPLE, True, True), (None, True, False),
+             (None, False, True)]
+    assert _fhb_against_plain(cs, hit, o, d, pix, sample,
+                              _route_upstream(n, cuda, 6), forms) == 3
+
+
+def test_first_hit_backward_table_overflow_matches_plain(cuda):
+    """More distinct texel rows and planar frame rows in one block than
+    FHB's block tables have slots (``first_hit.BACK_SLOTS``, counted by
+    ``wavefront_ab.fhb_rows`` on FHB's grid): four waves and 77 lanes of
+    shuffled 1080p pixel ids on the textured sponza (a 64x64 albedo and
+    normal map, K1's planar slots), so that rows that find no slot go to
+    device memory directly; the route's form and every aux plane alone
+    against the plain version (``_fhb_against_plain``)."""
+    from solstrale_tpu_torch import wavefront_ab
+    from solstrale_tpu_torch.ops import first_hit as fh
+
+    cs = compile_scene(STEP_SCENES["sponza_textured"](T.RenderConfig(
+        width=128, height=64)), device=cuda)
+    n = 4 * _wave(fh) + 77
+    pix, sample, o, d, hit = _camera_hit(cs, n, 13)
+    blocks = fh.first_hit_backward_grid(n)["blocks"]
+    texel = wavefront_ab._texel_lanes(cs, o, d, hit, pix, sample, True, True)
+    rows = dict(texel=wavefront_ab.fhb_rows(texel, blocks, fh.BACK_THREADS),
+                frame=wavefront_ab.fhb_rows(
+                    wavefront_ab._frame_lanes(cs, hit)[0], blocks,
+                    fh.BACK_THREADS))
+    for k, r in rows.items():
+        assert r["block_rows_max"] > fh.BACK_SLOTS[k], (k, r)
+    forms = [(integrator.SHADER_SIMPLE, True, True), (None, True, False),
+             (None, False, True)]
+    assert _fhb_against_plain(cs, hit, o, d, pix, sample,
+                              _route_upstream(n, cuda, 7), forms) == 3
+
+
+def test_first_hit_backward_nan_lands_where_plain_puts_it(cuda):
+    """A NaN upstream gradient (the normal plane's, every channel) on one
+    lane that hits a normal-mapped planar prim and on one that hits a
+    sphere, on the kitchen at 4,099 lanes: the rays' gradients NaN on the
+    sphere lane and equal elsewhere, and NaN in exactly the sums the plain
+    version has NaN in (the frame row, the normal map's texel row and the
+    sphere's center), the other sums held as ever; the route's form and
+    the normal plane alone (``_fhb_against_plain``)."""
+    from solstrale_tpu_torch import wavefront_ab
+    from solstrale_tpu_torch.ops import first_hit as fh
+    from solstrale_tpu_torch.scene.compile import KIND_SPHERE
+
+    cs = compile_scene(fixtures.kitchen_sink_scene(T.RenderConfig(
+        width=128, height=64)), device=cuda)
+    n = 4099
+    pix, sample, o, d, hit = _camera_hit(cs, n, 17)
+    _, nrm = wavefront_ab._texel_lanes(cs, o, d, hit, pix, sample, False,
+                                       True)
+    pl, _ = wavefront_ab._frame_lanes(cs, hit)
+    planar = torch.nonzero((nrm >= 0) & (pl >= 0))
+    sphere = torch.nonzero(torch.isfinite(hit[0]) & (hit[1] == KIND_SPHERE))
+    assert planar.numel() and sphere.numel()
+    g = _route_upstream(n, cuda, 8)
+    for lane in (int(planar[0]), int(sphere[0])):
+        g["normal"][lane] = float("nan")
+    forms = [(integrator.SHADER_SIMPLE, True, True), (None, False, True)]
+    assert _fhb_against_plain(cs, hit, o, d, pix, sample, g, forms,
+                              nan=True) == 2
+    ray, sums = _fhb_run(fh.first_hit_backward, cs, hit, o, d, pix, sample,
+                         dict(color=None, albedo=None, normal=g["normal"]),
+                         None)
+    assert bool(torch.isnan(ray[0][int(sphere[0])]))
+    assert all(bool(torch.isnan(x).any()) for x in sums)
