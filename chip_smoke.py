@@ -40,17 +40,23 @@ script exits non-zero):
      pool's 131,072 lanes on six scenes (the interior, the textured
      sponza, production, many_lights, the mixed scene at depth 4, the
      normal-mapped kitchen on K4 at depth 4), S2's reset and six chained
-     steps each, every output equal (NaN where the plain has NaN); at each
-     step S1 with its record (``ops.step.shade_with_record``) against
-     ``shade_plain(..., record=True)`` bit for bit, a quarter of the lanes
-     parked, and S1B (``ops.step.step_shade_backward``, the differentiable
-     route's backward) against ``step_shade_backward_plain`` on that record
-     and finite upstream gradients from a seed (the color's 0 on a third
-     of the lanes), each adding into sums of its own: the fold's gradients
-     bit for bit, lanes S1B passes through included, the arena's and the
-     background's sums (all finite) within 1e-5 of the magnitudes summed,
-     and 1e-7; then the fold's gradients alone again with the color's
-     gradient inf or NaN on a few lanes, which must not pass; S2 alone
+     steps each (S1 alone in the wavefront pool's form), every output
+     equal (NaN where the plain has NaN); at each step S1 in trace's carry
+     form (the carried color, alive, the parked direction) with its record
+     (``ops.step.shade_with_record``) and without against
+     ``shade_plain(..., record=True, color=...)`` bit for bit, a quarter
+     of the lanes parked, and S1B (``ops.step.step_shade_backward``, the
+     differentiable route's backward) against ``step_shade_backward_plain``
+     on that record and finite upstream gradients from a seed (the color's
+     0 on a third of the lanes), each adding into sums of its own: the
+     carried color's and the fold's gradients bit for bit, lanes S1B passes
+     through included, the arena's, the background's and the materials'
+     attenuation sums (all finite) within 1e-5 of the magnitudes summed,
+     and 1e-7; then the carried color's and the fold's gradients alone
+     again with the color's gradient inf or NaN on a few lanes, which must
+     not pass; the attenuation's gradient on the kitchen-sink solid scene
+     (its attenuated quad light) through K4, S1 and S1B against autograd
+     through the torch composition on the card; S2 alone
      against ``regen_plain`` on edge pools (20,000 and 131,149 lanes, no
      multiple of its block; 16,384 and 131,072; random flags, every
      active lane terminal, none), three calls each; one captured step
@@ -59,9 +65,10 @@ script exits non-zero):
      scene's record, with the fixed trip's upstream gradients, as the
      inverse step calls it: into a sums buffer made once, so its device
      time is the kernel's alone; and checked on the same record with every
-     lane's texel row one row, a solid colour); S1's, S2's and S1B's
-     device time and bound at 16,384, 106,400, 131,072 and 2,073,600
-     lanes, S1B checked against its plain version at each (at 2,073,600
+     lane's texel row one row, a solid colour); S1's (both forms), S2's
+     and S1B's device time and bound at 16,384, 106,400, 131,072 and
+     2,073,600 lanes, S1B checked against its plain version at each (at
+     2,073,600
      each block of its resident grid loops over several tiles), and
      ptxas' registers and spills of the
      step kernels; S1 and the step on a seventh scene, whose small tables
@@ -623,13 +630,15 @@ def _k1(cs):
     lanes (the first 65,536 camera rays in trace_queued's tile order and
     their bounces) and the 16,384 of the wavefront's tail (camera and bounce
     rays of 8,064 pixels spread over the image, 256 parked): equal to its
-    plain version (hit sets, t and every slot), kernel and plain times, and
-    the box and prim tests per ray of the walk (``accel.walk_counts``) of
-    the treelet tree and of the kernel tree. The kernels line's row is the
-    131,072 lanes'. Its bound counts what these rays need: the walk's box
-    and prim tests, against the bytes of the rays in and out and of each
-    prim row some ray tests, read once (the kernel's own node table is not
-    an input of the function and is not charged)."""
+    plain version (hit sets, t and every slot) with its bound a Python
+    number (a kernel argument, the main path's form) and as a tensor a
+    ray, kernel and plain times, and the box and prim tests per ray of the
+    walk (``accel.walk_counts``) of the treelet tree and of the kernel
+    tree. The kernels line's row is the 131,072 lanes'. Its bound counts
+    what these rays need: the walk's box and prim tests, against the bytes
+    of the rays in (24 a ray) and out (8) and of each prim row some ray
+    tests, read once (the kernel's own node table is not an input of the
+    function and is not charged)."""
     import torch
     from solstrale_tpu_torch.accel import WALK_LEAF
     from solstrale_tpu_torch.geo import RAY_T_MIN
@@ -649,6 +658,12 @@ def _k1(cs):
                                  "plain version")
         if torch.isfinite(t_k[parked]).any():
             raise AssertionError(f"K1 ({shape}): a parked ray hit")
+        # the bound as a tensor a ray, as JAX's wrapper broadcasts it
+        t_b, s_b = bvh.bvh_planar_hit(kb, o, d, torch.full_like(
+            o[0], RAY_T_MIN))
+        if not (torch.equal(t_b, t_k) and torch.equal(s_b, s_k)):
+            raise AssertionError(f"K1 ({shape}): a bound a ray differs from "
+                                 f"the scalar bound")
         tm = kernel_times(
             lambda: bvh.bvh_planar_hit(kb, o, d, RAY_T_MIN),
             lambda: bvh.bvh_planar_hit_plain(kb.prims, o, d, RAY_T_MIN))
@@ -658,7 +673,7 @@ def _k1(cs):
             raise AssertionError(f"K1 ({shape}): the walk's (t, slot) "
                                  "differ from the brute force")
         walk_treelet, _ = _walk_stats(treelet, o, d)
-        b = bound(r * 36 + walk["prim_rows_read"] * 64,
+        b = bound(r * 32 + walk["prim_rows_read"] * 64,
                   walk["box_tests"] * FLOPS_SLAB
                   + walk["prim_tests"] * FLOPS_PLANAR)
         log("kernel", name="K1 bvh_planar_hit", shape=shape, rays=r,
@@ -704,14 +719,15 @@ def phase_kernels(sponza_cs):
     out["K4"] = _check_k4("K4 scene_hit (kitchen)", kcs, ko, kd, counters,
                           traces)
     # the device kernels of one call each: K2's, K3's and K4's a route makes
-    # are one kernel (no fill, RNG, stack, combine, where or decode op)
+    # are one kernel (no fill, RNG, stack, combine, where or decode op), and
+    # K1 takes its scalar bound as an argument (no fill)
     kernels = profiling.device_kernels(traces)
     for key, want in (("K2 bvh_sphere_hit", ["k2_bvh_spheres"]),
                       ("K3 media_hit", ["k3_media"]),
                       ("K4 integrator.scene_hit", ["k4_scene_hit"]),
-                      ("bvh_closest_hit", ["", "k1_bvh", "k2_bvh_spheres"]),
+                      ("bvh_closest_hit", ["k1_bvh", "k2_bvh_spheres"]),
                       ("BVH integrator.scene_hit",
-                       ["", "k1_bvh", "k2_bvh_spheres", "k3_media"])):
+                       ["k1_bvh", "k2_bvh_spheres", "k3_media"])):
         got = kernels[key]
         if len(got) != len(want) or not all(w in g for w, g in zip(want, got)):
             raise AssertionError(f"{key}: one call ran {got}")
@@ -873,14 +889,15 @@ def _same_wavefront(wk, wp):
     return bad
 
 
-def _s1_work(cs, hit, st, r):
+def _s1_work(cs, hit, st, r, carry=False):
     """S1's bytes and f32 operations on one call's hit (t, kind, idx as S1
     takes them: no kind where idx is K1's planar slot) and results ``st``.
     Bytes: per lane the hit (``kind`` only where given), the counters, the
-    active flag, the lane arrays in and out, the color and the flags; the
-    distinct attribute rows the lanes read (on K1's slot, each slot's entry
-    of ``pl_row`` too) and the small tables whole; texel rows not
-    counted."""
+    queue position (the pool's form) or, with ``carry`` (trace's form), the
+    active flag and the carried color on each lane that does not end, the
+    lane arrays in and out, the color and the flags; the distinct attribute
+    rows the lanes read (on K1's slot, each slot's entry of ``pl_row`` too)
+    and the small tables whole; texel rows not counted."""
     import torch
     from solstrale_tpu_torch.ops import step
     from solstrale_tpu_torch.scene.compile import (KIND_MEDIUM, KIND_SPHERE,
@@ -902,17 +919,19 @@ def _s1_work(cs, hit, st, r):
         rows = ((int(torch.unique(slot[pl]).numel()) * 112 if n_pl else 0)
                 + int(torch.unique(idx[sph]).numel()) * 32)
         lane_hit = 4 * 3
-    lane = (lane_hit + 8 + 8 + 1       # t (kind) idx, pixel sample, active
+    lane = (lane_hit + 8 + 8           # t (kind) idx, pixel sample
+            + (1 if carry else 8)      # active, or the queue position
             + 2 * (4 * 14 + 4)         # the lane arrays in and out
             + 12 + 6)                  # color, flags
     small = nbytes(tab.small, tab.med_mat)
+    carried = 12 * int((~st["terminal"]).sum()) if carry else 0
     scat, pdf = st["scat"], st["scat"] & st["is_pdf"]
     hits = int((st["emit"] | scat).sum())
     light = sum(K5_LIGHT[k] for k in cs.light_kinds)
     flops = (r * S1_LANE + hits * (K5_HIT - 6 + K5_BLEND * (tab.flags & 1))
              + int(pdf.sum()) * (K5_PDF + light)
              + int((scat & ~st["is_pdf"]).sum()) * K5_BASIC)
-    return r * lane + rows + small, flops
+    return r * lane + rows + small + carried, flops
 
 
 def _s2_work(cs, r, n_term):
@@ -933,8 +952,10 @@ def _s2_work(cs, r, n_term):
 
 def _step_times(cs, w, h, spp, depth):
     """S1 and S2 timed on the wide pool after two plain steps
-    (``wavefront_ab.step_kernel_calls``): S1 in path_step's form (new
-    outputs) against ``shade_plain``; S2, its scan of S1's flags inside,
+    (``wavefront_ab.step_kernel_calls``): S1 in trace_queued's form (the
+    pool's queue positions, new outputs) and in trace's carry form
+    (``s1_carry``), each against ``shade_plain``; S2, its scan of S1's
+    flags inside,
     on those flags (idempotent once the queue head is put back before each
     call; that 8-byte copy's own time is subtracted) against
     ``regen_plain``; S1B on the pool's next hit (``wavefront_ab.s1b_calls``:
@@ -955,6 +976,10 @@ def _step_times(cs, w, h, spp, depth):
     s1 = kernel_times(c["s1"], lambda: integrator.shade_plain(
         cs, c["o"], c["d"], t, kp, ip, *args))
     s1.update(bound(*_s1_work(cs, c["hit"], c["shaded"], r)))
+    s1_carry = kernel_times(c["s1_carry"], lambda: integrator.shade_plain(
+        cs, c["o"], c["d"], t, kp, ip, *args, color=c["carry"]))
+    s1_carry.update(bound(*_s1_work(cs, c["hit"], c["shaded_carry"], r,
+                                    carry=True)))
     term = c["terminal"]
     n_term = int(term.sum())
     if int(wf.next_q) + n_term > wf.total_q:
@@ -979,13 +1004,15 @@ def _step_times(cs, w, h, spp, depth):
                                                  one_row=top), timed=False)
     solid.pop("rec")
     return dict(s1=dict(max_abs_err=0.0, **s1),
+                s1_carry=dict(max_abs_err=0.0, **s1_carry),
                 s2=dict(max_abs_err=0.0, **s2t), s1b=s1b, s1b_one_row=solid,
                 terminal_lanes=n_term)
 
 
 def _width_times(cs, w, h, spp, lanes):
-    """S1's, S2's and S1B's device ms and bound at ``lanes`` lanes (depth
-    50), as ``_step_times`` sets them up; S1B as the inverse step calls it
+    """S1's (both forms), S2's and S1B's device ms and bound at ``lanes``
+    lanes (depth 50), as ``_step_times`` sets them up; S1B as the inverse
+    step calls it
     (``wavefront_ab.s1b_calls``), and checked there against its plain
     version (``_s1b_against_plain``): above ~270,000 lanes each block of
     its resident grid loops over several tiles of lanes."""
@@ -1001,6 +1028,9 @@ def _width_times(cs, w, h, spp, lanes):
     return dict(
         s1=dict(ms=device_ms(c["s1"]),
                 **bound(*_s1_work(cs, c["hit"], c["shaded"], lanes))),
+        s1_carry=dict(ms=device_ms(c["s1_carry"]),
+                      **bound(*_s1_work(cs, c["hit"], c["shaded_carry"],
+                                        lanes, carry=True))),
         s2=dict(ms=device_ms(c["s2"]) - restore, restore_ms=restore,
                 **bound(*_s2_work(cs, lanes, n_term))),
         s1b=dict(ms=device_ms(b["launch"]), max_abs_err=max(err.values()),
@@ -1136,58 +1166,75 @@ def _sums_close(name, got, want, scale):
                              f"largest by {float((got - want).abs().max())}")
 
 
-def _s1b_against_plain(rec, ab, arena, bg, g_color, g_out, sums=True):
-    """S1B (``ops.step.step_shade_backward``) against its plain version on
-    the same inputs, each adding into sums of its own: the fold's
-    gradients bit for bit and, with ``sums``, the arena's and the
-    background's sums (by atomics on the card) within 1e-5 of the
-    magnitudes summed into each entry, and 1e-7 (``_sums_close``; the
-    magnitudes: the plain backward of the upstream's absolute values, every
-    coefficient being non-negative), the plain sums all finite, so that no
+def _s1b_against_plain(rec, ab, arena, bg, g_color, g_out, sums=True,
+                       mats=None):
+    """S1B (``ops.step.step_shade_backward``, the carry form) against its
+    plain version on the same inputs, each adding into sums of its own:
+    the carried color's and the fold's gradients bit for bit and, with
+    ``sums``, the arena's and the background's sums (by atomics on the
+    card) and, with ``mats`` (the material table's rows), the materials'
+    attenuation sums, within 1e-5 of the magnitudes summed into each
+    entry, and 1e-7 (``_sums_close``; the magnitudes: the plain backward of
+    the upstream's absolute values), the plain sums all finite, so that no
     entry is held as NaN against NaN. Returns the largest absolute
     differences of the sums (with ``sums``)."""
     import torch
     from solstrale_tpu_torch.ops import step
 
+    dev, r = arena.device, rec.shape[1]
     k_sums, p_sums, s_sums = (torch.zeros((arena.shape[0] + 1, 3),
-                                          device=arena.device)
-                              for _ in range(3))
+                                          device=dev) for _ in range(3))
+    k_mat, p_mat, s_mat = ((torch.zeros((mats, 9), device=dev)
+                            if sums and mats else None) for _ in range(3))
+    k_carry, p_carry = (torch.empty((r, 3), device=dev) for _ in range(2))
     k_ab = step.step_shade_backward(rec, ab, arena, bg, g_color, g_out,
-                                    k_sums)
+                                    k_sums, g_carry=k_carry, g_mats=k_mat)
     p_ab = step.step_shade_backward_plain(rec, ab, arena, bg, g_color, g_out,
-                                          p_sums)
+                                          p_sums, g_carry=p_carry,
+                                          g_mats=p_mat)
     bad = [n for n, a, c in zip(step.FOLD_ARRAYS, k_ab, p_ab)
            if not _same(a, c)]
+    if not _same(k_carry, p_carry):
+        bad.append("carried color")
     if bad:
-        raise AssertionError(f"S1B's fold gradients differ from the plain "
+        raise AssertionError(f"S1B's gradients differ from the plain "
                              f"backward's in {bad}")
     if not sums:
         return {}
-    if not bool(torch.isfinite(p_sums).all()):
+    if not (bool(torch.isfinite(p_sums).all())
+            and (p_mat is None or bool(torch.isfinite(p_mat).all()))):
         raise AssertionError("S1B's check: the plain version's sums are not "
                              "all finite")
     step.step_shade_backward_plain(rec, ab, arena, bg, g_color.abs(),
-                                   [g.abs() for g in g_out], s_sums)
+                                   [g.abs() for g in g_out], s_sums,
+                                   g_mats=s_mat)
     _sums_close("S1B's arena gradient", k_sums[:-1], p_sums[:-1],
                 s_sums[:-1])
     _sums_close("S1B's background gradient", k_sums[-1], p_sums[-1],
                 s_sums[-1])
     diff = (k_sums - p_sums).abs()
-    return dict(arena=float(diff[:-1].max()), bg=float(diff[-1].max()))
+    out = dict(arena=float(diff[:-1].max()), bg=float(diff[-1].max()))
+    if p_mat is not None:
+        _sums_close("S1B's attenuation gradient", k_mat, p_mat, s_mat.abs())
+        out["atten"] = float((k_mat - p_mat).abs().max())
+    return out
 
 
 def _s1b_check(cs, hit, lanes, args, seed):
-    """S1 with its record (``ops.step.shade_with_record``) against
-    ``shade_plain(..., record=True)`` bit for bit (record, colors, flags,
-    lane state), with a quarter of the active lanes parked (from
-    ``seed``), then S1B against ``step_shade_backward_plain`` on that
-    record, the lanes' fold and upstream gradients from ``seed``
-    (``_upstream``; ``_s1b_against_plain``), and again with the color's
-    gradient inf or NaN on a few lanes (``_wild``), where only the fold's
-    gradients are held (a lane that missed or emitted makes its sums NaN).
-    Returns the largest absolute differences of the sums, the lanes whose
-    minimums tie and the lane channels S1B passes through (a parked
-    lane's, with a zero color gradient)."""
+    """S1 in trace's carry form, with its record
+    (``ops.step.shade_with_record``) and without (``step_shade(...,
+    color=...)``), against ``shade_plain(..., color=...)`` bit for bit
+    (record, the carried colors, alive, the parked directions, flags, lane
+    state), with a quarter of the active lanes parked and the carried
+    color from ``seed``, then S1B against ``step_shade_backward_plain`` on
+    that record, the lanes' fold and upstream gradients from ``seed``
+    (``_upstream``; ``_s1b_against_plain``: the carried color's and the
+    fold's gradients, the arena's, background's and materials' sums), and
+    again with the color's gradient inf or NaN on a few lanes (``_wild``),
+    where only the carried color's and the fold's gradients are held (a
+    lane that missed or emitted makes its sums NaN). Returns the largest
+    absolute differences of the sums, the lanes whose minimums tie and the
+    lane channels S1B passes through (a parked lane's)."""
     import torch
     from solstrale_tpu_torch import wavefront_ab
     from solstrale_tpu_torch.ops import bvh, step
@@ -1200,20 +1247,29 @@ def _s1b_check(cs, hit, lanes, args, seed):
     args = (*args[:6], args[6] & ~parked, args[7])
     kp, ip = (kind, idx) if kind is not None else bvh.decode_planar_slot(
         cs.solids, idx)
-    got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args)
-    want = integrator.shade_plain(cs, o, d, t, kp, ip, *args, record=True)
-    bad = [k for k in ("color",) + step.FLAGS if not _same(got[k], want[k])]
-    bad += [k for k, a, c in zip(step.LANE_ARRAYS, step.lane_arrays(got),
-                                 step.lane_arrays(want)) if not _same(a, c)]
+    carry = torch.randn((t.shape[0], 3), generator=gen, device="cuda")
+    got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args,
+                                      color=carry)
+    alone = step.step_shade(cs, t, kind, idx, o, d, *args, color=carry)
+    want = integrator.shade_plain(cs, o, d, t, kp, ip, *args, record=True,
+                                  color=carry)
+    bad = []
+    for form, st in (("record", got), ("alone", alone)):
+        bad += [f"{form} {k}" for k in ("color", "alive") + step.FLAGS
+                if not _same(st[k], want[k])]
+        bad += [f"{form} {k}" for k, a, c in zip(
+            step.LANE_ARRAYS, step.lane_arrays(st), step.lane_arrays(want))
+            if not _same(a, c)]
     if not _same(rec, want["record"]):
         bad.append("record")
     if bad:
-        raise AssertionError(f"S1 with its record differs from shade_plain "
-                             f"in {bad}")
+        raise AssertionError(f"S1 in the carry form differs from "
+                             f"shade_plain in {bad}")
     A, B = args[2][0], args[2][1]
     g_color, g_out = _upstream(t.shape[0], seed)
     out = _s1b_against_plain(rec, (*A, *B), cs.textures.pixels, cs.bg_color,
-                             g_color, g_out)
+                             g_color, g_out,
+                             mats=cs.materials.attr.shape[0])
     _s1b_against_plain(rec, (*A, *B), cs.textures.pixels, cs.bg_color,
                        _wild(g_color, seed), g_out, sums=False)
     pdf = (rec[3] & step.REC_PDF) != 0
@@ -1245,8 +1301,70 @@ def _s1b_row(cs, b, timed=True):
         row.update(ms=device_ms(b["launch"]),
                    wrapper_ms=wrapper_ms(b["launch"]),
                    plain_ms=wrapper_ms(lambda: step.step_shade_backward_plain(
-                       *args, scratch), reps=3, warmup=1))
+                       *args, scratch, g_carry=b["g_carry"]), reps=3,
+                       warmup=1))
     return row
+
+
+def _atten_route(w=400, h=266, depth=8):
+    """The materials' attenuation gradient on the card: ``diff.render_linear``
+    of the kitchen-sink solid scene (an attenuated quad light, K4's route)
+    at ``w`` x ``h``, depth ``depth``, with ``cs.materials.attr`` a leaf,
+    S1B adding the factor's sums, against autograd through the torch
+    composition on the card (``integrator.path_step_plain`` in place of
+    ``path_step_grad``): the image the same bits, the gradient within rtol
+    1e-4, atol 1e-7 (sums of atomics), not 0 on the light's factor and 0
+    in every other entry; S1B once a bounce, K4 on every bounce (the
+    checkpointed ones twice)."""
+    import dataclasses
+
+    import torch
+    import solstrale_tpu_torch as T
+    from solstrale_tpu_torch import diff, fixtures
+    from solstrale_tpu_torch.ops import step, sweep
+    from solstrale_tpu_torch.renderer import integrator
+    from solstrale_tpu_torch.scene.compile import compile_scene
+
+    cs = compile_scene(fixtures.kitchen_sink_solid_scene(T.RenderConfig(
+        width=w, height=h, seed=1)), device="cuda")
+    if cs.kbvh is not None:
+        raise AssertionError("attenuation route: the scene is not on K4")
+
+    def grads():
+        attr = cs.materials.attr.clone().requires_grad_(True)
+        leaf = dataclasses.replace(cs, materials=dataclasses.replace(
+            cs.materials, attr=attr))
+        img = diff.render_linear(leaf, width=w, height=h, max_depth=depth,
+                                 n_samples=1, seed=1)
+        return img.detach(), torch.autograd.grad(img.sum(), attr)[0]
+
+    wrappers = {"S1B": step.step_shade_backward, "K4": sweep.scene_hit}
+    reset_launches(wrappers)
+    img, g = grads()
+    launches = launch_counts(wrappers)
+    route = integrator.path_step_grad
+    integrator.path_step_grad = integrator.path_step_plain
+    try:
+        img_p, g_p = grads()
+    finally:
+        integrator.path_step_grad = route
+    col = step.ATTEN_COL
+    light = cs.materials.attr[:, col] > 0
+    rest = torch.ones_like(g, dtype=torch.bool)
+    rest[light, col] = False
+    if not torch.equal(img, img_p):
+        raise AssertionError("attenuation route: the image differs from the "
+                             "torch composition's")
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-7)
+    if not (bool((g[light, col] != 0).all()) and not bool(g[rest].any())):
+        raise AssertionError(f"attenuation route: gradient {g}")
+    # the fixed trip's forward, and the checkpointed bounces again in the
+    # backward
+    if launches != {"S1B": depth + 1, "K4": 2 * depth + 1}:
+        raise AssertionError(f"attenuation route: launches {launches}")
+    return dict(width=w, height=h, depth=depth, launches=launches,
+                grad=g[light, col].tolist(), plain_grad=g_p[light, col].tolist(),
+                max_abs_err=float((g - g_p).abs().max()))
 
 
 def phase_step(sponza_cs):
@@ -1258,20 +1376,21 @@ def phase_step(sponza_cs):
     kitchen on K4), and on a seventh whose small tables are too large to
     stage (``many_materials``, which takes S1's route that reads them from
     device memory): S2's reset mode against ``reset_plain``, then
-    ``STEP_BOUNCES`` chained steps, each S1 alone against ``shade_plain``
-    on the same inputs (every output: colors, the six flags, the lane
-    state) and the whole step (``_Wavefront.step``: the hit kernels, S1 in
-    place, S2) against ``step_plain`` (the pool, the accumulation rows, the
-    queue head, the segments), all bit for bit; at each step too S1 with
-    its record and S1B against their plain versions (``_s1b_check``); the
-    kitchen and the mixed scene at depth 4, so that the depth cap ends
-    paths. Then, on the six, S2 alone against ``regen_plain`` on its edge
-    pools
+    ``STEP_BOUNCES`` chained steps, each S1 alone (the pool's form)
+    against ``shade_plain`` on the same inputs (every output: colors, the
+    six flags, the lane state) and the whole step (``_Wavefront.step``: the
+    hit kernels, S1 in place, S2) against ``step_plain`` (the pool, the
+    accumulation rows, the queue head, the segments), all bit for bit; at
+    each step too S1 in trace's carry form, with its record, and S1B
+    against their plain versions (``_s1b_check``); the kitchen and the
+    mixed scene at depth 4, so that the depth cap ends paths. Then, on the
+    six, S2 alone against ``regen_plain`` on its edge pools
     (``_s2_edges``), a captured step's replays against plain steps
     (``_replayed_steps``), each kernel's device, wrapper and plain time
-    against its bound, and S1's and S2's device time and bound at
-    ``STEP_WIDTHS`` (16,384, 131,072 and 2,073,600 lanes); the log
-    carries ptxas' registers, stack and spills of the step kernels.
+    against its bound, and S1's (both forms), S2's and S1B's device time
+    and bound at ``STEP_WIDTHS``; the attenuation route
+    (``_atten_route``); the log carries ptxas' registers, stack and spills
+    of the step kernels.
     Returns the rows of the kernels line: S1's and S2's of the main path's
     interior, S1B's of the mixed scene (the inverse step's cell on
     K1-K3)."""
@@ -1311,7 +1430,8 @@ def phase_step(sponza_cs):
             active = pp.qpos < wp.total_q
             args = (pp.bounce, pp.acc_len, pp.fold, pp.pixel, pp.sample, 1,
                     active, depth)
-            got = step.step_shade(cs, t, kind, idx, pp.o, pp.d, *args)
+            got = step.step_shade(cs, t, kind, idx, pp.o, pp.d, *args[:6],
+                                  (pp.qpos, wp.total_q), depth)
             want = integrator.shade_plain(cs, pp.o, pp.d, t, kp, ip, *args)
             bad = [k for k in ("color",) + step.FLAGS
                    if not _same(got[k], want[k])]
@@ -1354,6 +1474,7 @@ def phase_step(sponza_cs):
         widths = {lanes: _width_times(cs, w, h, spp, lanes)
                   if lanes != STEP_LANES else
                   dict(s1={k: times["s1"][k] for k in keys},
+                       s1_carry={k: times["s1_carry"][k] for k in keys},
                        s2={k: times["s2"][k] for k in keys},
                        s1b={k: times["s1b"][k]
                             for k in keys + ("max_abs_err",)},
@@ -1366,6 +1487,7 @@ def phase_step(sponza_cs):
     # times at each width
     rows["S1B"] = dict(out["mixed"]["s1b"], widths={
         lanes: v["s1b"] for lanes, v in out["mixed"]["widths"].items()})
+    out["atten_route"] = _atten_route()
     torch.cuda.synchronize()
     log("step", lanes=STEP_LANES, bit_equal=True,
         ptxas=wavefront_ab.ptxas_lines(_build.BuildInfo.log),
@@ -1374,18 +1496,21 @@ def phase_step(sponza_cs):
 
 
 # the inverse step's device work in phase 5's step taken by hand, as
-# measured on the tree before the first hit's backward kernels existed
-# (the mixed scene at 1080p, the kitchen at 400x266, depth 50; an H100
-# 80GB HBM3 at 700.00 W): for the forward and the backward, the ops
-# dispatched that are not views (``wavefront_ab.dispatched_ops_mode``) and the
-# hand-written kernels' launches (every wrapper's count). Both are the
-# same in every run; a profiler trace's count of device ops is not (it
-# read 1,616 to 1,625 a mixed step on one tree), so phase 5 logs that
-# one and holds these. The trees before and with those kernels gave these
-# counts in two steps each, where the profiler read 1,652 and 1,349 device
-# ops in a process of their own
-STEP_DEVICE_WORK = {"mixed": dict(forward=(1526, 205), replay=(1914, 251)),
-                    "kitchen": dict(forward=(1220, 103), replay=(1614, 151))}
+# measured with S1 and S1B in trace's carry form and K1 taking a scalar
+# bound (the mixed scene at 1080p, the kitchen at 400x266, depth 50; an
+# H100 80GB HBM3 at 700.00 W; ``python -m solstrale_tpu_torch.wavefront_ab
+# --parent DIR --workloads step_kitchen,step_mixed``, ``step_by_hand``):
+# for the forward and the backward, the ops dispatched that are not views
+# (``wavefront_ab.dispatched_ops_mode``) and the hand-written kernels'
+# launches (every wrapper's count). Both are the same in every run; a
+# profiler trace's count of device ops is not, so phase 5 logs that one
+# and holds these. The two runs of each tree gave these counts; the tree
+# before (the torch glue of the carry, K1's bound fill) gave (1526, 205)
+# and (1914, 251) on the mixed scene, (1220, 103) and (1614, 151) on the
+# kitchen, where the profiler read 1,652 and 1,349 device ops a step
+# against 485 and 283 with the carry form
+STEP_DEVICE_WORK = {"mixed": dict(forward=(1016, 205), replay=(1307, 251)),
+                    "kitchen": dict(forward=(761, 103), replay=(1057, 151))}
 
 # phase 2d's widths, by lanes: (width, height, the pixel ids' form) of a
 # whole 400x266 image (the inverse step's small width: every pixel id and
@@ -1651,7 +1776,8 @@ ROUTE_PLANES = ("color", "albedo", "normal")
 
 # ptxas' two lines (stack and spills; registers, barriers, shared memory)
 # of the kernels FHB's redesign leaves alone, as the build before it gave
-# them (sm_90a, on an H100 80GB HBM3)
+# them (sm_90a, on an H100 80GB HBM3); S1B's as its carry form gave it
+# (the kernel without the materials' sums: its spills of 8 bytes gone)
 PTXAS_KEPT = {
     "first_hit_shade": (
         "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -1665,9 +1791,8 @@ PTXAS_KEPT = {
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 63 registers, used 1 barriers, 608 bytes smem"),
     "step_shade_backward": (
-        "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
-        "Used 32 registers, used 1 barriers, 8 bytes cumulative stack size, "
-        "16768 bytes smem")}
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 32 registers, used 1 barriers, 16768 bytes smem")}
 
 
 def _ptxas_of(log, name):
@@ -1699,10 +1824,10 @@ def phase_first_hit_grad(sponza_cs):
     (``wavefront_ab.fhb_calls``), its resident grid
     (``first_hit_backward_grid``: two blocks a SM or more) and its shared
     memory a block (its row tables, and the staged tables); FHB's ptxas
-    line without spills, and FH's, CR's, CRB's and S1B's the same as
-    before FHB's redesign (``PTXAS_KEPT``). Returns the rows of the kernels line: CRB's and
-    FHB's on the interior at 2,073,600 lanes (the denoised render's width,
-    the route's)."""
+    line without spills, and FH's, CR's and CRB's the same as before
+    FHB's redesign, S1B's as its carry form gave it (``PTXAS_KEPT``).
+    Returns the rows of the kernels line: CRB's and FHB's on the interior
+    at 2,073,600 lanes (the denoised render's width, the route's)."""
     import re
 
     import torch
@@ -2090,8 +2215,8 @@ def _lane_counters(n_cam, parked, device):
 def _check_k2(label, cs, o, d, parked, traces=None):
     """K2 fed K1's planar hit of these rays, against its plain version: t,
     kind and idx equal, no parked ray hit. Logs its device, wrapper and
-    plain times, those of the whole ``bvh_closest_hit`` (K1's bound fill,
-    K1, K2) and its bound; puts both calls into ``traces`` when given.
+    plain times, those of the whole ``bvh_closest_hit`` (K1, K2) and its
+    bound; puts both calls into ``traces`` when given.
     K2's bound: the rays, t_p and pslot in, (t, kind, idx) out, the sphere
     table and the pl_idx and pl_is_tri entries of the distinct planar
     slots hit, read once; the sphere tests of the live rays. Returns K2's
@@ -2161,7 +2286,7 @@ def _main_path_k2_k3(out, traces):
     bounces, parked rays) with trace_queued's counters, K2 fed K1's planar
     hit of the same rays and K3 K2's (t, kind, idx). Both equal their plain
     versions exactly (t, kind and idx). Also the wrapper-level calls the
-    integrator makes, ``bvh_closest_hit`` (K1's bound fill, K1, K2) and
+    integrator makes, ``bvh_closest_hit`` (K1, K2) and
     the whole ``integrator.scene_hit`` (those and K3); all four calls go
     into ``traces`` for their device kernels. The kernels line's K2 and K3
     rows take these times and bounds. K2's bound: ``_check_k2``. K3's

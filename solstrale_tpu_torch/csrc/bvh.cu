@@ -127,7 +127,8 @@ __device__ __forceinline__ void leaf(const float4* __restrict__ prims,
 
 __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
                        const float* dx, const float* dy, const float* dz,
-                       const float* tmin_arr, const float4* __restrict__ nodes,
+                       const float* tmin_arr, float tmin,
+                       const float4* __restrict__ nodes,
                        const float4* __restrict__ prims, int n_int, int n_rays,
                        float* out_t, int* out_slot) {
   extern __shared__ __align__(128) float4 smem[];
@@ -159,7 +160,8 @@ __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
   const int i = blockIdx.x * blockDim.x + tid;
   Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (i < n_rays) {
-    r = Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i], tmin_arr[i]};
+    r = Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i],
+            tmin_arr != nullptr ? tmin_arr[i] : tmin};
   }
   uint32_t done = 0;
   while (!done) {
@@ -252,12 +254,13 @@ __global__ void k1_bvh(const float* ox, const float* oy, const float* oz,
 
 }  // namespace
 
-// levels: the tree's internal levels (the stack's depth); threads: the
-// block size.
+// tmin_arr: a bound a ray, or null for the one bound tmin; levels: the
+// tree's internal levels (the stack's depth); threads: the block size.
 extern "C" int k1_bvh_launch(const float* ox, const float* oy,
                              const float* oz, const float* dx,
                              const float* dy, const float* dz,
-                             const float* tmin, const float* nodes,
+                             const float* tmin_arr, float tmin,
+                             const float* nodes,
                              const float* prims, int n_int, int levels,
                              int threads, int n_rays, float* out_t,
                              int* out_slot, void* stream) {
@@ -274,7 +277,8 @@ extern "C" int k1_bvh_launch(const float* ox, const float* oy,
   }
   const int blocks = (n_rays + threads - 1) / threads;
   k1_bvh<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, tmin, reinterpret_cast<const float4*>(nodes),
+      ox, oy, oz, dx, dy, dz, tmin_arr, tmin,
+      reinterpret_cast<const float4*>(nodes),
       reinterpret_cast<const float4*>(prims), n_int, n_rays, out_t,
       out_slot);
   return static_cast<int>(cudaGetLastError());

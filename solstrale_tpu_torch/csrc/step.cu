@@ -36,9 +36,19 @@
 // (solstrale_tpu/renderer/integrator.py:364 bounce_step, differentiated by
 // solstrale_tpu/diff/__init__.py:54-66), which the port ran as autograd
 // through the torch composition. On the differentiable route S1 also
-// writes a 16-byte record a lane (the albedo texel row, the pdf weight,
-// the attenuation and the branch flags) and S1B reads it back with the
-// fold's A and B, so the backward re-evaluates none of the shading.
+// writes a 16-byte record a lane (the albedo texel row, the pdf weight or
+// the terminal path length, the attenuation and the branch flags with the
+// attenuated emitter's material) and S1B reads it back with the fold's A
+// and B, so the backward re-evaluates none of the shading.
+//
+// trace's bounce (solstrale_tpu/renderer/integrator.py:428-512, one fused
+// scan body in the JAX package) is S1 in its carry form, step_shade_trace:
+// it also takes each lane's carried color, keeps it on a lane that does
+// not end, writes the terminal color on one that does, and parks the
+// direction of a lane that does not go on, so no torch op of trace's runs
+// between two bounces; S1B returns the carried color's gradient. The
+// wavefront pool's form, step_shade, is compiled without the carry and the
+// record.
 //
 // What bounds them. S1 reads a lane's ~100 bytes of state and hit, one
 // attribute row (112 bytes for a planar prim) and a few material, texel
@@ -61,7 +71,9 @@
 // queue arithmetic has no 64-bit division. S1B reads at most 100 bytes a
 // lane (record, fold, upstream gradients) and one texel row, and writes 24;
 // it adds the arena's and the background's gradients into sums that one
-// backward pass owns (ops.step.GradSums), so it zeroes nothing. Without
+// backward pass owns (ops.step.GradSums), so it zeroes nothing. The carry
+// form adds 12 bytes a lane to each: S1 reads the carried color of a lane
+// that does not end, S1B writes the carried color's gradient. Without
 // its arena sums it runs at 1.2-1.4x its byte bound; with them, where each
 // warp added its rows straight to the sums, it ran 5-10x, because most
 // warps add to one hot row (a solid colour) and atomic adds to one address
@@ -128,6 +140,7 @@ struct Shade {
   long long total_q;
   Lanes in, out;
   float* color;                    // (R, 3)
+  const float* carry;              // (R, 3) trace's carried color, or null
   bool* flag[6];                   // terminal miss capped emit scat is_pdf
   const float* bg;                 // (3,), or null: the camera table's
   int* rec;                        // (4, R) S1B's record, or null
@@ -136,11 +149,15 @@ struct Shade {
 };
 
 // S1's record of a lane for its backward (S1B), four int32 rows of (4, R):
-// the albedo texel row (-1 where the lane reads none), the scatter level's
-// pdf weight prob_scat and the terminal attenuation att (f32 bits), and the
-// flag word below (ops/step.py's REC_* bits)
+// the albedo texel row (-1 where the lane reads none), as f32 bits the
+// scatter level's pdf weight prob_scat on a lane that scatters and the
+// terminal path length term_acc on one whose emitter attenuates (else 0),
+// and the terminal attenuation att, and the flag word below (ops/step.py's
+// REC_* bits); on a lane whose emitter attenuates, the word's bits from
+// kRecMatShift up hold its effective material's row
 constexpr int kRecMiss = 1, kRecEmitFront = 2, kRecScat = 4, kRecPdf = 8,
-              kRecTerminal = 16, kRecDeadT = 32, kRecDead = 256;
+              kRecTerminal = 16, kRecDeadT = 32, kRecDead = 256,
+              kRecAtten = 2048, kRecMatShift = 12;
 // the branch bits: a lane with none of them (and no texel row, and a zero
 // pdf weight) shades nothing this bounce
 constexpr int kRecBranch =
@@ -151,6 +168,11 @@ constexpr int kRecBranch =
 // the NEE block. A lane reads each array of its own state before it writes
 // that array, and no other lane's, so the update may be in place (the pool
 // is both ``in`` and ``out``; they are not __restrict__).
+//
+// kTrace: trace's form (a bool active flag a lane, the carried color, the
+// record where a.rec is set), else the wavefront pool's (a queue position
+// a lane), compiled without either so that its registers stay as they were.
+template <bool kTrace>
 __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
                                            long long i) {
   // --- the hit, its attribute row, the ray --------------------------------
@@ -161,8 +183,7 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   const V3 d = v3(a.in.d[0][i], a.in.d[1][i], a.in.d[2][i]);
   const int bounce = a.in.bounce[i];
   const float acc_len = a.in.acc_len[i];
-  const bool active = a.active != nullptr ? a.active[i]
-                                          : a.qpos[i] < a.total_q;
+  const bool active = kTrace ? a.active[i] : a.qpos[i] < a.total_q;
   const uint32_t pix = a.pixel.at(i), smp = a.sample.at(i),
                  seed = a.seed.at(i), bnc = static_cast<uint32_t>(bounce);
 
@@ -267,7 +288,11 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
       new_dir = pdf_dir;
     }
   }
-  const V3 d2 = scat ? new_dir : d;
+  // trace's carry form parks the direction of a lane that does not go on
+  // (alive' = alive && !terminal, which is scat)
+  const V3 d2 = scat ? new_dir
+                     : (kTrace && a.carry != nullptr ? v3(0.0f, 0.0f, 0.0f)
+                                                     : d);
   a.out.d[0][i] = d2.x; a.out.d[1][i] = d2.y; a.out.d[2][i] = d2.z;
 
   // --- the fold: the terminal color through the folded clamps
@@ -284,17 +309,22 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   const float* bg = a.bg != nullptr ? a.bg : sc.cam + 19;
   const float term_af = emit ? row.atten : 0.0f;
   const float term_acc = emit ? total_len : 0.0f;
-  const float att = term_af > 0.0f ? 1.0f / (1.0f + term_af * term_acc)
-                                   : 1.0f;
-  int rec = (miss ? kRecMiss : 0) | (emit && h.front ? kRecEmitFront : 0) |
-            (scat ? kRecScat : 0) | (terminal ? kRecTerminal : 0);
+  const bool atten = term_af > 0.0f;
+  const float att = atten ? 1.0f / (1.0f + term_af * term_acc) : 1.0f;
+  int rec = 0;
+  if (kTrace)
+    rec = (miss ? kRecMiss : 0) | (emit && h.front ? kRecEmitFront : 0) |
+          (scat ? kRecScat : 0) | (terminal ? kRecTerminal : 0) |
+          (atten ? kRecAtten | (eff << kRecMatShift) : 0);
   for (int c = 0; c < 3; ++c) {
     const float term = miss ? bg[c] : (emit && h.front ? alb[c] : 0.0f);
     const bool dead_t = dead[c] || ((term != term) && outer);
     if (dead_t) rec |= kRecDeadT << c;
     const float tc = dead_t ? 0.0f : term;
     const float L = dead_t ? 0.0f : nan_min(A[c] * tc, B[c]);
-    a.color[3 * i + c] = L * att;
+    // the carry form keeps the carried color of a lane that does not end
+    a.color[3 * i + c] = !kTrace || terminal || a.carry == nullptr
+                             ? L * att : a.carry[3 * i + c];
   }
   const bool pdf_lvl = scat && is_pdf;
   const bool basic_lvl = scat && !is_pdf;
@@ -320,9 +350,10 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
   const bool flags[6] = {terminal, miss, capped, emit, scat, is_pdf};
   for (int k = 0; k < 6; ++k)
     if (a.flag[k] != nullptr) a.flag[k][i] = flags[k];
-  if (a.rec != nullptr) {
+  if (kTrace && a.rec != nullptr) {
     a.rec[i] = alb_row;
-    a.rec[a.n + i] = __float_as_int(prob_scat);
+    a.rec[a.n + i] =
+        __float_as_int(scat ? prob_scat : (atten ? term_acc : 0.0f));
     a.rec[2 * a.n + i] = __float_as_int(att);
     a.rec[3 * a.n + i] = rec | (pdf_lvl ? kRecPdf : 0);
   }
@@ -331,23 +362,35 @@ __device__ __forceinline__ void shade_lane(const Shade& a, const Scene& sc,
 // S1: with a.stage_floats > 0 the block first stages the small tables in
 // shared memory (stage_small), so shade.cuh's lookups (and the light loop
 // of every NEE lane) read shared memory; then each thread shades its lane.
-__global__ void __launch_bounds__(kShadeThreads, kShadeMinBlocks)
-    step_shade(const Shade a) {
+template <bool kTrace>
+__device__ __forceinline__ void shade_block(const Shade& a) {
   extern __shared__ __align__(16) float4 staged[];
   Scene sc = a.sc;
   if (a.stage_floats > 0)
     stage_small(&sc, a.small, a.stage_floats, staged, kShadeThreads);
   const long long i = static_cast<long long>(blockIdx.x) * kShadeThreads +
                       threadIdx.x;
-  if (i < a.n) shade_lane(a, sc, i);
+  if (i < a.n) shade_lane<kTrace>(a, sc, i);
+}
+
+// S1 in the wavefront pool's form (trace_queued's step)
+__global__ void __launch_bounds__(kShadeThreads, kShadeMinBlocks)
+    step_shade(const Shade a) {
+  shade_block<false>(a);
+}
+
+// S1 in trace's form: the carry, and the record for S1B
+__global__ void __launch_bounds__(kShadeThreads, kShadeMinBlocks)
+    step_shade_trace(const Shade a) {
+  shade_block<true>(a);
 }
 
 // S1B's arguments: S1's record and its inputs that the backward reads (the
 // fold's A and B, the arena, the background), the upstream gradients of
 // S1's differentiable outputs (color, the fold's A' and B'; a null pointer
-// is a zero gradient), the sums it adds the arena's and the background's
-// gradients into, and the fold's gradients it writes (a null pointer: not
-// wanted).
+// is a zero gradient), the sums it adds the arena's, the background's and
+// the materials' attenuation gradients into, and the gradients it writes
+// of the carried color and the fold (a null pointer: not wanted).
 struct ShadeBack {
   const int* rec;                  // (4, R)
   const float* texels;             // (N, 3) the arena
@@ -355,6 +398,9 @@ struct ShadeBack {
   const float* g_color;            // (R, 3)
   float* g_texels;                 // (N, 3) the pass's sums, added into
   float* g_bg;                     // (3,) the pass's sums, added into
+  float* g_mats;                   // (M, 9) the pass's sums of the
+                                   // material table, added into column 5
+  float* g_carry;                  // (R, 3) the carried color's
   const float* A[3];
   const float* B[3];
   const float* g_A_out[3];
@@ -380,8 +426,9 @@ constexpr int kBackSlotBits = 10;
 constexpr int kBackSlots = 1 << kBackSlotBits;
 constexpr int kBackProbes = 8;
 // S1B's block, and the blocks it is compiled to keep resident on a SM (32
-// registers a thread, 8 bytes spilled; at 40 registers, a block stays alone
-// on its SM and the parked lanes' bounces stream slower). Large blocks add
+// registers a thread, no spills without the materials' sums; at 40
+// registers, a block stays alone on its SM and the parked lanes' bounces
+// stream slower). Large blocks add
 // each hot texel row to the pass's sums fewer times; the inverse step runs
 // S1B at 106,400 lanes and more, where 1,024 threads took 0.55-0.92x the
 // time of 256 (PERF.md)
@@ -413,12 +460,16 @@ __device__ __forceinline__ void add_row(RowTable& t, float* g_texels, int row,
       atomicAdd(g_texels + 3 * static_cast<size_t>(row) + c, v[c]);
 }
 
-// S1B: the reverse of S1's differentiable part, lane by lane, as autograd
-// runs it through the plain version (integrator.shade_plain; plain
-// ops.step.step_shade_backward_plain): per channel c,
+// S1B: the reverse of S1's differentiable part in trace's carry form, lane
+// by lane, as autograd runs it through the plain version
+// (integrator.shade_plain; plain ops.step.step_shade_backward_plain): per
+// channel c,
 //
-//   color = (dead_t ? 0 : min(A * t_c, B)) * att, t_c = dead_t ? 0 : term,
+//   color' = terminal ? L * att : color, L = dead_t ? 0 : min(A * t_c, B),
+//           t_c = dead_t ? 0 : term,
 //           term = miss ? bg : (emit && front ? albedo : 0)
+//   att = atten > 0 ? 1 / (1 + atten * term_acc) : 1 (atten: the emitter's
+//           effective material's factor, 0 on a lane that does not emit)
 //   A' = terminal ? 1 : (scat ? A * (albedo * m) : A), m = dead ? 0 : prob
 //   B' = terminal ? inf : (pdf ? min(B, 3 A) : B)
 //
@@ -438,23 +489,43 @@ __device__ __forceinline__ void add_row(RowTable& t, float* g_texels, int row,
 // B. A non-zero g, NaN included, takes the full formula (min_grads' NaN
 // rule reaches the result through gx t_c).
 //
-// Returns the albedo texel's gradient in g_alb and the background's in
-// g_bg (0 unless the lane missed).
+// The carried color's gradient is the upstream one on a lane that does not
+// end and 0 on one that does; L * att takes it on the lanes that end. It is
+// written first, in a loop of its own, and the channel loop reads the
+// upstream again only on a lane that ends: so nothing of it is live across
+// that loop (no spills; 8-9% faster at 2,073,600 lanes than writing it
+// there, PERF.md). On a
+// lane whose emitter attenuates, the factor's gradient is
+// -(sum_c g_c L_c) * att^2 * term_acc, as torch's backward takes it through
+// the reciprocal (the reverse of the record's att).
+//
+// Returns the albedo texel's gradient in g_alb, the background's in g_bg (0
+// unless the lane missed) and, with kMats (g_mats set), the attenuation
+// factor's in g_atten and its material row in mat (-1: none).
+template <bool kMats>
 __device__ __forceinline__ void shade_back_lane(const ShadeBack& a,
                                                 long long i, int row,
-                                                float g_alb[3],
-                                                float g_bg[3]) {
-  const float prob = __int_as_float(a.rec[a.n + i]);
+                                                float g_alb[3], float g_bg[3],
+                                                float* g_atten, int* mat) {
+  const float r1 = __int_as_float(a.rec[a.n + i]);
   const float att = __int_as_float(a.rec[2 * a.n + i]);
   const int f = a.rec[3 * a.n + i];
   const bool miss = f & kRecMiss, emit_front = f & kRecEmitFront,
              scat = f & kRecScat, pdf = f & kRecPdf,
              terminal = f & kRecTerminal;
-  const bool quiet = (f & kRecBranch) == 0 && row < 0 && prob == 0.0f;
+  const bool atten = kMats && (f & kRecAtten);
+  const float prob = scat ? r1 : 0.0f;
+  const bool quiet = (f & kRecBranch) == 0 && row < 0;
+  if (a.g_carry != nullptr)
+    for (int c = 0; c < 3; ++c)
+      a.g_carry[3 * i + c] = terminal || a.g_color == nullptr
+                                 ? 0.0f : a.g_color[3 * i + c];
+  float g_att = 0.0f;
   for (int c = 0; c < 3; ++c) {
     const bool dead_t = f & (kRecDeadT << c), dead = f & (kRecDead << c);
-    const float g_l =
-        (a.g_color != nullptr ? a.g_color[3 * i + c] : 0.0f) * att;
+    const float g_end =
+        terminal && a.g_color != nullptr ? a.g_color[3 * i + c] : 0.0f;
+    const float g_l = g_end * att;
     const float g = dead_t ? 0.0f : g_l;
     const float g_a2 = terminal || a.g_A_out[c] == nullptr
                            ? 0.0f : a.g_A_out[c][i];
@@ -474,6 +545,7 @@ __device__ __forceinline__ void shade_back_lane(const ShadeBack& a,
     const float t_c = dead_t ? 0.0f : term;
     float gx, gy;
     min_grads(A * t_c, B, g, &gx, &gy);
+    if (atten) g_att += g_end * (dead_t ? 0.0f : nan_min(A * t_c, B));
     const float g_term = dead_t ? 0.0f : gx * A;
     if (miss) g_bg[c] = g_term;
     // the terminal reset and fold_scatter
@@ -487,6 +559,9 @@ __device__ __forceinline__ void shade_back_lane(const ShadeBack& a,
                     (scat ? 0.0f : g_a2);
     if (a.g_B[c] != nullptr) a.g_B[c][i] = gy + gs + (pdf ? 0.0f : g_b2);
   }
+  *g_atten = atten ? ((-g_att) * (att * att)) * r1 : 0.0f;
+  *mat = atten ? static_cast<int>(static_cast<unsigned>(f) >> kRecMatShift)
+               : -1;
 }
 
 // S1B over every lane (shade_back_lane): a resident grid of blocks that
@@ -500,9 +575,12 @@ __device__ __forceinline__ void shade_back_lane(const ShadeBack& a,
 // The background's gradient is summed a thread over its lanes, then a
 // warp, then, after the block's last barrier, over the warps in order, and
 // added once a block with a lane that missed (a non-zero term). Two
-// barriers a block.
-__global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
-    step_shade_backward(const ShadeBack a) {
+// barriers a block. With kMats, the attenuation factor's (few lanes: those
+// that end on an attenuated emitter) is summed a warp a material row and
+// added at once; the inverse step, whose material table wants no gradient,
+// runs the kernel compiled without it.
+template <bool kMats>
+__device__ __forceinline__ void shade_back_block(const ShadeBack& a) {
   __shared__ RowTable table;
   __shared__ float warp_bg[kBackThreads / 32][3];
   const unsigned lane = threadIdx.x % 32;
@@ -520,11 +598,11 @@ __global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
   for (long long base = static_cast<long long>(blockIdx.x) * kBackThreads;
        base < a.n; base += stride) {
     const long long i = base + threadIdx.x;
-    float g_alb[3] = {0.0f, 0.0f, 0.0f}, g_bg[3];
-    int row = -1;
+    float g_alb[3] = {0.0f, 0.0f, 0.0f}, g_bg[3], g_atten[1] = {0.0f};
+    int row = -1, mat = -1;
     if (i < a.n) {
       row = a.rec[i];
-      shade_back_lane(a, i, row, g_alb, g_bg);
+      shade_back_lane<kMats>(a, i, row, g_alb, g_bg, g_atten, &mat);
       for (int c = 0; c < 3; ++c) {
         bg[c] += g_bg[c];
         missed |= g_bg[c] != 0.0f;
@@ -535,6 +613,13 @@ __global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
       peer_sums(peers, g_alb);
       if ((peers & ((1u << lane) - 1u)) == 0u && row >= 0)
         add_row(table, a.g_texels, row, g_alb);
+    }
+    if (kMats && __any_sync(0xffffffffu, mat >= 0)) {
+      const unsigned peers = __match_any_sync(0xffffffffu, mat);
+      peer_sums(peers, g_atten);
+      if ((peers & ((1u << lane) - 1u)) == 0u && mat >= 0 &&
+          g_atten[0] != 0.0f)
+        atomicAdd(a.g_mats + 9 * static_cast<size_t>(mat) + 5, g_atten[0]);
     }
   }
   if (a.g_bg != nullptr && __any_sync(0xffffffffu, missed))
@@ -563,28 +648,41 @@ __global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
     }
 }
 
-// S1B's resident grid on the current device: the blocks that stay resident
-// on one SM (computed once a device) times the SMs, but no more blocks than
-// the lanes fill
-cudaError_t backward_grid(long long n, unsigned int* blocks) {
+// S1B without the materials' sums (the arena, the background, the carried
+// color and the fold), and S1B with them
+__global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
+    step_shade_backward(const ShadeBack a) {
+  shade_back_block<false>(a);
+}
+
+__global__ void __launch_bounds__(kBackThreads, kBackMinBlocks)
+    step_shade_backward_mats(const ShadeBack a) {
+  shade_back_block<true>(a);
+}
+
+// S1B's resident grid on the current device for the kernel ``mats`` says:
+// the blocks that stay resident on one SM (computed once a device) times
+// the SMs, but no more blocks than the lanes fill
+cudaError_t backward_grid(long long n, bool mats, unsigned int* blocks) {
   constexpr int kMaxDevices = 64;
-  static long long resident[kMaxDevices] = {};   // 0: not computed yet
+  static long long resident[2][kMaxDevices] = {};   // 0: not computed yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
+  long long& res = resident[mats][dev];
+  if (res == 0) {
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, step_shade_backward, kBackThreads, 0);
+        &per_sm, mats ? step_shade_backward_mats : step_shade_backward,
+        kBackThreads, 0);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    resident[dev] = static_cast<long long>(per_sm) * sms;
+    res = static_cast<long long>(per_sm) * sms;
   }
   const long long fill = (n + kBackThreads - 1) / kBackThreads;
-  *blocks = static_cast<unsigned int>(fill < resident[dev] ? fill
-                                                           : resident[dev]);
+  *blocks = static_cast<unsigned int>(fill < res ? fill : res);
   return cudaSuccess;
 }
 
@@ -862,7 +960,7 @@ enum ShadePtr {
   SP_MED_MAT, SP_PL_ROW, SP_SMALL, SP_T, SP_KIND, SP_IDX, SP_PIXEL,
   SP_SAMPLE, SP_SEED, SP_ACTIVE, SP_QPOS, SP_COLOR, SP_TERMINAL, SP_MISS,
   SP_CAPPED, SP_EMIT, SP_SCAT, SP_IS_PDF, SP_IN, SP_OUT = SP_IN + 18,
-  SP_BG = SP_OUT + 18, SP_REC, SP_COUNT
+  SP_BG = SP_OUT + 18, SP_REC, SP_CARRY, SP_COUNT
 };
 enum ShadeInt {
   SV_N, SV_MAX_DEPTH, SV_FLAGS, SV_N_SPH, SV_N_PL, SV_N_Q, SV_N_MAT,
@@ -886,7 +984,8 @@ enum RegenInt {
 // S1B's arguments, as ops/step.py's BACK_PTRS and BACK_INTS name them
 // (each fold group: a0 a1 a2 b0 b1 b2).
 enum BackPtr {
-  BP_REC, BP_TEXELS, BP_BG, BP_G_COLOR, BP_G_TEXELS, BP_G_BG, BP_IN,
+  BP_REC, BP_TEXELS, BP_BG, BP_G_COLOR, BP_G_TEXELS, BP_G_BG, BP_G_MATS,
+  BP_G_CARRY, BP_IN,
   BP_G_OUT = BP_IN + 6, BP_G_IN = BP_G_OUT + 6, BP_COUNT = BP_G_IN + 6
 };
 enum BackInt { BV_N, BV_COUNT };
@@ -923,6 +1022,7 @@ extern "C" int step_shade_launch(const void* const* p, const long long* v,
     a.in = lanes_at(p + SP_IN);
     a.out = lanes_at(p + SP_OUT);
     a.color = static_cast<float*>(const_cast<void*>(p[SP_COLOR]));
+    a.carry = static_cast<const float*>(p[SP_CARRY]);
     a.bg = static_cast<const float*>(p[SP_BG]);
     a.rec = static_cast<int*>(const_cast<void*>(p[SP_REC]));
     for (int k = 0; k < 6; ++k)
@@ -931,8 +1031,16 @@ extern "C" int step_shade_launch(const void* const* p, const long long* v,
     a.max_depth = static_cast<int>(v[SV_MAX_DEPTH]);
     const int smem = a.stage_floats * static_cast<int>(sizeof(float));
     const long long blocks = (n + kShadeThreads - 1) / kShadeThreads;
-    step_shade<<<static_cast<unsigned int>(blocks), kShadeThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+    // trace's form where the lanes come with a bool active flag; the pool's
+    // has neither a carry nor a record
+    if (a.active != nullptr)
+      step_shade_trace<<<static_cast<unsigned int>(blocks), kShadeThreads,
+                         smem, static_cast<cudaStream_t>(stream)>>>(a);
+    else if (a.carry == nullptr && a.rec == nullptr)
+      step_shade<<<static_cast<unsigned int>(blocks), kShadeThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(a);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -992,6 +1100,8 @@ extern "C" int step_shade_backward_launch(const void* const* p,
     a.g_color = static_cast<const float*>(p[BP_G_COLOR]);
     a.g_texels = static_cast<float*>(const_cast<void*>(p[BP_G_TEXELS]));
     a.g_bg = static_cast<float*>(const_cast<void*>(p[BP_G_BG]));
+    a.g_mats = static_cast<float*>(const_cast<void*>(p[BP_G_MATS]));
+    a.g_carry = static_cast<float*>(const_cast<void*>(p[BP_G_CARRY]));
     for (int c = 0; c < 3; ++c) {
       a.A[c] = static_cast<const float*>(p[BP_IN + c]);
       a.B[c] = static_cast<const float*>(p[BP_IN + 3 + c]);
@@ -1002,10 +1112,15 @@ extern "C" int step_shade_backward_launch(const void* const* p,
     }
     a.n = n;
     unsigned int blocks = 0;
-    const cudaError_t err = backward_grid(n, &blocks);
+    const bool mats = a.g_mats != nullptr;
+    const cudaError_t err = backward_grid(n, mats, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
-    step_shade_backward<<<blocks, kBackThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+    if (mats)
+      step_shade_backward_mats<<<blocks, kBackThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+    else
+      step_shade_backward<<<blocks, kBackThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

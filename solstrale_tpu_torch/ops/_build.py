@@ -47,7 +47,7 @@ _L = ctypes.c_longlong
 # C entry points: argument types (pointers, ints, floats, stream) ->
 # cudaError_t
 _SIGNATURES = {
-    "k1_bvh_launch": [_P] * 7 + [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "k1_bvh_launch": [_P] * 7 + [_F, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "k2_bvh_spheres_launch": [_P] * 6 + [_F, _F, _P, _I, _P, _P, _P, _P, _I,
                                          _I, _P, _P, _P, _P],
     "k3_media_launch": [_P] * 6 + [_P, _I] * 3 + [

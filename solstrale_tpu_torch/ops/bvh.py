@@ -79,7 +79,9 @@ def bvh_planar_hit_plain(prims, o, d, tmin):
 @detached
 def bvh_planar_hit(kbvh, o, d, tmin):
     """K1: closest planar hit (t (R,) f32, planar slot (R,) int32; INF/-1
-    on a miss). ``kbvh`` is an ``accel.KernelBvh`` on the rays' device."""
+    on a miss). ``kbvh`` is an ``accel.KernelBvh`` on the rays' device;
+    ``tmin`` a Python number, which goes to the kernel as an argument, or
+    a tensor that broadcasts to the rays (a bound a ray)."""
     rays = _build.ray_components(o, d)
     dev, r = _build.check_rays(rays, kbvh.nodes, kbvh.prims)
     if dev.type == "cpu":
@@ -94,12 +96,15 @@ def bvh_planar_hit(kbvh, o, d, tmin):
     if kbvh.levels > MAX_LEVELS:
         raise ValueError(f"bvh_planar_hit: tree depth {kbvh.levels} exceeds "
                          f"the kernel stack ({MAX_LEVELS})")
-    lo = _build.per_ray(tmin, rays[0])
+    lo = (_build.per_ray(tmin, rays[0]) if isinstance(tmin, torch.Tensor)
+          else None)
     out_t = torch.empty((r,), dtype=torch.float32, device=dev)
     out_s = torch.empty((r,), dtype=torch.int32, device=dev)
     p = _build.ptr
     err = _build.library().k1_bvh_launch(
-        *(p(x) for x in rays), p(lo), p(kbvh.nodes), p(kbvh.prims), n_int,
+        *(p(x) for x in rays), None if lo is None else p(lo),
+        0.0 if lo is not None else float(tmin), p(kbvh.nodes), p(kbvh.prims),
+        n_int,
         kbvh.levels, THREADS if r > 132 * THREADS else TAIL_THREADS, r,
         p(out_t), p(out_s), _build.stream_of(out_t))
     _build.check(err, "k1_bvh")

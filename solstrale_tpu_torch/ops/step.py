@@ -23,14 +23,22 @@ kernels (K1-K3 or K4), S1 and S2.
 
 - ``step_shade_grad``: S1 as a ``torch.autograd.Function``
   (``StepShadeFn``) for ``integrator.trace(..., differentiable=True)``.
-  The forward is S1 writing new tensors and a record of 16 bytes a lane
-  (``shade_record``); the backward is S1B (``step_shade_backward``: the
-  fold's gradients from the record, one thread a lane, and the texture
-  arena's and the background's added into the sums of the backward pass,
-  ``GradSums``, which the trace's head, ``grad_scene``, hands to autograd
-  once a pass). Plain versions: ``shade_plain(..., record=True)`` and
-  ``step_shade_backward_plain``, the reverse that autograd runs through
-  ``shade_plain``.
+  The forward is S1 in trace's carry form writing new tensors and a record
+  of 16 bytes a lane (``shade_record``); the backward is S1B
+  (``step_shade_backward``: the carried color's and the fold's gradients
+  from the record, one thread a lane, and the texture arena's, the
+  background's and the materials' attenuation factors' added into the
+  sums of the backward pass, ``GradSums``, which the trace's head,
+  ``grad_scene``, hands to autograd once a pass). Plain versions:
+  ``shade_plain(..., record=True)`` and ``step_shade_backward_plain``, the
+  reverse that autograd runs through ``shade_plain``.
+
+S1's carry form (``step_shade(..., color=carry)``, trace's bounce): S1 also
+takes the color each lane carries, keeps it on a lane that does not end
+and writes the terminal color on one that does, and parks the direction
+of a lane that does not go on; the dict's ``alive`` (alive & ~terminal)
+is its ``scat`` flag. The wavefront's pool form leaves color and direction
+as they were.
 
 Each wrapper picks by the device of its tensors only: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise. All launch on the
@@ -67,18 +75,28 @@ _COUNTER = ("size", "stride", "value")
 FOLD_ARRAYS = ("a0", "a1", "a2", "b0", "b1", "b2")
 
 # S1's record for S1B, a (4, R) int32 tensor: the albedo texel row (-1
-# where a lane reads none), prob_scat and att as f32 bits, and a flag word
-# of these bits (csrc/step.cu's kRec*); channel c's at REC_DEAD_T << c and
-# REC_DEAD << c
+# where a lane reads none), as f32 bits prob_scat on a lane that scatters
+# and the terminal path length on one whose emitter attenuates (else 0),
+# and att, and a flag word of these bits (csrc/step.cu's kRec*); channel
+# c's at REC_DEAD_T << c and REC_DEAD << c
 REC_MISS, REC_EMIT_FRONT, REC_SCAT, REC_PDF, REC_TERMINAL = 1, 2, 4, 8, 16
 REC_DEAD_T = 32    # the channel was dead at the terminal color (dead_t)
 REC_DEAD = 256     # the channel is dead after this level's fold
+REC_ATTEN = 2048   # the lane's emitter attenuates (its factor > 0)
+# where REC_ATTEN is set, the word's bits from REC_MAT_SHIFT up hold the
+# effective material's row, so a record takes scenes of at most
+# REC_MAT_MAX materials
+REC_MAT_SHIFT = 12
+REC_MAT_MAX = 1 << 19
+# the column of the attenuation factor in ``Materials.attr``
+ATTEN_COL = 5
 
 SHADE_PTRS = (("cam", "sph", "pln", "mats", "tex_attr", "texels", "lights",
                "med_mat", "pl_row", "small", "t", "kind", "idx", "pixel",
                "sample", "seed", "active", "qpos", "color") + FLAGS
               + tuple("in_" + n for n in LANE_ARRAYS)
-              + tuple("out_" + n for n in LANE_ARRAYS) + ("bg", "rec"))
+              + tuple("out_" + n for n in LANE_ARRAYS) + ("bg", "rec",
+                                                          "carry"))
 SHADE_INTS = (("n", "max_depth", "flags", "n_sph", "n_pl", "n_q", "n_mat",
                "n_tex", "n_texels", "n_light", "n_media", "total_q", "stage")
               + tuple(f"{c}_{k}" for c in ("pixel", "sample", "seed")
@@ -98,7 +116,8 @@ REGEN_THREADS = 256
 # materials) reads them from device memory. At 8 blocks an SM, 12 KB a
 # block leaves shared memory to spare (PERF.md §6).
 STAGE_MAX_BYTES = 12288
-BACK_PTRS = (("rec", "texels", "bg", "g_color", "g_texels", "g_bg")
+BACK_PTRS = (("rec", "texels", "bg", "g_color", "g_texels", "g_bg",
+              "g_mats", "g_carry")
              + tuple("in_" + n for n in FOLD_ARRAYS)
              + tuple("g_out_" + n for n in FOLD_ARRAYS)
              + tuple("g_in_" + n for n in FOLD_ARRAYS))
@@ -311,7 +330,7 @@ def _launch(fn, names_p, names_v, ptrs, ints, stream):
 
 
 def step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel, sample,
-               seed, active, max_depth, out=None):
+               seed, active, max_depth, out=None, color=None):
     """S1: the rest of ``path_step`` after the scene hit, in one launch
     (``integrator.shade_plain`` says what it computes). ``t`` (R,) f32,
     ``kind`` and ``idx`` (R,) int32 as the hit kernels give them, or
@@ -324,22 +343,25 @@ def step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel, sample,
     queue position ((R,) int64) is below total_q. ``out``: a dict of
     tensors to write (path_step's keys; a flag it lacks is not written),
     which may hold the input state itself (the wavefront updates its pool
-    in place), or None for new tensors. Returns the dict."""
+    in place), or None for new tensors. ``color``: the (R, 3) f32 color
+    the lanes carry, for trace's carry form (with ``active`` a bool
+    tensor; the module's docstring). Returns the dict."""
     dev = t.device
     if dev.type == "cpu":
         return _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len,
                                  fold, pixel, sample, seed, active,
-                                 max_depth, out)
+                                 max_depth, out, color=color)
     if dev.type != "cuda":
         raise ValueError(f"step_shade: unsupported device {dev}")
-    if needs_grad(cs, o, d, acc_len, fold):
+    if needs_grad(cs, o, d, acc_len, fold, color):
         raise ValueError("step_shade: S1 alone builds no autograd graph; a "
                          "render that autograd runs through takes the "
                          "differentiable route (integrator.trace(..., "
                          "differentiable=True): S1 with its backward S1B)")
     out = shade_kernel(_build.library().step_shade_launch, cs, t, kind, idx,
                        o, d, bounce, acc_len, fold, pixel, sample, seed,
-                       active, max_depth, out, _build.stream_of(t))
+                       active, max_depth, out, _build.stream_of(t),
+                       carry=color)
     step_shade.launches += 1
     return out
 
@@ -349,13 +371,14 @@ step_shade.launches = 0
 
 def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
                  sample, seed, active, max_depth, out, stream, texels=None,
-                 bg=None, rec=None):
+                 bg=None, rec=None, carry=None):
     """S1's launch through its C entry ``fn`` (``step_shade_launch``) on
     ``stream``: the argument checks and the two argument arrays. ``texels``
     ((N, 3) f32) and ``bg`` ((3,) f32): the arena and background read in
     place of the packed tables' (the differentiable route's own inputs);
-    ``rec``: a (4, R) int32 tensor for S1's record. Returns the output
-    dict."""
+    ``rec``: a (4, R) int32 tensor for S1's record; ``carry``: the (R, 3)
+    f32 carried color of the carry form (``active`` a bool tensor). Returns
+    the output dict, whose ``alive`` is its ``scat`` in the carry form."""
     dev = t.device
     r = t.shape[0]
     tab = step_tables(cs)
@@ -395,12 +418,20 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     if kind is not None:
         ptrs["kind"] = p(kind)
     if isinstance(active, tuple):
+        if carry is not None or rec is not None:
+            raise ValueError("step_shade: the carry form and the record take "
+                             "a bool active")
         qpos, total_q = active
         _check("step_shade: qpos", qpos, torch.int64, r, dev)
         ptrs["qpos"] = p(qpos)
     else:
         _check("step_shade: active", active, torch.bool, r, dev)
         ptrs["active"], total_q = p(active), 0
+    if carry is not None:
+        _check_table("step_shade: color carry", carry, (r, 3), dev)
+        if out.get("scat") is None:
+            raise ValueError("step_shade: the carry form writes scat (alive)")
+        ptrs["carry"] = p(carry)
     if bg is not None:
         _check_table("step_shade: bg", bg, (3,), dev)
         ptrs["bg"] = p(bg)
@@ -425,11 +456,14 @@ def shade_kernel(fn, cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
         ptrs["out_" + name] = p(x)
     _build.check(_launch(fn, SHADE_PTRS, SHADE_INTS, ptrs, ints, stream),
                  "step_shade")
+    if carry is not None:
+        out["alive"] = out["scat"]
     return out
 
 
 def _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
-                      sample, seed, active, max_depth, out, record=False):
+                      sample, seed, active, max_depth, out, record=False,
+                      color=None):
     """S1's CPU side: ``integrator.shade_plain``, copied into ``out`` when
     given."""
     from ..renderer.integrator import shade_plain
@@ -437,71 +471,103 @@ def _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
     if kind is None:
         kind, idx = bvh.decode_planar_slot(cs.solids, idx)
     if isinstance(active, tuple):
+        if color is not None:
+            raise ValueError("step_shade: the carry form takes a bool active")
         active = active[0] < active[1]
     st = shade_plain(cs, o, d, t, kind, idx, bounce, acc_len, fold, pixel,
-                     sample, seed, active, max_depth, record=record)
+                     sample, seed, active, max_depth, record=record,
+                     color=color)
     if out is None:
         return st
+    if color is not None and out.get("scat") is None:
+        raise ValueError("step_shade: the carry form writes scat (alive)")
     for dst, src in zip(lane_arrays(out), lane_arrays(st)):
         dst.copy_(src)
     for k in ("color",) + FLAGS:
         if out.get(k) is not None:
             out[k].copy_(st[k])
+    if color is not None:
+        out["alive"] = out["scat"]
     return out
 
 
 def shade_record(row, prob_scat, att, miss, emit_front, scat, pdf,
-                 terminal, dead_t, dead):
+                 terminal, dead_t, dead, atten, term_acc, mat):
     """S1's record of a bounce for its backward, as ``csrc/step.cu`` writes
-    it: a (4, R) int32 tensor of the albedo texel row (-1: none read), the
-    scatter level's pdf weight ``prob_scat`` and the terminal attenuation
-    ``att`` as f32 bits, and the flag word (``REC_*``; ``dead_t`` and
-    ``dead`` are per-channel tuples)."""
+    it: a (4, R) int32 tensor of the albedo texel row (-1: none read), as
+    f32 bits the scatter level's pdf weight ``prob_scat`` where ``scat``,
+    else the terminal path length ``term_acc`` where ``atten`` (the
+    lane's emitter attenuates), else 0, and the terminal attenuation
+    ``att``, and the flag word (``REC_*``; ``dead_t`` and ``dead`` are
+    per-channel tuples; where ``atten``, the effective material ``mat``
+    from ``REC_MAT_SHIFT`` up)."""
     bits = [(miss, REC_MISS), (emit_front, REC_EMIT_FRONT), (scat, REC_SCAT),
-            (pdf, REC_PDF), (terminal, REC_TERMINAL)]
+            (pdf, REC_PDF), (terminal, REC_TERMINAL), (atten, REC_ATTEN)]
     bits += [(dead_t[c], REC_DEAD_T << c) for c in range(3)]
     bits += [(dead[c], REC_DEAD << c) for c in range(3)]
     word = sum(b.to(torch.int32) * k for b, k in bits)
-    return torch.stack([row, prob_scat.view(torch.int32),
-                        att.view(torch.int32), word])
+    word = word + torch.where(atten, mat.to(torch.int32) << REC_MAT_SHIFT, 0)
+    r1 = torch.where(scat, prob_scat, torch.where(atten, term_acc, 0.0))
+    return torch.stack([row, r1.view(torch.int32), att.view(torch.int32),
+                        word])
 
 
 class GradSums:
-    """The texture arena's and the background's gradients summed over one
-    backward pass of a differentiable trace: one (N + 1, 3) buffer, the
-    arena's N rows, then the background. The first S1B of a pass that
-    wants either makes it, zeroed (``buffer``: the pass's one fill, which
-    a captured inverse step replays), every S1B of the pass adds into it,
-    and the trace's head (``_GradSink``) hands it to autograd once
-    (``take``), as the JAX transpose carries one cotangent for the arena.
-    A pass is autograd's graph task, so a second backward over a retained
-    graph, or one that stops short of the head, starts from zero; a
-    gradient handed out is never added to again."""
+    """The texture arena's, the background's and the materials'
+    attenuation gradients summed over one backward pass of a
+    differentiable trace: one (N + 1, 3) buffer, the arena's N rows, then
+    the background, and one of the material table's shape, (M, 9), whose
+    attenuation column (``ATTEN_COL``) takes the sums. The first S1B of a
+    pass that wants one makes it, zeroed (``buffer`` / ``mat_buffer``: the
+    pass's one fill of each, which a captured inverse step replays), every
+    S1B of the pass adds into it, and the trace's head (``_GradSink``)
+    hands them to autograd once (``take``), as the JAX transpose carries
+    one cotangent for the arena. A pass is autograd's graph task, so a
+    second backward over a retained graph, or one that stops short of the
+    head, starts from zero; a gradient handed out is never added to
+    again."""
 
-    def __init__(self, arena, bg):
+    def __init__(self, arena, bg, attr):
         self.rows = arena.shape[0]
         self.dtype, self.device = arena.dtype, arena.device
+        self.mat_shape, self.mat_dtype = tuple(attr.shape), attr.dtype
         self.want_texels = arena.requires_grad
         self.want_bg = bg.requires_grad
-        self._buf = self._task = None
+        self.want_atten = attr.requires_grad
+        self._buf = self._mat = self._task = None
+
+    def _this_pass(self):
+        task = torch._C._current_graph_task_id()
+        if self._task != task:
+            self._buf = self._mat = None
+            self._task = task
 
     def buffer(self):
-        """This pass's buffer, made and zeroed at its first use."""
-        task = torch._C._current_graph_task_id()
-        if self._buf is None or self._task != task:
+        """This pass's arena and background buffer, made and zeroed at its
+        first use."""
+        self._this_pass()
+        if self._buf is None:
             self._buf = torch.zeros((self.rows + 1, 3), dtype=self.dtype,
                                     device=self.device)
-            self._task = task
         return self._buf
 
+    def mat_buffer(self):
+        """This pass's (M, 9) material buffer, made and zeroed at its first
+        use."""
+        self._this_pass()
+        if self._mat is None:
+            self._mat = torch.zeros(self.mat_shape, dtype=self.mat_dtype,
+                                    device=self.device)
+        return self._mat
+
     def take(self):
-        """This pass's (arena, background) gradients, (N, 3) and (3,) views
-        of its buffer, or (None, None) where no S1B of it added; the next
-        use starts a new buffer."""
-        buf = self._buf if self._task == \
-            torch._C._current_graph_task_id() else None
-        self._buf = self._task = None
-        return (None, None) if buf is None else (buf[:-1], buf[-1])
+        """This pass's (arena, background, material table) gradients, (N,
+        3) and (3,) views of its buffer and the (M, 9) buffer, each None
+        where no S1B of it added; the next use starts new buffers."""
+        mine = self._task == torch._C._current_graph_task_id()
+        buf, mat = (self._buf, self._mat) if mine else (None, None)
+        self._buf = self._mat = self._task = None
+        return (None, None, mat) if buf is None else (buf[:-1], buf[-1], mat)
 
 
 def _plus(a, b):
@@ -509,49 +575,72 @@ def _plus(a, b):
 
 
 class _GradSink(torch.autograd.Function):
-    """A differentiable trace's head: the arena and the background passed
-    on as views, and in the backward their gradients from the pass's
-    ``GradSums`` (the trace's S1B calls add into it and return none of
-    their own), plus any that reached the views another way (a torch
-    op, as the plain route's texel gather). Autograd runs it after every
-    S1B of the trace, whose inputs the views are."""
+    """A differentiable trace's head: the arena, the background and the
+    material table passed on as views, and in the backward their gradients
+    from the pass's ``GradSums`` (the trace's S1B calls add into it and
+    return none of their own), plus any that reached the views another way
+    (a torch op, as the plain route's texel gather). Autograd runs it after
+    every S1B of the trace, whose inputs the views are."""
 
     @staticmethod
-    def forward(ctx, sums, arena, bg):
+    def forward(ctx, sums, arena, bg, attr):
         ctx.grad_sums = sums
         ctx.set_materialize_grads(False)
-        return arena.view_as(arena), bg.view_as(bg)
+        return arena.view_as(arena), bg.view_as(bg), attr.view_as(attr)
 
     @staticmethod
-    def backward(ctx, g_arena, g_bg):
-        s_arena, s_bg = ctx.grad_sums.take()
+    def backward(ctx, g_arena, g_bg, g_attr):
+        sums = ctx.grad_sums.take()
         need = ctx.needs_input_grad
-        return (None, _plus(g_arena, s_arena) if need[1] else None,
-                _plus(g_bg, s_bg) if need[2] else None)
+        return (None,) + tuple(_plus(g, s) if n else None for g, s, n in
+                               zip((g_arena, g_bg, g_attr), sums, need[1:]))
+
+
+def _fresh_mats(tab, attr):
+    """``tab`` with its small tables in a new buffer whose material table
+    is ``attr`` as it is now (a leaf that an optimiser steps in place is
+    read as stepped)."""
+    small = tab.small.detach().clone()
+
+    def at(v):
+        off = v.storage_offset() - tab.small.storage_offset()
+        return small[off:off + v.numel()].view(v.shape)
+
+    mats = at(tab.mats)
+    mats.copy_(attr.detach())
+    return dataclasses.replace(tab, small=small, cam=at(tab.cam), mats=mats,
+                               tex_attr=at(tab.tex_attr),
+                               lights=at(tab.lights))
 
 
 def grad_scene(cs):
-    """``cs`` for one differentiable trace: a copy whose arena and
-    background are ``_GradSink``'s views of the scene's, which carry the
-    trace's ``GradSums`` (``sums_of``), sharing the scene's packed tables
-    (S1's with the view as its texels, and the media's), which are packed
-    for ``cs`` at its first trace, so that a trace captured after a
-    warm-up one packs nothing (a pack reads back to the host). ``cs``
-    itself where grad mode is off or neither requires grad."""
+    """``cs`` for one differentiable trace: a copy whose arena, background
+    and material table are ``_GradSink``'s views of the scene's, which
+    carry the trace's ``GradSums`` (``sums_of``), sharing the scene's
+    packed tables (S1's with the view as its texels and, where the
+    material table requires grad, its values of now; and the media's),
+    which are packed for ``cs`` at its first trace, so that a trace
+    captured after a warm-up one packs nothing (a pack reads back to the
+    host). ``cs`` itself where grad mode is off or none of the three
+    requires grad."""
     from ..renderer.integrator import (media_tables, per_scene,
                                        share_geometry_tables)
 
-    arena, bg = cs.textures.pixels, cs.bg_color
-    if not (torch.is_grad_enabled()
-            and (arena.requires_grad or bg.requires_grad)):
+    arena, bg, attr = cs.textures.pixels, cs.bg_color, cs.materials.attr
+    if not (torch.is_grad_enabled() and (
+            arena.requires_grad or bg.requires_grad or attr.requires_grad)):
         return cs
     tab = step_tables(cs)
     media_tables(cs)
-    view, bg_view = _GradSink.apply(GradSums(arena, bg), arena, bg)
+    view, bg_view, attr_view = _GradSink.apply(GradSums(arena, bg, attr),
+                                               arena, bg, attr)
     out = dataclasses.replace(
         cs, textures=dataclasses.replace(cs.textures, pixels=view),
-        bg_color=bg_view)
+        bg_color=bg_view,
+        materials=dataclasses.replace(cs.materials, attr=attr_view))
     share_geometry_tables(cs, out)
+    if attr.requires_grad:
+        tab = _fresh_mats(tab, attr)
     per_scene(out, "step", lambda: dataclasses.replace(
         tab, texels=view.to(torch.float32).contiguous()))
     return out
@@ -563,63 +652,71 @@ def sums_of(arena):
 
 
 def step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
-                    sample, seed, active, max_depth):
-    """``step_shade`` on the differentiable route: S1, and S1B in the
-    backward (``StepShadeFn``), with path_step's arguments and dict (new
-    tensors). Gradients reach the fold's A and B, the texture arena
-    (``cs.textures.pixels``: albedos, texture maps and emitter radiance)
-    and the background (``cs.bg_color``); the last two through the sums of
-    the arena's ``grad_scene`` (``trace`` makes one a trace; a scene
-    without one gets one for this call). Raises, on every device, where a
-    lane input or another table of the scene requires grad. Where none of
-    the four requires grad (or grad mode is off) it is ``step_shade``."""
+                    sample, seed, active, max_depth, color):
+    """``step_shade`` in the carry form (``color``: the (R, 3) carried
+    color) on the differentiable route: S1, and S1B in the backward
+    (``StepShadeFn``), with path_step's arguments and dict (new tensors).
+    Gradients reach the carried color, the fold's A and B, the texture
+    arena (``cs.textures.pixels``: albedos, texture maps and emitter
+    radiance), the background (``cs.bg_color``) and the attenuation
+    factors of the material table (``cs.materials.attr``'s column
+    ``ATTEN_COL``; its other columns get 0); the last three through the
+    sums of the arena's ``grad_scene`` (``trace`` makes one a trace; a
+    scene without one gets one for this call). Raises, on every device,
+    where a lane input or another table of the scene requires grad. Where
+    none of them requires grad (or grad mode is off) it is
+    ``step_shade``."""
     A, B, dead, outer = fold
-    arena, bg = cs.textures.pixels, cs.bg_color
-    if needs_grad(cs, t, o, d, acc_len, skip=(arena, bg)):
-        raise ValueError("step_shade_grad: gradients reach only the fold, "
-                         "the texture arena (cs.textures.pixels) and the "
-                         "background (cs.bg_color); a lane input or "
-                         "another scene table requires grad")
+    arena, bg, attr = cs.textures.pixels, cs.bg_color, cs.materials.attr
+    if needs_grad(cs, t, o, d, acc_len, skip=(arena, bg, attr)):
+        raise ValueError("step_shade_grad: gradients reach only the carried "
+                         "color, the fold, the texture arena "
+                         "(cs.textures.pixels), the background (cs.bg_color) "
+                         "and the attenuation factors of the material table "
+                         "(cs.materials.attr); a lane input or another scene "
+                         "table requires grad")
     if not (torch.is_grad_enabled() and any(
-            x.requires_grad for x in (arena, bg, *A, *B))):
+            x.requires_grad for x in (arena, bg, attr, color, *A, *B))):
         return step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold,
-                          pixel, sample, seed, active, max_depth)
-    if (arena.requires_grad or bg.requires_grad) and sums_of(arena) is None:
+                          pixel, sample, seed, active, max_depth, color=color)
+    if (arena.requires_grad or bg.requires_grad or attr.requires_grad) and \
+            sums_of(arena) is None:
         cs = grad_scene(cs)
-        arena, bg = cs.textures.pixels, cs.bg_color
+        arena, bg, attr = cs.textures.pixels, cs.bg_color, cs.materials.attr
     outs = StepShadeFn.apply(cs, (t, kind, idx, o, d, bounce, acc_len, dead,
                                   outer, pixel, sample, seed, active,
                                   max_depth, sums_of(arena)), arena, bg,
-                             *A, *B)
+                             attr, color, *A, *B)
     out = dict(zip(FLAGS, outs[19:]))
     out.update(color=outs[0], o=outs[7:10], d=outs[10:13], bounce=outs[13],
                acc_len=outs[14], fold=(outs[1:4], outs[4:7], outs[15:18],
-                                       outs[18]))
+                                       outs[18]), alive=out["scat"])
     return out
 
 
 class StepShadeFn(torch.autograd.Function):
-    """S1 with S1B as its backward. Inputs: the compiled scene, the rest of
-    path_step's arguments and the pass's ``GradSums`` (or None: neither
-    the arena nor the background wants a gradient) in one tuple, then the
+    """S1 in the carry form with S1B as its backward. Inputs: the compiled
+    scene, the rest of path_step's arguments and the pass's ``GradSums``
+    (or None: no scene table wants a gradient) in one tuple, then the
     differentiable ones: the arena and the background (``grad_scene``'s
     views), which the kernels read from these tensors, not from the
     scene's packed tables (an inverse step swaps its own leaf arena in),
-    and the fold's A and B (3 each). Outputs: color, A', B'
+    the material table (its view, which S1 reads packed), the carried
+    color, and the fold's A and B (3 each). Outputs: color, A', B'
     (differentiable), then o, d, bounce, acc_len, dead, outer and the six
     flags (not). The record (16 bytes a lane) and the fold's A and B are
     saved for the backward, which reads nothing back to the host; it adds
-    the arena's and the background's gradients into the sums and returns
-    none for them (the sums' sink does)."""
+    the arena's, the background's and the attenuation factors' gradients
+    into the sums and returns none for them (the sums' sink does)."""
 
     @staticmethod
-    def forward(ctx, cs, call, arena, bg, *ab):
+    def forward(ctx, cs, call, arena, bg, attr, color, *ab):
         (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
          seed, active, max_depth, sums) = call
         out, rec = shade_with_record(
             cs, t, kind, idx, o, d, bounce, acc_len,
             (ab[:3], ab[3:], dead, outer), pixel, sample, seed, active,
-            max_depth, arena, bg)
+            max_depth, arena, bg, color=color)
         ctx.save_for_backward(rec, arena, bg, *ab)
         ctx.sums = sums
         ctx.set_materialize_grads(False)
@@ -632,30 +729,39 @@ class StepShadeFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, *g_out):
         rec, arena, bg, *ab = ctx.saved_tensors
-        sums = ctx.sums
+        sums, need = ctx.sums, ctx.needs_input_grad
         want_texels = sums is not None and sums.want_texels
         want_bg = sums is not None and sums.want_bg
+        want_atten = sums is not None and sums.want_atten
+        g_carry = (torch.empty_like(g_color)
+                   if need[5] and g_color is not None else None)
         g_ab = step_shade_backward(
             rec, ab, arena, bg, g_color, g_out[:6],
             sums.buffer() if want_texels or want_bg else None, want_texels,
-            want_bg, ctx.needs_input_grad[4:10])
-        return (None, None, None, None, *g_ab)
+            want_bg, need[6:12], g_carry=g_carry,
+            g_mats=sums.mat_buffer() if want_atten else None)
+        return (None, None, None, None, None, g_carry, *g_ab)
 
 
 def shade_with_record(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
-                      sample, seed, active, max_depth, arena=None, bg=None):
+                      sample, seed, active, max_depth, arena=None, bg=None,
+                      color=None):
     """S1 with its record for S1B: (path_step's dict in new tensors, the
     (4, R) int32 record). ``arena`` and ``bg`` (default: the scene's) are
-    the texels and background it reads. One S1 launch on the card (counted
-    in ``step_shade.launches``), ``shade_plain(..., record=True)`` on the
+    the texels and background it reads; ``color``: the carried color of
+    the carry form. One S1 launch on the card (counted in
+    ``step_shade.launches``), ``shade_plain(..., record=True)`` on the
     CPU."""
     arena = cs.textures.pixels if arena is None else arena
     bg = cs.bg_color if bg is None else bg
+    if cs.materials.attr.shape[0] > REC_MAT_MAX:
+        raise ValueError(f"step_shade_grad: S1's record takes at most "
+                         f"{REC_MAT_MAX} materials")
     dev = t.device
     if dev.type == "cpu":
         out = _step_shade_plain(cs, t, kind, idx, o, d, bounce, acc_len, fold,
                                 pixel, sample, seed, active, max_depth, None,
-                                record=True)
+                                record=True, color=color)
         return out, out.pop("record")
     if dev.type != "cuda":
         raise ValueError(f"step_shade_grad: unsupported device {dev}")
@@ -665,34 +771,40 @@ def shade_with_record(cs, t, kind, idx, o, d, bounce, acc_len, fold, pixel,
                        o, d, bounce, acc_len, fold, pixel, sample, seed,
                        active, max_depth,
                        _new_outputs(r, dev),
-                       _build.stream_of(t), texels=arena, bg=bg, rec=rec)
+                       _build.stream_of(t), texels=arena, bg=bg, rec=rec,
+                       carry=color)
     step_shade.launches += 1
     return out, rec
 
 
 def step_shade_backward(rec, ab, texels, bg, g_color, g_ab_out, sums,
-                        want_texels=True, want_bg=True, want_ab=(True,) * 6):
-    """S1B: the gradients of one S1 call's inputs from its record ``rec``
-    ((4, R) int32), its fold inputs ``ab`` (A then B, six (R,) f32), the
-    arena ``texels`` ((N, 3) f32) and ``bg`` ((3,) f32), and the upstream
-    gradients of its color ((R, 3)) and of its fold outputs A' and B' (six;
-    None is a zero gradient). Adds the arena's gradient into ``sums[:N]``
-    and the background's into ``sums[N]`` (``sums``: an (N + 1, 3) f32
-    tensor, ``GradSums.buffer``; None where neither is wanted), each where
-    its ``want_*`` is true; returns the six fold inputs' gradients (None
-    where not wanted). One launch on the card, which allocates only those
-    six; ``step_shade_backward_plain`` on the CPU."""
+                        want_texels=True, want_bg=True, want_ab=(True,) * 6,
+                        g_carry=None, g_mats=None):
+    """S1B: the gradients of one S1 call's inputs (in the carry form) from
+    its record ``rec`` ((4, R) int32), its fold inputs ``ab`` (A then B,
+    six (R,) f32), the arena ``texels`` ((N, 3) f32) and ``bg`` ((3,)
+    f32), and the upstream gradients of its color ((R, 3)) and of its fold
+    outputs A' and B' (six; None is a zero gradient). Adds the arena's
+    gradient into ``sums[:N]`` and the background's into ``sums[N]``
+    (``sums``: an (N + 1, 3) f32 tensor, ``GradSums.buffer``; None where
+    neither is wanted), each where its ``want_*`` is true, and the
+    materials' attenuation factors' into ``g_mats[:, ATTEN_COL]`` (an (M,
+    9) f32 tensor, ``GradSums.mat_buffer``, or None); writes the carried
+    color's gradient into ``g_carry`` ((R, 3) f32, or None: not wanted);
+    returns the six fold inputs' gradients (None where not wanted). One
+    launch on the card, which allocates only those six;
+    ``step_shade_backward_plain`` on the CPU."""
     dev = rec.device
     if dev.type == "cpu":
         return step_shade_backward_plain(rec, ab, texels, bg, g_color,
                                          g_ab_out, sums, want_texels,
-                                         want_bg, want_ab)
+                                         want_bg, want_ab, g_carry, g_mats)
     if dev.type != "cuda":
         raise ValueError(f"step_shade_backward: unsupported device {dev}")
     out = backward_kernel(_build.library().step_shade_backward_launch, rec,
                           ab, texels, bg, g_color, g_ab_out, sums,
                           want_texels, want_bg, want_ab,
-                          _build.stream_of(rec))
+                          _build.stream_of(rec), g_carry, g_mats)
     step_shade_backward.launches += 1
     return out
 
@@ -701,11 +813,13 @@ step_shade_backward.launches = 0
 
 
 def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, sums,
-                    want_texels, want_bg, want_ab, stream):
+                    want_texels, want_bg, want_ab, stream, g_carry=None,
+                    g_mats=None):
     """S1B's launch through its C entry ``fn``
     (``step_shade_backward_launch``) on ``stream``: the checks, the fold's
-    new gradient tensors and the two argument arrays; the arena's and the
-    background's gradients go into ``sums``."""
+    new gradient tensors and the two argument arrays; the arena's, the
+    background's and the attenuation factors' gradients go into ``sums``
+    and ``g_mats``, the carried color's into ``g_carry``."""
     dev = rec.device
     r = rec.shape[1]
     n = texels.shape[0]
@@ -726,6 +840,13 @@ def backward_kernel(fn, rec, ab, texels, bg, g_color, g_ab_out, sums,
             ptrs["g_texels"] = p(sums)
         if want_bg:
             ptrs["g_bg"] = p(sums[n])
+    if g_mats is not None:
+        _check_table("step_shade_backward: g_mats", g_mats,
+                     (g_mats.shape[0], 9), dev)
+        ptrs["g_mats"] = p(g_mats)
+    if g_carry is not None:
+        _check_table("step_shade_backward: g_carry", g_carry, (r, 3), dev)
+        ptrs["g_carry"] = p(g_carry)
     g_ab = [torch.empty_like(x) if w else None for x, w in zip(ab, want_ab)]
     for name, x, g, gi in zip(FOLD_ARRAYS, ab, g_ab_out, g_ab):
         _check(f"step_shade_backward: {name}", x, torch.float32, r, dev)
@@ -753,49 +874,60 @@ def _min_grads(x, y, g):
 
 def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out, sums,
                               want_texels=True, want_bg=True,
-                              want_ab=(True,) * 6):
+                              want_ab=(True,) * 6, g_carry=None, g_mats=None):
     """S1B's plain version: the reverse that autograd runs through
-    ``integrator.shade_plain``, written out in torch ops from the record,
-    each product's gradient taken as torch's backward takes it (a masked
-    branch's zero meets the same operands) and ``torch.minimum``'s tie and
-    NaN rule (``_min_grads``). Per channel c:
+    ``integrator.shade_plain`` in the carry form, written out in torch ops
+    from the record, each product's gradient taken as torch's backward
+    takes it (a masked branch's zero meets the same operands) and
+    ``torch.minimum``'s tie and NaN rule (``_min_grads``). Per channel c:
 
-    - ``color = (dead_t ? 0 : min(A * t_c, B)) * att``, ``t_c = dead_t ? 0 :
-      term``, ``term = miss ? bg : (emit && front ? albedo : 0)``;
+    - ``color' = terminal ? L * att : color``, ``L = dead_t ? 0 : min(A *
+      t_c, B)``, ``t_c = dead_t ? 0 : term``, ``term = miss ? bg : (emit
+      && front ? albedo : 0)``;
+    - ``att = atten > 0 ? 1 / (1 + atten * term_acc) : 1``, ``atten`` the
+      emitting lane's effective material's factor;
     - ``A' = terminal ? 1 : (scat ? A * (albedo * m) : A)``, ``m = dead ? 0 :
       prob_scat``;
     - ``B' = terminal ? inf : (pdf ? min(B, 3 A) : B)``.
 
-    ``prob_scat``, ``att`` and the directions are detached (the JAX
+    ``prob_scat``, ``term_acc`` and the directions are detached (the JAX
     package's stop_gradients). The shading normal reaches only them, so a
     normal map's texels get no gradient. Each input's contributions (at
     most two non-zero on a lane) are summed; the arena's gradient is
     ``index_add_`` into the sums' rows of the lanes' albedos, as
-    ``index_select``'s backward adds them, and the background's sum added
-    to the sums' last row. Same arguments and returns as
-    ``step_shade_backward``."""
+    ``index_select``'s backward adds them, the background's sum added to
+    the sums' last row, and the attenuation factor's, ``-(sum_c g_c L_c)
+    * att^2 * term_acc`` (the reciprocal's backward), ``index_add_`` into
+    ``g_mats``' column ``ATTEN_COL`` at the lanes' material rows. Same
+    arguments and returns as ``step_shade_backward``."""
     row, word = rec[0], rec[3]
-    prob, att = rec[1].view(torch.float32), rec[2].view(torch.float32)
+    r1, att = rec[1].view(torch.float32), rec[2].view(torch.float32)
 
     def bit(k):
         return (word & k) != 0
 
     miss, emit_front = bit(REC_MISS), bit(REC_EMIT_FRONT)
     scat, pdf, terminal = bit(REC_SCAT), bit(REC_PDF), bit(REC_TERMINAL)
+    prob = torch.where(scat, r1, 0.0)
     read = row >= 0
     rows = torch.clamp(row, min=0).long()
     texel = torch.index_select(texels, 0, rows)
     zero = torch.zeros_like(prob)
     g_ab, g_alb, g_bg = [None] * 6, [], []
+    g_att = zero
     for c in range(3):
         A, B = ab[c], ab[3 + c]
         alb = torch.where(read, texel[:, c], 0.0)
         dead_t, dead = bit(REC_DEAD_T << c), bit(REC_DEAD << c)
+        g_c = zero if g_color is None else g_color[:, c]
+        g_end = torch.where(terminal, g_c, 0.0)
         # fold_resolve
         term = torch.where(miss, bg[c], torch.where(emit_front, alb, 0.0))
         t_c = torch.where(dead_t, 0.0, term)
-        g_l = (zero if g_color is None else g_color[:, c]) * att
-        gx, gy = _min_grads(A * t_c, B, torch.where(dead_t, 0.0, g_l))
+        gx, gy = _min_grads(A * t_c, B, torch.where(dead_t, 0.0, g_end * att))
+        if g_mats is not None:
+            g_att = g_att + g_end * torch.where(
+                dead_t, 0.0, torch.minimum(A * t_c, B))
         g_term = torch.where(dead_t, 0.0, gx * A)
         g_bg.append(torch.where(miss, g_term, 0.0).sum())
         # the terminal reset and fold_scatter
@@ -808,11 +940,21 @@ def step_shade_backward_plain(rec, ab, texels, bg, g_color, g_ab_out, sums,
         g_ab[c] = (gx * t_c + go * 3.0 + g_p * (alb * m)
                    + torch.where(scat, 0.0, g_a2))
         g_ab[3 + c] = gy + gs + torch.where(pdf, 0.0, g_b2)
+    if g_carry is not None:
+        if g_color is None:
+            g_carry.zero_()
+        else:
+            g_carry.copy_(torch.where(terminal[:, None], 0.0, g_color))
     if want_texels:
         sums[:-1].index_add_(0, rows, torch.where(
             read[:, None], torch.stack(g_alb, -1), 0.0))
     if want_bg:
         sums[-1] += torch.stack(g_bg)
+    if g_mats is not None:
+        atten = bit(REC_ATTEN)
+        mat = word >> REC_MAT_SHIFT
+        g_atten = ((-g_att) * (att * att)) * r1
+        g_mats[:, ATTEN_COL].index_add_(0, mat[atten].long(), g_atten[atten])
     return tuple(g if w else None for g, w in zip(g_ab, want_ab))
 
 

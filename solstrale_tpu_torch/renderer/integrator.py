@@ -291,7 +291,7 @@ def fold_resolve(state, term_color):
 def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
     """Material dispatch: every material model's scatter, selected per ray.
     Returns is_emission, emit_color, atten, new_dir, tape_color, prob,
-    is_pdf, shading_normal, is_basic."""
+    is_pdf, shading_normal, is_basic, and mat (the effective material)."""
     mats = cs.materials
 
     if "blend" in cs.features:
@@ -406,6 +406,7 @@ def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
         is_pdf=is_pdf,
         shading_normal=s_normal,
         is_basic=is_metal | is_diel,
+        mat=eff,
     )
 
 
@@ -421,7 +422,7 @@ def step_hit(cs: CompiledScene, o, d, pixel, sample, bounce, seed):
 
 
 def path_step(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel, sample,
-              seed, active, max_depth):
+              seed, active, max_depth, color=None):
     """One bounce of every lane, the body that ``trace_queued`` and the
     plain megakernel share: scene hit, attributes, scatter, terminal
     classification, the terminal color through the clamp-fold, and the fold
@@ -436,41 +437,51 @@ def path_step(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel, sample,
     - ``color``: (R, 3) contributions of the ended paths;
     - ``o``, ``d``, ``bounce``, ``acc_len``: the state a lane that goes on
       carries (a terminal lane's are the caller's to regenerate);
-    - ``fold``: the fold state, already reset on terminal lanes."""
+    - ``fold``: the fold state, already reset on terminal lanes.
+
+    With ``color``, the (R, 3) color each lane carries, it is ``trace``'s
+    carry form (``active`` the lanes alive): ``color`` is the carried color
+    with the ended paths' contributions written in, ``d`` is parked (zero)
+    on every lane that does not go on, and ``alive`` (alive & ~terminal)
+    is added, the ``scat`` flag."""
     t, kind, idx = step_hit(cs, o, d, pixel, sample, bounce, seed)
     return step_ops.step_shade(cs, t, kind, idx, o, d, bounce, acc_len, fold,
-                               pixel, sample, seed, active, max_depth)
+                               pixel, sample, seed, active, max_depth,
+                               color=color)
 
 
 def path_step_grad(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
-                   sample, seed, active, max_depth):
-    """``path_step`` on the differentiable route: the scene-hit kernels
-    (``step_hit``), then ``ops.step.step_shade_grad``, S1 as an autograd
-    Function whose backward is S1B (the plain versions of both on the
-    CPU). Gradients reach the fold, the texture arena and the background.
+                   sample, seed, active, max_depth, color):
+    """``path_step`` in the carry form on the differentiable route: the
+    scene-hit kernels (``step_hit``), then ``ops.step.step_shade_grad``,
+    S1 as an autograd Function whose backward is S1B (the plain versions of
+    both on the CPU). Gradients reach the carried color, the fold, the
+    texture arena, the background and the materials' attenuation factors.
     Same dict as ``path_step``."""
     t, kind, idx = step_hit(cs, o, d, pixel, sample, bounce, seed)
     return step_ops.step_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len,
                                     fold, pixel, sample, seed, active,
-                                    max_depth)
+                                    max_depth, color)
 
 
 def path_step_plain(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
-                    sample, seed, active, max_depth, plain=False):
+                    sample, seed, active, max_depth, color=None, plain=False):
     """``path_step`` as the torch composition: ``scene_hit`` (its plain
     version if ``plain``), then ``shade_plain``. S1's plain version; autograd
     through it is the reference S1B is held to."""
     t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed,
                              plain=plain)
     return shade_plain(cs, o, d, t, kind, idx, bounce, acc_len, fold, pixel,
-                       sample, seed, active, max_depth)
+                       sample, seed, active, max_depth, color=color)
 
 
 def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
-                pixel, sample, seed, active, max_depth, record=False):
+                pixel, sample, seed, active, max_depth, record=False,
+                color=None):
     """Everything ``path_step`` does after the scene hit, in torch: S1's
-    plain version. Same dict as ``path_step``; with ``record`` it also holds
-    S1's record for the backward (``ops.step.shade_record``)."""
+    plain version. Same dict as ``path_step`` (``color``: the carry form);
+    with ``record`` it also holds S1's record for the backward
+    (``ops.step.shade_record``)."""
     finite = torch.isfinite(t)
     miss = active & ~finite
     t_safe = torch.where(finite, t, 0.0)
@@ -491,7 +502,8 @@ def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
     term_af = torch.where(emit, sc["atten"], 0.0)
     term_acc = torch.where(emit, total_len, 0.0)
     L = fold_resolve(fold, term_color)
-    att = torch.where(term_af > 0.0, 1.0 / (1.0 + term_af * term_acc), 1.0)
+    atten = term_af > 0.0
+    att = torch.where(atten, 1.0 / (1.0 + term_af * term_acc), 1.0)
 
     # fold this bounce's scatter level; reset terminal lanes
     A, B, dead, outer = fold_scatter(fold, sc["tape_color"], sc["prob"],
@@ -505,16 +517,24 @@ def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
         extra["record"] = step_ops.shade_record(
             row, torch.where(scat, sc["prob"], 0.0), att, miss,
             emit & attrs["front_face"], scat, scat & sc["is_pdf"], terminal,
-            dead_t, dead)
+            dead_t, dead, atten, term_acc, sc["mat"])
     fold = (tuple(torch.where(terminal, 1.0, A[c]) for c in range(3)),
             tuple(torch.where(terminal, INF, B[c]) for c in range(3)),
             tuple(torch.where(terminal, False, dead[c]) for c in range(3)),
             torch.where(terminal, False, outer))
+    shaded = torch.stack([L[c] * att for c in range(3)], -1)
+    d_rest = d
+    if color is not None:
+        # the carry form: an ended path's color, the carried one elsewhere;
+        # a lane that does not go on parks
+        shaded = torch.where(terminal[:, None], shaded, color)
+        extra["alive"] = active & ~terminal
+        d_rest = (0.0, 0.0, 0.0)
     return dict(terminal=terminal, miss=miss, capped=capped, emit=emit,
-                scat=scat, is_pdf=sc["is_pdf"],
-                color=torch.stack([L[c] * att for c in range(3)], -1),
+                scat=scat, is_pdf=sc["is_pdf"], color=shaded,
                 o=where3(scat, attrs["point"], o),
-                d=where3(scat, sc["new_dir"], d),
+                d=tuple(torch.where(scat, n, r)
+                        for n, r in zip(sc["new_dir"], d_rest)),
                 bounce=torch.where(scat, bounce + 1, bounce),
                 acc_len=torch.where(scat, total_len, acc_len), fold=fold,
                 **extra)
@@ -602,8 +622,10 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
           early_exit=True, differentiable=False):
     """Full path trace of a ray wavefront -> linear color (R, 3), one
     ``path_step`` per bounce for every lane (the body ``trace_queued``
-    runs). A lane whose path ends keeps its color and parks with a zero
-    direction, which every hit kernel rejects. Step ``max_depth`` is the
+    runs), in its carry form: S1 takes each lane's color and alive flag
+    and returns them updated, so a lane whose path ends keeps its color
+    and parks with a zero direction, which every hit kernel rejects, and
+    the bounce loop runs nothing of its own. Step ``max_depth`` is the
     depth cap: a ray still alive that hits shades to black, a miss takes
     the background (renderer/mod.rs:164-206).
 
@@ -619,9 +641,10 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
 
     ``differentiable`` names the route autograd runs through: every bounce
     is ``path_step_grad``, S1 with its backward S1B, which take gradients
-    to the fold, the texture arena and the background (the plain versions
-    on the CPU), the last two summed over the trace's bounces in one
-    buffer a backward pass (``ops.step.grad_scene``, applied here once).
+    to the carried color, the fold, the texture arena, the background and
+    the materials' attenuation factors (the plain versions on the CPU), the
+    last three summed over the trace's bounces in buffers of a backward
+    pass (``ops.step.grad_scene``, applied here once).
     Otherwise every bounce is ``path_step`` (S1 alone on the card),
     whether grad mode is on or not; S1's wrapper raises when a table it
     reads requires grad."""
@@ -641,12 +664,10 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
         o, d, bounce, acc_len, fold, alive, color = carry
         for _ in range(n):
             st = step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
-                      alive, max_depth)
-            color = torch.where(st["terminal"][:, None], st["color"], color)
-            alive = alive & ~st["terminal"]
-            o, bounce, acc_len, fold = (st["o"], st["bounce"],
-                                        st["acc_len"], st["fold"])
-            d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
+                      alive, max_depth, color)
+            o, d, bounce, acc_len, fold, alive, color = (
+                st["o"], st["d"], st["bounce"], st["acc_len"], st["fold"],
+                st["alive"], st["color"])
         return o, d, bounce, acc_len, fold, alive, color
 
     if early_exit:

@@ -47,8 +47,10 @@ The step kernels' cells (``kernels_<scene>``, ``KERNEL_SCENES``: the
 262,088-triangle interior at 1920x1080, the bench's textured sponza,
 sponza_production and many_lights at their bench sizes, the mixed BVH
 scene at 1920x1080 and the normal-mapped kitchen, K4, at 400x266x8):
-S1 (``ops.step.step_shade``), S2 (``ops.step.step_regen`` with the
-scan of the terminal flags it needs) and S1B (``ops.step.step_shade_backward``)
+S1 (``ops.step.step_shade``: ``s1_ms`` in the wavefront pool's form,
+``s1_carry_ms`` in trace's carry form), S2 (``ops.step.step_regen`` with
+the scan of the terminal flags it needs) and S1B
+(``ops.step.step_shade_backward``, in the carry form where the tree has it)
 on one pool at each of ``KERNEL_WIDTHS`` lanes (the tail pool's 16,384,
 the 106,400 of a 400x266 inverse step, the wide pool's 131,072 and the
 2,073,600 of a 1080p ``render_pixels``, the inverse step's), set up by
@@ -227,7 +229,7 @@ def _host_reads(stats):
 FILL_OPS = ("FillFunctor", "Memset")
 ADD_OPS = ("CUDAFunctor_add", "CUDAFunctorOnSelf_add")
 # the most frequent device op names a profiled step lists
-TOP_OPS = 12
+TOP_OPS = 24
 
 
 def _profiled(batch, step_ops=False):
@@ -542,14 +544,20 @@ def step_kernel_calls(cs, w, h, spp, lanes, depth=DEPTH):
     """The wavefront step's kernels as calls that repeat, on one pool: a
     ``_Wavefront`` of ``lanes`` lanes (its samples raised so that the queue
     holds three pools) after ``reset_plain`` and two plain steps, and the
-    hit of its next step. ``s1``: S1 in ``path_step``'s form (new
-    outputs) on a copy of the pool's state. S1 then runs once in place on
-    the pool; ``s2``: S2 on its flags, the queue head put back first
-    (``restore``, which the caller times alone and subtracts). Returns a
-    dict: ``wf``, ``pool``, ``hit`` (t, kind, idx as S1 takes them),
-    ``o``, ``d`` and ``args`` (the copies ``s1`` reads; args: its inputs
-    after o and d), ``shaded`` (the outputs of one ``s1``), ``terminal``
-    (the flags S2 reads), ``s1``, ``s2``, ``restore``."""
+    hit of its next step. ``s1``: S1 in ``trace_queued``'s form (the
+    pool's queue positions, new outputs) on a copy of the pool's state;
+    ``s1_carry``: S1 in trace's carry form (a bool active flag, and a
+    carried color from a seed) on the same copy, on a tree that has it,
+    else None. S1 then
+    runs once in place on the pool; ``s2``: S2 on its flags, the queue head
+    put back first (``restore``, which the caller times alone and
+    subtracts). Returns a dict: ``wf``, ``pool``, ``hit`` (t, kind, idx as
+    S1 takes them), ``o``, ``d`` and ``args`` (the copies ``s1`` reads;
+    args: its inputs after o and d), ``carry``, ``shaded`` and
+    ``shaded_carry`` (the outputs of one ``s1`` and one ``s1_carry``),
+    ``terminal`` (the flags S2 reads), ``s1``, ``s1_carry``, ``s2``,
+    ``restore``."""
+    import torch
     from solstrale_tpu_torch.ops import step
     from solstrale_tpu_torch.renderer import integrator
 
@@ -567,10 +575,22 @@ def step_kernel_calls(cs, w, h, spp, lanes, depth=DEPTH):
         pool.bounce, pool.acc_len, pool.fold, pool.pixel, pool.sample, 1,
         pool.qpos < wf.total_q, depth)))
 
-    def s1():
-        return step.step_shade(cs, *hit, o, d, *args)
+    qpos = pool.qpos.clone()
 
+    def s1():
+        return step.step_shade(cs, *hit, o, d, *args[:6],
+                               (qpos, wf.total_q), depth)
+
+    gen = torch.Generator(device=cs.device).manual_seed(SEED)
+    carry = torch.rand((lanes, 3), generator=gen, device=cs.device)
+
+    def s1_carry():
+        return step.step_shade(cs, *hit, o, d, *args, color=carry)
+
+    if not carry_form(step):
+        s1_carry = None
     shaded = s1()
+    shaded_carry = s1_carry() if s1_carry else None
     step.step_shade(cs, *hit, pool.o, pool.d, pool.bounce, pool.acc_len,
                     pool.fold, pool.pixel, pool.sample, 1,
                     (pool.qpos, wf.total_q), depth, out=pool.shade_out())
@@ -584,8 +604,15 @@ def step_kernel_calls(cs, w, h, spp, lanes, depth=DEPTH):
         restore()
         step.step_regen(cs, wf, pool, term)
 
-    return dict(wf=wf, pool=pool, hit=hit, o=o, d=d, args=args,
-                shaded=shaded, terminal=term, s1=s1, s2=s2, restore=restore)
+    return dict(wf=wf, pool=pool, hit=hit, o=o, d=d, args=args, carry=carry,
+                shaded=shaded, shaded_carry=shaded_carry, terminal=term,
+                s1=s1, s1_carry=s1_carry, s2=s2, restore=restore)
+
+
+def carry_form(step):
+    """Whether the tree's ``ops.step`` has trace's carry form (S1 taking
+    the carried color, S1B returning its gradient)."""
+    return hasattr(step, "ATTEN_COL")
 
 
 def _copied(x):
@@ -597,74 +624,87 @@ def _copied(x):
 
 def s1b_calls(cs, pool, active, depth=DEPTH, seed=5, one_row=None):
     """S1B as a call that repeats, on the next bounce of ``pool``'s lanes:
-    S1's record of it (``shade_with_record``; with ``one_row``, every
-    lane's texel row replaced by that row, as if the whole arena were one
-    solid colour), the pool's fold, and upstream gradients from ``seed``
-    as the fixed trip gives them (the color's on the lanes that end, 0 on
-    the rest, whose color ``torch.where`` drops; the fold's on every
-    lane). ``launch(sums=True)``: ``ops.step.step_shade_backward`` as the
-    inverse step calls it, adding into one sums buffer made here (a step
-    zeroes its pass's once), so that the card runs S1B's kernel alone;
-    with ``sums`` False, without the arena's and the background's
-    gradients (the fold's alone). Returns a dict: ``rec``, ``ab``,
-    ``g_color``, ``g_out`` and ``launch``."""
+    S1's record of it in trace's carry form (``shade_with_record``; with
+    ``one_row``, every lane's texel row replaced by that row, as if the
+    whole arena were one solid colour), the pool's fold, and upstream
+    gradients from ``seed`` as the fixed trip gives them (the carried
+    color's and the fold's on every lane). ``launch(sums=True)``:
+    ``ops.step.step_shade_backward`` as the inverse step calls it, adding
+    into one sums buffer made here (a step zeroes its pass's once) and
+    writing the carried color's gradient into a buffer made here, so that
+    the card runs S1B's kernel alone; with ``sums`` False, without the
+    arena's and the background's gradients. Returns a dict: ``rec``,
+    ``ab``, ``g_color``, ``g_out``, ``g_carry`` and ``launch``."""
     import torch
     from solstrale_tpu_torch.ops import step
     from solstrale_tpu_torch.renderer import integrator
 
     hit = integrator.step_hit(cs, pool.o, pool.d, pool.pixel, pool.sample,
                               pool.bounce, 1)
+    r, dev = pool.o[0].shape[0], pool.o[0].device
+    carry = carry_form(step)
+    kw = dict(color=torch.zeros((r, 3), device=dev)) if carry else {}
     _, rec = step.shade_with_record(cs, *hit, pool.o, pool.d, pool.bounce,
                                     pool.acc_len, pool.fold, pool.pixel,
-                                    pool.sample, 1, active, depth)
+                                    pool.sample, 1, active, depth, **kw)
     if one_row is not None:
         rec[0] = one_row
-    r, dev = rec.shape[1], rec.device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    end = (rec[3] & step.REC_TERMINAL) != 0
-    g_color = torch.where(end[:, None], torch.randn(
-        (r, 3), generator=gen, device=dev), 0.0)
+    g_color = torch.randn((r, 3), generator=gen, device=dev)
+    if not carry:
+        # before the carry form, torch.where's transpose handed S1B the
+        # color's gradient on the lanes that end alone
+        end = (rec[3] & step.REC_TERMINAL) != 0
+        g_color = torch.where(end[:, None], g_color, 0.0)
     g_out = [torch.randn((r,), generator=gen, device=dev) for _ in range(6)]
     ab = tuple(x.clone() for x in (*pool.fold[0], *pool.fold[1]))
     arena, bg = cs.textures.pixels, cs.bg_color
     buf = torch.zeros((arena.shape[0] + 1, 3), dtype=torch.float32,
                       device=dev)
+    g_carry = torch.empty((r, 3), device=dev) if carry else None
+    kw = dict(g_carry=g_carry) if carry else {}
 
     def launch(sums=True):
         return step.step_shade_backward(rec, ab, arena, bg, g_color, g_out,
-                                        buf if sums else None, sums, sums)
+                                        buf if sums else None, sums, sums,
+                                        **kw)
 
-    return dict(rec=rec, ab=ab, g_color=g_color, g_out=g_out, launch=launch)
+    return dict(rec=rec, ab=ab, g_color=g_color, g_out=g_out,
+                g_carry=g_carry, launch=launch)
 
 
 def s1b_through(rec, g_color):
     """(R, 3) bool: the lane channels whose fold gradients S1B passes
     through without reading the fold (csrc/step.cu): a lane whose record
-    sets no branch flag, reads no texel and has a zero pdf weight, on a
-    channel whose color gradient times the attenuation (0 where the channel
-    was dead at the terminal color) is 0."""
+    sets no branch flag and reads no texel, on a channel whose color
+    gradient on a lane that ends, times the attenuation (0 where the
+    channel was dead at the terminal color), is 0: every channel of such
+    a lane, which does not end."""
     import torch
     from solstrale_tpu_torch.ops import step
 
     word = rec[3]
     att = rec[2].view(torch.float32)
+    end = (word & step.REC_TERMINAL) != 0
     quiet = ((word & (step.REC_MISS | step.REC_EMIT_FRONT | step.REC_SCAT
                       | step.REC_PDF | step.REC_TERMINAL)) == 0) & \
-        (rec[0] < 0) & (rec[1].view(torch.float32) == 0.0)
+        (rec[0] < 0)
     return torch.stack([quiet & (torch.where(
-        (word & (step.REC_DEAD_T << c)) != 0, 0.0, g_color[:, c] * att)
-        == 0.0) for c in range(3)], -1)
+        (word & (step.REC_DEAD_T << c)) != 0, 0.0,
+        torch.where(end, g_color[:, c], 0.0) * att) == 0.0)
+        for c in range(3)], -1)
 
 
 def s1b_work(rec, g_color):
     """S1B's bytes and f32 operations on one call's record and upstream
     color gradient, counted as the function needs them: per lane the
-    record (16), the color's gradient (12) and the fold's gradients out
-    (24); the fold's gradients in (24) on each lane that does not end; the
-    fold's A and B (8 a channel) on each channel whose gradients are not a
-    pass-through of those (``s1b_through``); each distinct texel row read
-    (12) and its sums read and written (24); the background (12) and its
-    sums (24). Operations: ``S1B_LANE`` a lane."""
+    record (16), the color's gradient (12), the carried color's gradient
+    (12) and the fold's gradients out (24); the fold's gradients in (24)
+    on each lane that does not end; the fold's A and B (8 a channel) on
+    each channel whose gradients are not a pass-through of those
+    (``s1b_through``); each distinct texel row read (12) and its sums read
+    and written (24); the background (12) and its sums (24). Operations:
+    ``S1B_LANE`` a lane."""
     import torch
     from solstrale_tpu_torch.ops import step
 
@@ -672,7 +712,7 @@ def s1b_work(rec, g_color):
     through = int(s1b_through(rec, g_color).sum())
     going = int(((rec[3] & step.REC_TERMINAL) == 0).sum())
     rows = int(torch.unique(rec[0][rec[0] >= 0]).numel())
-    return (r * (16 + 12 + 24) + 24 * going + 8 * (3 * r - through)
+    return (r * (16 + 12 + 12 + 24) + 24 * going + 8 * (3 * r - through)
             + 36 * rows + 12 + 24, r * S1B_LANE)
 
 
@@ -1074,6 +1114,8 @@ def measure_kernels(cs, w, h, spp):
         restore = device_ms(calls["restore"])
         line = dict(
             s1_ms=device_ms(calls["s1"]),
+            s1_carry_ms=(device_ms(calls["s1_carry"]) if calls["s1_carry"]
+                         else None),
             s2_ms=device_ms(calls["s2"]) - restore, restore_ms=restore,
             terminal_lanes=int(calls["terminal"].sum()))
         wf, pool = calls["wf"], calls["pool"]

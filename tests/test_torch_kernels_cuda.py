@@ -5,6 +5,8 @@ root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -68,6 +70,42 @@ def test_k1_matches_plain(cuda, n):
     assert torch.equal(s_k, s_p)
     assert not torch.isfinite(t_k[:128]).any()
     assert (s_k[:128] == -1).all()
+
+
+def test_k1_scalar_bound_matches_plain(cuda):
+    """K1 with its bound a Python number (a kernel argument, no fill) and
+    with the same bound as a tensor a ray (one value broadcast, and one a
+    ray) against its plain version on 32,768 random rays and the edge
+    rays: t and slots bit for bit, one launch a call, and a scalar call
+    dispatches no torch op on the card."""
+    from solstrale_tpu_torch.wavefront_ab import dispatched_ops_mode
+
+    cs = compile_scene(fixtures.mixed_bvh_scene(
+        T.RenderConfig(width=8, height=8), n_cells=64), device=cuda)
+    o, d = _rays(32768, 3, cuda)
+    eo, ed = (torch.from_numpy(x).to(cuda)
+              for x in fixtures.edge_rays(cs.solids, 4096))
+    o = tuple(torch.cat([a, eo[:, k]]) for k, a in enumerate(o))
+    d = tuple(torch.cat([a, ed[:, k]]) for k, a in enumerate(d))
+    r = o[0].shape[0]
+    lo = torch.full((r,), RAY_T_MIN, device=cuda)
+    lo[::7] = 0.5
+    want = bvh.bvh_planar_hit_plain(cs.kbvh.prims, o, d, RAY_T_MIN)
+    want_lo = bvh.bvh_planar_hit_plain(cs.kbvh.prims, o, d, lo)
+    bvh.bvh_planar_hit.launches = 0
+    with dispatched_ops_mode() as ops:
+        got = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+    assert ops.n == 2    # the two outputs' allocations, which launch nothing
+    got_one = bvh.bvh_planar_hit(cs.kbvh, o, d, torch.tensor(
+        RAY_T_MIN, device=cuda))
+    got_lo = bvh.bvh_planar_hit(cs.kbvh, o, d, lo)
+    torch.cuda.synchronize()
+    assert bvh.bvh_planar_hit.launches == 3
+    for a, b, c in zip(got, got_one, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    for a, b in zip(got_lo, want_lo):
+        assert torch.equal(a, b)
+    assert not torch.equal(got_lo[0], got[0])
 
 
 def _sphere_rays(cs, n, seed, device):
@@ -434,8 +472,9 @@ def _device_kernels(fn):
 @pytest.mark.parametrize("route", ["K2", "K4"])
 def test_scene_hit_is_one_launch(cuda, route):
     """On the BVH route the sphere part of ``bvh_closest_hit`` is one launch
-    of K2 (no fill, no combine op), ``bvh_closest_hit`` as a whole is K1's
-    bound fill, K1 and K2, and ``integrator.scene_hit`` of a scene with a
+    of K2 (no fill, no combine op), ``bvh_closest_hit`` as a whole is K1
+    and K2 (K1 takes its scalar bound as an argument: no fill), and
+    ``integrator.scene_hit`` of a scene with a
     medium adds one launch of K3 (no RNG, compare or where op); on the K4
     route ``integrator.scene_hit`` is one launch of K4 (no RNG, stack or
     decode op)."""
@@ -463,12 +502,12 @@ def test_scene_hit_is_one_launch(cuda, route):
     assert len(names) == 1 and "k2_bvh_spheres" in names[0], names
     names = _device_kernels(lambda: bvh.bvh_closest_hit(
         cs.kbvh, s, o, d, RAY_T_MIN, INF))
-    assert len(names) == 3 and "k1_bvh" in names[1] and \
-        "k2_bvh_spheres" in names[2], names
+    assert len(names) == 2 and "k1_bvh" in names[0] and \
+        "k2_bvh_spheres" in names[1], names
     names = _device_kernels(
         lambda: integrator.scene_hit(cs, o, d, pix, sample, bounce, 1))
-    assert len(names) == 4 and "k1_bvh" in names[1] and \
-        "k2_bvh_spheres" in names[2] and "k3_media" in names[3], names
+    assert len(names) == 3 and "k1_bvh" in names[0] and \
+        "k2_bvh_spheres" in names[1] and "k3_media" in names[2], names
 
 
 def test_wrapper_rejects_cpu_cuda_mix(cuda):
@@ -811,30 +850,41 @@ def _numpy_fold(g, r, device):
             torch.from_numpy(g.random(r) < 0.5).to(device))
 
 
-def _s1b_vs_plain(rec, ab, arena, bg, g_color, g_out):
-    """S1B (ops.step.step_shade_backward) against its plain version, each
-    adding into sums of its own: one launch, the fold's gradients bit for
-    bit, the arena's and the background's sums (by atomics on the card)
-    within 1e-5 of the magnitudes summed into each entry (the plain
-    backward of the upstream's absolute values) and 1e-7. Returns the
-    kernel's sums."""
+def _s1b_vs_plain(rec, ab, arena, bg, g_color, g_out, mats=9):
+    """S1B (ops.step.step_shade_backward, the carry form) against its plain
+    version, each adding into sums of its own: one launch, the carried
+    color's and the fold's gradients bit for bit, the arena's, the
+    background's and the ``mats`` materials' attenuation sums (by atomics
+    on the card) within 1e-5 of the magnitudes summed into each entry (the
+    plain backward of the upstream's absolute values) and 1e-7. Returns
+    the kernel's arena and material sums."""
     from solstrale_tpu_torch.ops import step
 
+    dev, r = arena.device, rec.shape[1]
     k_sums, p_sums, s_sums = (torch.zeros((arena.shape[0] + 1, 3),
-                                          device=arena.device)
-                              for _ in range(3))
+                                          device=dev) for _ in range(3))
+    k_mat, p_mat, s_mat = (torch.zeros((mats, 9), device=dev)
+                           for _ in range(3))
+    k_carry, p_carry = (torch.empty((r, 3), device=dev) for _ in range(2))
     before = step.step_shade_backward.launches
     k_ab = step.step_shade_backward(rec, ab, arena, bg, g_color, g_out,
-                                    k_sums)
+                                    k_sums, g_carry=k_carry, g_mats=k_mat)
     assert step.step_shade_backward.launches == before + 1
     p_ab = step.step_shade_backward_plain(rec, ab, arena, bg, g_color, g_out,
-                                          p_sums)
+                                          p_sums, g_carry=p_carry,
+                                          g_mats=p_mat)
     for a, b in zip(k_ab, p_ab):
         assert _same(a, b)
+    assert _same(k_carry, p_carry)
     step.step_shade_backward_plain(rec, ab, arena, bg, g_color.abs(),
-                                   [x.abs() for x in g_out], s_sums)
+                                   [x.abs() for x in g_out], s_sums,
+                                   g_mats=s_mat)
     assert ((k_sums - p_sums).abs() <= 1e-5 * s_sums + 1e-7).all()
-    return k_sums
+    # a NaN fold bound B on a lane that ends on an attenuated emitter makes
+    # its factor's sum NaN, on both sides
+    assert (((k_mat - p_mat).abs() <= 1e-5 * s_mat.abs() + 1e-7)
+            | (k_mat.isnan() & p_mat.isnan())).all()
+    return k_sums, k_mat
 
 
 def _upstream(g, r, device):
@@ -850,20 +900,26 @@ def _upstream(g, r, device):
              for _ in range(6)])
 
 
-def _s1b_bounces(cs, w, h, depth, bounces, g, one_row=None):
-    """``bounces`` chained bounces of S1 with its record against
-    shade_plain(record=True), bit for bit, each followed by S1B against its
-    plain version (``_s1b_vs_plain``) on that record (with ``one_row``,
-    every lane's texel row replaced by that row: a solid colour), on
-    ``w * h`` lanes with a fold, parked lanes and upstream gradients from
-    the numpy generator ``g``."""
+def _s1b_bounces(cs, w, h, depth, bounces, g, one_row=None, rays=None):
+    """``bounces`` chained bounces of S1 with its record in the carry form
+    against shade_plain(record=True), bit for bit (the carried color, the
+    parked direction, alive), each followed by S1B against its plain
+    version (``_s1b_vs_plain``) on that record (with ``one_row``, every
+    lane's texel row replaced by that row: a solid colour), on ``w * h``
+    lanes (camera rays, or ``rays``) with a fold, a carried color, parked
+    lanes and upstream gradients from the numpy generator ``g``. Returns
+    the lanes whose emitter attenuates and the kernel's attenuation sums,
+    summed over the bounces."""
     from solstrale_tpu_torch.ops import step
 
     cuda = cs.device
     pix = torch.arange(w * h, device=cuda)
     r = pix.shape[0]
     sample = torch.ones_like(pix)
-    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
+    o, d = rays or integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
+    color = torch.from_numpy(g.normal(size=(r, 3)).astype(np.float32)).to(
+        cuda)
+    atten, mat_sums = 0, 0.0
     bounce = torch.from_numpy(g.integers(0, depth + 1, r).astype(
         np.int32)).to(cuda)
     acc_len = torch.zeros(r, device=cuda)
@@ -876,11 +932,12 @@ def _s1b_bounces(cs, w, h, depth, bounces, g, one_row=None):
             cs.solids, idx)
         fold = (A, B, dead, outer)
         args = (bounce, acc_len, fold, pix, sample, 1, active, depth)
-        got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args)
+        got, rec = step.shade_with_record(cs, t, kind, idx, o, d, *args,
+                                          color=color)
         want = integrator.shade_plain(cs, o, d, t, kp, ip, *args,
-                                      record=True)
+                                      record=True, color=color)
         assert torch.equal(rec, want["record"])
-        for k in ("color",) + step.FLAGS:
+        for k in ("color", "alive") + step.FLAGS:
             assert _same(got[k], want[k]), k
         for k, a, b in zip(step.LANE_ARRAYS, step.lane_arrays(got),
                            step.lane_arrays(want)):
@@ -888,9 +945,13 @@ def _s1b_bounces(cs, w, h, depth, bounces, g, one_row=None):
         if one_row is not None:
             rec[0] = one_row
         g_color, g_out = _upstream(g, r, cuda)
-        _s1b_vs_plain(rec, (*A, *B), arena, bg, g_color, g_out)
-        o, d = want["o"], want["d"]
+        _, k_mat = _s1b_vs_plain(rec, (*A, *B), arena, bg, g_color, g_out,
+                                 cs.materials.attr.shape[0])
+        atten += int(((rec[3] & step.REC_ATTEN) != 0).sum())
+        mat_sums = mat_sums + k_mat
+        o, d, color = want["o"], want["d"], want["color"]
         bounce, acc_len = want["bounce"], want["acc_len"]
+    return atten, mat_sums
 
 
 @pytest.mark.parametrize("name", list(STEP_SCENES))
@@ -906,6 +967,109 @@ def test_s1b_matches_plain(cuda, name):
     cs = compile_scene(STEP_SCENES[name](T.RenderConfig(width=w, height=h)),
                        device=cuda)
     _s1b_bounces(cs, w, h, 2, 3, np.random.default_rng(7))
+
+
+def test_s1b_attenuation_matches_plain(cuda):
+    """The attenuated quad light of ``fixtures.kitchen_sink_solid_scene``
+    (K4's route): half of 8,192 lanes aimed up at it from below, so that
+    lanes end on it, through ``_s1b_bounces``: S1's record and S1B's
+    attenuation sums against their plain versions; the light's row gets a
+    sum that is not 0, every other entry of the material table exactly
+    0."""
+    from solstrale_tpu_torch.ops import step
+
+    w, h = 128, 64
+    cs = compile_scene(fixtures.kitchen_sink_solid_scene(T.RenderConfig(
+        width=w, height=h)), device=cuda)
+    pix = torch.arange(w * h, device=cuda)
+    o, d = integrator.camera_rays_plain(cs, pix, 1, 1, w, h)
+    g = torch.Generator().manual_seed(4)
+    n = w * h // 2
+    # below the light (y = 10, x and z in [-1, 1], facing down), aimed up
+    up_o = (torch.rand((n,), generator=g) * 1.6 - 0.8, torch.full((n,), 5.0),
+            torch.rand((n,), generator=g) * 1.6 - 0.8)
+    up_d = ((torch.rand((n,), generator=g) - 0.5) * 0.2, torch.ones(n),
+            (torch.rand((n,), generator=g) - 0.5) * 0.2)
+    o = tuple(torch.cat([a[:n], b.to(cuda)]) for a, b in zip(o, up_o))
+    d = tuple(torch.cat([a[:n], b.to(cuda)]) for a, b in zip(d, up_d))
+    atten, sums = _s1b_bounces(cs, w, h, 2, 3, np.random.default_rng(12),
+                               rays=(o, d))
+    col = step.ATTEN_COL
+    light = cs.materials.attr[:, col] > 0
+    assert atten > 100 and bool((sums[light, col] != 0).all())
+    rest = torch.ones_like(sums, dtype=torch.bool)
+    rest[light, col] = False
+    assert not sums[rest].any()
+
+
+def test_attenuation_route_matches_torch_route(cuda, monkeypatch):
+    """``diff.render_linear`` on the card with the material table a leaf
+    (the kitchen-sink solid scene at 64x32, depth 8, through K4, S1 and
+    S1B): the image bit for bit and the table's gradient within rtol 1e-4,
+    atol 1e-7 against autograd through the torch composition on the card
+    (``path_step_plain``), not 0 on the attenuated light's factor and 0 in
+    every other entry; S1B launched once a bounce."""
+    from solstrale_tpu_torch import diff
+    from solstrale_tpu_torch.ops import step
+
+    w, h = 64, 32
+    cs = compile_scene(fixtures.kitchen_sink_solid_scene(T.RenderConfig(
+        width=w, height=h)), device=cuda)
+
+    def grads():
+        attr = cs.materials.attr.clone().requires_grad_(True)
+        leaf = dataclasses.replace(cs, materials=dataclasses.replace(
+            cs.materials, attr=attr))
+        img = diff.render_linear(leaf, width=w, height=h, max_depth=8,
+                                 n_samples=1, seed=1)
+        return img.detach(), torch.autograd.grad(img.sum(), attr)[0]
+
+    before = step.step_shade_backward.launches
+    img, g = grads()
+    assert step.step_shade_backward.launches - before == 9
+    monkeypatch.setattr(integrator, "path_step_grad",
+                        integrator.path_step_plain)
+    img_p, g_p = grads()
+    assert torch.equal(img, img_p)
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-7)
+    col = step.ATTEN_COL
+    light = cs.materials.attr[:, col] > 0
+    assert bool((g[light, col] != 0).all())
+    rest = torch.ones_like(g, dtype=torch.bool)
+    rest[light, col] = False
+    assert not g[rest].any()
+
+
+def test_attenuation_leaf_stepped_in_place_is_read(cuda, monkeypatch):
+    """A material table leaf stepped in place between two differentiable
+    renders of one compiled scene (an optimiser's step): the second render
+    on the card reads the stepped factors, as autograd through the torch
+    composition does (``path_step_plain``, which reads the leaf itself):
+    the same image bits, which differ from the first render's."""
+    from solstrale_tpu_torch import diff
+    from solstrale_tpu_torch.ops import step
+
+    w, h = 64, 32
+    cs = compile_scene(fixtures.kitchen_sink_solid_scene(T.RenderConfig(
+        width=w, height=h)), device=cuda)
+    attr = cs.materials.attr.clone().requires_grad_(True)
+    leaf = dataclasses.replace(cs, materials=dataclasses.replace(
+        cs.materials, attr=attr))
+
+    def render():
+        img = diff.render_linear(leaf, width=w, height=h, max_depth=8,
+                                 n_samples=1, seed=1)
+        torch.autograd.grad(img.sum(), attr)
+        return img.detach()
+
+    first = render()
+    with torch.no_grad():
+        attr[:, step.ATTEN_COL] *= 4.0
+    second = render()
+    monkeypatch.setattr(integrator, "path_step_grad",
+                        integrator.path_step_plain)
+    assert torch.equal(second, render())
+    assert not torch.equal(first, second)
 
 
 @pytest.mark.parametrize("name", ["mixed", "sponza_textured"])

@@ -6,17 +6,20 @@ interior cut to 3,200 triangles, the textured interior, production,
 many_lights, the mixed BVH scene and the normal-mapped kitchen), checked:
 
 (a) the plain backward against ``torch.autograd.grad`` through
-    ``shade_plain`` (the route before S1B) lane by lane, over chained
-    bounces that reach the depth cap, with folds drawn from a numpy seed
-    so that ``torch.minimum``'s ties (A = B = 0: a black albedo; B = 3A)
-    and NaN operands (B = NaN) occur, and dead channels: the fold's
-    gradients exactly, the arena's and the background's to rtol 1e-6;
+    ``shade_plain`` in trace's carry form (the route before S1B) lane by
+    lane, over chained bounces that reach the depth cap, with folds drawn
+    from a numpy seed so that ``torch.minimum``'s ties (A = B = 0: a black
+    albedo; B = 3A) and NaN operands (B = NaN) occur, and dead channels:
+    the carried color's and the fold's gradients exactly, the arena's and
+    the background's to rtol 1e-6;
 (b) ``trace(..., differentiable=True)``'s whole-image gradient of the
     arena and the background against the JAX package's ``jax.grad`` of
     ``render_linear`` (16x8, depth 4, 1 spp; tests/test_torch_diff.py's
     rtol 1e-3, atol 1e-4, on the entries where JAX's is finite);
 (c) a normal map's texels get a gradient of exactly 0;
-(d) the route raises where another scene table requires grad;
+(d) the material table's gradient (its attenuation column) against the
+    JAX package's, and the route raises where another scene table
+    requires grad;
 (e) the arena's and the background's gradients summed in one buffer a
     backward pass (``ops.step.GradSums``) against the route before it,
     which zeroed a buffer every S1B call and let autograd add them
@@ -107,10 +110,12 @@ def _with_leaves(cs, arena, bg):
 @pytest.mark.parametrize("name", list(SCENES))
 def test_plain_backward_matches_autograd(name):
     """(a) S1B's plain version from S1's record against autograd through
-    shade_plain, three chained bounces of 768 lanes at depth cap 2: the
-    fold's gradients bit for bit, the arena's and the background's to rtol
-    1e-6; the record's S1 outputs equal shade_plain's without it; ties,
-    NaN operands, dead channels and capped lanes all occur."""
+    shade_plain in the carry form (a carried color from a second numpy
+    seed), three chained bounces of 768 lanes at depth cap 2: the carried
+    color's and the fold's gradients bit for bit, the arena's and the
+    background's to rtol 1e-6; the record's S1 outputs equal shade_plain's
+    without it; ties, NaN operands, dead channels and capped lanes all
+    occur."""
     w, h, depth = 32, 24, 2
     cs = _compile(name, T, w, h)
     g = np.random.default_rng(7)
@@ -121,6 +126,7 @@ def test_plain_backward_matches_autograd(name):
     acc_len = torch.zeros(r)
     active = torch.from_numpy(g.random(r) > 0.1)
     seen = dict(ties=0, nan=0, dead=0, capped=0, scat=0, emit=0, miss=0)
+    g_carry_draws = np.random.default_rng(8)
     for _ in range(3):
         A, B, dead, outer = _fold(g, r)
         t, kind, idx = TI.step_hit(cs, o, d, pix, 1, bounce, SEED)
@@ -132,31 +138,38 @@ def test_plain_backward_matches_autograd(name):
         arena = cs.textures.pixels.clone().requires_grad_(True)
         bg = cs.bg_color.clone().requires_grad_(True)
         ab = [x.clone().requires_grad_(True) for x in (*A, *B)]
+        carry = torch.from_numpy(g_carry_draws.normal(size=(r, 3)).astype(
+            np.float32)).requires_grad_(True)
         st = TI.shade_plain(_with_leaves(cs, arena, bg), o, d, t, kind, idx,
-                            *args, (ab[:3], ab[3:], dead, outer), *tail)
+                            *args, (ab[:3], ab[3:], dead, outer), *tail,
+                            color=carry)
         g_color = torch.from_numpy(g.normal(size=(r, 3)).astype(np.float32))
         g_out = [torch.from_numpy(g.normal(size=r).astype(np.float32))
                  for _ in range(6)]
         want = torch.autograd.grad(
             [st["color"], *st["fold"][0], *st["fold"][1]],
-            [*ab, arena, bg], [g_color, *g_out], allow_unused=True,
+            [*ab, arena, bg, carry], [g_color, *g_out], allow_unused=True,
             materialize_grads=True)
 
         with torch.no_grad():
             rec_st = TI.shade_plain(cs, o, d, t, kind, idx, *args,
-                                    (A, B, dead, outer), *tail, record=True)
+                                    (A, B, dead, outer), *tail, record=True,
+                                    color=carry)
         rec = rec_st["record"]
         assert rec.shape == (4, r) and rec.dtype == torch.int32
         for k in ("color",) + S.FLAGS:
             torch.testing.assert_close(rec_st[k], st[k].detach(), rtol=0,
                                        atol=0, equal_nan=True, msg=k)
         sums = torch.zeros((cs.textures.pixels.shape[0] + 1, 3))
+        g_carry = torch.empty((r, 3))
         got_ab = S.step_shade_backward_plain(
             rec, (*A, *B), cs.textures.pixels, cs.bg_color, g_color, g_out,
-            sums)
+            sums, g_carry=g_carry)
         for k, (a, b) in enumerate(zip(got_ab, want[:6])):
             torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
                                        msg=f"fold input {k}")
+        torch.testing.assert_close(g_carry, want[8], rtol=0, atol=0,
+                                   equal_nan=True, msg="carried color")
         torch.testing.assert_close(sums[:-1], want[6], rtol=1e-6, atol=0)
         torch.testing.assert_close(sums[-1], want[7], rtol=1e-6, atol=0)
 
@@ -282,18 +295,94 @@ def test_normal_map_texels_get_no_gradient(name):
     assert (g != 0).any()
 
 
-@pytest.mark.parametrize("table", ["materials", "lights"])
+def _attenuation_scene(api, w=16, h=12):
+    """tests/scenes.py::create_light_attenuation_scene(rc, 0.5) through
+    ``api``, line for line: a small attenuated sphere light over spheres
+    on a red quad (no assets), compiled at w x h, seed 1."""
+    rc = api.RenderConfig(width=w, height=h, samples_per_pixel=1, seed=SEED)
+    camera = api.CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.0,
+                              look_from=(0.0, 1.0, 2.0),
+                              look_at=(0.0, 0.2, 0.0))
+    light = api.DiffuseLight(25.0, 25.0, 25.0, attenuation_half_length=0.5)
+    world = [
+        api.Sphere((0, 0.2, 0), 0.03, light),
+        api.Sphere((0.25, 0.1, 0.25), 0.1,
+                   api.Lambertian(api.SolidColor(0, 1, 0))),
+        api.Sphere((0.25, 0.1, -0.5), 0.1,
+                   api.Lambertian(api.SolidColor(0, 0, 1))),
+        api.Sphere((-0.1, 0.1, -0.1), 0.1,
+                   api.Dielectric(api.SolidColor(0.8, 0.8, 0.8), None, 1.5)),
+        api.Quad((-1, 0, -1), (2, 0, 0), (0, 0, 2),
+                 api.Lambertian(api.SolidColor(1, 0, 0))),
+    ]
+    scene = api.Scene(api.Bvh(world), camera, (0.0, 0.0, 0.0), rc)
+    return jcompile(scene) if api is J else tcompile(scene, device="cpu")
+
+
+def _jax_attr_grad(w=16, h=12, depth=4):
+    """(image, material table gradient) of sum(image) from the JAX
+    package's render_linear on the attenuation scene (its default XLA
+    route; its Pallas route gives the same attenuation column)."""
+    cj = _attenuation_scene(J, w, h)
+
+    def f(attr):
+        img = JD.render_linear(
+            dataclasses.replace(cj, materials=dataclasses.replace(
+                cj.materials, attr=attr)),
+            width=w, height=h, max_depth=depth, n_samples=1, seed=SEED)
+        return jnp.sum(img), img
+
+    (_, img), g = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        cj.materials.attr)
+    return np.asarray(img), np.asarray(g)
+
+
+@pytest.mark.parametrize("table", ["materials", "lights", "solids",
+                                   "camera"])
 def test_route_raises_on_other_tables(table):
-    """(d) A material or light table that requires grad: the route raises,
-    naming the leaves it supports, rather than return a gradient that
-    leaves it out."""
+    """(d) The material table requiring grad: the route returns its
+    gradient, JAX's: on the attenuation scene (16x12, depth 4, 1 spp) the
+    attenuation column (``ops.step.ATTEN_COL``) of the attenuated light's
+    row against ``jax.grad`` of the JAX package's render_linear (rtol
+    1e-3, atol 1e-4, the file's tolerance against JAX; JAX's finite), every
+    other entry exactly 0, the rows whose factor is 0 included, and the
+    image as the route gives it without grad. A light, solid or camera
+    table that requires grad: the route raises, naming the leaves it
+    supports (among them the material table), rather than return a
+    gradient that leaves it out."""
+    if table == "materials":
+        img_j, g_j = _jax_attr_grad()
+        cs = _attenuation_scene(T)
+        leaf = cs.materials.attr.clone().requires_grad_(True)
+        scene = dataclasses.replace(cs, materials=dataclasses.replace(
+            cs.materials, attr=leaf))
+        img = TD.render_linear(scene, width=16, height=12, max_depth=4,
+                               n_samples=1, seed=SEED)
+        g, = torch.autograd.grad(img.sum(), leaf)
+        with torch.no_grad():
+            plain = TD.render_linear(cs, width=16, height=12, max_depth=4,
+                                     n_samples=1, seed=SEED)
+        assert torch.equal(img.detach(), plain)
+        np.testing.assert_allclose(img.detach().numpy(), img_j, rtol=1e-4,
+                                   atol=1e-4)
+        col = S.ATTEN_COL
+        atten = cs.materials.attr[:, col] > 0
+        assert int(atten.sum()) == 1 and np.isfinite(g_j[:, col]).all()
+        assert float(g[atten, col]) < 0
+        np.testing.assert_allclose(g[:, col].numpy(), g_j[:, col],
+                                   rtol=1e-3, atol=1e-4)
+        rest = torch.ones_like(g, dtype=torch.bool)
+        rest[atten, col] = False
+        assert torch.equal(g[rest], torch.zeros_like(g[rest]))
+        return
     cs = _compile("kitchen", T, 16, 8)
     part = getattr(cs, table)
-    field = "attr" if table == "materials" else "w"
+    field = dict(lights="w", solids="sph_attr", camera="origin")[table]
     leaf = getattr(part, field).clone().requires_grad_(True)
     bad = dataclasses.replace(cs, **{table: dataclasses.replace(
         part, **{field: leaf})})
-    with pytest.raises(ValueError, match=r"cs\.textures\.pixels"):
+    with pytest.raises(ValueError, match=r"cs\.textures\.pixels.*"
+                       r"cs\.materials\.attr"):
         TD.render_linear(bad, width=16, height=8, max_depth=4, n_samples=1,
                          seed=SEED)
     with torch.no_grad():
@@ -303,19 +392,19 @@ def test_route_raises_on_other_tables(table):
 
 
 class _PerCallShadeFn(torch.autograd.Function):
-    """The differentiable bounce before the pass's sums: S1 with its record,
-    and in the backward S1B's plain version into a buffer zeroed for this
-    call, whose arena and background rows it returns for autograd to add
-    to the other bounces'."""
+    """The differentiable bounce before the pass's sums: S1 with its record
+    (in the carry form), and in the backward S1B's plain version into a
+    buffer zeroed for this call, whose arena and background rows it
+    returns for autograd to add to the other bounces'."""
 
     @staticmethod
-    def forward(ctx, cs, call, arena, bg, *ab):
+    def forward(ctx, cs, call, arena, bg, color, *ab):
         (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
          seed, active, max_depth) = call
         out, rec = S.shade_with_record(
             cs, t, kind, idx, o, d, bounce, acc_len,
             (ab[:3], ab[3:], dead, outer), pixel, sample, seed, active,
-            max_depth, arena, bg)
+            max_depth, arena, bg, color=color)
         ctx.save_for_backward(rec, arena, bg, *ab)
         ctx.set_materialize_grads(False)
         A, B, dead, outer = out["fold"]
@@ -329,25 +418,27 @@ class _PerCallShadeFn(torch.autograd.Function):
         rec, arena, bg, *ab = ctx.saved_tensors
         need = ctx.needs_input_grad
         sums = torch.zeros((arena.shape[0] + 1, 3), dtype=arena.dtype)
+        g_carry = (torch.empty_like(g_color)
+                   if need[4] and g_color is not None else None)
         g_ab = S.step_shade_backward_plain(rec, ab, arena, bg, g_color,
                                            g_out[:6], sums, need[2], need[3],
-                                           need[4:10])
+                                           need[5:11], g_carry=g_carry)
         return (None, None, sums[:-1] if need[2] else None,
-                sums[-1] if need[3] else None, *g_ab)
+                sums[-1] if need[3] else None, g_carry, *g_ab)
 
 
 def _per_call_shade_grad(cs, t, kind, idx, o, d, bounce, acc_len, fold,
-                         pixel, sample, seed, active, max_depth):
+                         pixel, sample, seed, active, max_depth, color):
     """``ops.step.step_shade_grad`` on ``_PerCallShadeFn``."""
     A, B, dead, outer = fold
     outs = _PerCallShadeFn.apply(
         cs, (t, kind, idx, o, d, bounce, acc_len, dead, outer, pixel, sample,
              seed, active, max_depth), cs.textures.pixels, cs.bg_color,
-        *A, *B)
+        color, *A, *B)
     out = dict(zip(S.FLAGS, outs[19:]))
     out.update(color=outs[0], o=outs[7:10], d=outs[10:13], bounce=outs[13],
                acc_len=outs[14], fold=(outs[1:4], outs[4:7], outs[15:18],
-                                       outs[18]))
+                                       outs[18]), alive=out["scat"])
     return out
 
 
@@ -415,15 +506,14 @@ def test_retained_second_backward_does_not_double():
     fold = (a0, B, dead, outer)
     bounce = torch.zeros(pix.shape, dtype=torch.int32)
     alive = torch.ones(pix.shape, dtype=torch.bool)
-    loss, acc_len = 0.0, zero
+    acc_len, color = zero, torch.zeros((pix.shape[0], 3))
     for _ in range(3):
         st = TI.path_step_grad(scene, o, d, bounce, acc_len, fold, pix, 1,
-                               SEED, alive, 4)
-        loss = loss + (st["color"] * st["color"]).sum()
-        alive = alive & ~st["terminal"]
-        o, bounce, acc_len, fold = (st["o"], st["bounce"], st["acc_len"],
-                                    st["fold"])
-        d = tuple(torch.where(alive, c, 0.0) for c in st["d"])
+                               SEED, alive, 4, color)
+        o, d, bounce, acc_len, fold, alive, color = (
+            st["o"], st["d"], st["bounce"], st["acc_len"], st["fold"],
+            st["alive"], st["color"])
+    loss = (color * color).sum()
     g1 = torch.autograd.grad(loss, (arena, bg), retain_graph=True)
     kept = [g.clone() for g in g1]
     g2 = torch.autograd.grad(loss, (arena, bg), retain_graph=True)
@@ -457,7 +547,8 @@ def test_bounce_without_a_trace_head_keeps_its_arena_gradient():
         st = TI.path_step_grad(scene, o, d, torch.zeros(pix.shape,
                                                         dtype=torch.int32),
                                zero, TI.fold_init(zero), pix, 1, SEED,
-                               torch.ones(pix.shape, dtype=torch.bool), 4)
+                               torch.ones(pix.shape, dtype=torch.bool), 4,
+                               torch.zeros((pix.shape[0], 3)))
         grads.append(torch.autograd.grad(
             (st["color"] * st["color"]).sum(), (arena, bg)))
     for a, b in zip(*grads):
@@ -472,9 +563,12 @@ def test_pass_through_lanes_equal_full_formula():
     those bits on every such lane and channel, with A and B 0, 1, inf,
     NaN, tied (B = 3A, B = A * 0) or random, the color gradient +0 or -0
     (or any value on a dead-at-terminal channel), the attenuation from a
-    record, and upstream fold gradients +0, -0, inf, NaN or random; and a
-    color gradient that is not 0 (NaN, inf, a number) gives what the full
-    formula gives, which the kernel then computes."""
+    record, and upstream fold gradients +0, -0, inf, NaN or random; a
+    lane that does not end passes its color gradient, whatever it is, to
+    the carried color (its bits) and shades nothing; and on a lane that
+    ends (its record's terminal bit) a color gradient that is not 0 (NaN,
+    inf, a number) gives what the full formula gives, which the kernel then
+    computes."""
     g = np.random.default_rng(11)
     r = 4096
     special = np.array([0.0, -0.0, 1.0, np.inf, -np.inf, np.nan],
@@ -496,23 +590,31 @@ def test_pass_through_lanes_equal_full_formula():
     att = torch.from_numpy(g.uniform(0.1, 1.0, r).astype(np.float32))
     att[::3] = 1.0
     none = torch.zeros(r, dtype=torch.bool)
+    # a third of the lanes end (the rest shade nothing) with a color
+    # gradient that is not 0; another third does not end with one
+    end = torch.arange(r) % 3 == 0
     rec = S.shade_record(torch.full((r,), -1, dtype=torch.int32),
-                         torch.zeros(r), att, none, none, none, none, none,
-                         dead_t, dead)
+                         torch.zeros(r), att, none, none, none, none, end,
+                         dead_t, dead, none, torch.zeros(r),
+                         torch.zeros(r, dtype=torch.int32))
     zero = torch.from_numpy(np.where(g.random((r, 3)) < 0.5, 0.0, -0.0)
                             .astype(np.float32))
-    # a third of the lanes: a color gradient that is not 0
-    g_color = torch.where(torch.arange(r)[:, None] % 3 == 0,
+    g_color = torch.where((torch.arange(r)[:, None] % 3 != 2),
                           draw(0.5)[:, None].expand(r, 3), zero)
     texels, bg = torch.rand(8, 3), torch.rand(3)
     sums = torch.zeros((9, 3))
+    g_carry = torch.empty((r, 3))
     got = S.step_shade_backward_plain(rec, (*A, *B), texels, bg, g_color,
-                                      g_out, sums)
+                                      g_out, sums, g_carry=g_carry)
     assert not sums.any()
+    assert torch.equal(g_carry[~end].view(torch.int32),
+                       g_color[~end].view(torch.int32))
+    assert torch.equal(g_carry[end], torch.zeros_like(g_carry[end]))
     passed = 0
     for c in range(3):
-        gl = torch.where(dead_t[c], 0.0, g_color[:, c] * att)
-        through = gl == 0.0
+        gl = torch.where(dead_t[c], 0.0,
+                         torch.where(end, g_color[:, c], 0.0) * att)
+        through = (gl == 0.0) & ~end
         passed += int(through.sum())
         for k, up in ((c, g_out[c]), (3 + c, g_out[3 + c])):
             want = (up + 0.0)[through]
@@ -523,4 +625,4 @@ def test_pass_through_lanes_equal_full_formula():
         # happens unless A t_c > B (min_grads' NaN rule)
         nan = ~through & ~torch.isfinite(gl) & ~(A[c] * 0.0 > B[c])
         assert nan.any() and torch.isnan(got[c][nan]).all()
-    assert passed > 2 * r
+    assert passed == 3 * int((~end).sum())
