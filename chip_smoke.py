@@ -212,7 +212,15 @@ script exits non-zero):
      K5 launch a batch on the kitchen and the megakernel workload, K5 on
      no BVH scene; these launches count in the kernels line), and its three
      new scenes at a small size on the card against the CPU, repeated bit
-     for bit.
+     for bit;
+  8. four cards: with four cards or more visible, the sharded routes on
+     four NCCL ranks, one a card, each held to one card
+     (``python -m solstrale_tpu_torch.parallel.four_card``, run in this
+     process: ``render_batch_sharded``, ``render_sample_sharded``,
+     ``render_distributed`` and ``train_step_sharded`` on the 4x1 and the
+     2x2 mesh, its JSON lines, and the phase fails if a check does); with
+     fewer, one line saying that the phase did not run and how many cards
+     are visible.
 The last lines are the card's name and power limit, the kernels' JSON
 summary (K1-K5, the draw kernel, S1, S2, S1B, CR, FH, CRB and FHB; the
 draw kernel's launches are those of the denoised render of phase 3d, 0:
@@ -4173,6 +4181,26 @@ def phase_bench():
     return launches
 
 
+def phase_four_card():
+    """8: the four-card check (``parallel.four_card.run``) where four cards
+    are visible; otherwise one line: the phase did not run, and the cards
+    seen."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        log("four_card", ran=False, cards_visible=n,
+            reason="the four-card check needs 4 cards")
+        return
+    from solstrale_tpu_torch.parallel import four_card
+
+    t0 = time.perf_counter()
+    lines = four_card.run("cuda")
+    log("four_card", ran=True, cards_visible=n,
+        checks=sum("ok" in x for x in lines),
+        seconds=time.perf_counter() - t0)
+
+
 def _segments(cs, w, h):
     """Segments of one 1 spp, depth-50 render_sample_batch of ``cs``."""
     from solstrale_tpu_torch.renderer import integrator
@@ -4223,6 +4251,7 @@ def main():
     for phase in (lambda: phase_obj_ingest(smi), phase_bench):
         for k, n in phase().items():
             launches[k] += n
+    phase_four_card()
 
     source = {"K1": ("solstrale_tpu_torch/csrc/bvh.cu",
                      "solstrale_tpu/ops/pallas_bvh.py:104"),

@@ -219,19 +219,14 @@ def image_and_texture_grad(cs: CompiledScene, target, *, width, height,
     return step(cs, target)
 
 
-def train_step_sharded(cs: CompiledScene, target, mesh, *, width, height,
-                       max_depth, lr, seed):
-    """One sharded inverse-rendering SGD step (``parallel``'s mesh; every
-    rank calls it): each rank renders its pixel tile (``tile``) at sample
-    ``1 + its sample rank`` (``sample``), takes its partial L2 loss and
-    arena gradient (``grad_step``: a graph replay on the card), and both
-    are all-reduced over the whole mesh; every rank then applies the same
-    update. ``target`` is (height*width, 3) in pixel-id order (or any shape
-    of that size) on the rank's device. Returns (loss, the scene with the
-    new arena) on every rank.
-
-    JAX's XLA overlaps the psum with the backward replay; here the
-    all-reduce follows the replay."""
+def shard_loss_and_grad(cs: CompiledScene, target, mesh, *, width, height,
+                        max_depth, seed):
+    """This rank's part of ``train_step_sharded``, no collective: the
+    summed squared error of its pixel tile (``tile``; the padding's rows
+    weigh 0) at sample ``1 + its sample rank`` (``sample``) and its arena
+    gradient, from ``grad_step`` (a graph replay on the card). ``target``
+    is (height*width, 3) in pixel-id order (or any shape of that size).
+    Returns (error sum, gradient), both detached."""
     n_pix = width * height
     ids, _ = tile_ids(n_pix, mesh)
     valid = (ids < n_pix).to(torch.float32)[:, None]
@@ -240,9 +235,28 @@ def train_step_sharded(cs: CompiledScene, target, mesh, *, width, height,
     step = grad_step(cs, tgt, width=width, height=height,
                      max_depth=max_depth, n_samples=1, seed=seed, pix=pix,
                      sample=1 + mesh.get_local_rank("sample"))
-    err, grad = step(cs, tgt, pix, valid)
+    return step(cs, tgt, pix, valid)
+
+
+def train_step_sharded(cs: CompiledScene, target, mesh, *, width, height,
+                       max_depth, lr, seed):
+    """One sharded inverse-rendering SGD step (``parallel``'s mesh; every
+    rank calls it): each rank takes its tile's partial L2 loss and arena
+    gradient (``shard_loss_and_grad``), both are all-reduced over the whole
+    mesh, and every rank then applies the same update. ``target`` is
+    (height*width, 3) in pixel-id order (or any shape of that size) on the
+    rank's device. Returns (loss, the scene with the new arena) on every
+    rank.
+
+    The all-reduces follow the replay. The arena's cannot overlap it: S1B
+    adds every chunk's gradient into one buffer of the backward pass
+    (``ops.step.GradSums``), which is complete only after the last chunk.
+    Only the scalar loss's reduce could run beside the backward."""
+    err, grad = shard_loss_and_grad(cs, target, mesh, width=width,
+                                    height=height, max_depth=max_depth,
+                                    seed=seed)
     loss = all_reduce(err.reshape(1), mesh)[0]
     grad = all_reduce(grad, mesh)
-    denom = n_pix * 3 * mesh.size(1)
+    denom = width * height * 3 * mesh.size(1)
     new_params = cs.textures.pixels.detach() - lr * grad / denom
     return loss / denom, set_texture_params(cs, new_params)

@@ -115,18 +115,15 @@ def render_sample_sharded(cs, sample, seed, mesh, *, width, height, max_depth,
     return tuple(out)
 
 
-def render_batch_sharded(cs, sample_start, n_samples, seed, mesh, *, width,
-                         height, max_depth, shard_stats=False):
-    """A whole progressive sample batch sharded over the mesh, each tile
-    rank draining the work queue (``integrator.trace_queued``) over its own
-    pixels. The sample ranks split the batch (rank k renders samples
-    [start + k q, start + (k + 1) q), q = n_samples / n_sample) and their
-    sums are all-reduced. Padding (pixel 0, only in the last tile) is left
-    out of the queue by ``n_valid``, so the segments stay exact.
-
-    Returns (color image (H, W, 3) summed over n_samples, total segments),
-    on every rank; with ``shard_stats`` also the (n_tile,) segments of each
-    tile (its load)."""
+def shard_batch(cs, sample_start, n_samples, seed, mesh, *, width, height,
+                max_depth):
+    """This rank's part of ``render_batch_sharded``, no collective: its tile
+    of pixels over its share of the batch's samples (sample rank k renders
+    samples [start + k q, start + (k + 1) q), q = n_samples / n_sample),
+    drained by ``integrator.trace_queued``. Padding (pixel 0, only in the
+    last tile) is left out of the queue by ``n_valid``, so the segments
+    stay exact. Returns (accum (per_tile, 3) in tile order, zero rows for
+    the padding; segments as a 0-dim int64 tensor)."""
     n_sample = mesh.size(1)
     if n_samples % n_sample:
         raise ValueError(f"render_batch_sharded: {n_samples} samples do not "
@@ -135,15 +132,28 @@ def render_batch_sharded(cs, sample_start, n_samples, seed, mesh, *, width,
     n_pix = width * height
     ids, n_valid = tile_ids(n_pix, mesh)
     pix = torch.where(ids < n_pix, ids, 0)
-    accum, segs = integrator.trace_queued(
+    return integrator.trace_queued(
         cs, sample_start + mesh.get_local_rank("sample") * per_shard,
         per_shard, seed, width=width, height=height, max_depth=max_depth,
         pix_ids=pix, n_valid=n_valid)
+
+
+def render_batch_sharded(cs, sample_start, n_samples, seed, mesh, *, width,
+                         height, max_depth, shard_stats=False):
+    """A whole progressive sample batch sharded over the mesh, each tile
+    rank draining the work queue over its own pixels (``shard_batch``), the
+    sample ranks' sums all-reduced over ``sample`` and the tiles gathered.
+
+    Returns (color image (H, W, 3) summed over n_samples, total segments),
+    on every rank; with ``shard_stats`` also the (n_tile,) segments of each
+    tile (its load)."""
+    accum, segs = shard_batch(cs, sample_start, n_samples, seed, mesh,
+                              width=width, height=height, max_depth=max_depth)
     accum = all_reduce(accum, mesh, "sample")
     segs_tile = all_reduce(segs.reshape(1), mesh, "sample")
     per_tile = gather_tiles(segs_tile, mesh)
-    color = integrator.to_image(gather_tiles(accum, mesh)[:n_pix], width,
-                                 height)
+    color = integrator.to_image(gather_tiles(accum, mesh)[:width * height],
+                                 width, height)
     if shard_stats:
         return color, per_tile.sum(), per_tile
     return color, per_tile.sum()

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..ops import _build
 from ..scene.compile import compile_scene
 from ..utils import to_rgb_u8
 from . import make_mesh, mesh_device, render_sample_sharded
@@ -97,16 +98,40 @@ def render_distributed(scene, n_sample_axis=1, abort=None,
         yield min(sample, spp) / spp, image
 
 
+def host_only(x, where="result"):
+    """Raise TypeError where ``x`` (a number, a string, numpy, a tensor, or
+    a tuple, list or dict of them) holds a tensor off the CPU: a rank's
+    result crosses to the launcher, which must open no context on the
+    ranks' cards. Returns ``x``."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise TypeError(f"{where}: a {x.device} tensor; a rank returns "
+                            f"CPU values only")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            host_only(v, f"{where}[{k!r}]")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            host_only(v, f"{where}[{i}]")
+    return x
+
+
 def _rank_main(fn, rank, world_size, init_method, device_type, args,
                results):
     """One process of ``launch``: join the group, run ``fn``, report. The
-    result travels as plain pickle bytes (the queue's own pickler would
-    share tensors by file descriptor, which dies with this process), and
-    the report is flushed before the group is torn down, which can block
-    while another rank waits in a collective."""
+    result must hold CPU values only (``host_only``) and travels as plain
+    pickle bytes (the queue's own pickler would share tensors by file
+    descriptor, which dies with this process); the report is flushed
+    before the group is torn down, which can block while another rank
+    waits in a collective. A gloo rank runs one intra-op thread: the ranks
+    share the host's cores, and intra-op threads that spin while they wait
+    oversubscribe them (four ranks of eight threads each ran a 21x11 batch
+    in 20 s that one rank runs in 0.25 s)."""
     try:
+        if device_type == "cpu":
+            torch.set_num_threads(1)
         initialize(init_method, world_size, rank, device_type)
-        item = (rank, pickle.dumps(fn(*args)), None)
+        item = (rank, pickle.dumps(host_only(fn(*args))), None)
     except BaseException as e:  # reported to the launcher, which raises
         item = (rank, None, f"{type(e).__name__}: {e}")
     results.put(item)
@@ -119,11 +144,22 @@ def _rank_main(fn, rank, world_size, init_method, device_type, args,
 def launch(fn, world_size, args=(), device_type="cuda", timeout=300.0):
     """Run ``fn(*args)`` on ``world_size`` new processes (spawned), each a
     rank of one process group (a FileStore in a temporary directory) with
-    the backend of ``device_type`` (NCCL on the card, one card a rank;
-    ``"cpu"`` for gloo). ``fn`` must be importable by name.
+    the backend of ``device_type``: NCCL on the card, rank r on card r
+    (``world_size`` must not exceed the cards; the kernel library is built
+    here, once, before the ranks start), or gloo for ``"cpu"``. ``fn`` must
+    be importable by name and return CPU values only (``host_only``).
     Returns the ranks' results in rank order; a rank that raises, or a run
     that outlasts ``timeout`` seconds, raises here (the processes are
     ended)."""
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("launch: device_type 'cuda' but "
+                               "torch.cuda.is_available() is false")
+        if world_size > torch.cuda.device_count():
+            raise RuntimeError(f"launch: {world_size} ranks but "
+                               f"{torch.cuda.device_count()} cards: NCCL "
+                               f"takes one card a rank")
+        _build.build()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:

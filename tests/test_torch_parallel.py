@@ -166,8 +166,8 @@ def test_initialize_without_group():
                     "case: without a card the default raises")
 def test_launch_defaults_to_the_card():
     """``launch`` runs its ranks on the card (NCCL) unless asked for the
-    CPU, like every entry point of ``parallel``: without a card the rank
-    raises and ``launch`` reports it."""
+    CPU, like every entry point of ``parallel``: without a card it
+    raises before any rank starts."""
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         PD.launch(_one_rank, 1, timeout=TIMEOUT)
 
