@@ -138,10 +138,20 @@ script exits non-zero):
      sample for the aux planes; never K5 or the draw kernel); the albedo,
      normal and simple shaders at 1920x1080 on the interior (K1) and the
      kitchen (K4), one CR and one FH launch a sample, never K5 or the draw
-     kernel; ``render_pixels`` on the mixed scene at 1920x1080,
-     depth 50, with and without early exit, bit for bit (K1, K2, K3, CR
-     once, and S1 once a bounce, grad mode on as a user calls it), and
-     ``render_sample`` of the same (one S1 launch a bounce, its image); K1
+     kernel; the sample pass (``render_pixels``, the path shader, early
+     exit, depth 50, grad mode on as a user calls it) at 1920x1080 on the
+     mixed scene (K1, K2, K3), the normal-mapped kitchen (K4) with the aux
+     planes and the textured sponza (K1): one replay of its CUDA graph
+     (``integrator.sample_pass``, captured by a first call) against the
+     eager fixed trip (``early_exit=False``) and the eager early exit
+     (``sample_pass_eager``, one host read a bounce), every plane bit for
+     bit, CR once, FH once with the aux planes, S1 once a bounce (51 on
+     the graph and the fixed trip, with the same launches; the early
+     exit's bounces logged), and ``render_sample`` of the same (one
+     replay, its planes); two ``sample_pass`` lines, the mixed and the
+     kitchen pass graphed, as the eager fixed trip and with one read a
+     bounce, wall ms, busy ms, bounces, host reads and replays of each
+     (``wavefront_ab.sample_pass_times``); K1
      and K4 over all 2,073,600 camera rays of a 1080p image in one launch
      equal to 16 launches of 131,072; the CNN denoiser on the card against
      the CPU; times of the denoiser, bloom, ``first_hit_aux``, the hit
@@ -189,10 +199,13 @@ script exits non-zero):
      one-rank NCCL group, ``render_batch_sharded`` on the interior at 1080p
      equal to ``render_sample_batch`` (6,708,708 segments),
      ``render_sample_sharded`` on the kitchen at 400x266 equal to
-     ``render_sample`` (planes and launches: one S1 launch a bounce),
+     ``render_sample`` (planes and launches: one replay each of the sample
+     pass's graph, 51 S1 launches) and to the eager early exit's planes,
      ``train_step_sharded`` (its shard step graphed too) equal to one
      ``image_and_texture_grad`` SGD step and
-     ``render_distributed``'s final image (S1 launched); the denoiser trainer for a few
+     ``render_distributed``'s final image (a capture's warm-up and two
+     replays, 153 S1 launches; its passes' sum equal to the eager early
+     exit's); the denoiser trainer for a few
      steps at 64x64, and one Adam step on the card against the CPU;
   6. OBJ ingest and the device BVH build: the sponza-class terrain written
      as a 262,088-triangle OBJ with its MTL and PNG textures
@@ -2724,7 +2737,98 @@ def _check_image(name, img, h, w):
                              f"{float(img.mean()):.3f})")
 
 
-def phase_surface(sponza_cs):
+def _sample_replays(cs):
+    """Replays of the sample pass's graphs on this compiled scene, over
+    its keys."""
+    from solstrale_tpu_torch.renderer import integrator
+
+    return sum(v.replays for (sid, key), v in list(
+        integrator._PER_SCENE.items()) if sid == id(cs) and
+        isinstance(key, tuple) and key[0] == integrator.SAMPLE_PASS)
+
+
+def _sample_pass_vs_eager(name, cs, w, h, need_aux, wrappers, kernels):
+    """The path shader's sample pass (depth 50, seed 1, sample 1; its graph
+    captured by a first call at sample 2, timed), grad mode on as a user
+    calls it, three ways through ``render_pixels``: ``graphed`` (one replay
+    of the fixed trip), ``fixed`` (the eager fixed trip, ``early_exit=
+    False``) and ``early_exit`` (``sample_pass_eager``: one host read a
+    bounce, the route before the graph). Each launches every kernel of
+    ``kernels``, CR once, FH once with the aux planes, no draw kernel, and
+    S1 once a bounce, the first hit kernel as often (plus FH's hit); the
+    graphed and fixed ways 51 bounces with the same launches, the early
+    exit its own count (logged); every plane of the three bit for bit the
+    same. Then ``render_sample``: one replay and the same planes. Returns
+    the launches and seconds of each."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    kw = dict(width=w, height=h, max_depth=50, need_aux=need_aux)
+    path = integrator.SHADER_PATH
+    pix = torch.arange(w * h, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    integrator.render_sample(cs, 2, 1, shader_kind=path, **kw)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ways = {
+        "graphed": lambda: integrator.render_pixels(
+            cs, pix, 1, 1, shader_kind=path, **kw),
+        "fixed": lambda: integrator.render_pixels(
+            cs, pix, 1, 1, shader_kind=path, early_exit=False, **kw),
+        "early_exit": lambda: integrator.sample_pass_eager(
+            cs, pix, 1, 1, **kw)}
+    aux = int(need_aux)
+    planes, rp = {}, {}
+    for way, fn in ways.items():
+        reset_launches(wrappers)
+        replays = _sample_replays(cs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes[way] = fn()
+        torch.cuda.synchronize()
+        got = launch_counts(wrappers)
+        rp[way] = dict(seconds=time.perf_counter() - t0, launches=got,
+                       bounces=got["S1"],
+                       replays=_sample_replays(cs) - replays)
+        if min(got[k] for k in kernels) <= 0 or got["S1"] > 51 or \
+                got[kernels[0]] != got["S1"] + aux or \
+                (got["CR"], got["FH"], got["draw"]) != (1, aux, 0) or \
+                rp[way]["replays"] != int(way == "graphed") or \
+                (way != "early_exit" and got["S1"] != 51):
+            raise AssertionError(f"{name} {way}: expected {kernels}, one S1 "
+                                 f"launch a bounce (51 on the fixed trip), "
+                                 f"CR 1, FH {aux}, no draw kernel and "
+                                 f"{int(way == 'graphed')} replays, got "
+                                 f"{rp[way]}")
+    if rp["graphed"]["launches"] != rp["fixed"]["launches"]:
+        raise AssertionError(f"{name}: the graphed pass's launches are not "
+                             f"the fixed trip's: {rp}")
+    color = planes["graphed"][0]
+    if not all(torch.equal(a, b) for way in ("fixed", "early_exit")
+               for a, b in zip(planes["graphed"], planes[way])):
+        raise AssertionError(f"{name}: the graphed pass, the fixed trip and "
+                             f"the early exit differ")
+    if not (bool(torch.isfinite(color).all()) and float(color.mean()) > 0):
+        raise AssertionError(f"{name}: non-finite or black image")
+    reset_launches(wrappers)
+    replays = _sample_replays(cs)
+    image = integrator.render_sample(cs, 1, 1, shader_kind=path, **kw)
+    got = launch_counts(wrappers)
+    if got != rp["graphed"]["launches"] or \
+            _sample_replays(cs) - replays != 1 or not all(
+                torch.equal(a, integrator.to_image(b, w, h))
+                for a, b in zip(image, planes["graphed"])):
+        raise AssertionError(f"{name} render_sample: expected one replay, "
+                             f"render_pixels' launches and planes, got "
+                             f"{got}")
+    return dict(capture_s=capture_s, render_pixels=rp,
+                render_sample=dict(launches=got, replays=1),
+                early_exit_bounces=rp["early_exit"]["bounces"],
+                bit_identical=True, mean=float(color.mean()))
+
+
+def phase_surface(sponza_cs, smi):
     """3d: the renderer's surface beyond the path shader at full size."""
     import shutil
     import tempfile
@@ -2732,7 +2836,7 @@ def phase_surface(sponza_cs):
     import numpy as np
     import torch
     import solstrale_tpu_torch as T
-    from solstrale_tpu_torch import fixtures, post
+    from solstrale_tpu_torch import fixtures, post, wavefront_ab
     from solstrale_tpu_torch.geo import RAY_T_MIN
     from solstrale_tpu_torch.ops import bvh, sweep
     from solstrale_tpu_torch.renderer import integrator
@@ -2848,55 +2952,32 @@ def phase_surface(sponza_cs):
                                            **kw)[0].sum())))
     out["sponza_batch_ms"] = {f"need_aux={a}": v for a, v in turns.items()}
 
-    # render_pixels on the mixed scene, depth 50, both early_exit modes
+    # the sample pass at 1080p, depth 50: one replay of the fixed trip's
+    # graph, bit for bit the eager fixed trip and the eager early exit, on
+    # the mixed scene (K1-K3), the normal-mapped kitchen (K4) with the aux
+    # planes and the textured sponza (K1); then the mixed and the kitchen
+    # pass timed, graphed against the eager ways
     mixed = compile_scene(fixtures.mixed_bvh_scene(T.RenderConfig(
         width=w, height=h, seed=1), n_cells=362), device="cuda")
-    pix = torch.arange(n_pix, device="cuda")
-    colors, rp = {}, {}
-    for early in (True, False):
-        reset_launches(wrappers)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        colors[early] = integrator.render_pixels(
-            mixed, pix, 1, 1, width=w, height=h, max_depth=50,
-            shader_kind=integrator.SHADER_PATH, need_aux=False,
-            early_exit=early)[0]
-        torch.cuda.synchronize()
-        rp[f"early_exit={early}"] = dict(
-            seconds=time.perf_counter() - t0,
-            launches=launch_counts(wrappers))
-        got = rp[f"early_exit={early}"]["launches"]
-        if min(got[k] for k in ("K1", "K2", "K3")) <= 0:
-            raise AssertionError(f"render_pixels missed a kernel: {rp}")
-        # the camera rays: one CR launch, no draw kernel
-        if got["CR"] != 1 or got["draw"] != 0:
-            raise AssertionError(f"render_pixels: expected CR 1 and no draw "
-                                 f"kernel, got {got}")
-        # grad mode is on, as a user calls it: every bounce is one S1
-        if got["S1"] != got["K1"] or (not early and got["S1"] != 51):
-            raise AssertionError(f"render_pixels: expected one S1 launch "
-                                 f"a bounce, got {got}")
-    if not torch.equal(colors[True], colors[False]):
-        raise AssertionError("render_pixels: early_exit=False differs from "
-                             "early_exit=True")
-    if not (bool(torch.isfinite(colors[True]).all())
-            and float(colors[True].mean()) > 0):
-        raise AssertionError("render_pixels: non-finite or black image")
-    out["mixed_render_pixels"] = dict(**rp, bit_identical=True,
-                                      mean=float(colors[True].mean()))
-    # render_sample, grad mode on: one S1 launch a bounce
-    reset_launches(wrappers)
-    planes = integrator.render_sample(
-        mixed, 1, 1, width=w, height=h, max_depth=50,
-        shader_kind=integrator.SHADER_PATH, need_aux=False)
-    got = launch_counts(wrappers)
-    if not 1 <= got["S1"] == got["K1"] <= 51 or got["CR"] != 1 or \
-            got["draw"] != 0 or not torch.equal(
-                planes[0], integrator.to_image(colors[True], w, h)):
-        raise AssertionError(f"render_sample: expected one S1 launch a "
-                             f"bounce, CR 1, no draw kernel and "
-                             f"render_pixels' image, got {got}")
-    out["mixed_render_sample"] = dict(launches=got, bit_identical=True)
+    sponza_tex = compile_scene(fixtures.sponza_textured_scene(
+        T.RenderConfig(width=w, height=h, seed=1)), device="cuda")
+    for name, cs, aux, kernels in (
+            ("mixed", mixed, False, ("K1", "K2", "K3")),
+            ("kitchen", kitchen_cs, True, ("K4",)),
+            ("sponza_textured", sponza_tex, False, ("K1",))):
+        res = _sample_pass_vs_eager(name, cs, w, h, aux, wrappers, kernels)
+        if name == "mixed":
+            out["mixed_render_pixels"] = dict(
+                **res["render_pixels"], capture_s=res["capture_s"],
+                bit_identical=True, mean=res["mean"])
+            out["mixed_render_sample"] = dict(**res["render_sample"],
+                                              bit_identical=True)
+        else:
+            out[f"{name}_render_sample"] = res
+    sponza_tex = None
+    for name, cs in (("mixed", mixed), ("kitchen", kitchen_cs)):
+        log("sample_pass", gpu=smi, scene=f"{name} 1920x1080, depth 50",
+            **wavefront_ab.sample_pass_times(cs, w, h))
 
     # K1 and K4 over all 2,073,600 camera rays of a 1080p image in one
     # launch, against 131,072-lane slices (their plain versions are checked
@@ -3907,39 +3988,67 @@ def phase_diff_parallel(sponza_cs, smi):
         torch.testing.assert_close(
             (kitchen.textures.pixels - new_cs.textures.pixels) / lr, g,
             rtol=1e-4, atol=1e-7)
-        # render_sample_sharded, grad mode on as a user calls it: one S1
-        # launch a bounce, and render_sample's planes and launches
+        # render_sample_sharded, grad mode on as a user calls it: one
+        # replay of the rank's sample pass graph (captured by a first pass
+        # at sample 2; the whole image is the one rank's tile, so
+        # render_sample replays the same graph), the fixed trip's 51 S1
+        # launches, render_sample's planes and launches, and the eager
+        # early exit's planes bit for bit (its bounces logged)
         kw = dict(width=400, height=266, max_depth=50,
                   shader_kind=integrator.SHADER_PATH, need_aux=False)
+        parallel.render_sample_sharded(kitchen, 2, 1, mesh, **kw)
         runs = {}
         for name, fn in (
                 ("sharded", lambda: parallel.render_sample_sharded(
                     kitchen, 1, 1, mesh, **kw)),
                 ("render_sample", lambda: integrator.render_sample(
-                    kitchen, 1, 1, **kw))):
+                    kitchen, 1, 1, **kw)),
+                ("early_exit", lambda: tuple(
+                    integrator.to_image(c, 400, 266)
+                    for c in integrator.sample_pass_eager(
+                        kitchen, torch.arange(400 * 266, device="cuda"), 1,
+                        1, width=400, height=266, max_depth=50,
+                        need_aux=False)))):
             reset_launches(wrappers)
-            runs[name] = (fn(), launch_counts(wrappers))
-        (p_s, l_s), (p_r, l_r) = runs["sharded"], runs["render_sample"]
-        if not 1 <= l_s["S1"] == l_s["K4"] <= 51 or l_s != l_r or not all(
-                torch.equal(a, b) for a, b in zip(p_s, p_r)):
-            raise AssertionError(f"render_sample_sharded: expected one S1 "
-                                 f"launch a bounce and render_sample's "
-                                 f"planes, got {l_s} / {l_r}")
+            replays = _sample_replays(kitchen)
+            planes = fn()
+            runs[name] = (planes, launch_counts(wrappers),
+                          _sample_replays(kitchen) - replays)
+        (p_s, l_s, r_s), (p_r, l_r, r_r), (p_e, l_e, r_e) = runs.values()
+        if not l_s["S1"] == l_s["K4"] == 51 or l_s != l_r or \
+                (r_s, r_r, r_e) != (1, 1, 0) or \
+                not l_e["S1"] == l_e["K4"] <= 51 or \
+                not all(torch.equal(a, b) and torch.equal(a, c)
+                        for a, b, c in zip(p_s, p_r, p_e)):
+            raise AssertionError(f"render_sample_sharded: expected one "
+                                 f"replay of 51 S1 launches, render_sample's "
+                                 f"planes and the early exit's, got {l_s} / "
+                                 f"{l_r} / {l_e}, replays {r_s}, {r_r}, "
+                                 f"{r_e}")
         small = fixtures.small_scene(T.RenderConfig(
             width=320, height=180, samples_per_pixel=2, seed=1))
         reset_launches(wrappers)
         images = [im for _, im in distributed.render_distributed(
             small, device_type="cuda")]
         l_d = launch_counts(wrappers)
-        if l_d["S1"] <= 0:
-            raise AssertionError(f"render_distributed launched no S1: {l_d}")
+        # two passes, each a replay of the sample pass graph's fixed trip,
+        # after the capture's warm-up pass: 3 x 51 S1 launches
+        if l_d["S1"] != 3 * 51:
+            raise AssertionError(f"render_distributed: expected a warm-up "
+                                 f"and two replays of 51 S1 launches, got "
+                                 f"{l_d}")
         cs = compile_scene(small, device="cuda")
         total = sum(integrator.render_sample(
             cs, s, 1, width=320, height=180, max_depth=50,
             shader_kind=integrator.SHADER_PATH, need_aux=False)[0]
             for s in (1, 2))
-        if len(images) != 2 or not np.array_equal(
-                images[-1], to_rgb_u8(total, 2).cpu().numpy()):
+        eager = sum(integrator.to_image(integrator.sample_pass_eager(
+            cs, torch.arange(320 * 180, device="cuda"), s, 1, width=320,
+            height=180, max_depth=50, need_aux=False)[0], 320, 180)
+            for s in (1, 2))
+        if len(images) != 2 or not torch.equal(total, eager) or \
+                not np.array_equal(images[-1],
+                                   to_rgb_u8(total, 2).cpu().numpy()):
             raise AssertionError("render_distributed: final image differs")
         _check_image("render_distributed", images[-1], 180, 320)
         log("nccl_one_rank", gpu=smi, world=n, rank=rank,
@@ -3948,6 +4057,7 @@ def phase_diff_parallel(sponza_cs, smi):
             sharded_step_loss=float(loss_s),
             sharded_step_equals_sgd=True, distributed_images=len(images),
             render_sample_sharded_launches=l_s,
+            early_exit_bounces=l_e["S1"],
             render_distributed_launches=l_d,
             seconds=time.perf_counter() - start)
     finally:
@@ -4240,7 +4350,7 @@ def main():
         launches[k] += n
     phase_graphs(sponza_cs)
     timings["K5"] = phase_megakernel()
-    for k, n in phase_surface(sponza_cs).items():
+    for k, n in phase_surface(sponza_cs, smi).items():
         launches[k] += n
     phase_card_vs_cpu()
     # S1B's main path is the inverse step (its two graphed cells), and it

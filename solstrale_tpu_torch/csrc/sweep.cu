@@ -47,6 +47,10 @@
 //   sign skips its IEEE division and the rest of its test
 //   (hit::planar_ahead): its t could not pass the bound (11% of K4's time
 //   on the kitchen, PERF.md).
+// - A parked lane (zero direction: trace parks a lane whose path ended)
+//   skips its tests and writes what they would give (parked()), as K1
+//   does, and a block of parked lanes stages nothing: the fixed trip's
+//   bounces past a path's end cost a launch and the rays' loads.
 // Measured on the card and left out as gaining nothing (PERF.md):
 // staging K4's whole solid tables at once with bulk copies on an mbarrier
 // (6% slower than these tiles), and testing a planar row's t before its hit
@@ -70,6 +74,14 @@ constexpr int kMediaSmemBytes = 32 * 1024;
 constexpr int KIND_SPHERE = 0, KIND_QUAD = 1, KIND_TRIANGLE = 2,
               KIND_MEDIUM = 3;
 constexpr uint32_t kMediumPurposeBase = 16;   // rng.P_MEDIUM_BASE
+
+// Whether a lane is parked (zero direction). Such a ray hits nothing: each
+// sphere's roots are 0 / 0 = NaN, each planar row has d.n = 0 <
+// ALMOST_ZERO, so each medium's entry is INF and its event INF too. Its
+// hit is thus (INF, KIND_SPHERE, 0) from the sweeps, the input's from K3.
+__device__ __forceinline__ bool parked(const Ray& r) {
+  return r.d0 == 0.f && r.d1 == 0.f && r.d2 == 0.f;
+}
 
 __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
                                         const float* oz, const float* dx,
@@ -269,14 +281,16 @@ __global__ void k2_bvh_spheres(const float* ox, const float* oy,
   const bool live = i < n_rays;  // no early return: every thread stages
   Ray r = {};
   if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  const bool test = live && !parked(r);
   float best = CUDART_INF_F;
   int slot = -1;
-  for (int base = 0; base < n_sph; base += kSphTileRows) {
+  const int n_stage = __syncthreads_or(test) ? n_sph : 0;
+  for (int base = 0; base < n_stage; base += kSphTileRows) {
     const int count = min(kSphTileRows, n_sph - base);
     if (base > 0) __syncthreads();
     stage(spheres, sph, base, count, 2);
     __syncthreads();
-    if (live)
+    if (test)
       sphere_rows<true>(r, spheres, count, base, lo, hi, true, &best, &slot);
   }
   if (!live) return;
@@ -301,13 +315,17 @@ __global__ void k3_media(const float* ox, const float* oy, const float* oz,
                          const int* kind_in, const int* idx_in, int n_rays,
                          float* out_t, int* out_kind, int* out_idx) {
   extern __shared__ __align__(16) float4 media_rows[];
-  const Media smd = stage_media(md, media_rows);
-  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  const bool live = i < n_rays;  // no early return: every thread stages
+  Ray r = {};
+  if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  const bool test = live && !parked(r);
+  const bool stages = __syncthreads_or(test);   // block-uniform
+  const Media smd = stages ? stage_media(md, media_rows) : md;
+  if (stages) __syncthreads();
+  if (!live) return;
   float best = t_in[i];
-  const int medium = media_events(r, smd, draw, i, &best);
+  const int medium = test ? media_events(r, smd, draw, i, &best) : -1;
   out_t[i] = best;
   out_kind[i] = medium >= 0 ? KIND_MEDIUM : kind_in[i];
   out_idx[i] = medium >= 0 ? medium : idx_in[i];
@@ -323,18 +341,22 @@ __global__ void k4_scene_hit(const float* ox, const float* oy, const float* oz,
                              int* out_kind, int* out_idx) {
   __shared__ float4 tile[kTileRows * 4];
   extern __shared__ __align__(16) float4 media_rows[];
-  const Media smd = stage_media(md, media_rows);
-  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n_rays;  // no early return: every thread stages
   Ray r = {};
   if (live) r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  float best;
-  int slot;
-  sweep_tables(r, live, tile, sph, n_sph, pln, n_pl, hit::kRayTMin,
-               CUDART_INF_F, &best, &slot);
+  const bool test = live && !parked(r);
+  float best = CUDART_INF_F;
+  int slot = -1;
+  int medium = -1;
+  if (__syncthreads_or(test)) {   // block-uniform: a barrier may follow
+    const Media smd = stage_media(md, media_rows);
+    __syncthreads();
+    sweep_tables(r, test, tile, sph, n_sph, pln, n_pl, hit::kRayTMin,
+                 CUDART_INF_F, &best, &slot);
+    if (test) medium = media_events(r, smd, draw, i, &best);
+  }
   if (!live) return;
-  const int medium = media_events(r, smd, draw, i, &best);
   int kind, idx;
   if (medium >= 0) {
     kind = KIND_MEDIUM;

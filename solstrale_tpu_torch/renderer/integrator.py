@@ -36,7 +36,9 @@ bound B, a per-channel dead flag and an outer-pdf flag.
 Vectors and colors are component tuples of (R,) tensors (``geo/soa.py``).
 The JAX ``while_loop``s become Python loops. On the card, ``trace_queued``
 replays each pool's steps as CUDA graphs and reads its loop test once a
-replay; elsewhere each loop test is one host read.
+replay, and the path shader's sample pass (``sample_pass``: CR and
+``trace``'s bounces) replays one graph of the fixed trip; elsewhere each
+loop test is one host read.
 """
 from __future__ import annotations
 
@@ -155,6 +157,8 @@ def per_scene(cs: CompiledScene, name, make):
 # The per_scene name (the first item of its key tuple) of ``diff``'s
 # captured inverse steps, which ``share_geometry_tables`` carries across
 GRAD_STEP = "grad_step"
+# ... and of ``sample_pass``'s captured passes (``_SamplePass``)
+SAMPLE_PASS = "sample_pass"
 
 
 def share_geometry_tables(src: CompiledScene, dst: CompiledScene):
@@ -629,15 +633,16 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     depth cap: a ray still alive that hits shades to black, a miss takes
     the background (renderer/mod.rs:164-206).
 
-    ``early_exit=True`` stops once no lane is alive (one host sync per
-    bounce); ``early_exit=False`` always runs all ``max_depth + 1`` steps
-    and gives the same image bit for bit, because a parked lane's step
-    changes nothing. Under grad the fixed trip is the path-replay backward:
-    its first ``max_depth`` steps run in chunks of ``remat_chunk`` under
-    ``torch.utils.checkpoint``, so only the lane carry (~30 values a lane)
-    is kept between chunks and the backward replays each chunk; the
-    counter-keyed RNG and the deterministic kernels draw the same paths
-    again.
+    ``early_exit=True`` stops once no lane is alive (one host read a
+    bounce; ``render_pixels`` on the card replays the fixed trip as a CUDA
+    graph instead, ``_SamplePass``); ``early_exit=False`` always runs all
+    ``max_depth + 1`` steps and gives the same image bit for bit, because
+    a parked lane's step changes nothing. Under grad the fixed trip is the
+    path-replay backward: its first ``max_depth`` steps run in chunks of
+    ``remat_chunk`` under ``torch.utils.checkpoint``, so only the lane
+    carry (~30 values a lane) is kept between chunks and the backward
+    replays each chunk; the counter-keyed RNG and the deterministic kernels
+    draw the same paths again.
 
     ``differentiable`` names the route autograd runs through: every bounce
     is ``path_step_grad``, S1 with its backward S1B, which take gradients
@@ -649,27 +654,14 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     whether grad mode is on or not; S1's wrapper raises when a table it
     reads requires grad."""
     sample = _lanes(sample, pix)
-    zero = torch.zeros_like(o[0])
-    bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
-    alive = torch.ones(pix.shape, dtype=torch.bool, device=zero.device)
-    color = torch.zeros((zero.shape[0], 3), dtype=torch.float32,
-                        device=zero.device)
-    carry = (o, d, bounce, zero, fold_init(zero), alive, color)
-
     step = path_step
     if differentiable:
         step, cs = path_step_grad, step_ops.grad_scene(cs)
 
     def steps(carry, n):
-        o, d, bounce, acc_len, fold, alive, color = carry
-        for _ in range(n):
-            st = step(cs, o, d, bounce, acc_len, fold, pix, sample, seed,
-                      alive, max_depth, color)
-            o, d, bounce, acc_len, fold, alive, color = (
-                st["o"], st["d"], st["bounce"], st["acc_len"], st["fold"],
-                st["alive"], st["color"])
-        return o, d, bounce, acc_len, fold, alive, color
+        return _bounces(cs, carry, pix, sample, seed, max_depth, n, step)
 
+    carry = _trace_carry(o, d, pix)
     if early_exit:
         for _ in range(max_depth + 1):
             if not bool(carry[5].any()):
@@ -685,6 +677,32 @@ def trace(cs: CompiledScene, o, d, pix, sample, seed, max_depth,
     else:
         carry = steps(carry, max_depth + 1)
     return carry[6]
+
+
+def _trace_carry(o, d, pix):
+    """``trace``'s carry before the first bounce: (o, d, bounce, acc_len,
+    fold, alive, color), every lane alive with a zero color."""
+    zero = torch.zeros_like(o[0])
+    bounce = torch.zeros(pix.shape, dtype=torch.int32, device=zero.device)
+    alive = torch.ones(pix.shape, dtype=torch.bool, device=zero.device)
+    color = torch.zeros((zero.shape[0], 3), dtype=torch.float32,
+                        device=zero.device)
+    return o, d, bounce, zero, fold_init(zero), alive, color
+
+
+def _bounces(cs, carry, pix, sample, seed, max_depth, n, step=path_step):
+    """``n`` bounces of ``trace``'s carry (``sample``: the lane tensor):
+    ``step`` (``path_step`` or ``path_step_grad``) and nothing else. A lane
+    that is not alive keeps its carry, so bounces past ``max_depth + 1``
+    change nothing."""
+    o, d, bounce, acc_len, fold, alive, color = carry
+    for _ in range(n):
+        st = step(cs, o, d, bounce, acc_len, fold, pix, sample, seed, alive,
+                  max_depth, color)
+        o, d, bounce, acc_len, fold, alive, color = (
+            st["o"], st["d"], st["bounce"], st["acc_len"], st["fold"],
+            st["alive"], st["color"])
+    return o, d, bounce, acc_len, fold, alive, color
 
 
 def _depth0(pix, sample):
@@ -836,8 +854,13 @@ def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
     camera rays are CR; a debug shader writes its color, and with
     ``need_aux`` the aux planes, from one scene hit and one FH launch
     (``first_hit_planes``), which differentiate through CR's and FH's
-    autograd Functions (CRB, FHB). ``differentiable``: the path shader's
-    route for autograd (``trace``)."""
+    autograd Functions (CRB, FHB). The path shader with early exit (and
+    not ``differentiable``) is ``sample_pass``: on the card one CUDA graph
+    replay. ``differentiable``: the path shader's route for autograd
+    (``trace``)."""
+    if shader_kind == SHADER_PATH and early_exit and not differentiable:
+        return sample_pass(cs, pix, sample, seed, width=width, height=height,
+                           max_depth=max_depth, need_aux=need_aux)
     _, o, d = camera_rays(cs, pix, width, height, sample, seed)
     if shader_kind != SHADER_PATH:
         planes = first_hit_planes(cs, o, d, pix, sample, seed, shader_kind,
@@ -848,11 +871,60 @@ def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
         return color, torch.zeros_like(color), torch.zeros_like(color)
     color = trace(cs, o, d, pix, sample, seed, max_depth,
                   early_exit=early_exit, differentiable=differentiable)
+    return color, *_aux_planes(cs, o, d, pix, sample, seed, color, need_aux)
+
+
+def _aux_planes(cs, o, d, pix, sample, seed, color, need_aux):
+    """(albedo, normal) of a path pass: ``first_hit_aux`` with
+    ``need_aux``, else one zero plane like ``color`` as both."""
     if need_aux:
-        albedo, normal = first_hit_aux(cs, o, d, pix, sample, seed)
-    else:
-        albedo = normal = torch.zeros_like(color)
-    return color, albedo, normal
+        return first_hit_aux(cs, o, d, pix, sample, seed)
+    zero = torch.zeros_like(color)
+    return zero, zero
+
+
+def sample_pass_eager(cs: CompiledScene, pix, sample, seed, *, width, height,
+                      max_depth, need_aux):
+    """``sample_pass`` op by op: CR, ``trace`` with early exit (one host
+    read a bounce), then with ``need_aux`` ``first_hit_aux`` on the same
+    rays. The CPU's route; on the card, the route the graphs replaced,
+    which they are held against."""
+    _, o, d = camera_rays(cs, pix, width, height, sample, seed)
+    color = trace(cs, o, d, pix, sample, seed, max_depth)
+    return color, *_aux_planes(cs, o, d, pix, sample, seed, color, need_aux)
+
+
+def sample_pass(cs: CompiledScene, pix, sample, seed, *, width, height,
+                max_depth, need_aux):
+    """The path shader's sample pass with early exit over the pixel ids
+    ``pix``: (color, albedo, normal) as ``render_pixels`` returns them. The
+    driver follows the scene's device. On the CPU, ``sample_pass_eager``.
+    On the card, the JAX package's one device program a pass: one replay
+    of ``_SamplePass``'s CUDA graph, the fixed trip of ``max_depth + 1``
+    bounces with no host read (a parked lane's bounce changes nothing, and
+    every hit kernel skips a parked lane's tests), captured once per
+    compiled scene and (lane count, width, height, max_depth, seed as an
+    int, need_aux); ``pix`` and ``sample`` (an int or a one-element int
+    tensor) are written into the capture's own tensors each pass. The
+    image equals ``sample_pass_eager``'s and the eager fixed trip's
+    (``render_pixels(..., early_exit=False)``) bit for bit. A failed
+    capture raises; so does a scene table that requires grad with grad
+    mode on (S1 builds no autograd graph: the differentiable route is
+    ``render_pixels(..., differentiable=True)``)."""
+    kw = dict(width=width, height=height, max_depth=max_depth,
+              need_aux=need_aux)
+    if cs.device.type != "cuda":
+        return sample_pass_eager(cs, pix, sample, seed, **kw)
+    if step_ops.needs_grad(cs):
+        raise ValueError("sample_pass: S1 alone builds no autograd graph; a "
+                         "render that autograd runs through takes the "
+                         "differentiable route (render_pixels(..., "
+                         "differentiable=True): S1 with its backward S1B)")
+    key = (pix.shape[0], width, height, max_depth, int(seed), need_aux)
+    with torch.no_grad():
+        driver = per_scene(cs, (SAMPLE_PASS, *key),
+                           lambda: _SamplePass(cs, *key))
+        return driver.run(pix, sample)
 
 
 def to_image(c, width, height):
@@ -864,7 +936,8 @@ def to_image(c, width, height):
 def render_sample(cs: CompiledScene, sample, seed, *, width, height,
                   max_depth, shader_kind, need_aux):
     """Render one full-image sample pass -> (pixel, albedo, normal) linear
-    planes of shape (height, width, 3) in image-row order."""
+    planes of shape (height, width, 3) in image-row order (the path shader:
+    ``sample_pass``)."""
     pix = torch.arange(width * height, dtype=torch.int64, device=cs.device)
     planes = render_pixels(cs, pix, sample, seed, width=width, height=height,
                            max_depth=max_depth, shader_kind=shader_kind,
@@ -1233,6 +1306,52 @@ class _WavefrontGraphs:
 
     def advance(self, k):
         replay_counted(*self.graphs[k])
+
+
+class _SamplePass:
+    """``sample_pass``'s card driver for one key: one CUDA graph of CR,
+    with ``need_aux`` the aux planes (``first_hit_aux``: the hit kernels
+    and FH), and the fixed trip's ``max_depth + 1`` bounces. The pixel ids
+    and the sample (a 0-dim tensor, which the kernels read with stride 0)
+    are fixed tensors written before each pass; the color and the aux
+    planes are the graph's outputs, which stay allocated in its pool.
+    Built once per compiled scene and key (``per_scene``): a warm-up of the
+    pass on a side stream (``warm_up``), then the capture
+    (``capture_counted``). The graph reads the scene's tables by address:
+    it is dropped with the scene. ``replays`` counts its replays."""
+
+    def __init__(self, cs, r, width, height, max_depth, seed, need_aux):
+        dev = cs.device
+        self.pix = torch.zeros((r,), dtype=torch.int64, device=dev)
+        self.sample = torch.zeros((), dtype=torch.int64, device=dev)
+        self.replays = 0
+
+        def body():
+            _, o, d = camera_rays(cs, self.pix, width, height, self.sample,
+                                  seed)
+            lanes = _lanes(self.sample, self.pix)
+            carry = _bounces(cs, _trace_carry(o, d, self.pix), self.pix,
+                             lanes, seed, max_depth, max_depth + 1)
+            self.planes = (carry[6], *_aux_planes(
+                cs, o, d, self.pix, self.sample, seed, carry[6], need_aux))
+
+        warm_up(dev, body)
+        self.graph = capture_counted(body)
+
+    def run(self, pix, sample):
+        """One pass: the ids and the sample written in, one replay. Returns
+        new (color, albedo, normal)."""
+        if isinstance(sample, torch.Tensor):
+            if sample.numel() != 1:
+                raise ValueError("sample_pass: the sample must be an int or "
+                                 "a one-element tensor")
+            self.sample.copy_(sample.reshape(()))
+        else:
+            self.sample.fill_(int(sample))
+        self.pix.copy_(pix)
+        replay_counted(*self.graph)
+        self.replays += 1
+        return tuple(x.clone() for x in self.planes)
 
 
 def trace_queued_eager(cs: CompiledScene, sample_start, n_samples, seed, *,

@@ -89,6 +89,14 @@ kernels' launches a call; the camera rays and the hits also by
 ``device_ms``, and ``first_hit_aux`` by its device ops and busy time
 under ``torch.profiler``.
 
+The sample pass's cells (``sample_mixed``: the mixed BVH scene at
+1920x1080, K1-K3; ``sample_kitchen``: the normal-mapped kitchen at
+1920x1080, K4; ``sample_kitchen_k4``: the same at 400x266; depth 50,
+seed 1, sample 1): one path pass of every pixel (``render_pixels``,
+early exit), graphed, as the eager fixed trip and eager with one read a
+bounce, by ``sample_pass_times``: wall ms, busy ms, bounces, host reads
+and replays of each.
+
 ``--parent DIR`` runs the tree at DIR (a checkout of the parent commit,
 unpacked where ``.gitignore`` keeps it out of the repo), this tree, this
 tree and DIR again, each in a process of its own that imports that tree's
@@ -133,11 +141,16 @@ FIRST_KERNELS = ("first_hit_shade", "camera_rays", "first_hit_backward",
 # the first hit's cells: each one's scene, as the workload of that name
 # builds it, at 1920x1080
 AUX = {"aux_interior": "interior", "aux_kitchen": "kitchen_1080p"}
+# the sample pass's cells: each one's scene, as the workload of that name
+# builds it (the mixed BVH scene and the kitchen at 1920x1080, the kitchen
+# at 400x266)
+SAMPLE = {"sample_mixed": "step_mixed", "sample_kitchen": "kitchen_1080p",
+          "sample_kitchen_k4": "kitchen_k4"}
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
              "kitchen_sink", "megakernel", "step_kitchen",
              "step_kitchen_tex1024", "step_mixed",
              *(f"kernels_{x}" for x in KERNEL_SCENES),
-             *(f"first_hit_{x}" for x in KERNEL_SCENES), *AUX)
+             *(f"first_hit_{x}" for x in KERNEL_SCENES), *AUX, *SAMPLE)
 # the inverse step's cells: (width, height) of each
 STEPS = {"step_kitchen": (400, 266), "step_kitchen_tex1024": (400, 266),
          "step_mixed": (1920, 1080)}
@@ -187,7 +200,7 @@ def _workload(name):
     for cell in ("kernels_", "first_hit_"):
         if name.startswith(cell):
             name = KERNEL_SCENES[name.removeprefix(cell)]
-    name = AUX.get(name, name)
+    name = AUX.get(name, SAMPLE.get(name, name))
     if name == "kitchen_k4":
         w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
     elif name == "kitchen_1080p":
@@ -515,6 +528,86 @@ def measure_aux(cs, w, h):
                     shader_kind=integrator.SHADER_PATH, need_aux=a,
                     n_samples=1)[0].sum()), wrappers)
     return out
+
+
+def sample_pass_times(cs, w, h, runs=RUNS):
+    """One path sample pass of every pixel (``render_pixels``, the path
+    shader, early exit, no aux planes; depth 50, seed 1, sample 1), grad
+    mode on as a user calls it, on any tree, each way the tree has:
+    ``graphed`` (``render_pixels``: on a tree with ``sample_pass``'s card
+    driver one replay of its CUDA graph, captured by the first call),
+    ``fixed`` (the eager fixed trip, ``early_exit=False``) and ``eager_1``
+    (one stop-test read a bounce: ``sample_pass_eager``, the route before
+    the driver, and a tree without one's ``render_pixels``). For each: the
+    first call's seconds (with ``graphed`` the warm-up and the capture),
+    the wall ms of ``runs`` synced passes taken in turns (the median and
+    every run), the launches a pass, the bounces run (S1's launches), the
+    stop-test reads and the replays, and one pass under torch.profiler
+    (device ops, busy ms, idle share of the profiled pass and of the
+    median). Every way's color must be the same bits."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    wrappers = _wrappers()
+    pix = torch.arange(w * h, dtype=torch.int64, device="cuda")
+    kw = dict(width=w, height=h, max_depth=DEPTH, need_aux=False)
+    path = integrator.SHADER_PATH
+    ways = {}
+    graphed = hasattr(integrator, "sample_pass")
+    if graphed:
+        ways["graphed"] = lambda: integrator.render_pixels(
+            cs, pix, 1, SEED, shader_kind=path, **kw)
+        ways["fixed"] = lambda: integrator.render_pixels(
+            cs, pix, 1, SEED, shader_kind=path, early_exit=False, **kw)
+        ways["eager_1"] = lambda: integrator.sample_pass_eager(
+            cs, pix, 1, SEED, **kw)
+    else:
+        ways["eager_1"] = lambda: integrator.render_pixels(
+            cs, pix, 1, SEED, shader_kind=path, **kw)
+    out = {k: dict(runs_ms=[]) for k in ways}
+    for name, fn in ways.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name]["first_call_s"] = time.perf_counter() - t0
+    seen = {k: set() for k in ways}
+    colors = {}
+    for r in range(runs):
+        for name in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            before = {k: f.launches for k, f in wrappers.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            colors[name] = ways[name]()[0]
+            torch.cuda.synchronize()
+            out[name]["runs_ms"].append((time.perf_counter() - t0) * 1e3)
+            seen[name].add(tuple(
+                (k, f.launches - before[k]) for k, f in wrappers.items()))
+    first = next(iter(colors.values()))
+    if not all(torch.equal(c, first) for c in colors.values()):
+        raise RuntimeError("the sample pass's ways differ")
+    if not float(first.sum()) > 0:
+        raise RuntimeError("degenerate sample pass")
+    for name, fn in ways.items():
+        if len(seen[name]) != 1:
+            raise RuntimeError(f"{name}: the passes did not repeat: "
+                               f"{sorted(seen[name])}")
+        launches = dict(seen[name].pop())
+        bounces = launches["S1"]
+        line = out[name]
+        line.update(wall_ms=statistics.median(line["runs_ms"]),
+                    launches=launches, bounces=bounces,
+                    host_reads=(bounces + (bounces < DEPTH + 1)
+                                if name == "eager_1" else 0),
+                    replays=int(name == "graphed"))
+        prof = _profiled(fn)
+        line.update({k: prof[k] for k in ("device_ops", "device_busy_ms",
+                                          "profiled_wall_ms",
+                                          "device_idle_share")})
+        line["device_idle_share_of_median"] = max(
+            0.0, 1.0 - prof["device_busy_ms"] / line["wall_ms"])
+    return dict(mean=float(first.mean()),
+                reserved_bytes=torch.cuda.memory_reserved(), **out)
 
 
 def device_ms(fn, n=20, reps=3):
@@ -1147,8 +1240,8 @@ def _device():
 
 def worker(root, steps, side, workloads=WORKLOADS):
     """In a process whose package is ``root``'s: each workload measured,
-    at each of ``steps`` (None: the tree's own driver; the step cells only
-    at None), one JSON line each."""
+    at each of ``steps`` (None: the tree's own driver; the step and sample
+    pass cells only at None), one JSON line each."""
     # run as a script, this file's directory heads sys.path: the package
     # must come from ``root`` alone
     here = Path(__file__).resolve().parent
@@ -1168,6 +1261,14 @@ def worker(root, steps, side, workloads=WORKLOADS):
         t0 = time.perf_counter()
         cs = compile_scene(scene, device="cuda")
         compile_s = time.perf_counter() - t0
+        if name in SAMPLE:
+            line = sample_pass_times(cs, w, h)
+            print(json.dumps(dict(side=side, workload=name, width=w,
+                                  height=h, max_depth=DEPTH,
+                                  compile_s=compile_s, gpu=gpu, **line)),
+                  flush=True)
+            cs = None
+            continue
         if name in STEPS or name in AUX or name.startswith(("kernels_",
                                                              "first_hit_")):
             line = (measure_step(cs, w, h) if name in STEPS else

@@ -343,6 +343,64 @@ def test_k3_matches_plain(cuda, name, counter):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+def test_hit_kernels_skip_parked_lanes_exactly(cuda, kernel):
+    """K2, K3 and K4 skip a parked lane's tests (and a block of parked
+    lanes its staging) and still equal their plain versions exactly: on
+    4,096 random rays whose first 1,024 (four whole blocks) are parked,
+    the next 1,024 every other one, on the mixed BVH scene (K2) and the
+    kitchen-sink scene (K3, K4). A parked lane gets (INF, sphere, 0) from
+    K2 and K4, its input from K3."""
+    n = 4096
+    g = torch.Generator().manual_seed(21)
+    o = torch.rand((n, 3), generator=g) * 5.0 - 2.0
+    d = torch.randn((n, 3), generator=g)
+    parked = torch.zeros(n, dtype=torch.bool)
+    parked[:1024] = True
+    parked[1024:2048:2] = True
+    d[parked] = 0.0
+    o = tuple(o[:, k].to(cuda) for k in range(3))
+    d = tuple(d[:, k].to(cuda) for k in range(3))
+    parked = parked.to(cuda)
+    pixel = torch.arange(n, device=cuda)
+    sample = torch.ones(n, dtype=torch.int64, device=cuda)
+    bounce = torch.ones(n, dtype=torch.int32, device=cuda)
+    if kernel == "K2":
+        cs = compile_scene(fixtures.mixed_bvh_scene(
+            T.RenderConfig(width=8, height=8), n_cells=64), device=cuda)
+        s = cs.solids
+        t_p, pslot = bvh.bvh_planar_hit(cs.kbvh, o, d, RAY_T_MIN)
+        args = (s.sph_table, o, d, RAY_T_MIN, INF, t_p, pslot, s.pl_idx,
+                s.pl_is_tri)
+        fn, plain = sweep.bvh_sphere_hit, sweep.bvh_sphere_hit_plain
+    else:
+        cs = compile_scene(fixtures.kitchen_sink_scene(
+            T.RenderConfig(width=8, height=8)), use_bvh=False, device=cuda)
+        mt = integrator.media_tables(cs)
+        if kernel == "K3":
+            solid = sweep.scene_hit_plain(cs.solids, sweep.pack_media(
+                (), cuda, 1.0), o, d, pixel, sample, bounce, 1)
+            args = (mt, o, d, *solid, pixel, sample, bounce, 1)
+            fn, plain = sweep.media_hit, sweep.media_hit_plain
+        else:
+            args = (cs.solids, mt, o, d, pixel, sample, bounce, 1)
+            fn, plain = sweep.scene_hit, sweep.scene_hit_plain
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    t, kind, idx = got
+    if kernel == "K3":
+        for a, b in zip(got, solid):
+            assert torch.equal(a[parked], b[parked])
+        assert (kind[~parked] == 3).any()
+    else:
+        assert not torch.isfinite(t[parked]).any()
+        assert (kind[parked] == 0).all() and (idx[parked] == 0).all()
+    assert torch.isfinite(t[~parked]).sum() > 100
+
+
 K5_SCENES = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
              "kitchen_textured": lambda c: fixtures.kitchen_sink_scene(
                  c, normal_map=False),
@@ -773,7 +831,9 @@ def test_forward_renders_launch_s1_once_a_bounce(cuda, tmp_path):
     render_sample, render_pixels on the fixed trip and render_sample_sharded
     (a one-rank NCCL group) shade every bounce with one S1 launch (as many
     as K1's; max_depth + 1 on the fixed trip), and the sharded planes
-    equal render_sample's."""
+    equal render_sample's. The sample pass's first call captures its CUDA
+    graphs after a warm-up pass, whose launches count too: it is made
+    first, at another sample."""
     from solstrale_tpu_torch import parallel
     from solstrale_tpu_torch.parallel import distributed
 
@@ -783,6 +843,7 @@ def test_forward_renders_launch_s1_once_a_bounce(cuda, tmp_path):
     assert torch.is_grad_enabled() and cs.kbvh is not None
     kw = dict(width=w, height=h, max_depth=depth,
               shader_kind=integrator.SHADER_PATH, need_aux=False)
+    integrator.render_sample(cs, 2, 1, **kw)
     want, s1, k1 = _counted(lambda: integrator.render_sample(cs, 1, 1, **kw))
     assert 1 <= s1 == k1 <= depth + 1
     pix = torch.arange(w * h, device=cuda)
