@@ -2747,6 +2747,117 @@ def _sample_replays(cs):
         isinstance(key, tuple) and key[0] == integrator.SAMPLE_PASS)
 
 
+def _first_hit_drivers(cs):
+    """The first-hit pass's card drivers on this compiled scene, by key."""
+    from solstrale_tpu_torch.renderer import integrator
+
+    return {key: v for (sid, key), v in list(integrator._PER_SCENE.items())
+            if sid == id(cs) and isinstance(key, tuple) and
+            key[0] == integrator.FIRST_HIT_PASS}
+
+
+def _first_hit_replays(cs):
+    """Replays of the first-hit pass's graphs on this compiled scene, over
+    its keys."""
+    return sum(v.replays for v in _first_hit_drivers(cs).values())
+
+
+# the first-hit pass's forms phase 3d holds its graph to the eager driver
+# in: (shader_kind name or None, aux) at each of FIRST_HIT_SAMPLES
+FIRST_HIT_FORMS = (("albedo", False), ("albedo", True), ("normal", False),
+                   ("normal", True), ("simple", False), ("simple", True),
+                   (None, True))
+FIRST_HIT_SAMPLES = (1, 8)
+
+
+def _first_hit_pass_vs_eager(name, cs, w, h, wrappers, kernels):
+    """The first-hit pass (seed 1, first sample 1; its graph captured by a
+    first call at sample 9, timed, with its pool's bytes) in every form of
+    ``FIRST_HIT_FORMS`` at each of ``FIRST_HIT_SAMPLES``, a debug shader's
+    through ``render_sample_batch`` and the aux planes alone through
+    ``first_hit_pass`` (the path batch around them reads the wavefront's
+    stop test), each of which must take one replay with no host read,
+    against ``first_hit_pass_eager``: every plane bit for bit, the same
+    launches (CR, FH and each hit kernel of ``kernels`` once a sample, no
+    draw, step or K5 kernel), and both timed (median ms, CUDA events).
+    Each driver is dropped once checked. Returns (each form's line, the
+    launches of the graphed batches)."""
+    import torch
+    from solstrale_tpu_torch.profiling import HostReads
+    from solstrale_tpu_torch.renderer import integrator
+
+    total = dict.fromkeys(wrappers, 0)
+    cells = {}
+    for shader, aux in FIRST_HIT_FORMS:
+        kind = None if shader is None else getattr(
+            integrator, f"SHADER_{shader.upper()}")
+        for n in FIRST_HIT_SAMPLES:
+            label = f"{shader or 'aux'}{'+aux' if shader and aux else ''}" \
+                    f" x{n}"
+            fh = dict(width=w, height=h, shader_kind=kind, aux=aux,
+                      n_samples=n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            integrator.first_hit_pass(cs, None, 9, 1, **fh)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            key = (integrator.FIRST_HIT_PASS, w * h, w, h, 1, kind, aux, n)
+            driver = _first_hit_drivers(cs)[key]
+            pool = _pool_bytes(driver.graph[0])
+            replays = driver.replays
+            reset_launches(wrappers)
+            with HostReads() as reads:
+                if kind is None:
+                    planes = integrator.first_hit_pass(cs, None, 1, 1, **fh)
+                else:
+                    batch = integrator.render_sample_batch(
+                        cs, 1, 1, max_depth=50, shader_kind=kind,
+                        need_aux=aux, **{k: fh[k] for k in (
+                            "width", "height", "n_samples")})
+                    planes = tuple(torch.flip(p, dims=(0,)).reshape(-1, 3)
+                                   for p in batch[:3])
+            torch.cuda.synchronize()
+            graphed = launch_counts(wrappers)
+            replayed = driver.replays - replays
+            reset_launches(wrappers)
+            eager = integrator.first_hit_pass_eager(cs, None, 1, 1, **fh)
+            torch.cuda.synchronize()
+            eager_launches = launch_counts(wrappers)
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(planes, eager))
+            want = {k: n for k in ("CR", "FH") + kernels}
+            if not same or replayed != 1 or reads.n != 0 or \
+                    graphed != eager_launches or \
+                    any(graphed[k] != v for k, v in want.items()) or \
+                    any(graphed[k] for k in ("draw", "S1", "S2", "K5")):
+                raise AssertionError(
+                    f"{name} first-hit pass {label}: expected one replay, no "
+                    f"host read, the eager driver's planes bit for bit and "
+                    f"its launches ({want} a batch), got same={same}, "
+                    f"replays={replayed}, host reads={reads.n}, {graphed} "
+                    f"against {eager_launches}")
+            if not all(bool(torch.isfinite(p).all()) for p in planes) or \
+                    float(planes[1].abs().sum() > 0) != float(aux) or \
+                    float(planes[0].abs().sum() > 0) != float(kind is not
+                                                              None):
+                raise AssertionError(f"{name} first-hit pass {label}: "
+                                     f"non-finite or missing planes")
+            for k, v in graphed.items():
+                total[k] += v
+            cells[label] = dict(
+                capture_s=capture_s, pool_bytes=pool[0],
+                pool_segments=pool[1], launches={
+                    k: v for k, v in graphed.items() if v},
+                replays=replayed, host_reads=reads.n, bit_identical=True,
+                graphed_ms=_median_ms(lambda: integrator.first_hit_pass(
+                    cs, None, 1, 1, **fh)),
+                eager_ms=_median_ms(lambda: integrator.first_hit_pass_eager(
+                    cs, None, 1, 1, **fh)))
+            del integrator._PER_SCENE[id(cs), key]
+            driver = None
+    return cells, total
+
+
 def _sample_pass_vs_eager(name, cs, w, h, need_aux, wrappers, kernels):
     """The path shader's sample pass (depth 50, seed 1, sample 1; its graph
     captured by a first call at sample 2, timed), grad mode on as a user
@@ -2859,10 +2970,18 @@ def phase_surface(sponza_cs, smi):
 
     with tempfile.TemporaryDirectory() as tmp:
         ck, ck1 = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "ck1.npz")
+        # the aux planes' first-hit pass captures its graph on a key's
+        # first call, after a warm-up pass whose launches count too: the
+        # key is warmed first, at another sample
+        renderer = T.Renderer(sponza(), device="cuda")
+        integrator.render_sample_batch(
+            renderer.compiled, 3, 1, width=w, height=h, max_depth=50,
+            shader_kind=integrator.SHADER_PATH, need_aux=True, n_samples=1)
+        replays = _first_hit_replays(renderer.compiled)
         reset_launches(wrappers)
         t0 = time.perf_counter()
         straight = None
-        for n, p in enumerate(T.Renderer(sponza(), device="cuda").render(
+        for n, p in enumerate(renderer.render(
                 checkpoint_path=ck, checkpoint_every=1), 1):
             if n == 1:
                 shutil.copy(ck, ck1)
@@ -2870,6 +2989,7 @@ def phase_surface(sponza_cs, smi):
                 else straight
         seconds = time.perf_counter() - t0
         launches = launch_counts(wrappers)
+        aux_replays = _first_hit_replays(renderer.compiled) - replays
         renderer = T.Renderer(sponza(), device="cuda")
         resumed = [p.render_image for p in renderer.render(resume_from=ck1)]
         if len(resumed) != 1 or renderer.samples_done != 2:
@@ -2878,18 +2998,21 @@ def phase_surface(sponza_cs, smi):
     if not np.array_equal(resumed[-1], straight):
         raise AssertionError("the render resumed from sample 1 is not "
                              "bit-identical to the straight one")
-    # the aux planes: one CR and one FH launch a sample (first_hit_aux, 2
-    # samples), their draws in registers: no draw kernel
+    # the aux planes: one CR and one FH launch a sample (the first-hit
+    # pass, 2 batches of 1 sample: one replay each), their draws in
+    # registers: no draw kernel
     if min(launches[k] for k in ("K1", "S1", "S2")) <= 0 or \
             launches["CR"] != 2 or launches["FH"] != 2 or \
-            launches["K5"] != 0 or launches["draw"] != 0:
+            launches["K5"] != 0 or launches["draw"] != 0 or \
+            aux_replays != 2:
         raise AssertionError(f"sponza with aux: expected K1, S1, S2, CR 2, "
-                             f"FH 2 and no K5 or draw kernel, got "
-                             f"{launches}")
+                             f"FH 2, no K5 or draw kernel and 2 first-hit "
+                             f"replays, got {launches}, {aux_replays}")
     aux_launches = launches
     out["sponza_bloom_denoiser"] = dict(
         ray_trace_seconds=seconds, mean_u8=float(straight.mean()),
-        launches=launches, resume_bit_identical=True)
+        launches=launches, first_hit_replays=aux_replays,
+        resume_bit_identical=True)
 
     # the debug shaders through ray_trace on the interior (K1) and the
     # kitchen (K4), then one sample of each timed
@@ -2903,27 +3026,42 @@ def phase_surface(sponza_cs, smi):
             ("kitchen", fixtures.kitchen_sink_scene, kitchen_cs, "K4")):
         runs = {}
         for shader_name, shader in shaders.items():
-            reset_launches(wrappers)
-            img = _final_image(build(T.RenderConfig(
-                width=w, height=h, samples_per_pixel=1, seed=1,
-                shader=shader())), "cuda")
-            launches = launch_counts(wrappers)
-            _check_image(f"{scene_name} {shader_name}", img, h, w)
-            # one sample: one CR and one FH launch, no draw kernel
-            if launches[kernel] <= 0 or launches["K5"] != 0 or \
-                    launches["CR"] != 1 or launches["FH"] != 1 or \
-                    launches["draw"] != 0:
-                raise AssertionError(f"{scene_name} {shader_name}: expected "
-                                     f"{kernel}, CR 1, FH 1 and no K5 or "
-                                     f"draw kernel, got {launches}")
-            for k in ("CR", "FH"):
-                debug_launches[k] += launches[k]
             kw = dict(width=w, height=h, max_depth=50,
                       shader_kind=shader.kind, need_aux=False, n_samples=1)
+            renderer = T.Renderer(build(T.RenderConfig(
+                width=w, height=h, samples_per_pixel=1, seed=1,
+                shader=shader())), device="cuda")
+            # the key's first call (warm-up and capture) at another sample
+            integrator.render_sample_batch(renderer.compiled, 2, 1, **kw)
+            replays = _first_hit_replays(renderer.compiled)
+            reset_launches(wrappers)
+            img = None
+            for p in renderer.render():
+                img = p.render_image if p.render_image is not None else img
+            launches = launch_counts(wrappers)
+            replays = _first_hit_replays(renderer.compiled) - replays
+            _check_image(f"{scene_name} {shader_name}", img, h, w)
+            # one sample: one replay of the first-hit pass, one CR and one
+            # FH launch, no draw kernel
+            if launches[kernel] <= 0 or launches["K5"] != 0 or \
+                    launches["CR"] != 1 or launches["FH"] != 1 or \
+                    launches["draw"] != 0 or replays != 1:
+                raise AssertionError(f"{scene_name} {shader_name}: expected "
+                                     f"{kernel}, CR 1, FH 1, no K5 or draw "
+                                     f"kernel and one replay, got "
+                                     f"{launches}, {replays}")
+            for k in ("CR", "FH"):
+                debug_launches[k] += launches[k]
+            renderer = None
             runs[shader_name] = dict(
                 mean_u8=float(img.mean()), launches=launches,
+                replays=replays,
                 one_sample_ms=_median_ms(
-                    lambda: integrator.render_sample_batch(cs, 1, 1, **kw)))
+                    lambda: integrator.render_sample_batch(cs, 1, 1, **kw)),
+                one_sample_eager_ms=_median_ms(
+                    lambda: integrator.first_hit_pass_eager(
+                        cs, None, 1, 1, width=w, height=h,
+                        shader_kind=shader.kind, aux=False, n_samples=1)))
         pix = torch.arange(n_pix, device="cuda")
         _, o, d = integrator.camera_rays(cs, pix, w, h, 1, 1)
         runs["first_hit_aux_ms"] = _median_ms(
@@ -2978,6 +3116,20 @@ def phase_surface(sponza_cs, smi):
     for name, cs in (("mixed", mixed), ("kitchen", kitchen_cs)):
         log("sample_pass", gpu=smi, scene=f"{name} 1920x1080, depth 50",
             **wavefront_ab.sample_pass_times(cs, w, h))
+
+    # the first-hit pass at 1080p: one replay of its graph a batch, no host
+    # read, bit for bit the eager driver, for every debug shader with and
+    # without the aux planes and the aux planes alone, at 1 and 8 samples,
+    # on the interior (K1), the mixed scene (K1-K3) and the kitchen (K4)
+    first_hit_launches = dict.fromkeys(wrappers, 0)
+    for name, cs, kernels in (("interior", sponza_cs, ("K1",)),
+                              ("mixed", mixed, ("K1", "K2", "K3")),
+                              ("kitchen", kitchen_cs, ("K4",))):
+        cells, total = _first_hit_pass_vs_eager(name, cs, w, h, wrappers,
+                                                kernels)
+        log("first_hit_pass", gpu=smi, scene=f"{name} 1920x1080", **cells)
+        for k, n in total.items():
+            first_hit_launches[k] += n
 
     # K1 and K4 over all 2,073,600 camera rays of a 1080p image in one
     # launch, against 131,072-lane slices (their plain versions are checked
@@ -3039,11 +3191,13 @@ def phase_surface(sponza_cs, smi):
                                       u8_max_diff=int(diff.max()))
     log("surface", **out, seconds=time.perf_counter() - start)
     # the first hit's kernels and the draw kernel on ray_trace with the
-    # denoiser's aux planes (first_hit_aux; the draw kernel 0) and the
-    # debug shaders
+    # denoiser's aux planes (the first-hit pass; the draw kernel 0), the
+    # debug shaders and the first-hit pass's batches
     return {"draw": aux_launches["draw"],
-            "CR": aux_launches["CR"] + debug_launches["CR"],
-            "FH": aux_launches["FH"] + debug_launches["FH"]}
+            "CR": aux_launches["CR"] + debug_launches["CR"]
+            + first_hit_launches["CR"],
+            "FH": aux_launches["FH"] + debug_launches["FH"]
+            + first_hit_launches["FH"]}
 
 
 def k5_work(stats, segments):

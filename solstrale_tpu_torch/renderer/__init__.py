@@ -108,6 +108,12 @@ class Renderer:
         - ``profile_dir``: run a ``torch.profiler`` session over the loop
           and write its Chrome trace to ``profile_dir/trace.json`` when the
           loop ends, is aborted or is closed.
+
+        Each batch is one ``integrator.render_sample_batch``, on the card
+        one device program: K5's launch, or the wavefront's graph replays
+        for the path shader, and one replay of the first-hit pass's graph
+        (``integrator.first_hit_pass``) for a debug shader, or for the aux
+        planes a denoiser needs.
         """
         from . import integrator
         from .checkpoint import load_checkpoint, save_checkpoint

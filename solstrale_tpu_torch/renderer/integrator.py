@@ -159,6 +159,8 @@ def per_scene(cs: CompiledScene, name, make):
 GRAD_STEP = "grad_step"
 # ... and of ``sample_pass``'s captured passes (``_SamplePass``)
 SAMPLE_PASS = "sample_pass"
+# ... and of ``first_hit_pass``'s captured sample loops (``_FirstHitPass``)
+FIRST_HIT_PASS = "first_hit_pass"
 
 
 def share_geometry_tables(src: CompiledScene, dst: CompiledScene):
@@ -167,7 +169,8 @@ def share_geometry_tables(src: CompiledScene, dst: CompiledScene):
     tables, so that the copy neither repacks them nor syncs for the box
     scale, and its inverse steps (``GRAD_STEP``), which copy the arena in
     at each call, so that an SGD loop captures its step once. K5's tables
-    and the wavefront's graphs hold the texels and are not shared."""
+    and the wavefront's, the sample pass's and the first-hit pass's graphs
+    hold the texels and are not shared."""
     for (sid, name), value in list(_PER_SCENE.items()):
         if sid == id(src) and (name == "media" or (
                 isinstance(name, tuple) and name[0] == GRAD_STEP)):
@@ -853,14 +856,20 @@ def render_pixels(cs: CompiledScene, pix, sample, seed, *, width, height,
     same values. Without ``need_aux`` albedo and normal are zero. The
     camera rays are CR; a debug shader writes its color, and with
     ``need_aux`` the aux planes, from one scene hit and one FH launch
-    (``first_hit_planes``), which differentiate through CR's and FH's
-    autograd Functions (CRB, FHB). The path shader with early exit (and
-    not ``differentiable``) is ``sample_pass``: on the card one CUDA graph
-    replay. ``differentiable``: the path shader's route for autograd
-    (``trace``)."""
+    (``first_hit_planes``). Where autograd records nothing (no scene table
+    requires grad, or grad mode is off) that is ``first_hit_pass`` of one
+    sample: on the card one CUDA graph replay; otherwise the planes
+    differentiate through CR's and FH's autograd Functions (CRB, FHB),
+    eagerly. The path shader with early exit (and not ``differentiable``)
+    is ``sample_pass``: on the card one CUDA graph replay.
+    ``differentiable``: the path shader's route for autograd (``trace``)."""
     if shader_kind == SHADER_PATH and early_exit and not differentiable:
         return sample_pass(cs, pix, sample, seed, width=width, height=height,
                            max_depth=max_depth, need_aux=need_aux)
+    if shader_kind != SHADER_PATH and not step_ops.needs_grad(cs):
+        return first_hit_pass(cs, pix, sample, seed, width=width,
+                              height=height, shader_kind=shader_kind,
+                              aux=need_aux, n_samples=1)
     _, o, d = camera_rays(cs, pix, width, height, sample, seed)
     if shader_kind != SHADER_PATH:
         planes = first_hit_planes(cs, o, d, pix, sample, seed, shader_kind,
@@ -925,6 +934,65 @@ def sample_pass(cs: CompiledScene, pix, sample, seed, *, width, height,
         driver = per_scene(cs, (SAMPLE_PASS, *key),
                            lambda: _SamplePass(cs, *key))
         return driver.run(pix, sample)
+
+
+def first_hit_pass_eager(cs: CompiledScene, pix, sample_start, seed, *,
+                         width, height, shader_kind, aux, n_samples):
+    """``first_hit_pass`` op by op: for each sample ``sample_start + i`` in
+    order, CR and ``first_hit_planes`` (the scene-hit kernels and one FH
+    launch), each plane asked for added onto a zero plane. The CPU's
+    route; on the card, the body ``_FirstHitPass`` captures and the route
+    its graph is held against."""
+    if pix is None:
+        pix = torch.arange(width * height, dtype=torch.int64,
+                           device=cs.device)
+    zero = torch.zeros((pix.shape[0], 3), dtype=torch.float32,
+                       device=cs.device)
+    color = albedo = normal = zero
+    for i in range(n_samples):
+        sample = sample_start + i
+        _, o, d = camera_rays(cs, pix, width, height, sample, seed)
+        planes = first_hit_planes(cs, o, d, pix, sample, seed, shader_kind,
+                                  aux=aux)
+        if shader_kind is not None:
+            color = color + planes["color"]
+        if aux:
+            albedo = albedo + planes["albedo"]
+            normal = normal + planes["normal"]
+    return color, albedo, normal
+
+
+def first_hit_pass(cs: CompiledScene, pix, sample_start, seed, *, width,
+                   height, shader_kind, aux, n_samples):
+    """The first-hit samples of the pixel ids ``pix`` (None: every pixel
+    of the image in id order), ``n_samples`` of them from ``sample_start``
+    (an int or a one-element int tensor): the summed (color, albedo,
+    normal) (R, 3) planes, the color the debug shader ``shader_kind``'s
+    (None: no shader, a zero plane), the albedo and normal the aux planes
+    with ``aux`` (else zero planes). The counterpart of the JAX package's
+    jitted ``fori_loop`` of ``render_pixels`` or ``first_hit_aux``. The
+    driver follows the scene's device. On the CPU, ``first_hit_pass_eager``.
+    On the card, one replay of ``_FirstHitPass``'s CUDA graph with no host
+    read, captured once per compiled scene and (lane count, width, height,
+    seed as an int, shader_kind, aux, n_samples); the planes equal
+    ``first_hit_pass_eager``'s bit for bit. A failed capture raises; so
+    does a scene table that requires grad with grad mode on (the replay
+    builds no autograd graph: ``render_pixels`` differentiates a debug
+    shader's planes eagerly, through CRB and FHB)."""
+    kw = dict(width=width, height=height, shader_kind=shader_kind, aux=aux,
+              n_samples=n_samples)
+    if cs.device.type != "cuda":
+        return first_hit_pass_eager(cs, pix, sample_start, seed, **kw)
+    if step_ops.needs_grad(cs):
+        raise ValueError("first_hit_pass: a graph replay builds no autograd "
+                         "graph; render_pixels differentiates a debug "
+                         "shader's planes eagerly (CRB, FHB)")
+    r = width * height if pix is None else pix.shape[0]
+    key = (r, width, height, int(seed), shader_kind, aux, n_samples)
+    with torch.no_grad():
+        driver = per_scene(cs, (FIRST_HIT_PASS, *key),
+                           lambda: _FirstHitPass(cs, *key))
+        return driver.run(pix, sample_start)
 
 
 def to_image(c, width, height):
@@ -1341,14 +1409,70 @@ class _SamplePass:
     def run(self, pix, sample):
         """One pass: the ids and the sample written in, one replay. Returns
         new (color, albedo, normal)."""
-        if isinstance(sample, torch.Tensor):
-            if sample.numel() != 1:
-                raise ValueError("sample_pass: the sample must be an int or "
-                                 "a one-element tensor")
-            self.sample.copy_(sample.reshape(()))
-        else:
-            self.sample.fill_(int(sample))
+        _sample_into(self.sample, sample, "sample_pass")
         self.pix.copy_(pix)
+        replay_counted(*self.graph)
+        self.replays += 1
+        return tuple(x.clone() for x in self.planes)
+
+
+def _sample_into(dst, sample, name):
+    """Write ``sample`` (an int or a one-element tensor) into a driver's
+    0-dim sample tensor."""
+    if isinstance(sample, torch.Tensor):
+        if sample.numel() != 1:
+            raise ValueError(f"{name}: the sample must be an int or a "
+                             f"one-element tensor")
+        dst.copy_(sample.reshape(()))
+    else:
+        dst.fill_(int(sample))
+
+
+class _FirstHitPass:
+    """``first_hit_pass``'s card driver for one key: one CUDA graph of the
+    eager driver's loop (``first_hit_pass_eager``) with its ``n_samples``
+    passes unrolled, each pass's sample a device add onto a fixed 0-dim
+    tensor, so that a batch is one replay. The pixel ids (the whole
+    image's until a pass writes others) and the first sample are fixed
+    tensors written before each replay; the summed planes are the graph's
+    outputs, which stay allocated in its pool. Built once per compiled
+    scene and key (``per_scene``): a warm-up of the loop on a side stream
+    (``warm_up``), then the capture (``capture_counted``). The graph reads
+    the scene's tables by address: it is dropped with the scene.
+    ``replays`` counts its replays."""
+
+    def __init__(self, cs, r, width, height, seed, shader_kind, aux,
+                 n_samples):
+        dev = cs.device
+        self.width, self.height = width, height
+        self.pix = torch.arange(r, dtype=torch.int64, device=dev)
+        # whether ``pix`` holds the whole image's ids (``run(None, ...)``)
+        self.whole = r == width * height
+        self.sample = torch.zeros((), dtype=torch.int64, device=dev)
+        self.replays = 0
+
+        def body():
+            self.planes = first_hit_pass_eager(
+                cs, self.pix, self.sample, seed, width=width, height=height,
+                shader_kind=shader_kind, aux=aux, n_samples=n_samples)
+
+        warm_up(dev, body)
+        self.graph = capture_counted(body)
+
+    def run(self, pix, sample_start):
+        """One batch: the ids (None: the whole image's) and the first
+        sample written in, one replay. Returns new (color, albedo,
+        normal)."""
+        _sample_into(self.sample, sample_start, "first_hit_pass")
+        if pix is not None:
+            self.pix.copy_(pix)
+            self.whole = False
+        elif not self.whole:
+            if self.pix.shape[0] != self.width * self.height:
+                raise ValueError("first_hit_pass: no pixel ids given, and "
+                                 "the lanes are not the image's pixels")
+            torch.arange(self.pix.shape[0], out=self.pix)
+            self.whole = True
         replay_counted(*self.graph)
         self.replays += 1
         return tuple(x.clone() for x in self.planes)
@@ -1446,19 +1570,20 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
                         stats=None):
     """Accumulate n_samples consecutive sample passes: in one launch of the
     render megakernel (K5) when ``megakernel_supported`` accepts the scene,
-    else the path shader with the work-queue wavefront and a debug shader
-    with one ``render_pixels`` per sample. With ``need_aux`` the albedo and
-    normal planes sum one ``first_hit_aux`` per sample (K5's gate refuses
-    aux, so the path color then comes from the wavefront; a debug shader's
-    ``render_pixels`` writes them with its color). Returns summed
-    (pixel, albedo, normal) (height, width, 3) planes in image-row order
-    (top row first, renderer/mod.rs:261) plus the traced-segment count (a
-    debug shader counts one per pixel and sample). ``stats`` receives the
-    wavefront's iteration counts (it stays empty on the other routes)."""
+    else the path shader with the work-queue wavefront (``trace_queued``)
+    and a debug shader with ``first_hit_pass``, its color (and with
+    ``need_aux`` its aux planes) from one scene hit and one FH launch a
+    sample. With ``need_aux`` the path shader's albedo and normal planes
+    are a ``first_hit_pass`` of their own (K5's gate refuses aux, so the
+    path color then comes from the wavefront). On the card each of these
+    is one device program a batch: the wavefront's graph replays, one
+    replay of the first-hit pass's graph. Returns summed (pixel, albedo,
+    normal) (height, width, 3) planes in image-row order (top row first,
+    renderer/mod.rs:261) plus the traced-segment count (a debug shader
+    counts one per pixel and sample). ``stats`` receives the wavefront's
+    iteration counts (it stays empty on the other routes)."""
     n_pix = width * height
-    pix = torch.arange(n_pix, dtype=torch.int64, device=cs.device)
-    zero = torch.zeros((n_pix, 3), dtype=torch.float32, device=cs.device)
-    albedo = normal = zero
+    fh = dict(width=width, height=height, n_samples=n_samples)
     if megakernel.megakernel_supported(cs, need_aux=need_aux,
                                        shader_kind=shader_kind):
         color, segments = megakernel.render_batch_megakernel(
@@ -1469,22 +1594,17 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
                                        width=width, height=height,
                                        max_depth=max_depth, stats=stats)
     else:
-        color = zero
-        for i in range(n_samples):
-            c, a, n = render_pixels(
-                cs, pix, sample_start + i, seed, width=width, height=height,
-                max_depth=max_depth, shader_kind=shader_kind,
-                need_aux=need_aux)
-            color = color + c
-            if need_aux:
-                albedo, normal = albedo + a, normal + n
+        color, albedo, normal = first_hit_pass(
+            cs, None, sample_start, seed, shader_kind=shader_kind,
+            aux=need_aux, **fh)
         segments = torch.tensor(n_pix * n_samples, dtype=torch.int64,
                                 device=cs.device)
-    if need_aux and shader_kind == SHADER_PATH:
-        for i in range(n_samples):
-            _, o, d = camera_rays(cs, pix, width, height, sample_start + i,
-                                  seed)
-            a, n = first_hit_aux(cs, o, d, pix, sample_start + i, seed)
-            albedo, normal = albedo + a, normal + n
+    if shader_kind == SHADER_PATH:
+        if need_aux:
+            _, albedo, normal = first_hit_pass(cs, None, sample_start, seed,
+                                               shader_kind=None, aux=True,
+                                               **fh)
+        else:
+            albedo = normal = torch.zeros_like(color)
     return (to_image(color, width, height), to_image(albedo, width, height),
             to_image(normal, width, height), segments)

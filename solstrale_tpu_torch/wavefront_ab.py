@@ -77,7 +77,8 @@ FHB.
 
 The first hit's cells (``aux_interior``: the untextured interior at
 1920x1080, the main path's denoised render, K1; ``aux_kitchen``: the
-normal-mapped kitchen at 1920x1080, K4; seed 1, sample 1): the camera rays
+normal-mapped kitchen at 1920x1080, K4; ``aux_kitchen_k4``: the same at
+400x266, where the host sets the time; seed 1, sample 1): the camera rays
 of all 2,073,600 pixels (``integrator.camera_rays``), the scene hit at
 depth 0 on them alone (``integrator.scene_hit`` and, where the tree has
 it, ``step_hit``, the hit the first-hit kernel FH takes),
@@ -87,7 +88,12 @@ depth-50 path batch with and without the aux planes: each by CUDA events
 (the median and every run of ``RUNS``, after one warm-up call) with its
 kernels' launches a call; the camera rays and the hits also by
 ``device_ms``, and ``first_hit_aux`` by its device ops and busy time
-under ``torch.profiler``.
+under ``torch.profiler``; then the first-hit pass, a batch of each form of
+``FIRST_HIT_FORMS`` at 1 and 8 samples, each way the tree has, by
+``first_hit_pass_times``: ``graphed`` (``first_hit_pass``: one replay of
+its CUDA graph) and ``eager`` (``first_hit_pass_eager``; on a tree without
+it the per-sample loop it replaced), with wall ms, busy ms, replays and
+host reads.
 
 The sample pass's cells (``sample_mixed``: the mixed BVH scene at
 1920x1080, K1-K3; ``sample_kitchen``: the normal-mapped kitchen at
@@ -139,8 +145,15 @@ FIRST_IMAGES = ((400, 266), (1920, 1080))
 FIRST_KERNELS = ("first_hit_shade", "camera_rays", "first_hit_backward",
                  "camera_rays_backward")
 # the first hit's cells: each one's scene, as the workload of that name
-# builds it, at 1920x1080
-AUX = {"aux_interior": "interior", "aux_kitchen": "kitchen_1080p"}
+# builds it (the interior and the kitchen at 1920x1080, the kitchen at
+# 400x266)
+AUX = {"aux_interior": "interior", "aux_kitchen": "kitchen_1080p",
+       "aux_kitchen_k4": "kitchen_k4"}
+# the first-hit pass's forms a first hit's cell times (first_hit_pass_times):
+# (debug shader name or None, aux planes) at each of FIRST_HIT_SAMPLES
+FIRST_HIT_FORMS = (("albedo", False), ("normal", False), ("simple", False),
+                   ("simple", True), (None, True))
+FIRST_HIT_SAMPLES = (1, 8)
 # the sample pass's cells: each one's scene, as the workload of that name
 # builds it (the mixed BVH scene and the kitchen at 1920x1080, the kitchen
 # at 400x266)
@@ -527,7 +540,123 @@ def measure_aux(cs, w, h):
                     cs, 1, SEED, width=w, height=h, max_depth=DEPTH,
                     shader_kind=integrator.SHADER_PATH, need_aux=a,
                     n_samples=1)[0].sum()), wrappers)
+    out["first_hit_pass"] = first_hit_pass_times(cs, w, h)
     return out
+
+
+def _per_sample_loop(cs, w, h, kind, aux, n):
+    """The first-hit samples as a tree without ``first_hit_pass`` runs
+    them: a debug shader's through its ``render_sample_batch`` (one
+    ``render_pixels`` a sample), the aux planes alone as that batch's aux
+    loop (CR and ``first_hit_aux`` a sample)."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator
+
+    if kind is not None:
+        return integrator.render_sample_batch(
+            cs, 1, SEED, width=w, height=h, max_depth=DEPTH, shader_kind=kind,
+            need_aux=aux, n_samples=n)
+    pix = torch.arange(w * h, dtype=torch.int64, device=cs.device)
+    albedo = normal = torch.zeros((w * h, 3), device=cs.device)
+    for i in range(n):
+        _, o, d = integrator.camera_rays(cs, pix, w, h, 1 + i, SEED)
+        a, b = integrator.first_hit_aux(cs, o, d, pix, 1 + i, SEED)
+        albedo, normal = albedo + a, normal + b
+    return albedo, normal
+
+
+def first_hit_pass_times(cs, w, h, runs=RUNS):
+    """The first-hit pass of every pixel (seed 1, first sample 1, no grad),
+    each form of ``FIRST_HIT_FORMS`` at each of ``FIRST_HIT_SAMPLES``, each
+    way the tree has: ``graphed`` (``first_hit_pass``: on the card one
+    replay of its CUDA graph, captured by the first call) and ``eager``
+    (``first_hit_pass_eager``, or on a tree without it
+    ``_per_sample_loop``), whose planes must be the same bits. For each:
+    the first call's seconds (with
+    ``graphed`` the warm-up and the capture), the wall ms of ``runs``
+    synced batches taken in turns (the median and every run), the launches
+    a batch, the replays and the host reads (``profiling.HostReads``), and
+    one batch under torch.profiler (device ops, busy ms, idle share of the
+    median)."""
+    import torch
+    from solstrale_tpu_torch.profiling import HostReads
+    from solstrale_tpu_torch.renderer import integrator
+
+    wrappers = _wrappers()
+    graphed = hasattr(integrator, "first_hit_pass")
+    out = {}
+    for shader, aux in FIRST_HIT_FORMS:
+        kind = None if shader is None else getattr(
+            integrator, f"SHADER_{shader.upper()}")
+        for n in FIRST_HIT_SAMPLES:
+            kw = dict(width=w, height=h, shader_kind=kind, aux=aux,
+                      n_samples=n)
+            ways = {}
+            if graphed:
+                ways["graphed"] = lambda k=kw: integrator.first_hit_pass(
+                    cs, None, 1, SEED, **k)
+                ways["eager"] = lambda k=kw: integrator.first_hit_pass_eager(
+                    cs, None, 1, SEED, **k)
+            else:
+                ways["eager"] = lambda k=kind, a=aux, m=n: _per_sample_loop(
+                    cs, w, h, k, a, m)
+            cell = {k: dict(runs_ms=[]) for k in ways}
+            with torch.no_grad():
+                for name, fn in ways.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    cell[name]["first_call_s"] = time.perf_counter() - t0
+                seen, outs = {k: set() for k in ways}, {}
+                for r in range(runs):
+                    for name in (list(ways) if r % 2 == 0
+                                 else list(ways)[::-1]):
+                        before = {k: f.launches for k, f in wrappers.items()}
+                        replays = _first_hit_replays(cs)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with HostReads() as reads:
+                            outs[name] = ways[name]()
+                        torch.cuda.synchronize()
+                        cell[name]["runs_ms"].append(
+                            (time.perf_counter() - t0) * 1e3)
+                        seen[name].add((tuple(
+                            (k, f.launches - before[k])
+                            for k, f in wrappers.items()), reads.n,
+                            _first_hit_replays(cs) - replays))
+                if graphed and not all(torch.equal(a, b) for a, b in zip(
+                        outs["graphed"], outs["eager"])):
+                    raise RuntimeError(f"the first-hit pass's ways differ: "
+                                       f"{shader}, aux {aux}, {n} samples")
+                for name, fn in ways.items():
+                    if len(seen[name]) != 1:
+                        raise RuntimeError(f"{name}: the batches did not "
+                                           f"repeat: {sorted(seen[name])}")
+                    launches, reads, replays = seen[name].pop()
+                    line = cell[name]
+                    line.update(wall_ms=statistics.median(line["runs_ms"]),
+                                launches={k: v for k, v in launches if v},
+                                host_reads=reads, replays=replays)
+                    prof = _profiled(fn)
+                    line.update({k: prof[k] for k in (
+                        "device_ops", "device_busy_ms", "profiled_wall_ms")})
+                    line["device_idle_share_of_median"] = max(
+                        0.0, 1.0 - prof["device_busy_ms"] / line["wall_ms"])
+            label = f"{shader or 'aux'}{'+aux' if shader and aux else ''}"
+            out[f"{label} x{n}"] = cell
+    return out
+
+
+def _first_hit_replays(cs):
+    """Replays of the first-hit pass's graphs on this compiled scene (0 on
+    a tree without them)."""
+    from solstrale_tpu_torch.renderer import integrator
+
+    name = getattr(integrator, "FIRST_HIT_PASS", None)
+    return sum(v.replays for (sid, key), v in list(
+        integrator._PER_SCENE.items()) if sid == id(cs) and
+        isinstance(key, tuple) and key[0] == name)
 
 
 def sample_pass_times(cs, w, h, runs=RUNS):

@@ -1276,7 +1276,9 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
     one FHB launch, its arena gradient within 1e-5 of the magnitudes of
     first_hit_backward_plain's; where a camera tensor does, CR's backward
     is one CRB launch, the camera's gradient as camera_rays_backward_plain
-    gives it."""
+    gives it. The first-hit pass's first call on a key captures its CUDA
+    graph after a warm-up pass, whose launches count too: each counted
+    render is made first at another sample."""
     import dataclasses
 
     from solstrale_tpu_torch import bench
@@ -1296,6 +1298,9 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
 
     pix = torch.arange(w * h, device=cuda)
     kw = dict(width=w, height=h, max_depth=50)
+    integrator.render_pixels(cs, pix, 2, 1,
+                             shader_kind=integrator.SHADER_SIMPLE,
+                             need_aux=True, **kw)
     got, n = launched(lambda: integrator.render_pixels(
         cs, pix, 1, 1, shader_kind=integrator.SHADER_SIMPLE, need_aux=True,
         **kw))
@@ -1306,6 +1311,9 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
     assert all(_same(a, b) for a, b in zip(got, want))
     _, n = launched(lambda: integrator.first_hit_aux(cs, o, d, pix, 1, 1))
     assert (n["FH"], n["CR"], n["draw"]) == (1, 0, 0)
+    integrator.render_sample_batch(cs, 3, 1,
+                                   shader_kind=integrator.SHADER_PATH,
+                                   need_aux=True, n_samples=2, **kw)
     _, n = launched(lambda: integrator.render_sample_batch(
         cs, 1, 1, shader_kind=integrator.SHADER_PATH, need_aux=True,
         n_samples=2, **kw))
