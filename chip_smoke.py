@@ -110,20 +110,27 @@ script exits non-zero):
      a medium and textures), launch counts read around both renders, and
      ``render_sample_batch`` timed like ``bench.py`` (median of three);
   3b. the small-scene path at full size: ``ray_trace`` at 1920x1080 of the
-     solid kitchen-sink scene (one K5 launch per batch, no other hit
-     kernel) and of the normal-mapped one (K4, S1 and S2, never K5), launch counts read
-     around each, and ``render_sample_batch`` of both timed at bench.py's
-     settings (400x266, 8 spp, depth 50, median of three);
+     solid kitchen-sink scene and of the normal-mapped one (K5's normal-map
+     instantiation), each one K5 launch per batch and no other kernel (no
+     K4, S1 or S2), launch counts read around each, and
+     ``render_sample_batch`` of both timed at bench.py's settings (400x266,
+     8 spp, depth 50, median of three);
   3c. K5 against its plain version exactly (max abs error 0, equal
      segments) and a repeated launch bit for bit, at 1920x1080x8 on the
      solid kitchen-sink scene (43,809,619 segments, asserted) and at
      400x266x8 on the kitchen-sink scene without its normal map (image
      texture, triangles, a triangle light), which is also timed at
      1920x1080x8, and on a 24-light scene (the light-pdf mean above its
-     unroll of 16) at 160x120x8; with each launch's work counts
+     unroll of 16) at 160x120x8; on the normal-mapped kitchen (the
+     kernel's normal-map instantiation) at 400x266x8 and at 1920x1080x8,
+     timed there with its bound; with each launch's work counts
      (active-lane efficiency, the static one-pixel-per-thread map's, the
-     medium sweep shares, the persistent grid), and K5 against ``trace_queued`` (the K4 route) at
-     1920x1080x1;
+     medium sweep shares, the persistent grid); K5 against
+     ``trace_queued`` (the K4 route) at 1920x1080x1 on both kitchens; and
+     the aux batch of the normal-mapped kitchen at 400x266x8
+     (``render_sample_batch`` with the aux planes: one K5 launch and one
+     replay of the first-hit pass) against its eager form (K5's plain
+     version and ``first_hit_pass_eager``) bit for bit;
   3e. ``trace_queued``'s card driver (CUDA graph replays of
      ``integrator.GRAPH_STEPS`` steps of the hit kernels, S1 and S2 (its
      scan inside), one stop read a replay) against the eager loop (the
@@ -235,9 +242,12 @@ script exits non-zero):
      fewer, one line saying that the phase did not run and how many cards
      are visible.
 The last lines are the card's name and power limit, the kernels' JSON
-summary (K1-K5, the draw kernel, S1, S2, S1B, CR, FH, CRB and FHB; the
-draw kernel's launches are those of the denoised render of phase 3d, 0:
-no route on the card launches it since CR and FH draw in registers; CR's
+summary (K1-K5, the draw kernel, S1, S2, S1B, CR, FH, CRB and FHB; every
+kernel but the draw kernel launched at least once, or the script fails;
+the draw kernel's launches are those of the denoised render of phase 3d,
+0: no route on the card launches it since CR and FH draw in registers;
+K4's those of phase 3d's debug shaders and first-hit passes on the
+kitchen, whose path color K5 renders; K5's those of phases 3b and 7; CR's
 and FH's those of phase 3d's denoised render and debug shaders and of
 phase 2e's routes, and CR's of phase 5's graphed steps too; S1B's those
 of phase 5's graphed steps, its ``ms`` the kernel alone; CRB's and FHB's
@@ -307,6 +317,10 @@ K5_PDF = 127       # every NEE scatter beyond its light pdfs: the onb 38,
 #                    of a pdf level 12
 K5_BASIC = 51      # every metal or dielectric scatter: the cheaper, a
 #                    dielectric reflection off a back face, 45, the fold 6
+K5_NORMAL_MAP = 26  # every scatter off a normal map (the kNormalMaps
+#                    instantiation): the map's sample_texture 5, its
+#                    tangent-space normal 6, the frame's onb_local 15 (a
+#                    planar hit's frame is two loads; a sphere's costs more)
 K5_LIGHT = {0: 31, 1: 55, 2: 57}   # light_pdf_mean per sphere / quad /
 #                                    triangle light, per NEE scatter
 # S1's and S2's f32 operations (csrc/step.cu, counted as K5's): every lane of
@@ -358,10 +372,14 @@ def k5_flops(t, light_kinds, n_paths, segments, ev, sweeps):
         (2 * sweep_flops(*(x.shape[0] for x in mt.boundary(m)))
          for m in range(mt.n_media)), default=0)
     hits = ev["emit"] + ev["pdf"] + ev["basic"]
+    # a scene with normal maps and blends walks the normal draw's blend on
+    # every scatter
+    maps_blend = (t.flags & 2) and (t.flags & 1)
     return (segments * per_segment + sweeps * per_sweep + n_paths * K5_PATH
             + hits * (K5_HIT + K5_BLEND * (t.flags & 1))
             + ev["pdf"] * (K5_PDF + sum(K5_LIGHT[k] for k in light_kinds))
-            + ev["basic"] * K5_BASIC)
+            + ev["basic"] * K5_BASIC + ev["mapped"] * K5_NORMAL_MAP
+            + (ev["pdf"] + ev["basic"]) * K5_BLEND * bool(maps_blend))
 
 
 def nbytes(*tensors):
@@ -2666,8 +2684,8 @@ def _batch_timing(cs, w, h, spp, stats=None):
 
 
 def phase_small_scene():
-    """The small-scene path at full size: K5 for the solid kitchen-sink
-    scene, the wavefront with K4 for the normal-mapped one."""
+    """The small-scene path at full size: one K5 launch a batch for the
+    solid kitchen-sink scene and for the normal-mapped one."""
     import solstrale_tpu_torch as T
     from solstrale_tpu_torch import fixtures
     from solstrale_tpu_torch.renderer import megakernel
@@ -2700,14 +2718,13 @@ def phase_small_scene():
                           bench_400x266x8=_batch_timing(cs, 400, 266, 8))
     solid, kitchen = runs["kitchen_solid"]["launches"], runs["kitchen"][
         "launches"]
-    if solid != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0,
-                     S1B=0, CR=0, FH=0, CRB=0, FHB=0):
-        raise AssertionError(f"kitchen_solid: expected one K5 launch and no "
-                             f"other kernel, got {solid}")
-    if min(kitchen[k] for k in ("K4", "S1", "S2")) <= 0 or kitchen["K5"] or \
-            kitchen["draw"]:
-        raise AssertionError(f"kitchen: expected K4, S1 and S2 and neither "
-                             f"K5 nor a draw launch, got {kitchen}")
+    for name, got in (("kitchen_solid", solid), ("kitchen", kitchen)):
+        if got != dict(K1=0, K2=0, K3=0, K4=0, K5=1, draw=0, S1=0, S2=0,
+                       S1B=0, CR=0, FH=0, CRB=0, FHB=0):
+            raise AssertionError(f"{name}: expected one K5 launch and no "
+                                 f"other kernel, got {got}")
+        if not runs[name]["megakernel_gate"]:
+            raise AssertionError(f"{name}: outside the megakernel gate")
     log("small_scene_path", **runs)
     return {k: kitchen[k] + solid[k] for k in ("K4", "K5", "draw", "S1",
                                                "S2")}
@@ -3020,7 +3037,7 @@ def phase_surface(sponza_cs, smi):
         width=w, height=h, seed=1)), device="cuda")
     shaders = {"albedo": T.AlbedoShader, "normal": T.NormalShader,
                "simple": T.SimpleShader}
-    debug_launches = dict(CR=0, FH=0)
+    debug_launches = dict(CR=0, FH=0, K4=0)
     for scene_name, build, cs, kernel in (
             ("sponza", fixtures.sponza_class_scene, sponza_cs, "K1"),
             ("kitchen", fixtures.kitchen_sink_scene, kitchen_cs, "K4")):
@@ -3050,7 +3067,7 @@ def phase_surface(sponza_cs, smi):
                                      f"{kernel}, CR 1, FH 1, no K5 or draw "
                                      f"kernel and one replay, got "
                                      f"{launches}, {replays}")
-            for k in ("CR", "FH"):
+            for k in debug_launches:
                 debug_launches[k] += launches[k]
             renderer = None
             runs[shader_name] = dict(
@@ -3192,8 +3209,10 @@ def phase_surface(sponza_cs, smi):
     log("surface", **out, seconds=time.perf_counter() - start)
     # the first hit's kernels and the draw kernel on ray_trace with the
     # denoiser's aux planes (the first-hit pass; the draw kernel 0), the
-    # debug shaders and the first-hit pass's batches
+    # debug shaders and the first-hit pass's batches; K4 on the kitchen's
+    # debug shaders and first-hit passes (its depth-0 hit)
     return {"draw": aux_launches["draw"],
+            "K4": debug_launches["K4"] + first_hit_launches["K4"],
             "CR": aux_launches["CR"] + debug_launches["CR"]
             + first_hit_launches["CR"],
             "FH": aux_launches["FH"] + debug_launches["FH"]
@@ -3223,7 +3242,7 @@ def k5_work(stats, segments):
 
 
 # K5's many-light case: lights above the light-pdf mean's unroll of 16,
-# within the megakernel's gate of 32
+# within the megakernel's gate (MAX_LIGHTS)
 K5_MANY_LIGHTS = 24
 
 
@@ -3234,10 +3253,14 @@ def phase_megakernel():
     row, its bound from the kinds of segment the plain version counted and
     the medium sweeps the kernel counted), and on the kitchen-sink scene
     without its normal map (an image texture, triangle prims, a triangle
-    light) at bench.py's 400x266x8, which is also timed at 1920x1080x8, and
-    on a 24-light scene (above the light-pdf mean's unroll of 16) at
-    160x120x8; the work counts of each (``k5_work``); then K5 against
-    trace_queued (the K4 route) at 1920x1080, 1 spp."""
+    light) at bench.py's 400x266x8, which is also timed at 1920x1080x8, on
+    a 24-light scene (above the light-pdf mean's unroll of 16) at
+    160x120x8, and on the normal-mapped kitchen (K5's normal-map
+    instantiation) at 400x266x8 and 1920x1080x8, timed at the latter with
+    its bound; the work counts of each (``k5_work``); then K5 against
+    trace_queued (the K4 route) at 1920x1080, 1 spp, on the solid kitchen
+    and the normal-mapped one; and the normal-mapped kitchen's aux batch
+    at 400x266x8 against its eager form (``_aux_batch_vs_eager``)."""
     import numpy as np
     import torch
     import solstrale_tpu_torch as T
@@ -3314,7 +3337,7 @@ def phase_megakernel():
         "K5 vs plain (kitchen_textured)", tex,
         dict(width=400, height=266, max_depth=50), 8)
     # 24 lights: above the 16 the unrolled light-pdf mean takes, the
-    # batched form's rule, within K5's gate of 32
+    # batched form's rule
     many = compiled(lambda c: fixtures.many_light_scene(
         c, n_lights=K5_MANY_LIGHTS, n_cells=4), 160, 120)
     if not megakernel.megakernel_supported(many, need_aux=False,
@@ -3324,7 +3347,42 @@ def phase_megakernel():
     err_many, segs_many, _, work_many = check(
         "K5 vs plain (many_lights_24)", many,
         dict(width=160, height=120, max_depth=50), 8)
-    out["max_abs_err"] = max(err, err_tex, err_many)
+    # the normal-mapped kitchen: K5's normal-map instantiation, at
+    # 400x266x8 and at 1920x1080x8 (timed there, with its bound)
+    kw_small = dict(width=400, height=266, max_depth=50)
+    mapped = compiled(fixtures.kitchen_sink_scene, 400, 266)
+    if "normal_maps" not in mapped.features or \
+            not megakernel.megakernel_supported(mapped, need_aux=True,
+                                                shader_kind=0):
+        raise AssertionError("kitchen: not a normal-mapped scene inside the "
+                             "megakernel gate")
+    ev_map = {}
+    err_map, segs_map, _, work_map = check(
+        "K5 vs plain (kitchen, normal-mapped)", mapped, kw_small, 8,
+        events=ev_map)
+    if not ev_map["mapped"] > 0:
+        raise AssertionError("kitchen: no scatter off the normal map")
+    aux = _aux_batch_vs_eager(mapped, kw_small, 8)
+    mapped_hd = compiled(fixtures.kitchen_sink_scene, w, h)
+    ev_hd = {}
+    err_map_hd, segs_map_hd, plain_map_ms, work_map_hd = check(
+        "K5 vs plain (kitchen, normal-mapped, 1080p)", mapped_hd, kw, spp,
+        events=ev_hd)
+    t_map = megakernel.scene_tables(mapped_hd)
+    flops_map = k5_flops(t_map, mapped_hd.light_kinds, w * h * spp,
+                         segs_map_hd, ev_hd, work_map_hd["medium_sweeps"])
+    map_hd_run = dict(
+        ms=device_ms(lambda: megakernel.render_batch_megakernel(
+            mapped_hd, 1, spp, 1, **kw), n=5),
+        plain_ms=plain_map_ms, max_abs_err=err_map_hd, segments=segs_map_hd,
+        segment_kinds=ev_hd, flops=flops_map,
+        flops_per_segment=flops_map / segs_map_hd, **bound(
+            w * h * 16 + nbytes(t_map.cam, t_map.sph, t_map.pln, t_map.frame,
+                                t_map.lights, t_map.mats, t_map.tex_attr,
+                                t_map.texels, t_map.media.sph,
+                                t_map.media.pln, t_map.med, t_map.media.box),
+            flops_map), **work_map_hd)
+    out["max_abs_err"] = max(err, err_tex, err_many, err_map, err_map_hd)
     # the textured kitchen at 1920x1080x8: time and work only (its plain
     # version would take minutes)
     tex_hd = compiled(build_tex, w, h)
@@ -3338,6 +3396,11 @@ def phase_megakernel():
     k5, seg_k5 = megakernel.render_batch_megakernel(cs, 1, 1, 1, **kw)
     q, seg_q = integrator.trace_queued(cs, 1, 1, 1, **kw)
     err_q = compare("K5 vs trace_queued", k5, seg_k5, q, seg_q, TOL_K5)
+    k5, seg_k5_map = megakernel.render_batch_megakernel(mapped_hd, 1, 1, 1,
+                                                        **kw)
+    q, seg_q = integrator.trace_queued(mapped_hd, 1, 1, 1, **kw)
+    err_q_map = compare("K5 vs trace_queued (kitchen, normal-mapped)", k5,
+                        seg_k5_map, q, seg_q, TOL_K5)
     log("megakernel", scene="kitchen_solid", shape="1920x1080x8 depth 50",
         segments=segs, segment_kinds=ev, **tm, plain_ms=plain_ms,
         max_abs_err=err, bit_identical_repeat=True, flops=flops,
@@ -3348,8 +3411,60 @@ def phase_megakernel():
         many_lights_24_160x120x8=dict(segments=segs_many,
                                       max_abs_err=err_many, **work_many),
         segments_1080p_1spp=int(seg_k5),
-        max_abs_err_vs_trace_queued_1080p=err_q)
+        max_abs_err_vs_trace_queued_1080p=err_q,
+        normal_mapped_400x266x8=dict(segments=segs_map,
+                                     max_abs_err=err_map,
+                                     segment_kinds=ev_map, **work_map),
+        normal_mapped_1920x1080x8=map_hd_run,
+        normal_mapped_segments_1080p_1spp=int(seg_k5_map),
+        normal_mapped_max_abs_err_vs_trace_queued_1080p=err_q_map,
+        normal_mapped_aux_400x266x8=aux)
     return out
+
+
+def _aux_batch_vs_eager(cs, kw, spp):
+    """``render_sample_batch`` of the path shader with the aux planes on a
+    K5 scene (its first call, at another sample, captures the first-hit
+    pass's graph): one K5 launch for the color, one replay of the first-hit
+    pass (CR and FH once a sample) for the albedo and normal, no step or
+    draw kernel, and every plane bit for bit its eager form's (K5's plain
+    version, ``first_hit_pass_eager``). Returns the batch's wall ms and
+    launches."""
+    import torch
+    from solstrale_tpu_torch.renderer import integrator, megakernel
+
+    w, h = kw["width"], kw["height"]
+    batch_kw = dict(kw, shader_kind=integrator.SHADER_PATH, need_aux=True,
+                    n_samples=spp)
+    integrator.render_sample_batch(cs, 9, 1, **batch_kw)
+    wrappers = all_wrappers()
+    replays = _first_hit_replays(cs)
+    reset_launches(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = integrator.render_sample_batch(cs, 1, 1, **batch_kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(wrappers)
+    replays = _first_hit_replays(cs) - replays
+    color, _ = megakernel.render_batch_megakernel_plain(cs, 1, spp, 1, **kw)
+    _, albedo, normal = integrator.first_hit_pass_eager(
+        cs, None, 1, 1, width=w, height=h, shader_kind=None, aux=True,
+        n_samples=spp)
+    want = [integrator.to_image(x, w, h) for x in (color, albedo, normal)]
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got[:3], want))
+    expect = dict(launches, K5=1, CR=spp, FH=spp, K4=spp)
+    if not same or replays != 1 or launches != expect or \
+            any(launches[k] for k in ("K1", "K2", "K3", "S1", "S2", "draw")):
+        raise AssertionError(f"aux batch: expected its eager form's planes "
+                             f"bit for bit, one K5 launch and one first-hit "
+                             f"replay ({spp} CR and FH), got same={same}, "
+                             f"replays={replays}, {launches}")
+    if not all(float(p.abs().sum()) > 0 for p in got[:3]):
+        raise AssertionError("aux batch: a zero plane")
+    return dict(wall_ms=wall_ms, launches=launches, first_hit_replays=replays,
+                bit_identical=True)
 
 
 # what one replayed bounce computes, in the order the bounce decides it
@@ -4553,6 +4668,12 @@ def main():
     # kernel's counter hash included: torch has no PCG4D; nor the step's
     # shading or regeneration, nor their reverse, nor the camera rays' and
     # the first hit's draws and lookups, nor their reverse)
+    # every kernel of the path ran in this run (the draw kernel is on no
+    # route since CR and FH draw in registers: its 0 is the check)
+    idle = [k for k in names if k != "draw" and launches[k] <= 0]
+    if idle or launches["draw"]:
+        raise AssertionError(f"kernels never launched on the path: {idle}; "
+                             f"draw kernel launches {launches['draw']}")
     kernels = [dict(name=names[k], route="cuda", source=source[k][0],
                     replaces=source[k][1], launches=launches[k],
                     library_ms=None, **timings[k]) for k in names]

@@ -48,10 +48,24 @@
 // them). There are no float atomics and a repeated launch is bit-identical;
 // the integer atomics only hand out pixels and count work (warp iterations
 // and medium sweeps, for the active-lane efficiency). The scene tables are
-// small (the gate allows at most 128 spheres, 1,024 planar rows, 32 lights,
-// 64 materials) and are read through const __restrict__ pointers: every
-// lane of a warp reads the same row at the same time, which the L1
-// broadcasts.
+// read through const __restrict__ pointers, none staged in shared memory and
+// no array here sized by a table: every lane of a warp reads the same row at
+// the same time, which the L1 broadcasts. (The TPU kernel kept them in SMEM
+// and its gate bounded each table by that; the port's gate bounds planar
+// rows, spheres and lights where the gate sweep measured K5 falling behind
+// the wavefront on the H100, renderer/megakernel.py.)
+//
+// Normal maps (the kNormalMaps instantiation, for scenes whose features say
+// "normal_maps"): a scattering lane's shading normal is S1's
+// (step.cu::shade_lane): normal_mapped through the hit's tangent frame,
+// with the material of the normal draw's blend walk (P_BLEND_NORMAL) where
+// the scene has blends; metal, dielectric, the ONB and the NEE mixture's
+// cosines use it, emission's and the dielectric's front face stay
+// geometric. The frame is built only on that path, from the (P, 8) frame
+// table (pl_attr's tangent and bitangent) for a planar hit, from the hit
+// point for a sphere (sphere_attrs' formulas), (1, 1, 1) for a medium. A
+// scene without maps runs the other instantiation, the code without any of
+// it.
 //
 // TPU workarounds left behind: the masked-row table lookups (direct
 // indexing here), the u8 SMEM texture arena and its DMA round trips (the
@@ -139,12 +153,38 @@ constexpr int kWorkIterations = 1;  // warp iterations that traced a segment
 constexpr int kWorkSweeps = 2;      // (segment, medium) pairs swept
 constexpr int kWorkWarpSweeps = 3;  // warp iterations in which a lane swept
 
+// The hit's tangent frame for the normal map (full_hit_attributes): a
+// medium's unit tangents, a sphere's from its center (sphere_attrs), a
+// planar row's from the (P, 8) frame table: tangent 0 bitangent 0
+__device__ __forceinline__ void hit_frame(const Scene& sc,
+                                          const float4* __restrict__ frame,
+                                          int medium, int slot, V3 point,
+                                          V3* tangent, V3* bitangent) {
+  if (medium >= 0) {
+    *tangent = *bitangent = v3(1.0f, 1.0f, 1.0f);
+  } else if (slot < sc.n_sph) {
+    const float4 a = sc.sph[2 * slot];
+    const V3 n_raw = sub(point, v3(a.x, a.y, a.z));
+    *tangent = unit(v3(n_raw.z, 0.0f, -n_raw.x));
+    *bitangent = cross(n_raw, *tangent);
+  } else {
+    const float4* f = frame + 2 * (slot - sc.n_sph);
+    const float4 t = f[0], b = f[1];
+    *tangent = v3(t.x, t.y, t.z);
+    *bitangent = v3(b.x, b.y, b.z);
+  }
+}
+
 // Persistent: each warp drains the pixel queue (see the note at the top).
-// n_samples > 0 (the wrapper returns zeros itself otherwise).
+// n_samples > 0 (the wrapper returns zeros itself otherwise). kNormalMaps:
+// the shading normal of a scene with normal maps (see the note at the top);
+// ``frame`` is read only by that instantiation.
+template <bool kNormalMaps>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    k5_render(Scene sc, int width, int height, int sample_start,
-              int n_samples, int max_depth, uint32_t seed, float* out_accum,
-              int* out_segments, unsigned long long* work) {
+    k5_render(Scene sc, const float4* __restrict__ frame, int width,
+              int height, int sample_start, int n_samples, int max_depth,
+              uint32_t seed, float* out_accum, int* out_segments,
+              unsigned long long* work) {
   const long long n_pix = static_cast<long long>(width) * height;
   const unsigned lane = threadIdx.x & (kWarp - 1);
   const float* bg = sc.cam + 19;
@@ -299,6 +339,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
 
       // --- material (blend resolution, texture) ---------------------------
+      const int hit_mat = mat;   // the normal draw's blend walk starts here
       if (sc.flags & kFlagBlend) {
         const float4 ub = uniform4(pix, sample, bounce, P_BLEND_SCATTER, seed);
         const float ul[kMaxBlendDepth] = {ub.x, ub.y, ub.z};
@@ -318,6 +359,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         term_af = row.atten;
       } else {
         terminal = false;
+        // the shading normal (shading_normal_of), as S1 takes it
+        V3 s_normal = normal;
+        if (kNormalMaps) {
+          int eff_n = mat;
+          if (sc.flags & kFlagBlend)
+            eff_n = blend_walk(sc, hit_mat, uniform4(pix, sample, bounce,
+                                                     P_BLEND_NORMAL, seed));
+          Attrs h;
+          h.normal = normal;
+          h.u = tu;
+          h.v = tv;
+          hit_frame(sc, frame, medium, slot, point, &h.tangent,
+                    &h.bitangent);
+          s_normal = normal_mapped(sc, h, eff_n);
+        }
         const bool is_iso = row.kind == ISOTROPIC;
         const bool is_pdf = row.kind == LAMBERTIAN || is_iso;
         float prob = 1.0f;
@@ -325,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         if (row.kind == METAL) {
           // metal (material/mod.rs:239-249)
           const float4 f = uniform4(pix, sample, bounce, P_FUZZ, seed);
-          const V3 reflected = reflect(unit(d), normal);
+          const V3 reflected = reflect(unit(d), s_normal);
           new_dir = add(reflected, scale(in_unit_sphere(f.x, f.y, f.z),
                                          row.fuzz));
         } else if (row.kind == DIELECTRIC) {
@@ -333,7 +389,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const float ior = row.ior;
           const float rr = front ? 1.0f / ior : ior;
           const V3 udir = unit(d);
-          const float cos_t = clamp_max(dot(neg(udir), normal), 1.0f);
+          const float cos_t = clamp_max(dot(neg(udir), s_normal), 1.0f);
           const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
           const bool cannot = rr * sin_t > 1.0f;
           float r0 = (1.0f - rr) / (1.0f + rr);
@@ -343,13 +399,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const float reflectance = r0 + (1.0f - r0) * (q * (q2 * q2));
           const float u_d = uniform4(pix, sample, bounce, P_DIELECTRIC,
                                      seed).x;
-          new_dir = (cannot || reflectance > u_d) ? reflect(udir, normal)
-                                                  : refract(udir, normal, rr);
+          new_dir = (cannot || reflectance > u_d)
+                        ? reflect(udir, s_normal)
+                        : refract(udir, s_normal, rr);
         } else {
           // pdf-mixture scatter (material/mod.rs:191-207, 396-410)
           const float4 rc = uniform4(pix, sample, bounce, P_COSINE, seed);
           V3 ct, cb, cn;
-          onb_from_w(normal, &ct, &cb, &cn);
+          onb_from_w(s_normal, &ct, &cb, &cn);
           const V3 bsdf_dir =
               is_iso ? unit_vector(rc.x, rc.y)
                      : onb_local(ct, cb, cn, cosine_direction(rc.x, rc.y));
@@ -367,11 +424,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const float light_val = light_pdf_mean(sc, point, pdf_dir);
           const V3 unit_pdf_dir = unit(pdf_dir);
           const float cos_value =
-              div_scalar(clamp_min(dot(unit_pdf_dir, unit(normal)), 0.0f),
+              div_scalar(clamp_min(dot(unit_pdf_dir, unit(s_normal)), 0.0f),
                          kPi);
           const float bsdf_val = is_iso ? kSphereValue : cos_value;
           const float mix_val = 0.5f * light_val + 0.5f * bsdf_val;
-          const float cos_sc = dot(normal, unit_pdf_dir);
+          const float cos_sc = dot(s_normal, unit_pdf_dir);
           const float lamb_sc =
               cos_sc < 0.0f ? 0.0f : div_scalar(cos_sc, kPi);
           const float scat_pdf = is_iso ? kSphereValue : lamb_sc;
@@ -431,8 +488,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }
 
 // The persistent grid for n_pix pixels on the current device: the blocks
-// that stay resident on one SM (computed once per device) times the SMs,
-// but no more blocks than the pixels fill.
+// of one instantiation that stay resident on one SM (computed once per
+// device) times the SMs, but no more blocks than the pixels fill.
+template <bool kNormalMaps>
 cudaError_t resident_grid(long long n_pix, int* blocks, int* per_sm) {
   constexpr int kMaxDevices = 64;
   static int occupancy[kMaxDevices] = {};   // 0: not computed yet
@@ -443,8 +501,8 @@ cudaError_t resident_grid(long long n_pix, int* blocks, int* per_sm) {
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (occupancy[dev] == 0) {
     int n = 0, s = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k5_render,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, k5_render<kNormalMaps>, kThreads, 0);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -462,11 +520,13 @@ cudaError_t resident_grid(long long n_pix, int* blocks, int* per_sm) {
 }  // namespace
 
 // work: 4 int64 counters, zeroed (kWork*); grid (host): receives the
-// launch's blocks and the blocks per SM it was sized from
+// launch's blocks and the blocks per SM it was sized from; frame: the (P, 8)
+// planar tangent frames, read where flags has kFlagNormalMaps
 extern "C" int k5_render_launch(
     const float* cam, const float* sph, int n_sph, const float* pln, int n_pl,
-    const float* mats, int n_mat, const float* tex_attr, int n_tex,
-    const float* texels, int n_texels, const float* lights, int n_light,
+    const float* frame, const float* mats, int n_mat, const float* tex_attr,
+    int n_tex, const float* texels, int n_texels, const float* lights,
+    int n_light,
     const float* msph, const float* mpln, const int* msph_off,
     const int* mpln_off, const float* med, const float* mbox, int n_media,
     int width, int height, int sample_start, int n_samples, int max_depth,
@@ -474,7 +534,10 @@ extern "C" int k5_render_launch(
     unsigned long long* work, int* grid, void* stream) {
   const long long n_pix = static_cast<long long>(width) * height;
   if (n_pix > 0 && n_samples > 0) {
-    const cudaError_t err = resident_grid(n_pix, &grid[0], &grid[1]);
+    const bool maps = (flags & kFlagNormalMaps) != 0;
+    const cudaError_t err =
+        maps ? resident_grid<true>(n_pix, &grid[0], &grid[1])
+             : resident_grid<false>(n_pix, &grid[0], &grid[1]);
     if (err != cudaSuccess) return static_cast<int>(err);
     Scene sc;
     sc.cam = cam;
@@ -498,9 +561,17 @@ extern "C" int k5_render_launch(
     sc.mbox = reinterpret_cast<const float4*>(mbox);
     sc.n_media = n_media;
     sc.flags = flags;
-    k5_render<<<grid[0], kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        sc, width, height, sample_start, n_samples, max_depth,
-        static_cast<uint32_t>(seed), out_accum, out_segments, work);
+    const float4* fr = reinterpret_cast<const float4*>(frame);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint32_t s = static_cast<uint32_t>(seed);
+    if (maps)
+      k5_render<true><<<grid[0], kThreads, 0, st>>>(
+          sc, fr, width, height, sample_start, n_samples, max_depth, s,
+          out_accum, out_segments, work);
+    else
+      k5_render<false><<<grid[0], kThreads, 0, st>>>(
+          sc, fr, width, height, sample_start, n_samples, max_depth, s,
+          out_accum, out_segments, work);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -426,10 +426,11 @@ def kitchen_sink_scene(render_config, api=None, normal_map=True,
     the JAX package's ``tests/scenes.py::create_test_scene``, line for line,
     with the ground's image texture made by ``procedural_textures`` instead
     of loaded, and a normal map (``height_to_normal_map``) on the ground.
-    The normal map keeps the scene off the megakernel in both packages: it
-    takes the wavefront with the fused scene hit (K4). Without it
-    (``normal_map=False``) the megakernel gate accepts the scene: it is
-    K5's case with an image texture, triangle prims and a triangle light.
+    The port renders it with the megakernel (K5's normal-map
+    instantiation); the JAX package's gate refuses normal maps, so there it
+    takes the wavefront with the fused scene hit. Without the map
+    (``normal_map=False``) it is K5's case in both packages, with an image
+    texture, triangle prims and a triangle light.
     With ``tex_size`` the ground's image is ``bench_textures(tex_size)``'s
     ``tex``, the stand-in for ``tex.jpg`` that the production interior
     loads too: with ``normal_map=False`` that is ``create_test_scene``
@@ -537,6 +538,117 @@ def small_scene(render_config, api=None):
     camera = api.CameraConfig(vertical_fov_degrees=20, aperture_size=0.1,
                               look_from=(0, 0, 4), look_at=(0, 0, 0))
     return api.Scene(api.Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
+
+
+# the tables ``table_scene`` grows, one at a time (K5's gate sweep)
+TABLES = ("planar", "spheres", "lights", "materials", "media")
+
+
+def _tessellated_box(api, lo, hi, k, material):
+    """The six faces of the box [lo, hi], each cut into k x k quads:
+    6 k^2 planar rows."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    size = hi - lo
+    quads = []
+    for axis in range(3):
+        a, b = (axis + 1) % 3, (axis + 2) % 3
+        du, dv = np.zeros(3), np.zeros(3)
+        du[a], dv[b] = size[a] / k, size[b] / k
+        for side in (lo[axis], hi[axis]):
+            for i in range(k):
+                for j in range(k):
+                    q = lo.copy()
+                    q[axis] = side
+                    q = q + i * du + j * dv
+                    quads.append(api.Quad(tuple(q), tuple(du), tuple(dv),
+                                          material))
+    return quads
+
+
+def table_scene(render_config, table, n, normal_map=False, seed=17,
+                api=None):
+    """A small scene grown along one table (``TABLES``), K5's gate sweep:
+    a ground quad (solid grey, with ``normal_map`` a tangent-space normal
+    map), a quad light above and a sky, and a grid of ``n`` items over
+    [-4, 4]^2 of the table named:
+
+    - ``planar``: n small tilted quads and triangles, every other one
+      metal (n + 2 planar rows);
+    - ``spheres``: n spheres, every other one metal (n spheres);
+    - ``lights``: n small quad lights in place of the one light, their
+      total power the one light's, over eight spheres (n lights, n + 1
+      planar rows);
+    - ``materials``: 256 quads whose materials cycle through n Lambertians,
+      each with a solid colour of its own (n + 2 materials and about as
+      many textures);
+    - ``media``: eight spheres and one constant medium whose box boundary
+      has each face cut into k x k quads, n = 6 k^2 boundary rows.
+
+    Every table but the one grown keeps its size from one n to the next."""
+    api = _api(api)
+    rng = np.random.default_rng(seed)
+    normal = None
+    if normal_map:
+        _, height = procedural_textures()
+        normal = api.ImageMap(_submodule(api, "utils").height_to_normal_map(
+            height))
+    ground = api.Lambertian(api.SolidColor(0.6, 0.6, 0.6), normal)
+    mats = [api.Lambertian(api.SolidColor(0.8, 0.3, 0.2)),
+            api.Metal(api.SolidColor(0.7, 0.7, 0.8), None, 0.2)]
+    world = [api.Quad((-6, 0, -6), (12, 0, 0), (0, 0, 12), ground)]
+    if table != "lights":
+        world.append(api.Quad((-1, 6, -1), (2, 0, 0), (0, 0, 2),
+                              api.DiffuseLight(8.0, 8.0, 8.0)))
+    count = {"lights": 8, "materials": 256, "media": 8}.get(table, n)
+    side = int(np.ceil(np.sqrt(count)))
+    step = 8.0 / side
+    cells = [(-4.0 + (i % side + 0.5) * step, -4.0 + (i // side + 0.5) * step)
+             for i in range(count)]
+    if table == "planar":
+        size = 0.4 * step
+        for i, (x, z) in enumerate(cells):
+            y = 0.1 + 0.5 * float(rng.uniform())
+            if i % 2:
+                world.append(api.Triangle((x - size / 2, y, z),
+                                          (x + size / 2, y, z),
+                                          (x, y + size, z), mats[i % 4 // 2]))
+            else:
+                world.append(api.Quad((x - size / 2, y, z - size / 2),
+                                      (size, 0.3 * size, 0), (0, 0, size),
+                                      mats[i % 4 // 2]))
+    elif table == "materials":
+        size = 0.6 * step
+        colours = [api.Lambertian(api.SolidColor(*rng.uniform(0.1, 0.9, 3)))
+                   for _ in range(n)]
+        for i, (x, z) in enumerate(cells):
+            world.append(api.Quad((x - size / 2, 0.2, z - size / 2),
+                                  (size, 0.2 * size, 0), (0, 0, size),
+                                  colours[i % n]))
+    else:
+        radius = 0.35 * step
+        world += [api.Sphere((x, radius, z), radius, mats[i % 2])
+                  for i, (x, z) in enumerate(cells)]
+    if table == "lights":
+        k = int(np.ceil(np.sqrt(n)))
+        size = 0.3 * 8.0 / k
+        power = 8.0 * 4.0 / (n * size * size)
+        light = api.DiffuseLight(power, power, power)
+        for i in range(n):
+            x = -4.0 + (i % k + 0.5) * 8.0 / k
+            z = -4.0 + (i // k + 0.5) * 8.0 / k
+            world.append(api.Quad((x - size / 2, 5.0, z - size / 2),
+                                  (size, 0, 0), (0, 0, size), light))
+    if table == "media":
+        k = int(round(np.sqrt(n / 6)))
+        if 6 * k * k != n:
+            raise ValueError(f"media: n = 6 k^2 boundary rows, not {n}")
+        world.append(api.ConstantMedium(
+            api.Bvh(_tessellated_box(api, (-1.5, 0.0, -1.5), (1.5, 2.0, 1.5),
+                                     k, mats[0])), 0.3, (0.8, 0.8, 0.9)))
+    camera = api.CameraConfig(vertical_fov_degrees=45.0,
+                              look_from=(0.0, 5.0, 9.0),
+                              look_at=(0.0, 0.5, 0.0))
+    return api.Scene(api.Bvh(world), camera, (0.3, 0.4, 0.6), render_config)
 
 
 def edge_rays(solids, n, seed=1, origin=(0.0, 6.0, 9.0)):

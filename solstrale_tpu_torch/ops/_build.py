@@ -56,9 +56,9 @@ _SIGNATURES = {
     "k4_scene_hit_launch": [_P] * 6 + [_P, _I] * 3 + [
         _U, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P,
         _P, _P, _P],
-    "k5_render_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P, _P, _P, _P, _P],
+    "k5_render_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
+                         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P, _P, _P, _P, _P],
     # counters: (pointer, element size, stride, value) each
     "rng_uniform4_launch": [_P, _I, _I, _U] * 3 + [_U, _P, _I, _I, _U, _L,
                                                    _P, _P],

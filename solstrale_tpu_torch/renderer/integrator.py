@@ -412,6 +412,7 @@ def scatter(cs: CompiledScene, o, d, attrs, pix, sample, bounce, seed):
         prob=torch.where(is_pdf, prob, 1.0),
         is_pdf=is_pdf,
         shading_normal=s_normal,
+        normal_tex=row_n["normal_tex"],
         is_basic=is_metal | is_diel,
         mat=eff,
     )
@@ -472,23 +473,26 @@ def path_step_grad(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
 
 
 def path_step_plain(cs: CompiledScene, o, d, bounce, acc_len, fold, pixel,
-                    sample, seed, active, max_depth, color=None, plain=False):
+                    sample, seed, active, max_depth, color=None, plain=False,
+                    mapped=False):
     """``path_step`` as the torch composition: ``scene_hit`` (its plain
     version if ``plain``), then ``shade_plain``. S1's plain version; autograd
     through it is the reference S1B is held to."""
     t, kind, idx = scene_hit(cs, o, d, pixel, sample, bounce, seed,
                              plain=plain)
     return shade_plain(cs, o, d, t, kind, idx, bounce, acc_len, fold, pixel,
-                       sample, seed, active, max_depth, color=color)
+                       sample, seed, active, max_depth, color=color,
+                       mapped=mapped)
 
 
 def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
                 pixel, sample, seed, active, max_depth, record=False,
-                color=None):
+                color=None, mapped=False):
     """Everything ``path_step`` does after the scene hit, in torch: S1's
     plain version. Same dict as ``path_step`` (``color``: the carry form);
     with ``record`` it also holds S1's record for the backward
-    (``ops.step.shade_record``)."""
+    (``ops.step.shade_record``), with ``mapped`` the lanes that scatter off
+    a normal map (K5's work count, ``render_batch_megakernel_plain``)."""
     finite = torch.isfinite(t)
     miss = active & ~finite
     t_safe = torch.where(finite, t, 0.0)
@@ -525,6 +529,9 @@ def shade_plain(cs: CompiledScene, o, d, t, kind, idx, bounce, acc_len, fold,
             row, torch.where(scat, sc["prob"], 0.0), att, miss,
             emit & attrs["front_face"], scat, scat & sc["is_pdf"], terminal,
             dead_t, dead, atten, term_acc, sc["mat"])
+    if mapped:
+        extra["mapped"] = scat & (sc["normal_tex"] >= 0) if (
+            "normal_maps" in cs.features) else torch.zeros_like(scat)
     fold = (tuple(torch.where(terminal, 1.0, A[c]) for c in range(3)),
             tuple(torch.where(terminal, INF, B[c]) for c in range(3)),
             tuple(torch.where(terminal, False, dead[c]) for c in range(3)),
@@ -1574,8 +1581,8 @@ def render_sample_batch(cs: CompiledScene, sample_start, seed, *, width,
     and a debug shader with ``first_hit_pass``, its color (and with
     ``need_aux`` its aux planes) from one scene hit and one FH launch a
     sample. With ``need_aux`` the path shader's albedo and normal planes
-    are a ``first_hit_pass`` of their own (K5's gate refuses aux, so the
-    path color then comes from the wavefront). On the card each of these
+    are a ``first_hit_pass`` of their own, beside the color of K5 or of
+    the wavefront. On the card each of these
     is one device program a batch: the wavefront's graph replays, one
     replay of the first-hit pass's graph. Returns summed (pixel, albedo,
     normal) (height, width, 3) planes in image-row order (top row first,

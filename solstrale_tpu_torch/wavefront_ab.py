@@ -6,11 +6,19 @@ trees in turns, or over the card driver's steps per replay.
 
 The workloads: the bench's three wavefront workloads at its settings
 (``sponza_production`` 1080p, ``many_lights`` 960x540, ``sponza``, the
-headline, 1080p; 1 spp), the normal-mapped kitchen, which K5's gate
-refuses (the wavefront with K4), at the bench kitchen's 400x266, 8 spp,
-and the bench's two K5 workloads (``kitchen_sink``, ``megakernel``: one
-K5 launch a batch through ``render_sample_batch``, no steps), the
-controls of a change to the wavefront.
+headline, 1080p; 1 spp); the normal-mapped kitchen at the bench kitchen's
+400x266, 8 spp, through ``render_sample_batch`` (``kitchen_k4``: K5's
+normal-map instantiation, one launch a batch; on a tree whose gate
+refuses normal maps, the wavefront with K4) and through ``trace_queued``
+directly (``kitchen_wavefront``: K4, S1 and S2 on every tree, the
+small-scene wavefront's control); the bench's two K5 workloads
+(``kitchen_sink``, ``megakernel``: one K5 launch a batch through
+``render_sample_batch``, no steps), the controls of a change to the
+wavefront; and both kitchens at 1920x1080, 8 spp, through
+``render_sample_batch`` (``k5_solid_1080p``: the solid kitchen, K5's
+map-free instantiation; ``k5_kitchen_1080p``: the normal-mapped one),
+each also with K5's device ms (``k5_device_ms``, ``device_ms``, 5 calls)
+where the tree's gate takes the scene.
 Depth 50, seed 1. Per workload: one warm-up batch at ``sample_start`` 100
 (the kernels' build and, on a tree with the card driver, its graph
 capture), then ``RUNS`` batches at ``sample_start`` 1, each ending in a
@@ -159,8 +167,12 @@ FIRST_HIT_SAMPLES = (1, 8)
 # at 400x266)
 SAMPLE = {"sample_mixed": "step_mixed", "sample_kitchen": "kitchen_1080p",
           "sample_kitchen_k4": "kitchen_k4"}
+# the K5 cells at 1920x1080x8: each one's scene function
+K5_HD = {"k5_solid_1080p": "kitchen_sink_solid_scene",
+         "k5_kitchen_1080p": "kitchen_sink_scene"}
 WORKLOADS = ("sponza_production", "many_lights", "sponza", "kitchen_k4",
-             "kitchen_sink", "megakernel", "step_kitchen",
+             "kitchen_wavefront", "kitchen_sink", "megakernel", *K5_HD,
+             "step_kitchen",
              "step_kitchen_tex1024", "step_mixed",
              *(f"kernels_{x}" for x in KERNEL_SCENES),
              *(f"first_hit_{x}" for x in KERNEL_SCENES), *AUX, *SAMPLE)
@@ -214,8 +226,10 @@ def _workload(name):
         if name.startswith(cell):
             name = KERNEL_SCENES[name.removeprefix(cell)]
     name = AUX.get(name, SAMPLE.get(name, name))
-    if name == "kitchen_k4":
+    if name in ("kitchen_k4", "kitchen_wavefront"):
         w, h, spp, build = 400, 266, 8, fixtures.kitchen_sink_scene
+    elif name in K5_HD:
+        w, h, spp, build = 1920, 1080, 8, getattr(fixtures, K5_HD[name])
     elif name == "kitchen_1080p":
         w, h, spp, build = 1920, 1080, 1, fixtures.kitchen_sink_scene
     elif name == "interior":
@@ -297,9 +311,10 @@ def _profiled(batch, step_ops=False):
     return out
 
 
-def measure(cs, w, h, spp, profile=True):
+def measure(cs, w, h, spp, profile=True, wavefront=False):
     """The line of one workload on a compiled scene (see the module
-    docstring)."""
+    docstring): its batches through ``render_sample_batch``, or with
+    ``wavefront`` through ``trace_queued``."""
     import torch
     from solstrale_tpu_torch.renderer import integrator
 
@@ -308,12 +323,16 @@ def measure(cs, w, h, spp, profile=True):
               n_samples=spp)
     wrappers = _wrappers()
 
-    def batch(stats=None):
+    def batch(stats=None, start=1):
+        if wavefront:
+            return integrator.trace_queued(cs, start, spp, SEED, width=w,
+                                           height=h, max_depth=DEPTH,
+                                           stats=stats)
         color, _, _, segs = integrator.render_sample_batch(
-            cs, 1, SEED, stats=stats, **kw)
+            cs, start, SEED, stats=stats, **kw)
         return color, segs
 
-    float(integrator.render_sample_batch(cs, 100, SEED, **kw)[0].sum())
+    float(batch(start=100)[0].sum())
     seconds, seen = [], set()
     for _ in range(RUNS):
         stats = {}
@@ -1355,6 +1374,18 @@ def measure_kernels(cs, w, h, spp):
                 ptxas=ptxas_lines(build_log(), ("step_",) + FIRST_KERNELS))
 
 
+def k5_device_ms(cs, w, h, spp):
+    """K5's device ms of one batch (``device_ms``, 5 calls a rep), None
+    where this tree's gate sends the scene elsewhere."""
+    from solstrale_tpu_torch.renderer import megakernel
+
+    if not megakernel.megakernel_supported(cs, need_aux=False,
+                                           shader_kind=0):
+        return None
+    return device_ms(lambda: megakernel.render_batch_megakernel(
+        cs, 1, spp, SEED, width=w, height=h, max_depth=DEPTH), n=5)
+
+
 def _device():
     import torch
 
@@ -1398,6 +1429,14 @@ def worker(root, steps, side, workloads=WORKLOADS):
                   flush=True)
             cs = None
             continue
+        if name in K5_HD:
+            line = measure(cs, w, h, spp)
+            line["k5_device_ms"] = k5_device_ms(cs, w, h, spp)
+            print(json.dumps(dict(side=side, workload=name, width=w,
+                                  height=h, spp=spp, compile_s=compile_s,
+                                  gpu=gpu, **line)), flush=True)
+            cs = None
+            continue
         if name in STEPS or name in AUX or name.startswith(("kernels_",
                                                              "first_hit_")):
             line = (measure_step(cs, w, h) if name in STEPS else
@@ -1413,7 +1452,8 @@ def worker(root, steps, side, workloads=WORKLOADS):
         for k in steps or (None,):
             if k is not None:
                 integrator.GRAPH_STEPS = k
-            line = measure(cs, w, h, spp, profile=k is None)
+            line = measure(cs, w, h, spp, profile=k is None,
+                           wavefront=name == "kitchen_wavefront")
             print(json.dumps(dict(side=side, workload=name, graph_steps=k,
                                   width=w, height=h, spp=spp,
                                   compile_s=compile_s, gpu=gpu, **line)),

@@ -27,7 +27,8 @@ torch.set_num_threads(2)
 W, H, SEED, START, N = 32, 24, 1, 2, 3
 TOL = dict(rtol=1e-4, atol=1e-4)
 SCENES = {
-    # a normal map, a medium, spheres, quad and triangle lights (K4's route)
+    # a normal map, a medium, spheres, quad and triangle lights (the first
+    # hit's scene hit K4; the path color K5)
     "kitchen": lambda cfg, api=None: fixtures.kitchen_sink_scene(cfg,
                                                                   api=api),
     # a medium, a blend floor, a normal-mapped terrain, two spheres and the

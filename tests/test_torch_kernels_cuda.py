@@ -404,6 +404,7 @@ def test_hit_kernels_skip_parked_lanes_exactly(cuda, kernel):
 K5_SCENES = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
              "kitchen_textured": lambda c: fixtures.kitchen_sink_scene(
                  c, normal_map=False),
+             "kitchen": fixtures.kitchen_sink_scene,
              "grazing": _grazing_scene}
 
 
@@ -431,7 +432,8 @@ def test_k5_matches_plain_and_repeats(cuda, name):
     """The megakernel equals its plain version bit for bit (values and
     segments) and repeats bit for bit: on the solid kitchen-sink scene, on
     the kitchen-sink scene without its normal map (an image texture on the
-    ground, triangle prims, sphere / quad / triangle lights), and on a
+    ground, triangle prims, sphere / quad / triangle lights) and with it
+    (the kernel's normal-map instantiation), and on a
     camera that looks along the medium box's faces, where the box cull
     meets grazing rays."""
     cs = compile_scene(K5_SCENES[name](T.RenderConfig(width=8, height=8)),
@@ -443,8 +445,8 @@ def test_k5_matches_plain_and_repeats(cuda, name):
 
 
 def test_k5_many_lights_matches_plain(cuda):
-    """24 lights, above the 16 the unrolled light-pdf mean takes and
-    within K5's gate of 32: K5 equals its plain version (whose mean sums
+    """24 lights, above the 16 the unrolled light-pdf mean takes: K5
+    equals its plain version (whose mean sums
     the batched (R, L) table in light order) bit for bit."""
     cs = compile_scene(fixtures.many_light_scene(
         T.RenderConfig(width=8, height=8), n_lights=24, n_cells=4),
@@ -471,11 +473,11 @@ def test_k5_fewer_pixels_than_lanes(cuda):
 
 
 @pytest.mark.parametrize("name,route", [("kitchen_solid", "K5"),
-                                        ("kitchen", "K4")])
+                                        ("kitchen", "K5")])
 def test_small_scene_route(cuda, name, route):
-    """A scene the megakernel gate accepts renders in one K5 launch and no
-    other hit kernel; the normal-mapped scene takes the wavefront with K4
-    and never K5."""
+    """A scene without a BVH renders in one K5 launch and no other hit
+    kernel, the normal-mapped one too (the kernel's normal-map
+    instantiation)."""
     build = {"kitchen_solid": fixtures.kitchen_sink_solid_scene,
              "kitchen": fixtures.kitchen_sink_scene}[name]
     cs = compile_scene(build(T.RenderConfig(width=8, height=8)), device=cuda)
@@ -1272,7 +1274,7 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
     draw kernel: render_pixels with a debug shader and the aux planes one
     CR and one FH (its three planes equal to the plain compositions'),
     first_hit_aux one FH, the aux-on path batch one CR and one FH a
-    sample. Where a scene table requires grad, first_hit_aux's backward is
+    sample beside its color's one K5 launch. Where a scene table requires grad, first_hit_aux's backward is
     one FHB launch, its arena gradient within 1e-5 of the magnitudes of
     first_hit_backward_plain's; where a camera tensor does, CR's backward
     is one CRB launch, the camera's gradient as camera_rays_backward_plain
@@ -1317,7 +1319,9 @@ def test_first_hit_routes_launch_cr_and_fh(cuda):
     _, n = launched(lambda: integrator.render_sample_batch(
         cs, 1, 1, shader_kind=integrator.SHADER_PATH, need_aux=True,
         n_samples=2, **kw))
-    assert (n["CR"], n["FH"], n["draw"]) == (2, 2, 0) and n["S1"] > 0
+    # the color one K5 launch, the aux planes the first-hit pass
+    assert (n["CR"], n["FH"], n["draw"], n["K5"], n["S1"], n["K4"]) == (
+        2, 2, 0, 1, 0, 2)
     gen = torch.Generator(device=cuda).manual_seed(3)
     g_alb, g_nrm = (torch.randn((w * h, 3), generator=gen, device=cuda)
                     for _ in range(2))

@@ -1,13 +1,17 @@
 """The render megakernel (K5) on the CPU: its plain version against the JAX
-package's megakernel (Pallas, interpreted) and against the port's own
-work-queue wavefront, and the port's gate against the JAX gate.
+package's megakernel (Pallas, interpreted), against the JAX package's
+``render_sample_batch`` on the normal-mapped kitchen (which JAX's gate
+keeps off its megakernel) and against the port's own work-queue
+wavefront; the port's gate against the JAX gate; and the aux route.
 
 Tolerances are the JAX package's own (tests/test_megakernel.py): 2e-3 and
 equal segments against its megakernel, under 0.5% of values off for the
 image-textured sphere, whose JAX kernel computes spherical uv with Cephes
 polynomials where the port calls acos/atan2 (a nearest-texel flip at a
-texel edge). Against ``trace_queued`` the draws and the summation order are
-the same, so the limit is 1e-5 with equal segments."""
+texel edge); 1e-4 and equal segments against JAX's wavefront with its
+Pallas kernels interpreted (tests/test_torch_render.py's). Against
+``trace_queued`` the draws and the summation order are the same, so the
+limit is 1e-5 with equal segments."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,6 +88,9 @@ CASES = {
     # ground, triangle prims, sphere / quad / triangle lights
     "kitchen_textured": (lambda c, api: fixtures.kitchen_sink_scene(
         c, api=api, normal_map=False), 16, 12, 3, 8),
+    # the kitchen-sink scene with its normal map on the ground
+    "kitchen": (lambda c, api: fixtures.kitchen_sink_scene(c, api=api),
+                16, 12, 3, 8),
 }
 SEED = 3
 
@@ -167,6 +174,28 @@ def test_plain_matches_jax_op_by_op_image_textured_sphere():
     assert segs[0, 225] == 3   # the camera ray, the sphere, the floor
 
 
+def test_plain_matches_jax_render_sample_batch_kitchen(monkeypatch):
+    """The normal-mapped kitchen: the plain K5 against the JAX package's
+    ``render_sample_batch``, which takes its wavefront (its gate refuses
+    normal maps). SOLSTRALE_PALLAS=1 is the JAX package's own switch (read
+    at trace time): its CPU run then takes its Pallas kernels, interpreted,
+    so both sides intersect with the same formulas."""
+    monkeypatch.setenv("SOLSTRALE_PALLAS", "1")
+    cj, ct, kw, spp = _both("kitchen")
+    assert "normal_maps" in ct.features
+    assert TM.megakernel_supported(ct, need_aux=False, shader_kind=0)
+    assert not JM.megakernel_supported(cj, need_aux=False, shader_kind=0)
+    want = JI.render_sample_batch(cj, jnp.int32(1), jnp.int32(SEED),
+                                  shader_kind=0, need_aux=False,
+                                  n_samples=spp, **kw)
+    got, seg_t = TM.render_batch_megakernel_plain(ct, 1, spp, SEED, **kw)
+    img = TI.to_image(got, kw["width"], kw["height"]).numpy()
+    assert float(img.sum()) > 0
+    np.testing.assert_allclose(img, np.asarray(want[0]), rtol=1e-4,
+                               atol=1e-4)
+    assert int(seg_t) == int(want[3])
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_matches_trace_queued(name):
     _, ct, kw, spp = _both(name)
@@ -195,16 +224,24 @@ GATE_SCENES = {
 
 @pytest.mark.parametrize("name", list(GATE_SCENES))
 def test_gate_matches_jax(name):
+    """The port's gate takes every scene and flag set the JAX gate takes,
+    and more: the JAX gate's table limits, its refusal of normal maps and
+    of the aux planes were the TPU kernel's (its SMEM tables, its code).
+    So the port's takes every path-shader render of a scene without a BVH,
+    with or without the aux planes (the normal-mapped kitchen too), and
+    refuses the debug shaders and the BVH scenes."""
     build = GATE_SCENES[name]
     cj = jcompile(build(J.RenderConfig(width=8, height=8), J))
     ct = tcompile(build(T.RenderConfig(width=8, height=8), T), device="cpu")
-    for kw in (dict(need_aux=False, shader_kind=0),
-               dict(need_aux=True, shader_kind=0),
-               dict(need_aux=False, shader_kind=1)):
-        assert TM.megakernel_supported(ct, **kw) == \
-            JM.megakernel_supported(cj, **kw), kw
-    expect = name not in ("kitchen", "sponza24", "mixed16")
-    assert TM.megakernel_supported(ct, need_aux=False, shader_kind=0) == expect
+    bvh = name in ("sponza24", "mixed16")
+    assert (ct.bvh is not None) == bvh
+    for kw, expect in ((dict(need_aux=False, shader_kind=0), not bvh),
+                       (dict(need_aux=True, shader_kind=0), not bvh),
+                       (dict(need_aux=False, shader_kind=1), False),
+                       (dict(need_aux=True, shader_kind=3), False)):
+        got = TM.megakernel_supported(ct, **kw)
+        assert got == expect, kw
+        assert got or not JM.megakernel_supported(cj, **kw), kw
 
 
 def _corners(s):
@@ -316,6 +353,45 @@ def test_medium_box_cull_is_conservative(name):
     assert hit.sum() > 500 and hit[64 * 48:64 * 48 + 16384].sum() > 200
     assert not (hit & ~reach).any(), int((hit & ~reach).sum())
     assert (~reach).float().mean() > 0.3   # the cull skips most rays
+
+
+def test_render_sample_batch_aux_on_k5(monkeypatch):
+    """``render_sample_batch`` with the aux planes on a scene K5's gate
+    takes (the normal-mapped kitchen): the color is K5's (its plain
+    version here; ``trace_queued`` is not called), equal to
+    ``trace_queued``'s with equal segments, and the albedo and normal
+    planes are the first-hit pass's, equal to the JAX package's (its
+    Pallas kernels interpreted, as above)."""
+    monkeypatch.setenv("SOLSTRALE_PALLAS", "1")
+    cj, ct, kw, spp = _both("kitchen")
+    want_color, want_segs = TI.trace_queued(ct, 1, spp, SEED, **kw)
+    calls = []
+    plain = TM.render_batch_megakernel_plain
+
+    def counted(*args, **kwargs):
+        calls.append("K5")
+        return plain(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("trace_queued on a K5 scene")
+
+    monkeypatch.setattr(TM, "render_batch_megakernel_plain", counted)
+    monkeypatch.setattr(TI, "trace_queued", refused)
+    got = TI.render_sample_batch(ct, 1, SEED, shader_kind=0, need_aux=True,
+                                 n_samples=spp, **kw)
+    assert calls == ["K5"]
+    w, h = kw["width"], kw["height"]
+    np.testing.assert_allclose(
+        got[0].numpy(), TI.to_image(want_color, w, h).numpy(), rtol=1e-5,
+        atol=1e-5)
+    assert int(got[3]) == int(want_segs)
+    want = JI.render_sample_batch(cj, jnp.int32(1), jnp.int32(SEED),
+                                  shader_kind=0, need_aux=True,
+                                  n_samples=spp, **kw)
+    for g, j in zip(got[1:3], want[1:3]):
+        assert float(g.abs().sum()) > 0
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_wrapper_routes_cpu_scene_to_plain():

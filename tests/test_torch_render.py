@@ -59,16 +59,36 @@ def test_render_sample_batch_matches_jax(name):
 
 
 def test_render_sample_batch_matches_jax_kitchen(monkeypatch):
-    """The normal-mapped kitchen-sink scene: the wavefront with the fused
-    scene hit (K4) in both packages. SOLSTRALE_PALLAS=1 is the JAX
-    package's own switch (read at trace time): its CPU run then takes its
-    Pallas kernels, interpreted, so both sides intersect with the same
-    formulas."""
+    """The normal-mapped kitchen-sink scene: the render megakernel in the
+    port (its plain version here), the wavefront with the fused scene hit
+    in the JAX package (its gate refuses normal maps). SOLSTRALE_PALLAS=1
+    is the JAX package's own switch (read at trace time): its CPU run then
+    takes its Pallas kernels, interpreted, so both sides intersect with the
+    same formulas."""
     monkeypatch.setenv("SOLSTRALE_PALLAS", "1")
     img_j, seg_j, img_t, seg_t = _render_both("kitchen")
     assert img_t.shape == (H, W, 3) and img_t.mean() > 0.1
     assert seg_t == int(seg_j)
     np.testing.assert_allclose(img_t, img_j, rtol=1e-4, atol=1e-4)
+
+
+def test_trace_queued_matches_jax_kitchen(monkeypatch):
+    """The port's small-scene wavefront (``trace_queued``: the fused scene
+    hit K4, S1 and S2; no route of ``render_sample_batch`` takes it for this
+    scene since K5 renders normal maps, but the inverse step and the sample
+    pass do) against the JAX package's wavefront on the normal-mapped
+    kitchen, as above: segments equal, every value within 1e-4."""
+    monkeypatch.setenv("SOLSTRALE_PALLAS", "1")
+    cj = jcompile(SCENES["kitchen"](_cfg(J), J))
+    ct = tcompile(SCENES["kitchen"](_cfg(T), T), device="cpu")
+    img_j, _, _, seg_j = JI.render_sample_batch(cj, jnp.int32(1),
+                                                jnp.int32(SEED), **KW)
+    color, seg_t = TI.trace_queued(ct, 1, SPP, SEED, width=W, height=H,
+                                   max_depth=KW["max_depth"])
+    img_t = TI.to_image(color, W, H).numpy()
+    assert img_t.mean() > 0.1 and int(seg_t) == int(seg_j)
+    np.testing.assert_allclose(img_t, np.asarray(img_j), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_render_sample_batch_matches_jax_mixed():
